@@ -1,0 +1,36 @@
+"""InputType descriptors that drive n_in inference (counterpart of
+deeplearning4j_tpu/nn/conf/inputs.py). Layouts as in the JAX package:
+feed-forward [batch, features], recurrent [batch, time, features]."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+class InputType:
+    @staticmethod
+    def feed_forward(size):
+        return FeedForwardInputType(int(size))
+
+    @staticmethod
+    def recurrent(size, timesteps=None):
+        return RecurrentInputType(
+            int(size), None if timesteps is None else int(timesteps))
+
+
+@dataclass(frozen=True)
+class FeedForwardInputType:
+    size: int
+    kind: str = "ff"
+
+    def flat_size(self):
+        return self.size
+
+
+@dataclass(frozen=True)
+class RecurrentInputType:
+    size: int
+    timesteps: int | None = None
+    kind: str = "recurrent"
+
+    def flat_size(self):
+        return self.size

@@ -1,0 +1,37 @@
+"""Weight initialization (counterpart of deeplearning4j_tpu/nn/weights.py).
+
+Draws come from an explicit `torch.Generator`; they never match JAX's
+threefry stream, so weights cross between the packages through
+`util/params.py`, not through init."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..device import resolve_device
+
+
+class WeightInit:
+    XAVIER = "xavier"
+    XAVIER_LEGACY = "xavier_legacy"
+
+
+def init_weights(generator, shape, scheme=WeightInit.XAVIER, fan_in=None,
+                 fan_out=None, dtype=torch.float32, device=None):
+    """Xavier-normal weights: N(0, 2 / (fan_in + fan_out)). The draw runs
+    on the host generator and the result moves to `device` (the card
+    unless the caller passes "cpu")."""
+    shape = tuple(int(s) for s in shape)
+    if fan_in is None or fan_out is None:
+        fan_out_d, fan_in_d = shape if len(shape) == 2 else (shape[0],) * 2
+        fan_in = fan_in if fan_in is not None else fan_in_d
+        fan_out = fan_out if fan_out is not None else fan_out_d
+    fan_in, fan_out = max(float(fan_in), 1.0), max(float(fan_out), 1.0)
+    s = str(scheme).lower()
+    if s not in (WeightInit.XAVIER, WeightInit.XAVIER_LEGACY):
+        raise NotImplementedError(
+            f"weight init {scheme!r} is not ported yet (ROADMAP queue 1)")
+    std = math.sqrt(2.0 / (fan_in + fan_out))
+    w = torch.randn(shape, generator=generator, dtype=dtype) * std
+    return w.to(resolve_device(device))
