@@ -1,11 +1,20 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
-Every Pallas kernel of the JAX package gets a kernel here; this slice has
-the forward attention (`flash_attention`) and the decode attention
-(`flash_decode`). Sources live in `csrc/`, `build.py` compiles them."""
-from .flash_attention import (flash_attention, flash_attention_plain,
-                              flash_decode, flash_decode_plain,
-                              launch_counts, reset_launch_counts)
+Every Pallas kernel of the JAX package gets a kernel here: the forward
+attention (`flash_attention`, with its autograd Function), its backward
+pair (`flash_bwd_dq`, `flash_bwd_dkv`, run by `flash_attention_bwd`) and
+the decode attention (`flash_decode`). Sources live in `csrc/`, `build.py`
+compiles them."""
+from .flash_attention import (attention_delta, flash_attention,
+                              flash_attention_bwd, flash_attention_bwd_plain,
+                              flash_attention_plain, flash_bwd_dkv,
+                              flash_bwd_dkv_plain, flash_bwd_dq,
+                              flash_bwd_dq_plain, flash_decode,
+                              flash_decode_plain, launch_counts,
+                              reset_launch_counts)
 
-__all__ = ["flash_attention", "flash_attention_plain", "flash_decode",
-           "flash_decode_plain", "launch_counts", "reset_launch_counts"]
+__all__ = ["attention_delta", "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "flash_attention_plain",
+           "flash_bwd_dkv", "flash_bwd_dkv_plain", "flash_bwd_dq",
+           "flash_bwd_dq_plain", "flash_decode", "flash_decode_plain",
+           "launch_counts", "reset_launch_counts"]

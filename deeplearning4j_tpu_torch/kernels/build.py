@@ -21,7 +21,7 @@ import threading
 import time
 from pathlib import Path
 
-SOURCES = ("flash_fwd", "flash_decode")
+SOURCES = ("flash_fwd", "flash_decode", "flash_bwd")
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -46,6 +46,8 @@ class ComputationGraphConfiguration:
     dtype: str = "float32"
     compute_dtype: object = None
     remat: object = None
+    optimization_algo: str = "sgd"
+    backprop_type: str = "standard"
     topological_order: list = None
 
     def topo_sort(self):
@@ -79,7 +81,8 @@ class GraphBuilder:
             seed=global_conf.get("seed", 12345),
             dtype=global_conf.get("dtype", "float32"),
             compute_dtype=global_conf.get("compute_dtype"),
-            remat=global_conf.get("remat"))
+            remat=global_conf.get("remat"),
+            optimization_algo=global_conf.get("optimization_algo", "sgd"))
 
     def add_inputs(self, *names):
         for n in names:
@@ -105,6 +108,12 @@ class GraphBuilder:
 
     def set_input_types(self, *types):
         self._conf.input_types = list(types)
+        return self
+
+    def backprop_type(self, t):
+        """Stored; `fit` runs standard backprop only (truncated BPTT is
+        ROADMAP queue 1, with the recurrent layers)."""
+        self._conf.backprop_type = t
         return self
 
     def build(self):

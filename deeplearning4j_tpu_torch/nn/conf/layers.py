@@ -1,9 +1,8 @@
 """Layer configuration dataclasses (counterpart of
 deeplearning4j_tpu/nn/conf/layers.py; the configs `transformer_lm` uses).
 
-Hyperparameters left as None inherit the builder's global values. The
-`updater` field is stored as given and not used: the optimizer math
-arrives with the training slice."""
+Hyperparameters left as None inherit the builder's global values. A layer
+left without an updater trains with Sgd(0.1) (`nn.updaters.layer_transform`)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -11,7 +10,9 @@ from dataclasses import dataclass
 from .inputs import InputType, RecurrentInputType
 
 # Global hyperparameters a layer can override
-_INHERITED = ("activation", "weight_init", "bias_init", "dropout", "updater")
+_INHERITED = ("activation", "weight_init", "bias_init", "l1", "l2", "l1_bias",
+              "l2_bias", "dropout", "updater", "gradient_normalization",
+              "gradient_normalization_threshold")
 
 
 @dataclass
@@ -20,8 +21,14 @@ class BaseLayerConf:
     activation: str | None = None
     weight_init: str | None = None
     bias_init: float | None = None
+    l1: float | None = None
+    l2: float | None = None
+    l1_bias: float | None = None
+    l2_bias: float | None = None
     dropout: float | None = None
     updater: object | None = None
+    gradient_normalization: str | None = None
+    gradient_normalization_threshold: float | None = None
 
     def apply_global_defaults(self, g: dict):
         for k in _INHERITED:
@@ -33,6 +40,9 @@ class BaseLayerConf:
             self.weight_init = "xavier"
         if self.bias_init is None:
             self.bias_init = 0.0
+        for k in ("l1", "l2", "l1_bias", "l2_bias"):
+            if getattr(self, k) is None:
+                setattr(self, k, 0.0)
         if self.dropout is None:
             self.dropout = 0.0
 

@@ -32,12 +32,14 @@ def create_layer(conf):
 
 
 def apply_dropout(x, rate, train):
-    """Dropout on the layer input: a no-op at inference, which is all this
-    slice runs. Training-time dropout arrives with the training slice."""
+    """Dropout on the layer input: a no-op at inference and at rate 0.
+    A rate above 0 during training raises: training-time dropout (with
+    injected masks for the parity tests) is not ported yet."""
     if not train or rate is None or rate <= 0.0:
         return x
     raise NotImplementedError(
-        "training-time dropout is not ported yet (ROADMAP queue 1)")
+        "training-time dropout is not ported yet (ROADMAP queue 1: "
+        "training-time dropout)")
 
 
 class BaseLayerModule:
@@ -72,6 +74,9 @@ class BaseLayerModule:
 
     def forward(self, params, x, *, train=False, mask=None):
         raise NotImplementedError
+
+    def is_output_layer(self):
+        return False
 
     def activation_fn(self):
         return get_activation(self.conf.activation or "identity")

@@ -40,8 +40,10 @@ class SelfAttentionLayerModule(BaseLayerModule):
 
     def attend(self, q, k, v, mask):
         """The kernel dispatch (shared by forward and the decode prefill):
-        use_pallas=True runs the hand-written forward kernel, otherwise the
-        plain blockwise scan (or the reference when T does not tile)."""
+        use_pallas=True runs the hand-written forward kernel and, under a
+        gradient, the backward kernels (`kernels.flash_attention`'s
+        autograd Function); otherwise the plain blockwise scan (or the
+        reference when T does not tile), differentiated by autograd."""
         from ...parallel.ring_attention import (attention_reference,
                                                 blockwise_attention)
         c = self.conf

@@ -12,11 +12,11 @@ import torch
 NEG_INF = -1e30
 
 
-def attention_reference(q, k, v, *, causal=False, scale=None, key_mask=None,
-                        return_lse=False):
-    """Plain softmax attention. key_mask: optional [batch, Tk] (or
-    broadcastable) validity of key positions (> 0 valid). With
-    `return_lse`, also the per-row log-sum-exp [batch, heads, Tq]."""
+def masked_scores(q, k, *, causal=False, scale=None, key_mask=None):
+    """Scaled scores [batch, heads, Tq, Tk] with masked entries at the
+    finite NEG_INF: key_mask (optional [batch, Tk] or broadcastable, > 0
+    valid) and, with `causal`, key positions past the query's (positions
+    from 0 on both sides)."""
     B, Tq, D = q.shape[0], q.shape[1], q.shape[3]
     Tk = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -30,6 +30,15 @@ def attention_reference(q, k, v, *, causal=False, scale=None, key_mask=None,
         qpos = torch.arange(Tq, device=q.device)[:, None]
         kpos = torch.arange(Tk, device=q.device)[None, :]
         s = s.masked_fill((kpos > qpos)[None, None], NEG_INF)
+    return s
+
+
+def attention_reference(q, k, v, *, causal=False, scale=None, key_mask=None,
+                        return_lse=False):
+    """Plain softmax attention. key_mask: optional [batch, Tk] (or
+    broadcastable) validity of key positions (> 0 valid). With
+    `return_lse`, also the per-row log-sum-exp [batch, heads, Tq]."""
+    s = masked_scores(q, k, causal=causal, scale=scale, key_mask=key_mask)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v)
     if return_lse:

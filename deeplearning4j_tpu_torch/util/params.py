@@ -38,8 +38,9 @@ def params_from_jax(flat, device=None):
 
 
 def params_to_flat(net):
-    """The port model's parameters as {"layer/param": numpy array}."""
-    return {f"{layer}/{name}": t.detach().cpu().numpy()
+    """The port model's parameters as {"layer/param": numpy array}, copies
+    (training updates the tensors in place)."""
+    return {f"{layer}/{name}": t.detach().cpu().numpy().copy()
             for layer, ps in net.params.items() for name, t in ps.items()}
 
 

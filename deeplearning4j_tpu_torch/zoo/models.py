@@ -7,6 +7,7 @@ from ..nn.conf.inputs import InputType
 from ..nn.conf.layers import (DenseLayer, LayerNormalization, RnnOutputLayer,
                               SelfAttentionLayer)
 from ..nn.graph.graph import ComputationGraph
+from ..nn.updaters import Adam
 
 
 def transformer_lm(vocab_size=256, d_model=256, n_layers=4, n_heads=4,
@@ -17,10 +18,11 @@ def transformer_lm(vocab_size=256, d_model=256, n_layers=4, n_heads=4,
     with the same vertex names: one-hot [b, t, vocab] in, next-token
     softmax per position out; post-norm blocks of self-attention and a
     per-timestep Dense FFN with ElementWiseVertex residuals.
-    use_pallas=True runs attention in the hand-written kernels. `updater`
-    is stored for the training slice. `device`: the card unless "cpu"."""
+    use_pallas=True runs attention in the hand-written kernels (the
+    forward, and under `fit` the backward). `updater` defaults to
+    Adam(3e-4), as in the JAX package. `device`: the card unless "cpu"."""
     gb = (NeuralNetConfiguration.builder()
-          .seed(seed).updater(updater).weight_init("xavier")
+          .seed(seed).updater(updater or Adam(3e-4)).weight_init("xavier")
           .compute_dtype(compute_dtype)
           .remat(remat)
           .graph_builder()

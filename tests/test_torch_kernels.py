@@ -169,7 +169,7 @@ def test_device_tensor_without_a_build_raises_and_never_falls_back(
         fa.flash_attention(q, k, v, causal=True)
     with pytest.raises(build.KernelBuildError, match="nvcc not found"):
         fa.flash_decode(q[:, :1], k, v, torch.tensor([3], dtype=torch.int32))
-    assert fa.launch_counts() == {"flash_fwd": 0, "flash_decode": 0}
+    assert set(fa.launch_counts().values()) == {0}
 
 
 def test_failed_launch_raises_and_is_not_counted(device_route, monkeypatch):
@@ -189,7 +189,7 @@ def test_failed_launch_raises_and_is_not_counted(device_route, monkeypatch):
         fa.flash_decode(q[:, :1], k, v, torch.tensor([3], dtype=torch.int32))
     # every argument the C entry declares was passed
     assert calls == [("flash_fwd_f32", 23, 23), ("flash_decode_f32", 20, 20)]
-    assert fa.launch_counts() == {"flash_fwd": 0, "flash_decode": 0}
+    assert set(fa.launch_counts().values()) == {0}
 
 
 def test_device_route_rejects_what_the_kernel_does_not_take(device_route,
