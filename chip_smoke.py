@@ -28,7 +28,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    `library_ms` times `scaled_dot_product_attention` on the same inputs
    (for the backward pair: `torch.autograd.grad` through it, the forward
    taken untimed; it computes dq, dk and dv in one call, so both rows
-   carry it as the pair's time).
+   carry it as the pair's time). `flash_decode_paged` runs at the served
+   step shape (S=8, block size 16, 16 blocks per slot), at block sizes 8
+   and 64 with a slot of length 0, and at S=64 with 256 blocks of 16 per
+   slot, each on a shuffled block table whose unused entries point at the
+   scratch block; each case also prints its difference to `flash_decode`
+   on the gathered slab. No single PyTorch call reads through a block
+   table, so its `library_ms` is null; the torch gather + SDPA (two calls)
+   is timed beside it as `gather_sdpa_ms`.
 3. The serving path: `transformer_lm` at full width (vocab 256, d_model
    256, 4 layers, 4 heads) with `use_pallas=True` and
    `synthetic_params(seed=0)`, served by
@@ -40,7 +47,24 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    tie, top-2 gap < 1e-6), and the tokens of the fixture prompts must
    equal the JAX package's greedy tokens in
    tests/fixtures/torch_port_greedy.json.
-4. The training path: the same model at full width, Adam(3e-4), float32.
+4. Paged serving at full width: the same model served by
+   `ServingServer(decode=True, decode_paged=True, decode_slots=8,
+   decode_max_len=256, decode_block_size=16, decode_pool_blocks=65)`:
+   64 allocatable blocks, half of what 8 fully backed slots would hold
+   (bench.py:747-748). Sixteen concurrent greedy requests (prompts of
+   16-64 tokens from np.random.default_rng(0), 128 new tokens each), as
+   four bursts in turns on fresh servers: paged, slab, slab, paged. Each
+   paged burst must answer 200 throughout, preempt at least once, leave
+   the pool empty with its high water within the pool, and launch
+   `flash_decode_paged` and not `flash_decode`; every burst's tokens must
+   equal the first slab burst's (tie rule as above). The fixture prompts,
+   served at 32 new tokens after the first paged burst, must equal the
+   JAX fixture. Prints tokens/s, TTFT p50 and ITL p50 of each burst, the
+   preemptions and the high water, the device busy share and top kernels
+   of one more slab and one more paged burst run under the profiler, and
+   the host time of one engine step with 8 active slots, slab and paged
+   in turns.
+5. The training path: the same model at full width, Adam(3e-4), float32.
    First the JAX fixture (tests/fixtures/torch_port_train.json: 5 steps on
    a [4, 128] batch) with `use_pallas=True`: per-step scores to rtol 1e-4.
    Then 10 `fit` steps at batch 16, seq 512 (the model, batch and length
@@ -50,7 +74,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    kernel path and nothing launches on the plain path. Prints the median
    step time, tokens/s of both paths and the device busy share of one
    profiled step with its top kernels.
-5. One line `{"kernels": [...]}` with each kernel's numbers, then the last
+6. One line `{"kernels": [...]}` with each kernel's numbers, then the last
    line `{"ok": true, "device": {...}}`.
 
 It exits non-zero without printing a result when no CUDA device is visible
@@ -78,6 +102,10 @@ SCORE_RTOL = 1e-4
 TIE_GAP = 1e-6
 SERVE = dict(vocab_size=256, d_model=256, n_layers=4, n_heads=4)
 N_NEW = 32
+PAGED = dict(decode_slots=8, decode_max_len=256, decode_block_size=16,
+             decode_pool_blocks=65)
+PAGED_REQUESTS, PAGED_NEW = 16, 128
+PAGED_STEP_CASE = "step S=8 bs=16 nb=16"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 512, 10
 TRAIN_CASE = f"train B={TRAIN_BATCH} T={TRAIN_SEQ} H=4 D=64"
 DEVICE = "cuda"
@@ -287,6 +315,80 @@ def _decode_case(label, S, C, H, D, lengths, gen):
             "library_device_ms": library_device_ms}
 
 
+def _paged_case(label, S, bs, nb, H, D, lengths, gen):
+    """One flash_decode_paged case: a pool of 1 + S*nb random blocks, a
+    shuffled table whose entries past each slot's blocks are scratch (0),
+    ragged `lengths` (0 = no valid key)."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import (flash_decode,
+                                                  flash_decode_paged,
+                                                  flash_decode_paged_plain)
+    dev = torch.device(DEVICE)
+    C = nb * bs
+    q = torch.randn((S, 1, H, D), generator=gen).to(dev)
+    pk, pv = (torch.randn((1 + S * nb, bs, H, D), generator=gen).to(dev)
+              for _ in range(2))
+    table = (1 + torch.randperm(S * nb, generator=gen)).reshape(S, nb)
+    used = [nb if n <= 0 else -(-min(int(n), C) // bs) for n in lengths]
+    for s, u in enumerate(used):
+        table[s, u:] = 0
+    table = table.to(torch.int32).to(dev)
+    lens = torch.as_tensor(lengths, dtype=torch.int32).to(dev)
+    run = lambda: flash_decode_paged(q, pk, pv, table, lens)
+    plain = lambda: flash_decode_paged_plain(q, pk, pv, table, lens)
+    out = run()
+    torch.cuda.synchronize()
+    ref = plain()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), f"flash_decode_paged {label}: "
+                                           "non-finite")
+    err = float((out - ref).abs().max())
+    check(err <= TOL, f"flash_decode_paged {label}: max abs err {err} > "
+                      f"{TOL}")
+    idx = table.long()
+    slab_k = pk[idx].reshape(S, C, H, D)
+    slab_v = pv[idx].reshape(S, C, H, D)
+    slab_diff = float((flash_decode(q, slab_k, slab_v, lens) - out)
+                      .abs().max())
+    gather_sdpa_ms = gather_sdpa_device_ms = None
+    if min(lengths) >= 1:
+        # two calls: the gather, then SDPA with the length mask (a slot
+        # with no valid key is the reference's uniform average, which a
+        # masked SDPA row does not give)
+        mask = (torch.arange(C, device=dev)[None, :] < lens[:, None]
+                )[:, None, None, :]
+        sq = q.transpose(1, 2)
+
+        def gather_sdpa():
+            k = pk[idx].reshape(S, C, H, D).transpose(1, 2)
+            v = pv[idx].reshape(S, C, H, D).transpose(1, 2)
+            return torch.nn.functional.scaled_dot_product_attention(
+                sq, k, v, attn_mask=mask)
+        lib_err = float((gather_sdpa().transpose(1, 2) - ref).abs().max())
+        check(lib_err <= TOL, f"gather + SDPA {label}: max abs err "
+                              f"{lib_err} vs plain")
+        gather_sdpa_ms = median_ms(gather_sdpa)
+        gather_sdpa_device_ms = device_ms(gather_sdpa)
+    n = sum(C if x <= 0 else min(int(x), C) for x in lengths)
+    nbytes = 4 * (2 * n * H * D + 2 * S * H * D + S + sum(used))
+    b_ms, by, bytes_ms, ops_ms = bound(nbytes, 4 * D * H * n)
+    return {"name": "flash_decode_paged", "case": label,
+            "shape": [S, nb, bs, H, D],
+            "lengths": ("random 1..C" if len(lengths) > 16
+                        else list(lengths)),
+            "max_abs_err": err, "slab_max_abs_diff": slab_diff,
+            "ms": median_ms(run), "plain_ms": median_ms(plain),
+            "library_ms": None,
+            "library_note": "no single PyTorch call reads through a block "
+                            "table; gather_sdpa_ms is two calls (gather, "
+                            "then SDPA)",
+            "gather_sdpa_ms": gather_sdpa_ms,
+            "gather_sdpa_device_ms": gather_sdpa_device_ms,
+            "bound_ms": b_ms, "bound_by": by, "bytes_bound_ms": bytes_ms,
+            "ops_bound_ms": ops_ms, "device_ms": device_ms(run),
+            "plain_device_ms": device_ms(plain), "library_device_ms": None}
+
+
 def _bwd_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
     """The backward pair at one shape: q, k, v and dO ~ N(0, 1), out and
     lse from the plain forward (the forward kernel's LSE is checked
@@ -416,11 +518,26 @@ def phase_kernels():
     big[0], big[1] = 1, 4096
     cases.append(_decode_case("S=64 C=4096", 64, 4096, 8, 64,
                               [int(x) for x in big], gen))
+    # paged decode: the served step shape (the slab step's lengths), block
+    # sizes below and above the 32-key chunk, and the long case
+    cases.append(_paged_case(PAGED_STEP_CASE, 8, 16, 16, 4, 64,
+                             [1, 17, 100, 256, 3, 64, 200, 255], gen))
+    cases.append(_paged_case("bs=8 S=4 nb=32", 4, 8, 32, 4, 64,
+                             [0, 1, 256, 37], gen))
+    cases.append(_paged_case("bs=64 S=4 nb=4", 4, 64, 4, 4, 64,
+                             [0, 1, 256, 37], gen))
+    cases.append(_paged_case("S=64 nb=256 bs=16 H=8", 64, 16, 256, 8, 64,
+                             [int(x) for x in big], gen))
     fmt = lambda x: "not measured" if x is None else f"{x:.4f}"
     for c in cases:
         lib = "" if c["library_ms"] is None else \
             f" library {c['library_ms']:.4f} ms (device " \
             f"{fmt(c['library_device_ms'])})"
+        if c.get("gather_sdpa_ms") is not None:
+            lib = f" gather+SDPA (2 calls) {c['gather_sdpa_ms']:.4f} ms " \
+                  f"(device {fmt(c['gather_sdpa_device_ms'])})"
+        if "slab_max_abs_diff" in c:
+            lib += f" vs slab flash_decode {c['slab_max_abs_diff']:.2e}"
         print(f"{c['name']:<14}{c['case']:<24} err {c['max_abs_err']:.2e} "
               f"kernel {c['ms']:.4f} ms (device {fmt(c['device_ms'])}) "
               f"plain {c['plain_ms']:.4f} ms (device "
@@ -456,14 +573,28 @@ def _greedy_rows(engine, prompt, n):
     return out, rows
 
 
-def _burst(url, prompts):
+def _profile_summary(prof, wall_ms, top):
+    """Device busy time and share of a profiled window of `wall_ms`, and
+    its `top` kernels by device time."""
+    kernels_us = sorted(((e.key, float(e.self_device_time_total), e.count)
+                         for e in prof.key_averages()
+                         if e.self_device_time_total > 0),
+                        key=lambda x: -x[1])
+    busy_ms = sum(t for _, t, _ in kernels_us) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "top_kernels": [{"kernel": k[:72], "device_ms": t / 1e3,
+                             "count": n} for k, t, n in kernels_us[:top]]}
+
+
+def _burst(url, prompts, n_new=N_NEW):
     """All prompts as concurrent greedy /generate requests: (answers,
     wall seconds)."""
     from deeplearning4j_tpu_torch.util.http import request_json
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(prompts)) as pool:
         futs = [pool.submit(request_json, url,
-                            {"prompt": p, "max_new_tokens": N_NEW}, 300)
+                            {"prompt": p, "max_new_tokens": n_new}, 300)
                 for p in prompts]
         answers = [f.result() for f in futs]
     return answers, time.perf_counter() - t0
@@ -522,16 +653,7 @@ def phase_serving():
         srv.stop()
     check([b["tokens"] for _, b in traced] == [b["tokens"] for _, b in answers],
           "the traced burst generated other tokens")
-    kernels_us = sorted(((e.key, float(e.self_device_time_total), e.count)
-                         for e in prof.key_averages()
-                         if e.self_device_time_total > 0),
-                        key=lambda x: -x[1])
-    busy_ms = sum(t for _, t, _ in kernels_us) / 1e3
-    profile_summary = {
-        "wall_ms": traced_wall * 1e3, "device_busy_ms": busy_ms,
-        "device_busy_share": busy_ms / (traced_wall * 1e3),
-        "top_kernels": [{"kernel": k[:72], "device_ms": t / 1e3,
-                         "count": n} for k, t, n in kernels_us[:8]]}
+    profile_summary = _profile_summary(prof, traced_wall * 1e3, 8)
     statuses = [s for s, _ in answers]
     check(statuses == [200] * len(prompts), f"statuses {statuses}")
     served = [body["tokens"] for _, body in answers]
@@ -539,8 +661,9 @@ def phase_serving():
     for name in ("flash_fwd", "flash_decode"):
         check(counts[name] > 0,
               f"kernel {name} never launched on the serving path")
-    check(counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 0,
-          "a backward kernel launched on the serving path")
+    check(counts["flash_bwd_dq"] == counts["flash_bwd_dkv"]
+          == counts["flash_decode_paged"] == 0,
+          "a backward or paged kernel launched on the slab serving path")
 
     eng = DecodeEngine(plain_net, slots=8, max_len=256)
     for i, (p, got) in enumerate(zip(prompts, served)):
@@ -573,6 +696,209 @@ def phase_serving():
 
 
 # ------------------------------------------------------------------ phase 4
+def _served_burst(net, prompts, n_new, trace=False, **server_kw):
+    """Serve `prompts` as one concurrent burst (after one warm-up request)
+    on a fresh ServingServer(decode=True, **server_kw): (answers, wall
+    seconds, launch counts of the burst, scheduler snapshot, server). With
+    `trace`, the burst runs under the profiler and the snapshot carries
+    its `_profile_summary` as "profile". The caller stops the server."""
+    import contextlib
+    from torch.profiler import ProfilerActivity, profile
+    from deeplearning4j_tpu_torch.kernels import (launch_counts,
+                                                  reset_launch_counts)
+    from deeplearning4j_tpu_torch.serving import ServingServer
+    from deeplearning4j_tpu_torch.util.http import request_json
+    srv = ServingServer(net, decode=True, **server_kw).start()
+    try:
+        url = srv.url + "/generate"
+        status, _ = request_json(url, {"prompt": prompts[0],
+                                       "max_new_tokens": 4}, timeout=300)
+        check(status == 200, f"warm-up request answered {status}")
+        srv.decode.ttft_ms.clear()
+        srv.decode.itl_ms.clear()
+        reset_launch_counts()
+        with (profile(activities=[ProfilerActivity.CUDA]) if trace
+              else contextlib.nullcontext()) as prof:
+            answers, wall = _burst(url, prompts, n_new)
+        counts = launch_counts()
+        snap = srv.decode.snapshot()
+        if trace:
+            snap["profile"] = _profile_summary(prof, wall * 1e3, 8)
+    except BaseException:
+        srv.stop()
+        raise
+    return answers, wall, counts, snap, srv
+
+
+def _burst_summary(prompts, answers, wall, snap):
+    statuses = [s for s, _ in answers]
+    n_tok = sum(len(b.get("tokens", ())) for _, b in answers)
+    return {"requests": len(prompts), "status_200": statuses.count(200),
+            "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+            "ttft_ms_p50": float(np.median([b["ttft_ms"]
+                                            for _, b in answers
+                                            if "ttft_ms" in b])),
+            "itl_ms_p50": snap["itl_ms_p50"]}
+
+
+def _step_turns(net, prompts, reps=50):
+    """Host time of one engine step (which ends in the host reading the
+    tokens) with all 8 slots active, without the scheduler: the median of
+    `reps` steps, slab and paged engines in turns (slab, paged, paged,
+    slab). {"slab": [ms, ms], "paged": [ms, ms]}."""
+    from deeplearning4j_tpu_torch.decode import DecodeEngine
+    slots, cap = PAGED["decode_slots"], PAGED["decode_max_len"]
+    state = {}
+    for paged in (False, True):
+        eng = DecodeEngine(net, slots=slots, max_len=cap, paged=paged,
+                           block_size=PAGED["decode_block_size"])
+        cache = eng.init_cache()
+        for s, p in enumerate(prompts[:slots]):
+            cache, _, _ = eng.prefill(cache, s, p)
+        state[paged] = [eng, cache, np.zeros((slots,), np.int32)]
+    out = {"slab": [], "paged": []}
+    for paged in (False, True, True, False):
+        eng, cache, ids = state[paged]
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            cache, ids, _ = eng.step(cache, ids)
+            times.append(time.perf_counter() - t0)
+        state[paged][2] = ids
+        out["paged" if paged else "slab"].append(
+            float(np.median(times)) * 1e3)
+    return out
+
+
+def phase_serving_paged():
+    """Paged serving at full width, 2x oversubscribed, against a slab
+    server's run of the same burst on the card."""
+    from deeplearning4j_tpu_torch.decode import DecodeEngine
+    fixture = json.loads(FIXTURE.read_text())
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(0, SERVE["vocab_size"],
+                                             size=int(n))]
+               for n in rng.integers(16, 65, size=PAGED_REQUESTS)]
+    net = _full_width_net(True)
+    slab_kw = dict(decode_slots=PAGED["decode_slots"],
+                   decode_max_len=PAGED["decode_max_len"])
+    paged_kw = dict(decode_paged=True, **PAGED)
+
+    # the bursts in turns (paged, slab, slab, paged): the host's speed
+    # drifts within a call, so each mode gets an early and a late turn
+    runs = {"paged": [], "slab": []}
+    for mode in ("paged", "slab", "slab", "paged"):
+        answers, wall, counts, snap, srv = _served_burst(
+            net, prompts, PAGED_NEW, **(paged_kw if mode == "paged"
+                                        else slab_kw))
+        try:
+            if mode == "paged" and not runs["paged"]:
+                fix_answers, _ = _burst(srv.url + "/generate",
+                                        [list(p) for p in fixture["prompts"]])
+                after = srv.decode.snapshot()
+        finally:
+            srv.stop()
+        runs[mode].append((answers, wall, counts, snap))
+    # one more burst of each, traced: where the device time goes (the
+    # numbers above come from the untraced turns)
+    profiles = {}
+    for mode in ("slab", "paged"):
+        answers, _, _, snap, srv = _served_burst(
+            net, prompts, PAGED_NEW, trace=True,
+            **(paged_kw if mode == "paged" else slab_kw))
+        srv.stop()
+        statuses = [s for s, _ in answers]
+        check(statuses == [200] * len(answers),
+              f"traced {mode} statuses {statuses}")
+        profiles[mode] = snap["profile"]
+
+    check(after["paged"]["used_blocks"] == 0,
+          "blocks still held after the fixture burst")
+    statuses = [s for s, _ in fix_answers]
+    check(statuses == [200] * len(fix_answers),
+          f"paged fixture statuses {statuses}")
+    for mode, mode_runs in runs.items():
+        for answers, _, counts, snap in mode_runs:
+            statuses = [s for s, _ in answers]
+            check(statuses == [200] * len(answers),
+                  f"{mode} statuses {statuses}")
+            check(all(len(b["tokens"]) == PAGED_NEW for _, b in answers),
+                  f"{mode}: short generations")
+            if mode == "slab":
+                check(counts["flash_decode_paged"] == 0,
+                      "flash_decode_paged launched on the slab server")
+                continue
+            pg = snap["paged"]
+            check(pg["preempted"] >= 1,
+                  "the oversubscribed pool never preempted")
+            check(pg["used_blocks"] == 0, f"{pg['used_blocks']} blocks "
+                                          "still held after the burst")
+            check(pg["high_water"] <= PAGED["decode_pool_blocks"] - 1,
+                  f"high water {pg['high_water']} beyond the pool")
+            check(counts["flash_decode_paged"] > 0 and counts["flash_fwd"] > 0,
+                  f"paged serving did not launch its kernels: {counts}")
+            check(counts["flash_decode"] == counts["flash_bwd_dq"]
+                  == counts["flash_bwd_dkv"] == 0,
+                  f"a slab-decode or backward kernel launched on the paged "
+                  f"path: {counts}")
+    # every burst against the first slab burst, under the tie rule:
+    # re-prefill after a preemption recomputes K/V through flash_fwd on a
+    # [1, L] projection, which may round otherwise than the step path that
+    # built them token by token (and a slab burst co-batches otherwise)
+    eng = DecodeEngine(net, slots=PAGED["decode_slots"],
+                       max_len=PAGED["decode_max_len"])
+    reference = [b["tokens"] for _, b in runs["slab"][0][0]]
+    mismatches = 0
+    for mode, k in (("paged", 0), ("slab", 1), ("paged", 1)):
+        served = [b["tokens"] for _, b in runs[mode][k][0]]
+        for i, (p, got, want) in enumerate(zip(prompts, served, reference)):
+            for t, (a, b) in enumerate(zip(got, want)):
+                if a != b:
+                    _, _, probs = eng.prefill(eng.init_cache(), 0,
+                                              p + got[:t])
+                    top2 = np.sort(probs)[-2:]
+                    gap = float(top2[1] - top2[0])
+                    print(f"{mode} burst {k} request {i}: token {t} differs "
+                          f"({a} vs slab {b}), top-2 gap {gap:.3e}")
+                    check(gap < TIE_GAP, f"{mode} burst {k} request {i} "
+                                         f"token {t}: {a} != slab {b} "
+                                         f"(gap {gap})")
+                    mismatches += 1
+                    break
+    n_fix = fixture["max_new_tokens"]
+    for i, (want, (_, body)) in enumerate(zip(fixture["tokens"],
+                                              fix_answers)):
+        check(body["tokens"][:n_fix] == want,
+              f"paged fixture prompt {i}: served {body['tokens'][:n_fix]} "
+              f"!= JAX {want}")
+    layers = SERVE["n_layers"]
+    decode_kernel = {"paged": "flash_decode_paged", "slab": "flash_decode"}
+
+    def burst_summaries(mode):
+        return [{**_burst_summary(prompts, answers, wall, snap),
+                 "step_waves": counts[decode_kernel[mode]] // layers,
+                 "prefills": counts["flash_fwd"] // layers,
+                 **({"preempted": snap["paged"]["preempted"],
+                     "high_water": snap["paged"]["high_water"]}
+                    if mode == "paged" else {})}
+                for answers, wall, counts, snap in runs[mode]]
+    counts = runs["paged"][0][2]
+    summary = {"config": PAGED, "new_tokens": PAGED_NEW,
+               "turns": "paged, slab, slab, paged",
+               "paged": burst_summaries("paged"),
+               "slab": burst_summaries("slab"),
+               "engine_step_ms_8_active": _step_turns(net, prompts),
+               "pool_blocks": runs["paged"][0][3]["paged"]["pool_blocks"],
+               "requests_differing_from_slab_on_a_tie": mismatches,
+               "fixture_prompts_match": len(fixture["tokens"]),
+               "launches": counts,
+               "slab_launches": runs["slab"][0][2],
+               "profiles": profiles}
+    print(json.dumps({"serving_paged": summary}))
+    return summary
+
+
+# ------------------------------------------------------------------ phase 5
 def _one_hot_batch(batch, seq):
     """Next-token one-hot (x, y) on the card, ids from
     np.random.default_rng(0) of shape [batch, seq + 1] (bench.py:501-505
@@ -629,8 +955,9 @@ def phase_training():
         check(kern["launches"][name] == want,
               f"{name} launched {kern['launches'][name]} times in "
               f"{TRAIN_STEPS} steps, not {want}")
-    check(kern["launches"]["flash_decode"] == 0,
-          "flash_decode launched on the training path")
+    check(kern["launches"]["flash_decode"]
+          == kern["launches"]["flash_decode_paged"] == 0,
+          "a decode kernel launched on the training path")
     check(set(plain["launches"].values()) == {0},
           f"the plain path launched kernels: {plain['launches']}")
     check(all(np.isfinite(kern["scores"])), "non-finite training score")
@@ -647,11 +974,6 @@ def phase_training():
         kern["net"].fit(x, y)
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
-    kernels_us = sorted(((e.key, float(e.self_device_time_total), e.count)
-                         for e in prof.key_averages()
-                         if e.self_device_time_total > 0),
-                        key=lambda e: -e[1])
-    busy_ms = sum(t for _, t, _ in kernels_us) / 1e3
     tokens = TRAIN_BATCH * TRAIN_SEQ
     step = {p: float(np.median(r["times"])) for p, r in runs.items()}
     summary = {
@@ -672,11 +994,7 @@ def phase_training():
         "peak_mb_kernel_path": kern["peak_mb"],
         "peak_mb_plain_path": plain["peak_mb"],
         "launches": kern["launches"],
-        "profiled_step": {
-            "wall_ms": traced_ms, "device_busy_ms": busy_ms,
-            "device_busy_share": busy_ms / traced_ms,
-            "top_kernels": [{"kernel": k[:72], "device_ms": t / 1e3,
-                             "count": n} for k, t, n in kernels_us[:10]]}}
+        "profiled_step": _profile_summary(prof, traced_ms, 10)}
     print(json.dumps({"training": summary}))
     return summary
 
@@ -689,6 +1007,8 @@ REPLACES = {
                  ":430-450 on the training path)",
     "flash_decode": f"{_FA}:84 (_flash_kernel, pallas_call :206, via "
                     "flash_decode :604)",
+    "flash_decode_paged": f"{_FA}:84 (_flash_kernel, pallas_call :206, via "
+                          "flash_decode_paged :648)",
     "flash_bwd_dq": f"{_FA}:226 (_bwd_dq_kernel, pallas_call :366, via "
                     "the custom_vjp of flash_attention :430-450)",
     "flash_bwd_dkv": f"{_FA}:276 (_bwd_dkv_kernel, pallas_call :388, via "
@@ -697,11 +1017,13 @@ REPLACES = {
 _CSRC = "deeplearning4j_tpu_torch/kernels/csrc"
 SOURCES = {"flash_fwd": f"{_CSRC}/flash_fwd.cu",
            "flash_decode": f"{_CSRC}/flash_decode.cu",
+           "flash_decode_paged": f"{_CSRC}/flash_decode_paged.cu",
            "flash_bwd_dq": f"{_CSRC}/flash_bwd.cu",
            "flash_bwd_dkv": f"{_CSRC}/flash_bwd.cu"}
 # each kernel's main path and the case whose shape that path runs
 MAIN_PATH = {"flash_fwd": ("training", TRAIN_CASE),
              "flash_decode": ("serving", "step S=8 C=256"),
+             "flash_decode_paged": ("serving_paged", PAGED_STEP_CASE),
              "flash_bwd_dq": ("training", TRAIN_CASE),
              "flash_bwd_dkv": ("training", TRAIN_CASE)}
 
@@ -725,6 +1047,7 @@ def main():
     smi = phase_card()
     cases = phase_kernels()
     launches = {"serving": phase_serving()["launches"],
+                "serving_paged": phase_serving_paged()["launches"],
                 "training": phase_training()["launches"]}
     kernels = []
     for name, (path, case) in MAIN_PATH.items():
@@ -741,7 +1064,9 @@ def main():
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"], "device_ms": c["device_ms"],
             "plain_device_ms": c["plain_device_ms"],
-            "library_device_ms": c["library_device_ms"]})
+            "library_device_ms": c["library_device_ms"],
+            **{k: c[k] for k in ("library_note", "gather_sdpa_ms")
+               if k in c}})
     print(smi)              # the card's name and power limit, again
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,10 @@
 Each `csrc/<name>.cu` exposes a plain C entry point. At first use, nvcc
 compiles it for `sm_90a` into `build/torch_kernels/lib<name>-<hash>.so`
 under the repository root (a directory `.gitignore` lists). The hash
-covers the source, the nvcc flags and the compiler (its path and
-`--version`), so an edited source, a changed flag or another nvcc
-rebuilds and nothing stale loads. `build()` starts one nvcc per stale
-source, all at once. Nothing is compiled when a module is imported: the
+covers the source, the shared headers (`csrc/*.cuh`), the nvcc flags and
+the compiler (its path and `--version`), so an edited source or header, a
+changed flag or another nvcc rebuilds and nothing stale loads.
+`build()` starts one nvcc per stale source, all at once. Nothing is compiled when a module is imported: the
 CPU tests import every module, and the host has no nvcc.
 """
 from __future__ import annotations
@@ -21,7 +21,7 @@ import threading
 import time
 from pathlib import Path
 
-SOURCES = ("flash_fwd", "flash_decode", "flash_bwd")
+SOURCES = ("flash_fwd", "flash_decode", "flash_bwd", "flash_decode_paged")
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -63,6 +63,8 @@ def _toolchain_id():
 
 def library_path(name):
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update("\0".join(NVCC_FLAGS).encode())
     h.update(_toolchain_id().encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

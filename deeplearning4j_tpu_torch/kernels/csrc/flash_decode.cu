@@ -32,48 +32,9 @@
 //
 // No shared memory and no block barrier in the split kernel: each warp is
 // independent, so the chunks of all slots and heads are in flight at once.
-#include <cuda_runtime.h>
-#include <math.h>
+#include "decode_common.cuh"
 
 namespace {
-
-constexpr int CHUNK = 32;       // keys per warp: one per lane after scoring
-constexpr float NEG_INF = -1e30f;
-constexpr unsigned FULL = 0xffffffffu;
-
-struct Strides {
-  long long s, t, h;            // element strides; the head dim is dense
-};
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
-  return x;
-}
-
-// Valid keys of slot s: lengths[s] clipped to C, or all C when <= 0.
-__device__ __forceinline__ int valid_keys(int n, int C) {
-  return n <= 0 ? C : min(n, C);
-}
-
-// One stage of the transpose-reduce: each lane keeps the half of its
-// keys that matches its bit O and adds its partner's sums for them.
-template <int O>
-__device__ __forceinline__ void butterfly(float (&part)[CHUNK], int lane) {
-  const bool upper = lane & O;
-#pragma unroll
-  for (int i = 0; i < O; ++i) {
-    const float send = upper ? part[i] : part[i + O];
-    const float keep = upper ? part[i + O] : part[i];
-    part[i] = keep + __shfl_xor_sync(FULL, send, O);
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(32)
@@ -121,11 +82,7 @@ flash_decode_split(const float* __restrict__ q, const float* __restrict__ k,
   }
   // Butterfly transpose-reduce: after five stages part[0] is key
   // `lane`'s full dot product.
-  butterfly<16>(part, lane);
-  butterfly<8>(part, lane);
-  butterfly<4>(part, lane);
-  butterfly<2>(part, lane);
-  butterfly<1>(part, lane);
+  transpose_reduce(part, lane);
 
   // keys past the chunk's end weigh 0; lane 0 is always a valid key
   const float sc = lane < nk ? (none ? NEG_INF : part[0] * scale) : -INFINITY;
@@ -156,33 +113,6 @@ flash_decode_split(const float* __restrict__ q, const float* __restrict__ k,
     part_ml[row * 2] = m;
     part_ml[row * 2 + 1] = l;
   }
-}
-
-template <int D>
-__global__ void __launch_bounds__(D)
-flash_decode_merge(const float* __restrict__ part_acc,
-                   const float* __restrict__ part_ml,
-                   const int* __restrict__ lengths, float* __restrict__ out,
-                   int H, int C, int NW) {
-  const int d = threadIdx.x, h = blockIdx.x, s = blockIdx.y;
-  const int nw = (valid_keys(lengths[s], C) + CHUNK - 1) / CHUNK;
-  const long long row0 = ((long long)s * H + h) * NW;
-  const float* ml = part_ml + row0 * 2;
-  const float* pa = part_acc + row0 * D;
-  // one online pass: the running max starts at -inf, so the first
-  // partial's rescale of the empty sums is exp(-inf) = 0
-  float mx = -INFINITY, l = 0.f, acc = 0.f;
-#pragma unroll 8
-  for (int i = 0; i < nw; ++i) {
-    const float mi = ml[2 * i], li = ml[2 * i + 1];
-    const float ai = pa[(long long)i * D + d];
-    const float mn = fmaxf(mx, mi);
-    const float old = expf(mx - mn), cur = expf(mi - mn);
-    l = l * old + li * cur;
-    acc = acc * old + ai * cur;
-    mx = mn;
-  }
-  out[((long long)s * H + h) * D + d] = acc / fmaxf(l, 1e-30f);
 }
 
 template <int D>

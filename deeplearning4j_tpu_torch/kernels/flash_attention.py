@@ -1,7 +1,7 @@
 """Attention kernels for Hopper, the port of
 deeplearning4j_tpu/kernels/flash_attention.py.
 
-Four hand-written CUDA kernels, each behind a wrapper with its plain
+Five hand-written CUDA kernels, each behind a wrapper with its plain
 PyTorch version beside it:
 
 - `flash_attention` -> `csrc/flash_fwd.cu`, replacing the TPU kernel
@@ -20,6 +20,12 @@ PyTorch version beside it:
   [slots, capacity, heads, head_dim] cache masked by `lengths`. Plain
   version: `flash_decode_plain`, the twin of `_decode_reference`
   (:587-601).
+- `flash_decode_paged` -> `csrc/flash_decode_paged.cu`, replacing
+  `_flash_kernel` as `flash_decode_paged` (:648-682) runs it: the same
+  decode attention over a [num_blocks, block_size, heads, head_dim] pool,
+  reading each slot's keys through its row of an int32 block table inside
+  the kernel (the reference gathers the pool first). Plain version:
+  `flash_decode_paged_plain`, the gather followed by `flash_decode_plain`.
 
 The gradient: under grad mode, with an input that requires grad,
 `flash_attention` runs `FlashAttentionFunction`, the counterpart of the
@@ -59,6 +65,8 @@ _FWD_ARGTYPES = ([_P] * 6 + [_I] * 5 + [_L] * 9
                  + [_I, ctypes.c_float, _P])
 _DECODE_ARGTYPES = ([_P] * 6 + [_I] * 4 + [_L] * 8
                     + [ctypes.c_float, _P])
+_DECODE_PAGED_ARGTYPES = ([_P] * 7 + [_I] * 5 + [_L] * 8
+                          + [ctypes.c_float, _P])
 _BWD_DQ_ARGTYPES = [_P] * 8 + [_I] * 5 + [_L] * 12 + [_I, ctypes.c_float, _P]
 _BWD_DKV_ARGTYPES = [_P] * 9 + [_I] * 5 + [_L] * 12 + [_I, ctypes.c_float, _P]
 DECODE_CHUNK = 32   # keys per warp in csrc/flash_decode.cu (CHUNK)
@@ -76,8 +84,10 @@ def _scale(scale, D):
     return float(1.0 / math.sqrt(D)) if scale is None else float(scale)
 
 
-def _check_attention_operands(q, k, v):
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check_f32_operands(q, **others):
+    """q and each named tensor: 4-D float32 on q's device, head dim
+    dense."""
+    for name, t in (("q", q), *others.items()):
         if t.dim() != 4 or t.dtype != torch.float32:
             raise ValueError(f"{name} must be a 4-D float32 tensor, got "
                              f"{tuple(t.shape)} {t.dtype}")
@@ -85,6 +95,20 @@ def _check_attention_operands(q, k, v):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name} needs a dense head dim (stride 1)")
+
+
+def _lengths_operand(lengths, S, device):
+    """`lengths` as the dense int32 [S] tensor the decode kernels read."""
+    lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                              device=device).contiguous()
+    if lengths.shape != (S,):
+        raise ValueError(f"lengths must be [{S}], got "
+                         f"{tuple(lengths.shape)}")
+    return lengths
+
+
+def _check_attention_operands(q, k, v):
+    _check_f32_operands(q, k=k, v=v)
     if k.shape != v.shape or k.shape[0] != q.shape[0] \
             or k.shape[2:] != q.shape[2:]:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
@@ -374,11 +398,7 @@ def flash_decode(q, k, v, lengths, *, scale=None):
     _check_attention_operands(q, k, v)
     S, _, H, D = q.shape
     C = k.shape[1]
-    lengths = torch.as_tensor(lengths, dtype=torch.int32,
-                              device=q.device).contiguous()
-    if lengths.shape != (S,):
-        raise ValueError(f"lengths must be [{S}], got "
-                         f"{tuple(lengths.shape)}")
+    lengths = _lengths_operand(lengths, S, q.device)
     out = torch.empty((S, 1, H, D), dtype=torch.float32, device=q.device)
     # per-chunk partials (acc, max, sum) the kernel's merge pass reads
     work = torch.empty((S * H * -(-C // DECODE_CHUNK) * (D + 2),),
@@ -397,7 +417,89 @@ def flash_decode(q, k, v, lengths, *, scale=None):
 
 flash_decode.launches = 0
 
+
+def flash_decode_paged_plain(q, k_pool, v_pool, block_table, lengths, *,
+                             scale=None):
+    """The reference's paged decode (:675-682) in torch: gather
+    `pool[table]`, reshape to [S, max_blocks * bs, H, D], then
+    `flash_decode_plain`."""
+    S = q.shape[0]
+    _, bs, H, D = k_pool.shape
+    table = torch.as_tensor(block_table, device=k_pool.device).long()
+    nb = table.shape[1]
+    k = k_pool[table].reshape(S, nb * bs, H, D)
+    v = v_pool[table].reshape(S, nb * bs, H, D)
+    return flash_decode_plain(q, k, v, lengths, scale=scale)
+
+
+def _check_paged_operands(q, k_pool, v_pool, block_table, lengths):
+    """Checks of the paged launch; returns (table, lengths) as the dense
+    int32 tensors the kernel reads."""
+    _check_f32_operands(q, k_pool=k_pool, v_pool=v_pool)
+    S, _, H, D = q.shape
+    if k_pool.shape != v_pool.shape or k_pool.shape[2:] != (H, D):
+        raise ValueError(f"pools k {tuple(k_pool.shape)} / v "
+                         f"{tuple(v_pool.shape)} do not match q heads and "
+                         f"head dim {(H, D)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not compiled; the kernels take "
+                         f"{HEAD_DIMS}")
+    bs = k_pool.shape[1]
+    if bs < 1 or bs & (bs - 1):
+        raise ValueError(f"block size {bs} is not a power of two")
+    if not isinstance(block_table, torch.Tensor) \
+            or block_table.dtype != torch.int32 \
+            or block_table.device != q.device or block_table.dim() != 2 \
+            or block_table.shape[0] != S or block_table.shape[1] < 1:
+        raise ValueError(
+            f"block_table must be an int32 [{S}, max_blocks] tensor on "
+            f"{q.device}, got {getattr(block_table, 'shape', None)} "
+            f"{getattr(block_table, 'dtype', type(block_table))}")
+    return block_table.contiguous(), _lengths_operand(lengths, S, q.device)
+
+
+def flash_decode_paged(q, k_pool, v_pool, block_table, lengths, *,
+                       scale=None):
+    """Decode attention through a paged KV pool (decode/paged.py): q
+    [slots, 1, heads, head_dim], pools [num_blocks, block_size, heads,
+    head_dim] (block 0 is scratch), block_table int32 [slots, max_blocks]
+    (logical block j of slot s is pool block table[s, j]), lengths [slots].
+    The `flash_decode_paged` kernel, which reads K/V through the table, for
+    CUDA tensors; `flash_decode_paged_plain` for CPU tensors. Returns
+    [slots, 1, heads, head_dim]."""
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"flash_decode_paged takes one query per slot, got "
+                         f"q {tuple(q.shape)}")
+    if _on_host(q):
+        return flash_decode_paged_plain(q, k_pool, v_pool, block_table,
+                                        lengths, scale=scale)
+    fn = build.kernel_function("flash_decode_paged", "flash_decode_paged_f32",
+                               _DECODE_PAGED_ARGTYPES)
+    table, lengths = _check_paged_operands(q, k_pool, v_pool, block_table,
+                                           lengths)
+    S, _, H, D = q.shape
+    bs = k_pool.shape[1]
+    MB = table.shape[1]
+    out = torch.empty((S, 1, H, D), dtype=torch.float32, device=q.device)
+    # per-chunk partials (acc, max, sum) over the logical capacity MB * bs
+    work = torch.empty((S * H * -(-(MB * bs) // DECODE_CHUNK) * (D + 2),),
+                       dtype=torch.float32, device=q.device)
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+             work.data_ptr(), S, H, MB, bs, D, q.stride(0), q.stride(2),
+             *_bhd_strides(k_pool), *_bhd_strides(v_pool),
+             _scale(scale, D), _stream(q.device))
+    if err != 0:
+        raise RuntimeError(
+            f"flash_decode_paged launch failed: cudaError_t {err}")
+    flash_decode_paged.launches += 1
+    return out
+
+
+flash_decode_paged.launches = 0
+
 _COUNTED = {"flash_fwd": flash_attention, "flash_decode": flash_decode,
+            "flash_decode_paged": flash_decode_paged,
             "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
 
 

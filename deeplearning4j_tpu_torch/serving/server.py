@@ -9,6 +9,12 @@ Endpoints:
   GET  /healthz   -> {"status", "health", "components", "active_version",
                   "decode"}; 503 when a component is unhealthy
 
+With `decode_paged=True` the decode plane serves from a paged KV cache:
+a pool of `decode_pool_blocks` blocks (block 0 is scratch; default every
+slot fully backed) of `decode_block_size` tokens, which may be smaller
+than the slots could fill, with preemption covering the overflow (see
+decode/scheduler.py).
+
 /generate answers with the JAX server's status contract
 (server.py:669-737): 200; 400 for a malformed or unservable request; 404
 when the decode plane is off; 429 (+ Retry-After) when shed; 503 with no
@@ -31,7 +37,9 @@ class ServingServer(BackgroundHttpServer):
     def __init__(self, model=None, *, registry=None, version="v1",
                  host="127.0.0.1", port=0, default_timeout_ms=None,
                  decode=False, decode_slots=4, decode_max_len=128,
-                 decode_queue_capacity=64, decode_max_new_tokens=32):
+                 decode_queue_capacity=64, decode_max_new_tokens=32,
+                 decode_paged=False, decode_block_size=16,
+                 decode_pool_blocks=None):
         super().__init__(host=host, port=port)
         self.registry = registry or ModelRegistry()
         if model is not None:
@@ -44,7 +52,9 @@ class ServingServer(BackgroundHttpServer):
             self.decode = DecodeScheduler(
                 self.registry, slots=decode_slots, max_len=decode_max_len,
                 queue_capacity=decode_queue_capacity,
-                default_max_new_tokens=decode_max_new_tokens)
+                default_max_new_tokens=decode_max_new_tokens,
+                paged=decode_paged, block_size=decode_block_size,
+                pool_blocks=decode_pool_blocks)
 
     # ---- lifecycle ---------------------------------------------------------
     def start(self):

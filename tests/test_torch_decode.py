@@ -114,8 +114,10 @@ def test_cache_is_updated_in_place():
 
 def test_engine_rejects_what_this_slice_does_not_serve():
     _, tnet = _pair(use_pallas=False, layers=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecodeEngine(tnet, slots=2, max_len=32, paged=True)
+    # paged decode is served (tests/test_torch_paged.py); a block size
+    # that is not a power of two is not
+    with pytest.raises(ValueError, match="power of two"):
+        DecodeEngine(tnet, slots=2, max_len=32, paged=True, block_size=12)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecodeEngine(tnet, slots=2, max_len=32).verify(None, 0, [1], 0)
     bidir = transformer_lm(vocab_size=V, d_model=32, n_layers=1, n_heads=2,

@@ -157,8 +157,8 @@ def _bwd_args(T=16):
     return q, k, v, out, lse, g, km
 
 
-ZERO = {"flash_fwd": 0, "flash_decode": 0, "flash_bwd_dq": 0,
-        "flash_bwd_dkv": 0}
+ZERO = {"flash_fwd": 0, "flash_decode": 0, "flash_decode_paged": 0,
+        "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
 def test_backward_without_a_build_raises_and_launches_nothing(
