@@ -36,6 +36,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    on the gathered slab. No single PyTorch call reads through a block
    table, so its `library_ms` is null; the torch gather + SDPA (two calls)
    is timed beside it as `gather_sdpa_ms`.
+   The bf16 kernels (`flash_fwd_bf16`, `flash_bwd_dq_bf16`,
+   `flash_bwd_dkv_bf16`, on the tensor cores) on bf16 inputs from seeded
+   normals: the train case (with and without a ragged key mask), Tq=37
+   Tk=53 not causal with a key mask at D=16/64/128, and B=4 T=4096 H=8
+   causal. Each against its plain version (f32 arithmetic, one rounding to
+   bf16 at the end), compared in f32: forward out max abs error <= 1.6e-2
+   (two bf16 ulps at |out| < 2: the kernel rounds P to bf16 for the P.V
+   product, under one ulp of the output, and both sides round the output
+   once, which may land one ulp apart), LSE <= 1e-3 (f32 on both sides);
+   each gradient |k - p| <= 2e-2 |p| + 1e-2 max|p| (the kernels round p
+   and ds to bf16 for their products with an f32 operand, and dq, dk, dv
+   are rounded once; the max|p| term covers elements near 0). The train
+   case runs twice more and must give the same bits. `bound_ms` takes
+   operations over 989 TFLOP/s (dense bf16 tensor cores) with the f32
+   rows' operation counts, bytes at 2 per bf16 element; `library_ms` is
+   SDPA on the same bf16 inputs (the backward: autograd through it).
 3. The serving path: `transformer_lm` at full width (vocab 256, d_model
    256, 4 layers, 4 heads) with `use_pallas=True` and
    `synthetic_params(seed=0)`, served by
@@ -74,8 +90,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    kernel path and nothing launches on the plain path. Prints the median
    step time, tokens/s of both paths and the device busy share of one
    profiled step with its top kernels.
-6. One line `{"kernels": [...]}` with each kernel's numbers, then the last
-   line `{"ok": true, "device": {...}}`.
+6. bf16 mixed-precision training, the configuration of `bench.py`'s
+   transformer bench (`compute_dtype="bfloat16"`: f32 master parameters,
+   bf16 compute for every layer but the output layer, the loss in f32).
+   The JAX bf16 fixture (tests/fixtures/torch_port_train_bf16.json, the
+   Pallas path, 5 steps) with `use_pallas=True`: per-step scores to rtol
+   1e-2 (cuBLAS and XLA's CPU round bf16 in other places; the gap is
+   printed). Then 10 `fit` steps at batch 16, seq 512 on the kernel and
+   the plain path: scores agree to rtol 1e-2 and fall, every parameter and
+   optimizer state tensor is still float32, the three bf16 kernels each
+   launch exactly 40 times on the kernel path while the f32 and decode
+   kernels launch 0 times, and nothing launches on the plain path. Prints
+   step p50, tokens/s, peak memory and the busy share and top kernels of
+   one profiled bf16 step beside phase 5's float32 numbers.
+7. One line `{"kernels": [...]}` with each of the 8 kernels' numbers, then
+   the last line `{"ok": true, "device": {...}}`.
 
 It exits non-zero without printing a result when no CUDA device is visible
 or when the package is not beside it.
@@ -94,11 +123,19 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_greedy.json"
 TRAIN_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_train.json"
+TRAIN_BF16_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_train_bf16.json"
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12      # H100 SXM f32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor cores
 TOL = 1e-4
 BWD_TOL = dict(rtol=2e-4, atol=2e-5)
 SCORE_RTOL = 1e-4
+# bf16 kernels against their f32-arithmetic plain versions, compared in
+# f32 (the rounding behind each bar is in the module docstring)
+BF16_OUT_TOL = 1.6e-2
+BF16_LSE_TOL = 1e-3
+BF16_GRAD_TOL = dict(rel=2e-2, of_max=1e-2)
+BF16_SCORE_RTOL = 1e-2
 TIE_GAP = 1e-6
 SERVE = dict(vocab_size=256, d_model=256, n_layers=4, n_heads=4)
 N_NEW = 32
@@ -140,25 +177,29 @@ def median_ms(fn, reps=30, warmup=3):
 
 def device_ms(fn, reps=20):
     """Device time per call of fn(): the kernels' own time summed by the
-    profiler (CUPTI), without the host's launch overhead. None when the
-    profiler records no device time."""
+    profiler (CUPTI), without the host's launch overhead. A window that
+    records no device time is taken once more; None when that one records
+    none either."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0) or 0
-                   for e in prof.key_averages())
-    return total_us / reps / 1e3 if total_us > 0 else None
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(getattr(e, "self_device_time_total", 0) or 0
+                       for e in prof.key_averages())
+        if total_us > 0:
+            return total_us / reps / 1e3
+    return None
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
     """(bound_ms, bound_by, bytes_ms, ops_ms) against the card's peaks."""
     bytes_ms = nbytes / PEAK_BYTES_S * 1e3
-    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    ops_ms = flops / peak_flops * 1e3
     by = "bytes" if bytes_ms >= ops_ms else "operations"
     return max(bytes_ms, ops_ms), by, bytes_ms, ops_ms
 
@@ -483,6 +524,167 @@ def _bwd_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
     return recs
 
 
+def _grad_err(a, b):
+    """(max abs err, worst share of its bar) of a bf16 gradient against its
+    plain version, in f32: |a - b| <= rel * |b| + of_max * max|b|."""
+    a, b = a.float(), b.float()
+    diff = (a - b).abs()
+    bar = BF16_GRAD_TOL["rel"] * b.abs() \
+        + BF16_GRAD_TOL["of_max"] * b.abs().max()
+    return float(diff.max()), float((diff / bar.clamp_min(1e-30)).max())
+
+
+def _bf16_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
+    """The three bf16 kernels at one shape: q, k, v and dO ~ N(0, 1)
+    rounded to bf16. The forward kernel (out and LSE) against
+    `flash_attention_plain`; the backward pair, fed the plain forward's
+    out and LSE, against its plain versions; with `repeat`, all three run
+    twice more and must give the same bits. Returns three records."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import (
+        attention_delta, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_plain, flash_attention_plain, flash_bwd_dkv,
+        flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain)
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+    q = torch.randn((B, Tq, H, D), generator=gen).to(dev, bf)
+    k, v = (torch.randn((B, Tk, H, D), generator=gen).to(dev, bf)
+            for _ in range(2))
+    g = torch.randn((B, Tq, H, D), generator=gen).to(dev, bf)
+    km = _key_mask(B, Tk, valid)
+    kw = dict(causal=causal, key_mask=km)
+    fwd = lambda: flash_attention(q, k, v, return_lse=True, **kw)
+    fwd_plain = lambda: flash_attention_plain(q, k, v, return_lse=True, **kw)
+    out_k, lse_k = fwd()
+    torch.cuda.synchronize()
+    out, lse = fwd_plain()
+    check(out_k.dtype == bf and lse_k.dtype == torch.float32,
+          f"flash_fwd_bf16 {label}: out {out_k.dtype}, lse {lse_k.dtype}")
+    check(bool(torch.isfinite(out_k.float()).all()),
+          f"flash_fwd_bf16 {label}: non-finite")
+    out_err = float((out_k.float() - out.float()).abs().max())
+    lse_err = float((lse_k - lse).abs().max())
+    check(out_err <= BF16_OUT_TOL, f"flash_fwd_bf16 {label}: max abs err "
+                                   f"{out_err} > {BF16_OUT_TOL}")
+    check(lse_err <= BF16_LSE_TOL, f"flash_fwd_bf16 {label}: lse max abs "
+                                   f"err {lse_err} > {BF16_LSE_TOL}")
+    delta = attention_delta(out, g)
+    runs = {
+        "flash_fwd_bf16": (fwd, fwd_plain),
+        "flash_bwd_dq_bf16": (
+            lambda: flash_bwd_dq(q, k, v, g, lse, delta, **kw),
+            lambda: flash_bwd_dq_plain(q, k, v, g, lse, delta, **kw)),
+        "flash_bwd_dkv_bf16": (
+            lambda: flash_bwd_dkv(q, k, v, g, lse, delta, **kw),
+            lambda: flash_bwd_dkv_plain(q, k, v, g, lse, delta, **kw))}
+    got = (runs["flash_bwd_dq_bf16"][0](),) + runs["flash_bwd_dkv_bf16"][0]()
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_plain(q, k, v, out, lse, g, **kw)
+    errs = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        check(a.dtype == bf, f"{label} {name}: {a.dtype}, not bfloat16")
+        check(bool(torch.isfinite(a.float()).all()),
+              f"{label} {name}: non-finite")
+        errs[name], share = _grad_err(a, b)
+        check(share <= 1.0, f"{label} {name}: outside |k - p| <= "
+                            f"{BF16_GRAD_TOL['rel']}|p| + "
+                            f"{BF16_GRAD_TOL['of_max']} max|p| (max abs err "
+                            f"{errs[name]}, {share:.2f} of the bar)")
+    if km is not None:
+        dead = km == 0
+        check(bool((got[1][dead] == 0).all() and (got[2][dead] == 0).all()),
+              f"{label}: a masked key's bf16 dk/dv row is not exactly 0")
+    if repeat:
+        for _ in range(2):
+            again_out, again_lse = fwd()
+            again = flash_attention_bwd(q, k, v, out, lse, g, **kw)
+            check(torch.equal(again_out, out_k)
+                  and torch.equal(again_lse, lse_k)
+                  and all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{label}: bf16 results differ bitwise between runs")
+    # the library: SDPA on the same bf16 inputs; backward = autograd
+    # through it (dq, dk and dv in one call), its forward taken untimed
+    sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    sg = g.transpose(1, 2).contiguous()
+    allowed = None
+    if km is not None:
+        allowed = (km > 0)[:, None, None, :]
+        if causal:
+            allowed = allowed & torch.ones((Tq, Tk), dtype=torch.bool,
+                                           device=dev).tril()
+    sdpa = lambda a, b, c: F.scaled_dot_product_attention(
+        a, b, c, is_causal=causal and km is None, attn_mask=allowed)
+    lib_fwd = lambda: sdpa(sq.detach(), sk.detach(), sv.detach())
+    lib_out = sdpa(sq, sk, sv)
+    lib_bwd = lambda: torch.autograd.grad(lib_out, (sq, sk, sv), sg,
+                                          retain_graph=True)
+    lib_fwd_err = float((lib_fwd().transpose(1, 2).float()
+                         - out.float()).abs().max())
+    lib_bwd_err = max(float((a.transpose(1, 2).float() - b.float())
+                            .abs().max())
+                      for a, b in zip(lib_bwd(), want))
+    lib = {"flash_fwd_bf16": (median_ms(lib_fwd), device_ms(lib_fwd),
+                              lib_fwd_err)}
+    lib["flash_bwd_dq_bf16"] = lib["flash_bwd_dkv_bf16"] = (
+        median_ms(lib_bwd), device_ms(lib_bwd), lib_bwd_err)
+    pairs = _valid_pairs(B, Tq, Tk, H, causal, km)
+    qo = 2 * B * Tq * H * D                 # one bf16 [B, Tq, H, D]
+    kv = 2 * B * Tk * H * D
+    mask_b = 4 * B * Tk if km is not None else 0
+    row_f32 = 4 * B * H * Tq                # one f32 [B, H, Tq]
+    work = {  # (bytes read once + written once, operations)
+        "flash_fwd_bf16": (qo + 2 * kv + mask_b + qo + row_f32,
+                           4 * D * pairs),
+        "flash_bwd_dq_bf16": (2 * qo + 2 * kv + 2 * row_f32 + mask_b + qo,
+                              6 * D * pairs),
+        "flash_bwd_dkv_bf16": (2 * qo + 2 * kv + 2 * row_f32 + mask_b
+                               + 2 * kv, 8 * D * pairs)}
+    err = {"flash_fwd_bf16": out_err, "flash_bwd_dq_bf16": errs["dq"],
+           "flash_bwd_dkv_bf16": max(errs["dk"], errs["dv"])}
+    recs = []
+    for name, (run, plain) in runs.items():
+        nbytes, ops = work[name]
+        b_ms, by, bytes_ms, ops_ms = bound(nbytes, ops, PEAK_BF16_FLOPS)
+        lib_ms, lib_dev, lib_err = lib[name]
+        recs.append({
+            "name": name, "case": label, "shape": [B, Tq, Tk, H, D],
+            "causal": causal, "key_mask": km is not None,
+            "max_abs_err": err[name], "lse_max_abs_err": lse_err,
+            "library_max_abs_err": lib_err, "ms": median_ms(run),
+            "plain_ms": median_ms(plain), "library_ms": lib_ms,
+            "library_note": "scaled_dot_product_attention on the same bf16 "
+                            "inputs" + ("" if name == "flash_fwd_bf16" else
+                                        "; torch.autograd.grad through it "
+                                        "gives dq, dk and dv in one call, "
+                                        "the pair's time"),
+            "bound_ms": b_ms, "bound_by": by, "bytes_bound_ms": bytes_ms,
+            "ops_bound_ms": ops_ms, "device_ms": device_ms(run),
+            "plain_device_ms": device_ms(plain), "library_device_ms": lib_dev,
+            "bitwise_repeat": repeat})
+    return recs
+
+
+def phase_kernels_bf16():
+    """Phase 2's bf16 cases: the train case (with and without a ragged
+    key mask; bitwise twice without), T=37-style ragged shapes not causal
+    with Tq != Tk at D=16/64/128, and B=4 T=4096 H=8 causal."""
+    import torch
+    gen = torch.Generator().manual_seed(1)
+    cases = _bf16_case(TRAIN_CASE, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 4, 64,
+                       True, None, gen, repeat=True)
+    cases += _bf16_case("train, ragged key mask", TRAIN_BATCH, TRAIN_SEQ,
+                        TRAIN_SEQ, 4, 64, True,
+                        [TRAIN_SEQ - 29 * b for b in range(TRAIN_BATCH)], gen)
+    for D in (64, 16, 128):
+        cases += _bf16_case(f"Tq=37 Tk=53 D={D}", 2, 37, 53, 4, D, False,
+                            [53, 20], gen)
+    cases += _bf16_case("B=4 T=4096 H=8", 4, 4096, 4096, 8, 64, True, None,
+                        gen)
+    return cases
+
+
 def phase_kernels():
     import torch
     gen = torch.Generator().manual_seed(0)
@@ -528,6 +730,7 @@ def phase_kernels():
                              [0, 1, 256, 37], gen))
     cases.append(_paged_case("S=64 nb=256 bs=16 H=8", 64, 16, 256, 8, 64,
                              [int(x) for x in big], gen))
+    cases += phase_kernels_bf16()
     fmt = lambda x: "not measured" if x is None else f"{x:.4f}"
     for c in cases:
         lib = "" if c["library_ms"] is None else \
@@ -538,7 +741,7 @@ def phase_kernels():
                   f"(device {fmt(c['gather_sdpa_device_ms'])})"
         if "slab_max_abs_diff" in c:
             lib += f" vs slab flash_decode {c['slab_max_abs_diff']:.2e}"
-        print(f"{c['name']:<14}{c['case']:<24} err {c['max_abs_err']:.2e} "
+        print(f"{c['name']:<19}{c['case']:<26} err {c['max_abs_err']:.2e} "
               f"kernel {c['ms']:.4f} ms (device {fmt(c['device_ms'])}) "
               f"plain {c['plain_ms']:.4f} ms (device "
               f"{fmt(c['plain_device_ms'])}){lib} bound "
@@ -548,13 +751,14 @@ def phase_kernels():
 
 
 # ------------------------------------------------------------------ phase 3
-def _full_width_net(use_pallas):
+def _full_width_net(use_pallas, compute_dtype=None):
     """`transformer_lm` at the served and trained width, weights from
     `synthetic_params(seed=0)`."""
     from deeplearning4j_tpu_torch.util.params import (params_from_jax,
                                                       synthetic_params)
     from deeplearning4j_tpu_torch.zoo import transformer_lm
-    net = transformer_lm(**SERVE, use_pallas=use_pallas, device=DEVICE)
+    net = transformer_lm(**SERVE, use_pallas=use_pallas,
+                         compute_dtype=compute_dtype, device=DEVICE)
     return net.init(params=params_from_jax(
         synthetic_params(net.param_shapes(), seed=0), device=DEVICE))
 
@@ -911,30 +1115,37 @@ def _one_hot_batch(batch, seq):
     return eye[ids[:, :-1]], eye[ids[:, 1:]]
 
 
-def phase_training():
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from deeplearning4j_tpu_torch.kernels import (launch_counts,
-                                                  reset_launch_counts)
-    fixture = json.loads(TRAIN_FIXTURE.read_text())
+def _fixture_on_card(path, compute_dtype, rtol):
+    """The JAX training fixture at `path` on the card (kernel path):
+    (card scores, JAX scores). Fails beyond `rtol`."""
+    fixture = json.loads(path.read_text())
     check(fixture["model"] == SERVE and fixture["param_seed"] == 0
-          and fixture["data_seed"] == 0,
-          "training fixture model differs from the trained model")
-    # the card against the JAX package: the fixture's per-step scores
-    net = _full_width_net(True)
+          and fixture["data_seed"] == 0
+          and fixture.get("compute_dtype") == compute_dtype,
+          f"training fixture {path.name} differs from the trained model")
+    net = _full_width_net(True, compute_dtype)
     x, y = _one_hot_batch(fixture["batch"], fixture["seq"])
-    fix_scores = []
+    card = []
     for _ in fixture["scores"]:
         net.fit(x, y)
-        fix_scores.append(net.score_value)
-    check(np.allclose(fix_scores, fixture["scores"], rtol=SCORE_RTOL, atol=0),
-          f"training fixture: card scores {fix_scores} != JAX "
-          f"{fixture['scores']}")
+        card.append(net.score_value)
+    check(np.allclose(card, fixture["scores"], rtol=rtol, atol=0),
+          f"training fixture {path.name}: card scores {card} != JAX "
+          f"{fixture['scores']} (rtol {rtol})")
+    return card, fixture["scores"]
 
+
+def _train_paths(compute_dtype):
+    """TRAIN_STEPS `fit` steps at TRAIN_BATCH x TRAIN_SEQ on the kernel
+    path and on the plain path, from the same weights: {use_pallas: run}
+    with scores, step times, launch counts and peak memory."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import (launch_counts,
+                                                  reset_launch_counts)
     x, y = _one_hot_batch(TRAIN_BATCH, TRAIN_SEQ)
     runs = {}
     for use_pallas in (True, False):
-        net = _full_width_net(use_pallas)
+        net = _full_width_net(use_pallas, compute_dtype)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
@@ -949,26 +1160,38 @@ def phase_training():
                                 launches=launch_counts(),
                                 peak_mb=torch.cuda.max_memory_allocated()
                                 / 2**20)
+    return runs, (x, y)
+
+
+def _check_train_paths(runs, kernels, rtol):
+    """Each of `kernels` launched 4 x TRAIN_STEPS times on the kernel path
+    and every other kernel never; nothing launched on the plain path; the
+    two paths' scores agree to `rtol`, are finite and fall."""
     kern, plain = runs[True], runs[False]
     want = TRAIN_STEPS * SERVE["n_layers"]
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        check(kern["launches"][name] == want,
-              f"{name} launched {kern['launches'][name]} times in "
-              f"{TRAIN_STEPS} steps, not {want}")
-    check(kern["launches"]["flash_decode"]
-          == kern["launches"]["flash_decode_paged"] == 0,
-          "a decode kernel launched on the training path")
+    for name, n in kern["launches"].items():
+        check(n == (want if name in kernels else 0),
+              f"{name} launched {n} times in {TRAIN_STEPS} steps, not "
+              f"{want if name in kernels else 0}")
     check(set(plain["launches"].values()) == {0},
           f"the plain path launched kernels: {plain['launches']}")
-    check(all(np.isfinite(kern["scores"])), "non-finite training score")
-    check(np.allclose(kern["scores"], plain["scores"], rtol=SCORE_RTOL,
-                      atol=0),
+    check(all(np.isfinite(kern["scores"] + plain["scores"])),
+          "non-finite training score")
+    check(np.allclose(kern["scores"], plain["scores"], rtol=rtol, atol=0),
           f"kernel path scores {kern['scores']} != plain path "
-          f"{plain['scores']}")
-    check(kern["scores"][-1] < kern["scores"][0],
-          f"the score did not fall: {kern['scores']}")
+          f"{plain['scores']} (rtol {rtol})")
+    for r in (kern, plain):
+        check(r["scores"][-1] < r["scores"][0],
+              f"the score did not fall: {r['scores']}")
 
-    # one more step on the kernel path, traced: where the device time goes
+
+def _train_summary(runs, batch, fixture_scores):
+    """Both paths' numbers and one more kernel-path step under the
+    profiler: where the device time goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    kern, plain = runs[True], runs[False]
+    x, y = batch
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         kern["net"].fit(x, y)
@@ -976,15 +1199,17 @@ def phase_training():
         traced_ms = (time.perf_counter() - t0) * 1e3
     tokens = TRAIN_BATCH * TRAIN_SEQ
     step = {p: float(np.median(r["times"])) for p, r in runs.items()}
-    summary = {
+    card, jax_scores = fixture_scores
+    return {
         "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
         "scores_kernel_path": kern["scores"],
         "scores_plain_path": plain["scores"],
         "max_score_rel_diff": float(np.max(
             np.abs(np.subtract(kern["scores"], plain["scores"]))
             / np.abs(plain["scores"]))),
-        "fixture_scores_card": fix_scores,
-        "fixture_scores_jax": fixture["scores"],
+        "fixture_scores_card": card, "fixture_scores_jax": jax_scores,
+        "fixture_max_rel_gap": float(np.max(
+            np.abs(np.subtract(card, jax_scores)) / np.abs(jax_scores))),
         "step_ms_p50_kernel_path": step[True] * 1e3,
         "step_ms_p50_plain_path": step[False] * 1e3,
         "step_ms_kernel_path": [t * 1e3 for t in kern["times"]],
@@ -995,7 +1220,52 @@ def phase_training():
         "peak_mb_plain_path": plain["peak_mb"],
         "launches": kern["launches"],
         "profiled_step": _profile_summary(prof, traced_ms, 10)}
+
+
+def phase_training():
+    fixture_scores = _fixture_on_card(TRAIN_FIXTURE, None, SCORE_RTOL)
+    runs, batch = _train_paths(None)
+    _check_train_paths(runs, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                       SCORE_RTOL)
+    summary = _train_summary(runs, batch, fixture_scores)
     print(json.dumps({"training": summary}))
+    return summary
+
+
+def phase_training_bf16(f32):
+    """bf16 mixed-precision training: the JAX bf16 fixture on the card,
+    then both paths at 16 x 512 with compute_dtype="bfloat16"; parameters
+    and optimizer state must stay float32. `f32` is phase 5's summary,
+    printed beside."""
+    import torch
+    fixture_scores = _fixture_on_card(TRAIN_BF16_FIXTURE, "bfloat16",
+                                      BF16_SCORE_RTOL)
+    runs, batch = _train_paths("bfloat16")
+    _check_train_paths(runs, ("flash_fwd_bf16", "flash_bwd_dq_bf16",
+                              "flash_bwd_dkv_bf16"), BF16_SCORE_RTOL)
+    for use_pallas, run in runs.items():
+        net = run["net"]
+        kinds = {t.dtype for ps in net.params.values() for t in ps.values()}
+        kinds |= {v.dtype for _, _, opt in net._optimizer._layers.values()
+                  for st in opt.state.values() for v in st.values()
+                  if isinstance(v, torch.Tensor)}
+        check(kinds == {torch.float32}, f"use_pallas={use_pallas}: "
+                                        f"parameters or optimizer state in "
+                                        f"{kinds}, not float32 only")
+    summary = _train_summary(runs, batch, fixture_scores)
+    summary["compute_dtype"] = "bfloat16"
+    keys = ("step_ms_p50_kernel_path", "step_ms_p50_plain_path",
+            "tokens_per_s_kernel_path", "tokens_per_s_plain_path",
+            "peak_mb_kernel_path", "peak_mb_plain_path")
+    summary["float32_same_call"] = {
+        **{k: f32[k] for k in keys},
+        "device_busy_share": f32["profiled_step"]["device_busy_share"]}
+    print(json.dumps({"training_bf16": summary}))
+    print("bf16 vs float32 training (same call): " + ", ".join(
+        f"{k} {summary[k]:.1f} vs {f32[k]:.1f}" for k in keys)
+          + f", busy {summary['profiled_step']['device_busy_share']:.3f} vs "
+            f"{f32['profiled_step']['device_busy_share']:.3f}, JAX bf16 "
+            f"fixture max rel gap {summary['fixture_max_rel_gap']:.2e}")
     return summary
 
 
@@ -1005,27 +1275,43 @@ REPLACES = {
     "flash_fwd": f"{_FA}:84 (_flash_kernel, pallas_call :206, via "
                  "flash_attention :512; with the LSE under its custom_vjp "
                  ":430-450 on the training path)",
+    "flash_fwd_bf16": f"{_FA}:84 (_flash_kernel on bf16 operands, f32 math "
+                      ":106-108, out in q's dtype :140/:191, pallas_call "
+                      ":206, via flash_attention :512 under its custom_vjp "
+                      ":430-450)",
     "flash_decode": f"{_FA}:84 (_flash_kernel, pallas_call :206, via "
                     "flash_decode :604)",
     "flash_decode_paged": f"{_FA}:84 (_flash_kernel, pallas_call :206, via "
                           "flash_decode_paged :648)",
     "flash_bwd_dq": f"{_FA}:226 (_bwd_dq_kernel, pallas_call :366, via "
                     "the custom_vjp of flash_attention :430-450)",
+    "flash_bwd_dq_bf16": f"{_FA}:226 (_bwd_dq_kernel on bf16 operands "
+                         ":246-249, dq in q's dtype :273/:380, pallas_call "
+                         ":366)",
     "flash_bwd_dkv": f"{_FA}:276 (_bwd_dkv_kernel, pallas_call :388, via "
                      "the custom_vjp of flash_attention :430-450)",
+    "flash_bwd_dkv_bf16": f"{_FA}:276 (_bwd_dkv_kernel on bf16 operands "
+                          ":297-300, dk/dv in k's/v's dtype "
+                          ":329-330/:406-407, pallas_call :388)",
 }
 _CSRC = "deeplearning4j_tpu_torch/kernels/csrc"
 SOURCES = {"flash_fwd": f"{_CSRC}/flash_fwd.cu",
+           "flash_fwd_bf16": f"{_CSRC}/flash_fwd_bf16.cu",
            "flash_decode": f"{_CSRC}/flash_decode.cu",
            "flash_decode_paged": f"{_CSRC}/flash_decode_paged.cu",
            "flash_bwd_dq": f"{_CSRC}/flash_bwd.cu",
-           "flash_bwd_dkv": f"{_CSRC}/flash_bwd.cu"}
+           "flash_bwd_dq_bf16": f"{_CSRC}/flash_bwd_bf16.cu",
+           "flash_bwd_dkv": f"{_CSRC}/flash_bwd.cu",
+           "flash_bwd_dkv_bf16": f"{_CSRC}/flash_bwd_bf16.cu"}
 # each kernel's main path and the case whose shape that path runs
 MAIN_PATH = {"flash_fwd": ("training", TRAIN_CASE),
+             "flash_fwd_bf16": ("training_bf16", TRAIN_CASE),
              "flash_decode": ("serving", "step S=8 C=256"),
              "flash_decode_paged": ("serving_paged", PAGED_STEP_CASE),
              "flash_bwd_dq": ("training", TRAIN_CASE),
-             "flash_bwd_dkv": ("training", TRAIN_CASE)}
+             "flash_bwd_dq_bf16": ("training_bf16", TRAIN_CASE),
+             "flash_bwd_dkv": ("training", TRAIN_CASE),
+             "flash_bwd_dkv_bf16": ("training_bf16", TRAIN_CASE)}
 
 
 def main():
@@ -1047,8 +1333,10 @@ def main():
     smi = phase_card()
     cases = phase_kernels()
     launches = {"serving": phase_serving()["launches"],
-                "serving_paged": phase_serving_paged()["launches"],
-                "training": phase_training()["launches"]}
+                "serving_paged": phase_serving_paged()["launches"]}
+    f32 = phase_training()
+    launches["training"] = f32["launches"]
+    launches["training_bf16"] = phase_training_bf16(f32)["launches"]
     kernels = []
     for name, (path, case) in MAIN_PATH.items():
         c = next(c for c in cases if c["name"] == name and c["case"] == case)

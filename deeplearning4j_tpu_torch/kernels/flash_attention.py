@@ -1,18 +1,22 @@
 """Attention kernels for Hopper, the port of
 deeplearning4j_tpu/kernels/flash_attention.py.
 
-Five hand-written CUDA kernels, each behind a wrapper with its plain
+Eight hand-written CUDA kernels, each behind a wrapper with its plain
 PyTorch version beside it:
 
-- `flash_attention` -> `csrc/flash_fwd.cu`, replacing the TPU kernel
-  `_flash_kernel` (flash_attention.py:84-143, `pl.pallas_call` at :206) as
-  `flash_attention` (:512) runs it: causal, key-masked attention for the
-  decode prefill and, with its log-sum-exp, the training forward. Plain
-  version: `flash_attention_plain`.
-- `flash_bwd_dq` -> `csrc/flash_bwd.cu` (`flash_bwd_dq_f32`), replacing
+- `flash_attention` -> `csrc/flash_fwd.cu` (`flash_fwd_f32`) for float32
+  and `csrc/flash_fwd_bf16.cu` (`flash_fwd_bf16`, tensor cores) for
+  bfloat16, replacing the TPU kernel `_flash_kernel` (flash_attention.py:
+  84-143, `pl.pallas_call` at :206) as `flash_attention` (:512) runs it:
+  causal, key-masked attention for the decode prefill and, with its
+  log-sum-exp, the training forward. Plain version:
+  `flash_attention_plain`.
+- `flash_bwd_dq` -> `csrc/flash_bwd.cu` (`flash_bwd_dq_f32`) and
+  `csrc/flash_bwd_bf16.cu` (`flash_bwd_dq_bf16`), replacing
   `_bwd_dq_kernel` (:226-273, `pallas_call` :366); plain version
   `flash_bwd_dq_plain`.
-- `flash_bwd_dkv` -> `csrc/flash_bwd.cu` (`flash_bwd_dkv_f32`), replacing
+- `flash_bwd_dkv` -> `csrc/flash_bwd.cu` (`flash_bwd_dkv_f32`) and
+  `csrc/flash_bwd_bf16.cu` (`flash_bwd_dkv_bf16`), replacing
   `_bwd_dkv_kernel` (:276-330, `pallas_call` :388); plain version
   `flash_bwd_dkv_plain`.
 - `flash_decode` -> `csrc/flash_decode.cu`, replacing `_flash_kernel` as
@@ -27,26 +31,33 @@ PyTorch version beside it:
   the kernel (the reference gathers the pool first). Plain version:
   `flash_decode_paged_plain`, the gather followed by `flash_decode_plain`.
 
+Types, as the TPU kernels have them: q, k, v (and dO) are all float32 or
+all bfloat16, and the attention entries dispatch on that type (mixed or
+other types raise); out, dq, dk and dv come back in the operands' type;
+the LSE, delta and the key mask are float32. The plain versions compute
+in float32 (float64 stays float64) and round to the operands' type once
+at the end, as the TPU kernels do. The decode kernels take float32.
+
 The gradient: under grad mode, with an input that requires grad,
 `flash_attention` runs `FlashAttentionFunction`, the counterpart of the
-JAX package's `custom_vjp` (:430-450). Its forward asks `flash_fwd` for
-the LSE (the JAX `need_lse`), its backward is `flash_attention_bwd`:
-delta = rowsum(dO o O) as a torch reduction, then the dq and the dk/dv
-kernels. This holds on the CPU too, where the plain versions run inside
-the Function. Without a gradient (serving, `inference_mode`) no LSE is
-written.
+JAX package's `custom_vjp` (:430-450). Its forward asks the forward
+kernel for the LSE (the JAX `need_lse`), its backward is
+`flash_attention_bwd`: delta = rowsum(dO o O) in float32 as a torch
+reduction, then the dq and the dk/dv kernels. This holds on the CPU too,
+where the plain versions run inside the Function. Without a gradient
+(serving, `inference_mode`) no LSE is written.
 
 What bounds each kernel on the card and what its design does about it is
 noted at the top of its source. A wrapper runs the plain version only for
 a tensor on the CPU, as the tests do. For a CUDA tensor it launches the
-kernel or raises: a failed build or launch never falls back. Each wrapper
-counts its launches in `.launches`, a plain integer raised by one where
-the kernel launches and nowhere else.
+kernel or raises: a failed build or launch never falls back. Each launch
+adds one to its kernel's count in `launch_counts()`, where the kernel
+launches and nowhere else.
 
-Layouts are the JAX package's: [batch, time, heads, head_dim], float32;
-lse and delta are [batch, heads, Tq] float32. Head dims 16, 32, 64 and
-128 are compiled; any other raises. There is no tile-divisibility rule and
-no fallback: ragged lengths are masked inside the kernels.
+Layouts are the JAX package's: [batch, time, heads, head_dim]; lse and
+delta are [batch, heads, Tq]. Head dims 16, 32, 64 and 128 are compiled;
+any other raises. There is no tile-divisibility rule and no fallback:
+ragged lengths are masked inside the kernels.
 """
 from __future__ import annotations
 
@@ -55,7 +66,8 @@ import math
 
 import torch
 
-from ..parallel.ring_attention import attention_reference, masked_scores
+from ..parallel.ring_attention import (attention_reference, masked_scores,
+                                       widen)
 from . import build
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -70,6 +82,26 @@ _DECODE_PAGED_ARGTYPES = ([_P] * 7 + [_I] * 5 + [_L] * 8
 _BWD_DQ_ARGTYPES = [_P] * 8 + [_I] * 5 + [_L] * 12 + [_I, ctypes.c_float, _P]
 _BWD_DKV_ARGTYPES = [_P] * 9 + [_I] * 5 + [_L] * 12 + [_I, ctypes.c_float, _P]
 DECODE_CHUNK = 32   # keys per warp in csrc/flash_decode.cu (CHUNK)
+_ATTENTION_DTYPES = (torch.float32, torch.bfloat16)
+
+# each attention kernel's C argument types and, by operand type, its
+# (library, C entry); launches are counted under the entry's name without
+# "_f32"
+_ATTENTION_ENTRIES = {
+    "flash_fwd": (_FWD_ARGTYPES, {
+        torch.float32: ("flash_fwd", "flash_fwd_f32"),
+        torch.bfloat16: ("flash_fwd_bf16", "flash_fwd_bf16")}),
+    "flash_bwd_dq": (_BWD_DQ_ARGTYPES, {
+        torch.float32: ("flash_bwd", "flash_bwd_dq_f32"),
+        torch.bfloat16: ("flash_bwd_bf16", "flash_bwd_dq_bf16")}),
+    "flash_bwd_dkv": (_BWD_DKV_ARGTYPES, {
+        torch.float32: ("flash_bwd", "flash_bwd_dkv_f32"),
+        torch.bfloat16: ("flash_bwd_bf16", "flash_bwd_dkv_bf16")}),
+}
+_launches = dict.fromkeys(
+    ("flash_fwd", "flash_fwd_bf16", "flash_decode", "flash_decode_paged",
+     "flash_bwd_dq", "flash_bwd_dq_bf16", "flash_bwd_dkv",
+     "flash_bwd_dkv_bf16"), 0)
 
 
 def _on_host(t):
@@ -84,17 +116,39 @@ def _scale(scale, D):
     return float(1.0 / math.sqrt(D)) if scale is None else float(scale)
 
 
-def _check_f32_operands(q, **others):
-    """q and each named tensor: 4-D float32 on q's device, head dim
-    dense."""
+def _check_operands(q, dtypes=(torch.float32,), **others):
+    """q and each named tensor: 4-D, of one type among `dtypes` (q's), on
+    q's device, head dim dense."""
+    names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
     for name, t in (("q", q), *others.items()):
-        if t.dim() != 4 or t.dtype != torch.float32:
-            raise ValueError(f"{name} must be a 4-D float32 tensor, got "
+        if t.dim() != 4 or t.dtype not in dtypes:
+            raise ValueError(f"{name} must be a 4-D {names} tensor, got "
                              f"{tuple(t.shape)} {t.dtype}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}: the "
+                             "operands must share one type")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name} needs a dense head dim (stride 1)")
+
+
+def _aligned(t):
+    """A bf16 operand whose rows do not all start on 16-byte boundaries
+    (the bf16 kernels' vector loads: data pointer and (b, t, h) strides)
+    as a dense copy; anything else as it is."""
+    if t.dtype == torch.bfloat16 and (
+            t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
+def _entry(kernel, dtype):
+    """(bound C function, launch-count name) of `kernel` for `dtype`."""
+    argtypes, by_dtype = _ATTENTION_ENTRIES[kernel]
+    lib, symbol = by_dtype[dtype]
+    return (build.kernel_function(lib, symbol, argtypes),
+            symbol.removesuffix("_f32"))
 
 
 def _lengths_operand(lengths, S, device):
@@ -107,8 +161,8 @@ def _lengths_operand(lengths, S, device):
     return lengths
 
 
-def _check_attention_operands(q, k, v):
-    _check_f32_operands(q, k=k, v=v)
+def _check_attention_operands(q, k, v, dtypes=(torch.float32,)):
+    _check_operands(q, dtypes, k=k, v=v)
     if k.shape != v.shape or k.shape[0] != q.shape[0] \
             or k.shape[2:] != q.shape[2:]:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
@@ -147,32 +201,35 @@ def _bhd_strides(t):
 def flash_attention_plain(q, k, v, *, causal=False, scale=None,
                           key_mask=None, return_lse=False):
     """Materializing softmax attention with the kernel's semantics
-    (`parallel.ring_attention.attention_reference` in float32): masked
-    scores at the finite NEG_INF, causal on positions, key_mask [B, Tk]
-    (> 0 valid) shared by the heads. Returns out [B, Tq, H, D] and, with
-    `return_lse`, the per-row log-sum-exp [B, H, Tq] (f32)."""
-    res = attention_reference(q.float(), k.float(), v.float(), causal=causal,
-                              scale=scale, key_mask=key_mask,
-                              return_lse=return_lse)
+    (`parallel.ring_attention.attention_reference` in float32, at the
+    kernel's scale): masked scores at the finite NEG_INF, causal on
+    positions, key_mask [B, Tk] (> 0 valid) shared by the heads. Returns
+    out [B, Tq, H, D] in q's type and, with `return_lse`, the per-row
+    log-sum-exp [B, H, Tq] (f32)."""
+    res = attention_reference(widen(q), widen(k), widen(v),
+                              causal=causal, scale=_scale(scale, q.shape[3]),
+                              key_mask=key_mask, return_lse=return_lse)
     if return_lse:
         return res[0].to(q.dtype), res[1]
     return res.to(q.dtype)
 
 
 def _flash_forward(q, k, v, causal, scale, key_mask, return_lse):
-    """The forward wrapper: `flash_fwd` for CUDA tensors, the plain
-    version for CPU tensors; writes the LSE only with `return_lse`."""
+    """The forward wrapper: `flash_fwd` (f32) or `flash_fwd_bf16` for
+    CUDA tensors, the plain version for CPU tensors; writes the LSE only
+    with `return_lse`."""
     if _on_host(q):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      key_mask=key_mask,
                                      return_lse=return_lse)
-    fn = build.kernel_function("flash_fwd", "flash_fwd_f32", _FWD_ARGTYPES)
-    _check_attention_operands(q, k, v)
+    _check_attention_operands(q, k, v, _ATTENTION_DTYPES)
+    fn, name = _entry("flash_fwd", q.dtype)
     _check_bh_grid(q)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     km = _prep_key_mask(key_mask, B, Tk, q.device)
-    out = torch.empty((B, Tq, H, D), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(km),
@@ -180,16 +237,17 @@ def _flash_forward(q, k, v, causal, scale, key_mask, return_lse):
              *_bhd_strides(q), *_bhd_strides(k), *_bhd_strides(v),
              int(bool(causal)), _scale(scale, D), _stream(q.device))
     if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: cudaError_t {err}")
-    flash_attention.launches += 1
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    _launches[name] += 1
     return (out, lse) if return_lse else out
 
 
 class FlashAttentionFunction(torch.autograd.Function):
     """Attention with its hand-written backward: the counterpart of the
-    JAX package's `_flash` custom_vjp (:430-450). Forward: `flash_fwd`
-    with the LSE. Saves q, k, v, the key mask, out and lse; backward runs
-    `flash_attention_bwd`. The mask gets no gradient."""
+    JAX package's `_flash` custom_vjp (:430-450). Forward: the forward
+    kernel with the LSE. Saves q, k, v (in their type), the key mask, out
+    and the f32 lse; backward runs `flash_attention_bwd`, whose gradients
+    come back in the operands' type. The mask gets no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, causal, scale):
@@ -209,11 +267,11 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, causal=False, scale=None, key_mask=None,
                     return_lse=False):
-    """Flash attention on [batch, time, heads, head_dim] tensors: the
-    `flash_fwd` kernel for CUDA tensors, `flash_attention_plain` for CPU
-    tensors. key_mask: optional [batch, Tk] (or broadcastable) key
-    validity. Returns out [B, Tq, H, D], plus lse [B, H, Tq] f32 with
-    `return_lse`.
+    """Flash attention on [batch, time, heads, head_dim] tensors, all
+    float32 or all bfloat16: the forward kernel for CUDA tensors,
+    `flash_attention_plain` for CPU tensors. key_mask: optional [batch, Tk]
+    (or broadcastable) key validity. Returns out [B, Tq, H, D] in q's
+    type, plus lse [B, H, Tq] f32 with `return_lse`.
 
     Under grad mode, with an input that requires grad, the call goes
     through `FlashAttentionFunction`, whose backward runs the dq and dk/dv
@@ -230,38 +288,41 @@ def flash_attention(q, k, v, *, causal=False, scale=None, key_mask=None,
     return _flash_forward(q, k, v, causal, scale, key_mask, return_lse)
 
 
-flash_attention.launches = 0
-
-
 # ------------------------------------------------------------ backward
 def _bwd_probs(q, k, v, g, lse, delta, causal, scale, key_mask):
-    """The TPU backward kernels' recompute: p = exp(s - lse) from the
-    masked scores, ds = p (dO.v - delta) scale. Both [B, H, Tq, Tk]."""
-    s = masked_scores(q, k, causal=causal, scale=scale, key_mask=key_mask)
+    """The TPU backward kernels' recompute, in float32 from upcast
+    operands: p = exp(s - lse) from the masked scores, ds = p (dO.v -
+    delta) scale. Both [B, H, Tq, Tk]."""
+    scale = _scale(scale, q.shape[3])
+    s = masked_scores(widen(q), widen(k), causal=causal, scale=scale,
+                      key_mask=key_mask)
     p = torch.exp(s - lse[..., None])
-    dp = torch.einsum("bqhd,bkhd->bhqk", g, v)
-    return p, p * (dp - delta[..., None]) * _scale(scale, q.shape[3])
+    dp = torch.einsum("bqhd,bkhd->bhqk", widen(g), widen(v))
+    return p, p * (dp - delta[..., None]) * scale
 
 
 def attention_delta(out, g):
-    """delta = rowsum(dO o O), [B, H, Tq]: the row contraction the JAX
-    package forms outside its backward kernels (:342-349)."""
-    return torch.einsum("bqhd,bqhd->bhq", g, out)
+    """delta = rowsum(dO o O), [B, H, Tq] float32 from the upcast operands:
+    the row contraction the JAX package forms outside its backward kernels
+    (:342-349)."""
+    return torch.einsum("bqhd,bqhd->bhq", widen(g), widen(out))
 
 
 def flash_bwd_dq_plain(q, k, v, g, lse, delta, *, causal=False, scale=None,
                        key_mask=None):
-    """dq [B, Tq, H, D] from the recomputed ds: sum over keys of ds.K."""
+    """dq [B, Tq, H, D] in q's type from the recomputed ds: sum over keys
+    of ds.K."""
     _, ds = _bwd_probs(q, k, v, g, lse, delta, causal, scale, key_mask)
-    return torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, widen(k)).to(q.dtype)
 
 
 def flash_bwd_dkv_plain(q, k, v, g, lse, delta, *, causal=False, scale=None,
                         key_mask=None):
-    """(dk, dv) [B, Tk, H, D]: sums over queries of ds^T.Q and p^T.dO."""
+    """(dk, dv) [B, Tk, H, D] in k's and v's type: sums over queries of
+    ds^T.Q and p^T.dO."""
     p, ds = _bwd_probs(q, k, v, g, lse, delta, causal, scale, key_mask)
-    return (torch.einsum("bhqk,bqhd->bkhd", ds, q),
-            torch.einsum("bhqk,bqhd->bkhd", p, g))
+    return (torch.einsum("bhqk,bqhd->bkhd", ds, widen(q)).to(k.dtype),
+            torch.einsum("bhqk,bqhd->bkhd", p, widen(g)).to(v.dtype))
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, g, *, causal=False,
@@ -272,20 +333,19 @@ def flash_attention_bwd_plain(q, k, v, out, lse, g, *, causal=False,
     forward's masking at the finite NEG_INF."""
     delta = attention_delta(out, g)
     p, ds = _bwd_probs(q, k, v, g, lse, delta, causal, scale, key_mask)
-    return (torch.einsum("bhqk,bkhd->bqhd", ds, k),
-            torch.einsum("bhqk,bqhd->bkhd", ds, q),
-            torch.einsum("bhqk,bqhd->bkhd", p, g))
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, widen(k)).to(q.dtype),
+            torch.einsum("bhqk,bqhd->bkhd", ds, widen(q)).to(k.dtype),
+            torch.einsum("bhqk,bqhd->bkhd", p, widen(g)).to(v.dtype))
 
 
 def _bwd_operands(q, k, v, g, lse, delta, key_mask):
-    """Checks shared by the two backward launches; returns (g, lse, delta,
-    key mask) in the layouts the kernels read."""
-    _check_attention_operands(q, k, v)
+    """Checks shared by the two backward launches; returns (q, k, v, g,
+    lse, delta, key mask) in the layouts the kernels read."""
+    _check_attention_operands(q, k, v, _ATTENTION_DTYPES)
     _check_bh_grid(q)
     B, Tq, H, _ = q.shape
-    if g.shape != q.shape or g.dtype != torch.float32 \
-            or g.device != q.device:
-        raise ValueError(f"dO must be float32 {tuple(q.shape)} on "
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError(f"dO must be {q.dtype} {tuple(q.shape)} on "
                          f"{q.device}, got {tuple(g.shape)} {g.dtype}")
     if g.stride(-1) != 1:           # e.g. an expanded cotangent: stride 0
         g = g.contiguous()
@@ -294,23 +354,24 @@ def _bwd_operands(q, k, v, g, lse, delta, key_mask):
                 or t.device != q.device:
             raise ValueError(f"{name} must be float32 {(B, H, Tq)} on "
                              f"{q.device}, got {tuple(t.shape)} {t.dtype}")
-    return (g, lse.contiguous(), delta.contiguous(),
+    return (_aligned(q), _aligned(k), _aligned(v), _aligned(g),
+            lse.contiguous(), delta.contiguous(),
             _prep_key_mask(key_mask, B, k.shape[1], q.device))
 
 
 def flash_bwd_dq(q, k, v, g, lse, delta, *, causal=False, scale=None,
                  key_mask=None):
-    """dq [B, Tq, H, D]: the `flash_bwd_dq` kernel for CUDA tensors,
-    `flash_bwd_dq_plain` for CPU tensors. g is dO; lse and delta are
-    [B, H, Tq] float32."""
+    """dq [B, Tq, H, D] in q's type: the dq kernel (f32 or bf16) for CUDA
+    tensors, `flash_bwd_dq_plain` for CPU tensors. g is dO; lse and delta
+    are [B, H, Tq] float32."""
     if _on_host(q):
         return flash_bwd_dq_plain(q, k, v, g, lse, delta, causal=causal,
                                   scale=scale, key_mask=key_mask)
-    fn = build.kernel_function("flash_bwd", "flash_bwd_dq_f32",
-                               _BWD_DQ_ARGTYPES)
-    g, lse, delta, km = _bwd_operands(q, k, v, g, lse, delta, key_mask)
+    q, k, v, g, lse, delta, km = _bwd_operands(q, k, v, g, lse, delta,
+                                               key_mask)
+    fn, name = _entry("flash_bwd_dq", q.dtype)
     B, Tq, H, D = q.shape
-    dq = torch.empty((B, Tq, H, D), dtype=torch.float32, device=q.device)
+    dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), _ptr(km), dq.data_ptr(),
              B, H, Tq, k.shape[1], D,
@@ -318,28 +379,25 @@ def flash_bwd_dq(q, k, v, g, lse, delta, *, causal=False, scale=None,
              *_bhd_strides(g), int(bool(causal)), _scale(scale, D),
              _stream(q.device))
     if err != 0:
-        raise RuntimeError(f"flash_bwd_dq launch failed: cudaError_t {err}")
-    flash_bwd_dq.launches += 1
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    _launches[name] += 1
     return dq
-
-
-flash_bwd_dq.launches = 0
 
 
 def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal=False, scale=None,
                   key_mask=None):
-    """(dk, dv) [B, Tk, H, D]: the `flash_bwd_dkv` kernel for CUDA
-    tensors, `flash_bwd_dkv_plain` for CPU tensors."""
+    """(dk, dv) [B, Tk, H, D] in k's type: the dk/dv kernel (f32 or bf16)
+    for CUDA tensors, `flash_bwd_dkv_plain` for CPU tensors."""
     if _on_host(q):
         return flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal=causal,
                                    scale=scale, key_mask=key_mask)
-    fn = build.kernel_function("flash_bwd", "flash_bwd_dkv_f32",
-                               _BWD_DKV_ARGTYPES)
-    g, lse, delta, km = _bwd_operands(q, k, v, g, lse, delta, key_mask)
+    q, k, v, g, lse, delta, km = _bwd_operands(q, k, v, g, lse, delta,
+                                               key_mask)
+    fn, name = _entry("flash_bwd_dkv", q.dtype)
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
-    dk = torch.empty((B, Tk, H, D), dtype=torch.float32, device=q.device)
-    dv = torch.empty((B, Tk, H, D), dtype=torch.float32, device=q.device)
+    dk = torch.empty((B, Tk, H, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, Tk, H, D), dtype=v.dtype, device=q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), _ptr(km), dk.data_ptr(),
              dv.data_ptr(), B, H, Tq, Tk, D,
@@ -347,19 +405,16 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal=False, scale=None,
              *_bhd_strides(g), int(bool(causal)), _scale(scale, D),
              _stream(q.device))
     if err != 0:
-        raise RuntimeError(f"flash_bwd_dkv launch failed: cudaError_t {err}")
-    flash_bwd_dkv.launches += 1
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    _launches[name] += 1
     return dk, dv
-
-
-flash_bwd_dkv.launches = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, g, *, causal=False, scale=None,
                         key_mask=None):
     """(dq, dk, dv) given the forward's out and lse and the cotangent g:
     `flash_attention_bwd_plain` for CPU tensors; for CUDA tensors delta
-    as a torch reduction, then the dq and dk/dv kernels."""
+    as a float32 torch reduction, then the dq and dk/dv kernels."""
     if _on_host(q):
         return flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal,
                                          scale=scale, key_mask=key_mask)
@@ -411,11 +466,8 @@ def flash_decode(q, k, v, lengths, *, scale=None):
              _scale(scale, D), _stream(q.device))
     if err != 0:
         raise RuntimeError(f"flash_decode launch failed: cudaError_t {err}")
-    flash_decode.launches += 1
+    _launches["flash_decode"] += 1
     return out
-
-
-flash_decode.launches = 0
 
 
 def flash_decode_paged_plain(q, k_pool, v_pool, block_table, lengths, *,
@@ -435,7 +487,7 @@ def flash_decode_paged_plain(q, k_pool, v_pool, block_table, lengths, *,
 def _check_paged_operands(q, k_pool, v_pool, block_table, lengths):
     """Checks of the paged launch; returns (table, lengths) as the dense
     int32 tensors the kernel reads."""
-    _check_f32_operands(q, k_pool=k_pool, v_pool=v_pool)
+    _check_operands(q, k_pool=k_pool, v_pool=v_pool)
     S, _, H, D = q.shape
     if k_pool.shape != v_pool.shape or k_pool.shape[2:] != (H, D):
         raise ValueError(f"pools k {tuple(k_pool.shape)} / v "
@@ -492,22 +544,16 @@ def flash_decode_paged(q, k_pool, v_pool, block_table, lengths, *,
     if err != 0:
         raise RuntimeError(
             f"flash_decode_paged launch failed: cudaError_t {err}")
-    flash_decode_paged.launches += 1
+    _launches["flash_decode_paged"] += 1
     return out
 
 
-flash_decode_paged.launches = 0
-
-_COUNTED = {"flash_fwd": flash_attention, "flash_decode": flash_decode,
-            "flash_decode_paged": flash_decode_paged,
-            "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
-
-
 def launch_counts():
-    """{kernel name: launches} of every hand kernel."""
-    return {name: fn.launches for name, fn in _COUNTED.items()}
+    """{kernel name: launches} of every hand kernel (the bf16 entries under
+    their own names)."""
+    return dict(_launches)
 
 
 def reset_launch_counts():
-    for fn in _COUNTED.values():
-        fn.launches = 0
+    for name in _launches:
+        _launches[name] = 0

@@ -12,7 +12,18 @@ parameters (`detach`, sharing storage), `torch.autograd.grad` for the
 gradients (attention's backward in the hand-written kernels when
 `use_pallas=True`), gradient normalization, then the per-layer optimizer
 updates the parameters IN PLACE. A cached decode engine reads the
-parameters live, so `generate` after `fit` sees the trained weights."""
+parameters live, so `generate` after `fit` sees the trained weights.
+
+Mixed precision (`compute_dtype="bfloat16"`, JAX graph.py:169-191): the
+parameters stay float32 masters. The loss and `output` cast every
+non-output layer's parameters and the float inputs to bf16 with `.to()`,
+which autograd differentiates, so the gradients reach the masters in
+float32 and the optimizer state stays float32. Network output layers keep
+float32 parameters, and the features fed to their score are cast back to
+float32: the loss runs in full precision. Masks are not cast, so where a
+float32 mask multiplies a bf16 activation the result is float32 from
+there on, as in JAX (`base.matmul` promotes as JAX does). The decode
+engine serves the float32 masters, as the JAX engine does."""
 from __future__ import annotations
 
 import torch
@@ -25,6 +36,7 @@ from ..updaters import (PerLayerOptimizer, apply_gradient_normalization,
                         layer_transform)
 
 _DTYPES = {"float32": torch.float32}
+_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16}
 
 
 class ComputationGraph:
@@ -36,10 +48,11 @@ class ComputationGraph:
                        if conf.vertices[name].kind == "layer"}
         if conf.dtype not in _DTYPES:
             raise NotImplementedError(f"dtype {conf.dtype!r} is not ported")
-        if conf.compute_dtype not in (None, conf.dtype):
+        if conf.compute_dtype not in (None, conf.dtype, *_COMPUTE_DTYPES):
             raise NotImplementedError(
-                "mixed-precision compute is not ported yet (ROADMAP queue 1: "
-                "bf16 training, with bf16 attention kernels)")
+                f"compute_dtype {conf.compute_dtype!r} is not ported; the "
+                f"port computes in {sorted(_COMPUTE_DTYPES)} or the model "
+                "dtype")
         self._dtype = _DTYPES[conf.dtype]
         self.device = resolve_device(device)
         self.params = None
@@ -140,26 +153,59 @@ class ComputationGraph:
             [None if a is None else self._to_model(a) for a in arrs]
 
     def output(self, *inputs, mask=None):
-        """Inference forward. `mask` is a [batch, time] validity mask for
-        the first network input. Returns the output tensor (a list for
-        several outputs) on the model's device."""
+        """Inference forward (in the compute dtype, if one is set). `mask`
+        is a [batch, time] validity mask for the first network input.
+        Returns the output tensor (a list for several outputs) on the
+        model's device, in the model dtype."""
         if self.params is None:
             self.init()
         with torch.inference_mode():
-            xs = [self._to_model(x) for x in inputs]
+            params, xs = self._cast_for_compute(
+                self.params, [self._to_model(x) for x in inputs])
             masks = None
             if mask is not None:
                 masks = [self._to_model(mask)] + [None] * (len(xs) - 1)
-            acts, _ = self._forward(self.params, xs, masks)
-            outs = [acts[o] for o in self.conf.network_outputs]
+            acts, _ = self._forward(params, xs, masks)
+            outs = [acts[o].to(self._dtype)
+                    for o in self.conf.network_outputs]
         return outs[0] if len(outs) == 1 else outs
+
+    # ------------------------------------------------------- mixed precision
+    def _compute_dtype(self):
+        """The compute dtype when it differs from the model dtype, else
+        None."""
+        cd = self.conf.compute_dtype
+        return None if cd in (None, self.conf.dtype) else _COMPUTE_DTYPES[cd]
+
+    def _cast_for_compute(self, params, inputs):
+        """bf16 compute for all non-output layers: their parameters and the
+        float (and uint8) inputs cast with `.to()`; network output layers
+        keep the parameter dtype so their loss runs in full precision (JAX
+        graph.py:175-191). Integer inputs are not cast."""
+        cd = self._compute_dtype()
+        if cd is None:
+            return params, inputs
+        outs = set(self.conf.network_outputs)
+
+        def cast(a):
+            if isinstance(a, torch.Tensor) and (a.is_floating_point()
+                                                or a.dtype == torch.uint8):
+                return a.to(cd)
+            return a
+        params = {name: (ps if name in outs
+                         else {k: cast(v) for k, v in ps.items()})
+                  for name, ps in params.items()}
+        return params, [cast(x) for x in inputs]
 
     # ---------------------------------------------------------------- loss
     def _loss(self, params, inputs, labels, *, train, masks=None,
               label_masks=None):
         """Scalar score: every output layer's loss on the features feeding
-        it (its forward is replaced by its score), plus l1/l2."""
+        it (its forward is replaced by its score), plus l1/l2. Under a
+        compute dtype the forward runs on the cast parameters and the
+        features reach the loss in the model dtype."""
         conf = self.conf
+        params, inputs = self._cast_for_compute(params, inputs)
         acts, out_masks = self._forward(params, inputs, masks, train=train,
                                         skip=self._loss_only)
         total = 0.0
@@ -171,6 +217,8 @@ class ComputationGraph:
                 raise ValueError(f"Network output '{out_name}' is not an "
                                  "output layer")
             feats = acts[spec.inputs[0]]
+            if self._compute_dtype() is not None:
+                feats = feats.to(self._dtype)   # loss in full precision
             mask = mlab if mlab is not None else out_masks.get(spec.inputs[0])
             total = total + layer.score(params[out_name], feats, y, mask,
                                         train)

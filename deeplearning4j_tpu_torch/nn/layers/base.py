@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from ..activations import get_activation
-from ...device import resolve_device
+from ...device import bf16_product, resolve_device
 from ..weights import init_weights
 
 LAYER_IMPL_REGISTRY: dict = {}
@@ -40,6 +40,18 @@ def apply_dropout(x, rate, train):
     raise NotImplementedError(
         "training-time dropout is not ported yet (ROADMAP queue 1: "
         "training-time dropout)")
+
+
+def matmul(x, w):
+    """x @ w with the JAX package's type promotion: a bfloat16 operand
+    meeting a float32 one is widened to float32 first (torch's matmul
+    takes one type). This is where a masked bf16 batch, promoted to f32 by
+    the attention layer's mask, meets the next layer's bf16 kernels. A
+    bf16 product rounds once (`device.bf16_product`)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return bf16_product(torch.matmul, x, w)
 
 
 class BaseLayerModule:

@@ -19,6 +19,8 @@ class LayerNormalizationModule(BaseLayerModule):
     def forward(self, params, x, *, train=False, mask=None):
         mu = x.mean(dim=-1, keepdim=True)
         var = torch.square(x - mu).mean(dim=-1, keepdim=True)
-        y = (x - mu) * torch.rsqrt(var + self.conf.eps)
+        # JAX adds eps as a weakly typed scalar: it takes var's type first
+        eps = float(torch.tensor(self.conf.eps, dtype=var.dtype))
+        y = (x - mu) * torch.rsqrt(var + eps)
         y = y * params["gamma"] + params["beta"]
         return self.activation_fn()(y), mask

@@ -1,12 +1,13 @@
 """Dense and per-timestep output layers (counterpart of
 deeplearning4j_tpu/nn/layers/feedforward.py). Kernels are stored
 [n_in, n_out] and applied as `x @ W + b`, the JAX package's layout; the
-products stay `torch.matmul`, as the JAX package left them to XLA. An
+products stay `torch.matmul` (`base.matmul`, with the JAX type
+promotion), as the JAX package left them to XLA. An
 output layer also scores: its loss on the features feeding it."""
 from __future__ import annotations
 
 from ..losses import get_loss
-from .base import BaseLayerModule, register_impl, apply_dropout
+from .base import BaseLayerModule, register_impl, apply_dropout, matmul
 
 
 class _DenseCore(BaseLayerModule):
@@ -15,7 +16,7 @@ class _DenseCore(BaseLayerModule):
         return {"W": ((n_in, n_out), "weight"), "b": ((n_out,), "bias")}
 
     def preoutput(self, params, x):
-        return x @ params["W"] + params["b"]
+        return matmul(x, params["W"]) + params["b"]
 
     def forward(self, params, x, *, train=False, mask=None):
         x = apply_dropout(x, self.conf.dropout, train)

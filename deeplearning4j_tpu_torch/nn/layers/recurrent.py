@@ -7,7 +7,7 @@ the decode engine runs the projections and the output projection around
 its own attention call (prefill kernel or decode kernel)."""
 from __future__ import annotations
 
-from .base import BaseLayerModule, register_impl, apply_dropout
+from .base import BaseLayerModule, register_impl, apply_dropout, matmul
 
 
 @register_impl("SelfAttentionLayer")
@@ -33,9 +33,9 @@ class SelfAttentionLayerModule(BaseLayerModule):
         B, T, _ = x.shape
         H = int(c.n_heads)
         Dh = int(c.n_out) // H
-        q = (x @ params["Wq"]).reshape(B, T, H, Dh)
-        k = (x @ params["Wk"]).reshape(B, T, H, Dh)
-        v = (x @ params["Wv"]).reshape(B, T, H, Dh)
+        q = matmul(x, params["Wq"]).reshape(B, T, H, Dh)
+        k = matmul(x, params["Wk"]).reshape(B, T, H, Dh)
+        v = matmul(x, params["Wv"]).reshape(B, T, H, Dh)
         return q, k, v
 
     def attend(self, q, k, v, mask):
@@ -61,9 +61,11 @@ class SelfAttentionLayerModule(BaseLayerModule):
         context [b, t, H, Dh]."""
         c = self.conf
         B, T = out.shape[0], out.shape[1]
-        out = out.reshape(B, T, int(c.n_out)) @ params["Wo"] + params["b"]
+        out = matmul(out.reshape(B, T, int(c.n_out)), params["Wo"]) \
+            + params["b"]
         out = self.activation_fn()(out)
         if mask is not None:
+            # a float32 mask promotes a bf16 output to f32, as in JAX
             out = out * mask[:, :, None]
         return out
 
