@@ -103,8 +103,43 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    kernels launch 0 times, and nothing launches on the plain path. Prints
    step p50, tokens/s, peak memory and the busy share and top kernels of
    one profiled bf16 step beside phase 5's float32 numbers.
-7. One line `{"kernels": [...]}` with each of the 8 kernels' numbers, then
-   the last line `{"ok": true, "device": {...}}`.
+7. The ring: `flash_attention_lse` (causal offsets, the LSE's gradient)
+   and sequence-parallel ring attention, `parallel/ring_attention.py`.
+   First the entry against its plain version at the ring's shard shape,
+   B=4 Tq=Tk=1024 H=8 D=64 bf16: the diagonal shard (offsets 1024/1024)
+   and a past shard (1024/0, every key visible), each with and without a
+   ragged key mask, and offsets 0/512, where the first 512 rows see no key
+   (out exactly 0, lse <= -1e29, a zero dq row, nothing non-finite). Out
+   and lse, then the backward pair fed the plain out and lse and a random
+   LSE cotangent (delta = rowsum(dO o O) - g_lse); phase 2's bf16 bars.
+   The same five cases in float32 at B=1 H=4 with phase 2's float32 bars.
+   `library_ms` is SDPA on the same shard (causal on the diagonal, none
+   on the past shard, null where a row has no key); SDPA returns no LSE.
+   Then the bf16 ring at `bench_flash_attention`'s shape (bench.py:
+   510-538), B=4 T=4096 H=8 D=64 causal, forward and the gradient of
+   out.float().sum(), on `make_mesh(n_data=1, n_seq=4, devices=[cuda:0] *
+   4)` and on one shard. With every count set to 0 just before each: at
+   n=4 exactly 10 launches each of `flash_fwd_bf16`, `flash_bwd_dq_bf16`
+   and `flash_bwd_dkv_bf16` (4 diagonal + 6 past shards; the 6 future
+   shards launch nothing) and none of the others; at n=1 one each, and
+   the result equals `flash_attention` on the whole sequence bit for bit.
+   The n=4 output must equal `flash_attention` on the whole sequence
+   within max abs 1.6e-2: rows of the first shard see one partial of
+   weight 1 and equal it bit for bit; every other row averages over 1024
+   keys or more (|out| < 2), where the partials' rounding to bf16 before
+   the float32 merge, the result's rounding and the kernels' rounding of
+   P stay within two bf16 ulps. Ring and whole call must each sit within
+   phase 2's bf16 bars (out 1.6e-2; gradients |k - p| <= 2e-2 |p| + 1e-2
+   max|p|, which also holds the ring's bf16 sums of 4 partial gradients
+   per shard) of the float32 plain version on the whole sequence (~2.1 GB
+   of scores). A float32 ring, B=1 T=2048 H=4 on 4 shards, against the
+   plain version: out max abs 1e-4, gradients allclose(rtol=2e-4,
+   atol=2e-5); 10 launches each of the three float32 kernels. Prints the
+   forward + backward time of ring n=4, ring n=1, `flash_attention` on
+   the whole sequence and SDPA (`{"ring": ...}`).
+8. One line `{"kernels": [...]}` with each of the 8 kernels' numbers
+   (`launches_by_path` gains the ring's two paths), then the last line
+   `{"ok": true, "device": {...}}`.
 
 It exits non-zero without printing a result when no CUDA device is visible
 or when the package is not beside it.
@@ -145,6 +180,10 @@ PAGED_REQUESTS, PAGED_NEW = 16, 128
 PAGED_STEP_CASE = "step S=8 bs=16 nb=16"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 512, 10
 TRAIN_CASE = f"train B={TRAIN_BATCH} T={TRAIN_SEQ} H=4 D=64"
+# the ring: bench.py's bench_flash_attention shape (:510-538), 4 shards
+RING_B, RING_T, RING_H, RING_D, RING_N = 4, 4096, 8, 64, 4
+RING_SHARD = RING_T // RING_N
+RING_F32 = dict(B=1, T=2048, H=4)
 DEVICE = "cuda"
 
 
@@ -231,14 +270,24 @@ def phase_card():
 
 
 # ------------------------------------------------------------------ phase 2
-def _valid_pairs(B, Tq, Tk, H, causal, km):
-    """Unmasked (q, k) pairs: what the kernels' operations scale with."""
+def _causal_visible(Tq, Tk, q_off=0, k_off=0):
+    """[Tq, Tk] bool: key j (at k_off + j) is visible to query i (at
+    q_off + i) under the causal mask."""
+    import torch
+    qpos = q_off + torch.arange(Tq, device=DEVICE)[:, None]
+    kpos = k_off + torch.arange(Tk, device=DEVICE)[None, :]
+    return kpos <= qpos
+
+
+def _valid_pairs(B, Tq, Tk, H, causal, km, q_off=0, k_off=0):
+    """Unmasked (q, k) pairs: what the kernels' operations scale with
+    (causal at global positions q_off + i, k_off + j)."""
     import torch
     ok = torch.ones((B, Tq, Tk), dtype=torch.bool, device=DEVICE)
     if km is not None:
         ok &= (km > 0)[:, None, :]
     if causal:
-        ok &= torch.ones((Tq, Tk), dtype=torch.bool, device=DEVICE).tril()
+        ok &= _causal_visible(Tq, Tk, q_off, k_off)
     return int(ok.sum()) * H
 
 
@@ -1269,6 +1318,306 @@ def phase_training_bf16(f32):
     return summary
 
 
+# ------------------------------------------------------------------ phase 7
+def _lse_case(label, dtype, B, T, H, D, offsets, valid, gen):
+    """`flash_attention_lse` at one ring shard shape (Tq = Tk = T) with the
+    causal offsets (q_off, k_off): out and lse against
+    `flash_attention_plain`, then the backward pair, fed the plain
+    forward's out and lse and delta = rowsum(dO o O) - g_lse for a random
+    LSE cotangent g_lse, against its plain versions. Rows that see no key
+    must come out 0 with lse <= -1e29 and a zero dq row. Bars: phase 2's,
+    by type. Returns the three kernels' records."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import (
+        attention_delta, flash_attention_bwd_plain, flash_attention_lse,
+        flash_attention_plain, flash_bwd_dkv, flash_bwd_dkv_plain,
+        flash_bwd_dq, flash_bwd_dq_plain)
+    dev = torch.device(DEVICE)
+    bf16 = dtype == torch.bfloat16
+    suffix = "_bf16" if bf16 else ""
+    q, k, v, g = (torch.randn((B, T, H, D), generator=gen).to(dev, dtype)
+                  for _ in range(4))
+    g_lse = torch.randn((B, H, T), generator=gen).to(dev)
+    km = _key_mask(B, T, valid)
+    q_off, k_off = offsets
+    kw = dict(causal=True, key_mask=km, q_offset=q_off, k_offset=k_off)
+    fwd = lambda: flash_attention_lse(q, k, v, **kw)
+    fwd_plain = lambda: flash_attention_plain(q, k, v, return_lse=True, **kw)
+    out_k, lse_k = fwd()
+    torch.cuda.synchronize()
+    out, lse = fwd_plain()
+    name = f"flash_attention_lse {label} {str(dtype)[6:]}"
+    check(out_k.dtype == dtype and lse_k.dtype == torch.float32,
+          f"{name}: out {out_k.dtype}, lse {lse_k.dtype}")
+    check(bool(torch.isfinite(out_k.float()).all()
+               and torch.isfinite(lse_k).all()), f"{name}: non-finite")
+    none = torch.arange(T, device=dev) + q_off < k_off
+    if bool(none.any()):
+        check(bool((out_k[:, none] == 0).all()
+                   and (lse_k[:, :, none] <= -1e29).all()),
+              f"{name}: a row that sees no key is not out 0, lse <= -1e29")
+    out_err = float((out_k.float() - out.float()).abs().max())
+    lse_err = float((lse_k - lse).abs().max())
+    out_tol, lse_tol = (BF16_OUT_TOL, BF16_LSE_TOL) if bf16 else (TOL, TOL)
+    check(out_err <= out_tol, f"{name}: max abs err {out_err} > {out_tol}")
+    check(lse_err <= lse_tol, f"{name}: lse max abs err {lse_err} > "
+                              f"{lse_tol}")
+    delta = attention_delta(out, g) - g_lse
+    runs = {
+        "flash_fwd" + suffix: (fwd, fwd_plain),
+        "flash_bwd_dq" + suffix: (
+            lambda: flash_bwd_dq(q, k, v, g, lse, delta, **kw),
+            lambda: flash_bwd_dq_plain(q, k, v, g, lse, delta, **kw)),
+        "flash_bwd_dkv" + suffix: (
+            lambda: flash_bwd_dkv(q, k, v, g, lse, delta, **kw),
+            lambda: flash_bwd_dkv_plain(q, k, v, g, lse, delta, **kw))}
+    got = (runs["flash_bwd_dq" + suffix][0](),) \
+        + runs["flash_bwd_dkv" + suffix][0]()
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_plain(q, k, v, out, lse, g, g_lse=g_lse, **kw)
+    errs = {}
+    for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+        check(a.dtype == dtype and bool(torch.isfinite(a.float()).all()),
+              f"{name} {gname}: {a.dtype} or non-finite")
+        if bf16:
+            errs[gname], share = _grad_err(a, b)
+            check(share <= 1.0, f"{name} {gname}: outside the bf16 bar "
+                                f"({share:.2f} of it)")
+        else:
+            errs[gname] = float((a - b).abs().max())
+            check(bool(torch.allclose(a, b, **BWD_TOL)),
+                  f"{name} {gname}: not allclose to plain {BWD_TOL} (max "
+                  f"abs err {errs[gname]})")
+    if bool(none.any()):
+        check(bool((got[0][:, none] == 0).all()),
+              f"{name}: a row that sees no key has a non-zero dq")
+    # the library: SDPA on the same shard (causal on the diagonal, no mask
+    # where every key is visible); SDPA returns no LSE. None where a row
+    # has no visible key (SDPA gives NaN there).
+    vis = _causal_visible(T, T, q_off, k_off)
+    allowed = None if bool(vis.all()) else vis[None, None]
+    if km is not None:
+        allowed = (km > 0)[:, None, None, :] & \
+            (vis[None, None] if allowed is None else allowed)
+    lib = dict.fromkeys(runs, (None, None, None))
+    if allowed is None or bool(allowed.any(-1).all()):
+        is_causal = allowed is not None and km is None and q_off == k_off
+        mask = None if is_causal else allowed
+        sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        sdpa = lambda a, b, c: F.scaled_dot_product_attention(
+            a, b, c, is_causal=is_causal, attn_mask=mask)
+        lib_fwd = lambda: sdpa(sq.detach(), sk.detach(), sv.detach())
+        lib_out = sdpa(sq, sk, sv)
+        sg = g.transpose(1, 2).contiguous()
+        lib_bwd = lambda: torch.autograd.grad(lib_out, (sq, sk, sv), sg,
+                                              retain_graph=True)
+        lib_fwd_err = float((lib_fwd().transpose(1, 2).float()
+                             - out.float()).abs().max())
+        lib["flash_fwd" + suffix] = (median_ms(lib_fwd), device_ms(lib_fwd),
+                                     lib_fwd_err)
+        lib["flash_bwd_dq" + suffix] = lib["flash_bwd_dkv" + suffix] = (
+            median_ms(lib_bwd), device_ms(lib_bwd), None)
+    pairs = _valid_pairs(B, T, T, H, True, km, q_off, k_off)
+    es = 2 if bf16 else 4
+    qo = es * B * T * H * D
+    mask_b = 4 * B * T if km is not None else 0
+    row_f32 = 4 * B * H * T
+    work = {  # (bytes read once + written once, operations)
+        "flash_fwd" + suffix: (4 * qo + mask_b + row_f32, 4 * D * pairs),
+        "flash_bwd_dq" + suffix: (5 * qo + 2 * row_f32 + mask_b,
+                                  6 * D * pairs),
+        "flash_bwd_dkv" + suffix: (6 * qo + 2 * row_f32 + mask_b,
+                                   8 * D * pairs)}
+    err = {"flash_fwd" + suffix: out_err,
+           "flash_bwd_dq" + suffix: errs["dq"],
+           "flash_bwd_dkv" + suffix: max(errs["dk"], errs["dv"])}
+    recs = []
+    for kname, (run, plain) in runs.items():
+        nbytes, ops = work[kname]
+        b_ms, by, bytes_ms, ops_ms = bound(
+            nbytes, ops, PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
+        lib_ms, lib_dev, lib_err = lib[kname]
+        recs.append({
+            "name": kname, "case": label, "shape": [B, T, T, H, D],
+            "offsets": [q_off, k_off], "causal": True,
+            "key_mask": km is not None, "g_lse": True,
+            "max_abs_err": err[kname], "lse_max_abs_err": lse_err,
+            "library_max_abs_err": lib_err, "ms": median_ms(run),
+            "plain_ms": median_ms(plain), "library_ms": lib_ms,
+            "library_note": "scaled_dot_product_attention on the same shard "
+                            "(it returns no LSE)" + (
+                                "" if kname.startswith("flash_fwd") else
+                                "; torch.autograd.grad through it gives dq, "
+                                "dk and dv in one call, the pair's time"),
+            "bound_ms": b_ms, "bound_by": by, "bytes_bound_ms": bytes_ms,
+            "ops_bound_ms": ops_ms, "device_ms": device_ms(run),
+            "plain_device_ms": device_ms(plain), "library_device_ms": lib_dev})
+    return recs
+
+
+def _ring_step(q, k, v, mesh):
+    """The ring's forward and the gradient of out.float().sum()."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel.ring_attention import \
+        ring_attention
+    out = ring_attention(q, k, v, mesh, causal=True)
+    return out, torch.autograd.grad(out.float().sum(), (q, k, v))
+
+
+def _ring_launches(q, k, v, mesh):
+    """One ring step with every launch count set to 0 just before it;
+    (out, grads, counts)."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import (launch_counts,
+                                                  reset_launch_counts)
+    reset_launch_counts()
+    out, grads = _ring_step(q, k, v, mesh)
+    torch.cuda.synchronize()
+    return out, grads, launch_counts()
+
+
+def _check_ring_launches(counts, kernels, n, what):
+    """Each of `kernels` launched exactly n(n+1)/2 times (the diagonal and
+    past shards; a future shard launches nothing) and every other kernel
+    never."""
+    want = n * (n + 1) // 2
+    for name, c in counts.items():
+        check(c == (want if name in kernels else 0),
+              f"{what}: {name} launched {c} times, not "
+              f"{want if name in kernels else 0}")
+
+
+def phase_ring():
+    """`flash_attention_lse` at the ring's shard shapes, then the ring
+    itself: bf16 at B=4 T=4096 H=8 D=64 causal on a 4-shard mesh of one
+    card and on one shard, against `flash_attention` on the whole sequence
+    and the float32 plain version; and a float32 ring."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import (flash_attention,
+                                                  flash_attention_bwd_plain,
+                                                  flash_attention_plain)
+    from deeplearning4j_tpu_torch.parallel.sharding import make_mesh
+    gen = torch.Generator().manual_seed(2)
+    S = RING_SHARD
+    cases = []
+    for dtype, B, H in ((torch.bfloat16, RING_B, RING_H),
+                        (torch.float32, 1, 4)):
+        ragged = [S - 97 * (b + 1) for b in range(B)]
+        for label, offs in (("diagonal", (S, S)), ("past", (S, 0))):
+            for valid in (None, ragged):
+                cases += _lse_case(
+                    label + (", ragged key mask" if valid else ""), dtype,
+                    B, S, H, RING_D, offs, valid, gen)
+        cases += _lse_case("rows without keys", dtype, B, S, H, RING_D,
+                           (0, S // 2), None, gen)
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f}"
+    for c in cases:
+        print(f"{c['name']:<19}{c['case'] + ' ' + str(c['offsets']):<38} "
+              f"err {c['max_abs_err']:.2e} kernel {c['ms']:.4f} ms (device "
+              f"{fmt(c['device_ms'])}) plain {c['plain_ms']:.4f} ms "
+              f"(device {fmt(c['plain_device_ms'])}) library "
+              f"{fmt(c['library_ms'])} ms (device "
+              f"{fmt(c['library_device_ms'])}) bound {c['bound_ms']:.5f} "
+              f"ms ({c['bound_by']})")
+    print(json.dumps({"ring_kernel_cases": cases}))
+
+    dev = torch.device(DEVICE)
+    mesh = make_mesh(n_data=1, n_seq=RING_N, devices=[dev] * RING_N)
+    mesh1 = make_mesh(n_data=1, n_seq=1, devices=[dev])
+    bf = torch.bfloat16
+    shape = (RING_B, RING_T, RING_H, RING_D)
+    q, k, v = (torch.randn(shape, generator=gen).to(dev, bf)
+               .requires_grad_() for _ in range(3))
+    out, grads, counts = _ring_launches(q, k, v, mesh)
+    bf16_kernels = ("flash_fwd_bf16", "flash_bwd_dq_bf16",
+                    "flash_bwd_dkv_bf16")
+    _check_ring_launches(counts, bf16_kernels, RING_N, "bf16 ring n=4")
+    out1, grads1, counts1 = _ring_launches(q, k, v, mesh1)
+    _check_ring_launches(counts1, bf16_kernels, 1, "bf16 ring n=1")
+
+    def whole():
+        o = flash_attention(q, k, v, causal=True)
+        return o, torch.autograd.grad(o.float().sum(), (q, k, v))
+    out_w, grads_w = whole()
+    check(torch.equal(out1, out_w)
+          and all(torch.equal(a, b) for a, b in zip(grads1, grads_w)),
+          "bf16 ring n=1 is not flash_attention on the whole sequence, bit "
+          "for bit")
+    # the f32 plain version on the whole sequence (~2.1 GB of scores)
+    qf, kf, vf = (t.detach().float() for t in (q, k, v))
+    out_p, lse_p = flash_attention_plain(qf, kf, vf, causal=True,
+                                         return_lse=True)
+    grads_p = flash_attention_bwd_plain(qf, kf, vf, out_p, lse_p,
+                                        torch.ones_like(out_p), causal=True)
+    del lse_p
+    out, out_w = out.detach(), out_w.detach()
+    errs = {}
+    for what, a, b in (("ring vs whole", out, out_w),
+                       ("ring vs plain", out, out_p),
+                       ("whole vs plain", out_w, out_p)):
+        check(bool(torch.isfinite(a.float()).all()), f"{what}: non-finite")
+        errs[f"out {what}"] = e = float((a.float() - b.float()).abs().max())
+        check(e <= BF16_OUT_TOL, f"bf16 ring at {shape}: out {what} max "
+                                 f"abs err {e} > {BF16_OUT_TOL}")
+    for what, ga, gb in (("ring vs whole", grads, grads_w),
+                         ("ring vs plain", grads, grads_p),
+                         ("whole vs plain", grads_w, grads_p)):
+        for gname, a, b in zip(("dq", "dk", "dv"), ga, gb):
+            errs[f"{gname} {what}"], share = _grad_err(a, b)
+            check(share <= 1.0, f"bf16 ring: {gname} {what} outside the "
+                                f"bf16 gradient bar ({share:.2f} of it)")
+    del out_p, grads_p, qf, kf, vf
+
+    # the f32 ring against the plain version
+    fshape = (RING_F32["B"], RING_F32["T"], RING_F32["H"], RING_D)
+    qf, kf, vf = (torch.randn(fshape, generator=gen).to(dev)
+                  .requires_grad_() for _ in range(3))
+    out_f, grads_f, counts_f = _ring_launches(qf, kf, vf, mesh)
+    _check_ring_launches(counts_f, ("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv"), RING_N, "f32 ring")
+    with torch.no_grad():
+        ref, ref_lse = flash_attention_plain(qf, kf, vf, causal=True,
+                                             return_lse=True)
+    ref_g = flash_attention_bwd_plain(qf.detach(), kf.detach(), vf.detach(),
+                                      ref, ref_lse, torch.ones_like(ref),
+                                      causal=True)
+    errs["f32 ring out vs plain"] = e = float((out_f.detach() - ref)
+                                              .abs().max())
+    check(e <= TOL, f"f32 ring at {fshape}: max abs err {e} > {TOL}")
+    for gname, a, b in zip(("dq", "dk", "dv"), grads_f, ref_g):
+        errs[f"f32 ring {gname} vs plain"] = float((a - b).abs().max())
+        check(bool(torch.allclose(a, b, **BWD_TOL)),
+              f"f32 ring {gname}: not allclose to plain {BWD_TOL}")
+
+    # times of one forward + backward, each way, after the checks
+    sq, sk, sv = (t.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+        return torch.autograd.grad(o.float().sum(), (sq, sk, sv))
+    runs = {"ring_n4": lambda: _ring_step(q, k, v, mesh),
+            "ring_n1": lambda: _ring_step(q, k, v, mesh1),
+            "flash_attention_whole": whole, "sdpa_whole": sdpa,
+            "ring_f32_n4": lambda: _ring_step(qf, kf, vf, mesh)}
+    times = {name: {"ms": median_ms(fn, reps=10, warmup=2),
+                    "device_ms": device_ms(fn, reps=5)}
+             for name, fn in runs.items()}
+    summary = {"shape": list(shape), "n": RING_N, "causal": True,
+               "dtype": "bfloat16", "f32_shape": list(fshape),
+               "forward_backward": times, "max_abs_err": errs,
+               "launches_n4": counts, "launches_n1": counts1,
+               "launches_f32_n4": counts_f}
+    print(json.dumps({"ring": summary}))
+    print("ring forward + backward: " + ", ".join(
+        f"{k} {t['ms']:.4f} ms (device {fmt(t['device_ms'])})"
+        for k, t in times.items()))
+    return cases, summary
+
+
 # ------------------------------------------------------------------ main
 _FA = "deeplearning4j_tpu/kernels/flash_attention.py"
 REPLACES = {
@@ -1337,6 +1686,10 @@ def main():
     f32 = phase_training()
     launches["training"] = f32["launches"]
     launches["training_bf16"] = phase_training_bf16(f32)["launches"]
+    ring_cases, ring = phase_ring()
+    launches["ring"] = ring["launches_n4"]
+    launches["ring_f32"] = ring["launches_f32_n4"]
+    cases += ring_cases
     kernels = []
     for name, (path, case) in MAIN_PATH.items():
         c = next(c for c in cases if c["name"] == name and c["case"] == case)

@@ -2,17 +2,21 @@
 //
 // Replaces the two TPU kernels that `_flash_backward` (:333-417) of
 // deeplearning4j_tpu/kernels/flash_attention.py launches under the
-// custom_vjp of `flash_attention` (:430-450):
+// custom_vjps of `flash_attention` (:430-450) and `flash_attention_lse`
+// (:453-480):
 //   flash_bwd_dq_f32  <- `_bwd_dq_kernel`  (:226-273, pallas_call :366)
 //   flash_bwd_dkv_f32 <- `_bwd_dkv_kernel` (:276-330, pallas_call :388)
 // Both recompute the probabilities from the forward's log-sum-exp:
-// p = exp(x - lse) with x = scale * q.k, masked to the finite -1e30 exactly
-// as flash_fwd.cu masks it (scale first, then causal on positions from 0
-// on both sides, then the key mask), so a masked key has p = 0 and its dK
-// and dV rows come out exactly 0 (and are written). dp = dO.v,
+// p = exp(x - lse) with x = scale * q.k, masked exactly as flash_fwd.cu
+// masks it (scale first; then the key mask at the finite -1e30; then
+// causal on global positions, query row i at q_off + i and key j at
+// k_off + j, a key past the query's position at -inf), so a masked key
+// has p = 0 and its dK and dV rows come out exactly 0 (and are written),
+// and a row that sees no key (its LSE at -1e30) adds nothing. dp = dO.v,
 // ds = p * (dp - delta) * scale, dQ = sum ds.K, dV = sum p^T.dO,
-// dK = sum ds^T.Q. delta = rowsum(dO o O) is computed by the wrapper (a
-// torch reduction, as the TPU path formed it outside its kernels).
+// dK = sum ds^T.Q. delta = rowsum(dO o O) - g_lse is computed by the
+// wrapper (a torch reduction, as the TPU path formed it outside its
+// kernels, :342-348; g_lse is the LSE's cotangent on the ring, else 0).
 // lse and delta are [B, H, Tq] f32, the layout flash_fwd.cu writes.
 //
 // Design. The TPU grid walked its innermost axis in order and carried dq
@@ -23,8 +27,10 @@
 //        over key tiles of 64 up to the causal limit; dq stays in
 //        registers (4 rows x D/16 columns per thread).
 //   dkv: a block of 128 threads per (key tile of 32 rows, batch*head)
-//        loops over q tiles of 64 from the diagonal on; dk and dv stay in
-//        registers (4 key rows x D/16 columns each per thread).
+//        loops over q tiles of 64 from the first one that reaches the
+//        tile's first key; dk and dv stay in registers (4 key rows x D/16
+//        columns each per thread). A key tile that no query sees runs no
+//        q tile and writes zeros.
 // No atomics: every output element is written once by one thread, so a
 // result is the same bit for bit from run to run. Tiles are staged in
 // shared memory with rows padded to D+1 floats (column reads free of bank
@@ -62,7 +68,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ key_mask,
                     float* __restrict__ dq, int H, int Tq, int Tk,
                     Strides qs, Strides ks, Strides vs, Strides os,
-                    int causal, float scale) {
+                    int causal, int q_off, int k_off, float scale) {
   constexpr int BQ = DQ_BQ, BK = DQ_BK;
   constexpr int CPT = D / 16;   // dq columns per thread
   constexpr int RS = D + 1;     // padded row of a q/dO/k/v tile
@@ -104,8 +110,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int cc = 0; cc < CPT; ++cc) acc[ii][cc] = 0.f;
 
-  // causal: no key past the tile's last query row is ever visible
-  const int k_end = causal ? min(Tk, min(Tq, q0 + BQ)) : Tk;
+  // causal: key j is visible to row i iff j <= i + shift; no key past
+  // the tile's last query row is ever visible
+  const int shift = q_off - k_off;
+  const int k_end = causal ? min(Tk, max(0, min(Tq, q0 + BQ) + shift)) : Tk;
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();            // the previous tile's ds.K is done
     for (int i = tid; i < BK * D; i += THREADS) {
@@ -155,8 +163,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float p = 0.f;            // past the ragged edge: weight exactly 0
         if (kpos < Tk) {
           float x = s[ii][jj] * scale;
-          if (causal && kpos > q0 + r) x = NEG_INF;
           if (km && !(km[kpos] > 0.f)) x = NEG_INF;
+          if (causal && kpos > q0 + r + shift) x = -INFINITY;
           p = expf(x - l);
         }
         Ss[r * SS + c] = p * (dp[ii][jj] - dl) * scale;
@@ -199,7 +207,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ key_mask,
                      float* __restrict__ dk, float* __restrict__ dv, int H,
                      int Tq, int Tk, Strides qs, Strides ks, Strides vs,
-                     Strides os, int causal, float scale) {
+                     Strides os, int causal, int q_off, int k_off,
+                     float scale) {
   constexpr int BK = KV_BK, BQ = KV_BQ;
   constexpr int CPT = D / 16;   // dk/dv columns per thread
   constexpr int RS = D + 1;     // padded row of a k/v/q/dO tile
@@ -244,8 +253,11 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int cc = 0; cc < CPT; ++cc) dk_acc[ii][cc] = dv_acc[ii][cc] = 0.f;
 
-  // causal: q tiles wholly above the diagonal see none of these keys
-  const int q_start = causal ? (k0 / BQ) * BQ : 0;
+  // causal: key j is visible to row i iff j <= i + shift, so rows before
+  // k0 - shift see none of these keys; start at the q tile that holds
+  // the first one that does
+  const int shift = q_off - k_off;
+  const int q_start = causal ? max(0, ((k0 - shift) / BQ) * BQ) : 0;
   for (int q0 = q_start; q0 < Tq; q0 += BQ) {
     __syncthreads();            // K/V staged; the previous tile is consumed
     for (int i = tid; i < BQ * D; i += THREADS) {
@@ -300,8 +312,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float p = 0.f;            // past either ragged edge: weight 0
         if (qpos < Tq && kpos < Tk) {
           float x = s[ii][jj] * scale;
-          if (causal && kpos > qpos) x = NEG_INF;
           if (!kvalid[ii]) x = NEG_INF;
+          if (causal && kpos > qpos + shift) x = -INFINITY;
           p = expf(x - lse_s[c]);
         }
         Ps[r * PS + c] = p;
@@ -349,7 +361,7 @@ struct Operands {
   const float *q, *k, *v, *dout, *lse, *delta, *key_mask;
   int B, H, Tq, Tk;
   Strides qs, ks, vs, os;
-  int causal;
+  int causal, q_off, k_off;
   float scale;
 };
 
@@ -365,7 +377,7 @@ int launch_dq(const Operands& a, float* dq, cudaStream_t stream) {
   const dim3 grid((a.Tq + DQ_BQ - 1) / DQ_BQ, a.B * a.H);
   flash_bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
       a.q, a.k, a.v, a.dout, a.lse, a.delta, a.key_mask, dq, a.H, a.Tq,
-      a.Tk, a.qs, a.ks, a.vs, a.os, a.causal, a.scale);
+      a.Tk, a.qs, a.ks, a.vs, a.os, a.causal, a.q_off, a.k_off, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -381,7 +393,7 @@ int launch_dkv(const Operands& a, float* dk, float* dv, cudaStream_t stream) {
   const dim3 grid((a.Tk + KV_BK - 1) / KV_BK, a.B * a.H);
   flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, stream>>>(
       a.q, a.k, a.v, a.dout, a.lse, a.delta, a.key_mask, dk, dv, a.H, a.Tq,
-      a.Tk, a.qs, a.ks, a.vs, a.os, a.causal, a.scale);
+      a.Tk, a.qs, a.ks, a.vs, a.os, a.causal, a.q_off, a.k_off, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -398,11 +410,11 @@ extern "C" int flash_bwd_dq_f32(
     long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh,
     long long o_sb, long long o_st, long long o_sh,
-    int causal, float scale, void* stream) {
+    int causal, int q_off, int k_off, float scale, void* stream) {
   const Operands a{q, k, v, dout, lse, delta, key_mask, B, H, Tq, Tk,
                    Strides{q_sb, q_st, q_sh}, Strides{k_sb, k_st, k_sh},
                    Strides{v_sb, v_st, v_sh}, Strides{o_sb, o_st, o_sh},
-                   causal, scale};
+                   causal, q_off, k_off, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return launch_dq<16>(a, dq, st);
@@ -421,11 +433,11 @@ extern "C" int flash_bwd_dkv_f32(
     long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh,
     long long o_sb, long long o_st, long long o_sh,
-    int causal, float scale, void* stream) {
+    int causal, int q_off, int k_off, float scale, void* stream) {
   const Operands a{q, k, v, dout, lse, delta, key_mask, B, H, Tq, Tk,
                    Strides{q_sb, q_st, q_sh}, Strides{k_sb, k_st, k_sh},
                    Strides{v_sb, v_st, v_sh}, Strides{o_sb, o_st, o_sh},
-                   causal, scale};
+                   causal, q_off, k_off, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return launch_dkv<16>(a, dk, dv, st);

@@ -3,19 +3,22 @@
 //
 // Replaces the two TPU kernels that `_flash_backward` (:333-417) of
 // deeplearning4j_tpu/kernels/flash_attention.py launches under the
-// custom_vjp of `flash_attention` (:430-450), on their bf16 path:
+// custom_vjps of `flash_attention` (:430-450) and `flash_attention_lse`
+// (:453-480), on their bf16 path:
 //   flash_bwd_dq_bf16  <- `_bwd_dq_kernel`  (:226-273, pallas_call :366)
 //   flash_bwd_dkv_bf16 <- `_bwd_dkv_kernel` (:276-330, pallas_call :388)
 // The TPU kernels upcast their bf16 q, k, v and dO tiles to f32 (:246-249,
 // :297-300), take lse and delta in f32 and write dq, dk and dv in the
 // operands' dtype (:273, :329-330; out_shape :380, :406-407). Semantics
-// as flash_bwd.cu: p = exp(x - lse) with x = scale * q.k masked to the
-// finite -1e30 exactly as the forward masks it, dp = dO.v,
+// as flash_bwd.cu: p = exp(x - lse) with x = scale * q.k masked exactly as
+// the forward masks it (causal on global positions q_off + i, k_off + j at
+// -inf, the key mask at the finite -1e30), dp = dO.v,
 // ds = p * (dp - delta) * scale, dQ = sum ds.K, dV = sum p^T.dO,
 // dK = sum ds^T.Q; a masked key has p = 0, so its dK and dV rows come out
-// exactly 0 (and are written). delta = rowsum(dO o O) in f32 is the
-// wrapper's (flash_attention.py forms it from the f32 upcasts, as :345
-// does). lse and delta are [B, H, Tq] f32, the layout flash_fwd writes.
+// exactly 0 (and are written), and a row that sees no key adds nothing.
+// delta = rowsum(dO o O) - g_lse in f32 is the wrapper's
+// (flash_attention.py forms it from the f32 upcasts, as :342-348 does).
+// lse and delta are [B, H, Tq] f32, the layout flash_fwd writes.
 //
 // Design: PR 2's ownership scheme (flash_bwd.cu). Blocks on Hopper run in
 // no set order, so a block owns its output tile and walks the other axis:
@@ -23,7 +26,8 @@
 //        loop over key tiles of 64 up to the causal limit;
 //   dkv: 4 warps per (key tile of 64 rows, batch*head), 16 keys a warp,
 //        loop over q tiles (64 rows; 32 at D=128, to bound registers)
-//        from the diagonal on.
+//        from the first one that reaches the tile's first key (none, and
+//        zeros written, when no query sees it).
 // No atomics: every output element is written once by one thread, so a
 // result is the same bit for bit from run to run. Tiles are staged in
 // shared memory as bf16 and fed to `mma.sync` m16n8k16 through `ldmatrix`
@@ -78,7 +82,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                          const float* __restrict__ key_mask,
                          bf16* __restrict__ dq, int H, int Tq, int Tk,
                          Strides qs, Strides ks, Strides vs, Strides os,
-                         int causal, float scale) {
+                         int causal, int q_off, int k_off, float scale) {
   constexpr int BQ = DQ_BQ, BK = DQ_BK;
   constexpr int LD = D + 8;
   constexpr int NT = BK / 8;    // 8-key n-tiles of a score tile
@@ -103,6 +107,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   const float* km = key_mask ? key_mask + (long long)b * Tk : nullptr;
   const int wr = warp * 16;
   const int rows[2] = {q0 + wr + g, q0 + wr + g + 8};
+  // causal: the last key index each row sees (global positions)
+  const int last[2] = {rows[0] + q_off - k_off, rows[1] + q_off - k_off};
   float lse_r[2], dl_r[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -120,7 +126,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
 
   // causal: no key past the tile's last query row is ever visible
-  const int k_end = causal ? min(Tk, min(Tq, q0 + BQ)) : Tk;
+  const int k_end =
+      causal ? min(Tk, max(0, min(Tq, q0 + BQ) + q_off - k_off)) : Tk;
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();            // Q/dO staged; the last tile is consumed
     load_tile<D>(Ks, kb, ks.t, k0, BK, Tk, tid, THREADS);
@@ -161,8 +168,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
         float p = 0.f;            // past the ragged edge: weight exactly 0
         if (kpos < Tk) {
           float x = s[nt][e] * scale;
-          if (causal && kpos > rows[i]) x = NEG_INF;
           if (!(Ms[c] > 0.f)) x = NEG_INF;
+          if (causal && kpos > last[i]) x = -INFINITY;
           p = expf(x - lse_r[i]);
         }
         s[nt][e] = p * (dp[nt][e] - dl_r[i]) * scale;
@@ -202,7 +209,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
                           const float* __restrict__ key_mask,
                           bf16* __restrict__ dk, bf16* __restrict__ dv,
                           int H, int Tq, int Tk, Strides qs, Strides ks,
-                          Strides vs, Strides os, int causal, float scale) {
+                          Strides vs, Strides os, int causal, int q_off,
+                          int k_off, float scale) {
   constexpr int BK = KV_BK, BQ = kv_bq<D>();
   constexpr int LD = D + 8;
   constexpr int NT = BQ / 8;    // 8-query n-tiles of a transposed score tile
@@ -228,6 +236,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   const float* km = key_mask ? key_mask + (long long)b * Tk : nullptr;
   const int wr = warp * 16;
   const int keys[2] = {k0 + wr + g, k0 + wr + g + 8};  // this thread's keys
+  // causal: the first query index that sees each key (global positions)
+  const int first[2] = {keys[0] + k_off - q_off, keys[1] + k_off - q_off};
   bool kvalid[2];               // in range and not masked
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -241,8 +251,9 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
 
-  // causal: q tiles wholly above the diagonal see none of these keys
-  const int q_start = causal ? (k0 / BQ) * BQ : 0;
+  // causal: query rows before global position k_off + k0 see none of
+  // these keys; start at the q tile that holds the first one that does
+  const int q_start = causal ? max(0, ((k0 + k_off - q_off) / BQ) * BQ) : 0;
   for (int q0 = q_start; q0 < Tq; q0 += BQ) {
     __syncthreads();            // K/V staged; the last tile is consumed
     load_tile<D>(Qs, qb, qs.t, q0, BQ, Tq, tid, THREADS);
@@ -287,8 +298,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
         float p = 0.f;            // past either ragged edge: weight 0
         if (qpos < Tq && keys[i] < Tk) {
           float x = st[nt][e] * scale;
-          if (causal && keys[i] > qpos) x = NEG_INF;
           if (!kvalid[i]) x = NEG_INF;
+          if (causal && first[i] > qpos) x = -INFINITY;
           p = expf(x - lse_s[c]);
         }
         st[nt][e] = p;
@@ -331,7 +342,7 @@ struct Operands {
   const float *lse, *delta, *key_mask;
   int B, H, Tq, Tk;
   Strides qs, ks, vs, os;
-  int causal;
+  int causal, q_off, k_off;
   float scale;
 };
 
@@ -346,7 +357,7 @@ int launch_dq(const Operands& a, bf16* dq, cudaStream_t stream) {
   const dim3 grid((a.Tq + DQ_BQ - 1) / DQ_BQ, a.B * a.H);
   flash_bwd_dq_bf16_kernel<D><<<grid, THREADS, smem, stream>>>(
       a.q, a.k, a.v, a.dout, a.lse, a.delta, a.key_mask, dq, a.H, a.Tq,
-      a.Tk, a.qs, a.ks, a.vs, a.os, a.causal, a.scale);
+      a.Tk, a.qs, a.ks, a.vs, a.os, a.causal, a.q_off, a.k_off, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -362,20 +373,22 @@ int launch_dkv(const Operands& a, bf16* dk, bf16* dv, cudaStream_t stream) {
   const dim3 grid((a.Tk + KV_BK - 1) / KV_BK, a.B * a.H);
   flash_bwd_dkv_bf16_kernel<D><<<grid, THREADS, smem, stream>>>(
       a.q, a.k, a.v, a.dout, a.lse, a.delta, a.key_mask, dk, dv, a.H, a.Tq,
-      a.Tk, a.qs, a.ks, a.vs, a.os, a.causal, a.scale);
+      a.Tk, a.qs, a.ks, a.vs, a.os, a.causal, a.q_off, a.k_off, a.scale);
   return (int)cudaGetLastError();
 }
 
 Operands operands(const void* q, const void* k, const void* v,
                   const void* dout, const float* lse, const float* delta,
                   const float* key_mask, int B, int H, int Tq, int Tk,
-                  const long long (&st)[12], int causal, float scale) {
+                  const long long (&st)[12], int causal, int q_off,
+                  int k_off, float scale) {
   return Operands{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v),
                   static_cast<const bf16*>(dout), lse, delta, key_mask,
                   B, H, Tq, Tk, Strides{st[0], st[1], st[2]},
                   Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
-                  Strides{st[9], st[10], st[11]}, causal, scale};
+                  Strides{st[9], st[10], st[11]}, causal, q_off, k_off,
+                  scale};
 }
 
 }  // namespace
@@ -393,11 +406,11 @@ extern "C" int flash_bwd_dq_bf16(
     long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh,
     long long o_sb, long long o_st, long long o_sh,
-    int causal, float scale, void* stream) {
+    int causal, int q_off, int k_off, float scale, void* stream) {
   const long long st[12] = {q_sb, q_st, q_sh, k_sb, k_st, k_sh,
                             v_sb, v_st, v_sh, o_sb, o_st, o_sh};
   const Operands a = operands(q, k, v, dout, lse, delta, key_mask, B, H, Tq,
-                              Tk, st, causal, scale);
+                              Tk, st, causal, q_off, k_off, scale);
   bf16* out = static_cast<bf16*>(dq);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
@@ -417,11 +430,11 @@ extern "C" int flash_bwd_dkv_bf16(
     long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh,
     long long o_sb, long long o_st, long long o_sh,
-    int causal, float scale, void* stream) {
+    int causal, int q_off, int k_off, float scale, void* stream) {
   const long long st[12] = {q_sb, q_st, q_sh, k_sb, k_st, k_sh,
                             v_sb, v_st, v_sh, o_sb, o_st, o_sh};
   const Operands a = operands(q, k, v, dout, lse, delta, key_mask, B, H, Tq,
-                              Tk, st, causal, scale);
+                              Tk, st, causal, q_off, k_off, scale);
   bf16* dkp = static_cast<bf16*>(dk);
   bf16* dvp = static_cast<bf16*>(dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

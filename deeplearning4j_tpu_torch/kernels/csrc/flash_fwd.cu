@@ -2,9 +2,19 @@
 //
 // Replaces the TPU kernel deeplearning4j_tpu/kernels/flash_attention.py
 // `_flash_kernel` (:84-143, launched by `_flash_forward` :170-223) as
-// `flash_attention` (:512) uses it: causal or not, an optional key-validity
-// mask [B, Tk] shared by all heads, masked scores at the finite -1e30,
-// out = acc / max(l, 1e-30), and an optional per-row log-sum-exp.
+// `flash_attention` (:512) and `flash_attention_lse` (:555) use it: causal
+// or not, an optional key-validity mask [B, Tk] shared by all heads, masked
+// scores at the finite -1e30, out = acc / max(l, 1e-30), and an optional
+// per-row log-sum-exp.
+//
+// Causal positions are global, as the TPU kernel's SMEM offsets make them
+// (`_causal_fold` :70-73): query row i sits at q_off + i and key j at
+// k_off + j (0 and 0 off the ring). A key past the query's position scores
+// -inf and weighs exactly 0, and the key loop stops at the tile's last
+// visible key (`_causal_keep` :76-81). So a row that sees no key at all
+// keeps m = -1e30 and l = 0 whether or not its tile runs: out is exactly 0
+// and its LSE -1e30 + log(1e-30), what the TPU kernel gives a row whose
+// every block it skips.
 //
 // Design. One block of 128 threads per (q tile of 32 rows, batch*head).
 // The block loops over key tiles of 64 rows up to the causal limit: this
@@ -43,7 +53,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ key_mask,
                  float* __restrict__ out, float* __restrict__ lse,
                  int H, int Tq, int Tk, Strides qs, Strides ks, Strides vs,
-                 int causal, float scale) {
+                 int causal, int q_off, int k_off, float scale) {
   constexpr int CPT = D / 16;   // output columns per thread
   constexpr int QS = D + 1;     // padded rows: conflict-free column reads
   constexpr int KS = D + 1;
@@ -81,8 +91,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int cc = 0; cc < CPT; ++cc) acc[ii][cc] = 0.f;
 
-  // causal: no key past the tile's last query row is ever visible
-  const int k_end = causal ? min(Tk, min(Tq, q0 + BQ)) : Tk;
+  // causal: key j is visible to row i iff j <= i + shift; no key past
+  // the tile's last query row is ever visible
+  const int shift = q_off - k_off;
+  const int k_end = causal ? min(Tk, max(0, min(Tq, q0 + BQ) + shift)) : Tk;
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();            // the previous tile's P.V is done
     for (int i = tid; i < BK * D; i += THREADS) {
@@ -123,8 +135,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         if (kpos >= Tk) {
           x = -INFINITY;        // past the ragged edge: weight exactly 0
         } else {
-          if (causal && kpos > q0 + r) x = NEG_INF;
           if (km && !(km[kpos] > 0.f)) x = NEG_INF;
+          // past the row's global position: never visible, weight 0
+          if (causal && kpos > q0 + r + shift) x = -INFINITY;
         }
         Ss[r * SS + c] = x;
       }
@@ -196,8 +209,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* km,
            float* out, float* lse, int B, int H, int Tq, int Tk,
-           Strides qs, Strides ks, Strides vs, int causal, float scale,
-           cudaStream_t stream) {
+           Strides qs, Strides ks, Strides vs, int causal, int q_off,
+           int k_off, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1) + 3 * BQ);
   cudaError_t err = cudaFuncSetAttribute(
@@ -206,7 +219,8 @@ int launch(const float* q, const float* k, const float* v, const float* km,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Tq + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
-      q, k, v, km, out, lse, H, Tq, Tk, qs, ks, vs, causal, scale);
+      q, k, v, km, out, lse, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -219,15 +233,15 @@ extern "C" int flash_fwd_f32(
     long long q_sb, long long q_st, long long q_sh,
     long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh,
-    int causal, float scale, void* stream) {
+    int causal, int q_off, int k_off, float scale, void* stream) {
   const Strides qs{q_sb, q_st, q_sh}, ks{k_sb, k_st, k_sh},
       vs{v_sb, v_st, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch<16>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, qs, ks, vs, causal, scale, st);
-    case 32: return launch<32>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, qs, ks, vs, causal, scale, st);
-    case 64: return launch<64>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, qs, ks, vs, causal, scale, st);
-    case 128: return launch<128>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, qs, ks, vs, causal, scale, st);
+    case 16: return launch<16>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off, scale, st);
+    case 32: return launch<32>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off, scale, st);
+    case 64: return launch<64>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off, scale, st);
+    case 128: return launch<128>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

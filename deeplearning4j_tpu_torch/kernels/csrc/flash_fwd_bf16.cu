@@ -4,13 +4,16 @@
 // Replaces the TPU kernel deeplearning4j_tpu/kernels/flash_attention.py
 // `_flash_kernel` (:84-143, launched by `_flash_forward` :170-223) on its
 // bf16 path, as `flash_attention` (:512) runs it under the training
-// custom_vjp (:430-450): the kernel upcasts its bf16 tiles to f32
-// (:106-108), keeps the running max, sum and accumulator in f32 and writes
-// the output in the operand dtype (:140, out_shape :191) and the LSE in f32
-// (:193). Same semantics as flash_fwd.cu: causal on positions from 0 on
-// both sides, an optional f32 key-validity mask [B, Tk] shared by the
-// heads, masked scores at the finite -1e30, out = acc / max(l, 1e-30),
-// and on request the per-row log-sum-exp [B, H, Tq] in f32.
+// custom_vjp (:430-450) and `flash_attention_lse` (:555) on the ring: the
+// kernel upcasts its bf16 tiles to f32 (:106-108), keeps the running max,
+// sum and accumulator in f32 and writes the output in the operand dtype
+// (:140, out_shape :191) and the LSE in f32 (:193). Same semantics as
+// flash_fwd.cu: causal on global positions (query row i at q_off + i, key
+// j at k_off + j; a key past the query's position scores -inf, so a row
+// that sees no key comes out 0 with its LSE at -1e30 + log(1e-30)), an
+// optional f32 key-validity mask [B, Tk] shared by the heads, key-masked
+// scores at the finite -1e30, out = acc / max(l, 1e-30), and on request
+// the per-row log-sum-exp [B, H, Tq] in f32.
 //
 // Design. One block of 4 warps per (q tile of 64 rows, batch*head); each
 // warp owns 16 query rows. The block loops over key tiles of 64 up to the
@@ -58,7 +61,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const float* __restrict__ key_mask,
                       bf16* __restrict__ out, float* __restrict__ lse, int H,
                       int Tq, int Tk, Strides qs, Strides ks, Strides vs,
-                      int causal, float scale) {
+                      int causal, int q_off, int k_off, float scale) {
   constexpr int LD = D + 8;
   constexpr int NT = BK / 8;    // 8-key n-tiles of a score tile
   constexpr int DT = D / 8;     // 8-column n-tiles of the output
@@ -81,6 +84,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int wr = warp * 16;                 // the warp's first tile row
   const int row_lo = q0 + wr + g;           // this thread's query rows:
   const int rows[2] = {row_lo, row_lo + 8};  // C-fragment halves 0 and 1
+  // causal: the last key index each row sees (global positions)
+  const int last[2] = {rows[0] + q_off - k_off, rows[1] + q_off - k_off};
 
   load_tile<D>(Qs, qb, qs.t, q0, BQ, Tq, tid, THREADS);
   __syncthreads();
@@ -97,7 +102,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
 
   // causal: no key past the tile's last query row is ever visible
-  const int k_end = causal ? min(Tk, min(Tq, q0 + BQ)) : Tk;
+  const int k_end =
+      causal ? min(Tk, max(0, min(Tq, q0 + BQ) + q_off - k_off)) : Tk;
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();            // every warp is done with the last tile
     load_tile<D>(Ks, kb, ks.t, k0, BK, Tk, tid, THREADS);
@@ -121,7 +127,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma(s[nt + 1], qa[kc], bk[2], bk[3]);
       }
 
-    // scale, masks (as flash_fwd.cu: scale, then causal, then key mask)
+    // scale, masks (as flash_fwd.cu: scale, key mask, then causal)
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
@@ -133,8 +139,9 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (kpos >= Tk) {
           x = -INFINITY;        // past the ragged edge: weight exactly 0
         } else {
-          if (causal && kpos > rows[e >> 1]) x = NEG_INF;
           if (!(Ms[c] > 0.f)) x = NEG_INF;
+          // past the row's global position: never visible, weight 0
+          if (causal && kpos > last[e >> 1]) x = -INFINITY;
         }
         s[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -205,8 +212,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 int launch(const bf16* q, const bf16* k, const bf16* v, const float* km,
            bf16* out, float* lse, int B, int H, int Tq, int Tk, Strides qs,
-           Strides ks, Strides vs, int causal, float scale,
-           cudaStream_t stream) {
+           Strides ks, Strides vs, int causal, int q_off, int k_off,
+           float scale, cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * (BQ + 2 * BK) * (D + 8) +
                       sizeof(float) * BK;
   cudaError_t err = cudaFuncSetAttribute(
@@ -215,7 +222,8 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const float* km,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Tq + BQ - 1) / BQ, B * H);
   flash_fwd_bf16_kernel<D><<<grid, THREADS, smem, stream>>>(
-      q, k, v, km, out, lse, H, Tq, Tk, qs, ks, vs, causal, scale);
+      q, k, v, km, out, lse, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -230,7 +238,7 @@ extern "C" int flash_fwd_bf16(
     long long q_sb, long long q_st, long long q_sh,
     long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh,
-    int causal, float scale, void* stream) {
+    int causal, int q_off, int k_off, float scale, void* stream) {
   const Strides qs{q_sb, q_st, q_sh}, ks{k_sb, k_st, k_sh},
       vs{v_sb, v_st, v_sh};
   const bf16* qp = static_cast<const bf16*>(q);
@@ -239,10 +247,10 @@ extern "C" int flash_fwd_bf16(
   bf16* op = static_cast<bf16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch<16>(qp, kp, vp, key_mask, op, lse, B, H, Tq, Tk, qs, ks, vs, causal, scale, st);
-    case 32: return launch<32>(qp, kp, vp, key_mask, op, lse, B, H, Tq, Tk, qs, ks, vs, causal, scale, st);
-    case 64: return launch<64>(qp, kp, vp, key_mask, op, lse, B, H, Tq, Tk, qs, ks, vs, causal, scale, st);
-    case 128: return launch<128>(qp, kp, vp, key_mask, op, lse, B, H, Tq, Tk, qs, ks, vs, causal, scale, st);
+    case 16: return launch<16>(qp, kp, vp, key_mask, op, lse, B, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off, scale, st);
+    case 32: return launch<32>(qp, kp, vp, key_mask, op, lse, B, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off, scale, st);
+    case 64: return launch<64>(qp, kp, vp, key_mask, op, lse, B, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off, scale, st);
+    case 128: return launch<128>(qp, kp, vp, key_mask, op, lse, B, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

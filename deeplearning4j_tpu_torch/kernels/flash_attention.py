@@ -9,7 +9,9 @@ PyTorch version beside it:
   bfloat16, replacing the TPU kernel `_flash_kernel` (flash_attention.py:
   84-143, `pl.pallas_call` at :206) as `flash_attention` (:512) runs it:
   causal, key-masked attention for the decode prefill and, with its
-  log-sum-exp, the training forward. Plain version:
+  log-sum-exp, the training forward; and as `flash_attention_lse` (:555)
+  runs it on the ring, with the causal mask at global positions (query
+  row i at q_offset + i, key j at k_offset + j). Plain version:
   `flash_attention_plain`.
 - `flash_bwd_dq` -> `csrc/flash_bwd.cu` (`flash_bwd_dq_f32`) and
   `csrc/flash_bwd_bf16.cu` (`flash_bwd_dq_bf16`), replacing
@@ -39,13 +41,22 @@ in float32 (float64 stays float64) and round to the operands' type once
 at the end, as the TPU kernels do. The decode kernels take float32.
 
 The gradient: under grad mode, with an input that requires grad,
-`flash_attention` runs `FlashAttentionFunction`, the counterpart of the
-JAX package's `custom_vjp` (:430-450). Its forward asks the forward
-kernel for the LSE (the JAX `need_lse`), its backward is
-`flash_attention_bwd`: delta = rowsum(dO o O) in float32 as a torch
-reduction, then the dq and the dk/dv kernels. This holds on the CPU too,
-where the plain versions run inside the Function. Without a gradient
-(serving, `inference_mode`) no LSE is written.
+`flash_attention` and `flash_attention_lse` run
+`FlashAttentionLSEFunction`, the counterpart of the JAX package's
+custom_vjps `_flash` (:430-450) and `_flash_lse` (:453-480). Its forward
+asks the forward kernel for the LSE (the JAX `need_lse`); out and lse are
+both outputs. Its backward is `flash_attention_bwd`: delta = rowsum(dO o
+O) - g_lse (the LSE's cotangent, :342-348; 0 when only out is used) in
+float32 as a torch reduction, then the dq and the dk/dv kernels. This
+holds on the CPU too, where the plain versions run inside the Function.
+Without a gradient (serving, `inference_mode`) no LSE is written unless
+asked for.
+
+Causal offsets: a row whose global position comes before every key's
+sees no key. The kernels and the plain versions give it what the TPU
+kernel gives a row whose every block it skips: out exactly 0 and lse
+NEG_INF + log(1e-30); in the backward its dq row is 0 and it has no share
+in dk or dv. A row that the key mask alone empties is not a contract.
 
 What bounds each kernel on the card and what its design does about it is
 noted at the top of its source. A wrapper runs the plain version only for
@@ -61,26 +72,32 @@ ragged lengths are masked inside the kernels.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 
 import torch
 
-from ..parallel.ring_attention import (attention_reference, masked_scores,
-                                       widen)
+from ..parallel.ring_attention import (NEG_INF, attention_reference,
+                                       masked_scores, widen)
 from . import build
 
 HEAD_DIMS = (16, 32, 64, 128)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# ... causal, q_offset, k_offset, scale, stream
 _FWD_ARGTYPES = ([_P] * 6 + [_I] * 5 + [_L] * 9
-                 + [_I, ctypes.c_float, _P])
+                 + [_I] * 3 + [ctypes.c_float, _P])
 _DECODE_ARGTYPES = ([_P] * 6 + [_I] * 4 + [_L] * 8
                     + [ctypes.c_float, _P])
 _DECODE_PAGED_ARGTYPES = ([_P] * 7 + [_I] * 5 + [_L] * 8
                           + [ctypes.c_float, _P])
-_BWD_DQ_ARGTYPES = [_P] * 8 + [_I] * 5 + [_L] * 12 + [_I, ctypes.c_float, _P]
-_BWD_DKV_ARGTYPES = [_P] * 9 + [_I] * 5 + [_L] * 12 + [_I, ctypes.c_float, _P]
+_BWD_DQ_ARGTYPES = ([_P] * 8 + [_I] * 5 + [_L] * 12
+                    + [_I] * 3 + [ctypes.c_float, _P])
+_BWD_DKV_ARGTYPES = ([_P] * 9 + [_I] * 5 + [_L] * 12
+                     + [_I] * 3 + [ctypes.c_float, _P])
+# the LSE of a row that sees no key: m = NEG_INF, l clamped to 1e-30
+NO_KEY_LSE = NEG_INF + math.log(1e-30)
 DECODE_CHUNK = 32   # keys per warp in csrc/flash_decode.cu (CHUNK)
 _ATTENTION_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -112,8 +129,49 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _launch(fn, name, device, *args):
+    """Call the C entry `fn` with `args` and the current stream of
+    `device`, that device current (a ring's shards may sit on several
+    cards); raise on a launch error, else count the launch under `name`."""
+    with (torch.cuda.device(device) if device.type == "cuda"
+          else contextlib.nullcontext()):
+        err = fn(*args, _stream(device))
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    _launches[name] += 1
+
+
 def _scale(scale, D):
     return float(1.0 / math.sqrt(D)) if scale is None else float(scale)
+
+
+def can_flash(Tq, Tk, D):
+    """Whether the kernels take these shapes: any lengths (ragged edges
+    are masked inside them), head dims in HEAD_DIMS. The counterpart of
+    the JAX `can_flash` (:685), which had Mosaic's tiling to satisfy."""
+    return Tq >= 1 and Tk >= 1 and D in HEAD_DIMS
+
+
+def _offset(x):
+    """A causal position offset (None, a Python int or a 0-d integer
+    tensor) as a Python int, read on the host."""
+    if x is None:
+        return 0
+    if isinstance(x, torch.Tensor):
+        if x.dim() != 0 or x.dtype.is_floating_point or x.is_complex():
+            raise ValueError(f"an offset must be a 0-d integer tensor, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+        return int(x.item())
+    return int(x)
+
+
+def _no_key_rows(Tq, causal, q_offset, k_offset, device):
+    """[Tq] bool: the rows whose global position comes before every
+    key's under the causal mask (q_offset + i < k_offset); None when there
+    are none."""
+    if not causal or q_offset >= k_offset:
+        return None
+    return torch.arange(Tq, device=device) + q_offset < k_offset
 
 
 def _check_operands(q, dtypes=(torch.float32,), **others):
@@ -199,29 +257,40 @@ def _bhd_strides(t):
 
 # ------------------------------------------------------------- forward
 def flash_attention_plain(q, k, v, *, causal=False, scale=None,
-                          key_mask=None, return_lse=False):
+                          key_mask=None, return_lse=False, q_offset=0,
+                          k_offset=0):
     """Materializing softmax attention with the kernel's semantics
     (`parallel.ring_attention.attention_reference` in float32, at the
-    kernel's scale): masked scores at the finite NEG_INF, causal on
-    positions, key_mask [B, Tk] (> 0 valid) shared by the heads. Returns
-    out [B, Tq, H, D] in q's type and, with `return_lse`, the per-row
-    log-sum-exp [B, H, Tq] (f32)."""
-    res = attention_reference(widen(q), widen(k), widen(v),
-                              causal=causal, scale=_scale(scale, q.shape[3]),
-                              key_mask=key_mask, return_lse=return_lse)
+    kernel's scale): masked scores at the finite NEG_INF, causal on global
+    positions (query row i at q_offset + i, key j at k_offset + j),
+    key_mask [B, Tk] (> 0 valid) shared by the heads. A row that sees no
+    key under the causal mask gets out 0 and lse NO_KEY_LSE (the softmax
+    would average it uniformly). Returns out [B, Tq, H, D] in q's type
+    and, with `return_lse`, the per-row log-sum-exp [B, H, Tq] (f32)."""
+    q_offset, k_offset = _offset(q_offset), _offset(k_offset)
+    out, lse = attention_reference(
+        widen(q), widen(k), widen(v), causal=causal,
+        scale=_scale(scale, q.shape[3]), key_mask=key_mask, return_lse=True,
+        q_offset=q_offset, k_offset=k_offset)
+    none = _no_key_rows(q.shape[1], causal, q_offset, k_offset, q.device)
+    if none is not None:
+        out = out.masked_fill(none[None, :, None, None], 0.0)
+        lse = lse.masked_fill(none, NO_KEY_LSE)
     if return_lse:
-        return res[0].to(q.dtype), res[1]
-    return res.to(q.dtype)
+        return out.to(q.dtype), lse
+    return out.to(q.dtype)
 
 
-def _flash_forward(q, k, v, causal, scale, key_mask, return_lse):
+def _flash_forward(q, k, v, causal, scale, key_mask, return_lse,
+                   q_offset=0, k_offset=0):
     """The forward wrapper: `flash_fwd` (f32) or `flash_fwd_bf16` for
     CUDA tensors, the plain version for CPU tensors; writes the LSE only
-    with `return_lse`."""
+    with `return_lse`. The offsets are Python ints."""
     if _on_host(q):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      key_mask=key_mask,
-                                     return_lse=return_lse)
+                                     return_lse=return_lse,
+                                     q_offset=q_offset, k_offset=k_offset)
     _check_attention_operands(q, k, v, _ATTENTION_DTYPES)
     fn, name = _entry("flash_fwd", q.dtype)
     _check_bh_grid(q)
@@ -232,37 +301,49 @@ def _flash_forward(q, k, v, causal, scale, key_mask, return_lse):
     out = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(km),
-             out.data_ptr(), _ptr(lse), B, H, Tq, Tk, D,
-             *_bhd_strides(q), *_bhd_strides(k), *_bhd_strides(v),
-             int(bool(causal)), _scale(scale, D), _stream(q.device))
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
-    _launches[name] += 1
+    _launch(fn, name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _ptr(km), out.data_ptr(), _ptr(lse), B, H, Tq, Tk, D,
+            *_bhd_strides(q), *_bhd_strides(k), *_bhd_strides(v),
+            int(bool(causal)), q_offset, k_offset, _scale(scale, D))
     return (out, lse) if return_lse else out
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """Attention with its hand-written backward: the counterpart of the
-    JAX package's `_flash` custom_vjp (:430-450). Forward: the forward
-    kernel with the LSE. Saves q, k, v (in their type), the key mask, out
-    and the f32 lse; backward runs `flash_attention_bwd`, whose gradients
-    come back in the operands' type. The mask gets no gradient."""
+class FlashAttentionLSEFunction(torch.autograd.Function):
+    """Attention with its hand-written backward, out and its LSE both
+    differentiable outputs: the counterpart of the JAX package's
+    `_flash_lse` custom_vjp (:453-480), and of `_flash` (:430-450) when
+    only out is used. Forward: the forward kernel with the LSE at the
+    given causal offsets. Saves q, k, v (in their type), the key mask and
+    both outputs; backward takes (g_out, g_lse), either of which may be
+    None (zeros), and runs `flash_attention_bwd` with g_lse folded into
+    delta; the gradients come back in the operands' type, the mask gets
+    none."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_mask, causal, scale):
-        out, lse = _flash_forward(q, k, v, causal, scale, key_mask, True)
+    def forward(ctx, q, k, v, key_mask, causal, scale, q_offset, k_offset):
+        ctx.set_materialize_grads(False)
+        out, lse = _flash_forward(q, k, v, causal, scale, key_mask, True,
+                                  q_offset, k_offset)
         ctx.save_for_backward(q, k, v, key_mask, out, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return out
+        ctx.kw = dict(causal=causal, scale=scale, q_offset=q_offset,
+                      k_offset=k_offset)
+        return out, lse
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g_out, g_lse):
         q, k, v, key_mask, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g,
-                                         causal=ctx.causal, scale=ctx.scale,
-                                         key_mask=key_mask)
-        return dq, dk, dv, None, None, None
+        if g_out is None and g_lse is None:
+            return (None,) * 8
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g_out,
+                                         key_mask=key_mask, g_lse=g_lse,
+                                         **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def _wants_grad(*ts):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def flash_attention(q, k, v, *, causal=False, scale=None, key_mask=None,
@@ -274,29 +355,54 @@ def flash_attention(q, k, v, *, causal=False, scale=None, key_mask=None,
     type, plus lse [B, H, Tq] f32 with `return_lse`.
 
     Under grad mode, with an input that requires grad, the call goes
-    through `FlashAttentionFunction`, whose backward runs the dq and dk/dv
-    kernels (the plain versions on the CPU)."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        if return_lse:
-            raise NotImplementedError(
-                "the gradient of the LSE output is not ported yet (ROADMAP "
-                "queue 1: flash_attention_lse + ring attention)")
+    through `FlashAttentionLSEFunction`, whose backward runs the dq and
+    dk/dv kernels (the plain versions on the CPU)."""
+    if return_lse or _wants_grad(q, k, v):
+        res = flash_attention_lse(q, k, v, causal=causal, scale=scale,
+                                  key_mask=key_mask)
+        return res if return_lse else res[0]
+    return _flash_forward(q, k, v, causal, scale, key_mask, False)
+
+
+def flash_attention_lse(q, k, v, *, causal=False, scale=None, key_mask=None,
+                        q_offset=None, k_offset=None):
+    """Flash attention that also returns the per-row log-sum-exp, so that
+    partial results over disjoint key shards merge exactly (the ring's
+    per-step update): the counterpart of the JAX `flash_attention_lse`
+    (:555-584) without the TPU block sizes. Returns (out [B, Tq, H, D] in
+    q's type, lse [B, H, Tq] float32).
+
+    q_offset / k_offset: global positions of q[0] and k[0] for the causal
+    mask (None = 0; Python ints or 0-d integer tensors, read on the host);
+    without `causal` they do nothing. Under grad mode, with an input that
+    requires grad, runs `FlashAttentionLSEFunction`: gradients flow from
+    both outputs."""
+    q_offset, k_offset = _offset(q_offset), _offset(k_offset)
+    if _wants_grad(q, k, v):
         km = _prep_key_mask(key_mask, q.shape[0], k.shape[1], q.device)
-        return FlashAttentionFunction.apply(q, k, v, km, bool(causal),
-                                            _scale(scale, q.shape[3]))
-    return _flash_forward(q, k, v, causal, scale, key_mask, return_lse)
+        return FlashAttentionLSEFunction.apply(
+            q, k, v, km, bool(causal), _scale(scale, q.shape[3]), q_offset,
+            k_offset)
+    return _flash_forward(q, k, v, causal, scale, key_mask, True, q_offset,
+                          k_offset)
 
 
 # ------------------------------------------------------------ backward
-def _bwd_probs(q, k, v, g, lse, delta, causal, scale, key_mask):
+def _bwd_probs(q, k, v, g, lse, delta, causal, scale, key_mask, q_offset,
+               k_offset):
     """The TPU backward kernels' recompute, in float32 from upcast
     operands: p = exp(s - lse) from the masked scores, ds = p (dO.v -
-    delta) scale. Both [B, H, Tq, Tk]."""
+    delta) scale. Both [B, H, Tq, Tk]; a row that sees no key under the
+    causal mask has p = 0 (exp(s - lse) would read 1 there)."""
     scale = _scale(scale, q.shape[3])
+    q_offset, k_offset = _offset(q_offset), _offset(k_offset)
     s = masked_scores(widen(q), widen(k), causal=causal, scale=scale,
-                      key_mask=key_mask)
+                      key_mask=key_mask, q_offset=q_offset,
+                      k_offset=k_offset)
     p = torch.exp(s - lse[..., None])
+    none = _no_key_rows(q.shape[1], causal, q_offset, k_offset, q.device)
+    if none is not None:
+        p = p.masked_fill(none[None, None, :, None], 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", widen(g), widen(v))
     return p, p * (dp - delta[..., None]) * scale
 
@@ -309,30 +415,41 @@ def attention_delta(out, g):
 
 
 def flash_bwd_dq_plain(q, k, v, g, lse, delta, *, causal=False, scale=None,
-                       key_mask=None):
+                       key_mask=None, q_offset=0, k_offset=0):
     """dq [B, Tq, H, D] in q's type from the recomputed ds: sum over keys
     of ds.K."""
-    _, ds = _bwd_probs(q, k, v, g, lse, delta, causal, scale, key_mask)
+    _, ds = _bwd_probs(q, k, v, g, lse, delta, causal, scale, key_mask,
+                       q_offset, k_offset)
     return torch.einsum("bhqk,bkhd->bqhd", ds, widen(k)).to(q.dtype)
 
 
 def flash_bwd_dkv_plain(q, k, v, g, lse, delta, *, causal=False, scale=None,
-                        key_mask=None):
+                        key_mask=None, q_offset=0, k_offset=0):
     """(dk, dv) [B, Tk, H, D] in k's and v's type: sums over queries of
     ds^T.Q and p^T.dO."""
-    p, ds = _bwd_probs(q, k, v, g, lse, delta, causal, scale, key_mask)
+    p, ds = _bwd_probs(q, k, v, g, lse, delta, causal, scale, key_mask,
+                       q_offset, k_offset)
     return (torch.einsum("bhqk,bqhd->bkhd", ds, widen(q)).to(k.dtype),
             torch.einsum("bhqk,bqhd->bkhd", p, widen(g)).to(v.dtype))
 
 
-def flash_attention_bwd_plain(q, k, v, out, lse, g, *, causal=False,
-                              scale=None, key_mask=None):
-    """(dq, dk, dv) of attention given the forward's out and lse [B, H,
-    Tq] and the output cotangent g: the plain version of both backward
-    kernels, with their recompute (p from lse, delta from out) and the
-    forward's masking at the finite NEG_INF."""
+def _delta(out, g, g_lse=None):
+    """delta with the LSE's cotangent folded in: rowsum(dO o O) - g_lse
+    (:342-348); g_lse None means zeros."""
     delta = attention_delta(out, g)
-    p, ds = _bwd_probs(q, k, v, g, lse, delta, causal, scale, key_mask)
+    return delta if g_lse is None else delta - widen(g_lse)
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, g, *, causal=False,
+                              scale=None, key_mask=None, q_offset=0,
+                              k_offset=0, g_lse=None):
+    """(dq, dk, dv) of attention given the forward's out and lse [B, H,
+    Tq] and the cotangents g of out and g_lse of lse: the plain version of
+    both backward kernels, with their recompute (p from lse, delta from
+    out and g_lse) and the forward's masking."""
+    delta = _delta(out, g, g_lse)
+    p, ds = _bwd_probs(q, k, v, g, lse, delta, causal, scale, key_mask,
+                       q_offset, k_offset)
     return (torch.einsum("bhqk,bkhd->bqhd", ds, widen(k)).to(q.dtype),
             torch.einsum("bhqk,bqhd->bkhd", ds, widen(q)).to(k.dtype),
             torch.einsum("bhqk,bqhd->bkhd", p, widen(g)).to(v.dtype))
@@ -360,37 +477,38 @@ def _bwd_operands(q, k, v, g, lse, delta, key_mask):
 
 
 def flash_bwd_dq(q, k, v, g, lse, delta, *, causal=False, scale=None,
-                 key_mask=None):
+                 key_mask=None, q_offset=0, k_offset=0):
     """dq [B, Tq, H, D] in q's type: the dq kernel (f32 or bf16) for CUDA
     tensors, `flash_bwd_dq_plain` for CPU tensors. g is dO; lse and delta
     are [B, H, Tq] float32."""
+    q_offset, k_offset = _offset(q_offset), _offset(k_offset)
     if _on_host(q):
         return flash_bwd_dq_plain(q, k, v, g, lse, delta, causal=causal,
-                                  scale=scale, key_mask=key_mask)
+                                  scale=scale, key_mask=key_mask,
+                                  q_offset=q_offset, k_offset=k_offset)
     q, k, v, g, lse, delta, km = _bwd_operands(q, k, v, g, lse, delta,
                                                key_mask)
     fn, name = _entry("flash_bwd_dq", q.dtype)
     B, Tq, H, D = q.shape
     dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), _ptr(km), dq.data_ptr(),
-             B, H, Tq, k.shape[1], D,
-             *_bhd_strides(q), *_bhd_strides(k), *_bhd_strides(v),
-             *_bhd_strides(g), int(bool(causal)), _scale(scale, D),
-             _stream(q.device))
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
-    _launches[name] += 1
+    _launch(fn, name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(km),
+            dq.data_ptr(), B, H, Tq, k.shape[1], D,
+            *_bhd_strides(q), *_bhd_strides(k), *_bhd_strides(v),
+            *_bhd_strides(g), int(bool(causal)), q_offset, k_offset,
+            _scale(scale, D))
     return dq
 
 
 def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal=False, scale=None,
-                  key_mask=None):
+                  key_mask=None, q_offset=0, k_offset=0):
     """(dk, dv) [B, Tk, H, D] in k's type: the dk/dv kernel (f32 or bf16)
     for CUDA tensors, `flash_bwd_dkv_plain` for CPU tensors."""
+    q_offset, k_offset = _offset(q_offset), _offset(k_offset)
     if _on_host(q):
         return flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal=causal,
-                                   scale=scale, key_mask=key_mask)
+                                   scale=scale, key_mask=key_mask,
+                                   q_offset=q_offset, k_offset=k_offset)
     q, k, v, g, lse, delta, km = _bwd_operands(q, k, v, g, lse, delta,
                                                key_mask)
     fn, name = _entry("flash_bwd_dkv", q.dtype)
@@ -398,28 +516,27 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal=False, scale=None,
     Tk = k.shape[1]
     dk = torch.empty((B, Tk, H, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, Tk, H, D), dtype=v.dtype, device=q.device)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), _ptr(km), dk.data_ptr(),
-             dv.data_ptr(), B, H, Tq, Tk, D,
-             *_bhd_strides(q), *_bhd_strides(k), *_bhd_strides(v),
-             *_bhd_strides(g), int(bool(causal)), _scale(scale, D),
-             _stream(q.device))
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
-    _launches[name] += 1
+    _launch(fn, name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(km),
+            dk.data_ptr(), dv.data_ptr(), B, H, Tq, Tk, D,
+            *_bhd_strides(q), *_bhd_strides(k), *_bhd_strides(v),
+            *_bhd_strides(g), int(bool(causal)), q_offset, k_offset,
+            _scale(scale, D))
     return dk, dv
 
 
 def flash_attention_bwd(q, k, v, out, lse, g, *, causal=False, scale=None,
-                        key_mask=None):
-    """(dq, dk, dv) given the forward's out and lse and the cotangent g:
-    `flash_attention_bwd_plain` for CPU tensors; for CUDA tensors delta
-    as a float32 torch reduction, then the dq and dk/dv kernels."""
+                        key_mask=None, q_offset=0, k_offset=0, g_lse=None):
+    """(dq, dk, dv) given the forward's out and lse and the cotangents g
+    (of out) and g_lse (of lse, None = zeros): `flash_attention_bwd_plain`
+    for CPU tensors; for CUDA tensors delta = rowsum(dO o O) - g_lse as a
+    float32 torch reduction, then the dq and dk/dv kernels."""
+    kw = dict(causal=causal, scale=scale, key_mask=key_mask,
+              q_offset=q_offset, k_offset=k_offset)
     if _on_host(q):
-        return flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal,
-                                         scale=scale, key_mask=key_mask)
-    delta = attention_delta(out, g)
-    kw = dict(causal=causal, scale=scale, key_mask=key_mask)
+        return flash_attention_bwd_plain(q, k, v, out, lse, g, g_lse=g_lse,
+                                         **kw)
+    delta = _delta(out, g, g_lse)
     dq = flash_bwd_dq(q, k, v, g, lse, delta, **kw)
     dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, **kw)
     return dq, dk, dv
@@ -458,15 +575,11 @@ def flash_decode(q, k, v, lengths, *, scale=None):
     # per-chunk partials (acc, max, sum) the kernel's merge pass reads
     work = torch.empty((S * H * -(-C // DECODE_CHUNK) * (D + 2),),
                        dtype=torch.float32, device=q.device)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-             out.data_ptr(), work.data_ptr(), S, H, C, D,
-             q.stride(0), q.stride(2),
-             k.stride(0), k.stride(1), k.stride(2),
-             v.stride(0), v.stride(1), v.stride(2),
-             _scale(scale, D), _stream(q.device))
-    if err != 0:
-        raise RuntimeError(f"flash_decode launch failed: cudaError_t {err}")
-    _launches["flash_decode"] += 1
+    _launch(fn, "flash_decode", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            work.data_ptr(), S, H, C, D, q.stride(0), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2), _scale(scale, D))
     return out
 
 
@@ -536,15 +649,11 @@ def flash_decode_paged(q, k_pool, v_pool, block_table, lengths, *,
     # per-chunk partials (acc, max, sum) over the logical capacity MB * bs
     work = torch.empty((S * H * -(-(MB * bs) // DECODE_CHUNK) * (D + 2),),
                        dtype=torch.float32, device=q.device)
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             work.data_ptr(), S, H, MB, bs, D, q.stride(0), q.stride(2),
-             *_bhd_strides(k_pool), *_bhd_strides(v_pool),
-             _scale(scale, D), _stream(q.device))
-    if err != 0:
-        raise RuntimeError(
-            f"flash_decode_paged launch failed: cudaError_t {err}")
-    _launches["flash_decode_paged"] += 1
+    _launch(fn, "flash_decode_paged", q.device, q.data_ptr(),
+            k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), work.data_ptr(), S, H, MB,
+            bs, D, q.stride(0), q.stride(2), *_bhd_strides(k_pool),
+            *_bhd_strides(v_pool), _scale(scale, D))
     return out
 
 

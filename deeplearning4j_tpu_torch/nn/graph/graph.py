@@ -274,9 +274,12 @@ class ComputationGraph:
     # ---------------------------------------------------------------- train
     def fit(self, data, labels=None, epochs=1, steps_per_execution=1,
             prefetch=None, ingest=None):
-        """Train on `data`: a DataSet, a MultiDataSet, a list of them, or
-        features with `labels` — one optimizer step per minibatch, `epochs`
-        times over."""
+        """Train on `data`: a DataSet, a MultiDataSet, a list or tuple of
+        them, an iterator with `reset` and `__iter__` (reset at the start
+        of every epoch), or features with `labels` — one optimizer step per
+        minibatch, `epochs` times over. Anything else raises TypeError, as
+        the reference's `as_iterator` does (datasets/iterator/base.py:
+        357-371): a one-shot iterable would train its first epoch only."""
         if int(steps_per_execution) > 1:
             raise NotImplementedError(
                 "steps_per_execution > 1 is not ported yet (ROADMAP queue 1: "
@@ -291,9 +294,17 @@ class ComputationGraph:
                 "persistence, data)")
         if labels is not None:
             data = MultiDataSet(data, labels)
-        items = [data] if isinstance(data, (DataSet, MultiDataSet)) \
-            else data
+        if isinstance(data, (DataSet, MultiDataSet)):
+            items = [data]
+        elif isinstance(data, (list, tuple)):
+            items = list(data)
+        elif hasattr(data, "reset") and hasattr(data, "__iter__"):
+            items = data
+        else:
+            raise TypeError(f"Cannot convert {type(data)} to DataSetIterator")
         for _ in range(int(epochs)):
+            if hasattr(items, "reset"):
+                items.reset()
             for ds in items:
                 self.fit_batch(ds)
             self.epoch_count += 1

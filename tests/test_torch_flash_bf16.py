@@ -9,7 +9,7 @@ for the forward and `jax.vjp` of it for the backward (its custom_vjp runs
 `_bwd_dq_kernel` and `_bwd_dkv_kernel`), `flash_attention_lse` for the
 LSE. The port's wrappers run their plain versions on CPU tensors:
 `flash_attention_plain` and, under autograd, `flash_attention_bwd_plain`
-inside `FlashAttentionFunction`.
+inside `FlashAttentionLSEFunction`.
 
 Bar for out, dq, dk and dv (bf16): within 2 bf16 ulps elementwise
 (rtol 2**-7) plus atol 1e-3 * max|jax| for values near 0. Both sides do
@@ -204,7 +204,7 @@ def test_bf16_tensors_reach_the_bf16_kernels(device_route, monkeypatch):
         ("flash_fwd_bf16", "flash_fwd_bf16"),
         ("flash_bwd_bf16", "flash_bwd_dq_bf16"),
         ("flash_bwd_bf16", "flash_bwd_dkv_bf16")]
-    assert [(n, m) for *_, n, m in calls] == [(23, 23), (28, 28), (29, 29)]
+    assert [(n, m) for *_, n, m in calls] == [(25, 25), (30, 30), (31, 31)]
     counts = fa.launch_counts()
     assert {k: v for k, v in counts.items() if v} == {
         "flash_fwd_bf16": 1, "flash_bwd_dq_bf16": 1, "flash_bwd_dkv_bf16": 1}

@@ -1,7 +1,7 @@
 """The port's attention backward (dq and dk/dv) against the JAX package's,
 on the CPU.
 
-`flash_attention` under autograd runs `FlashAttentionFunction`; on CPU
+`flash_attention` under autograd runs `FlashAttentionLSEFunction`; on CPU
 tensors its backward is `flash_attention_bwd_plain`, the plain version of
 the two CUDA kernels (`csrc/flash_bwd.cu`). The JAX side is `jax.vjp` of
 its `flash_attention`, whose custom_vjp runs the Pallas kernels
@@ -197,7 +197,7 @@ def test_failed_backward_launch_raises_and_is_not_counted(device_route,
         fa.flash_bwd_dkv(q, k, v, g, lse, delta, causal=True, key_mask=km)
     # every argument the C entries declare was passed
     assert [(s, len(a), n) for s, a, n in calls] == [
-        ("flash_bwd_dq_f32", 28, 28), ("flash_bwd_dkv_f32", 29, 29)]
+        ("flash_bwd_dq_f32", 30, 30), ("flash_bwd_dkv_f32", 31, 31)]
     assert fa.launch_counts() == ZERO
 
 

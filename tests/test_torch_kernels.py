@@ -188,7 +188,7 @@ def test_failed_launch_raises_and_is_not_counted(device_route, monkeypatch):
     with pytest.raises(RuntimeError, match="flash_decode launch failed"):
         fa.flash_decode(q[:, :1], k, v, torch.tensor([3], dtype=torch.int32))
     # every argument the C entry declares was passed
-    assert calls == [("flash_fwd_f32", 23, 23), ("flash_decode_f32", 20, 20)]
+    assert calls == [("flash_fwd_f32", 25, 25), ("flash_decode_f32", 20, 20)]
     assert set(fa.launch_counts().values()) == {0}
 
 

@@ -6,7 +6,7 @@ positions, the second row ragged: its last 6 positions masked). Weights
 come from the JAX model through `util.params.params_from_jax`; data from
 a seeded numpy generator. With `use_pallas=True` the JAX side runs its
 Pallas forward and backward kernels in interpret mode and the port runs
-`FlashAttentionFunction` with the plain versions of its kernels inside.
+`FlashAttentionLSEFunction` with the plain versions of its kernels inside.
 
 Tolerances:
 - scores and every gradient leaf: rtol 1e-4, atol 1e-5. Both sides are
@@ -276,3 +276,45 @@ def test_unported_training_options_raise():
         transformer_lm(vocab_size=V, d_model=32, n_layers=1, n_heads=2,
                        compute_dtype="float16", device="cpu")
     assert tnet.iteration_count == 0
+
+
+class _Resettable:
+    """A DataSetIterator stand-in: `reset` and `__iter__`, counting resets
+    and recording the net's score after each batch it hands out."""
+
+    def __init__(self, batches, net):
+        self.batches, self.net = batches, net
+        self.resets, self.scores = 0, []
+
+    def reset(self):
+        self.resets += 1
+
+    def __iter__(self):
+        for ds in self.batches:
+            yield ds
+            self.scores.append(float(self.net.score_value))
+
+
+def test_fit_takes_what_the_reference_takes():
+    """A one-shot generator raises TypeError in both packages (it would
+    train its first epoch only); an iterator with `reset` is reset at the
+    start of every epoch and trains both epochs to the same scores."""
+    jnet, tnet = _pair(use_pallas=False)
+    x, y, mask = _batch(seed=2)
+    for net, ds in ((jnet, JDataSet), (tnet, DataSet)):
+        with pytest.raises(TypeError, match="Cannot convert"):
+            net.fit((ds(x, y, mask) for _ in range(2)), epochs=2)
+        assert net.iteration_count == 0
+    x2, y2, _ = _batch(seed=3)
+    jit = _Resettable([JDataSet(x, y, mask), JDataSet(x2, y2)], jnet)
+    tit = _Resettable([DataSet(x, y, mask), DataSet(x2, y2)], tnet)
+    jnet.fit(jit, epochs=2)
+    tnet.fit(tit, epochs=2)
+    assert jit.resets == tit.resets == 2
+    assert len(tit.scores) == len(jit.scores) == 4
+    np.testing.assert_allclose(tit.scores, jit.scores, rtol=1e-5)
+    assert (tnet.iteration_count, tnet.epoch_count) == (4, 2)
+    assert (jnet.iteration_count, jnet.epoch_count) == (4, 2)
+    # lists and tuples of DataSets still train, once per epoch
+    tnet.fit((DataSet(x, y, mask),), epochs=2)
+    assert tnet.iteration_count == 6
