@@ -39,12 +39,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    The bf16 kernels (`flash_fwd_bf16`, `flash_bwd_dq_bf16`,
    `flash_bwd_dkv_bf16`, on the tensor cores) on bf16 inputs from seeded
    normals: the train case (with and without a ragged key mask), Tq=37
-   Tk=53 not causal with a key mask at D=16/64/128, and B=4 T=4096 H=8
-   causal. Each against its plain version (f32 arithmetic, one rounding to
-   bf16 at the end), compared in f32: forward out max abs error <= 1.6e-2
-   (two bf16 ulps at |out| < 2: the kernel rounds P to bf16 for the P.V
-   product, under one ulp of the output, and both sides round the output
-   once, which may land one ulp apart), LSE <= 1e-3 (f32 on both sides);
+   Tk=53 not causal with a key mask at D=16/64/128, B=4 T=4096 H=8
+   causal, and B=2 T=4096 H=8 D=128 causal (the other head dim a user
+   model takes). Each against its plain version (f32 arithmetic, one
+   rounding to bf16 at the end), compared in f32: forward out max abs
+   error <= 1.6e-2 (two bf16 ulps at |out| < 2: the kernel rounds P to
+   bf16 for the P.V product, under one ulp of the output, and both sides
+   round the output once, which may land one ulp apart), LSE <= 1e-3 (f32 on both sides);
    each gradient |k - p| <= 2e-2 |p| + 1e-2 max|p| (the kernels round p
    and ds to bf16 for their products with an f32 operand, and dq, dk, dv
    are rounded once; the max|p| term covers elements near 0). The train
@@ -52,6 +53,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    operations over 989 TFLOP/s (dense bf16 tensor cores) with the f32
    rows' operation counts, bytes at 2 per bf16 element; `library_ms` is
    SDPA on the same bf16 inputs (the backward: autograd through it).
+   Every bf16 backward record (here and in phase 7) also carries its
+   achieved TFLOP/s (operations over device time) and the share of
+   `bound_ms` that its device time reaches.
 3. The serving path: `transformer_lm` at full width (vocab 256, d_model
    256, 4 layers, 4 heads) with `use_pallas=True` and
    `synthetic_params(seed=0)`, served by
@@ -241,6 +245,23 @@ def bound(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
     ops_ms = flops / peak_flops * 1e3
     by = "bytes" if bytes_ms >= ops_ms else "operations"
     return max(bytes_ms, ops_ms), by, bytes_ms, ops_ms
+
+
+def _rate(rec):
+    """' 123.4 TFLOP/s, 0.456 of bound' for a record with rate fields."""
+    if rec.get("tflops") is None:
+        return ""
+    return f" {rec['tflops']:.1f} TFLOP/s, {rec['bound_share']:.3f} of bound"
+
+
+def rate_fields(rec, ops):
+    """A bf16 backward record's achieved TFLOP/s (operations over its
+    device time) and the share of `bound_ms` that device time reaches;
+    None where the profiler recorded no device time."""
+    t = rec["device_ms"]
+    rec["tflops"] = None if not t else ops / (t * 1e-3) / 1e12
+    rec["bound_share"] = None if not t else rec["bound_ms"] / t
+    return rec
 
 
 # ------------------------------------------------------------------ phase 1
@@ -697,7 +718,7 @@ def _bf16_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
         nbytes, ops = work[name]
         b_ms, by, bytes_ms, ops_ms = bound(nbytes, ops, PEAK_BF16_FLOPS)
         lib_ms, lib_dev, lib_err = lib[name]
-        recs.append({
+        rec = {
             "name": name, "case": label, "shape": [B, Tq, Tk, H, D],
             "causal": causal, "key_mask": km is not None,
             "max_abs_err": err[name], "lse_max_abs_err": lse_err,
@@ -711,14 +732,17 @@ def _bf16_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
             "bound_ms": b_ms, "bound_by": by, "bytes_bound_ms": bytes_ms,
             "ops_bound_ms": ops_ms, "device_ms": device_ms(run),
             "plain_device_ms": device_ms(plain), "library_device_ms": lib_dev,
-            "bitwise_repeat": repeat})
+            "bitwise_repeat": repeat}
+        recs.append(rate_fields(rec, ops) if name != "flash_fwd_bf16"
+                    else rec)
     return recs
 
 
 def phase_kernels_bf16():
     """Phase 2's bf16 cases: the train case (with and without a ragged
     key mask; bitwise twice without), T=37-style ragged shapes not causal
-    with Tq != Tk at D=16/64/128, and B=4 T=4096 H=8 causal."""
+    with Tq != Tk at D=16/64/128, B=4 T=4096 H=8 causal, and B=2 T=4096
+    H=8 D=128 causal."""
     import torch
     gen = torch.Generator().manual_seed(1)
     cases = _bf16_case(TRAIN_CASE, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 4, 64,
@@ -731,6 +755,9 @@ def phase_kernels_bf16():
                             [53, 20], gen)
     cases += _bf16_case("B=4 T=4096 H=8", 4, 4096, 4096, 8, 64, True, None,
                         gen)
+    # the other head dim a user model takes, at a length that times it
+    cases += _bf16_case("B=2 T=4096 H=8 D=128", 2, 4096, 4096, 8, 128, True,
+                        None, gen)
     return cases
 
 
@@ -794,7 +821,7 @@ def phase_kernels():
               f"kernel {c['ms']:.4f} ms (device {fmt(c['device_ms'])}) "
               f"plain {c['plain_ms']:.4f} ms (device "
               f"{fmt(c['plain_device_ms'])}){lib} bound "
-              f"{c['bound_ms']:.5f} ms ({c['bound_by']})")
+              f"{c['bound_ms']:.5f} ms ({c['bound_by']}){_rate(c)}")
     print(json.dumps({"kernel_cases": cases}))
     return cases
 
@@ -1439,7 +1466,7 @@ def _lse_case(label, dtype, B, T, H, D, offsets, valid, gen):
         b_ms, by, bytes_ms, ops_ms = bound(
             nbytes, ops, PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
         lib_ms, lib_dev, lib_err = lib[kname]
-        recs.append({
+        rec = {
             "name": kname, "case": label, "shape": [B, T, T, H, D],
             "offsets": [q_off, k_off], "causal": True,
             "key_mask": km is not None, "g_lse": True,
@@ -1453,7 +1480,9 @@ def _lse_case(label, dtype, B, T, H, D, offsets, valid, gen):
                                 "dk and dv in one call, the pair's time"),
             "bound_ms": b_ms, "bound_by": by, "bytes_bound_ms": bytes_ms,
             "ops_bound_ms": ops_ms, "device_ms": device_ms(run),
-            "plain_device_ms": device_ms(plain), "library_device_ms": lib_dev})
+            "plain_device_ms": device_ms(plain), "library_device_ms": lib_dev}
+        recs.append(rate_fields(rec, ops) if bf16 and "_bwd_" in kname
+                    else rec)
     return recs
 
 
@@ -1521,7 +1550,7 @@ def phase_ring():
               f"(device {fmt(c['plain_device_ms'])}) library "
               f"{fmt(c['library_ms'])} ms (device "
               f"{fmt(c['library_device_ms'])}) bound {c['bound_ms']:.5f} "
-              f"ms ({c['bound_by']})")
+              f"ms ({c['bound_by']}){_rate(c)}")
     print(json.dumps({"ring_kernel_cases": cases}))
 
     dev = torch.device(DEVICE)
