@@ -40,9 +40,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    `flash_bwd_dkv_bf16`, on the tensor cores) on bf16 inputs from seeded
    normals: the train case (with and without a ragged key mask), Tq=37
    Tk=53 not causal with a key mask at D=16/64/128, B=4 T=4096 H=8
-   causal, and B=2 T=4096 H=8 D=128 causal (the other head dim a user
-   model takes). Each against its plain version (f32 arithmetic, one
-   rounding to bf16 at the end), compared in f32: forward out max abs
+   causal, B=2 T=4096 H=8 D=128 causal (the other head dim a user
+   model takes), and B=2 Tq=Tk=200 H=4 D=128 causal with a ragged key
+   mask (several 64-row tiles with ragged tails on both axes). Each
+   against its plain version (f32 arithmetic, one rounding to bf16 at
+   the end), compared in f32: forward out max abs
    error <= 1.6e-2 (two bf16 ulps at |out| < 2: the kernel rounds P to
    bf16 for the P.V product, under one ulp of the output, and both sides
    round the output once, which may land one ulp apart), LSE <= 1e-3 (f32 on both sides);
@@ -53,7 +55,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    operations over 989 TFLOP/s (dense bf16 tensor cores) with the f32
    rows' operation counts, bytes at 2 per bf16 element; `library_ms` is
    SDPA on the same bf16 inputs (the backward: autograd through it).
-   Every bf16 backward record (here and in phase 7) also carries its
+   Every bf16 kernel record (here and in phase 7) also carries its
    achieved TFLOP/s (operations over device time) and the share of
    `bound_ms` that its device time reaches.
 3. The serving path: `transformer_lm` at full width (vocab 256, d_model
@@ -184,6 +186,7 @@ PAGED_REQUESTS, PAGED_NEW = 16, 128
 PAGED_STEP_CASE = "step S=8 bs=16 nb=16"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 512, 10
 TRAIN_CASE = f"train B={TRAIN_BATCH} T={TRAIN_SEQ} H=4 D=64"
+T200_CASE = "B=2 T=200 H=4 D=128, ragged key mask"
 # the ring: bench.py's bench_flash_attention shape (:510-538), 4 shards
 RING_B, RING_T, RING_H, RING_D, RING_N = 4, 4096, 8, 64, 4
 RING_SHARD = RING_T // RING_N
@@ -255,7 +258,7 @@ def _rate(rec):
 
 
 def rate_fields(rec, ops):
-    """A bf16 backward record's achieved TFLOP/s (operations over its
+    """A bf16 kernel record's achieved TFLOP/s (operations over its
     device time) and the share of `bound_ms` that device time reaches;
     None where the profiler recorded no device time."""
     t = rec["device_ms"]
@@ -733,16 +736,15 @@ def _bf16_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
             "ops_bound_ms": ops_ms, "device_ms": device_ms(run),
             "plain_device_ms": device_ms(plain), "library_device_ms": lib_dev,
             "bitwise_repeat": repeat}
-        recs.append(rate_fields(rec, ops) if name != "flash_fwd_bf16"
-                    else rec)
+        recs.append(rate_fields(rec, ops))
     return recs
 
 
 def phase_kernels_bf16():
     """Phase 2's bf16 cases: the train case (with and without a ragged
     key mask; bitwise twice without), T=37-style ragged shapes not causal
-    with Tq != Tk at D=16/64/128, B=4 T=4096 H=8 causal, and B=2 T=4096
-    H=8 D=128 causal."""
+    with Tq != Tk at D=16/64/128, B=4 T=4096 H=8 causal, B=2 T=4096 H=8
+    D=128 causal, and B=2 T=200 H=4 D=128 causal with a ragged key mask."""
     import torch
     gen = torch.Generator().manual_seed(1)
     cases = _bf16_case(TRAIN_CASE, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 4, 64,
@@ -758,6 +760,10 @@ def phase_kernels_bf16():
     # the other head dim a user model takes, at a length that times it
     cases += _bf16_case("B=2 T=4096 H=8 D=128", 2, 4096, 4096, 8, 128, True,
                         None, gen)
+    # several 64-row q and key tiles with ragged tails, causal, and keys
+    # masked past a ragged length
+    cases += _bf16_case(T200_CASE, 2, 200, 200, 4, 128, True, [200, 137],
+                        gen)
     return cases
 
 
@@ -1481,8 +1487,7 @@ def _lse_case(label, dtype, B, T, H, D, offsets, valid, gen):
             "bound_ms": b_ms, "bound_by": by, "bytes_bound_ms": bytes_ms,
             "ops_bound_ms": ops_ms, "device_ms": device_ms(run),
             "plain_device_ms": device_ms(plain), "library_device_ms": lib_dev}
-        recs.append(rate_fields(rec, ops) if bf16 and "_bwd_" in kname
-                    else rec)
+        recs.append(rate_fields(rec, ops) if bf16 else rec)
     return recs
 
 
@@ -1735,8 +1740,8 @@ def main():
             "library_ms": c["library_ms"], "device_ms": c["device_ms"],
             "plain_device_ms": c["plain_device_ms"],
             "library_device_ms": c["library_device_ms"],
-            **{k: c[k] for k in ("library_note", "gather_sdpa_ms")
-               if k in c}})
+            **{k: c[k] for k in ("library_note", "gather_sdpa_ms",
+                                 "tflops", "bound_share") if k in c}})
     print(smi)              # the card's name and power limit, again
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

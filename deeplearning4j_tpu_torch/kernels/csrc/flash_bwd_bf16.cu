@@ -374,13 +374,6 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
 // ====================================================== D = 64, 128 (sm90)
 constexpr int STAGES = 2;       // ring depth of the walked tiles
 
-// the 1024-byte aligned start of dynamic shared memory (the launch asks
-// for 1024 bytes more than the layout needs)
-__device__ __forceinline__ unsigned char* align_smem(unsigned char* raw) {
-  const uint32_t a = hopper::smem_u32(raw);
-  return raw + ((1024 - (a & 1023)) & 1023);
-}
-
 // dq: byte offsets from the aligned base; every tile 1024-aligned
 template <int D>
 struct DqLayout {
@@ -409,7 +402,7 @@ flash_bwd_dq_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
   constexpr int BQ = L::BQ, BK = L::BK, NB = D / 64;
   constexpr uint32_t KV_BYTES = 2 * BK * D * 2;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm = align_smem(smem_raw);
+  unsigned char* sm = hopper::align_1024(smem_raw);
   bf16* Qs = reinterpret_cast<bf16*>(sm + L::Q);
   bf16* Os = reinterpret_cast<bf16*>(sm + L::O);
   bf16* Ks = reinterpret_cast<bf16*>(sm + L::K);
@@ -588,7 +581,7 @@ flash_bwd_dkv_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
   constexpr int NQ = BQ / 2;    // accumulator registers of a 64 x BQ tile
   constexpr uint32_t QO_BYTES = 2 * BQ * D * 2;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm = align_smem(smem_raw);
+  unsigned char* sm = hopper::align_1024(smem_raw);
   bf16* Ks = reinterpret_cast<bf16*>(sm + L::K);
   bf16* Vs = reinterpret_cast<bf16*>(sm + L::V);
   bf16* Qs = reinterpret_cast<bf16*>(sm + L::Q);

@@ -1,7 +1,9 @@
 // hopper_bf16.cuh: the Hopper (sm_90a) pieces of the bf16 attention
 // kernels: warpgroup products (`wgmma.mma_async`), their shared-memory
 // descriptors, TMA tile loads and the `mbarrier`s that report them.
-// flash_bwd_bf16.cu uses it at head dims 64 and 128. The warp-level
+// flash_fwd_bf16.cu and flash_bwd_bf16.cu use it at head dims 64 and 128:
+// the forward's S = Q K^T is the backward's, and its O += P V is the
+// backward's dQ += dS K (register A, B MN-major). The warp-level
 // `mma.sync` pieces stay in mma_bf16.cuh, which also gives this header
 // its bf16 type, shared-memory addresses and bf16 packing.
 //
@@ -57,6 +59,21 @@ using bf16mma::smem_u32;
 
 constexpr int BOX_COLS = 64;      // bf16 columns of one 128B-swizzled box
 constexpr int ATOM_BYTES = 1024;  // 8 rows x 128 bytes
+
+// the 1024-byte aligned start of dynamic shared memory (the launch asks
+// for 1024 bytes more than the layout needs)
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + ((1024 - (a & 1023)) & 1023);
+}
+
+// 2^x on the special-function unit (ex2.approx.ftz: relative error about
+// 2^-22, -inf -> 0, subnormal results flushed to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // ------------------------------------------------------------ mbarrier
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {

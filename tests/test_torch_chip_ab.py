@@ -48,6 +48,32 @@ def test_summary_reports_each_side_spread_and_ratio(tmp_path, capsys):
     assert row["ratio"] == pytest.approx(0.021 / 0.048)
 
 
+def test_summary_reports_rates_sdpa_and_wall_time(tmp_path, capsys):
+    """TFLOP/s and share of the bound from each side's mean device time
+    (operations at 989 TFLOP/s), SDPA's mean device time over the turns
+    that timed it, and each side's mean wall time around the wrapper."""
+    def turn(name, label, dev, wall, lib):
+        case = {"name": "flash_fwd_bf16", "case": "train", "device_ms": dev,
+                "ms": wall, "bound_ms": 0.005, "ops_bound_ms": 0.002,
+                "max_abs_err": 0.0, "library_device_ms": lib}
+        path = tmp_path / name
+        path.write_text(json.dumps({"ab": label, "cases": [case]}) + "\n")
+        return str(path)
+    chip_ab.summary([turn("p1", "parent", 0.030, 0.10, 0.014),
+                     turn("c1", "change", 0.010, 0.12, None),
+                     turn("c2", "change", 0.010, 0.14, 0.016),
+                     turn("p2", "parent", 0.034, 0.10, 0.015)])
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])[
+        "ab_summary"][0]
+    assert row["tflops"]["change"] == pytest.approx(0.002 * 989 / 0.010)
+    assert row["tflops"]["parent"] == pytest.approx(0.002 * 989 / 0.032)
+    assert row["bound_share"]["change"] == pytest.approx(0.5)
+    assert row["sdpa_device_ms"] == pytest.approx(0.015)
+    assert row["vs_sdpa"] == pytest.approx(0.010 / 0.015)
+    assert row["kernel_ms"] == pytest.approx({"parent": 0.10,
+                                              "change": 0.13})
+
+
 def test_summary_needs_exactly_two_sides(tmp_path):
     key = ("flash_bwd_dq_bf16", "train")
     logs = [_turn(tmp_path / f"{n}.log", n, {key: 0.05})

@@ -53,7 +53,11 @@ LSE_TOL = dict(rtol=1e-5, atol=1e-5)
 CASES = [  # (Tq, Tk, D, causal, masked)
     (16, 16, 16, False, False), (16, 16, 16, True, False),
     (37, 37, 16, True, True), (33, 33, 64, False, True),
-    (16, 37, 16, False, True), (64, 64, 64, True, False)]
+    (16, 37, 16, False, True), (64, 64, 64, True, False),
+    # the Hopper kernel's tile edges (64-row q and key tiles): a ragged
+    # tail at D=128, whole tiles, and Tq != Tk not causal
+    (130, 130, 128, True, True), (192, 192, 64, True, False),
+    (80, 150, 128, False, True)]
 
 
 def _bf16_pair(a):

@@ -53,17 +53,18 @@ GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
 OFFSETS = [(32, 0), (96, 96), (16, 0), (0, 32)]
 
 
-def _inputs(seed, masked, dtype):
+def _inputs(seed, masked, dtype, t=T, d=D):
     """(jax operands, torch operands, w) from one seeded generator: q, k, v
-    in `dtype` (bit-equal on both sides), the key mask (key 0 valid, so
-    every row that sees a key sees a valid one) and the lse weights w."""
+    [B, t, H, d] in `dtype` (bit-equal on both sides), the key mask (key 0
+    valid, so every row that sees a key sees a valid one) and the lse
+    weights w."""
     rng = np.random.default_rng(seed)
-    arrs = [rng.normal(size=(B, T, H, D)).astype(np.float32)
+    arrs = [rng.normal(size=(B, t, H, d)).astype(np.float32)
             for _ in range(3)]
-    w = rng.normal(size=(B, H, T)).astype(np.float32)
+    w = rng.normal(size=(B, H, t)).astype(np.float32)
     km = None
     if masked:
-        km = (rng.random((B, T)) > 0.3).astype(np.float32)
+        km = (rng.random((B, t)) > 0.3).astype(np.float32)
         km[:, 0] = 1.0
     jx = [jnp.asarray(a, dtype) for a in arrs]
     tt = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
@@ -99,9 +100,9 @@ def _port(tq, tk, tv, w, km, causal, offs):
     return out.detach(), lse.detach(), [t.grad for t in leaves]
 
 
-def _no_key_rows(causal, offs):
+def _no_key_rows(causal, offs, t=T):
     q_off, k_off = offs
-    return (np.arange(T) + q_off < k_off) if causal else np.zeros(T, bool)
+    return (np.arange(t) + q_off < k_off) if causal else np.zeros(t, bool)
 
 
 def _check_no_key_rows(out, lse, grads, dead, name):
@@ -148,12 +149,10 @@ def _assert_bf16_close(got, want, name):
                                atol=1e-3 * np.abs(want).max(), err_msg=name)
 
 
-@pytest.mark.parametrize("causal,offs,masked", [
-    (True, (32, 0), True), (True, (96, 96), False), (True, (16, 0), False),
-    (True, (0, 32), True), (False, (32, 0), True)])
-def test_lse_entry_matches_jax_bf16(causal, offs, masked):
+def _check_bf16(causal, offs, masked, t=T, d=D):
     seed = 100 * offs[0] + offs[1] + 7 * causal + masked + 1
-    (jq, jk, jv), (tq, tk, tv), w, km = _inputs(seed, masked, "bfloat16")
+    (jq, jk, jv), (tq, tk, tv), w, km = _inputs(seed, masked, "bfloat16",
+                                                t, d)
     want_o, want_l, want_g = _jax(jq, jk, jv, w, km, causal, offs)
     got_o, got_l, got_g = _port(tq, tk, tv, w, km, causal, offs)
     _assert_bf16_close(got_o, want_o, "out")
@@ -162,10 +161,25 @@ def test_lse_entry_matches_jax_bf16(causal, offs, masked):
     for name, g, wg in zip(("dq", "dk", "dv"), got_g, want_g):
         assert wg.dtype == jnp.bfloat16, name
         _assert_bf16_close(g, wg, name)
-    dead = _no_key_rows(causal, offs)
+    dead = _no_key_rows(causal, offs, t)
     _check_no_key_rows(want_o, want_l, want_g, dead, "jax")
     _check_no_key_rows(got_o.float(), got_l, [g.float() for g in got_g],
                        dead, "port")
+
+
+@pytest.mark.parametrize("causal,offs,masked", [
+    (True, (32, 0), True), (True, (96, 96), False), (True, (16, 0), False),
+    (True, (0, 32), True), (False, (32, 0), True)])
+def test_lse_entry_matches_jax_bf16(causal, offs, masked):
+    _check_bf16(causal, offs, masked)
+
+
+@pytest.mark.parametrize("causal,offs,masked", [(True, (64, 96), True)])
+def test_lse_entry_matches_jax_bf16_across_tiles(causal, offs, masked):
+    """T=144 at D=64: two whole 64-row tiles and a ragged one on both
+    axes (the Hopper kernel's tiles), shifted so that rows 0-31 see no key
+    and the diagonal crosses tile boundaries."""
+    _check_bf16(causal, offs, masked, t=144, d=64)
 
 
 def test_offsets_as_tensors_and_return_lse_under_grad():
