@@ -1,22 +1,32 @@
 #!/usr/bin/env python3
-"""A/B of the bf16 attention kernels between two checkouts on one GPU.
+"""A/B of the attention kernels between two checkouts on one GPU.
 
-    python3 chip_ab.py run ROOT LABEL    # one turn: ROOT's kernels
-    python3 chip_ab.py summary LOG...    # table of the turns' device times
+    python3 chip_ab.py run ROOT LABEL [f32]   # one turn: ROOT's kernels
+    python3 chip_ab.py summary LOG...         # table of the turns
 
 `run` imports ROOT's own `chip_smoke.py` and port package (ROOT first on
-sys.path), builds ROOT's kernels (phase 1: ptxas's report), and runs the
-bf16 cases through ROOT's own case functions: phase 2's `_bf16_case` at
-the train case (bitwise twice), with a ragged key mask, at Tq=37 Tk=53
-(D=64, 16, 128), B=4 T=4096 H=8, B=2 T=4096 H=8 D=128 and B=2 T=200 H=4
-D=128 with a ragged key mask, then phase 7's
-`_lse_case` on the ring's bf16 shard (diagonal and past, each with and
-without a ragged key mask, and offsets 0/512). Inputs come from the seeds
-chip_smoke.py uses (1 and 2), so both checkouts see the same tensors, and
-every gate of those functions holds in each turn. It prints one line
-`{"ab": LABEL, "cases": [...]}` with each kernel's device time (the
-profiler's, per call), CUDA-event time, bound, error and SDPA's device
-time on the same inputs.
+sys.path), builds ROOT's kernels (phase 1: ptxas's report), and runs one
+set of cases through ROOT's own case functions. By default the bf16
+kernels: phase 2's `_bf16_case` at the train case (bitwise twice), with a
+ragged key mask, at Tq=37 Tk=53 (D=64, 16, 128), B=4 T=4096 H=8, B=2
+T=4096 H=8 D=128 and B=2 T=200 H=4 D=128 with a ragged key mask, then
+phase 7's `_lse_case` on the ring's bf16 shard (diagonal and past, each
+with and without a ragged key mask, and offsets 0/512). With `f32`, the
+float32 backward pair: phase 2's `_bwd_case` at the train case (bitwise
+twice), with a ragged key mask, at Tq=37 Tk=53 (D=64, 16, 128) and B=4
+T=4096 H=8, then phase 7's `_lse_case` on the float32 shard (B=1 T=1024
+H=4, the same five offset and mask cases). Inputs come from fixed seeds,
+so both checkouts see the same tensors, and every gate of those
+functions holds in each turn. It prints one line `{"ab": LABEL, "cases":
+[...]}` with each kernel's device time (the profiler's, per call),
+CUDA-event time, operation count, bounds, error and SDPA's device time on
+the same inputs. The bounds are recomputed here from the operation count
+and the bytes, so that two checkouts whose chip_smoke.py count them
+against other peaks compare alike: `bound_ms` against the tensor cores
+(bf16 989 TFLOP/s; f32 165, three TF32 products per f32 product) and,
+for f32, `simt_bound_ms` against the CUDA cores' 67 TFLOP/s. A record
+from a chip_smoke.py that does not give `ops` has it from its
+`ops_bound_ms` and that checkout's own peak.
 
 Run each turn in its own process, on one card, in the order parent,
 change, change, parent: the card's clocks drift within a call, so each
@@ -25,9 +35,10 @@ turns is the noise a difference must beat. `summary` reads the `{"ab":
 ...}` lines of the logs and prints, per kernel and case, each side's
 turns, the parent's own spread, the change/parent ratio, each side's
 TFLOP/s and share of `bound_ms` (from its mean device time and the
-case's operations at 989 TFLOP/s), SDPA's mean device time over all
-turns, the change/SDPA ratio, and each side's mean `kernel_ms` (CUDA
-events around the wrapper: device time plus the host's launch cost).
+case's own `ops`; f32 also the share of the CUDA-core bound), SDPA's
+mean device time over all turns, the change/SDPA ratio, and each side's
+mean `kernel_ms` (CUDA events around the wrapper: device time plus the
+host's launch cost).
 """
 from __future__ import annotations
 
@@ -48,11 +59,43 @@ PHASE2 = [
     ("B=2 T=200 H=4 D=128, ragged key mask", 2, 200, 200, 4, 128, True,
      [200, 137], False),
 ]
+# float32 backward pair: (label, B, Tq, Tk, H, D, causal, valid, repeat)
+PHASE2_F32 = [
+    ("train B=16 T=512 H=4 D=64", 16, 512, 512, 4, 64, True, None, True),
+    ("train, ragged key mask", 16, 512, 512, 4, 64, True,
+     [512 - 29 * b for b in range(16)], False),
+    ("Tq=37 Tk=53 D=64", 2, 37, 53, 4, 64, False, [53, 20], False),
+    ("Tq=37 Tk=53 D=16", 2, 37, 53, 4, 16, False, [53, 20], False),
+    ("Tq=37 Tk=53 D=128", 2, 37, 53, 4, 128, False, [53, 20], False),
+    ("B=4 T=4096 H=8", 4, 4096, 4096, 8, 64, True, None, False),
+]
 SHARD = dict(B=4, T=1024, H=8, D=64)
-PEAK_TFLOPS = 989.0         # H100 SXM dense bf16 tensor cores
+SHARD_F32 = dict(B=1, T=1024, H=4, D=64)
+PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
+PEAK_BF16_FLOPS = 989e12    # dense bf16 tensor cores
+PEAK_F32_TC_FLOPS = 495e12 / 3   # three TF32 products per f32 product
+PEAK_F32_FLOPS = 67e12      # f32 on the CUDA cores
 
 
-def run(root, label):
+def _bounds(rec, cs):
+    """The A/B fields of one chip_smoke record: its operation count (from
+    `ops`, else from `ops_bound_ms` and the peak of the checkout `cs` that
+    computed it) and both bounds recomputed from it and the bytes."""
+    bf16 = rec["name"].endswith("_bf16")
+    ops = rec.get("ops")
+    if ops is None:
+        ops = rec["ops_bound_ms"] * 1e-3 * (
+            cs.PEAK_BF16_FLOPS if bf16 else cs.PEAK_F32_FLOPS)
+    out = {"ops": ops, "bytes_bound_ms": rec["bytes_bound_ms"],
+           "bound_ms": max(rec["bytes_bound_ms"], ops / (
+               PEAK_BF16_FLOPS if bf16 else PEAK_F32_TC_FLOPS) * 1e3)}
+    if not bf16:
+        out["simt_bound_ms"] = max(rec["bytes_bound_ms"],
+                                   ops / PEAK_F32_FLOPS * 1e3)
+    return out
+
+
+def run(root, label, dtype="bf16"):
     root = Path(root).resolve()
     sys.path.insert(0, str(root))
     import chip_smoke as cs
@@ -65,25 +108,29 @@ def run(root, label):
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device is visible")
     cs.phase_card()
+    f32 = dtype == "f32"
     recs = []
-    gen = torch.Generator().manual_seed(1)
-    for lab, B, Tq, Tk, H, D, causal, valid, repeat in PHASE2:
-        recs += cs._bf16_case(lab, B, Tq, Tk, H, D, causal, valid, gen,
-                              repeat=repeat)
+    gen = torch.Generator().manual_seed(0 if f32 else 1)
+    for lab, B, Tq, Tk, H, D, causal, valid, repeat in (
+            PHASE2_F32 if f32 else PHASE2):
+        case = cs._bwd_case if f32 else cs._bf16_case
+        recs += case(lab, B, Tq, Tk, H, D, causal, valid, gen, repeat=repeat)
     gen = torch.Generator().manual_seed(2)
-    B, T, H, D = SHARD["B"], SHARD["T"], SHARD["H"], SHARD["D"]
+    shard = SHARD_F32 if f32 else SHARD
+    B, T, H, D = shard["B"], shard["T"], shard["H"], shard["D"]
+    dt = torch.float32 if f32 else torch.bfloat16
     ragged = [T - 97 * (b + 1) for b in range(B)]
     for lab, offs in (("diagonal", (T, T)), ("past", (T, 0))):
         for valid in (None, ragged):
             recs += cs._lse_case(
                 "lse " + lab + (", ragged key mask" if valid else ""),
-                torch.bfloat16, B, T, H, D, offs, valid, gen)
-    recs += cs._lse_case("lse rows without keys", torch.bfloat16, B, T, H,
-                         D, (0, T // 2), None, gen)
+                dt, B, T, H, D, offs, valid, gen)
+    recs += cs._lse_case("lse rows without keys", dt, B, T, H, D,
+                         (0, T // 2), None, gen)
     print(json.dumps({"ab": label, "root": str(root), "cases": [
-        {k: r.get(k) for k in ("name", "case", "device_ms", "ms",
-                               "bound_ms", "ops_bound_ms", "max_abs_err",
-                               "library_device_ms")}
+        {**{k: r.get(k) for k in ("name", "case", "device_ms", "ms",
+                                  "max_abs_err", "library_device_ms")},
+         **_bounds(r, cs)}
         for r in recs]}))
 
 
@@ -109,7 +156,8 @@ def summary(logs):
     base, new = labels
     print(f"{'kernel':<20}{'case':<30}{base + ' runs':>22}{new + ' runs':>22}"
           f"{base + ' spread':>14}{'ratio':>8}{'TFLOP/s':>16}{'of bound':>14}"
-          f"{'SDPA':>9}{'/SDPA':>7}{'kernel_ms':>18}")
+          f"{'of CUDA-core bound':>20}{'SDPA':>9}{'/SDPA':>7}"
+          f"{'kernel_ms':>18}")
     rows = []
     for (name, case), by in sides.items():
         a, b = by.get(base, []), by.get(new, [])
@@ -124,11 +172,15 @@ def summary(logs):
                 for x in (base, new)}
         if all(wall.values()):
             row["kernel_ms"] = {x: sum(w) / len(w) for x, w in wall.items()}
-        if c.get("ops_bound_ms") is not None and c.get("bound_ms"):
-            row["tflops"] = {x: c["ops_bound_ms"] * PEAK_TFLOPS / t
-                             for x, t in ((base, ma), (new, mb))}
-            row["bound_share"] = {x: c["bound_ms"] / t
-                                  for x, t in ((base, ma), (new, mb))}
+        means = ((base, ma), (new, mb))
+        if c.get("ops") is not None:
+            row["tflops"] = {x: c["ops"] / (t * 1e-3) / 1e12
+                             for x, t in means}
+        if c.get("bound_ms"):
+            row["bound_share"] = {x: c["bound_ms"] / t for x, t in means}
+        if c.get("simt_bound_ms"):
+            row["simt_bound_share"] = {x: c["simt_bound_ms"] / t
+                                       for x, t in means}
         lib = [x for x in libs.get((name, case), []) if x is not None]
         row["sdpa_device_ms"] = sum(lib) / len(lib) if lib else None
         row["vs_sdpa"] = mb / row["sdpa_device_ms"] if lib else None
@@ -142,14 +194,16 @@ def summary(logs):
               f"{' / '.join(f'{x:.4f}' for x in b):>22}"
               f"{spread:>14.3f}{mb / ma:>8.3f}"
               f"{pair(row.get('tflops'), 0):>16}"
-              f"{pair(row.get('bound_share'), 3):>14}{sdpa}"
+              f"{pair(row.get('bound_share'), 3):>14}"
+              f"{pair(row.get('simt_bound_share'), 3):>20}{sdpa}"
               f"{pair(row.get('kernel_ms'), 4):>18}")
     print(json.dumps({"ab_summary": rows}))
 
 
 if __name__ == "__main__":
-    if len(sys.argv) >= 4 and sys.argv[1] == "run":
-        run(sys.argv[2], sys.argv[3])
+    if len(sys.argv) in (4, 5) and sys.argv[1] == "run" \
+            and sys.argv[4:] in ([], ["f32"], ["bf16"]):
+        run(*sys.argv[2:])
     elif len(sys.argv) >= 3 and sys.argv[1] == "summary":
         summary(sys.argv[2:])
     else:

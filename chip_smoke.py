@@ -22,9 +22,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    to, with the forward kernel's LSE checked against the plain LSE first;
    then the training case runs twice and its gradients must be bitwise
    equal. Times are CUDA-event medians and profiler device times;
-   `bound_ms` is the larger of bytes over 3.35 TB/s and operations over
-   67 TFLOP/s (f32 off the tensor cores, TF32 being off), operations
-   counted per unmasked (q, k) pair (4*D forward, 6*D dq, 8*D dk/dv);
+   each record carries its operation count `ops`, counted per unmasked
+   (q, k) pair (4*D forward, 6*D dq, 8*D dk/dv), and `bound_ms`, the
+   larger of bytes over 3.35 TB/s and `ops` over 165 TFLOP/s: f32-grade
+   work on the tensor cores, three TF32 products (495 TFLOP/s dense) per
+   f32 product, as the backward pair computes at D=64 with TF32 off for
+   torch. The CUDA cores' 67 TFLOP/s figure stays beside it as
+   `simt_ops_bound_ms`. Every record (f32 and bf16, here and in phase 7)
+   also carries its achieved TFLOP/s (`ops` over device time), the share
+   of `bound_ms` that its device time reaches and, for f32, the share of
+   the CUDA-core bound (`simt_bound_share`);
    `library_ms` times `scaled_dot_product_attention` on the same inputs
    (for the backward pair: `torch.autograd.grad` through it, the forward
    taken untimed; it computes dq, dk and dv in one call, so both rows
@@ -55,9 +62,6 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    operations over 989 TFLOP/s (dense bf16 tensor cores) with the f32
    rows' operation counts, bytes at 2 per bf16 element; `library_ms` is
    SDPA on the same bf16 inputs (the backward: autograd through it).
-   Every bf16 kernel record (here and in phase 7) also carries its
-   achieved TFLOP/s (operations over device time) and the share of
-   `bound_ms` that its device time reaches.
 3. The serving path: `transformer_lm` at full width (vocab 256, d_model
    256, 4 layers, 4 heads) with `use_pallas=True` and
    `synthetic_params(seed=0)`, served by
@@ -119,6 +123,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and lse, then the backward pair fed the plain out and lse and a random
    LSE cotangent (delta = rowsum(dO o O) - g_lse); phase 2's bf16 bars.
    The same five cases in float32 at B=1 H=4 with phase 2's float32 bars.
+   Each record carries `ops`, its rate and its shares of the bounds as in
+   phase 2 (f32: 165 TFLOP/s, with the 67 TFLOP/s figure beside).
    `library_ms` is SDPA on the same shard (causal on the diagonal, none
    on the past shard, null where a row has no key); SDPA returns no LSE.
    Then the bf16 ring at `bench_flash_attention`'s shape (bench.py:
@@ -167,6 +173,9 @@ TRAIN_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_train.json"
 TRAIN_BF16_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_train_bf16.json"
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12      # H100 SXM f32 outside the tensor cores
+# f32-grade work on the tensor cores: three TF32 products (dense TF32 495
+# TFLOP/s) per f32 product, the f32 backward pair's design at D=64
+PEAK_F32_TC_FLOPS = 495e12 / 3
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor cores
 TOL = 1e-4
 BWD_TOL = dict(rtol=2e-4, atol=2e-5)
@@ -242,28 +251,45 @@ def device_ms(fn, reps=20):
     return None
 
 
-def bound(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
-    """(bound_ms, bound_by, bytes_ms, ops_ms) against the card's peaks."""
+def bound(nbytes, ops, bf16=False):
+    """A record's operation count and its bounds on the card: `bound_ms`,
+    the larger of the bytes over 3.35 TB/s and the operations over the
+    tensor cores' rate for the type (bf16 989 TFLOP/s; f32 165 TFLOP/s,
+    three TF32 products per f32 product), with `bound_by`, each part, and
+    for f32 the operations over the 67 TFLOP/s of the CUDA cores beside it
+    (`simt_ops_bound_ms`)."""
     bytes_ms = nbytes / PEAK_BYTES_S * 1e3
-    ops_ms = flops / peak_flops * 1e3
-    by = "bytes" if bytes_ms >= ops_ms else "operations"
-    return max(bytes_ms, ops_ms), by, bytes_ms, ops_ms
+    ops_ms = ops / (PEAK_BF16_FLOPS if bf16 else PEAK_F32_TC_FLOPS) * 1e3
+    rec = {"ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms}
+    if not bf16:
+        rec["simt_ops_bound_ms"] = ops / PEAK_F32_FLOPS * 1e3
+    return rec
 
 
 def _rate(rec):
-    """' 123.4 TFLOP/s, 0.456 of bound' for a record with rate fields."""
+    """' 123.4 TFLOP/s, 0.456 of bound' for a record with rate fields
+    (f32: ', 0.789 of the CUDA-core bound' after it)."""
     if rec.get("tflops") is None:
         return ""
-    return f" {rec['tflops']:.1f} TFLOP/s, {rec['bound_share']:.3f} of bound"
+    simt = rec.get("simt_bound_share")
+    return (f" {rec['tflops']:.1f} TFLOP/s, {rec['bound_share']:.3f} of "
+            "bound" + ("" if simt is None else
+                       f", {simt:.3f} of the CUDA-core bound"))
 
 
-def rate_fields(rec, ops):
-    """A bf16 kernel record's achieved TFLOP/s (operations over its
-    device time) and the share of `bound_ms` that device time reaches;
-    None where the profiler recorded no device time."""
+def rate_fields(rec):
+    """A kernel record's achieved TFLOP/s (its `ops` over its device time)
+    and the share of `bound_ms` that device time reaches; for f32 also the
+    share of the CUDA-core bound (bytes or `simt_ops_bound_ms`, the
+    larger). None where the profiler recorded no device time."""
     t = rec["device_ms"]
-    rec["tflops"] = None if not t else ops / (t * 1e-3) / 1e12
+    rec["tflops"] = None if not t else rec["ops"] / (t * 1e-3) / 1e12
     rec["bound_share"] = None if not t else rec["bound_ms"] / t
+    if "simt_ops_bound_ms" in rec:
+        simt = max(rec["bytes_bound_ms"], rec["simt_ops_bound_ms"])
+        rec["simt_bound_share"] = None if not t else simt / t
     return rec
 
 
@@ -367,18 +393,16 @@ def _fwd_case(label, B, T, H, D, valid, gen, lse=False):
     pairs = _valid_pairs(B, T, T, H, True, km)
     nbytes = 4 * (4 * B * T * H * D + (B * H * T if lse else 0)
                   + (B * T if km is not None else 0))
-    b_ms, by, bytes_ms, ops_ms = bound(nbytes, 4 * D * pairs)
     rec = {"name": "flash_fwd", "case": label,
            "shape": [B, T, H, D], "causal": True, "lse": lse,
            "key_mask": km is not None, "max_abs_err": err,
            "library_max_abs_err": lib_err,
            "ms": median_ms(run), "plain_ms": median_ms(plain),
-           "library_ms": median_ms(library), "bound_ms": b_ms,
-           "bound_by": by, "bytes_bound_ms": bytes_ms,
-           "ops_bound_ms": ops_ms, "device_ms": device_ms(run),
+           "library_ms": median_ms(library),
+           **bound(nbytes, 4 * D * pairs), "device_ms": device_ms(run),
            "plain_device_ms": device_ms(plain),
            "library_device_ms": device_ms(library)}
-    return rec
+    return rate_fields(rec)
 
 
 def _decode_case(label, S, C, H, D, lengths, gen):
@@ -417,16 +441,15 @@ def _decode_case(label, S, C, H, D, lengths, gen):
         library_device_ms = device_ms(library)
     n = sum(C if x <= 0 else min(int(x), C) for x in lengths)
     nbytes = 4 * (2 * n * H * D + 2 * S * H * D + S)
-    b_ms, by, bytes_ms, ops_ms = bound(nbytes, 4 * D * H * n)
-    return {"name": "flash_decode", "case": label, "shape": [S, C, H, D],
+    return rate_fields({
+            "name": "flash_decode", "case": label, "shape": [S, C, H, D],
             "lengths": ("random 1..C" if len(lengths) > 16
                         else list(lengths)),
             "max_abs_err": err, "library_max_abs_err": lib_err,
             "ms": median_ms(run), "plain_ms": median_ms(plain),
-            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by,
-            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+            "library_ms": library_ms, **bound(nbytes, 4 * D * H * n),
             "device_ms": device_ms(run), "plain_device_ms": device_ms(plain),
-            "library_device_ms": library_device_ms}
+            "library_device_ms": library_device_ms})
 
 
 def _paged_case(label, S, bs, nb, H, D, lengths, gen):
@@ -485,8 +508,8 @@ def _paged_case(label, S, bs, nb, H, D, lengths, gen):
         gather_sdpa_device_ms = device_ms(gather_sdpa)
     n = sum(C if x <= 0 else min(int(x), C) for x in lengths)
     nbytes = 4 * (2 * n * H * D + 2 * S * H * D + S + sum(used))
-    b_ms, by, bytes_ms, ops_ms = bound(nbytes, 4 * D * H * n)
-    return {"name": "flash_decode_paged", "case": label,
+    return rate_fields({
+            "name": "flash_decode_paged", "case": label,
             "shape": [S, nb, bs, H, D],
             "lengths": ("random 1..C" if len(lengths) > 16
                         else list(lengths)),
@@ -498,9 +521,8 @@ def _paged_case(label, S, bs, nb, H, D, lengths, gen):
                             "then SDPA)",
             "gather_sdpa_ms": gather_sdpa_ms,
             "gather_sdpa_device_ms": gather_sdpa_device_ms,
-            "bound_ms": b_ms, "bound_by": by, "bytes_bound_ms": bytes_ms,
-            "ops_bound_ms": ops_ms, "device_ms": device_ms(run),
-            "plain_device_ms": device_ms(plain), "library_device_ms": None}
+            **bound(nbytes, 4 * D * H * n), "device_ms": device_ms(run),
+            "plain_device_ms": device_ms(plain), "library_device_ms": None})
 
 
 def _bwd_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
@@ -582,18 +604,16 @@ def _bwd_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
             ("flash_bwd_dkv", 8 * B * Tk * H * D, 8 * D * pairs,
              max(errs["dk"], errs["dv"]))):
         run, plain = runs[name]
-        b_ms, by, bytes_ms, ops_ms = bound(reads + writes, ops)
-        recs.append({
+        recs.append(rate_fields({
             "name": name, "case": label, "shape": [B, Tq, Tk, H, D],
             "causal": causal, "key_mask": km is not None,
             "max_abs_err": err, "lse_max_abs_err": lse_err,
             "library_max_abs_err": lib_err, "ms": median_ms(run),
             "plain_ms": median_ms(plain), "library_ms": lib_ms,
-            "bound_ms": b_ms, "bound_by": by, "bytes_bound_ms": bytes_ms,
-            "ops_bound_ms": ops_ms, "device_ms": device_ms(run),
+            **bound(reads + writes, ops), "device_ms": device_ms(run),
             "plain_device_ms": device_ms(plain),
             "library_device_ms": lib_device_ms,
-            "bitwise_repeat": repeat})
+            "bitwise_repeat": repeat}))
     return recs
 
 
@@ -719,7 +739,6 @@ def _bf16_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
     recs = []
     for name, (run, plain) in runs.items():
         nbytes, ops = work[name]
-        b_ms, by, bytes_ms, ops_ms = bound(nbytes, ops, PEAK_BF16_FLOPS)
         lib_ms, lib_dev, lib_err = lib[name]
         rec = {
             "name": name, "case": label, "shape": [B, Tq, Tk, H, D],
@@ -732,11 +751,10 @@ def _bf16_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
                                         "; torch.autograd.grad through it "
                                         "gives dq, dk and dv in one call, "
                                         "the pair's time"),
-            "bound_ms": b_ms, "bound_by": by, "bytes_bound_ms": bytes_ms,
-            "ops_bound_ms": ops_ms, "device_ms": device_ms(run),
+            **bound(nbytes, ops, bf16=True), "device_ms": device_ms(run),
             "plain_device_ms": device_ms(plain), "library_device_ms": lib_dev,
             "bitwise_repeat": repeat}
-        recs.append(rate_fields(rec, ops))
+        recs.append(rate_fields(rec))
     return recs
 
 
@@ -1469,8 +1487,6 @@ def _lse_case(label, dtype, B, T, H, D, offsets, valid, gen):
     recs = []
     for kname, (run, plain) in runs.items():
         nbytes, ops = work[kname]
-        b_ms, by, bytes_ms, ops_ms = bound(
-            nbytes, ops, PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
         lib_ms, lib_dev, lib_err = lib[kname]
         rec = {
             "name": kname, "case": label, "shape": [B, T, T, H, D],
@@ -1484,10 +1500,9 @@ def _lse_case(label, dtype, B, T, H, D, offsets, valid, gen):
                                 "" if kname.startswith("flash_fwd") else
                                 "; torch.autograd.grad through it gives dq, "
                                 "dk and dv in one call, the pair's time"),
-            "bound_ms": b_ms, "bound_by": by, "bytes_bound_ms": bytes_ms,
-            "ops_bound_ms": ops_ms, "device_ms": device_ms(run),
+            **bound(nbytes, ops, bf16), "device_ms": device_ms(run),
             "plain_device_ms": device_ms(plain), "library_device_ms": lib_dev}
-        recs.append(rate_fields(rec, ops) if bf16 else rec)
+        recs.append(rate_fields(rec))
     return recs
 
 
@@ -1740,8 +1755,10 @@ def main():
             "library_ms": c["library_ms"], "device_ms": c["device_ms"],
             "plain_device_ms": c["plain_device_ms"],
             "library_device_ms": c["library_device_ms"],
-            **{k: c[k] for k in ("library_note", "gather_sdpa_ms",
-                                 "tflops", "bound_share") if k in c}})
+            **{k: c[k] for k in ("library_note", "gather_sdpa_ms", "ops",
+                                 "simt_ops_bound_ms", "tflops",
+                                 "bound_share", "simt_bound_share")
+               if k in c}})
     print(smi)              # the card's name and power limit, again
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

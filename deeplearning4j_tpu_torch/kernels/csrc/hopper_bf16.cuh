@@ -5,7 +5,10 @@
 // the forward's S = Q K^T is the backward's, and its O += P V is the
 // backward's dQ += dS K (register A, B MN-major). The warp-level
 // `mma.sync` pieces stay in mma_bf16.cuh, which also gives this header
-// its bf16 type, shared-memory addresses and bf16 packing.
+// its bf16 type, shared-memory addresses and bf16 packing. The float32
+// backward (flash_bwd.cu at D=64) takes its mbarriers, TMA copy,
+// descriptors, wgmma ordering and tensor maps from here through
+// hopper_f32.cuh, which adds the TF32 pieces.
 //
 // Tiles. Every operand tile is loaded by TMA from a 4-D tensor map over a
 // [B, T, H, D] bf16 tensor (dims innermost first: D, H, T, B; box 64
@@ -301,26 +304,37 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The map of a [B, T, H, D] bf16 tensor (element strides sb, st, sh; the
-// head dim dense) read in boxes of 64 columns x `rows` rows, 128B swizzle,
-// zeros past every edge. Returns a cudaError_t value (0 = built).
-inline int make_tile_map(CUtensorMap* map, const void* base, int B, int T,
-                         int H, int D, long long sb, long long st,
-                         long long sh, int rows) {
+// The map of a [B, T, H, D] tensor of `type` (`bytes` per element;
+// element strides sb, st, sh; the head dim dense) read in boxes of 128
+// bytes of columns x `rows` rows, 128B swizzle, zeros past every edge.
+// Returns a cudaError_t value (0 = built).
+inline int make_tile_map(CUtensorMap* map, CUtensorMapDataType type,
+                         int bytes, const void* base, int B, int T, int H,
+                         int D, long long sb, long long st, long long sh,
+                         int rows) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {BOX_COLS, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)(sh * bytes),
+                                 (cuuint64_t)(st * bytes),
+                                 (cuuint64_t)(sb * bytes)};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / bytes), 1, (cuuint32_t)rows,
+                             1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, type, 4, const_cast<void*>(base), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The map of a bf16 tensor, boxes of 64 columns.
+inline int make_tile_map(CUtensorMap* map, const void* base, int B, int T,
+                         int H, int D, long long sb, long long st,
+                         long long sh, int rows) {
+  return make_tile_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, B, T,
+                       H, D, sb, st, sh, rows);
 }
 
 }  // namespace hopper

@@ -13,12 +13,13 @@ PyTorch version beside it:
   runs it on the ring, with the causal mask at global positions (query
   row i at q_offset + i, key j at k_offset + j). Plain version:
   `flash_attention_plain`.
-- `flash_bwd_dq` -> `csrc/flash_bwd.cu` (`flash_bwd_dq_f32`) and
-  `csrc/flash_bwd_bf16.cu` (`flash_bwd_dq_bf16`), replacing
+- `flash_bwd_dq` -> `csrc/flash_bwd.cu` (`flash_bwd_dq_f32`; at head
+  dim 64 on the tensor cores, each float32 product as three TF32
+  products) and `csrc/flash_bwd_bf16.cu` (`flash_bwd_dq_bf16`), replacing
   `_bwd_dq_kernel` (:226-273, `pallas_call` :366); plain version
   `flash_bwd_dq_plain`.
-- `flash_bwd_dkv` -> `csrc/flash_bwd.cu` (`flash_bwd_dkv_f32`) and
-  `csrc/flash_bwd_bf16.cu` (`flash_bwd_dkv_bf16`), replacing
+- `flash_bwd_dkv` -> `csrc/flash_bwd.cu` (`flash_bwd_dkv_f32`, likewise)
+  and `csrc/flash_bwd_bf16.cu` (`flash_bwd_dkv_bf16`), replacing
   `_bwd_dkv_kernel` (:276-330, `pallas_call` :388); plain version
   `flash_bwd_dkv_plain`.
 - `flash_decode` -> `csrc/flash_decode.cu`, replacing `_flash_kernel` as
@@ -192,11 +193,12 @@ def _check_operands(q, dtypes=(torch.float32,), **others):
 
 
 def _aligned(t):
-    """A bf16 operand whose rows do not all start on 16-byte boundaries
-    (the bf16 kernels' vector loads: data pointer and (b, t, h) strides)
-    as a dense copy; anything else as it is."""
-    if t.dtype == torch.bfloat16 and (
-            t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
+    """An operand whose rows do not all start on 16-byte boundaries (data
+    pointer and (b, t, h) strides: the bf16 kernels' vector loads, the
+    TMA maps of the bf16 and f32 tensor-core kernels) as a dense copy;
+    anything else as it is."""
+    if t.data_ptr() % 16 or any(s * t.element_size() % 16
+                                for s in t.stride()[:3]):
         return t.clone(memory_format=torch.contiguous_format)
     return t
 

@@ -1,16 +1,17 @@
 """The port's A/B driver (chip_ab.py) and the kernel builder's cache key.
 
 chip_ab.py runs only on a card (each turn builds and times one checkout's
-kernels); here its summary is checked on synthetic turns, and `run` must
-refuse without a card. The builder names each library by a hash of its
-source and every shared header, so an edit of the Hopper header
-(csrc/hopper_bf16.cuh) must rebuild every library.
+kernels); here its summary is checked on synthetic turns, its bounds on
+synthetic records, and `run` must refuse without a card. `build.py`
+names each library by a hash of its source and every shared header, so
+an edit of any header (csrc/*.cuh) must rebuild every library.
 """
 import json
 import shutil
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 
@@ -49,12 +50,13 @@ def test_summary_reports_each_side_spread_and_ratio(tmp_path, capsys):
 
 
 def test_summary_reports_rates_sdpa_and_wall_time(tmp_path, capsys):
-    """TFLOP/s and share of the bound from each side's mean device time
-    (operations at 989 TFLOP/s), SDPA's mean device time over the turns
-    that timed it, and each side's mean wall time around the wrapper."""
+    """TFLOP/s (the record's own operation count) and share of the bound
+    from each side's mean device time, SDPA's mean device time over the
+    turns that timed it, and each side's mean wall time around the
+    wrapper."""
     def turn(name, label, dev, wall, lib):
         case = {"name": "flash_fwd_bf16", "case": "train", "device_ms": dev,
-                "ms": wall, "bound_ms": 0.005, "ops_bound_ms": 0.002,
+                "ms": wall, "ops": 0.002e-3 * 989e12, "bound_ms": 0.005,
                 "max_abs_err": 0.0, "library_device_ms": lib}
         path = tmp_path / name
         path.write_text(json.dumps({"ab": label, "cases": [case]}) + "\n")
@@ -68,10 +70,52 @@ def test_summary_reports_rates_sdpa_and_wall_time(tmp_path, capsys):
     assert row["tflops"]["change"] == pytest.approx(0.002 * 989 / 0.010)
     assert row["tflops"]["parent"] == pytest.approx(0.002 * 989 / 0.032)
     assert row["bound_share"]["change"] == pytest.approx(0.5)
+    assert "simt_bound_share" not in row       # bf16: no CUDA-core bound
     assert row["sdpa_device_ms"] == pytest.approx(0.015)
     assert row["vs_sdpa"] == pytest.approx(0.010 / 0.015)
     assert row["kernel_ms"] == pytest.approx({"parent": 0.10,
                                               "change": 0.13})
+
+
+def test_f32_records_get_both_bounds_and_their_rates(tmp_path, capsys):
+    """An f32 record's bounds are recomputed from its operations and bytes
+    (165 TFLOP/s on the tensor cores, 67 on the CUDA cores), also for a
+    checkout whose records give only `ops_bound_ms` at its own f32 peak;
+    the summary's TFLOP/s is operations over each side's mean device time,
+    and its shares are each bound over that time."""
+    ops = 6 * 64 * 1_000_000                    # dq: 6*D per pair
+    cs = SimpleNamespace(PEAK_F32_FLOPS=67e12, PEAK_BF16_FLOPS=989e12)
+    new = {"name": "flash_bwd_dq", "ops": ops, "bytes_bound_ms": 1e-4,
+           "ops_bound_ms": ops / 165e9}
+    old = {"name": "flash_bwd_dq", "bytes_bound_ms": 1e-4,
+           "ops_bound_ms": ops / 67e9}
+    want = {"ops": ops, "bytes_bound_ms": 1e-4,
+            "bound_ms": ops / (495e12 / 3) * 1e3,
+            "simt_bound_ms": ops / 67e12 * 1e3}
+    for rec in (new, old):
+        assert chip_ab._bounds(rec, cs) == pytest.approx(want)
+    # bytes bound a small case on both
+    tiny = chip_ab._bounds({"name": "flash_bwd_dkv", "ops": 8e6,
+                            "bytes_bound_ms": 0.01}, cs)
+    assert tiny["bound_ms"] == tiny["simt_bound_ms"] == 0.01
+
+    def turn(path, label, dev):
+        case = {"name": "flash_bwd_dq", "case": "train", "device_ms": dev,
+                "ms": 2 * dev, "max_abs_err": 0.0, **want}
+        path.write_text(json.dumps({"ab": label, "cases": [case]}) + "\n")
+        return str(path)
+    chip_ab.summary([turn(tmp_path / "p1", "parent", 0.21),
+                     turn(tmp_path / "c1", "change", 0.07),
+                     turn(tmp_path / "c2", "change", 0.09),
+                     turn(tmp_path / "p2", "parent", 0.23)])
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])[
+        "ab_summary"][0]
+    assert row["tflops"]["parent"] == pytest.approx(ops / 0.22e-3 / 1e12)
+    assert row["tflops"]["change"] == pytest.approx(ops / 0.08e-3 / 1e12)
+    assert row["bound_share"]["change"] == pytest.approx(
+        want["bound_ms"] / 0.08)
+    assert row["simt_bound_share"]["parent"] == pytest.approx(
+        want["simt_bound_ms"] / 0.22)
 
 
 def test_summary_needs_exactly_two_sides(tmp_path):
@@ -90,12 +134,15 @@ def test_run_refuses_without_a_card():
     assert '{"ab"' not in res.stdout
 
 
+@pytest.mark.parametrize("header", sorted(
+    p.name for p in build.CSRC.glob("*.cuh")))
 @pytest.mark.parametrize("name", build.SOURCES)
-def test_library_name_hashes_the_hopper_header(name, tmp_path, monkeypatch):
+def test_library_name_hashes_the_hopper_header(name, header, tmp_path,
+                                               monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
     before = build.library_path(name)
-    header = csrc / "hopper_bf16.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
+    path = csrc / header
+    path.write_text(path.read_text() + "\n// edited\n")
     assert build.library_path(name) != before
