@@ -12,10 +12,13 @@ ragged key mask, at Tq=37 Tk=53 (D=64, 16, 128), B=4 T=4096 H=8, B=2
 T=4096 H=8 D=128 and B=2 T=200 H=4 D=128 with a ragged key mask, then
 phase 7's `_lse_case` on the ring's bf16 shard (diagonal and past, each
 with and without a ragged key mask, and offsets 0/512). With `f32`, the
-float32 backward pair: phase 2's `_bwd_case` at the train case (bitwise
-twice), with a ragged key mask, at Tq=37 Tk=53 (D=64, 16, 128) and B=4
-T=4096 H=8, then phase 7's `_lse_case` on the float32 shard (B=1 T=1024
-H=4, the same five offset and mask cases). Inputs come from fixed seeds,
+float32 kernels: phase 2's `_fwd_case` at the prefill shapes (B=1 L=16,
+64, 256 H=4, a ragged key mask), at the train case with the LSE and at
+B=4 T=4096 H=8; the backward pair's `_bwd_case` at the train case
+(bitwise twice), with a ragged key mask, at Tq=37 Tk=53 (D=64, 16, 128)
+and B=4 T=4096 H=8; then phase 7's `_lse_case` on the float32 shard
+(B=1 T=1024 H=4, the same five offset and mask cases; it times the
+forward too). Inputs come from fixed seeds,
 so both checkouts see the same tensors, and every gate of those
 functions holds in each turn. It prints one line `{"ab": LABEL, "cases":
 [...]}` with each kernel's device time (the profiler's, per call),
@@ -69,6 +72,14 @@ PHASE2_F32 = [
     ("Tq=37 Tk=53 D=128", 2, 37, 53, 4, 128, False, [53, 20], False),
     ("B=4 T=4096 H=8", 4, 4096, 4096, 8, 64, True, None, False),
 ]
+# float32 forward: (label, B, T, H, D, valid key lengths or None, lse)
+FWD_F32 = [
+    ("prefill L=16", 1, 16, 4, 64, [13], False),
+    ("prefill L=64", 1, 64, 4, 64, [49], False),
+    ("prefill L=256", 1, 256, 4, 64, [193], False),
+    ("train B=16 T=512 H=4 D=64", 16, 512, 4, 64, None, True),
+    ("T=4096", 4, 4096, 8, 64, None, False),
+]
 SHARD = dict(B=4, T=1024, H=8, D=64)
 SHARD_F32 = dict(B=1, T=1024, H=4, D=64)
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
@@ -110,6 +121,10 @@ def run(root, label, dtype="bf16"):
     cs.phase_card()
     f32 = dtype == "f32"
     recs = []
+    if f32:
+        gen = torch.Generator().manual_seed(3)
+        for lab, B, T, H, D, valid, lse in FWD_F32:
+            recs.append(cs._fwd_case(lab, B, T, H, D, valid, gen, lse=lse))
     gen = torch.Generator().manual_seed(0 if f32 else 1)
     for lab, B, Tq, Tk, H, D, causal, valid, repeat in (
             PHASE2_F32 if f32 else PHASE2):

@@ -11,13 +11,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    process per source, all at once), printing ptxas's registers, shared
    memory and spills.
 2. Kernels against their plain PyTorch versions, on the card: `flash_fwd`
-   at the prefill shapes, at the training shape with its log-sum-exp and
-   at a shape large enough to time; `flash_decode` at the decode-step
-   shape and a large cache; the backward pair `flash_bwd_dq` and
-   `flash_bwd_dkv` at the training shape (causal, with and without a
-   ragged key mask), at T=37 not causal with Tq != Tk, and at B=4 T=4096
-   H=8 causal. Forward: max abs error <= 1e-4 (outputs are O(1); the only
-   difference is the order of sums). Backward: allclose(rtol=2e-4,
+   at the prefill shapes, at the training shape with its log-sum-exp
+   (once more run three times: the results must be bitwise equal), at a
+   shape large enough to time, and at Tq=37 Tk=53 not causal with a key
+   mask at head dims 64 (three TF32 products per f32 product on the
+   tensor cores, like the backward pair) and 16 and 128 (the CUDA-core
+   kernel), and at two grids that take two consumer warpgroups per block
+   (B=16 T=200 H=4 causal with a ragged key mask: a ragged last block;
+   B=64 Tq=50 Tk=77 H=4 with a key mask: a second consumer with no rows
+   below Tq), out and LSE; `flash_decode` at the decode-step shape and a large cache;
+   the backward pair `flash_bwd_dq` and `flash_bwd_dkv` at the training
+   shape (causal, with and without a ragged key mask), at T=37 not causal
+   with Tq != Tk, and at B=4 T=4096 H=8 causal. Forward: max abs error
+   <= 1e-4 on out and the LSE (outputs are O(1); the order of sums and,
+   at D=64, the dropped lo.lo terms of the split products, near 2^-22
+   relative). Backward: allclose(rtol=2e-4,
    atol=2e-5), the bar tests/test_kernels.py holds the Pallas backward
    to, with the forward kernel's LSE checked against the plain LSE first;
    then the training case runs twice and its gradients must be bitwise
@@ -26,8 +34,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (q, k) pair (4*D forward, 6*D dq, 8*D dk/dv), and `bound_ms`, the
    larger of bytes over 3.35 TB/s and `ops` over 165 TFLOP/s: f32-grade
    work on the tensor cores, three TF32 products (495 TFLOP/s dense) per
-   f32 product, as the backward pair computes at D=64 with TF32 off for
-   torch. The CUDA cores' 67 TFLOP/s figure stays beside it as
+   f32 product, as the forward and the backward pair compute at D=64
+   with TF32 off for torch. The CUDA cores' 67 TFLOP/s figure stays
+   beside it as
    `simt_ops_bound_ms`. Every record (f32 and bf16, here and in phase 7)
    also carries its achieved TFLOP/s (`ops` over device time), the share
    of `bound_ms` that its device time reaches and, for f32, the share of
@@ -354,54 +363,75 @@ def _fwd_case(label, B, T, H, D, valid, gen, lse=False):
     """One flash_fwd case: causal, key mask from `valid` (per-batch valid
     prefix length or None), with the log-sum-exp output when `lse` (the
     training forward). Returns its record."""
+    return _fwd_general_case(label, B, T, T, H, D, True, valid, gen, lse=lse)
+
+
+def _fwd_general_case(label, B, Tq, Tk, H, D, causal, valid, gen, lse=False,
+                      repeat=False):
+    """One flash_fwd case at any lengths, causal or not (offsets 0), key
+    mask from `valid` (per-batch valid prefix length of the Tk keys or
+    None), with the log-sum-exp output when `lse`. Out (and the LSE)
+    against the plain version within TOL; with `repeat`, the call runs
+    twice more and must give the same bits. Returns its record."""
     import torch
     from deeplearning4j_tpu_torch.kernels import (flash_attention,
                                                   flash_attention_plain)
     dev = torch.device(DEVICE)
-    q, k, v = (torch.randn((B, T, H, D), generator=gen).to(dev)
-               for _ in range(3))
-    km = _key_mask(B, T, valid)
-    run = lambda: flash_attention(q, k, v, causal=True, key_mask=km,
+    q = torch.randn((B, Tq, H, D), generator=gen).to(dev)
+    k, v = (torch.randn((B, Tk, H, D), generator=gen).to(dev)
+            for _ in range(2))
+    km = _key_mask(B, Tk, valid)
+    run = lambda: flash_attention(q, k, v, causal=causal, key_mask=km,
                                   return_lse=lse)
-    plain = lambda: flash_attention_plain(q, k, v, causal=True, key_mask=km,
-                                          return_lse=lse)
-    out = run()
+    plain = lambda: flash_attention_plain(q, k, v, causal=causal,
+                                          key_mask=km, return_lse=lse)
+    outputs = lambda res: res if lse else (res,)    # (out[, lse])
+    got = outputs(run())
     torch.cuda.synchronize()
-    ref = plain()
+    ref = outputs(plain())
     torch.cuda.synchronize()
+    out, want = got[0], ref[0]
     if lse:
-        (out, out_lse), (ref, ref_lse) = out, ref
-        lse_err = float((out_lse - ref_lse).abs().max())
+        lse_err = float((got[1] - ref[1]).abs().max())
         check(lse_err <= TOL, f"flash_fwd {label}: lse max abs err "
                               f"{lse_err} > {TOL}")
     check(bool(torch.isfinite(out).all()), f"flash_fwd {label}: non-finite")
-    err = float((out - ref).abs().max())
+    err = float((out - want).abs().max())
     check(err <= TOL, f"flash_fwd {label}: max abs err {err} > {TOL}")
+    if repeat:
+        for _ in range(2):
+            check(all(torch.equal(a, b)
+                      for a, b in zip(got, outputs(run()))),
+                  f"flash_fwd {label}: results differ bitwise between runs")
     sdpa_q, sdpa_k, sdpa_v = (t.transpose(1, 2) for t in (q, k, v))
     sdpa_mask = None
-    if km is not None:   # boolean [B, 1, Tq, Tk]: causal AND key-valid
-        causal = torch.ones((T, T), dtype=torch.bool, device=dev).tril()
-        sdpa_mask = causal[None, None] & (km > 0)[:, None, None, :]
+    if km is not None:   # boolean [B, 1, Tq, Tk]: key-valid (AND causal)
+        sdpa_mask = (km > 0)[:, None, None, :]
+        if causal:
+            sdpa_mask = sdpa_mask & torch.ones(
+                (Tq, Tk), dtype=torch.bool, device=dev).tril()[None, None]
     if sdpa_mask is None:
         library = lambda: torch.nn.functional.scaled_dot_product_attention(
-            sdpa_q, sdpa_k, sdpa_v, is_causal=True)
+            sdpa_q, sdpa_k, sdpa_v, is_causal=causal)
     else:
         library = lambda: torch.nn.functional.scaled_dot_product_attention(
             sdpa_q, sdpa_k, sdpa_v, attn_mask=sdpa_mask)
     lib_ref = library().transpose(1, 2)
-    lib_err = float((lib_ref - ref).abs().max())
-    pairs = _valid_pairs(B, T, T, H, True, km)
-    nbytes = 4 * (4 * B * T * H * D + (B * H * T if lse else 0)
-                  + (B * T if km is not None else 0))
+    lib_err = float((lib_ref - want).abs().max())
+    pairs = _valid_pairs(B, Tq, Tk, H, causal, km)
+    nbytes = 4 * (2 * B * Tq * H * D + 2 * B * Tk * H * D
+                  + (B * H * Tq if lse else 0)
+                  + (B * Tk if km is not None else 0))
     rec = {"name": "flash_fwd", "case": label,
-           "shape": [B, T, H, D], "causal": True, "lse": lse,
+           "shape": [B, Tq, Tk, H, D], "causal": causal, "lse": lse,
            "key_mask": km is not None, "max_abs_err": err,
            "library_max_abs_err": lib_err,
            "ms": median_ms(run), "plain_ms": median_ms(plain),
            "library_ms": median_ms(library),
            **bound(nbytes, 4 * D * pairs), "device_ms": device_ms(run),
            "plain_device_ms": device_ms(plain),
-           "library_device_ms": device_ms(library)}
+           "library_device_ms": device_ms(library),
+           "bitwise_repeat": repeat}
     return rate_fields(rec)
 
 
@@ -797,6 +827,25 @@ def phase_kernels():
     cases.append(_fwd_case(TRAIN_CASE, TRAIN_BATCH, TRAIN_SEQ, 4, 64, None,
                            gen, lse=True))
     cases.append(_fwd_case("T=4096", 4, 4096, 8, 64, None, gen))
+    # the training forward twice more (bitwise), and ragged lengths with
+    # Tq != Tk not causal with a key mask (head dims 64, 16 and 128)
+    cases.append(_fwd_general_case(f"{TRAIN_CASE}, LSE, bitwise repeat",
+                                   TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 4, 64,
+                                   True, None, gen, lse=True, repeat=True))
+    for D in (64, 16, 128):
+        cases.append(_fwd_general_case(f"Tq=37 Tk=53 D={D}", 2, 37, 53, 4,
+                                       D, False, [53, 20], gen))
+    # grids over one wave of SMs, so two consumer warpgroups per block:
+    # a ragged last block under a ragged key mask, and rows that all fit
+    # the first consumer (the second has none below Tq)
+    cases.append(_fwd_general_case(
+        "two consumers: B=16 T=200 H=4 causal, ragged key mask, LSE",
+        16, 200, 200, 4, 64, True, [200 - 13 * b for b in range(16)], gen,
+        lse=True))
+    cases.append(_fwd_general_case(
+        "two consumers: B=64 Tq=50 Tk=77 H=4, key mask, LSE", 64, 50, 77,
+        4, 64, False, [77 - 11 * (b % 7) for b in range(64)], gen,
+        lse=True))
     # the backward pair: the training shape (twice: bitwise), with a
     # ragged key mask, ragged lengths with Tq != Tk not causal (head dims
     # 16, 64 and 128), and the long shape of bench.py's kernel bench

@@ -402,42 +402,6 @@ constexpr int STAGES = 2;       // ring depth of the walked tiles
 constexpr int TILE = 64 * 64;   // floats of one [64, 64] tile (16 KB)
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of one block
 
-// Split a landed [64, 64] f32 tile (two 128B-swizzled boxes) in place:
-// x becomes its TF32 hi, lo goes to `lo` at the same offsets. With
-// TRANSPOSE also the transposed split (rows = x's columns, k = x's rows,
-// each 8-row group of x in `k_slot` order) into th / tl. Each warp step
-// takes one 16-byte chunk of 32 consecutive rows, so the chunk loads and
-// stores and the transposed scalar stores all fall in distinct banks.
-template <bool TRANSPOSE>
-__device__ __forceinline__ void split_tile(float* x, float* lo, float* th,
-                                           float* tl, int tid) {
-  const int warp = tid / 32, lane = tid % 32;
-#pragma unroll
-  for (int m = 0; m < 8; ++m) {
-    const int u = warp * 8 + m;         // 32 steps: (box, chunk, row half)
-    const int box = u >> 4, c = (u >> 1) & 7;
-    const int r = 32 * (u & 1) + lane;
-    const int at = box * 64 * hopper::BOX_F32 + r * hopper::BOX_F32 +
-                   ((c ^ (r & 7)) << 2);
-    const float4 v = *reinterpret_cast<const float4*>(x + at);
-    const float e[4] = {v.x, v.y, v.z, v.w};
-    uint32_t hi[4], lw[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) hopper::split_tf32(e[i], hi[i], lw[i]);
-    *reinterpret_cast<uint4*>(x + at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    *reinterpret_cast<uint4*>(lo + at) = make_uint4(lw[0], lw[1], lw[2], lw[3]);
-    if (TRANSPOSE) {
-      const int col = (r & ~7) | hopper::k_slot(r & 7);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t_at = hopper::sw128(64, 32 * box + 4 * c + i, col);
-        th[t_at] = __uint_as_float(hi[i]);
-        tl[t_at] = __uint_as_float(lw[i]);
-      }
-    }
-  }
-}
-
 // dq: float offsets from the 1024-byte aligned base (tiles 1024-aligned)
 struct DqLayout {
   static constexpr int Q = 0;                     // Q (hi in place)
@@ -531,8 +495,8 @@ flash_bwd_dq_f32_sm90(const __grid_constant__ CUtensorMap qmap,
       for (int s = 0; s < STAGES && s < n_tiles; ++s) load_kv(s, s);
     }
     hopper::mbar_wait(&bar[0], 0);
-    split_tile<false>(Qs, QLs, nullptr, nullptr, tid);
-    split_tile<false>(Os, OLs, nullptr, nullptr, tid);
+    hopper::split_tile<true, false>(Qs, QLs, nullptr, nullptr, tid);
+    hopper::split_tile<true, false>(Os, OLs, nullptr, nullptr, tid);
 
     for (int j = 0; j < n_tiles; ++j) {
       const int st = j % STAGES;
@@ -543,8 +507,8 @@ flash_bwd_dq_f32_sm90(const __grid_constant__ CUtensorMap qmap,
       const float km_next =
           (tid < BK && j + 1 < n_tiles) ? key_ok(k0 + BK + tid) : 1.f;
       hopper::mbar_wait(&bar[1 + st], (j / STAGES) & 1);
-      split_tile<true>(Kt, KLs, KTH, KTL, tid);
-      split_tile<false>(Vt, VLs, nullptr, nullptr, tid);
+      hopper::split_tile<true, true>(Kt, KLs, KTH, KTL, tid);
+      hopper::split_tile<true, false>(Vt, VLs, nullptr, nullptr, tid);
       hopper::fence_proxy_async();
       __syncthreads();
 
@@ -714,8 +678,8 @@ flash_bwd_dkv_f32_sm90(const __grid_constant__ CUtensorMap qmap,
       for (int s = 0; s < STAGES && s < n_tiles; ++s) load_qo(s, s);
     }
     hopper::mbar_wait(&bar[0], 0);
-    split_tile<false>(Ks, KLs, nullptr, nullptr, tid);
-    split_tile<false>(Vs, VLs, nullptr, nullptr, tid);
+    hopper::split_tile<true, false>(Ks, KLs, nullptr, nullptr, tid);
+    hopper::split_tile<true, false>(Vs, VLs, nullptr, nullptr, tid);
 
     for (int j = 0; j < n_tiles; ++j) {
       const int st = j % STAGES;
@@ -725,8 +689,8 @@ flash_bwd_dkv_f32_sm90(const __grid_constant__ CUtensorMap qmap,
       // the next tile's lse / delta, fetched under this tile's work
       const float next = j + 1 < n_tiles ? row_value(q0 + BQ) : 0.f;
       hopper::mbar_wait(&bar[1 + st], (j / STAGES) & 1);
-      split_tile<true>(Qt, QLs, QTH, QTL, tid);
-      split_tile<true>(Ot, OLs, OTH, OTL, tid);
+      hopper::split_tile<true, true>(Qt, QLs, QTH, QTL, tid);
+      hopper::split_tile<true, true>(Ot, OLs, OTH, OTL, tid);
       hopper::fence_proxy_async();
       __syncthreads();
 

@@ -6,8 +6,8 @@
 // backward's dQ += dS K (register A, B MN-major). The warp-level
 // `mma.sync` pieces stay in mma_bf16.cuh, which also gives this header
 // its bf16 type, shared-memory addresses and bf16 packing. The float32
-// backward (flash_bwd.cu at D=64) takes its mbarriers, TMA copy,
-// descriptors, wgmma ordering and tensor maps from here through
+// kernels at D=64 (flash_fwd.cu, flash_bwd.cu) take their mbarriers, TMA
+// copy, descriptors, wgmma ordering and tensor maps from here through
 // hopper_f32.cuh, which adds the TF32 pieces.
 //
 // Tiles. Every operand tile is loaded by TMA from a 4-D tensor map over a

@@ -1,16 +1,18 @@
 // hopper_f32.cuh: the Hopper (sm_90a) pieces of the float32 attention
-// backward (flash_bwd.cu at head dim 64): float32 products on the tensor
-// cores as three TF32 `wgmma.mma_async` products each, f32 tiles by TMA,
-// and the split of an f32 operand into TF32 halves. The mbarriers, the TMA
+// kernels at head dim 64 (flash_fwd.cu and flash_bwd.cu): float32
+// products on the tensor cores as three TF32 `wgmma.mma_async` products
+// each, f32 tiles by TMA, and the split of an f32 operand into TF32
+// halves, in registers or a landed tile at a time. The mbarriers, the TMA
 // copy, the descriptor encoding, the wgmma ordering and the tensor maps
 // (`make_tile_map` with CU_TENSOR_MAP_DATA_TYPE_FLOAT32) come from
 // hopper_bf16.cuh.
 //
 // Numerics. TF32 keeps 10 explicit mantissa bits, so one TF32 product of
 // two f32 operands carries a relative error near 2^-11: too coarse for
-// the float32 gradients (chip_smoke.py's BWD_TOL). Each f32 operand x is
-// split explicitly, hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi)
-// (x - hi is exact in f32), and a product a.b is taken as
+// the float32 bars (chip_smoke.py's TOL on the forward's out and LSE,
+// BWD_TOL on the gradients). Each f32 operand x is split explicitly,
+// hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi) (x - hi is exact in
+// f32), and a product a.b is taken as
 // a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, the small terms first, into the f32
 // accumulator: what is dropped, a_lo.b_lo and the rounding of lo, is near
 // 2^-22 relative (the order CUTLASS's fast-f32 path uses). Both halves are
@@ -83,6 +85,48 @@ __device__ __forceinline__ void acc_to_a_tf32(uint32_t (&hi)[4],
   split_tf32(d[4 * kk + 3], hi[3], lo[3]);   // row g + 8, column 2t + 1
 }
 
+// Split a landed [64, 64] f32 tile (two 128B-swizzled boxes of 64 rows)
+// by the 128 threads of a warpgroup, tid in 0..127. With PLAIN, x becomes
+// its TF32 hi in place and lo goes to
+// `lo` at the same offsets; with TRANSPOSE, the transposed split (rows =
+// x's columns, k = x's rows, each 8-row group of x in `k_slot` order) goes
+// to th / tl, the B operand of a product that contracts over x's rows.
+// Each warp step takes one 16-byte chunk of 32 consecutive rows, so the
+// chunk loads and stores and the transposed scalar stores all fall in
+// distinct banks.
+template <bool PLAIN, bool TRANSPOSE>
+__device__ __forceinline__ void split_tile(float* x, float* lo, float* th,
+                                           float* tl, int tid) {
+  const int warp = tid / 32, lane = tid % 32;
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    const int u = warp * 8 + m;         // 32 steps: (box, chunk, row half)
+    const int box = u >> 4, c = (u >> 1) & 7;
+    const int r = 32 * (u & 1) + lane;
+    const int at = box * 64 * BOX_F32 + r * BOX_F32 + ((c ^ (r & 7)) << 2);
+    const float4 v = *reinterpret_cast<const float4*>(x + at);
+    const float e[4] = {v.x, v.y, v.z, v.w};
+    uint32_t hi[4], lw[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(e[i], hi[i], lw[i]);
+    if (PLAIN) {
+      *reinterpret_cast<uint4*>(x + at) =
+          make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(lo + at) =
+          make_uint4(lw[0], lw[1], lw[2], lw[3]);
+    }
+    if (TRANSPOSE) {
+      const int col = (r & ~7) | k_slot(r & 7);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t_at = sw128(64, 32 * box + 4 * c + i, col);
+        th[t_at] = __uint_as_float(hi[i]);
+        tl[t_at] = __uint_as_float(lw[i]);
+      }
+    }
+  }
+}
+
 // ----------------------------------------------------------------- TMA
 // All D / 32 boxes of `rows` rows from row `row0` of head h, batch b.
 template <int D>
@@ -98,6 +142,19 @@ __device__ __forceinline__ void tma_load_tile_f32(float* dst,
 // generic-proxy writes to shared memory, made visible to wgmma and TMA
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// one arrival on an mbarrier (release: the thread's earlier writes are
+// visible to a thread whose wait sees the phase complete)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// barrier `id` (1..15; 0 is __syncthreads) among `count` threads
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // -------------------------------------------------------- descriptors

@@ -4,10 +4,12 @@ deeplearning4j_tpu/kernels/flash_attention.py.
 Eight hand-written CUDA kernels, each behind a wrapper with its plain
 PyTorch version beside it:
 
-- `flash_attention` -> `csrc/flash_fwd.cu` (`flash_fwd_f32`) for float32
-  and `csrc/flash_fwd_bf16.cu` (`flash_fwd_bf16`, tensor cores) for
-  bfloat16, replacing the TPU kernel `_flash_kernel` (flash_attention.py:
-  84-143, `pl.pallas_call` at :206) as `flash_attention` (:512) runs it:
+- `flash_attention` -> `csrc/flash_fwd.cu` (`flash_fwd_f32`; at head
+  dim 64 on the tensor cores, each float32 product as three TF32
+  products) for float32 and `csrc/flash_fwd_bf16.cu` (`flash_fwd_bf16`,
+  tensor cores) for bfloat16, replacing the TPU kernel `_flash_kernel`
+  (flash_attention.py:84-143, `pl.pallas_call` at :206) as
+  `flash_attention` (:512) runs it:
   causal, key-masked attention for the decode prefill and, with its
   log-sum-exp, the training forward; and as `flash_attention_lse` (:555)
   runs it on the ring, with the causal mask at global positions (query
@@ -235,7 +237,11 @@ def _check_attention_operands(q, k, v, dtypes=(torch.float32,)):
 
 
 def _check_bh_grid(q):
-    """flash_fwd and flash_bwd put batch*heads on the grid's y axis."""
+    """The CUDA-core kernels (the forward and the backward pair at the
+    head dims without a Hopper kernel) put batch*heads on the grid's y
+    axis, at most 65535. The Hopper kernels put it on x, with the q or key
+    tiles on y; the one limit holds for every head dim all the same, so a
+    shape that runs at one head dim runs at every other."""
     if q.shape[0] * q.shape[2] > 65535:
         raise ValueError(f"batch*heads {q.shape[0] * q.shape[2]} exceeds "
                          "the grid's 65535")

@@ -118,6 +118,54 @@ def test_f32_records_get_both_bounds_and_their_rates(tmp_path, capsys):
         want["simt_bound_ms"] / 0.22)
 
 
+def test_f32_turn_times_the_forward_at_the_path_shapes():
+    """`run ROOT LABEL f32` times the float32 forward where the port's
+    paths run it: serving's prefill buckets (one prompt, a ragged key
+    mask), the training forward with its LSE, and the long causal shape;
+    the shard's forward comes with `_lse_case`."""
+    cases = {c[0]: c[1:] for c in chip_ab.FWD_F32}
+    for L in (16, 64, 256):
+        B, T, H, D, valid, lse = cases[f"prefill L={L}"]
+        assert (B, T, H, D, lse) == (1, L, 4, 64, False)
+        assert 0 < valid[0] < L
+    assert cases["train B=16 T=512 H=4 D=64"] == (16, 512, 4, 64, None,
+                                                  True)
+    assert cases["T=4096"] == (4, 4096, 8, 64, None, False)
+
+
+def test_summary_of_f32_forward_records(tmp_path, capsys):
+    """A float32 forward record gets both f32 bounds from its operations
+    (4*D per pair) and bytes, and the summary its ratio, rates, shares of
+    both bounds and its ratio to SDPA's forward."""
+    ops = 4 * 64 * 2_000_000
+    cs = SimpleNamespace(PEAK_F32_FLOPS=67e12, PEAK_BF16_FLOPS=989e12)
+    bounds = chip_ab._bounds({"name": "flash_fwd", "ops": ops,
+                              "bytes_bound_ms": 1e-4}, cs)
+    assert bounds["bound_ms"] == pytest.approx(ops / (495e12 / 3) * 1e3)
+    assert bounds["simt_bound_ms"] == pytest.approx(ops / 67e12 * 1e3)
+
+    def turn(path, label, dev, lib):
+        case = {"name": "flash_fwd", "case": "train B=16 T=512 H=4 D=64",
+                "device_ms": dev, "ms": 2 * dev, "max_abs_err": 0.0,
+                "library_device_ms": lib, **bounds}
+        path.write_text(json.dumps({"ab": label, "cases": [case]}) + "\n")
+        return str(path)
+    chip_ab.summary([turn(tmp_path / "p1", "parent", 0.16, 0.115),
+                     turn(tmp_path / "c1", "change", 0.05, 0.117),
+                     turn(tmp_path / "c2", "change", 0.07, 0.113),
+                     turn(tmp_path / "p2", "parent", 0.17, 0.115)])
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])[
+        "ab_summary"][0]
+    assert row["ratio"] == pytest.approx(0.06 / 0.165)
+    assert row["tflops"]["change"] == pytest.approx(ops / 0.06e-3 / 1e12)
+    assert row["bound_share"]["change"] == pytest.approx(
+        bounds["bound_ms"] / 0.06)
+    assert row["simt_bound_share"]["parent"] == pytest.approx(
+        bounds["simt_bound_ms"] / 0.165)
+    assert row["sdpa_device_ms"] == pytest.approx(0.115)
+    assert row["vs_sdpa"] == pytest.approx(0.06 / 0.115)
+
+
 def test_summary_needs_exactly_two_sides(tmp_path):
     key = ("flash_bwd_dq_bf16", "train")
     logs = [_turn(tmp_path / f"{n}.log", n, {key: 0.05})

@@ -1,19 +1,29 @@
-"""The numerics contract of the float32 backward kernels at head dim 64.
+"""The numerics contract of the float32 attention kernels at head dim 64.
 
-`csrc/flash_bwd.cu` computes every float32 product of the attention
-backward on the tensor cores as three TF32 products of split operands:
-hi = rna_tf32(x), lo = rna_tf32(x - hi), a.b = a_lo.b_hi + a_hi.b_lo +
-a_hi.b_hi. The CUDA kernels cannot run here, so this file pins the
-arithmetic they follow: it emulates round-to-nearest (ties away) TF32
-with integer bit operations on a float32 view, runs the plain backward
-formulas (S = Q K^T, dP = dO V^T, p = exp(S scale - lse), ds = p (dp -
-delta) scale, dQ = ds K, dK = ds^T Q, dV = p^T dO) with each product
-split one way or the other, and holds both against the port's plain
-versions `flash_bwd_dq_plain` / `flash_bwd_dkv_plain` under the float32
-backward bar (chip_smoke.py's BWD_TOL, allclose rtol 2e-4 / atol 2e-5):
-the three-product split must pass it and one TF32 product must not, so
-the bar tells the two apart. The emulation lives here only; no path of
-the port uses it.
+`csrc/flash_fwd.cu` and `csrc/flash_bwd.cu` compute every float32
+product of the attention forward and backward on the tensor cores as
+three TF32 products of split operands: hi = rna_tf32(x), lo = rna_tf32(x
+- hi), a.b = a_lo.b_hi + a_hi.b_lo + a_hi.b_hi. The CUDA kernels cannot
+run here, so this file pins the arithmetic they follow: it emulates
+round-to-nearest (ties away) TF32 with integer bit operations on a
+float32 view, runs the kernels' formulas with each product split one way
+or the other, and holds both against the port's plain versions:
+
+- the backward (S = Q K^T, dP = dO V^T, p = exp(S scale - lse), ds = p
+  (dp - delta) scale, dQ = ds K, dK = ds^T Q, dV = p^T dO) against
+  `flash_bwd_dq_plain` / `flash_bwd_dkv_plain` under the float32
+  backward bar (chip_smoke.py's BWD_TOL, allclose rtol 2e-4 / atol 2e-5);
+- the forward as the kernel walks it (64-key tiles; S = Q K^T; an online
+  softmax with running max and sum and the rescale of O; P from the
+  running-max exponentials, split; O += P V through the register-A
+  fragment order of P and a V^T whose 8-key groups are in `k_slot`
+  order, so that the permutation itself is pinned) against
+  `flash_attention_plain` under chip_smoke.py's forward bar (TOL, max
+  abs 1e-4 on out and on the LSE).
+
+The three-product split must pass each bar and one TF32 product must
+not, so the bars tell the two apart. The emulation lives here only; no
+path of the port uses it.
 """
 import importlib
 
@@ -26,7 +36,9 @@ fa = importlib.import_module("deeplearning4j_tpu_torch.kernels.flash_attention")
 torch.set_num_threads(1)
 
 BWD_TOL = dict(rtol=2e-4, atol=2e-5)
+TOL = 1e-4          # chip_smoke.py's forward bar (out and LSE)
 D = 64
+BK = 64             # keys per tile of the forward kernel
 
 
 def tf32(x):
@@ -143,3 +155,133 @@ def test_one_tf32_product_misses_the_float32_bar(name):
     results = [torch.allclose(got, ref, **BWD_TOL)
                for got, ref in zip(emulate(1), want)]
     assert not any(results)
+
+
+# ------------------------------------------------------------- forward
+def k_slot(c):
+    """hopper_f32.cuh `k_slot`: the k position, inside its 8-block, of the
+    B row that the kernel writes for key c (c in 0..7)."""
+    return (c >> 1) | ((c & 1) << 2)
+
+
+def a_fragment_k(c):
+    """The k position at which `acc_to_a_tf32` puts accumulator column c
+    (c in 0..7) of an 8-column block: a thread holds columns 2t and 2t + 1
+    (accumulator d[4kk], d[4kk + 1]) and puts them in registers a0
+    (k = t) and a2 (k = t + 4) of its m64k8 A fragment."""
+    t, odd = divmod(c, 2)
+    return t + 4 * odd
+
+
+def emulated_forward(q, k, v, *, causal, key_mask, q_off, k_off, terms):
+    """(out [B, Tq, H, D], lse [B, H, Tq]) as flash_fwd.cu computes them at
+    D=64, with TF32 products: key tiles of 64 (zero-filled past Tk, as TMA
+    lands them), scores scaled, then the key mask (-1e30), then causal
+    and the ragged edge (-inf); the running max m starts at -1e30, corr =
+    exp(m - m_new), p = exp(x - m_new), l = l corr + sum p, O = O corr +
+    P V. Tiles past a row's causal limit change nothing (corr 1, p 0), so
+    every row walks every tile here."""
+    B, Tq, H, _ = q.shape
+    Tk = k.shape[1]
+    scale = 1.0 / np.sqrt(D)
+    qpos = q_off + torch.arange(Tq)[:, None]
+    a_order = torch.tensor([8 * (c // 8) + a_fragment_k(c % 8)
+                            for c in range(BK)])
+    b_order = torch.tensor([8 * (c // 8) + k_slot(c % 8) for c in range(BK)])
+    m = torch.full((B, H, Tq), -1e30)
+    l = torch.zeros((B, H, Tq))
+    o = torch.zeros((B, H, Tq, D))
+    for k0 in range(0, Tk, BK):
+        n = min(BK, Tk - k0)
+        kt, vt = (torch.nn.functional.pad(x[:, k0:k0 + n],
+                                          (0, 0, 0, 0, 0, BK - n))
+                  for x in (k, v))
+        x = product("bqhd,bkhd->bhqk", q, kt, terms) * scale
+        if key_mask is not None:
+            km = torch.nn.functional.pad(key_mask[:, k0:k0 + n],
+                                         (0, BK - n), value=1.0)
+            x = torch.where(km[:, None, None, :] > 0, x,
+                            torch.full_like(x, -1e30))
+        kpos = k0 + torch.arange(BK)[None, :]
+        visible = kpos < Tk
+        if causal:      # global positions: key k_off + j, row q_off + i
+            visible = visible & (k_off + kpos <= qpos)
+        x = torch.where(visible, x, torch.full_like(x, -float("inf")))
+        m_new = torch.maximum(m, x.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(x - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        m = m_new
+        # P's accumulator columns as register-A k positions; V^T [D, keys]
+        # with each 8-key group in k_slot order
+        a = torch.empty_like(p)
+        a[..., a_order] = p
+        vt_t = torch.empty((B, H, D, BK))
+        vt_t[..., b_order] = vt.permute(0, 2, 3, 1)
+        o = o * corr[..., None] + product("bhqk,bhdk->bhqd", a, vt_t, terms)
+    l = l.clamp_min(1e-30)
+    return (o / l[..., None]).permute(0, 2, 1, 3), m + torch.log(l)
+
+
+# (B, Tq, Tk, H, causal, key mask valid lengths, (q_off, k_off))
+FWD_CASES = {
+    "causal train-like B=2 T=256 H=2": (2, 256, 256, 2, True, None, (0, 0)),
+    "causal ragged key mask": (2, 256, 256, 2, True, [256, 137], (0, 0)),
+    "Tq=37 Tk=53 not causal, key mask": (2, 37, 53, 4, False, [53, 20],
+                                         (0, 0)),
+    "diagonal offsets 128/128, key mask": (1, 128, 128, 2, True, [101],
+                                           (128, 128)),
+    "past offsets 128/0": (1, 128, 128, 2, True, None, (128, 0)),
+    "offsets 0/512, rows without keys": (1, 1024, 1024, 2, True, None,
+                                         (0, 512)),
+}
+
+
+def _fwd_case(name):
+    B, Tq, Tk, H, causal, valid, (q_off, k_off) = FWD_CASES[name]
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.normal(size=(B, Tq, H, D)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(B, Tk, H, D))
+                             .astype(np.float32)) for _ in range(2))
+    km = None
+    if valid is not None:
+        km = (torch.arange(Tk)[None, :]
+              < torch.as_tensor(valid)[:, None]).to(torch.float32)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, key_mask=km,
+                                    return_lse=True, q_offset=q_off,
+                                    k_offset=k_off)
+    emulate = lambda terms: emulated_forward(
+        q, k, v, causal=causal, key_mask=km, q_off=q_off, k_off=k_off,
+        terms=terms)
+    none = torch.arange(Tq) + q_off < k_off if causal else None
+    return want, emulate, none
+
+
+def test_k_slot_is_the_a_fragment_order():
+    """The transposed B tiles' k order is the order in which a thread's
+    accumulator columns land in its A fragment, a permutation of 0..7."""
+    assert [k_slot(c) for c in range(8)] == [a_fragment_k(c)
+                                             for c in range(8)]
+    assert sorted(k_slot(c) for c in range(8)) == list(range(8))
+
+
+@pytest.mark.parametrize("name", FWD_CASES)
+def test_forward_three_tf32_products_meet_the_forward_bar(name):
+    (out_ref, lse_ref), emulate, none = _fwd_case(name)
+    out, lse = emulate(3)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert float((out - out_ref).abs().max()) <= TOL
+    assert float((lse - lse_ref).abs().max()) <= TOL
+    if none is not None and bool(none.any()):
+        # a row that sees no key: out exactly 0, lse NO_KEY_LSE
+        assert (out[:, none] == 0).all()
+        assert (lse[..., none] == torch.tensor(fa.NO_KEY_LSE,
+                                               dtype=torch.float32)).all()
+
+
+def test_forward_one_tf32_product_misses_the_forward_bar():
+    (out_ref, lse_ref), emulate, _ = _fwd_case(
+        "causal train-like B=2 T=256 H=2")
+    out, lse = emulate(1)
+    assert max(float((out - out_ref).abs().max()),
+               float((lse - lse_ref).abs().max())) > TOL
