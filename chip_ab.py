@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """A/B of the attention kernels between two checkouts on one GPU.
 
-    python3 chip_ab.py run ROOT LABEL [f32]   # one turn: ROOT's kernels
+    python3 chip_ab.py run ROOT LABEL [f32|decode]   # one turn
     python3 chip_ab.py summary LOG...         # table of the turns
+    python3 chip_ab.py sweep ROOT LABEL       # decode at each cluster size
 
 `run` imports ROOT's own `chip_smoke.py` and port package (ROOT first on
 sys.path), builds ROOT's kernels (phase 1: ptxas's report), and runs one
@@ -18,7 +19,14 @@ B=4 T=4096 H=8; the backward pair's `_bwd_case` at the train case
 (bitwise twice), with a ragged key mask, at Tq=37 Tk=53 (D=64, 16, 128)
 and B=4 T=4096 H=8; then phase 7's `_lse_case` on the float32 shard
 (B=1 T=1024 H=4, the same five offset and mask cases; it times the
-forward too). Inputs come from fixed seeds,
+forward too). With `decode`, the two decode kernels: phase 2's
+`_decode_case` at the serving step (S=8 C=256 H=4 D=64), with a length
+0, at S=64 C=4096 H=8 and at bench_decode_paged's shape (S=4 C=128 H=4
+D=32), and `_paged_case` at the served step (block size 16, 16 blocks a
+slot), at block sizes 8 and 64, at S=64 with 256 blocks of 16 and at
+bench_decode_paged's shape; a checkout whose case functions time the
+decode grid's launch floor and count the kernels a call launches adds
+them to each record. Inputs come from fixed seeds,
 so both checkouts see the same tensors, and every gate of those
 functions holds in each turn. It prints one line `{"ab": LABEL, "cases":
 [...]}` with each kernel's device time (the profiler's, per call),
@@ -30,6 +38,12 @@ against other peaks compare alike: `bound_ms` against the tensor cores
 for f32, `simt_bound_ms` against the CUDA cores' 67 TFLOP/s. A record
 from a chip_smoke.py that does not give `ops` has it from its
 `ops_bound_ms` and that checkout's own peak.
+
+`sweep` runs the `decode` cases of ROOT once with the wrappers' split
+plan (`decode_split`) replaced, for that process only, by each fixed n
+of 1, 2, 4 and 8, then once with the plan, and prints one line
+`{"sweep": LABEL, "cases": [...]}` with each case's device time per n
+(every gate of the case functions holds at each n).
 
 Run each turn in its own process, on one card, in the order parent,
 change, change, parent: the card's clocks drift within a call, so each
@@ -48,6 +62,8 @@ from __future__ import annotations
 import json
 import sys
 from pathlib import Path
+
+import numpy as np
 
 # (label, B, Tq, Tk, H, D, causal, valid key lengths or None, repeat)
 PHASE2 = [
@@ -79,6 +95,22 @@ FWD_F32 = [
     ("prefill L=256", 1, 256, 4, 64, [193], False),
     ("train B=16 T=512 H=4 D=64", 16, 512, 4, 64, None, True),
     ("T=4096", 4, 4096, 8, 64, None, False),
+]
+# decode: ("slab", label, S, C, H, D, lengths) or ("paged", label, S, bs,
+# nb, H, D, lengths)
+_STEP = [1, 17, 100, 256, 3, 64, 200, 255]
+_BIG = [1, 4096] + [int(x) for x in
+                    np.random.default_rng(0).integers(1, 4097, size=64)[2:]]
+DECODE = [
+    ("slab", "step S=8 C=256", 8, 256, 4, 64, _STEP),
+    ("slab", "lengths with 0", 4, 256, 4, 64, [0, 1, 256, 37]),
+    ("slab", "S=64 C=4096", 64, 4096, 8, 64, _BIG),
+    ("slab", "bench_decode_paged shape", 4, 128, 4, 32, [25, 48, 37, 30]),
+    ("paged", "step S=8 bs=16 nb=16", 8, 16, 16, 4, 64, _STEP),
+    ("paged", "bs=8 S=4 nb=32", 4, 8, 32, 4, 64, [0, 1, 256, 37]),
+    ("paged", "bs=64 S=4 nb=4", 4, 64, 4, 4, 64, [0, 1, 256, 37]),
+    ("paged", "S=64 nb=256 bs=16 H=8", 64, 16, 256, 8, 64, _BIG),
+    ("paged", "bench_decode_paged shape", 4, 16, 8, 4, 32, [25, 48, 37, 30]),
 ]
 SHARD = dict(B=4, T=1024, H=8, D=64)
 SHARD_F32 = dict(B=1, T=1024, H=4, D=64)
@@ -119,6 +151,12 @@ def run(root, label, dtype="bf16"):
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device is visible")
     cs.phase_card()
+    if dtype == "decode":
+        gen = torch.Generator().manual_seed(5)
+        recs = [cs._decode_case(*c[1:], gen) if c[0] == "slab"
+                else cs._paged_case(*c[1:], gen) for c in DECODE]
+        _print_turn(label, root, recs, cs)
+        return
     f32 = dtype == "f32"
     recs = []
     if f32:
@@ -142,11 +180,45 @@ def run(root, label, dtype="bf16"):
                 dt, B, T, H, D, offs, valid, gen)
     recs += cs._lse_case("lse rows without keys", dt, B, T, H, D,
                          (0, T // 2), None, gen)
+    _print_turn(label, root, recs, cs)
+
+
+def _print_turn(label, root, recs, cs):
     print(json.dumps({"ab": label, "root": str(root), "cases": [
         {**{k: r.get(k) for k in ("name", "case", "device_ms", "ms",
-                                  "max_abs_err", "library_device_ms")},
+                                  "max_abs_err", "library_device_ms",
+                                  "kernels_per_call", "ctas_per_pair",
+                                  "launch_floor_device_ms")},
          **_bounds(r, cs)}
         for r in recs]}))
+
+
+def sweep(root, label):
+    root = Path(root).resolve()
+    sys.path.insert(0, str(root))
+    import importlib
+    import chip_smoke as cs
+    import torch
+    fa = importlib.import_module(
+        "deeplearning4j_tpu_torch.kernels.flash_attention")
+    if root not in Path(fa.__file__).resolve().parents:
+        raise SystemExit(f"{fa.__file__} is not under {root}")
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device is visible")
+    cs.phase_card()
+    plan = fa.decode_split
+    times = {}
+    for n in (1, 2, 4, 8, None):
+        fa.decode_split = plan if n is None else (lambda *a, n=n: n)
+        gen = torch.Generator().manual_seed(5)
+        for c in DECODE:
+            rec = (cs._decode_case(*c[1:], gen) if c[0] == "slab"
+                   else cs._paged_case(*c[1:], gen))
+            times.setdefault((rec["name"], rec["case"]), {})[
+                "plan" if n is None else f"n={n}"] = rec["device_ms"]
+    fa.decode_split = plan
+    print(json.dumps({"sweep": label, "root": str(root), "cases": [
+        {"name": k[0], "case": k[1], **v} for k, v in times.items()]}))
 
 
 def summary(logs):
@@ -217,9 +289,11 @@ def summary(logs):
 
 if __name__ == "__main__":
     if len(sys.argv) in (4, 5) and sys.argv[1] == "run" \
-            and sys.argv[4:] in ([], ["f32"], ["bf16"]):
+            and sys.argv[4:] in ([], ["f32"], ["bf16"], ["decode"]):
         run(*sys.argv[2:])
     elif len(sys.argv) >= 3 and sys.argv[1] == "summary":
         summary(sys.argv[2:])
+    elif len(sys.argv) == 4 and sys.argv[1] == "sweep":
+        sweep(*sys.argv[2:])
     else:
         raise SystemExit(__doc__)

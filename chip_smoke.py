@@ -71,6 +71,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    operations over 989 TFLOP/s (dense bf16 tensor cores) with the f32
    rows' operation counts, bytes at 2 per bf16 element; `library_ms` is
    SDPA on the same bf16 inputs (the backward: autograd through it).
+   Every decode case (also bench_decode_paged's shape, S=4 C=128 H=4
+   D=32, slab and paged, and one (slot, head) over 4096 blocks of 8, more
+   table entries a CTA than shared memory holds at once) counts exactly
+   one launch and no plain or padded route in its first call, gives the
+   same bits in a second, and launches exactly one kernel a call, counted
+   from one call captured in a CUDA graph (every launch a node; no
+   profiler window, no retry); beside it an empty kernel on the same grid
+   (S * H * n CTAs, clusters of n) is timed as the launch floor.
+2b. Head dims: D=48, 80 and 256 through `flash_attention` (forward with
+   the LSE, and the backward pair) in f32 and bf16 at B=2 T=200 H=4
+   causal with a ragged key mask, and through `flash_decode` and
+   `flash_decode_paged` at the step shape, each within phase 2's bars of
+   its plain version, with the launch counters showing the kernel
+   launched (`<kernel>_padded` calls at 48 and 80, none at 256) and no
+   plain route; batch * heads = 16385 * 4 = 65540 at D=32 and 64, f32 and
+   bf16, forward and backward, against plain, one launch per batch slice;
+   D=20 (D % 8 != 0) on every entry: one `<kernel>_plain_by_shape` call,
+   no launch, equal to plain; and `transformer_lm(d_model=192,
+   n_heads=4)` (head dim 48) decoded greedily with
+   `DecodeEngine.generate`, slab and paged, equal to the use_pallas=False
+   model under the tie rule below.
 3. The serving path: `transformer_lm` at full width (vocab 256, d_model
    256, 4 layers, 4 heads) with `use_pallas=True` and
    `synthetic_params(seed=0)`, served by
@@ -158,9 +179,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    atol=2e-5); 10 launches each of the three float32 kernels. Prints the
    forward + backward time of ring n=4, ring n=1, `flash_attention` on
    the whole sequence and SDPA (`{"ring": ...}`).
-8. One line `{"kernels": [...]}` with each of the 8 kernels' numbers
-   (`launches_by_path` gains the ring's two paths), then the last line
-   `{"ok": true, "device": {...}}`.
+8. Every main path (serving, serving_paged, training, training_bf16,
+   ring, ring_f32) must count zero padded and zero plain-route calls.
+   One line `{"kernels": [...]}` with each of the 8 kernels' numbers
+   (`launches_by_path` gains the ring's two paths; the decode kernels
+   their kernels per call, CTAs per pair and launch floor), then the last
+   line `{"ok": true, "device": {...}}`.
 
 It exits non-zero without printing a result when no CUDA device is visible
 or when the package is not beside it.
@@ -205,6 +229,16 @@ PAGED_STEP_CASE = "step S=8 bs=16 nb=16"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 512, 10
 TRAIN_CASE = f"train B={TRAIN_BATCH} T={TRAIN_SEQ} H=4 D=64"
 T200_CASE = "B=2 T=200 H=4 D=128, ragged key mask"
+STEP_LENGTHS = [1, 17, 100, 256, 3, 64, 200, 255]
+# head dims the reference's kernel takes that no source is compiled at
+# (padded to 64 and 128) and the widest compiled one; a head dim the
+# reference runs plainly (D % 8 != 0); `transformer_lm` at head dim 48
+HEAD_DIM_CASES = (48, 80, 256)
+PLAIN_HEAD_DIM = 20
+ENGINE_48 = dict(vocab_size=256, d_model=192, n_layers=4, n_heads=4)
+# bench_decode_paged's model and cache (bench.py:724-748): 4 slots of 128
+# keys in blocks of 16, d_model 128 over 4 heads
+BENCH_PAGED = dict(S=4, C=128, bs=16, H=4, D=32, lengths=[25, 48, 37, 30])
 # the ring: bench.py's bench_flash_attention shape (:510-538), 4 shards
 RING_B, RING_T, RING_H, RING_D, RING_N = 4, 4096, 8, 64, 4
 RING_SHARD = RING_T // RING_N
@@ -219,6 +253,13 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def counts():
+    """Every kernel's launches and every route's calls since the last
+    reset (`launch_counts()` and `route_counts()` in one dict)."""
+    from deeplearning4j_tpu_torch.kernels import launch_counts, route_counts
+    return {**launch_counts(), **route_counts()}
 
 
 def median_ms(fn, reps=30, warmup=3):
@@ -435,10 +476,92 @@ def _fwd_general_case(label, B, Tq, Tk, H, D, causal, valid, gen, lse=False,
     return rate_fields(rec)
 
 
+def _kernels_per_call(fn):
+    """(kernel nodes, all nodes) of one call of fn captured in a CUDA graph
+    and read back with libcuda's cuGraphGetNodes and
+    cuGraphNodeGetType: every launch the call makes is a node, so the
+    count cannot lose one the way a profiler window can. fn ran before,
+    so nothing is built or loaded during the capture."""
+    import ctypes
+    import torch
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    num = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(num)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * num.value)()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(num)) == 0,
+          "cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes[:num.value]:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        kinds.append(kind.value)
+    graph.reset()
+    return kinds.count(0), len(kinds)       # 0: CU_GRAPH_NODE_TYPE_KERNEL
+
+
+def _decode_split(S, H, keys, unit):
+    """The CTAs per (slot, head) the decode wrappers choose for S slots,
+    H heads and `keys` keys of capacity in units of `unit`."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels.flash_attention import decode_split
+    return decode_split(S * H, keys, unit,
+                        torch.cuda.get_device_properties(0)
+                        .multi_processor_count)
+
+
+def _launch_floor(S, H, n):
+    """CUDA-event and device time of an empty kernel on the decode grid
+    (S * H * n CTAs of 128 threads, clusters of n): the floor under the
+    decode kernels' times."""
+    import ctypes
+    import torch
+    from deeplearning4j_tpu_torch.kernels import build
+    fn = build.kernel_function("flash_decode", "flash_decode_empty",
+                               [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+    def run():
+        err = fn(S, H, n, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"empty decode-grid kernel: cudaError_t {err}")
+    return {"ms": median_ms(run), "device_ms": device_ms(run)}
+
+
+def _decode_gates(name, label, run, out, n, floor_shape):
+    """The gates every decode case holds besides its error: one launch of
+    `name` and no plain or padded route in the first call (counted just
+    before `out` came back from run()), the same bits from a second call,
+    and one kernel per call in a captured graph. Returns the record's
+    fields for them, with the launch floor on this case's grid."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import launch_counts, route_counts
+    counts, routes = launch_counts(), route_counts()
+    check(counts[name] == 1 and sum(counts.values()) == 1,
+          f"{name} {label}: launches {counts}, not one of {name}")
+    check(not any(routes.values()), f"{name} {label}: routes {routes}")
+    check(torch.equal(out, run()), f"{name} {label}: a second call gave "
+                                   "other bits")
+    kernels, nodes = _kernels_per_call(run)
+    check(kernels == 1, f"{name} {label}: one call launched {kernels} "
+                        f"kernels ({nodes} graph nodes), not 1")
+    floor = _launch_floor(*floor_shape, n)
+    return {"kernels_per_call": kernels, "graph_nodes": nodes,
+            "ctas_per_pair": n, "launch_floor_ms": floor["ms"],
+            "launch_floor_device_ms": floor["device_ms"]}
+
+
 def _decode_case(label, S, C, H, D, lengths, gen):
     import torch
     from deeplearning4j_tpu_torch.kernels import (flash_decode,
-                                                  flash_decode_plain)
+                                                  flash_decode_plain,
+                                                  reset_launch_counts)
+    from deeplearning4j_tpu_torch.kernels.flash_attention import DECODE_UNIT
     dev = torch.device(DEVICE)
     q = torch.randn((S, 1, H, D), generator=gen).to(dev)
     k, v = (torch.randn((S, C, H, D), generator=gen).to(dev)
@@ -446,8 +569,11 @@ def _decode_case(label, S, C, H, D, lengths, gen):
     lens = torch.as_tensor(lengths, dtype=torch.int32).to(dev)
     run = lambda: flash_decode(q, k, v, lens)
     plain = lambda: flash_decode_plain(q, k, v, lens)
+    reset_launch_counts()
     out = run()
     torch.cuda.synchronize()
+    n_split = _decode_split(S, H, C, DECODE_UNIT)
+    gates = _decode_gates("flash_decode", label, run, out, n_split, (S, H))
     ref = plain()
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), f"flash_decode {label}: "
@@ -479,7 +605,7 @@ def _decode_case(label, S, C, H, D, lengths, gen):
             "ms": median_ms(run), "plain_ms": median_ms(plain),
             "library_ms": library_ms, **bound(nbytes, 4 * D * H * n),
             "device_ms": device_ms(run), "plain_device_ms": device_ms(plain),
-            "library_device_ms": library_device_ms})
+            "library_device_ms": library_device_ms, **gates})
 
 
 def _paged_case(label, S, bs, nb, H, D, lengths, gen):
@@ -489,7 +615,9 @@ def _paged_case(label, S, bs, nb, H, D, lengths, gen):
     import torch
     from deeplearning4j_tpu_torch.kernels import (flash_decode,
                                                   flash_decode_paged,
-                                                  flash_decode_paged_plain)
+                                                  flash_decode_paged_plain,
+                                                  reset_launch_counts)
+    from deeplearning4j_tpu_torch.kernels.flash_attention import DECODE_UNIT
     dev = torch.device(DEVICE)
     C = nb * bs
     q = torch.randn((S, 1, H, D), generator=gen).to(dev)
@@ -503,8 +631,12 @@ def _paged_case(label, S, bs, nb, H, D, lengths, gen):
     lens = torch.as_tensor(lengths, dtype=torch.int32).to(dev)
     run = lambda: flash_decode_paged(q, pk, pv, table, lens)
     plain = lambda: flash_decode_paged_plain(q, pk, pv, table, lens)
+    reset_launch_counts()
     out = run()
     torch.cuda.synchronize()
+    n_split = _decode_split(S, H, C, max(DECODE_UNIT, bs))
+    gates = _decode_gates("flash_decode_paged", label, run, out, n_split,
+                          (S, H))
     ref = plain()
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), f"flash_decode_paged {label}: "
@@ -552,7 +684,8 @@ def _paged_case(label, S, bs, nb, H, D, lengths, gen):
             "gather_sdpa_ms": gather_sdpa_ms,
             "gather_sdpa_device_ms": gather_sdpa_device_ms,
             **bound(nbytes, 4 * D * H * n), "device_ms": device_ms(run),
-            "plain_device_ms": device_ms(plain), "library_device_ms": None})
+            "plain_device_ms": device_ms(plain), "library_device_ms": None,
+            **gates})
 
 
 def _bwd_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
@@ -860,8 +993,8 @@ def phase_kernels():
     cases += _bwd_case("B=4 T=4096 H=8", 4, 4096, 4096, 8, 64, True, None,
                        gen)
     # decode step shape: lengths mixing 1, ragged values and C
-    cases.append(_decode_case("step S=8 C=256", 8, 256, 4, 64,
-                              [1, 17, 100, 256, 3, 64, 200, 255], gen))
+    cases.append(_decode_case("step S=8 C=256", 8, 256, 4, 64, STEP_LENGTHS,
+                              gen))
     cases.append(_decode_case("lengths with 0", 4, 256, 4, 64,
                               [0, 1, 256, 37], gen))
     rng = np.random.default_rng(0)
@@ -869,17 +1002,33 @@ def phase_kernels():
     big[0], big[1] = 1, 4096
     cases.append(_decode_case("S=64 C=4096", 64, 4096, 8, 64,
                               [int(x) for x in big], gen))
+    b = BENCH_PAGED
+    cases.append(_decode_case("bench_decode_paged shape", b["S"], b["C"],
+                              b["H"], b["D"], b["lengths"], gen))
     # paged decode: the served step shape (the slab step's lengths), block
     # sizes below and above the 32-key chunk, and the long case
-    cases.append(_paged_case(PAGED_STEP_CASE, 8, 16, 16, 4, 64,
-                             [1, 17, 100, 256, 3, 64, 200, 255], gen))
+    cases.append(_paged_case(PAGED_STEP_CASE, 8, 16, 16, 4, 64, STEP_LENGTHS,
+                             gen))
     cases.append(_paged_case("bs=8 S=4 nb=32", 4, 8, 32, 4, 64,
                              [0, 1, 256, 37], gen))
     cases.append(_paged_case("bs=64 S=4 nb=4", 4, 64, 4, 4, 64,
                              [0, 1, 256, 37], gen))
     cases.append(_paged_case("S=64 nb=256 bs=16 H=8", 64, 16, 256, 8, 64,
                              [int(x) for x in big], gen))
+    cases.append(_paged_case("bench_decode_paged shape", b["S"], b["bs"],
+                             b["C"] // b["bs"], b["H"], b["D"], b["lengths"],
+                             gen))
+    # one (slot, head) over 8 CTAs of 4000 keys: 500 table entries a CTA,
+    # two loads of the 256 that shared memory holds
+    cases.append(_paged_case("long table S=1 nb=4096 bs=8 H=1", 1, 8, 4096,
+                             1, 64, [32000], gen))
     cases += phase_kernels_bf16()
+    _print_cases(cases)
+    print(json.dumps({"kernel_cases": cases}))
+    return cases
+
+
+def _print_cases(cases):
     fmt = lambda x: "not measured" if x is None else f"{x:.4f}"
     for c in cases:
         lib = "" if c["library_ms"] is None else \
@@ -890,13 +1039,219 @@ def phase_kernels():
                   f"(device {fmt(c['gather_sdpa_device_ms'])})"
         if "slab_max_abs_diff" in c:
             lib += f" vs slab flash_decode {c['slab_max_abs_diff']:.2e}"
+        if "launch_floor_device_ms" in c:
+            lib += f" | {c['ctas_per_pair']} CTAs a pair, " \
+                   f"{c['kernels_per_call']} kernel a call, empty grid " \
+                   f"{fmt(c['launch_floor_device_ms'])} ms"
         print(f"{c['name']:<19}{c['case']:<26} err {c['max_abs_err']:.2e} "
               f"kernel {c['ms']:.4f} ms (device {fmt(c['device_ms'])}) "
               f"plain {c['plain_ms']:.4f} ms (device "
               f"{fmt(c['plain_device_ms'])}){lib} bound "
               f"{c['bound_ms']:.5f} ms ({c['bound_by']}){_rate(c)}")
-    print(json.dumps({"kernel_cases": cases}))
-    return cases
+
+
+# ----------------------------------------------------------------- phase 2b
+def _routed(what, run, kernels, padded):
+    """run() with every count set to 0 just before; each of `kernels`
+    must have launched (and no other kernel), with `<kernel>_padded` calls
+    exactly where `padded` says (the decode kernels take any width
+    unpadded) and no call on the plain route. Returns run()'s result."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    reset_launch_counts()
+    res = run()
+    torch.cuda.synchronize()
+    n = counts()
+    for name in kernels:
+        check(n[name] > 0, f"{what}: {name} never launched: {n}")
+        want = padded and "decode" not in name
+        check((n.get(f"{name}_padded", 0) > 0) == want,
+              f"{what}: {name} padded calls {n.get(f'{name}_padded')}, "
+              f"expected {'some' if want else 'none'}")
+    check(not any(v for k, v in n.items()
+                  if k.endswith("_plain_by_shape")
+                  or (k in _KERNEL_NAMES and k not in kernels)),
+          f"{what}: other launches or a plain route: {n}")
+    return res
+
+
+def _slices_launched(what, B, T, H, D, dtype, gen):
+    """One forward and one backward call at B*H beyond the grid's 65535:
+    each kernel launches once per batch slice of 65535 // H rows."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import (attention_delta,
+                                                  flash_attention,
+                                                  flash_bwd_dkv, flash_bwd_dq,
+                                                  reset_launch_counts)
+    q, k, v, g = (torch.randn((B, T, H, D), generator=gen).to(DEVICE, dtype)
+                  for _ in range(4))
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    slices = -(-B // (65535 // H))
+    reset_launch_counts()
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    delta = attention_delta(out, g)
+    flash_bwd_dq(q, k, v, g, lse, delta, causal=True)
+    flash_bwd_dkv(q, k, v, g, lse, delta, causal=True)
+    torch.cuda.synchronize()
+    n = counts()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(n[name + suffix] == slices,
+              f"{what}: {name + suffix} launched {n[name + suffix]} times, "
+              f"not once for each of {slices} batch slices")
+    return slices
+
+
+def phase_head_dims():
+    """Head dims against their plain versions on the card: D=48, 80 and
+    256 (a hand kernel each; 48 and 80 zero-padded to 64 and 128) through
+    `flash_attention` forward and backward in f32 and bf16 and both decode
+    kernels; batch * heads = 65540 at D=32 and 64 (batch slices); D=20,
+    the plain route; and a D=48 `transformer_lm` decoded greedily, slab
+    and paged."""
+    import torch
+    gen = torch.Generator().manual_seed(4)
+    cases = []
+    ragged = [200, 137]
+    for D in HEAD_DIM_CASES:
+        padded = D not in (64, 128, 256)
+        lab = f"D={D} B=2 T=200 H=4, ragged key mask"
+        cases.append(_routed(lab, lambda: _fwd_general_case(
+            lab, 2, 200, 200, 4, D, True, ragged, gen, lse=True),
+            ("flash_fwd",), padded))
+        cases += _routed(lab, lambda: _bwd_case(
+            lab, 2, 200, 200, 4, D, True, ragged, gen),
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), padded)
+        cases += _routed(lab, lambda: _bf16_case(
+            lab, 2, 200, 200, 4, D, True, ragged, gen),
+            ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"),
+            padded)
+        cases.append(_routed(f"decode D={D}", lambda: _decode_case(
+            f"step D={D}", 8, 256, 4, D, STEP_LENGTHS, gen),
+            ("flash_decode",), False))
+        cases.append(_routed(f"paged D={D}", lambda: _paged_case(
+            f"step D={D}", 8, 16, 16, 4, D, STEP_LENGTHS, gen),
+            ("flash_decode_paged", "flash_decode"), False))
+    slices = {}
+    for D in (32, 64):          # the CUDA-core kernels' and a Hopper one's
+        lab = f"B*H=65540 D={D}"
+        B, T, H = 16385, 16, 4
+        cases.append(_fwd_general_case(lab, B, T, T, H, D, True, None, gen,
+                                       lse=True))
+        cases += _bwd_case(lab, B, T, T, H, D, True, None, gen)
+        cases += _bf16_case(lab, B, T, T, H, D, True, None, gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            slices[f"{lab} {dtype}"] = _slices_launched(lab, B, T, H, D,
+                                                        dtype, gen)
+    plain = _plain_route(gen)
+    engine = _engine_head_dim()
+    _print_cases(cases)
+    summary = {"plain_route": plain, "bh_slices": slices, "engine": engine}
+    print(json.dumps({"head_dims": summary}))
+    return cases, summary
+
+
+def _plain_route(gen):
+    """D=20 (D % 8 != 0), where the reference runs its plain path: each
+    entry on a CUDA tensor takes the plain version, counts one
+    `<kernel>_plain_by_shape` call and launches nothing, and equals the
+    plain version."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    D = PLAIN_HEAD_DIM
+    dev = torch.device(DEVICE)
+    q, k, v, g = (torch.randn((2, 40, 4, D), generator=gen).to(dev)
+                  for _ in range(4))
+    km = _key_mask(2, 40, [40, 23])
+    out, lse = K.flash_attention_plain(q, k, v, causal=True, key_mask=km,
+                                       return_lse=True)
+    delta = K.attention_delta(out, g)
+    kw = dict(causal=True, key_mask=km)
+    S, C = 4, 64
+    qd = torch.randn((S, 1, 4, D), generator=gen).to(dev)
+    kd, vd = (torch.randn((S, C, 4, D), generator=gen).to(dev)
+              for _ in range(2))
+    pk, pv = (torch.randn((1 + S * 4, 16, 4, D), generator=gen).to(dev)
+              for _ in range(2))
+    table = torch.arange(1, 1 + S * 4, dtype=torch.int32,
+                         device=dev).reshape(S, 4)
+    lens = torch.tensor([1, 64, 0, 30], dtype=torch.int32, device=dev)
+    entries = {
+        "flash_fwd": (lambda: K.flash_attention(q, k, v, **kw),
+                      lambda: K.flash_attention_plain(q, k, v, **kw)),
+        "flash_bwd_dq": (
+            lambda: K.flash_bwd_dq(q, k, v, g, lse, delta, **kw),
+            lambda: K.flash_bwd_dq_plain(q, k, v, g, lse, delta, **kw)),
+        "flash_bwd_dkv": (
+            lambda: K.flash_bwd_dkv(q, k, v, g, lse, delta, **kw),
+            lambda: K.flash_bwd_dkv_plain(q, k, v, g, lse, delta, **kw)),
+        "flash_decode": (lambda: K.flash_decode(qd, kd, vd, lens),
+                         lambda: K.flash_decode_plain(qd, kd, vd, lens)),
+        "flash_decode_paged": (
+            lambda: K.flash_decode_paged(qd, pk, pv, table, lens),
+            lambda: K.flash_decode_paged_plain(qd, pk, pv, table, lens))}
+    errs = {}
+    for name, (run, plain) in entries.items():
+        K.reset_launch_counts()
+        got = run()
+        torch.cuda.synchronize()
+        n = counts()
+        check(n[f"{name}_plain_by_shape"] == 1
+              and sum(n.values()) == 1,
+              f"D={D} {name}: counts {n}, not one plain-route call")
+        got = got if isinstance(got, tuple) else (got,)
+        want = plain()
+        want = want if isinstance(want, tuple) else (want,)
+        errs[name] = max(float((a - b).abs().max())
+                         for a, b in zip(got, want))
+        check(errs[name] <= TOL, f"D={D} {name}: max abs err "
+                                 f"{errs[name]} against plain")
+    return {"head_dim": D, "max_abs_err": errs}
+
+
+def _engine_head_dim():
+    """`transformer_lm(d_model=192, n_heads=4)` (head dim 48) with
+    use_pallas=True, decoded greedily with `DecodeEngine.generate` from a
+    slab and a paged cache: the tokens equal the use_pallas=False model's
+    (a differing token must sit on a true tie, top-2 gap < 1e-6), through
+    the padded forward and the decode kernel, never the plain route."""
+    from deeplearning4j_tpu_torch.decode import DecodeEngine
+    from deeplearning4j_tpu_torch.util.params import (params_from_jax,
+                                                      synthetic_params)
+    from deeplearning4j_tpu_torch.zoo import transformer_lm
+    nets = {}
+    for use_pallas in (True, False):
+        net = transformer_lm(**ENGINE_48, use_pallas=use_pallas,
+                             device=DEVICE)
+        nets[use_pallas] = net.init(params=params_from_jax(
+            synthetic_params(net.param_shapes(), seed=0), device=DEVICE))
+    rng = np.random.default_rng(5)
+    prompts = [[int(t) for t in rng.integers(0, 256, size=n)]
+               for n in (5, 17, 40)]
+    n_new = 24
+    ref = DecodeEngine(nets[False], slots=4, max_len=128)
+    wants = [_greedy_rows(ref, p, n_new) for p in prompts]
+    out = {}
+    for paged in (False, True):
+        eng = DecodeEngine(nets[True], slots=4, max_len=128, paged=paged,
+                           block_size=16)
+        kernel = "flash_decode_paged" if paged else "flash_decode"
+        mode = "paged" if paged else "slab"
+        served = _routed(f"D=48 engine, {mode}",
+                         lambda: [eng.generate(p, n_new) for p in prompts],
+                         ("flash_fwd", kernel), True)
+        ties = 0
+        for i, (got, (want, rows)) in enumerate(zip(served, wants)):
+            for t, (a, b) in enumerate(zip(got, want)):
+                if a != b:
+                    top2 = np.sort(rows[t])[-2:]
+                    gap = float(top2[1] - top2[0])
+                    check(gap < TIE_GAP, f"D=48 engine {mode} prompt {i} "
+                                         f"token {t}: {a} != plain {b} "
+                                         f"(gap {gap})")
+                    ties += 1
+                    break
+        out[mode] = {"tokens": served, "ties": ties}
+    return out
 
 
 # ------------------------------------------------------------------ phase 3
@@ -956,8 +1311,7 @@ def _burst(url, prompts, n_new=N_NEW):
 def phase_serving():
     import torch
     from deeplearning4j_tpu_torch.decode import DecodeEngine
-    from deeplearning4j_tpu_torch.kernels import (launch_counts,
-                                                  reset_launch_counts)
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
     from deeplearning4j_tpu_torch.serving import ServingServer
     from deeplearning4j_tpu_torch.util.http import request_json
     from deeplearning4j_tpu_torch.util.params import (params_from_jax,
@@ -994,7 +1348,7 @@ def phase_serving():
         srv.decode.itl_ms.clear()
         reset_launch_counts()
         answers, wall = _burst(url, prompts)
-        counts = launch_counts()
+        launches = counts()
         snap = srv.decode.snapshot()
         # a second, traced burst: where the device time goes (the numbers
         # above come from the untraced one)
@@ -1012,10 +1366,10 @@ def phase_serving():
     served = [body["tokens"] for _, body in answers]
     check(all(len(t) == N_NEW for t in served), "short generations")
     for name in ("flash_fwd", "flash_decode"):
-        check(counts[name] > 0,
+        check(launches[name] > 0,
               f"kernel {name} never launched on the serving path")
-    check(counts["flash_bwd_dq"] == counts["flash_bwd_dkv"]
-          == counts["flash_decode_paged"] == 0,
+    check(launches["flash_bwd_dq"] == launches["flash_bwd_dkv"]
+          == launches["flash_decode_paged"] == 0,
           "a backward or paged kernel launched on the slab serving path")
 
     eng = DecodeEngine(plain_net, slots=8, max_len=256)
@@ -1040,7 +1394,7 @@ def phase_serving():
                "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
                "ttft_ms_p50": float(np.median([b["ttft_ms"]
                                                for _, b in answers])),
-               "itl_ms_p50": snap["itl_ms_p50"], "launches": counts,
+               "itl_ms_p50": snap["itl_ms_p50"], "launches": launches,
                "output_err_vs_plain": out_err,
                "fixture_prompts_match": len(fixture["tokens"])}
     print(json.dumps({"serving": summary}))
@@ -1057,8 +1411,7 @@ def _served_burst(net, prompts, n_new, trace=False, **server_kw):
     its `_profile_summary` as "profile". The caller stops the server."""
     import contextlib
     from torch.profiler import ProfilerActivity, profile
-    from deeplearning4j_tpu_torch.kernels import (launch_counts,
-                                                  reset_launch_counts)
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
     from deeplearning4j_tpu_torch.serving import ServingServer
     from deeplearning4j_tpu_torch.util.http import request_json
     srv = ServingServer(net, decode=True, **server_kw).start()
@@ -1073,14 +1426,14 @@ def _served_burst(net, prompts, n_new, trace=False, **server_kw):
         with (profile(activities=[ProfilerActivity.CUDA]) if trace
               else contextlib.nullcontext()) as prof:
             answers, wall = _burst(url, prompts, n_new)
-        counts = launch_counts()
+        launches = counts()
         snap = srv.decode.snapshot()
         if trace:
             snap["profile"] = _profile_summary(prof, wall * 1e3, 8)
     except BaseException:
         srv.stop()
         raise
-    return answers, wall, counts, snap, srv
+    return answers, wall, launches, snap, srv
 
 
 def _burst_summary(prompts, answers, wall, snap):
@@ -1289,8 +1642,7 @@ def _train_paths(compute_dtype):
     path and on the plain path, from the same weights: {use_pallas: run}
     with scores, step times, launch counts and peak memory."""
     import torch
-    from deeplearning4j_tpu_torch.kernels import (launch_counts,
-                                                  reset_launch_counts)
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
     x, y = _one_hot_batch(TRAIN_BATCH, TRAIN_SEQ)
     runs = {}
     for use_pallas in (True, False):
@@ -1306,7 +1658,7 @@ def _train_paths(compute_dtype):
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         runs[use_pallas] = dict(net=net, scores=scores, times=times,
-                                launches=launch_counts(),
+                                launches=counts(),
                                 peak_mb=torch.cuda.max_memory_allocated()
                                 / 2**20)
     return runs, (x, y)
@@ -1568,12 +1920,11 @@ def _ring_launches(q, k, v, mesh):
     """One ring step with every launch count set to 0 just before it;
     (out, grads, counts)."""
     import torch
-    from deeplearning4j_tpu_torch.kernels import (launch_counts,
-                                                  reset_launch_counts)
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
     reset_launch_counts()
     out, grads = _ring_step(q, k, v, mesh)
     torch.cuda.synchronize()
-    return out, grads, launch_counts()
+    return out, grads, counts()
 
 
 def _check_ring_launches(counts, kernels, n, what):
@@ -1741,6 +2092,7 @@ REPLACES = {
                           ":297-300, dk/dv in k's/v's dtype "
                           ":329-330/:406-407, pallas_call :388)",
 }
+_KERNEL_NAMES = tuple(REPLACES)
 _CSRC = "deeplearning4j_tpu_torch/kernels/csrc"
 SOURCES = {"flash_fwd": f"{_CSRC}/flash_fwd.cu",
            "flash_fwd_bf16": f"{_CSRC}/flash_fwd_bf16.cu",
@@ -1779,6 +2131,8 @@ def main():
         return 1
     smi = phase_card()
     cases = phase_kernels()
+    head_cases, _ = phase_head_dims()
+    cases += head_cases
     launches = {"serving": phase_serving()["launches"],
                 "serving_paged": phase_serving_paged()["launches"]}
     f32 = phase_training()
@@ -1788,6 +2142,11 @@ def main():
     launches["ring"] = ring["launches_n4"]
     launches["ring_f32"] = ring["launches_f32_n4"]
     cases += ring_cases
+    from deeplearning4j_tpu_torch.kernels import route_counts
+    for path, n in launches.items():
+        routed = {k: n[k] for k in route_counts() if n[k]}
+        check(not routed, f"main path {path} took padded or plain routes: "
+                          f"{routed}")
     kernels = []
     for name, (path, case) in MAIN_PATH.items():
         c = next(c for c in cases if c["name"] == name and c["case"] == case)
@@ -1806,7 +2165,9 @@ def main():
             "library_device_ms": c["library_device_ms"],
             **{k: c[k] for k in ("library_note", "gather_sdpa_ms", "ops",
                                  "simt_ops_bound_ms", "tflops",
-                                 "bound_share", "simt_bound_share")
+                                 "bound_share", "simt_bound_share",
+                                 "kernels_per_call", "ctas_per_pair",
+                                 "launch_floor_device_ms")
                if k in c}})
     print(smi)              # the card's name and power limit, again
     print(json.dumps({"kernels": kernels}))

@@ -8,19 +8,23 @@ ring), its backward pair (`flash_bwd_dq`, `flash_bwd_dkv`, run by
 version chosen by the operands' type, and the decode attention over a
 slab cache (`flash_decode`) and through a paged pool's block table
 (`flash_decode_paged`). Sources live in `csrc/`, `build.py` compiles
-them."""
+them. Every head dim D % 8 == 0 up to 256 runs a kernel on the card
+(`kernel_head_dim`); `route_counts` counts the calls padded to a compiled
+width and those run plainly by shape."""
 from .flash_attention import (attention_delta, can_flash, flash_attention,
                               flash_attention_bwd, flash_attention_bwd_plain,
                               flash_attention_lse, flash_attention_plain,
                               flash_bwd_dkv, flash_bwd_dkv_plain,
                               flash_bwd_dq, flash_bwd_dq_plain, flash_decode,
                               flash_decode_paged, flash_decode_paged_plain,
-                              flash_decode_plain, launch_counts,
-                              reset_launch_counts)
+                              flash_decode_plain, kernel_head_dim,
+                              launch_counts, reset_launch_counts,
+                              route_counts)
 
 __all__ = ["attention_delta", "can_flash", "flash_attention",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_lse", "flash_attention_plain", "flash_bwd_dkv",
            "flash_bwd_dkv_plain", "flash_bwd_dq", "flash_bwd_dq_plain",
            "flash_decode", "flash_decode_paged", "flash_decode_paged_plain",
-           "flash_decode_plain", "launch_counts", "reset_launch_counts"]
+           "flash_decode_plain", "kernel_head_dim", "launch_counts",
+           "reset_launch_counts", "route_counts"]

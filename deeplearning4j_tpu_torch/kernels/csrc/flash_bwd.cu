@@ -72,8 +72,10 @@
 // 72 TF32 products; dk/dv ~450 KB against 96 products. The split pass
 // and the products take turns; splitting tile j + 1 under tile j's
 // products (a second K^T stage) gained nothing, so they share the limit.
-// Head dims 16, 32 and 128 run on no float32 path of the port and keep
-// the CUDA-core kernels: 128 threads per (tile of 32 owned rows,
+// Head dims 16, 32, 128 and 256 (the wrapper pads any other D % 8 == 0
+// up to the next of these) run on no float32 main path of the port and
+// keep the CUDA-core kernels (D=256: 201 KB of shared memory for dq, 210
+// KB for dk/dv, at the D=128 tiles): 128 threads per (tile of 32 owned rows,
 // batch*head) walking 64-row tiles staged synchronously in shared memory
 // (rows padded to D+1 floats), products on 4x4 register micro-tiles of
 // f32 FMAs.
@@ -881,6 +883,7 @@ extern "C" int flash_bwd_dq_f32(
     case 32: return launch_dq<32>(a, dq, st);
     case 64: return launch_dq_sm90(a, dq, st);
     case 128: return launch_dq<128>(a, dq, st);
+    case 256: return launch_dq<256>(a, dq, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -904,6 +907,7 @@ extern "C" int flash_bwd_dkv_f32(
     case 32: return launch_dkv<32>(a, dk, dv, st);
     case 64: return launch_dkv_sm90(a, dk, dv, st);
     case 128: return launch_dkv<128>(a, dk, dv, st);
+    case 256: return launch_dkv<256>(a, dk, dv, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -28,8 +28,12 @@
 // thread, so a result is the same bit for bit from run to run. That keeps
 // the two kernels two: a fused backward would sum dq across blocks.
 //
-// Head dims 64 and 128 (every path of the port runs 64): the Hopper
-// design, helpers in hopper_bf16.cuh.
+// Head dims 64, 128 and 256 (every path of the port runs 64; the wrapper
+// pads any other D % 8 == 0 above 32 up to the next of these): the Hopper
+// design, helpers in hopper_bf16.cuh. At D=256 a block accumulates two of
+// the four 64-column boxes of dq (dk, dv), a grid z of 2 sharing each
+// owned tile, so its accumulators take D=128's registers (four boxes of
+// dk and dv would take 256 a thread); each block recomputes the scores.
 //   - One warpgroup (128 threads) per block owns 64 rows: q rows for dq,
 //     keys for dk/dv. Every product is `wgmma.mma_async`: S = Q K^T and
 //     dP = dO V^T (dq), S^T = K Q^T and dP^T = V dO^T (dk/dv) take both
@@ -61,7 +65,8 @@
 //   - Causal scheduling: the tile index runs on grid y, batch x heads on
 //     x, so the first wave holds the heaviest tiles of every head: dq's
 //     last q tiles (which see the most keys), dk/dv's first key tiles.
-// Head dims 16 and 32 run on no path of the port and keep PR 5's design:
+// Head dims 16 and 32 (and 8 and 24, padded) run on no path of the port
+// and keep the first design:
 // 4 warps of `mma.sync` m16n8k16 fed by `ldmatrix` from padded tiles that
 // plain 16-byte loads stage (mma_bf16.cuh), the same ownership.
 //
@@ -387,7 +392,7 @@ struct DqLayout {
   static constexpr int BYTES = KM + 4 * STAGES * BK;
 };
 
-template <int D>
+template <int D, int NO>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
@@ -399,7 +404,7 @@ flash_bwd_dq_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
                        bf16* __restrict__ dq, int H, int Tq, int Tk,
                        int causal, int q_off, int k_off, float scale) {
   using L = DqLayout<D>;
-  constexpr int BQ = L::BQ, BK = L::BK, NB = D / 64;
+  constexpr int BQ = L::BQ, BK = L::BK;
   constexpr uint32_t KV_BYTES = 2 * BK * D * 2;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = hopper::align_1024(smem_raw);
@@ -423,9 +428,11 @@ flash_bwd_dq_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
   const float scale2 = scale * LOG2E;
   const float* km = key_mask ? key_mask + (long long)b * Tk : nullptr;
 
-  float acc[NB][32];
+  // this block's dq columns: 64-column boxes nb0 .. nb0 + NO - 1
+  const int nb0 = blockIdx.z * NO;
+  float acc[NO][32];
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
+  for (int nb = 0; nb < NO; ++nb)
 #pragma unroll
     for (int e = 0; e < 32; ++e) acc[nb][e] = 0.f;
 
@@ -528,14 +535,14 @@ flash_bwd_dq_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
         uint32_t a[4];
         hopper::acc_to_a(a, s, kk);
 #pragma unroll
-        for (int nb = 0; nb < NB; ++nb)
-          hopper::wgmma_rs_n64_tb(acc[nb], a,
-                                  hopper::desc_mn_major(Kt, BK, kk, nb));
+        for (int nb = 0; nb < NO; ++nb)
+          hopper::wgmma_rs_n64_tb(
+              acc[nb], a, hopper::desc_mn_major(Kt, BK, kk, nb0 + nb));
       }
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) hopper::fence_operand(acc[nb]);
+      for (int nb = 0; nb < NO; ++nb) hopper::fence_operand(acc[nb]);
 
       if (tid < BK) kms[((j + 1) % STAGES) * BK + tid] = km_next;
       // the stage is consumed by every warp: refill it
@@ -546,8 +553,9 @@ flash_bwd_dq_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
 
   bf16* dqb = dq + ((long long)b * Tq * H + h) * D;
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
-    hopper::store_acc(dqb, (long long)H * D, q0, Tq, nb * 64, acc[nb], tid);
+  for (int nb = 0; nb < NO; ++nb)
+    hopper::store_acc(dqb, (long long)H * D, q0, Tq, (nb0 + nb) * 64,
+                      acc[nb], tid);
 }
 
 // dk/dv: byte offsets from the aligned base; every tile 1024-aligned
@@ -564,7 +572,7 @@ struct DkvLayout {
   static constexpr int BYTES = DL + 4 * STAGES * BQ;
 };
 
-template <int D>
+template <int D, int NO>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap kmap,
@@ -577,7 +585,7 @@ flash_bwd_dkv_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
                         int Tq, int Tk, int causal, int q_off, int k_off,
                         float scale) {
   using L = DkvLayout<D>;
-  constexpr int BQ = L::BQ, BK = L::BK, NB = D / 64;
+  constexpr int BQ = L::BQ, BK = L::BK;
   constexpr int NQ = BQ / 2;    // accumulator registers of a 64 x BQ tile
   constexpr uint32_t QO_BYTES = 2 * BQ * D * 2;
   extern __shared__ unsigned char smem_raw[];
@@ -603,9 +611,11 @@ flash_bwd_dkv_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
   const float scale2 = scale * LOG2E;
   const int kr0 = k0 + (tid / 32) * 16 + g;   // this thread's keys kr0, +8
 
-  float dk_acc[NB][32], dv_acc[NB][32];
+  // this block's dk/dv columns: 64-column boxes nb0 .. nb0 + NO - 1
+  const int nb0 = blockIdx.z * NO;
+  float dk_acc[NO][32], dv_acc[NO][32];
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
+  for (int nb = 0; nb < NO; ++nb)
 #pragma unroll
     for (int e = 0; e < 32; ++e) dk_acc[nb][e] = dv_acc[nb][e] = 0.f;
 
@@ -703,17 +713,17 @@ flash_bwd_dkv_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
         hopper::acc_to_a(pa, s, kk);
         hopper::acc_to_a(da, dp, kk);
 #pragma unroll
-        for (int nb = 0; nb < NB; ++nb) {
-          hopper::wgmma_rs_n64_tb(dv_acc[nb], pa,
-                                  hopper::desc_mn_major(Ot, BQ, kk, nb));
-          hopper::wgmma_rs_n64_tb(dk_acc[nb], da,
-                                  hopper::desc_mn_major(Qt, BQ, kk, nb));
+        for (int nb = 0; nb < NO; ++nb) {
+          hopper::wgmma_rs_n64_tb(
+              dv_acc[nb], pa, hopper::desc_mn_major(Ot, BQ, kk, nb0 + nb));
+          hopper::wgmma_rs_n64_tb(
+              dk_acc[nb], da, hopper::desc_mn_major(Qt, BQ, kk, nb0 + nb));
         }
       }
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
+      for (int nb = 0; nb < NO; ++nb) {
         hopper::fence_operand(dv_acc[nb]);
         hopper::fence_operand(dk_acc[nb]);
       }
@@ -730,7 +740,7 @@ flash_bwd_dkv_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
     const int key = kr0 + 8 * i;
     if (key_mask && key < Tk && !(key_mask[(long long)b * Tk + key] > 0.f)) {
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
+      for (int nb = 0; nb < NO; ++nb)
 #pragma unroll
         for (int e = 0; e < 32; ++e)
           if (((e >> 1) & 1) == i) dk_acc[nb][e] = dv_acc[nb][e] = 0.f;
@@ -738,10 +748,10 @@ flash_bwd_dkv_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
   }
   const long long off = ((long long)b * Tk * H + h) * D;
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb) {
-    hopper::store_acc(dk + off, (long long)H * D, k0, Tk, nb * 64,
+  for (int nb = 0; nb < NO; ++nb) {
+    hopper::store_acc(dk + off, (long long)H * D, k0, Tk, (nb0 + nb) * 64,
                       dk_acc[nb], tid);
-    hopper::store_acc(dv + off, (long long)H * D, k0, Tk, nb * 64,
+    hopper::store_acc(dv + off, (long long)H * D, k0, Tk, (nb0 + nb) * 64,
                       dv_acc[nb], tid);
   }
 }
@@ -802,19 +812,27 @@ int make_maps(const Operands& a, int D, int q_rows, int k_rows,
   return 0;
 }
 
+// 64-column boxes of dq (dk, dv) per block: every box up to D = 128; at
+// D = 256 two, a grid z of 2 blocks sharing each q (key) tile, each with
+// its own copy of the score products, so the accumulators stay at D =
+// 128's registers.
+template <int D>
+constexpr int out_boxes() { return D > 128 ? 2 : D / 64; }
+
 template <int D>
 int launch_dq_sm90(const Operands& a, bf16* dq, cudaStream_t stream) {
   using L = DqLayout<D>;
+  constexpr int NO = out_boxes<D>();
   CUtensorMap m[4];
   int err = make_maps(a, D, L::BQ, L::BK, m);
   if (err) return err;
   const int smem = L::BYTES + 1024;
-  err = (int)cudaFuncSetAttribute(flash_bwd_dq_bf16_sm90<D>,
+  err = (int)cudaFuncSetAttribute(flash_bwd_dq_bf16_sm90<D, NO>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   smem);
   if (err) return err;
-  const dim3 grid(a.B * a.H, (a.Tq + L::BQ - 1) / L::BQ);
-  flash_bwd_dq_bf16_sm90<D><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid(a.B * a.H, (a.Tq + L::BQ - 1) / L::BQ, D / 64 / NO);
+  flash_bwd_dq_bf16_sm90<D, NO><<<grid, THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], a.lse, a.delta, a.key_mask, dq, a.H, a.Tq,
       a.Tk, a.causal, a.q_off, a.k_off, a.scale);
   return (int)cudaGetLastError();
@@ -824,16 +842,17 @@ template <int D>
 int launch_dkv_sm90(const Operands& a, bf16* dk, bf16* dv,
                     cudaStream_t stream) {
   using L = DkvLayout<D>;
+  constexpr int NO = out_boxes<D>();
   CUtensorMap m[4];
   int err = make_maps(a, D, L::BQ, L::BK, m);
   if (err) return err;
   const int smem = L::BYTES + 1024;
-  err = (int)cudaFuncSetAttribute(flash_bwd_dkv_bf16_sm90<D>,
+  err = (int)cudaFuncSetAttribute(flash_bwd_dkv_bf16_sm90<D, NO>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   smem);
   if (err) return err;
-  const dim3 grid(a.B * a.H, (a.Tk + L::BK - 1) / L::BK);
-  flash_bwd_dkv_bf16_sm90<D><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid(a.B * a.H, (a.Tk + L::BK - 1) / L::BK, D / 64 / NO);
+  flash_bwd_dkv_bf16_sm90<D, NO><<<grid, THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], a.lse, a.delta, a.key_mask, dk, dv, a.H,
       a.Tq, a.Tk, a.causal, a.q_off, a.k_off, a.scale);
   return (int)cudaGetLastError();
@@ -880,6 +899,7 @@ extern "C" int flash_bwd_dq_bf16(
     case 32: return launch_dq<32>(a, out, s);
     case 64: return launch_dq_sm90<64>(a, out, s);
     case 128: return launch_dq_sm90<128>(a, out, s);
+    case 256: return launch_dq_sm90<256>(a, out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -905,6 +925,7 @@ extern "C" int flash_bwd_dkv_bf16(
     case 32: return launch_dkv<32>(a, dkp, dvp, s);
     case 64: return launch_dkv_sm90<64>(a, dkp, dvp, s);
     case 128: return launch_dkv_sm90<128>(a, dkp, dvp, s);
+    case 256: return launch_dkv_sm90<256>(a, dkp, dvp, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

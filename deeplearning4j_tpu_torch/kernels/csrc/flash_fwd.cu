@@ -80,8 +80,9 @@
 // the products, 7-37% slower (T=4096 0.97 ms, the train case 0.049, the
 // f32 shard 0.052); that split taken under the P V of the tile before,
 // slower still.
-// Head dims 16, 32 and 128 run on no float32 path of the port and keep
-// the CUDA-core kernel: one block of 128 threads per (q tile of 32 rows,
+// Head dims 16, 32, 128 and 256 (the wrapper pads any other D % 8 == 0
+// up to the next of these) run on no float32 main path of the port and
+// keep the CUDA-core kernel (D=256: 169 KB of shared memory): one block of 128 threads per (q tile of 32 rows,
 // batch*head) looping over key tiles of 64 rows staged synchronously in
 // shared memory (rows padded to D+1 floats), the running max and sum in
 // shared memory, the products on 4x4 register micro-tiles of f32 FMAs,
@@ -599,6 +600,7 @@ extern "C" int flash_fwd_f32(
           : launch_sm90<2>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off, scale, st);
     }
     case 128: return launch<128>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off, scale, st);
+    case 256: return launch<256>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

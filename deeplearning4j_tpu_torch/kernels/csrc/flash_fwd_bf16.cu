@@ -28,8 +28,10 @@
 // products take at the tensor cores' ~4000 operations per clock: they
 // have to run under the products, not between them.
 //
-// Head dims 64 and 128 (every path of the port runs 64): the Hopper
-// design, `flash_fwd_bf16_sm90`, helpers in hopper_bf16.cuh (the same
+// Head dims 64, 128 and 256 (every path of the port runs 64; the wrapper
+// pads any other D % 8 == 0 above 32 up to the next of these): the Hopper
+// design, `flash_fwd_bf16_sm90` (D=256: four 64-column boxes, 160 KB of
+// tiles, 190 registers), helpers in hopper_bf16.cuh (the same
 // parts as flash_bwd_bf16.cu's dq kernel).
 //   - One warpgroup (128 threads) per block owns 64 query rows; Q arrives
 //     once by TMA. Every product is `wgmma.mma_async` with f32
@@ -84,7 +86,8 @@
 //   longer overlap each other's products; Q as register-A fragments for
 //   S: at D=64 ptxas allocated P's fragments onto Q's registers (wrong
 //   results from the second key tile on).
-// Head dims 16 and 32 run on no path of the port and keep the first design:
+// Head dims 16 and 32 (and 8 and 24, padded) run on no path of the port
+// and keep the first design:
 // 4 warps of `mma.sync` m16n8k16 fed by `ldmatrix` from padded tiles that
 // plain 16-byte loads stage (mma_bf16.cuh), one block per (q tile,
 // batch*head), two block barriers per key tile.
@@ -568,6 +571,7 @@ extern "C" int flash_fwd_bf16(
     case 32: return launch<32>(a, st);
     case 64: return launch_sm90<64>(a, st);
     case 128: return launch_sm90<128>(a, st);
+    case 256: return launch_sm90<256>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -62,21 +62,42 @@ NEG_INF + log(1e-30); in the backward its dq row is 0 and it has no share
 in dk or dv. A row that the key mask alone empties is not a contract.
 
 What bounds each kernel on the card and what its design does about it is
-noted at the top of its source. A wrapper runs the plain version only for
-a tensor on the CPU, as the tests do. For a CUDA tensor it launches the
-kernel or raises: a failed build or launch never falls back. Each launch
-adds one to its kernel's count in `launch_counts()`, where the kernel
-launches and nowhere else.
+noted at the top of its source. A wrapper runs the plain version for a
+tensor on the CPU, as the tests do. For a CUDA tensor it chooses by head
+dim D, by the reference's rule (`_plan`, :492-502: its kernel runs every
+D % 8 == 0, and only D % 8 != 0 goes to its plain path), stated once in
+`kernel_head_dim`:
+
+- D % 8 == 0, D <= 256: a hand kernel, at the compiled width Dp, the
+  next of 16, 32, 64, 128 and 256. The attention kernels take q, k, v
+  (and dO) zero-padded to Dp at the true D's scale, 1 / sqrt(D): zero
+  columns add nothing to a score, give zero output columns and leave
+  rowsum(dO o O) as it is, so the result is exact up to the order of
+  sums; out, dq, dk and dv come back sliced to D. Such a call counts one
+  `<kernel>_padded` in `route_counts()` besides its launch. The decode
+  kernels take the runtime D and guard their columns (padding the cache
+  would copy it on every step).
+- D % 8 != 0: the plain version, the reference's choice, counted under
+  `<kernel>_plain_by_shape` in `route_counts()`.
+- D % 8 == 0, D > 256: ValueError; no kernel is compiled that wide.
+
+Otherwise a CUDA tensor launches the kernel or raises: a failed build or
+launch never falls back. Each launch adds one to its kernel's count in
+`launch_counts()`, where the kernel launches and nowhere else. The
+CUDA-core kernels put batch * heads on the grid's y axis (at most 65535),
+so the attention wrappers launch over batch slices of at most 65535 // H
+rows (views with the same strides; key mask, LSE and delta rows sliced
+alike), each launch counted; only H > 65535 raises.
 
 Layouts are the JAX package's: [batch, time, heads, head_dim]; lse and
-delta are [batch, heads, Tq]. Head dims 16, 32, 64 and 128 are compiled;
-any other raises. There is no tile-divisibility rule and no fallback:
+delta are [batch, heads, Tq]. There is no tile-divisibility rule:
 ragged lengths are masked inside the kernels.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import math
 
 import torch
@@ -85,15 +106,19 @@ from ..parallel.ring_attention import (NEG_INF, attention_reference,
                                        masked_scores, widen)
 from . import build
 
-HEAD_DIMS = (16, 32, 64, 128)
+# the widths the kernels are compiled at; a head dim runs at the next one
+HEAD_DIMS = (16, 32, 64, 128, 256)
+MAX_HEAD_DIM = HEAD_DIMS[-1]
+_GRID_Y = 65535         # the CUDA-core kernels' batch * heads axis
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # ... causal, q_offset, k_offset, scale, stream
 _FWD_ARGTYPES = ([_P] * 6 + [_I] * 5 + [_L] * 9
                  + [_I] * 3 + [ctypes.c_float, _P])
-_DECODE_ARGTYPES = ([_P] * 6 + [_I] * 4 + [_L] * 8
+# ... S, H, C, D, n (CTAs per (slot, head)), strides, scale, stream
+_DECODE_ARGTYPES = ([_P] * 5 + [_I] * 5 + [_L] * 8
                     + [ctypes.c_float, _P])
-_DECODE_PAGED_ARGTYPES = ([_P] * 7 + [_I] * 5 + [_L] * 8
+_DECODE_PAGED_ARGTYPES = ([_P] * 6 + [_I] * 6 + [_L] * 8
                           + [ctypes.c_float, _P])
 _BWD_DQ_ARGTYPES = ([_P] * 8 + [_I] * 5 + [_L] * 12
                     + [_I] * 3 + [ctypes.c_float, _P])
@@ -101,7 +126,9 @@ _BWD_DKV_ARGTYPES = ([_P] * 9 + [_I] * 5 + [_L] * 12
                      + [_I] * 3 + [ctypes.c_float, _P])
 # the LSE of a row that sees no key: m = NEG_INF, l clamped to 1e-30
 NO_KEY_LSE = NEG_INF + math.log(1e-30)
-DECODE_CHUNK = 32   # keys per warp in csrc/flash_decode.cu (CHUNK)
+DECODE_UNIT = 32    # keys of a unit: a decode CTA's range is whole units
+DECODE_ROUND = 64   # keys of one 16-key step of each of a CTA's 4 warps
+DECODE_MAX_SPLIT = 8    # CTAs per (slot, head): the portable cluster size
 _ATTENTION_DTYPES = (torch.float32, torch.bfloat16)
 
 # each attention kernel's C argument types and, by operand type, its
@@ -122,6 +149,15 @@ _launches = dict.fromkeys(
     ("flash_fwd", "flash_fwd_bf16", "flash_decode", "flash_decode_paged",
      "flash_bwd_dq", "flash_bwd_dq_bf16", "flash_bwd_dkv",
      "flash_bwd_dkv_bf16"), 0)
+# calls a CUDA tensor made at a head dim the kernels take padded, and
+# calls it made at one the reference runs plainly
+_routes = dict.fromkeys(
+    [f"{k}_padded" for k in ("flash_fwd", "flash_fwd_bf16", "flash_bwd_dq",
+                             "flash_bwd_dq_bf16", "flash_bwd_dkv",
+                             "flash_bwd_dkv_bf16")]
+    + [f"{k}_plain_by_shape" for k in ("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv", "flash_decode",
+                                       "flash_decode_paged")], 0)
 
 
 def _on_host(t):
@@ -148,11 +184,60 @@ def _scale(scale, D):
     return float(1.0 / math.sqrt(D)) if scale is None else float(scale)
 
 
+def kernel_head_dim(D):
+    """The compiled width a kernel runs head dim D at, by the reference's
+    rule (`_plan` :492-502 runs its kernel for every D % 8 == 0): the
+    next of HEAD_DIMS; None for D % 8 != 0, which the reference routes to
+    its plain path. Raises for D % 8 == 0 above MAX_HEAD_DIM."""
+    if D < 1 or D % 8:
+        return None
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {D} exceeds {MAX_HEAD_DIM}, the widest "
+                         "head dim the kernels are compiled for")
+    return next(w for w in HEAD_DIMS if w >= D)
+
+
 def can_flash(Tq, Tk, D):
     """Whether the kernels take these shapes: any lengths (ragged edges
-    are masked inside them), head dims in HEAD_DIMS. The counterpart of
-    the JAX `can_flash` (:685), which had Mosaic's tiling to satisfy."""
-    return Tq >= 1 and Tk >= 1 and D in HEAD_DIMS
+    are masked inside them), the head dims `kernel_head_dim` gives a
+    width. The counterpart of the JAX `can_flash` (:685), which had
+    Mosaic's tiling to satisfy."""
+    return Tq >= 1 and Tk >= 1 and D % 8 == 0 and 0 < D <= MAX_HEAD_DIM
+
+
+def _plain_by_shape(kernel):
+    _routes[f"{kernel}_plain_by_shape"] += 1
+
+
+def _pad_head(t, Dp):
+    """t zero-padded along the head dim to Dp columns (a new dense
+    tensor), or t itself at Dp."""
+    D = t.shape[-1]
+    return t if D == Dp else torch.nn.functional.pad(t, (0, Dp - D))
+
+
+def _launch_batches(fn, name, tensors, B, H, rest):
+    """Launch `fn` (see `_launch`) on batch slices [b0, b1) of at most
+    65535 // H rows, as the CUDA-core kernels put batch * heads on the
+    grid's y axis: the pointers to rows b0.. of `tensors` (all [B, ...];
+    None stays None), then b1 - b0, H and `rest`."""
+    if H > _GRID_Y:
+        raise ValueError(f"{H} heads exceed the grid's {_GRID_Y}")
+    step = _GRID_Y // H
+    for b0 in range(0, B, step):
+        b1 = min(B, b0 + step)
+        _launch(fn, name, tensors[0].device,
+                *(None if t is None else t[b0:b1].data_ptr()
+                  for t in tensors), b1 - b0, H, *rest)
+
+
+def _unpad(name, D, *outs):
+    """The kernel's outputs sliced to the true head dim D (dense), the
+    call counted under `<name>_padded` where they were padded."""
+    if outs[0].shape[-1] == D:
+        return outs
+    _routes[f"{name}_padded"] += 1
+    return tuple(t[..., :D].contiguous() for t in outs)
 
 
 def _offset(x):
@@ -229,22 +314,8 @@ def _check_attention_operands(q, k, v, dtypes=(torch.float32,)):
             or k.shape[2:] != q.shape[2:]:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"head_dim {q.shape[3]} not compiled; the kernels "
-                         f"take {HEAD_DIMS}")
     if q.shape[1] < 1 or k.shape[1] < 1:
         raise ValueError("empty sequence")
-
-
-def _check_bh_grid(q):
-    """The CUDA-core kernels (the forward and the backward pair at the
-    head dims without a Hopper kernel) put batch*heads on the grid's y
-    axis, at most 65535. The Hopper kernels put it on x, with the q or key
-    tiles on y; the one limit holds for every head dim all the same, so a
-    shape that runs at one head dim runs at every other."""
-    if q.shape[0] * q.shape[2] > 65535:
-        raise ValueError(f"batch*heads {q.shape[0] * q.shape[2]} exceeds "
-                         "the grid's 65535")
 
 
 def _prep_key_mask(key_mask, B, Tk, device):
@@ -253,10 +324,6 @@ def _prep_key_mask(key_mask, B, Tk, device):
         return None
     return torch.broadcast_to(torch.as_tensor(key_mask, device=device),
                               (B, Tk)).to(torch.float32).contiguous()
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
 
 
 def _bhd_strides(t):
@@ -292,27 +359,35 @@ def flash_attention_plain(q, k, v, *, causal=False, scale=None,
 def _flash_forward(q, k, v, causal, scale, key_mask, return_lse,
                    q_offset=0, k_offset=0):
     """The forward wrapper: `flash_fwd` (f32) or `flash_fwd_bf16` for
-    CUDA tensors, the plain version for CPU tensors; writes the LSE only
-    with `return_lse`. The offsets are Python ints."""
+    CUDA tensors at a head dim `kernel_head_dim` takes (zero-padded to
+    its width), the plain version for CPU tensors and for the head dims
+    the reference runs plainly; writes the LSE only with `return_lse`.
+    The offsets are Python ints."""
+    plain = functools.partial(
+        flash_attention_plain, q, k, v, causal=causal, scale=scale,
+        key_mask=key_mask, return_lse=return_lse, q_offset=q_offset,
+        k_offset=k_offset)
     if _on_host(q):
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                     key_mask=key_mask,
-                                     return_lse=return_lse,
-                                     q_offset=q_offset, k_offset=k_offset)
+        return plain()
     _check_attention_operands(q, k, v, _ATTENTION_DTYPES)
-    fn, name = _entry("flash_fwd", q.dtype)
-    _check_bh_grid(q)
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     B, Tq, H, D = q.shape
+    Dp = kernel_head_dim(D)
+    if Dp is None:
+        _plain_by_shape("flash_fwd")
+        return plain()
+    fn, name = _entry("flash_fwd", q.dtype)
+    scale = _scale(scale, D)            # the true head dim's, before padding
+    q, k, v = (_aligned(_pad_head(t, Dp)) for t in (q, k, v))
     Tk = k.shape[1]
     km = _prep_key_mask(key_mask, B, Tk, q.device)
-    out = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Tq, H, Dp), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    _launch(fn, name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            _ptr(km), out.data_ptr(), _ptr(lse), B, H, Tq, Tk, D,
-            *_bhd_strides(q), *_bhd_strides(k), *_bhd_strides(v),
-            int(bool(causal)), q_offset, k_offset, _scale(scale, D))
+    _launch_batches(fn, name, (q, k, v, km, out, lse), B, H,
+                    (Tq, Tk, Dp, *_bhd_strides(q), *_bhd_strides(k),
+                     *_bhd_strides(v), int(bool(causal)), q_offset, k_offset,
+                     scale))
+    out, = _unpad(name, D, out)
     return (out, lse) if return_lse else out
 
 
@@ -463,11 +538,11 @@ def flash_attention_bwd_plain(q, k, v, out, lse, g, *, causal=False,
             torch.einsum("bhqk,bqhd->bkhd", p, widen(g)).to(v.dtype))
 
 
-def _bwd_operands(q, k, v, g, lse, delta, key_mask):
+def _bwd_operands(q, k, v, g, lse, delta, key_mask, Dp):
     """Checks shared by the two backward launches; returns (q, k, v, g,
-    lse, delta, key mask) in the layouts the kernels read."""
+    lse, delta, key mask) in the layouts the kernels read, q, k, v and g
+    zero-padded to the head dim's compiled width Dp."""
     _check_attention_operands(q, k, v, _ATTENTION_DTYPES)
-    _check_bh_grid(q)
     B, Tq, H, _ = q.shape
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
         raise ValueError(f"dO must be {q.dtype} {tuple(q.shape)} on "
@@ -479,9 +554,27 @@ def _bwd_operands(q, k, v, g, lse, delta, key_mask):
                 or t.device != q.device:
             raise ValueError(f"{name} must be float32 {(B, H, Tq)} on "
                              f"{q.device}, got {tuple(t.shape)} {t.dtype}")
-    return (_aligned(q), _aligned(k), _aligned(v), _aligned(g),
+    return (*(_aligned(_pad_head(t, Dp)) for t in (q, k, v, g)),
             lse.contiguous(), delta.contiguous(),
             _prep_key_mask(key_mask, B, k.shape[1], q.device))
+
+
+def _bwd_rest(q, k, v, g, Dp, causal, q_offset, k_offset, scale):
+    """The backward entries' arguments after B and H."""
+    return (q.shape[1], k.shape[1], Dp, *_bhd_strides(q), *_bhd_strides(k),
+            *_bhd_strides(v), *_bhd_strides(g), int(bool(causal)), q_offset,
+            k_offset, scale)
+
+
+def _bwd_route(kernel, q, k, v):
+    """The compiled width the backward kernel `kernel` runs q's head dim
+    at, or None (counted) where the reference runs its plain path; checks
+    the operands first."""
+    _check_attention_operands(q, k, v, _ATTENTION_DTYPES)
+    Dp = kernel_head_dim(q.shape[3])
+    if Dp is None:
+        _plain_by_shape(kernel)
+    return Dp
 
 
 def flash_bwd_dq(q, k, v, g, lse, delta, *, causal=False, scale=None,
@@ -490,22 +583,24 @@ def flash_bwd_dq(q, k, v, g, lse, delta, *, causal=False, scale=None,
     tensors, `flash_bwd_dq_plain` for CPU tensors. g is dO; lse and delta
     are [B, H, Tq] float32."""
     q_offset, k_offset = _offset(q_offset), _offset(k_offset)
+    plain = functools.partial(
+        flash_bwd_dq_plain, q, k, v, g, lse, delta, causal=causal,
+        scale=scale, key_mask=key_mask, q_offset=q_offset, k_offset=k_offset)
     if _on_host(q):
-        return flash_bwd_dq_plain(q, k, v, g, lse, delta, causal=causal,
-                                  scale=scale, key_mask=key_mask,
-                                  q_offset=q_offset, k_offset=k_offset)
-    q, k, v, g, lse, delta, km = _bwd_operands(q, k, v, g, lse, delta,
-                                               key_mask)
-    fn, name = _entry("flash_bwd_dq", q.dtype)
+        return plain()
+    Dp = _bwd_route("flash_bwd_dq", q, k, v)
+    if Dp is None:
+        return plain()
     B, Tq, H, D = q.shape
-    dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
-    _launch(fn, name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(km),
-            dq.data_ptr(), B, H, Tq, k.shape[1], D,
-            *_bhd_strides(q), *_bhd_strides(k), *_bhd_strides(v),
-            *_bhd_strides(g), int(bool(causal)), q_offset, k_offset,
-            _scale(scale, D))
-    return dq
+    scale = _scale(scale, D)            # the true head dim's, before padding
+    q, k, v, g, lse, delta, km = _bwd_operands(q, k, v, g, lse, delta,
+                                               key_mask, Dp)
+    fn, name = _entry("flash_bwd_dq", q.dtype)
+    dq = torch.empty((B, Tq, H, Dp), dtype=q.dtype, device=q.device)
+    _launch_batches(fn, name, (q, k, v, g, lse, delta, km, dq), B, H,
+                    _bwd_rest(q, k, v, g, Dp, causal, q_offset, k_offset,
+                              scale))
+    return _unpad(name, D, dq)[0]
 
 
 def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal=False, scale=None,
@@ -513,24 +608,26 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal=False, scale=None,
     """(dk, dv) [B, Tk, H, D] in k's type: the dk/dv kernel (f32 or bf16)
     for CUDA tensors, `flash_bwd_dkv_plain` for CPU tensors."""
     q_offset, k_offset = _offset(q_offset), _offset(k_offset)
+    plain = functools.partial(
+        flash_bwd_dkv_plain, q, k, v, g, lse, delta, causal=causal,
+        scale=scale, key_mask=key_mask, q_offset=q_offset, k_offset=k_offset)
     if _on_host(q):
-        return flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal=causal,
-                                   scale=scale, key_mask=key_mask,
-                                   q_offset=q_offset, k_offset=k_offset)
-    q, k, v, g, lse, delta, km = _bwd_operands(q, k, v, g, lse, delta,
-                                               key_mask)
-    fn, name = _entry("flash_bwd_dkv", q.dtype)
+        return plain()
+    Dp = _bwd_route("flash_bwd_dkv", q, k, v)
+    if Dp is None:
+        return plain()
     B, Tq, H, D = q.shape
+    scale = _scale(scale, D)            # the true head dim's, before padding
+    q, k, v, g, lse, delta, km = _bwd_operands(q, k, v, g, lse, delta,
+                                               key_mask, Dp)
+    fn, name = _entry("flash_bwd_dkv", q.dtype)
     Tk = k.shape[1]
-    dk = torch.empty((B, Tk, H, D), dtype=k.dtype, device=q.device)
-    dv = torch.empty((B, Tk, H, D), dtype=v.dtype, device=q.device)
-    _launch(fn, name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(km),
-            dk.data_ptr(), dv.data_ptr(), B, H, Tq, Tk, D,
-            *_bhd_strides(q), *_bhd_strides(k), *_bhd_strides(v),
-            *_bhd_strides(g), int(bool(causal)), q_offset, k_offset,
-            _scale(scale, D))
-    return dk, dv
+    dk = torch.empty((B, Tk, H, Dp), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, Tk, H, Dp), dtype=v.dtype, device=q.device)
+    _launch_batches(fn, name, (q, k, v, g, lse, delta, km, dk, dv), B, H,
+                    _bwd_rest(q, k, v, g, Dp, causal, q_offset, k_offset,
+                              scale))
+    return _unpad(name, D, dk, dv)
 
 
 def flash_attention_bwd(q, k, v, out, lse, g, *, causal=False, scale=None,
@@ -551,6 +648,41 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal=False, scale=None,
 
 
 # -------------------------------------------------------------- decode
+@functools.cache
+def _sm_count(index):
+    """The SM count of CUDA device `index`, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def decode_split(pairs, keys, unit, sms):
+    """CTAs per (slot, head) of the decode kernels (the cluster size) for
+    `pairs` (slot, head) pairs over a capacity of `keys` keys in units of
+    `unit`: the largest n of 1, 2, 4 and 8 at which the pairs * n CTAs
+    still fit one wave of `sms` SMs and each CTA has a whole unit and
+    DECODE_ROUND keys of the capacity; at least 2 where the capacity
+    holds two such shares, so that on a grid of more than a wave the
+    longest slots' CTAs, which end the grid, take half as long. Measured
+    on the H100 (PERF.md, section 6): at the serving step 4 beat 1, 2 and
+    8; at S=64 slots of up to 4096 keys, H=8, 2 beat 1 (paged 0.214 ->
+    0.187 ms)."""
+    cap = min(-(-keys // unit), max(1, keys // DECODE_ROUND))
+    n = 2 if cap >= 2 else 1
+    while n < DECODE_MAX_SPLIT and 2 * n <= cap and pairs * 2 * n <= sms:
+        n *= 2
+    return n
+
+
+def decode_cta_keys(kmax, n, rank, unit=DECODE_UNIT):
+    """[lo, hi) keys of CTA `rank` of a (slot, head)'s n, over its kmax
+    valid keys: whole units of `unit` keys (DECODE_UNIT; the paged kernel
+    max(DECODE_UNIT, block size), so whole pool blocks), shared out as
+    evenly as integers allow. The decode kernels' split
+    (csrc/decode_common.cuh `cta_range`)."""
+    units = -(-kmax // unit)
+    lo = rank * units // n * unit
+    return lo, max(lo, min((rank + 1) * units // n * unit, kmax))
+
+
 def flash_decode_plain(q, k, v, lengths, *, scale=None):
     """Masked one-query attention materializing the [S, H, 1, C] score row
     (the twin of `_decode_reference`): `flash_attention_plain` with the
@@ -573,20 +705,23 @@ def flash_decode(q, k, v, lengths, *, scale=None):
                          f"{tuple(q.shape)}")
     if _on_host(q):
         return flash_decode_plain(q, k, v, lengths, scale=scale)
-    fn = build.kernel_function("flash_decode", "flash_decode_f32",
-                               _DECODE_ARGTYPES)
     _check_attention_operands(q, k, v)
     S, _, H, D = q.shape
+    if kernel_head_dim(D) is None:
+        _plain_by_shape("flash_decode")
+        return flash_decode_plain(q, k, v, lengths, scale=scale)
+    fn = build.kernel_function("flash_decode", "flash_decode_f32",
+                               _DECODE_ARGTYPES)
+    # the kernel loads rows as vectors: rows 16-byte aligned (a cache the
+    # engine allocates always is; another is copied dense first)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     C = k.shape[1]
     lengths = _lengths_operand(lengths, S, q.device)
     out = torch.empty((S, 1, H, D), dtype=torch.float32, device=q.device)
-    # per-chunk partials (acc, max, sum) the kernel's merge pass reads
-    work = torch.empty((S * H * -(-C // DECODE_CHUNK) * (D + 2),),
-                       dtype=torch.float32, device=q.device)
+    n = decode_split(S * H, C, DECODE_UNIT, _sm_count(q.device.index))
     _launch(fn, "flash_decode", q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            work.data_ptr(), S, H, C, D, q.stride(0), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
+            v.data_ptr(), lengths.data_ptr(), out.data_ptr(), S, H, C, D, n,
+            q.stride(0), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2), _scale(scale, D))
     return out
 
@@ -614,9 +749,6 @@ def _check_paged_operands(q, k_pool, v_pool, block_table, lengths):
         raise ValueError(f"pools k {tuple(k_pool.shape)} / v "
                          f"{tuple(v_pool.shape)} do not match q heads and "
                          f"head dim {(H, D)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not compiled; the kernels take "
-                         f"{HEAD_DIMS}")
     bs = k_pool.shape[1]
     if bs < 1 or bs & (bs - 1):
         raise ValueError(f"block size {bs} is not a power of two")
@@ -643,24 +775,28 @@ def flash_decode_paged(q, k_pool, v_pool, block_table, lengths, *,
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"flash_decode_paged takes one query per slot, got "
                          f"q {tuple(q.shape)}")
+    plain = functools.partial(flash_decode_paged_plain, q, k_pool, v_pool,
+                              block_table, lengths, scale=scale)
     if _on_host(q):
-        return flash_decode_paged_plain(q, k_pool, v_pool, block_table,
-                                        lengths, scale=scale)
-    fn = build.kernel_function("flash_decode_paged", "flash_decode_paged_f32",
-                               _DECODE_PAGED_ARGTYPES)
+        return plain()
     table, lengths = _check_paged_operands(q, k_pool, v_pool, block_table,
                                            lengths)
     S, _, H, D = q.shape
+    if kernel_head_dim(D) is None:
+        _plain_by_shape("flash_decode_paged")
+        return plain()
+    fn = build.kernel_function("flash_decode_paged", "flash_decode_paged_f32",
+                               _DECODE_PAGED_ARGTYPES)
+    q, k_pool, v_pool = _aligned(q), _aligned(k_pool), _aligned(v_pool)
     bs = k_pool.shape[1]
     MB = table.shape[1]
     out = torch.empty((S, 1, H, D), dtype=torch.float32, device=q.device)
-    # per-chunk partials (acc, max, sum) over the logical capacity MB * bs
-    work = torch.empty((S * H * -(-(MB * bs) // DECODE_CHUNK) * (D + 2),),
-                       dtype=torch.float32, device=q.device)
+    n = decode_split(S * H, MB * bs, max(DECODE_UNIT, bs),
+                     _sm_count(q.device.index))
     _launch(fn, "flash_decode_paged", q.device, q.data_ptr(),
             k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), work.data_ptr(), S, H, MB,
-            bs, D, q.stride(0), q.stride(2), *_bhd_strides(k_pool),
+            lengths.data_ptr(), out.data_ptr(), S, H, MB, bs, D, n,
+            q.stride(0), q.stride(2), *_bhd_strides(k_pool),
             *_bhd_strides(v_pool), _scale(scale, D))
     return out
 
@@ -671,6 +807,14 @@ def launch_counts():
     return dict(_launches)
 
 
+def route_counts():
+    """{"<kernel>_padded": calls at a padded head dim, "<kernel>_plain_by_
+    shape": calls run plainly because the reference does} of CUDA
+    tensors; reset with the launch counts."""
+    return dict(_routes)
+
+
 def reset_launch_counts():
-    for name in _launches:
-        _launches[name] = 0
+    for counts in (_launches, _routes):
+        for name in counts:
+            counts[name] = 0

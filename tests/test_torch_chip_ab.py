@@ -133,6 +133,34 @@ def test_f32_turn_times_the_forward_at_the_path_shapes():
     assert cases["T=4096"] == (4, 4096, 8, 64, None, False)
 
 
+def test_decode_turn_runs_the_path_shapes_of_both_decode_kernels():
+    """`run ROOT LABEL decode` times both decode kernels at chip_smoke's
+    shapes, with the same lengths: the serving step (slab and paged, block
+    size 16), a length 0, block sizes 8 and 64, S=64 C=4096 H=8 (the long
+    case's lengths from np.random.default_rng(0), first 1 and C) and
+    bench_decode_paged's model and cache (bench.py:724-748)."""
+    import numpy as np
+    import chip_smoke
+    cases = {(c[0], c[1]): c[2:] for c in chip_ab.DECODE}
+    step = chip_smoke.STEP_LENGTHS
+    assert cases[("slab", "step S=8 C=256")] == (8, 256, 4, 64, step)
+    assert cases[("paged", chip_smoke.PAGED_STEP_CASE)] == (8, 16, 16, 4,
+                                                            64, step)
+    big = np.random.default_rng(0).integers(1, 4097, size=64)
+    big[0], big[1] = 1, 4096
+    assert cases[("slab", "S=64 C=4096")] == (64, 4096, 8, 64,
+                                              [int(x) for x in big])
+    assert cases[("paged", "S=64 nb=256 bs=16 H=8")][-1] == \
+        [int(x) for x in big]
+    b = chip_smoke.BENCH_PAGED
+    assert cases[("slab", "bench_decode_paged shape")] == (
+        b["S"], b["C"], b["H"], b["D"], b["lengths"])
+    assert cases[("paged", "bench_decode_paged shape")] == (
+        b["S"], b["bs"], b["C"] // b["bs"], b["H"], b["D"], b["lengths"])
+    assert {c[1] for c in chip_ab.DECODE if c[0] == "paged"} >= {
+        "bs=8 S=4 nb=32", "bs=64 S=4 nb=4"}
+
+
 def test_summary_of_f32_forward_records(tmp_path, capsys):
     """A float32 forward record gets both f32 bounds from its operations
     (4*D per pair) and bytes, and the summary its ratio, rates, shares of
@@ -180,6 +208,16 @@ def test_run_refuses_without_a_card():
                          text=True, timeout=120, cwd=str(ROOT))
     assert res.returncode != 0
     assert '{"ab"' not in res.stdout
+
+
+@pytest.mark.parametrize("mode,args,line", [
+    ("run", ["change", "decode"], '{"ab"'), ("sweep", ["change"], '{"sweep"')])
+def test_decode_turn_and_sweep_refuse_without_a_card(mode, args, line):
+    res = subprocess.run([sys.executable, str(ROOT / "chip_ab.py"), mode,
+                          str(ROOT), *args], capture_output=True,
+                         text=True, timeout=120, cwd=str(ROOT))
+    assert res.returncode != 0
+    assert line not in res.stdout
 
 
 @pytest.mark.parametrize("header", sorted(

@@ -150,9 +150,10 @@ def _operands():
 
 @pytest.fixture
 def device_route(monkeypatch, tmp_path):
-    """Make the wrappers treat CPU tensors as device tensors, with an empty
-    build directory and a clean library cache."""
+    """Make the wrappers treat CPU tensors as device tensors (on a card of
+    132 SMs), with an empty build directory and a clean library cache."""
     monkeypatch.setattr(fa, "_on_host", lambda t: False)
+    monkeypatch.setattr(fa, "_sm_count", lambda index: 132)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "torch_kernels")
     monkeypatch.setattr(build, "_libs", {})
     monkeypatch.setattr(build, "_functions", {})
@@ -197,8 +198,8 @@ def test_device_route_rejects_what_the_kernel_does_not_take(device_route,
     monkeypatch.setattr(build, "kernel_function",
                         lambda *a: lambda *args: pytest.fail("launched"))
     rng = np.random.default_rng(0)
-    q, k, v = (torch.from_numpy(a) for a in _qkv(rng, 1, 8, 8, 2, 24))
-    with pytest.raises(ValueError, match="head_dim 24"):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(rng, 1, 8, 8, 2, 264))
+    with pytest.raises(ValueError, match="head_dim 264 exceeds 256"):
         fa.flash_attention(q, k, v)
     with pytest.raises(ValueError, match="float32"):
         fa.flash_attention(q.double(), k.double(), v.double())

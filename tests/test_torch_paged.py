@@ -425,6 +425,7 @@ def device_route(monkeypatch, tmp_path):
     """Make the wrappers treat CPU tensors as device tensors, with an empty
     build directory and a clean library cache."""
     monkeypatch.setattr(fa, "_on_host", lambda t: False)
+    monkeypatch.setattr(fa, "_sm_count", lambda index: 132)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "torch_kernels")
     monkeypatch.setattr(build, "_libs", {})
     monkeypatch.setattr(build, "_functions", {})
@@ -462,7 +463,7 @@ def test_paged_failed_launch_raises_uncounted_with_the_declared_args(
 
     def spy_empty(*a, **kw):
         out = empty(*a, **kw)
-        sizes.append(out.numel())
+        sizes.append((out.numel(), out.data_ptr()))
         return out
     monkeypatch.setattr(fa.torch, "empty", spy_empty)
     q, pk, pv, table, lens = _torch_operands(S=2, H=2, D=16, bs=8, nb=3)
@@ -477,13 +478,16 @@ def test_paged_failed_launch_raises_uncounted_with_the_declared_args(
     assert len(args) == n_decl == 22
     assert args[:3] == (q.data_ptr(), pk.data_ptr(), pv.data_ptr())
     assert args[3] == table.data_ptr() and args[4] == lens.data_ptr()
-    assert args[7:12] == (2, 2, 3, 8, 16)           # S, H, MB, bs, D
+    assert args[5] == sizes[0][1]                   # out
+    # S, H, MB, bs, D and the CTAs per (slot, head): 2 * 2 pairs on 132
+    # SMs, but the 24 keys of a slot make one 32-key unit
+    assert args[6:12] == (2, 2, 3, 8, 16, 1)
     assert args[12:14] == (q.stride(0), q.stride(2))
     assert args[14:20] == (pk.stride(0), pk.stride(1), pk.stride(2),
                            pv.stride(0), pv.stride(1), pv.stride(2))
     assert args[20] == 0.5 and args[21] == 0
-    # out [S, 1, H, D], then the workspace: S*H*ceil(MB*bs/32)*(D+2)
-    assert sizes == [2 * 2 * 16, 2 * 2 * 1 * 18]
+    # out [S, 1, H, D] and nothing else: the kernel takes no workspace
+    assert [n for n, _ in sizes] == [2 * 2 * 16]
 
 
 def test_paged_cuda_route_rejects_what_the_kernel_does_not_take(
