@@ -95,6 +95,16 @@ FWD_F32 = [
     ("prefill L=256", 1, 256, 4, 64, [193], False),
     ("train B=16 T=512 H=4 D=64", 16, 512, 4, 64, None, True),
     ("T=4096", 4, 4096, 8, 64, None, False),
+    # the other widths: bench_decode_paged's prefill (bench.py:724-748,
+    # d_model 128 over 4 heads, 24-token prompts), the train case and a
+    # long shape at D=32 and 128, and D=16
+    ("bench_decode_paged prefill B=1 L=24 H=4 D=32", 1, 24, 4, 32, [24],
+     False),
+    ("train B=16 T=512 H=8 D=32", 16, 512, 8, 32, None, True),
+    ("train B=16 T=512 H=2 D=128", 16, 512, 2, 128, None, True),
+    ("B=4 T=4096 H=8 D=32", 4, 4096, 8, 32, None, False),
+    ("B=2 T=4096 H=8 D=128", 2, 4096, 8, 128, None, False),
+    ("B=16 T=512 H=16 D=16", 16, 512, 16, 16, None, True),
 ]
 # decode: ("slab", label, S, C, H, D, lengths) or ("paged", label, S, bs,
 # nb, H, D, lengths)

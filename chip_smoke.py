@@ -14,12 +14,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    at the prefill shapes, at the training shape with its log-sum-exp
    (once more run three times: the results must be bitwise equal), at a
    shape large enough to time, and at Tq=37 Tk=53 not causal with a key
-   mask at head dims 64 (three TF32 products per f32 product on the
-   tensor cores, like the backward pair) and 16 and 128 (the CUDA-core
-   kernel), and at two grids that take two consumer warpgroups per block
+   mask at head dims 64, 16 and 128 (three TF32 products
+   per f32 product on the tensor cores, like the backward pair), at two
+   grids that take two consumer warpgroups per block
    (B=16 T=200 H=4 causal with a ragged key mask: a ragged last block;
    B=64 Tq=50 Tk=77 H=4 with a key mask: a second consumer with no rows
-   below Tq), out and LSE; `flash_decode` at the decode-step shape and a large cache;
+   below Tq), out and LSE, and at the other widths' shapes (FWD_WIDTHS:
+   bench_decode_paged's prefill B=1 L=24 H=4 D=32 with a key mask, the
+   train case at D=32 (H=8) and D=128 (H=2) with the LSE, three times
+   bitwise, B=4 T=4096 H=8 D=32, B=2 T=4096 H=8 D=128 and B=16 T=512
+   H=16 D=16); `flash_decode` at the decode-step shape and a large cache;
    the backward pair `flash_bwd_dq` and `flash_bwd_dkv` at the training
    shape (causal, with and without a ragged key mask), at T=37 not causal
    with Tq != Tk, and at B=4 T=4096 H=8 causal. Forward: max abs error
@@ -85,13 +89,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    `flash_decode_paged` at the step shape, each within phase 2's bars of
    its plain version, with the launch counters showing the kernel
    launched (`<kernel>_padded` calls at 48 and 80, none at 256) and no
-   plain route; batch * heads = 16385 * 4 = 65540 at D=32 and 64, f32 and
-   bf16, forward and backward, against plain, one launch per batch slice;
+   plain route;
    D=20 (D % 8 != 0) on every entry: one `<kernel>_plain_by_shape` call,
    no launch, equal to plain; and `transformer_lm(d_model=192,
    n_heads=4)` (head dim 48) decoded greedily with
    `DecodeEngine.generate`, slab and paged, equal to the use_pallas=False
-   model under the tie rule below.
+   model under the tie rule below. The wide kernels: D=264, 320, 512 and
+   1024 at B=2 T=200 H=4 causal with a ragged key mask, the forward with
+   and without the LSE, dq and dk/dv in f32 and bf16 (the bf16 forward
+   without the LSE checked for its error alone), and both decode
+   entries at the step shape (S=8 C=256 H=4; the paged one on a shuffled
+   table of blocks of 16), each within phase 2's bars of its plain
+   version, counting its `<kernel>_wide` route and its wide launch and no
+   other; the D=320 model's training shape (B=4 T=128 H=2, three times
+   bitwise); batch * heads = 16385 * 4 = 65540 (T=16) and 65536 heads
+   (B=1, T=2) at D=32 and 64, f32 and bf16, forward and backward against
+   plain, one launch each. The D=320 model, `transformer_lm(d_model=640,
+   n_layers=2, n_heads=2)` with use_pallas=True: 3 `fit` steps at batch
+   4 x 128 in f32 equal to the use_pallas=False model (rtol 1e-4), 3 in
+   bf16 compute (rtol 1e-2), each wide kernel of the type launching 6
+   times and nothing else; then greedy decoding, slab and paged, equal to
+   the plain model under the tie rule, on the wide routes.
+2c. bench_decode_paged's model (bench.py:724-748: vocab 256, d_model 128,
+   2 layers, 4 heads: head dim 32, `synthetic_params(seed=3)`) with
+   use_pallas=True serves its 12 requests (24-token prompts, 24 new
+   tokens) over `/generate`, one burst on a slab server of 4 slots of 128
+   and one on a paged server (blocks of 16, 17 blocks): every request
+   answers 200, the tokens equal the plain model's (tie rule), and the
+   prefill launches `flash_fwd` at D=32, unpadded.
 3. The serving path: `transformer_lm` at full width (vocab 256, d_model
    256, 4 layers, 4 heads) with `use_pallas=True` and
    `synthetic_params(seed=0)`, served by
@@ -179,12 +204,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    atol=2e-5); 10 launches each of the three float32 kernels. Prints the
    forward + backward time of ring n=4, ring n=1, `flash_attention` on
    the whole sequence and SDPA (`{"ring": ...}`).
-8. Every main path (serving, serving_paged, training, training_bf16,
-   ring, ring_f32) must count zero padded and zero plain-route calls.
-   One line `{"kernels": [...]}` with each of the 8 kernels' numbers
-   (`launches_by_path` gains the ring's two paths; the decode kernels
-   their kernels per call, CTAs per pair and launch floor), then the last
-   line `{"ok": true, "device": {...}}`.
+8. Every main path (serving, serving_paged, serving_d32,
+   serving_d32_paged, training, training_bf16, ring, ring_f32, and the
+   D=320 model's training_wide, training_wide_bf16, decode_wide,
+   decode_wide_paged) must count zero padded and zero plain-route calls,
+   and only the D=320 model's paths wide ones; every kernel must have
+   launched on its main path. One line `{"kernels": [...]}` with each of
+   the 14 kernels' numbers (the six wide entries' at the D=320 model's
+   training shape; `launches_by_path` over every path; the decode
+   kernels their kernels per call, CTAs per pair and launch floor), then
+   the last line `{"ok": true, "device": {...}}`.
 
 It exits non-zero without printing a result when no CUDA device is visible
 or when the package is not beside it.
@@ -220,6 +249,10 @@ BF16_LSE_TOL = 1e-3
 BF16_GRAD_TOL = dict(rel=2e-2, of_max=1e-2)
 BF16_SCORE_RTOL = 1e-2
 TIE_GAP = 1e-6
+# scaled_dot_product_attention refuses more heads than this (its kernels'
+# grid: "invalid configuration argument"), so no library call computes
+# the 65536-head cases
+SDPA_MAX_HEADS = 65535
 SERVE = dict(vocab_size=256, d_model=256, n_layers=4, n_heads=4)
 N_NEW = 32
 PAGED = dict(decode_slots=8, decode_max_len=256, decode_block_size=16,
@@ -239,6 +272,30 @@ ENGINE_48 = dict(vocab_size=256, d_model=192, n_layers=4, n_heads=4)
 # bench_decode_paged's model and cache (bench.py:724-748): 4 slots of 128
 # keys in blocks of 16, d_model 128 over 4 heads
 BENCH_PAGED = dict(S=4, C=128, bs=16, H=4, D=32, lengths=[25, 48, 37, 30])
+# the float32 forward at its other tensor-core widths: (label, B, T, H, D,
+# valid key lengths or None, with the LSE and a bitwise repeat), causal:
+# bench_decode_paged's prefill (24-token prompts, bench.py:724-748), the
+# train case and a long shape at D=32 and 128, and D=16 (the D=32 kernel
+# on TMA boxes zero-filled past column 16)
+FWD_WIDTHS = [
+    ("bench_decode_paged prefill B=1 L=24 H=4 D=32", 1, 24, 4, 32, [24],
+     False),
+    ("train B=16 T=512 H=8 D=32", 16, 512, 8, 32, None, True),
+    ("train B=16 T=512 H=2 D=128", 16, 512, 2, 128, None, True),
+    ("B=4 T=4096 H=8 D=32", 4, 4096, 8, 32, None, False),
+    ("B=2 T=4096 H=8 D=128", 2, 4096, 8, 128, None, False),
+    ("B=16 T=512 H=16 D=16", 16, 512, 16, 16, None, True),
+]
+# head dims above the widest compiled one (the wide kernels); the D=320
+# model (`SelfAttentionLayer(n_out=640, n_heads=2)`) and its training batch
+WIDE_HEAD_DIMS = (264, 320, 512, 1024)
+WIDE_MODEL = dict(vocab_size=256, d_model=640, n_layers=2, n_heads=2)
+WIDE_BATCH, WIDE_SEQ, WIDE_STEPS = 4, 128, 3
+WIDE_TRAIN_CASE = f"D=320 train B={WIDE_BATCH} T={WIDE_SEQ} H=2"
+# bench_decode_paged's model and requests (bench.py:724-748)
+BENCH_PAGED_MODEL = dict(vocab_size=256, d_model=128, n_layers=2, n_heads=4)
+BENCH_PAGED_SERVE = dict(decode_slots=4, decode_max_len=128,
+                         decode_block_size=16)
 # the ring: bench.py's bench_flash_attention shape (:510-538), 4 shards
 RING_B, RING_T, RING_H, RING_D, RING_N = 4, 4096, 8, 64, 4
 RING_SHARD = RING_T // RING_N
@@ -246,8 +303,25 @@ RING_F32 = dict(B=1, T=2048, H=4)
 DEVICE = "cuda"
 
 
+# the wide kernels' launch names (csrc/flash_wide.cu, head dims above 256)
+WIDE_NAMES = {"flash_fwd": "flash_wide_fwd",
+              "flash_fwd_bf16": "flash_wide_fwd_bf16",
+              "flash_bwd_dq": "flash_wide_dq",
+              "flash_bwd_dq_bf16": "flash_wide_dq_bf16",
+              "flash_bwd_dkv": "flash_wide_dkv",
+              "flash_bwd_dkv_bf16": "flash_wide_dkv_bf16"}
+
+
 class SmokeFailure(RuntimeError):
     pass
+
+
+def kernel_name(name, D):
+    """The launch name of attention kernel `name` at head dim D: the wide
+    kernel's above the widest compiled width."""
+    from deeplearning4j_tpu_torch.kernels.flash_attention import \
+        WIDEST_COMPILED
+    return WIDE_NAMES[name] if D > WIDEST_COMPILED else name
 
 
 def check(cond, msg):
@@ -457,21 +531,24 @@ def _fwd_general_case(label, B, Tq, Tk, H, D, causal, valid, gen, lse=False,
     else:
         library = lambda: torch.nn.functional.scaled_dot_product_attention(
             sdpa_q, sdpa_k, sdpa_v, attn_mask=sdpa_mask)
-    lib_ref = library().transpose(1, 2)
-    lib_err = float((lib_ref - want).abs().max())
+    if H > SDPA_MAX_HEADS:
+        library = None
+    lib_err = None if library is None else float(
+        (library().transpose(1, 2) - want).abs().max())
     pairs = _valid_pairs(B, Tq, Tk, H, causal, km)
     nbytes = 4 * (2 * B * Tq * H * D + 2 * B * Tk * H * D
                   + (B * H * Tq if lse else 0)
                   + (B * Tk if km is not None else 0))
-    rec = {"name": "flash_fwd", "case": label,
+    rec = {"name": kernel_name("flash_fwd", D), "case": label,
            "shape": [B, Tq, Tk, H, D], "causal": causal, "lse": lse,
            "key_mask": km is not None, "max_abs_err": err,
            "library_max_abs_err": lib_err,
            "ms": median_ms(run), "plain_ms": median_ms(plain),
-           "library_ms": median_ms(library),
+           "library_ms": None if library is None else median_ms(library),
            **bound(nbytes, 4 * D * pairs), "device_ms": device_ms(run),
            "plain_device_ms": device_ms(plain),
-           "library_device_ms": device_ms(library),
+           "library_device_ms": (None if library is None
+                                 else device_ms(library)),
            "bitwise_repeat": repeat}
     return rate_fields(rec)
 
@@ -740,24 +817,26 @@ def _bwd_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"{label}: gradients differ bitwise between runs")
     # the library: autograd through SDPA, its forward taken untimed
-    sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_()
-                  for t in (q, k, v))
-    sg = g.transpose(1, 2).contiguous()
-    if km is None:
-        lib_out = torch.nn.functional.scaled_dot_product_attention(
-            sq, sk, sv, is_causal=causal)
-    else:
-        allowed = (km > 0)[:, None, None, :]
-        if causal:
-            allowed = allowed & torch.ones((Tq, Tk), dtype=torch.bool,
-                                           device=dev).tril()
-        lib_out = torch.nn.functional.scaled_dot_product_attention(
-            sq, sk, sv, attn_mask=allowed)
-    library = lambda: torch.autograd.grad(lib_out, (sq, sk, sv), sg,
-                                          retain_graph=True)
-    lib_err = max(float((a.transpose(1, 2) - b).abs().max())
-                  for a, b in zip(library(), want))
-    lib_ms, lib_device_ms = median_ms(library), device_ms(library)
+    lib_err = lib_ms = lib_device_ms = None
+    if H <= SDPA_MAX_HEADS:
+        sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        sg = g.transpose(1, 2).contiguous()
+        if km is None:
+            lib_out = torch.nn.functional.scaled_dot_product_attention(
+                sq, sk, sv, is_causal=causal)
+        else:
+            allowed = (km > 0)[:, None, None, :]
+            if causal:
+                allowed = allowed & torch.ones((Tq, Tk), dtype=torch.bool,
+                                               device=dev).tril()
+            lib_out = torch.nn.functional.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=allowed)
+        library = lambda: torch.autograd.grad(lib_out, (sq, sk, sv), sg,
+                                              retain_graph=True)
+        lib_err = max(float((a.transpose(1, 2) - b).abs().max())
+                      for a, b in zip(library(), want))
+        lib_ms, lib_device_ms = median_ms(library), device_ms(library)
     pairs = _valid_pairs(B, Tq, Tk, H, causal, km)
     reads = 4 * (2 * B * Tq * H * D + 2 * B * Tk * H * D + 2 * B * H * Tq
                  + (B * Tk if km is not None else 0))
@@ -768,7 +847,8 @@ def _bwd_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
              max(errs["dk"], errs["dv"]))):
         run, plain = runs[name]
         recs.append(rate_fields({
-            "name": name, "case": label, "shape": [B, Tq, Tk, H, D],
+            "name": kernel_name(name, D), "case": label,
+            "shape": [B, Tq, Tk, H, D],
             "causal": causal, "key_mask": km is not None,
             "max_abs_err": err, "lse_max_abs_err": lse_err,
             "library_max_abs_err": lib_err, "ms": median_ms(run),
@@ -872,19 +952,22 @@ def _bf16_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
                                            device=dev).tril()
     sdpa = lambda a, b, c: F.scaled_dot_product_attention(
         a, b, c, is_causal=causal and km is None, attn_mask=allowed)
-    lib_fwd = lambda: sdpa(sq.detach(), sk.detach(), sv.detach())
-    lib_out = sdpa(sq, sk, sv)
-    lib_bwd = lambda: torch.autograd.grad(lib_out, (sq, sk, sv), sg,
-                                          retain_graph=True)
-    lib_fwd_err = float((lib_fwd().transpose(1, 2).float()
-                         - out.float()).abs().max())
-    lib_bwd_err = max(float((a.transpose(1, 2).float() - b.float())
-                            .abs().max())
-                      for a, b in zip(lib_bwd(), want))
-    lib = {"flash_fwd_bf16": (median_ms(lib_fwd), device_ms(lib_fwd),
-                              lib_fwd_err)}
-    lib["flash_bwd_dq_bf16"] = lib["flash_bwd_dkv_bf16"] = (
-        median_ms(lib_bwd), device_ms(lib_bwd), lib_bwd_err)
+    lib = dict.fromkeys(("flash_fwd_bf16", "flash_bwd_dq_bf16",
+                         "flash_bwd_dkv_bf16"), (None, None, None))
+    if H <= SDPA_MAX_HEADS:
+        lib_fwd = lambda: sdpa(sq.detach(), sk.detach(), sv.detach())
+        lib_out = sdpa(sq, sk, sv)
+        lib_bwd = lambda: torch.autograd.grad(lib_out, (sq, sk, sv), sg,
+                                              retain_graph=True)
+        lib_fwd_err = float((lib_fwd().transpose(1, 2).float()
+                             - out.float()).abs().max())
+        lib_bwd_err = max(float((a.transpose(1, 2).float() - b.float())
+                                .abs().max())
+                          for a, b in zip(lib_bwd(), want))
+        lib["flash_fwd_bf16"] = (median_ms(lib_fwd), device_ms(lib_fwd),
+                                 lib_fwd_err)
+        lib["flash_bwd_dq_bf16"] = lib["flash_bwd_dkv_bf16"] = (
+            median_ms(lib_bwd), device_ms(lib_bwd), lib_bwd_err)
     pairs = _valid_pairs(B, Tq, Tk, H, causal, km)
     qo = 2 * B * Tq * H * D                 # one bf16 [B, Tq, H, D]
     kv = 2 * B * Tk * H * D
@@ -904,7 +987,8 @@ def _bf16_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
         nbytes, ops = work[name]
         lib_ms, lib_dev, lib_err = lib[name]
         rec = {
-            "name": name, "case": label, "shape": [B, Tq, Tk, H, D],
+            "name": kernel_name(name, D), "case": label,
+            "shape": [B, Tq, Tk, H, D],
             "causal": causal, "key_mask": km is not None,
             "max_abs_err": err[name], "lse_max_abs_err": lse_err,
             "library_max_abs_err": lib_err, "ms": median_ms(run),
@@ -979,6 +1063,10 @@ def phase_kernels():
         "two consumers: B=64 Tq=50 Tk=77 H=4, key mask, LSE", 64, 50, 77,
         4, 64, False, [77 - 11 * (b % 7) for b in range(64)], gen,
         lse=True))
+    # the other tensor-core widths (the train cases three times, bitwise)
+    for lab, B, T, H, D, valid, lse in FWD_WIDTHS:
+        cases.append(_fwd_general_case(lab, B, T, T, H, D, True, valid, gen,
+                                       lse=lse, repeat=lse))
     # the backward pair: the training shape (twice: bitwise), with a
     # ragged key mask, ragged lengths with Tq != Tk not causal (head dims
     # 16, 64 and 128), and the long shape of bench.py's kernel bench
@@ -1051,11 +1139,13 @@ def _print_cases(cases):
 
 
 # ----------------------------------------------------------------- phase 2b
-def _routed(what, run, kernels, padded):
+def _routed(what, run, kernels, padded, wide=()):
     """run() with every count set to 0 just before; each of `kernels`
     must have launched (and no other kernel), with `<kernel>_padded` calls
     exactly where `padded` says (the decode kernels take any width
-    unpadded) and no call on the plain route. Returns run()'s result."""
+    unpadded), a call on each route of `wide` (`<kernel>_wide`) and on no
+    other wide route, and no call on the plain route. Returns run()'s
+    result."""
     import torch
     from deeplearning4j_tpu_torch.kernels import reset_launch_counts
     reset_launch_counts()
@@ -1068,16 +1158,38 @@ def _routed(what, run, kernels, padded):
         check((n.get(f"{name}_padded", 0) > 0) == want,
               f"{what}: {name} padded calls {n.get(f'{name}_padded')}, "
               f"expected {'some' if want else 'none'}")
+    for route in wide:
+        check(n[route] > 0, f"{what}: no call on the route {route}: {n}")
     check(not any(v for k, v in n.items()
                   if k.endswith("_plain_by_shape")
+                  or (k.endswith("_wide") and k not in wide)
                   or (k in _KERNEL_NAMES and k not in kernels)),
-          f"{what}: other launches or a plain route: {n}")
+          f"{what}: other launches or routes: {n}")
     return res
 
 
-def _slices_launched(what, B, T, H, D, dtype, gen):
-    """One forward and one backward call at B*H beyond the grid's 65535:
-    each kernel launches once per batch slice of 65535 // H rows."""
+def _bf16_forward(label, B, T, H, D, valid, gen):
+    """The bf16 forward without the LSE (causal, key mask from `valid`)
+    against its plain version within BF16_OUT_TOL; returns the error."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import (flash_attention,
+                                                  flash_attention_plain)
+    q, k, v = (torch.randn((B, T, H, D), generator=gen).to(DEVICE,
+                                                           torch.bfloat16)
+               for _ in range(3))
+    km = _key_mask(B, T, valid)
+    out = flash_attention(q, k, v, causal=True, key_mask=km)
+    ref = flash_attention_plain(q, k, v, causal=True, key_mask=km)
+    err = float((out.float() - ref.float()).abs().max())
+    check(out.dtype == torch.bfloat16 and err <= BF16_OUT_TOL,
+          f"bf16 forward without the LSE, {label}: {out.dtype}, max abs err "
+          f"{err} > {BF16_OUT_TOL}")
+    return err
+
+
+def _one_launch(what, B, T, H, D, dtype, gen):
+    """One forward and one backward call at B * H beyond 65535 (the old
+    grid-y limit): each kernel launches exactly once."""
     import torch
     from deeplearning4j_tpu_torch.kernels import (attention_delta,
                                                   flash_attention,
@@ -1086,7 +1198,6 @@ def _slices_launched(what, B, T, H, D, dtype, gen):
     q, k, v, g = (torch.randn((B, T, H, D), generator=gen).to(DEVICE, dtype)
                   for _ in range(4))
     suffix = "_bf16" if dtype == torch.bfloat16 else ""
-    slices = -(-B // (65535 // H))
     reset_launch_counts()
     out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
     delta = attention_delta(out, g)
@@ -1095,19 +1206,83 @@ def _slices_launched(what, B, T, H, D, dtype, gen):
     torch.cuda.synchronize()
     n = counts()
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        check(n[name + suffix] == slices,
+        check(n[name + suffix] == 1,
               f"{what}: {name + suffix} launched {n[name + suffix]} times, "
-              f"not once for each of {slices} batch slices")
-    return slices
+              "not once")
+    return 1
+
+
+def _wide_decode_case(label, S, H, D, lengths, gen, bs=None):
+    """Decode at a head dim above the widest compiled one: `flash_decode`
+    (or, with a block size `bs`, `flash_decode_paged` on a shuffled table
+    of a pool of 1 + S * C / bs blocks) runs the wide forward under the key
+    mask `position < lengths`: one launch of `flash_wide_fwd`, one call on
+    the entry's wide route, equal to the plain version within TOL, the
+    same bits from a second call. Returns the record."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    dev = torch.device(DEVICE)
+    C = 256
+    q = torch.randn((S, 1, H, D), generator=gen).to(dev)
+    lens = torch.as_tensor(lengths, dtype=torch.int32).to(dev)
+    if bs is None:
+        k, v = (torch.randn((S, C, H, D), generator=gen).to(dev)
+                for _ in range(2))
+        run = lambda: K.flash_decode(q, k, v, lens)
+        plain = lambda: K.flash_decode_plain(q, k, v, lens)
+        route = "flash_decode_wide"
+    else:
+        nb = C // bs
+        pk, pv = (torch.randn((1 + S * nb, bs, H, D), generator=gen).to(dev)
+                  for _ in range(2))
+        table = (1 + torch.randperm(S * nb, generator=gen)).reshape(
+            S, nb).to(torch.int32).to(dev)
+        k = pk[table.long()].reshape(S, C, H, D)
+        v = pv[table.long()].reshape(S, C, H, D)
+        run = lambda: K.flash_decode_paged(q, pk, pv, table, lens)
+        plain = lambda: K.flash_decode_paged_plain(q, pk, pv, table, lens)
+        route = "flash_decode_paged_wide"
+    out = _routed(label, run, ("flash_wide_fwd",), False, wide=(route,))
+    check(K.launch_counts()["flash_wide_fwd"] == 1,
+          f"{label}: {K.launch_counts()}, not one launch")
+    ref = plain()
+    err = float((out - ref).abs().max())
+    check(bool(torch.isfinite(out).all()) and err <= TOL,
+          f"{label}: max abs err {err} > {TOL}")
+    check(torch.equal(out, run()), f"{label}: a second call gave other bits")
+    library = library_ms = library_device_ms = None
+    if min(lengths) >= 1:
+        sq, sk, sv = (t.transpose(1, 2) for t in (q, k, v))
+        mask = (torch.arange(C, device=dev)[None, :] < lens[:, None]
+                )[:, None, None, :]
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=mask)
+        library_ms, library_device_ms = median_ms(library), device_ms(library)
+    n = sum(C if x <= 0 else min(int(x), C) for x in lengths)
+    nbytes = 4 * (2 * n * H * D + 2 * S * H * D + S)
+    return rate_fields({
+        "name": "flash_wide_fwd", "case": label, "shape": [S, C, H, D],
+        "lengths": list(lengths), "block_size": bs, "max_abs_err": err,
+        "ms": median_ms(run), "plain_ms": median_ms(plain),
+        "library_ms": library_ms,
+        "library_note": None if bs is None else
+        "scaled_dot_product_attention on the gathered slab, the gather "
+        "untimed",
+        **bound(nbytes, 4 * D * H * n), "device_ms": device_ms(run),
+        "plain_device_ms": device_ms(plain),
+        "library_device_ms": library_device_ms})
 
 
 def phase_head_dims():
     """Head dims against their plain versions on the card: D=48, 80 and
     256 (a hand kernel each; 48 and 80 zero-padded to 64 and 128) through
     `flash_attention` forward and backward in f32 and bf16 and both decode
-    kernels; batch * heads = 65540 at D=32 and 64 (batch slices); D=20,
-    the plain route; and a D=48 `transformer_lm` decoded greedily, slab
-    and paged."""
+    kernels; D=264, 320, 512 and 1024 on the wide kernels (forward with and
+    without the LSE, dq and dk/dv, f32 and bf16; both decode entries) and
+    at the D=320 model's training shape; batch * heads = 65540 at D=32 and
+    64 and 65536 heads, one launch each; D=20, the plain route; a D=48
+    `transformer_lm` decoded greedily, slab and paged; and the D=320
+    model (`_wide_model`). Returns (cases, summary, launches by path)."""
     import torch
     gen = torch.Generator().manual_seed(4)
     cases = []
@@ -1131,23 +1306,64 @@ def phase_head_dims():
         cases.append(_routed(f"paged D={D}", lambda: _paged_case(
             f"step D={D}", 8, 16, 16, 4, D, STEP_LENGTHS, gen),
             ("flash_decode_paged", "flash_decode"), False))
-    slices = {}
-    for D in (32, 64):          # the CUDA-core kernels' and a Hopper one's
-        lab = f"B*H=65540 D={D}"
-        B, T, H = 16385, 16, 4
-        cases.append(_fwd_general_case(lab, B, T, T, H, D, True, None, gen,
-                                       lse=True))
-        cases += _bwd_case(lab, B, T, T, H, D, True, None, gen)
-        cases += _bf16_case(lab, B, T, T, H, D, True, None, gen)
-        for dtype in (torch.float32, torch.bfloat16):
-            slices[f"{lab} {dtype}"] = _slices_launched(lab, B, T, H, D,
-                                                        dtype, gen)
+    wide_f32 = ("flash_wide_fwd", "flash_wide_dq", "flash_wide_dkv")
+    wide_bf16 = tuple(f"{n}_bf16" for n in wide_f32)
+    wide_routes = ("flash_fwd_wide", "flash_bwd_dq_wide",
+                   "flash_bwd_dkv_wide")
+    wide_bf16_routes = ("flash_fwd_bf16_wide", "flash_bwd_dq_bf16_wide",
+                        "flash_bwd_dkv_bf16_wide")
+    bf16_no_lse = {}
+    for D in WIDE_HEAD_DIMS:
+        lab = f"D={D} B=2 T=200 H=4, ragged key mask"
+        for lse in (True, False):
+            cases.append(_routed(lab, lambda: _fwd_general_case(
+                lab + (", LSE" if lse else ""), 2, 200, 200, 4, D, True,
+                ragged, gen, lse=lse), wide_f32[:1], False,
+                wide=wide_routes[:1]))
+        cases += _routed(lab, lambda: _bwd_case(
+            lab, 2, 200, 200, 4, D, True, ragged, gen), wide_f32, False,
+            wide=wide_routes)
+        cases += _routed(lab, lambda: _bf16_case(
+            lab, 2, 200, 200, 4, D, True, ragged, gen), wide_bf16, False,
+            wide=wide_bf16_routes)
+        bf16_no_lse[D] = _routed(lab, lambda: _bf16_forward(
+            lab, 2, 200, 4, D, ragged, gen), wide_bf16[:1], False,
+            wide=wide_bf16_routes[:1])
+        cases.append(_wide_decode_case(f"decode step D={D}", 8, 4, D,
+                                       STEP_LENGTHS, gen))
+        cases.append(_wide_decode_case(f"paged decode step D={D}", 8, 4, D,
+                                       STEP_LENGTHS, gen, bs=16))
+    # the D=320 model's training shape: its kernels' records on the path
+    cases.append(_fwd_general_case(WIDE_TRAIN_CASE, WIDE_BATCH, WIDE_SEQ,
+                                   WIDE_SEQ, 2, 320, True, None, gen,
+                                   lse=True, repeat=True))
+    cases += _bwd_case(WIDE_TRAIN_CASE, WIDE_BATCH, WIDE_SEQ, WIDE_SEQ, 2,
+                       320, True, None, gen, repeat=True)
+    cases += _bf16_case(WIDE_TRAIN_CASE, WIDE_BATCH, WIDE_SEQ, WIDE_SEQ, 2,
+                        320, True, None, gen, repeat=True)
+    launches = {}
+    for B, H in ((16385, 4), (1, 65536)):
+        # the CUDA-core and mma.sync kernels' width and a Hopper one's;
+        # T=16 at B*H=65540, T=2 at 65536 heads
+        T = 16 if H == 4 else 2
+        for D in (32, 64):
+            lab = f"B={B} H={H} D={D}"
+            cases.append(_fwd_general_case(lab, B, T, T, H, D, True, None,
+                                           gen, lse=True))
+            cases += _bwd_case(lab, B, T, T, H, D, True, None, gen)
+            cases += _bf16_case(lab, B, T, T, H, D, True, None, gen)
+            for dtype in (torch.float32, torch.bfloat16):
+                launches[f"{lab} {dtype}"] = _one_launch(lab, B, T, H, D,
+                                                         dtype, gen)
     plain = _plain_route(gen)
     engine = _engine_head_dim()
+    wide_model, wide_launches = _wide_model()
     _print_cases(cases)
-    summary = {"plain_route": plain, "bh_slices": slices, "engine": engine}
+    summary = {"plain_route": plain, "launches_per_kernel": launches,
+               "wide_bf16_forward_without_lse_max_abs_err": bf16_no_lse,
+               "engine": engine, "wide_model": wide_model}
     print(json.dumps({"head_dims": summary}))
-    return cases, summary
+    return cases, summary, wide_launches
 
 
 def _plain_route(gen):
@@ -1215,15 +1431,8 @@ def _engine_head_dim():
     (a differing token must sit on a true tie, top-2 gap < 1e-6), through
     the padded forward and the decode kernel, never the plain route."""
     from deeplearning4j_tpu_torch.decode import DecodeEngine
-    from deeplearning4j_tpu_torch.util.params import (params_from_jax,
-                                                      synthetic_params)
-    from deeplearning4j_tpu_torch.zoo import transformer_lm
-    nets = {}
-    for use_pallas in (True, False):
-        net = transformer_lm(**ENGINE_48, use_pallas=use_pallas,
-                             device=DEVICE)
-        nets[use_pallas] = net.init(params=params_from_jax(
-            synthetic_params(net.param_shapes(), seed=0), device=DEVICE))
+    nets = {use_pallas: _lm(ENGINE_48, use_pallas)
+            for use_pallas in (True, False)}
     rng = np.random.default_rng(5)
     prompts = [[int(t) for t in rng.integers(0, 256, size=n)]
                for n in (5, 17, 40)]
@@ -1239,32 +1448,181 @@ def _engine_head_dim():
         served = _routed(f"D=48 engine, {mode}",
                          lambda: [eng.generate(p, n_new) for p in prompts],
                          ("flash_fwd", kernel), True)
-        ties = 0
-        for i, (got, (want, rows)) in enumerate(zip(served, wants)):
-            for t, (a, b) in enumerate(zip(got, want)):
-                if a != b:
-                    top2 = np.sort(rows[t])[-2:]
-                    gap = float(top2[1] - top2[0])
-                    check(gap < TIE_GAP, f"D=48 engine {mode} prompt {i} "
-                                         f"token {t}: {a} != plain {b} "
-                                         f"(gap {gap})")
-                    ties += 1
-                    break
-        out[mode] = {"tokens": served, "ties": ties}
+        out[mode] = {"tokens": served, "ties": _tokens_equal(
+            f"D=48 engine {mode}", served, wants)}
     return out
 
 
+def _tokens_equal(what, served, wants):
+    """Each request's greedy tokens equal the plain model's `wants` (lists
+    of (tokens, probability rows) from `_greedy_rows`): a differing token
+    must sit on a true tie (top-2 gap < TIE_GAP), after which the request
+    is not compared further. Returns the number of ties."""
+    ties = 0
+    for i, (got, (want, rows)) in enumerate(zip(served, wants)):
+        check(len(got) == len(want), f"{what} request {i}: {len(got)} "
+                                     f"tokens, not {len(want)}")
+        for t, (a, b) in enumerate(zip(got, want)):
+            if a != b:
+                top2 = np.sort(rows[t])[-2:]
+                gap = float(top2[1] - top2[0])
+                check(gap < TIE_GAP, f"{what} request {i} token {t}: {a} "
+                                     f"!= plain {b} (gap {gap})")
+                ties += 1
+                break
+    return ties
+
+
+def _wide_model():
+    """The D=320 model, `transformer_lm(d_model=640, n_layers=2,
+    n_heads=2)` (two `SelfAttentionLayer(n_out=640, n_heads=2)`), weights
+    from `synthetic_params(seed=0)`, with use_pallas=True against the
+    use_pallas=False model: WIDE_STEPS `fit` steps at WIDE_BATCH x
+    WIDE_SEQ in float32 (scores to SCORE_RTOL) and in bf16 compute
+    (BF16_SCORE_RTOL), each of the three wide kernels of the type
+    launching once per layer per step and no other kernel, nothing on the
+    plain path; then greedy decoding with `DecodeEngine.generate` from a
+    slab and a paged cache, tokens equal to the plain model's under the
+    tie rule, the prefill on the wide forward and each step on the decode
+    entry's wide route. Returns (summary, {path: launch counts})."""
+    import torch
+    from deeplearning4j_tpu_torch.decode import DecodeEngine
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    x, y = _one_hot_batch(WIDE_BATCH, WIDE_SEQ)
+    wide_f32 = ("flash_wide_fwd", "flash_wide_dq", "flash_wide_dkv")
+    summary, launches = {}, {}
+    for path, dtype, kernels, rtol in (
+            ("training_wide", None, wide_f32, SCORE_RTOL),
+            ("training_wide_bf16", "bfloat16",
+             tuple(f"{n}_bf16" for n in wide_f32), BF16_SCORE_RTOL)):
+        scores = {}
+        for use_pallas in (True, False):
+            net = _lm(WIDE_MODEL, use_pallas, dtype)
+            reset_launch_counts()
+            scores[use_pallas] = []
+            for _ in range(WIDE_STEPS):
+                net.fit(x, y)
+                scores[use_pallas].append(net.score_value)
+            torch.cuda.synchronize()
+            n = counts()
+            if use_pallas:
+                launches[path] = n
+            check(not any(v for k, v in n.items() if k.endswith("_padded")
+                          or k.endswith("_plain_by_shape")),
+                  f"{path}: padded or plain routes {n}")
+            if not use_pallas:
+                check(not any(n[k] for k in _KERNEL_NAMES),
+                      f"{path}: the plain path launched kernels: {n}")
+        want = WIDE_STEPS * WIDE_MODEL["n_layers"]
+        for name in _KERNEL_NAMES:
+            got = launches[path][name]
+            check(got == (want if name in kernels else 0),
+                  f"{path}: {name} launched {got} times, not "
+                  f"{want if name in kernels else 0}")
+        check(all(np.isfinite(scores[True] + scores[False]))
+              and np.allclose(scores[True], scores[False], rtol=rtol,
+                              atol=0),
+              f"{path}: kernel path scores {scores[True]} != plain path "
+              f"{scores[False]} (rtol {rtol})")
+        summary[path] = {"scores_kernel_path": scores[True],
+                         "scores_plain_path": scores[False],
+                         "launches": {k: v for k, v in
+                                      launches[path].items() if v}}
+    nets = {use_pallas: _lm(WIDE_MODEL, use_pallas)
+            for use_pallas in (True, False)}
+    rng = np.random.default_rng(6)
+    prompts = [[int(t) for t in rng.integers(0, 256, size=n)]
+               for n in (5, 17, 40)]
+    n_new = 16
+    ref = DecodeEngine(nets[False], slots=4, max_len=128)
+    wants = [_greedy_rows(ref, p, n_new) for p in prompts]
+    for paged in (False, True):
+        eng = DecodeEngine(nets[True], slots=4, max_len=128, paged=paged,
+                           block_size=16)
+        mode = "paged" if paged else "slab"
+        route = "flash_decode_paged_wide" if paged else "flash_decode_wide"
+        served = _routed(f"D=320 model, {mode}",
+                         lambda: [eng.generate(p, n_new) for p in prompts],
+                         ("flash_wide_fwd",), False,
+                         wide=("flash_fwd_wide", route))
+        path = "decode_wide_paged" if paged else "decode_wide"
+        launches[path] = counts()
+        summary[path] = {"tokens": served, "ties": _tokens_equal(
+            f"D=320 model {mode}", served, wants),
+            "launches": {k: v for k, v in launches[path].items() if v}}
+    return summary, launches
+
+
+def phase_serving_bench_paged():
+    """bench_decode_paged's model (bench.py:724-748: vocab 256, d_model
+    128, 2 layers, 4 heads, so head dim 32; weights `synthetic_params(
+    seed=3)`) with use_pallas=True served over `/generate`: its 12
+    requests (24-token prompts from np.random.default_rng(0), 24 new
+    tokens) as one burst on a slab server (4 slots of 128) and one on a
+    paged server (blocks of 16, half of a fully backed pool: 17 blocks
+    with the scratch block). Every request answers 200, the greedy tokens
+    equal the use_pallas=False model's under the tie rule, and the
+    prefill launches the float32 forward at D=32 (its tensor-core
+    kernel), unpadded, beside the decode kernel of the server's cache.
+    Returns {path: launch counts}."""
+    from deeplearning4j_tpu_torch.decode import DecodeEngine
+    nets = {use_pallas: _lm(BENCH_PAGED_MODEL, use_pallas, seed=3)
+            for use_pallas in (True, False)}
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(0, 256, size=24)]
+               for _ in range(12)]
+    n_new = 24
+    ref = DecodeEngine(nets[False], slots=4, max_len=128)
+    wants = [_greedy_rows(ref, p, n_new) for p in prompts]
+    launches, summary = {}, {}
+    for paged in (False, True):
+        kw = dict(BENCH_PAGED_SERVE, decode_paged=paged)
+        if paged:
+            kw["decode_pool_blocks"] = 17
+        answers, wall, n, snap, srv = _served_burst(nets[True], prompts,
+                                                    n_new, **kw)
+        srv.stop()
+        mode = "paged" if paged else "slab"
+        statuses = [s for s, _ in answers]
+        check(statuses == [200] * len(prompts),
+              f"bench_decode_paged model, {mode}: statuses {statuses}")
+        decode = "flash_decode_paged" if paged else "flash_decode"
+        check(n["flash_fwd"] > 0 and n[decode] > 0,
+              f"bench_decode_paged model, {mode}: launches {n}")
+        check(not any(v for k, v in n.items()
+                      if k in _KERNEL_NAMES and k not in ("flash_fwd", decode)
+                      or k.endswith(("_padded", "_wide", "_plain_by_shape"))),
+              f"bench_decode_paged model, {mode}: other launches or "
+              f"routes {n}")
+        served = [b["tokens"] for _, b in answers]
+        path = "serving_d32_paged" if paged else "serving_d32"
+        launches[path] = n
+        summary[path] = {**_burst_summary(prompts, answers, wall, snap),
+                         "ties": _tokens_equal(
+                             f"bench_decode_paged model {mode}", served,
+                             wants),
+                         "launches": {k: v for k, v in n.items() if v}}
+    print(json.dumps({"serving_bench_decode_paged_model": summary}))
+    return launches
+
+
 # ------------------------------------------------------------------ phase 3
-def _full_width_net(use_pallas, compute_dtype=None):
-    """`transformer_lm` at the served and trained width, weights from
-    `synthetic_params(seed=0)`."""
+def _lm(conf, use_pallas, compute_dtype=None, seed=0):
+    """`transformer_lm(**conf)` on the card, weights from
+    `synthetic_params(seed)`."""
     from deeplearning4j_tpu_torch.util.params import (params_from_jax,
                                                       synthetic_params)
     from deeplearning4j_tpu_torch.zoo import transformer_lm
-    net = transformer_lm(**SERVE, use_pallas=use_pallas,
+    net = transformer_lm(**conf, use_pallas=use_pallas,
                          compute_dtype=compute_dtype, device=DEVICE)
     return net.init(params=params_from_jax(
-        synthetic_params(net.param_shapes(), seed=0), device=DEVICE))
+        synthetic_params(net.param_shapes(), seed=seed), device=DEVICE))
+
+
+def _full_width_net(use_pallas, compute_dtype=None):
+    """`transformer_lm` at the served and trained width, weights from
+    `synthetic_params(seed=0)`."""
+    return _lm(SERVE, use_pallas, compute_dtype)
 
 
 def _greedy_rows(engine, prompt, n):
@@ -2091,6 +2449,20 @@ REPLACES = {
     "flash_bwd_dkv_bf16": f"{_FA}:276 (_bwd_dkv_kernel on bf16 operands "
                           ":297-300, dk/dv in k's/v's dtype "
                           ":329-330/:406-407, pallas_call :388)",
+    "flash_wide_fwd": f"{_FA}:84 (_flash_kernel at head dims above 256, "
+                      "which _plan :492-502 runs, pallas_call :206, via "
+                      "flash_attention :512 under its custom_vjp :430-450, "
+                      "flash_decode :604 and flash_decode_paged :648)",
+    "flash_wide_fwd_bf16": f"{_FA}:84 (_flash_kernel on bf16 operands at "
+                           "head dims above 256, pallas_call :206)",
+    "flash_wide_dq": f"{_FA}:226 (_bwd_dq_kernel at head dims above 256, "
+                     "pallas_call :366)",
+    "flash_wide_dq_bf16": f"{_FA}:226 (_bwd_dq_kernel on bf16 operands at "
+                          "head dims above 256, pallas_call :366)",
+    "flash_wide_dkv": f"{_FA}:276 (_bwd_dkv_kernel at head dims above 256, "
+                      "pallas_call :388)",
+    "flash_wide_dkv_bf16": f"{_FA}:276 (_bwd_dkv_kernel on bf16 operands at "
+                           "head dims above 256, pallas_call :388)",
 }
 _KERNEL_NAMES = tuple(REPLACES)
 _CSRC = "deeplearning4j_tpu_torch/kernels/csrc"
@@ -2101,7 +2473,8 @@ SOURCES = {"flash_fwd": f"{_CSRC}/flash_fwd.cu",
            "flash_bwd_dq": f"{_CSRC}/flash_bwd.cu",
            "flash_bwd_dq_bf16": f"{_CSRC}/flash_bwd_bf16.cu",
            "flash_bwd_dkv": f"{_CSRC}/flash_bwd.cu",
-           "flash_bwd_dkv_bf16": f"{_CSRC}/flash_bwd_bf16.cu"}
+           "flash_bwd_dkv_bf16": f"{_CSRC}/flash_bwd_bf16.cu",
+           **dict.fromkeys(WIDE_NAMES.values(), f"{_CSRC}/flash_wide.cu")}
 # each kernel's main path and the case whose shape that path runs
 MAIN_PATH = {"flash_fwd": ("training", TRAIN_CASE),
              "flash_fwd_bf16": ("training_bf16", TRAIN_CASE),
@@ -2110,7 +2483,10 @@ MAIN_PATH = {"flash_fwd": ("training", TRAIN_CASE),
              "flash_bwd_dq": ("training", TRAIN_CASE),
              "flash_bwd_dq_bf16": ("training_bf16", TRAIN_CASE),
              "flash_bwd_dkv": ("training", TRAIN_CASE),
-             "flash_bwd_dkv_bf16": ("training_bf16", TRAIN_CASE)}
+             "flash_bwd_dkv_bf16": ("training_bf16", TRAIN_CASE),
+             **{n: ("training_wide_bf16" if n.endswith("_bf16")
+                    else "training_wide", WIDE_TRAIN_CASE)
+                for n in WIDE_NAMES.values()}}
 
 
 def main():
@@ -2131,10 +2507,11 @@ def main():
         return 1
     smi = phase_card()
     cases = phase_kernels()
-    head_cases, _ = phase_head_dims()
+    head_cases, _, launches = phase_head_dims()
     cases += head_cases
-    launches = {"serving": phase_serving()["launches"],
-                "serving_paged": phase_serving_paged()["launches"]}
+    launches.update(phase_serving_bench_paged())
+    launches["serving"] = phase_serving()["launches"]
+    launches["serving_paged"] = phase_serving_paged()["launches"]
     f32 = phase_training()
     launches["training"] = f32["launches"]
     launches["training_bf16"] = phase_training_bf16(f32)["launches"]
@@ -2144,11 +2521,15 @@ def main():
     cases += ring_cases
     from deeplearning4j_tpu_torch.kernels import route_counts
     for path, n in launches.items():
-        routed = {k: n[k] for k in route_counts() if n[k]}
-        check(not routed, f"main path {path} took padded or plain routes: "
-                          f"{routed}")
+        # the D=320 model's paths take the wide routes and no other
+        routed = {k: n[k] for k in route_counts() if n[k] and not (
+            k.endswith("_wide") and "wide" in path)}
+        check(not routed, f"main path {path} took padded, plain or wide "
+                          f"routes: {routed}")
     kernels = []
     for name, (path, case) in MAIN_PATH.items():
+        check(launches[path][name] > 0,
+              f"{name} never launched on its main path {path}")
         c = next(c for c in cases if c["name"] == name and c["case"] == case)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],

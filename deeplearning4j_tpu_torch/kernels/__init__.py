@@ -8,9 +8,10 @@ ring), its backward pair (`flash_bwd_dq`, `flash_bwd_dkv`, run by
 version chosen by the operands' type, and the decode attention over a
 slab cache (`flash_decode`) and through a paged pool's block table
 (`flash_decode_paged`). Sources live in `csrc/`, `build.py` compiles
-them. Every head dim D % 8 == 0 up to 256 runs a kernel on the card
-(`kernel_head_dim`); `route_counts` counts the calls padded to a compiled
-width and those run plainly by shape."""
+them. Every head dim D % 8 == 0 runs a kernel on the card
+(`kernel_head_dim`: up to 256 at a compiled width, above it on the wide
+kernels); `route_counts` counts the calls padded to a compiled width, those
+taken by the wide kernels and those run plainly by shape."""
 from .flash_attention import (attention_delta, can_flash, flash_attention,
                               flash_attention_bwd, flash_attention_bwd_plain,
                               flash_attention_lse, flash_attention_plain,

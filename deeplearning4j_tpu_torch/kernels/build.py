@@ -22,7 +22,7 @@ import time
 from pathlib import Path
 
 SOURCES = ("flash_fwd", "flash_decode", "flash_bwd", "flash_decode_paged",
-           "flash_fwd_bf16", "flash_bwd_bf16")
+           "flash_fwd_bf16", "flash_bwd_bf16", "flash_wide")
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -124,8 +124,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int tid = threadIdx.x;
   const int tr = tid / 16, tc = tid % 16;
-  const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;
+  // causal: the last q tiles see the most keys; they go first
+  const hopper::GridTile gt = hopper::grid_tile((Tq + BQ - 1) / BQ, causal);
+  const int q0 = gt.tile * BQ;
+  const int bh = gt.bh;
   const int b = bh / H, h = bh % H;
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + h * ks.h;
@@ -265,8 +267,11 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int tid = threadIdx.x;
   const int tr = tid / 16, tc = tid % 16;
-  const int k0 = blockIdx.x * BK;
-  const int bh = blockIdx.y;
+  // causal: the first key tiles are seen by the most queries; they go
+  // first
+  const hopper::GridTile gt = hopper::grid_tile((Tk + BK - 1) / BK, false);
+  const int k0 = gt.tile * BK;
+  const int bh = gt.bh;
   const int b = bh / H, h = bh % H;
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + h * ks.h;
@@ -445,10 +450,10 @@ flash_bwd_dq_f32_sm90(const __grid_constant__ CUtensorMap qmap,
 
   const int tid = threadIdx.x, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
   // causal: the last q tiles see the most keys; they go first
-  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = qt * BQ;
+  const hopper::GridTile gt = hopper::grid_tile((Tq + BQ - 1) / BQ, causal);
+  const int bh = gt.bh, b = bh / H, h = bh % H;
+  const int q0 = gt.tile * BQ;
   // causal: no key past the tile's last query row is ever visible
   const int k_end =
       causal ? min(Tk, max(0, min(Tq, q0 + BQ) + q_off - k_off)) : Tk;
@@ -619,10 +624,11 @@ flash_bwd_dkv_f32_sm90(const __grid_constant__ CUtensorMap qmap,
 
   const int tid = threadIdx.x, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
   // causal: the first key tiles are seen by the most queries; they go
-  // first (tile index = blockIdx.y)
-  const int k0 = blockIdx.y * BK;
+  // first
+  const hopper::GridTile gt = hopper::grid_tile((Tk + BK - 1) / BK, false);
+  const int bh = gt.bh, b = bh / H, h = bh % H;
+  const int k0 = gt.tile * BK;
   // causal: query rows before global position k_off + k0 see none of
   // these keys; start at the q tile that holds the first one that does
   const int q_start = causal ? max(0, ((k0 + k_off - q_off) / BQ) * BQ) : 0;
@@ -786,7 +792,10 @@ int launch_dq(const Operands& a, float* dq, cudaStream_t stream) {
       flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.Tq + DQ_BQ - 1) / DQ_BQ, a.B * a.H);
+  dim3 grid;
+  if (const int e = hopper::grid_1d((a.Tq + DQ_BQ - 1) / DQ_BQ,
+                                    (long long)a.B * a.H, &grid))
+    return e;
   flash_bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
       a.q, a.k, a.v, a.dout, a.lse, a.delta, a.key_mask, dq, a.H, a.Tq,
       a.Tk, a.qs, a.ks, a.vs, a.os, a.causal, a.q_off, a.k_off, a.scale);
@@ -802,7 +811,10 @@ int launch_dkv(const Operands& a, float* dk, float* dv, cudaStream_t stream) {
       flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.Tk + KV_BK - 1) / KV_BK, a.B * a.H);
+  dim3 grid;
+  if (const int e = hopper::grid_1d((a.Tk + KV_BK - 1) / KV_BK,
+                                    (long long)a.B * a.H, &grid))
+    return e;
   flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, stream>>>(
       a.q, a.k, a.v, a.dout, a.lse, a.delta, a.key_mask, dk, dv, a.H, a.Tq,
       a.Tk, a.qs, a.ks, a.vs, a.os, a.causal, a.q_off, a.k_off, a.scale);
@@ -833,7 +845,9 @@ int launch_dq_sm90(const Operands& a, float* dq, cudaStream_t stream) {
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   smem);
   if (err) return err;
-  const dim3 grid(a.B * a.H, (a.Tq + 63) / 64);
+  dim3 grid;
+  err = hopper::grid_1d((a.Tq + 63) / 64, (long long)a.B * a.H, &grid);
+  if (err) return err;
   flash_bwd_dq_f32_sm90<<<grid, THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], a.lse, a.delta, a.key_mask, dq, a.H, a.Tq,
       a.Tk, a.causal, a.q_off, a.k_off, a.scale);
@@ -850,7 +864,9 @@ int launch_dkv_sm90(const Operands& a, float* dk, float* dv,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   smem);
   if (err) return err;
-  const dim3 grid(a.B * a.H, (a.Tk + 63) / 64);
+  dim3 grid;
+  err = hopper::grid_1d((a.Tk + 63) / 64, (long long)a.B * a.H, &grid);
+  if (err) return err;
   flash_bwd_dkv_f32_sm90<<<grid, THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], a.lse, a.delta, a.key_mask, dk, dv, a.H,
       a.Tq, a.Tk, a.causal, a.q_off, a.k_off, a.scale);

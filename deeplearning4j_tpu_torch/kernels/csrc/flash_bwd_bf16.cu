@@ -31,7 +31,7 @@
 // Head dims 64, 128 and 256 (every path of the port runs 64; the wrapper
 // pads any other D % 8 == 0 above 32 up to the next of these): the Hopper
 // design, helpers in hopper_bf16.cuh. At D=256 a block accumulates two of
-// the four 64-column boxes of dq (dk, dv), a grid z of 2 sharing each
+// the four 64-column boxes of dq (dk, dv), two blocks sharing each
 // owned tile, so its accumulators take D=128's registers (four boxes of
 // dk and dv would take 256 a thread); each block recomputes the scores.
 //   - One warpgroup (128 threads) per block owns 64 rows: q rows for dq,
@@ -62,9 +62,10 @@
 //     key-mask test at all: a key's rows are its own, so a masked key's
 //     rows are zeroed once at the end. Zero-filled rows past Tq add exactly
 //     0 to dk and dv (dO and Q rows are 0).
-//   - Causal scheduling: the tile index runs on grid y, batch x heads on
-//     x, so the first wave holds the heaviest tiles of every head: dq's
-//     last q tiles (which see the most keys), dk/dv's first key tiles.
+//   - Causal scheduling: one-dimensional grid (hopper_bf16.cuh
+//     `grid_tile`), batch x heads fast, (tile, column box) slow, so the
+//     first wave holds the heaviest tiles of every head: dq's last q
+//     tiles (which see the most keys), dk/dv's first key tiles.
 // Head dims 16 and 32 (and 8 and 24, padded) run on no path of the port
 // and keep the first design:
 // 4 warps of `mma.sync` m16n8k16 fed by `ldmatrix` from padded tiles that
@@ -136,8 +137,10 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;
+  // causal: the last q tiles see the most keys; they go first
+  const hopper::GridTile gt = hopper::grid_tile((Tq + BQ - 1) / BQ, causal);
+  const int q0 = gt.tile * BQ;
+  const int bh = gt.bh;
   const int b = bh / H, h = bh % H;
   const bf16* qb = q + b * qs.b + h * qs.h;
   const bf16* kb = k + b * ks.b + h * ks.h;
@@ -265,8 +268,11 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int k0 = blockIdx.x * BK;
-  const int bh = blockIdx.y;
+  // causal: the first key tiles are seen by the most queries; they go
+  // first
+  const hopper::GridTile gt = hopper::grid_tile((Tk + BK - 1) / BK, false);
+  const int k0 = gt.tile * BK;
+  const int bh = gt.bh;
   const int b = bh / H, h = bh % H;
   const bf16* qb = q + b * qs.b + h * qs.h;
   const bf16* kb = k + b * ks.b + h * ks.h;
@@ -417,10 +423,13 @@ flash_bwd_dq_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
 
   const int tid = threadIdx.x, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  // causal: the last q tiles see the most keys; they go first
-  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = qt * BQ;
+  // causal: the last q tiles see the most keys; they go first. The slow
+  // index is (q tile, column box), the box fastest.
+  constexpr int NZ = D / 64 / NO;
+  const hopper::GridTile gt =
+      hopper::grid_tile((Tq + BQ - 1) / BQ * NZ, causal);
+  const int bh = gt.bh, b = bh / H, h = bh % H;
+  const int q0 = gt.tile / NZ * BQ;
   // causal: no key past the tile's last query row is ever visible
   const int k_end =
       causal ? min(Tk, max(0, min(Tq, q0 + BQ) + q_off - k_off)) : Tk;
@@ -429,7 +438,7 @@ flash_bwd_dq_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
   const float* km = key_mask ? key_mask + (long long)b * Tk : nullptr;
 
   // this block's dq columns: 64-column boxes nb0 .. nb0 + NO - 1
-  const int nb0 = blockIdx.z * NO;
+  const int nb0 = gt.tile % NZ * NO;
   float acc[NO][32];
 #pragma unroll
   for (int nb = 0; nb < NO; ++nb)
@@ -600,10 +609,13 @@ flash_bwd_dkv_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
 
   const int tid = threadIdx.x, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
   // causal: the first key tiles are seen by the most queries; they go
-  // first (tile index = blockIdx.y)
-  const int k0 = blockIdx.y * BK;
+  // first. The slow index is (key tile, column box), the box fastest.
+  constexpr int NZ = D / 64 / NO;
+  const hopper::GridTile gt =
+      hopper::grid_tile((Tk + BK - 1) / BK * NZ, false);
+  const int bh = gt.bh, b = bh / H, h = bh % H;
+  const int k0 = gt.tile / NZ * BK;
   // causal: query rows before global position k_off + k0 see none of
   // these keys; start at the q tile that holds the first one that does
   const int q_start = causal ? max(0, ((k0 + k_off - q_off) / BQ) * BQ) : 0;
@@ -612,7 +624,7 @@ flash_bwd_dkv_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
   const int kr0 = k0 + (tid / 32) * 16 + g;   // this thread's keys kr0, +8
 
   // this block's dk/dv columns: 64-column boxes nb0 .. nb0 + NO - 1
-  const int nb0 = blockIdx.z * NO;
+  const int nb0 = gt.tile % NZ * NO;
   float dk_acc[NO][32], dv_acc[NO][32];
 #pragma unroll
   for (int nb = 0; nb < NO; ++nb)
@@ -773,7 +785,10 @@ int launch_dq(const Operands& a, bf16* dq, cudaStream_t stream) {
       flash_bwd_dq_bf16_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.Tq + DQ_BQ - 1) / DQ_BQ, a.B * a.H);
+  dim3 grid;
+  if (const int e = hopper::grid_1d((a.Tq + DQ_BQ - 1) / DQ_BQ,
+                                    (long long)a.B * a.H, &grid))
+    return e;
   flash_bwd_dq_bf16_kernel<D><<<grid, THREADS, smem, stream>>>(
       a.q, a.k, a.v, a.dout, a.lse, a.delta, a.key_mask, dq, a.H, a.Tq,
       a.Tk, a.qs, a.ks, a.vs, a.os, a.causal, a.q_off, a.k_off, a.scale);
@@ -789,7 +804,10 @@ int launch_dkv(const Operands& a, bf16* dk, bf16* dv, cudaStream_t stream) {
       flash_bwd_dkv_bf16_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.Tk + KV_BK - 1) / KV_BK, a.B * a.H);
+  dim3 grid;
+  if (const int e = hopper::grid_1d((a.Tk + KV_BK - 1) / KV_BK,
+                                    (long long)a.B * a.H, &grid))
+    return e;
   flash_bwd_dkv_bf16_kernel<D><<<grid, THREADS, smem, stream>>>(
       a.q, a.k, a.v, a.dout, a.lse, a.delta, a.key_mask, dk, dv, a.H, a.Tq,
       a.Tk, a.qs, a.ks, a.vs, a.os, a.causal, a.q_off, a.k_off, a.scale);
@@ -813,7 +831,7 @@ int make_maps(const Operands& a, int D, int q_rows, int k_rows,
 }
 
 // 64-column boxes of dq (dk, dv) per block: every box up to D = 128; at
-// D = 256 two, a grid z of 2 blocks sharing each q (key) tile, each with
+// D = 256 two, 2 blocks sharing each q (key) tile, each with
 // its own copy of the score products, so the accumulators stay at D =
 // 128's registers.
 template <int D>
@@ -831,7 +849,10 @@ int launch_dq_sm90(const Operands& a, bf16* dq, cudaStream_t stream) {
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   smem);
   if (err) return err;
-  const dim3 grid(a.B * a.H, (a.Tq + L::BQ - 1) / L::BQ, D / 64 / NO);
+  dim3 grid;
+  err = hopper::grid_1d((long long)(a.Tq + L::BQ - 1) / L::BQ * (D / 64 / NO),
+                        (long long)a.B * a.H, &grid);
+  if (err) return err;
   flash_bwd_dq_bf16_sm90<D, NO><<<grid, THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], a.lse, a.delta, a.key_mask, dq, a.H, a.Tq,
       a.Tk, a.causal, a.q_off, a.k_off, a.scale);
@@ -851,7 +872,10 @@ int launch_dkv_sm90(const Operands& a, bf16* dk, bf16* dv,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   smem);
   if (err) return err;
-  const dim3 grid(a.B * a.H, (a.Tk + L::BK - 1) / L::BK, D / 64 / NO);
+  dim3 grid;
+  err = hopper::grid_1d((long long)(a.Tk + L::BK - 1) / L::BK * (D / 64 / NO),
+                        (long long)a.B * a.H, &grid);
+  if (err) return err;
   flash_bwd_dkv_bf16_sm90<D, NO><<<grid, THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], a.lse, a.delta, a.key_mask, dk, dv, a.H,
       a.Tq, a.Tk, a.causal, a.q_off, a.k_off, a.scale);

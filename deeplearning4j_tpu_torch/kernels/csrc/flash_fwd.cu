@@ -16,22 +16,27 @@
 // and its LSE -1e30 + log(1e-30), what the TPU kernel gives a row whose
 // every block it skips.
 //
-// Head dim 64 (every float32 path of the port: training, the ring's and
-// `flash_attention_lse`'s shards, serving's prefill): the tensor cores.
+// Head dims 16, 32, 64 and 128: the tensor cores. An f32 box of the 128B
+// swizzle is 32 columns, so D=16 runs the D=32 kernel on operands whose
+// tensor maps are 16 columns wide: TMA fills columns 16-31 of each box with
+// zeros, which add nothing to a score, and the epilogue stores 16 columns.
+// D=64 runs every float32 path of the zoo default (training, the ring's
+// and `flash_attention_lse`'s shards, serving's prefill); D=32 the prefill
+// of bench.py's decode models, D=128 most public decoder LMs.
 // Per unmasked (q, k) pair the forward does 4*D operations against a few
 // hundred bytes per row, so training and long shapes are bound by
 // operations. On the CUDA cores (TF32 off) that ceiling is 67 TFLOP/s of
 // f32 FMAs, and shared-memory reads cap a register micro-tile near a third
-// of it. Here every product is `wgmma.mma_async` m64n64k8 in TF32, each
+// of it. Here every product is `wgmma.mma_async` m64nNk8 in TF32, each
 // f32 product taken as three TF32 products of split operands
 // (hopper_f32.cuh: one TF32 product keeps ~11 bits and misses the float32
 // bar; lo.hi + hi.lo + hi.hi keeps ~22): 495 / 3 = 165 TFLOP/s of
 // f32-grade work.
 //   - A block is NWG consumer warpgroups (128 threads each), each owning
 //     64 query rows, and one producer warpgroup. The producer issues the
-//     TMA loads (4-D tensor maps over the strided [B, T, H, 64] operands,
+//     TMA loads (4-D tensor maps over the strided [B, T, H, D] operands,
 //     built in the C entry, zero fill past T): Q once per consumer, then
-//     K and V tiles of 64 keys through a 2-slot ring. It splits each landed
+//     K and V tiles of BK keys through a 2-slot ring. It splits each landed
 //     tile (K in place, hi over the landed f32 and lo beside it; V into
 //     V^T hi and lo with each 8-key group in `k_slot` order) into the split
 //     tiles of its slot, publishes the tile's key mask and a flag (any
@@ -60,18 +65,24 @@
 //     has no rows below Tq skips its products and still marks it consumed.
 //     The causal grid launches its heaviest q tiles first. No atomics: a
 //     result is the same bit for bit from run to run.
-//   - NWG by the grid (`warpgroups_for`): two consumers (128 rows sharing
-//     each tile and its split) when one-consumer blocks would take more
-//     than one wave of the SMs (training, long sequences), else one (the
-//     ring's shards, prefill): on a short grid twice the blocks keep twice
-//     the SMs busy.
-//   - Shared memory, in 16 KB tiles: Q hi and lo per consumer, and per
-//     ring slot K, V, K lo, V^T hi and V^T lo: 12 tiles (192 KB) at
-//     NWG = 1, 14 (224 KB) at NWG = 2; one block per SM. ptxas (CUDA
-//     12.8): 152 registers, 0 spills.
+//   - NWG by the grid (`warpgroups_for`, D = 32 and 64): two consumers
+//     (128 rows sharing each tile and its split) when one-consumer blocks
+//     would take more than one wave of the SMs (training, long sequences),
+//     else one (the ring's shards, prefill): on a short grid twice the
+//     blocks keep twice the SMs busy.
+//   - Shared memory: Q hi and lo per consumer (64 x D each), and per ring
+//     slot K, V, K lo, V^T hi and V^T lo (BK x D each). D=64: 64-key tiles,
+//     192 KB at NWG = 1, 224 KB at NWG = 2. D=32: 64-key tiles, half
+//     that. D=128: a 64-key ring would take 384 KB, so the ring walks
+//     32-key tiles (S = Q K^T is m64n32, O += P V two m64n64 products per
+//     k8 slice) with one consumer: 224 KB. One block per SM. ptxas's
+//     registers and spills per instantiation: chip_smoke.py phase 1.
 // What bounds it now, as far as the card showed (PERF.md, section 6; NVIDIA
-// H100 80GB HBM3, 700 W): at B=4 T=4096 H=8 the tensor cores are busy
-// about half the time (0.80 ms against the 0.42 ms bound); shared memory,
+// H100 80GB HBM3, 700 W): at B=4 T=4096 H=8, D=64, the tensor cores are
+// busy about half the time (0.80 ms against the 0.42 ms bound); at D=32
+// a third (0.57 ms against 0.21: the softmax per score stays while the
+// products halve); at D=128, B=2, a third (1.19 ms against 0.42: one
+// consumer, whose softmax no other consumer's products cover); shared memory,
 // which feeds the shared-memory products and the split (~190 KB per
 // 64 x 64 tile pair), about as long. Each consumer's chain (S, softmax,
 // P V) leaves the tensor cores idle while both consumers run their
@@ -80,13 +91,15 @@
 // the products, 7-37% slower (T=4096 0.97 ms, the train case 0.049, the
 // f32 shard 0.052); that split taken under the P V of the tile before,
 // slower still.
-// Head dims 16, 32, 128 and 256 (the wrapper pads any other D % 8 == 0
-// up to the next of these) run on no float32 main path of the port and
-// keep the CUDA-core kernel (D=256: 169 KB of shared memory): one block of 128 threads per (q tile of 32 rows,
+// Head dim 256 (any D % 8 == 0 from 136 up, padded) runs on no model of
+// the zoo or bench.py and keeps the CUDA-core kernel (169 KB of shared
+// memory): one block of 128 threads per (q tile of 32 rows,
 // batch*head) looping over key tiles of 64 rows staged synchronously in
 // shared memory (rows padded to D+1 floats), the running max and sum in
 // shared memory, the products on 4x4 register micro-tiles of f32 FMAs,
-// the scores through a shared tile for the softmax.
+// the scores through a shared tile for the softmax. Every kernel here
+// takes batch*head and its q tiles on a one-dimensional grid
+// (hopper_bf16.cuh `grid_tile`), the causal q tiles last first.
 #include "hopper_f32.cuh"
 
 #include <math.h>
@@ -125,8 +138,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int tid = threadIdx.x;
   const int tr = tid / 16, tc = tid % 16;
-  const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;
+  // causal: the last q tiles see the most keys; they go first
+  const hopper::GridTile gt = hopper::grid_tile((Tq + BQ - 1) / BQ, causal);
+  const int q0 = gt.tile * BQ;
+  const int bh = gt.bh;
   const int b = bh / H, h = bh % H;
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + h * ks.h;
@@ -273,51 +288,68 @@ int launch(const float* q, const float* k, const float* v, const float* km,
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Tq + BQ - 1) / BQ, B * H);
+  dim3 grid;
+  if (const int e = hopper::grid_1d((Tq + BQ - 1) / BQ, (long long)B * H,
+                                    &grid))
+    return e;
   flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
       q, k, v, km, out, lse, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off,
       scale);
   return (int)cudaGetLastError();
 }
 
-// ============================================================ D = 64 (sm90)
+// ================================================ D = 32, 64, 128 (sm90)
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int STAGES = 2;       // ring depth of the K/V tiles
-constexpr int TILE = 64 * 64;   // floats of one [64, 64] tile (16 KB)
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of one block
 
+// Keys per walked tile at head dim D: 64, or 32 at D = 128, where the ring
+// of 64-key tiles would not fit shared memory.
+template <int D>
+constexpr int fwd_bk() { return D > 64 ? 32 : 64; }
+
 // float offsets from the 1024-byte aligned base (tiles 1024-aligned)
-template <int NWG>
+template <int D, int NWG>
 struct FwdLayout {
+  static constexpr int BK = fwd_bk<D>();
+  static constexpr int QT = 64 * D;                 // floats of a Q tile
+  static constexpr int KT = BK * D;                 // of a K or V tile
   static constexpr int Q = 0;                       // [NWG] Q (hi in place)
-  static constexpr int QL = Q + NWG * TILE;         // [NWG] Q lo
-  static constexpr int K = QL + NWG * TILE;         // [STAGES] K (hi in place)
-  static constexpr int V = K + STAGES * TILE;       // [STAGES] V as landed
-  static constexpr int KL = V + STAGES * TILE;      // [STAGES] K lo
-  static constexpr int VTH = KL + STAGES * TILE;    // [STAGES] V^T hi
-  static constexpr int VTL = VTH + STAGES * TILE;   // [STAGES] V^T lo
-  static constexpr int BAR = VTL + STAGES * TILE;   // Q, full, ready, empty
-  static constexpr int KM = BAR + 2 * (1 + 3 * STAGES);  // [STAGES][64]
-  static constexpr int FLAG = KM + STAGES * 64;     // [STAGES][2] masked
+  static constexpr int QL = Q + NWG * QT;           // [NWG] Q lo
+  static constexpr int K = QL + NWG * QT;           // [STAGES] K (hi in place)
+  static constexpr int V = K + STAGES * KT;         // [STAGES] V as landed
+  static constexpr int KL = V + STAGES * KT;        // [STAGES] K lo
+  static constexpr int VTH = KL + STAGES * KT;      // [STAGES] V^T hi
+  static constexpr int VTL = VTH + STAGES * KT;     // [STAGES] V^T lo
+  static constexpr int BAR = VTL + STAGES * KT;     // Q, full, ready, empty
+  static constexpr int KM = BAR + 2 * (1 + 3 * STAGES);  // [STAGES][BK]
+  static constexpr int FLAG = KM + STAGES * BK;     // [STAGES][2] masked
   static constexpr int BYTES = 4 * (FLAG + 2 * STAGES);
 };
-static_assert(FwdLayout<2>::BYTES + 1024 <= SMEM_LIMIT, "shared memory");
+static_assert(FwdLayout<32, 2>::BYTES + 1024 <= SMEM_LIMIT, "shared memory");
+static_assert(FwdLayout<64, 2>::BYTES + 1024 <= SMEM_LIMIT, "shared memory");
+static_assert(FwdLayout<128, 1>::BYTES + 1024 <= SMEM_LIMIT,
+              "shared memory");
 
 // Warpgroups 0..NWG-1 consume (64 q rows each), warpgroup NWG produces.
 // Tile j's slot (K, V, their split tiles, key mask and flags) is j % STAGES;
 // its full, ready and empty mbarriers complete their (j / STAGES)-th phase.
-template <int NWG>
+template <int D, int NWG>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1)
 flash_fwd_f32_sm90(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
                    const float* __restrict__ key_mask,
                    float* __restrict__ out, float* __restrict__ lse, int H,
-                   int Tq, int Tk, int causal, int q_off, int k_off,
+                   int Tq, int Tk, int Dt, int causal, int q_off, int k_off,
                    float scale) {
-  using L = FwdLayout<NWG>;
-  constexpr int D = 64, BK = 64, BQ = 64 * NWG;
-  constexpr uint32_t KV_BYTES = 2 * TILE * 4;
+  // Dt: the operands' head dim, D or, for D = 32, 16 (zero-filled boxes)
+  using L = FwdLayout<D, NWG>;
+  constexpr int BK = L::BK, BQ = 64 * NWG, QT = L::QT, KT = L::KT;
+  constexpr int ON = D < 64 ? D : 64;   // O columns of one P V product
+  constexpr int NB = D / ON;            // P V products per k8 slice
+  constexpr int SR = BK / 2;            // score accumulator registers
+  constexpr uint32_t KV_BYTES = 2 * KT * 4;
   extern __shared__ unsigned char smem_raw[];
   float* sm = reinterpret_cast<float*>(hopper::align_1024(smem_raw));
   float *Ks = sm + L::K, *Vs = sm + L::V, *KLs = sm + L::KL,
@@ -327,10 +359,10 @@ flash_fwd_f32_sm90(const __grid_constant__ CUtensorMap qmap,
   uint64_t *full = qbar + 1, *ready = full + STAGES, *empty = ready + STAGES;
 
   const int tid = threadIdx.x, wg = tid / 128, wtid = tid % 128;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
   // causal: the last q tiles see the most keys; they go first
-  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int qb = qt * BQ;                 // the block's first row
+  const hopper::GridTile gt = hopper::grid_tile((Tq + BQ - 1) / BQ, causal);
+  const int bh = gt.bh, b = bh / H, h = bh % H;
+  const int qb = gt.tile * BQ;            // the block's first row
   const int shift = q_off - k_off;
   // causal: no key past a tile's last query row is ever visible
   const int k_end = causal ? min(Tk, max(0, min(Tq, qb + BQ) + shift)) : Tk;
@@ -355,33 +387,35 @@ flash_fwd_f32_sm90(const __grid_constant__ CUtensorMap qmap,
     if (n_tiles == 0) return;
     auto load_kv = [&](int stage, int tile) {
       hopper::mbar_expect_tx(&full[stage], KV_BYTES);
-      hopper::tma_load_tile_f32<D>(Ks + stage * TILE, &kmap, &full[stage],
+      hopper::tma_load_tile_f32<D>(Ks + stage * KT, &kmap, &full[stage],
                                    BK, tile * BK, h, b);
-      hopper::tma_load_tile_f32<D>(Vs + stage * TILE, &vmap, &full[stage],
+      hopper::tma_load_tile_f32<D>(Vs + stage * KT, &vmap, &full[stage],
                                    BK, tile * BK, h, b);
     };
     if (wtid == 0) {
       // the Q tiles of the warpgroups that have rows below Tq
       const int nq = min(NWG, (Tq - qb + 63) / 64);
-      hopper::mbar_expect_tx(qbar, nq * TILE * 4);
+      hopper::mbar_expect_tx(qbar, nq * QT * 4);
       for (int w = 0; w < nq; ++w)
-        hopper::tma_load_tile_f32<D>(sm + L::Q + w * TILE, &qmap, qbar, 64,
+        hopper::tma_load_tile_f32<D>(sm + L::Q + w * QT, &qmap, qbar, 64,
                                      qb + 64 * w, h, b);
       for (int s = 0; s < STAGES && s < n_tiles; ++s) load_kv(s, s);
     }
     for (int j = 0; j < n_tiles; ++j) {
       const int st = j % STAGES;
-      // the key mask of the tile (1 past the ragged edge: it has its test)
+      // the key mask of the tile (1 past the ragged edge and past BK: it
+      // has its test)
       const int key = j * BK + wtid;
       const float kmv = (km && wtid < BK && key < Tk) ? km[key] : 1.f;
       hopper::mbar_wait(&full[st], (j / STAGES) & 1);
-      hopper::split_tile<true, false>(Ks + st * TILE, KLs + st * TILE,
-                                      nullptr, nullptr, wtid);
-      hopper::split_tile<false, true>(Vs + st * TILE, nullptr,
-                                      VTH + st * TILE, VTL + st * TILE, wtid);
+      hopper::split_tile<true, false, BK, D>(Ks + st * KT, KLs + st * KT,
+                                             nullptr, nullptr, wtid);
+      hopper::split_tile<false, true, BK, D>(Vs + st * KT, nullptr,
+                                             VTH + st * KT, VTL + st * KT,
+                                             wtid);
       if (wtid < BK) kms[st * BK + wtid] = kmv;
       const int any = __any_sync(0xffffffffu, !(kmv > 0.f));
-      if (wtid < BK && wtid % 32 == 0) flags[st * 2 + wtid / 32] = any;
+      if (wtid < 64 && wtid % 32 == 0) flags[st * 2 + wtid / 32] = any;
       hopper::fence_proxy_async();
       hopper::mbar_arrive(&ready[st]);
       // the other slot takes tile j + 1 once tile j - 1 is consumed
@@ -396,8 +430,8 @@ flash_fwd_f32_sm90(const __grid_constant__ CUtensorMap qmap,
 
   // a consumer warpgroup: 64 query rows
   const int lane = tid % 32, g = lane / 4, t = lane % 4;
-  float* Qs = sm + L::Q + wg * TILE;
-  float* QLs = sm + L::QL + wg * TILE;
+  float* Qs = sm + L::Q + wg * QT;
+  float* QLs = sm + L::QL + wg * QT;
   const int q0 = qb + wg * 64;            // this warpgroup's first row
   // this warpgroup's key tiles: none when its rows all lie past Tq
   const int wg_end = q0 >= Tq ? 0
@@ -410,14 +444,17 @@ flash_fwd_f32_sm90(const __grid_constant__ CUtensorMap qmap,
 
   float m[2] = {NEG_INF, NEG_INF};  // running max, natural units (per quad)
   float l[2] = {0.f, 0.f};          // this thread's part of the row sum
-  float o[32];
+  float o[NB][ON / 2];
 #pragma unroll
-  for (int e = 0; e < 32; ++e) o[e] = 0.f;
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < ON / 2; ++e) o[nb][e] = 0.f;
 
   if (n_tiles > 0) {
     hopper::mbar_wait(qbar, 0);
     if (wg_tiles > 0) {
-      hopper::split_tile<true, false>(Qs, QLs, nullptr, nullptr, wtid);
+      hopper::split_tile<true, false, 64, D>(Qs, QLs, nullptr, nullptr,
+                                             wtid);
       hopper::fence_proxy_async();
     }
     hopper::named_barrier_sync(1 + wg, 128);
@@ -427,12 +464,12 @@ flash_fwd_f32_sm90(const __grid_constant__ CUtensorMap qmap,
       const int k0 = j * BK;
       hopper::mbar_wait(&ready[st], (j / STAGES) & 1);
       if (j < wg_tiles) {
-        const float* Kt = Ks + st * TILE;
+        const float* Kt = Ks + st * KT;
         const int masked = flags[st * 2] | flags[st * 2 + 1];
-        // S = Q K^T: 64 rows x 64 keys, k over the head dim
-        float s[32];
+        // S = Q K^T: 64 rows x BK keys, k over the head dim
+        float s[SR];
         hopper::wgmma_fence();
-        hopper::wgmma_3xtf32_ss<D / 8>(s, Qs, QLs, Kt, KLs + st * TILE);
+        hopper::wgmma_3xtf32_ss<D / 8>(s, Qs, QLs, Kt, KLs + st * KT);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::fence_operand(s);
@@ -446,7 +483,7 @@ flash_fwd_f32_sm90(const __grid_constant__ CUtensorMap qmap,
           // max(s * scale) from the raw scores (rounding is monotone)
           const float sg = scale >= 0.f ? 1.f : -1.f;
 #pragma unroll
-          for (int e = 0; e < 32; ++e)
+          for (int e = 0; e < SR; ++e)
             mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sg * s[e]);
           mx[0] *= fabsf(scale);
           mx[1] *= fabsf(scale);
@@ -454,7 +491,7 @@ flash_fwd_f32_sm90(const __grid_constant__ CUtensorMap qmap,
           // scale, key mask, then causal, as the CUDA-core kernel
           const float* mrow = kms + st * BK;
 #pragma unroll
-          for (int e = 0; e < 32; ++e) {
+          for (int e = 0; e < SR; ++e) {
             const int i = (e >> 1) & 1;
             const int c = 8 * (e >> 2) + 2 * t + (e & 1);
             const int kpos = k0 + c;
@@ -483,31 +520,38 @@ flash_fwd_f32_sm90(const __grid_constant__ CUtensorMap qmap,
         if (full_pair) {
           const float ml[2] = {m[0] * LOG2E, m[1] * LOG2E};
 #pragma unroll
-          for (int e = 0; e < 32; ++e) {
+          for (int e = 0; e < SR; ++e) {
             const int i = (e >> 1) & 1;
             s[e] = hopper::exp2_approx(fmaf(s[e], scale2, -ml[i]));
             l[i] += s[e];
           }
         } else {
 #pragma unroll
-          for (int e = 0; e < 32; ++e) {
+          for (int e = 0; e < SR; ++e) {
             const int i = (e >> 1) & 1;
             s[e] = hopper::exp2_approx((s[e] - m[i]) * LOG2E);
             l[i] += s[e];
           }
         }
 #pragma unroll
-        for (int e = 0; e < 32; ++e) o[e] *= corr[(e >> 1) & 1];
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+          for (int e = 0; e < ON / 2; ++e) o[nb][e] *= corr[(e >> 1) & 1];
 
-        // O += P V: P split in registers, V^T split in shared memory
+        // O += P V: P split in registers, V^T split in shared memory, one
+        // product per ON columns of O (V^T rows)
         uint32_t ah[BK / 8][4], al[BK / 8][4];
         hopper::split_acc_tf32(ah, al, s);
         hopper::wgmma_fence();
-        hopper::wgmma_3xtf32_rs<BK / 8>(o, ah, al, VTH + st * TILE,
-                                        VTL + st * TILE);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+          hopper::wgmma_3xtf32_rs<BK / 8, D>(
+              o[nb], ah, al, VTH + st * KT + nb * ON * hopper::BOX_F32,
+              VTL + st * KT + nb * ON * hopper::BOX_F32);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
-        hopper::fence_operand(o);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) hopper::fence_operand(o[nb]);
       }
       hopper::mbar_arrive(&empty[st]);
     }
@@ -521,9 +565,13 @@ flash_fwd_f32_sm90(const __grid_constant__ CUtensorMap qmap,
     l[i] = fmaxf(l[i], 1e-30f);
   }
 #pragma unroll
-  for (int e = 0; e < 32; ++e) o[e] /= l[(e >> 1) & 1];
-  hopper::store_acc_f32(out + ((long long)b * Tq * H + h) * D,
-                        (long long)H * D, q0, Tq, o, wtid);
+  for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+    for (int e = 0; e < ON / 2; ++e) o[nb][e] /= l[(e >> 1) & 1];
+    hopper::store_acc_f32(out + ((long long)b * Tq * H + h) * Dt + nb * ON,
+                          (long long)H * Dt, q0, Tq, o[nb], wtid,
+                          Dt - nb * ON);
+  }
   if (lse && t == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -532,52 +580,71 @@ flash_fwd_f32_sm90(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-template <int NWG>
+template <int D, int NWG>
 int launch_sm90(const float* q, const float* k, const float* v,
               const float* km, float* out, float* lse, int B, int H, int Tq,
-              int Tk, Strides qs, Strides ks, Strides vs, int causal,
+              int Tk, int Dt, Strides qs, Strides ks, Strides vs, int causal,
               int q_off, int k_off, float scale, cudaStream_t stream) {
-  const struct { const float* p; int T; Strides s; } ops[3] = {
-      {q, Tq, qs}, {k, Tk, ks}, {v, Tk, vs}};
+  using L = FwdLayout<D, NWG>;
+  const struct { const float* p; int T; Strides s; int rows; } ops[3] = {
+      {q, Tq, qs, 64}, {k, Tk, ks, L::BK}, {v, Tk, vs, L::BK}};
   CUtensorMap m[3];
   for (int i = 0; i < 3; ++i) {
+    // Dt columns wide: TMA zero-fills a box's columns past them
     const int err = hopper::make_tile_map(
         &m[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ops[i].p, B, ops[i].T, H,
-        64, ops[i].s.b, ops[i].s.t, ops[i].s.h, 64);
+        Dt, ops[i].s.b, ops[i].s.t, ops[i].s.h, ops[i].rows);
     if (err) return err;
   }
-  const int smem = FwdLayout<NWG>::BYTES + 1024;
+  const int smem = L::BYTES + 1024;
   int err = (int)cudaFuncSetAttribute(
-      flash_fwd_f32_sm90<NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_f32_sm90<D, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err) return err;
-  const dim3 grid(B * H, (Tq + 64 * NWG - 1) / (64 * NWG));
-  flash_fwd_f32_sm90<NWG><<<grid, 128 * (NWG + 1), smem, stream>>>(
-      m[0], m[1], m[2], km, out, lse, H, Tq, Tk, causal, q_off, k_off,
+  dim3 grid;
+  err = hopper::grid_1d((Tq + 64 * NWG - 1) / (64 * NWG), (long long)B * H,
+                        &grid);
+  if (err) return err;
+  flash_fwd_f32_sm90<D, NWG><<<grid, 128 * (NWG + 1), smem, stream>>>(
+      m[0], m[1], m[2], km, out, lse, H, Tq, Tk, Dt, causal, q_off, k_off,
       scale);
   return (int)cudaGetLastError();
 }
 
-// Consumer warpgroups per block at D = 64 into *nwg: two (128 q rows
-// sharing each K/V tile and its split pass) when the grid of
+// Consumer warpgroups per block at D = 32 and 64 into *nwg: two (128 q
+// rows sharing each K/V tile and its split pass) when the grid of
 // one-consumer blocks would not fit the card's SMs in one wave, else one
 // (more SMs busy on a short grid). Returns a cudaError_t value.
-int warpgroups_for(int bh, int Tq, int* nwg) {
+int warpgroups_for(long long bh, int Tq, int* nwg) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  *nwg = (long long)bh * ((Tq + 63) / 64) > sms ? 2 : 1;
+  *nwg = bh * ((Tq + 63) / 64) > sms ? 2 : 1;
   return (int)err;
+}
+
+template <int D>
+int launch_sm90_by_grid(const float* q, const float* k, const float* v,
+                        const float* km, float* out, float* lse, int B, int H,
+                        int Tq, int Tk, int Dt, Strides qs, Strides ks,
+                        Strides vs, int causal, int q_off, int k_off,
+                        float scale, cudaStream_t stream) {
+  int nwg = 0;
+  const int err = warpgroups_for((long long)B * H, Tq, &nwg);
+  if (err) return err;
+  return nwg == 1
+      ? launch_sm90<D, 1>(q, k, v, km, out, lse, B, H, Tq, Tk, Dt, qs, ks, vs, causal, q_off, k_off, scale, stream)
+      : launch_sm90<D, 2>(q, k, v, km, out, lse, B, H, Tq, Tk, Dt, qs, ks, vs, causal, q_off, k_off, scale, stream);
 }
 
 }  // namespace
 
 // Plain C entry for ctypes. Returns a cudaError_t value (0 = launched).
 // Strides are in elements, for [B, T, H, D] tensors with a dense head dim
-// (at D = 64 also 16-byte aligned rows: the TMA maps; a pattern the
-// encoder refuses comes back as an error); out is written dense
-// [B, Tq, H, D], the LSE [B, H, Tq].
+// (at D = 32, 64 and 128 also 16-byte aligned rows: the TMA maps; a
+// pattern the encoder refuses comes back as an error); out is written
+// dense [B, Tq, H, D], the LSE [B, H, Tq]. D is 16, 32, 64, 128 or 256.
 extern "C" int flash_fwd_f32(
     const float* q, const float* k, const float* v, const float* key_mask,
     float* out, float* lse, int B, int H, int Tq, int Tk, int D,
@@ -589,17 +656,10 @@ extern "C" int flash_fwd_f32(
       vs{v_sb, v_st, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch<16>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off, scale, st);
-    case 32: return launch<32>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off, scale, st);
-    case 64: {
-      int nwg = 0;
-      const int err = warpgroups_for(B * H, Tq, &nwg);
-      if (err) return err;
-      return nwg == 1
-          ? launch_sm90<1>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off, scale, st)
-          : launch_sm90<2>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off, scale, st);
-    }
-    case 128: return launch<128>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off, scale, st);
+    case 16:
+    case 32: return launch_sm90_by_grid<32>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, D, qs, ks, vs, causal, q_off, k_off, scale, st);
+    case 64: return launch_sm90_by_grid<64>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, D, qs, ks, vs, causal, q_off, k_off, scale, st);
+    case 128: return launch_sm90<128, 1>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, D, qs, ks, vs, causal, q_off, k_off, scale, st);
     case 256: return launch<256>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }

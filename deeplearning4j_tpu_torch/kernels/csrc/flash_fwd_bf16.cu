@@ -64,9 +64,10 @@
 //     before the next `wgmma.fence`. Inside a block the products and the
 //     exponentials take turns; five blocks share an SM at D=64 (two at
 //     D=128), and one block's exponentials run under another's products.
-//   - Causal scheduling: batch x heads on grid x, the q tile on grid y,
-//     reversed, so the first wave holds every head's last q tiles, which
-//     see the most keys.
+//   - Causal scheduling: one-dimensional grid (hopper_bf16.cuh
+//     `grid_tile`), batch x heads fast, the q tile slow and reversed, so
+//     the first wave holds every head's last q tiles, which see the most
+//     keys.
 //   - Epilogue: out = O / max(l, 1e-30) rounded to bf16 once, stored
 //     from the registers (rows past Tq, computed from TMA's zero fill, are
 //     skipped); the LSE for rows < Tq. No atomics: a result is the same
@@ -138,8 +139,10 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;
+  // causal: the last q tiles see the most keys; they go first
+  const hopper::GridTile gt = hopper::grid_tile((Tq + BQ - 1) / BQ, causal);
+  const int q0 = gt.tile * BQ;
+  const int bh = gt.bh;
   const int b = bh / H, h = bh % H;
   const bf16* qb = q + b * qs.b + h * qs.h;
   const bf16* kb = k + b * ks.b + h * ks.h;
@@ -312,10 +315,10 @@ flash_fwd_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
 
   const int tid = threadIdx.x, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
   // causal: the last q tiles see the most keys; they go first
-  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = qt * BQ;
+  const hopper::GridTile gt = hopper::grid_tile((Tq + BQ - 1) / BQ, causal);
+  const int bh = gt.bh, b = bh / H, h = bh % H;
+  const int q0 = gt.tile * BQ;
   // causal: no key past the tile's last query row is ever visible
   const int k_end =
       causal ? min(Tk, max(0, min(Tq, q0 + BQ) + q_off - k_off)) : Tk;
@@ -516,7 +519,10 @@ int launch(const Operands& a, cudaStream_t stream) {
       flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.Tq + BQ - 1) / BQ, a.B * a.H);
+  dim3 grid;
+  if (const int e = hopper::grid_1d((a.Tq + BQ - 1) / BQ,
+                                    (long long)a.B * a.H, &grid))
+    return e;
   flash_fwd_bf16_kernel<D><<<grid, THREADS, smem, stream>>>(
       a.q, a.k, a.v, a.key_mask, a.out, a.lse, a.H, a.Tq, a.Tk, a.qs, a.ks,
       a.vs, a.causal, a.q_off, a.k_off, a.scale);
@@ -541,7 +547,10 @@ int launch_sm90(const Operands& a, cudaStream_t stream) {
       flash_fwd_bf16_sm90<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err) return err;
-  const dim3 grid(a.B * a.H, (a.Tq + L::BQ - 1) / L::BQ);
+  dim3 grid;
+  err = hopper::grid_1d((a.Tq + L::BQ - 1) / L::BQ, (long long)a.B * a.H,
+                        &grid);
+  if (err) return err;
   flash_fwd_bf16_sm90<D><<<grid, THREADS, smem, stream>>>(
       m[0], m[1], m[2], a.key_mask, a.out, a.lse, a.H, a.Tq, a.Tk, a.causal,
       a.q_off, a.k_off, a.scale);

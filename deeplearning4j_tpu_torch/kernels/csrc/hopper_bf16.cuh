@@ -70,6 +70,31 @@ __device__ __forceinline__ unsigned char* align_1024(unsigned char* raw) {
   return raw + ((1024 - (a & 1023)) & 1023);
 }
 
+// ------------------------------------------------------------------ grid
+// Every attention kernel runs on a one-dimensional grid of n_tiles * bh
+// blocks on x, which reaches 2^31 - 1 (y and z stop at 65535): batch *
+// heads is the fast part of the index, the tile (q tile, key tile, or
+// tile and column box) the slow part, so the first wave holds one tile
+// of every head. `reverse` walks the tiles last first: a causal q tile
+// that sees the most keys goes first.
+struct GridTile {
+  int tile, bh;
+};
+__device__ __forceinline__ GridTile grid_tile(int n_tiles, bool reverse) {
+  const unsigned bh_count = gridDim.x / (unsigned)n_tiles;
+  const int t = (int)(blockIdx.x / bh_count);
+  return {reverse ? n_tiles - 1 - t : t, (int)(blockIdx.x % bh_count)};
+}
+
+// The grid of `grid_tile`; returns a cudaError_t value (invalid past
+// 2^31 - 1 blocks).
+inline int grid_1d(long long n_tiles, long long bh, dim3* grid) {
+  if (n_tiles < 1 || bh < 1 || n_tiles * bh > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  *grid = dim3((unsigned)(n_tiles * bh));
+  return 0;
+}
+
 // 2^x on the special-function unit (ex2.approx.ftz: relative error about
 // 2^-22, -inf -> 0, subnormal results flushed to 0)
 __device__ __forceinline__ float exp2_approx(float x) {

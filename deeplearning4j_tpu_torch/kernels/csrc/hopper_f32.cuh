@@ -1,5 +1,6 @@
 // hopper_f32.cuh: the Hopper (sm_90a) pieces of the float32 attention
-// kernels at head dim 64 (flash_fwd.cu and flash_bwd.cu): float32
+// kernels (flash_fwd.cu at head dims 32, 64 and 128, flash_bwd.cu at 64):
+// float32
 // products on the tensor cores as three TF32 `wgmma.mma_async` products
 // each, f32 tiles by TMA, and the split of an f32 operand into TF32
 // halves, in registers or a landed tile at a time. The mbarriers, the TMA
@@ -85,25 +86,27 @@ __device__ __forceinline__ void acc_to_a_tf32(uint32_t (&hi)[4],
   split_tf32(d[4 * kk + 3], hi[3], lo[3]);   // row g + 8, column 2t + 1
 }
 
-// Split a landed [64, 64] f32 tile (two 128B-swizzled boxes of 64 rows)
-// by the 128 threads of a warpgroup, tid in 0..127. With PLAIN, x becomes
-// its TF32 hi in place and lo goes to
-// `lo` at the same offsets; with TRANSPOSE, the transposed split (rows =
-// x's columns, k = x's rows, each 8-row group of x in `k_slot` order) goes
-// to th / tl, the B operand of a product that contracts over x's rows.
-// Each warp step takes one 16-byte chunk of 32 consecutive rows, so the
-// chunk loads and stores and the transposed scalar stores all fall in
-// distinct banks.
-template <bool PLAIN, bool TRANSPOSE>
+// Split a landed [R, C] f32 tile (C / 32 128B-swizzled boxes of R rows;
+// R and C multiples of 32) by the 128 threads of a warpgroup, tid in
+// 0..127. With PLAIN, x becomes its TF32 hi in place and lo goes to
+// `lo` at the same offsets; with TRANSPOSE, the transposed split ([C, R]:
+// rows = x's columns, k = x's rows, each 8-row group of x in `k_slot`
+// order) goes to th / tl, the B operand of a product that contracts over
+// x's rows. Each warp step takes one 16-byte chunk of 32 consecutive rows,
+// so the chunk loads and stores and the transposed scalar stores all fall
+// in distinct banks.
+template <bool PLAIN, bool TRANSPOSE, int R = 64, int C = 64>
 __device__ __forceinline__ void split_tile(float* x, float* lo, float* th,
                                            float* tl, int tid) {
-  const int warp = tid / 32, lane = tid % 32;
+  constexpr unsigned HALVES = R / 32;   // 32-row groups of a box
+  constexpr unsigned STEPS = C / 32 * 8 * HALVES / 4;   // per warp
+  const unsigned warp = unsigned(tid) / 32, lane = unsigned(tid) % 32;
 #pragma unroll
-  for (int m = 0; m < 8; ++m) {
-    const int u = warp * 8 + m;         // 32 steps: (box, chunk, row half)
-    const int box = u >> 4, c = (u >> 1) & 7;
-    const int r = 32 * (u & 1) + lane;
-    const int at = box * 64 * BOX_F32 + r * BOX_F32 + ((c ^ (r & 7)) << 2);
+  for (unsigned m = 0; m < STEPS; ++m) {
+    const unsigned u = warp * STEPS + m;    // (box, chunk, row group)
+    const int box = u / (8 * HALVES), c = (u / HALVES) & 7;
+    const int r = 32 * (u % HALVES) + lane;
+    const int at = box * R * BOX_F32 + r * BOX_F32 + ((c ^ (r & 7)) << 2);
     const float4 v = *reinterpret_cast<const float4*>(x + at);
     const float e[4] = {v.x, v.y, v.z, v.w};
     uint32_t hi[4], lw[4];
@@ -119,7 +122,7 @@ __device__ __forceinline__ void split_tile(float* x, float* lo, float* th,
       const int col = (r & ~7) | k_slot(r & 7);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int t_at = sw128(64, 32 * box + 4 * c + i, col);
+        const int t_at = sw128(C, 32 * box + 4 * c + i, col);
         th[t_at] = __uint_as_float(hi[i]);
         tl[t_at] = __uint_as_float(lw[i]);
       }
@@ -207,13 +210,44 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// The same products at n = 32 (16 accumulator registers).
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_F32_R8(0), HOPPER_F32_R8(8)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_F32_R8(0), HOPPER_F32_R8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef HOPPER_F32_R8
 
 // d (+)= A B over k = 0..8*KS-1 as three TF32 products per k8 slice, A and
-// B both split in shared memory (hi tiles ah, bh; lo tiles al, bl;
-// 64 rows per box each): a_lo.b_hi + a_hi.b_lo, then a_hi.b_hi.
-template <int KS>
-__device__ __forceinline__ void wgmma_3xtf32_ss(float (&d)[32],
+// B both split in shared memory (hi tiles ah, bh; lo tiles al, bl; A 64
+// rows per box, B n = 2R rows per box): a_lo.b_hi + a_hi.b_lo, then
+// a_hi.b_hi.
+template <int KS, int R>
+__device__ __forceinline__ void wgmma_3xtf32_ss(float (&d)[R],
                                                 const float* ah,
                                                 const float* al,
                                                 const float* bh,
@@ -221,9 +255,9 @@ __device__ __forceinline__ void wgmma_3xtf32_ss(float (&d)[32],
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
     const uint64_t dah = desc_k_major_f32(ah, 64, kk);
-    const uint64_t dbh = desc_k_major_f32(bh, 64, kk);
+    const uint64_t dbh = desc_k_major_f32(bh, 2 * R, kk);
     wgmma_tf32_ss(d, desc_k_major_f32(al, 64, kk), dbh, kk > 0);
-    wgmma_tf32_ss(d, dah, desc_k_major_f32(bl, 64, kk), 1);
+    wgmma_tf32_ss(d, dah, desc_k_major_f32(bl, 2 * R, kk), 1);
     wgmma_tf32_ss(d, dah, dbh, 1);
   }
 }
@@ -241,34 +275,37 @@ __device__ __forceinline__ void split_acc_tf32(uint32_t (&hi)[KS][4],
 
 // d += A B over k = 0..8*KS-1 as three TF32 products per k8 slice: A the
 // split fragments of `split_acc_tf32`, B split in shared memory (hi tile
-// bh, lo tile bl, 64 rows per box) with each 8-block of k in `k_slot`
-// order.
-template <int KS>
-__device__ __forceinline__ void wgmma_3xtf32_rs(float (&d)[32],
+// bh, lo tile bl, BOX_ROWS rows per box, of which the product reads
+// n = 2R from bh / bl on) with each 8-block of k in `k_slot` order.
+template <int KS, int BOX_ROWS = 64, int R>
+__device__ __forceinline__ void wgmma_3xtf32_rs(float (&d)[R],
                                                 const uint32_t (&hi)[KS][4],
                                                 const uint32_t (&lo)[KS][4],
                                                 const float* bh,
                                                 const float* bl) {
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
-    const uint64_t dbh = desc_k_major_f32(bh, 64, kk);
+    const uint64_t dbh = desc_k_major_f32(bh, BOX_ROWS, kk);
     wgmma_tf32_rs(d, lo[kk], dbh);
-    wgmma_tf32_rs(d, hi[kk], desc_k_major_f32(bl, 64, kk));
+    wgmma_tf32_rs(d, hi[kk], desc_k_major_f32(bl, BOX_ROWS, kk));
     wgmma_tf32_rs(d, hi[kk], dbh);
   }
 }
 
-// Store a 64 x 64 f32 accumulator into rows of a dense f32 output: tile
-// row 0 at `row0`, rows at or past T skipped.
+// Store a 64 x 2R f32 accumulator into rows of a dense f32 output: tile
+// row 0 at `row0`, rows at or past T and columns at or past `cols` (a
+// multiple of 8) skipped.
+template <int R>
 __device__ __forceinline__ void store_acc_f32(float* base,
                                               long long row_stride, int row0,
-                                              int T, const float (&d)[32],
-                                              int tid) {
+                                              int T, const float (&d)[R],
+                                              int tid, int cols = 2 * R) {
   const int lane = tid % 32, g = lane / 4, t = lane % 4;
   const int r = row0 + (tid / 32) * 16 + g;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < R / 4; ++j) {
     const int col = 8 * j + 2 * t;
+    if (cols < 2 * R && col >= cols) continue;
     if (r < T)
       *reinterpret_cast<float2*>(base + r * row_stride + col) =
           make_float2(d[4 * j], d[4 * j + 1]);

@@ -1,11 +1,11 @@
 """Attention kernels for Hopper, the port of
 deeplearning4j_tpu/kernels/flash_attention.py.
 
-Eight hand-written CUDA kernels, each behind a wrapper with its plain
+Fourteen hand-written CUDA kernels, each behind a wrapper with its plain
 PyTorch version beside it:
 
 - `flash_attention` -> `csrc/flash_fwd.cu` (`flash_fwd_f32`; at head
-  dim 64 on the tensor cores, each float32 product as three TF32
+  dims up to 128 on the tensor cores, each float32 product as three TF32
   products) for float32 and `csrc/flash_fwd_bf16.cu` (`flash_fwd_bf16`,
   tensor cores) for bfloat16, replacing the TPU kernel `_flash_kernel`
   (flash_attention.py:84-143, `pl.pallas_call` at :206) as
@@ -35,6 +35,10 @@ PyTorch version beside it:
   reading each slot's keys through its row of an int32 block table inside
   the kernel (the reference gathers the pool first). Plain version:
   `flash_decode_paged_plain`, the gather followed by `flash_decode_plain`.
+- Head dims above 256: `csrc/flash_wide.cu`, the forward
+  (`flash_wide_fwd`), dq (`flash_wide_dq`) and dk/dv (`flash_wide_dkv`),
+  each in float32 and bfloat16 (`_bf16`), the head dim a runtime value;
+  the same plain versions.
 
 Types, as the TPU kernels have them: q, k, v (and dO) are all float32 or
 all bfloat16, and the attention entries dispatch on that type (mixed or
@@ -77,17 +81,24 @@ D % 8 == 0, and only D % 8 != 0 goes to its plain path), stated once in
   `<kernel>_padded` in `route_counts()` besides its launch. The decode
   kernels take the runtime D and guard their columns (padding the cache
   would copy it on every step).
+- D % 8 == 0, D > 256: the wide kernels of `csrc/flash_wide.cu`
+  (forward with or without the LSE, dq, dk/dv; float32 and bfloat16), the
+  head dim a runtime value, nothing padded. Such a call counts one
+  `<kernel>_wide` in `route_counts()` and its launch under the wide
+  entry's name (`flash_wide_fwd`, `flash_wide_dq`, `flash_wide_dkv`, with
+  `_bf16` for bf16 operands). The decode entries run the wide forward at
+  such a D as the reference's decode runs its forward kernel: a key mask
+  `position < lengths` (`flash_decode` :604-645), over the pool gathered
+  through the block table first for the paged entry (`jnp.take`,
+  :648-682), counted under `flash_decode_wide` / `flash_decode_paged_wide`.
 - D % 8 != 0: the plain version, the reference's choice, counted under
   `<kernel>_plain_by_shape` in `route_counts()`.
-- D % 8 == 0, D > 256: ValueError; no kernel is compiled that wide.
 
 Otherwise a CUDA tensor launches the kernel or raises: a failed build or
 launch never falls back. Each launch adds one to its kernel's count in
-`launch_counts()`, where the kernel launches and nowhere else. The
-CUDA-core kernels put batch * heads on the grid's y axis (at most 65535),
-so the attention wrappers launch over batch slices of at most 65535 // H
-rows (views with the same strides; key mask, LSE and delta rows sliced
-alike), each launch counted; only H > 65535 raises.
+`launch_counts()`, where the kernel launches and nowhere else. Every
+attention kernel takes batch * heads and its tiles on a one-dimensional
+grid (up to 2^31 - 1 blocks), so any batch and head count is one launch.
 
 Layouts are the JAX package's: [batch, time, heads, head_dim]; lse and
 delta are [batch, heads, Tq]. There is no tile-divisibility rule:
@@ -106,10 +117,10 @@ from ..parallel.ring_attention import (NEG_INF, attention_reference,
                                        masked_scores, widen)
 from . import build
 
-# the widths the kernels are compiled at; a head dim runs at the next one
+# the widths the kernels are compiled at; a head dim runs at the next one,
+# and past the last at its own width on the wide kernels
 HEAD_DIMS = (16, 32, 64, 128, 256)
-MAX_HEAD_DIM = HEAD_DIMS[-1]
-_GRID_Y = 65535         # the CUDA-core kernels' batch * heads axis
+WIDEST_COMPILED = HEAD_DIMS[-1]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # ... causal, q_offset, k_offset, scale, stream
@@ -145,16 +156,23 @@ _ATTENTION_ENTRIES = {
         torch.float32: ("flash_bwd", "flash_bwd_dkv_f32"),
         torch.bfloat16: ("flash_bwd_bf16", "flash_bwd_dkv_bf16")}),
 }
+# the wide entries (csrc/flash_wide.cu) by attention kernel
+_WIDE_SYMBOLS = {"flash_fwd": "flash_wide_fwd", "flash_bwd_dq": "flash_wide_dq",
+                 "flash_bwd_dkv": "flash_wide_dkv"}
+_ATTENTION_NAMES = ("flash_fwd", "flash_fwd_bf16", "flash_bwd_dq",
+                    "flash_bwd_dq_bf16", "flash_bwd_dkv", "flash_bwd_dkv_bf16")
 _launches = dict.fromkeys(
     ("flash_fwd", "flash_fwd_bf16", "flash_decode", "flash_decode_paged",
      "flash_bwd_dq", "flash_bwd_dq_bf16", "flash_bwd_dkv",
-     "flash_bwd_dkv_bf16"), 0)
-# calls a CUDA tensor made at a head dim the kernels take padded, and
-# calls it made at one the reference runs plainly
+     "flash_bwd_dkv_bf16", "flash_wide_fwd", "flash_wide_fwd_bf16",
+     "flash_wide_dq", "flash_wide_dq_bf16", "flash_wide_dkv",
+     "flash_wide_dkv_bf16"), 0)
+# calls a CUDA tensor made at a head dim the kernels take padded, at one
+# the wide kernels take, and at one the reference runs plainly
 _routes = dict.fromkeys(
-    [f"{k}_padded" for k in ("flash_fwd", "flash_fwd_bf16", "flash_bwd_dq",
-                             "flash_bwd_dq_bf16", "flash_bwd_dkv",
-                             "flash_bwd_dkv_bf16")]
+    [f"{k}_padded" for k in _ATTENTION_NAMES]
+    + [f"{k}_wide" for k in _ATTENTION_NAMES
+       + ("flash_decode", "flash_decode_paged")]
     + [f"{k}_plain_by_shape" for k in ("flash_fwd", "flash_bwd_dq",
                                        "flash_bwd_dkv", "flash_decode",
                                        "flash_decode_paged")], 0)
@@ -185,24 +203,24 @@ def _scale(scale, D):
 
 
 def kernel_head_dim(D):
-    """The compiled width a kernel runs head dim D at, by the reference's
-    rule (`_plan` :492-502 runs its kernel for every D % 8 == 0): the
-    next of HEAD_DIMS; None for D % 8 != 0, which the reference routes to
-    its plain path. Raises for D % 8 == 0 above MAX_HEAD_DIM."""
+    """The width a kernel runs head dim D at, by the reference's rule
+    (`_plan` :492-502 runs its kernel for every D % 8 == 0): the next of
+    HEAD_DIMS up to WIDEST_COMPILED, D itself above it (the wide kernels'
+    runtime width); None for D % 8 != 0, which the reference routes to its
+    plain path."""
     if D < 1 or D % 8:
         return None
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {D} exceeds {MAX_HEAD_DIM}, the widest "
-                         "head dim the kernels are compiled for")
+    if D > WIDEST_COMPILED:
+        return D
     return next(w for w in HEAD_DIMS if w >= D)
 
 
 def can_flash(Tq, Tk, D):
     """Whether the kernels take these shapes: any lengths (ragged edges
-    are masked inside them), the head dims `kernel_head_dim` gives a
-    width. The counterpart of the JAX `can_flash` (:685), which had
-    Mosaic's tiling to satisfy."""
-    return Tq >= 1 and Tk >= 1 and D % 8 == 0 and 0 < D <= MAX_HEAD_DIM
+    are masked inside them), every head dim D % 8 == 0, as the JAX
+    `can_flash` (:685) gives in interpret mode (on the TPU it had Mosaic's
+    tiling of the lengths to satisfy)."""
+    return Tq >= 1 and Tk >= 1 and D >= 1 and D % 8 == 0
 
 
 def _plain_by_shape(kernel):
@@ -216,19 +234,8 @@ def _pad_head(t, Dp):
     return t if D == Dp else torch.nn.functional.pad(t, (0, Dp - D))
 
 
-def _launch_batches(fn, name, tensors, B, H, rest):
-    """Launch `fn` (see `_launch`) on batch slices [b0, b1) of at most
-    65535 // H rows, as the CUDA-core kernels put batch * heads on the
-    grid's y axis: the pointers to rows b0.. of `tensors` (all [B, ...];
-    None stays None), then b1 - b0, H and `rest`."""
-    if H > _GRID_Y:
-        raise ValueError(f"{H} heads exceed the grid's {_GRID_Y}")
-    step = _GRID_Y // H
-    for b0 in range(0, B, step):
-        b1 = min(B, b0 + step)
-        _launch(fn, name, tensors[0].device,
-                *(None if t is None else t[b0:b1].data_ptr()
-                  for t in tensors), b1 - b0, H, *rest)
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _unpad(name, D, *outs):
@@ -290,10 +297,17 @@ def _aligned(t):
     return t
 
 
-def _entry(kernel, dtype):
-    """(bound C function, launch-count name) of `kernel` for `dtype`."""
+def _entry(kernel, dtype, Dp, route=None):
+    """(bound C function, launch-count name) of `kernel` for `dtype` at
+    width Dp: above WIDEST_COMPILED the wide entry, the call counted under
+    `<route>_wide` (by default the kernel's own launch name)."""
     argtypes, by_dtype = _ATTENTION_ENTRIES[kernel]
     lib, symbol = by_dtype[dtype]
+    if Dp > WIDEST_COMPILED:
+        _routes[f"{route or symbol.removesuffix('_f32')}_wide"] += 1
+        lib = "flash_wide"
+        symbol = _WIDE_SYMBOLS[kernel] + (
+            "_bf16" if dtype == torch.bfloat16 else "_f32")
     return (build.kernel_function(lib, symbol, argtypes),
             symbol.removesuffix("_f32"))
 
@@ -360,9 +374,9 @@ def _flash_forward(q, k, v, causal, scale, key_mask, return_lse,
                    q_offset=0, k_offset=0):
     """The forward wrapper: `flash_fwd` (f32) or `flash_fwd_bf16` for
     CUDA tensors at a head dim `kernel_head_dim` takes (zero-padded to
-    its width), the plain version for CPU tensors and for the head dims
-    the reference runs plainly; writes the LSE only with `return_lse`.
-    The offsets are Python ints."""
+    its width; the wide kernel above WIDEST_COMPILED), the plain version
+    for CPU tensors and for the head dims the reference runs plainly;
+    writes the LSE only with `return_lse`. The offsets are Python ints."""
     plain = functools.partial(
         flash_attention_plain, q, k, v, causal=causal, scale=scale,
         key_mask=key_mask, return_lse=return_lse, q_offset=q_offset,
@@ -370,12 +384,20 @@ def _flash_forward(q, k, v, causal, scale, key_mask, return_lse,
     if _on_host(q):
         return plain()
     _check_attention_operands(q, k, v, _ATTENTION_DTYPES)
-    B, Tq, H, D = q.shape
-    Dp = kernel_head_dim(D)
+    Dp = kernel_head_dim(q.shape[3])
     if Dp is None:
         _plain_by_shape("flash_fwd")
         return plain()
-    fn, name = _entry("flash_fwd", q.dtype)
+    return _forward_launch(q, k, v, causal, scale, key_mask, return_lse,
+                           q_offset, k_offset, Dp)
+
+
+def _forward_launch(q, k, v, causal, scale, key_mask, return_lse, q_offset,
+                    k_offset, Dp, route=None):
+    """One launch of the forward kernel at width Dp on checked CUDA
+    operands (see `_entry` for `route`); returns out (and the LSE)."""
+    B, Tq, H, D = q.shape
+    fn, name = _entry("flash_fwd", q.dtype, Dp, route)
     scale = _scale(scale, D)            # the true head dim's, before padding
     q, k, v = (_aligned(_pad_head(t, Dp)) for t in (q, k, v))
     Tk = k.shape[1]
@@ -383,10 +405,9 @@ def _flash_forward(q, k, v, causal, scale, key_mask, return_lse,
     out = torch.empty((B, Tq, H, Dp), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    _launch_batches(fn, name, (q, k, v, km, out, lse), B, H,
-                    (Tq, Tk, Dp, *_bhd_strides(q), *_bhd_strides(k),
-                     *_bhd_strides(v), int(bool(causal)), q_offset, k_offset,
-                     scale))
+    _launch(fn, name, q.device, *map(_ptr, (q, k, v, km, out, lse)), B, H,
+            Tq, Tk, Dp, *_bhd_strides(q), *_bhd_strides(k),
+            *_bhd_strides(v), int(bool(causal)), q_offset, k_offset, scale)
     out, = _unpad(name, D, out)
     return (out, lse) if return_lse else out
 
@@ -595,11 +616,11 @@ def flash_bwd_dq(q, k, v, g, lse, delta, *, causal=False, scale=None,
     scale = _scale(scale, D)            # the true head dim's, before padding
     q, k, v, g, lse, delta, km = _bwd_operands(q, k, v, g, lse, delta,
                                                key_mask, Dp)
-    fn, name = _entry("flash_bwd_dq", q.dtype)
+    fn, name = _entry("flash_bwd_dq", q.dtype, Dp)
     dq = torch.empty((B, Tq, H, Dp), dtype=q.dtype, device=q.device)
-    _launch_batches(fn, name, (q, k, v, g, lse, delta, km, dq), B, H,
-                    _bwd_rest(q, k, v, g, Dp, causal, q_offset, k_offset,
-                              scale))
+    _launch(fn, name, q.device, *map(_ptr, (q, k, v, g, lse, delta, km, dq)),
+            B, H, *_bwd_rest(q, k, v, g, Dp, causal, q_offset, k_offset,
+                             scale))
     return _unpad(name, D, dq)[0]
 
 
@@ -620,13 +641,13 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal=False, scale=None,
     scale = _scale(scale, D)            # the true head dim's, before padding
     q, k, v, g, lse, delta, km = _bwd_operands(q, k, v, g, lse, delta,
                                                key_mask, Dp)
-    fn, name = _entry("flash_bwd_dkv", q.dtype)
+    fn, name = _entry("flash_bwd_dkv", q.dtype, Dp)
     Tk = k.shape[1]
     dk = torch.empty((B, Tk, H, Dp), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, Tk, H, Dp), dtype=v.dtype, device=q.device)
-    _launch_batches(fn, name, (q, k, v, g, lse, delta, km, dk, dv), B, H,
-                    _bwd_rest(q, k, v, g, Dp, causal, q_offset, k_offset,
-                              scale))
+    _launch(fn, name, q.device,
+            *map(_ptr, (q, k, v, g, lse, delta, km, dk, dv)), B, H,
+            *_bwd_rest(q, k, v, g, Dp, causal, q_offset, k_offset, scale))
     return _unpad(name, D, dk, dv)
 
 
@@ -707,16 +728,19 @@ def flash_decode(q, k, v, lengths, *, scale=None):
         return flash_decode_plain(q, k, v, lengths, scale=scale)
     _check_attention_operands(q, k, v)
     S, _, H, D = q.shape
-    if kernel_head_dim(D) is None:
+    Dp = kernel_head_dim(D)
+    if Dp is None:
         _plain_by_shape("flash_decode")
         return flash_decode_plain(q, k, v, lengths, scale=scale)
+    C = k.shape[1]
+    lengths = _lengths_operand(lengths, S, q.device)
+    if Dp > WIDEST_COMPILED:
+        return _decode_wide(q, k, v, lengths, scale, "flash_decode")
     fn = build.kernel_function("flash_decode", "flash_decode_f32",
                                _DECODE_ARGTYPES)
     # the kernel loads rows as vectors: rows 16-byte aligned (a cache the
     # engine allocates always is; another is copied dense first)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    C = k.shape[1]
-    lengths = _lengths_operand(lengths, S, q.device)
     out = torch.empty((S, 1, H, D), dtype=torch.float32, device=q.device)
     n = decode_split(S * H, C, DECODE_UNIT, _sm_count(q.device.index))
     _launch(fn, "flash_decode", q.device, q.data_ptr(), k.data_ptr(),
@@ -724,6 +748,17 @@ def flash_decode(q, k, v, lengths, *, scale=None):
             q.stride(0), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2), _scale(scale, D))
     return out
+
+
+def _decode_wide(q, k, v, lengths, scale, route):
+    """Decode attention at a head dim above WIDEST_COMPILED: the wide
+    forward kernel over the [S, C] key mask `position < lengths`, as the
+    reference's `flash_decode` (:604-645) runs its forward kernel; counted
+    under `<route>_wide`."""
+    C = k.shape[1]
+    valid = torch.arange(C, device=q.device)[None, :] < lengths[:, None]
+    return _forward_launch(q, k, v, False, scale, valid, False, 0, 0,
+                           q.shape[3], route)
 
 
 def flash_decode_paged_plain(q, k_pool, v_pool, block_table, lengths, *,
@@ -782,9 +817,17 @@ def flash_decode_paged(q, k_pool, v_pool, block_table, lengths, *,
     table, lengths = _check_paged_operands(q, k_pool, v_pool, block_table,
                                            lengths)
     S, _, H, D = q.shape
-    if kernel_head_dim(D) is None:
+    Dp = kernel_head_dim(D)
+    if Dp is None:
         _plain_by_shape("flash_decode_paged")
         return plain()
+    if Dp > WIDEST_COMPILED:
+        # the reference gathers the pool through the table first (:675-682)
+        nb, bs = table.shape[1], k_pool.shape[1]
+        idx = table.long()
+        k = k_pool[idx].reshape(S, nb * bs, H, D)
+        v = v_pool[idx].reshape(S, nb * bs, H, D)
+        return _decode_wide(q, k, v, lengths, scale, "flash_decode_paged")
     fn = build.kernel_function("flash_decode_paged", "flash_decode_paged_f32",
                                _DECODE_PAGED_ARGTYPES)
     q, k_pool, v_pool = _aligned(q), _aligned(k_pool), _aligned(v_pool)
@@ -808,9 +851,10 @@ def launch_counts():
 
 
 def route_counts():
-    """{"<kernel>_padded": calls at a padded head dim, "<kernel>_plain_by_
-    shape": calls run plainly because the reference does} of CUDA
-    tensors; reset with the launch counts."""
+    """{"<kernel>_padded": calls at a padded head dim, "<kernel>_wide":
+    calls at a head dim above WIDEST_COMPILED, "<kernel>_plain_by_shape":
+    calls run plainly because the reference does} of CUDA tensors; reset
+    with the launch counts."""
     return dict(_routes)
 
 

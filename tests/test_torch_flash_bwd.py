@@ -159,7 +159,9 @@ def _bwd_args(T=16):
 
 ZERO = {"flash_fwd": 0, "flash_fwd_bf16": 0, "flash_decode": 0,
         "flash_decode_paged": 0, "flash_bwd_dq": 0, "flash_bwd_dq_bf16": 0,
-        "flash_bwd_dkv": 0, "flash_bwd_dkv_bf16": 0}
+        "flash_bwd_dkv": 0, "flash_bwd_dkv_bf16": 0, "flash_wide_fwd": 0,
+        "flash_wide_fwd_bf16": 0, "flash_wide_dq": 0, "flash_wide_dq_bf16": 0,
+        "flash_wide_dkv": 0, "flash_wide_dkv_bf16": 0}
 
 
 def test_backward_without_a_build_raises_and_launches_nothing(

@@ -217,10 +217,12 @@ def test_offsets_as_tensors_and_return_lse_under_grad():
 
 
 def test_can_flash():
+    """Every D % 8 == 0, as the JAX `can_flash` in interpret mode: above
+    256 the wide kernels take it."""
     assert fa.can_flash(37, 53, 64) and fa.can_flash(1, 1, 16)
     assert fa.can_flash(64, 64, 24) and fa.can_flash(8, 8, 256)
     assert not fa.can_flash(64, 64, 20) and not fa.can_flash(0, 8, 64)
-    assert not fa.can_flash(64, 64, 264)
+    assert fa.can_flash(64, 64, 264) and fa.can_flash(8, 8, 1024)
 
 
 # ------------------------------------------------ the CUDA route, stubbed

@@ -1,12 +1,15 @@
-"""Head dims and batch slices of the port's kernel wrappers, on the CPU.
+"""Head dims and head counts of the port's kernel wrappers, on the CPU.
 
 The reference runs its Pallas kernel for every head dim D % 8 == 0
 (`_plan`, deeplearning4j_tpu/kernels/flash_attention.py:492-502) and its
 plain path for the rest. The port on a CUDA tensor runs a hand kernel for
-every D % 8 == 0 up to 256: the attention kernels at the next compiled
-width Dp (16, 32, 64, 128, 256) on operands zero-padded to it, at the
-scale of the true D; the decode kernels at the true D. D % 8 != 0 takes
-the plain version, counted; D % 8 == 0 above 256 raises.
+every D % 8 == 0: up to 256 the attention kernels at the next compiled
+width Dp (16, 32, 64, 128, 256) on
+operands zero-padded to it, at the scale of the true D, and the decode
+kernels at the true D; above 256 the wide kernels (csrc/flash_wide.cu) at
+the true D, the decode entries through the wide forward under the key
+mask `position < lengths`. D % 8 != 0 takes the plain version, counted.
+Any batch and head count is one launch (a one-dimensional grid).
 
 The CUDA kernels cannot run here. With the CUDA route stubbed, each C entry
 is replaced by an emulator that reads exactly the memory the entry is
@@ -226,6 +229,8 @@ def _paged_entry(q, kpool, vpool, table, lengths, out, S, H, MB, bs, D, n,
     return 0
 
 
+# the wide entries take the argument lists of the compiled-width ones,
+# D the runtime head dim
 ENTRIES = {
     "flash_fwd_f32": _attention_fwd(torch.float32),
     "flash_fwd_bf16": _attention_fwd(torch.bfloat16),
@@ -233,6 +238,12 @@ ENTRIES = {
     "flash_bwd_dq_bf16": _attention_dq(torch.bfloat16),
     "flash_bwd_dkv_f32": _attention_dkv(torch.float32),
     "flash_bwd_dkv_bf16": _attention_dkv(torch.bfloat16),
+    "flash_wide_fwd_f32": _attention_fwd(torch.float32),
+    "flash_wide_fwd_bf16": _attention_fwd(torch.bfloat16),
+    "flash_wide_dq_f32": _attention_dq(torch.float32),
+    "flash_wide_dq_bf16": _attention_dq(torch.bfloat16),
+    "flash_wide_dkv_f32": _attention_dkv(torch.float32),
+    "flash_wide_dkv_bf16": _attention_dkv(torch.bfloat16),
     "flash_decode_f32": _decode_entry,
     "flash_decode_paged_f32": _paged_entry,
 }
@@ -276,6 +287,11 @@ def _d_at(symbol):
     return {"fwd": 10, "dq": 12, "dkv": 13}[symbol.split("_")[-2]]
 
 
+def _b_at(symbol):
+    """Where an attention entry takes B (H follows)."""
+    return _d_at(symbol) - 4
+
+
 def _jax_vjp(q, k, v, g, km, causal):
     jkm = None if km is None else jnp.asarray(km)
     out, vjp = jax.vjp(
@@ -309,9 +325,23 @@ def test_head_dims_the_reference_runs_plainly(D):
 
 
 @pytest.mark.parametrize("D", [264, 512])
-def test_head_dims_above_the_widest_kernel_raise(D):
-    with pytest.raises(ValueError, match=f"head_dim {D} exceeds 256"):
-        fa.kernel_head_dim(D)
+def test_head_dims_above_the_widest_kernel_raise(calls, D):
+    """Named for the ValueError these head dims raised before the wide
+    kernels: now each takes the wide forward at its own width, unpadded,
+    counted as a wide call and a launch of the wide entry."""
+    assert fa.kernel_head_dim(D) == D and fa.can_flash(4, 4, D)
+    rng = np.random.default_rng(D)
+    q, k, v, _, _ = (torch.from_numpy(a) if a is not None else None
+                     for a in _operands(rng, 1, 5, 2, D, False))
+    out = fa.flash_attention(q, k, v, causal=True)
+    np.testing.assert_allclose(
+        out.numpy(), fa.flash_attention_plain(q, k, v, causal=True).numpy(),
+        **FWD_TOL)
+    (symbol, args), = calls
+    assert symbol == "flash_wide_fwd_f32" and args[_d_at(symbol)] == D
+    assert fa.launch_counts()["flash_wide_fwd"] == 1
+    assert fa.route_counts() == {**dict.fromkeys(fa.route_counts(), 0),
+                                 "flash_fwd_wide": 1}
 
 
 # ------------------------------------------- padded attention against JAX
@@ -430,17 +460,186 @@ def test_head_dim_20_takes_the_plain_route_and_matches_jax(calls):
 
 
 def test_head_dim_264_raises_on_every_entry(calls):
+    """Named for the ValueError every entry raised at D=264 before the wide
+    kernels: now every entry runs its wide kernel (the decode entries the
+    wide forward) and matches the JAX package."""
     rng = np.random.default_rng(1)
-    q, k, v, g, _ = (torch.from_numpy(a) if a is not None else None
-                     for a in _operands(rng, 1, 4, 1, 264, False))
-    lse = torch.zeros((1, 1, 4))
-    for run in (lambda: fa.flash_attention(q, k, v),
-                lambda: fa.flash_bwd_dq(q, k, v, g, lse, lse),
-                lambda: fa.flash_bwd_dkv(q, k, v, g, lse, lse),
-                lambda: fa.flash_decode(q[:, :1], k, v, torch.tensor([2]))):
-        with pytest.raises(ValueError, match="head_dim 264 exceeds 256"):
-            run()
-    assert calls == []
+    q, k, v, g, _ = _operands(rng, 2, 6, 1, 264, False)
+    want_out, want = _jax_vjp(q, k, v, g, None, True)
+    out, got = _port_vjp(q, k, v, g, None, True)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out),
+                               **FWD_TOL)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
+                                   **BWD_TOL)
+    lens = np.asarray([2, 0], np.int32)
+    want_dec = jax_flash_decode(jnp.asarray(q[:, :1]), jnp.asarray(k),
+                                jnp.asarray(v), jnp.asarray(lens),
+                                use_pallas=True)
+    got_dec = fa.flash_decode(torch.from_numpy(q[:, :1]), torch.from_numpy(k),
+                              torch.from_numpy(v), torch.from_numpy(lens))
+    np.testing.assert_allclose(got_dec.numpy(), np.asarray(want_dec),
+                               **FWD_TOL)
+    assert [c[0] for c in calls] == ["flash_wide_fwd_f32",
+                                     "flash_wide_dq_f32",
+                                     "flash_wide_dkv_f32",
+                                     "flash_wide_fwd_f32"]
+    assert all(args[_d_at(s)] == 264 for s, args in calls)
+    routes = {k: n for k, n in fa.route_counts().items() if n}
+    assert routes == {"flash_fwd_wide": 1, "flash_bwd_dq_wide": 1,
+                      "flash_bwd_dkv_wide": 1, "flash_decode_wide": 1}
+
+
+# ---------------------------------------------- the wide kernels (D > 256)
+@pytest.mark.parametrize("D", [264, 320])
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True),
+                                           (True, True)])
+def test_wide_attention_and_its_gradient_match_jax(calls, D, causal, masked):
+    """Above 256 the wide entries take the operands unpadded at the true D
+    and match the Pallas kernels (interpret mode): forward, dq, dk/dv."""
+    rng = np.random.default_rng(D + 2 * causal + masked)
+    q, k, v, g, km = _operands(rng, 2, 9, 2, D, masked)
+    want_out, want = _jax_vjp(q, k, v, g, km, causal)
+    out, got = _port_vjp(q, k, v, g, km, causal)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out),
+                               **FWD_TOL)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert tuple(a.shape) == np.shape(b)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
+                                   **BWD_TOL)
+    assert [c[0] for c in calls] == ["flash_wide_fwd_f32",
+                                     "flash_wide_dq_f32",
+                                     "flash_wide_dkv_f32"]
+    for symbol, args in calls:
+        assert args[_d_at(symbol)] == D
+        assert args[-2] == pytest.approx(1 / np.sqrt(D)), symbol
+    assert fa.launch_counts() == {
+        **dict.fromkeys(fa.launch_counts(), 0), "flash_wide_fwd": 1,
+        "flash_wide_dq": 1, "flash_wide_dkv": 1}
+    assert {k: n for k, n in fa.route_counts().items() if n} == {
+        "flash_fwd_wide": 1, "flash_bwd_dq_wide": 1, "flash_bwd_dkv_wide": 1}
+
+
+@pytest.mark.parametrize("D", [264, 320])
+def test_wide_bf16_entries_equal_the_plain_versions(calls, D):
+    """bf16 operands above 256 reach the bf16 wide entries; the result is
+    within the bf16 bars of the plain versions (tests/test_torch_train_
+    bf16.py: out 1.6e-2, LSE 1e-5 here as both compute it in f32, each
+    gradient |k - p| <= 2e-2 |p| + 1e-2 max|p|)."""
+    rng = np.random.default_rng(D + 1)
+    *ops, km = _operands(rng, 2, 11, 2, D, True)
+    q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16) for a in ops)
+    km = torch.from_numpy(km)
+    out, lse = fa.flash_attention(q, k, v, causal=True, key_mask=km,
+                                  return_lse=True)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=True,
+                                            key_mask=km, return_lse=True)
+    np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(),
+                               atol=1.6e-2)
+    np.testing.assert_allclose(lse.numpy(), ref_lse.numpy(), atol=1e-5)
+    got = fa.flash_attention_bwd(q, k, v, ref, ref_lse, g, causal=True,
+                                 key_mask=km)
+    want = fa.flash_attention_bwd_plain(q, k, v, ref, ref_lse, g,
+                                        causal=True, key_mask=km)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        a, b = a.float(), b.float()
+        assert bool(((a - b).abs() <= 2e-2 * b.abs()
+                     + 1e-2 * b.abs().max()).all())
+    assert [c[0] for c in calls] == ["flash_wide_fwd_bf16",
+                                     "flash_wide_dq_bf16",
+                                     "flash_wide_dkv_bf16"]
+    counts = fa.launch_counts()
+    assert (counts["flash_wide_fwd_bf16"], counts["flash_wide_dq_bf16"],
+            counts["flash_wide_dkv_bf16"]) == (1, 1, 1)
+    assert {k: n for k, n in fa.route_counts().items() if n} == {
+        "flash_fwd_bf16_wide": 1, "flash_bwd_dq_bf16_wide": 1,
+        "flash_bwd_dkv_bf16_wide": 1}
+
+
+@pytest.mark.parametrize("lengths", [[1, 30, 64, 0], [64, 17, 3, 40]])
+def test_decode_at_head_dim_320_matches_jax(calls, lengths):
+    """D > 256: the slab decode runs the wide forward under the key mask
+    `position < lengths` (a slot of length 0: the uniform average, as the
+    reference gives it) and matches the JAX `flash_decode`."""
+    rng = np.random.default_rng(sum(lengths) + 1)
+    S, C, H, D = 4, 64, 2, 320
+    q = rng.normal(size=(S, 1, H, D)).astype(np.float32)
+    k, v = (rng.normal(size=(S, C, H, D)).astype(np.float32)
+            for _ in range(2))
+    lens = np.asarray(lengths, np.int32)
+    want = jax_flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            jnp.asarray(lens), use_pallas=True)
+    got = fa.flash_decode(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), torch.from_numpy(lens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
+    (symbol, args), = calls
+    assert symbol == "flash_wide_fwd_f32"
+    assert args[6:11] == (S, H, 1, C, D) and args[5] is None    # no LSE
+    assert args[3] is not None                                  # key mask
+    assert fa.launch_counts()["flash_wide_fwd"] == 1
+    assert {k: n for k, n in fa.route_counts().items() if n} == {
+        "flash_decode_wide": 1}
+
+
+@pytest.mark.parametrize("bs", [8, 64])
+def test_paged_decode_at_head_dim_320_matches_jax(calls, bs):
+    """D > 256: the paged decode gathers the pool through the table, as
+    the reference does, then runs the wide forward; matches the JAX
+    `flash_decode_paged`."""
+    rng = np.random.default_rng(bs + 1)
+    S, H, D, nb = 3, 2, 320, 128 // bs
+    q, pk, pv, table, lens = _paged_operands(rng, S, H, D, bs, nb,
+                                             [0, 77, 128])
+    want = jax_flash_decode_paged(*(jnp.asarray(a)
+                                    for a in (q, pk, pv, table, lens)),
+                                  use_pallas=True)
+    got = fa.flash_decode_paged(*(torch.from_numpy(a)
+                                  for a in (q, pk, pv, table, lens)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
+    (symbol, args), = calls
+    assert symbol == "flash_wide_fwd_f32" and args[6:11] == (S, H, 1,
+                                                               nb * bs, D)
+    assert {k: n for k, n in fa.route_counts().items() if n} == {
+        "flash_decode_paged_wide": 1}
+
+
+def test_self_attention_layer_at_head_dim_320_matches_jax(calls):
+    """`SelfAttentionLayer(n_out=640, n_heads=2, use_pallas=True)`, weights
+    carried across by `util.params.params_from_jax`: the forward runs the
+    wide kernel and matches the JAX layer's Pallas path."""
+    from deeplearning4j_tpu.nn.conf.inputs import InputType as JInputType
+    from deeplearning4j_tpu.nn.conf.layers import \
+        SelfAttentionLayer as JSelfAttentionLayer
+    from deeplearning4j_tpu.nn.layers.recurrent import \
+        SelfAttentionLayerModule as JSelfAttentionLayerModule
+    from deeplearning4j_tpu_torch.nn.conf.layers import SelfAttentionLayer
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import \
+        SelfAttentionLayerModule
+    from deeplearning4j_tpu_torch.util.params import params_from_jax
+    conf = dict(n_in=16, n_out=640, n_heads=2, causal=True, use_pallas=True,
+                activation="identity")
+    jconf = JSelfAttentionLayer(**conf)
+    jconf.apply_global_defaults({})
+    jmod = JSelfAttentionLayerModule(jconf)
+    jparams, _, _ = jmod.init(jax.random.PRNGKey(0), JInputType.recurrent(16))
+    tconf = SelfAttentionLayer(**conf)
+    tconf.apply_global_defaults({})
+    tmod = SelfAttentionLayerModule(tconf)
+    tparams = params_from_jax({f"attn/{k}": np.asarray(v)
+                               for k, v in jparams.items()},
+                              device="cpu")["attn"]
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2, 12, 16)).astype(np.float32)
+    mask = np.ones((2, 12), np.float32)
+    mask[1, 7:] = 0.0
+    want = jmod.forward(jparams, {}, jnp.asarray(x), mask=jnp.asarray(mask))[0]
+    got, _ = tmod.forward(tparams, torch.from_numpy(x),
+                          mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
+    assert [c[0] for c in calls] == ["flash_wide_fwd_f32"]
+    assert calls[0][1][_d_at("flash_wide_fwd_f32")] == 320
 
 
 # ------------------------------------------------------ decode at D = 48
@@ -503,6 +702,9 @@ def test_paged_decode_at_head_dim_48_matches_jax(calls, bs):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_batch_heads_65540_launch_in_slices_that_tile_the_batch(calls,
                                                                 dtype):
+    """Named for the batch slices that B * H = 65540 took while the
+    CUDA-core kernels put batch * heads on grid y: now each kernel
+    launches once, on the whole batch."""
     B, T, H, D = 16385, 2, 4, 16
     rng = np.random.default_rng(3)
     q, k, v, g = (torch.from_numpy(rng.normal(size=(B, T, H, D))
@@ -519,26 +721,39 @@ def test_batch_heads_65540_launch_in_slices_that_tile_the_batch(calls,
         float((out.detach().float() - ref.float()).abs().max()) <= 1.6e-2
     assert float((qg.grad.float() - ref_dq.float()).abs().max()) <= (
         1e-5 if dtype == torch.float32 else 3e-2)
-    rows = 65535 // H
     assert [(c[0].rsplit("_", 1)[0]) for c in calls] == \
-        ["flash_fwd", "flash_fwd", "flash_bwd_dq", "flash_bwd_dq",
-         "flash_bwd_dkv", "flash_bwd_dkv"]
-    for i in (0, 2, 4):
-        (_, a0), (_, a1) = calls[i], calls[i + 1]
-        b_at = 6 if i == 0 else 8 + (i == 4)
-        # the slices tile the batch once: [0, rows) then [rows, B)
-        assert (a0[b_at], a1[b_at]) == (rows, B - rows)
-        step = rows * T * H * D * q.element_size()
-        assert a1[0] - a0[0] == step            # q's rows, one after another
+        ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"]
+    for symbol, args in calls:
+        assert args[_b_at(symbol):_b_at(symbol) + 2] == (B, H)
     suffix = "_bf16" if dtype == torch.bfloat16 else ""
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        assert fa.launch_counts()[name + suffix] == 2
+        assert fa.launch_counts()[name + suffix] == 1
 
 
 def test_more_heads_than_the_grid_takes_raise(calls):
-    q = torch.zeros((1, 1, 65536, 16))
-    with pytest.raises(ValueError, match="65536 heads exceed"):
-        fa.flash_attention(q, q, q)
+    """Named for the ValueError that H = 65536 raised while the CUDA-core
+    kernels put batch * heads on grid y: now 65536 heads run forward and
+    backward in one launch each, f32 and bf16, and equal the plain
+    versions."""
+    rng = np.random.default_rng(7)
+    B, T, H, D = 1, 2, 65536, 16
+    for dtype, suffix in ((torch.float32, "_f32"), (torch.bfloat16, "_bf16")):
+        calls.clear()
+        q, k, v, g = (torch.from_numpy(rng.normal(size=(B, T, H, D))
+                                       .astype(np.float32)).to(dtype)
+                      for _ in range(4))
+        out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=True,
+                                                return_lse=True)
+        assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, ref, ref_lse, g,
+                                            causal=True)
+        for a, b in zip((dq, dk, dv), fa.flash_attention_bwd_plain(
+                q, k, v, ref, ref_lse, g, causal=True)):
+            assert torch.equal(a, b)
+        assert [(s, a[_b_at(s):_b_at(s) + 2]) for s, a in calls] == [
+            (s + suffix, (B, H))
+            for s in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]
 
 
 # -------------------------------------------------------- the split plan
