@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B of the attention kernels between two checkouts on one GPU.
 
-    python3 chip_ab.py run ROOT LABEL [f32|decode]   # one turn
+    python3 chip_ab.py run ROOT LABEL [f32|decode|wide|rank]   # one turn
     python3 chip_ab.py summary LOG...         # table of the turns
     python3 chip_ab.py sweep ROOT LABEL       # decode at each cluster size
 
@@ -26,7 +26,19 @@ D=32), and `_paged_case` at the served step (block size 16, 16 blocks a
 slot), at block sizes 8 and 64, at S=64 with 256 blocks of 16 and at
 bench_decode_paged's shape; a checkout whose case functions time the
 decode grid's launch floor and count the kernels a call launches adds
-them to each record. Inputs come from fixed seeds,
+them to each record. With `wide`, the forward above head dim 256 in
+float32 and bfloat16 (`_forward_case` below, the same measurement on
+either checkout, through ROOT's `flash_attention`): the D=320 model's
+training shape (B=4 T=128 H=2, causal, with the LSE), B=2 T=200 H=4
+causal with a ragged key mask at D=264, 320, 512 and 1024, and the long
+causal shapes with the LSE, B=2 T=4096 H=4 D=512 and B=1 T=4096 H=4
+D=1024; then phase 2b's `_wide_decode_case` (the f32 decode step through
+the wide forward, S=8 C=256 H=4 D=320, slab and paged with blocks of
+16). With `rank`, the kernels no PR has redesigned yet, once each at the
+train case (B=16 T=512 causal, H so that H * D = 256): phase 2's
+`_fwd_case` at D=256, `_bwd_case` at D=16, 32, 128 and 256,
+`_bf16_case` at D=16 and 32, and both at the long wide case B=2 T=4096
+H=4 D=512. Inputs come from fixed seeds,
 so both checkouts see the same tensors, and every gate of those
 functions holds in each turn. It prints one line `{"ab": LABEL, "cases":
 [...]}` with each kernel's device time (the profiler's, per call),
@@ -122,6 +134,25 @@ DECODE = [
     ("paged", "S=64 nb=256 bs=16 H=8", 64, 16, 256, 8, 64, _BIG),
     ("paged", "bench_decode_paged shape", 4, 16, 8, 4, 32, [25, 48, 37, 30]),
 ]
+# the wide forward: (label, B, T, H, D, valid key lengths or None, lse),
+# causal
+WIDE_FWD = [
+    ("D=320 train B=4 T=128 H=2", 4, 128, 2, 320, None, True),
+    *((f"D={D} B=2 T=200 H=4, ragged key mask", 2, 200, 4, D, [200, 137],
+       False) for D in (264, 320, 512, 1024)),
+    ("B=2 T=4096 H=4 D=512", 2, 4096, 4, 512, None, True),
+    ("B=1 T=4096 H=4 D=1024", 1, 4096, 4, 1024, None, True),
+]
+# the f32 decode step through the wide forward: (label, S, H, D, block
+# size or None for the slab)
+WIDE_DECODE = [("decode step S=8 C=256 H=4 D=320", 8, 4, 320, None),
+               ("paged decode step S=8 C=256 H=4 D=320 bs=16", 8, 4, 320,
+                16)]
+# the kernels not yet redesigned, at the train case with H * D = 256:
+# (case function, D); and the wide pair at the long case
+RANK = [("fwd", 256), *(("bwd", D) for D in (16, 32, 128, 256)),
+        *(("bf16", D) for D in (16, 32))]
+RANK_WIDE = ("B=2 T=4096 H=4 D=512", 2, 4096, 4, 512)
 SHARD = dict(B=4, T=1024, H=8, D=64)
 SHARD_F32 = dict(B=1, T=1024, H=4, D=64)
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
@@ -148,6 +179,84 @@ def _bounds(rec, cs):
     return out
 
 
+def _forward_case(cs, label, dtype, B, T, H, D, valid, lse, gen):
+    """The forward alone (causal, key mask from `valid`, the LSE when
+    `lse`) through ROOT's `flash_attention`, held to ROOT's bars against
+    its plain version (f32: TOL on out and LSE; bf16: BF16_OUT_TOL,
+    BF16_LSE_TOL), timed beside the plain version and SDPA on the same
+    inputs (TF32 off: phase_card). Returns the record."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import (flash_attention,
+                                                  flash_attention_plain)
+    bf16 = dtype == torch.bfloat16
+    q, k, v = (torch.randn((B, T, H, D), generator=gen).to(cs.DEVICE, dtype)
+               for _ in range(3))
+    km = cs._key_mask(B, T, valid)
+    kw = dict(causal=True, key_mask=km, return_lse=lse)
+    run = lambda: flash_attention(q, k, v, **kw)
+    plain = lambda: flash_attention_plain(q, k, v, **kw)
+    got, want = (r if lse else (r,) for r in (run(), plain()))
+    torch.cuda.synchronize()
+    name = "flash_fwd_bf16" if bf16 else "flash_fwd"
+    out_tol, lse_tol = ((cs.BF16_OUT_TOL, cs.BF16_LSE_TOL) if bf16
+                        else (cs.TOL, cs.TOL))
+    err = float((got[0].float() - want[0].float()).abs().max())
+    cs.check(got[0].dtype == dtype and bool(torch.isfinite(
+        got[0].float()).all()) and err <= out_tol,
+             f"{name} {label}: {got[0].dtype}, max abs err {err}")
+    if lse:
+        lse_err = float((got[1] - want[1]).abs().max())
+        cs.check(lse_err <= lse_tol, f"{name} {label}: lse max abs err "
+                                     f"{lse_err}")
+    sq, sk, sv = (t.transpose(1, 2) for t in (q, k, v))
+    mask = None if km is None else (km > 0)[:, None, None, :] & torch.ones(
+        (T, T), dtype=torch.bool, device=q.device).tril()
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        sq, sk, sv, is_causal=mask is None, attn_mask=mask)
+    size = 2 if bf16 else 4
+    nbytes = size * 4 * B * T * H * D + 4 * (
+        (B * H * T if lse else 0) + (B * T if km is not None else 0))
+    pairs = cs._valid_pairs(B, T, T, H, True, km)
+    return cs.rate_fields({
+        "name": cs.kernel_name(name, D), "case": label,
+        "shape": [B, T, T, H, D], "lse": lse, "key_mask": km is not None,
+        "max_abs_err": err, "ms": cs.median_ms(run),
+        "plain_ms": cs.median_ms(plain), "library_ms": cs.median_ms(library),
+        **cs.bound(nbytes, 4 * D * pairs, bf16=bf16),
+        "device_ms": cs.device_ms(run), "plain_device_ms": cs.device_ms(plain),
+        "library_device_ms": cs.device_ms(library)})
+
+
+def _wide(cs):
+    import torch
+    gen = torch.Generator().manual_seed(8)
+    recs = [_forward_case(cs, lab, dtype, B, T, H, D, valid, lse, gen)
+            for dtype in (torch.float32, torch.bfloat16)
+            for lab, B, T, H, D, valid, lse in WIDE_FWD]
+    recs += [cs._wide_decode_case(lab, S, H, D, cs.STEP_LENGTHS, gen, bs=bs)
+             for lab, S, H, D, bs in WIDE_DECODE]
+    return recs
+
+
+def _rank(cs):
+    import torch
+    gen = torch.Generator().manual_seed(9)
+    recs = []
+    for case, D in RANK:
+        H = 256 // D
+        lab = f"train B=16 T=512 H={H} D={D}"
+        if case == "fwd":
+            recs.append(cs._fwd_case(lab, 16, 512, H, D, None, gen,
+                                     lse=True))
+        else:
+            fn = cs._bwd_case if case == "bwd" else cs._bf16_case
+            recs += fn(lab, 16, 512, 512, H, D, True, None, gen)
+    lab, B, T, H, D = RANK_WIDE
+    for fn in (cs._bwd_case, cs._bf16_case):
+        recs += fn(lab, B, T, T, H, D, True, None, gen)
+    return recs
+
+
 def run(root, label, dtype="bf16"):
     root = Path(root).resolve()
     sys.path.insert(0, str(root))
@@ -161,6 +270,10 @@ def run(root, label, dtype="bf16"):
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device is visible")
     cs.phase_card()
+    if dtype in ("wide", "rank"):
+        _print_turn(label, root, (_wide if dtype == "wide" else _rank)(cs),
+                    cs)
+        return
     if dtype == "decode":
         gen = torch.Generator().manual_seed(5)
         recs = [cs._decode_case(*c[1:], gen) if c[0] == "slab"
@@ -299,7 +412,8 @@ def summary(logs):
 
 if __name__ == "__main__":
     if len(sys.argv) in (4, 5) and sys.argv[1] == "run" \
-            and sys.argv[4:] in ([], ["f32"], ["bf16"], ["decode"]):
+            and sys.argv[4:] in ([], ["f32"], ["bf16"], ["decode"],
+                                 ["wide"], ["rank"]):
         run(*sys.argv[2:])
     elif len(sys.argv) >= 3 and sys.argv[1] == "summary":
         summary(sys.argv[2:])

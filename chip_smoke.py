@@ -101,8 +101,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    entries at the step shape (S=8 C=256 H=4; the paged one on a shuffled
    table of blocks of 16), each within phase 2's bars of its plain
    version, counting its `<kernel>_wide` route and its wide launch and no
-   other; the D=320 model's training shape (B=4 T=128 H=2, three times
-   bitwise); batch * heads = 16385 * 4 = 65540 (T=16) and 65536 heads
+   other; a long causal forward, B=1 T=2048 H=4 D=512 with the LSE, f32
+   and bf16, printed with its share of the bound; the D=320 model's
+   training shape (B=4 T=128 H=2, three times bitwise); batch * heads = 16385 * 4 = 65540 (T=16) and 65536 heads
    (B=1, T=2) at D=32 and 64, f32 and bf16, forward and backward against
    plain, one launch each. The D=320 model, `transformer_lm(d_model=640,
    n_layers=2, n_heads=2)` with use_pallas=True: 3 `fit` steps at batch
@@ -209,7 +210,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    D=320 model's training_wide, training_wide_bf16, decode_wide,
    decode_wide_paged) must count zero padded and zero plain-route calls,
    and only the D=320 model's paths wide ones; every kernel must have
-   launched on its main path. One line `{"kernels": [...]}` with each of
+   launched on its main path. The run's time, then one line
+   `{"kernels": [...]}` with each of
    the 14 kernels' numbers (the six wide entries' at the D=320 model's
    training shape; `launches_by_path` over every path; the decode
    kernels their kernels per call, CTAs per pair and launch floor), then
@@ -292,6 +294,8 @@ WIDE_HEAD_DIMS = (264, 320, 512, 1024)
 WIDE_MODEL = dict(vocab_size=256, d_model=640, n_layers=2, n_heads=2)
 WIDE_BATCH, WIDE_SEQ, WIDE_STEPS = 4, 128, 3
 WIDE_TRAIN_CASE = f"D=320 train B={WIDE_BATCH} T={WIDE_SEQ} H=2"
+WIDE_LONG = (1, 2048, 4, 512)       # B, T, H, D: causal, with the LSE
+WIDE_LONG_CASE = "D=512 B=1 T=2048 H=4 long"
 # bench_decode_paged's model and requests (bench.py:724-748)
 BENCH_PAGED_MODEL = dict(vocab_size=256, d_model=128, n_layers=2, n_heads=4)
 BENCH_PAGED_SERVE = dict(decode_slots=4, decode_max_len=128,
@@ -482,18 +486,24 @@ def _fwd_case(label, B, T, H, D, valid, gen, lse=False):
 
 
 def _fwd_general_case(label, B, Tq, Tk, H, D, causal, valid, gen, lse=False,
-                      repeat=False):
+                      repeat=False, dtype=None):
     """One flash_fwd case at any lengths, causal or not (offsets 0), key
     mask from `valid` (per-batch valid prefix length of the Tk keys or
-    None), with the log-sum-exp output when `lse`. Out (and the LSE)
-    against the plain version within TOL; with `repeat`, the call runs
-    twice more and must give the same bits. Returns its record."""
+    None), with the log-sum-exp output when `lse`, on float32 operands or
+    (`dtype` torch.bfloat16) bf16 ones, the bf16 forward's. Out (and the
+    LSE) against the plain version within TOL (bf16: BF16_OUT_TOL and
+    BF16_LSE_TOL); with `repeat`, the call runs twice more and must give
+    the same bits. Returns its record."""
     import torch
     from deeplearning4j_tpu_torch.kernels import (flash_attention,
                                                   flash_attention_plain)
     dev = torch.device(DEVICE)
-    q = torch.randn((B, Tq, H, D), generator=gen).to(dev)
-    k, v = (torch.randn((B, Tk, H, D), generator=gen).to(dev)
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    name = kernel_name("flash_fwd_bf16" if bf16 else "flash_fwd", D)
+    out_tol, lse_tol = (BF16_OUT_TOL, BF16_LSE_TOL) if bf16 else (TOL, TOL)
+    q = torch.randn((B, Tq, H, D), generator=gen).to(dev, dtype)
+    k, v = (torch.randn((B, Tk, H, D), generator=gen).to(dev, dtype)
             for _ in range(2))
     km = _key_mask(B, Tk, valid)
     run = lambda: flash_attention(q, k, v, causal=causal, key_mask=km,
@@ -508,16 +518,17 @@ def _fwd_general_case(label, B, Tq, Tk, H, D, causal, valid, gen, lse=False,
     out, want = got[0], ref[0]
     if lse:
         lse_err = float((got[1] - ref[1]).abs().max())
-        check(lse_err <= TOL, f"flash_fwd {label}: lse max abs err "
-                              f"{lse_err} > {TOL}")
-    check(bool(torch.isfinite(out).all()), f"flash_fwd {label}: non-finite")
-    err = float((out - want).abs().max())
-    check(err <= TOL, f"flash_fwd {label}: max abs err {err} > {TOL}")
+        check(lse_err <= lse_tol, f"{name} {label}: lse max abs err "
+                                  f"{lse_err} > {lse_tol}")
+    check(out.dtype == dtype and bool(torch.isfinite(out.float()).all()),
+          f"{name} {label}: {out.dtype}, or non-finite")
+    err = float((out.float() - want.float()).abs().max())
+    check(err <= out_tol, f"{name} {label}: max abs err {err} > {out_tol}")
     if repeat:
         for _ in range(2):
             check(all(torch.equal(a, b)
                       for a, b in zip(got, outputs(run()))),
-                  f"flash_fwd {label}: results differ bitwise between runs")
+                  f"{name} {label}: results differ bitwise between runs")
     sdpa_q, sdpa_k, sdpa_v = (t.transpose(1, 2) for t in (q, k, v))
     sdpa_mask = None
     if km is not None:   # boolean [B, 1, Tq, Tk]: key-valid (AND causal)
@@ -534,19 +545,19 @@ def _fwd_general_case(label, B, Tq, Tk, H, D, causal, valid, gen, lse=False,
     if H > SDPA_MAX_HEADS:
         library = None
     lib_err = None if library is None else float(
-        (library().transpose(1, 2) - want).abs().max())
+        (library().transpose(1, 2).float() - want.float()).abs().max())
     pairs = _valid_pairs(B, Tq, Tk, H, causal, km)
-    nbytes = 4 * (2 * B * Tq * H * D + 2 * B * Tk * H * D
-                  + (B * H * Tq if lse else 0)
-                  + (B * Tk if km is not None else 0))
-    rec = {"name": kernel_name("flash_fwd", D), "case": label,
+    nbytes = (q.element_size() * (2 * B * Tq * H * D + 2 * B * Tk * H * D)
+              + 4 * ((B * H * Tq if lse else 0)
+                     + (B * Tk if km is not None else 0)))
+    rec = {"name": name, "case": label,
            "shape": [B, Tq, Tk, H, D], "causal": causal, "lse": lse,
            "key_mask": km is not None, "max_abs_err": err,
            "library_max_abs_err": lib_err,
            "ms": median_ms(run), "plain_ms": median_ms(plain),
            "library_ms": None if library is None else median_ms(library),
-           **bound(nbytes, 4 * D * pairs), "device_ms": device_ms(run),
-           "plain_device_ms": device_ms(plain),
+           **bound(nbytes, 4 * D * pairs, bf16=bf16),
+           "device_ms": device_ms(run), "plain_device_ms": device_ms(plain),
            "library_device_ms": (None if library is None
                                  else device_ms(library)),
            "bitwise_repeat": repeat}
@@ -1333,7 +1344,17 @@ def phase_head_dims():
                                        STEP_LENGTHS, gen))
         cases.append(_wide_decode_case(f"paged decode step D={D}", 8, 4, D,
                                        STEP_LENGTHS, gen, bs=16))
+    # a long causal case of the wide forward, f32 and bf16, with its share
+    # of the bound
+    B, T, H, D = WIDE_LONG
+    for dtype, kernels, routes in ((torch.float32, wide_f32, wide_routes),
+                                   (torch.bfloat16, wide_bf16,
+                                    wide_bf16_routes)):
+        cases.append(_routed(WIDE_LONG_CASE, lambda: _fwd_general_case(
+            WIDE_LONG_CASE, B, T, T, H, D, True, None, gen, lse=True,
+            dtype=dtype), kernels[:1], False, wide=routes[:1]))
     # the D=320 model's training shape: its kernels' records on the path
+    # (each forward three times, bitwise equal)
     cases.append(_fwd_general_case(WIDE_TRAIN_CASE, WIDE_BATCH, WIDE_SEQ,
                                    WIDE_SEQ, 2, 320, True, None, gen,
                                    lse=True, repeat=True))
@@ -2505,6 +2526,7 @@ def main():
         print(f"chip_smoke: the port package is not beside this script: {e}",
               file=sys.stderr)
         return 1
+    t0 = time.perf_counter()
     smi = phase_card()
     cases = phase_kernels()
     head_cases, _, launches = phase_head_dims()
@@ -2550,6 +2572,8 @@ def main():
                                  "kernels_per_call", "ctas_per_pair",
                                  "launch_floor_device_ms")
                if k in c}})
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t0:.1f} s")
     print(smi)              # the card's name and power limit, again
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -282,14 +282,17 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
 }
 
 // Store a 64 x 64 f32 accumulator as bf16 rows of a dense output: column
-// block `col0`, tile row 0 at `row0`, rows at or past T skipped.
+// block `col0`, tile row 0 at `row0`, rows at or past T and the block's
+// columns at or past `cols` (a multiple of 8) skipped.
 __device__ __forceinline__ void store_acc(bf16* base, long long row_stride,
                                           int row0, int T, int col0,
-                                          const float (&d)[32], int tid) {
+                                          const float (&d)[32], int tid,
+                                          int cols = 64) {
   const int lane = tid % 32, g = lane / 4, t = lane % 4;
   const int r = row0 + (tid / 32) * 16 + g;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
+    if (cols < 64 && 8 * j + 2 * t >= cols) continue;
     const int col = col0 + 8 * j + 2 * t;
     if (r < T)
       *reinterpret_cast<uint32_t*>(base + r * row_stride + col) =

@@ -161,6 +161,50 @@ def test_decode_turn_runs_the_path_shapes_of_both_decode_kernels():
         "bs=8 S=4 nb=32", "bs=64 S=4 nb=4"}
 
 
+def test_wide_turn_times_the_wide_forward_at_the_path_and_long_shapes():
+    """`run ROOT LABEL wide` times the forward above head dim 256 where
+    the D=320 model runs it (its training shape with the LSE; the f32
+    decode step, slab and paged with blocks of 16), at chip_smoke's ragged
+    cases, and at two long causal shapes of 137.5 GFLOP each (4 * D per
+    unmasked pair)."""
+    import chip_smoke
+    cases = {c[0]: c[1:] for c in chip_ab.WIDE_FWD}
+    assert cases["D=320 train B=4 T=128 H=2"] == (
+        chip_smoke.WIDE_BATCH, chip_smoke.WIDE_SEQ, 2, 320, None, True)
+    for D in chip_smoke.WIDE_HEAD_DIMS:
+        assert cases[f"D={D} B=2 T=200 H=4, ragged key mask"] == (
+            2, 200, 4, D, [200, 137], False)
+    for label, D in (("B=2 T=4096 H=4 D=512", 512),
+                     ("B=1 T=4096 H=4 D=1024", 1024)):
+        B, T, H, d, valid, lse = cases[label]
+        assert (d, valid, lse) == (D, None, True)
+        assert 4 * D * B * H * T * (T + 1) // 2 == pytest.approx(137.5e9,
+                                                                 rel=1e-3)
+    assert [(S, H, D, bs) for _, S, H, D, bs in chip_ab.WIDE_DECODE] == [
+        (8, 4, 320, None), (8, 4, 320, 16)]
+
+
+def test_rank_turn_takes_each_kernel_not_yet_redesigned_once():
+    """`run ROOT LABEL rank` times the f32 forward at D=256, the f32 pair
+    at D=16, 32, 128 and 256 and the bf16 kernels at D=16 and 32 at the
+    train case with H * D = 256, and the wide pair at the long D=512
+    case."""
+    assert chip_ab.RANK == [("fwd", 256), ("bwd", 16), ("bwd", 32),
+                            ("bwd", 128), ("bwd", 256), ("bf16", 16),
+                            ("bf16", 32)]
+    assert all(256 % D == 0 for _, D in chip_ab.RANK)
+    assert chip_ab.RANK_WIDE == ("B=2 T=4096 H=4 D=512", 2, 4096, 4, 512)
+
+
+@pytest.mark.parametrize("dtype", ["wide", "rank"])
+def test_wide_and_rank_turns_refuse_without_a_card(dtype):
+    res = subprocess.run([sys.executable, str(ROOT / "chip_ab.py"), "run",
+                          str(ROOT), "change", dtype], capture_output=True,
+                         text=True, timeout=120, cwd=str(ROOT))
+    assert res.returncode != 0
+    assert '{"ab"' not in res.stdout
+
+
 def test_summary_of_f32_forward_records(tmp_path, capsys):
     """A float32 forward record gets both f32 bounds from its operations
     (4*D per pair) and bytes, and the summary its ratio, rates, shares of

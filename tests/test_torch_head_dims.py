@@ -325,10 +325,10 @@ def test_head_dims_the_reference_runs_plainly(D):
 
 
 @pytest.mark.parametrize("D", [264, 512])
-def test_head_dims_above_the_widest_kernel_raise(calls, D):
-    """Named for the ValueError these head dims raised before the wide
-    kernels: now each takes the wide forward at its own width, unpadded,
-    counted as a wide call and a launch of the wide entry."""
+def test_head_dims_above_256_take_the_wide_forward_unpadded(calls, D):
+    """Above the widest compiled width a head dim takes the wide forward
+    at its own width, unpadded, counted as a wide call and a launch of the
+    wide entry."""
     assert fa.kernel_head_dim(D) == D and fa.can_flash(4, 4, D)
     rng = np.random.default_rng(D)
     q, k, v, _, _ = (torch.from_numpy(a) if a is not None else None
@@ -459,9 +459,8 @@ def test_head_dim_20_takes_the_plain_route_and_matches_jax(calls):
     assert calls == []
 
 
-def test_head_dim_264_raises_on_every_entry(calls):
-    """Named for the ValueError every entry raised at D=264 before the wide
-    kernels: now every entry runs its wide kernel (the decode entries the
+def test_every_entry_at_head_dim_264_runs_its_wide_kernel(calls):
+    """At D=264 every entry runs its wide kernel (the decode entries the
     wide forward) and matches the JAX package."""
     rng = np.random.default_rng(1)
     q, k, v, g, _ = _operands(rng, 2, 6, 1, 264, False)
@@ -700,11 +699,9 @@ def test_paged_decode_at_head_dim_48_matches_jax(calls, bs):
 
 # --------------------------------------------- batch * heads beyond 65535
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_batch_heads_65540_launch_in_slices_that_tile_the_batch(calls,
-                                                                dtype):
-    """Named for the batch slices that B * H = 65540 took while the
-    CUDA-core kernels put batch * heads on grid y: now each kernel
-    launches once, on the whole batch."""
+def test_batch_heads_65540_take_one_launch_per_kernel(calls, dtype):
+    """B * H = 65540, past the 65535 of a grid's y dimension: each kernel
+    launches once, on the whole batch (the one-dimensional grid)."""
     B, T, H, D = 16385, 2, 4, 16
     rng = np.random.default_rng(3)
     q, k, v, g = (torch.from_numpy(rng.normal(size=(B, T, H, D))
@@ -730,11 +727,9 @@ def test_batch_heads_65540_launch_in_slices_that_tile_the_batch(calls,
         assert fa.launch_counts()[name + suffix] == 1
 
 
-def test_more_heads_than_the_grid_takes_raise(calls):
-    """Named for the ValueError that H = 65536 raised while the CUDA-core
-    kernels put batch * heads on grid y: now 65536 heads run forward and
-    backward in one launch each, f32 and bf16, and equal the plain
-    versions."""
+def test_65536_heads_take_one_launch_per_kernel(calls):
+    """65536 heads run forward and backward in one launch each, f32 and
+    bf16, and equal the plain versions."""
     rng = np.random.default_rng(7)
     B, T, H, D = 1, 2, 65536, 16
     for dtype, suffix in ((torch.float32, "_f32"), (torch.bfloat16, "_bf16")):
