@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B of the attention kernels between two checkouts on one GPU.
 
-    python3 chip_ab.py run ROOT LABEL [f32|decode|wide|rank]   # one turn
+    python3 chip_ab.py run ROOT LABEL [f32|decode|wide|wide_bwd|rank]
     python3 chip_ab.py summary LOG...         # table of the turns
     python3 chip_ab.py sweep ROOT LABEL       # decode at each cluster size
 
@@ -34,11 +34,14 @@ causal with a ragged key mask at D=264, 320, 512 and 1024, and the long
 causal shapes with the LSE, B=2 T=4096 H=4 D=512 and B=1 T=4096 H=4
 D=1024; then phase 2b's `_wide_decode_case` (the f32 decode step through
 the wide forward, S=8 C=256 H=4 D=320, slab and paged with blocks of
-16). With `rank`, the kernels no PR has redesigned yet, once each at the
-train case (B=16 T=512 causal, H so that H * D = 256): phase 2's
-`_fwd_case` at D=256, `_bwd_case` at D=16, 32, 128 and 256,
-`_bf16_case` at D=16 and 32, and both at the long wide case B=2 T=4096
-H=4 D=512. Inputs come from fixed seeds,
+16). With `wide_bwd`, the float32 backward pair above head dim 256
+(phase 2's `_bwd_case`, gated against the plain versions) at the same
+causal shapes: the D=320 model's training shape, the ragged cases at
+D=264, 320, 512 and 1024 and the two long shapes. With `rank`, the
+kernels no PR has redesigned yet, once each at the train case (B=16
+T=512 causal, H so that H * D = 256): phase 2's `_fwd_case` at D=256,
+`_bwd_case` at D=16, 32, 128 and 256, `_bf16_case` at D=16 and 32 and
+at the long wide case B=2 T=4096 H=4 D=512. Inputs come from fixed seeds,
 so both checkouts see the same tensors, and every gate of those
 functions holds in each turn. It prints one line `{"ab": LABEL, "cases":
 [...]}` with each kernel's device time (the profiler's, per call),
@@ -143,13 +146,16 @@ WIDE_FWD = [
     ("B=2 T=4096 H=4 D=512", 2, 4096, 4, 512, None, True),
     ("B=1 T=4096 H=4 D=1024", 1, 4096, 4, 1024, None, True),
 ]
+# the float32 backward pair above head dim 256: (label, B, T, H, D, valid
+# key lengths or None), causal
+WIDE_BWD = [(lab, B, T, H, D, valid) for lab, B, T, H, D, valid, _ in WIDE_FWD]
 # the f32 decode step through the wide forward: (label, S, H, D, block
 # size or None for the slab)
 WIDE_DECODE = [("decode step S=8 C=256 H=4 D=320", 8, 4, 320, None),
                ("paged decode step S=8 C=256 H=4 D=320 bs=16", 8, 4, 320,
                 16)]
 # the kernels not yet redesigned, at the train case with H * D = 256:
-# (case function, D); and the wide pair at the long case
+# (case function, D); and the bf16 wide pair at the long case
 RANK = [("fwd", 256), *(("bwd", D) for D in (16, 32, 128, 256)),
         *(("bf16", D) for D in (16, 32))]
 RANK_WIDE = ("B=2 T=4096 H=4 D=512", 2, 4096, 4, 512)
@@ -238,6 +244,15 @@ def _wide(cs):
     return recs
 
 
+def _wide_bwd(cs):
+    import torch
+    gen = torch.Generator().manual_seed(10)
+    recs = []
+    for lab, B, T, H, D, valid in WIDE_BWD:
+        recs += cs._bwd_case(lab, B, T, T, H, D, True, valid, gen)
+    return recs
+
+
 def _rank(cs):
     import torch
     gen = torch.Generator().manual_seed(9)
@@ -252,8 +267,7 @@ def _rank(cs):
             fn = cs._bwd_case if case == "bwd" else cs._bf16_case
             recs += fn(lab, 16, 512, 512, H, D, True, None, gen)
     lab, B, T, H, D = RANK_WIDE
-    for fn in (cs._bwd_case, cs._bf16_case):
-        recs += fn(lab, B, T, T, H, D, True, None, gen)
+    recs += cs._bf16_case(lab, B, T, T, H, D, True, None, gen)
     return recs
 
 
@@ -270,9 +284,9 @@ def run(root, label, dtype="bf16"):
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device is visible")
     cs.phase_card()
-    if dtype in ("wide", "rank"):
-        _print_turn(label, root, (_wide if dtype == "wide" else _rank)(cs),
-                    cs)
+    sets = {"wide": _wide, "wide_bwd": _wide_bwd, "rank": _rank}
+    if dtype in sets:
+        _print_turn(label, root, sets[dtype](cs), cs)
         return
     if dtype == "decode":
         gen = torch.Generator().manual_seed(5)
@@ -413,7 +427,7 @@ def summary(logs):
 if __name__ == "__main__":
     if len(sys.argv) in (4, 5) and sys.argv[1] == "run" \
             and sys.argv[4:] in ([], ["f32"], ["bf16"], ["decode"],
-                                 ["wide"], ["rank"]):
+                                 ["wide"], ["wide_bwd"], ["rank"]):
         run(*sys.argv[2:])
     elif len(sys.argv) >= 3 and sys.argv[1] == "summary":
         summary(sys.argv[2:])

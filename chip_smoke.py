@@ -102,7 +102,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    table of blocks of 16), each within phase 2's bars of its plain
    version, counting its `<kernel>_wide` route and its wide launch and no
    other; a long causal forward, B=1 T=2048 H=4 D=512 with the LSE, f32
-   and bf16, printed with its share of the bound; the D=320 model's
+   and bf16, and the f32 backward pair there, printed with their shares
+   of the bound; the f32 wide kernels under causal offsets
+   (`flash_attention_lse` at B=1 T=1024 H=2 D=320 with an LSE cotangent:
+   a diagonal shard, a past shard, and offsets 0/512, whose rows 0..511
+   see no key: out 0, lse <= -1e29, dq rows 0); the D=320 model's
    training shape (B=4 T=128 H=2, three times bitwise); batch * heads = 16385 * 4 = 65540 (T=16) and 65536 heads
    (B=1, T=2) at D=32 and 64, f32 and bf16, forward and backward against
    plain, one launch each. The D=320 model, `transformer_lm(d_model=640,
@@ -296,6 +300,12 @@ WIDE_BATCH, WIDE_SEQ, WIDE_STEPS = 4, 128, 3
 WIDE_TRAIN_CASE = f"D=320 train B={WIDE_BATCH} T={WIDE_SEQ} H=2"
 WIDE_LONG = (1, 2048, 4, 512)       # B, T, H, D: causal, with the LSE
 WIDE_LONG_CASE = "D=512 B=1 T=2048 H=4 long"
+# the wide pair under causal offsets (`_lse_case`, f32): B, T, H, D and
+# (label, (q_off, k_off)): a diagonal shard, a past one, and rows 0..511
+# that see no key
+WIDE_LSE = (1, 1024, 2, 320)
+WIDE_LSE_OFFSETS = (("wide diagonal", (1024, 1024)), ("wide past", (1024, 0)),
+                    ("wide rows without keys", (0, 512)))
 # bench_decode_paged's model and requests (bench.py:724-748)
 BENCH_PAGED_MODEL = dict(vocab_size=256, d_model=128, n_layers=2, n_heads=4)
 BENCH_PAGED_SERVE = dict(decode_slots=4, decode_max_len=128,
@@ -1289,7 +1299,8 @@ def phase_head_dims():
     256 (a hand kernel each; 48 and 80 zero-padded to 64 and 128) through
     `flash_attention` forward and backward in f32 and bf16 and both decode
     kernels; D=264, 320, 512 and 1024 on the wide kernels (forward with and
-    without the LSE, dq and dk/dv, f32 and bf16; both decode entries) and
+    without the LSE, dq and dk/dv, f32 and bf16; both decode entries), at
+    a long causal shape (WIDE_LONG), under causal offsets (WIDE_LSE) and
     at the D=320 model's training shape; batch * heads = 65540 at D=32 and
     64 and 65536 heads, one launch each; D=20, the plain route; a D=48
     `transformer_lm` decoded greedily, slab and paged; and the D=320
@@ -1344,8 +1355,8 @@ def phase_head_dims():
                                        STEP_LENGTHS, gen))
         cases.append(_wide_decode_case(f"paged decode step D={D}", 8, 4, D,
                                        STEP_LENGTHS, gen, bs=16))
-    # a long causal case of the wide forward, f32 and bf16, with its share
-    # of the bound
+    # a long causal case of the wide forward, f32 and bf16, and of the f32
+    # pair, with their shares of the bound
     B, T, H, D = WIDE_LONG
     for dtype, kernels, routes in ((torch.float32, wide_f32, wide_routes),
                                    (torch.bfloat16, wide_bf16,
@@ -1353,6 +1364,15 @@ def phase_head_dims():
         cases.append(_routed(WIDE_LONG_CASE, lambda: _fwd_general_case(
             WIDE_LONG_CASE, B, T, T, H, D, True, None, gen, lse=True,
             dtype=dtype), kernels[:1], False, wide=routes[:1]))
+    cases += _routed(WIDE_LONG_CASE, lambda: _bwd_case(
+        WIDE_LONG_CASE, B, T, T, H, D, True, None, gen), wide_f32, False,
+        wide=wide_routes)
+    # the f32 wide kernels under causal offsets, with an LSE cotangent
+    B, T, H, D = WIDE_LSE
+    for lab, offs in WIDE_LSE_OFFSETS:
+        cases += _routed(lab, lambda: _lse_case(
+            lab, torch.float32, B, T, H, D, offs, None, gen), wide_f32,
+            False, wide=wide_routes)
     # the D=320 model's training shape: its kernels' records on the path
     # (each forward three times, bitwise equal)
     cases.append(_fwd_general_case(WIDE_TRAIN_CASE, WIDE_BATCH, WIDE_SEQ,
@@ -2269,7 +2289,8 @@ def _lse_case(label, dtype, B, T, H, D, offsets, valid, gen):
         nbytes, ops = work[kname]
         lib_ms, lib_dev, lib_err = lib[kname]
         rec = {
-            "name": kname, "case": label, "shape": [B, T, T, H, D],
+            "name": kernel_name(kname, D), "case": label,
+            "shape": [B, T, T, H, D],
             "offsets": [q_off, k_off], "causal": True,
             "key_mask": km is not None, "g_lse": True,
             "max_abs_err": err[kname], "lse_max_abs_err": lse_err,

@@ -99,8 +99,67 @@
 //   - bf16: p is rounded to bf16 for P V and l summed from the unrounded
 //     p, as in flash_fwd_bf16.cu; the output is rounded once.
 //
-// The backward pair (dq, dk/dv) keeps the first design, on the CUDA cores
-// (67 TFLOP/s of f32 FMAs), until its own redesign:
+// The float32 backward pair (`flash_wide_bwd_sm90<DQ>`, the entries
+// flash_wide_dq_f32 and flash_wide_dkv_f32) is one tensor-core design for
+// dq, dk and dv, the forward's pieces in the roles of flash_bwd.cu's D=64
+// pair. Each f32 product is three TF32 `wgmma` products of split operands.
+//   - Roles. A block owns 64 rows and one box of NB = 128 output columns,
+//     and walks 64-row tiles of the other side. dq: owns q rows (Q for S,
+//     dO for dP), walks key tiles (K, V) up to the causal limit, the last
+//     q tiles first. dk/dv: owns keys (K, V), walks q tiles from the first
+//     one that sees an owned key; its grid holds a dK block and a dV block
+//     per (key tile, box), so dV's blocks recompute S only (P^T dO_box),
+//     dK's S and dP (dS^T Q_box). Per unmasked pair, over n = ceil(D /
+//     128) boxes: dq 4*D*n + 2*D operations (D = 512: 18*D, 3x the
+//     bound's 6*D), dk/dv 6*D*n + 4*D (28*D, 3.5x its 8*D). D = 264 and
+//     320 take 3 score passes, 512 4, 1024 8 (the CUDA-core design before
+//     it, 64-column boxes: 5, 5, 8, 16). Boxes start at column 0, the last
+//     one ragged: its products past D are skipped (n64 steps) and no
+//     column past D is written.
+//   - S and dP over the whole head dim, in chunks of one TMA box (32 f32
+//     columns, 4-D tensor maps, 128B swizzle, zero fill past T and D)
+//     through a ring of NS = 3 chunk slots; a slot holds the chunk of all
+//     four score operands (dV blocks: two, and dO's on the box's chunks
+//     only). The owned side's chunks are split in registers by the
+//     consumer (register A, as the forward's Q), the walked side's in
+//     shared memory by the splitters (hi in place, lo beside).
+//   - The gradient product: dOut_box += dS K_box (dq), dS^T Q_box (dK) or
+//     P^T dO_box (dV), dS or P split in registers (register A, k in
+//     `k_slot` order), B the box operand transposed and split ([NB, 64],
+//     K-major: 32-bit `wgmma` reads B K-major only). The splitters write
+//     it from the box's chunks as they pass through the ring, so the box
+//     operand is loaded once; each tile's walk starts after the box
+//     (chunks cb + nbc, ..., wrapping to the box's own last), so the
+//     transposed box, single-buffered, is free again (the consumer's
+//     `btempty`) by the time the box's chunks come round. The splitters
+//     also stage each walked tile's column values (dq: key validity;
+//     dk/dv: lse log2e and delta of the q rows) with the box's first
+//     chunk. A chunk's `ready` covers both.
+//   - Sums. The tensor core truncates its f32 sum at every product, so a
+//     running S over all of D (|S| ~ sqrt(D)) drifts with the product
+//     count: dq summed that way missed BWD_TOL at D = 320 and 1024. Each
+//     chunk's 12 products (and each tile's gradient product) go into an
+//     accumulator that their first product overwrites (`wgmma` scale-d 0;
+//     zeroing it by moves would make ptxas serialize the products), then
+//     are added to S, dP or the box in f32. So the A2 split (dP's owned
+//     operand) waits for S's products: no registers are left for a second
+//     set of fragments.
+//   - p = 2^(s scale log2e - lse log2e) (`ex2.approx`), the masks and ds
+//     as in flash_bwd.cu (a full tile pair takes no test; a masked key's
+//     x the finite -1e30, past the causal limit or the ragged edge p = 0).
+//   - Warp-specialised as the f32 forward: warpgroup 0 consumes (the
+//     products, p and ds in registers), warpgroup 1 splits and loads
+//     (stid 0 issues the TMA; the whole warpgroup waits on a slot).
+//   - Shared memory: 3 chunk slots of 48 KB (A1, A2 as landed; B1, B2 hi
+//     and lo) and the transposed box hi and lo (32 KB each), 208.5 KB: one
+//     block per SM. ptxas (CUDA 12.8): 247 registers (dq), 246 (dk/dv), 0
+//     spills; its report per instantiation: chip_smoke.py phase 1.
+//   - What bounds it (PERF.md, section 6): the score work repeated per box
+//     (above), and one consumer warpgroup per SM whose splits, f32 adds
+//     and waits run between its products, not under them.
+// The bf16 pair keeps the first design, on the CUDA cores (67 TFLOP/s of
+// f32 FMAs), until its own redesign (`flash_wide_dq_kernel`,
+// `flash_wide_dkv_kernel`, bf16 only):
 //   - Each block owns a tile of rows (32 q rows for dq, 32 keys for dk/dv)
 //     and one box of 64 output columns; dq walks the q tiles last first
 //     when causal.
@@ -123,6 +182,7 @@ namespace {
 
 using bf16mma::bf16;
 
+// the bf16 pair's CUDA-core kernels
 constexpr int THREADS = 128;    // 8 row groups x 16 column groups
 constexpr int OWN = 32;         // owned rows of a block (q rows or keys)
 constexpr int WALK = 64;        // walked rows per tile (keys or q rows)
@@ -136,31 +196,24 @@ struct Strides {
   long long b, t, h;            // element strides; the head dim is dense
 };
 
-__device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const bf16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(bf16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
-// x as the product with an operand tile takes it: itself in f32, rounded
-// to bf16 (nearest even) for bf16 operands
-__device__ __forceinline__ float operand(float x, const float*) { return x; }
-__device__ __forceinline__ float operand(float x, const bf16*) {
+// x as the product with a bf16 operand tile takes it: rounded to bf16
+// (nearest even)
+__device__ __forceinline__ float operand(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // Rows [r0, r0 + rows) x head-dim columns [c0, c0 + width) of the head
-// at `base` (row stride `st`) into dst[rows][ld], zero past T or D.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, int ld, const T* base,
+// at `base` (row stride `st`) into dst[rows][ld] in f32, zero past T or D.
+__device__ __forceinline__ void stage(float* dst, int ld, const bf16* base,
                                       long long st, int r0, int rows, int T_,
                                       int c0, int width, int D, int tid) {
   for (int i = tid; i < rows * width; i += THREADS) {
     const int r = i / width, c = i % width;
     dst[r * ld + c] = (r0 + r < T_ && c0 + c < D)
-        ? load(base + (r0 + r) * st + c0 + c) : 0.f;
+        ? __bfloat162float(base[(r0 + r) * st + c0 + c]) : 0.f;
   }
 }
 
@@ -235,13 +288,15 @@ __device__ __forceinline__ void split_f32(float x, uint32_t& hi,
 // Split a landed [64, C] f32 tile (C / 32 128B-swizzled boxes) by the 128
 // threads of a warpgroup, stid in 0..127, as hopper_f32.cuh `split_tile`
 // does, on the integer pipes: PLAIN, x's TF32 hi in place and lo at the
-// same offsets in `lo`; TRANSPOSE, the transposed split ([C, 64], each
-// 8-row group of x in `k_slot` order) into th / tl. Neighbouring threads
-// take neighbouring rows of one 16-byte chunk column: conflict-free loads
-// and stores.
-template <bool PLAIN, bool TRANSPOSE, int C>
+// same offsets in `lo`; TRANSPOSE, the transposed split (x's columns as
+// rows row0..row0+C-1 of a [TR, 64] tile, each 8-row group of x in
+// `k_slot` order as its columns) into th / tl. Neighbouring threads take
+// neighbouring rows of one 16-byte chunk column: conflict-free loads and
+// stores.
+template <bool PLAIN, bool TRANSPOSE, int C, int TR = C>
 __device__ __forceinline__ void split_rows(float* x, float* lo, float* th,
-                                           float* tl, int stid) {
+                                           float* tl, int stid,
+                                           int row0 = 0) {
 #pragma unroll
   for (int k = 0; k < C / 8; ++k) {
     const int i = stid + 128 * k;
@@ -263,7 +318,8 @@ __device__ __forceinline__ void split_rows(float* x, float* lo, float* th,
       const int col = (r & ~7) | hopper::k_slot(r & 7);
 #pragma unroll
       for (int m = 0; m < 4; ++m) {
-        const int t_at = hopper::sw128(C, 32 * box + 4 * c + m, col);
+        const int t_at =
+            hopper::sw128(TR, row0 + 32 * box + 4 * c + m, col);
         th[t_at] = __uint_as_float(hi[m]);
         tl[t_at] = __uint_as_float(lw[m]);
       }
@@ -654,15 +710,344 @@ flash_wide_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// --------------------------------------------------------------------- dq
-template <typename T>
+// ------------------------------------------------------------ f32 backward
+// The tensor-core backward (see the header). Byte offsets from the
+// 1024-aligned base; every tile 1024-aligned. A chunk slot holds one
+// 32-column chunk of each score operand, 64 rows: the owned side's A1
+// (S's A: Q for dq, K for dk/dv) and A2 (dP's A: dO, V) as landed, the
+// walked side's B1 (S's B: K, Q) and B2 (dP's B: V, dO) hi in place, lo
+// beside.
+struct WideBwd {
+  static constexpr int DC = 32, NB = 128, NS = 3, THREADS = 256;
+  static constexpr int TILE = 64 * DC * 4;        // one operand's chunk
+  static constexpr int A1 = 0, A2 = TILE, B1 = 2 * TILE, B1L = 3 * TILE,
+                       B2 = 4 * TILE, B2L = 5 * TILE, SLOT = 6 * TILE;
+  static constexpr int BTH = NS * SLOT;           // box operand^T hi [NB][64]
+  static constexpr int BTL = BTH + NB * 64 * 4;   // its lo
+  static constexpr int COL = BTL + NB * 64 * 4;   // [2][64] column values
+  static constexpr int BAR = COL + 2 * 64 * 4;
+  static constexpr int BYTES = BAR + 8 * (3 * NS + 1);
+};
+static_assert(WideBwd::BYTES + 1024 <= SMEM_LIMIT, "shared memory");
+constexpr float NEG_INF2 = NEG_INF * LOG2E;     // the key mask's x, in log2
+
+// DQ: the block owns 64 q rows (A1 = Q, A2 = dO), walks key tiles (B1 =
+// K, B2 = V) and writes dq into out0; its box operand is K. Else it owns
+// 64 keys (A1 = K, A2 = V) and walks q tiles (B1 = Q, B2 = dO): a dK block
+// (box operand Q, into out0) or a dV block (no dP; box operand dO, into
+// out1), the two kinds side by side on the grid. Threads 0-127 consume;
+// warpgroup 1 splits and loads. Chunk u (walked tile u / n_dc, walk step
+// u % n_dc) sits in slot u % NS; its full (TMA), ready (split) and empty
+// (consumed) mbarriers complete their (u / NS)-th phase; `btempty` its
+// j-th once the consumer's gradient product of walked tile j is done.
+template <bool DQ>
+__global__ void __launch_bounds__(WideBwd::THREADS, 1)
+flash_wide_bwd_sm90(const __grid_constant__ CUtensorMap a1map,
+                    const __grid_constant__ CUtensorMap a2map,
+                    const __grid_constant__ CUtensorMap b1map,
+                    const __grid_constant__ CUtensorMap b2map,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const float* __restrict__ key_mask,
+                    float* __restrict__ out0, float* __restrict__ out1,
+                    int H, int Tq, int Tk, int D, int causal, int q_off,
+                    int k_off, float scale) {
+  using L = WideBwd;
+  constexpr int DC = L::DC, NB = L::NB, NS = L::NS, NP = NB / 64;
+  constexpr int KINDS = DQ ? 1 : 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hopper::align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t *ready = full + NS, *empty = ready + NS, *btempty = empty + NS;
+  float* bth = reinterpret_cast<float*>(sm + L::BTH);
+  float* btl = reinterpret_cast<float*>(sm + L::BTL);
+  float* col = reinterpret_cast<float*>(sm + L::COL);
+
+  const int tid = threadIdx.x;
+  const int n_box = (D + NB - 1) / NB;
+  const int T_own = DQ ? Tq : Tk;
+  // dq, causal: the last q tiles see the most keys; dk/dv: the first key
+  // tiles are seen by the most queries. Either way they go first.
+  const hopper::GridTile gt =
+      hopper::grid_tile((T_own + 63) / 64 * n_box * KINDS, DQ && causal);
+  const int own0 = gt.tile / (n_box * KINDS) * 64;
+  const int c0 = gt.tile / KINDS % n_box * NB;
+  const bool has_dp = DQ || gt.tile % KINDS == 0;   // not a dV block
+  const int bh = gt.bh, b = bh / H, h = bh % H;
+  const int shift = q_off - k_off;
+  // the walked tiles: dq, key tiles up to the causal limit of the tile's
+  // last row; dk/dv, q tiles from the one that holds the first row that
+  // sees an owned key
+  int walk0 = 0, n_tiles;
+  if (DQ) {
+    const int k_end =
+        causal ? min(Tk, max(0, min(Tq, own0 + 64) + shift)) : Tk;
+    n_tiles = (k_end + 63) / 64;
+  } else {
+    walk0 = causal ? max(0, (own0 - shift) / 64 * 64) : 0;
+    n_tiles = walk0 < Tq ? (Tq - walk0 + 63) / 64 : 0;
+  }
+  const int n_dc = (D + DC - 1) / DC;           // chunks of the head dim
+  const int box_cols = min(NB, D - c0);         // the box's columns below D
+  const int n_prod = (box_cols + 63) / 64;      // its n64 products
+  const int nbc = (box_cols + DC - 1) / DC;     // the box's chunks
+  const int cb = c0 / DC;
+  // a tile's walk: chunk cb + nbc first, the box's own chunks last
+  const int cstart = (cb + nbc) % n_dc;
+  auto chunk_of = [&](int i) {
+    const int c = cstart + i;
+    return c < n_dc ? c : c - n_dc;
+  };
+  const int box_step = n_dc - nbc;              // the box's first walk step
+  const int n_items = n_tiles * n_dc;
+
+  if (n_tiles > 0) {
+    if (tid == 0) {
+      for (int i = 0; i < NS; ++i) {
+        hopper::mbar_init(&full[i], 1);
+        hopper::mbar_init(&ready[i], 128);
+        hopper::mbar_init(&empty[i], 128);
+      }
+      hopper::mbar_init(btempty, 128);
+      hopper::mbar_init_fence();
+    }
+    __syncthreads();
+  }
+
+  // chunk u's boxes: A1, B1; A2 and B2 for dP; a dV block's B2 (dO) on
+  // the box's chunks only
+  auto load_chunk = [&](int u) {
+    const int st = u % NS, i = u % n_dc, c = chunk_of(i) * DC;
+    const int w0 = walk0 + u / n_dc * 64;
+    unsigned char* slot = sm + st * L::SLOT;
+    const bool b2 = has_dp || i >= box_step;
+    hopper::mbar_expect_tx(&full[st],
+                           (2 + (has_dp ? 1 : 0) + (b2 ? 1 : 0)) * L::TILE);
+    hopper::tma_load_4d(slot + L::A1, &a1map, &full[st], c, h, own0, b);
+    if (has_dp)
+      hopper::tma_load_4d(slot + L::A2, &a2map, &full[st], c, h, own0, b);
+    hopper::tma_load_4d(slot + L::B1, &b1map, &full[st], c, h, w0, b);
+    if (b2) hopper::tma_load_4d(slot + L::B2, &b2map, &full[st], c, h, w0, b);
+  };
+
+  if (tid >= 128) {
+    // ------------------------------------------- the splitters and loads
+    if (n_tiles == 0) return;
+    const int stid = tid - 128;
+    if (stid == 0)
+      for (int u = 0; u < NS && u < n_items; ++u) load_chunk(u);
+    for (int u = 0; u < n_items; ++u) {
+      const int st = u % NS, i = u % n_dc, j = u / n_dc;
+      float* slot = reinterpret_cast<float*>(sm + st * L::SLOT);
+      float *b1 = slot + L::B1 / 4, *b1l = slot + L::B1L / 4;
+      float *b2 = slot + L::B2 / 4, *b2l = slot + L::B2L / 4;
+      hopper::mbar_wait(&full[st], (u / NS) & 1);
+      const bool in_box = i >= box_step;
+      const int row0 = (chunk_of(i) - cb) * DC;  // its rows of the box
+      if (i == box_step) {
+        // the box's first chunk: once the consumer is done with the last
+        // tile's transposed box, this tile's column values
+        if (j >= 1) hopper::mbar_wait(btempty, (j - 1) & 1);
+        const int w = walk0 + j * 64 + stid % 64;
+        if (DQ) {
+          // key validity (1 past the ragged edge: the edge has its test)
+          if (stid < 64)
+            col[stid] = (key_mask && w < Tk)
+                ? key_mask[(long long)b * Tk + w] : 1.f;
+        } else {
+          // lse log2e, then delta, of q row w (0 past Tq)
+          const long long at = (long long)bh * Tq + w;
+          col[stid] = w >= Tq ? 0.f : stid < 64 ? lse[at] * LOG2E
+                                                : delta[at];
+        }
+      }
+      // B1 and B2 split in place; the box operand (dq, dK: B1; dV: B2)
+      // also transposed into its rows of the box
+      if (has_dp) {
+        if (in_box)
+          split_rows<true, true, DC, NB>(b1, b1l, bth, btl, stid, row0);
+        else
+          split_rows<true, false, DC>(b1, b1l, nullptr, nullptr, stid);
+        split_rows<true, false, DC>(b2, b2l, nullptr, nullptr, stid);
+      } else {
+        split_rows<true, false, DC>(b1, b1l, nullptr, nullptr, stid);
+        if (in_box)
+          split_rows<false, true, DC, NB>(b2, nullptr, bth, btl, stid, row0);
+      }
+      hopper::fence_proxy_async();
+      hopper::mbar_arrive(&ready[st]);
+      // the slot of chunk u - 1 takes chunk u - 1 + NS once consumed
+      if (u >= 1 && u - 1 + NS < n_items) {
+        hopper::mbar_wait(&empty[(u - 1) % NS], ((u - 1) / NS) & 1);
+        if (stid == 0) load_chunk(u - 1 + NS);
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------- the consumer
+  const int lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int rt = (tid / 32) * 16 + g;           // this thread's tile rows
+  const int r0 = own0 + rt;                     // rt, rt + 8
+  const float scale2 = scale * LOG2E;
+  // dq: each row's lse log2e and delta, and (causal) the last key it
+  // sees; dk/dv: each key's validity and the first query that sees it
+  float rv[2], rd[2];
+  int lim[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    if (DQ) {
+      const bool in = r < Tq;
+      rv[i] = in ? lse[(long long)bh * Tq + r] * LOG2E : 0.f;
+      rd[i] = in ? delta[(long long)bh * Tq + r] : 0.f;
+      lim[i] = r + shift;
+    } else {
+      rv[i] = (r < Tk && (!key_mask || key_mask[(long long)b * Tk + r] > 0.f))
+          ? 1.f : 0.f;
+      rd[i] = 0.f;
+      lim[i] = r - shift;
+    }
+  }
+  // dk/dv: a masked key among the warp's (keys past Tk do not count)
+  const bool warp_masked = !DQ && __any_sync(
+      0xffffffffu, (r0 < Tk && !(rv[0] > 0.f)) ||
+                   (r0 + 8 < Tk && !(rv[1] > 0.f)));
+
+  float acc[NP][32];
+#pragma unroll
+  for (int nb = 0; nb < NP; ++nb)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[nb][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int w0 = walk0 + j * 64;
+    // S and dP over the whole head dim, chunk by chunk: the owned chunks
+    // split in registers (register A), the walked ones by the splitters;
+    // each chunk's products summed apart, then added in f32 (header: Sums)
+    float s[32], dp[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
+    for (int i = 0; i < n_dc; ++i) {
+      const int u = j * n_dc + i, st = u % NS;
+      const unsigned char* slot = sm + st * L::SLOT;
+      // the chunk's S, then its dP: A's register fragments of the four k8
+      // slices, split (a0 = (row g, k t), a1 = (g + 8, t), a2 = (g, t + 4),
+      // a3 = (g + 8, t + 4); the landed box is 128B-swizzled), B hi and lo
+      // from the splitters
+      auto chunk_product = [&](float (&sum)[32], int a_at, int b_at,
+                               int bl_at) {
+        const float* a = reinterpret_cast<const float*>(slot + a_at);
+        const float* bh = reinterpret_cast<const float*>(slot + b_at);
+        const float* bl = reinterpret_cast<const float*>(slot + bl_at);
+        uint32_t ah[4][4], al[4][4];
+        float part[32];           // the first product overwrites it
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            split_f32(a[hopper::sw128(64, rt + 8 * (x & 1),
+                                      8 * kk + t + 4 * (x >> 1))],
+                      ah[kk][x], al[kk][x]);
+        hopper::mbar_wait(&ready[st], (u / NS) & 1);
+        hopper::wgmma_fence();
+        hopper::wgmma_3xtf32_rs<4>(part, ah, al, bh, bl, 0);
+        hopper::wgmma_commit();
+        // the fragments stay untouched until the products are done
+        hopper::wgmma_wait<0>();
+        hopper::fence_operand(part);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) sum[e] += part[e];
+      };
+      hopper::mbar_wait(&full[st], (u / NS) & 1);
+      chunk_product(s, L::A1, L::B1, L::B1L);
+      if (has_dp) chunk_product(dp, L::A2, L::B2, L::B2L);
+      hopper::mbar_arrive(&empty[st]);
+    }
+    hopper::fence_operand(s);
+    hopper::fence_operand(dp);
+
+    // p = exp(x - lse) as the forward masks x; ds = p (dp - delta) scale.
+    // The tile's column values came with the box's first chunk. Every
+    // warp's quads cover all 64 columns, so the warp's vote is the tile's.
+    bool full_pair;
+    if (DQ) {
+      bool dead = false;
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        dead |= !(col[8 * (e >> 1) + 2 * t + (e & 1)] > 0.f);
+      full_pair = w0 + 64 <= Tk && !__any_sync(0xffffffffu, dead) &&
+                  (!causal || w0 + 63 + k_off <= own0 + q_off);
+    } else {
+      full_pair = !warp_masked &&
+                  (!causal || own0 + 63 + k_off <= w0 + q_off);
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int i = (e >> 1) & 1;
+      const int c = 8 * (e >> 2) + 2 * t + (e & 1);
+      const float l2 = DQ ? rv[i] : col[c];
+      float p;
+      if (full_pair) {
+        p = hopper::exp2_approx(fmaf(s[e], scale2, -l2));
+      } else {
+        const int pos = w0 + c;       // dq: a key; dk/dv: a q row
+        const bool live = DQ ? col[c] > 0.f : rv[i] > 0.f;
+        const float x2 = live ? fmaf(s[e], scale2, -l2) : NEG_INF2 - l2;
+        const bool seen = DQ ? pos < Tk && (!causal || pos <= lim[i])
+                             : pos < Tq && (!causal || lim[i] <= pos);
+        p = seen ? hopper::exp2_approx(x2) : 0.f;
+      }
+      s[e] = has_dp ? p * (dp[e] - (DQ ? rd[i] : col[64 + c])) * scale : p;
+    }
+
+    // dOut_box += (dS or P) B_box^T: A split in registers (k in `k_slot`
+    // order, as hopper_f32.cuh `acc_to_a_tf32`), the transposed box split
+    // by the splitters, ready with the tile's last chunk; each n64 half's
+    // products summed apart, then added in f32
+    uint32_t ph[8][4], pl[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        split_f32(s[4 * kk + (x >> 1) + 2 * (x & 1)], ph[kk][x], pl[kk][x]);
+#pragma unroll
+    for (int nb = 0; nb < NP; ++nb) {
+      if (nb >= n_prod) continue;
+      float part[32];             // the first product overwrites it
+      hopper::wgmma_fence();
+      hopper::wgmma_3xtf32_rs<8, NB>(part, ph, pl,
+                                     bth + nb * 64 * hopper::BOX_F32,
+                                     btl + nb * 64 * hopper::BOX_F32, 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(part);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[nb][e] += part[e];
+    }
+    hopper::mbar_arrive(btempty);
+  }
+
+  // every owned row below T_own is written (zeros where nothing reaches
+  // it), the box's columns below D
+  float* ob = (has_dp ? out0 : out1) +
+              ((long long)b * T_own * H + h) * D + c0;
+#pragma unroll
+  for (int nb = 0; nb < NP; ++nb)
+    if (nb < n_prod)
+      hopper::store_acc_f32(ob + 64 * nb, (long long)H * D, own0, T_own,
+                            acc[nb], tid, box_cols - 64 * nb);
+}
+
+// ---------------------------------------------------------------- bf16 dq
 __global__ void __launch_bounds__(THREADS)
-flash_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_wide_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
                      const float* __restrict__ key_mask,
-                     T* __restrict__ dq, int H, int Tq, int Tk, int D,
+                     bf16* __restrict__ dq, int H, int Tq, int Tk, int D,
                      Strides qs, Strides ks, Strides vs, Strides os,
                      int causal, int q_off, int k_off, float scale) {
   constexpr int BQ = OWN, BK = WALK;
@@ -683,10 +1068,10 @@ flash_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       hopper::grid_tile((Tq + BQ - 1) / BQ * n_box, causal);
   const int q0 = gt.tile / n_box * BQ, c0 = gt.tile % n_box * CB;
   const int bh = gt.bh, b = bh / H, h = bh % H;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-  const T* ob = dout + b * os.b + h * os.h;
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + h * ks.h;
+  const bf16* vb = v + b * vs.b + h * vs.h;
+  const bf16* ob = dout + b * os.b + h * os.h;
   const float* km = key_mask ? key_mask + (long long)b * Tk : nullptr;
 
   if (tid < BQ) {
@@ -726,7 +1111,7 @@ flash_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           if (causal && kpos > q0 + r + shift) x = -INFINITY;
           p = expf(x - l);
         }
-        Ss[r * SS + c] = operand(p * (dp[ii][jj] - dl) * scale, q);
+        Ss[r * SS + c] = operand(p * (dp[ii][jj] - dl) * scale);
       }
     }
     __syncthreads();
@@ -749,7 +1134,7 @@ flash_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int ii = 0; ii < 4; ++ii) {
     const int r = tr * 4 + ii;
     if (q0 + r >= Tq) continue;
-    T* o = dq + (((long long)b * Tq + q0 + r) * H + h) * D;
+    bf16* o = dq + (((long long)b * Tq + q0 + r) * H + h) * D;
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc) {
       const int col = c0 + tc + 16 * cc;
@@ -758,18 +1143,18 @@ flash_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ------------------------------------------------------------------- dkv
-template <typename T>
+// --------------------------------------------------------------- bf16 dkv
 __global__ void __launch_bounds__(THREADS)
-flash_wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
+flash_wide_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const bf16* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
                       const float* __restrict__ key_mask,
-                      T* __restrict__ dk, T* __restrict__ dv, int H, int Tq,
-                      int Tk, int D, Strides qs, Strides ks, Strides vs,
-                      Strides os, int causal, int q_off, int k_off,
-                      float scale) {
+                      bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                      int Tq, int Tk, int D, Strides qs, Strides ks,
+                      Strides vs, Strides os, int causal, int q_off,
+                      int k_off, float scale) {
   constexpr int BK = OWN, BQ = WALK;
   extern __shared__ float smem[];
   float* Kc = smem;             // [BK][RS] a chunk of K
@@ -791,10 +1176,10 @@ flash_wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       hopper::grid_tile((Tk + BK - 1) / BK * n_box, false);
   const int k0 = gt.tile / n_box * BK, c0 = gt.tile % n_box * CB;
   const int bh = gt.bh, b = bh / H, h = bh % H;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-  const T* ob = dout + b * os.b + h * os.h;
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + h * ks.h;
+  const bf16* vb = v + b * vs.b + h * vs.h;
+  const bf16* ob = dout + b * os.b + h * os.h;
   const float* km = key_mask ? key_mask + (long long)b * Tk : nullptr;
 
   // this thread's key rows: in range and not masked
@@ -845,8 +1230,8 @@ flash_wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           if (causal && kpos > qpos + shift) x = -INFINITY;
           p = expf(x - lse_s[c]);
         }
-        Ps[r * SS + c] = operand(p, q);
-        Ds[r * SS + c] = operand(p * (dp[ii][jj] - dl_s[c]) * scale, q);
+        Ps[r * SS + c] = operand(p);
+        Ds[r * SS + c] = operand(p * (dp[ii][jj] - dl_s[c]) * scale);
       }
     }
     __syncthreads();
@@ -950,32 +1335,68 @@ struct Operands {
   float scale;
 };
 
-template <typename T>
-int launch_dq(const Operands& a, void* dq, cudaStream_t stream) {
+int launch_dq_bf16(const Operands& a, void* dq, cudaStream_t stream) {
   dim3 grid;
-  const int err = prepare(flash_wide_dq_kernel<T>, DQ_SMEM,
+  const int err = prepare(flash_wide_dq_kernel, DQ_SMEM,
                           (a.Tq + OWN - 1) / OWN, a.D, a.B, a.H, &grid);
   if (err) return err;
-  flash_wide_dq_kernel<T><<<grid, THREADS, DQ_SMEM, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, a.key_mask, static_cast<T*>(dq), a.H, a.Tq, a.Tk, a.D, a.qs,
-      a.ks, a.vs, a.os, a.causal, a.q_off, a.k_off, a.scale);
+  flash_wide_dq_kernel<<<grid, THREADS, DQ_SMEM, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
+      a.delta, a.key_mask, static_cast<bf16*>(dq), a.H, a.Tq, a.Tk, a.D,
+      a.qs, a.ks, a.vs, a.os, a.causal, a.q_off, a.k_off, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dkv(const Operands& a, void* dk, void* dv, cudaStream_t stream) {
+int launch_dkv_bf16(const Operands& a, void* dk, void* dv,
+                    cudaStream_t stream) {
   dim3 grid;
-  const int err = prepare(flash_wide_dkv_kernel<T>, DKV_SMEM,
+  const int err = prepare(flash_wide_dkv_kernel, DKV_SMEM,
                           (a.Tk + OWN - 1) / OWN, a.D, a.B, a.H, &grid);
   if (err) return err;
-  flash_wide_dkv_kernel<T><<<grid, THREADS, DKV_SMEM, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, a.key_mask, static_cast<T*>(dk), static_cast<T*>(dv), a.H,
-      a.Tq, a.Tk, a.D, a.qs, a.ks, a.vs, a.os, a.causal, a.q_off, a.k_off,
-      a.scale);
+  flash_wide_dkv_kernel<<<grid, THREADS, DKV_SMEM, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
+      a.delta, a.key_mask, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      a.H, a.Tq, a.Tk, a.D, a.qs, a.ks, a.vs, a.os, a.causal, a.q_off,
+      a.k_off, a.scale);
+  return (int)cudaGetLastError();
+}
+
+// The f32 pair: dq (out0) or dk and dv (out0, out1) by
+// `flash_wide_bwd_sm90`, its four tensor maps (64 rows x 32 columns a box,
+// zero fill past T and D) in the kernel's roles.
+int launch_bwd_f32(const Operands& a, bool dq, void* out0, void* out1,
+                   cudaStream_t stream) {
+  using L = WideBwd;
+  if (a.D < 1) return (int)cudaErrorInvalidValue;
+  const struct { const void* p; int len; Strides s; } ops[4] = {
+      {a.q, a.Tq, a.qs}, {a.k, a.Tk, a.ks}, {a.v, a.Tk, a.vs},
+      {a.dout, a.Tq, a.os}};
+  CUtensorMap m[4];
+  for (int i = 0; i < 4; ++i) {
+    const int err = hopper::make_tile_map(
+        &m[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ops[i].p, a.B, ops[i].len,
+        a.H, a.D, ops[i].s.b, ops[i].s.t, ops[i].s.h, 64);
+    if (err) return err;
+  }
+  const auto kernel =
+      dq ? flash_wide_bwd_sm90<true> : flash_wide_bwd_sm90<false>;
+  const int smem = L::BYTES + 1024;
+  int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  dim3 grid;
+  err = hopper::grid_1d((long long)(((dq ? a.Tq : a.Tk) + 63) / 64) *
+                            ((a.D + L::NB - 1) / L::NB) * (dq ? 1 : 2),
+                        (long long)a.B * a.H, &grid);
+  if (err) return err;
+  // (A1, A2, B1, B2): dq (Q, dO, K, V); dk/dv (K, V, Q, dO)
+  const int r[4] = {dq ? 0 : 1, dq ? 3 : 2, dq ? 1 : 0, dq ? 2 : 3};
+  kernel<<<grid, L::THREADS, smem, stream>>>(
+      m[r[0]], m[r[1]], m[r[2]], m[r[3]], a.lse, a.delta, a.key_mask,
+      static_cast<float*>(out0), static_cast<float*>(out1), a.H, a.Tq, a.Tk,
+      a.D, a.causal, a.q_off, a.k_off, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -1033,20 +1454,19 @@ WIDE_FWD_ENTRY(flash_wide_fwd_bf16, bf16)
            o_sh, causal, q_off, k_off, scale)
 
 extern "C" int flash_wide_dq_f32(WIDE_BWD_ARGS, void* dq, WIDE_BWD_REST) {
-  return launch_dq<float>(WIDE_OPERANDS, dq,
-                          static_cast<cudaStream_t>(stream));
+  return launch_bwd_f32(WIDE_OPERANDS, true, dq, nullptr,
+                        static_cast<cudaStream_t>(stream));
 }
 extern "C" int flash_wide_dq_bf16(WIDE_BWD_ARGS, void* dq, WIDE_BWD_REST) {
-  return launch_dq<bf16>(WIDE_OPERANDS, dq,
-                         static_cast<cudaStream_t>(stream));
+  return launch_dq_bf16(WIDE_OPERANDS, dq, static_cast<cudaStream_t>(stream));
 }
 extern "C" int flash_wide_dkv_f32(WIDE_BWD_ARGS, void* dk, void* dv,
                                   WIDE_BWD_REST) {
-  return launch_dkv<float>(WIDE_OPERANDS, dk, dv,
-                           static_cast<cudaStream_t>(stream));
+  return launch_bwd_f32(WIDE_OPERANDS, false, dk, dv,
+                        static_cast<cudaStream_t>(stream));
 }
 extern "C" int flash_wide_dkv_bf16(WIDE_BWD_ARGS, void* dk, void* dv,
                                    WIDE_BWD_REST) {
-  return launch_dkv<bf16>(WIDE_OPERANDS, dk, dv,
-                          static_cast<cudaStream_t>(stream));
+  return launch_dkv_bf16(WIDE_OPERANDS, dk, dv,
+                         static_cast<cudaStream_t>(stream));
 }

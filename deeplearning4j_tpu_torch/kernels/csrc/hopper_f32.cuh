@@ -191,11 +191,14 @@ __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d[64 x 64] += A[64 x 8] B[8 x 64], TF32, A from registers, B from shared
-// memory K-major.
+// d[64 x 64] (+)= A[64 x 8] B[8 x 64], TF32, A from registers, B from
+// shared memory K-major; `accumulate` = 0 overwrites d (no instruction
+// outside the products then defines it: zeroing d by moves before a batch
+// makes ptxas serialize the batch's products, its warning C7515).
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
                                               const uint32_t (&a)[4],
-                                              uint64_t db) {
+                                              uint64_t db,
+                                              int accumulate = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -207,7 +210,8 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
       "}\n"
       : HOPPER_F32_R8(0), HOPPER_F32_R8(8), HOPPER_F32_R8(16),
         HOPPER_F32_R8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
 }
 
 // The same products at n = 32 (16 accumulator registers).
@@ -227,7 +231,8 @@ __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t da,
 
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16],
                                               const uint32_t (&a)[4],
-                                              uint64_t db) {
+                                              uint64_t db,
+                                              int accumulate = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -237,7 +242,8 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16],
       "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n"
       "}\n"
       : HOPPER_F32_R8(0), HOPPER_F32_R8(8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
 }
 
 #undef HOPPER_F32_R8
@@ -273,20 +279,22 @@ __device__ __forceinline__ void split_acc_tf32(uint32_t (&hi)[KS][4],
   for (int kk = 0; kk < KS; ++kk) acc_to_a_tf32(hi[kk], lo[kk], x, kk);
 }
 
-// d += A B over k = 0..8*KS-1 as three TF32 products per k8 slice: A the
-// split fragments of `split_acc_tf32`, B split in shared memory (hi tile
-// bh, lo tile bl, BOX_ROWS rows per box, of which the product reads
-// n = 2R from bh / bl on) with each 8-block of k in `k_slot` order.
+// d (+)= A B over k = 0..8*KS-1 as three TF32 products per k8 slice: A
+// the split fragments of `split_acc_tf32`, B split in shared memory (hi
+// tile bh, lo tile bl, BOX_ROWS rows per box, of which the product reads
+// n = 2R from bh / bl on) with each 8-block of k in `k_slot` order;
+// `accumulate` = 0 overwrites d.
 template <int KS, int BOX_ROWS = 64, int R>
 __device__ __forceinline__ void wgmma_3xtf32_rs(float (&d)[R],
                                                 const uint32_t (&hi)[KS][4],
                                                 const uint32_t (&lo)[KS][4],
                                                 const float* bh,
-                                                const float* bl) {
+                                                const float* bl,
+                                                int accumulate = 1) {
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
     const uint64_t dbh = desc_k_major_f32(bh, BOX_ROWS, kk);
-    wgmma_tf32_rs(d, lo[kk], dbh);
+    wgmma_tf32_rs(d, lo[kk], dbh, kk > 0 || accumulate);
     wgmma_tf32_rs(d, hi[kk], desc_k_major_f32(bl, BOX_ROWS, kk));
     wgmma_tf32_rs(d, hi[kk], dbh);
   }

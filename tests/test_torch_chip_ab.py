@@ -184,19 +184,48 @@ def test_wide_turn_times_the_wide_forward_at_the_path_and_long_shapes():
         (8, 4, 320, None), (8, 4, 320, 16)]
 
 
+def test_wide_bwd_turn_times_the_f32_pair_at_the_wide_forward_shapes():
+    """`run ROOT LABEL wide_bwd` times the float32 pair above head dim 256
+    at the shapes of the `wide` set: the D=320 model's training shape,
+    chip_smoke's ragged cases and two long causal shapes of 206 GFLOP (dq,
+    6 * D per unmasked pair) and 275 GFLOP (dk/dv, 8 * D) each."""
+    import chip_smoke
+    cases = {c[0]: c[1:] for c in chip_ab.WIDE_BWD}
+    assert list(cases) == [c[0] for c in chip_ab.WIDE_FWD]
+    assert cases["D=320 train B=4 T=128 H=2"] == (
+        chip_smoke.WIDE_BATCH, chip_smoke.WIDE_SEQ, 2, 320, None)
+    for D in chip_smoke.WIDE_HEAD_DIMS:
+        assert cases[f"D={D} B=2 T=200 H=4, ragged key mask"] == (
+            2, 200, 4, D, [200, 137])
+    for label, D in (("B=2 T=4096 H=4 D=512", 512),
+                     ("B=1 T=4096 H=4 D=1024", 1024)):
+        B, T, H, d, valid = cases[label]
+        assert (d, valid) == (D, None)
+        pairs = B * H * T * (T + 1) // 2
+        assert 6 * D * pairs == pytest.approx(206.2e9, rel=1e-3)
+        assert 8 * D * pairs == pytest.approx(274.9e9, rel=1e-3)
+
+
 def test_rank_turn_takes_each_kernel_not_yet_redesigned_once():
     """`run ROOT LABEL rank` times the f32 forward at D=256, the f32 pair
     at D=16, 32, 128 and 256 and the bf16 kernels at D=16 and 32 at the
-    train case with H * D = 256, and the wide pair at the long D=512
-    case."""
+    train case with H * D = 256, and the bf16 wide pair (the f32 one is
+    redesigned) at the long D=512 case."""
     assert chip_ab.RANK == [("fwd", 256), ("bwd", 16), ("bwd", 32),
                             ("bwd", 128), ("bwd", 256), ("bf16", 16),
                             ("bf16", 32)]
     assert all(256 % D == 0 for _, D in chip_ab.RANK)
     assert chip_ab.RANK_WIDE == ("B=2 T=4096 H=4 D=512", 2, 4096, 4, 512)
+    calls = []
+    cs = SimpleNamespace(
+        _fwd_case=lambda *a, **k: calls.append(("fwd", a[4])) or {},
+        _bwd_case=lambda *a, **k: calls.append(("bwd", a[5])) or [],
+        _bf16_case=lambda *a, **k: calls.append(("bf16", a[5])) or [])
+    chip_ab._rank(cs)
+    assert calls == chip_ab.RANK + [("bf16", 512)]
 
 
-@pytest.mark.parametrize("dtype", ["wide", "rank"])
+@pytest.mark.parametrize("dtype", ["wide", "wide_bwd", "rank"])
 def test_wide_and_rank_turns_refuse_without_a_card(dtype):
     res = subprocess.run([sys.executable, str(ROOT / "chip_ab.py"), "run",
                           str(ROOT), "change", dtype], capture_output=True,
