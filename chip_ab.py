@@ -2,6 +2,7 @@
 """A/B of the attention kernels between two checkouts on one GPU.
 
     python3 chip_ab.py run ROOT LABEL [f32|decode|wide|wide_bwd|rank]
+    python3 chip_ab.py run ROOT LABEL wide_bwd_bf16
     python3 chip_ab.py summary LOG...         # table of the turns
     python3 chip_ab.py sweep ROOT LABEL       # decode at each cluster size
 
@@ -37,13 +38,15 @@ the wide forward, S=8 C=256 H=4 D=320, slab and paged with blocks of
 16). With `wide_bwd`, the float32 backward pair above head dim 256
 (phase 2's `_bwd_case`, gated against the plain versions) at the same
 causal shapes: the D=320 model's training shape, the ragged cases at
-D=264, 320, 512 and 1024 and the two long shapes. With `rank`, the
-kernels no PR has redesigned yet, once each at the train case (B=16
-T=512 causal, H so that H * D = 256): phase 2's `_fwd_case` at D=256,
-`_bwd_case` at D=16, 32, 128 and 256, `_bf16_case` at D=16 and 32 and
-at the long wide case B=2 T=4096 H=4 D=512. Inputs come from fixed seeds,
-so both checkouts see the same tensors, and every gate of those
-functions holds in each turn. It prints one line `{"ab": LABEL, "cases":
+D=264, 320, 512 and 1024 and the two long shapes. With
+`wide_bwd_bf16`, the bfloat16 kernels above head dim 256 at the same
+seven shapes (phase 2's `_bf16_case`: the forward with the LSE, then the
+pair, gated against the plain versions). With `rank`, the kernels no
+PR has redesigned yet, once each at the train case (B=16 T=512 causal,
+H so that H * D = 256): phase 2's `_fwd_case` at D=256, `_bwd_case` at
+D=16, 32, 128 and 256 and `_bf16_case` at D=16 and 32. Inputs come from
+fixed seeds, so both checkouts see the same tensors, and every gate of
+those functions holds in each turn. It prints one line `{"ab": LABEL, "cases":
 [...]}` with each kernel's device time (the profiler's, per call),
 CUDA-event time, operation count, bounds, error and SDPA's device time on
 the same inputs. The bounds are recomputed here from the operation count
@@ -146,8 +149,8 @@ WIDE_FWD = [
     ("B=2 T=4096 H=4 D=512", 2, 4096, 4, 512, None, True),
     ("B=1 T=4096 H=4 D=1024", 1, 4096, 4, 1024, None, True),
 ]
-# the float32 backward pair above head dim 256: (label, B, T, H, D, valid
-# key lengths or None), causal
+# the backward pair above head dim 256, float32 (`wide_bwd`) and bfloat16
+# (`wide_bwd_bf16`): (label, B, T, H, D, valid key lengths or None), causal
 WIDE_BWD = [(lab, B, T, H, D, valid) for lab, B, T, H, D, valid, _ in WIDE_FWD]
 # the f32 decode step through the wide forward: (label, S, H, D, block
 # size or None for the slab)
@@ -155,10 +158,9 @@ WIDE_DECODE = [("decode step S=8 C=256 H=4 D=320", 8, 4, 320, None),
                ("paged decode step S=8 C=256 H=4 D=320 bs=16", 8, 4, 320,
                 16)]
 # the kernels not yet redesigned, at the train case with H * D = 256:
-# (case function, D); and the bf16 wide pair at the long case
+# (case function, D)
 RANK = [("fwd", 256), *(("bwd", D) for D in (16, 32, 128, 256)),
         *(("bf16", D) for D in (16, 32))]
-RANK_WIDE = ("B=2 T=4096 H=4 D=512", 2, 4096, 4, 512)
 SHARD = dict(B=4, T=1024, H=8, D=64)
 SHARD_F32 = dict(B=1, T=1024, H=4, D=64)
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
@@ -244,12 +246,13 @@ def _wide(cs):
     return recs
 
 
-def _wide_bwd(cs):
+def _wide_bwd(cs, bf16=False):
     import torch
-    gen = torch.Generator().manual_seed(10)
+    gen = torch.Generator().manual_seed(12 if bf16 else 10)
+    case = cs._bf16_case if bf16 else cs._bwd_case
     recs = []
     for lab, B, T, H, D, valid in WIDE_BWD:
-        recs += cs._bwd_case(lab, B, T, T, H, D, True, valid, gen)
+        recs += case(lab, B, T, T, H, D, True, valid, gen)
     return recs
 
 
@@ -266,8 +269,6 @@ def _rank(cs):
         else:
             fn = cs._bwd_case if case == "bwd" else cs._bf16_case
             recs += fn(lab, 16, 512, 512, H, D, True, None, gen)
-    lab, B, T, H, D = RANK_WIDE
-    recs += cs._bf16_case(lab, B, T, T, H, D, True, None, gen)
     return recs
 
 
@@ -284,7 +285,9 @@ def run(root, label, dtype="bf16"):
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device is visible")
     cs.phase_card()
-    sets = {"wide": _wide, "wide_bwd": _wide_bwd, "rank": _rank}
+    sets = {"wide": _wide, "wide_bwd": _wide_bwd,
+            "wide_bwd_bf16": lambda cs: _wide_bwd(cs, bf16=True),
+            "rank": _rank}
     if dtype in sets:
         _print_turn(label, root, sets[dtype](cs), cs)
         return
@@ -427,7 +430,8 @@ def summary(logs):
 if __name__ == "__main__":
     if len(sys.argv) in (4, 5) and sys.argv[1] == "run" \
             and sys.argv[4:] in ([], ["f32"], ["bf16"], ["decode"],
-                                 ["wide"], ["wide_bwd"], ["rank"]):
+                                 ["wide"], ["wide_bwd"], ["wide_bwd_bf16"],
+                                 ["rank"]):
         run(*sys.argv[2:])
     elif len(sys.argv) >= 3 and sys.argv[1] == "summary":
         summary(sys.argv[2:])

@@ -9,7 +9,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    torch/CUDA versions, turns TF32 off for matmuls and cuDNN, and builds
    every hand kernel from the sources in this checkout (nvcc, sm_90a, one
    process per source, all at once), printing ptxas's registers, shared
-   memory and spills.
+   memory and spills per kernel instantiation (and the count of its
+   C7519 notes, each a warpgroup.arrive ptxas injected).
 2. Kernels against their plain PyTorch versions, on the card: `flash_fwd`
    at the prefill shapes, at the training shape with its log-sum-exp
    (once more run three times: the results must be bitwise equal), at a
@@ -83,6 +84,24 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    from one call captured in a CUDA graph (every launch a node; no
    profiler window, no retry); beside it an empty kernel on the same grid
    (S * H * n CTAs, clusters of n) is timed as the launch floor.
+   The decode entries on other operands (`phase_decode_dtypes`): both on
+   bf16 and on float16 at the serving step (S=8 C=256 H=4 D=64; paged on
+   blocks of 16), at bench_decode_paged's shape (D=32) and at D=320, and
+   `flash_decode_paged` on a float32 pool of blocks of 12. Each call
+   launches exactly the kernel of its route and counts exactly its routes
+   in `route_counts()` (bf16: `<entry>_bf16`, the bf16 forward under the
+   key mask position < lengths, the reference's route; float16:
+   `<entry>_f16`, the float32 kernels on upcast copies; blocks of 12:
+   `flash_decode_paged_gather`, the pool gathered, then `flash_decode`;
+   D=320: also `<entry>_wide`), returns out in q's type within
+   BF16_OUT_TOL (float16: F16_OUT_TOL = 2e-3, two float16 ulps below 2;
+   float32: TOL) of the plain version and the same bits twice; SDPA under
+   the length mask is timed beside it. Then `flash_attention_lse` on
+   float16 operands (B=2 T=200 H=4 D=64 causal, ragged key mask) and the
+   gradient of sum(out * g) + sum(lse * w): one launch of each float32
+   kernel and one `<entry>_f16` call each; out within F16_OUT_TOL, lse
+   within TOL, dq, dk, dv float16 within |k - p| <= 2e-3 |p| + 1e-3
+   max|p| (F16_GRAD_TOL: two float16 ulps).
 2b. Head dims: D=48, 80 and 256 through `flash_attention` (forward with
    the LSE, and the backward pair) in f32 and bf16 at B=2 T=200 H=4
    causal with a ragged key mask, and through `flash_decode` and
@@ -101,13 +120,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    entries at the step shape (S=8 C=256 H=4; the paged one on a shuffled
    table of blocks of 16), each within phase 2's bars of its plain
    version, counting its `<kernel>_wide` route and its wide launch and no
-   other; a long causal forward, B=1 T=2048 H=4 D=512 with the LSE, f32
-   and bf16, and the f32 backward pair there, printed with their shares
-   of the bound; the f32 wide kernels under causal offsets
-   (`flash_attention_lse` at B=1 T=1024 H=2 D=320 with an LSE cotangent:
-   a diagonal shard, a past shard, and offsets 0/512, whose rows 0..511
-   see no key: out 0, lse <= -1e29, dq rows 0); the D=320 model's
-   training shape (B=4 T=128 H=2, three times bitwise); batch * heads = 16385 * 4 = 65540 (T=16) and 65536 heads
+   other; a long causal case, B=1 T=2048 H=4 D=512 with the LSE, the
+   forward and the backward pair in f32 and in bf16, printed with their
+   shares of the bound; the wide kernels under causal offsets, f32 and
+   bf16 (`flash_attention_lse` at B=1 T=1024 H=2 D=320 with an LSE
+   cotangent: a diagonal shard, a past shard, and offsets 0/512, whose
+   rows 0..511 see no key: out 0, lse <= -1e29, dq rows 0); the D=320
+   model's training shape (B=4 T=128 H=2, f32 and bf16, three times
+   bitwise); batch * heads = 16385 * 4 = 65540 (T=16) and 65536 heads
    (B=1, T=2) at D=32 and 64, f32 and bf16, forward and backward against
    plain, one launch each. The D=320 model, `transformer_lm(d_model=640,
    n_layers=2, n_heads=2)` with use_pallas=True: 3 `fit` steps at batch
@@ -254,6 +274,13 @@ BF16_OUT_TOL = 1.6e-2
 BF16_LSE_TOL = 1e-3
 BF16_GRAD_TOL = dict(rel=2e-2, of_max=1e-2)
 BF16_SCORE_RTOL = 1e-2
+# float16 operands run the float32 kernels on upcast copies, the results
+# rounded to float16 once, as the plain versions round theirs: two float16
+# ulps at |out| < 2 (1e-3 each below 2, so one rounding apart on either
+# side), and on the gradients two ulps relative plus a floor for elements
+# near 0
+F16_OUT_TOL = 2e-3
+F16_GRAD_TOL = dict(rel=2e-3, of_max=1e-3)
 TIE_GAP = 1e-6
 # scaled_dot_product_attention refuses more heads than this (its kernels'
 # grid: "invalid configuration argument"), so no library call computes
@@ -449,11 +476,17 @@ def phase_card():
     seconds, logs = build.build_timed(verbose=True)
     print(f"kernel build: {seconds:.2f} s ({len(logs)} libraries built)")
     for name, log in logs.items():
+        injected = 0
         for line in log.splitlines():
-            if "Function properties for" in line:
+            if "C7519" in line:         # ptxas's note of each injected
+                injected += 1           # warpgroup.arrive: counted
+            elif "Function properties for" in line:
                 print(f"  ptxas {name}: {line.split(' for ', 1)[1].strip()}")
             elif "registers" in line or "spill" in line:
                 print(f"  ptxas {name}:   {line.strip()}")
+        if injected:
+            print(f"  ptxas {name}: {injected} notes (C7519) of a "
+                  "warpgroup.arrive injected before registers a wgmma uses")
     return smi
 
 
@@ -881,13 +914,14 @@ def _bwd_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
     return recs
 
 
-def _grad_err(a, b):
-    """(max abs err, worst share of its bar) of a bf16 gradient against its
-    plain version, in f32: |a - b| <= rel * |b| + of_max * max|b|."""
+def _grad_err(a, b, tol=None):
+    """(max abs err, worst share of its bar) of a bf16 (or, with `tol`
+    F16_GRAD_TOL, float16) gradient against its plain version, in f32:
+    |a - b| <= rel * |b| + of_max * max|b|."""
+    tol = tol or BF16_GRAD_TOL
     a, b = a.float(), b.float()
     diff = (a - b).abs()
-    bar = BF16_GRAD_TOL["rel"] * b.abs() \
-        + BF16_GRAD_TOL["of_max"] * b.abs().max()
+    bar = tol["rel"] * b.abs() + tol["of_max"] * b.abs().max()
     return float(diff.max()), float((diff / bar.clamp_min(1e-30)).max())
 
 
@@ -1132,9 +1166,178 @@ def phase_kernels():
     cases.append(_paged_case("long table S=1 nb=4096 bs=8 H=1", 1, 8, 4096,
                              1, 64, [32000], gen))
     cases += phase_kernels_bf16()
+    cases += phase_decode_dtypes()
     _print_cases(cases)
     print(json.dumps({"kernel_cases": cases}))
     return cases
+
+
+def _decode_dtype_case(label, dtype, S, C, H, D, lengths, gen, bs=None):
+    """A decode entry on `dtype` (bf16 or float16) operands, or with a block
+    size `bs` that is not a power of two on float32 ones: `flash_decode`
+    on a [S, C] cache, or with `bs` `flash_decode_paged` on a pool of 1 +
+    S * C / bs blocks behind a shuffled table. The call must launch
+    exactly the kernel its route names and count exactly its routes
+    (bf16: `<entry>_bf16`, the bf16 forward; float16: `<entry>_f16`, the
+    float32 kernels; float32 paged: `flash_decode_paged_gather`; above
+    256 also `<entry>_wide`), give out in q's type within BF16_OUT_TOL
+    (float16: F16_OUT_TOL; float32: TOL) of the plain version, and the
+    same bits from a second call. Returns the record; `library_ms` is
+    SDPA under the length mask on the same operands (paged: on the
+    gathered slab, the gather untimed)."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    from deeplearning4j_tpu_torch.kernels.flash_attention import \
+        WIDEST_COMPILED
+    dev = torch.device(DEVICE)
+    f32 = dtype == torch.float32
+    q = torch.randn((S, 1, H, D), generator=gen).to(dev, dtype)
+    lens = torch.as_tensor(lengths, dtype=torch.int32).to(dev)
+    entry = "flash_decode" if bs is None else "flash_decode_paged"
+    if bs is None:
+        k, v = (torch.randn((S, C, H, D), generator=gen).to(dev, dtype)
+                for _ in range(2))
+        run = lambda: K.flash_decode(q, k, v, lens)
+        plain = lambda: K.flash_decode_plain(q, k, v, lens)
+    else:
+        nb = C // bs
+        pk, pv = (torch.randn((1 + S * nb, bs, H, D), generator=gen)
+                  .to(dev, dtype) for _ in range(2))
+        table = (1 + torch.randperm(S * nb, generator=gen)).reshape(
+            S, nb).to(torch.int32).to(dev)
+        k = pk[table.long()].reshape(S, C, H, D)
+        v = pv[table.long()].reshape(S, C, H, D)
+        run = lambda: K.flash_decode_paged(q, pk, pv, table, lens)
+        plain = lambda: K.flash_decode_paged_plain(q, pk, pv, table, lens)
+    wide = D > WIDEST_COMPILED
+    if dtype == torch.bfloat16:
+        launched = "flash_wide_fwd_bf16" if wide else "flash_fwd_bf16"
+        route = f"{entry}_bf16"
+    else:
+        launched = "flash_wide_fwd" if wide else "flash_decode"
+        route = f"{entry}_gather" if f32 else f"{entry}_f16"
+    routes = {route}
+    if wide:
+        routes.add(f"{entry}_wide")
+    K.reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    n = {name: c for name, c in counts().items() if c}
+    want = {launched: 1, **dict.fromkeys(routes, 1)}
+    check(n == want, f"{entry} {label}: counts {n}, not {want}")
+    ref = plain()
+    tol = BF16_OUT_TOL if dtype == torch.bfloat16 else (
+        TOL if f32 else F16_OUT_TOL)
+    err = float((out.float() - ref.float()).abs().max())
+    check(out.dtype == dtype and out.shape == (S, 1, H, D)
+          and bool(torch.isfinite(out.float()).all()) and err <= tol,
+          f"{entry} {label}: {out.dtype} {tuple(out.shape)}, max abs err "
+          f"{err} > {tol}")
+    check(torch.equal(out, run()), f"{entry} {label}: a second call gave "
+                                   "other bits")
+    library_ms = library_device_ms = None
+    if min(lengths) >= 1:
+        sq, sk, sv = (t.transpose(1, 2) for t in (q, k, v))
+        mask = (torch.arange(C, device=dev)[None, :] < lens[:, None]
+                )[:, None, None, :]
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=mask)
+        library_ms, library_device_ms = median_ms(library), device_ms(library)
+    valid = sum(C if x <= 0 else min(int(x), C) for x in lengths)
+    nbytes = q.element_size() * (2 * valid * H * D + 2 * S * H * D) + 4 * S
+    if bs is not None:
+        nbytes += 4 * S * (C // bs)
+    return rate_fields({
+        "name": route, "case": label,
+        "shape": [S, C, H, D], "block_size": bs, "lengths": list(lengths),
+        "launched": launched, "routes": sorted(routes), "max_abs_err": err,
+        "ms": median_ms(run), "plain_ms": median_ms(plain),
+        "library_ms": library_ms,
+        "library_note": "scaled_dot_product_attention under the length "
+                        "mask on the same operands" + (
+                            "" if bs is None else
+                            " (the gathered slab, the gather untimed)"),
+        **bound(nbytes, 4 * D * H * valid, bf16=not f32),
+        "device_ms": device_ms(run), "plain_device_ms": device_ms(plain),
+        "library_device_ms": library_device_ms})
+
+
+def phase_decode_dtypes():
+    """Both decode entries on bf16 and float16 operands at the serving
+    step (S=8 C=256 H=4 D=64, the paged one on blocks of 16), at
+    bench_decode_paged's shape (D=32) and at D=320 (the D=320 model's
+    step), each on its route (`_decode_dtype_case`); a float32 pool of
+    blocks of 12 (gathered, then `flash_decode`); then float16 through
+    `flash_attention_lse` and its gradient (`_f16_attention_case`).
+    Returns the decode records."""
+    import torch
+    gen = torch.Generator().manual_seed(11)
+    b = BENCH_PAGED
+    shapes = [("step S=8 C=256 D=64", 8, 256, 4, 64, STEP_LENGTHS, 16),
+              ("bench_decode_paged shape D=32", b["S"], b["C"], b["H"],
+               b["D"], b["lengths"], b["bs"]),
+              ("step S=8 C=256 D=320", 8, 256, 4, 320, STEP_LENGTHS, 16)]
+    cases = []
+    for dtype in (torch.bfloat16, torch.float16):
+        for lab, S, C, H, D, lengths, bs in shapes:
+            cases.append(_decode_dtype_case(lab, dtype, S, C, H, D, lengths,
+                                            gen))
+            cases.append(_decode_dtype_case(f"{lab} bs={bs}", dtype, S, C, H,
+                                            D, lengths, gen, bs=bs))
+    cases.append(_decode_dtype_case("step S=8 C=264 D=64 bs=12",
+                                    torch.float32, 8, 264, 4, 64,
+                                    [1, 17, 100, 264, 3, 64, 200, 255], gen,
+                                    bs=12))
+    print(json.dumps({"f16_attention": _f16_attention_case(gen)}))
+    return cases
+
+
+def _f16_attention_case(gen):
+    """`flash_attention_lse` on float16 q, k, v at B=2 T=200 H=4 D=64 causal
+    with a ragged key mask, and the gradient of sum(out * g) + sum(lse *
+    w) through `FlashAttentionLSEFunction`: one launch of each float32
+    kernel and one `<entry>_f16` call each, out (float16) within
+    F16_OUT_TOL and lse within TOL of the plain version, dq, dk, dv
+    (float16) within F16_GRAD_TOL of the plain backward. Returns the
+    errors."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    dev = torch.device(DEVICE)
+    B, T, H, D = 2, 200, 4, 64
+    q, k, v, g = (torch.randn((B, T, H, D), generator=gen).to(dev,
+                                                              torch.float16)
+                  for _ in range(4))
+    w = torch.randn((B, H, T), generator=gen).to(dev)
+    km = _key_mask(B, T, [200, 137])
+    kw = dict(causal=True, key_mask=km)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    K.reset_launch_counts()
+    out, lse = K.flash_attention_lse(*leaves, **kw)
+    grads = torch.autograd.grad(
+        (out.float() * g.float()).sum() + (lse * w).sum(), leaves)
+    torch.cuda.synchronize()
+    n = {name: c for name, c in counts().items() if c}
+    want = {name: 1 for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                                 "flash_fwd_f16", "flash_bwd_dq_f16",
+                                 "flash_bwd_dkv_f16")}
+    check(n == want, f"float16 attention: counts {n}, not {want}")
+    ref_out, ref_lse = K.flash_attention_plain(q, k, v, return_lse=True,
+                                               **kw)
+    ref = K.flash_attention_bwd_plain(q, k, v, ref_out, ref_lse, g, g_lse=w,
+                                      **kw)
+    out, lse = out.detach(), lse.detach()
+    errs = {"out": float((out.float() - ref_out.float()).abs().max()),
+            "lse": float((lse - ref_lse).abs().max())}
+    check(out.dtype == torch.float16 and errs["out"] <= F16_OUT_TOL
+          and errs["lse"] <= TOL,
+          f"float16 attention: out {out.dtype}, errors {errs}")
+    for name, a, b in zip(("dq", "dk", "dv"), grads, ref):
+        errs[name], share = _grad_err(a, b, F16_GRAD_TOL)
+        check(a.dtype == torch.float16 and share <= 1.0
+              and bool(torch.isfinite(a.float()).all()),
+              f"float16 attention {name}: {a.dtype}, max abs err "
+              f"{errs[name]} ({share:.2f} of the bar)")
+    return errs
 
 
 def _print_cases(cases):
@@ -1355,24 +1558,28 @@ def phase_head_dims():
                                        STEP_LENGTHS, gen))
         cases.append(_wide_decode_case(f"paged decode step D={D}", 8, 4, D,
                                        STEP_LENGTHS, gen, bs=16))
-    # a long causal case of the wide forward, f32 and bf16, and of the f32
-    # pair, with their shares of the bound
+    # a long causal case of the wide kernels, f32 and bf16 (the forward
+    # with the LSE, then the pair), with their shares of the bound
     B, T, H, D = WIDE_LONG
-    for dtype, kernels, routes in ((torch.float32, wide_f32, wide_routes),
-                                   (torch.bfloat16, wide_bf16,
-                                    wide_bf16_routes)):
-        cases.append(_routed(WIDE_LONG_CASE, lambda: _fwd_general_case(
-            WIDE_LONG_CASE, B, T, T, H, D, True, None, gen, lse=True,
-            dtype=dtype), kernels[:1], False, wide=routes[:1]))
+    cases.append(_routed(WIDE_LONG_CASE, lambda: _fwd_general_case(
+        WIDE_LONG_CASE, B, T, T, H, D, True, None, gen, lse=True),
+        wide_f32[:1], False, wide=wide_routes[:1]))
     cases += _routed(WIDE_LONG_CASE, lambda: _bwd_case(
         WIDE_LONG_CASE, B, T, T, H, D, True, None, gen), wide_f32, False,
         wide=wide_routes)
-    # the f32 wide kernels under causal offsets, with an LSE cotangent
+    cases += _routed(WIDE_LONG_CASE, lambda: _bf16_case(
+        WIDE_LONG_CASE, B, T, T, H, D, True, None, gen), wide_bf16, False,
+        wide=wide_bf16_routes)
+    # the wide kernels under causal offsets, with an LSE cotangent, f32
+    # and bf16
     B, T, H, D = WIDE_LSE
-    for lab, offs in WIDE_LSE_OFFSETS:
-        cases += _routed(lab, lambda: _lse_case(
-            lab, torch.float32, B, T, H, D, offs, None, gen), wide_f32,
-            False, wide=wide_routes)
+    for dtype, kernels, routes in ((torch.float32, wide_f32, wide_routes),
+                                   (torch.bfloat16, wide_bf16,
+                                    wide_bf16_routes)):
+        for lab, offs in WIDE_LSE_OFFSETS:
+            cases += _routed(lab, lambda: _lse_case(
+                lab, dtype, B, T, H, D, offs, None, gen), kernels, False,
+                wide=routes)
     # the D=320 model's training shape: its kernels' records on the path
     # (each forward three times, bitwise equal)
     cases.append(_fwd_general_case(WIDE_TRAIN_CASE, WIDE_BATCH, WIDE_SEQ,

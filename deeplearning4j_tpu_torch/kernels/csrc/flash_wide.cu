@@ -157,21 +157,53 @@
 //   - What bounds it (PERF.md, section 6): the score work repeated per box
 //     (above), and one consumer warpgroup per SM whose splits, f32 adds
 //     and waits run between its products, not under them.
-// The bf16 pair keeps the first design, on the CUDA cores (67 TFLOP/s of
-// f32 FMAs), until its own redesign (`flash_wide_dq_kernel`,
-// `flash_wide_dkv_kernel`, bf16 only):
-//   - Each block owns a tile of rows (32 q rows for dq, 32 keys for dk/dv)
-//     and one box of 64 output columns; dq walks the q tiles last first
-//     when causal.
-//   - A block recomputes what needs the whole head dim, the scores and
-//     dp = dO.v^T, walking D in chunks of 64 columns staged in shared
-//     memory (rows padded to 65 floats), on 4 x 4 register micro-tiles of
-//     f32 FMAs; the product with its own box (dS K, P^T dO, dS^T Q) reads a
-//     64 x 64 box of the walked tile. So the score work is repeated once
-//     per 64-column box.
-//   - bf16 operands are upcast as they are staged and every sum is f32;
-//     p (dk/dv) and ds are rounded to bf16 before their product with an
-//     operand tile, where flash_bwd_bf16.cu rounds them.
+// The bfloat16 backward pair (`flash_wide_bwd_bf16_sm90<DQ>`, the entries
+// flash_wide_dq_bf16 and flash_wide_dkv_bf16) keeps the f32 pair's roles
+// and contract on bf16 `wgmma` products, with none of its splitting:
+//   - Roles as the f32 pair: a block owns 64 rows and one box of NB = 256
+//     output columns and walks 64-row tiles of the other side (dq: key
+//     tiles up to the causal limit, the last q tiles first; dk/dv: q tiles
+//     from the first one that sees an owned key, a dK and a dV block per
+//     (key tile, box)). Per unmasked pair, over n = ceil(D / 256) boxes:
+//     dq 4*D*n + 2*D operations (D = 512: 10*D, against the bound's 6*D),
+//     dk/dv 6*D*n + 4*D (16*D, against 8*D). D = 264, 320 and 512 take 2
+//     score passes, 1024 4 (the CUDA-core design before it, 64-column
+//     boxes: 5, 5, 8, 16). The last box is ragged: its products past D
+//     are skipped (n64 steps) and no column past D is written.
+//   - S and dP over the whole head dim in chunks of 64 bf16 columns (one
+//     TMA box, 4-D tensor maps, 128B swizzle, zero fill past T and D, so a
+//     ragged last chunk adds nothing) through a ring of NS = 4 slots, a
+//     slot holding the chunk of all four score operands (a dV block: two);
+//     m64n64k16 products with both operands from shared memory, K-major.
+//     S and dP each sum over all of D in one running f32 accumulator, as
+//     the bf16 forward sums S: the bf16 bar (chip_smoke.py BF16_GRAD_TOL)
+//     is far looser than the f32 pair's, which needed a fresh accumulator
+//     per chunk. A chunk's slot goes back once its products are done
+//     (`wgmma.wait_group 1`, the next chunk's products in flight).
+//   - The gradient product dOut_box += dS K_box (dq), dS^T Q_box (dK) or
+//     P^T dO_box (dV): P or dS from the score accumulator, rounded pairwise
+//     to bf16 (`acc_to_a`, where flash_bwd_bf16.cu rounds them), as
+//     register A; the dk/dv block computes S^T = K Q^T and dP^T = V dO^T,
+//     so P^T and dS^T are its accumulators as they stand. B is the walked
+//     tile's box of the box operand (K, Q or dO), loaded by TMA into one of
+//     two box slots and read MN-major through the transpose bit, as the
+//     bf16 forward reads V: no transposed copy.
+//   - p = 2^(s scale log2e - lse log2e) (`ex2.approx`), the masks and ds
+//     as the f32 pair (a full tile pair takes no test; a masked key's x
+//     the finite -1e30, past the causal limit or the ragged edge p = 0).
+//   - Warp-specialised as the bf16 forward: warpgroup 0 consumes (the
+//     products, p and ds in registers); warp 4 loads, lane 0 issuing every
+//     TMA into a slot handed back, and its 32 lanes staging each walked
+//     tile's column values (dq: key validity; dk/dv: lse log2e and delta
+//     of the q rows) beside the tile's box, both reported on the box
+//     slot's mbarrier.
+//   - Shared memory: 4 chunk slots of 32 KB and 2 box slots of 32 KB,
+//     193 KB: one block per SM. ptxas (CUDA 12.8): 234 registers (S 32,
+//     dP 32, the box 128), 0 spills; its report per instantiation:
+//     chip_smoke.py phase 1. Boxes of NB = 128 (170 registers) took 1.8-1.9x
+//     as long at the long cases (PERF.md, section 6): twice the score
+//     passes. One dK and dV block per key tile, S computed once for both,
+//     would hold two box accumulators: 256 registers at NB = 256.
 #include "hopper_f32.cuh"
 
 #include <math.h>
@@ -182,58 +214,11 @@ namespace {
 
 using bf16mma::bf16;
 
-// the bf16 pair's CUDA-core kernels
-constexpr int THREADS = 128;    // 8 row groups x 16 column groups
-constexpr int OWN = 32;         // owned rows of a block (q rows or keys)
-constexpr int WALK = 64;        // walked rows per tile (keys or q rows)
-constexpr int DC = 64;          // head-dim columns of one staged chunk
-constexpr int CB = 64;          // output columns of one block (its box)
-constexpr int RS = DC + 1;      // padded row of a staged chunk
-constexpr int SS = WALK + 1;    // padded row of a score tile
 constexpr float NEG_INF = -1e30f;
 
 struct Strides {
   long long b, t, h;            // element strides; the head dim is dense
 };
-
-__device__ __forceinline__ void store(bf16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-// x as the product with a bf16 operand tile takes it: rounded to bf16
-// (nearest even)
-__device__ __forceinline__ float operand(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Rows [r0, r0 + rows) x head-dim columns [c0, c0 + width) of the head
-// at `base` (row stride `st`) into dst[rows][ld] in f32, zero past T or D.
-__device__ __forceinline__ void stage(float* dst, int ld, const bf16* base,
-                                      long long st, int r0, int rows, int T_,
-                                      int c0, int width, int D, int tid) {
-  for (int i = tid; i < rows * width; i += THREADS) {
-    const int r = i / width, c = i % width;
-    dst[r * ld + c] = (r0 + r < T_ && c0 + c < D)
-        ? __bfloat162float(base[(r0 + r) * st + c0 + c]) : 0.f;
-  }
-}
-
-// acc[4][4] += A[rows tr*4+ii][:DC] . B[rows tc+16jj][:DC] (both padded
-// chunks)
-__device__ __forceinline__ void chunk_dot(float (&acc)[4][4], const float* A,
-                                          const float* Bm, int tr, int tc) {
-#pragma unroll 4
-  for (int d = 0; d < DC; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii) a[ii] = A[(tr * 4 + ii) * RS + d];
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) b[jj] = Bm[(tc + 16 * jj) * RS + d];
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = fmaf(a[ii], b[jj], acc[ii][jj]);
-  }
-}
 
 // ---------------------------------------------------------------- forward
 // The tensor-core forward (see the header). What differs between the
@@ -1039,256 +1024,294 @@ flash_wide_bwd_sm90(const __grid_constant__ CUtensorMap a1map,
                             acc[nb], tid, box_cols - 64 * nb);
 }
 
-// ---------------------------------------------------------------- bf16 dq
-__global__ void __launch_bounds__(THREADS)
-flash_wide_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
-                     const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     const float* __restrict__ key_mask,
-                     bf16* __restrict__ dq, int H, int Tq, int Tk, int D,
-                     Strides qs, Strides ks, Strides vs, Strides os,
-                     int causal, int q_off, int k_off, float scale) {
-  constexpr int BQ = OWN, BK = WALK;
-  extern __shared__ float smem[];
-  float* Qc = smem;             // [BQ][RS] a chunk of Q
-  float* Oc = Qc + BQ * RS;     // [BQ][RS] a chunk of dO
-  float* Kc = Oc + BQ * RS;     // [BK][RS] a chunk of K
-  float* Vc = Kc + BK * RS;     // [BK][RS] a chunk of V
-  float* Kb = Vc + BK * RS;     // [BK][CB] the block's box of K
-  float* Ss = Kb + BK * CB;     // [BQ][SS] ds
-  float* lse_s = Ss + BQ * SS;  // [BQ]
-  float* dl_s = lse_s + BQ;     // [BQ] delta
+// ----------------------------------------------------------- bf16 backward
+// The bf16 tensor-core backward (see the header). Byte offsets from the
+// 1024-aligned base; every tile 1024-aligned. A chunk slot holds one
+// 64-column chunk of each score operand, 64 rows, as landed: the owned
+// side's A1 (S's A: Q for dq, K for dk/dv) and A2 (dP's A: dO, V), the
+// walked side's B1 (S's B: K, Q) and B2 (dP's B: V, dO). A box slot holds
+// the walked tile's box of the box operand, NB / 64 TMA boxes of 64 rows.
+struct WideBwdBf16 {
+  static constexpr int NB = 256, DC = 64, NS = 4, THREADS = 160;
+  static constexpr int CHUNK = 64 * DC * 2;       // one operand's chunk
+  static constexpr int A1 = 0, A2 = CHUNK, B1 = 2 * CHUNK, B2 = 3 * CHUNK,
+                       SLOT = 4 * CHUNK;
+  static constexpr int BOX = 64 * NB * 2;         // one box slot
+  static constexpr int BX = NS * SLOT;            // [2] box slots
+  static constexpr int COL = BX + 2 * BOX;        // [2][128] column values
+  static constexpr int BAR = COL + 2 * 128 * 4;
+  static constexpr int BYTES = BAR + 8 * (2 * NS + 4);
+};
+static_assert(WideBwdBf16::BYTES + 1024 <= SMEM_LIMIT, "shared memory");
 
-  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
-  const int n_box = (D + CB - 1) / CB;
-  // causal: the last q tiles see the most keys; they go first
+// DQ: the block owns 64 q rows (A1 = Q, A2 = dO), walks key tiles (B1 =
+// K, B2 = V) and writes dq into out0; its box operand is K. Else it owns
+// 64 keys (A1 = K, A2 = V) and walks q tiles (B1 = Q, B2 = dO): a dK block
+// (box operand Q, into out0) or a dV block (no dP; box operand dO, into
+// out1), the two kinds side by side on the grid. Threads 0-127 consume;
+// warp 4 loads. Chunk u (walked tile u / n_dc, head-dim chunk u % n_dc)
+// sits in slot u % NS; its full (TMA) and empty (consumed) mbarriers
+// complete their (u / NS)-th phase. Walked tile j's box and column values
+// sit in box slot j % 2; its bfull (TMA and the loader warp's 32 lanes)
+// and bempty (the gradient product done) mbarriers complete their
+// (j / 2)-th phase.
+template <bool DQ>
+__global__ void __launch_bounds__(WideBwdBf16::THREADS, 1)
+flash_wide_bwd_bf16_sm90(const __grid_constant__ CUtensorMap a1map,
+                         const __grid_constant__ CUtensorMap a2map,
+                         const __grid_constant__ CUtensorMap b1map,
+                         const __grid_constant__ CUtensorMap b2map,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const float* __restrict__ key_mask,
+                         bf16* __restrict__ out0, bf16* __restrict__ out1,
+                         int H, int Tq, int Tk, int D, int causal, int q_off,
+                         int k_off, float scale) {
+  using L = WideBwdBf16;
+  constexpr int NB = L::NB, NS = L::NS, NP = NB / 64;
+  constexpr int KINDS = DQ ? 1 : 2;
+  constexpr uint32_t TMA_BYTES = 64 * 128;        // one box of 64 rows
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hopper::align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t *empty = full + NS, *bfull = empty + NS, *bempty = bfull + 2;
+  float* col = reinterpret_cast<float*>(sm + L::COL);
+
+  const int tid = threadIdx.x;
+  const int n_box = (D + NB - 1) / NB;
+  const int T_own = DQ ? Tq : Tk;
+  // dq, causal: the last q tiles see the most keys; dk/dv: the first key
+  // tiles are seen by the most queries. Either way they go first.
   const hopper::GridTile gt =
-      hopper::grid_tile((Tq + BQ - 1) / BQ * n_box, causal);
-  const int q0 = gt.tile / n_box * BQ, c0 = gt.tile % n_box * CB;
+      hopper::grid_tile((T_own + 63) / 64 * n_box * KINDS, DQ && causal);
+  const int own0 = gt.tile / (n_box * KINDS) * 64;
+  const int c0 = gt.tile / KINDS % n_box * NB;
+  const bool has_dp = DQ || gt.tile % KINDS == 0;   // not a dV block
   const int bh = gt.bh, b = bh / H, h = bh % H;
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
-  const bf16* ob = dout + b * os.b + h * os.h;
-  const float* km = key_mask ? key_mask + (long long)b * Tk : nullptr;
-
-  if (tid < BQ) {
-    const bool in = q0 + tid < Tq;
-    lse_s[tid] = in ? lse[(long long)bh * Tq + q0 + tid] : 0.f;
-    dl_s[tid] = in ? delta[(long long)bh * Tq + q0 + tid] : 0.f;
-  }
-  float acc[4][4] = {};
-
   const int shift = q_off - k_off;
-  const int k_end = causal ? min(Tk, max(0, min(Tq, q0 + BQ) + shift)) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    // S = Q K^T and dP = dO V^T over the whole head dim
-    float s[4][4] = {}, dp[4][4] = {};
-    for (int d0 = 0; d0 < D; d0 += DC) {
-      __syncthreads();          // the last chunk's (or tile's) reads done
-      stage(Qc, RS, qb, qs.t, q0, BQ, Tq, d0, DC, D, tid);
-      stage(Oc, RS, ob, os.t, q0, BQ, Tq, d0, DC, D, tid);
-      stage(Kc, RS, kb, ks.t, k0, BK, Tk, d0, DC, D, tid);
-      stage(Vc, RS, vb, vs.t, k0, BK, Tk, d0, DC, D, tid);
-      if (d0 == 0) stage(Kb, CB, kb, ks.t, k0, BK, Tk, c0, CB, D, tid);
-      __syncthreads();
-      chunk_dot(s, Qc, Kc, tr, tc);
-      chunk_dot(dp, Oc, Vc, tr, tc);
-    }
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      const int r = tr * 4 + ii;
-      const float l = lse_s[r], dl = dl_s[r];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int c = tc + 16 * jj, kpos = k0 + c;
-        float p = 0.f;            // past the ragged edge: weight exactly 0
-        if (kpos < Tk) {
-          float x = s[ii][jj] * scale;
-          if (km && !(km[kpos] > 0.f)) x = NEG_INF;
-          if (causal && kpos > q0 + r + shift) x = -INFINITY;
-          p = expf(x - l);
-        }
-        Ss[r * SS + c] = operand(p * (dp[ii][jj] - dl) * scale);
+  // the walked tiles: dq, key tiles up to the causal limit of the tile's
+  // last row; dk/dv, q tiles from the one that holds the first row that
+  // sees an owned key
+  int walk0 = 0, n_tiles;
+  if (DQ) {
+    const int k_end =
+        causal ? min(Tk, max(0, min(Tq, own0 + 64) + shift)) : Tk;
+    n_tiles = (k_end + 63) / 64;
+  } else {
+    walk0 = causal ? max(0, (own0 - shift) / 64 * 64) : 0;
+    n_tiles = walk0 < Tq ? (Tq - walk0 + 63) / 64 : 0;
+  }
+  const int n_dc = (D + L::DC - 1) / L::DC;     // chunks of the head dim
+  const int box_cols = min(NB, D - c0);         // the box's columns below D
+  const int n_prod = (box_cols + 63) / 64;      // its n64 products
+
+  if (n_tiles > 0) {
+    if (tid == 0) {
+      for (int i = 0; i < NS; ++i) {
+        hopper::mbar_init(&full[i], 1);
+        hopper::mbar_init(&empty[i], 128);
       }
+      for (int i = 0; i < 2; ++i) {
+        hopper::mbar_init(&bfull[i], 32);
+        hopper::mbar_init(&bempty[i], 128);
+      }
+      hopper::mbar_init_fence();
     }
     __syncthreads();
+  }
 
-    // dQ[:, box] += dS K[:, box]
-    for (int j = 0; j < BK; ++j) {
-      float kk[4];
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) kk[cc] = Kb[j * CB + tc + 16 * cc];
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        const float g = Ss[(tr * 4 + ii) * SS + j];
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) acc[ii][cc] = fmaf(g, kk[cc], acc[ii][cc]);
+  if (tid >= 128) {
+    // ------------------------------------------------------ the loader
+    if (n_tiles == 0) return;
+    const int lane = tid - 128;
+    const CUtensorMap* bmap = has_dp ? &b1map : &b2map;
+    // chunk u's boxes: A1, B1, and A2, B2 for dP
+    auto load_chunk = [&](int u) {
+      const int st = u % NS, c = u % n_dc * L::DC;
+      const int w0 = walk0 + u / n_dc * 64;
+      unsigned char* slot = sm + st * L::SLOT;
+      hopper::mbar_expect_tx(&full[st], (has_dp ? 4 : 2) * L::CHUNK);
+      hopper::tma_load_4d(slot + L::A1, &a1map, &full[st], c, h, own0, b);
+      hopper::tma_load_4d(slot + L::B1, &b1map, &full[st], c, h, w0, b);
+      if (has_dp) {
+        hopper::tma_load_4d(slot + L::A2, &a2map, &full[st], c, h, own0, b);
+        hopper::tma_load_4d(slot + L::B2, &b2map, &full[st], c, h, w0, b);
       }
-    }
-  }
-
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int r = tr * 4 + ii;
-    if (q0 + r >= Tq) continue;
-    bf16* o = dq + (((long long)b * Tq + q0 + r) * H + h) * D;
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      const int col = c0 + tc + 16 * cc;
-      if (col < D) store(o + col, acc[ii][cc]);
-    }
-  }
-}
-
-// --------------------------------------------------------------- bf16 dkv
-__global__ void __launch_bounds__(THREADS)
-flash_wide_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const bf16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      const float* __restrict__ key_mask,
-                      bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
-                      int Tq, int Tk, int D, Strides qs, Strides ks,
-                      Strides vs, Strides os, int causal, int q_off,
-                      int k_off, float scale) {
-  constexpr int BK = OWN, BQ = WALK;
-  extern __shared__ float smem[];
-  float* Kc = smem;             // [BK][RS] a chunk of K
-  float* Vc = Kc + BK * RS;     // [BK][RS] a chunk of V
-  float* Qc = Vc + BK * RS;     // [BQ][RS] a chunk of Q
-  float* Oc = Qc + BQ * RS;     // [BQ][RS] a chunk of dO
-  float* Qb = Oc + BQ * RS;     // [BQ][CB] the block's box of Q
-  float* Ob = Qb + BQ * CB;     // [BQ][CB] the block's box of dO
-  float* Ps = Ob + BQ * CB;     // [BK][SS] p^T
-  float* Ds = Ps + BK * SS;     // [BK][SS] ds^T
-  float* lse_s = Ds + BK * SS;  // [BQ]
-  float* dl_s = lse_s + BQ;     // [BQ] delta
-
-  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
-  const int n_box = (D + CB - 1) / CB;
-  // causal: the first key tiles are seen by the most queries; they go
-  // first
-  const hopper::GridTile gt =
-      hopper::grid_tile((Tk + BK - 1) / BK * n_box, false);
-  const int k0 = gt.tile / n_box * BK, c0 = gt.tile % n_box * CB;
-  const int bh = gt.bh, b = bh / H, h = bh % H;
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
-  const bf16* ob = dout + b * os.b + h * os.h;
-  const float* km = key_mask ? key_mask + (long long)b * Tk : nullptr;
-
-  // this thread's key rows: in range and not masked
-  bool kvalid[4];
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int kpos = k0 + tr * 4 + ii;
-    kvalid[ii] = kpos < Tk && (!km || km[kpos] > 0.f);
-  }
-  float dk_acc[4][4] = {}, dv_acc[4][4] = {};
-
-  // causal: rows before k0 - shift see none of these keys; start at the q
-  // tile that holds the first one that does
-  const int shift = q_off - k_off;
-  const int q_start = causal ? max(0, ((k0 - shift) / BQ) * BQ) : 0;
-  for (int q0 = q_start; q0 < Tq; q0 += BQ) {
-    // S^T = K Q^T and dP^T = V dO^T over the whole head dim
-    float s[4][4] = {}, dp[4][4] = {};
-    for (int d0 = 0; d0 < D; d0 += DC) {
-      __syncthreads();          // the last chunk's (or tile's) reads done
-      stage(Kc, RS, kb, ks.t, k0, BK, Tk, d0, DC, D, tid);
-      stage(Vc, RS, vb, vs.t, k0, BK, Tk, d0, DC, D, tid);
-      stage(Qc, RS, qb, qs.t, q0, BQ, Tq, d0, DC, D, tid);
-      stage(Oc, RS, ob, os.t, q0, BQ, Tq, d0, DC, D, tid);
-      if (d0 == 0) {
-        stage(Qb, CB, qb, qs.t, q0, BQ, Tq, c0, CB, D, tid);
-        stage(Ob, CB, ob, os.t, q0, BQ, Tq, c0, CB, D, tid);
-        if (tid < BQ) {
-          const bool in = q0 + tid < Tq;
-          lse_s[tid] = in ? lse[(long long)bh * Tq + q0 + tid] : 0.f;
-          dl_s[tid] = in ? delta[(long long)bh * Tq + q0 + tid] : 0.f;
+    };
+    for (int j = 0; j < n_tiles; ++j) {
+      // walked tile j's box and column values into box slot j % 2 once the
+      // consumer is done with tile j - 2, then its chunks, each into a slot
+      // handed back
+      const int bs = j % 2, w0 = walk0 + j * 64;
+      if (j >= 2) hopper::mbar_wait(&bempty[bs], ((j - 2) / 2) & 1);
+      float* cv = col + bs * 128;
+      for (int i = lane; i < (DQ ? 64 : 128); i += 32) {
+        const int w = w0 + i % 64;
+        if (DQ) {
+          // key validity (1 past the ragged edge: the edge has its test)
+          cv[i] = (key_mask && w < Tk) ? key_mask[(long long)b * Tk + w]
+                                       : 1.f;
+        } else {
+          // lse log2e, then delta, of q row w (0 past Tq)
+          const long long at = (long long)bh * Tq + w;
+          cv[i] = w >= Tq ? 0.f : i < 64 ? lse[at] * LOG2E : delta[at];
         }
       }
-      __syncthreads();
-      chunk_dot(s, Kc, Qc, tr, tc);
-      chunk_dot(dp, Vc, Oc, tr, tc);
-    }
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      const int r = tr * 4 + ii, kpos = k0 + r;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int c = tc + 16 * jj, qpos = q0 + c;
-        float p = 0.f;            // past either ragged edge: weight 0
-        if (qpos < Tq && kpos < Tk) {
-          float x = s[ii][jj] * scale;
-          if (!kvalid[ii]) x = NEG_INF;
-          if (causal && kpos > qpos + shift) x = -INFINITY;
-          p = expf(x - lse_s[c]);
-        }
-        Ps[r * SS + c] = operand(p);
-        Ds[r * SS + c] = operand(p * (dp[ii][jj] - dl_s[c]) * scale);
+      if (lane == 0) {
+        hopper::mbar_expect_tx(&bfull[bs], n_prod * TMA_BYTES);
+        for (int i = 0; i < n_prod; ++i)
+          hopper::tma_load_4d(sm + L::BX + bs * L::BOX + i * TMA_BYTES, bmap,
+                              &bfull[bs], c0 + 64 * i, h, w0, b);
+      } else {
+        hopper::mbar_arrive(&bfull[bs]);
+      }
+      for (int c = 0; c < n_dc; ++c) {
+        const int u = j * n_dc + c;
+        if (u >= NS) hopper::mbar_wait(&empty[u % NS], ((u - NS) / NS) & 1);
+        if (lane == 0) load_chunk(u);
       }
     }
-    __syncthreads();
-
-    // dV[:, box] += P^T dO[:, box] and dK[:, box] += dS^T Q[:, box]
-    for (int c = 0; c < BQ; ++c) {
-      float ov[4], qv[4];
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        ov[cc] = Ob[c * CB + tc + 16 * cc];
-        qv[cc] = Qb[c * CB + tc + 16 * cc];
-      }
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        const float p = Ps[(tr * 4 + ii) * SS + c];
-        const float g = Ds[(tr * 4 + ii) * SS + c];
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          dv_acc[ii][cc] = fmaf(p, ov[cc], dv_acc[ii][cc]);
-          dk_acc[ii][cc] = fmaf(g, qv[cc], dk_acc[ii][cc]);
-        }
-      }
-    }
+    return;
   }
 
-  // every key row in range is written, masked ones as exact zeros
+  // -------------------------------------------------------- the consumer
+  const int lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int rt = (tid / 32) * 16 + g;           // this thread's tile rows
+  const int r0 = own0 + rt;                     // rt, rt + 8
+  const float scale2 = scale * LOG2E;
+  // dq: each row's lse log2e and delta, and (causal) the last key it
+  // sees; dk/dv: each key's validity and the first query that sees it
+  float rv[2], rd[2];
+  int lim[2];
 #pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int r = tr * 4 + ii;
-    if (k0 + r >= Tk) continue;
-    const long long off = (((long long)b * Tk + k0 + r) * H + h) * D;
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      const int col = c0 + tc + 16 * cc;
-      if (col < D) {
-        store(dk + off + col, dk_acc[ii][cc]);
-        store(dv + off + col, dv_acc[ii][cc]);
-      }
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    if (DQ) {
+      const bool in = r < Tq;
+      rv[i] = in ? lse[(long long)bh * Tq + r] * LOG2E : 0.f;
+      rd[i] = in ? delta[(long long)bh * Tq + r] : 0.f;
+      lim[i] = r + shift;
+    } else {
+      rv[i] = (r < Tk && (!key_mask || key_mask[(long long)b * Tk + r] > 0.f))
+          ? 1.f : 0.f;
+      rd[i] = 0.f;
+      lim[i] = r - shift;
     }
   }
-}
+  // dk/dv: a masked key among the warp's (keys past Tk do not count)
+  const bool warp_masked = !DQ && __any_sync(
+      0xffffffffu, (r0 < Tk && !(rv[0] > 0.f)) ||
+                   (r0 + 8 < Tk && !(rv[1] > 0.f)));
 
-// ---------------------------------------------------------------- launches
-constexpr size_t DQ_SMEM = sizeof(float) *
-    (2 * OWN * RS + 2 * WALK * RS + WALK * CB + OWN * SS + 2 * OWN);
-constexpr size_t DKV_SMEM = sizeof(float) *
-    (2 * OWN * RS + 2 * WALK * RS + 2 * WALK * CB + 2 * OWN * SS + 2 * WALK);
+  float acc[NP][32];
+#pragma unroll
+  for (int nb = 0; nb < NP; ++nb)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[nb][e] = 0.f;
 
-template <typename Kernel>
-int prepare(Kernel kernel, size_t smem, long long tiles, int D, int B,
-            int H, dim3* grid) {
-  if (D < 1) return (int)cudaErrorInvalidValue;
-  const int err = (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err) return err;
-  return hopper::grid_1d(tiles * ((D + CB - 1) / CB), (long long)B * H,
-                         grid);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int w0 = walk0 + j * 64;
+    // S and dP over the whole head dim, chunk by chunk, each in one
+    // running accumulator; a chunk's slot goes back once its products
+    // are done
+    float s[32], dp[32];
+    for (int c = 0; c < n_dc; ++c) {
+      const int u = j * n_dc + c, st = u % NS;
+      const unsigned char* slot = sm + st * L::SLOT;
+      const bf16* a1 = reinterpret_cast<const bf16*>(slot + L::A1);
+      const bf16* a2 = reinterpret_cast<const bf16*>(slot + L::A2);
+      const bf16* b1 = reinterpret_cast<const bf16*>(slot + L::B1);
+      const bf16* b2 = reinterpret_cast<const bf16*>(slot + L::B2);
+      hopper::mbar_wait(&full[st], (u / NS) & 1);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < L::DC / 16; ++kk)
+        hopper::wgmma_ss(s, hopper::desc_k_major(a1, 64, kk),
+                         hopper::desc_k_major(b1, 64, kk), c > 0 || kk > 0);
+      if (has_dp) {
+#pragma unroll
+        for (int kk = 0; kk < L::DC / 16; ++kk)
+          hopper::wgmma_ss(dp, hopper::desc_k_major(a2, 64, kk),
+                           hopper::desc_k_major(b2, 64, kk), c > 0 || kk > 0);
+      }
+      hopper::wgmma_commit();
+      if (c > 0) {
+        hopper::wgmma_wait<1>();
+        hopper::mbar_arrive(&empty[(u - 1) % NS]);
+      }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::mbar_arrive(&empty[(j * n_dc + n_dc - 1) % NS]);
+    hopper::fence_operand(s);
+    hopper::fence_operand(dp);
+
+    // the tile's box and column values
+    const int bs = j % 2;
+    hopper::mbar_wait(&bfull[bs], (j / 2) & 1);
+    const float* cv = col + bs * 128;
+    // p = exp(x - lse) as the forward masks x; ds = p (dp - delta) scale.
+    // Every warp's quads cover all 64 columns, so the warp's vote is the
+    // tile's.
+    bool full_pair;
+    if (DQ) {
+      bool dead = false;
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        dead |= !(cv[8 * (e >> 1) + 2 * t + (e & 1)] > 0.f);
+      full_pair = w0 + 64 <= Tk && !__any_sync(0xffffffffu, dead) &&
+                  (!causal || w0 + 63 + k_off <= own0 + q_off);
+    } else {
+      full_pair = !warp_masked &&
+                  (!causal || own0 + 63 + k_off <= w0 + q_off);
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int i = (e >> 1) & 1;
+      const int c = 8 * (e >> 2) + 2 * t + (e & 1);
+      const float l2 = DQ ? rv[i] : cv[c];
+      float p;
+      if (full_pair) {
+        p = hopper::exp2_approx(fmaf(s[e], scale2, -l2));
+      } else {
+        const int pos = w0 + c;         // dq: a key; dk/dv: a q row
+        const bool live = DQ ? cv[c] > 0.f : rv[i] > 0.f;
+        const float x2 = live ? fmaf(s[e], scale2, -l2) : NEG_INF2 - l2;
+        const bool seen = DQ ? pos < Tk && (!causal || pos <= lim[i])
+                             : pos < Tq && (!causal || lim[i] <= pos);
+        p = seen ? hopper::exp2_approx(x2) : 0.f;
+      }
+      s[e] = has_dp ? p * (dp[e] - (DQ ? rd[i] : cv[64 + c])) * scale : p;
+    }
+
+    // dOut_box += (dS or P) B_box: A the accumulator rounded to bf16, B
+    // the box MN-major (the transpose bit)
+    const bf16* bx = reinterpret_cast<const bf16*>(sm + L::BX + bs * L::BOX);
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hopper::acc_to_a(pa[kk], s, kk);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < NP; ++nb)
+        if (nb < n_prod)
+          hopper::wgmma_rs_n64_tb(acc[nb], pa[kk],
+                                  hopper::desc_mn_major(bx, 64, kk, nb));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < NP; ++nb) hopper::fence_operand(acc[nb]);
+    hopper::mbar_arrive(&bempty[bs]);
+  }
+
+  // every owned row below T_own is written (zeros where nothing reaches
+  // it), the box's columns below D
+  bf16* ob = (has_dp ? out0 : out1) + ((long long)b * T_own * H + h) * D + c0;
+#pragma unroll
+  for (int nb = 0; nb < NP; ++nb)
+    if (nb < n_prod)
+      hopper::store_acc(ob, (long long)H * D, own0, T_own, 64 * nb, acc[nb],
+                        tid, box_cols - 64 * nb);
 }
 
 template <typename T>
@@ -1335,69 +1358,51 @@ struct Operands {
   float scale;
 };
 
-int launch_dq_bf16(const Operands& a, void* dq, cudaStream_t stream) {
-  dim3 grid;
-  const int err = prepare(flash_wide_dq_kernel, DQ_SMEM,
-                          (a.Tq + OWN - 1) / OWN, a.D, a.B, a.H, &grid);
-  if (err) return err;
-  flash_wide_dq_kernel<<<grid, THREADS, DQ_SMEM, stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
-      a.delta, a.key_mask, static_cast<bf16*>(dq), a.H, a.Tq, a.Tk, a.D,
-      a.qs, a.ks, a.vs, a.os, a.causal, a.q_off, a.k_off, a.scale);
-  return (int)cudaGetLastError();
-}
-
-int launch_dkv_bf16(const Operands& a, void* dk, void* dv,
-                    cudaStream_t stream) {
-  dim3 grid;
-  const int err = prepare(flash_wide_dkv_kernel, DKV_SMEM,
-                          (a.Tk + OWN - 1) / OWN, a.D, a.B, a.H, &grid);
-  if (err) return err;
-  flash_wide_dkv_kernel<<<grid, THREADS, DKV_SMEM, stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
-      a.delta, a.key_mask, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      a.H, a.Tq, a.Tk, a.D, a.qs, a.ks, a.vs, a.os, a.causal, a.q_off,
-      a.k_off, a.scale);
-  return (int)cudaGetLastError();
-}
-
-// The f32 pair: dq (out0) or dk and dv (out0, out1) by
-// `flash_wide_bwd_sm90`, its four tensor maps (64 rows x 32 columns a box,
-// zero fill past T and D) in the kernel's roles.
-int launch_bwd_f32(const Operands& a, bool dq, void* out0, void* out1,
-                   cudaStream_t stream) {
-  using L = WideBwd;
+// The backward pair: dq (out0) or dk and dv (out0, out1), f32 by
+// `flash_wide_bwd_sm90`, bf16 by `flash_wide_bwd_bf16_sm90`, its four
+// tensor maps (64 rows x 128 bytes of columns a box, zero fill past T and
+// D) in the kernel's roles.
+template <typename T>
+int launch_bwd(const Operands& a, bool dq, void* out0, void* out1,
+               cudaStream_t stream) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  using L = std::conditional_t<F32, WideBwd, WideBwdBf16>;
   if (a.D < 1) return (int)cudaErrorInvalidValue;
+  const CUtensorMapDataType type = F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const struct { const void* p; int len; Strides s; } ops[4] = {
       {a.q, a.Tq, a.qs}, {a.k, a.Tk, a.ks}, {a.v, a.Tk, a.vs},
       {a.dout, a.Tq, a.os}};
   CUtensorMap m[4];
   for (int i = 0; i < 4; ++i) {
     const int err = hopper::make_tile_map(
-        &m[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ops[i].p, a.B, ops[i].len,
-        a.H, a.D, ops[i].s.b, ops[i].s.t, ops[i].s.h, 64);
+        &m[i], type, (int)sizeof(T), ops[i].p, a.B, ops[i].len, a.H, a.D,
+        ops[i].s.b, ops[i].s.t, ops[i].s.h, 64);
     if (err) return err;
   }
-  const auto kernel =
-      dq ? flash_wide_bwd_sm90<true> : flash_wide_bwd_sm90<false>;
-  const int smem = L::BYTES + 1024;
-  int err = (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err) return err;
-  dim3 grid;
-  err = hopper::grid_1d((long long)(((dq ? a.Tq : a.Tk) + 63) / 64) *
-                            ((a.D + L::NB - 1) / L::NB) * (dq ? 1 : 2),
-                        (long long)a.B * a.H, &grid);
-  if (err) return err;
   // (A1, A2, B1, B2): dq (Q, dO, K, V); dk/dv (K, V, Q, dO)
   const int r[4] = {dq ? 0 : 1, dq ? 3 : 2, dq ? 1 : 0, dq ? 2 : 3};
-  kernel<<<grid, L::THREADS, smem, stream>>>(
-      m[r[0]], m[r[1]], m[r[2]], m[r[3]], a.lse, a.delta, a.key_mask,
-      static_cast<float*>(out0), static_cast<float*>(out1), a.H, a.Tq, a.Tk,
-      a.D, a.causal, a.q_off, a.k_off, a.scale);
-  return (int)cudaGetLastError();
+  auto go = [&](auto kernel) {
+    const int smem = L::BYTES + 1024;
+    int err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err) return err;
+    dim3 grid;
+    err = hopper::grid_1d((long long)(((dq ? a.Tq : a.Tk) + 63) / 64) *
+                              ((a.D + L::NB - 1) / L::NB) * (dq ? 1 : 2),
+                          (long long)a.B * a.H, &grid);
+    if (err) return err;
+    kernel<<<grid, L::THREADS, smem, stream>>>(
+        m[r[0]], m[r[1]], m[r[2]], m[r[3]], a.lse, a.delta, a.key_mask,
+        static_cast<T*>(out0), static_cast<T*>(out1), a.H, a.Tq, a.Tk, a.D,
+        a.causal, a.q_off, a.k_off, a.scale);
+    return (int)cudaGetLastError();
+  };
+  if constexpr (F32)
+    return dq ? go(flash_wide_bwd_sm90<true>) : go(flash_wide_bwd_sm90<false>);
+  else
+    return dq ? go(flash_wide_bwd_bf16_sm90<true>)
+              : go(flash_wide_bwd_bf16_sm90<false>);
 }
 
 Operands operands(const void* q, const void* k, const void* v,
@@ -1453,20 +1458,16 @@ WIDE_FWD_ENTRY(flash_wide_fwd_bf16, bf16)
            q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st,     \
            o_sh, causal, q_off, k_off, scale)
 
-extern "C" int flash_wide_dq_f32(WIDE_BWD_ARGS, void* dq, WIDE_BWD_REST) {
-  return launch_bwd_f32(WIDE_OPERANDS, true, dq, nullptr,
-                        static_cast<cudaStream_t>(stream));
-}
-extern "C" int flash_wide_dq_bf16(WIDE_BWD_ARGS, void* dq, WIDE_BWD_REST) {
-  return launch_dq_bf16(WIDE_OPERANDS, dq, static_cast<cudaStream_t>(stream));
-}
-extern "C" int flash_wide_dkv_f32(WIDE_BWD_ARGS, void* dk, void* dv,
-                                  WIDE_BWD_REST) {
-  return launch_bwd_f32(WIDE_OPERANDS, false, dk, dv,
-                        static_cast<cudaStream_t>(stream));
-}
-extern "C" int flash_wide_dkv_bf16(WIDE_BWD_ARGS, void* dk, void* dv,
-                                   WIDE_BWD_REST) {
-  return launch_dkv_bf16(WIDE_OPERANDS, dk, dv,
-                         static_cast<cudaStream_t>(stream));
-}
+#define WIDE_BWD_ENTRIES(SUFFIX, T)                                         \
+  extern "C" int flash_wide_dq##SUFFIX(WIDE_BWD_ARGS, void* dq,            \
+                                       WIDE_BWD_REST) {                    \
+    return launch_bwd<T>(WIDE_OPERANDS, true, dq, nullptr,                 \
+                         static_cast<cudaStream_t>(stream));               \
+  }                                                                        \
+  extern "C" int flash_wide_dkv##SUFFIX(WIDE_BWD_ARGS, void* dk, void* dv, \
+                                        WIDE_BWD_REST) {                   \
+    return launch_bwd<T>(WIDE_OPERANDS, false, dk, dv,                     \
+                         static_cast<cudaStream_t>(stream));               \
+  }
+WIDE_BWD_ENTRIES(_f32, float)
+WIDE_BWD_ENTRIES(_bf16, bf16)

@@ -26,26 +26,37 @@ PyTorch version beside it:
   `flash_bwd_dkv_plain`.
 - `flash_decode` -> `csrc/flash_decode.cu`, replacing `_flash_kernel` as
   `flash_decode` (:604-645) runs it: one query per cache slot against a
-  [slots, capacity, heads, head_dim] cache masked by `lengths`. Plain
-  version: `flash_decode_plain`, the twin of `_decode_reference`
+  [slots, capacity, heads, head_dim] float32 cache masked by `lengths`.
+  Plain version: `flash_decode_plain`, the twin of `_decode_reference`
   (:587-601).
 - `flash_decode_paged` -> `csrc/flash_decode_paged.cu`, replacing
   `_flash_kernel` as `flash_decode_paged` (:648-682) runs it: the same
-  decode attention over a [num_blocks, block_size, heads, head_dim] pool,
-  reading each slot's keys through its row of an int32 block table inside
-  the kernel (the reference gathers the pool first). Plain version:
-  `flash_decode_paged_plain`, the gather followed by `flash_decode_plain`.
+  decode attention over a float32 [num_blocks, block_size, heads,
+  head_dim] pool of power-of-two blocks, reading each slot's keys through
+  its row of an int32 block table inside the kernel (the reference
+  gathers the pool first). Plain version: `flash_decode_paged_plain`, the
+  gather followed by `flash_decode_plain`. Any other pool is gathered
+  through the table first, as the reference does, and decoded as a slab.
 - Head dims above 256: `csrc/flash_wide.cu`, the forward
   (`flash_wide_fwd`), dq (`flash_wide_dq`) and dk/dv (`flash_wide_dkv`),
   each in float32 and bfloat16 (`_bf16`), the head dim a runtime value;
   the same plain versions.
 
-Types, as the TPU kernels have them: q, k, v (and dO) are all float32 or
-all bfloat16, and the attention entries dispatch on that type (mixed or
-other types raise); out, dq, dk and dv come back in the operands' type;
-the LSE, delta and the key mask are float32. The plain versions compute
-in float32 (float64 stays float64) and round to the operands' type once
-at the end, as the TPU kernels do. The decode kernels take float32.
+Types, as the TPU kernels have them: q, k, v (and dO) are all float32,
+all bfloat16 or all float16, and every entry dispatches on that type
+(mixed or other types raise); out, dq, dk and dv come back in the
+operands' type; the LSE, delta and the key mask are float32. The plain
+versions compute in float32 (float64 stays float64) and round to the
+operands' type once at the end, as the TPU kernels do. On a CUDA tensor:
+- float32: the float32 kernels.
+- bfloat16: the bfloat16 attention kernels. The decode entries run the
+  bfloat16 forward under the key mask `position < lengths`, the
+  reference's own route (its `flash_decode` runs its forward kernel,
+  :604-645), counted under `<entry>_bf16` in `route_counts()`.
+- float16: the operands upcast to float32 in the wrapper, the float32
+  kernels, the results (out, dq, dk, dv) cast back to float16: the TPU
+  kernels' own arithmetic (any float operand upcast on entry, :106-108,
+  f32 sums, the output in q's type, :140). Counted under `<entry>_f16`.
 
 The gradient: under grad mode, with an input that requires grad,
 `flash_attention` and `flash_attention_lse` run
@@ -140,7 +151,7 @@ NO_KEY_LSE = NEG_INF + math.log(1e-30)
 DECODE_UNIT = 32    # keys of a unit: a decode CTA's range is whole units
 DECODE_ROUND = 64   # keys of one 16-key step of each of a CTA's 4 warps
 DECODE_MAX_SPLIT = 8    # CTAs per (slot, head): the portable cluster size
-_ATTENTION_DTYPES = (torch.float32, torch.bfloat16)
+_ATTENTION_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 # each attention kernel's C argument types and, by operand type, its
 # (library, C entry); launches are counted under the entry's name without
@@ -167,15 +178,20 @@ _launches = dict.fromkeys(
      "flash_bwd_dkv_bf16", "flash_wide_fwd", "flash_wide_fwd_bf16",
      "flash_wide_dq", "flash_wide_dq_bf16", "flash_wide_dkv",
      "flash_wide_dkv_bf16"), 0)
+_ENTRY_ROUTES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "flash_decode", "flash_decode_paged")
 # calls a CUDA tensor made at a head dim the kernels take padded, at one
-# the wide kernels take, and at one the reference runs plainly
+# the wide kernels take, and at one the reference runs plainly; float16
+# calls (upcast), bfloat16 decode calls (the bf16 forward) and paged calls
+# whose pool the paged kernel cannot read (gathered first)
 _routes = dict.fromkeys(
     [f"{k}_padded" for k in _ATTENTION_NAMES]
     + [f"{k}_wide" for k in _ATTENTION_NAMES
        + ("flash_decode", "flash_decode_paged")]
-    + [f"{k}_plain_by_shape" for k in ("flash_fwd", "flash_bwd_dq",
-                                       "flash_bwd_dkv", "flash_decode",
-                                       "flash_decode_paged")], 0)
+    + [f"{k}_plain_by_shape" for k in _ENTRY_ROUTES]
+    + [f"{k}_f16" for k in _ENTRY_ROUTES]
+    + ["flash_decode_bf16", "flash_decode_paged_bf16",
+       "flash_decode_paged_gather"], 0)
 
 
 def _on_host(t):
@@ -370,13 +386,21 @@ def flash_attention_plain(q, k, v, *, causal=False, scale=None,
     return out.to(q.dtype)
 
 
+def _upcast_f16(kernel, *ts):
+    """float16 operands `ts` as float32 (a new tensor each), the call
+    counted under `<kernel>_f16`."""
+    _routes[f"{kernel}_f16"] += 1
+    return tuple(t.float() for t in ts)
+
+
 def _flash_forward(q, k, v, causal, scale, key_mask, return_lse,
                    q_offset=0, k_offset=0):
-    """The forward wrapper: `flash_fwd` (f32) or `flash_fwd_bf16` for
-    CUDA tensors at a head dim `kernel_head_dim` takes (zero-padded to
-    its width; the wide kernel above WIDEST_COMPILED), the plain version
-    for CPU tensors and for the head dims the reference runs plainly;
-    writes the LSE only with `return_lse`. The offsets are Python ints."""
+    """The forward wrapper: `flash_fwd` (f32; float16 operands upcast) or
+    `flash_fwd_bf16` for CUDA tensors at a head dim `kernel_head_dim`
+    takes (zero-padded to its width; the wide kernel above
+    WIDEST_COMPILED), the plain version for CPU tensors and for the head
+    dims the reference runs plainly; writes the LSE only with
+    `return_lse`. The offsets are Python ints."""
     plain = functools.partial(
         flash_attention_plain, q, k, v, causal=causal, scale=scale,
         key_mask=key_mask, return_lse=return_lse, q_offset=q_offset,
@@ -388,6 +412,11 @@ def _flash_forward(q, k, v, causal, scale, key_mask, return_lse,
     if Dp is None:
         _plain_by_shape("flash_fwd")
         return plain()
+    if q.dtype == torch.float16:
+        res = _forward_launch(*_upcast_f16("flash_fwd", q, k, v), causal,
+                              scale, key_mask, return_lse, q_offset,
+                              k_offset, Dp)
+        return (res[0].half(), res[1]) if return_lse else res.half()
     return _forward_launch(q, k, v, causal, scale, key_mask, return_lse,
                            q_offset, k_offset, Dp)
 
@@ -560,14 +589,11 @@ def flash_attention_bwd_plain(q, k, v, out, lse, g, *, causal=False,
 
 
 def _bwd_operands(q, k, v, g, lse, delta, key_mask, Dp):
-    """Checks shared by the two backward launches; returns (q, k, v, g,
-    lse, delta, key mask) in the layouts the kernels read, q, k, v and g
-    zero-padded to the head dim's compiled width Dp."""
-    _check_attention_operands(q, k, v, _ATTENTION_DTYPES)
+    """Checks shared by the two backward launches (after `_bwd_route`'s);
+    returns (q, k, v, g, lse, delta, key mask) in the layouts the kernels
+    read, q, k, v and g zero-padded to the head dim's compiled width
+    Dp."""
     B, Tq, H, _ = q.shape
-    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
-        raise ValueError(f"dO must be {q.dtype} {tuple(q.shape)} on "
-                         f"{q.device}, got {tuple(g.shape)} {g.dtype}")
     if g.stride(-1) != 1:           # e.g. an expanded cotangent: stride 0
         g = g.contiguous()
     for name, t in (("lse", lse), ("delta", delta)):
@@ -587,11 +613,14 @@ def _bwd_rest(q, k, v, g, Dp, causal, q_offset, k_offset, scale):
             k_offset, scale)
 
 
-def _bwd_route(kernel, q, k, v):
+def _bwd_route(kernel, q, k, v, g):
     """The compiled width the backward kernel `kernel` runs q's head dim
     at, or None (counted) where the reference runs its plain path; checks
-    the operands first."""
+    the operands and dO first."""
     _check_attention_operands(q, k, v, _ATTENTION_DTYPES)
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError(f"dO must be {q.dtype} {tuple(q.shape)} on "
+                         f"{q.device}, got {tuple(g.shape)} {g.dtype}")
     Dp = kernel_head_dim(q.shape[3])
     if Dp is None:
         _plain_by_shape(kernel)
@@ -600,18 +629,20 @@ def _bwd_route(kernel, q, k, v):
 
 def flash_bwd_dq(q, k, v, g, lse, delta, *, causal=False, scale=None,
                  key_mask=None, q_offset=0, k_offset=0):
-    """dq [B, Tq, H, D] in q's type: the dq kernel (f32 or bf16) for CUDA
-    tensors, `flash_bwd_dq_plain` for CPU tensors. g is dO; lse and delta
-    are [B, H, Tq] float32."""
+    """dq [B, Tq, H, D] in q's type: the dq kernel (f32 or bf16; float16
+    operands upcast) for CUDA tensors, `flash_bwd_dq_plain` for CPU
+    tensors. g is dO; lse and delta are [B, H, Tq] float32."""
     q_offset, k_offset = _offset(q_offset), _offset(k_offset)
-    plain = functools.partial(
-        flash_bwd_dq_plain, q, k, v, g, lse, delta, causal=causal,
-        scale=scale, key_mask=key_mask, q_offset=q_offset, k_offset=k_offset)
+    kw = dict(causal=causal, scale=scale, key_mask=key_mask,
+              q_offset=q_offset, k_offset=k_offset)
     if _on_host(q):
-        return plain()
-    Dp = _bwd_route("flash_bwd_dq", q, k, v)
+        return flash_bwd_dq_plain(q, k, v, g, lse, delta, **kw)
+    Dp = _bwd_route("flash_bwd_dq", q, k, v, g)
     if Dp is None:
-        return plain()
+        return flash_bwd_dq_plain(q, k, v, g, lse, delta, **kw)
+    if q.dtype == torch.float16:
+        return flash_bwd_dq(*_upcast_f16("flash_bwd_dq", q, k, v, g), lse,
+                            delta, **kw).half()
     B, Tq, H, D = q.shape
     scale = _scale(scale, D)            # the true head dim's, before padding
     q, k, v, g, lse, delta, km = _bwd_operands(q, k, v, g, lse, delta,
@@ -626,17 +657,21 @@ def flash_bwd_dq(q, k, v, g, lse, delta, *, causal=False, scale=None,
 
 def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal=False, scale=None,
                   key_mask=None, q_offset=0, k_offset=0):
-    """(dk, dv) [B, Tk, H, D] in k's type: the dk/dv kernel (f32 or bf16)
-    for CUDA tensors, `flash_bwd_dkv_plain` for CPU tensors."""
+    """(dk, dv) [B, Tk, H, D] in k's type: the dk/dv kernel (f32 or bf16;
+    float16 operands upcast) for CUDA tensors, `flash_bwd_dkv_plain` for
+    CPU tensors."""
     q_offset, k_offset = _offset(q_offset), _offset(k_offset)
-    plain = functools.partial(
-        flash_bwd_dkv_plain, q, k, v, g, lse, delta, causal=causal,
-        scale=scale, key_mask=key_mask, q_offset=q_offset, k_offset=k_offset)
+    kw = dict(causal=causal, scale=scale, key_mask=key_mask,
+              q_offset=q_offset, k_offset=k_offset)
     if _on_host(q):
-        return plain()
-    Dp = _bwd_route("flash_bwd_dkv", q, k, v)
+        return flash_bwd_dkv_plain(q, k, v, g, lse, delta, **kw)
+    Dp = _bwd_route("flash_bwd_dkv", q, k, v, g)
     if Dp is None:
-        return plain()
+        return flash_bwd_dkv_plain(q, k, v, g, lse, delta, **kw)
+    if q.dtype == torch.float16:
+        dk, dv = flash_bwd_dkv(*_upcast_f16("flash_bwd_dkv", q, k, v, g),
+                               lse, delta, **kw)
+        return dk.half(), dv.half()
     B, Tq, H, D = q.shape
     scale = _scale(scale, D)            # the true head dim's, before padding
     q, k, v, g, lse, delta, km = _bwd_operands(q, k, v, g, lse, delta,
@@ -718,24 +753,48 @@ def flash_decode_plain(q, k, v, lengths, *, scale=None):
 def flash_decode(q, k, v, lengths, *, scale=None):
     """Decode attention: q [slots, 1, heads, head_dim] (the current token,
     its k/v already in the cache at lengths-1), k/v [slots, capacity,
-    heads, head_dim], lengths [slots] valid entries per slot. The
-    `flash_decode` kernel for CUDA tensors, `flash_decode_plain` for CPU
-    tensors. Returns [slots, 1, heads, head_dim]."""
+    heads, head_dim], lengths [slots] valid entries per slot. For CUDA
+    tensors the route of `_decode` (float32: the `flash_decode` kernel);
+    `flash_decode_plain` for CPU tensors. Returns [slots, 1, heads,
+    head_dim] in q's type."""
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"flash_decode takes one query per slot, got q "
                          f"{tuple(q.shape)}")
     if _on_host(q):
         return flash_decode_plain(q, k, v, lengths, scale=scale)
-    _check_attention_operands(q, k, v)
-    S, _, H, D = q.shape
-    Dp = kernel_head_dim(D)
-    if Dp is None:
+    _check_attention_operands(q, k, v, _ATTENTION_DTYPES)
+    if kernel_head_dim(q.shape[3]) is None:
         _plain_by_shape("flash_decode")
         return flash_decode_plain(q, k, v, lengths, scale=scale)
+    return _decode(q, k, v, _lengths_operand(lengths, q.shape[0], q.device),
+                   scale, "flash_decode")
+
+
+def _decode(q, k, v, lengths, scale, route):
+    """Decode attention on checked CUDA operands over a [S, C] cache (the
+    paged entry's gathered through its table) at a head dim a kernel
+    takes, `route` the entry's name in `route_counts()`:
+    - float16: counted `<route>_f16`; the operands upcast to float32, the
+      float32 route below, the output cast back to float16.
+    - bfloat16: counted `<route>_bf16`; the bf16 forward kernel under the
+      key mask `position < lengths`, as the reference's `flash_decode`
+      (:604-645) runs its forward kernel, at `kernel_head_dim(D)` (zero
+      padded up to WIDEST_COMPILED, the wide kernel above it).
+    - float32 above WIDEST_COMPILED: the wide forward likewise, counted
+      `<route>_wide`.
+    - float32: the `flash_decode` kernel, one launch."""
+    if q.dtype == torch.float16:
+        return _decode(*_upcast_f16(route, q, k, v), lengths, scale,
+                       route).half()
+    S, _, H, D = q.shape
     C = k.shape[1]
-    lengths = _lengths_operand(lengths, S, q.device)
-    if Dp > WIDEST_COMPILED:
-        return _decode_wide(q, k, v, lengths, scale, "flash_decode")
+    Dp = kernel_head_dim(D)
+    if q.dtype == torch.bfloat16 or Dp > WIDEST_COMPILED:
+        if q.dtype == torch.bfloat16:
+            _routes[f"{route}_bf16"] += 1
+        valid = torch.arange(C, device=q.device)[None, :] < lengths[:, None]
+        return _forward_launch(q, k, v, False, scale, valid, False, 0, 0, Dp,
+                               route)
     fn = build.kernel_function("flash_decode", "flash_decode_f32",
                                _DECODE_ARGTYPES)
     # the kernel loads rows as vectors: rows 16-byte aligned (a cache the
@@ -748,17 +807,6 @@ def flash_decode(q, k, v, lengths, *, scale=None):
             q.stride(0), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2), _scale(scale, D))
     return out
-
-
-def _decode_wide(q, k, v, lengths, scale, route):
-    """Decode attention at a head dim above WIDEST_COMPILED: the wide
-    forward kernel over the [S, C] key mask `position < lengths`, as the
-    reference's `flash_decode` (:604-645) runs its forward kernel; counted
-    under `<route>_wide`."""
-    C = k.shape[1]
-    valid = torch.arange(C, device=q.device)[None, :] < lengths[:, None]
-    return _forward_launch(q, k, v, False, scale, valid, False, 0, 0,
-                           q.shape[3], route)
 
 
 def flash_decode_paged_plain(q, k_pool, v_pool, block_table, lengths, *,
@@ -776,17 +824,15 @@ def flash_decode_paged_plain(q, k_pool, v_pool, block_table, lengths, *,
 
 
 def _check_paged_operands(q, k_pool, v_pool, block_table, lengths):
-    """Checks of the paged launch; returns (table, lengths) as the dense
+    """Checks of the paged entry; returns (table, lengths) as the dense
     int32 tensors the kernel reads."""
-    _check_operands(q, k_pool=k_pool, v_pool=v_pool)
+    _check_operands(q, _ATTENTION_DTYPES, k_pool=k_pool, v_pool=v_pool)
     S, _, H, D = q.shape
-    if k_pool.shape != v_pool.shape or k_pool.shape[2:] != (H, D):
+    if k_pool.shape != v_pool.shape or k_pool.shape[2:] != (H, D) \
+            or k_pool.shape[1] < 1:
         raise ValueError(f"pools k {tuple(k_pool.shape)} / v "
                          f"{tuple(v_pool.shape)} do not match q heads and "
                          f"head dim {(H, D)}")
-    bs = k_pool.shape[1]
-    if bs < 1 or bs & (bs - 1):
-        raise ValueError(f"block size {bs} is not a power of two")
     if not isinstance(block_table, torch.Tensor) \
             or block_table.dtype != torch.int32 \
             or block_table.device != q.device or block_table.dim() != 2 \
@@ -804,9 +850,13 @@ def flash_decode_paged(q, k_pool, v_pool, block_table, lengths, *,
     [slots, 1, heads, head_dim], pools [num_blocks, block_size, heads,
     head_dim] (block 0 is scratch), block_table int32 [slots, max_blocks]
     (logical block j of slot s is pool block table[s, j]), lengths [slots].
-    The `flash_decode_paged` kernel, which reads K/V through the table, for
-    CUDA tensors; `flash_decode_paged_plain` for CPU tensors. Returns
-    [slots, 1, heads, head_dim]."""
+    For CUDA tensors: float32 pools of power-of-two blocks at a compiled
+    width run the `flash_decode_paged` kernel, which reads K/V through the
+    table; any other pool is gathered through the table first, as the
+    reference does (:675-682), and decoded by `_decode` (float32 blocks of
+    another size counted under `flash_decode_paged_gather`).
+    `flash_decode_paged_plain` for CPU tensors. Returns [slots, 1, heads,
+    head_dim] in q's type."""
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"flash_decode_paged takes one query per slot, got "
                          f"q {tuple(q.shape)}")
@@ -821,18 +871,18 @@ def flash_decode_paged(q, k_pool, v_pool, block_table, lengths, *,
     if Dp is None:
         _plain_by_shape("flash_decode_paged")
         return plain()
-    if Dp > WIDEST_COMPILED:
+    MB, bs = table.shape[1], k_pool.shape[1]
+    if q.dtype != torch.float32 or Dp > WIDEST_COMPILED or bs & (bs - 1):
         # the reference gathers the pool through the table first (:675-682)
-        nb, bs = table.shape[1], k_pool.shape[1]
+        if q.dtype == torch.float32 and Dp <= WIDEST_COMPILED:
+            _routes["flash_decode_paged_gather"] += 1
         idx = table.long()
-        k = k_pool[idx].reshape(S, nb * bs, H, D)
-        v = v_pool[idx].reshape(S, nb * bs, H, D)
-        return _decode_wide(q, k, v, lengths, scale, "flash_decode_paged")
+        k = k_pool[idx].reshape(S, MB * bs, H, D)
+        v = v_pool[idx].reshape(S, MB * bs, H, D)
+        return _decode(q, k, v, lengths, scale, "flash_decode_paged")
     fn = build.kernel_function("flash_decode_paged", "flash_decode_paged_f32",
                                _DECODE_PAGED_ARGTYPES)
     q, k_pool, v_pool = _aligned(q), _aligned(k_pool), _aligned(v_pool)
-    bs = k_pool.shape[1]
-    MB = table.shape[1]
     out = torch.empty((S, 1, H, D), dtype=torch.float32, device=q.device)
     n = decode_split(S * H, MB * bs, max(DECODE_UNIT, bs),
                      _sm_count(q.device.index))
@@ -852,8 +902,11 @@ def launch_counts():
 
 def route_counts():
     """{"<kernel>_padded": calls at a padded head dim, "<kernel>_wide":
-    calls at a head dim above WIDEST_COMPILED, "<kernel>_plain_by_shape":
-    calls run plainly because the reference does} of CUDA tensors; reset
+    calls at a head dim above WIDEST_COMPILED, "<entry>_plain_by_shape":
+    calls run plainly because the reference does, "<entry>_f16": float16
+    calls (upcast), "flash_decode[_paged]_bf16": bfloat16 decode calls
+    (the bf16 forward), "flash_decode_paged_gather": float32 paged calls
+    on blocks of a size that is not a power of two} of CUDA tensors; reset
     with the launch counts."""
     return dict(_routes)
 

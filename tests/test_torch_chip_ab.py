@@ -206,26 +206,41 @@ def test_wide_bwd_turn_times_the_f32_pair_at_the_wide_forward_shapes():
         assert 8 * D * pairs == pytest.approx(274.9e9, rel=1e-3)
 
 
+def test_wide_bwd_bf16_turn_times_the_bf16_kernels_at_the_same_shapes():
+    """`run ROOT LABEL wide_bwd_bf16` runs `_bf16_case` (the bf16 forward,
+    then the pair) at each shape of the `wide_bwd` set, causal, with its
+    key mask, and no other case function."""
+    calls = []
+    cs = SimpleNamespace(
+        _bwd_case=lambda *a, **k: pytest.fail("the f32 pair"),
+        _bf16_case=lambda *a, **k: calls.append(a[:8]) or [{"case": a[0]}])
+    recs = chip_ab._wide_bwd(cs, bf16=True)
+    assert calls == [(lab, B, T, T, H, D, True, valid)
+                     for lab, B, T, H, D, valid in chip_ab.WIDE_BWD]
+    assert [r["case"] for r in recs] == [c[0] for c in chip_ab.WIDE_BWD]
+
+
 def test_rank_turn_takes_each_kernel_not_yet_redesigned_once():
     """`run ROOT LABEL rank` times the f32 forward at D=256, the f32 pair
     at D=16, 32, 128 and 256 and the bf16 kernels at D=16 and 32 at the
-    train case with H * D = 256, and the bf16 wide pair (the f32 one is
-    redesigned) at the long D=512 case."""
+    train case with H * D = 256; both wide pairs are redesigned, so
+    nothing wide."""
     assert chip_ab.RANK == [("fwd", 256), ("bwd", 16), ("bwd", 32),
                             ("bwd", 128), ("bwd", 256), ("bf16", 16),
                             ("bf16", 32)]
     assert all(256 % D == 0 for _, D in chip_ab.RANK)
-    assert chip_ab.RANK_WIDE == ("B=2 T=4096 H=4 D=512", 2, 4096, 4, 512)
+    assert not hasattr(chip_ab, "RANK_WIDE")
     calls = []
     cs = SimpleNamespace(
         _fwd_case=lambda *a, **k: calls.append(("fwd", a[4])) or {},
         _bwd_case=lambda *a, **k: calls.append(("bwd", a[5])) or [],
         _bf16_case=lambda *a, **k: calls.append(("bf16", a[5])) or [])
     chip_ab._rank(cs)
-    assert calls == chip_ab.RANK + [("bf16", 512)]
+    assert calls == chip_ab.RANK
 
 
-@pytest.mark.parametrize("dtype", ["wide", "wide_bwd", "rank"])
+@pytest.mark.parametrize("dtype", ["wide", "wide_bwd", "wide_bwd_bf16",
+                                   "rank"])
 def test_wide_and_rank_turns_refuse_without_a_card(dtype):
     res = subprocess.run([sys.executable, str(ROOT / "chip_ab.py"), "run",
                           str(ROOT), "change", dtype], capture_output=True,

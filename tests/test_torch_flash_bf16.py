@@ -247,7 +247,7 @@ def test_mixed_float32_and_bfloat16_operands_raise(device_route,
     with pytest.raises(ValueError, match="share one type"):
         fa.flash_bwd_dkv(q, k, v.float(), g, lse, delta, causal=True)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
-        fa.flash_attention(q.half(), k.half(), v.half())
+        fa.flash_attention(q.double(), k.double(), v.double())
     assert set(fa.launch_counts().values()) == {0}
 
 
