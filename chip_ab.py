@@ -3,6 +3,7 @@
 
     python3 chip_ab.py run ROOT LABEL [f32|decode|wide|wide_bwd|rank]
     python3 chip_ab.py run ROOT LABEL wide_bwd_bf16
+    python3 chip_ab.py run ROOT LABEL d256
     python3 chip_ab.py summary LOG...         # table of the turns
     python3 chip_ab.py sweep ROOT LABEL       # decode at each cluster size
 
@@ -41,10 +42,17 @@ causal shapes: the D=320 model's training shape, the ragged cases at
 D=264, 320, 512 and 1024 and the two long shapes. With
 `wide_bwd_bf16`, the bfloat16 kernels above head dim 256 at the same
 seven shapes (phase 2's `_bf16_case`: the forward with the LSE, then the
-pair, gated against the plain versions). With `rank`, the kernels no
-PR has redesigned yet, once each at the train case (B=16 T=512 causal,
-H so that H * D = 256): phase 2's `_fwd_case` at D=256, `_bwd_case` at
-D=16, 32, 128 and 256 and `_bf16_case` at D=16 and 32. Inputs come from
+pair, gated against the plain versions). With `d256`, the float32
+forward at head dim 256 (`_forward_case`, the same code on either
+checkout): causal with the LSE unless named, the train case B=16 T=512
+H=1, B=2 T=200 H=4 with a ragged key mask at D=256 and at D=192 (zero-
+padded to 256), the long B=2 T=4096 H=4, the prefill shape B=1 L=64 H=4
+with a key mask and no LSE, Tq=37 Tk=53 not causal with a key mask, and
+`flash_attention_lse` at B=1 T=1024 H=2 on a diagonal shard, a past one
+and offsets 0/512 (rows 0..511 see no key: out 0, lse <= -1e29). With
+`rank`, the kernels no PR has redesigned yet, once each at the train
+case (B=16 T=512 causal, H so that H * D = 256): phase 2's `_bwd_case`
+at D=16, 32, 128 and 256 and `_bf16_case` at D=16 and 32. Inputs come from
 fixed seeds, so both checkouts see the same tensors, and every gate of
 those functions holds in each turn. It prints one line `{"ab": LABEL, "cases":
 [...]}` with each kernel's device time (the profiler's, per call),
@@ -157,9 +165,33 @@ WIDE_BWD = [(lab, B, T, H, D, valid) for lab, B, T, H, D, valid, _ in WIDE_FWD]
 WIDE_DECODE = [("decode step S=8 C=256 H=4 D=320", 8, 4, 320, None),
                ("paged decode step S=8 C=256 H=4 D=320 bs=16", 8, 4, 320,
                 16)]
+# the float32 forward at head dim 256 (`d256`): (label, B, Tq, Tk, H, D,
+# causal, valid key lengths or None, with the LSE, (q_off, k_off) through
+# `flash_attention_lse` or None): chip_smoke.py's D256_CASES (the train
+# case of `rank`, B=2 T=200 H=4 with a ragged key mask at D=256 and 192,
+# the prefill shape, Tq=37 Tk=53) and its D256_LSE shard under each of
+# D256_LSE_OFFSETS, and a long causal shape
+D256 = [
+    ("D=256 train B=16 T=512 H=1", 16, 512, 512, 1, 256, True, None, True,
+     None),
+    ("D=256 B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, 256, True,
+     [200, 137], True, None),
+    ("D=192 B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, 192, True,
+     [200, 137], True, None),
+    ("D=256 prefill B=1 L=64 H=4, key mask", 1, 64, 64, 4, 256, True, [49],
+     False, None),
+    ("D=256 Tq=37 Tk=53, key mask", 2, 37, 53, 4, 256, False, [53, 20],
+     True, None),
+    ("D=256 long B=2 T=4096 H=4", 2, 4096, 4096, 4, 256, True, None, True,
+     None),
+    *((lab, 1, 1024, 1024, 2, 256, True, None, True, offs)
+      for lab, offs in (("D=256 diagonal", (1024, 1024)),
+                        ("D=256 past", (1024, 0)),
+                        ("D=256 rows without keys", (0, 512)))),
+]
 # the kernels not yet redesigned, at the train case with H * D = 256:
 # (case function, D)
-RANK = [("fwd", 256), *(("bwd", D) for D in (16, 32, 128, 256)),
+RANK = [*(("bwd", D) for D in (16, 32, 128, 256)),
         *(("bf16", D) for D in (16, 32))]
 SHARD = dict(B=4, T=1024, H=8, D=64)
 SHARD_F32 = dict(B=1, T=1024, H=4, D=64)
@@ -187,22 +219,34 @@ def _bounds(rec, cs):
     return out
 
 
-def _forward_case(cs, label, dtype, B, T, H, D, valid, lse, gen):
-    """The forward alone (causal, key mask from `valid`, the LSE when
-    `lse`) through ROOT's `flash_attention`, held to ROOT's bars against
-    its plain version (f32: TOL on out and LSE; bf16: BF16_OUT_TOL,
-    BF16_LSE_TOL), timed beside the plain version and SDPA on the same
-    inputs (TF32 off: phase_card). Returns the record."""
+def _forward_case(cs, label, dtype, B, T, H, D, valid, lse, gen, Tk=None,
+                  causal=True, offsets=None):
+    """The forward alone (causal or not, key mask from `valid`, the LSE when
+    `lse`; Tq = T, Tk = `Tk` or T) through ROOT's `flash_attention`, or
+    under causal `offsets` (q_off, k_off) through its
+    `flash_attention_lse`, held to ROOT's bars against its plain version
+    (f32: TOL on out and LSE; bf16: BF16_OUT_TOL, BF16_LSE_TOL; a row that
+    sees no key: out 0, lse <= -1e29), timed beside the plain version and
+    SDPA on the same inputs (TF32 off: phase_card; no SDPA where a row sees
+    no key, where it gives NaN). Returns the record."""
     import torch
     from deeplearning4j_tpu_torch.kernels import (flash_attention,
+                                                  flash_attention_lse,
                                                   flash_attention_plain)
     bf16 = dtype == torch.bfloat16
-    q, k, v = (torch.randn((B, T, H, D), generator=gen).to(cs.DEVICE, dtype)
-               for _ in range(3))
-    km = cs._key_mask(B, T, valid)
-    kw = dict(causal=True, key_mask=km, return_lse=lse)
-    run = lambda: flash_attention(q, k, v, **kw)
-    plain = lambda: flash_attention_plain(q, k, v, **kw)
+    Tk = Tk or T
+    q_off, k_off = offsets or (0, 0)
+    q = torch.randn((B, T, H, D), generator=gen).to(cs.DEVICE, dtype)
+    k, v = (torch.randn((B, Tk, H, D), generator=gen).to(cs.DEVICE, dtype)
+            for _ in range(2))
+    km = cs._key_mask(B, Tk, valid)
+    kw = dict(causal=causal, key_mask=km)
+    if offsets is None:
+        run = lambda: flash_attention(q, k, v, return_lse=lse, **kw)
+    else:
+        kw.update(q_offset=q_off, k_offset=k_off)
+        run = lambda: flash_attention_lse(q, k, v, **kw)
+    plain = lambda: flash_attention_plain(q, k, v, return_lse=lse, **kw)
     got, want = (r if lse else (r,) for r in (run(), plain()))
     torch.cuda.synchronize()
     name = "flash_fwd_bf16" if bf16 else "flash_fwd"
@@ -216,23 +260,38 @@ def _forward_case(cs, label, dtype, B, T, H, D, valid, lse, gen):
         lse_err = float((got[1] - want[1]).abs().max())
         cs.check(lse_err <= lse_tol, f"{name} {label}: lse max abs err "
                                      f"{lse_err}")
-    sq, sk, sv = (t.transpose(1, 2) for t in (q, k, v))
-    mask = None if km is None else (km > 0)[:, None, None, :] & torch.ones(
-        (T, T), dtype=torch.bool, device=q.device).tril()
-    library = lambda: torch.nn.functional.scaled_dot_product_attention(
-        sq, sk, sv, is_causal=mask is None, attn_mask=mask)
+    vis = torch.ones((T, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        vis = cs._causal_visible(T, Tk, q_off, k_off)
+    none = ~vis.any(-1)
+    cs.check(not bool(none.any()) or bool(
+        (got[0][:, none] == 0).all() and (got[1][:, :, none] <= -1e29).all()),
+        f"{name} {label}: a row that sees no key is not out 0, lse <= -1e29")
+    library = None
+    if not bool(none.any()):
+        sq, sk, sv = (t.transpose(1, 2) for t in (q, k, v))
+        is_causal = causal and km is None and q_off == k_off and T == Tk
+        mask = None
+        if not is_causal and not bool(vis.all()):
+            mask = vis[None, None]
+        if km is not None:
+            mask = (km > 0)[:, None, None, :] & (
+                vis[None, None] if causal else True)
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(
+            sq, sk, sv, is_causal=is_causal, attn_mask=mask)
     size = 2 if bf16 else 4
-    nbytes = size * 4 * B * T * H * D + 4 * (
-        (B * H * T if lse else 0) + (B * T if km is not None else 0))
-    pairs = cs._valid_pairs(B, T, T, H, True, km)
+    nbytes = size * 2 * H * D * (B * T + B * Tk) + 4 * (
+        (B * H * T if lse else 0) + (B * Tk if km is not None else 0))
+    pairs = cs._valid_pairs(B, T, Tk, H, causal, km, q_off, k_off)
     return cs.rate_fields({
         "name": cs.kernel_name(name, D), "case": label,
-        "shape": [B, T, T, H, D], "lse": lse, "key_mask": km is not None,
-        "max_abs_err": err, "ms": cs.median_ms(run),
-        "plain_ms": cs.median_ms(plain), "library_ms": cs.median_ms(library),
+        "shape": [B, T, Tk, H, D], "lse": lse, "key_mask": km is not None,
+        "offsets": [q_off, k_off], "max_abs_err": err,
+        "ms": cs.median_ms(run), "plain_ms": cs.median_ms(plain),
+        "library_ms": library and cs.median_ms(library),
         **cs.bound(nbytes, 4 * D * pairs, bf16=bf16),
         "device_ms": cs.device_ms(run), "plain_device_ms": cs.device_ms(plain),
-        "library_device_ms": cs.device_ms(library)})
+        "library_device_ms": library and cs.device_ms(library)})
 
 
 def _wide(cs):
@@ -256,6 +315,14 @@ def _wide_bwd(cs, bf16=False):
     return recs
 
 
+def _d256(cs):
+    import torch
+    gen = torch.Generator().manual_seed(17)
+    return [_forward_case(cs, lab, torch.float32, B, Tq, H, D, valid, lse,
+                          gen, Tk=Tk, causal=causal, offsets=offs)
+            for lab, B, Tq, Tk, H, D, causal, valid, lse, offs in D256]
+
+
 def _rank(cs):
     import torch
     gen = torch.Generator().manual_seed(9)
@@ -263,12 +330,8 @@ def _rank(cs):
     for case, D in RANK:
         H = 256 // D
         lab = f"train B=16 T=512 H={H} D={D}"
-        if case == "fwd":
-            recs.append(cs._fwd_case(lab, 16, 512, H, D, None, gen,
-                                     lse=True))
-        else:
-            fn = cs._bwd_case if case == "bwd" else cs._bf16_case
-            recs += fn(lab, 16, 512, 512, H, D, True, None, gen)
+        fn = cs._bwd_case if case == "bwd" else cs._bf16_case
+        recs += fn(lab, 16, 512, 512, H, D, True, None, gen)
     return recs
 
 
@@ -287,7 +350,7 @@ def run(root, label, dtype="bf16"):
     cs.phase_card()
     sets = {"wide": _wide, "wide_bwd": _wide_bwd,
             "wide_bwd_bf16": lambda cs: _wide_bwd(cs, bf16=True),
-            "rank": _rank}
+            "d256": _d256, "rank": _rank}
     if dtype in sets:
         _print_turn(label, root, sets[dtype](cs), cs)
         return
@@ -431,7 +494,7 @@ if __name__ == "__main__":
     if len(sys.argv) in (4, 5) and sys.argv[1] == "run" \
             and sys.argv[4:] in ([], ["f32"], ["bf16"], ["decode"],
                                  ["wide"], ["wide_bwd"], ["wide_bwd_bf16"],
-                                 ["rank"]):
+                                 ["d256"], ["rank"]):
         run(*sys.argv[2:])
     elif len(sys.argv) >= 3 and sys.argv[1] == "summary":
         summary(sys.argv[2:])

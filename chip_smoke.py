@@ -142,6 +142,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and one on a paged server (blocks of 16, 17 blocks): every request
    answers 200, the tokens equal the plain model's (tie rule), and the
    prefill launches `flash_fwd` at D=32, unpadded.
+2d. The float32 forward at head dim 256 (`flash_fwd_f32_d256`, also the
+   kernel of every D % 8 == 0 from 136 on, zero-padded to 256): the
+   D256_CASES through `flash_attention` within TOL on out and LSE,
+   launching `flash_fwd` only (padded at D=192 only): the train case
+   B=16 T=512 H=1 with the LSE three times, bitwise equal; B=2 T=200 H=4
+   causal with a ragged key mask at D=256 and 192; the prefill shape B=1
+   L=64 H=4 with a key mask; Tq=37 Tk=53 not causal with a key mask. Then
+   `flash_attention_lse` at B=1 T=1024 H=2 D=256 (`_lse_case`: a diagonal
+   shard, a past one and offsets 0/512, whose rows 0..511 see no key: out
+   0, lse <= -1e29, dq rows 0; the backward pair within BWD_TOL). Then the
+   D=256 model, `transformer_lm(d_model=512, n_layers=2, n_heads=2)` with
+   use_pallas=True: 3 `fit` steps at batch 4 x 128 in f32, scores within
+   SCORE_RTOL of the use_pallas=False model and falling, `flash_fwd`,
+   `flash_bwd_dq` and `flash_bwd_dkv` launching 6 times each and nothing
+   else; greedy decoding from a slab equal to the plain model under the
+   tie rule. Phase 1 fails if ptxas reports a spill in this kernel.
 3. The serving path: `transformer_lm` at full width (vocab 256, d_model
    256, 4 layers, 4 heads) with `use_pallas=True` and
    `synthetic_params(seed=0)`, served by
@@ -230,10 +246,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    forward + backward time of ring n=4, ring n=1, `flash_attention` on
    the whole sequence and SDPA (`{"ring": ...}`).
 8. Every main path (serving, serving_paged, serving_d32,
-   serving_d32_paged, training, training_bf16, ring, ring_f32, and the
-   D=320 model's training_wide, training_wide_bf16, decode_wide,
-   decode_wide_paged) must count zero padded and zero plain-route calls,
-   and only the D=320 model's paths wide ones; every kernel must have
+   serving_d32_paged, training, training_bf16, ring, ring_f32, the D=320
+   model's training_wide, training_wide_bf16, decode_wide,
+   decode_wide_paged, and the D=256 model's training_d256 and
+   decode_d256) must count zero padded and zero plain-route calls, and
+   only the D=320 model's paths wide ones; every kernel must have
    launched on its main path. The run's time, then one line
    `{"kernels": [...]}` with each of
    the 14 kernels' numbers (the six wide entries' at the D=320 model's
@@ -333,6 +350,31 @@ WIDE_LONG_CASE = "D=512 B=1 T=2048 H=4 long"
 WIDE_LSE = (1, 1024, 2, 320)
 WIDE_LSE_OFFSETS = (("wide diagonal", (1024, 1024)), ("wide past", (1024, 0)),
                     ("wide rows without keys", (0, 512)))
+# the float32 forward at head dim 256 (`flash_fwd_f32_d256`, and every
+# D % 8 == 0 from 136 on, zero-padded to it): (label, B, Tq, Tk, H, D,
+# causal, valid key lengths or None, with the LSE, a bitwise repeat), the
+# train case of chip_ab.py's `rank` set first; then the ring shard of
+# `flash_attention_lse` under causal offsets, (label, (q_off, k_off)) at
+# B=1 T=1024 H=2. chip_ab.py's `d256` set times the same cases and a long
+# one.
+D256_CASES = [
+    ("D=256 train B=16 T=512 H=1", 16, 512, 512, 1, 256, True, None, True,
+     True),
+    ("D=256 B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, 256, True,
+     [200, 137], True, False),
+    ("D=192 B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, 192, True,
+     [200, 137], True, False),
+    ("D=256 prefill B=1 L=64 H=4, key mask", 1, 64, 64, 4, 256, True, [49],
+     False, False),
+    ("D=256 Tq=37 Tk=53, key mask", 2, 37, 53, 4, 256, False, [53, 20],
+     True, False),
+]
+D256_LSE = (1, 1024, 2, 256)
+D256_LSE_OFFSETS = (("D=256 diagonal", (1024, 1024)),
+                    ("D=256 past", (1024, 0)),
+                    ("D=256 rows without keys", (0, 512)))
+# the head dim of the public Gemma decoder LMs: two heads of 256
+D256_MODEL = dict(vocab_size=256, d_model=512, n_layers=2, n_heads=2)
 # bench_decode_paged's model and requests (bench.py:724-748)
 BENCH_PAGED_MODEL = dict(vocab_size=256, d_model=128, n_layers=2, n_heads=4)
 BENCH_PAGED_SERVE = dict(decode_slots=4, decode_max_len=128,
@@ -487,6 +529,14 @@ def phase_card():
         if injected:
             print(f"  ptxas {name}: {injected} notes (C7519) of a "
                   "warpgroup.arrive injected before registers a wgmma uses")
+    # the float32 forward at head dim 256 holds O (128 registers a thread)
+    # and its fragments without a spill
+    lines = logs.get("flash_fwd", "").splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and "flash_fwd_f32_d256" in line:
+            check(" 0 bytes spill stores, 0 bytes spill loads" in
+                  " ".join(lines[i + 1:i + 3]),
+                  f"flash_fwd_f32_d256 spills: {lines[i + 1:i + 3]}")
     return smi
 
 
@@ -1723,29 +1773,43 @@ def _tokens_equal(what, served, wants):
 
 def _wide_model():
     """The D=320 model, `transformer_lm(d_model=640, n_layers=2,
-    n_heads=2)` (two `SelfAttentionLayer(n_out=640, n_heads=2)`), weights
-    from `synthetic_params(seed=0)`, with use_pallas=True against the
-    use_pallas=False model: WIDE_STEPS `fit` steps at WIDE_BATCH x
-    WIDE_SEQ in float32 (scores to SCORE_RTOL) and in bf16 compute
-    (BF16_SCORE_RTOL), each of the three wide kernels of the type
-    launching once per layer per step and no other kernel, nothing on the
-    plain path; then greedy decoding with `DecodeEngine.generate` from a
-    slab and a paged cache, tokens equal to the plain model's under the
-    tie rule, the prefill on the wide forward and each step on the decode
-    entry's wide route. Returns (summary, {path: launch counts})."""
+    n_heads=2)` (two `SelfAttentionLayer(n_out=640, n_heads=2)`), through
+    `_model_paths`: f32 and bf16 training on the three wide kernels of the
+    type, slab and paged greedy decoding, the prefill on the wide forward
+    and each step on the decode entry's wide route."""
+    wide_f32 = ("flash_wide_fwd", "flash_wide_dq", "flash_wide_dkv")
+    return _model_paths(
+        "D=320 model", WIDE_MODEL,
+        (("training_wide", None, wide_f32, SCORE_RTOL),
+         ("training_wide_bf16", "bfloat16",
+          tuple(f"{n}_bf16" for n in wide_f32), BF16_SCORE_RTOL)),
+        (("decode_wide", False, ("flash_wide_fwd",),
+          ("flash_fwd_wide", "flash_decode_wide")),
+         ("decode_wide_paged", True, ("flash_wide_fwd",),
+          ("flash_fwd_wide", "flash_decode_paged_wide"))), seed=6)
+
+
+def _model_paths(what, conf, trainings, decodes, seed):
+    """`transformer_lm(**conf)`, weights from `synthetic_params(seed=0)`,
+    with use_pallas=True against the use_pallas=False model. Each of
+    `trainings` (path, compute_dtype, kernels, rtol): WIDE_STEPS `fit`
+    steps at WIDE_BATCH x WIDE_SEQ, scores within rtol of the plain
+    model's and falling, each of `kernels` launching once per layer per
+    step and no other kernel, no padded or plain route, nothing launched
+    on the plain path. Each of `decodes` (path, paged, kernels, wide
+    routes): greedy decoding of three prompts (np.random.default_rng(
+    seed)) with `DecodeEngine.generate`, tokens equal to the plain
+    model's under the tie rule, through `kernels` and the given wide
+    routes only. Returns (summary, {path: launch counts})."""
     import torch
     from deeplearning4j_tpu_torch.decode import DecodeEngine
     from deeplearning4j_tpu_torch.kernels import reset_launch_counts
     x, y = _one_hot_batch(WIDE_BATCH, WIDE_SEQ)
-    wide_f32 = ("flash_wide_fwd", "flash_wide_dq", "flash_wide_dkv")
     summary, launches = {}, {}
-    for path, dtype, kernels, rtol in (
-            ("training_wide", None, wide_f32, SCORE_RTOL),
-            ("training_wide_bf16", "bfloat16",
-             tuple(f"{n}_bf16" for n in wide_f32), BF16_SCORE_RTOL)):
+    for path, dtype, kernels, rtol in trainings:
         scores = {}
         for use_pallas in (True, False):
-            net = _lm(WIDE_MODEL, use_pallas, dtype)
+            net = _lm(conf, use_pallas, dtype)
             reset_launch_counts()
             scores[use_pallas] = []
             for _ in range(WIDE_STEPS):
@@ -1761,7 +1825,7 @@ def _wide_model():
             if not use_pallas:
                 check(not any(n[k] for k in _KERNEL_NAMES),
                       f"{path}: the plain path launched kernels: {n}")
-        want = WIDE_STEPS * WIDE_MODEL["n_layers"]
+        want = WIDE_STEPS * conf["n_layers"]
         for name in _KERNEL_NAMES:
             got = launches[path][name]
             check(got == (want if name in kernels else 0),
@@ -1769,36 +1833,75 @@ def _wide_model():
                   f"{want if name in kernels else 0}")
         check(all(np.isfinite(scores[True] + scores[False]))
               and np.allclose(scores[True], scores[False], rtol=rtol,
-                              atol=0),
+                              atol=0)
+              and scores[True][-1] < scores[True][0],
               f"{path}: kernel path scores {scores[True]} != plain path "
-              f"{scores[False]} (rtol {rtol})")
+              f"{scores[False]} (rtol {rtol}), or not falling")
         summary[path] = {"scores_kernel_path": scores[True],
                          "scores_plain_path": scores[False],
                          "launches": {k: v for k, v in
                                       launches[path].items() if v}}
-    nets = {use_pallas: _lm(WIDE_MODEL, use_pallas)
+    nets = {use_pallas: _lm(conf, use_pallas)
             for use_pallas in (True, False)}
-    rng = np.random.default_rng(6)
+    rng = np.random.default_rng(seed)
     prompts = [[int(t) for t in rng.integers(0, 256, size=n)]
                for n in (5, 17, 40)]
     n_new = 16
     ref = DecodeEngine(nets[False], slots=4, max_len=128)
     wants = [_greedy_rows(ref, p, n_new) for p in prompts]
-    for paged in (False, True):
+    for path, paged, kernels, wide in decodes:
         eng = DecodeEngine(nets[True], slots=4, max_len=128, paged=paged,
                            block_size=16)
         mode = "paged" if paged else "slab"
-        route = "flash_decode_paged_wide" if paged else "flash_decode_wide"
-        served = _routed(f"D=320 model, {mode}",
+        served = _routed(f"{what}, {mode}",
                          lambda: [eng.generate(p, n_new) for p in prompts],
-                         ("flash_wide_fwd",), False,
-                         wide=("flash_fwd_wide", route))
-        path = "decode_wide_paged" if paged else "decode_wide"
+                         kernels, False, wide=wide)
         launches[path] = counts()
         summary[path] = {"tokens": served, "ties": _tokens_equal(
-            f"D=320 model {mode}", served, wants),
+            f"{what} {mode}", served, wants),
             "launches": {k: v for k, v in launches[path].items() if v}}
     return summary, launches
+
+
+def phase_d256():
+    """The float32 forward at head dim 256 against its plain version on the
+    card: each of D256_CASES through `flash_attention` (out and LSE within
+    TOL; the train case three times, bitwise equal), launching `flash_fwd`
+    and nothing else, zero-padded at D=192 only; then
+    `flash_attention_lse` on the D256_LSE shard under each of
+    D256_LSE_OFFSETS with `_lse_case` (the forward and the backward pair
+    within phase 2's bars, rows that see no key out 0 with lse <= -1e29);
+    then the D=256 model (`_d256_model`). Returns (cases, summary, launches
+    by path)."""
+    import torch
+    gen = torch.Generator().manual_seed(16)
+    cases = []
+    for lab, B, Tq, Tk, H, D, causal, valid, lse, repeat in D256_CASES:
+        cases.append(_routed(lab, lambda: _fwd_general_case(
+            lab, B, Tq, Tk, H, D, causal, valid, gen, lse=lse,
+            repeat=repeat), ("flash_fwd",), D != 256))
+    B, T, H, D = D256_LSE
+    for lab, offs in D256_LSE_OFFSETS:
+        cases += _routed(lab, lambda: _lse_case(
+            lab, torch.float32, B, T, H, D, offs, None, gen),
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), False)
+    _print_cases(cases)
+    summary, launches = _d256_model()
+    print(json.dumps({"d256_model": summary}))
+    return cases, summary, launches
+
+
+def _d256_model():
+    """The D=256 model, `transformer_lm(**D256_MODEL)` (two
+    `SelfAttentionLayer(n_out=512, n_heads=2)`), through `_model_paths`:
+    f32 training on `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv`, slab
+    greedy decoding through `flash_fwd` (prefill) and `flash_decode`."""
+    return _model_paths(
+        "D=256 model", D256_MODEL,
+        (("training_d256", None,
+          ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), SCORE_RTOL),),
+        (("decode_d256", False, ("flash_fwd", "flash_decode"), ()),),
+        seed=7)
 
 
 def phase_serving_bench_paged():
@@ -2759,6 +2862,9 @@ def main():
     cases = phase_kernels()
     head_cases, _, launches = phase_head_dims()
     cases += head_cases
+    d256_cases, _, d256_launches = phase_d256()
+    cases += d256_cases
+    launches.update(d256_launches)
     launches.update(phase_serving_bench_paged())
     launches["serving"] = phase_serving()["launches"]
     launches["serving_paged"] = phase_serving_paged()["launches"]

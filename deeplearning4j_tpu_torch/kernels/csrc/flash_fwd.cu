@@ -91,212 +91,71 @@
 // the products, 7-37% slower (T=4096 0.97 ms, the train case 0.049, the
 // f32 shard 0.052); that split taken under the P V of the tile before,
 // slower still.
-// Head dim 256 (any D % 8 == 0 from 136 up, padded) runs on no model of
-// the zoo or bench.py and keeps the CUDA-core kernel (169 KB of shared
-// memory): one block of 128 threads per (q tile of 32 rows,
-// batch*head) looping over key tiles of 64 rows staged synchronously in
-// shared memory (rows padded to D+1 floats), the running max and sum in
-// shared memory, the products on 4x4 register micro-tiles of f32 FMAs,
-// the scores through a shared tile for the softmax. Every kernel here
-// takes batch*head and its q tiles on a one-dimensional grid
-// (hopper_bf16.cuh `grid_tile`), the causal q tiles last first.
+// Head dim 256 (`flash_fwd_f32_d256`; every D % 8 == 0 from 136 up runs
+// it on operands zero-padded to 256): the head dim of the public Gemma
+// decoder LMs. Q split into hi and lo for the whole head dim would take
+// 128 KB of shared memory and the D=128 design's five ring tiles 80 KB
+// more, past the 227 KB a block may have, so it has a layout of its own:
+//   - A block owns 64 q rows and all 256 output columns, so S is computed
+//     once per key tile: O is one m64n256 accumulator, 128 registers a
+//     consumer thread, and P V one n256 `wgmma` per term and k8 slice.
+//   - Q lands once by TMA, as f32 (64 KB), and stays; for each key tile
+//     the consumer splits it chunk by chunk (32 columns, one TMA box) into
+//     register A, the next chunk's values loaded under the products.
+//   - Key tiles of 32 keys, walked once each up to the causal limit. S =
+//     Q K^T is m64n32, 16 registers, over D in eight 32-column chunks into
+//     one f32 accumulator (the first product overwrites it); K lands by
+//     TMA chunk by chunk into 8 slots (a whole tile's chunks, 32-row
+//     boxes), the V tile whole (32 KB).
+//   - Warp-specialised as the wide forward: warpgroup 0 consumes (the
+//     products and the online softmax in registers, a full tile pair with
+//     no test per score as the kernels above), warpgroup 1 splits and
+//     loads: each landed K chunk (hi in place, lo beside), then, once the
+//     tile before's P V is done, the V tile into V^T hi and lo in
+//     `k_slot` order (32-bit `wgmma` reads B K-major only), under the
+//     tile's score products; then it refills each chunk slot with the next
+//     tile's chunk as the consumer hands it back. The key mask: each
+//     consumer thread reads the 8 keys of its accumulator columns, the
+//     next tile's under the P V products; every warp's quads cover all 32
+//     keys, so one warp vote says whether a tile has a masked key.
+//   - A grid of fewer q tiles than the card has SMs (the train case B=16
+//     T=512 H=1: 128 tiles; short sequences) leaves SMs idle and waits on
+//     its heaviest causal tile, so it runs clusters of two blocks per q
+//     tile (`flash_fwd_f32_d256<true>`): rank 0 walks the first half of
+//     the tile's key tiles, rank 1 the rest, and rank 1 hands O, m and l
+//     to rank 0 over distributed shared memory (into its Q and K slots,
+//     free by then), where rank 0 merges them: m the larger, each partial
+//     weighted by 2^((m_r - m) log2e). No atomics either way.
+//   - Shared memory: Q 64 KB, 8 K chunk slots of 4 KB hi and 4 KB lo, the
+//     V tile as landed, V^T hi and lo (32 KB each), 224 KB: one block per
+//     SM. ptxas (CUDA 12.8): 254 registers (one block per q tile), 255
+//     (split), 0 spills (chip_smoke.py phase 1 fails on a spill).
+//   - What bounds it (PERF.md, section 6): one consumer warpgroup per SM
+//     runs every product, split, softmax and wait in one chain, and the
+//     shared-memory traffic per 32-key tile (the products' B operands read
+//     three times, the splitters' passes, Q's fragments) is about as long
+//     as the tile's products; at B=2 T=4096 H=4 about a third of the
+//     bound's time. Measured and not kept (PERF.md): the wide kernel at
+//     D=256 (two 128-column boxes, two score passes: 1.16x this kernel's
+//     time at the train case, 1.49x at the long case, 1.2-1.35x at the
+//     ragged and ring-shard cases, 0.88x only at 4 and 8 q tiles), 64-key
+//     tiles with V in two 32-key halves (5% faster at the long case, 12%
+//     slower at B=2 T=200), Q fragments double-buffered across chunks (no
+//     gain, 20 bytes of spill).
+// Every kernel here takes batch*head and its q tiles on a one-dimensional
+// grid (hopper_bf16.cuh `grid_tile`), the causal q tiles last first.
+#include "decode_common.cuh"
 #include "hopper_f32.cuh"
 
 #include <math.h>
 
 namespace {
 
-constexpr int BQ = 32;          // query rows per block
-constexpr int BK = 64;          // key rows per tile
-constexpr int THREADS = 128;    // 8 row groups x 16 column groups
 constexpr float NEG_INF = -1e30f;
 
 struct Strides {
   long long b, t, h;            // element strides; the head dim is dense
 };
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v,
-                 const float* __restrict__ key_mask,
-                 float* __restrict__ out, float* __restrict__ lse,
-                 int H, int Tq, int Tk, Strides qs, Strides ks, Strides vs,
-                 int causal, int q_off, int k_off, float scale) {
-  constexpr int CPT = D / 16;   // output columns per thread
-  constexpr int QS = D + 1;     // padded rows: conflict-free column reads
-  constexpr int KS = D + 1;
-  constexpr int SS = BK + 1;    // padded score row
-  extern __shared__ float smem[];
-  float* Qs = smem;             // [BQ][QS]
-  float* Ks = Qs + BQ * QS;     // [BK][KS]
-  float* Vs = Ks + BK * KS;     // [BK][D]
-  float* Ss = Vs + BK * D;      // [BQ][SS] scores, then probabilities
-  float* m_s = Ss + BQ * SS;    // [BQ] running max
-  float* l_s = m_s + BQ;        // [BQ] running sum
-  float* c_s = l_s + BQ;        // [BQ] rescale factor of the current tile
-
-  const int tid = threadIdx.x;
-  const int tr = tid / 16, tc = tid % 16;
-  // causal: the last q tiles see the most keys; they go first
-  const hopper::GridTile gt = hopper::grid_tile((Tq + BQ - 1) / BQ, causal);
-  const int q0 = gt.tile * BQ;
-  const int bh = gt.bh;
-  const int b = bh / H, h = bh % H;
-  const float* qb = q + b * qs.b + h * qs.h;
-  const float* kb = k + b * ks.b + h * ks.h;
-  const float* vb = v + b * vs.b + h * vs.h;
-  const float* km = key_mask ? key_mask + (long long)b * Tk : nullptr;
-
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    Qs[r * QS + d] = (q0 + r < Tq) ? qb[(q0 + r) * qs.t + d] : 0.f;
-  }
-  if (tid < BQ) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
-  float acc[4][CPT];
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) acc[ii][cc] = 0.f;
-
-  // causal: key j is visible to row i iff j <= i + shift; no key past
-  // the tile's last query row is ever visible
-  const int shift = q_off - k_off;
-  const int k_end = causal ? min(Tk, max(0, min(Tq, q0 + BQ) + shift)) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();            // the previous tile's P.V is done
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int j = i / D, d = i % D;
-      const bool in = k0 + j < Tk;
-      Ks[j * KS + d] = in ? kb[(k0 + j) * ks.t + d] : 0.f;
-      Vs[j * D + d] = in ? vb[(k0 + j) * vs.t + d] : 0.f;
-    }
-    __syncthreads();
-
-    // S = Q K^T on a 4 x 4 micro-tile: rows tr*4+ii, columns tc+16*jj
-    float s[4][BK / 16];
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < BK / 16; ++jj) s[ii][jj] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[BK / 16];
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) qv[ii] = Qs[(tr * 4 + ii) * QS + d];
-#pragma unroll
-      for (int jj = 0; jj < BK / 16; ++jj) kv[jj] = Ks[(tc + 16 * jj) * KS + d];
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < BK / 16; ++jj)
-          s[ii][jj] = fmaf(qv[ii], kv[jj], s[ii][jj]);
-    }
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      const int r = tr * 4 + ii;
-#pragma unroll
-      for (int jj = 0; jj < BK / 16; ++jj) {
-        const int c = tc + 16 * jj;
-        const int kpos = k0 + c;
-        float x = s[ii][jj] * scale;
-        if (kpos >= Tk) {
-          x = -INFINITY;        // past the ragged edge: weight exactly 0
-        } else {
-          if (km && !(km[kpos] > 0.f)) x = NEG_INF;
-          // past the row's global position: never visible, weight 0
-          if (causal && kpos > q0 + r + shift) x = -INFINITY;
-        }
-        Ss[r * SS + c] = x;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: four neighbouring lanes share one row
-    {
-      const int r = tid / 4, part = tid % 4;
-      float* row = Ss + r * SS;
-      float mx = -INFINITY;
-      for (int c = part; c < BK; c += 4) mx = fmaxf(mx, row[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int c = part; c < BK; c += 4) {
-        const float p = expf(row[c] - m_new);
-        row[c] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      __syncwarp();             // every lane has read m_s[r]
-      if (part == 0) {
-        const float corr = expf(m_prev - m_new);
-        c_s[r] = corr;
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + P V
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      const float corr = c_s[tr * 4 + ii];
-#pragma unroll
-      for (int cc = 0; cc < CPT; ++cc) acc[ii][cc] *= corr;
-    }
-    for (int j = 0; j < BK; ++j) {
-      float vv[CPT];
-#pragma unroll
-      for (int cc = 0; cc < CPT; ++cc) vv[cc] = Vs[j * D + tc + 16 * cc];
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        const float p = Ss[(tr * 4 + ii) * SS + j];
-#pragma unroll
-        for (int cc = 0; cc < CPT; ++cc) acc[ii][cc] = fmaf(p, vv[cc], acc[ii][cc]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int r = tr * 4 + ii;
-    if (q0 + r >= Tq) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
-    float* o = out + (((long long)b * Tq + q0 + r) * H + h) * D;
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) o[tc + 16 * cc] = acc[ii][cc] / l;
-  }
-  if (lse && tid < BQ && q0 + tid < Tq)
-    lse[(long long)bh * Tq + q0 + tid] =
-        m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
-}
-
-template <int D>
-int launch(const float* q, const float* k, const float* v, const float* km,
-           float* out, float* lse, int B, int H, int Tq, int Tk,
-           Strides qs, Strides ks, Strides vs, int causal, int q_off,
-           int k_off, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1) + 3 * BQ);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid;
-  if (const int e = hopper::grid_1d((Tq + BQ - 1) / BQ, (long long)B * H,
-                                    &grid))
-    return e;
-  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
-      q, k, v, km, out, lse, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off,
-      scale);
-  return (int)cudaGetLastError();
-}
 
 // ================================================ D = 32, 64, 128 (sm90)
 constexpr float LOG2E = 1.4426950408889634f;
@@ -638,12 +497,425 @@ int launch_sm90_by_grid(const float* q, const float* k, const float* v,
       : launch_sm90<D, 2>(q, k, v, km, out, lse, B, H, Tq, Tk, Dt, qs, ks, vs, causal, q_off, k_off, scale, stream);
 }
 
+// ======================================================== D = 256 (sm90)
+// One block per 64 query rows and all 256 output columns (see the header).
+// Byte offsets from the 1024-aligned base; every tile 1024-aligned.
+struct D256 {
+  static constexpr int D = 256, BQ = 64, BK = 32;   // head dim, rows, keys
+  static constexpr int DC = 32, NC = D / DC;        // chunk columns, chunks
+  static constexpr int QB = BQ * D * 4;             // Q as landed, 64 KB
+  static constexpr int KC = BK * DC * 4;            // a K chunk, 4 KB
+  static constexpr int VB = BK * D * 4;             // a V tile, 32 KB
+  static constexpr int Q = 0;                       // Q: NC boxes of 64 rows
+  static constexpr int K = Q + QB;                  // [NC] K chunk hi
+  static constexpr int KL = K + NC * KC;            // [NC] K chunk lo
+  static constexpr int V = KL + NC * KC;            // the V tile as landed
+  static constexpr int VTH = V + VB;                // V^T hi [D][BK]
+  static constexpr int VTL = VTH + VB;              // V^T lo
+  static constexpr int BAR = VTL + VB;              // qbar, 3 x NC, 3 for V
+  static constexpr int BYTES = BAR + 8 * (1 + 3 * NC + 3);
+};
+static_assert(D256::BYTES + 1024 <= SMEM_LIMIT, "shared memory");
+
+// Threads 0-127 (warpgroup 0) consume: 64 q rows, the products and the
+// softmax. Warpgroup 1 splits and loads. The block's j-th key tile's
+// chunk c (columns 32c..32c+31) sits in slot c; its full (TMA), ready
+// (split) and empty (consumed) mbarriers complete their j-th phase, as do
+// the V tile's vfull, vready (V^T split) and vempty (P V done). With
+// SPLIT the grid is clusters of two blocks per q tile: rank 0 walks the
+// first half of the tile's key tiles, rank 1 the rest, and rank 1 hands
+// its O, m and l to rank 0 over distributed shared memory, where rank 0
+// merges them and writes the rows.
+template <bool SPLIT>
+__global__ void __launch_bounds__(256, 1)
+flash_fwd_f32_d256(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const float* __restrict__ key_mask,
+                   float* __restrict__ out, float* __restrict__ lse, int H,
+                   int Tq, int Tk, int causal, int q_off, int k_off,
+                   float scale) {
+  using L = D256;
+  constexpr int split = SPLIT ? 2 : 1;          // blocks per q tile
+  constexpr int D = L::D, BK = L::BK, NC = L::NC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hopper::align_1024(smem_raw);
+  float* Qs = reinterpret_cast<float*>(sm + L::Q);
+  float* Ks = reinterpret_cast<float*>(sm + L::K);
+  float* KLs = reinterpret_cast<float*>(sm + L::KL);
+  float* Vs = reinterpret_cast<float*>(sm + L::V);
+  float* VTH = reinterpret_cast<float*>(sm + L::VTH);
+  float* VTL = reinterpret_cast<float*>(sm + L::VTL);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t *full = qbar + 1, *ready = full + NC, *empty = ready + NC;
+  uint64_t *vfull = empty + NC, *vready = vfull + 1, *vempty = vready + 1;
+
+  const int tid = threadIdx.x;
+  const int rank = (int)(blockIdx.x % split);   // the cluster rank
+  // causal: the last q tiles see the most keys; they go first
+  const hopper::GridTile gt =
+      hopper::grid_tile((Tq + 63) / 64, causal, split);
+  const int bh = gt.bh, b = bh / H, h = bh % H;
+  const int q0 = gt.tile * 64;
+  const int shift = q_off - k_off;
+  // causal: no key past the tile's last query row is ever visible
+  const int k_end = causal ? min(Tk, max(0, min(Tq, q0 + 64) + shift)) : Tk;
+  // this block's key tiles t0 .. t0 + n_tiles - 1 (split: rank 0 the first
+  // half, rank 1 the rest)
+  const int n_all = (k_end + BK - 1) / BK, half = (n_all + 1) / 2;
+  const int t0 = rank == 1 ? half : 0;
+  const int n_tiles = split == 1 ? n_all : rank == 0 ? half : n_all - half;
+
+  if (n_tiles > 0) {
+    if (tid == 0) {
+      hopper::mbar_init(qbar, 1);
+      for (int c = 0; c < NC; ++c) {
+        hopper::mbar_init(&full[c], 1);
+        hopper::mbar_init(&ready[c], 128);
+        hopper::mbar_init(&empty[c], 128);
+      }
+      hopper::mbar_init(vfull, 1);
+      hopper::mbar_init(vready, 128);
+      hopper::mbar_init(vempty, 128);
+      hopper::mbar_init_fence();
+    }
+    __syncthreads();
+  }
+
+  float m[2] = {NEG_INF, NEG_INF};  // running max, natural units (per quad)
+  float l[2] = {0.f, 0.f};          // this thread's part of the row sum
+  float o[128];
+  const int lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int rt = (tid / 32) * 16 + g;           // this thread's tile rows
+  const int r0 = q0 + rt;                       // rt, rt + 8
+  if (tid >= 128) {
+    if (n_tiles > 0) {
+      // ------------------------------------------- the splitters and loads
+      const int stid = tid - 128;
+      auto load_chunk = [&](int j, int c) {
+        hopper::mbar_expect_tx(&full[c], L::KC);
+        hopper::tma_load_4d(Ks + c * (L::KC / 4), &kmap, &full[c],
+                            c * L::DC, h, (t0 + j) * BK, b);
+      };
+      auto load_v = [&](int j) {
+        hopper::mbar_expect_tx(vfull, L::VB);
+        hopper::tma_load_tile_f32<D>(Vs, &vmap, vfull, BK, (t0 + j) * BK, h,
+                                     b);
+      };
+      if (stid == 0) {
+        hopper::mbar_expect_tx(qbar, L::QB);
+        hopper::tma_load_tile_f32<D>(Qs, &qmap, qbar, 64, q0, h, b);
+        for (int c = 0; c < NC; ++c) load_chunk(0, c);
+        load_v(0);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        // tile j's K chunks: hi in place, lo beside (loaded while tile
+        // j - 1's were consumed)
+        for (int c = 0; c < NC; ++c) {
+          hopper::mbar_wait(&full[c], j & 1);
+          hopper::split_tile<true, false, BK, L::DC>(
+              Ks + c * (L::KC / 4), KLs + c * (L::KC / 4), nullptr, nullptr,
+              stid);
+          hopper::fence_proxy_async();
+          hopper::mbar_arrive(&ready[c]);
+        }
+        // V tile j into V^T hi and lo once tile j - 1's P V is done, under
+        // tile j's score products; then the next V tile into the landed one
+        hopper::mbar_wait(vfull, j & 1);
+        if (j >= 1) hopper::mbar_wait(vempty, (j - 1) & 1);
+        hopper::split_tile<false, true, BK, D>(Vs, nullptr, VTH, VTL, stid);
+        hopper::fence_proxy_async();
+        hopper::mbar_arrive(vready);
+        hopper::named_barrier_sync(1, 128);   // every read of the landed V
+        if (j + 1 < n_tiles) {
+          if (stid == 0) load_v(j + 1);
+          // each chunk slot takes tile j + 1's chunk once tile j's is
+          // consumed (the whole warpgroup waits: no warp is held up by one
+          // waiting thread)
+          for (int c = 0; c < NC; ++c) {
+            hopper::mbar_wait(&empty[c], j & 1);
+            if (stid == 0) load_chunk(j + 1, c);
+          }
+        }
+      }
+    }
+    if (!SPLIT) return;
+  } else {
+    // -------------------------------------------------------- the consumer
+    // causal: the last key index each row sees
+    const int last[2] = {r0 + shift, r0 + 8 + shift};
+    const float scale2 = scale * LOG2E;
+    const float* km = key_mask ? key_mask + (long long)b * Tk : nullptr;
+    // bit 2 jb + cc: key k0 + 8 jb + 2t + cc (this thread's accumulator
+    // columns) is not masked out (set past the ragged edge: it has its test)
+    auto key_bits = [&](int k0) {
+      uint32_t bits = 0xffu;
+      if (km) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int kpos = k0 + 8 * (e >> 1) + 2 * t + (e & 1);
+          if (kpos < Tk && !(km[kpos] > 0.f)) bits &= ~(1u << e);
+        }
+      }
+      return bits;
+    };
+    // the Q values of chunk c that this thread's register-A fragments take:
+    // (row g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4) of each k8 slice
+    // (the landed box is 128B-swizzled)
+    auto load_q = [&](float (&x)[16], int c) {
+      const float* qc = Qs + c * 64 * hopper::BOX_F32;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          x[4 * kk + i] = qc[hopper::sw128(64, rt + 8 * (i & 1),
+                                           8 * kk + t + 4 * (i >> 1))];
+    };
+
+#pragma unroll
+    for (int e = 0; e < 128; ++e) o[e] = 0.f;
+
+    if (n_tiles > 0) {
+      uint32_t kbits = key_bits(t0 * BK);
+      hopper::mbar_wait(qbar, 0);
+      float qx[16];                   // the next chunk's Q, as loaded
+      load_q(qx, 0);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int k0 = (t0 + j) * BK;
+        // S = Q K^T over the head dim, chunk by chunk into one accumulator
+        // (the first product overwrites it); Q split in registers, the next
+        // chunk's Q loaded under the products
+        float s[16];
+        for (int c = 0; c < NC; ++c) {
+          uint32_t ah[4][4], al[4][4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              hopper::split_f32(qx[4 * kk + i], ah[kk][i], al[kk][i]);
+          load_q(qx, (c + 1) % NC);
+          const float* kh = Ks + c * (L::KC / 4);
+          const float* kl = KLs + c * (L::KC / 4);
+          hopper::mbar_wait(&ready[c], j & 1);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t dkh = hopper::desc_k_major_f32(kh, BK, kk);
+            hopper::wgmma_tf32_rs(s, al[kk], dkh, c > 0 || kk > 0);
+            hopper::wgmma_tf32_rs(s, ah[kk],
+                                  hopper::desc_k_major_f32(kl, BK, kk));
+            hopper::wgmma_tf32_rs(s, ah[kk], dkh);
+          }
+          hopper::wgmma_commit();
+          // the fragments stay untouched until the products are done
+          hopper::wgmma_wait<0>();
+          hopper::mbar_arrive(&empty[c]);
+        }
+        hopper::fence_operand(s);
+
+        // x = s * scale, masked; p = exp(x - m_new) in f32. A full pair
+        // (every row sees every key) runs no test. Every warp's quads cover
+        // all 32 keys, so the warp's vote is the tile's.
+        const bool masked = __any_sync(0xffffffffu, kbits != 0xffu);
+        const bool full_pair = k0 + BK <= Tk && !masked &&
+                               (!causal || k0 + BK - 1 + k_off <= q0 + q_off);
+        float mx[2] = {-INFINITY, -INFINITY};
+        if (full_pair) {
+          // max(s * scale) from the raw scores (rounding is monotone)
+          const float sg = scale >= 0.f ? 1.f : -1.f;
+#pragma unroll
+          for (int e = 0; e < 16; ++e)
+            mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sg * s[e]);
+          mx[0] *= fabsf(scale);
+          mx[1] *= fabsf(scale);
+        } else {
+          // scale, key mask, then causal, as the other forward kernels
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            const int i = (e >> 1) & 1;
+            const int kpos = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+            float x = s[e] * scale;
+            if (kpos >= Tk) {
+              x = -INFINITY;      // past the ragged edge: weight exactly 0
+            } else {
+              if (!((kbits >> (2 * (e >> 2) + (e & 1))) & 1u)) x = NEG_INF;
+              // past the row's global position: never visible, weight 0
+              if (causal && kpos > last[i]) x = -INFINITY;
+            }
+            s[e] = x;
+            mx[i] = fmaxf(mx[i], x);
+          }
+        }
+        float corr[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {   // the four lanes of a quad: one row
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+          const float m_new = fmaxf(m[i], mx[i]);
+          corr[i] = hopper::exp2_approx((m[i] - m_new) * LOG2E);
+          m[i] = m_new;
+          l[i] *= corr[i];
+        }
+        if (full_pair) {
+          const float ml[2] = {m[0] * LOG2E, m[1] * LOG2E};
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            const int i = (e >> 1) & 1;
+            s[e] = hopper::exp2_approx(fmaf(s[e], scale2, -ml[i]));
+            l[i] += s[e];
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            const int i = (e >> 1) & 1;
+            s[e] = hopper::exp2_approx((s[e] - m[i]) * LOG2E);
+            l[i] += s[e];
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 128; ++e) o[e] *= corr[(e >> 1) & 1];
+
+        // O += P V: P split in registers (k in `k_slot` order), V^T split
+        // by the splitters, one n256 product per term and k8 slice
+        uint32_t ph[BK / 8][4], pl[BK / 8][4];
+        hopper::split_acc_tf32(ph, pl, s);
+        hopper::mbar_wait(vready, j & 1);
+        hopper::wgmma_fence();
+        hopper::wgmma_3xtf32_rs<BK / 8, D>(o, ph, pl, VTH, VTL);
+        hopper::wgmma_commit();
+        // the next tile's key mask, read under the products
+        if (j + 1 < n_tiles) kbits = key_bits(k0 + BK);
+        hopper::wgmma_wait<0>();
+        hopper::fence_operand(o);
+        hopper::mbar_arrive(vempty);
+      }
+    }
+    // l over the quad
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    }
+  }
+
+  if constexpr (SPLIT) {
+    // every thread of both blocks: the walks are done (so rank 0's Q and K
+    // slots are free), then rank 1's partial goes into them, element-major
+    // (neighbouring threads, neighbouring banks)
+    float* xo = Qs;                               // [128][128] O
+    float* xml = Ks;                              // [4][128] m, l
+    decode::cluster_arrive_release();
+    decode::cluster_wait_acquire();
+    if (rank == 1 && tid < 128) {
+#pragma unroll
+      for (int e = 0; e < 128; ++e)
+        decode::st_cluster(decode::cluster_addr(xo + e * 128 + tid, 0),
+                           o[e]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        decode::st_cluster(decode::cluster_addr(xml + i * 128 + tid, 0),
+                           m[i]);
+        decode::st_cluster(
+            decode::cluster_addr(xml + (2 + i) * 128 + tid, 0), l[i]);
+      }
+    }
+    decode::cluster_arrive_release();
+    if (rank == 1) return;
+    decode::cluster_wait_acquire();
+    if (tid < 128) {
+      // m = max of both, each partial weighted by 2^((m_r - m) log2e) (0
+      // for a partial that saw no key while the other did)
+      float w0[2], w1[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m1 = xml[i * 128 + tid];
+        const float mm = fmaxf(m[i], m1);
+        w0[i] = hopper::exp2_approx((m[i] - mm) * LOG2E);
+        w1[i] = hopper::exp2_approx((m1 - mm) * LOG2E);
+        l[i] = l[i] * w0[i] + xml[(2 + i) * 128 + tid] * w1[i];
+        m[i] = mm;
+      }
+#pragma unroll
+      for (int e = 0; e < 128; ++e)
+        o[e] = o[e] * w0[(e >> 1) & 1] +
+               xo[e * 128 + tid] * w1[(e >> 1) & 1];
+    }
+  }
+  if (tid >= 128) return;
+
+  // out = O / max(l, 1e-30)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = fmaxf(l[i], 1e-30f);
+#pragma unroll
+  for (int e = 0; e < 128; ++e) o[e] /= l[(e >> 1) & 1];
+  hopper::store_acc_f32(out + ((long long)b * Tq * H + h) * D,
+                        (long long)H * D, q0, Tq, o, tid);
+  if (lse && t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (r0 + 8 * i < Tq)
+        lse[(long long)bh * Tq + r0 + 8 * i] = m[i] + logf(l[i]);
+  }
+}
+
+int launch_d256(const float* q, const float* k, const float* v,
+                const float* km, float* out, float* lse, int B, int H,
+                int Tq, int Tk, Strides qs, Strides ks, Strides vs,
+                int causal, int q_off, int k_off, float scale,
+                cudaStream_t stream) {
+  using L = D256;
+  const struct { const float* p; int T; Strides s; int rows; } ops[3] = {
+      {q, Tq, qs, 64}, {k, Tk, ks, L::BK}, {v, Tk, vs, L::BK}};
+  CUtensorMap m[3];
+  for (int i = 0; i < 3; ++i) {
+    const int err = hopper::make_tile_map(
+        &m[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ops[i].p, B, ops[i].T, H,
+        L::D, ops[i].s.b, ops[i].s.t, ops[i].s.h, ops[i].rows);
+    if (err) return err;
+  }
+  // two blocks per q tile while one per tile would leave SMs idle
+  int dev = 0, sms = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (!err)
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (err) return err;
+  const long long tiles = (long long)B * H * ((Tq + 63) / 64);
+  const int split = tiles < sms ? 2 : 1;
+  auto kernel = split == 2 ? flash_fwd_f32_d256<true>
+                           : flash_fwd_f32_d256<false>;
+  const int smem = L::BYTES + 1024;
+  err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  dim3 grid;
+  err = hopper::grid_1d((Tq + 63) / 64, (long long)B * H * split, &grid);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  err = (int)cudaLaunchKernelEx(&cfg, kernel, m[0], m[1], m[2], km, out,
+                                lse, H, Tq, Tk, causal, q_off, k_off,
+                                scale);
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry for ctypes. Returns a cudaError_t value (0 = launched).
 // Strides are in elements, for [B, T, H, D] tensors with a dense head dim
-// (at D = 32, 64 and 128 also 16-byte aligned rows: the TMA maps; a
-// pattern the encoder refuses comes back as an error); out is written
+// and 16-byte aligned rows (the TMA maps; a pattern the encoder refuses
+// comes back as an error); out is written
 // dense [B, Tq, H, D], the LSE [B, H, Tq]. D is 16, 32, 64, 128 or 256.
 extern "C" int flash_fwd_f32(
     const float* q, const float* k, const float* v, const float* key_mask,
@@ -660,7 +932,7 @@ extern "C" int flash_fwd_f32(
     case 32: return launch_sm90_by_grid<32>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, D, qs, ks, vs, causal, q_off, k_off, scale, st);
     case 64: return launch_sm90_by_grid<64>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, D, qs, ks, vs, causal, q_off, k_off, scale, st);
     case 128: return launch_sm90<128, 1>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, D, qs, ks, vs, causal, q_off, k_off, scale, st);
-    case 256: return launch<256>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off, scale, st);
+    case 256: return launch_d256(q, k, v, key_mask, out, lse, B, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

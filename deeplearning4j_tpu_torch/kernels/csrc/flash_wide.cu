@@ -256,19 +256,9 @@ constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of one block
 static_assert(WideFwd<bf16>::BYTES + 1024 <= SMEM_LIMIT, "shared memory");
 static_assert(WideFwd<float>::BYTES + 1024 <= SMEM_LIMIT, "shared memory");
 
-// x rounded to TF32 (nearest, ties away from zero, low 13 bits zero: the
-// bits of `cvt.rna.tf32.f32`) by an integer add and mask, and the split
-// x = hi + lo of hopper_f32.cuh on it: the splits are on this kernel's
-// critical path, and the integer pipes take them faster than the
-// conversion unit (PERF.md).
-__device__ __forceinline__ uint32_t tf32_round(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-__device__ __forceinline__ void split_f32(float x, uint32_t& hi,
-                                          uint32_t& lo) {
-  hi = tf32_round(x);
-  lo = tf32_round(x - __uint_as_float(hi));
-}
+// The splits are on this kernel's critical path: TF32 rounding by an
+// integer add and mask (hopper_f32.cuh `split_f32`).
+using hopper::split_f32;
 
 // Split a landed [64, C] f32 tile (C / 32 128B-swizzled boxes) by the 128
 // threads of a warpgroup, stid in 0..127, as hopper_f32.cuh `split_tile`

@@ -76,14 +76,17 @@ __device__ __forceinline__ unsigned char* align_1024(unsigned char* raw) {
 // heads is the fast part of the index, the tile (q tile, key tile, or
 // tile and column box) the slow part, so the first wave holds one tile
 // of every head. `reverse` walks the tiles last first: a causal q tile
-// that sees the most keys goes first.
+// that sees the most keys goes first. With `split` > 1, `split`
+// neighbouring blocks (a cluster) share each (tile, bh).
 struct GridTile {
   int tile, bh;
 };
-__device__ __forceinline__ GridTile grid_tile(int n_tiles, bool reverse) {
-  const unsigned bh_count = gridDim.x / (unsigned)n_tiles;
-  const int t = (int)(blockIdx.x / bh_count);
-  return {reverse ? n_tiles - 1 - t : t, (int)(blockIdx.x % bh_count)};
+__device__ __forceinline__ GridTile grid_tile(int n_tiles, bool reverse,
+                                              int split = 1) {
+  const unsigned x = blockIdx.x / (unsigned)split;
+  const unsigned bh_count = gridDim.x / (unsigned)split / (unsigned)n_tiles;
+  const int t = (int)(x / bh_count);
+  return {reverse ? n_tiles - 1 - t : t, (int)(x % bh_count)};
 }
 
 // The grid of `grid_tile`; returns a cudaError_t value (invalid past

@@ -1,12 +1,11 @@
 // hopper_f32.cuh: the Hopper (sm_90a) pieces of the float32 attention
-// kernels (flash_fwd.cu at head dims 32, 64 and 128, flash_bwd.cu at 64):
-// float32
-// products on the tensor cores as three TF32 `wgmma.mma_async` products
-// each, f32 tiles by TMA, and the split of an f32 operand into TF32
-// halves, in registers or a landed tile at a time. The mbarriers, the TMA
-// copy, the descriptor encoding, the wgmma ordering and the tensor maps
-// (`make_tile_map` with CU_TENSOR_MAP_DATA_TYPE_FLOAT32) come from
-// hopper_bf16.cuh.
+// kernels (flash_fwd.cu at head dims 32, 64, 128 and 256, flash_bwd.cu at
+// 64, flash_wide.cu): float32 products on the tensor cores as three TF32
+// `wgmma.mma_async` products each, f32 tiles by TMA, and the split of an
+// f32 operand into TF32 halves, in registers or a landed tile at a time.
+// The mbarriers, the TMA copy, the descriptor encoding, the wgmma ordering
+// and the tensor maps (`make_tile_map` with CU_TENSOR_MAP_DATA_TYPE_FLOAT32)
+// come from hopper_bf16.cuh.
 //
 // Numerics. TF32 keeps 10 explicit mantissa bits, so one TF32 product of
 // two f32 operands carries a relative error near 2^-11: too coarse for
@@ -72,6 +71,19 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
   hi = tf32_rna(x);
   lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// The same rounding (nearest, ties away from zero, low 13 bits zero: the
+// bits of `cvt.rna.tf32.f32`) by an integer add and mask, and the split
+// on it: for splits on a kernel's critical path, where the integer pipes
+// take them faster than the conversion unit (PERF.md).
+__device__ __forceinline__ uint32_t tf32_round(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split_f32(float x, uint32_t& hi,
+                                          uint32_t& lo) {
+  hi = tf32_round(x);
+  lo = tf32_round(x - __uint_as_float(hi));
 }
 
 // The split register-A fragments (hi, lo) of columns 8kk..8kk+7 of an f32
@@ -242,6 +254,39 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16],
       "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n"
       "}\n"
       : HOPPER_F32_R8(0), HOPPER_F32_R8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// The same product at n = 256 (128 accumulator registers: columns
+// 64n..64n+63 are registers 32n..32n+31, laid out as one n64 product's).
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db,
+                                              int accumulate = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, {%128, %129, %130, %131}, %132, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_F32_R8(0), HOPPER_F32_R8(8), HOPPER_F32_R8(16),
+        HOPPER_F32_R8(24), HOPPER_F32_R8(32), HOPPER_F32_R8(40),
+        HOPPER_F32_R8(48), HOPPER_F32_R8(56), HOPPER_F32_R8(64),
+        HOPPER_F32_R8(72), HOPPER_F32_R8(80), HOPPER_F32_R8(88),
+        HOPPER_F32_R8(96), HOPPER_F32_R8(104), HOPPER_F32_R8(112),
+        HOPPER_F32_R8(120)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate));
 }

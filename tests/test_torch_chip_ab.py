@@ -221,26 +221,59 @@ def test_wide_bwd_bf16_turn_times_the_bf16_kernels_at_the_same_shapes():
 
 
 def test_rank_turn_takes_each_kernel_not_yet_redesigned_once():
-    """`run ROOT LABEL rank` times the f32 forward at D=256, the f32 pair
-    at D=16, 32, 128 and 256 and the bf16 kernels at D=16 and 32 at the
-    train case with H * D = 256; both wide pairs are redesigned, so
-    nothing wide."""
-    assert chip_ab.RANK == [("fwd", 256), ("bwd", 16), ("bwd", 32),
-                            ("bwd", 128), ("bwd", 256), ("bf16", 16),
-                            ("bf16", 32)]
+    """`run ROOT LABEL rank` times the f32 pair at D=16, 32, 128 and 256
+    and the bf16 kernels at D=16 and 32 at the train case with H * D =
+    256; the f32 forward at D=256 and both wide pairs are redesigned, so
+    no forward and nothing wide."""
+    assert chip_ab.RANK == [("bwd", 16), ("bwd", 32), ("bwd", 128),
+                            ("bwd", 256), ("bf16", 16), ("bf16", 32)]
     assert all(256 % D == 0 for _, D in chip_ab.RANK)
     assert not hasattr(chip_ab, "RANK_WIDE")
     calls = []
     cs = SimpleNamespace(
-        _fwd_case=lambda *a, **k: calls.append(("fwd", a[4])) or {},
+        _fwd_case=lambda *a, **k: pytest.fail("the f32 forward"),
         _bwd_case=lambda *a, **k: calls.append(("bwd", a[5])) or [],
         _bf16_case=lambda *a, **k: calls.append(("bf16", a[5])) or [])
     chip_ab._rank(cs)
     assert calls == chip_ab.RANK
 
 
+def test_d256_turn_takes_chip_smokes_d256_cases_and_a_long_one():
+    """`run ROOT LABEL d256` times the f32 forward at head dim 256 at every
+    case chip_smoke.py holds it to (D256_CASES, then the D256_LSE shard
+    under each of D256_LSE_OFFSETS through `flash_attention_lse`) and at
+    the long causal B=2 T=4096 H=4 with the LSE (0.4166 ms of operations
+    at 165 TFLOP/s), each through `_forward_case` in the set's order."""
+    import chip_smoke
+    B, T, H, D = chip_smoke.D256_LSE
+    want = [(*c[:9], None) for c in chip_smoke.D256_CASES]
+    want += [(lab, B, T, T, H, D, True, None, True, offs)
+             for lab, offs in chip_smoke.D256_LSE_OFFSETS]
+    long = ("D=256 long B=2 T=4096 H=4", 2, 4096, 4096, 4, 256, True, None,
+            True, None)
+    assert [c for c in chip_ab.D256 if c[0] != long[0]] == want
+    assert long in chip_ab.D256
+    assert chip_ab.D256[0][0] == "D=256 train B=16 T=512 H=1"
+    assert 4 * 256 * 2 * 4 * 4096 * 4097 // 2 / (495e12 / 3) * 1e3 == \
+        pytest.approx(0.4166, rel=1e-3)
+    calls = []
+
+    def case(cs, label, dtype, B, Tq, H, D, valid, lse, gen, Tk=None,
+             causal=True, offsets=None):
+        calls.append((label, B, Tq, Tk, H, D, causal, valid, lse, offsets))
+        return {"case": label}
+    orig = chip_ab._forward_case
+    chip_ab._forward_case = case
+    try:
+        recs = chip_ab._d256(SimpleNamespace())
+    finally:
+        chip_ab._forward_case = orig
+    assert calls == chip_ab.D256
+    assert [r["case"] for r in recs] == [c[0] for c in chip_ab.D256]
+
+
 @pytest.mark.parametrize("dtype", ["wide", "wide_bwd", "wide_bwd_bf16",
-                                   "rank"])
+                                   "d256", "rank"])
 def test_wide_and_rank_turns_refuse_without_a_card(dtype):
     res = subprocess.run([sys.executable, str(ROOT / "chip_ab.py"), "run",
                           str(ROOT), "change", dtype], capture_output=True,
