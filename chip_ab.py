@@ -4,6 +4,7 @@
     python3 chip_ab.py run ROOT LABEL [f32|decode|wide|wide_bwd|rank]
     python3 chip_ab.py run ROOT LABEL wide_bwd_bf16
     python3 chip_ab.py run ROOT LABEL d256
+    python3 chip_ab.py run ROOT LABEL d256_bwd
     python3 chip_ab.py summary LOG...         # table of the turns
     python3 chip_ab.py sweep ROOT LABEL       # decode at each cluster size
 
@@ -47,12 +48,22 @@ forward at head dim 256 (`_forward_case`, the same code on either
 checkout): causal with the LSE unless named, the train case B=16 T=512
 H=1, B=2 T=200 H=4 with a ragged key mask at D=256 and at D=192 (zero-
 padded to 256), the long B=2 T=4096 H=4, the prefill shape B=1 L=64 H=4
-with a key mask and no LSE, Tq=37 Tk=53 not causal with a key mask, and
+with a key mask and no LSE, Tq=37 Tk=53 not causal with a key mask,
+B=8 T=512 H=4 with a ragged key mask (every grid over one wave), and
 `flash_attention_lse` at B=1 T=1024 H=2 on a diagonal shard, a past one
 and offsets 0/512 (rows 0..511 see no key: out 0, lse <= -1e29). With
-`rank`, the kernels no PR has redesigned yet, once each at the train
-case (B=16 T=512 causal, H so that H * D = 256): phase 2's `_bwd_case`
-at D=16, 32, 128 and 256 and `_bf16_case` at D=16 and 32. Inputs come from
+`d256_bwd`, the float32 backward pair at head dim 256, dq and dk/dv timed
+apart through phase 2's `_bwd_case` (gated against the plain versions,
+bitwise twice more at the train case): causal unless named, the train
+case B=16 T=512 H=1, B=2 T=200 H=4 with a ragged key mask at D=256 and at
+D=192 (zero-padded to 256), Tq=37 Tk=53 not causal with a key mask, the
+D=256 model's training shape B=4 T=128 H=2, B=8 T=512 H=4 with a ragged
+key mask (every grid over one wave), the long B=2 T=4096 H=4; then phase 7's `_lse_case` (`flash_attention_lse`
+with an LSE cotangent, the forward timed too) at B=1 T=1024 H=2 on a
+diagonal shard, a past one and offsets 0/512. With `rank`, the kernels no
+PR has redesigned yet, once each at the train case (B=16 T=512 causal, H
+so that H * D = 256): phase 2's `_bwd_case` at D=16, 32 and 128 and
+`_bf16_case` at D=16 and 32. Inputs come from
 fixed seeds, so both checkouts see the same tensors, and every gate of
 those functions holds in each turn. It prints one line `{"ab": LABEL, "cases":
 [...]}` with each kernel's device time (the profiler's, per call),
@@ -169,7 +180,8 @@ WIDE_DECODE = [("decode step S=8 C=256 H=4 D=320", 8, 4, 320, None),
 # causal, valid key lengths or None, with the LSE, (q_off, k_off) through
 # `flash_attention_lse` or None): chip_smoke.py's D256_CASES (the train
 # case of `rank`, B=2 T=200 H=4 with a ragged key mask at D=256 and 192,
-# the prefill shape, Tq=37 Tk=53) and its D256_LSE shard under each of
+# the prefill shape, Tq=37 Tk=53, B=8 T=512 H=4 with a ragged key mask)
+# and its D256_LSE shard under each of
 # D256_LSE_OFFSETS, and a long causal shape
 D256 = [
     ("D=256 train B=16 T=512 H=1", 16, 512, 512, 1, 256, True, None, True,
@@ -182,6 +194,8 @@ D256 = [
      False, None),
     ("D=256 Tq=37 Tk=53, key mask", 2, 37, 53, 4, 256, False, [53, 20],
      True, None),
+    ("D=256 B=8 T=512 H=4, ragged key mask", 8, 512, 512, 4, 256, True,
+     [512, 449, 388, 301, 256, 197, 130, 63], True, None),
     ("D=256 long B=2 T=4096 H=4", 2, 4096, 4096, 4, 256, True, None, True,
      None),
     *((lab, 1, 1024, 1024, 2, 256, True, None, True, offs)
@@ -189,9 +203,26 @@ D256 = [
                         ("D=256 past", (1024, 0)),
                         ("D=256 rows without keys", (0, 512)))),
 ]
+# the float32 backward pair at head dim 256 (`d256_bwd`): `_bwd_case`
+# (label, B, Tq, Tk, H, D, causal, valid key lengths or None, a bitwise
+# repeat); then `_lse_case` on chip_smoke.py's D256_LSE shard under each
+# of its D256_LSE_OFFSETS
+D256_BWD = [
+    ("D=256 train B=16 T=512 H=1", 16, 512, 512, 1, 256, True, None, True),
+    ("D=256 B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, 256, True,
+     [200, 137], False),
+    ("D=192 B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, 192, True,
+     [200, 137], False),
+    ("D=256 Tq=37 Tk=53, key mask", 2, 37, 53, 4, 256, False, [53, 20],
+     False),
+    ("D=256 model B=4 T=128 H=2", 4, 128, 128, 2, 256, True, None, False),
+    ("D=256 B=8 T=512 H=4, ragged key mask", 8, 512, 512, 4, 256, True,
+     [512, 449, 388, 301, 256, 197, 130, 63], False),
+    ("D=256 long B=2 T=4096 H=4", 2, 4096, 4096, 4, 256, True, None, False),
+]
 # the kernels not yet redesigned, at the train case with H * D = 256:
 # (case function, D)
-RANK = [*(("bwd", D) for D in (16, 32, 128, 256)),
+RANK = [*(("bwd", D) for D in (16, 32, 128)),
         *(("bf16", D) for D in (16, 32))]
 SHARD = dict(B=4, T=1024, H=8, D=64)
 SHARD_F32 = dict(B=1, T=1024, H=4, D=64)
@@ -323,6 +354,19 @@ def _d256(cs):
             for lab, B, Tq, Tk, H, D, causal, valid, lse, offs in D256]
 
 
+def _d256_bwd(cs):
+    import torch
+    gen = torch.Generator().manual_seed(18)
+    recs = []
+    for lab, B, Tq, Tk, H, D, causal, valid, repeat in D256_BWD:
+        recs += cs._bwd_case(lab, B, Tq, Tk, H, D, causal, valid, gen,
+                             repeat=repeat)
+    B, T, H, D = cs.D256_LSE
+    for lab, offs in cs.D256_LSE_OFFSETS:
+        recs += cs._lse_case(lab, torch.float32, B, T, H, D, offs, None, gen)
+    return recs
+
+
 def _rank(cs):
     import torch
     gen = torch.Generator().manual_seed(9)
@@ -350,7 +394,7 @@ def run(root, label, dtype="bf16"):
     cs.phase_card()
     sets = {"wide": _wide, "wide_bwd": _wide_bwd,
             "wide_bwd_bf16": lambda cs: _wide_bwd(cs, bf16=True),
-            "d256": _d256, "rank": _rank}
+            "d256": _d256, "d256_bwd": _d256_bwd, "rank": _rank}
     if dtype in sets:
         _print_turn(label, root, sets[dtype](cs), cs)
         return
@@ -494,7 +538,7 @@ if __name__ == "__main__":
     if len(sys.argv) in (4, 5) and sys.argv[1] == "run" \
             and sys.argv[4:] in ([], ["f32"], ["bf16"], ["decode"],
                                  ["wide"], ["wide_bwd"], ["wide_bwd_bf16"],
-                                 ["d256"], ["rank"]):
+                                 ["d256"], ["d256_bwd"], ["rank"]):
         run(*sys.argv[2:])
     elif len(sys.argv) >= 3 and sys.argv[1] == "summary":
         summary(sys.argv[2:])

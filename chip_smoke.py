@@ -142,22 +142,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and one on a paged server (blocks of 16, 17 blocks): every request
    answers 200, the tokens equal the plain model's (tie rule), and the
    prefill launches `flash_fwd` at D=32, unpadded.
-2d. The float32 forward at head dim 256 (`flash_fwd_f32_d256`, also the
-   kernel of every D % 8 == 0 from 136 on, zero-padded to 256): the
-   D256_CASES through `flash_attention` within TOL on out and LSE,
-   launching `flash_fwd` only (padded at D=192 only): the train case
-   B=16 T=512 H=1 with the LSE three times, bitwise equal; B=2 T=200 H=4
-   causal with a ragged key mask at D=256 and 192; the prefill shape B=1
-   L=64 H=4 with a key mask; Tq=37 Tk=53 not causal with a key mask. Then
-   `flash_attention_lse` at B=1 T=1024 H=2 D=256 (`_lse_case`: a diagonal
-   shard, a past one and offsets 0/512, whose rows 0..511 see no key: out
-   0, lse <= -1e29, dq rows 0; the backward pair within BWD_TOL). Then the
-   D=256 model, `transformer_lm(d_model=512, n_layers=2, n_heads=2)` with
+2d. The float32 kernels at head dim 256 (`flash_fwd_f32_d256` and
+   `flash_bwd_f32_d256`, also the kernels of every D % 8 == 0 from 136
+   on, zero-padded to 256): at each of D256_CASES the forward through
+   `flash_attention` within TOL on out and LSE and the backward pair
+   within BWD_TOL (a masked key's dk and dv rows exactly 0), launching
+   `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv` only (padded at D=192
+   only): the train case B=16 T=512 H=1 with the LSE three times, bitwise
+   equal; B=2 T=200 H=4 causal with a ragged key mask at D=256 and 192;
+   the prefill shape B=1 L=64 H=4 with a key mask; Tq=37 Tk=53 not causal
+   with a key mask; B=8 T=512 H=4 causal with a ragged key mask, every
+   grid over one wave. Then `flash_attention_lse` at B=1 T=1024 H=2
+   D=256 (`_lse_case`: a diagonal shard, a past one and offsets 0/512,
+   whose rows 0..511 see no key: out 0, lse <= -1e29, dq rows 0; the
+   backward pair within BWD_TOL). Then the D=256 model,
+   `transformer_lm(d_model=512, n_layers=2, n_heads=2)` with
    use_pallas=True: 3 `fit` steps at batch 4 x 128 in f32, scores within
    SCORE_RTOL of the use_pallas=False model and falling, `flash_fwd`,
    `flash_bwd_dq` and `flash_bwd_dkv` launching 6 times each and nothing
    else; greedy decoding from a slab equal to the plain model under the
-   tie rule. Phase 1 fails if ptxas reports a spill in this kernel.
+   tie rule. Phase 1 fails if ptxas reports a spill in these kernels, or
+   builds `flash_fwd` or `flash_bwd` without reporting them.
 3. The serving path: `transformer_lm` at full width (vocab 256, d_model
    256, 4 layers, 4 heads) with `use_pallas=True` and
    `synthetic_params(seed=0)`, served by
@@ -350,13 +355,15 @@ WIDE_LONG_CASE = "D=512 B=1 T=2048 H=4 long"
 WIDE_LSE = (1, 1024, 2, 320)
 WIDE_LSE_OFFSETS = (("wide diagonal", (1024, 1024)), ("wide past", (1024, 0)),
                     ("wide rows without keys", (0, 512)))
-# the float32 forward at head dim 256 (`flash_fwd_f32_d256`, and every
-# D % 8 == 0 from 136 on, zero-padded to it): (label, B, Tq, Tk, H, D,
-# causal, valid key lengths or None, with the LSE, a bitwise repeat), the
-# train case of chip_ab.py's `rank` set first; then the ring shard of
-# `flash_attention_lse` under causal offsets, (label, (q_off, k_off)) at
-# B=1 T=1024 H=2. chip_ab.py's `d256` set times the same cases and a long
-# one.
+# the float32 kernels at head dim 256 (`flash_fwd_f32_d256` and
+# `flash_bwd_f32_d256`, and every D % 8 == 0 from 136 on, zero-padded to
+# it): (label, B, Tq, Tk, H, D, causal, valid key lengths or None, the
+# forward with the LSE, a bitwise repeat), the train case first; then the
+# ring shard of `flash_attention_lse` under causal offsets, (label, (q_off,
+# k_off)) at B=1 T=1024 H=2. chip_ab.py's `d256` and `d256_bwd` sets time
+# the same cases and a long one.
+# a grid of more than one wave for every kernel, under a ragged key mask
+D256_FULL_VALID = [512, 449, 388, 301, 256, 197, 130, 63]
 D256_CASES = [
     ("D=256 train B=16 T=512 H=1", 16, 512, 512, 1, 256, True, None, True,
      True),
@@ -368,6 +375,8 @@ D256_CASES = [
      False, False),
     ("D=256 Tq=37 Tk=53, key mask", 2, 37, 53, 4, 256, False, [53, 20],
      True, False),
+    ("D=256 B=8 T=512 H=4, ragged key mask", 8, 512, 512, 4, 256, True,
+     D256_FULL_VALID, True, False),
 ]
 D256_LSE = (1, 1024, 2, 256)
 D256_LSE_OFFSETS = (("D=256 diagonal", (1024, 1024)),
@@ -529,14 +538,22 @@ def phase_card():
         if injected:
             print(f"  ptxas {name}: {injected} notes (C7519) of a "
                   "warpgroup.arrive injected before registers a wgmma uses")
-    # the float32 forward at head dim 256 holds O (128 registers a thread)
-    # and its fragments without a spill
-    lines = logs.get("flash_fwd", "").splitlines()
-    for i, line in enumerate(lines):
-        if "Function properties for" in line and "flash_fwd_f32_d256" in line:
+    # the float32 kernels at head dim 256 hold their m64n256 accumulator
+    # (128 registers a thread) and their fragments without a spill; a
+    # library built here reports each of them (an already built library
+    # has no report)
+    for lib, kernel in (("flash_fwd", "flash_fwd_f32_d256"),
+                        ("flash_bwd", "flash_bwd_f32_d256")):
+        if lib not in logs:
+            continue
+        lines = logs[lib].splitlines()
+        found = [i for i, line in enumerate(lines)
+                 if "Function properties for" in line and kernel in line]
+        check(found, f"ptxas reported no {kernel} in {lib}")
+        for i in found:
             check(" 0 bytes spill stores, 0 bytes spill loads" in
                   " ".join(lines[i + 1:i + 3]),
-                  f"flash_fwd_f32_d256 spills: {lines[i + 1:i + 3]}")
+                  f"{kernel} spills: {lines[i + 1:i + 3]}")
     return smi
 
 
@@ -1864,22 +1881,26 @@ def _model_paths(what, conf, trainings, decodes, seed):
 
 
 def phase_d256():
-    """The float32 forward at head dim 256 against its plain version on the
-    card: each of D256_CASES through `flash_attention` (out and LSE within
-    TOL; the train case three times, bitwise equal), launching `flash_fwd`
-    and nothing else, zero-padded at D=192 only; then
-    `flash_attention_lse` on the D256_LSE shard under each of
-    D256_LSE_OFFSETS with `_lse_case` (the forward and the backward pair
-    within phase 2's bars, rows that see no key out 0 with lse <= -1e29);
-    then the D=256 model (`_d256_model`). Returns (cases, summary, launches
-    by path)."""
+    """The float32 kernels at head dim 256 against their plain versions on
+    the card: at each of D256_CASES the forward through `flash_attention`
+    (out and LSE within TOL) and the backward pair through `_bwd_case` (dq,
+    dk and dv within BWD_TOL, a masked key's dk and dv rows exactly 0); the
+    train case three times each, bitwise equal; launching `flash_fwd`,
+    `flash_bwd_dq` and `flash_bwd_dkv` and nothing else, zero-padded at
+    D=192 only; then `flash_attention_lse` on the D256_LSE shard under each
+    of D256_LSE_OFFSETS with `_lse_case` (the forward and the backward pair
+    within phase 2's bars, with an LSE cotangent; rows that see no key out
+    0 with lse <= -1e29 and a zero dq row); then the D=256 model
+    (`_d256_model`). Returns (cases, summary, launches by path)."""
     import torch
     gen = torch.Generator().manual_seed(16)
     cases = []
     for lab, B, Tq, Tk, H, D, causal, valid, lse, repeat in D256_CASES:
-        cases.append(_routed(lab, lambda: _fwd_general_case(
+        cases += _routed(lab, lambda: [_fwd_general_case(
             lab, B, Tq, Tk, H, D, causal, valid, gen, lse=lse,
-            repeat=repeat), ("flash_fwd",), D != 256))
+            repeat=repeat)] + _bwd_case(lab, B, Tq, Tk, H, D, causal, valid,
+                                        gen, repeat=repeat),
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), D != 256)
     B, T, H, D = D256_LSE
     for lab, offs in D256_LSE_OFFSETS:
         cases += _routed(lab, lambda: _lse_case(

@@ -72,13 +72,99 @@
 // 72 TF32 products; dk/dv ~450 KB against 96 products. The split pass
 // and the products take turns; splitting tile j + 1 under tile j's
 // products (a second K^T stage) gained nothing, so they share the limit.
-// Head dims 16, 32, 128 and 256 (the wrapper pads any other D % 8 == 0
-// up to the next of these) run on no float32 main path of the port and
-// keep the CUDA-core kernels (D=256: 201 KB of shared memory for dq, 210
-// KB for dk/dv, at the D=128 tiles): 128 threads per (tile of 32 owned rows,
-// batch*head) walking 64-row tiles staged synchronously in shared memory
-// (rows padded to D+1 floats), products on 4x4 register micro-tiles of
-// f32 FMAs.
+// Head dim 256 (`flash_bwd_f32_d256`; every D % 8 == 0 from 136 up runs
+// it on operands zero-padded to 256): the head dim of the public Gemma
+// decoder LMs. The D=64 pair's layout would hold both owned tiles split
+// (256 KB at this width, past the 227 KB a block may have) and dK and dV
+// of 64 keys x 256 columns in one warpgroup (256 accumulator registers),
+// so this width has a design of its own, on the pieces of the D=256
+// forward (flash_fwd.cu):
+//   - A block owns 64 rows and all 256 output columns: one m64n256
+//     accumulator, 128 registers a consumer thread, so every score is
+//     computed once per output element. dq owns q rows and walks key tiles
+//     of 32 keys up to the causal limit, the last q tiles first: S = Q K^T
+//     and dP = dO V^T, then dQ += dS K (6*D operations per unmasked pair,
+//     the bound's count). dk/dv: a cluster pairs a dK block (owns V, walks
+//     q tiles of 32 rows: dP^T = V dO^T, then dK += dS^T Q) and a dV block
+//     of the same 64 keys (owns K: S^T = K Q^T, P^T, then dV += P^T dO);
+//     the dV block hands P^T to the dK block over distributed shared
+//     memory (two slots, an mbarrier each way), so S^T is computed once:
+//     8*D operations per unmasked pair, the bound's count. Both walk the
+//     q tiles from the first one that sees an owned key (none: they write
+//     zeros).
+//   - Warp-specialised as the forward: warpgroup 0 consumes (the
+//     products, p and ds in registers), warpgroup 1 splits and loads (one
+//     thread issues the TMA: the owned operands once, as landed, in 4-D
+//     maps of 64-row boxes; the walked side as 32-row, 32-column chunks,
+//     one box each, through a ring of slots with full / ready / empty
+//     mbarriers: 4 for dq, 10 for dk/dv, whose blocks own one operand; a
+//     slot is refilled once the item LAG = 2 (dq) or 4 (dk/dv) steps back
+//     is consumed).
+//   - A walked tile is 16 ring items: the score pass's 8 chunks (dq, dK:
+//     V or dO for dP; dV: Q for S^T), then the box operand's 8 (dq: K,
+//     also S's operand; dK: Q; dV: dO), which the splitters transpose into
+//     B^T ([256][32] hi and lo, each 8-row group of the walked tile in
+//     `k_slot` order: 32-bit `wgmma` reads B K-major only). So B^T is
+//     rewritten long after the tile before's gradient product is done.
+//     The dk/dv consumer reads no box chunk: the splitters release those
+//     slots themselves and mark B^T whole with the tile's last one, so the
+//     transposes run under the consumer's score pass. The splitters round
+//     to TF32 on the integer pipes (`split_f32`, the bits of
+//     `cvt.rna.tf32`), which took less time than the conversion unit.
+//   - S and dP over D chunk by chunk: the owned operand split per chunk
+//     in registers (register A), the walked chunk split by the splitters
+//     (hi in place, lo beside); each chunk's 12 m64n32 products into an
+//     accumulator of their own (16 registers, the first product
+//     overwrites it), added to S or dP in f32. The tensor cores truncate
+//     their sums: one running sum over D=256 left dq past BWD_TOL at one
+//     seed of the train case; the chunk sums hold (as the wide pair found
+//     at D=320 and 1024, flash_wide.cu).
+//   - p = 2^(s scale log2e - lse log2e) (`ex2.approx`), the masks and ds
+//     as the D=64 pair (a full tile pair takes no test; a masked key's x
+//     the finite -1e30); then the gradient product, dS, P^T or dS^T split
+//     in registers (register A, k in `k_slot` order) against B^T, one n256
+//     `wgmma` per term and k8 slice. The splitters stage each walked
+//     tile's column values (dq: key validity; dk/dv: lse log2e and delta)
+//     and the owned rows' (dq: lse log2e and delta; dk/dv: key validity).
+//   - dq, and dk/dv on a grid of fewer blocks than SMs (short sequences),
+//     split each owned tile's walk between two ranks of a cluster, rank 0
+//     the first half of the tiles, rank 1 the rest; rank 1 hands its
+//     accumulator to rank 0 over distributed shared memory (into its owned
+//     operand's room, free by then), which adds it. dq's ranks halve the
+//     longest walk and cost nothing on full grids. dk/dv in one rank on
+//     those grids took 1.34-1.92x the time of two (chip_ab.py d256_bwd:
+//     the D=256 model's B=4 T=128 H=2, B=2 T=200 H=4, Tq=37 Tk=53, the
+//     LSE shards), but for the past shard (0.97x: its 32 clusters of four
+//     blocks).
+//   - Shared memory: dq the two owned operands as landed (64 KB each), 4
+//     ring slots of 8 KB, B^T (64 KB); dk/dv one owned operand, P^T's two
+//     slots (16 KB), 10 ring slots, B^T: 225 KB either way, one block per
+//     SM. ptxas (CUDA 12.8): 255 registers (dq), 254 (dk/dv), 0 spills
+//     (chip_smoke.py phase 1 fails on a spill; dq without ranks spilled a
+//     register, so it has none).
+//   - What bounds it (PERF.md, section 6): the ring's item rate, not the
+//     products. An item costs about the same whatever it carries: taking
+//     out the score products or the splitters' split saved a part of the
+//     time, not most; a ring 2.5x as deep, a second accumulator chain per
+//     pass and spinning waits gained nothing. Each item is a chain of
+//     hand-overs (TMA, splitter, consumer, slot back) run by one warp per
+//     scheduler on each side. What moved it: fewer items per tile on the
+//     consumer's path (dk/dv's box chunks left to the splitters) and
+//     cheaper splits.
+//   - Tried in development and not kept: one running S and dP over D
+//     (a little faster; dq past BWD_TOL at one seed), two interleaved
+//     running sums (no gain, spills), a dK block computing S^T itself
+//     (10*D per pair, the paired blocks' time: the ring bounds both),
+//     rings of 6, 10 and 12 slots, `test_wait` spinning and dP parked in
+//     shared memory (slower), the next chunk's A values loaded under the
+//     products (no gain, spills); the wide pair at D=256, slower (PERF.md,
+//     section 6).
+// Head dims 16, 32 and 128 (the wrapper pads any other D % 8 == 0 up to
+// the next of these) run on no float32 main path of the port and keep the
+// CUDA-core kernels: 128 threads per (tile of 32 owned rows, batch*head)
+// walking 64-row tiles staged synchronously in shared memory (rows padded
+// to D+1 floats), products on 4x4 register micro-tiles of f32 FMAs.
+#include "decode_common.cuh"
 #include "hopper_f32.cuh"
 
 #include <math.h>
@@ -775,6 +861,536 @@ flash_bwd_dkv_f32_sm90(const __grid_constant__ CUtensorMap qmap,
   hopper::store_acc_f32(dv + off, (long long)H * D, k0, Tk, dv_acc, tid);
 }
 
+// =========================================================== D = 256 (sm90)
+// One block per 64 owned rows and all 256 output columns (see the header).
+// Byte offsets from the 1024-aligned base; every tile 1024-aligned. The
+// owned operands stay as landed (64 rows, 8 boxes of 32 columns: dq both,
+// a dK or dV block one); a ring slot holds one 32-row, 32-column chunk of
+// a walked operand, hi in place and lo beside it; B^T is the transposed
+// box operand ([256][32], each 8-row group of the walked tile in `k_slot`
+// order). A dk/dv block spends the second owned operand's room on P^T's
+// hand-over and a deeper ring.
+template <bool DQ>
+struct D256 {
+  static constexpr int D = 256, BO = 64, BW = 32;   // head dim, owned, walked
+  static constexpr int DC = 32, NC = D / DC;        // chunk columns, chunks
+  static constexpr int NS = DQ ? 4 : 10;            // ring slots
+  static constexpr int LAG = DQ ? 2 : 4;            // refill: NS - LAG ahead
+  static constexpr int STEPS = 2 * NC;              // ring items per tile
+  static constexpr int OWN = BO * D * 4;            // an owned operand, 64 KB
+  static constexpr int CH = BW * DC * 4;            // a chunk's hi or lo, 4 KB
+  static constexpr int BT = D * BW * 4;             // B^T hi (or lo), 32 KB
+  static constexpr int A1 = 0;                      // S's owned operand
+  static constexpr int A2 = DQ ? OWN : 0;           // dP's owned operand
+  static constexpr int PT = DQ ? 2 * OWN : OWN;     // dk/dv: [2] P^T, 8 KB
+  static constexpr int RING = PT + (DQ ? 0 : 2 * BO * BW * 4);  // [NS] hi, lo
+  static constexpr int BTH = RING + NS * 2 * CH;    // B^T hi
+  static constexpr int BTL = BTH + BT;              // B^T lo
+  static constexpr int COL = BTL + BT;              // [2][2 * BW] column values
+  static constexpr int ROW = COL + 2 * 2 * BW * 4;  // [2 * BO] row values
+  // obar, full / ready / empty per slot, btempty, btfull, [2] ptfull,
+  // [2] ptempty
+  static constexpr int BAR = ROW + 2 * BO * 4;
+  static constexpr int BYTES = BAR + 8 * (7 + 3 * NS);
+};
+static_assert(D256<true>::BYTES + 1024 <= SMEM_LIMIT, "dq: shared memory");
+static_assert(D256<false>::BYTES + 1024 <= SMEM_LIMIT,
+              "dk/dv: shared memory");
+
+// mbarrier waits and arrivals across a cluster: a wait that sees the
+// writes another block released into this one's shared memory, and one
+// arrival on a barrier of block `rank` that releases this thread's writes.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = hopper::smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+// Split a landed 32-row, 32-column f32 chunk (one 128B-swizzled box) by
+// the 128 splitter threads, stid in 0..127, as hopper_f32.cuh `split_tile`
+// does but on the integer pipes (`split_f32`, the same bits as
+// `cvt.rna.tf32`): PLAIN, x's TF32 hi in place and lo at the same offsets
+// in `lo`; TRANSPOSE, the transposed split (x's columns as rows of th / tl,
+// each 8-row group of x in `k_slot` order as its columns).
+template <bool PLAIN, bool TRANSPOSE>
+__device__ __forceinline__ void split_chunk(float* x, float* lo, float* th,
+                                            float* tl, int stid) {
+  const int r = stid % 32;                      // x's row
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int c = stid / 32 * 2 + m;            // x's 16-byte chunk
+    const int at = r * hopper::BOX_F32 + ((c ^ (r & 7)) << 2);
+    const float4 v = *reinterpret_cast<const float4*>(x + at);
+    const float e[4] = {v.x, v.y, v.z, v.w};
+    uint32_t hi[4], lw[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) hopper::split_f32(e[i], hi[i], lw[i]);
+    if (PLAIN) {
+      *reinterpret_cast<uint4*>(x + at) =
+          make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(lo + at) =
+          make_uint4(lw[0], lw[1], lw[2], lw[3]);
+    }
+    if (TRANSPOSE) {
+      const int col = (r & ~7) | hopper::k_slot(r & 7);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t_at = hopper::sw128(32, 4 * c + i, col);
+        th[t_at] = __uint_as_float(hi[i]);
+        tl[t_at] = __uint_as_float(lw[i]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, int rank) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          decode::cluster_addr(bar, rank))
+      : "memory");
+}
+__device__ __forceinline__ void st_cluster4(uint32_t addr, float a, float b,
+                                            float c, float d) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(a), "f"(b), "f"(c), "f"(d)
+               : "memory");
+}
+
+// DQ: the block owns 64 q rows (A1 = Q, A2 = dO), walks key tiles (B1 = K,
+// B2 = V) and writes dq into out0; per tile S = Q K^T and dP = dO V^T, then
+// dQ += dS K. Else a cluster pairs a dK block (owns V as A2, walks dO (B2)
+// for dP^T = V dO^T, box operand Q (B1); into out0) with a dV block (owns K
+// as A1, walks Q (B1) for S^T = K Q^T, box operand dO (B2); into out1) of
+// the same 64 keys: the dV block hands P^T to the dK block over
+// distributed shared memory, so S^T is computed once. Threads 0-127
+// consume; warpgroup 1 splits and loads. Ring item u (walked tile u /
+// STEPS, step i = u % STEPS) sits in slot u % NS; its full (TMA), ready
+// (split) and empty (consumed) mbarriers complete their (u / NS)-th
+// phase. Steps 0-7 are the chunks of the score pass (dq, dK: B2 for dP;
+// dV: B1 for S), steps 8-15 the box operand's (dq: K, for S, also
+// transposed into B^T; dK: Q, dV: dO, transposed only), so B^T is written
+// long after the tile before's gradient product is done (`btempty`). With
+// SPLIT each owned tile has two ranks: rank 0 walks the first half of its
+// tiles, rank 1 the rest, and rank 1 hands its accumulator to rank 0 over
+// distributed shared memory, where rank 0 adds it.
+template <bool DQ, bool SPLIT>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_f32_d256(const __grid_constant__ CUtensorMap a1map,
+                   const __grid_constant__ CUtensorMap a2map,
+                   const __grid_constant__ CUtensorMap b1map,
+                   const __grid_constant__ CUtensorMap b2map,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   const float* __restrict__ key_mask,
+                   float* __restrict__ out0, float* __restrict__ out1, int H,
+                   int Tq, int Tk, int causal, int q_off, int k_off,
+                   float scale) {
+  static_assert(!DQ || SPLIT, "dq always runs two ranks");
+  using L = D256<DQ>;
+  constexpr int split = SPLIT ? 2 : 1;          // ranks per owned tile
+  constexpr int CS = DQ ? split : 2 * split;    // blocks per cluster
+  constexpr int D = L::D, BO = L::BO, BW = L::BW, NC = L::NC, NS = L::NS;
+  constexpr int STEPS = L::STEPS;
+  constexpr int CHF = L::CH / 4;                // floats of a chunk's hi
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hopper::align_1024(smem_raw);
+  float* A1s = reinterpret_cast<float*>(sm + L::A1);
+  float* A2s = reinterpret_cast<float*>(sm + L::A2);
+  float* ring = reinterpret_cast<float*>(sm + L::RING);
+  float* bth = reinterpret_cast<float*>(sm + L::BTH);
+  float* btl = reinterpret_cast<float*>(sm + L::BTL);
+  float* col = reinterpret_cast<float*>(sm + L::COL);
+  float* rowv = reinterpret_cast<float*>(sm + L::ROW);
+  uint64_t* obar = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t *full = obar + 1, *ready = full + NS, *empty = ready + NS;
+  uint64_t *btempty = empty + NS, *btfull = btempty + 1,
+           *ptfull = btfull + 1, *ptempty = ptfull + 2;
+
+  const int tid = threadIdx.x;
+  const int crank = (int)(blockIdx.x % CS);     // the cluster rank
+  const int rank = DQ ? crank : crank / 2;      // which half of the walk
+  const bool has_dp = DQ || crank % 2 == 0;     // not a dV block
+  const int partner = crank ^ 1;                // dk/dv: the other kind
+  const int T_own = DQ ? Tq : Tk;
+  // dq, causal: the last q tiles see the most keys; dk/dv: the first key
+  // tiles are seen by the most queries. Either way they go first.
+  const hopper::GridTile gt =
+      hopper::grid_tile((T_own + 63) / 64, DQ && causal, CS);
+  const int own0 = gt.tile * 64;
+  const int bh = gt.bh, b = bh / H, h = bh % H;
+  const int shift = q_off - k_off;
+  // the walked tiles: dq, key tiles up to the causal limit of the tile's
+  // last row; dk/dv, q tiles from the one that holds the first row that
+  // sees an owned key. This block's: t0 .. t0 + n_tiles - 1 (split: rank 0
+  // the first half, rank 1 the rest)
+  int walk0 = 0, n_all;
+  if (DQ) {
+    const int k_end =
+        causal ? min(Tk, max(0, min(Tq, own0 + 64) + shift)) : Tk;
+    n_all = (k_end + BW - 1) / BW;
+  } else {
+    walk0 = causal ? max(0, own0 - shift) / BW * BW : 0;
+    n_all = walk0 < Tq ? (Tq - walk0 + BW - 1) / BW : 0;
+  }
+  const int half = (n_all + 1) / 2;
+  const int t0 = rank == 1 ? half : 0;
+  const int n_tiles = split == 1 ? n_all : rank == 0 ? half : n_all - half;
+  const int n_items = n_tiles * STEPS;
+  // steps 0-7 load `first`, steps 8-15 `second` (see above)
+  const CUtensorMap* first = has_dp ? &b2map : &b1map;
+  const CUtensorMap* second = has_dp ? &b1map : &b2map;
+
+  if (tid == 0) {
+    hopper::mbar_init(obar, 1);
+    for (int i = 0; i < NS; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&ready[i], 128);
+      hopper::mbar_init(&empty[i], 128);
+    }
+    hopper::mbar_init(btempty, 128);
+    hopper::mbar_init(btfull, 128);
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(&ptfull[i], 128);
+      hopper::mbar_init(&ptempty[i], 128);
+    }
+    hopper::mbar_init_fence();
+  }
+  if constexpr (DQ) {
+    __syncthreads();
+  } else {
+    // the partner's barriers are initialised before any arrival on them
+    decode::cluster_arrive_release();
+    decode::cluster_wait_acquire();
+  }
+
+  float acc[128];
+  const int lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int rt = (tid / 32) * 16 + g;           // this thread's tile rows
+  const int r0 = own0 + rt;                     // rt, rt + 8
+  if (tid >= 128) {
+    if (n_tiles > 0) {
+      // ------------------------------------------- the splitters and loads
+      const int stid = tid - 128;
+      auto load_item = [&](int u) {
+        const int st = u % NS, i = u % STEPS;
+        const int w0 = walk0 + (t0 + u / STEPS) * BW;
+        hopper::mbar_expect_tx(&full[st], L::CH);
+        hopper::tma_load_4d(ring + st * 2 * CHF, i < NC ? first : second,
+                            &full[st], (i % NC) * L::DC, h, w0, b);
+      };
+      if (stid == 0) {
+        // the owned operands the block's score pass takes: dq both, dK V,
+        // dV K
+        hopper::mbar_expect_tx(obar, L::OWN * (DQ ? 2 : 1));
+        if (DQ || !has_dp)
+          hopper::tma_load_tile_f32<D>(A1s, &a1map, obar, 64, own0, h, b);
+        if (has_dp)
+          hopper::tma_load_tile_f32<D>(A2s, &a2map, obar, 64, own0, h, b);
+        for (int u = 0; u < NS && u < n_items; ++u) load_item(u);
+      }
+      // the owned rows' values, read by the consumer after its first
+      // item: dq, lse log2e, then delta (0 past Tq); dV, key validity
+      {
+        const int r = own0 + stid % 64;
+        float x = 0.f;
+        if (DQ && r < Tq)
+          x = stid < 64 ? lse[(long long)bh * Tq + r] * LOG2E
+                        : delta[(long long)bh * Tq + r];
+        else if (!DQ && r < Tk)
+          x = (!key_mask || key_mask[(long long)b * Tk + r] > 0.f) ? 1.f
+                                                                   : 0.f;
+        if (DQ || stid < 64) rowv[stid] = x;
+      }
+      // a tile's column values, read by the consumer after its last item
+      // and loaded a tile ahead: dq, key validity (1 past the ragged edge:
+      // the edge has its test); dk/dv, lse log2e, then delta, of the q
+      // rows (0 past Tq)
+      auto col_value = [&](int j) {
+        const int w = walk0 + (t0 + j) * BW + stid % BW;
+        if (DQ)
+          return (key_mask && w < Tk) ? key_mask[(long long)b * Tk + w] : 1.f;
+        if (w >= Tq) return 0.f;
+        const long long at = (long long)bh * Tq + w;
+        return stid < BW ? lse[at] * LOG2E : delta[at];
+      };
+      float colx = stid < 2 * BW ? col_value(0) : 0.f;
+      for (int u = 0; u < n_items; ++u) {
+        const int st = u % NS, i = u % STEPS, j = u / STEPS;
+        float* hi = ring + st * 2 * CHF;
+        hopper::mbar_wait(&full[st], (u / NS) & 1);
+        if (i == 0 && stid < 2 * BW) {
+          if (!DQ || stid < BW) col[(j & 1) * 2 * BW + stid] = colx;
+          if (j + 1 < n_tiles) colx = col_value(j + 1);
+        }
+        if (i < NC) {
+          split_chunk<true, false>(hi, hi + CHF, nullptr, nullptr, stid);
+        } else {
+          // the box operand's chunk c: its rows 32c..32c+31 of B^T, once
+          // the tile before's gradient product is done
+          const int c = i - NC;
+          if (c == 0 && j >= 1) hopper::mbar_wait(btempty, (j - 1) & 1);
+          float *th = bth + c * BW * L::DC, *tl = btl + c * BW * L::DC;
+          if (DQ)
+            split_chunk<true, true>(hi, hi + CHF, th, tl, stid);
+          else
+            split_chunk<false, true>(hi, nullptr, th, tl, stid);
+        }
+        hopper::fence_proxy_async();
+        hopper::mbar_arrive(&ready[st]);
+        if (!DQ && i >= NC) {
+          // dk/dv: the consumer reads no box chunk; the splitters are done
+          // with it (and, with the tile's last, B^T is whole)
+          hopper::mbar_arrive(&empty[st]);
+          if (i == STEPS - 1) hopper::mbar_arrive(btfull);
+        }
+        // the slot of item u - LAG takes item u - LAG + NS once consumed
+        // (the whole warpgroup waits: no warp is held up by one waiting
+        // thread)
+        const int v = u - L::LAG;
+        if (v >= 0 && v + NS < n_items) {
+          hopper::mbar_wait(&empty[v % NS], (v / NS) & 1);
+          if (stid == 0) load_item(v + NS);
+        }
+      }
+    }
+  } else if (n_tiles > 0) {
+    // -------------------------------------------------------- the consumer
+    const float scale2 = scale * LOG2E;
+    // dV: a masked key among the warp's rows (keys past Tk do not count)
+    bool warp_masked = false;
+    if (!DQ && key_mask) {
+      bool m = false;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = r0 + 8 * i;
+        m |= r < Tk && !(key_mask[(long long)b * Tk + r] > 0.f);
+      }
+      warp_masked = __any_sync(0xffffffffu, m);
+    }
+    // the values of chunk c of an owned operand that this thread's
+    // register-A fragments take: (row g, k t), (g + 8, t), (g, t + 4),
+    // (g + 8, t + 4) of each k8 slice (the landed box is 128B-swizzled)
+    auto load_a = [&](float (&x)[16], const float* a, int c) {
+      const float* ac = a + c * 64 * hopper::BOX_F32;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          x[4 * kk + i] = ac[hopper::sw128(64, rt + 8 * (i & 1),
+                                           8 * kk + t + 4 * (i >> 1))];
+    };
+    // sum = A B^T over the head dim for the eight items u0 .. u0 + 7: A the
+    // owned operand, split in registers chunk by chunk, B the walked chunks
+    // split by the splitters; each chunk's 12 products into an accumulator
+    // of their own (the first product overwrites it), added to sum in f32
+    auto score_pass = [&](float (&sum)[16], const float* a, int u0) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) sum[e] = 0.f;
+      for (int c = 0; c < NC; ++c) {
+        const int u = u0 + c, st = u % NS;
+        float ax[16];
+        load_a(ax, a, c);
+        uint32_t ah[4][4], al[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            hopper::split_f32(ax[4 * kk + i], ah[kk][i], al[kk][i]);
+        const float* kh = ring + st * 2 * CHF;
+        const float* kl = kh + CHF;
+        hopper::mbar_wait(&ready[st], (u / NS) & 1);
+        float part[16];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t dkh = hopper::desc_k_major_f32(kh, BW, kk);
+          hopper::wgmma_tf32_rs(part, al[kk], dkh, kk > 0);
+          hopper::wgmma_tf32_rs(part, ah[kk],
+                                hopper::desc_k_major_f32(kl, BW, kk));
+          hopper::wgmma_tf32_rs(part, ah[kk], dkh);
+        }
+        hopper::wgmma_commit();
+        // the fragments stay untouched until the products are done
+        hopper::wgmma_wait<0>();
+        hopper::mbar_arrive(&empty[st]);
+        hopper::fence_operand(part);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) sum[e] += part[e];
+      }
+    };
+
+    hopper::mbar_wait(obar, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int w0 = walk0 + (t0 + j) * BW;
+      const int u0 = j * STEPS;
+      const float* cv = col + (j & 1) * 2 * BW;
+      // dq: dP, then S (the box operand's items); dK: dP^T; dV: S^T (the
+      // box operand's items go to the splitters alone)
+      float s[16], dp[16];
+      if (DQ) {
+        score_pass(dp, A2s, u0);
+        score_pass(s, A1s, u0 + NC);
+      } else if (has_dp) {
+        score_pass(dp, A2s, u0);
+      } else {
+        score_pass(s, A1s, u0);
+      }
+
+      // dq, dV: p = exp(x - lse) as the forward masks x (dq: ds = p (dp -
+      // delta) scale). The tile's column values came with its first item.
+      // Every warp's quads cover all 32 columns, so the warp's vote is the
+      // tile's.
+      if (DQ || !has_dp) {
+        bool full_pair;
+        if (DQ) {
+          bool dead = false;
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            dead |= !(cv[8 * (e >> 1) + 2 * t + (e & 1)] > 0.f);
+          full_pair = w0 + BW <= Tk && !__any_sync(0xffffffffu, dead) &&
+                      (!causal || w0 + BW - 1 + k_off <= own0 + q_off);
+        } else {
+          full_pair = !warp_masked &&
+                      (!causal || own0 + 63 + k_off <= w0 + q_off);
+        }
+        // the owned rows' values (dq: lse log2e and delta; dV: key
+        // validity) and, causal, the last key a row sees (dq) or the first
+        // q row that sees a key (dV)
+        float rv[2], rd[2];
+        int lim[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          rv[i] = rowv[rt + 8 * i];
+          rd[i] = DQ ? rowv[BO + rt + 8 * i] : 0.f;
+          lim[i] = DQ ? r0 + 8 * i + shift : r0 + 8 * i - shift;
+        }
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          const int i = (e >> 1) & 1;
+          const int c = 8 * (e >> 2) + 2 * t + (e & 1);
+          const float l2 = DQ ? rv[i] : cv[c];
+          float p;
+          if (full_pair) {
+            p = hopper::exp2_approx(fmaf(s[e], scale2, -l2));
+          } else {
+            const int pos = w0 + c;     // dq: a key; dV: a q row
+            const bool live = DQ ? cv[c] > 0.f : rv[i] > 0.f;
+            const float x2 = live ? fmaf(s[e], scale2, -l2) : NEG_INF2 - l2;
+            const bool seen = DQ ? pos < Tk && (!causal || pos <= lim[i])
+                                 : pos < Tq && (!causal || lim[i] <= pos);
+            p = seen ? hopper::exp2_approx(x2) : 0.f;
+          }
+          s[e] = DQ ? p * (dp[e] - rd[i]) * scale : p;
+        }
+      }
+      if (!DQ) {
+        // P^T through the dK block's [2][4][128] float4s: thread tid's
+        // values at the same place in both blocks (their accumulators
+        // share one layout)
+        float4* pt =
+            reinterpret_cast<float4*>(sm + L::PT) + (j & 1) * 4 * 128;
+        if (!has_dp) {
+          // dV: hand P^T over once the dK block has read the slot's last
+          if (j >= 2) mbar_wait_cluster(&ptempty[j & 1], ((j >> 1) + 1) & 1);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            st_cluster4(decode::cluster_addr(pt + q * 128 + tid, partner),
+                        s[4 * q], s[4 * q + 1], s[4 * q + 2], s[4 * q + 3]);
+          mbar_arrive_remote(&ptfull[j & 1], partner);
+        } else {
+          // dK: dS^T = P^T (dP^T - delta) scale
+          mbar_wait_cluster(&ptfull[j & 1], (j >> 1) & 1);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float4 x = pt[q * 128 + tid];
+            const float pv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              const int e = 4 * q + m;
+              const int c = 8 * (e >> 2) + 2 * t + (e & 1);
+              s[e] = pv[m] * (dp[e] - cv[BW + c]) * scale;
+            }
+          }
+          mbar_arrive_remote(&ptempty[j & 1], partner);
+        }
+      }
+
+      // acc += (dS, dS^T or P^T) B^T over the tile's 32 walked rows: A
+      // split in registers (k in `k_slot` order, as hopper_f32.cuh
+      // `acc_to_a_tf32`), B^T split by the splitters; the first tile's
+      // product overwrites acc
+      uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          hopper::split_f32(s[4 * kk + (x >> 1) + 2 * (x & 1)], ph[kk][x],
+                            pl[kk][x]);
+      if (!DQ) hopper::mbar_wait(btfull, j & 1);   // dq: with S's last item
+      hopper::wgmma_fence();
+      hopper::wgmma_3xtf32_rs<4, D>(acc, ph, pl, bth, btl, j > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(acc);
+      hopper::mbar_arrive(btempty);
+    }
+  }
+
+  // a block that walked no tile writes zeros (and hands zeros over)
+  const bool any = n_tiles > 0;
+  // every thread of the cluster: the walks and the P^T hand-overs are done,
+  // so no block touches another's shared memory any more and every owned
+  // operand's room is free
+  decode::cluster_arrive_release();
+  decode::cluster_wait_acquire();
+  if constexpr (SPLIT) {
+    // rank 1's accumulator into its rank 0's A1, element-major
+    // (neighbouring threads, neighbouring banks), and rank 0 adds it
+    float4* xo = reinterpret_cast<float4*>(A1s);  // [32][128] float4s
+    if (rank == 1 && tid < 128) {
+      const int to = crank - (DQ ? 1 : 2);
+#pragma unroll
+      for (int q = 0; q < 32; ++q)
+        st_cluster4(decode::cluster_addr(xo + q * 128 + tid, to),
+                    any ? acc[4 * q] : 0.f, any ? acc[4 * q + 1] : 0.f,
+                    any ? acc[4 * q + 2] : 0.f, any ? acc[4 * q + 3] : 0.f);
+    }
+    decode::cluster_arrive_release();
+    if (rank == 1) return;
+    decode::cluster_wait_acquire();
+    if (tid >= 128) return;
+#pragma unroll
+    for (int q = 0; q < 32; ++q) {
+      const float4 x = xo[q * 128 + tid];
+      acc[4 * q] = (any ? acc[4 * q] : 0.f) + x.x;
+      acc[4 * q + 1] = (any ? acc[4 * q + 1] : 0.f) + x.y;
+      acc[4 * q + 2] = (any ? acc[4 * q + 2] : 0.f) + x.z;
+      acc[4 * q + 3] = (any ? acc[4 * q + 3] : 0.f) + x.w;
+    }
+  } else {
+    if (tid >= 128) return;
+#pragma unroll
+    for (int e = 0; e < 128; ++e) acc[e] = any ? acc[e] : 0.f;
+  }
+
+  // every owned row below T_own is written (a masked key's come out 0)
+  hopper::store_acc_f32((has_dp ? out0 : out1) +
+                            ((long long)b * T_own * H + h) * D,
+                        (long long)H * D, own0, T_own, acc, tid);
+}
+
 struct Operands {
   const float *q, *k, *v, *dout, *lse, *delta, *key_mask;
   int B, H, Tq, Tk;
@@ -873,6 +1489,70 @@ int launch_dkv_sm90(const Operands& a, float* dk, float* dv,
   return (int)cudaGetLastError();
 }
 
+// The D=256 pair: dq (out0) or dk and dv (out0, out1) by
+// `flash_bwd_f32_d256`, its four tensor maps in the kernel's roles (the
+// owned operands in boxes of 64 rows, the walked ones of 32, 32 columns a
+// box, zero fill past T), clusters of two blocks per owned tile while one
+// block per tile would leave SMs idle.
+int launch_d256(const Operands& a, bool dq, float* out0, float* out1,
+                cudaStream_t stream) {
+  constexpr int BW = D256<true>::BW;
+  const struct { const float* p; int T; Strides s; } q{a.q, a.Tq, a.qs},
+      k{a.k, a.Tk, a.ks}, v{a.v, a.Tk, a.vs}, o{a.dout, a.Tq, a.os};
+  // (A1, A2, B1, B2): dq (Q, dO, K, V); dk/dv (K, V, Q, dO)
+  const decltype(q) ops[4] = {dq ? q : k, dq ? o : v, dq ? k : q,
+                              dq ? v : o};
+  CUtensorMap m[4];
+  for (int i = 0; i < 4; ++i) {
+    const int err = hopper::make_tile_map(
+        &m[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ops[i].p, a.B, ops[i].T,
+        a.H, 256, ops[i].s.b, ops[i].s.t, ops[i].s.h, i < 2 ? 64 : BW);
+    if (err) return err;
+  }
+  int dev = 0, sms = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (!err)
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (err) return err;
+  // dk/dv: a dK and a dV block per key tile, paired in a cluster, split in
+  // two ranks on grids under one wave; dq: always two ranks per q tile
+  // (one rank's instantiation spilled a register, and ranks cost nothing
+  // measurable on full grids)
+  const int kinds = dq ? 1 : 2;
+  const long long own_tiles = (long long)((dq ? a.Tq : a.Tk) + 63) / 64;
+  const int split = dq || own_tiles * kinds * a.B * a.H < sms ? 2 : 1;
+  auto kernel = dq ? flash_bwd_f32_d256<true, true>
+                   : (split == 2 ? flash_bwd_f32_d256<false, true>
+                                 : flash_bwd_f32_d256<false, false>);
+  const int smem =
+      (dq ? D256<true>::BYTES : D256<false>::BYTES) + 1024;
+  err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  dim3 grid;
+  err = hopper::grid_1d(own_tiles, (long long)a.B * a.H * split * kinds,
+                        &grid);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split * kinds;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = split * kinds > 1 ? 1 : 0;
+  err = (int)cudaLaunchKernelEx(&cfg, kernel, m[0], m[1], m[2], m[3], a.lse,
+                                a.delta, a.key_mask, out0, out1, a.H, a.Tq,
+                                a.Tk, a.causal, a.q_off, a.k_off, a.scale);
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entries for ctypes. Each returns a cudaError_t value (0 =
@@ -899,7 +1579,7 @@ extern "C" int flash_bwd_dq_f32(
     case 32: return launch_dq<32>(a, dq, st);
     case 64: return launch_dq_sm90(a, dq, st);
     case 128: return launch_dq<128>(a, dq, st);
-    case 256: return launch_dq<256>(a, dq, st);
+    case 256: return launch_d256(a, true, dq, nullptr, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -923,7 +1603,7 @@ extern "C" int flash_bwd_dkv_f32(
     case 32: return launch_dkv<32>(a, dk, dv, st);
     case 64: return launch_dkv_sm90(a, dk, dv, st);
     case 128: return launch_dkv<128>(a, dk, dv, st);
-    case 256: return launch_dkv<256>(a, dk, dv, st);
+    case 256: return launch_d256(a, false, dk, dv, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -221,12 +221,12 @@ def test_wide_bwd_bf16_turn_times_the_bf16_kernels_at_the_same_shapes():
 
 
 def test_rank_turn_takes_each_kernel_not_yet_redesigned_once():
-    """`run ROOT LABEL rank` times the f32 pair at D=16, 32, 128 and 256
-    and the bf16 kernels at D=16 and 32 at the train case with H * D =
-    256; the f32 forward at D=256 and both wide pairs are redesigned, so
-    no forward and nothing wide."""
+    """`run ROOT LABEL rank` times the f32 pair at D=16, 32 and 128 and the
+    bf16 kernels at D=16 and 32 at the train case with H * D = 256; the
+    f32 forward and pair at D=256 and both wide pairs are redesigned, so
+    no forward, no D=256 and nothing wide."""
     assert chip_ab.RANK == [("bwd", 16), ("bwd", 32), ("bwd", 128),
-                            ("bwd", 256), ("bf16", 16), ("bf16", 32)]
+                            ("bf16", 16), ("bf16", 32)]
     assert all(256 % D == 0 for _, D in chip_ab.RANK)
     assert not hasattr(chip_ab, "RANK_WIDE")
     calls = []
@@ -272,8 +272,69 @@ def test_d256_turn_takes_chip_smokes_d256_cases_and_a_long_one():
     assert [r["case"] for r in recs] == [c[0] for c in chip_ab.D256]
 
 
+def test_d256_bwd_turn_takes_the_pair_at_chip_smokes_d256_shapes():
+    """`run ROOT LABEL d256_bwd` times the f32 pair at head dim 256 through
+    `_bwd_case`, causal unless named: the train case B=16 T=512 H=1 first
+    (bitwise twice more), B=2 T=200 H=4 with a ragged key mask at D=256 and
+    D=192, Tq=37 Tk=53 not causal with a key mask, the D=256 model's
+    training shape B=4 T=128 H=2, chip_smoke's B=8 T=512 H=4 case with its
+    ragged key mask (a dk/dv grid over one wave), the long B=2 T=4096 H=4
+    (dq 0.625 ms and dk/dv 0.833 ms of operations at 165 TFLOP/s); then
+    `_lse_case` on chip_smoke's D256_LSE shard under each of
+    D256_LSE_OFFSETS (diagonal, past, rows without keys), in that order."""
+    import chip_smoke
+    by = {c[0]: c[1:] for c in chip_ab.D256_BWD}
+    assert chip_ab.D256_BWD[0][0] == "D=256 train B=16 T=512 H=1"
+    assert by["D=256 train B=16 T=512 H=1"] == (16, 512, 512, 1, 256, True,
+                                                None, True)
+    for D in (256, 192):
+        assert by[f"D={D} B=2 T=200 H=4, ragged key mask"] == (
+            2, 200, 200, 4, D, True, [200, 137], False)
+    assert by["D=256 Tq=37 Tk=53, key mask"] == (2, 37, 53, 4, 256, False,
+                                                 [53, 20], False)
+    assert by["D=256 model B=4 T=128 H=2"] == (
+        chip_smoke.WIDE_BATCH, chip_smoke.WIDE_SEQ, chip_smoke.WIDE_SEQ,
+        chip_smoke.D256_MODEL["n_heads"],
+        chip_smoke.D256_MODEL["d_model"] // chip_smoke.D256_MODEL["n_heads"],
+        True, None, False)
+    full = "D=256 B=8 T=512 H=4, ragged key mask"
+    assert by[full] == (8, 512, 512, 4, 256, True, chip_smoke.D256_FULL_VALID,
+                        False)
+    assert (*by[full][:7], True, False) in [c[1:] for c in
+                                            chip_smoke.D256_CASES]
+    # dk/dv: a dK and a dV block per 64-key tile, over the 132 SMs
+    assert 512 // 64 * 2 * 8 * 4 > 132
+    assert len(set(chip_smoke.D256_FULL_VALID)) == 8 > 1
+    B, T, Tk, H, D, causal, valid, _ = by["D=256 long B=2 T=4096 H=4"]
+    assert (B, T, Tk, H, D, causal, valid) == (2, 4096, 4096, 4, 256, True,
+                                               None)
+    pairs = B * H * T * (T + 1) // 2
+    assert 6 * D * pairs / (495e12 / 3) * 1e3 == pytest.approx(0.625,
+                                                                rel=1e-3)
+    assert 8 * D * pairs / (495e12 / 3) * 1e3 == pytest.approx(0.833,
+                                                                rel=1e-3)
+    assert [c[0] for c in chip_smoke.D256_LSE_OFFSETS] == [
+        "D=256 diagonal", "D=256 past", "D=256 rows without keys"]
+    calls = []
+    cs = SimpleNamespace(
+        D256_LSE=chip_smoke.D256_LSE,
+        D256_LSE_OFFSETS=chip_smoke.D256_LSE_OFFSETS,
+        _fwd_case=lambda *a, **k: pytest.fail("the forward case"),
+        _bwd_case=lambda *a, **k: calls.append(
+            ("bwd", *a[:8], k["repeat"])) or [{"case": a[0]}],
+        _lse_case=lambda *a, **k: calls.append(("lse", *a[:7])) or [
+            {"case": a[0]}])
+    import torch
+    recs = chip_ab._d256_bwd(cs)
+    B, T, H, D = chip_smoke.D256_LSE
+    assert calls == [("bwd", *c) for c in chip_ab.D256_BWD] + [
+        ("lse", lab, torch.float32, B, T, H, D, offs)
+        for lab, offs in chip_smoke.D256_LSE_OFFSETS]
+    assert [r["case"] for r in recs] == [c[1] for c in calls]
+
+
 @pytest.mark.parametrize("dtype", ["wide", "wide_bwd", "wide_bwd_bf16",
-                                   "d256", "rank"])
+                                   "d256", "d256_bwd", "rank"])
 def test_wide_and_rank_turns_refuse_without_a_card(dtype):
     res = subprocess.run([sys.executable, str(ROOT / "chip_ab.py"), "run",
                           str(ROOT), "change", dtype], capture_output=True,
