@@ -5,6 +5,8 @@
     python3 chip_ab.py run ROOT LABEL wide_bwd_bf16
     python3 chip_ab.py run ROOT LABEL d256
     python3 chip_ab.py run ROOT LABEL d256_bwd
+    python3 chip_ab.py run ROOT LABEL d128_bwd
+    python3 chip_ab.py run ROOT LABEL SET --no-gates   # any set above
     python3 chip_ab.py summary LOG...         # table of the turns
     python3 chip_ab.py sweep ROOT LABEL       # decode at each cluster size
 
@@ -60,9 +62,18 @@ D=192 (zero-padded to 256), Tq=37 Tk=53 not causal with a key mask, the
 D=256 model's training shape B=4 T=128 H=2, B=8 T=512 H=4 with a ragged
 key mask (every grid over one wave), the long B=2 T=4096 H=4; then phase 7's `_lse_case` (`flash_attention_lse`
 with an LSE cotangent, the forward timed too) at B=1 T=1024 H=2 on a
-diagonal shard, a past one and offsets 0/512. With `rank`, the kernels no
-PR has redesigned yet, once each at the train case (B=16 T=512 causal, H
-so that H * D = 256): phase 2's `_bwd_case` at D=16, 32 and 128 and
+diagonal shard, a past one and offsets 0/512. With `d128_bwd`, the
+float32 backward pair at head dim 128 the same way, dq and dk/dv timed
+apart through `_bwd_case` (bitwise twice more at the train case): causal
+unless named, the train case B=16 T=512 H=2, B=2 T=200 H=4 with a ragged
+key mask at D=128 and at D=96 and 80 (zero-padded to 128), Tq=37 Tk=53
+not causal with a key mask, the D=128 model's training shape B=4 T=128
+H=2, B=8 T=512 H=4 with a ragged key mask (every grid over one wave), the
+long B=2 T=4096 H=8; then `_lse_case` at B=1 T=1024 H=2 D=128 on a
+diagonal shard, a past one and offsets 0/512 (D128_LSE, kept here so that
+a checkout without them times the same cases). With `rank`, the kernels
+no PR has redesigned yet, once each at the train case (B=16 T=512 causal,
+H so that H * D = 256): phase 2's `_bwd_case` at D=16 and 32 and
 `_bf16_case` at D=16 and 32. Inputs come from
 fixed seeds, so both checkouts see the same tensors, and every gate of
 those functions holds in each turn. It prints one line `{"ab": LABEL, "cases":
@@ -75,6 +86,13 @@ against other peaks compare alike: `bound_ms` against the tensor cores
 for f32, `simt_bound_ms` against the CUDA cores' 67 TFLOP/s. A record
 from a chip_smoke.py that does not give `ops` has it from its
 `ops_bound_ms` and that checkout's own peak.
+
+With `--no-gates` a turn runs the same cases with ROOT's `check`
+replaced by one that records each failed gate instead of raising, and
+its line carries them under `"gates_failed"`: for diagnostic copies of a
+tree whose results are wrong on purpose (a stage of a kernel taken out),
+whose times show what that stage costs. A turn without the flag stops at
+the first failed gate.
 
 `sweep` runs the `decode` cases of ROOT once with the wrappers' split
 plan (`decode_split`) replaced, for that process only, by each fixed n
@@ -220,9 +238,33 @@ D256_BWD = [
      [512, 449, 388, 301, 256, 197, 130, 63], False),
     ("D=256 long B=2 T=4096 H=4", 2, 4096, 4096, 4, 256, True, None, False),
 ]
+# the float32 backward pair at head dim 128 (`d128_bwd`): `_bwd_case`
+# (label, B, Tq, Tk, H, D, causal, valid key lengths or None, a bitwise
+# repeat): chip_smoke.py's D128_CASES, the D=128 model's training shape
+# and a long one; then `_lse_case`
+# on D128_LSE under each of D128_LSE_OFFSETS (chip_smoke.py's too)
+D128_BWD = [
+    ("D=128 train B=16 T=512 H=2", 16, 512, 512, 2, 128, True, None, True),
+    ("D=128 B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, 128, True,
+     [200, 137], False),
+    ("D=96 B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, 96, True,
+     [200, 137], False),
+    ("D=80 B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, 80, True,
+     [200, 137], False),
+    ("D=128 Tq=37 Tk=53, key mask", 2, 37, 53, 4, 128, False, [53, 20],
+     False),
+    ("D=128 model B=4 T=128 H=2", 4, 128, 128, 2, 128, True, None, False),
+    ("D=128 B=8 T=512 H=4, ragged key mask", 8, 512, 512, 4, 128, True,
+     [512, 449, 388, 301, 256, 197, 130, 63], False),
+    ("D=128 long B=2 T=4096 H=8", 2, 4096, 4096, 8, 128, True, None, False),
+]
+D128_LSE = (1, 1024, 2, 128)
+D128_LSE_OFFSETS = (("D=128 diagonal", (1024, 1024)),
+                    ("D=128 past", (1024, 0)),
+                    ("D=128 rows without keys", (0, 512)))
 # the kernels not yet redesigned, at the train case with H * D = 256:
 # (case function, D)
-RANK = [*(("bwd", D) for D in (16, 32, 128)),
+RANK = [*(("bwd", D) for D in (16, 32)),
         *(("bf16", D) for D in (16, 32))]
 SHARD = dict(B=4, T=1024, H=8, D=64)
 SHARD_F32 = dict(B=1, T=1024, H=4, D=64)
@@ -367,6 +409,19 @@ def _d256_bwd(cs):
     return recs
 
 
+def _d128_bwd(cs):
+    import torch
+    gen = torch.Generator().manual_seed(19)
+    recs = []
+    for lab, B, Tq, Tk, H, D, causal, valid, repeat in D128_BWD:
+        recs += cs._bwd_case(lab, B, Tq, Tk, H, D, causal, valid, gen,
+                             repeat=repeat)
+    B, T, H, D = D128_LSE
+    for lab, offs in D128_LSE_OFFSETS:
+        recs += cs._lse_case(lab, torch.float32, B, T, H, D, offs, None, gen)
+    return recs
+
+
 def _rank(cs):
     import torch
     gen = torch.Generator().manual_seed(9)
@@ -379,7 +434,7 @@ def _rank(cs):
     return recs
 
 
-def run(root, label, dtype="bf16"):
+def run(root, label, dtype="bf16", gates=True):
     root = Path(root).resolve()
     sys.path.insert(0, str(root))
     import chip_smoke as cs
@@ -392,17 +447,22 @@ def run(root, label, dtype="bf16"):
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device is visible")
     cs.phase_card()
+    failed = None
+    if not gates:
+        failed = []
+        cs.check = lambda cond, msg: cond or failed.append(msg)
     sets = {"wide": _wide, "wide_bwd": _wide_bwd,
             "wide_bwd_bf16": lambda cs: _wide_bwd(cs, bf16=True),
-            "d256": _d256, "d256_bwd": _d256_bwd, "rank": _rank}
+            "d256": _d256, "d256_bwd": _d256_bwd, "d128_bwd": _d128_bwd,
+            "rank": _rank}
     if dtype in sets:
-        _print_turn(label, root, sets[dtype](cs), cs)
+        _print_turn(label, root, sets[dtype](cs), cs, failed)
         return
     if dtype == "decode":
         gen = torch.Generator().manual_seed(5)
         recs = [cs._decode_case(*c[1:], gen) if c[0] == "slab"
                 else cs._paged_case(*c[1:], gen) for c in DECODE]
-        _print_turn(label, root, recs, cs)
+        _print_turn(label, root, recs, cs, failed)
         return
     f32 = dtype == "f32"
     recs = []
@@ -427,11 +487,12 @@ def run(root, label, dtype="bf16"):
                 dt, B, T, H, D, offs, valid, gen)
     recs += cs._lse_case("lse rows without keys", dt, B, T, H, D,
                          (0, T // 2), None, gen)
-    _print_turn(label, root, recs, cs)
+    _print_turn(label, root, recs, cs, failed)
 
 
-def _print_turn(label, root, recs, cs):
-    print(json.dumps({"ab": label, "root": str(root), "cases": [
+def _print_turn(label, root, recs, cs, failed=None):
+    extra = {} if failed is None else {"gates_failed": failed}
+    print(json.dumps({"ab": label, "root": str(root), **extra, "cases": [
         {**{k: r.get(k) for k in ("name", "case", "device_ms", "ms",
                                   "max_abs_err", "library_device_ms",
                                   "kernels_per_call", "ctas_per_pair",
@@ -538,10 +599,14 @@ if __name__ == "__main__":
     if len(sys.argv) in (4, 5) and sys.argv[1] == "run" \
             and sys.argv[4:] in ([], ["f32"], ["bf16"], ["decode"],
                                  ["wide"], ["wide_bwd"], ["wide_bwd_bf16"],
-                                 ["d256"], ["d256_bwd"], ["rank"]):
+                                 ["d256"], ["d256_bwd"], ["d128_bwd"],
+                                 ["rank"]):
         run(*sys.argv[2:])
     elif len(sys.argv) >= 3 and sys.argv[1] == "summary":
         summary(sys.argv[2:])
+    elif len(sys.argv) == 6 and sys.argv[1] == "run" \
+            and sys.argv[5] == "--no-gates":
+        run(*sys.argv[2:5], gates=False)
     elif len(sys.argv) == 4 and sys.argv[1] == "sweep":
         sweep(*sys.argv[2:])
     else:

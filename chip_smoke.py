@@ -143,7 +143,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    answers 200, the tokens equal the plain model's (tie rule), and the
    prefill launches `flash_fwd` at D=32, unpadded.
 2d. The float32 kernels at head dim 256 (`flash_fwd_f32_d256` and
-   `flash_bwd_f32_d256`, also the kernels of every D % 8 == 0 from 136
+   `flash_bwd_f32_ws<256>`, also the kernels of every D % 8 == 0 from 136
    on, zero-padded to 256): at each of D256_CASES the forward through
    `flash_attention` within TOL on out and LSE and the backward pair
    within BWD_TOL (a masked key's dk and dv rows exactly 0), launching
@@ -163,6 +163,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    else; greedy decoding from a slab equal to the plain model under the
    tie rule. Phase 1 fails if ptxas reports a spill in these kernels, or
    builds `flash_fwd` or `flash_bwd` without reporting them.
+2e. The float32 backward pair at head dim 128 (`flash_bwd_f32_ws<128>`
+   and `flash_bwd_dkv_f32_d128`, also the pair of every D % 8 == 0 from
+   72 to 120, zero-padded to 128): at each of D128_CASES through
+   `_bwd_case` (the forward's LSE within TOL, then dq, dk and dv within
+   BWD_TOL, a masked key's dk and dv rows exactly 0), launching
+   `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv` only (padded at D=96
+   and 80 only): the train case
+   B=16 T=512 H=2 three times, bitwise equal; B=2 T=200 H=4 causal with a
+   ragged key mask at D=128, 96 and 80; Tq=37 Tk=53 not causal with a key
+   mask; B=8 T=512 H=4 causal with a ragged key mask, every grid over one
+   wave. Then `flash_attention_lse` at B=1 T=1024 H=2 D=128 (`_lse_case`:
+   a diagonal shard, a past one and offsets 0/512, dq rows 0 where a row
+   sees no key). Then the D=128 model, `transformer_lm(d_model=256,
+   n_layers=2, n_heads=2)` with use_pallas=True: 3 `fit` steps at batch 4
+   x 128 in f32 within SCORE_RTOL of the use_pallas=False model and
+   falling, `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv` launching 6
+   times each and nothing else; slab greedy decoding equal to the plain
+   model under the tie rule. Phase 1 fails if ptxas reports a spill in
+   any `flash_bwd_f32_ws` or `flash_bwd_dkv_f32_d128` instantiation,
+   reports none of them (`flash_bwd_f32_ws` at D=128 and 256), or still
+   builds the CUDA-core pair at D=128.
 3. The serving path: `transformer_lm` at full width (vocab 256, d_model
    256, 4 layers, 4 heads) with `use_pallas=True` and
    `synthetic_params(seed=0)`, served by
@@ -253,8 +274,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 8. Every main path (serving, serving_paged, serving_d32,
    serving_d32_paged, training, training_bf16, ring, ring_f32, the D=320
    model's training_wide, training_wide_bf16, decode_wide,
-   decode_wide_paged, and the D=256 model's training_d256 and
-   decode_d256) must count zero padded and zero plain-route calls, and
+   decode_wide_paged, the D=256 model's training_d256 and decode_d256,
+   and the D=128 model's training_d128 and decode_d128) must count zero
+   padded and zero plain-route calls, and
    only the D=320 model's paths wide ones; every kernel must have
    launched on its main path. The run's time, then one line
    `{"kernels": [...]}` with each of
@@ -356,7 +378,7 @@ WIDE_LSE = (1, 1024, 2, 320)
 WIDE_LSE_OFFSETS = (("wide diagonal", (1024, 1024)), ("wide past", (1024, 0)),
                     ("wide rows without keys", (0, 512)))
 # the float32 kernels at head dim 256 (`flash_fwd_f32_d256` and
-# `flash_bwd_f32_d256`, and every D % 8 == 0 from 136 on, zero-padded to
+# `flash_bwd_f32_ws<256>`, and every D % 8 == 0 from 136 on, zero-padded to
 # it): (label, B, Tq, Tk, H, D, causal, valid key lengths or None, the
 # forward with the LSE, a bitwise repeat), the train case first; then the
 # ring shard of `flash_attention_lse` under causal offsets, (label, (q_off,
@@ -384,6 +406,32 @@ D256_LSE_OFFSETS = (("D=256 diagonal", (1024, 1024)),
                     ("D=256 rows without keys", (0, 512)))
 # the head dim of the public Gemma decoder LMs: two heads of 256
 D256_MODEL = dict(vocab_size=256, d_model=512, n_layers=2, n_heads=2)
+# the float32 backward pair at head dim 128 (`flash_bwd_f32_ws<128>` and
+# `flash_bwd_dkv_f32_d128`, also the pair of every D % 8 == 0 from 72 to
+# 120, zero-padded to 128): (label, B, Tq, Tk, H, D, causal, valid key
+# lengths or None, a bitwise repeat), the train case first; then
+# `flash_attention_lse` on D128_LSE under each of D128_LSE_OFFSETS.
+# chip_ab.py's `d128_bwd` set times the same cases, the D=128 model's
+# training shape and a long one.
+D128_CASES = [
+    ("D=128 train B=16 T=512 H=2", 16, 512, 512, 2, 128, True, None, True),
+    ("D=128 B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, 128, True,
+     [200, 137], False),
+    ("D=96 B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, 96, True,
+     [200, 137], False),
+    ("D=80 B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, 80, True,
+     [200, 137], False),
+    ("D=128 Tq=37 Tk=53, key mask", 2, 37, 53, 4, 128, False, [53, 20],
+     False),
+    ("D=128 B=8 T=512 H=4, ragged key mask", 8, 512, 512, 4, 128, True,
+     D256_FULL_VALID, False),
+]
+D128_LSE = (1, 1024, 2, 128)
+D128_LSE_OFFSETS = (("D=128 diagonal", (1024, 1024)),
+                    ("D=128 past", (1024, 0)),
+                    ("D=128 rows without keys", (0, 512)))
+# the head dim of most public decoder LMs: two heads of 128
+D128_MODEL = dict(vocab_size=256, d_model=256, n_layers=2, n_heads=2)
 # bench_decode_paged's model and requests (bench.py:724-748)
 BENCH_PAGED_MODEL = dict(vocab_size=256, d_model=128, n_layers=2, n_heads=4)
 BENCH_PAGED_SERVE = dict(decode_slots=4, decode_max_len=128,
@@ -539,21 +587,35 @@ def phase_card():
             print(f"  ptxas {name}: {injected} notes (C7519) of a "
                   "warpgroup.arrive injected before registers a wgmma uses")
     # the float32 kernels at head dim 256 hold their m64n256 accumulator
-    # (128 registers a thread) and their fragments without a spill; a
-    # library built here reports each of them (an already built library
-    # has no report)
-    for lib, kernel in (("flash_fwd", "flash_fwd_f32_d256"),
-                        ("flash_bwd", "flash_bwd_f32_d256")):
+    # (128 registers a thread) and their fragments without a spill, and the
+    # backward pair's at head dim 128 theirs (dq: `flash_bwd_f32_ws`
+    # mangled with 128 as its first template argument; dk/dv:
+    # `flash_bwd_dkv_f32_d128`, dK and dV in 128 registers); a library
+    # built here reports each of them (an already built library has no
+    # report). Head dim 128 no longer instantiates the CUDA-core pair.
+    for lib, kernel, widths in (("flash_fwd", "flash_fwd_f32_d256", ()),
+                                ("flash_bwd", "flash_bwd_f32_ws",
+                                 (128, 256)),
+                                ("flash_bwd", "flash_bwd_dkv_f32_d128", ())):
         if lib not in logs:
             continue
         lines = logs[lib].splitlines()
         found = [i for i, line in enumerate(lines)
                  if "Function properties for" in line and kernel in line]
         check(found, f"ptxas reported no {kernel} in {lib}")
+        for D in widths:
+            check(any(f"{kernel}ILi{D}E" in lines[i] for i in found),
+                  f"ptxas reported no {kernel} at D={D} in {lib}")
         for i in found:
             check(" 0 bytes spill stores, 0 bytes spill loads" in
                   " ".join(lines[i + 1:i + 3]),
                   f"{kernel} spills: {lines[i + 1:i + 3]}")
+        if lib == "flash_bwd":
+            old = [line for line in lines if "Function properties for" in
+                   line and ("flash_bwd_dq_kernelILi128E" in line
+                             or "flash_bwd_dkv_kernelILi128E" in line)]
+            check(not old, f"the CUDA-core pair is still built at D=128: "
+                           f"{old}")
     return smi
 
 
@@ -1925,6 +1987,42 @@ def _d256_model():
         seed=7)
 
 
+def phase_d128():
+    """The float32 backward pair at head dim 128 against its plain
+    versions on the card: at each of D128_CASES through `_bwd_case` (the
+    forward's LSE within TOL first; dq, dk and dv within BWD_TOL, a masked
+    key's dk and dv rows exactly 0; the train case three times, bitwise
+    equal), launching `flash_fwd` (the LSE), `flash_bwd_dq` and
+    `flash_bwd_dkv` and nothing else, zero-padded at D=96 and 80 only;
+    then `flash_attention_lse` on the D128_LSE shard under each of
+    D128_LSE_OFFSETS with `_lse_case` (the forward and the backward pair
+    within phase 2's bars, with an LSE cotangent; rows that see no key out
+    0 with lse <= -1e29 and a zero dq row); then the D=128 model,
+    `transformer_lm(**D128_MODEL)`, through `_model_paths` (paths
+    training_d128 and decode_d128). Returns (cases, summary, launches by
+    path)."""
+    import torch
+    gen = torch.Generator().manual_seed(19)
+    kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    cases = []
+    for lab, B, Tq, Tk, H, D, causal, valid, repeat in D128_CASES:
+        cases += _routed(lab, lambda: _bwd_case(
+            lab, B, Tq, Tk, H, D, causal, valid, gen, repeat=repeat),
+            kernels, D != 128)
+    B, T, H, D = D128_LSE
+    for lab, offs in D128_LSE_OFFSETS:
+        cases += _routed(lab, lambda: _lse_case(
+            lab, torch.float32, B, T, H, D, offs, None, gen), kernels, False)
+    _print_cases(cases)
+    summary, launches = _model_paths(
+        "D=128 model", D128_MODEL,
+        (("training_d128", None, kernels, SCORE_RTOL),),
+        (("decode_d128", False, ("flash_fwd", "flash_decode"), ()),),
+        seed=8)
+    print(json.dumps({"d128_model": summary}))
+    return cases, summary, launches
+
+
 def phase_serving_bench_paged():
     """bench_decode_paged's model (bench.py:724-748: vocab 256, d_model
     128, 2 layers, 4 heads, so head dim 32; weights `synthetic_params(
@@ -2886,6 +2984,9 @@ def main():
     d256_cases, _, d256_launches = phase_d256()
     cases += d256_cases
     launches.update(d256_launches)
+    d128_cases, _, d128_launches = phase_d128()
+    cases += d128_cases
+    launches.update(d128_launches)
     launches.update(phase_serving_bench_paged())
     launches["serving"] = phase_serving()["launches"]
     launches["serving_paged"] = phase_serving_paged()["launches"]

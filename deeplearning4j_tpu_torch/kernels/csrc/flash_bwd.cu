@@ -29,7 +29,7 @@
 // same bit for bit from run to run. Ragged Tq/Tk edges are masked inside
 // the tile.
 //
-// Head dim 64 (every float32 path of the port): the tensor cores. Per
+// Head dim 64 (the zoo model's float32 paths): the tensor cores. Per
 // unmasked (q, k) pair dq does 6*D operations and dk/dv 8*D against a few
 // hundred bytes per row, so training shapes are bound by operations. On
 // the CUDA cores (TF32 off) that ceiling is 67 TFLOP/s of f32 FMAs, and
@@ -72,7 +72,7 @@
 // 72 TF32 products; dk/dv ~450 KB against 96 products. The split pass
 // and the products take turns; splitting tile j + 1 under tile j's
 // products (a second K^T stage) gained nothing, so they share the limit.
-// Head dim 256 (`flash_bwd_f32_d256`; every D % 8 == 0 from 136 up runs
+// Head dim 256 (`flash_bwd_f32_ws<256>`; every D % 8 == 0 from 136 up runs
 // it on operands zero-padded to 256): the head dim of the public Gemma
 // decoder LMs. The D=64 pair's layout would hold both owned tiles split
 // (256 KB at this width, past the 227 KB a block may have) and dK and dV
@@ -159,11 +159,54 @@
 //     shared memory (slower), the next chunk's A values loaded under the
 //     products (no gain, spills); the wide pair at D=256, slower (PERF.md,
 //     section 6).
-// Head dims 16, 32 and 128 (the wrapper pads any other D % 8 == 0 up to
-// the next of these) run on no float32 main path of the port and keep the
-// CUDA-core kernels: 128 threads per (tile of 32 owned rows, batch*head)
-// walking 64-row tiles staged synchronously in shared memory (rows padded
-// to D+1 floats), products on 4x4 register micro-tiles of f32 FMAs.
+// Head dim 128 (every D % 8 == 0 from 72 to 120 runs it on operands
+// zero-padded to 128): the head dim of most public decoder LMs, on the
+// pieces above. Both owned operands split whole take 128 KB, so neither
+// earlier layout fits as it stands (the D=64 pair's doubled needs 384 KB
+// for dq; the D=256 pair's leaves half of shared memory idle).
+//   - dq is `flash_bwd_f32_ws<128>`, the D=256 kernel's roles at half the
+//     width: one m64n128 accumulator (64 registers). Q and dO are split
+//     once at load by the splitters (hi in place, lo beside: 128 KB), so
+//     the score products read both operands from shared memory and the
+//     consumer splits nothing but dS. A ring item is 64 columns (two TMA
+//     boxes under one mbarrier), so a walked tile of 32 keys is 4 items:
+//     V's two (dP), then K's two (S, and transposed into K^T). 4 slots of
+//     16 KB. Two ranks per q tile only on grids under one wave.
+//   - dk/dv is `flash_bwd_dkv_f32_d128`: one block per 64 keys computes
+//     both dK and dV (two m64n128 accumulators, 128 registers), so S^T is
+//     computed once with no P^T hand-over and each step is one block's.
+//     K and V stay as landed and are split per chunk in registers (64 KB,
+//     which leaves room for a ring of 6 items of 64 columns beside Q^T
+//     and dO^T); a walked tile is Q's two items (S^T) then dO's two
+//     (dP^T). The splitters split a tile's items, then, once the tile
+//     before's gradient products are done, transpose all four into Q^T
+//     and dO^T, then refill the tile's slots (an item's slot is empty once
+//     both the consumer's score product and the transpose are done). P^T
+//     and dS^T go into register A one set at a time (dV += P^T dO, then
+//     dK += dS^T Q). Two ranks per key tile on grids under one wave.
+//   - S and dP (S^T, dP^T) are summed chunk by chunk over 32 columns as at
+//     D=256; masks, p, ds and the full-tile fast path as the D=256 pair.
+//     ptxas (CUDA 12.8): dq 168 registers, dk/dv 254, 0 spills.
+//   - Two ranks on grids under one wave: one rank took 1.19-1.91x the
+//     time of two there for either kernel (chip_ab.py d128_bwd: B=2 T=200
+//     H=4, Tq=37 Tk=53, the D=128 model's B=4 T=128 H=2, the LSE shards).
+//   - What bounds it (PERF.md, section 6): ~0.35 of the tensor-core bound
+//     at long sequences for both. A block-step (32 walked rows x 64
+//     owned) costs about the same in a dq block as in a dK or dV block of
+//     the D=256 cluster pair, so the pair took 1.92x this dk/dv's time. The
+//     score products (m64n32, A from shared memory or registers) are the
+//     largest part of a step: keeping 1 of each 12 took 27% off dq and 33%
+//     off dk/dv; the rest is hand-overs, p and ds, the gradient products.
+//     Tried and not kept: the cluster pair (1.92x), dq with Q and dO split
+//     per chunk in registers on 32-column items (1.28x), dq with a 2-slot
+//     ring (1.18x), 32-column items for both (1.03-1.15x; dk/dv spilled),
+//     each score item issued before the one before is waited for (no
+//     change).
+// Head dims 16 and 32 (the wrapper pads D=8 up to 16, 24 to 32) run on no
+// float32 main path of the port and keep the CUDA-core kernels: 128
+// threads per (tile of 32 owned rows, batch*head) walking 64-row tiles
+// staged synchronously in shared memory (rows padded to D+1 floats),
+// products on 4x4 register micro-tiles of f32 FMAs.
 #include "decode_common.cuh"
 #include "hopper_f32.cuh"
 
@@ -861,41 +904,54 @@ flash_bwd_dkv_f32_sm90(const __grid_constant__ CUtensorMap qmap,
   hopper::store_acc_f32(dv + off, (long long)H * D, k0, Tk, dv_acc, tid);
 }
 
-// =========================================================== D = 256 (sm90)
-// One block per 64 owned rows and all 256 output columns (see the header).
-// Byte offsets from the 1024-aligned base; every tile 1024-aligned. The
-// owned operands stay as landed (64 rows, 8 boxes of 32 columns: dq both,
-// a dK or dV block one); a ring slot holds one 32-row, 32-column chunk of
-// a walked operand, hi in place and lo beside it; B^T is the transposed
-// box operand ([256][32], each 8-row group of the walked tile in `k_slot`
-// order). A dk/dv block spends the second owned operand's room on P^T's
-// hand-over and a deeper ring.
-template <bool DQ>
-struct D256 {
-  static constexpr int D = 256, BO = 64, BW = 32;   // head dim, owned, walked
-  static constexpr int DC = 32, NC = D / DC;        // chunk columns, chunks
+// ================================================ dq at D = 128, D = 256
+// One block per 64 owned rows and all D output columns (see the header):
+// dq at D = 128 and 256, dk/dv at 256. Byte offsets from the 1024-aligned
+// base; every tile 1024-aligned. The owned operands (64 rows, D / 32 boxes
+// of 32 columns: dq both, a dK or dV block one) stay as landed at D = 256;
+// at D = 128 the splitters split them once (hi in place, lo after the
+// owned operands). A ring slot holds one item, IC columns (one TMA box of
+// 32, or two under one mbarrier) of 32 walked rows, hi in place and lo
+// beside it; B^T is the transposed box operand ([D][32], each 8-row group
+// of the walked tile in `k_slot` order). A dk/dv block spends the second
+// owned operand's room on P^T's hand-over and a deeper ring.
+template <int D_, bool DQ>
+struct BwdWs {
+  static_assert(D_ == 256 || DQ, "D=128 dk/dv: flash_bwd_dkv_f32_d128");
+  static constexpr int D = D_, BO = 64, BW = 32;    // head dim, owned, walked
+  static constexpr int DC = 32, NC = D / DC;        // sum columns, chunks
+  static constexpr bool OWN_SPLIT = D == 128;       // owned split at load
+  static constexpr int IC = D == 128 ? 64 : 32;     // columns of a ring item
+  static constexpr int NI = D / IC;                 // items of an operand
+  static constexpr int CPI = IC / DC;               // chunks of an item
   static constexpr int NS = DQ ? 4 : 10;            // ring slots
   static constexpr int LAG = DQ ? 2 : 4;            // refill: NS - LAG ahead
-  static constexpr int STEPS = 2 * NC;              // ring items per tile
-  static constexpr int OWN = BO * D * 4;            // an owned operand, 64 KB
+  static constexpr int STEPS = 2 * NI;              // ring items per tile
+  static constexpr int OWN = BO * D * 4;            // an owned operand
   static constexpr int CH = BW * DC * 4;            // a chunk's hi or lo, 4 KB
-  static constexpr int BT = D * BW * 4;             // B^T hi (or lo), 32 KB
+  static constexpr int IT = CPI * CH;               // an item's hi or lo
+  static constexpr int BT = D * BW * 4;             // B^T hi (or lo)
   static constexpr int A1 = 0;                      // S's owned operand
   static constexpr int A2 = DQ ? OWN : 0;           // dP's owned operand
-  static constexpr int PT = DQ ? 2 * OWN : OWN;     // dk/dv: [2] P^T, 8 KB
+  static constexpr int OWNED = (DQ ? 2 : 1) * OWN;  // their room (hi)
+  static constexpr int LO = OWNED;                  // D = 128: their lo
+  static constexpr int PT = OWN_SPLIT ? 2 * OWNED : OWNED;  // dk/dv: [2] P^T
   static constexpr int RING = PT + (DQ ? 0 : 2 * BO * BW * 4);  // [NS] hi, lo
-  static constexpr int BTH = RING + NS * 2 * CH;    // B^T hi
+  static constexpr int BTH = RING + NS * 2 * IT;    // B^T hi
   static constexpr int BTL = BTH + BT;              // B^T lo
   static constexpr int COL = BTL + BT;              // [2][2 * BW] column values
   static constexpr int ROW = COL + 2 * 2 * BW * 4;  // [2 * BO] row values
   // obar, full / ready / empty per slot, btempty, btfull, [2] ptfull,
-  // [2] ptempty
+  // [2] ptempty, oready
   static constexpr int BAR = ROW + 2 * BO * 4;
-  static constexpr int BYTES = BAR + 8 * (7 + 3 * NS);
+  static constexpr int BYTES = BAR + 8 * (8 + 3 * NS);
 };
-static_assert(D256<true>::BYTES + 1024 <= SMEM_LIMIT, "dq: shared memory");
-static_assert(D256<false>::BYTES + 1024 <= SMEM_LIMIT,
+static_assert(BwdWs<256, true>::BYTES + 1024 <= SMEM_LIMIT,
+              "dq: shared memory");
+static_assert(BwdWs<256, false>::BYTES + 1024 <= SMEM_LIMIT,
               "dk/dv: shared memory");
+static_assert(BwdWs<128, true>::BYTES + 1024 <= SMEM_LIMIT,
+              "dq: shared memory");
 
 // mbarrier waits and arrivals across a cluster: a wait that sees the
 // writes another block released into this one's shared memory, and one
@@ -978,36 +1034,41 @@ __device__ __forceinline__ void st_cluster4(uint32_t addr, float a, float b,
 // consume; warpgroup 1 splits and loads. Ring item u (walked tile u /
 // STEPS, step i = u % STEPS) sits in slot u % NS; its full (TMA), ready
 // (split) and empty (consumed) mbarriers complete their (u / NS)-th
-// phase. Steps 0-7 are the chunks of the score pass (dq, dK: B2 for dP;
-// dV: B1 for S), steps 8-15 the box operand's (dq: K, for S, also
+// phase. Steps 0..NI-1 are the items of the score pass (dq, dK: B2 for dP;
+// dV: B1 for S), steps NI..STEPS-1 the box operand's (dq: K, for S, also
 // transposed into B^T; dK: Q, dV: dO, transposed only), so B^T is written
 // long after the tile before's gradient product is done (`btempty`). With
 // SPLIT each owned tile has two ranks: rank 0 walks the first half of its
 // tiles, rank 1 the rest, and rank 1 hands its accumulator to rank 0 over
 // distributed shared memory, where rank 0 adds it.
-template <bool DQ, bool SPLIT>
+template <int D_, bool DQ, bool SPLIT>
 __global__ void __launch_bounds__(256, 1)
-flash_bwd_f32_d256(const __grid_constant__ CUtensorMap a1map,
-                   const __grid_constant__ CUtensorMap a2map,
-                   const __grid_constant__ CUtensorMap b1map,
-                   const __grid_constant__ CUtensorMap b2map,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta,
-                   const float* __restrict__ key_mask,
-                   float* __restrict__ out0, float* __restrict__ out1, int H,
-                   int Tq, int Tk, int causal, int q_off, int k_off,
-                   float scale) {
-  static_assert(!DQ || SPLIT, "dq always runs two ranks");
-  using L = D256<DQ>;
+flash_bwd_f32_ws(const __grid_constant__ CUtensorMap a1map,
+                 const __grid_constant__ CUtensorMap a2map,
+                 const __grid_constant__ CUtensorMap b1map,
+                 const __grid_constant__ CUtensorMap b2map,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta,
+                 const float* __restrict__ key_mask,
+                 float* __restrict__ out0, float* __restrict__ out1, int H,
+                 int Tq, int Tk, int causal, int q_off, int k_off,
+                 float scale) {
+  static_assert(D_ == 128 || !DQ || SPLIT, "D=256: dq always runs two ranks");
+  using L = BwdWs<D_, DQ>;
   constexpr int split = SPLIT ? 2 : 1;          // ranks per owned tile
   constexpr int CS = DQ ? split : 2 * split;    // blocks per cluster
   constexpr int D = L::D, BO = L::BO, BW = L::BW, NC = L::NC, NS = L::NS;
-  constexpr int STEPS = L::STEPS;
+  constexpr int NI = L::NI, CPI = L::CPI, STEPS = L::STEPS;
+  constexpr bool OWN_SPLIT = L::OWN_SPLIT;
   constexpr int CHF = L::CH / 4;                // floats of a chunk's hi
+  constexpr int ITF = L::IT / 4;                // floats of an item's hi
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = hopper::align_1024(smem_raw);
   float* A1s = reinterpret_cast<float*>(sm + L::A1);
   float* A2s = reinterpret_cast<float*>(sm + L::A2);
+  // D = 128: the owned operands' lo, at the same offsets past LO
+  float* A1l = reinterpret_cast<float*>(sm + L::LO + L::A1);
+  float* A2l = reinterpret_cast<float*>(sm + L::LO + L::A2);
   float* ring = reinterpret_cast<float*>(sm + L::RING);
   float* bth = reinterpret_cast<float*>(sm + L::BTH);
   float* btl = reinterpret_cast<float*>(sm + L::BTL);
@@ -1016,7 +1077,8 @@ flash_bwd_f32_d256(const __grid_constant__ CUtensorMap a1map,
   uint64_t* obar = reinterpret_cast<uint64_t*>(sm + L::BAR);
   uint64_t *full = obar + 1, *ready = full + NS, *empty = ready + NS;
   uint64_t *btempty = empty + NS, *btfull = btempty + 1,
-           *ptfull = btfull + 1, *ptempty = ptfull + 2;
+           *ptfull = btfull + 1, *ptempty = ptfull + 2,
+           *oready = ptempty + 2;
 
   const int tid = threadIdx.x;
   const int crank = (int)(blockIdx.x % CS);     // the cluster rank
@@ -1048,7 +1110,7 @@ flash_bwd_f32_d256(const __grid_constant__ CUtensorMap a1map,
   const int t0 = rank == 1 ? half : 0;
   const int n_tiles = split == 1 ? n_all : rank == 0 ? half : n_all - half;
   const int n_items = n_tiles * STEPS;
-  // steps 0-7 load `first`, steps 8-15 `second` (see above)
+  // steps 0..NI-1 load `first`, the rest `second` (see above)
   const CUtensorMap* first = has_dp ? &b2map : &b1map;
   const CUtensorMap* second = has_dp ? &b1map : &b2map;
 
@@ -1065,6 +1127,7 @@ flash_bwd_f32_d256(const __grid_constant__ CUtensorMap a1map,
       hopper::mbar_init(&ptfull[i], 128);
       hopper::mbar_init(&ptempty[i], 128);
     }
+    hopper::mbar_init(oready, 128);
     hopper::mbar_init_fence();
   }
   if constexpr (DQ) {
@@ -1075,7 +1138,7 @@ flash_bwd_f32_d256(const __grid_constant__ CUtensorMap a1map,
     decode::cluster_wait_acquire();
   }
 
-  float acc[128];
+  float acc[D / 2];
   const int lane = tid % 32, g = lane / 4, t = lane % 4;
   const int rt = (tid / 32) * 16 + g;           // this thread's tile rows
   const int r0 = own0 + rt;                     // rt, rt + 8
@@ -1083,12 +1146,16 @@ flash_bwd_f32_d256(const __grid_constant__ CUtensorMap a1map,
     if (n_tiles > 0) {
       // ------------------------------------------- the splitters and loads
       const int stid = tid - 128;
+      // an item: CPI boxes of 32 columns under one mbarrier
       auto load_item = [&](int u) {
         const int st = u % NS, i = u % STEPS;
         const int w0 = walk0 + (t0 + u / STEPS) * BW;
-        hopper::mbar_expect_tx(&full[st], L::CH);
-        hopper::tma_load_4d(ring + st * 2 * CHF, i < NC ? first : second,
-                            &full[st], (i % NC) * L::DC, h, w0, b);
+        hopper::mbar_expect_tx(&full[st], L::IT);
+#pragma unroll
+        for (int x = 0; x < CPI; ++x)
+          hopper::tma_load_4d(ring + st * 2 * ITF + x * CHF,
+                              i < NI ? first : second, &full[st],
+                              (i % NI) * L::IC + x * L::DC, h, w0, b);
       };
       if (stid == 0) {
         // the owned operands the block's score pass takes: dq both, dK V,
@@ -1126,30 +1193,49 @@ flash_bwd_f32_d256(const __grid_constant__ CUtensorMap a1map,
         return stid < BW ? lse[at] * LOG2E : delta[at];
       };
       float colx = stid < 2 * BW ? col_value(0) : 0.f;
+      if constexpr (OWN_SPLIT) {
+        // the owned operands, split once: hi in place, lo past LO
+        hopper::mbar_wait(obar, 0);
+        if (DQ || !has_dp)
+          hopper::split_tile<true, false, 64, D>(A1s, A1l, nullptr, nullptr,
+                                                 stid);
+        if (has_dp)
+          hopper::split_tile<true, false, 64, D>(A2s, A2l, nullptr, nullptr,
+                                                 stid);
+        hopper::fence_proxy_async();
+        hopper::mbar_arrive(oready);
+      }
       for (int u = 0; u < n_items; ++u) {
         const int st = u % NS, i = u % STEPS, j = u / STEPS;
-        float* hi = ring + st * 2 * CHF;
+        float* hi = ring + st * 2 * ITF;
         hopper::mbar_wait(&full[st], (u / NS) & 1);
         if (i == 0 && stid < 2 * BW) {
           if (!DQ || stid < BW) col[(j & 1) * 2 * BW + stid] = colx;
           if (j + 1 < n_tiles) colx = col_value(j + 1);
         }
-        if (i < NC) {
-          split_chunk<true, false>(hi, hi + CHF, nullptr, nullptr, stid);
+        if (i < NI) {
+#pragma unroll
+          for (int x = 0; x < CPI; ++x)
+            split_chunk<true, false>(hi + x * CHF, hi + ITF + x * CHF,
+                                     nullptr, nullptr, stid);
         } else {
-          // the box operand's chunk c: its rows 32c..32c+31 of B^T, once
+          // the box operand's chunks c: their rows 32c..32c+31 of B^T, once
           // the tile before's gradient product is done
-          const int c = i - NC;
-          if (c == 0 && j >= 1) hopper::mbar_wait(btempty, (j - 1) & 1);
-          float *th = bth + c * BW * L::DC, *tl = btl + c * BW * L::DC;
-          if (DQ)
-            split_chunk<true, true>(hi, hi + CHF, th, tl, stid);
-          else
-            split_chunk<false, true>(hi, nullptr, th, tl, stid);
+          if (i == NI && j >= 1) hopper::mbar_wait(btempty, (j - 1) & 1);
+#pragma unroll
+          for (int x = 0; x < CPI; ++x) {
+            const int c = (i - NI) * CPI + x;
+            float *th = bth + c * BW * L::DC, *tl = btl + c * BW * L::DC;
+            if (DQ)
+              split_chunk<true, true>(hi + x * CHF, hi + ITF + x * CHF, th,
+                                      tl, stid);
+            else
+              split_chunk<false, true>(hi + x * CHF, nullptr, th, tl, stid);
+          }
         }
         hopper::fence_proxy_async();
         hopper::mbar_arrive(&ready[st]);
-        if (!DQ && i >= NC) {
+        if (!DQ && i >= NI) {
           // dk/dv: the consumer reads no box chunk; the splitters are done
           // with it (and, with the tile's last, B^T is whole)
           hopper::mbar_arrive(&empty[st]);
@@ -1191,47 +1277,87 @@ flash_bwd_f32_d256(const __grid_constant__ CUtensorMap a1map,
           x[4 * kk + i] = ac[hopper::sw128(64, rt + 8 * (i & 1),
                                            8 * kk + t + 4 * (i >> 1))];
     };
-    // sum = A B^T over the head dim for the eight items u0 .. u0 + 7: A the
-    // owned operand, split in registers chunk by chunk, B the walked chunks
-    // split by the splitters; each chunk's 12 products into an accumulator
-    // of their own (the first product overwrites it), added to sum in f32
-    auto score_pass = [&](float (&sum)[16], const float* a, int u0) {
+    // sum = A B^T over the head dim for the NI items u0 .. u0 + NI - 1: A
+    // the owned operand, B the walked items split by the splitters; each
+    // 32-column chunk's 12 products into an accumulator of their own (the
+    // first product overwrites it), added to sum in f32, chunks in order.
+    // D = 128 (dq): A split at load (hi a, lo alo), both operands from
+    // shared memory, an item of two chunks under one wait; D = 256: A as
+    // landed, split in registers chunk by chunk.
+    auto score_pass = [&](float (&sum)[16], const float* a, const float* alo,
+                          int u0) {
 #pragma unroll
       for (int e = 0; e < 16; ++e) sum[e] = 0.f;
-      for (int c = 0; c < NC; ++c) {
-        const int u = u0 + c, st = u % NS;
-        float ax[16];
-        load_a(ax, a, c);
-        uint32_t ah[4][4], al[4][4];
+      if constexpr (OWN_SPLIT) {
+        for (int it = 0; it < NI; ++it) {
+          const int u = u0 + it, st = u % NS;
+          const float* bh = ring + st * 2 * ITF;
+          const float* bl = bh + ITF;
+          hopper::mbar_wait(&ready[st], (u / NS) & 1);
+          float part[CPI][16];
+          hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
+          for (int x = 0; x < CPI; ++x) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            hopper::split_f32(ax[4 * kk + i], ah[kk][i], al[kk][i]);
-        const float* kh = ring + st * 2 * CHF;
-        const float* kl = kh + CHF;
-        hopper::mbar_wait(&ready[st], (u / NS) & 1);
-        float part[16];
-        hopper::wgmma_fence();
+            for (int kk = 0; kk < 4; ++kk) {
+              const int ka = 4 * (it * CPI + x) + kk;   // A's k8 slice
+              const int kb = 4 * x + kk;                // the item's
+              const uint64_t dah = hopper::desc_k_major_f32(a, 64, ka);
+              const uint64_t dbh = hopper::desc_k_major_f32(bh, BW, kb);
+              hopper::wgmma_tf32_ss(part[x],
+                                    hopper::desc_k_major_f32(alo, 64, ka),
+                                    dbh, kk > 0);
+              hopper::wgmma_tf32_ss(part[x], dah,
+                                    hopper::desc_k_major_f32(bl, BW, kb), 1);
+              hopper::wgmma_tf32_ss(part[x], dah, dbh, 1);
+            }
+          }
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::mbar_arrive(&empty[st]);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const uint64_t dkh = hopper::desc_k_major_f32(kh, BW, kk);
-          hopper::wgmma_tf32_rs(part, al[kk], dkh, kk > 0);
-          hopper::wgmma_tf32_rs(part, ah[kk],
-                                hopper::desc_k_major_f32(kl, BW, kk));
-          hopper::wgmma_tf32_rs(part, ah[kk], dkh);
+          for (int x = 0; x < CPI; ++x) {
+            hopper::fence_operand(part[x]);
+#pragma unroll
+            for (int e = 0; e < 16; ++e) sum[e] += part[x][e];
+          }
         }
-        hopper::wgmma_commit();
-        // the fragments stay untouched until the products are done
-        hopper::wgmma_wait<0>();
-        hopper::mbar_arrive(&empty[st]);
-        hopper::fence_operand(part);
+      } else {
+        for (int c = 0; c < NC; ++c) {
+          const int u = u0 + c, st = u % NS;
+          float ax[16];
+          load_a(ax, a, c);
+          uint32_t ah[4][4], al[4][4];
 #pragma unroll
-        for (int e = 0; e < 16; ++e) sum[e] += part[e];
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              hopper::split_f32(ax[4 * kk + i], ah[kk][i], al[kk][i]);
+          const float* kh = ring + st * 2 * CHF;
+          const float* kl = kh + CHF;
+          hopper::mbar_wait(&ready[st], (u / NS) & 1);
+          float part[16];
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t dkh = hopper::desc_k_major_f32(kh, BW, kk);
+            hopper::wgmma_tf32_rs(part, al[kk], dkh, kk > 0);
+            hopper::wgmma_tf32_rs(part, ah[kk],
+                                  hopper::desc_k_major_f32(kl, BW, kk));
+            hopper::wgmma_tf32_rs(part, ah[kk], dkh);
+          }
+          hopper::wgmma_commit();
+          // the fragments stay untouched until the products are done
+          hopper::wgmma_wait<0>();
+          hopper::mbar_arrive(&empty[st]);
+          hopper::fence_operand(part);
+#pragma unroll
+          for (int e = 0; e < 16; ++e) sum[e] += part[e];
+        }
       }
     };
 
-    hopper::mbar_wait(obar, 0);
+    hopper::mbar_wait(OWN_SPLIT ? oready : obar, 0);
     for (int j = 0; j < n_tiles; ++j) {
       const int w0 = walk0 + (t0 + j) * BW;
       const int u0 = j * STEPS;
@@ -1240,12 +1366,12 @@ flash_bwd_f32_d256(const __grid_constant__ CUtensorMap a1map,
       // box operand's items go to the splitters alone)
       float s[16], dp[16];
       if (DQ) {
-        score_pass(dp, A2s, u0);
-        score_pass(s, A1s, u0 + NC);
+        score_pass(dp, A2s, A2l, u0);
+        score_pass(s, A1s, A1l, u0 + NI);
       } else if (has_dp) {
-        score_pass(dp, A2s, u0);
+        score_pass(dp, A2s, A2l, u0);
       } else {
-        score_pass(s, A1s, u0);
+        score_pass(s, A1s, A1l, u0);
       }
 
       // dq, dV: p = exp(x - lse) as the forward masks x (dq: ds = p (dp -
@@ -1358,11 +1484,11 @@ flash_bwd_f32_d256(const __grid_constant__ CUtensorMap a1map,
   if constexpr (SPLIT) {
     // rank 1's accumulator into its rank 0's A1, element-major
     // (neighbouring threads, neighbouring banks), and rank 0 adds it
-    float4* xo = reinterpret_cast<float4*>(A1s);  // [32][128] float4s
+    float4* xo = reinterpret_cast<float4*>(A1s);  // [D / 8][128] float4s
     if (rank == 1 && tid < 128) {
       const int to = crank - (DQ ? 1 : 2);
 #pragma unroll
-      for (int q = 0; q < 32; ++q)
+      for (int q = 0; q < D / 8; ++q)
         st_cluster4(decode::cluster_addr(xo + q * 128 + tid, to),
                     any ? acc[4 * q] : 0.f, any ? acc[4 * q + 1] : 0.f,
                     any ? acc[4 * q + 2] : 0.f, any ? acc[4 * q + 3] : 0.f);
@@ -1372,7 +1498,7 @@ flash_bwd_f32_d256(const __grid_constant__ CUtensorMap a1map,
     decode::cluster_wait_acquire();
     if (tid >= 128) return;
 #pragma unroll
-    for (int q = 0; q < 32; ++q) {
+    for (int q = 0; q < D / 8; ++q) {
       const float4 x = xo[q * 128 + tid];
       acc[4 * q] = (any ? acc[4 * q] : 0.f) + x.x;
       acc[4 * q + 1] = (any ? acc[4 * q + 1] : 0.f) + x.y;
@@ -1382,13 +1508,428 @@ flash_bwd_f32_d256(const __grid_constant__ CUtensorMap a1map,
   } else {
     if (tid >= 128) return;
 #pragma unroll
-    for (int e = 0; e < 128; ++e) acc[e] = any ? acc[e] : 0.f;
+    for (int e = 0; e < D / 2; ++e) acc[e] = any ? acc[e] : 0.f;
   }
 
   // every owned row below T_own is written (a masked key's come out 0)
   hopper::store_acc_f32((has_dp ? out0 : out1) +
                             ((long long)b * T_own * H + h) * D,
                         (long long)H * D, own0, T_own, acc, tid);
+}
+
+// ================================================== D = 128 dk/dv (sm90)
+// One block per 64 keys computes both dK and dV (see the header): S^T =
+// K Q^T and dP^T = V dO^T over each walked tile of 32 q rows, P^T and dS^T
+// in registers, then dV += P^T dO and dK += dS^T Q against dO^T and Q^T,
+// which the splitters transpose from the same walked items the score
+// products take. Byte offsets from the 1024-aligned base; every tile
+// 1024-aligned. K and V stay as landed (64 rows, 4 boxes of 32 columns)
+// and are split per chunk in registers, which leaves room for a ring of
+// NS items of 64 columns (two TMA boxes under one mbarrier, hi in place,
+// lo beside), Q^T and dO^T ([128][32] hi and lo each).
+struct DkvD128 {
+  static constexpr int D = 128, BO = 64, BW = 32, DC = 32;
+  static constexpr int IC = 64, NI = D / IC, CPI = IC / DC;
+  static constexpr int STEPS = 2 * NI;              // Q's items, then dO's
+  static constexpr int NS = 6;                      // ring slots
+  static constexpr int OWN = BO * D * 4;            // K or V, 32 KB
+  static constexpr int CH = BW * DC * 4;            // a chunk's hi or lo, 4 KB
+  static constexpr int IT = CPI * CH;               // an item's hi or lo
+  static constexpr int BT = D * BW * 4;             // a B^T's hi (or lo)
+  static constexpr int K = 0, V = OWN;
+  static constexpr int RING = 2 * OWN;              // [NS] hi, lo
+  static constexpr int QTH = RING + NS * 2 * IT;    // Q^T hi, lo
+  static constexpr int QTL = QTH + BT;
+  static constexpr int OTH = QTL + BT;              // dO^T hi, lo
+  static constexpr int OTL = OTH + BT;
+  static constexpr int COL = OTL + BT;              // [2][2 * BW] columns
+  static constexpr int ROW = COL + 2 * 2 * BW * 4;  // [BO] key validity
+  // obar, full / ready / empty per slot, btempty, btfull
+  static constexpr int BAR = ROW + BO * 4;
+  static constexpr int BYTES = BAR + 8 * (3 + 3 * NS);
+};
+static_assert(DkvD128::BYTES + 1024 <= SMEM_LIMIT, "dk/dv: shared memory");
+
+// The transposed split of a 32-row, 32-column chunk split already (hi x,
+// lo beside it, as `split_chunk` PLAIN leaves it), by the 128 splitter
+// threads: x's columns as rows of th / tl, each 8-row group of x in
+// `k_slot` order as its columns.
+__device__ __forceinline__ void transpose_chunk(const float* x,
+                                                const float* lo, float* th,
+                                                float* tl, int stid) {
+  const int r = stid % 32;                      // x's row
+  const int col = (r & ~7) | hopper::k_slot(r & 7);
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int c = stid / 32 * 2 + m;            // x's 16-byte chunk
+    const int at = r * hopper::BOX_F32 + ((c ^ (r & 7)) << 2);
+    const float4 h = *reinterpret_cast<const float4*>(x + at);
+    const float4 l = *reinterpret_cast<const float4*>(lo + at);
+    const float hv[4] = {h.x, h.y, h.z, h.w}, lv[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t_at = hopper::sw128(32, 4 * c + i, col);
+      th[t_at] = hv[i];
+      tl[t_at] = lv[i];
+    }
+  }
+}
+
+// Threads 0-127 consume; warpgroup 1 splits and loads. Ring item u (walked
+// tile u / STEPS, step i = u % STEPS: Q's items 0..NI-1, then dO's) sits
+// in slot u % NS; its full (TMA) and ready (split) mbarriers complete
+// their (u / NS)-th phase, and its empty one once the consumer's score
+// product and the splitters' transpose are both done with it. Per tile
+// the splitters first split all its items (ready), then, once the tile
+// before's gradient products are done (`btempty`), transpose them into
+// Q^T and dO^T (`btfull` after the last), then refill the tile's slots.
+// With SPLIT each key tile has two ranks (rank 0 the first half of the
+// walk, rank 1 the rest), and rank 0 adds rank 1's dK and dV over
+// distributed shared memory.
+template <bool SPLIT>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dkv_f32_d128(const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap omap,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       const float* __restrict__ key_mask,
+                       float* __restrict__ dk, float* __restrict__ dv,
+                       int H, int Tq, int Tk, int causal, int q_off,
+                       int k_off, float scale) {
+  using L = DkvD128;
+  constexpr int split = SPLIT ? 2 : 1;          // ranks per key tile
+  constexpr int D = L::D, BO = L::BO, BW = L::BW, NS = L::NS;
+  constexpr int NI = L::NI, CPI = L::CPI, STEPS = L::STEPS;
+  constexpr int CHF = L::CH / 4, ITF = L::IT / 4;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hopper::align_1024(smem_raw);
+  float* Ks = reinterpret_cast<float*>(sm + L::K);
+  float* Vs = reinterpret_cast<float*>(sm + L::V);
+  float* ring = reinterpret_cast<float*>(sm + L::RING);
+  float* qth = reinterpret_cast<float*>(sm + L::QTH);
+  float* qtl = reinterpret_cast<float*>(sm + L::QTL);
+  float* oth = reinterpret_cast<float*>(sm + L::OTH);
+  float* otl = reinterpret_cast<float*>(sm + L::OTL);
+  float* col = reinterpret_cast<float*>(sm + L::COL);
+  float* rowv = reinterpret_cast<float*>(sm + L::ROW);
+  uint64_t* obar = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t *full = obar + 1, *ready = full + NS, *empty = ready + NS;
+  uint64_t *btempty = empty + NS, *btfull = btempty + 1;
+
+  const int tid = threadIdx.x;
+  const int rank = SPLIT ? (int)(blockIdx.x % 2) : 0;
+  // the first key tiles are seen by the most queries; they go first
+  const hopper::GridTile gt = hopper::grid_tile((Tk + 63) / 64, false,
+                                                split);
+  const int own0 = gt.tile * 64;
+  const int bh = gt.bh, b = bh / H, h = bh % H;
+  const int shift = q_off - k_off;
+  // the q tiles from the one that holds the first row that sees an owned
+  // key; this block's: t0 .. t0 + n_tiles - 1
+  const int walk0 = causal ? max(0, own0 - shift) / BW * BW : 0;
+  const int n_all = walk0 < Tq ? (Tq - walk0 + BW - 1) / BW : 0;
+  const int half = (n_all + 1) / 2;
+  const int t0 = rank == 1 ? half : 0;
+  const int n_tiles = split == 1 ? n_all : rank == 0 ? half : n_all - half;
+  const int n_items = n_tiles * STEPS;
+
+  if (tid == 0) {
+    hopper::mbar_init(obar, 1);
+    for (int i = 0; i < NS; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&ready[i], 128);
+      hopper::mbar_init(&empty[i], 256);       // consumer and splitters
+    }
+    hopper::mbar_init(btempty, 128);
+    hopper::mbar_init(btfull, 128);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+  const int lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int rt = (tid / 32) * 16 + g;           // this thread's key rows
+  const int r0 = own0 + rt;                     // rt, rt + 8
+  if (tid >= 128) {
+    if (n_tiles > 0) {
+      // ------------------------------------------- the splitters and loads
+      const int stid = tid - 128;
+      auto load_item = [&](int u) {
+        const int st = u % NS, i = u % STEPS;
+        const int w0 = walk0 + (t0 + u / STEPS) * BW;
+        hopper::mbar_expect_tx(&full[st], L::IT);
+#pragma unroll
+        for (int x = 0; x < CPI; ++x)
+          hopper::tma_load_4d(ring + st * 2 * ITF + x * CHF,
+                              i < NI ? &qmap : &omap, &full[st],
+                              (i % NI) * L::IC + x * L::DC, h, w0, b);
+      };
+      if (stid == 0) {
+        hopper::mbar_expect_tx(obar, 2 * L::OWN);
+        hopper::tma_load_tile_f32<D>(Ks, &kmap, obar, 64, own0, h, b);
+        hopper::tma_load_tile_f32<D>(Vs, &vmap, obar, 64, own0, h, b);
+        for (int u = 0; u < NS && u < n_items; ++u) load_item(u);
+      }
+      // the owned keys' validity (0 past Tk), read by the consumer after
+      // its first item
+      if (stid < BO) {
+        const int r = own0 + stid;
+        rowv[stid] = r < Tk && (!key_mask ||
+                                key_mask[(long long)b * Tk + r] > 0.f)
+                         ? 1.f : 0.f;
+      }
+      // a tile's column values, lse log2e then delta of its q rows (0 past
+      // Tq), read by the consumer after its score items, loaded a tile
+      // ahead
+      auto col_value = [&](int j) {
+        const int w = walk0 + (t0 + j) * BW + stid % BW;
+        if (w >= Tq) return 0.f;
+        const long long at = (long long)bh * Tq + w;
+        return stid < BW ? lse[at] * LOG2E : delta[at];
+      };
+      float colx = stid < 2 * BW ? col_value(0) : 0.f;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int u0 = j * STEPS;
+#pragma unroll
+        for (int i = 0; i < STEPS; ++i) {
+          const int u = u0 + i, st = u % NS;
+          float* hi = ring + st * 2 * ITF;
+          hopper::mbar_wait(&full[st], (u / NS) & 1);
+          if (i == 0 && stid < 2 * BW) {
+            col[(j & 1) * 2 * BW + stid] = colx;
+            if (j + 1 < n_tiles) colx = col_value(j + 1);
+          }
+#pragma unroll
+          for (int x = 0; x < CPI; ++x)
+            split_chunk<true, false>(hi + x * CHF, hi + ITF + x * CHF,
+                                     nullptr, nullptr, stid);
+          hopper::fence_proxy_async();
+          hopper::mbar_arrive(&ready[st]);
+        }
+        // Q^T and dO^T, once the tile before's gradient products are done
+        if (j >= 1) hopper::mbar_wait(btempty, (j - 1) & 1);
+#pragma unroll
+        for (int i = 0; i < STEPS; ++i) {
+          const int u = u0 + i, st = u % NS;
+          const float* hi = ring + st * 2 * ITF;
+#pragma unroll
+          for (int x = 0; x < CPI; ++x) {
+            const int c = (i % NI) * CPI + x;   // B^T rows 32c..32c+31
+            transpose_chunk(hi + x * CHF, hi + ITF + x * CHF,
+                            (i < NI ? qth : oth) + c * BW * L::DC,
+                            (i < NI ? qtl : otl) + c * BW * L::DC, stid);
+          }
+          hopper::mbar_arrive(&empty[st]);
+        }
+        hopper::fence_proxy_async();
+        hopper::mbar_arrive(btfull);
+        // the tile's slots take the items NS on once both sides are done
+        // with them (the whole warpgroup waits: no warp is held up by one
+        // waiting thread)
+#pragma unroll
+        for (int i = 0; i < STEPS; ++i) {
+          const int u = u0 + i;
+          if (u + NS < n_items) {
+            hopper::mbar_wait(&empty[u % NS], (u / NS) & 1);
+            if (stid == 0) load_item(u + NS);
+          }
+        }
+      }
+    }
+  } else if (n_tiles > 0) {
+    // -------------------------------------------------------- the consumer
+    const float scale2 = scale * LOG2E;
+    // the values of chunk c of K or V that this thread's register-A
+    // fragments take (the landed box is 128B-swizzled)
+    auto load_a = [&](float (&x)[16], const float* a, int c) {
+      const float* ac = a + c * 64 * hopper::BOX_F32;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          x[4 * kk + i] = ac[hopper::sw128(64, rt + 8 * (i & 1),
+                                           8 * kk + t + 4 * (i >> 1))];
+    };
+    // sum = A B^T over the head dim for the NI items u0 .. u0 + NI - 1: A
+    // (K or V) split in registers chunk by chunk, B the walked items split
+    // by the splitters; each 32-column chunk's 12 products into an
+    // accumulator of their own (the first product overwrites it), added
+    // to sum in f32, chunks in order
+    auto score_pass = [&](float (&sum)[16], const float* a, int u0) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) sum[e] = 0.f;
+#pragma unroll
+      for (int it = 0; it < NI; ++it) {
+        const int u = u0 + it, st = u % NS;
+#pragma unroll
+        for (int x = 0; x < CPI; ++x) {
+          float ax[16];
+          load_a(ax, a, it * CPI + x);
+          uint32_t ah[4][4], al[4][4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              hopper::split_f32(ax[4 * kk + i], ah[kk][i], al[kk][i]);
+          const float* kh = ring + st * 2 * ITF + x * CHF;
+          const float* kl = kh + ITF;
+          if (x == 0) hopper::mbar_wait(&ready[st], (u / NS) & 1);
+          float part[16];
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t dkh = hopper::desc_k_major_f32(kh, BW, kk);
+            hopper::wgmma_tf32_rs(part, al[kk], dkh, kk > 0);
+            hopper::wgmma_tf32_rs(part, ah[kk],
+                                  hopper::desc_k_major_f32(kl, BW, kk));
+            hopper::wgmma_tf32_rs(part, ah[kk], dkh);
+          }
+          hopper::wgmma_commit();
+          // the fragments stay untouched until the products are done
+          hopper::wgmma_wait<0>();
+          hopper::fence_operand(part);
+#pragma unroll
+          for (int e = 0; e < 16; ++e) sum[e] += part[e];
+        }
+        hopper::mbar_arrive(&empty[st]);
+      }
+    };
+    // a masked key among the warp's rows (keys past Tk do not count)
+    bool warp_masked = false;
+    if (key_mask) {
+      bool m = false;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = r0 + 8 * i;
+        m |= r < Tk && !(key_mask[(long long)b * Tk + r] > 0.f);
+      }
+      warp_masked = __any_sync(0xffffffffu, m);
+    }
+    // causal: the first q row that sees each of this thread's keys
+    int lim[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) lim[i] = r0 + 8 * i - shift;
+
+    hopper::mbar_wait(obar, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int w0 = walk0 + (t0 + j) * BW;
+      const int u0 = j * STEPS;
+      const float* cv = col + (j & 1) * 2 * BW;
+      float s[16], dp[16];
+      score_pass(s, Ks, u0);
+      score_pass(dp, Vs, u0 + NI);
+      // p^T = exp(x - lse) as the forward masks x, dS^T = p^T (dP^T -
+      // delta) scale. Every warp's quads cover all 32 columns, so the
+      // warp's vote is the tile's.
+      const bool full_pair =
+          !warp_masked && (!causal || own0 + 63 + k_off <= w0 + q_off);
+      float rv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) rv[i] = rowv[rt + 8 * i];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int i = (e >> 1) & 1;
+        const int c = 8 * (e >> 2) + 2 * t + (e & 1);
+        const float l2 = cv[c];
+        float p;
+        if (full_pair) {
+          p = hopper::exp2_approx(fmaf(s[e], scale2, -l2));
+        } else {
+          const int pos = w0 + c;               // a q row
+          const float x2 =
+              rv[i] > 0.f ? fmaf(s[e], scale2, -l2) : NEG_INF2 - l2;
+          const bool seen = pos < Tq && (!causal || lim[i] <= pos);
+          p = seen ? hopper::exp2_approx(x2) : 0.f;
+        }
+        s[e] = p;
+        dp[e] = p * (dp[e] - cv[BW + c]) * scale;
+      }
+
+      // dV += P^T dO, then dK += dS^T Q over the tile's 32 q rows: A split
+      // in registers (k in `k_slot` order, as hopper_f32.cuh
+      // `acc_to_a_tf32`), one set of fragments at a time, B^T split by the
+      // splitters; the first tile's products overwrite the accumulators
+      uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          hopper::split_f32(s[4 * kk + (x >> 1) + 2 * (x & 1)], ph[kk][x],
+                            pl[kk][x]);
+      hopper::mbar_wait(btfull, j & 1);
+      hopper::wgmma_fence();
+      hopper::wgmma_3xtf32_rs<4, D>(dv_acc, ph, pl, oth, otl, j > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          hopper::split_f32(dp[4 * kk + (x >> 1) + 2 * (x & 1)], ph[kk][x],
+                            pl[kk][x]);
+      hopper::wgmma_fence();
+      hopper::wgmma_3xtf32_rs<4, D>(dk_acc, ph, pl, qth, qtl, j > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(dv_acc);
+      hopper::fence_operand(dk_acc);
+      hopper::mbar_arrive(btempty);
+    }
+  }
+
+  // a block that walked no tile writes zeros
+  const bool any = n_tiles > 0;
+  if constexpr (SPLIT) {
+    // every thread of the pair: the walks are done, so K's and V's room
+    // is free; rank 1's dK into rank 0's K room and dV into its V room,
+    // element-major (neighbouring threads, neighbouring banks), and rank
+    // 0 adds them
+    decode::cluster_arrive_release();
+    decode::cluster_wait_acquire();
+    float4* xk = reinterpret_cast<float4*>(Ks);   // [D / 8][128] float4s
+    float4* xv = reinterpret_cast<float4*>(Vs);
+    if (rank == 1 && tid < 128) {
+#pragma unroll
+      for (int q = 0; q < D / 8; ++q) {
+        st_cluster4(decode::cluster_addr(xk + q * 128 + tid, 0),
+                    any ? dk_acc[4 * q] : 0.f, any ? dk_acc[4 * q + 1] : 0.f,
+                    any ? dk_acc[4 * q + 2] : 0.f,
+                    any ? dk_acc[4 * q + 3] : 0.f);
+        st_cluster4(decode::cluster_addr(xv + q * 128 + tid, 0),
+                    any ? dv_acc[4 * q] : 0.f, any ? dv_acc[4 * q + 1] : 0.f,
+                    any ? dv_acc[4 * q + 2] : 0.f,
+                    any ? dv_acc[4 * q + 3] : 0.f);
+      }
+    }
+    decode::cluster_arrive_release();
+    if (rank == 1) return;
+    decode::cluster_wait_acquire();
+    if (tid >= 128) return;
+#pragma unroll
+    for (int q = 0; q < D / 8; ++q) {
+      const float4 x = xk[q * 128 + tid], y = xv[q * 128 + tid];
+      const float xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        dk_acc[4 * q + m] = (any ? dk_acc[4 * q + m] : 0.f) + xs[m];
+        dv_acc[4 * q + m] = (any ? dv_acc[4 * q + m] : 0.f) + ys[m];
+      }
+    }
+  } else {
+    if (tid >= 128) return;
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) {
+      dk_acc[e] = any ? dk_acc[e] : 0.f;
+      dv_acc[e] = any ? dv_acc[e] : 0.f;
+    }
+  }
+
+  // every key row below Tk is written (a masked key's come out 0)
+  const long long off = ((long long)b * Tk * H + h) * D;
+  hopper::store_acc_f32(dk + off, (long long)H * D, own0, Tk, dk_acc, tid);
+  hopper::store_acc_f32(dv + off, (long long)H * D, own0, Tk, dv_acc, tid);
 }
 
 struct Operands {
@@ -1489,14 +2030,15 @@ int launch_dkv_sm90(const Operands& a, float* dk, float* dv,
   return (int)cudaGetLastError();
 }
 
-// The D=256 pair: dq (out0) or dk and dv (out0, out1) by
-// `flash_bwd_f32_d256`, its four tensor maps in the kernel's roles (the
+// dq at D = 128 or 256 (out0), or dk and dv at 256 (out0, out1), by
+// `flash_bwd_f32_ws<D>`, its four tensor maps in the kernel's roles (the
 // owned operands in boxes of 64 rows, the walked ones of 32, 32 columns a
 // box, zero fill past T), clusters of two blocks per owned tile while one
 // block per tile would leave SMs idle.
-int launch_d256(const Operands& a, bool dq, float* out0, float* out1,
-                cudaStream_t stream) {
-  constexpr int BW = D256<true>::BW;
+template <int D, bool dq>
+int launch_ws(const Operands& a, float* out0, float* out1,
+              cudaStream_t stream) {
+  constexpr int BW = BwdWs<D, dq>::BW;
   const struct { const float* p; int T; Strides s; } q{a.q, a.Tq, a.qs},
       k{a.k, a.Tk, a.ks}, v{a.v, a.Tk, a.vs}, o{a.dout, a.Tq, a.os};
   // (A1, A2, B1, B2): dq (Q, dO, K, V); dk/dv (K, V, Q, dO)
@@ -1506,7 +2048,7 @@ int launch_d256(const Operands& a, bool dq, float* out0, float* out1,
   for (int i = 0; i < 4; ++i) {
     const int err = hopper::make_tile_map(
         &m[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ops[i].p, a.B, ops[i].T,
-        a.H, 256, ops[i].s.b, ops[i].s.t, ops[i].s.h, i < 2 ? 64 : BW);
+        a.H, D, ops[i].s.b, ops[i].s.t, ops[i].s.h, i < 2 ? 64 : BW);
     if (err) return err;
   }
   int dev = 0, sms = 0;
@@ -1515,18 +2057,18 @@ int launch_d256(const Operands& a, bool dq, float* out0, float* out1,
     err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                       dev);
   if (err) return err;
-  // dk/dv: a dK and a dV block per key tile, paired in a cluster, split in
-  // two ranks on grids under one wave; dq: always two ranks per q tile
-  // (one rank's instantiation spilled a register, and ranks cost nothing
-  // measurable on full grids)
+  // dk/dv: a dK and a dV block per key tile, paired in a cluster; two
+  // ranks per owned tile on grids under one wave. D = 256 dq: always two
+  // ranks (one rank's instantiation spilled a register, and ranks cost
+  // nothing measurable on full grids); D = 128 dq as dk/dv.
   const int kinds = dq ? 1 : 2;
   const long long own_tiles = (long long)((dq ? a.Tq : a.Tk) + 63) / 64;
-  const int split = dq || own_tiles * kinds * a.B * a.H < sms ? 2 : 1;
-  auto kernel = dq ? flash_bwd_f32_d256<true, true>
-                   : (split == 2 ? flash_bwd_f32_d256<false, true>
-                                 : flash_bwd_f32_d256<false, false>);
-  const int smem =
-      (dq ? D256<true>::BYTES : D256<false>::BYTES) + 1024;
+  const int split =
+      (dq && D == 256) || own_tiles * kinds * a.B * a.H < sms ? 2 : 1;
+  // (D = 256 dq has no one-rank instantiation: split is 2 there)
+  auto kernel = split == 2 ? flash_bwd_f32_ws<D, dq, true>
+                           : flash_bwd_f32_ws<D, dq, dq && D == 256>;
+  const int smem = BwdWs<D, dq>::BYTES + 1024;
   err = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err) return err;
@@ -1549,6 +2091,58 @@ int launch_d256(const Operands& a, bool dq, float* out0, float* out1,
   err = (int)cudaLaunchKernelEx(&cfg, kernel, m[0], m[1], m[2], m[3], a.lse,
                                 a.delta, a.key_mask, out0, out1, a.H, a.Tq,
                                 a.Tk, a.causal, a.q_off, a.k_off, a.scale);
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
+// The D = 128 dk/dv pair by `flash_bwd_dkv_f32_d128`: K and V in boxes of
+// 64 rows, Q and dO of 32, 32 columns a box (zero fill past T); two ranks
+// per key tile, paired in a cluster, while one block per tile would leave
+// SMs idle.
+int launch_dkv_d128(const Operands& a, float* dk, float* dv,
+                    cudaStream_t stream) {
+  const struct { const float* p; int T; Strides s; int rows; } ops[4] = {
+      {a.k, a.Tk, a.ks, 64}, {a.v, a.Tk, a.vs, 64},
+      {a.q, a.Tq, a.qs, DkvD128::BW}, {a.dout, a.Tq, a.os, DkvD128::BW}};
+  CUtensorMap m[4];
+  for (int i = 0; i < 4; ++i) {
+    const int err = hopper::make_tile_map(
+        &m[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ops[i].p, a.B, ops[i].T,
+        a.H, DkvD128::D, ops[i].s.b, ops[i].s.t, ops[i].s.h, ops[i].rows);
+    if (err) return err;
+  }
+  int dev = 0, sms = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (!err)
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (err) return err;
+  const long long own_tiles = (long long)(a.Tk + 63) / 64;
+  const int split = own_tiles * a.B * a.H < sms ? 2 : 1;
+  auto kernel = split == 2 ? flash_bwd_dkv_f32_d128<true>
+                           : flash_bwd_dkv_f32_d128<false>;
+  const int smem = DkvD128::BYTES + 1024;
+  err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  dim3 grid;
+  err = hopper::grid_1d(own_tiles, (long long)a.B * a.H * split, &grid);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  err = (int)cudaLaunchKernelEx(&cfg, kernel, m[0], m[1], m[2], m[3], a.lse,
+                                a.delta, a.key_mask, dk, dv, a.H, a.Tq, a.Tk,
+                                a.causal, a.q_off, a.k_off, a.scale);
   if (err) return err;
   return (int)cudaGetLastError();
 }
@@ -1578,8 +2172,8 @@ extern "C" int flash_bwd_dq_f32(
     case 16: return launch_dq<16>(a, dq, st);
     case 32: return launch_dq<32>(a, dq, st);
     case 64: return launch_dq_sm90(a, dq, st);
-    case 128: return launch_dq<128>(a, dq, st);
-    case 256: return launch_d256(a, true, dq, nullptr, st);
+    case 128: return launch_ws<128, true>(a, dq, nullptr, st);
+    case 256: return launch_ws<256, true>(a, dq, nullptr, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1602,8 +2196,8 @@ extern "C" int flash_bwd_dkv_f32(
     case 16: return launch_dkv<16>(a, dk, dv, st);
     case 32: return launch_dkv<32>(a, dk, dv, st);
     case 64: return launch_dkv_sm90(a, dk, dv, st);
-    case 128: return launch_dkv<128>(a, dk, dv, st);
-    case 256: return launch_d256(a, false, dk, dv, st);
+    case 128: return launch_dkv_d128(a, dk, dv, st);
+    case 256: return launch_ws<256, false>(a, dk, dv, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,8 +1,9 @@
 // hopper_f32.cuh: the Hopper (sm_90a) pieces of the float32 attention
 // kernels (flash_fwd.cu at head dims 32, 64, 128 and 256, flash_bwd.cu at
-// 64, flash_wide.cu): float32 products on the tensor cores as three TF32
-// `wgmma.mma_async` products each, f32 tiles by TMA, and the split of an
-// f32 operand into TF32 halves, in registers or a landed tile at a time.
+// 64, 128 and 256, flash_wide.cu): float32 products on the tensor cores
+// as three TF32 `wgmma.mma_async` products each, f32 tiles by TMA, and the
+// split of an f32 operand into TF32 halves, in registers or a landed tile
+// at a time.
 // The mbarriers, the TMA copy, the descriptor encoding, the wgmma ordering
 // and the tensor maps (`make_tile_map` with CU_TENSOR_MAP_DATA_TYPE_FLOAT32)
 // come from hopper_bf16.cuh.
@@ -254,6 +255,31 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16],
       "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n"
       "}\n"
       : HOPPER_F32_R8(0), HOPPER_F32_R8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// The same product at n = 128 (64 accumulator registers: columns
+// 64n..64n+63 are registers 32n..32n+31, laid out as one n64 product's).
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db,
+                                              int accumulate = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_F32_R8(0), HOPPER_F32_R8(8), HOPPER_F32_R8(16),
+        HOPPER_F32_R8(24), HOPPER_F32_R8(32), HOPPER_F32_R8(40),
+        HOPPER_F32_R8(48), HOPPER_F32_R8(56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate));
 }

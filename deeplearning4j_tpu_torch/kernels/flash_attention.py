@@ -16,9 +16,9 @@ PyTorch version beside it:
   row i at q_offset + i, key j at k_offset + j). Plain version:
   `flash_attention_plain`.
 - `flash_bwd_dq` -> `csrc/flash_bwd.cu` (`flash_bwd_dq_f32`; at head
-  dims 64 and 256 on the tensor cores, each float32 product as three TF32
-  products) and `csrc/flash_bwd_bf16.cu` (`flash_bwd_dq_bf16`), replacing
-  `_bwd_dq_kernel` (:226-273, `pallas_call` :366); plain version
+  dims 64, 128 and 256 on the tensor cores, each float32 product as
+  three TF32 products) and `csrc/flash_bwd_bf16.cu` (`flash_bwd_dq_bf16`),
+  replacing `_bwd_dq_kernel` (:226-273, `pallas_call` :366); plain version
   `flash_bwd_dq_plain`.
 - `flash_bwd_dkv` -> `csrc/flash_bwd.cu` (`flash_bwd_dkv_f32`, likewise)
   and `csrc/flash_bwd_bf16.cu` (`flash_bwd_dkv_bf16`), replacing

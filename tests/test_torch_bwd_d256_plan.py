@@ -1,9 +1,10 @@
-"""The plan and the numerics of the float32 attention backward at head dim 256.
+"""The plan and numerics of the float32 attention backward at D = 128 and 256.
 
-`csrc/flash_bwd.cu` `flash_bwd_f32_d256` (the C entries flash_bwd_dq_f32
+`csrc/flash_bwd.cu` `flash_bwd_f32_ws<D>` (the C entries flash_bwd_dq_f32
 and flash_bwd_dkv_f32 at D = 256, and so every D % 8 == 0 from 136 to 248,
-whose operands the wrapper zero-pads to 256) gives each block 64 owned
-rows and all 256 output columns, one m64n256 accumulator. A dq block owns
+whose operands the wrapper zero-pads to 256; and at D = 128, so also every
+D % 8 == 0 from 72 to 120, zero-padded to 128) gives each block 64 owned
+rows and all D output columns, one m64nD accumulator. A dq block owns
 q rows and walks the key tiles of 32 keys up to the causal limit. The
 dk/dv grid pairs, in a cluster, a dK block and a dV block of the same 64
 keys; both walk the q tiles of 32 rows from the first one that sees an
@@ -13,16 +14,23 @@ ring items of one 32-column chunk each: first the eight chunks of the
 score pass (dq, dK: B2 = V or dO, for dP; dV: B1 = Q, for S), then the
 box operand's eight (dq: B1 = K, for S; dK: B1 = Q; dV: B2 = dO), which
 the splitters also transpose into B^T ([256][32], each 8-row group in
-`k_slot` order). S and dP are summed over D chunk by chunk, in order, each
+`k_slot` order). At D = 128 a ring item is 64 columns (two chunks under
+one mbarrier), so a walked tile is 4 items; dq's owned operands are split
+once at load, its score products reading both operands from shared
+memory; and one block per 64 keys computes both dK and dV
+(`flash_bwd_dkv_f32_d128`: S^T over Q's items, dP^T over dO's, both
+transposed into Q^T and dO^T, P^T and dS^T in registers), with no P^T
+hand-over. The order of sums is the same. S and dP are summed over D chunk
+by chunk, in order, each
 k8 slice as three TF32 products of split operands (lo.hi, hi.lo, hi.hi),
 each chunk's 12 products into an accumulator of their own, added to the
 total in f32. Then p (a full tile pair as one fused step,
 any other tile with its masks), ds, and the gradient product: dS, P^T or
 dS^T split into register A against B^T, the first tile's product
-overwriting the accumulator. dq, and dk/dv on a grid of fewer blocks
-than the card has SMs, run two ranks per owned tile: rank 0 walks the
-first half of the tiles, rank 1 the rest, and rank 0 adds rank 1's
-accumulator to its own.
+overwriting the accumulator. dq at D = 256, and the other blocks on a grid
+of fewer blocks than the card has SMs, run two ranks per owned tile: rank
+0 walks the first half of the tiles, rank 1 the rest, and rank 0 adds
+rank 1's accumulator to its own.
 
 The kernel cannot run here, so this file pins what it follows: the walks,
 the chunk order over D and the ring's slots, the `k_slot` order of dS,
@@ -31,7 +39,8 @@ the kernel's order of sums (walked whole and split), TF32 rounded to
 nearest (ties away) by integer operations on a float32 view. The
 emulation is held against the port's `flash_bwd_dq_plain` /
 `flash_bwd_dkv_plain` at chip_smoke.py's BWD_TOL (allclose rtol 2e-4,
-atol 2e-5) at D = 256 and, zero-padded, at D = 136 and 192: causal, with
+atol 2e-5) at D = 256 and, zero-padded, at D = 136 and 192, and at D = 128
+and, zero-padded, at D = 80 and 96: causal, with
 a ragged key mask, not causal at Tq != Tk, under causal offsets and with
 rows that see no key (dq rows 0), a masked key's dK and dV rows exactly 0;
 and against the JAX package's `flash_attention` / `flash_attention_lse`
@@ -59,14 +68,18 @@ fa = importlib.import_module("deeplearning4j_tpu_torch.kernels.flash_attention")
 torch.set_num_threads(1)
 
 BWD_TOL = dict(rtol=2e-4, atol=2e-5)   # chip_smoke.py's backward bar
-DP = 256            # the kernel's head dim (D256::D)
+DP = 256            # the wider kernel's head dim (BwdWs<256>::D)
 BO = 64             # owned rows of a block
 BW = 32             # walked rows of a tile
 DC = 32             # head-dim columns of a chunk (one f32 TMA box)
 NC = DP // DC       # chunks of the head dim
 NS = 4              # ring slots
 STEPS = 2 * NC      # ring items per walked tile
-DQ_RANKS = 2        # a dq block's walk is always split between two ranks
+DQ_RANKS = 2        # at D = 256 a dq block's walk is always split in two
+# columns of a ring item (BwdWs<D>::IC, DkvD128::IC) and the ring slots
+ITEM_COLS = {128: 64, 256: 32}
+D128_DQ_SLOTS, D128_DQ_LAG = 4, 2   # BwdWs<128, true>: NS, LAG
+D128_DKV_SLOTS = 6                  # DkvD128::NS
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 NEG_INF2 = np.float32(NEG_INF) * np.float32(LOG2E)   # the key mask's x, log2
@@ -109,6 +122,12 @@ def a_fragment_k(c):
     return t + 4 * odd
 
 
+def width(D):
+    """The kernel's head dim for a true head dim D (the wrapper zero-pads
+    72..120 to 128 and 136..248 to 256)."""
+    return 128 if D <= 128 else 256
+
+
 # ------------------------------------------------------------------ plan
 def halves(n, n_split):
     """The walked tiles 0 .. n - 1 of each rank: all on one block, or rank
@@ -139,23 +158,36 @@ def walk(role, Tq, Tk, causal, q_off, k_off, n_split=1):
     return plan
 
 
-def items(role):
-    """A walked tile's 16 ring items (operand, chunk): the score pass's
-    chunks first, then the box operand's, which the splitters transpose
-    into B^T (dq: K, also the operand of S; dK: Q; dV: dO)."""
+def items(role, dp=DP):
+    """A walked tile's ring items (operand, item): the score pass's items
+    first, then the box operand's, which the splitters transpose into B^T
+    (dq: K, also the operand of S; dK: Q; dV: dO). Item i of an operand
+    holds its chunks `chunks(i, dp)`: at D = 256 one chunk an item (16
+    items), at D = 128 two (4 items). At D = 128 one block computes dK and
+    dV: Q's items (S^T, and Q^T for dK), then dO's (dP^T, and dO^T for
+    dV)."""
     first, second = ("B1", "B2") if role == "dv" else ("B2", "B1")
-    return [(first, c) for c in range(NC)] + [(second, c) for c in range(NC)]
+    if dp == 128 and role != "dq":
+        first, second = "B1", "B2"
+    n = dp // ITEM_COLS[dp]
+    return [(first, i) for i in range(n)] + [(second, i) for i in range(n)]
+
+
+def chunks(i, dp=DP):
+    """The 32-column chunks of item i, in the order their sums run."""
+    per = ITEM_COLS[dp] // DC
+    return list(range(per * i, per * i + per))
 
 
 # --------------------------------------------------------------- numerics
 def score(a, b, terms):
-    """a b^T over the head dim as the kernel sums it: a [..., M, 256] (the
-    owned operand, split in registers), b [..., N, 256] (the walked one,
-    split by the splitters), chunk by chunk in order, k8 slice by slice,
-    term by term, each chunk's 12 products into a sum of their own, added
-    to the total."""
+    """a b^T over the head dim as the kernel sums it: a [..., M, D] (the
+    owned operand: at D = 256 split in registers, at 128 split at load),
+    b [..., N, D] (the walked one, split by the splitters), chunk by chunk
+    in order, k8 slice by slice, term by term, each chunk's 12 products
+    into a sum of their own, added to the total."""
     total = None
-    for c in range(NC):
+    for c in range(a.shape[-1] // DC):
         part = None
         for kk in range(DC // 8):
             cols = slice(DC * c + 8 * kk, DC * c + 8 * kk + 8)
@@ -168,14 +200,14 @@ def score(a, b, terms):
 
 def grad_product(acc, x, w, terms, b_order):
     """acc (+)= x w over the 32 walked rows: x [..., 64, 32] (dS, P^T or
-    dS^T, columns in register-A order), w [..., 32, 256] (the walked tile
-    of the box operand) as B^T [256, 32] with row r at column b_order[r];
+    dS^T, columns in register-A order), w [..., 32, D] (the walked tile
+    of the box operand) as B^T [D, 32] with row r at column b_order[r];
     one product per k8 slice and term, the first tile's overwriting acc."""
     a_order = torch.tensor([8 * (c // 8) + a_fragment_k(c % 8)
                             for c in range(BW)])
     a = torch.empty_like(x)
     a[..., a_order] = x
-    bt = torch.empty(w.shape[:-2] + (DP, BW))
+    bt = torch.empty(w.shape[:-2] + (w.shape[-1], BW))
     bt[..., torch.as_tensor(b_order)] = w.transpose(-1, -2)
     for kk in range(BW // 8):
         sl = slice(8 * kk, 8 * kk + 8)
@@ -186,7 +218,7 @@ def grad_product(acc, x, w, terms, b_order):
 
 
 def _rows(x, r0, n):
-    """Rows r0 .. r0 + n - 1 of x [B, H, T, 256], zero past T (TMA's zero
+    """Rows r0 .. r0 + n - 1 of x [B, H, T, D], zero past T (TMA's zero
     fill)."""
     T = x.shape[2]
     part = x[:, :, r0:min(T, r0 + n)]
@@ -208,28 +240,30 @@ def _exp2_fma(s, scale2, l2):
 
 def emulated_backward(q, k, v, g, lse, delta, *, causal, key_mask, q_off=0,
                       k_off=0, terms=3, b_order=None, n_split=1):
-    """(dq, dk, dv) as flash_bwd_f32_d256 computes them: the operands
-    zero-padded to 256 columns at the true D's scale, block by block and
-    tile by tile on the kernel's walks (dq always, and dk/dv with n_split
-    = 2, two ranks per owned tile, rank 1's accumulator added to rank
-    0's). `b_order` replaces B^T's `k_slot` order (a wrong one must miss
-    the bar)."""
+    """(dq, dk, dv) as flash_bwd_f32_ws computes them: the operands
+    zero-padded to the kernel's width (128 or 256 columns) at the true D's
+    scale, block by block and tile by tile on the kernel's walks (dq at
+    D = 256 always, and the other blocks with n_split = 2, two ranks per
+    owned tile, rank 1's accumulator added to rank 0's). `b_order`
+    replaces B^T's `k_slot` order (a wrong one must miss the bar)."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
+    kd = width(D)
+    dq_ranks = DQ_RANKS if kd == 256 else n_split
     scale = np.float32(1.0 / math.sqrt(D))
     scale2 = scale * np.float32(LOG2E)
     shift = q_off - k_off
     if b_order is None:
         b_order = [8 * (c // 8) + k_slot(c % 8) for c in range(BW)]
-    qp, kp, vp, gp = (torch.nn.functional.pad(t, (0, DP - D))
+    qp, kp, vp, gp = (torch.nn.functional.pad(t, (0, kd - D))
                       .permute(0, 2, 1, 3) for t in (q, k, v, g))
     lse2 = lse * np.float32(LOG2E)
     km = (torch.ones((B, Tk)) if key_mask is None else key_mask)[:, None]
     outs = {}
     # dq: rows own0.., lse log2e and delta per row, key validity per key
-    dq = torch.zeros((B, H, Tq, DP))
+    dq = torch.zeros((B, H, Tq, kd))
     for (own0, rank), tiles in walk("dq", Tq, Tk, causal, q_off, k_off,
-                                    DQ_RANKS).items():
+                                    dq_ranks).items():
         r = own0 + torch.arange(BO)[:, None]
         rv = _vec(lse2, own0, BO, 0.0)[..., None]
         rd = _vec(delta, own0, BO, 0.0)[..., None]
@@ -253,7 +287,7 @@ def emulated_backward(q, k, v, g, lse, delta, *, causal, key_mask, q_off=0,
             acc = grad_product(acc, ds, b1, terms, b_order)
         outs[(own0, rank)] = acc
     for own0 in range(0, Tq, BO):
-        parts = [outs[(own0, rank)] for rank in range(DQ_RANKS)
+        parts = [outs[(own0, rank)] for rank in range(dq_ranks)
                  if outs[(own0, rank)] is not None]
         n = min(BO, Tq - own0)
         if parts:
@@ -261,8 +295,8 @@ def emulated_backward(q, k, v, g, lse, delta, *, causal, key_mask, q_off=0,
             dq[:, :, own0:own0 + n] = total[:, :, :n]
     # dk, dv: keys own0.., key validity per key, lse log2e and delta per q
     # row; the dV block's P^T is the dK block's (one cluster, one S^T)
-    dk = torch.zeros((B, H, Tk, DP))
-    dv = torch.zeros((B, H, Tk, DP))
+    dk = torch.zeros((B, H, Tk, kd))
+    dv = torch.zeros((B, H, Tk, kd))
     kvalid = (km[:, 0] > 0).float()
     outs = {}
     plan = walk("dk", Tq, Tk, causal, q_off, k_off, n_split)
@@ -323,6 +357,19 @@ CASES = {
                                                [101], (64, 64)),
     "D=256 past offsets 128/0": (1, 96, 96, 1, 256, True, None, (128, 0)),
     "D=256 offsets 0/96, rows without keys": (1, 192, 192, 1, 256, True,
+                                              None, (0, 96)),
+    "D=128 causal B=2 T=150 H=2": (2, 150, 150, 2, 128, True, None, (0, 0)),
+    "D=128 causal, ragged key mask": (2, 150, 150, 2, 128, True, [150, 93],
+                                      (0, 0)),
+    "D=96 (padded) causal, ragged key mask": (2, 150, 150, 2, 96, True,
+                                              [150, 93], (0, 0)),
+    "D=80 (padded) causal": (1, 100, 100, 2, 80, True, None, (0, 0)),
+    "D=128 Tq=37 Tk=53 not causal, key mask": (2, 37, 53, 2, 128, False,
+                                               [53, 20], (0, 0)),
+    "D=128 diagonal offsets 64/64, key mask": (1, 128, 128, 2, 128, True,
+                                               [101], (64, 64)),
+    "D=128 past offsets 128/0": (1, 96, 96, 2, 128, True, None, (128, 0)),
+    "D=128 offsets 0/96, rows without keys": (1, 192, 192, 2, 128, True,
                                               None, (0, 96)),
 }
 
@@ -407,6 +454,42 @@ def test_dk_dv_walk_every_q_tile_from_the_first_that_sees_a_key(name,
             assert all(i >= tiles[0] for i in rows)
 
 
+def test_a_d128_tile_is_four_items_of_two_chunks():
+    """At D = 128 an item is two 32-column TMA boxes under one mbarrier.
+    dq takes dP's two items (B2 = V), then S's (B1 = K), which the
+    splitters also transpose into K^T. The dk/dv block takes S^T's two
+    (B1 = Q), then dP^T's (B2 = dO), and every item is also transposed:
+    Q's into Q^T (for dK), dO's into dO^T (for dV). The chunks of each
+    operand's items, in item order, are the head dim's four in order (the
+    order of the chunk sums), and each B^T row is filled once."""
+    dp = 128
+    for role in ("dq", "dk", "dv"):
+        its = items(role, dp)
+        assert len(its) == 4
+        order = ["B2", "B2", "B1", "B1"] if role == "dq" else [
+            "B1", "B1", "B2", "B2"]
+        assert [op for op, _ in its] == order
+        for half in (its[:2], its[2:]):
+            assert [c for _, i in half for c in chunks(i, dp)] == [
+                0, 1, 2, 3]
+            rows = [DC * c + r for _, i in half for c in chunks(i, dp)
+                    for r in range(DC)]
+            assert rows == list(range(dp))
+    # an item's hi (or lo) is 8 KB. dq: Q and dO split whole (hi, lo), a
+    # ring of 4, K^T; dk/dv: K and V as landed, a ring of 6, Q^T and dO^T
+    item = BW * ITEM_COLS[dp] * 4
+    own = BO * dp * 4
+    bt = 2 * dp * BW * 4                        # a B^T's hi and lo
+    small = 2 * 2 * BW * 4 + 2 * BO * 4         # column and row values
+    dq_bytes = 4 * own + D128_DQ_SLOTS * 2 * item + bt + small + 8 * 20
+    dkv_bytes = (2 * own + D128_DKV_SLOTS * 2 * item + 2 * bt
+                 + 2 * 2 * BW * 4 + BO * 4 + 8 * (3 + 3 * D128_DKV_SLOTS))
+    assert max(dq_bytes, dkv_bytes) + 1024 <= 232448
+    # another slot would not fit beside either
+    assert dkv_bytes + 2 * item + 1024 > 232448
+    assert dq_bytes + 2 * item + 1024 > 232448
+
+
 def test_a_tile_is_sixteen_items_the_box_operands_last():
     """dq and dK: dP's eight chunks (B2 = V, dO), then the box operand's
     (B1 = K, also S's; Q); dV: S's eight (B1 = Q), then dO's (B2). Each
@@ -423,19 +506,8 @@ def test_a_tile_is_sixteen_items_the_box_operands_last():
         assert rows == list(range(DP))
 
 
-@pytest.mark.parametrize("role,n_slots,lag", [("dq", 4, 2), ("dk", 10, 4),
-                                               ("dv", 10, 4)])
-def test_each_slot_and_phase_is_handed_over_in_order(role, n_slots, lag):
-    """Item u of a block's walk sits in slot u % NS (dq 4 slots, dk/dv 10)
-    and completes that slot's (u // NS)-th phase of full, ready and empty,
-    so waits taken in walk order see each slot's phases 0, 1, 0, 1, ...;
-    slot u % NS is refilled with item u + NS once item u is consumed, which
-    the splitters wait for LAG items later (NS - LAG items of TMA ahead).
-    dk/dv: the consumer reads only a tile's score chunks, the splitters
-    release the box chunks themselves and mark B^T whole with the tile's
-    last one (`btfull`); B^T is rewritten only after the consumer's
-    gradient product (`btempty`)."""
-    n_items = 6 * STEPS
+def _slots_in_order(role, n_slots, lag, steps):
+    n_items = 6 * steps
     by_slot = {}
     for u in range(n_items):
         by_slot.setdefault(u % n_slots, []).append((u // n_slots) & 1)
@@ -450,9 +522,75 @@ def test_each_slot_and_phase_is_handed_over_in_order(role, n_slots, lag):
             loaded.append(v + n_slots)
     assert loaded == list(range(n_items))
     assert 0 < lag < n_slots
-    # the consumer's items: dq all 16 of a tile, dk/dv the 8 score chunks
-    read = [i for i in range(STEPS) if role == "dq" or i < NC]
-    assert read == list(range(STEPS if role == "dq" else NC))
+    # the consumer reads every item of a dq tile, a dk/dv tile's score
+    # items; the column values of tile j, written at its first item into
+    # buffer j % 2, are rewritten for tile j + 2 only after the splitters'
+    # wait on tile j's gradient product (`btempty`, at tile j + 1's first
+    # box item), so the consumer has read them
+    read = [i for i in range(steps) if role == "dq" or i < steps // 2]
+    assert read == list(range(steps if role == "dq" else steps // 2))
+    for j in range(2, 6):
+        box_wait = (j - 1) * steps + steps // 2    # waits btempty(j - 2)
+        assert box_wait < j * steps
+
+
+def test_d128_dq_slots_and_phases_are_handed_over_in_order():
+    """D = 128 dq: 4 items a tile through a ring of 4 slots, LAG 2, with
+    the hand-overs of the D = 256 kernel."""
+    _slots_in_order("dq", D128_DQ_SLOTS, D128_DQ_LAG, len(items("dq", 128)))
+
+
+@pytest.mark.parametrize("n_tiles", [1, 2, 3, 7])
+def test_d128_dkv_ring_refills_each_tile_after_its_transposes(n_tiles):
+    """D = 128 dk/dv (`flash_bwd_dkv_f32_d128`): item u sits in slot u %
+    6 and completes that slot's (u // 6)-th phases. The splitters split a
+    tile's 4 items (ready), wait for the tile before's gradient products
+    (`btempty`), transpose all 4 (each slot's empty takes the consumer's
+    128 arrivals and the splitters' 128), mark Q^T and dO^T whole
+    (`btfull`), then reload each of the tile's slots with the item 6 on,
+    once both sides are done with it. So every item is loaded once, each
+    before the splitters wait for it, into a slot whose item before is
+    done."""
+    ns, steps = D128_DKV_SLOTS, 4
+    n_items = n_tiles * steps
+    loaded = list(range(min(ns, n_items)))      # issued up front
+    waits = []
+    for j in range(n_tiles):
+        for i in range(steps):                  # the split phase
+            u = j * steps + i
+            assert u in loaded                  # its TMA was issued
+            waits.append(u)
+        for i in range(steps):                  # the refill after it
+            u = j * steps + i
+            if u + ns < n_items:
+                # slot u % ns: item u done on both sides, u + ns goes in
+                assert (u + ns) % ns == u % ns
+                loaded.append(u + ns)
+    assert sorted(loaded) == list(range(n_items))
+    assert len(loaded) == len(set(loaded))
+    assert waits == list(range(n_items))
+    # the phases each slot's waits see: 0, 1, 0, 1, ...
+    by_slot = {}
+    for u in range(n_items):
+        by_slot.setdefault(u % ns, []).append((u // ns) & 1)
+    assert all(p == [k & 1 for k in range(len(p))] for p in by_slot.values())
+    # a tile's items fit the ring whole, so its transposes find them all
+    assert steps <= ns
+
+
+@pytest.mark.parametrize("role,n_slots,lag", [("dq", 4, 2), ("dk", 10, 4),
+                                               ("dv", 10, 4)])
+def test_each_slot_and_phase_is_handed_over_in_order(role, n_slots, lag):
+    """Item u of a block's walk sits in slot u % NS (dq 4 slots, dk/dv 10)
+    and completes that slot's (u // NS)-th phase of full, ready and empty,
+    so waits taken in walk order see each slot's phases 0, 1, 0, 1, ...;
+    slot u % NS is refilled with item u + NS once item u is consumed, which
+    the splitters wait for LAG items later (NS - LAG items of TMA ahead).
+    dk/dv: the consumer reads only a tile's score chunks, the splitters
+    release the box chunks themselves and mark B^T whole with the tile's
+    last one (`btfull`); B^T is rewritten only after the consumer's
+    gradient product (`btempty`)."""
+    _slots_in_order(role, n_slots, lag, STEPS)
 
 
 def test_k_slot_is_the_a_fragment_order_of_ds_and_p():
@@ -491,7 +629,9 @@ def test_three_tf32_products_meet_the_backward_bar(name, n_split):
 
 
 @pytest.mark.parametrize("name", ["D=256 causal B=2 T=150 H=1",
-                                  "D=192 (padded) causal, ragged key mask"])
+                                  "D=192 (padded) causal, ragged key mask",
+                                  "D=128 causal B=2 T=150 H=2",
+                                  "D=96 (padded) causal, ragged key mask"])
 def test_one_tf32_product_misses_the_backward_bar(name):
     want, got, _ = _plain_and_emulation(name, terms=1)
     assert not all(torch.allclose(a, b, **BWD_TOL)
@@ -508,6 +648,13 @@ def test_b_t_in_plain_key_order_misses_the_backward_bar():
         assert _err(a, b) > 100 * BWD_TOL["atol"], gname
 
 
+def test_b_t_in_plain_key_order_misses_the_backward_bar_at_d128():
+    want, got, _ = _plain_and_emulation("D=128 causal B=2 T=150 H=2",
+                                        b_order=list(range(BW)))
+    for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _err(a, b) > 100 * BWD_TOL["atol"], gname
+
+
 # the JAX package's Pallas kernels, interpret mode, block 16: (B, T, H, D,
 # causal, key mask valid lengths, offsets or None for `flash_attention`)
 JAX_CASES = {
@@ -517,6 +664,13 @@ JAX_CASES = {
     "flash_attention_lse D=256 diagonal 32/32": (1, 64, 1, 256, True, None,
                                                  (32, 32)),
     "flash_attention_lse D=256 offsets 0/32": (1, 64, 1, 256, True, None,
+                                               (0, 32)),
+    "flash_attention D=128 causal, key mask": (1, 64, 2, 128, True, [51],
+                                               None),
+    "flash_attention D=80 causal": (1, 48, 2, 80, True, None, None),
+    "flash_attention_lse D=128 diagonal 32/32": (1, 64, 2, 128, True, None,
+                                                 (32, 32)),
+    "flash_attention_lse D=128 offsets 0/32": (1, 64, 2, 128, True, None,
                                                (0, 32)),
 }
 

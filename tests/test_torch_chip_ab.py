@@ -221,12 +221,12 @@ def test_wide_bwd_bf16_turn_times_the_bf16_kernels_at_the_same_shapes():
 
 
 def test_rank_turn_takes_each_kernel_not_yet_redesigned_once():
-    """`run ROOT LABEL rank` times the f32 pair at D=16, 32 and 128 and the
-    bf16 kernels at D=16 and 32 at the train case with H * D = 256; the
-    f32 forward and pair at D=256 and both wide pairs are redesigned, so
-    no forward, no D=256 and nothing wide."""
-    assert chip_ab.RANK == [("bwd", 16), ("bwd", 32), ("bwd", 128),
-                            ("bf16", 16), ("bf16", 32)]
+    """`run ROOT LABEL rank` times the f32 pair at D=16 and 32 and the bf16
+    kernels at D=16 and 32 at the train case with H * D = 256; the f32
+    forward, the f32 pair at D=128 and 256 and both wide pairs are
+    redesigned, so no forward, no D=128 or 256 and nothing wide."""
+    assert chip_ab.RANK == [("bwd", 16), ("bwd", 32), ("bf16", 16),
+                            ("bf16", 32)]
     assert all(256 % D == 0 for _, D in chip_ab.RANK)
     assert not hasattr(chip_ab, "RANK_WIDE")
     calls = []
@@ -333,8 +333,56 @@ def test_d256_bwd_turn_takes_the_pair_at_chip_smokes_d256_shapes():
     assert [r["case"] for r in recs] == [c[1] for c in calls]
 
 
+def test_d128_bwd_turn_takes_the_pair_at_chip_smokes_d128_shapes():
+    """`run ROOT LABEL d128_bwd` times the f32 pair at head dim 128 through
+    `_bwd_case`: every case of chip_smoke's D128_CASES in its order (the
+    train case B=16 T=512 H=2 first, bitwise twice more; the padded D=96
+    and 80), then the D=128 model's training shape B=4 T=128 H=2 and the
+    long B=2 T=4096 H=8 (dq 0.6249 ms and dk/dv 0.8332 ms of operations at
+    165 TFLOP/s); then `_lse_case` on chip_smoke's D128_LSE shard under
+    each of its D128_LSE_OFFSETS, from chip_ab's own copy (a parent
+    checkout's chip_smoke.py has none)."""
+    import chip_smoke
+    import torch
+    smoke = [tuple(c) for c in chip_smoke.D128_CASES]
+    assert [c for c in chip_ab.D128_BWD if c in smoke] == smoke
+    assert chip_ab.D128_BWD[0] == smoke[0] == (
+        "D=128 train B=16 T=512 H=2", 16, 512, 512, 2, 128, True, None,
+        True)
+    assert {c[5] for c in smoke} == {128, 96, 80}
+    by = {c[0]: c[1:] for c in chip_ab.D128_BWD}
+    conf = chip_smoke.D128_MODEL
+    assert by["D=128 model B=4 T=128 H=2"] == (
+        chip_smoke.WIDE_BATCH, chip_smoke.WIDE_SEQ, chip_smoke.WIDE_SEQ,
+        conf["n_heads"], conf["d_model"] // conf["n_heads"], True, None,
+        False)
+    B, T, Tk, H, D, causal, valid, _ = by["D=128 long B=2 T=4096 H=8"]
+    pairs = B * H * T * (T + 1) // 2
+    assert 6 * D * pairs / (495e12 / 3) * 1e3 == pytest.approx(0.6249,
+                                                                rel=1e-3)
+    assert 8 * D * pairs / (495e12 / 3) * 1e3 == pytest.approx(0.8332,
+                                                                rel=1e-3)
+    # B=8 T=512 H=4: dq 256 blocks, dk/dv 512, both over 132 SMs
+    assert 512 // 64 * 8 * 4 > 132
+    assert chip_ab.D128_LSE == chip_smoke.D128_LSE
+    assert chip_ab.D128_LSE_OFFSETS == chip_smoke.D128_LSE_OFFSETS
+    calls = []
+    cs = SimpleNamespace(
+        _fwd_case=lambda *a, **k: pytest.fail("the forward case"),
+        _bwd_case=lambda *a, **k: calls.append(
+            ("bwd", *a[:8], k["repeat"])) or [{"case": a[0]}],
+        _lse_case=lambda *a, **k: calls.append(("lse", *a[:7])) or [
+            {"case": a[0]}])
+    recs = chip_ab._d128_bwd(cs)
+    B, T, H, D = chip_ab.D128_LSE
+    assert calls == [("bwd", *c) for c in chip_ab.D128_BWD] + [
+        ("lse", lab, torch.float32, B, T, H, D, offs)
+        for lab, offs in chip_ab.D128_LSE_OFFSETS]
+    assert [r["case"] for r in recs] == [c[1] for c in calls]
+
+
 @pytest.mark.parametrize("dtype", ["wide", "wide_bwd", "wide_bwd_bf16",
-                                   "d256", "d256_bwd", "rank"])
+                                   "d256", "d256_bwd", "rank", "d128_bwd"])
 def test_wide_and_rank_turns_refuse_without_a_card(dtype):
     res = subprocess.run([sys.executable, str(ROOT / "chip_ab.py"), "run",
                           str(ROOT), "change", dtype], capture_output=True,
@@ -400,6 +448,28 @@ def test_decode_turn_and_sweep_refuse_without_a_card(mode, args, line):
                          text=True, timeout=120, cwd=str(ROOT))
     assert res.returncode != 0
     assert line not in res.stdout
+
+
+def test_ungated_turn_refuses_without_a_card_and_records_failed_gates(
+        capsys):
+    """`run ROOT LABEL SET --no-gates` refuses without a card like every
+    turn; its line carries the gates that failed, and a gated turn's line
+    has no such key."""
+    res = subprocess.run([sys.executable, str(ROOT / "chip_ab.py"), "run",
+                          str(ROOT), "change", "d128_bwd", "--no-gates"],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(ROOT))
+    assert res.returncode != 0
+    assert '{"ab"' not in res.stdout
+    rec = {"name": "flash_bwd_dq", "case": "c", "device_ms": 1.0,
+           "ms": 2.0, "ops": 6e9, "bytes_bound_ms": 0.001}
+    chip_ab._print_turn("x", ROOT, [rec], SimpleNamespace(), ["dq: not "
+                                                             "allclose"])
+    chip_ab._print_turn("y", ROOT, [rec], SimpleNamespace())
+    first, second = (json.loads(line) for line in
+                     capsys.readouterr().out.splitlines())
+    assert first["gates_failed"] == ["dq: not allclose"]
+    assert "gates_failed" not in second
 
 
 @pytest.mark.parametrize("header", sorted(
