@@ -6,6 +6,7 @@
     python3 chip_ab.py run ROOT LABEL d256
     python3 chip_ab.py run ROOT LABEL d256_bwd
     python3 chip_ab.py run ROOT LABEL d128_bwd
+    python3 chip_ab.py run ROOT LABEL d32_bwd_bf16
     python3 chip_ab.py run ROOT LABEL SET --no-gates   # any set above
     python3 chip_ab.py summary LOG...         # table of the turns
     python3 chip_ab.py sweep ROOT LABEL       # decode at each cluster size
@@ -71,10 +72,22 @@ not causal with a key mask, the D=128 model's training shape B=4 T=128
 H=2, B=8 T=512 H=4 with a ragged key mask (every grid over one wave), the
 long B=2 T=4096 H=8; then `_lse_case` at B=1 T=1024 H=2 D=128 on a
 diagonal shard, a past one and offsets 0/512 (D128_LSE, kept here so that
-a checkout without them times the same cases). With `rank`, the kernels
-no PR has redesigned yet, once each at the train case (B=16 T=512 causal,
-H so that H * D = 256): phase 2's `_bwd_case` at D=16 and 32 and
-`_bf16_case` at D=16 and 32. Inputs come from
+a checkout without them times the same cases). With `d32_bwd_bf16`, the
+bf16 pair at head dim 32 through phase 2's `_bf16_case` (the forward
+with the LSE, then dq and dk/dv, each timed apart and gated against the
+plain versions, bitwise twice more at the train case and the model's
+shape): causal unless named, the train case B=16 T=512 H=8, B=2 T=200
+H=4 with a ragged key mask at D=32 and at D=24 (zero-padded to 32),
+Tq=37 Tk=53 not causal with a key mask, B=8 T=512 H=4 with a ragged key
+mask, bench_decode_paged's model's training shape B=4 T=128 H=4, the
+long B=4 T=4096 H=8, at D=16 the train case B=16 T=512 H=16 and Tq=37
+Tk=53, and phase 2's head-count cases at D=32 (B=16385 H=4 T=16, B=1
+H=65536 T=2); then `_lse_case` in
+bf16 at B=1 T=1024 H=2 D=32 on a diagonal shard, a past one and offsets
+0/512 (D32_BWD_BF16 and D32_LSE, kept here so that a parent checkout
+times the same cases). With `rank`, the kernels no PR has redesigned
+yet, once each at the train case (B=16 T=512 causal, H so that H * D =
+256): phase 2's `_bwd_case` at D=16 and 32 (the f32 pair). Inputs come from
 fixed seeds, so both checkouts see the same tensors, and every gate of
 those functions holds in each turn. It prints one line `{"ab": LABEL, "cases":
 [...]}` with each kernel's device time (the profiler's, per call),
@@ -262,10 +275,37 @@ D128_LSE = (1, 1024, 2, 128)
 D128_LSE_OFFSETS = (("D=128 diagonal", (1024, 1024)),
                     ("D=128 past", (1024, 0)),
                     ("D=128 rows without keys", (0, 512)))
+# the bf16 pair at head dim 32 (`d32_bwd_bf16`): `_bf16_case` (label, B,
+# Tq, Tk, H, D, causal, valid key lengths or None, a bitwise repeat):
+# chip_smoke.py's D32_BF16_CASES (bench_decode_paged's model's training
+# shape among them), then phase 2's head-count cases at D=32 (a 64-row
+# tile a quarter full at T=16, 1/32 at T=2); then `_lse_case` in bf16 on
+# D32_LSE under each of D32_LSE_OFFSETS (chip_smoke.py's too)
+D32_BWD_BF16 = [
+    ("D=32 train B=16 T=512 H=8", 16, 512, 512, 8, 32, True, None, True),
+    ("D=32 B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, 32, True,
+     [200, 137], False),
+    ("D=24 B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, 24, True,
+     [200, 137], False),
+    ("D=32 Tq=37 Tk=53, key mask", 2, 37, 53, 4, 32, False, [53, 20],
+     False),
+    ("D=32 B=8 T=512 H=4, ragged key mask", 8, 512, 512, 4, 32, True,
+     [512, 449, 388, 301, 256, 197, 130, 63], False),
+    ("D=32 model B=4 T=128 H=4", 4, 128, 128, 4, 32, True, None, True),
+    ("D=32 long B=4 T=4096 H=8", 4, 4096, 4096, 8, 32, True, None, False),
+    ("D=16 train B=16 T=512 H=16", 16, 512, 512, 16, 16, True, None, False),
+    ("D=16 Tq=37 Tk=53, key mask", 2, 37, 53, 4, 16, False, [53, 20],
+     False),
+    ("D=32 B=16385 H=4 T=16", 16385, 16, 16, 4, 32, True, None, False),
+    ("D=32 B=1 H=65536 T=2", 1, 2, 2, 65536, 32, True, None, False),
+]
+D32_LSE = (1, 1024, 2, 32)
+D32_LSE_OFFSETS = (("D=32 diagonal", (1024, 1024)),
+                   ("D=32 past", (1024, 0)),
+                   ("D=32 rows without keys", (0, 512)))
 # the kernels not yet redesigned, at the train case with H * D = 256:
 # (case function, D)
-RANK = [*(("bwd", D) for D in (16, 32)),
-        *(("bf16", D) for D in (16, 32))]
+RANK = [*(("bwd", D) for D in (16, 32))]
 SHARD = dict(B=4, T=1024, H=8, D=64)
 SHARD_F32 = dict(B=1, T=1024, H=4, D=64)
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
@@ -422,6 +462,20 @@ def _d128_bwd(cs):
     return recs
 
 
+def _d32_bwd_bf16(cs):
+    import torch
+    gen = torch.Generator().manual_seed(20)
+    recs = []
+    for lab, B, Tq, Tk, H, D, causal, valid, repeat in D32_BWD_BF16:
+        recs += cs._bf16_case(lab, B, Tq, Tk, H, D, causal, valid, gen,
+                              repeat=repeat)
+    B, T, H, D = D32_LSE
+    for lab, offs in D32_LSE_OFFSETS:
+        recs += cs._lse_case(lab, torch.bfloat16, B, T, H, D, offs, None,
+                             gen)
+    return recs
+
+
 def _rank(cs):
     import torch
     gen = torch.Generator().manual_seed(9)
@@ -454,7 +508,7 @@ def run(root, label, dtype="bf16", gates=True):
     sets = {"wide": _wide, "wide_bwd": _wide_bwd,
             "wide_bwd_bf16": lambda cs: _wide_bwd(cs, bf16=True),
             "d256": _d256, "d256_bwd": _d256_bwd, "d128_bwd": _d128_bwd,
-            "rank": _rank}
+            "d32_bwd_bf16": _d32_bwd_bf16, "rank": _rank}
     if dtype in sets:
         _print_turn(label, root, sets[dtype](cs), cs, failed)
         return
@@ -600,7 +654,7 @@ if __name__ == "__main__":
             and sys.argv[4:] in ([], ["f32"], ["bf16"], ["decode"],
                                  ["wide"], ["wide_bwd"], ["wide_bwd_bf16"],
                                  ["d256"], ["d256_bwd"], ["d128_bwd"],
-                                 ["rank"]):
+                                 ["d32_bwd_bf16"], ["rank"]):
         run(*sys.argv[2:])
     elif len(sys.argv) >= 3 and sys.argv[1] == "summary":
         summary(sys.argv[2:])

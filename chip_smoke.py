@@ -184,6 +184,29 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    any `flash_bwd_f32_ws` or `flash_bwd_dkv_f32_d128` instantiation,
    reports none of them (`flash_bwd_f32_ws` at D=128 and 256), or still
    builds the CUDA-core pair at D=128.
+2f. The bf16 backward pair at head dim 32 (`flash_bwd_dq_bf16_d32` and
+   `flash_bwd_dkv_bf16_d32`: 64B-swizzled TMA tiles, `wgmma`; also D=24
+   zero-padded to 32, and D=16 on the same kernels through TMA zero
+   fill): first the 64B-swizzle probe (`flash_bwd_bf16_sw64_probe`: one
+   m64n32 product pair from 64B-swizzled tiles, K-major and MN-major with
+   A from registers, against torch.matmul within 1e-3); then at each of
+   D32_BF16_CASES through `_bf16_case` (the forward's out and LSE, then
+   dq, dk and dv within BF16_GRAD_TOL, a masked key's dk and dv rows
+   exactly 0), launching the three bf16 kernels only (padded at D=24
+   only): the train case B=16 T=512 H=8 three times, bitwise equal; B=2
+   T=200 H=4 causal with a ragged key mask at D=32 and 24; Tq=37 Tk=53
+   not causal with a key mask; B=8 T=512 H=4 causal with a ragged key
+   mask; the training shape of the model below, B=4 T=128 H=4 causal,
+   three times, bitwise equal; B=4 T=4096 H=8 causal; at D=16 the train case B=16 T=512 H=16
+   and Tq=37 Tk=53. Then `flash_attention_lse` in bf16 at B=1 T=1024 H=2
+   D=32 (`_lse_case`: diagonal, past, offsets 0/512 with rows that see no
+   key, dq rows 0). Then bench_decode_paged's model (head dim 32) in bf16
+   through `_model_paths`: 3 `fit` steps at 4 x 128 with
+   compute_dtype="bfloat16" (path training_d32_bf16), scores within
+   BF16_SCORE_RTOL of the use_pallas=False model and falling, each bf16
+   kernel launching 6 times and nothing else. Phase 1 fails if ptxas
+   reports a spill in either D=32 kernel, reports neither, or still
+   builds the `mma.sync` pair at D=16 or 32.
 3. The serving path: `transformer_lm` at full width (vocab 256, d_model
    256, 4 layers, 4 heads) with `use_pallas=True` and
    `synthetic_params(seed=0)`, served by
@@ -275,7 +298,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    serving_d32_paged, training, training_bf16, ring, ring_f32, the D=320
    model's training_wide, training_wide_bf16, decode_wide,
    decode_wide_paged, the D=256 model's training_d256 and decode_d256,
-   and the D=128 model's training_d128 and decode_d128) must count zero
+   the D=128 model's training_d128 and decode_d128, and
+   bench_decode_paged's model's training_d32_bf16) must count zero
    padded and zero plain-route calls, and
    only the D=320 model's paths wide ones; every kernel must have
    launched on its main path. The run's time, then one line
@@ -432,6 +456,35 @@ D128_LSE_OFFSETS = (("D=128 diagonal", (1024, 1024)),
                     ("D=128 rows without keys", (0, 512)))
 # the head dim of most public decoder LMs: two heads of 128
 D128_MODEL = dict(vocab_size=256, d_model=256, n_layers=2, n_heads=2)
+# the bf16 backward pair at head dim 32 (`flash_bwd_dq_bf16_d32` and
+# `flash_bwd_dkv_bf16_d32`, also D=24 zero-padded to 32 and D=16 on the
+# same kernels): (label, B, Tq, Tk, H, D, causal, valid key lengths or
+# None, a bitwise repeat) through `_bf16_case` (the forward with the LSE,
+# then the pair), the train case first; then `flash_attention_lse` in
+# bf16 on D32_LSE under each of D32_LSE_OFFSETS. chip_ab.py's
+# `d32_bwd_bf16` set times the same cases.
+D32_BF16_CASES = [
+    ("D=32 train B=16 T=512 H=8", 16, 512, 512, 8, 32, True, None, True),
+    ("D=32 B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, 32, True,
+     [200, 137], False),
+    ("D=24 B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, 24, True,
+     [200, 137], False),
+    ("D=32 Tq=37 Tk=53, key mask", 2, 37, 53, 4, 32, False, [53, 20],
+     False),
+    ("D=32 B=8 T=512 H=4, ragged key mask", 8, 512, 512, 4, 32, True,
+     D256_FULL_VALID, False),
+    ("D=32 model B=4 T=128 H=4", WIDE_BATCH, WIDE_SEQ, WIDE_SEQ, 4, 32, True,
+     None, True),
+    ("D=32 long B=4 T=4096 H=8", 4, 4096, 4096, 8, 32, True, None, False),
+    ("D=16 train B=16 T=512 H=16", 16, 512, 512, 16, 16, True, None, False),
+    ("D=16 Tq=37 Tk=53, key mask", 2, 37, 53, 4, 16, False, [53, 20],
+     False),
+]
+D32_LSE = (1, 1024, 2, 32)
+D32_LSE_OFFSETS = (("D=32 diagonal", (1024, 1024)),
+                   ("D=32 past", (1024, 0)),
+                   ("D=32 rows without keys", (0, 512)))
+SW64_PROBE_TOL = 1e-3
 # bench_decode_paged's model and requests (bench.py:724-748)
 BENCH_PAGED_MODEL = dict(vocab_size=256, d_model=128, n_layers=2, n_heads=4)
 BENCH_PAGED_SERVE = dict(decode_slots=4, decode_max_len=128,
@@ -593,10 +646,17 @@ def phase_card():
     # `flash_bwd_dkv_f32_d128`, dK and dV in 128 registers); a library
     # built here reports each of them (an already built library has no
     # report). Head dim 128 no longer instantiates the CUDA-core pair.
+    # The bf16 pair at head dims 32 and 16 is `flash_bwd_dq_bf16_d32` and
+    # `flash_bwd_dkv_bf16_d32` (64B swizzle, wgmma): no spill, and the
+    # `mma.sync` pair is no longer built at either width.
     for lib, kernel, widths in (("flash_fwd", "flash_fwd_f32_d256", ()),
                                 ("flash_bwd", "flash_bwd_f32_ws",
                                  (128, 256)),
-                                ("flash_bwd", "flash_bwd_dkv_f32_d128", ())):
+                                ("flash_bwd", "flash_bwd_dkv_f32_d128", ()),
+                                ("flash_bwd_bf16", "flash_bwd_dq_bf16_d32",
+                                 ()),
+                                ("flash_bwd_bf16", "flash_bwd_dkv_bf16_d32",
+                                 ())):
         if lib not in logs:
             continue
         lines = logs[lib].splitlines()
@@ -616,6 +676,13 @@ def phase_card():
                              or "flash_bwd_dkv_kernelILi128E" in line)]
             check(not old, f"the CUDA-core pair is still built at D=128: "
                            f"{old}")
+        if lib == "flash_bwd_bf16":
+            old = [line for line in lines if "Function properties for" in
+                   line and any(f"{k}ILi{D}E" in line for D in (16, 32)
+                                for k in ("flash_bwd_dq_bf16_kernel",
+                                          "flash_bwd_dkv_bf16_kernel"))]
+            check(not old, f"the mma.sync bf16 pair is still built at "
+                           f"D=16/32: {old}")
     return smi
 
 
@@ -1920,6 +1987,8 @@ def _model_paths(what, conf, trainings, decodes, seed):
                          "scores_plain_path": scores[False],
                          "launches": {k: v for k, v in
                                       launches[path].items() if v}}
+    if not decodes:
+        return summary, launches
     nets = {use_pallas: _lm(conf, use_pallas)
             for use_pallas in (True, False)}
     rng = np.random.default_rng(seed)
@@ -2020,6 +2089,81 @@ def phase_d128():
         (("decode_d128", False, ("flash_fwd", "flash_decode"), ()),),
         seed=8)
     print(json.dumps({"d128_model": summary}))
+    return cases, summary, launches
+
+
+def _sw64_probe():
+    """The 64B-swizzle pieces of the head-dim-32 bf16 pair, alone
+    (`flash_bwd_bf16_sw64_probe`): A [64, 32] and B [32, 32] bf16 landed by
+    TMA through 64B-swizzled maps, c1 = A B^T from two K-major descriptors
+    (`wgmma_ss` m64n32k16) and c2 = A B with A from registers and B through
+    the MN-major descriptor (`wgmma_rs_n32_tb`), against torch.matmul of
+    the same bf16 tiles in f32: bf16 products are exact in f32, so only the
+    order of 32 sums differs (max abs SW64_PROBE_TOL; a wrong descriptor
+    field gives errors of O(1))."""
+    import ctypes
+
+    import torch
+    from deeplearning4j_tpu_torch.kernels import build
+    fn = build.kernel_function("flash_bwd_bf16", "flash_bwd_bf16_sw64_probe",
+                               [ctypes.c_void_p] * 5)
+    gen = torch.Generator().manual_seed(32)
+    a = torch.randn((64, 32), generator=gen).to(DEVICE, torch.bfloat16)
+    b = torch.randn((32, 32), generator=gen).to(DEVICE, torch.bfloat16)
+    c1, c2 = (torch.full((64, 32), float("nan"), device=DEVICE)
+              for _ in range(2))
+    err = fn(a.data_ptr(), b.data_ptr(), c1.data_ptr(), c2.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"flash_bwd_bf16_sw64_probe launch failed: {err}")
+    torch.cuda.synchronize()
+    errs = {"k_major_max_abs_err": float(
+                (c1 - a.float() @ b.float().T).abs().max()),
+            "mn_major_max_abs_err": float(
+                (c2 - a.float() @ b.float()).abs().max())}
+    print(json.dumps({"sw64_probe": errs}))
+    check(all(e <= SW64_PROBE_TOL for e in errs.values()),
+          f"64B-swizzle probe: {errs} > {SW64_PROBE_TOL} (NaN: not written)")
+    return errs
+
+
+def phase_d32_bf16():
+    """The bf16 backward pair at head dim 32 against its plain versions on
+    the card: first the 64B-swizzle probe (`_sw64_probe`); then at each of
+    D32_BF16_CASES through `_bf16_case` (the forward's out and LSE within
+    BF16_OUT_TOL / BF16_LSE_TOL, then dq, dk and dv within BF16_GRAD_TOL, a
+    masked key's dk and dv rows exactly 0; the train case three times,
+    bitwise equal), launching `flash_fwd_bf16`, `flash_bwd_dq_bf16` and
+    `flash_bwd_dkv_bf16` and nothing else, zero-padded at D=24 only (D=16
+    runs unpadded on the D=32 kernels); then `flash_attention_lse` in bf16
+    on the D32_LSE shard under each of D32_LSE_OFFSETS with `_lse_case`
+    (rows that see no key: out 0, lse <= -1e29, a zero dq row); then bf16
+    training of bench_decode_paged's model (BENCH_PAGED_MODEL: head dim
+    32) through `_model_paths`: path training_d32_bf16, 3 `fit` steps at
+    4 x 128 with compute_dtype="bfloat16", scores within BF16_SCORE_RTOL
+    of the use_pallas=False model and falling, each of the three bf16
+    kernels launching once per layer per step and nothing else. Returns
+    (cases, summary, launches by path)."""
+    import torch
+    probe = _sw64_probe()
+    gen = torch.Generator().manual_seed(20)
+    kernels = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
+    cases = []
+    for lab, B, Tq, Tk, H, D, causal, valid, repeat in D32_BF16_CASES:
+        cases += _routed(lab, lambda: _bf16_case(
+            lab, B, Tq, Tk, H, D, causal, valid, gen, repeat=repeat),
+            kernels, D == 24)
+    B, T, H, D = D32_LSE
+    for lab, offs in D32_LSE_OFFSETS:
+        cases += _routed(lab, lambda: _lse_case(
+            lab, torch.bfloat16, B, T, H, D, offs, None, gen), kernels,
+            False)
+    _print_cases(cases)
+    summary, launches = _model_paths(
+        "bench_decode_paged model", BENCH_PAGED_MODEL,
+        (("training_d32_bf16", "bfloat16", kernels, BF16_SCORE_RTOL),), (),
+        seed=9)
+    summary["sw64_probe"] = probe
+    print(json.dumps({"d32_bf16_model": summary}))
     return cases, summary, launches
 
 
@@ -2987,6 +3131,9 @@ def main():
     d128_cases, _, d128_launches = phase_d128()
     cases += d128_cases
     launches.update(d128_launches)
+    d32_cases, _, d32_launches = phase_d32_bf16()
+    cases += d32_cases
+    launches.update(d32_launches)
     launches.update(phase_serving_bench_paged())
     launches["serving"] = phase_serving()["launches"]
     launches["serving_paged"] = phase_serving_paged()["launches"]

@@ -28,12 +28,17 @@
 // thread, so a result is the same bit for bit from run to run. That keeps
 // the two kernels two: a fused backward would sum dq across blocks.
 //
-// Head dims 64, 128 and 256 (every path of the port runs 64; the wrapper
-// pads any other D % 8 == 0 above 32 up to the next of these): the Hopper
+// Head dims 32, 64, 128 and 256 (the wrapper pads any other D % 8 == 0
+// up to the next of these; 16 runs on the D = 32 kernels): the Hopper
 // design, helpers in hopper_bf16.cuh. At D=256 a block accumulates two of
 // the four 64-column boxes of dq (dk, dv), two blocks sharing each
 // owned tile, so its accumulators take D=128's registers (four boxes of
 // dk and dv would take 256 a thread); each block recomputes the scores.
+// At D=32 (`flash_bwd_dq_bf16_d32`, `flash_bwd_dkv_bf16_d32`) a row is
+// 64 bytes: every tile is one 64B-swizzled box of 32 columns (8-row atoms
+// of 512 bytes), S and dP two k16 slices, the gradient products m64n32;
+// at D=16 the tensor maps are 16 columns wide and TMA zero-fills the
+// box's other half, the store writing 16 columns.
 //   - One warpgroup (128 threads) per block owns 64 rows: q rows for dq,
 //     keys for dk/dv. Every product is `wgmma.mma_async`: S = Q K^T and
 //     dP = dO V^T (dq), S^T = K Q^T and dP^T = V dO^T (dk/dv) take both
@@ -43,13 +48,14 @@
 //     shared memory MN-major (the transpose bit). Accumulators stay f32 in
 //     registers.
 //   - Tiles arrive by TMA (4-D tensor maps built in the C entries, 128B
-//     swizzle, zero fill past T, so the ragged edges cost no branch on the
-//     loads) and report to `mbarrier`s. The owned tile (Q and dO, or K and
+//     swizzle, 64B at D = 32, zero fill past T, so the ragged edges cost
+//     no branch on the loads) and report to `mbarrier`s. The owned tile (Q and dO, or K and
 //     V) is loaded once; the walked tiles (K and V of 64 keys, or Q and dO
-//     of 64 q rows, 32 at D = 128 to bound registers) stream through a
-//     ring of STAGES = 2 buffers: one elected thread issues tile j + 2 as
-//     soon as the warpgroup has consumed tile j, so the next tile is in
-//     flight while the products run. S's product is committed apart
+//     of 64 q rows, 32 at D = 128 to bound registers) stream
+//     through a ring of STAGES = 2 buffers (NS = 3 at D = 32): one
+//     elected thread issues tile j + STAGES as soon as the warpgroup has
+//     consumed tile j, so the next tiles are in flight while the
+//     products run. S's product is committed apart
 //     from dP's, so the exponentials of S run while dP's product does;
 //     several blocks share an SM (registers: ptxas's report in
 //     chip_smoke.py phase 1), so one block's exponentials also overlap
@@ -66,10 +72,11 @@
 //     `grid_tile`), batch x heads fast, (tile, column box) slow, so the
 //     first wave holds the heaviest tiles of every head: dq's last q
 //     tiles (which see the most keys), dk/dv's first key tiles.
-// Head dims 16 and 32 (and 8 and 24, padded) run on no path of the port
-// and keep the first design:
-// 4 warps of `mma.sync` m16n8k16 fed by `ldmatrix` from padded tiles that
-// plain 16-byte loads stage (mma_bf16.cuh), the same ownership.
+//   - At D=32 the operations per score are few (6 * 32 dq, 8 * 32 dk/dv)
+//     against one ex2 each, so the special-function unit bounds a long
+//     causal grid about as much as the tensor cores do: a full pair takes
+//     one FMA and one `ex2.approx` a score, and ds one FMA and one
+//     multiply (p (dp scale - delta scale)).
 //
 // Rounding choices. The recomputed Q.K^T and dO.V^T have bf16 x bf16
 // operands: their products are exact in f32, so they equal the TPU
@@ -86,9 +93,11 @@
 // (q, k, v, dO read and dq or dk, dv written in bf16, lse and delta in
 // f32) against 3.35 TB/s. At the training shape (B=16, T=512, H=4, D=64,
 // causal) that is ~3-4 us of operations and ~6-8 us of bytes per kernel:
-// bytes-bound; at B=4 T=4096 H=8 operations-bound (~0.10 / 0.14 ms).
+// bytes-bound; at B=4 T=4096 H=8 operations-bound (~0.10 / 0.14 ms). At
+// D=32 the same long shape has ~2.7e8 unmasked pairs, one ex2 each: at 16
+// a clock per SM on 132 SMs, ~0.07 ms a kernel, beside 0.052 / 0.069 ms
+// of tensor-core operations.
 #include "hopper_bf16.cuh"
-#include "mma_bf16.cuh"
 
 #include <math.h>
 
@@ -97,292 +106,445 @@ using namespace bf16mma;
 namespace {
 
 constexpr int THREADS = 128;    // 4 warps: one warpgroup
-constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// ===================================================== D = 16, 32 (PR 5)
-constexpr int DQ_BQ = 64;       // dq: query rows per block (16 per warp)
-constexpr int DQ_BK = 64;       // dq: key rows per tile
-constexpr int KV_BK = 64;       // dkv: key rows per block (16 per warp)
-
-// dkv: query rows per tile (32 at D=128, to bound registers; the sm90
-// kernel's too)
+// dk/dv at D = 128: query rows per walked tile (32, to bound registers)
 template <int D>
 __host__ __device__ constexpr int kv_bq() { return D > 64 ? 32 : 64; }
 
-// ------------------------------------------------------------------- dq
-template <int D>
+// ========================================================= D = 32 (sm90)
+// Head dim 32 (and 16, whose tensor maps are 16 columns wide, so TMA
+// zero-fills each box's other half): one 64B-swizzled box of 32 columns
+// per operand row (hopper_bf16.cuh). A block owns 64 rows (Q and dO, or K
+// and V: 4 KB each) and walks tiles of BN rows of the other two operands
+// through a ring of NS stages.
+constexpr int D32 = 32;         // the kernels' head dim (columns of a box)
+constexpr int OWN = 64;         // owned rows of a block
+constexpr int BN = 64;          // walked rows of a tile
+constexpr int NS = 3;           // ring stages
+
+// byte offsets from the aligned base; every tile 1024-aligned
+struct D32Layout {
+  static constexpr int TILE = BN * D32 * 2;               // a walked operand
+  static constexpr int OWN0 = 0;                          // [2][OWN][32]
+  static constexpr int WALK = OWN0 + 2 * OWN * D32 * 2;   // [NS][2][BN][32]
+  static constexpr int BAR = WALK + NS * 2 * TILE;        // 1 + NS
+  static constexpr int VEC = BAR + 8 * (1 + NS);          // [2][2][BN] f32
+  static constexpr int BYTES = VEC + 4 * 2 * 2 * BN;
+};
+
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         const float* __restrict__ key_mask,
-                         bf16* __restrict__ dq, int H, int Tq, int Tk,
-                         Strides qs, Strides ks, Strides vs, Strides os,
-                         int causal, int q_off, int k_off, float scale) {
-  constexpr int BQ = DQ_BQ, BK = DQ_BK;
-  constexpr int LD = D + 8;
-  constexpr int NT = BK / 8;    // 8-key n-tiles of a score tile
-  constexpr int DT = D / 8;     // 8-column n-tiles of dq
-  constexpr int KC = D / 16;    // 16-deep k-chunks over the head dim
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);     // [BQ][LD]
-  bf16* Os = Qs + BQ * LD;                          // [BQ][LD] dO
-  bf16* Ks = Os + BQ * LD;                          // [BK][LD]
-  bf16* Vs = Ks + BK * LD;                          // [BK][LD]
-  float* Ms = reinterpret_cast<float*>(Vs + BK * LD);  // [BK] key mask
+flash_bwd_dq_bf16_d32(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap omap,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      const float* __restrict__ key_mask,
+                      bf16* __restrict__ dq, int H, int Tq, int Tk, int D,
+                      int causal, int q_off, int k_off, float scale) {
+  using L = D32Layout;
+  constexpr int NR = BN / 2;    // accumulator registers of a 64 x BN tile
+  static_assert(BN <= THREADS, "one key-mask value per thread");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hopper::align_1024(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(sm + L::OWN0);
+  bf16* Os = Qs + OWN * D32;
+  bf16* Ws = reinterpret_cast<bf16*>(sm + L::WALK);  // a stage: K, then V
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + L::BAR);  // [0]: Q, dO
+  float* kms = reinterpret_cast<float*>(sm + L::VEC);        // [2][BN]
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int t = lane % 4;
   // causal: the last q tiles see the most keys; they go first
-  const hopper::GridTile gt = hopper::grid_tile((Tq + BQ - 1) / BQ, causal);
-  const int q0 = gt.tile * BQ;
-  const int bh = gt.bh;
-  const int b = bh / H, h = bh % H;
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
-  const bf16* ob = dout + b * os.b + h * os.h;
-  const float* km = key_mask ? key_mask + (long long)b * Tk : nullptr;
-  const int wr = warp * 16;
-  const int rows[2] = {q0 + wr + g, q0 + wr + g + 8};
-  // causal: the last key index each row sees (global positions)
-  const int last[2] = {rows[0] + q_off - k_off, rows[1] + q_off - k_off};
-  float lse_r[2], dl_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bool in = rows[i] < Tq;
-    lse_r[i] = in ? lse[(long long)bh * Tq + rows[i]] : 0.f;
-    dl_r[i] = in ? delta[(long long)bh * Tq + rows[i]] : 0.f;
-  }
-
-  load_tile<D>(Qs, qb, qs.t, q0, BQ, Tq, tid, THREADS);
-  load_tile<D>(Os, ob, os.t, q0, BQ, Tq, tid, THREADS);
-  float acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
+  const hopper::GridTile gt =
+      hopper::grid_tile((Tq + OWN - 1) / OWN, causal);
+  const int bh = gt.bh, b = bh / H, h = bh % H;
+  const int q0 = gt.tile * OWN;
   // causal: no key past the tile's last query row is ever visible
   const int k_end =
-      causal ? min(Tk, max(0, min(Tq, q0 + BQ) + q_off - k_off)) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();            // Q/dO staged; the last tile is consumed
-    load_tile<D>(Ks, kb, ks.t, k0, BK, Tk, tid, THREADS);
-    load_tile<D>(Vs, vb, vs.t, k0, BK, Tk, tid, THREADS);
-    if (tid < BK) Ms[tid] = (km && k0 + tid < Tk) ? km[k0 + tid] : 1.f;
-    __syncthreads();
+      causal ? min(Tk, max(0, min(Tq, q0 + OWN) + q_off - k_off)) : Tk;
+  const int n_tiles = (k_end + BN - 1) / BN;
+  const float scale2 = scale * LOG2E;
+  const float* km = key_mask ? key_mask + (long long)b * Tk : nullptr;
+  float acc[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) acc[e] = 0.f;
 
-    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys per warp
-    float s[NT][4], dp[NT][4];
+  auto load_kv = [&](int stage, int tile) {
+    bf16* dst = Ws + stage * 2 * BN * D32;
+    hopper::mbar_expect_tx(&bar[1 + stage], 2 * L::TILE);
+    hopper::tma_load_4d(dst, &kmap, &bar[1 + stage], 0, h, tile * BN, b);
+    hopper::tma_load_4d(dst + BN * D32, &vmap, &bar[1 + stage], 0, h,
+                        tile * BN, b);
+  };
+  // the key mask of key k (1 past the ragged edge: the edge has its test)
+  auto key_ok = [&](int k) { return (km && k < Tk) ? km[k] : 1.f; };
+
+  if (n_tiles > 0) {
+    const int r0 = q0 + (tid / 32) * 16 + lane / 4;  // rows r0, r0 + 8
+    float lse2[2], dls[2];
+    int last[2];                // causal: the last key index each row sees
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      uint32_t qa[4], oa[4];
-      load_a(qa, Qs, LD, wr, kc * 16, lane);
-      load_a(oa, Os, LD, wr, kc * 16, lane);
-#pragma unroll
-      for (int nt = 0; nt < NT; nt += 2) {
-        uint32_t bk[4], bv[4];
-        load_b_rows_n(bk, Ks, LD, nt * 8, kc * 16, lane);
-        load_b_rows_n(bv, Vs, LD, nt * 8, kc * 16, lane);
-        mma(s[nt], qa, bk[0], bk[1]);
-        mma(s[nt + 1], qa, bk[2], bk[3]);
-        mma(dp[nt], oa, bv[0], bv[1]);
-        mma(dp[nt + 1], oa, bv[2], bv[3]);
-      }
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i;
+      const bool in = r < Tq;
+      lse2[i] = in ? lse[(long long)bh * Tq + r] * LOG2E : 0.f;
+      dls[i] = in ? delta[(long long)bh * Tq + r] * scale : 0.f;
+      last[i] = r + q_off - k_off;
     }
-    // p = exp(x - lse) as the forward masks x; ds = p (dp - delta) scale
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int c = nt * 8 + 2 * t + (e & 1);
-        const int kpos = k0 + c;
-        float p = 0.f;            // past the ragged edge: weight exactly 0
-        if (kpos < Tk) {
-          float x = s[nt][e] * scale;
-          if (!(Ms[c] > 0.f)) x = NEG_INF;
-          if (causal && kpos > last[i]) x = -INFINITY;
-          p = expf(x - lse_r[i]);
-        }
-        s[nt][e] = p * (dp[nt][e] - dl_r[i]) * scale;
-      }
+    if (tid == 0) {
+      for (int i = 0; i <= NS; ++i) hopper::mbar_init(&bar[i], 1);
+      hopper::mbar_init_fence();
+    }
+    const float km0 = tid < BN ? key_ok(tid) : 1.f;
+    if (tid < BN) kms[tid] = km0;
+    // any masked key in tile 0; the barrier also publishes the mbarriers
+    int masked = __syncthreads_or(tid < BN && !(km0 > 0.f));
+    if (tid == 0) {
+      hopper::mbar_expect_tx(&bar[0], 2 * OWN * D32 * 2);
+      hopper::tma_load_4d(Qs, &qmap, &bar[0], 0, h, q0, b);
+      hopper::tma_load_4d(Os, &omap, &bar[0], 0, h, q0, b);
+      for (int s = 0; s < NS && s < n_tiles; ++s) load_kv(s, s);
+    }
+    hopper::mbar_wait(&bar[0], 0);
 
-    // dQ += dS K, dS rounded to bf16 (the header's rounding choice)
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % NS;
+      const int k0 = j * BN;
+      const bf16* Kt = Ws + st * 2 * BN * D32;
+      const bf16* Vt = Kt + BN * D32;
+      // the next tile's key mask, fetched under this tile's products
+      const float km_next =
+          (tid < BN && j + 1 < n_tiles) ? key_ok(k0 + BN + tid) : 1.f;
+      hopper::mbar_wait(&bar[1 + st], (j / NS) & 1);
+
+      // S = Q K^T, then dP = dO V^T (two groups: the exponentials of S
+      // run while dP's product does): 64 rows x BN keys, k over D = 32
+      float s[NR], dp[NR];
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t da[4];
-      acc_to_a(da, s[2 * kk], s[2 * kk + 1]);
+      for (int kk = 0; kk < D32 / 16; ++kk)
+        hopper::wgmma_ss(s, hopper::desc_k_major_sw64(Qs, kk),
+                         hopper::desc_k_major_sw64(Kt, kk), kk > 0);
+      hopper::wgmma_commit();
 #pragma unroll
-      for (int dt = 0; dt < DT; dt += 2) {
-        uint32_t bk[4];
-        load_b_rows_k(bk, Ks, LD, kk * 16, dt * 8, lane);
-        mma(acc[dt], da, bk[0], bk[1]);
-        mma(acc[dt + 1], da, bk[2], bk[3]);
+      for (int kk = 0; kk < D32 / 16; ++kk)
+        hopper::wgmma_ss(dp, hopper::desc_k_major_sw64(Os, kk),
+                         hopper::desc_k_major_sw64(Vt, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      hopper::fence_operand(s);
+
+      // p = exp(x - lse) as the forward masks x: a full pair (every row
+      // sees every key) takes one FMA and one ex2 a score
+      const bool full = k0 + BN <= Tk && !masked &&
+                        (!causal || k0 + BN - 1 + k_off <= q0 + q_off);
+      if (full) {
+#pragma unroll
+        for (int e = 0; e < NR; ++e)
+          s[e] = hopper::exp2_approx(
+              fmaf(s[e], scale2, -lse2[(e >> 1) & 1]));
+      } else {
+        const float* mrow = kms + (j & 1) * BN;
+#pragma unroll
+        for (int e = 0; e < NR; ++e) {
+          const int i = (e >> 1) & 1;
+          const int c = 8 * (e >> 2) + 2 * t + (e & 1);
+          const int kpos = k0 + c;
+          const bool ok = kpos < Tk && mrow[c] > 0.f &&
+                          (!causal || kpos <= last[i]);
+          s[e] = ok ? hopper::exp2_approx(fmaf(s[e], scale2, -lse2[i]))
+                    : 0.f;
+        }
       }
+      // ds = p (dp - delta) scale, as p (dp scale - delta scale)
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(dp);
+#pragma unroll
+      for (int e = 0; e < NR; ++e)
+        s[e] *= fmaf(dp[e], scale, -dls[(e >> 1) & 1]);
+
+      // dQ += dS K: dS from registers (bf16), K MN-major, n = 32
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        uint32_t a[4];
+        hopper::acc_to_a(a, s, kk);
+        hopper::wgmma_rs_n32_tb(acc, a,
+                                hopper::desc_mn_major_sw64(Kt, BN, kk));
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(acc);
+
+      if (tid < BN) kms[((j + 1) & 1) * BN + tid] = km_next;
+      // the stage is consumed by every warp: refill it
+      masked = __syncthreads_or(tid < BN && !(km_next > 0.f));
+      if (tid == 0 && j + NS < n_tiles) load_kv(st, j + NS);
     }
   }
 
-  const long long row_stride = (long long)H * D;
-  bf16* dqb = dq + ((long long)b * Tq * H + h) * D;
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-    store_rows(dqb, row_stride, rows[0], Tq, dt * 8 + 2 * t, acc[dt]);
+  hopper::store_acc(dq + ((long long)b * Tq * H + h) * D, (long long)H * D,
+                    q0, Tq, 0, acc, tid, D);
 }
 
-// ------------------------------------------------------------------ dkv
-template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const bf16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          const float* __restrict__ key_mask,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv,
-                          int H, int Tq, int Tk, Strides qs, Strides ks,
-                          Strides vs, Strides os, int causal, int q_off,
-                          int k_off, float scale) {
-  constexpr int BK = KV_BK, BQ = kv_bq<D>();
-  constexpr int LD = D + 8;
-  constexpr int NT = BQ / 8;    // 8-query n-tiles of a transposed score tile
-  constexpr int DT = D / 8;     // 8-column n-tiles of dk and dv
-  constexpr int KC = D / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);     // [BK][LD]
-  bf16* Vs = Ks + BK * LD;                          // [BK][LD]
-  bf16* Qs = Vs + BK * LD;                          // [BQ][LD]
-  bf16* Os = Qs + BQ * LD;                          // [BQ][LD] dO
-  float* lse_s = reinterpret_cast<float*>(Os + BQ * LD);  // [BQ]
-  float* dl_s = lse_s + BQ;                               // [BQ] delta
+flash_bwd_dkv_bf16_d32(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const __grid_constant__ CUtensorMap omap,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       const float* __restrict__ key_mask,
+                       bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                       int Tq, int Tk, int D, int causal, int q_off,
+                       int k_off, float scale) {
+  using L = D32Layout;
+  constexpr int NR = BN / 2;    // accumulator registers of a 64 x BN tile
+  static_assert(BN <= THREADS, "one q row's lse and delta per thread");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hopper::align_1024(smem_raw);
+  bf16* Ks = reinterpret_cast<bf16*>(sm + L::OWN0);
+  bf16* Vs = Ks + OWN * D32;
+  bf16* Ws = reinterpret_cast<bf16*>(sm + L::WALK);  // a stage: Q, then dO
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + L::BAR);  // [0]: K, V
+  float* ls = reinterpret_cast<float*>(sm + L::VEC);  // [2][BN] lse log2e
+  float* dls = ls + 2 * BN;                           // [2][BN] delta scale
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int t = lane % 4;
   // causal: the first key tiles are seen by the most queries; they go
   // first
-  const hopper::GridTile gt = hopper::grid_tile((Tk + BK - 1) / BK, false);
-  const int k0 = gt.tile * BK;
-  const int bh = gt.bh;
-  const int b = bh / H, h = bh % H;
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
-  const bf16* ob = dout + b * os.b + h * os.h;
-  const float* km = key_mask ? key_mask + (long long)b * Tk : nullptr;
-  const int wr = warp * 16;
-  const int keys[2] = {k0 + wr + g, k0 + wr + g + 8};  // this thread's keys
-  // causal: the first query index that sees each key (global positions)
-  const int first[2] = {keys[0] + k_off - q_off, keys[1] + k_off - q_off};
-  bool kvalid[2];               // in range and not masked
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    kvalid[i] = keys[i] < Tk && (!km || km[keys[i]] > 0.f);
-
-  load_tile<D>(Ks, kb, ks.t, k0, BK, Tk, tid, THREADS);
-  load_tile<D>(Vs, vb, vs.t, k0, BK, Tk, tid, THREADS);
-  float dk_acc[DT][4], dv_acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
-
+  const hopper::GridTile gt =
+      hopper::grid_tile((Tk + OWN - 1) / OWN, false);
+  const int bh = gt.bh, b = bh / H, h = bh % H;
+  const int k0 = gt.tile * OWN;
   // causal: query rows before global position k_off + k0 see none of
   // these keys; start at the q tile that holds the first one that does
-  const int q_start = causal ? max(0, ((k0 + k_off - q_off) / BQ) * BQ) : 0;
-  for (int q0 = q_start; q0 < Tq; q0 += BQ) {
-    __syncthreads();            // K/V staged; the last tile is consumed
-    load_tile<D>(Qs, qb, qs.t, q0, BQ, Tq, tid, THREADS);
-    load_tile<D>(Os, ob, os.t, q0, BQ, Tq, tid, THREADS);
-    if (tid < BQ) {
-      const bool in = q0 + tid < Tq;
-      lse_s[tid] = in ? lse[(long long)bh * Tq + q0 + tid] : 0.f;
-      dl_s[tid] = in ? delta[(long long)bh * Tq + q0 + tid] : 0.f;
+  const int q_start =
+      causal ? max(0, ((k0 + k_off - q_off) / BN) * BN) : 0;
+  const int n_tiles = q_start < Tq ? (Tq - q_start + BN - 1) / BN : 0;
+  const float scale2 = scale * LOG2E;
+  const int kr0 = k0 + (tid / 32) * 16 + lane / 4;  // keys kr0, kr0 + 8
+  float dk_acc[16], dv_acc[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) dk_acc[e] = dv_acc[e] = 0.f;
+
+  auto load_qo = [&](int stage, int tile) {
+    bf16* dst = Ws + stage * 2 * BN * D32;
+    const int row0 = q_start + tile * BN;
+    hopper::mbar_expect_tx(&bar[1 + stage], 2 * L::TILE);
+    hopper::tma_load_4d(dst, &qmap, &bar[1 + stage], 0, h, row0, b);
+    hopper::tma_load_4d(dst + BN * D32, &omap, &bar[1 + stage], 0, h,
+                        row0, b);
+  };
+  // lse * log2e and delta * scale of row q0 + tid (0 past Tq: such a row's
+  // Q and dO are zero-filled, so it adds exactly 0)
+  auto row_values = [&](int q0) {
+    const int q = q0 + tid;
+    if (tid >= BN || q >= Tq) return make_float2(0.f, 0.f);
+    const long long at = (long long)bh * Tq + q;
+    return make_float2(lse[at] * LOG2E, delta[at] * scale);
+  };
+  auto put_row_values = [&](int slot, float2 x) {
+    if (tid < BN) {
+      ls[slot * BN + tid] = x.x;
+      dls[slot * BN + tid] = x.y;
     }
+  };
+
+  if (n_tiles > 0) {
+    // causal: the first query index that sees each of this thread's keys
+    int first[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) first[i] = kr0 + 8 * i + k_off - q_off;
+    if (tid == 0) {
+      for (int i = 0; i <= NS; ++i) hopper::mbar_init(&bar[i], 1);
+      hopper::mbar_init_fence();
+    }
+    put_row_values(0, row_values(q_start));
     __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: 16 keys x BQ queries per warp
-    float st[NT][4], dpt[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      uint32_t ka[4], va[4];
-      load_a(ka, Ks, LD, wr, kc * 16, lane);
-      load_a(va, Vs, LD, wr, kc * 16, lane);
-#pragma unroll
-      for (int nt = 0; nt < NT; nt += 2) {
-        uint32_t bq[4], bo[4];
-        load_b_rows_n(bq, Qs, LD, nt * 8, kc * 16, lane);
-        load_b_rows_n(bo, Os, LD, nt * 8, kc * 16, lane);
-        mma(st[nt], ka, bq[0], bq[1]);
-        mma(st[nt + 1], ka, bq[2], bq[3]);
-        mma(dpt[nt], va, bo[0], bo[1]);
-        mma(dpt[nt + 1], va, bo[2], bo[3]);
-      }
+    if (tid == 0) {
+      hopper::mbar_expect_tx(&bar[0], 2 * OWN * D32 * 2);
+      hopper::tma_load_4d(Ks, &kmap, &bar[0], 0, h, k0, b);
+      hopper::tma_load_4d(Vs, &vmap, &bar[0], 0, h, k0, b);
+      for (int s = 0; s < NS && s < n_tiles; ++s) load_qo(s, s);
     }
-    // p^T and ds^T, masked as the forward masks the scores
+    hopper::mbar_wait(&bar[0], 0);
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % NS;
+      const int q0 = q_start + j * BN;
+      const bf16* Qt = Ws + st * 2 * BN * D32;
+      const bf16* Ot = Qt + BN * D32;
+      // the next tile's lse and delta, fetched under this tile's products
+      const float2 next =
+          j + 1 < n_tiles ? row_values(q0 + BN) : make_float2(0.f, 0.f);
+      hopper::mbar_wait(&bar[1 + st], (j / NS) & 1);
+
+      // S^T = K Q^T, then dP^T = V dO^T (two groups, as in dq): 64 keys
+      // x BN queries
+      float s[NR], dp[NR];
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+      for (int kk = 0; kk < D32 / 16; ++kk)
+        hopper::wgmma_ss(s, hopper::desc_k_major_sw64(Ks, kk),
+                         hopper::desc_k_major_sw64(Qt, kk), kk > 0);
+      hopper::wgmma_commit();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int c = nt * 8 + 2 * t + (e & 1);
-        const int qpos = q0 + c;
-        float p = 0.f;            // past either ragged edge: weight 0
-        if (qpos < Tq && keys[i] < Tk) {
-          float x = st[nt][e] * scale;
-          if (!kvalid[i]) x = NEG_INF;
-          if (causal && first[i] > qpos) x = -INFINITY;
-          p = expf(x - lse_s[c]);
+      for (int kk = 0; kk < D32 / 16; ++kk)
+        hopper::wgmma_ss(dp, hopper::desc_k_major_sw64(Vs, kk),
+                         hopper::desc_k_major_sw64(Ot, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      hopper::fence_operand(s);
+
+      // p^T; a masked key's rows are zeroed at the end. Columns 2t and
+      // 2t + 1 of an 8-column group read one float2 of lse (and of delta).
+      const float* l2 = ls + (j & 1) * BN;
+      const float* dl = dls + (j & 1) * BN;
+      const bool full = !causal || k0 + OWN - 1 + k_off <= q0 + q_off;
+      if (full) {
+#pragma unroll
+        for (int jj = 0; jj < BN / 8; ++jj) {
+          const float2 l =
+              *reinterpret_cast<const float2*>(l2 + 8 * jj + 2 * t);
+#pragma unroll
+          for (int e = 4 * jj; e < 4 * jj + 4; e += 2) {
+            s[e] = hopper::exp2_approx(fmaf(s[e], scale2, -l.x));
+            s[e + 1] = hopper::exp2_approx(fmaf(s[e + 1], scale2, -l.y));
+          }
         }
-        st[nt][e] = p;
-        dpt[nt][e] = p * (dpt[nt][e] - dl_s[c]) * scale;
+      } else {
+#pragma unroll
+        for (int e = 0; e < NR; ++e) {
+          const int i = (e >> 1) & 1;
+          const int c = 8 * (e >> 2) + 2 * t + (e & 1);
+          const bool ok = q0 + c < Tq && !(causal && first[i] > q0 + c);
+          s[e] = ok ? hopper::exp2_approx(fmaf(s[e], scale2, -l2[c]))
+                    : 0.f;
+        }
+      }
+      // ds^T = p^T (dp^T - delta) scale, as p^T (dp^T scale - delta scale)
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(dp);
+#pragma unroll
+      for (int jj = 0; jj < BN / 8; ++jj) {
+        const float2 d =
+            *reinterpret_cast<const float2*>(dl + 8 * jj + 2 * t);
+#pragma unroll
+        for (int e = 4 * jj; e < 4 * jj + 4; e += 2) {
+          dp[e] = s[e] * fmaf(dp[e], scale, -d.x);
+          dp[e + 1] = s[e + 1] * fmaf(dp[e + 1], scale, -d.y);
+        }
       }
 
-    // dV += P^T dO and dK += dS^T Q, p and ds rounded to bf16
+      // dV += P^T dO and dK += dS^T Q: A from registers, B MN-major,
+      // n = 32
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t pa[4], da[4];
-      acc_to_a(pa, st[2 * kk], st[2 * kk + 1]);
-      acc_to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-      for (int dt = 0; dt < DT; dt += 2) {
-        uint32_t bo[4], bq[4];
-        load_b_rows_k(bo, Os, LD, kk * 16, dt * 8, lane);
-        load_b_rows_k(bq, Qs, LD, kk * 16, dt * 8, lane);
-        mma(dv_acc[dt], pa, bo[0], bo[1]);
-        mma(dv_acc[dt + 1], pa, bo[2], bo[3]);
-        mma(dk_acc[dt], da, bq[0], bq[1]);
-        mma(dk_acc[dt + 1], da, bq[2], bq[3]);
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        uint32_t pa[4], da[4];
+        hopper::acc_to_a(pa, s, kk);
+        hopper::acc_to_a(da, dp, kk);
+        hopper::wgmma_rs_n32_tb(dv_acc, pa,
+                                hopper::desc_mn_major_sw64(Ot, BN, kk));
+        hopper::wgmma_rs_n32_tb(dk_acc, da,
+                                hopper::desc_mn_major_sw64(Qt, BN, kk));
       }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(dv_acc);
+      hopper::fence_operand(dk_acc);
+
+      if (j + 1 < n_tiles) put_row_values((j + 1) & 1, next);
+      __syncthreads();          // the stage is consumed: refill it
+      if (tid == 0 && j + NS < n_tiles) load_qo(st, j + NS);
     }
   }
 
-  // every key row in range is written, masked ones as exact zeros
-  const long long row_stride = (long long)H * D;
-  const long long off = ((long long)b * Tk * H + h) * D;
+  // every key row in range is written; a masked key's as exact zeros
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    store_rows(dk + off, row_stride, keys[0], Tk, dt * 8 + 2 * t,
-               dk_acc[dt]);
-    store_rows(dv + off, row_stride, keys[0], Tk, dt * 8 + 2 * t,
-               dv_acc[dt]);
+  for (int i = 0; i < 2; ++i) {
+    const int key = kr0 + 8 * i;
+    if (key_mask && key < Tk && !(key_mask[(long long)b * Tk + key] > 0.f)) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        if (((e >> 1) & 1) == i) dk_acc[e] = dv_acc[e] = 0.f;
+    }
+  }
+  const long long off = ((long long)b * Tk * H + h) * D;
+  hopper::store_acc(dk + off, (long long)H * D, k0, Tk, 0, dk_acc, tid, D);
+  hopper::store_acc(dv + off, (long long)H * D, k0, Tk, 0, dv_acc, tid, D);
+}
+
+// The 64B-swizzle probe (chip_smoke.py runs it before the kernels that
+// rest on it): one warpgroup loads A [64][32] and B [32][32] bf16 by TMA
+// through 64B-swizzled maps and computes c1 = A B^T (both operands
+// K-major from shared memory, two m64n32k16 products) and c2 = A B (A
+// from registers in the fragment layout, read from `a` in device memory;
+// B MN-major), f32 [64][32] each.
+__global__ void __launch_bounds__(THREADS)
+sw64_probe(const __grid_constant__ CUtensorMap amap,
+           const __grid_constant__ CUtensorMap bmap,
+           const bf16* __restrict__ a, float* __restrict__ c1,
+           float* __restrict__ c2) {
+  __shared__ __align__(1024) unsigned char raw[2 * 1024 + 64 * 64 + 32 * 64];
+  unsigned char* sm = hopper::align_1024(raw);
+  bf16* As = reinterpret_cast<bf16*>(sm);
+  bf16* Bs = reinterpret_cast<bf16*>(sm + 64 * 64);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + 64 * 64 + 32 * 64);
+  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int w = tid / 32;
+  if (tid == 0) {
+    hopper::mbar_init(bar, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(bar, 64 * 64 + 32 * 64);
+    hopper::tma_load_4d(As, &amap, bar, 0, 0, 0, 0);
+    hopper::tma_load_4d(Bs, &bmap, bar, 0, 0, 0, 0);
+  }
+  // A's fragments of k16 slices 0 and 1 (hopper_bf16.cuh's layout)
+  uint32_t fa[2][4];
+  const bf16* ar = a + (16 * w + g) * 32;
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    const int k = 16 * kk + 2 * t;
+    fa[kk][0] = *reinterpret_cast<const uint32_t*>(ar + k);
+    fa[kk][1] = *reinterpret_cast<const uint32_t*>(ar + 8 * 32 + k);
+    fa[kk][2] = *reinterpret_cast<const uint32_t*>(ar + k + 8);
+    fa[kk][3] = *reinterpret_cast<const uint32_t*>(ar + 8 * 32 + k + 8);
+  }
+  float d1[16], d2[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) d1[e] = d2[e] = 0.f;
+  hopper::mbar_wait(bar, 0);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+    hopper::wgmma_ss(d1, hopper::desc_k_major_sw64(As, kk),
+                     hopper::desc_k_major_sw64(Bs, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+    hopper::wgmma_rs_n32_tb(d2, fa[kk],
+                            hopper::desc_mn_major_sw64(Bs, 32, kk));
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_operand(d1);
+  hopper::fence_operand(d2);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const int r = 16 * w + g + 8 * ((e >> 1) & 1);
+    const int c = 8 * (e >> 2) + 2 * t + (e & 1);
+    c1[r * 32 + c] = d1[e];
+    c2[r * 32 + c] = d2[e];
   }
 }
 
-// ====================================================== D = 64, 128 (sm90)
+// ================================================= D = 64, 128, 256 (sm90)
 constexpr int STAGES = 2;       // ring depth of the walked tiles
 
 // dq: byte offsets from the aligned base; every tile 1024-aligned
@@ -777,57 +939,62 @@ struct Operands {
   float scale;
 };
 
-template <int D>
-int launch_dq(const Operands& a, bf16* dq, cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * (2 * DQ_BQ + 2 * DQ_BK) * (D + 8) +
-                      sizeof(float) * DQ_BK;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_bf16_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid;
-  if (const int e = hopper::grid_1d((a.Tq + DQ_BQ - 1) / DQ_BQ,
-                                    (long long)a.B * a.H, &grid))
-    return e;
-  flash_bwd_dq_bf16_kernel<D><<<grid, THREADS, smem, stream>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.key_mask, dq, a.H, a.Tq,
-      a.Tk, a.qs, a.ks, a.vs, a.os, a.causal, a.q_off, a.k_off, a.scale);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_dkv(const Operands& a, bf16* dk, bf16* dv, cudaStream_t stream) {
-  constexpr int BQ = kv_bq<D>();
-  const size_t smem = sizeof(bf16) * (2 * KV_BK + 2 * BQ) * (D + 8) +
-                      sizeof(float) * 2 * BQ;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_bf16_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid;
-  if (const int e = hopper::grid_1d((a.Tk + KV_BK - 1) / KV_BK,
-                                    (long long)a.B * a.H, &grid))
-    return e;
-  flash_bwd_dkv_bf16_kernel<D><<<grid, THREADS, smem, stream>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.key_mask, dk, dv, a.H, a.Tq,
-      a.Tk, a.qs, a.ks, a.vs, a.os, a.causal, a.q_off, a.k_off, a.scale);
-  return (int)cudaGetLastError();
-}
-
 // The four tensor maps of one launch: q and dO in boxes of `q_rows` rows,
-// k and v in boxes of `k_rows`. Returns a cudaError_t value (0 = built).
+// k and v in boxes of `k_rows`, each box `box_cols` columns wide (64:
+// 128B swizzle; 32: 64B swizzle). Returns a cudaError_t value (0 =
+// built).
 int make_maps(const Operands& a, int D, int q_rows, int k_rows,
-              CUtensorMap (&m)[4]) {
+              CUtensorMap (&m)[4], int box_cols = hopper::BOX_COLS) {
   const struct { const void* p; int T; Strides s; int rows; } ops[4] = {
       {a.q, a.Tq, a.qs, q_rows}, {a.k, a.Tk, a.ks, k_rows},
       {a.v, a.Tk, a.vs, k_rows}, {a.dout, a.Tq, a.os, q_rows}};
   for (int i = 0; i < 4; ++i) {
     const int err = hopper::make_tile_map(&m[i], ops[i].p, a.B, ops[i].T,
                                           a.H, D, ops[i].s.b, ops[i].s.t,
-                                          ops[i].s.h, ops[i].rows);
+                                          ops[i].s.h, ops[i].rows,
+                                          box_cols);
     if (err) return err;
   }
   return 0;
+}
+
+int launch_dq_d32(const Operands& a, int D, bf16* dq, cudaStream_t stream) {
+  using L = D32Layout;
+  CUtensorMap m[4];
+  int err = make_maps(a, D, OWN, BN, m, hopper::BOX32_COLS);
+  if (err) return err;
+  const int smem = L::BYTES + 1024;
+  err = (int)cudaFuncSetAttribute(flash_bwd_dq_bf16_d32,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem);
+  if (err) return err;
+  dim3 grid;
+  err = hopper::grid_1d((a.Tq + OWN - 1) / OWN, (long long)a.B * a.H, &grid);
+  if (err) return err;
+  flash_bwd_dq_bf16_d32<<<grid, THREADS, smem, stream>>>(
+      m[0], m[1], m[2], m[3], a.lse, a.delta, a.key_mask, dq, a.H, a.Tq,
+      a.Tk, D, a.causal, a.q_off, a.k_off, a.scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_dkv_d32(const Operands& a, int D, bf16* dk, bf16* dv,
+                   cudaStream_t stream) {
+  using L = D32Layout;
+  CUtensorMap m[4];
+  int err = make_maps(a, D, BN, OWN, m, hopper::BOX32_COLS);
+  if (err) return err;
+  const int smem = L::BYTES + 1024;
+  err = (int)cudaFuncSetAttribute(flash_bwd_dkv_bf16_d32,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem);
+  if (err) return err;
+  dim3 grid;
+  err = hopper::grid_1d((a.Tk + OWN - 1) / OWN, (long long)a.B * a.H, &grid);
+  if (err) return err;
+  flash_bwd_dkv_bf16_d32<<<grid, THREADS, smem, stream>>>(
+      m[0], m[1], m[2], m[3], a.lse, a.delta, a.key_mask, dk, dv, a.H,
+      a.Tq, a.Tk, D, a.causal, a.q_off, a.k_off, a.scale);
+  return (int)cudaGetLastError();
 }
 
 // 64-column boxes of dq (dk, dv) per block: every box up to D = 128; at
@@ -919,8 +1086,8 @@ extern "C" int flash_bwd_dq_bf16(
   bf16* out = static_cast<bf16*>(dq);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch_dq<16>(a, out, s);
-    case 32: return launch_dq<32>(a, out, s);
+    case 16:
+    case 32: return launch_dq_d32(a, D, out, s);
     case 64: return launch_dq_sm90<64>(a, out, s);
     case 128: return launch_dq_sm90<128>(a, out, s);
     case 256: return launch_dq_sm90<256>(a, out, s);
@@ -945,11 +1112,29 @@ extern "C" int flash_bwd_dkv_bf16(
   bf16* dvp = static_cast<bf16*>(dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch_dkv<16>(a, dkp, dvp, s);
-    case 32: return launch_dkv<32>(a, dkp, dvp, s);
+    case 16:
+    case 32: return launch_dkv_d32(a, D, dkp, dvp, s);
     case 64: return launch_dkv_sm90<64>(a, dkp, dvp, s);
     case 128: return launch_dkv_sm90<128>(a, dkp, dvp, s);
     case 256: return launch_dkv_sm90<256>(a, dkp, dvp, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The 64B-swizzle probe on A [64][32] and B [32][32] bf16 (dense, 16-byte
+// aligned): c1 = A B^T and c2 = A B, f32 [64][32] each. Returns a
+// cudaError_t value (0 = launched).
+extern "C" int flash_bwd_bf16_sw64_probe(const void* a, const void* b,
+                                         float* c1, float* c2,
+                                         void* stream) {
+  CUtensorMap m[2];
+  int err = hopper::make_tile_map(&m[0], a, 1, 64, 1, 32, 64 * 32, 32, 32,
+                                  64, hopper::BOX32_COLS);
+  if (err) return err;
+  err = hopper::make_tile_map(&m[1], b, 1, 32, 1, 32, 32 * 32, 32, 32, 32,
+                              hopper::BOX32_COLS);
+  if (err) return err;
+  sw64_probe<<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      m[0], m[1], static_cast<const bf16*>(a), c1, c2);
+  return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // hopper_bf16.cuh: the Hopper (sm_90a) pieces of the bf16 attention
 // kernels: warpgroup products (`wgmma.mma_async`), their shared-memory
 // descriptors, TMA tile loads and the `mbarrier`s that report them.
-// flash_fwd_bf16.cu and flash_bwd_bf16.cu use it at head dims 64 and 128:
+// flash_fwd_bf16.cu and flash_bwd_bf16.cu use it at head dims 64, 128 and
+// 256, and flash_bwd_bf16.cu at 32 (and 16) through the 64B pieces below:
 // the forward's S = Q K^T is the backward's, and its O += P V is the
 // backward's dQ += dS K (register A, B MN-major). The warp-level
 // `mma.sync` pieces stay in mma_bf16.cuh, which also gives this header
@@ -18,13 +19,19 @@
 // chunk c ^ (r % 8): the 128B-swizzle atom is 8 rows, 1024 bytes, and the
 // box's base must be 1024-byte aligned. A head dim of 128 is two boxes,
 // the second `rows * 128` bytes after the first. The same bytes serve
-// every product below; only the descriptor changes.
+// every product below; only the descriptor changes. At head dim 32 a row
+// is 64 bytes: the box is 32 columns with CU_TENSOR_MAP_SWIZZLE_64B, the
+// chunk c of row r at chunk c ^ ((r / 2) % 4), the atom 8 rows of 64
+// bytes, 512 bytes (`desc_sw64` and the `_sw64` descriptors; layout type
+// 2, SBO 512; K-major slice kk at kk * 32 bytes, MN-major k16 slice kk at
+// kk * 1024 bytes), products at n = 32 (`wgmma_rs_n32_tb`) or over a
+// walked tile of 64 rows (`wgmma_ss` m64n64).
 //
 // Descriptors (64 bits, fields in 16-byte units): start address bits
 // 0-13, leading byte offset (LBO) 16-29, stride byte offset (SBO) 32-45,
-// base offset 49-51 (0: atoms are 1024-aligned), layout 62-63 (1 = 128B
-// swizzle). Two ways to read a box, both with SBO = 1024 (the next
-// 8-row atom):
+// base offset 49-51 (0: atoms are 1024-aligned), layout 62-63 (1 = 128B,
+// 2 = 64B swizzle). Two ways to read a 128B box, both with SBO = 1024
+// (the next 8-row atom):
 //   K-major: the box's rows are the operand's M (A) or N (B) index, its
 //     columns the reduction index k (Q, K for S = Q K^T). The k16 slice
 //     kk of a box starts (kk % 4) * 32 bytes into the atom; LBO is unused.
@@ -174,12 +181,21 @@ __device__ __forceinline__ void tma_load_tile(bf16* dst, const CUtensorMap* map,
 }
 
 // -------------------------------------------------------- descriptors
-__device__ __forceinline__ uint64_t desc_sw128(const void* p,
-                                               uint32_t lbo_bytes) {
+// A descriptor of a swizzled layout: SBO `atom_bytes` (the next 8-row
+// atom), `layout` 1 (128B swizzle) or 2 (64B).
+__device__ __forceinline__ uint64_t desc_swizzled(const void* p,
+                                                  uint32_t lbo_bytes,
+                                                  uint32_t atom_bytes,
+                                                  uint64_t layout) {
   const uint32_t a = smem_u32(p);
   return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
          static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>(ATOM_BYTES >> 4) << 32 | 1ull << 62;
+         static_cast<uint64_t>(atom_bytes >> 4) << 32 | layout << 62;
+}
+
+__device__ __forceinline__ uint64_t desc_sw128(const void* p,
+                                               uint32_t lbo_bytes) {
+  return desc_swizzled(p, lbo_bytes, ATOM_BYTES, 1);
 }
 
 // K-major: k16 slice kk (k = 16kk..16kk+15) of a tile whose rows are M or
@@ -195,6 +211,32 @@ __device__ __forceinline__ uint64_t desc_mn_major(const bf16* tile, int rows,
                                                   int kk, int nb) {
   return desc_sw128(tile + nb * rows * BOX_COLS + kk * 16 * BOX_COLS,
                     rows * BOX_COLS * 2);
+}
+
+// 64B swizzle (head dim 32): a box of 32 bf16 columns lands as rows of 64
+// bytes, the 16-byte chunk c of row r at chunk c ^ ((r / 2) % 4); the atom
+// is 8 rows, 512 bytes (layout type 2), the next 8 rows SBO = 512 bytes on.
+constexpr int BOX32_COLS = 32;    // bf16 columns of one 64B-swizzled box
+constexpr int ATOM64_BYTES = 512;  // 8 rows x 64 bytes
+
+__device__ __forceinline__ uint64_t desc_sw64(const void* p,
+                                              uint32_t lbo_bytes) {
+  return desc_swizzled(p, lbo_bytes, ATOM64_BYTES, 2);
+}
+
+// K-major: k16 slice kk (0 or 1; k = 16kk..16kk+15) of a [rows][32] tile
+// whose rows are M or N: the slice starts kk * 32 bytes into each row.
+__device__ __forceinline__ uint64_t desc_k_major_sw64(const bf16* tile,
+                                                      int kk) {
+  return desc_sw64(tile + kk * 16, 16);
+}
+
+// MN-major (transpose bit, B only): rows 16kk..16kk+15 (k) of a [rows][32]
+// tile, its 32 columns n: the slice starts kk * 1024 bytes in (two
+// atoms). LBO would step to the next 32 columns; n = 32 needs none.
+__device__ __forceinline__ uint64_t desc_mn_major_sw64(const bf16* tile,
+                                                       int rows, int kk) {
+  return desc_sw64(tile + kk * 16 * BOX32_COLS, rows * BOX32_COLS * 2);
 }
 
 // --------------------------------------------------------------- wgmma
@@ -253,6 +295,24 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d[64 x 32] += A[64 x 16] B[16 x 32], A from registers, B from shared
+// memory MN-major (the transpose bit): the gradient products at head dim
+// 32.
+__device__ __forceinline__ void wgmma_rs_n32_tb(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : HOPPER_R8(0), HOPPER_R8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d[64 x 64] += A[64 x 16] B[16 x 64], A from registers, B from shared
 // memory MN-major (the transpose bit).
 __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32],
@@ -284,18 +344,20 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
   a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
 }
 
-// Store a 64 x 64 f32 accumulator as bf16 rows of a dense output: column
-// block `col0`, tile row 0 at `row0`, rows at or past T and the block's
-// columns at or past `cols` (a multiple of 8) skipped.
+// Store a 64 x N f32 accumulator (R = N / 2 registers: 64 x 64 or, at
+// head dim 32, 64 x 32) as bf16 rows of a dense output: column block
+// `col0`, tile row 0 at `row0`, rows at or past T and the block's columns
+// at or past `cols` (a multiple of 8) skipped.
+template <int R>
 __device__ __forceinline__ void store_acc(bf16* base, long long row_stride,
                                           int row0, int T, int col0,
-                                          const float (&d)[32], int tid,
-                                          int cols = 64) {
+                                          const float (&d)[R], int tid,
+                                          int cols = 2 * R) {
   const int lane = tid % 32, g = lane / 4, t = lane % 4;
   const int r = row0 + (tid / 32) * 16 + g;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    if (cols < 64 && 8 * j + 2 * t >= cols) continue;
+  for (int j = 0; j < R / 4; ++j) {
+    if (cols < 2 * R && 8 * j + 2 * t >= cols) continue;
     const int col = col0 + 8 * j + 2 * t;
     if (r < T)
       *reinterpret_cast<uint32_t*>(base + r * row_stride + col) =
@@ -336,13 +398,15 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // The map of a [B, T, H, D] tensor of `type` (`bytes` per element;
-// element strides sb, st, sh; the head dim dense) read in boxes of 128
-// bytes of columns x `rows` rows, 128B swizzle, zeros past every edge.
-// Returns a cudaError_t value (0 = built).
+// element strides sb, st, sh; the head dim dense) read in boxes of
+// `box_bytes` bytes of columns x `rows` rows, zeros past every edge: 128
+// bytes with the 128B swizzle, or 64 with the 64B swizzle (bf16 head dim
+// 32, and 16 with the box's other half zero-filled). Returns a
+// cudaError_t value (0 = built).
 inline int make_tile_map(CUtensorMap* map, CUtensorMapDataType type,
                          int bytes, const void* base, int B, int T, int H,
                          int D, long long sb, long long st, long long sh,
-                         int rows) {
+                         int rows, int box_bytes = 128) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T,
@@ -350,22 +414,24 @@ inline int make_tile_map(CUtensorMap* map, CUtensorMapDataType type,
   const cuuint64_t strides[3] = {(cuuint64_t)(sh * bytes),
                                  (cuuint64_t)(st * bytes),
                                  (cuuint64_t)(sb * bytes)};
-  const cuuint32_t box[4] = {(cuuint32_t)(128 / bytes), 1, (cuuint32_t)rows,
-                             1};
+  const cuuint32_t box[4] = {(cuuint32_t)(box_bytes / bytes), 1,
+                             (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, type, 4, const_cast<void*>(base), dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      box_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// The map of a bf16 tensor, boxes of 64 columns.
+// The map of a bf16 tensor, boxes of 64 columns (128B swizzle) or, with
+// `box_cols` 32, of 32 columns (64B swizzle).
 inline int make_tile_map(CUtensorMap* map, const void* base, int B, int T,
                          int H, int D, long long sb, long long st,
-                         long long sh, int rows) {
+                         long long sh, int rows, int box_cols = BOX_COLS) {
   return make_tile_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, B, T,
-                       H, D, sb, st, sh, rows);
+                       H, D, sb, st, sh, rows, 2 * box_cols);
 }
 
 }  // namespace hopper

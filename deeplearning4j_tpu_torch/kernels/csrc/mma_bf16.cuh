@@ -1,5 +1,6 @@
-// mma_bf16.cuh: the warp-level bf16 tensor-core pieces shared by
-// flash_fwd_bf16.cu and flash_bwd_bf16.cu.
+// mma_bf16.cuh: the warp-level bf16 tensor-core pieces of the bf16
+// forward at head dims 16 and 32 (flash_fwd_bf16.cu), and the bf16 type,
+// strides and shared-memory addresses every bf16 kernel takes.
 //
 // One product is `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`:
 // D[16x8] += A[16x16] * B[16x8], bf16 operands, f32 accumulator. With

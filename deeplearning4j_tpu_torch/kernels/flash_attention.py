@@ -17,11 +17,12 @@ PyTorch version beside it:
   `flash_attention_plain`.
 - `flash_bwd_dq` -> `csrc/flash_bwd.cu` (`flash_bwd_dq_f32`; at head
   dims 64, 128 and 256 on the tensor cores, each float32 product as
-  three TF32 products) and `csrc/flash_bwd_bf16.cu` (`flash_bwd_dq_bf16`),
-  replacing `_bwd_dq_kernel` (:226-273, `pallas_call` :366); plain version
-  `flash_bwd_dq_plain`.
+  three TF32 products) and `csrc/flash_bwd_bf16.cu` (`flash_bwd_dq_bf16`;
+  `wgmma` + TMA at every width, at head dims 16 and 32 on 64B-swizzled
+  32-column tiles), replacing `_bwd_dq_kernel` (:226-273, `pallas_call`
+  :366); plain version `flash_bwd_dq_plain`.
 - `flash_bwd_dkv` -> `csrc/flash_bwd.cu` (`flash_bwd_dkv_f32`, likewise)
-  and `csrc/flash_bwd_bf16.cu` (`flash_bwd_dkv_bf16`), replacing
+  and `csrc/flash_bwd_bf16.cu` (`flash_bwd_dkv_bf16`, likewise), replacing
   `_bwd_dkv_kernel` (:276-330, `pallas_call` :388); plain version
   `flash_bwd_dkv_plain`.
 - `flash_decode` -> `csrc/flash_decode.cu`, replacing `_flash_kernel` as

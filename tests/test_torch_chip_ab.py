@@ -221,12 +221,12 @@ def test_wide_bwd_bf16_turn_times_the_bf16_kernels_at_the_same_shapes():
 
 
 def test_rank_turn_takes_each_kernel_not_yet_redesigned_once():
-    """`run ROOT LABEL rank` times the f32 pair at D=16 and 32 and the bf16
-    kernels at D=16 and 32 at the train case with H * D = 256; the f32
-    forward, the f32 pair at D=128 and 256 and both wide pairs are
-    redesigned, so no forward, no D=128 or 256 and nothing wide."""
-    assert chip_ab.RANK == [("bwd", 16), ("bwd", 32), ("bf16", 16),
-                            ("bf16", 32)]
+    """`run ROOT LABEL rank` times the f32 pair at D=16 and 32 at the train
+    case with H * D = 256; the f32 forward, the f32 pair at D=128 and 256,
+    the bf16 pair at D=16 and 32 and both wide pairs are redesigned, so no
+    forward, no bf16 case, no D=128 or 256 and nothing wide (the bf16
+    forward at D=16 and 32 is timed by `d32_bwd_bf16`'s `_bf16_case`)."""
+    assert chip_ab.RANK == [("bwd", 16), ("bwd", 32)]
     assert all(256 % D == 0 for _, D in chip_ab.RANK)
     assert not hasattr(chip_ab, "RANK_WIDE")
     calls = []
@@ -381,8 +381,59 @@ def test_d128_bwd_turn_takes_the_pair_at_chip_smokes_d128_shapes():
     assert [r["case"] for r in recs] == [c[1] for c in calls]
 
 
+def test_d32_bwd_bf16_turn_takes_the_pair_at_chip_smokes_d32_shapes():
+    """`run ROOT LABEL d32_bwd_bf16` times the bf16 pair at head dim 32
+    through `_bf16_case` (the forward with the LSE, then dq and dk/dv, each
+    its own record): every case of chip_smoke's D32_BF16_CASES in its
+    order (the train case B=16 T=512 H=8 first, bitwise twice more; D=24
+    padded; D=16 on the same kernels; bench_decode_paged's model's
+    training shape B=4 T=128 H=4, bitwise twice more; the long B=4 T=4096
+    H=8: dq 0.0521 ms and dk/dv 0.0695 ms of operations at 989 TFLOP/s),
+    then chip_smoke's head-count cases at D=32 (B=16385 H=4 T=16 and
+    65536 heads at T=2); then `_lse_case` in
+    bf16 on chip_smoke's D32_LSE shard under each of its D32_LSE_OFFSETS,
+    from chip_ab's own copy (a parent checkout's chip_smoke.py has
+    none)."""
+    import chip_smoke
+    import torch
+    smoke = [tuple(c) for c in chip_smoke.D32_BF16_CASES]
+    assert [c for c in chip_ab.D32_BWD_BF16 if c in smoke] == smoke
+    assert chip_ab.D32_BWD_BF16[0] == smoke[0] == (
+        "D=32 train B=16 T=512 H=8", 16, 512, 512, 8, 32, True, None, True)
+    assert {c[5] for c in smoke} == {32, 24, 16}
+    assert chip_ab.D32_BWD_BF16[len(smoke):] == [
+        ("D=32 B=16385 H=4 T=16", 16385, 16, 16, 4, 32, True, None, False),
+        ("D=32 B=1 H=65536 T=2", 1, 2, 2, 65536, 32, True, None, False)]
+    by = {c[0]: c[1:] for c in chip_ab.D32_BWD_BF16}
+    conf = chip_smoke.BENCH_PAGED_MODEL
+    assert by["D=32 model B=4 T=128 H=4"] == (
+        chip_smoke.WIDE_BATCH, chip_smoke.WIDE_SEQ, chip_smoke.WIDE_SEQ,
+        conf["n_heads"], conf["d_model"] // conf["n_heads"], True, None,
+        True)
+    B, T, Tk, H, D, causal, valid, _ = by["D=32 long B=4 T=4096 H=8"]
+    pairs = B * H * T * (T + 1) // 2
+    assert 6 * D * pairs / 989e12 * 1e3 == pytest.approx(0.0521, rel=1e-3)
+    assert 8 * D * pairs / 989e12 * 1e3 == pytest.approx(0.0695, rel=1e-3)
+    assert chip_ab.D32_LSE == chip_smoke.D32_LSE
+    assert chip_ab.D32_LSE_OFFSETS == chip_smoke.D32_LSE_OFFSETS
+    calls = []
+    cs = SimpleNamespace(
+        _bwd_case=lambda *a, **k: pytest.fail("the f32 pair"),
+        _bf16_case=lambda *a, **k: calls.append(
+            ("bf16", *a[:8], k["repeat"])) or [{"case": a[0]}],
+        _lse_case=lambda *a, **k: calls.append(("lse", *a[:7])) or [
+            {"case": a[0]}])
+    recs = chip_ab._d32_bwd_bf16(cs)
+    B, T, H, D = chip_ab.D32_LSE
+    assert calls == [("bf16", *c) for c in chip_ab.D32_BWD_BF16] + [
+        ("lse", lab, torch.bfloat16, B, T, H, D, offs)
+        for lab, offs in chip_ab.D32_LSE_OFFSETS]
+    assert [r["case"] for r in recs] == [c[1] for c in calls]
+
+
 @pytest.mark.parametrize("dtype", ["wide", "wide_bwd", "wide_bwd_bf16",
-                                   "d256", "d256_bwd", "rank", "d128_bwd"])
+                                   "d256", "d256_bwd", "rank", "d128_bwd",
+                                   "d32_bwd_bf16"])
 def test_wide_and_rank_turns_refuse_without_a_card(dtype):
     res = subprocess.run([sys.executable, str(ROOT / "chip_ab.py"), "run",
                           str(ROOT), "change", dtype], capture_output=True,
