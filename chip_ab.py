@@ -7,6 +7,7 @@
     python3 chip_ab.py run ROOT LABEL d256_bwd
     python3 chip_ab.py run ROOT LABEL d128_bwd
     python3 chip_ab.py run ROOT LABEL d32_bwd_bf16
+    python3 chip_ab.py run ROOT LABEL d32_fwd_bf16
     python3 chip_ab.py run ROOT LABEL SET --no-gates   # any set above
     python3 chip_ab.py summary LOG...         # table of the turns
     python3 chip_ab.py sweep ROOT LABEL       # decode at each cluster size
@@ -85,7 +86,17 @@ Tk=53, and phase 2's head-count cases at D=32 (B=16385 H=4 T=16, B=1
 H=65536 T=2); then `_lse_case` in
 bf16 at B=1 T=1024 H=2 D=32 on a diagonal shard, a past one and offsets
 0/512 (D32_BWD_BF16 and D32_LSE, kept here so that a parent checkout
-times the same cases). With `rank`, the kernels no PR has redesigned
+times the same cases). With `d32_fwd_bf16`, the bf16 forward at head dim
+32 alone (`_forward_case`, the same code on either checkout): causal with
+the LSE unless named, the train case B=16 T=512 H=8 and at D=16 H=16, the
+long B=4 T=4096 H=8, B=2 T=200 H=4 with a ragged key mask at D=32, 24
+(zero-padded to 32), 16 and 8 (zero-padded to 16), Tq=37 Tk=53 not causal
+with a key mask at D=32 and 16, B=8 T=512 H=4 with a ragged key mask,
+bench_decode_paged's model's training shape B=4 T=128 H=4, the head-count
+cases B=16385 H=4 T=16 and B=1 H=65536 T=2, bench_decode_paged's prefill
+B=1 L=24 H=4 with a key mask and no LSE, and `flash_attention_lse` on
+D32_LSE's shard, diagonal, past and offsets 0/512 (rows 0..511 see no key:
+out 0, lse <= -1e29). With `rank`, the kernels no PR has redesigned
 yet, once each at the train case (B=16 T=512 causal, H so that H * D =
 256): phase 2's `_bwd_case` at D=16 and 32 (the f32 pair). Inputs come from
 fixed seeds, so both checkouts see the same tensors, and every gate of
@@ -303,6 +314,33 @@ D32_LSE = (1, 1024, 2, 32)
 D32_LSE_OFFSETS = (("D=32 diagonal", (1024, 1024)),
                    ("D=32 past", (1024, 0)),
                    ("D=32 rows without keys", (0, 512)))
+# the bf16 forward at head dim 32 (`d32_fwd_bf16`): `_forward_case` (label,
+# B, Tq, Tk, H, D, causal, valid key lengths or None, with the LSE, (q_off,
+# k_off) through `flash_attention_lse` or None): the train case at D=32
+# (H=8) and D=16 (H=16), the long case, chip_smoke.py's ragged, Tq=37 Tk=53
+# and head-count shapes, its no-LSE prefill, and the D32_LSE shard under
+# each of D32_LSE_OFFSETS
+D32_FWD_BF16 = [
+    ("D=32 train B=16 T=512 H=8", 16, 512, 512, 8, 32, True, None, True,
+     None),
+    ("D=16 train B=16 T=512 H=16", 16, 512, 512, 16, 16, True, None, True,
+     None),
+    ("D=32 long B=4 T=4096 H=8", 4, 4096, 4096, 8, 32, True, None, True,
+     None),
+    *((f"D={D} B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, D, True,
+       [200, 137], True, None) for D in (32, 24, 16, 8)),
+    *((f"D={D} Tq=37 Tk=53, key mask", 2, 37, 53, 4, D, False, [53, 20],
+       True, None) for D in (32, 16)),
+    ("D=32 B=8 T=512 H=4, ragged key mask", 8, 512, 512, 4, 32, True,
+     [512, 449, 388, 301, 256, 197, 130, 63], True, None),
+    ("D=32 model B=4 T=128 H=4", 4, 128, 128, 4, 32, True, None, True, None),
+    ("D=32 B=16385 H=4 T=16", 16385, 16, 16, 4, 32, True, None, True, None),
+    ("D=32 B=1 H=65536 T=2", 1, 2, 2, 65536, 32, True, None, True, None),
+    ("bf16 prefill B=1 L=24 H=4 D=32, key mask", 1, 24, 24, 4, 32, True,
+     [24], False, None),
+    *((lab, 1, 1024, 1024, 2, 32, True, None, True, offs)
+      for lab, offs in D32_LSE_OFFSETS),
+]
 # the kernels not yet redesigned, at the train case with H * D = 256:
 # (case function, D)
 RANK = [*(("bwd", D) for D in (16, 32))]
@@ -341,7 +379,8 @@ def _forward_case(cs, label, dtype, B, T, H, D, valid, lse, gen, Tk=None,
     (f32: TOL on out and LSE; bf16: BF16_OUT_TOL, BF16_LSE_TOL; a row that
     sees no key: out 0, lse <= -1e29), timed beside the plain version and
     SDPA on the same inputs (TF32 off: phase_card; no SDPA where a row sees
-    no key, where it gives NaN). Returns the record."""
+    no key, where it gives NaN, or past SDPA_MAX_HEADS heads, which it
+    refuses). Returns the record."""
     import torch
     from deeplearning4j_tpu_torch.kernels import (flash_attention,
                                                   flash_attention_lse,
@@ -381,7 +420,7 @@ def _forward_case(cs, label, dtype, B, T, H, D, valid, lse, gen, Tk=None,
         (got[0][:, none] == 0).all() and (got[1][:, :, none] <= -1e29).all()),
         f"{name} {label}: a row that sees no key is not out 0, lse <= -1e29")
     library = None
-    if not bool(none.any()):
+    if not bool(none.any()) and H <= cs.SDPA_MAX_HEADS:
         sq, sk, sv = (t.transpose(1, 2) for t in (q, k, v))
         is_causal = causal and km is None and q_off == k_off and T == Tk
         mask = None
@@ -476,6 +515,15 @@ def _d32_bwd_bf16(cs):
     return recs
 
 
+def _d32_fwd_bf16(cs):
+    import torch
+    gen = torch.Generator().manual_seed(21)
+    return [_forward_case(cs, lab, torch.bfloat16, B, Tq, H, D, valid, lse,
+                          gen, Tk=Tk, causal=causal, offsets=offs)
+            for lab, B, Tq, Tk, H, D, causal, valid, lse, offs
+            in D32_FWD_BF16]
+
+
 def _rank(cs):
     import torch
     gen = torch.Generator().manual_seed(9)
@@ -508,7 +556,8 @@ def run(root, label, dtype="bf16", gates=True):
     sets = {"wide": _wide, "wide_bwd": _wide_bwd,
             "wide_bwd_bf16": lambda cs: _wide_bwd(cs, bf16=True),
             "d256": _d256, "d256_bwd": _d256_bwd, "d128_bwd": _d128_bwd,
-            "d32_bwd_bf16": _d32_bwd_bf16, "rank": _rank}
+            "d32_bwd_bf16": _d32_bwd_bf16, "d32_fwd_bf16": _d32_fwd_bf16,
+            "rank": _rank}
     if dtype in sets:
         _print_turn(label, root, sets[dtype](cs), cs, failed)
         return
@@ -654,7 +703,8 @@ if __name__ == "__main__":
             and sys.argv[4:] in ([], ["f32"], ["bf16"], ["decode"],
                                  ["wide"], ["wide_bwd"], ["wide_bwd_bf16"],
                                  ["d256"], ["d256_bwd"], ["d128_bwd"],
-                                 ["d32_bwd_bf16"], ["rank"]):
+                                 ["d32_bwd_bf16"], ["d32_fwd_bf16"],
+                                 ["rank"]):
         run(*sys.argv[2:])
     elif len(sys.argv) >= 3 and sys.argv[1] == "summary":
         summary(sys.argv[2:])

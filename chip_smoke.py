@@ -184,8 +184,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    any `flash_bwd_f32_ws` or `flash_bwd_dkv_f32_d128` instantiation,
    reports none of them (`flash_bwd_f32_ws` at D=128 and 256), or still
    builds the CUDA-core pair at D=128.
-2f. The bf16 backward pair at head dim 32 (`flash_bwd_dq_bf16_d32` and
-   `flash_bwd_dkv_bf16_d32`: 64B-swizzled TMA tiles, `wgmma`; also D=24
+2f. The bf16 kernels at head dim 32, the forward `flash_fwd_bf16_d32`
+   and the backward pair `flash_bwd_dq_bf16_d32` and
+   `flash_bwd_dkv_bf16_d32` (64B-swizzled TMA tiles, `wgmma`; also D=24
    zero-padded to 32, and D=16 on the same kernels through TMA zero
    fill): first the 64B-swizzle probe (`flash_bwd_bf16_sw64_probe`: one
    m64n32 product pair from 64B-swizzled tiles, K-major and MN-major with
@@ -200,13 +201,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    three times, bitwise equal; B=4 T=4096 H=8 causal; at D=16 the train case B=16 T=512 H=16
    and Tq=37 Tk=53. Then `flash_attention_lse` in bf16 at B=1 T=1024 H=2
    D=32 (`_lse_case`: diagonal, past, offsets 0/512 with rows that see no
-   key, dq rows 0). Then bench_decode_paged's model (head dim 32) in bf16
-   through `_model_paths`: 3 `fit` steps at 4 x 128 with
+   key: out 0, lse <= -1e29, dq rows 0). Then the forward without the LSE
+   (`_bf16_forward`: B=2 T=200 H=4 causal with a ragged key mask, out
+   within BF16_OUT_TOL) at D=32, 16 and 8 (zero-padded to 16: counted
+   under `flash_fwd_bf16_padded`), and bench_decode_paged's prefill shape,
+   B=1 L=24 H=4 D=32 with a key mask and no LSE, launching
+   `flash_fwd_bf16` only. Then bench_decode_paged's model (head dim 32)
+   in bf16 through `_model_paths`: 3 `fit` steps at 4 x 128 with
    compute_dtype="bfloat16" (path training_d32_bf16), scores within
    BF16_SCORE_RTOL of the use_pallas=False model and falling, each bf16
    kernel launching 6 times and nothing else. Phase 1 fails if ptxas
-   reports a spill in either D=32 kernel, reports neither, or still
-   builds the `mma.sync` pair at D=16 or 32.
+   reports a spill in any of the three D=32 kernels or does not report
+   one of them, or still builds the first `mma.sync` forward or pair.
 3. The serving path: `transformer_lm` at full width (vocab 256, d_model
    256, 4 layers, 4 heads) with `use_pallas=True` and
    `synthetic_params(seed=0)`, served by
@@ -484,6 +490,14 @@ D32_LSE = (1, 1024, 2, 32)
 D32_LSE_OFFSETS = (("D=32 diagonal", (1024, 1024)),
                    ("D=32 past", (1024, 0)),
                    ("D=32 rows without keys", (0, 512)))
+# the bf16 forward without the LSE (`_bf16_forward`: B=2 T=200 H=4 causal,
+# key lengths 200 and 137) at head dims 32, 16 and 8 (zero-padded to 16);
+# then bench_decode_paged's prefill (bench.py:724-748: 24-token prompts,
+# d_model 128 over 4 heads) in bf16 with a key mask and no LSE: (label, B,
+# L, H, D, valid key lengths)
+D32_FWD_HEAD_DIMS = (32, 16, 8)
+D32_PREFILL = ("bf16 prefill B=1 L=24 H=4 D=32, key mask", 1, 24, 4, 32,
+               [24])
 SW64_PROBE_TOL = 1e-3
 # bench_decode_paged's model and requests (bench.py:724-748)
 BENCH_PAGED_MODEL = dict(vocab_size=256, d_model=128, n_layers=2, n_heads=4)
@@ -646,13 +660,14 @@ def phase_card():
     # `flash_bwd_dkv_f32_d128`, dK and dV in 128 registers); a library
     # built here reports each of them (an already built library has no
     # report). Head dim 128 no longer instantiates the CUDA-core pair.
-    # The bf16 pair at head dims 32 and 16 is `flash_bwd_dq_bf16_d32` and
-    # `flash_bwd_dkv_bf16_d32` (64B swizzle, wgmma): no spill, and the
-    # `mma.sync` pair is no longer built at either width.
+    # The bf16 kernels at head dims 32 and 16 are `flash_fwd_bf16_d32`,
+    # `flash_bwd_dq_bf16_d32` and `flash_bwd_dkv_bf16_d32` (64B swizzle,
+    # wgmma): no spill, and no `mma.sync` kernel is built at either width.
     for lib, kernel, widths in (("flash_fwd", "flash_fwd_f32_d256", ()),
                                 ("flash_bwd", "flash_bwd_f32_ws",
                                  (128, 256)),
                                 ("flash_bwd", "flash_bwd_dkv_f32_d128", ()),
+                                ("flash_fwd_bf16", "flash_fwd_bf16_d32", ()),
                                 ("flash_bwd_bf16", "flash_bwd_dq_bf16_d32",
                                  ()),
                                 ("flash_bwd_bf16", "flash_bwd_dkv_bf16_d32",
@@ -676,12 +691,13 @@ def phase_card():
                              or "flash_bwd_dkv_kernelILi128E" in line)]
             check(not old, f"the CUDA-core pair is still built at D=128: "
                            f"{old}")
-        if lib == "flash_bwd_bf16":
+        if lib in ("flash_fwd_bf16", "flash_bwd_bf16"):
             old = [line for line in lines if "Function properties for" in
                    line and any(f"{k}ILi{D}E" in line for D in (16, 32)
-                                for k in ("flash_bwd_dq_bf16_kernel",
+                                for k in ("flash_fwd_bf16_kernel",
+                                          "flash_bwd_dq_bf16_kernel",
                                           "flash_bwd_dkv_bf16_kernel"))]
-            check(not old, f"the mma.sync bf16 pair is still built at "
+            check(not old, f"a mma.sync bf16 kernel is still built at "
                            f"D=16/32: {old}")
     return smi
 
@@ -1787,7 +1803,7 @@ def phase_head_dims():
                         320, True, None, gen, repeat=True)
     launches = {}
     for B, H in ((16385, 4), (1, 65536)):
-        # the CUDA-core and mma.sync kernels' width and a Hopper one's;
+        # the 64B-swizzled kernels' width and the 128B ones';
         # T=16 at B*H=65540, T=2 at 65536 heads
         T = 16 if H == 4 else 2
         for D in (32, 64):
@@ -2127,8 +2143,9 @@ def _sw64_probe():
 
 
 def phase_d32_bf16():
-    """The bf16 backward pair at head dim 32 against its plain versions on
-    the card: first the 64B-swizzle probe (`_sw64_probe`); then at each of
+    """The bf16 kernels at head dim 32 (the forward `flash_fwd_bf16_d32`
+    and the backward pair) against their plain versions on the card:
+    first the 64B-swizzle probe (`_sw64_probe`); then at each of
     D32_BF16_CASES through `_bf16_case` (the forward's out and LSE within
     BF16_OUT_TOL / BF16_LSE_TOL, then dq, dk and dv within BF16_GRAD_TOL, a
     masked key's dk and dv rows exactly 0; the train case three times,
@@ -2136,7 +2153,10 @@ def phase_d32_bf16():
     `flash_bwd_dkv_bf16` and nothing else, zero-padded at D=24 only (D=16
     runs unpadded on the D=32 kernels); then `flash_attention_lse` in bf16
     on the D32_LSE shard under each of D32_LSE_OFFSETS with `_lse_case`
-    (rows that see no key: out 0, lse <= -1e29, a zero dq row); then bf16
+    (rows that see no key: out 0, lse <= -1e29, a zero dq row); then the
+    forward alone without the LSE: `_bf16_forward` at each of
+    D32_FWD_HEAD_DIMS (D=8 zero-padded to 16) and D32_PREFILL through
+    `_fwd_general_case`, launching `flash_fwd_bf16` only; then bf16
     training of bench_decode_paged's model (BENCH_PAGED_MODEL: head dim
     32) through `_model_paths`: path training_d32_bf16, 3 `fit` steps at
     4 x 128 with compute_dtype="bfloat16", scores within BF16_SCORE_RTOL
@@ -2157,12 +2177,22 @@ def phase_d32_bf16():
         cases += _routed(lab, lambda: _lse_case(
             lab, torch.bfloat16, B, T, H, D, offs, None, gen), kernels,
             False)
+    no_lse = {}
+    for D in D32_FWD_HEAD_DIMS:
+        lab = f"D={D} B=2 T=200 H=4, ragged key mask, no LSE"
+        no_lse[D] = _routed(lab, lambda: _bf16_forward(
+            lab, 2, 200, 4, D, [200, 137], gen), kernels[:1], D == 8)
+    lab, B, L, H, D, valid = D32_PREFILL
+    cases.append(_routed(lab, lambda: _fwd_general_case(
+        lab, B, L, L, H, D, True, valid, gen, dtype=torch.bfloat16),
+        kernels[:1], False))
     _print_cases(cases)
     summary, launches = _model_paths(
         "bench_decode_paged model", BENCH_PAGED_MODEL,
         (("training_d32_bf16", "bfloat16", kernels, BF16_SCORE_RTOL),), (),
         seed=9)
     summary["sw64_probe"] = probe
+    summary["forward_without_lse_max_abs_err"] = no_lse
     print(json.dumps({"d32_bf16_model": summary}))
     return cases, summary, launches
 

@@ -101,7 +101,8 @@
 
 #include <math.h>
 
-using namespace bf16mma;
+using hopper::bf16;
+using hopper::Strides;
 
 namespace {
 

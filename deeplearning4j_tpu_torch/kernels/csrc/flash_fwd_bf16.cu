@@ -28,11 +28,14 @@
 // products take at the tensor cores' ~4000 operations per clock: they
 // have to run under the products, not between them.
 //
-// Head dims 64, 128 and 256 (every path of the port runs 64; the wrapper
-// pads any other D % 8 == 0 above 32 up to the next of these): the Hopper
-// design, `flash_fwd_bf16_sm90` (D=256: four 64-column boxes, 160 KB of
-// tiles, 190 registers), helpers in hopper_bf16.cuh (the same
-// parts as flash_bwd_bf16.cu's dq kernel).
+// Head dims 32, 64, 128 and 256 (every path of the port but bench_decode_
+// paged's model runs 64; the wrapper pads any other D % 8 == 0 up to the
+// next of 16, 32, 64, 128 and 256, and 16 runs on the D=32 kernel): one
+// Hopper design, `flash_fwd_bf16_sm90` at D=64/128/256 (D=256: four
+// 64-column boxes, 160 KB of tiles, 190 registers) and `flash_fwd_bf16_d32`
+// at D=32/16 (below), helpers in hopper_bf16.cuh (the same parts as
+// flash_bwd_bf16.cu's dq kernel). No kernel here uses `mma.sync` or
+// `ldmatrix`.
 //   - One warpgroup (128 threads) per block owns 64 query rows; Q arrives
 //     once by TMA. Every product is `wgmma.mma_async` with f32
 //     accumulators in registers: S = Q K^T as m64n64k16 over D/16 slices,
@@ -87,11 +90,39 @@
 //   longer overlap each other's products; Q as register-A fragments for
 //   S: at D=64 ptxas allocated P's fragments onto Q's registers (wrong
 //   results from the second key tile on).
-// Head dims 16 and 32 (and 8 and 24, padded) run on no path of the port
-// and keep the first design:
-// 4 warps of `mma.sync` m16n8k16 fed by `ldmatrix` from padded tiles that
-// plain 16-byte loads stage (mma_bf16.cuh), one block per (q tile,
-// batch*head), two block barriers per key tile.
+// Head dims 32 and 16 (and 24 and 8, which the wrapper zero-pads to
+// them): `flash_fwd_bf16_d32`, the design above on 64B-swizzled tiles. A
+// row of 32 bf16 is 64 bytes: Q, each K tile and each V tile is one box
+// of 32 columns with CU_TENSOR_MAP_SWIZZLE_64B (8-row atoms of 512 bytes);
+// at D=16 the tensor maps are 16 columns wide and TMA zero-fills each
+// box's other half (zero columns add exactly 0 to S and to O), the store
+// writing 16 columns. S = Q K^T is two k16 m64n64 products from shared
+// memory (`desc_k_major_sw64`); O += P V four k16 m64n32 products, P from
+// registers, V MN-major (`desc_mn_major_sw64`, `wgmma_rs_n32_tb`); O is one
+// 64 x 32 f32 accumulator (16 registers). K and V tiles of 64 keys stream
+// through a ring of NS = 3 stages, each stage with its own K and V
+// `mbarrier`. Budget (ptxas, CUDA 12.8): 74 registers, 0 spills; shared
+// memory 4 KB of Q and 3 x 8 KB of K and V, 29 KB a block, so registers,
+// not shared memory, set the blocks per SM.
+//   Bound at D=32: per unmasked pair 4 * 32 = 128 tensor-core operations
+//   and one exponential. The special-function unit does 16 `ex2` a clock
+//   per SM, 4.18e12 a second on 132 SMs at 1.98 GHz, so an exponential
+//   takes longer on the card than the pair's products (989e12 operations
+//   a second): on long grids the SFU, not the tensor cores, is the floor.
+//   Train shape B=16 T=512 H=8 causal, 1.68e7 pairs: SFU 0.0040 ms,
+//   operations 0.0022, bytes 0.0051 (bytes-bound); at D=16 (H=16) 3.36e7
+//   pairs, SFU 0.0080, bytes 0.0052 (SFU-bound); B=4 T=4096 H=8: SFU
+//   0.064 ms, operations 0.035, bytes 0.010 (SFU-bound).
+//   Measured on the card and not kept (chip_ab.py d32_fwd_bf16, NVIDIA
+//   H100 80GB HBM3; PERF.md): a two-stage ring (1-3% slower); a quarter
+//   of the full pairs' exponentials on the FMA pipe (a degree-5
+//   polynomial after a Cody-Waite split: 4-10% slower, the kernel being
+//   short of the SFU floor); FlashAttention-3's order (the next tile's S
+//   in flight with this tile's P V, the exponentials under the latter;
+//   104 registers, 4 blocks an SM): 3% faster at the train case and
+//   10-20% on grids under one wave, but 7-8% slower at D=16 train and at
+//   B=4 T=4096 H=8; held to 5 blocks an SM (91 registers) 1.5-2% faster
+//   at the train and long cases, 4% slower at D=16 train.
 //
 // Rounding choice for P.V, the product with an f32 operand (on the TPU P
 // is f32, :118-124): P is rounded to bf16 (round to nearest even) and
@@ -103,178 +134,17 @@
 // it equals the TPU kernel's f32 product of the upcast tiles up to the
 // order of the sums.
 #include "hopper_bf16.cuh"
-#include "mma_bf16.cuh"
 
 #include <math.h>
 
-using namespace bf16mma;
+using hopper::bf16;
+using hopper::Strides;
 
 namespace {
 
 constexpr int THREADS = 128;    // 4 warps: one warpgroup
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
-
-// ============================================ D = 16, 32 (mma.sync design)
-constexpr int BQ = 64;          // query rows per block (16 per warp)
-constexpr int BK = 64;          // key rows per tile
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const float* __restrict__ key_mask,
-                      bf16* __restrict__ out, float* __restrict__ lse, int H,
-                      int Tq, int Tk, Strides qs, Strides ks, Strides vs,
-                      int causal, int q_off, int k_off, float scale) {
-  constexpr int LD = D + 8;
-  constexpr int NT = BK / 8;    // 8-key n-tiles of a score tile
-  constexpr int DT = D / 8;     // 8-column n-tiles of the output
-  constexpr int KC = D / 16;    // 16-deep k-chunks of Q.K^T
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);     // [BQ][LD]
-  bf16* Ks = Qs + BQ * LD;                          // [BK][LD]
-  bf16* Vs = Ks + BK * LD;                          // [BK][LD]
-  float* Ms = reinterpret_cast<float*>(Vs + BK * LD);  // [BK] key mask
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  // causal: the last q tiles see the most keys; they go first
-  const hopper::GridTile gt = hopper::grid_tile((Tq + BQ - 1) / BQ, causal);
-  const int q0 = gt.tile * BQ;
-  const int bh = gt.bh;
-  const int b = bh / H, h = bh % H;
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
-  const float* km = key_mask ? key_mask + (long long)b * Tk : nullptr;
-  const int wr = warp * 16;                 // the warp's first tile row
-  const int row_lo = q0 + wr + g;           // this thread's query rows:
-  const int rows[2] = {row_lo, row_lo + 8};  // C-fragment halves 0 and 1
-  // causal: the last key index each row sees (global positions)
-  const int last[2] = {rows[0] + q_off - k_off, rows[1] + q_off - k_off};
-
-  load_tile<D>(Qs, qb, qs.t, q0, BQ, Tq, tid, THREADS);
-  __syncthreads();
-  uint32_t qa[KC][4];
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) load_a(qa[kc], Qs, LD, wr, kc * 16, lane);
-
-  float m_r[2] = {NEG_INF, NEG_INF};   // running max (quad-uniform)
-  float l_r[2] = {0.f, 0.f};           // this thread's part of the sum
-  float o[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
-
-  // causal: no key past the tile's last query row is ever visible
-  const int k_end =
-      causal ? min(Tk, max(0, min(Tq, q0 + BQ) + q_off - k_off)) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();            // every warp is done with the last tile
-    load_tile<D>(Ks, kb, ks.t, k0, BK, Tk, tid, THREADS);
-    load_tile<D>(Vs, vb, vs.t, k0, BK, Tk, tid, THREADS);
-    if (tid < BK) Ms[tid] = (km && k0 + tid < Tk) ? km[k0 + tid] : 1.f;
-    __syncthreads();
-
-    // S = Q K^T: 16 rows x 64 keys per warp
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc)
-#pragma unroll
-      for (int nt = 0; nt < NT; nt += 2) {
-        uint32_t bk[4];
-        load_b_rows_n(bk, Ks, LD, nt * 8, kc * 16, lane);
-        mma(s[nt], qa[kc], bk[0], bk[1]);
-        mma(s[nt + 1], qa[kc], bk[2], bk[3]);
-      }
-
-    // scale, masks (as flash_fwd.cu: scale, key mask, then causal)
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = nt * 8 + 2 * t + (e & 1);
-        const int kpos = k0 + c;
-        float x = s[nt][e] * scale;
-        if (kpos >= Tk) {
-          x = -INFINITY;        // past the ragged edge: weight exactly 0
-        } else {
-          if (!(Ms[c] > 0.f)) x = NEG_INF;
-          // past the row's global position: never visible, weight 0
-          if (causal && kpos > last[e >> 1]) x = -INFINITY;
-        }
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    // online softmax: the four lanes of a quad share a row
-    float corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_r[i], mx[i]);
-      corr[i] = expf(m_r[i] - m_new);
-      m_r[i] = m_new;
-      l_r[i] *= corr[i];
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[nt][e] - m_r[e >> 1]);
-        s[nt][e] = p;
-        l_r[e >> 1] += p;
-      }
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[dt][e] *= corr[e >> 1];
-
-    // O += P V, P rounded to bf16 (the header's rounding choice)
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dt = 0; dt < DT; dt += 2) {
-        uint32_t bv[4];
-        load_b_rows_k(bv, Vs, LD, kk * 16, dt * 8, lane);
-        mma(o[dt], pa, bv[0], bv[1]);
-        mma(o[dt + 1], pa, bv[2], bv[3]);
-      }
-    }
-  }
-
-  float l[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] = l_r[i];
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    l[i] = fmaxf(l[i], 1e-30f);
-  }
-  const long long row_stride = (long long)H * D;
-  bf16* ob = out + ((long long)b * Tq * H + h) * D;
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    const float c[4] = {o[dt][0] / l[0], o[dt][1] / l[0], o[dt][2] / l[1],
-                        o[dt][3] / l[1]};
-    store_rows(ob, row_stride, row_lo, Tq, dt * 8 + 2 * t, c);
-  }
-  if (lse && t == 0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      if (rows[i] < Tq)
-        lse[(long long)bh * Tq + rows[i]] = m_r[i] + logf(l[i]);
-  }
-}
 
 // ====================================================== D = 64, 128 (sm90)
 // Byte offsets from the 1024-aligned base; every tile 1024-aligned.
@@ -500,6 +370,222 @@ flash_fwd_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// ========================================================= D = 32 (sm90)
+// One 64B-swizzled box of 32 columns per operand row (hopper_bf16.cuh); D =
+// 16 on the same kernel, its maps 16 columns wide. Byte offsets from the
+// 1024-aligned base; every tile 1024-aligned.
+constexpr int D32 = 32;         // the kernel's head dim (columns of a box)
+constexpr int NS = 3;           // ring stages of K and V
+struct D32Layout {
+  static constexpr int BQ = 64, BK = 64;
+  static constexpr int TILE = BK * D32 * 2;          // one K or V tile: 4 KB
+  static constexpr int Q = 0;                        // [BQ][32]
+  static constexpr int K = Q + BQ * D32 * 2;         // [NS][BK][32]
+  static constexpr int V = K + NS * TILE;            // [NS][BK][32]
+  static constexpr int BAR = V + NS * TILE;          // Q, K[NS], V[NS]
+  static constexpr int KM = BAR + 8 * (1 + 2 * NS);  // [2][BK] f32
+  static constexpr int BYTES = KM + 4 * 2 * BK;
+};
+
+// Tile j's K and V live in stage j % NS, whose barriers complete their
+// (j / NS)-th phase; its key mask in slot j % 2 (written after tile j - 1,
+// read before the barrier that ends tile j).
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_bf16_d32(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const float* __restrict__ key_mask,
+                   bf16* __restrict__ out, float* __restrict__ lse, int H,
+                   int Tq, int Tk, int D, int causal, int q_off, int k_off,
+                   float scale) {
+  using L = D32Layout;
+  constexpr int BQ = L::BQ, BK = L::BK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hopper::align_1024(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(sm + L::Q);
+  bf16* Ks = reinterpret_cast<bf16*>(sm + L::K);
+  bf16* Vs = reinterpret_cast<bf16*>(sm + L::V);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* kbar = qbar + 1;
+  uint64_t* vbar = kbar + NS;
+  float* kms = reinterpret_cast<float*>(sm + L::KM);
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  // causal: the last q tiles see the most keys; they go first
+  const hopper::GridTile gt = hopper::grid_tile((Tq + BQ - 1) / BQ, causal);
+  const int bh = gt.bh, b = bh / H, h = bh % H;
+  const int q0 = gt.tile * BQ;
+  // causal: no key past the tile's last query row is ever visible
+  const int k_end =
+      causal ? min(Tk, max(0, min(Tq, q0 + BQ) + q_off - k_off)) : Tk;
+  const int n_tiles = (k_end + BK - 1) / BK;
+  const float scale2 = scale * LOG2E;
+  const float* km = key_mask ? key_mask + (long long)b * Tk : nullptr;
+  const int r0 = q0 + (tid / 32) * 16 + g;   // this thread's rows r0, r0+8
+  // causal: the last key index each row sees
+  const int last[2] = {r0 + q_off - k_off, r0 + 8 + q_off - k_off};
+
+  float m[2] = {NEG_INF, NEG_INF};  // running max, natural units (per quad)
+  float l[2] = {0.f, 0.f};          // this thread's part of the row sum
+  float o[16];                      // O: 64 rows x 32 columns, f32
+#pragma unroll
+  for (int e = 0; e < 16; ++e) o[e] = 0.f;
+
+  // the key mask of key k (1 past the ragged edge: the edge has its test)
+  auto key_ok = [&](int k) { return (km && k < Tk) ? km[k] : 1.f; };
+  auto load_kv = [&](int tile) {
+    const int st = tile % NS;
+    hopper::mbar_expect_tx(&kbar[st], L::TILE);
+    hopper::tma_load_4d(Ks + st * BK * D32, &kmap, &kbar[st], 0, h,
+                        tile * BK, b);
+    hopper::mbar_expect_tx(&vbar[st], L::TILE);
+    hopper::tma_load_4d(Vs + st * BK * D32, &vmap, &vbar[st], 0, h,
+                        tile * BK, b);
+  };
+
+  if (n_tiles > 0) {
+    if (tid == 0) {
+      for (int i = 0; i < 1 + 2 * NS; ++i) hopper::mbar_init(&qbar[i], 1);
+      hopper::mbar_init_fence();
+    }
+    const float km0 = tid < BK ? key_ok(tid) : 1.f;
+    if (tid < BK) kms[tid] = km0;
+    // any masked key in tile 0; the barrier also publishes the mbarriers
+    int masked = __syncthreads_or(tid < BK && !(km0 > 0.f));
+    if (tid == 0) {
+      hopper::mbar_expect_tx(qbar, BQ * D32 * 2);
+      hopper::tma_load_4d(Qs, &qmap, qbar, 0, h, q0, b);
+      for (int j = 0; j < NS && j < n_tiles; ++j) load_kv(j);
+    }
+    hopper::mbar_wait(qbar, 0);
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % NS, k0 = j * BK;
+      const bf16* Kt = Ks + st * BK * D32;
+      const bf16* Vt = Vs + st * BK * D32;
+      // the next tile's key mask, fetched under this tile's products
+      const float km_next =
+          (tid < BK && j + 1 < n_tiles) ? key_ok(k0 + BK + tid) : 1.f;
+      hopper::mbar_wait(&kbar[st], (j / NS) & 1);
+
+      // S = Q K^T: 64 rows x 64 keys, two k16 slices of the head dim
+      float s[32];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D32 / 16; ++kk)
+        hopper::wgmma_ss(s, hopper::desc_k_major_sw64(Qs, kk),
+                         hopper::desc_k_major_sw64(Kt, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(s);
+
+      // x = s * scale, masked; p = exp(x - m_new) in f32. A full pair
+      // (every row sees every key) runs no test.
+      const bool full = k0 + BK <= Tk && !masked &&
+                        (!causal || k0 + BK - 1 + k_off <= q0 + q_off);
+      float mx[2] = {-INFINITY, -INFINITY};
+      if (full) {
+        // max(s * scale) from the raw scores (rounding is monotone)
+        if (scale >= 0.f) {
+#pragma unroll
+          for (int e = 0; e < 32; ++e)
+            mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 32; ++e)
+            mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], -s[e]);
+        }
+        mx[0] *= fabsf(scale);
+        mx[1] *= fabsf(scale);
+      } else {
+        // as flash_fwd.cu: scale, key mask, then causal
+        const float* mrow = kms + (j & 1) * BK;
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int i = (e >> 1) & 1;
+          const int c = 8 * (e >> 2) + 2 * t + (e & 1);
+          const int kpos = k0 + c;
+          float x = s[e] * scale;
+          if (kpos >= Tk) {
+            x = -INFINITY;      // past the ragged edge: weight exactly 0
+          } else {
+            if (!(mrow[c] > 0.f)) x = NEG_INF;
+            // past the row's global position: never visible, weight 0
+            if (causal && kpos > last[i]) x = -INFINITY;
+          }
+          s[e] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+      }
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {   // the four lanes of a quad share a row
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        corr[i] = hopper::exp2_approx((m[i] - m_new) * LOG2E);
+        m[i] = m_new;
+        l[i] *= corr[i];
+      }
+      if (full) {
+        const float ml[2] = {m[0] * LOG2E, m[1] * LOG2E};
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int i = (e >> 1) & 1;
+          s[e] = hopper::exp2_approx(fmaf(s[e], scale2, -ml[i]));
+          l[i] += s[e];
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int i = (e >> 1) & 1;
+          s[e] = hopper::exp2_approx((s[e] - m[i]) * LOG2E);
+          l[i] += s[e];
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 16; ++e) o[e] *= corr[(e >> 1) & 1];
+
+      // O += P V: P from registers (bf16), V MN-major, n = 32
+      hopper::mbar_wait(&vbar[st], (j / NS) & 1);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t a[4];
+        hopper::acc_to_a(a, s, kk);
+        hopper::wgmma_rs_n32_tb(o, a, hopper::desc_mn_major_sw64(Vt, BK, kk));
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(o);
+
+      if (tid < BK) kms[((j + 1) & 1) * BK + tid] = km_next;
+      // the stage is consumed by every warp: refill it
+      masked = __syncthreads_or(tid < BK && !(km_next > 0.f));
+      if (tid == 0 && j + NS < n_tiles) load_kv(j + NS);
+    }
+  }
+
+  // l over the quad; out = O / max(l, 1e-30), rounded to bf16 once
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = fmaxf(l[i], 1e-30f);
+  }
+#pragma unroll
+  for (int e = 0; e < 16; ++e) o[e] /= l[(e >> 1) & 1];
+  hopper::store_acc(out + ((long long)b * Tq * H + h) * D, (long long)H * D,
+                    q0, Tq, 0, o, tid, D);
+  if (lse && t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (r0 + 8 * i < Tq)
+        lse[(long long)bh * Tq + r0 + 8 * i] = m[i] + logf(l[i]);
+  }
+}
+
 struct Operands {
   const bf16 *q, *k, *v;
   const float* key_mask;
@@ -511,21 +597,28 @@ struct Operands {
   float scale;
 };
 
-template <int D>
-int launch(const Operands& a, cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * (BQ + 2 * BK) * (D + 8) +
-                      sizeof(float) * BK;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+int launch_d32(const Operands& a, int D, cudaStream_t stream) {
+  using L = D32Layout;
+  const struct { const bf16* p; int T; Strides s; } ops[3] = {
+      {a.q, a.Tq, a.qs}, {a.k, a.Tk, a.ks}, {a.v, a.Tk, a.vs}};
+  CUtensorMap m[3];
+  for (int i = 0; i < 3; ++i) {
+    const int err = hopper::make_tile_map(
+        &m[i], ops[i].p, a.B, ops[i].T, a.H, D, ops[i].s.b, ops[i].s.t,
+        ops[i].s.h, L::BQ, hopper::BOX32_COLS);
+    if (err) return err;
+  }
+  const int smem = L::BYTES + 1024;
+  int err = (int)cudaFuncSetAttribute(
+      flash_fwd_bf16_d32, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
   dim3 grid;
-  if (const int e = hopper::grid_1d((a.Tq + BQ - 1) / BQ,
-                                    (long long)a.B * a.H, &grid))
-    return e;
-  flash_fwd_bf16_kernel<D><<<grid, THREADS, smem, stream>>>(
-      a.q, a.k, a.v, a.key_mask, a.out, a.lse, a.H, a.Tq, a.Tk, a.qs, a.ks,
-      a.vs, a.causal, a.q_off, a.k_off, a.scale);
+  err = hopper::grid_1d((a.Tq + L::BQ - 1) / L::BQ, (long long)a.B * a.H,
+                        &grid);
+  if (err) return err;
+  flash_fwd_bf16_d32<<<grid, THREADS, smem, stream>>>(
+      m[0], m[1], m[2], a.key_mask, a.out, a.lse, a.H, a.Tq, a.Tk, D,
+      a.causal, a.q_off, a.k_off, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -576,8 +669,8 @@ extern "C" int flash_fwd_bf16(
                    Strides{v_sb, v_st, v_sh}, causal, q_off, k_off, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch<16>(a, st);
-    case 32: return launch<32>(a, st);
+    case 16:
+    case 32: return launch_d32(a, D, st);
     case 64: return launch_sm90<64>(a, st);
     case 128: return launch_sm90<128>(a, st);
     case 256: return launch_sm90<256>(a, st);

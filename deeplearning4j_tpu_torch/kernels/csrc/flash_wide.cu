@@ -212,7 +212,7 @@
 
 namespace {
 
-using bf16mma::bf16;
+using hopper::bf16;
 
 constexpr float NEG_INF = -1e30f;
 

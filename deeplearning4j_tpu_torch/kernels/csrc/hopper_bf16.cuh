@@ -1,12 +1,12 @@
 // hopper_bf16.cuh: the Hopper (sm_90a) pieces of the bf16 attention
 // kernels: warpgroup products (`wgmma.mma_async`), their shared-memory
-// descriptors, TMA tile loads and the `mbarrier`s that report them.
-// flash_fwd_bf16.cu and flash_bwd_bf16.cu use it at head dims 64, 128 and
-// 256, and flash_bwd_bf16.cu at 32 (and 16) through the 64B pieces below:
-// the forward's S = Q K^T is the backward's, and its O += P V is the
-// backward's dQ += dS K (register A, B MN-major). The warp-level
-// `mma.sync` pieces stay in mma_bf16.cuh, which also gives this header
-// its bf16 type, shared-memory addresses and bf16 packing. The float32
+// descriptors, TMA tile loads and the `mbarrier`s that report them, and
+// the bf16 type, strides, shared-memory addresses and bf16 packing every
+// bf16 kernel takes. flash_fwd_bf16.cu and flash_bwd_bf16.cu use it at
+// head dims 64, 128 and 256, and at 32 (and 16) through the 64B pieces
+// below: the forward's S = Q K^T is the backward's, and its O += P V is
+// the backward's dQ += dS K (register A, B MN-major). No kernel of the
+// port uses the warp-level `mma.sync` or `ldmatrix`. The float32
 // kernels at D=64 (flash_fwd.cu, flash_bwd.cu) take their mbarriers, TMA
 // copy, descriptors, wgmma ordering and tensor maps from here through
 // hopper_f32.cuh, which adds the TF32 pieces.
@@ -58,14 +58,27 @@
 // a register in place so the compiler moves no access across those points.
 #pragma once
 #include <cuda.h>
-
-#include "mma_bf16.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace hopper {
 
-using bf16mma::bf16;
-using bf16mma::pack_bf16;
-using bf16mma::smem_u32;
+typedef __nv_bfloat16 bf16;
+
+struct Strides {
+  long long b, t, h;            // element strides; the head dim is dense
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// two f32 -> one register of two bf16 (round to nearest even), lo first
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 constexpr int BOX_COLS = 64;      // bf16 columns of one 128B-swizzled box
 constexpr int ATOM_BYTES = 1024;  // 8 rows x 128 bytes

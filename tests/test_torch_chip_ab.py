@@ -225,7 +225,8 @@ def test_rank_turn_takes_each_kernel_not_yet_redesigned_once():
     case with H * D = 256; the f32 forward, the f32 pair at D=128 and 256,
     the bf16 pair at D=16 and 32 and both wide pairs are redesigned, so no
     forward, no bf16 case, no D=128 or 256 and nothing wide (the bf16
-    forward at D=16 and 32 is timed by `d32_bwd_bf16`'s `_bf16_case`)."""
+    forward at D=16 and 32 is timed by `d32_fwd_bf16`'s `_forward_case`
+    and `d32_bwd_bf16`'s `_bf16_case`)."""
     assert chip_ab.RANK == [("bwd", 16), ("bwd", 32)]
     assert all(256 % D == 0 for _, D in chip_ab.RANK)
     assert not hasattr(chip_ab, "RANK_WIDE")
@@ -431,9 +432,78 @@ def test_d32_bwd_bf16_turn_takes_the_pair_at_chip_smokes_d32_shapes():
     assert [r["case"] for r in recs] == [c[1] for c in calls]
 
 
+def test_d32_fwd_bf16_turn_takes_the_forward_at_chip_smokes_d32_shapes():
+    """`run ROOT LABEL d32_fwd_bf16` times the bf16 forward at head dim 32
+    alone through `_forward_case` in bf16, causal with the LSE unless
+    named, in this order: the train case at D=32 (H=8) and at D=16 (H=16),
+    the long B=4 T=4096 H=8 (0.0348 ms of operations at 989 TFLOP/s, 0.064
+    ms of `ex2` at 16 a clock per SM on 132 SMs at 1.98 GHz), B=2 T=200 H=4
+    with a ragged key mask at D=32, 24, 16 and 8, Tq=37 Tk=53 not causal
+    with a key mask at D=32 and 16, chip_smoke's B=8 T=512 H=4 ragged case,
+    bench_decode_paged's model's training shape B=4 T=128 H=4, the
+    head-count cases (B=16385 H=4 T=16, 65536 heads at T=2), its prefill
+    B=1 L=24 H=4 with a key mask and no LSE (chip_smoke's D32_PREFILL), and
+    `flash_attention_lse` on the D32_LSE shard under each of
+    D32_LSE_OFFSETS (diagonal, past, rows without keys)."""
+    import chip_smoke
+    import torch
+    conf = chip_smoke.BENCH_PAGED_MODEL
+    lab, B, L, H, D, valid = chip_smoke.D32_PREFILL
+    Bl, Tl, Hl, Dl = chip_smoke.D32_LSE
+    want = [
+        ("D=32 train B=16 T=512 H=8", 16, 512, 512, 8, 32, True, None, True,
+         None),
+        ("D=16 train B=16 T=512 H=16", 16, 512, 512, 16, 16, True, None,
+         True, None),
+        ("D=32 long B=4 T=4096 H=8", 4, 4096, 4096, 8, 32, True, None, True,
+         None),
+        *((f"D={d} B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, d, True,
+           [200, 137], True, None) for d in (32, 24, 16, 8)),
+        *((f"D={d} Tq=37 Tk=53, key mask", 2, 37, 53, 4, d, False, [53, 20],
+           True, None) for d in (32, 16)),
+        ("D=32 B=8 T=512 H=4, ragged key mask", 8, 512, 512, 4, 32, True,
+         chip_smoke.D256_FULL_VALID, True, None),
+        ("D=32 model B=4 T=128 H=4", chip_smoke.WIDE_BATCH,
+         chip_smoke.WIDE_SEQ, chip_smoke.WIDE_SEQ, conf["n_heads"],
+         conf["d_model"] // conf["n_heads"], True, None, True, None),
+        ("D=32 B=16385 H=4 T=16", 16385, 16, 16, 4, 32, True, None, True,
+         None),
+        ("D=32 B=1 H=65536 T=2", 1, 2, 2, 65536, 32, True, None, True, None),
+        (lab, B, L, L, H, D, True, valid, False, None),
+        *((name, Bl, Tl, Tl, Hl, Dl, True, None, True, offs)
+          for name, offs in chip_smoke.D32_LSE_OFFSETS)]
+    assert chip_ab.D32_FWD_BF16 == want
+    assert (B, L, H, D, valid) == (1, 24, 4, 32, [24])
+    # the train, ragged, Tq=37 and model shapes are chip_smoke's own
+    smoke = {c[0]: c[1:8] for c in chip_smoke.D32_BF16_CASES}
+    for c in want:
+        if c[0] in smoke:
+            assert c[1:8] == smoke[c[0]], c[0]
+    assert sum(c[0] in smoke for c in want) == 9
+    pairs = 4 * 8 * 4096 * 4097 // 2
+    assert 4 * 32 * pairs / 989e12 * 1e3 == pytest.approx(0.03475, rel=1e-3)
+    assert pairs / (16 * 132 * 1.98e9) * 1e3 == pytest.approx(0.0642,
+                                                              rel=1e-3)
+    calls = []
+
+    def case(cs, label, dtype, B, Tq, H, D, valid, lse, gen, Tk=None,
+             causal=True, offsets=None):
+        assert dtype == torch.bfloat16
+        calls.append((label, B, Tq, Tk, H, D, causal, valid, lse, offsets))
+        return {"case": label}
+    orig = chip_ab._forward_case
+    chip_ab._forward_case = case
+    try:
+        recs = chip_ab._d32_fwd_bf16(SimpleNamespace())
+    finally:
+        chip_ab._forward_case = orig
+    assert calls == want
+    assert [r["case"] for r in recs] == [c[0] for c in want]
+
+
 @pytest.mark.parametrize("dtype", ["wide", "wide_bwd", "wide_bwd_bf16",
                                    "d256", "d256_bwd", "rank", "d128_bwd",
-                                   "d32_bwd_bf16"])
+                                   "d32_bwd_bf16", "d32_fwd_bf16"])
 def test_wide_and_rank_turns_refuse_without_a_card(dtype):
     res = subprocess.run([sys.executable, str(ROOT / "chip_ab.py"), "run",
                           str(ROOT), "change", dtype], capture_output=True,
