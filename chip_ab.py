@@ -8,6 +8,7 @@
     python3 chip_ab.py run ROOT LABEL d128_bwd
     python3 chip_ab.py run ROOT LABEL d32_bwd_bf16
     python3 chip_ab.py run ROOT LABEL d32_fwd_bf16
+    python3 chip_ab.py run ROOT LABEL padded_bwd_bf16
     python3 chip_ab.py run ROOT LABEL SET --no-gates   # any set above
     python3 chip_ab.py summary LOG...         # table of the turns
     python3 chip_ab.py sweep ROOT LABEL       # decode at each cluster size
@@ -96,7 +97,20 @@ bench_decode_paged's model's training shape B=4 T=128 H=4, the head-count
 cases B=16385 H=4 T=16 and B=1 H=65536 T=2, bench_decode_paged's prefill
 B=1 L=24 H=4 with a key mask and no LSE, and `flash_attention_lse` on
 D32_LSE's shard, diagonal, past and offsets 0/512 (rows 0..511 see no key:
-out 0, lse <= -1e29). With `rank`, the kernels no PR has redesigned
+out 0, lse <= -1e29). With `padded_bwd_bf16`, the bf16 pair at head dims
+no kernel is compiled at, through `_bf16_case` (the forward with the
+LSE, then dq and dk/dv, each timed apart and gated against the plain
+versions), each beside the same shape at its compiled width: B=2 T=200
+H=4 causal with a ragged key mask at D=8, 24 (width 32), 40, 48, 56
+(64), 72, 80, 96, 120 (128), 136, 200, 248 (256) and at 32, 64, 128 and
+256; B=4 T=4096 H=8 causal at D=96 and 128 (bitwise twice more at 96);
+then `_lse_case` in bf16 at B=1 T=1024 H=2 on a diagonal shard, a past
+one and offsets 0/512 at D=136 and 256 (PADDED_BWD_BF16 and
+PADDED_LSE_DIMS, kept here so that a parent checkout times the same
+cases). Each backward record also carries the kernels one call of its
+entry launches, counted from a CUDA graph (`_kernels_per_call` of ROOT's
+chip_smoke.py) on inputs of the same shape: the pad and slice copies a
+parent makes around the kernel show there. With `rank`, the kernels no PR has redesigned
 yet, once each at the train case (B=16 T=512 causal, H so that H * D =
 256): phase 2's `_bwd_case` at D=16 and 32 (the f32 pair). Inputs come from
 fixed seeds, so both checkouts see the same tensors, and every gate of
@@ -341,6 +355,21 @@ D32_FWD_BF16 = [
     *((lab, 1, 1024, 1024, 2, 32, True, None, True, offs)
       for lab, offs in D32_LSE_OFFSETS),
 ]
+# the bf16 pair at padded head dims beside their compiled widths
+# (`padded_bwd_bf16`): `_bf16_case` (label, B, Tq, Tk, H, D, causal, valid
+# key lengths or None, a bitwise repeat): chip_smoke.py's
+# PADDED_BF16_BWD_CASES, D=48 and 80 (PERF.md's padded rows) and each
+# compiled width at the same shapes; then `_lse_case` in bf16 at
+# B=1 T=1024 H=2 under D32_LSE_OFFSETS' offsets at each of PADDED_LSE_DIMS
+PADDED_BWD_BF16 = [
+    *((f"D={D} B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, D, True,
+       [200, 137], False)
+      for D in (8, 24, 32, 40, 48, 56, 64, 72, 80, 96, 120, 128, 136, 200,
+                248, 256)),
+    ("D=96 long B=4 T=4096 H=8", 4, 4096, 4096, 8, 96, True, None, True),
+    ("D=128 long B=4 T=4096 H=8", 4, 4096, 4096, 8, 128, True, None, False),
+]
+PADDED_LSE_DIMS = (136, 256)
 # the kernels not yet redesigned, at the train case with H * D = 256:
 # (case function, D)
 RANK = [*(("bwd", D) for D in (16, 32))]
@@ -524,6 +553,44 @@ def _d32_fwd_bf16(cs):
             in D32_FWD_BF16]
 
 
+def _kernels_a_call(cs, B, Tq, Tk, H, D, causal, valid, gen):
+    """{kernel: kernels one call launches} of ROOT's bf16 backward entries
+    on seeded inputs of one shape, each call captured in a CUDA graph by
+    ROOT's `_kernels_per_call` (the entries ran at this head dim before,
+    so nothing loads during the capture)."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import (
+        attention_delta, flash_attention_plain, flash_bwd_dkv, flash_bwd_dq)
+    q, g = (torch.randn((B, Tq, H, D), generator=gen).to(
+        cs.DEVICE, torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, Tk, H, D), generator=gen).to(
+        cs.DEVICE, torch.bfloat16) for _ in range(2))
+    kw = dict(causal=causal, key_mask=cs._key_mask(B, Tk, valid))
+    out, lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    delta = attention_delta(out, g)
+    return {name: cs._kernels_per_call(lambda: fn(q, k, v, g, lse, delta,
+                                                  **kw))[0]
+            for name, fn in (("flash_bwd_dq_bf16", flash_bwd_dq),
+                             ("flash_bwd_dkv_bf16", flash_bwd_dkv))}
+
+
+def _padded_bwd_bf16(cs):
+    import torch
+    gen = torch.Generator().manual_seed(22)
+    recs = []
+    for lab, B, Tq, Tk, H, D, causal, valid, repeat in PADDED_BWD_BF16:
+        got = cs._bf16_case(lab, B, Tq, Tk, H, D, causal, valid, gen,
+                            repeat=repeat)
+        per = _kernels_a_call(cs, B, Tq, Tk, H, D, causal, valid, gen)
+        recs += [{**r, "kernels_per_call": per.get(r["name"])} for r in got]
+    for D in PADDED_LSE_DIMS:
+        for lab, offs in D32_LSE_OFFSETS:
+            recs += cs._lse_case(lab.replace("D=32", f"D={D}"),
+                                 torch.bfloat16, 1, 1024, 2, D, offs, None,
+                                 gen)
+    return recs
+
+
 def _rank(cs):
     import torch
     gen = torch.Generator().manual_seed(9)
@@ -557,7 +624,7 @@ def run(root, label, dtype="bf16", gates=True):
             "wide_bwd_bf16": lambda cs: _wide_bwd(cs, bf16=True),
             "d256": _d256, "d256_bwd": _d256_bwd, "d128_bwd": _d128_bwd,
             "d32_bwd_bf16": _d32_bwd_bf16, "d32_fwd_bf16": _d32_fwd_bf16,
-            "rank": _rank}
+            "padded_bwd_bf16": _padded_bwd_bf16, "rank": _rank}
     if dtype in sets:
         _print_turn(label, root, sets[dtype](cs), cs, failed)
         return
@@ -638,12 +705,14 @@ def summary(logs):
         for line in Path(path).read_text().splitlines():
             if line.startswith('{"ab"'):
                 turns.append(json.loads(line))
-    sides, walls, cases, libs = {}, {}, {}, {}
+    sides, walls, cases, libs, per_call = {}, {}, {}, {}, {}
     for t in turns:
         for c in t["cases"]:
             key = (c["name"], c["case"])
             sides.setdefault(key, {}).setdefault(t["ab"], []).append(
                 c["device_ms"])
+            if c.get("kernels_per_call") is not None:
+                per_call.setdefault(key, {})[t["ab"]] = c["kernels_per_call"]
             walls.setdefault(key, {}).setdefault(t["ab"], []).append(
                 c.get("ms"))
             cases[key] = c
@@ -682,6 +751,9 @@ def summary(logs):
         lib = [x for x in libs.get((name, case), []) if x is not None]
         row["sdpa_device_ms"] = sum(lib) / len(lib) if lib else None
         row["vs_sdpa"] = mb / row["sdpa_device_ms"] if lib else None
+        calls = per_call.get((name, case), {})
+        if calls:
+            row["kernels_per_call"] = calls
         rows.append(row)
         pair = lambda d, n: (" / ".join(f"{d[x]:.{n}f}" for x in (base, new))
                              if d else "-")
@@ -694,7 +766,10 @@ def summary(logs):
               f"{pair(row.get('tflops'), 0):>16}"
               f"{pair(row.get('bound_share'), 3):>14}"
               f"{pair(row.get('simt_bound_share'), 3):>20}{sdpa}"
-              f"{pair(row.get('kernel_ms'), 4):>18}")
+              f"{pair(row.get('kernel_ms'), 4):>18}"
+              + (" | kernels a call " + " / ".join(
+                  str(calls.get(x, "-")) for x in (base, new))
+                 if calls else ""))
     print(json.dumps({"ab_summary": rows}))
 
 
@@ -704,7 +779,7 @@ if __name__ == "__main__":
                                  ["wide"], ["wide_bwd"], ["wide_bwd_bf16"],
                                  ["d256"], ["d256_bwd"], ["d128_bwd"],
                                  ["d32_bwd_bf16"], ["d32_fwd_bf16"],
-                                 ["rank"]):
+                                 ["padded_bwd_bf16"], ["rank"]):
         run(*sys.argv[2:])
     elif len(sys.argv) >= 3 and sys.argv[1] == "summary":
         summary(sys.argv[2:])

@@ -107,7 +107,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    causal with a ragged key mask, and through `flash_decode` and
    `flash_decode_paged` at the step shape, each within phase 2's bars of
    its plain version, with the launch counters showing the kernel
-   launched (`<kernel>_padded` calls at 48 and 80, none at 256) and no
+   launched (`<kernel>_padded` calls at 48 and 80, none at 256; the bf16
+   backward pair reads the true D and counts none at any width) and no
    plain route;
    D=20 (D % 8 != 0) on every entry: one `<kernel>_plain_by_shape` call,
    no launch, equal to plain; and `transformer_lm(d_model=192,
@@ -186,15 +187,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    builds the CUDA-core pair at D=128.
 2f. The bf16 kernels at head dim 32, the forward `flash_fwd_bf16_d32`
    and the backward pair `flash_bwd_dq_bf16_d32` and
-   `flash_bwd_dkv_bf16_d32` (64B-swizzled TMA tiles, `wgmma`; also D=24
-   zero-padded to 32, and D=16 on the same kernels through TMA zero
-   fill): first the 64B-swizzle probe (`flash_bwd_bf16_sw64_probe`: one
+   `flash_bwd_dkv_bf16_d32` (64B-swizzled TMA tiles, `wgmma`; also D=24,
+   the forward zero-padded to 32 and the pair on maps 24 columns wide,
+   and D=16 on the same kernels through TMA zero fill): first the
+   64B-swizzle probe (`flash_bwd_bf16_sw64_probe`: one
    m64n32 product pair from 64B-swizzled tiles, K-major and MN-major with
    A from registers, against torch.matmul within 1e-3); then at each of
    D32_BF16_CASES through `_bf16_case` (the forward's out and LSE, then
    dq, dk and dv within BF16_GRAD_TOL, a masked key's dk and dv rows
-   exactly 0), launching the three bf16 kernels only (padded at D=24
-   only): the train case B=16 T=512 H=8 three times, bitwise equal; B=2
+   exactly 0), launching the three bf16 kernels only (the forward padded
+   at D=24 only, the pair never): the train case B=16 T=512 H=8 three times, bitwise equal; B=2
    T=200 H=4 causal with a ragged key mask at D=32 and 24; Tq=37 Tk=53
    not causal with a key mask; B=8 T=512 H=4 causal with a ragged key
    mask; the training shape of the model below, B=4 T=128 H=4 causal,
@@ -213,6 +215,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    kernel launching 6 times and nothing else. Phase 1 fails if ptxas
    reports a spill in any of the three D=32 kernels or does not report
    one of them, or still builds the first `mma.sync` forward or pair.
+2g. The bf16 backward pair at head dims no kernel is compiled at, on
+   tensor maps of the true D (TMA zero-fills each box past column D) and
+   stores clipped to D, with no padding copy: first the out-of-bounds
+   probe (`flash_bwd_bf16_oob_probe`: a 64-column box that starts past an
+   8-column map lands as zeros and its bytes complete the mbarrier, and
+   the box at the map's edge lands as swizzled; polled a bounded number of
+   times, so a count that never completes fails the probe and not the
+   card); then at each of PADDED_BF16_BWD_CASES through `_bf16_case`: the
+   pair at D=8, 24, 40, 56, 72, 96, 120, 136, 200 and 248 at B=2 T=200 H=4
+   causal with a ragged key mask and at D=96 B=4 T=4096 H=8 causal (three
+   times, bitwise equal); then `flash_attention_lse` in bf16 at B=1 T=1024
+   H=2 D=136 (`_lse_case`: diagonal, past, offsets 0/512 with rows that
+   see no key: out 0, lse <= -1e29, dq rows 0). Each within the bf16 bars
+   (a masked key's dk and dv rows exactly 0), launching the three bf16
+   kernels only, `flash_fwd_bf16_padded` counted (the forward still pads)
+   and no `_padded`, `_wide` or plain-route call of the pair, each
+   backward entry one kernel a call (`_kernels_per_call`: no pad, slice or
+   layout copy around it; `_bf16_case` and `_lse_case` hold every
+   backward entry that takes its D unpadded to that, in every phase). Phase 1 fails if ptxas reports a spill in
+   `flash_bwd_dq_bf16_sm90` or `flash_bwd_dkv_bf16_sm90` at width 64, 128
+   or 256, or does not report one of them.
 3. The serving path: `transformer_lm` at full width (vocab 256, d_model
    256, 4 layers, 4 heads) with `use_pallas=True` and
    `synthetic_params(seed=0)`, served by
@@ -308,7 +331,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    bench_decode_paged's model's training_d32_bf16) must count zero
    padded and zero plain-route calls, and
    only the D=320 model's paths wide ones; every kernel must have
-   launched on its main path. The run's time, then one line
+   launched on its main path (phase 2g adds cases, no path: no model of
+   the zoo runs the bf16 pair at a padded head dim). The run's time, then
+   one line
    `{"kernels": [...]}` with each of
    the 14 kernels' numbers (the six wide entries' at the D=320 model's
    training shape; `launches_by_path` over every path; the decode
@@ -463,8 +488,8 @@ D128_LSE_OFFSETS = (("D=128 diagonal", (1024, 1024)),
 # the head dim of most public decoder LMs: two heads of 128
 D128_MODEL = dict(vocab_size=256, d_model=256, n_layers=2, n_heads=2)
 # the bf16 backward pair at head dim 32 (`flash_bwd_dq_bf16_d32` and
-# `flash_bwd_dkv_bf16_d32`, also D=24 zero-padded to 32 and D=16 on the
-# same kernels): (label, B, Tq, Tk, H, D, causal, valid key lengths or
+# `flash_bwd_dkv_bf16_d32`, also D=24 and D=16 on the same kernels, on
+# maps of the true D; the forward pads D=24 to 32): (label, B, Tq, Tk, H, D, causal, valid key lengths or
 # None, a bitwise repeat) through `_bf16_case` (the forward with the LSE,
 # then the pair), the train case first; then `flash_attention_lse` in
 # bf16 on D32_LSE under each of D32_LSE_OFFSETS. chip_ab.py's
@@ -499,6 +524,26 @@ D32_FWD_HEAD_DIMS = (32, 16, 8)
 D32_PREFILL = ("bf16 prefill B=1 L=24 H=4 D=32, key mask", 1, 24, 4, 32,
                [24])
 SW64_PROBE_TOL = 1e-3
+# the bf16 backward pair at head dims no kernel is compiled at, on tensor
+# maps of the true D (no padding copies): (label, B, Tq, Tk, H, D, causal,
+# valid key lengths or None, a bitwise repeat) through `_bf16_case`, the
+# pair at every compiled width's padded range (8 and 24 on width 32, 40
+# and 56 on 64, 72, 96 and 120 on 128, 136, 200 and 248 on 256: at 136
+# each tile's last box lies wholly past D) and a long shape at D=96
+# (GPT-NeoX-20B's head dim); then `flash_attention_lse` in bf16 on
+# PADDED_LSE under each of PADDED_LSE_OFFSETS. chip_ab.py's
+# `padded_bwd_bf16` set times the same cases beside their compiled widths.
+PADDED_BF16_BWD_CASES = [
+    *((f"D={D} B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, D, True,
+       [200, 137], False) for D in (8, 24, 40, 56, 72, 96, 120, 136, 200,
+                                    248)),
+    ("D=96 long B=4 T=4096 H=8", 4, 4096, 4096, 8, 96, True, None, True),
+]
+PADDED_LSE = (1, 1024, 2, 136)
+PADDED_LSE_OFFSETS = (("D=136 diagonal", (1024, 1024)),
+                      ("D=136 past", (1024, 0)),
+                      ("D=136 rows without keys", (0, 512)))
+OOB_PROBE_SPINS = 1 << 20
 # bench_decode_paged's model and requests (bench.py:724-748)
 BENCH_PAGED_MODEL = dict(vocab_size=256, d_model=128, n_layers=2, n_heads=4)
 BENCH_PAGED_SERVE = dict(decode_slots=4, decode_max_len=128,
@@ -663,6 +708,8 @@ def phase_card():
     # The bf16 kernels at head dims 32 and 16 are `flash_fwd_bf16_d32`,
     # `flash_bwd_dq_bf16_d32` and `flash_bwd_dkv_bf16_d32` (64B swizzle,
     # wgmma): no spill, and no `mma.sync` kernel is built at either width.
+    # The bf16 pair at widths 64, 128 and 256 (`flash_bwd_*_bf16_sm90`,
+    # every head dim from 40 to 256 on the true D): no spill either.
     for lib, kernel, widths in (("flash_fwd", "flash_fwd_f32_d256", ()),
                                 ("flash_bwd", "flash_bwd_f32_ws",
                                  (128, 256)),
@@ -671,7 +718,11 @@ def phase_card():
                                 ("flash_bwd_bf16", "flash_bwd_dq_bf16_d32",
                                  ()),
                                 ("flash_bwd_bf16", "flash_bwd_dkv_bf16_d32",
-                                 ())):
+                                 ()),
+                                ("flash_bwd_bf16", "flash_bwd_dq_bf16_sm90",
+                                 (64, 128, 256)),
+                                ("flash_bwd_bf16", "flash_bwd_dkv_bf16_sm90",
+                                 (64, 128, 256))):
         if lib not in logs:
             continue
         lines = logs[lib].splitlines()
@@ -1141,8 +1192,9 @@ def _bf16_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
     """The three bf16 kernels at one shape: q, k, v and dO ~ N(0, 1)
     rounded to bf16. The forward kernel (out and LSE) against
     `flash_attention_plain`; the backward pair, fed the plain forward's
-    out and LSE, against its plain versions; with `repeat`, all three run
-    twice more and must give the same bits. Returns three records."""
+    out and LSE, against its plain versions, each entry one kernel a call
+    (`_bwd_per_call`); with `repeat`, all three run twice more and must
+    give the same bits. Returns three records."""
     import torch
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.kernels import (
@@ -1249,6 +1301,7 @@ def _bf16_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
                                + 2 * kv, 8 * D * pairs)}
     err = {"flash_fwd_bf16": out_err, "flash_bwd_dq_bf16": errs["dq"],
            "flash_bwd_dkv_bf16": max(errs["dk"], errs["dv"])}
+    per = _bwd_per_call(label, runs, D)
     recs = []
     for name, (run, plain) in runs.items():
         nbytes, ops = work[name]
@@ -1268,8 +1321,26 @@ def _bf16_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
             **bound(nbytes, ops, bf16=True), "device_ms": device_ms(run),
             "plain_device_ms": device_ms(plain), "library_device_ms": lib_dev,
             "bitwise_repeat": repeat}
+        if name in per:
+            rec["kernels_per_call"] = per[name]
         recs.append(rate_fields(rec))
     return recs
+
+
+def _bwd_per_call(label, runs, D):
+    """{kernel: kernels per call} of the backward entries among `runs`
+    ({kernel: (run, plain)}) that take head dim D unpadded (`_padded_at`),
+    each from one call captured in a CUDA graph (`_kernels_per_call`): the
+    entry must launch its kernel and nothing else (no pad, slice or layout
+    copy around it)."""
+    per = {}
+    for name, (run, _) in runs.items():
+        if "_bwd_" in name and not _padded_at(D, (name,)):
+            per[name], nodes = _kernels_per_call(run)
+            check(per[name] == 1 == nodes,
+                  f"{label}: {name} launched {per[name]} kernels ({nodes} "
+                  "graph nodes) a call, not 1")
+    return per
 
 
 def phase_kernels_bf16():
@@ -1567,6 +1638,8 @@ def _print_cases(cases):
             lib += f" | {c['ctas_per_pair']} CTAs a pair, " \
                    f"{c['kernels_per_call']} kernel a call, empty grid " \
                    f"{fmt(c['launch_floor_device_ms'])} ms"
+        elif "kernels_per_call" in c:
+            lib += f" | {c['kernels_per_call']} kernel a call"
         print(f"{c['name']:<19}{c['case']:<26} err {c['max_abs_err']:.2e} "
               f"kernel {c['ms']:.4f} ms (device {fmt(c['device_ms'])}) "
               f"plain {c['plain_ms']:.4f} ms (device "
@@ -1575,13 +1648,26 @@ def _print_cases(cases):
 
 
 # ----------------------------------------------------------------- phase 2b
+def _padded_at(D, kernels):
+    """The kernels of `kernels` that take head dim D on operands
+    zero-padded to its compiled width (a `<kernel>_padded` call): every
+    attention kernel where D is no compiled width and at most
+    WIDEST_COMPILED, but the bf16 backward pair, which reads the true D
+    through its tensor maps; the decode kernels never."""
+    from deeplearning4j_tpu_torch.kernels.flash_attention import \
+        kernel_head_dim
+    if kernel_head_dim(D) == D:
+        return ()
+    return tuple(k for k in kernels if "decode" not in k
+                 and k not in ("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"))
+
+
 def _routed(what, run, kernels, padded, wide=()):
     """run() with every count set to 0 just before; each of `kernels`
-    must have launched (and no other kernel), with `<kernel>_padded` calls
-    exactly where `padded` says (the decode kernels take any width
-    unpadded), a call on each route of `wide` (`<kernel>_wide`) and on no
-    other wide route, and no call on the plain route. Returns run()'s
-    result."""
+    must have launched (and no other kernel), the kernels of `padded` with
+    `<kernel>_padded` calls and the others with none, a call on each
+    route of `wide` (`<kernel>_wide`) and on no other wide route, and no
+    call on the plain route. Returns run()'s result."""
     import torch
     from deeplearning4j_tpu_torch.kernels import reset_launch_counts
     reset_launch_counts()
@@ -1590,7 +1676,7 @@ def _routed(what, run, kernels, padded, wide=()):
     n = counts()
     for name in kernels:
         check(n[name] > 0, f"{what}: {name} never launched: {n}")
-        want = padded and "decode" not in name
+        want = name in padded
         check((n.get(f"{name}_padded", 0) > 0) == want,
               f"{what}: {name} padded calls {n.get(f'{name}_padded')}, "
               f"expected {'some' if want else 'none'}")
@@ -1678,7 +1764,7 @@ def _wide_decode_case(label, S, H, D, lengths, gen, bs=None):
         run = lambda: K.flash_decode_paged(q, pk, pv, table, lens)
         plain = lambda: K.flash_decode_paged_plain(q, pk, pv, table, lens)
         route = "flash_decode_paged_wide"
-    out = _routed(label, run, ("flash_wide_fwd",), False, wide=(route,))
+    out = _routed(label, run, ("flash_wide_fwd",), (), wide=(route,))
     check(K.launch_counts()["flash_wide_fwd"] == 1,
           f"{label}: {K.launch_counts()}, not one launch")
     ref = plain()
@@ -1724,25 +1810,25 @@ def phase_head_dims():
     gen = torch.Generator().manual_seed(4)
     cases = []
     ragged = [200, 137]
+    f32 = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    bf16 = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
     for D in HEAD_DIM_CASES:
-        padded = D not in (64, 128, 256)
         lab = f"D={D} B=2 T=200 H=4, ragged key mask"
         cases.append(_routed(lab, lambda: _fwd_general_case(
             lab, 2, 200, 200, 4, D, True, ragged, gen, lse=True),
-            ("flash_fwd",), padded))
+            f32[:1], _padded_at(D, f32[:1])))
         cases += _routed(lab, lambda: _bwd_case(
-            lab, 2, 200, 200, 4, D, True, ragged, gen),
-            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), padded)
+            lab, 2, 200, 200, 4, D, True, ragged, gen), f32,
+            _padded_at(D, f32))
         cases += _routed(lab, lambda: _bf16_case(
-            lab, 2, 200, 200, 4, D, True, ragged, gen),
-            ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"),
-            padded)
+            lab, 2, 200, 200, 4, D, True, ragged, gen), bf16,
+            _padded_at(D, bf16))
         cases.append(_routed(f"decode D={D}", lambda: _decode_case(
             f"step D={D}", 8, 256, 4, D, STEP_LENGTHS, gen),
-            ("flash_decode",), False))
+            ("flash_decode",), ()))
         cases.append(_routed(f"paged D={D}", lambda: _paged_case(
             f"step D={D}", 8, 16, 16, 4, D, STEP_LENGTHS, gen),
-            ("flash_decode_paged", "flash_decode"), False))
+            ("flash_decode_paged", "flash_decode"), ()))
     wide_f32 = ("flash_wide_fwd", "flash_wide_dq", "flash_wide_dkv")
     wide_bf16 = tuple(f"{n}_bf16" for n in wide_f32)
     wide_routes = ("flash_fwd_wide", "flash_bwd_dq_wide",
@@ -1755,16 +1841,16 @@ def phase_head_dims():
         for lse in (True, False):
             cases.append(_routed(lab, lambda: _fwd_general_case(
                 lab + (", LSE" if lse else ""), 2, 200, 200, 4, D, True,
-                ragged, gen, lse=lse), wide_f32[:1], False,
+                ragged, gen, lse=lse), wide_f32[:1], (),
                 wide=wide_routes[:1]))
         cases += _routed(lab, lambda: _bwd_case(
-            lab, 2, 200, 200, 4, D, True, ragged, gen), wide_f32, False,
+            lab, 2, 200, 200, 4, D, True, ragged, gen), wide_f32, (),
             wide=wide_routes)
         cases += _routed(lab, lambda: _bf16_case(
-            lab, 2, 200, 200, 4, D, True, ragged, gen), wide_bf16, False,
+            lab, 2, 200, 200, 4, D, True, ragged, gen), wide_bf16, (),
             wide=wide_bf16_routes)
         bf16_no_lse[D] = _routed(lab, lambda: _bf16_forward(
-            lab, 2, 200, 4, D, ragged, gen), wide_bf16[:1], False,
+            lab, 2, 200, 4, D, ragged, gen), wide_bf16[:1], (),
             wide=wide_bf16_routes[:1])
         cases.append(_wide_decode_case(f"decode step D={D}", 8, 4, D,
                                        STEP_LENGTHS, gen))
@@ -1775,12 +1861,12 @@ def phase_head_dims():
     B, T, H, D = WIDE_LONG
     cases.append(_routed(WIDE_LONG_CASE, lambda: _fwd_general_case(
         WIDE_LONG_CASE, B, T, T, H, D, True, None, gen, lse=True),
-        wide_f32[:1], False, wide=wide_routes[:1]))
+        wide_f32[:1], (), wide=wide_routes[:1]))
     cases += _routed(WIDE_LONG_CASE, lambda: _bwd_case(
-        WIDE_LONG_CASE, B, T, T, H, D, True, None, gen), wide_f32, False,
+        WIDE_LONG_CASE, B, T, T, H, D, True, None, gen), wide_f32, (),
         wide=wide_routes)
     cases += _routed(WIDE_LONG_CASE, lambda: _bf16_case(
-        WIDE_LONG_CASE, B, T, T, H, D, True, None, gen), wide_bf16, False,
+        WIDE_LONG_CASE, B, T, T, H, D, True, None, gen), wide_bf16, (),
         wide=wide_bf16_routes)
     # the wide kernels under causal offsets, with an LSE cotangent, f32
     # and bf16
@@ -1790,7 +1876,7 @@ def phase_head_dims():
                                     wide_bf16_routes)):
         for lab, offs in WIDE_LSE_OFFSETS:
             cases += _routed(lab, lambda: _lse_case(
-                lab, dtype, B, T, H, D, offs, None, gen), kernels, False,
+                lab, dtype, B, T, H, D, offs, None, gen), kernels, (),
                 wide=routes)
     # the D=320 model's training shape: its kernels' records on the path
     # (each forward three times, bitwise equal)
@@ -1907,7 +1993,7 @@ def _engine_head_dim():
         mode = "paged" if paged else "slab"
         served = _routed(f"D=48 engine, {mode}",
                          lambda: [eng.generate(p, n_new) for p in prompts],
-                         ("flash_fwd", kernel), True)
+                         ("flash_fwd", kernel), ("flash_fwd",))
         out[mode] = {"tokens": served, "ties": _tokens_equal(
             f"D=48 engine {mode}", served, wants)}
     return out
@@ -2019,7 +2105,7 @@ def _model_paths(what, conf, trainings, decodes, seed):
         mode = "paged" if paged else "slab"
         served = _routed(f"{what}, {mode}",
                          lambda: [eng.generate(p, n_new) for p in prompts],
-                         kernels, False, wide=wide)
+                         kernels, (), wide=wide)
         launches[path] = counts()
         summary[path] = {"tokens": served, "ties": _tokens_equal(
             f"{what} {mode}", served, wants),
@@ -2041,18 +2127,18 @@ def phase_d256():
     (`_d256_model`). Returns (cases, summary, launches by path)."""
     import torch
     gen = torch.Generator().manual_seed(16)
+    kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     cases = []
     for lab, B, Tq, Tk, H, D, causal, valid, lse, repeat in D256_CASES:
         cases += _routed(lab, lambda: [_fwd_general_case(
             lab, B, Tq, Tk, H, D, causal, valid, gen, lse=lse,
             repeat=repeat)] + _bwd_case(lab, B, Tq, Tk, H, D, causal, valid,
                                         gen, repeat=repeat),
-            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), D != 256)
+            kernels, _padded_at(D, kernels))
     B, T, H, D = D256_LSE
     for lab, offs in D256_LSE_OFFSETS:
         cases += _routed(lab, lambda: _lse_case(
-            lab, torch.float32, B, T, H, D, offs, None, gen),
-            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), False)
+            lab, torch.float32, B, T, H, D, offs, None, gen), kernels, ())
     _print_cases(cases)
     summary, launches = _d256_model()
     print(json.dumps({"d256_model": summary}))
@@ -2093,11 +2179,11 @@ def phase_d128():
     for lab, B, Tq, Tk, H, D, causal, valid, repeat in D128_CASES:
         cases += _routed(lab, lambda: _bwd_case(
             lab, B, Tq, Tk, H, D, causal, valid, gen, repeat=repeat),
-            kernels, D != 128)
+            kernels, _padded_at(D, kernels))
     B, T, H, D = D128_LSE
     for lab, offs in D128_LSE_OFFSETS:
         cases += _routed(lab, lambda: _lse_case(
-            lab, torch.float32, B, T, H, D, offs, None, gen), kernels, False)
+            lab, torch.float32, B, T, H, D, offs, None, gen), kernels, ())
     _print_cases(cases)
     summary, launches = _model_paths(
         "D=128 model", D128_MODEL,
@@ -2150,8 +2236,9 @@ def phase_d32_bf16():
     BF16_OUT_TOL / BF16_LSE_TOL, then dq, dk and dv within BF16_GRAD_TOL, a
     masked key's dk and dv rows exactly 0; the train case three times,
     bitwise equal), launching `flash_fwd_bf16`, `flash_bwd_dq_bf16` and
-    `flash_bwd_dkv_bf16` and nothing else, zero-padded at D=24 only (D=16
-    runs unpadded on the D=32 kernels); then `flash_attention_lse` in bf16
+    `flash_bwd_dkv_bf16` and nothing else, the forward zero-padded at
+    D=24 only (D=16 runs unpadded on the D=32 kernels; the pair reads the
+    true D at every width); then `flash_attention_lse` in bf16
     on the D32_LSE shard under each of D32_LSE_OFFSETS with `_lse_case`
     (rows that see no key: out 0, lse <= -1e29, a zero dq row); then the
     forward alone without the LSE: `_bf16_forward` at each of
@@ -2171,21 +2258,21 @@ def phase_d32_bf16():
     for lab, B, Tq, Tk, H, D, causal, valid, repeat in D32_BF16_CASES:
         cases += _routed(lab, lambda: _bf16_case(
             lab, B, Tq, Tk, H, D, causal, valid, gen, repeat=repeat),
-            kernels, D == 24)
+            kernels, _padded_at(D, kernels))
     B, T, H, D = D32_LSE
     for lab, offs in D32_LSE_OFFSETS:
         cases += _routed(lab, lambda: _lse_case(
-            lab, torch.bfloat16, B, T, H, D, offs, None, gen), kernels,
-            False)
+            lab, torch.bfloat16, B, T, H, D, offs, None, gen), kernels, ())
     no_lse = {}
     for D in D32_FWD_HEAD_DIMS:
         lab = f"D={D} B=2 T=200 H=4, ragged key mask, no LSE"
         no_lse[D] = _routed(lab, lambda: _bf16_forward(
-            lab, 2, 200, 4, D, [200, 137], gen), kernels[:1], D == 8)
+            lab, 2, 200, 4, D, [200, 137], gen), kernels[:1],
+            _padded_at(D, kernels[:1]))
     lab, B, L, H, D, valid = D32_PREFILL
     cases.append(_routed(lab, lambda: _fwd_general_case(
         lab, B, L, L, H, D, True, valid, gen, dtype=torch.bfloat16),
-        kernels[:1], False))
+        kernels[:1], ()))
     _print_cases(cases)
     summary, launches = _model_paths(
         "bench_decode_paged model", BENCH_PAGED_MODEL,
@@ -2195,6 +2282,75 @@ def phase_d32_bf16():
     summary["forward_without_lse_max_abs_err"] = no_lse
     print(json.dumps({"d32_bf16_model": summary}))
     return cases, summary, launches
+
+
+def _oob_probe():
+    """TMA on a box that starts past its map's columns, alone
+    (`flash_bwd_bf16_oob_probe`): x [64 rows][8 columns] bf16 through a
+    128B-swizzled map 8 columns wide, box 0 at column 0 (columns 8..63
+    past the map) and box 1 at column 64 (wholly past it), into shared
+    memory filled with 0xFFFF, one mbarrier expecting both whole boxes'
+    bytes, polled at most OOB_PROBE_SPINS times (so a count that never
+    completes ends the probe, not the run). The barrier must complete, box
+    1 must land as zeros, and box 0 must hold row r of x in its 16-byte
+    chunk r % 8 (the 128B swizzle) and zeros elsewhere: the bf16 pair at
+    compiled width 256 issues such a box for D = 136..192 and counts its
+    bytes in `expect_tx`."""
+    import ctypes
+
+    import torch
+    from deeplearning4j_tpu_torch.kernels import build
+    fn = build.kernel_function(
+        "flash_bwd_bf16", "flash_bwd_bf16_oob_probe",
+        [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
+    gen = torch.Generator().manual_seed(136)
+    x = torch.randn((64, 8), generator=gen).to(DEVICE, torch.bfloat16)
+    out = torch.zeros((2, 64, 64), dtype=torch.int16, device=DEVICE)
+    done = torch.full((1,), -1, dtype=torch.int32, device=DEVICE)
+    err = fn(x.data_ptr(), out.data_ptr(), done.data_ptr(), OOB_PROBE_SPINS,
+             torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"flash_bwd_bf16_oob_probe launch failed: {err}")
+    torch.cuda.synchronize()
+    want = torch.zeros((64, 64), dtype=torch.int16, device=DEVICE)
+    for r in range(64):
+        c = 8 * (r % 8)
+        want[r, c:c + 8] = x[r].view(torch.int16)
+    res = {"barrier_completed": int(done.item()) == 1,
+           "box_past_the_map_zero": bool((out[1] == 0).all()),
+           "box_at_the_edge_as_swizzled": bool(torch.equal(out[0], want))}
+    print(json.dumps({"oob_probe": res}))
+    check(all(res.values()), f"TMA out-of-bounds probe: {res}")
+    return res
+
+
+def phase_padded_bf16_bwd():
+    """The bf16 backward pair at head dims no kernel is compiled at, on
+    tensor maps of the true D with stores clipped to D: first
+    `_oob_probe`; then at each of PADDED_BF16_BWD_CASES through
+    `_bf16_case` (the forward's out and LSE, then dq, dk and dv within
+    BF16_GRAD_TOL, a masked key's dk and dv rows exactly 0; the long case
+    three times, bitwise equal) and `flash_attention_lse` on PADDED_LSE
+    under each of PADDED_LSE_OFFSETS (rows that see no key: out 0, lse <=
+    -1e29, a zero dq row), launching the three bf16 kernels and nothing
+    else, with `flash_fwd_bf16_padded` calls (the forward still pads) and
+    no `_padded`, `_wide` or plain-route call of the pair, each backward
+    entry one kernel a call. Returns (cases, probe)."""
+    import torch
+    probe = _oob_probe()
+    gen = torch.Generator().manual_seed(22)
+    kernels = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
+    cases = []
+    for lab, B, Tq, Tk, H, D, causal, valid, repeat in PADDED_BF16_BWD_CASES:
+        cases += _routed(lab, lambda: _bf16_case(
+            lab, B, Tq, Tk, H, D, causal, valid, gen, repeat=repeat),
+            kernels, kernels[:1])
+    B, T, H, D = PADDED_LSE
+    for lab, offs in PADDED_LSE_OFFSETS:
+        cases += _routed(lab, lambda: _lse_case(
+            lab, torch.bfloat16, B, T, H, D, offs, None, gen), kernels,
+            kernels[:1])
+    _print_cases(cases)
+    return cases, probe
 
 
 def phase_serving_bench_paged():
@@ -2778,7 +2934,8 @@ def _lse_case(label, dtype, B, T, H, D, offsets, valid, gen):
     causal offsets (q_off, k_off): out and lse against
     `flash_attention_plain`, then the backward pair, fed the plain
     forward's out and lse and delta = rowsum(dO o O) - g_lse for a random
-    LSE cotangent g_lse, against its plain versions. Rows that see no key
+    LSE cotangent g_lse, against its plain versions, each entry that takes
+    D unpadded one kernel a call (`_bwd_per_call`). Rows that see no key
     must come out 0 with lse <= -1e29 and a zero dq row. Bars: phase 2's,
     by type. Returns the three kernels' records."""
     import torch
@@ -2887,6 +3044,7 @@ def _lse_case(label, dtype, B, T, H, D, offsets, valid, gen):
     err = {"flash_fwd" + suffix: out_err,
            "flash_bwd_dq" + suffix: errs["dq"],
            "flash_bwd_dkv" + suffix: max(errs["dk"], errs["dv"])}
+    per = _bwd_per_call(name, runs, D)
     recs = []
     for kname, (run, plain) in runs.items():
         nbytes, ops = work[kname]
@@ -2906,6 +3064,8 @@ def _lse_case(label, dtype, B, T, H, D, offsets, valid, gen):
                                 "dk and dv in one call, the pair's time"),
             **bound(nbytes, ops, bf16), "device_ms": device_ms(run),
             "plain_device_ms": device_ms(plain), "library_device_ms": lib_dev}
+        if kname in per:
+            rec["kernels_per_call"] = per[kname]
         recs.append(rate_fields(rec))
     return recs
 
@@ -3164,6 +3324,7 @@ def main():
     d32_cases, _, d32_launches = phase_d32_bf16()
     cases += d32_cases
     launches.update(d32_launches)
+    cases += phase_padded_bf16_bwd()[0]
     launches.update(phase_serving_bench_paged())
     launches["serving"] = phase_serving()["launches"]
     launches["serving_paged"] = phase_serving_paged()["launches"]

@@ -28,17 +28,19 @@
 // thread, so a result is the same bit for bit from run to run. That keeps
 // the two kernels two: a fused backward would sum dq across blocks.
 //
-// Head dims 32, 64, 128 and 256 (the wrapper pads any other D % 8 == 0
-// up to the next of these; 16 runs on the D = 32 kernels): the Hopper
-// design, helpers in hopper_bf16.cuh. At D=256 a block accumulates two of
-// the four 64-column boxes of dq (dk, dv), two blocks sharing each
-// owned tile, so its accumulators take D=128's registers (four boxes of
-// dk and dv would take 256 a thread); each block recomputes the scores.
-// At D=32 (`flash_bwd_dq_bf16_d32`, `flash_bwd_dkv_bf16_d32`) a row is
-// 64 bytes: every tile is one 64B-swizzled box of 32 columns (8-row atoms
-// of 512 bytes), S and dP two k16 slices, the gradient products m64n32;
-// at D=16 the tensor maps are 16 columns wide and TMA zero-fills the
-// box's other half, the store writing 16 columns.
+// Compiled widths 32, 64, 128 and 256: every D % 8 == 0 from 8 to 256
+// runs at the next of them, on its own memory. The tensor maps are D
+// columns wide, so TMA zero-fills each box past column D (zero columns add
+// nothing to S or dP), and the stores write D columns of dense [B, T, H,
+// D] outputs: nothing is padded or sliced around the kernels. The Hopper
+// design, helpers in hopper_bf16.cuh. At width 256 a block accumulates
+// two of the four 64-column boxes of dq (dk, dv), two blocks sharing each
+// owned tile, so its accumulators take width 128's registers (four boxes
+// of dk and dv would take 256 a thread); each block recomputes the
+// scores. At width 32 (`flash_bwd_dq_bf16_d32`, `flash_bwd_dkv_bf16_d32`;
+// D = 8..32) a row is 64 bytes: every tile is one 64B-swizzled box of 32
+// columns (8-row atoms of 512 bytes), S and dP two k16 slices, the
+// gradient products m64n32.
 //   - One warpgroup (128 threads) per block owns 64 rows: q rows for dq,
 //     keys for dk/dv. Every product is `wgmma.mma_async`: S = Q K^T and
 //     dP = dO V^T (dq), S^T = K Q^T and dP^T = V dO^T (dk/dv) take both
@@ -48,11 +50,12 @@
 //     shared memory MN-major (the transpose bit). Accumulators stay f32 in
 //     registers.
 //   - Tiles arrive by TMA (4-D tensor maps built in the C entries, 128B
-//     swizzle, 64B at D = 32, zero fill past T, so the ragged edges cost
-//     no branch on the loads) and report to `mbarrier`s. The owned tile (Q and dO, or K and
-//     V) is loaded once; the walked tiles (K and V of 64 keys, or Q and dO
-//     of 64 q rows, 32 at D = 128 to bound registers) stream
-//     through a ring of STAGES = 2 buffers (NS = 3 at D = 32): one
+//     swizzle, 64B at width 32, zero fill past T and past D, so the
+//     ragged edges cost no branch on the loads) and report to
+//     `mbarrier`s. The owned tile (Q and dO, or K and V) is loaded once;
+//     the walked tiles (K and V of 64 keys, or Q and dO of 64 q rows, 32
+//     at width 128 to bound registers) stream through a ring of STAGES =
+//     2 buffers (NS = 3 at width 32): one
 //     elected thread issues tile j + STAGES as soon as the warpgroup has
 //     consumed tile j, so the next tiles are in flight while the
 //     products run. S's product is committed apart
@@ -114,12 +117,13 @@ template <int D>
 __host__ __device__ constexpr int kv_bq() { return D > 64 ? 32 : 64; }
 
 // ========================================================= D = 32 (sm90)
-// Head dim 32 (and 16, whose tensor maps are 16 columns wide, so TMA
-// zero-fills each box's other half): one 64B-swizzled box of 32 columns
-// per operand row (hopper_bf16.cuh). A block owns 64 rows (Q and dO, or K
+// Compiled width 32 (every D % 8 == 0 from 8 to 32: the tensor maps are D
+// columns wide, so TMA zero-fills each box past column D, and the stores
+// write D columns): one 64B-swizzled box of 32 columns per operand row
+// (hopper_bf16.cuh). A block owns 64 rows (Q and dO, or K
 // and V: 4 KB each) and walks tiles of BN rows of the other two operands
 // through a ring of NS stages.
-constexpr int D32 = 32;         // the kernels' head dim (columns of a box)
+constexpr int D32 = 32;         // the kernels' width (columns of a box)
 constexpr int OWN = 64;         // owned rows of a block
 constexpr int BN = 64;          // walked rows of a tile
 constexpr int NS = 3;           // ring stages
@@ -545,23 +549,80 @@ sw64_probe(const __grid_constant__ CUtensorMap amap,
   }
 }
 
+// The out-of-bounds probe (chip_smoke.py runs it before the kernels that
+// rest on it): one thread loads two 64-column boxes of 64 rows through a
+// 128B-swizzled map of x, [64 rows][8 columns] bf16: box 0 at column 0
+// (columns 8..63 past the map) and box 1 at column 64, wholly past it,
+// into shared memory first filled with 0xFFFF, and waits on one mbarrier
+// that expects both whole boxes' bytes, for at most `spins` polls. It
+// writes the boxes as they landed to `out` (2 x 64 x 64 bf16) and to
+// `done` 1 if the barrier's phase completed, else 0.
+__global__ void __launch_bounds__(THREADS)
+oob_probe(const __grid_constant__ CUtensorMap xmap, bf16* __restrict__ out,
+          int* __restrict__ done, int spins) {
+  constexpr int BOX = 64 * 64;     // bf16 elements of one box
+  __shared__ __align__(1024) unsigned char raw[1024 + 2 * BOX * 2 + 8];
+  unsigned char* sm = hopper::align_1024(raw);
+  uint16_t* tiles = reinterpret_cast<uint16_t*>(sm);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + 2 * BOX * 2);
+  const int tid = threadIdx.x;
+  for (int i = tid; i < 2 * BOX; i += THREADS) tiles[i] = 0xFFFF;
+  if (tid == 0) {
+    hopper::mbar_init(bar, 1);
+    hopper::mbar_init_fence();
+  }
+  // the fill, a generic-proxy write, before TMA's async-proxy writes
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(bar, 2 * BOX * 2);
+    hopper::tma_load_4d(tiles, &xmap, bar, 0, 0, 0, 0);
+    hopper::tma_load_4d(tiles + BOX, &xmap, bar, 64, 0, 0, 0);
+    uint32_t ok = 0;
+    const uint32_t addr = hopper::smem_u32(bar);
+    for (int n = 0; n < spins && !ok; ++n)
+      asm volatile(
+          "{\n"
+          ".reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+          "selp.u32 %0, 1, 0, p;\n"
+          "}\n"
+          : "=r"(ok)
+          : "r"(addr)
+          : "memory");
+    *done = (int)ok;
+  }
+  __syncthreads();
+  for (int i = tid; i < 2 * BOX; i += THREADS)
+    reinterpret_cast<uint16_t*>(out)[i] = tiles[i];
+}
+
 // ================================================= D = 64, 128, 256 (sm90)
+// Compiled widths DP = 64, 128 and 256 (every D % 8 == 0 from 40 to 256
+// runs on the next of them): shared-memory tiles, `expect_tx` counts and
+// products are DP wide. The tensor maps are D columns wide, so TMA
+// zero-fills each box's columns at and past D, a box that starts past D
+// included: such a box lands as zeros and still completes its whole box
+// of bytes on the mbarrier (shown on an H100 by chip_smoke.py's
+// `_oob_probe`, phase 2g, which runs before the kernels), so every box is
+// issued and the `expect_tx` counts stand. The zero columns add nothing
+// to S or dP. The stores write D columns of dense [B, T, H, D] outputs.
 constexpr int STAGES = 2;       // ring depth of the walked tiles
 
 // dq: byte offsets from the aligned base; every tile 1024-aligned
-template <int D>
+template <int DP>
 struct DqLayout {
   static constexpr int BQ = 64, BK = 64;
-  static constexpr int Q = 0;                            // [BQ][D] swizzled
-  static constexpr int O = Q + BQ * D * 2;               // dO
-  static constexpr int K = O + BQ * D * 2;               // [STAGES][BK][D]
-  static constexpr int V = K + STAGES * BK * D * 2;
-  static constexpr int BAR = V + STAGES * BK * D * 2;    // 1 + STAGES
+  static constexpr int Q = 0;                            // [BQ][DP] swizzled
+  static constexpr int O = Q + BQ * DP * 2;              // dO
+  static constexpr int K = O + BQ * DP * 2;              // [STAGES][BK][DP]
+  static constexpr int V = K + STAGES * BK * DP * 2;
+  static constexpr int BAR = V + STAGES * BK * DP * 2;   // 1 + STAGES
   static constexpr int KM = BAR + 8 * (1 + STAGES);      // [STAGES][BK] f32
   static constexpr int BYTES = KM + 4 * STAGES * BK;
 };
 
-template <int D, int NO>
+template <int DP, int NO>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
@@ -571,10 +632,10 @@ flash_bwd_dq_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
                        const float* __restrict__ delta,
                        const float* __restrict__ key_mask,
                        bf16* __restrict__ dq, int H, int Tq, int Tk,
-                       int causal, int q_off, int k_off, float scale) {
-  using L = DqLayout<D>;
+                       int D, int causal, int q_off, int k_off, float scale) {
+  using L = DqLayout<DP>;
   constexpr int BQ = L::BQ, BK = L::BK;
-  constexpr uint32_t KV_BYTES = 2 * BK * D * 2;
+  constexpr uint32_t KV_BYTES = 2 * BK * DP * 2;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = hopper::align_1024(smem_raw);
   bf16* Qs = reinterpret_cast<bf16*>(sm + L::Q);
@@ -588,7 +649,7 @@ flash_bwd_dq_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
   const int g = lane / 4, t = lane % 4;
   // causal: the last q tiles see the most keys; they go first. The slow
   // index is (q tile, column box), the box fastest.
-  constexpr int NZ = D / 64 / NO;
+  constexpr int NZ = DP / 64 / NO;
   const hopper::GridTile gt =
       hopper::grid_tile((Tq + BQ - 1) / BQ * NZ, causal);
   const int bh = gt.bh, b = bh / H, h = bh % H;
@@ -610,10 +671,10 @@ flash_bwd_dq_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
 
   auto load_kv = [&](int stage, int tile) {
     hopper::mbar_expect_tx(&bar[1 + stage], KV_BYTES);
-    hopper::tma_load_tile<D>(Ks + stage * BK * D, &kmap, &bar[1 + stage],
-                             BK, tile * BK, h, b);
-    hopper::tma_load_tile<D>(Vs + stage * BK * D, &vmap, &bar[1 + stage],
-                             BK, tile * BK, h, b);
+    hopper::tma_load_tile<DP>(Ks + stage * BK * DP, &kmap, &bar[1 + stage],
+                              BK, tile * BK, h, b);
+    hopper::tma_load_tile<DP>(Vs + stage * BK * DP, &vmap, &bar[1 + stage],
+                              BK, tile * BK, h, b);
   };
   // the key mask of key k (1 past the ragged edge: the edge has its test)
   auto key_ok = [&](int k) { return (km && k < Tk) ? km[k] : 1.f; };
@@ -639,9 +700,9 @@ flash_bwd_dq_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
     // any masked key in tile 0; the barrier also publishes the mbarriers
     int masked = __syncthreads_or(tid < BK && !(km0 > 0.f));
     if (tid == 0) {
-      hopper::mbar_expect_tx(&bar[0], 2 * BQ * D * 2);
-      hopper::tma_load_tile<D>(Qs, &qmap, &bar[0], BQ, q0, h, b);
-      hopper::tma_load_tile<D>(Os, &omap, &bar[0], BQ, q0, h, b);
+      hopper::mbar_expect_tx(&bar[0], 2 * BQ * DP * 2);
+      hopper::tma_load_tile<DP>(Qs, &qmap, &bar[0], BQ, q0, h, b);
+      hopper::tma_load_tile<DP>(Os, &omap, &bar[0], BQ, q0, h, b);
       for (int s = 0; s < STAGES && s < n_tiles; ++s) load_kv(s, s);
     }
     hopper::mbar_wait(&bar[0], 0);
@@ -649,8 +710,8 @@ flash_bwd_dq_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
     for (int j = 0; j < n_tiles; ++j) {
       const int st = j % STAGES;
       const int k0 = j * BK;
-      const bf16* Kt = Ks + st * BK * D;
-      const bf16* Vt = Vs + st * BK * D;
+      const bf16* Kt = Ks + st * BK * DP;
+      const bf16* Vt = Vs + st * BK * DP;
       // the next tile's key mask, fetched under this tile's products
       const float km_next =
           (tid < BK && j + 1 < n_tiles) ? key_ok(k0 + BK + tid) : 1.f;
@@ -662,12 +723,12 @@ flash_bwd_dq_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
       float s[32], dp[32];
       hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < DP / 16; ++kk)
         hopper::wgmma_ss(s, hopper::desc_k_major(Qs, BQ, kk),
                          hopper::desc_k_major(Kt, BK, kk), kk > 0);
       hopper::wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < DP / 16; ++kk)
         hopper::wgmma_ss(dp, hopper::desc_k_major(Os, BQ, kk),
                          hopper::desc_k_major(Vt, BK, kk), kk > 0);
       hopper::wgmma_commit();
@@ -723,28 +784,31 @@ flash_bwd_dq_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
     }
   }
 
+  // dq is dense [B, Tq, H, D]: box nb0 + nb writes its columns below D
   bf16* dqb = dq + ((long long)b * Tq * H + h) * D;
 #pragma unroll
-  for (int nb = 0; nb < NO; ++nb)
-    hopper::store_acc(dqb, (long long)H * D, q0, Tq, (nb0 + nb) * 64,
-                      acc[nb], tid);
+  for (int nb = 0; nb < NO; ++nb) {
+    const int col0 = (nb0 + nb) * 64;
+    hopper::store_acc(dqb, (long long)H * D, q0, Tq, col0, acc[nb], tid,
+                      min(64, D - col0));
+  }
 }
 
 // dk/dv: byte offsets from the aligned base; every tile 1024-aligned
-template <int D>
+template <int DP>
 struct DkvLayout {
-  static constexpr int BK = 64, BQ = kv_bq<D>();
-  static constexpr int K = 0;                            // [BK][D] swizzled
-  static constexpr int V = K + BK * D * 2;
-  static constexpr int Q = V + BK * D * 2;               // [STAGES][BQ][D]
-  static constexpr int O = Q + STAGES * BQ * D * 2;      // dO
-  static constexpr int BAR = O + STAGES * BQ * D * 2;    // 1 + STAGES
+  static constexpr int BK = 64, BQ = kv_bq<DP>();
+  static constexpr int K = 0;                            // [BK][DP] swizzled
+  static constexpr int V = K + BK * DP * 2;
+  static constexpr int Q = V + BK * DP * 2;              // [STAGES][BQ][DP]
+  static constexpr int O = Q + STAGES * BQ * DP * 2;     // dO
+  static constexpr int BAR = O + STAGES * BQ * DP * 2;   // 1 + STAGES
   static constexpr int LS = BAR + 8 * (1 + STAGES);      // [STAGES][BQ] lse*log2e
   static constexpr int DL = LS + 4 * STAGES * BQ;        // [STAGES][BQ] delta
   static constexpr int BYTES = DL + 4 * STAGES * BQ;
 };
 
-template <int D, int NO>
+template <int DP, int NO>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap kmap,
@@ -754,12 +818,12 @@ flash_bwd_dkv_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
                         const float* __restrict__ delta,
                         const float* __restrict__ key_mask,
                         bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
-                        int Tq, int Tk, int causal, int q_off, int k_off,
-                        float scale) {
-  using L = DkvLayout<D>;
+                        int Tq, int Tk, int D, int causal, int q_off,
+                        int k_off, float scale) {
+  using L = DkvLayout<DP>;
   constexpr int BQ = L::BQ, BK = L::BK;
   constexpr int NQ = BQ / 2;    // accumulator registers of a 64 x BQ tile
-  constexpr uint32_t QO_BYTES = 2 * BQ * D * 2;
+  constexpr uint32_t QO_BYTES = 2 * BQ * DP * 2;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = hopper::align_1024(smem_raw);
   bf16* Ks = reinterpret_cast<bf16*>(sm + L::K);
@@ -774,7 +838,7 @@ flash_bwd_dkv_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
   const int g = lane / 4, t = lane % 4;
   // causal: the first key tiles are seen by the most queries; they go
   // first. The slow index is (key tile, column box), the box fastest.
-  constexpr int NZ = D / 64 / NO;
+  constexpr int NZ = DP / 64 / NO;
   const hopper::GridTile gt =
       hopper::grid_tile((Tk + BK - 1) / BK * NZ, false);
   const int bh = gt.bh, b = bh / H, h = bh % H;
@@ -797,10 +861,10 @@ flash_bwd_dkv_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
   auto load_qo = [&](int stage, int tile) {
     const int row0 = q_start + tile * BQ;
     hopper::mbar_expect_tx(&bar[1 + stage], QO_BYTES);
-    hopper::tma_load_tile<D>(Qs + stage * BQ * D, &qmap, &bar[1 + stage],
-                             BQ, row0, h, b);
-    hopper::tma_load_tile<D>(Os + stage * BQ * D, &omap, &bar[1 + stage],
-                             BQ, row0, h, b);
+    hopper::tma_load_tile<DP>(Qs + stage * BQ * DP, &qmap, &bar[1 + stage],
+                              BQ, row0, h, b);
+    hopper::tma_load_tile<DP>(Os + stage * BQ * DP, &omap, &bar[1 + stage],
+                              BQ, row0, h, b);
   };
   // lse * log2e (threads 0..BQ-1) or delta (BQ..2BQ-1) of row q0 + tid % BQ
   auto row_value = [&](int q0) {
@@ -826,9 +890,9 @@ flash_bwd_dkv_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
     put_row_value(0, row_value(q_start));
     __syncthreads();
     if (tid == 0) {
-      hopper::mbar_expect_tx(&bar[0], 2 * BK * D * 2);
-      hopper::tma_load_tile<D>(Ks, &kmap, &bar[0], BK, k0, h, b);
-      hopper::tma_load_tile<D>(Vs, &vmap, &bar[0], BK, k0, h, b);
+      hopper::mbar_expect_tx(&bar[0], 2 * BK * DP * 2);
+      hopper::tma_load_tile<DP>(Ks, &kmap, &bar[0], BK, k0, h, b);
+      hopper::tma_load_tile<DP>(Vs, &vmap, &bar[0], BK, k0, h, b);
       for (int s = 0; s < STAGES && s < n_tiles; ++s) load_qo(s, s);
     }
     hopper::mbar_wait(&bar[0], 0);
@@ -836,8 +900,8 @@ flash_bwd_dkv_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
     for (int j = 0; j < n_tiles; ++j) {
       const int st = j % STAGES;
       const int q0 = q_start + j * BQ;
-      const bf16* Qt = Qs + st * BQ * D;
-      const bf16* Ot = Os + st * BQ * D;
+      const bf16* Qt = Qs + st * BQ * DP;
+      const bf16* Ot = Os + st * BQ * DP;
       // the next tile's lse / delta, fetched under this tile's products
       const float next = j + 1 < n_tiles ? row_value(q0 + BQ) : 0.f;
       hopper::mbar_wait(&bar[1 + st], (j / STAGES) & 1);
@@ -847,12 +911,12 @@ flash_bwd_dkv_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
       float s[NQ], dp[NQ];
       hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < DP / 16; ++kk)
         hopper::wgmma_ss(s, hopper::desc_k_major(Ks, BK, kk),
                          hopper::desc_k_major(Qt, BQ, kk), kk > 0);
       hopper::wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < DP / 16; ++kk)
         hopper::wgmma_ss(dp, hopper::desc_k_major(Vs, BK, kk),
                          hopper::desc_k_major(Ot, BQ, kk), kk > 0);
       hopper::wgmma_commit();
@@ -921,13 +985,17 @@ flash_bwd_dkv_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
           if (((e >> 1) & 1) == i) dk_acc[nb][e] = dv_acc[nb][e] = 0.f;
     }
   }
+  // dk and dv are dense [B, Tk, H, D]: box nb0 + nb writes its columns
+  // below D
   const long long off = ((long long)b * Tk * H + h) * D;
 #pragma unroll
   for (int nb = 0; nb < NO; ++nb) {
-    hopper::store_acc(dk + off, (long long)H * D, k0, Tk, (nb0 + nb) * 64,
-                      dk_acc[nb], tid);
-    hopper::store_acc(dv + off, (long long)H * D, k0, Tk, (nb0 + nb) * 64,
-                      dv_acc[nb], tid);
+    const int col0 = (nb0 + nb) * 64;
+    const int cols = min(64, D - col0);
+    hopper::store_acc(dk + off, (long long)H * D, k0, Tk, col0, dk_acc[nb],
+                      tid, cols);
+    hopper::store_acc(dv + off, (long long)H * D, k0, Tk, col0, dv_acc[nb],
+                      tid, cols);
   }
 }
 
@@ -998,56 +1066,65 @@ int launch_dkv_d32(const Operands& a, int D, bf16* dk, bf16* dv,
   return (int)cudaGetLastError();
 }
 
-// 64-column boxes of dq (dk, dv) per block: every box up to D = 128; at
-// D = 256 two, 2 blocks sharing each q (key) tile, each with
-// its own copy of the score products, so the accumulators stay at D =
-// 128's registers.
-template <int D>
-constexpr int out_boxes() { return D > 128 ? 2 : D / 64; }
+// 64-column boxes of dq (dk, dv) per block: every box up to DP = 128;
+// at DP = 256 two, 2 blocks sharing each q (key) tile, each with its own
+// copy of the score products, so the accumulators stay at DP = 128's
+// registers.
+template <int DP>
+constexpr int out_boxes() { return DP > 128 ? 2 : DP / 64; }
 
-template <int D>
-int launch_dq_sm90(const Operands& a, bf16* dq, cudaStream_t stream) {
-  using L = DqLayout<D>;
-  constexpr int NO = out_boxes<D>();
+// The kernels at compiled width DP on tensor maps of the true head dim D.
+template <int DP>
+int launch_dq_sm90(const Operands& a, int D, bf16* dq, cudaStream_t stream) {
+  using L = DqLayout<DP>;
+  constexpr int NO = out_boxes<DP>();
   CUtensorMap m[4];
   int err = make_maps(a, D, L::BQ, L::BK, m);
   if (err) return err;
   const int smem = L::BYTES + 1024;
-  err = (int)cudaFuncSetAttribute(flash_bwd_dq_bf16_sm90<D, NO>,
+  err = (int)cudaFuncSetAttribute(flash_bwd_dq_bf16_sm90<DP, NO>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   smem);
   if (err) return err;
   dim3 grid;
-  err = hopper::grid_1d((long long)(a.Tq + L::BQ - 1) / L::BQ * (D / 64 / NO),
+  err = hopper::grid_1d((long long)(a.Tq + L::BQ - 1) / L::BQ * (DP / 64 / NO),
                         (long long)a.B * a.H, &grid);
   if (err) return err;
-  flash_bwd_dq_bf16_sm90<D, NO><<<grid, THREADS, smem, stream>>>(
+  flash_bwd_dq_bf16_sm90<DP, NO><<<grid, THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], a.lse, a.delta, a.key_mask, dq, a.H, a.Tq,
-      a.Tk, a.causal, a.q_off, a.k_off, a.scale);
+      a.Tk, D, a.causal, a.q_off, a.k_off, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_dkv_sm90(const Operands& a, bf16* dk, bf16* dv,
+template <int DP>
+int launch_dkv_sm90(const Operands& a, int D, bf16* dk, bf16* dv,
                     cudaStream_t stream) {
-  using L = DkvLayout<D>;
-  constexpr int NO = out_boxes<D>();
+  using L = DkvLayout<DP>;
+  constexpr int NO = out_boxes<DP>();
   CUtensorMap m[4];
   int err = make_maps(a, D, L::BQ, L::BK, m);
   if (err) return err;
   const int smem = L::BYTES + 1024;
-  err = (int)cudaFuncSetAttribute(flash_bwd_dkv_bf16_sm90<D, NO>,
+  err = (int)cudaFuncSetAttribute(flash_bwd_dkv_bf16_sm90<DP, NO>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   smem);
   if (err) return err;
   dim3 grid;
-  err = hopper::grid_1d((long long)(a.Tk + L::BK - 1) / L::BK * (D / 64 / NO),
+  err = hopper::grid_1d((long long)(a.Tk + L::BK - 1) / L::BK * (DP / 64 / NO),
                         (long long)a.B * a.H, &grid);
   if (err) return err;
-  flash_bwd_dkv_bf16_sm90<D, NO><<<grid, THREADS, smem, stream>>>(
+  flash_bwd_dkv_bf16_sm90<DP, NO><<<grid, THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], a.lse, a.delta, a.key_mask, dk, dv, a.H,
-      a.Tq, a.Tk, a.causal, a.q_off, a.k_off, a.scale);
+      a.Tq, a.Tk, D, a.causal, a.q_off, a.k_off, a.scale);
   return (int)cudaGetLastError();
+}
+
+// The compiled width that head dim D runs at: 32 for D = 8..32 (the
+// 64B-swizzled kernels), else the next of 64, 128 and 256; 0 where no
+// kernel takes D (D % 8 != 0, D < 8, D > 256).
+int compiled_width(int D) {
+  if (D < 8 || D > 256 || D % 8) return 0;
+  return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
 }
 
 Operands operands(const void* q, const void* k, const void* v,
@@ -1068,9 +1145,11 @@ Operands operands(const void* q, const void* k, const void* v,
 
 // Plain C entries for ctypes, with the argument lists of flash_bwd.cu's
 // f32 entries. Each returns a cudaError_t value (0 = launched). q, k, v
-// and dO are bf16 with 16-byte aligned rows (strides in elements,
-// multiples of 8; the head dim dense); dq, dk and dv are written dense
-// [B, T, H, D] in bf16.
+// and dO are bf16 [B, T, H, D] at the true head dim D (any D % 8 == 0
+// from 8 to 256) with 16-byte aligned rows (strides in elements,
+// multiples of 8; the head dim dense), read through tensor maps D columns
+// wide; dq, dk and dv are written dense [B, T, H, D] in bf16, D columns
+// and no more.
 extern "C" int flash_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, const float* key_mask, void* dq,
@@ -1086,12 +1165,11 @@ extern "C" int flash_bwd_dq_bf16(
                               Tk, st, causal, q_off, k_off, scale);
   bf16* out = static_cast<bf16*>(dq);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
+  switch (compiled_width(D)) {
     case 32: return launch_dq_d32(a, D, out, s);
-    case 64: return launch_dq_sm90<64>(a, out, s);
-    case 128: return launch_dq_sm90<128>(a, out, s);
-    case 256: return launch_dq_sm90<256>(a, out, s);
+    case 64: return launch_dq_sm90<64>(a, D, out, s);
+    case 128: return launch_dq_sm90<128>(a, D, out, s);
+    case 256: return launch_dq_sm90<256>(a, D, out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1112,12 +1190,11 @@ extern "C" int flash_bwd_dkv_bf16(
   bf16* dkp = static_cast<bf16*>(dk);
   bf16* dvp = static_cast<bf16*>(dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
+  switch (compiled_width(D)) {
     case 32: return launch_dkv_d32(a, D, dkp, dvp, s);
-    case 64: return launch_dkv_sm90<64>(a, dkp, dvp, s);
-    case 128: return launch_dkv_sm90<128>(a, dkp, dvp, s);
-    case 256: return launch_dkv_sm90<256>(a, dkp, dvp, s);
+    case 64: return launch_dkv_sm90<64>(a, D, dkp, dvp, s);
+    case 128: return launch_dkv_sm90<128>(a, D, dkp, dvp, s);
+    case 256: return launch_dkv_sm90<256>(a, D, dkp, dvp, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1137,5 +1214,18 @@ extern "C" int flash_bwd_bf16_sw64_probe(const void* a, const void* b,
   if (err) return err;
   sw64_probe<<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       m[0], m[1], static_cast<const bf16*>(a), c1, c2);
+  return (int)cudaGetLastError();
+}
+
+// The out-of-bounds probe on x [64][8] bf16 (dense, 16-byte aligned): out
+// 2 x 64 x 64 bf16, done one int, both device memory. Returns a
+// cudaError_t value (0 = launched).
+extern "C" int flash_bwd_bf16_oob_probe(const void* x, void* out, int* done,
+                                        int spins, void* stream) {
+  CUtensorMap m;
+  const int err = hopper::make_tile_map(&m, x, 1, 64, 1, 8, 64 * 8, 8, 8, 64);
+  if (err) return err;
+  oob_probe<<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      m, static_cast<bf16*>(out), done, spins);
   return (int)cudaGetLastError();
 }

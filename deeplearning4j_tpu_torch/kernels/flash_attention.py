@@ -18,9 +18,10 @@ PyTorch version beside it:
 - `flash_bwd_dq` -> `csrc/flash_bwd.cu` (`flash_bwd_dq_f32`; at head
   dims 64, 128 and 256 on the tensor cores, each float32 product as
   three TF32 products) and `csrc/flash_bwd_bf16.cu` (`flash_bwd_dq_bf16`;
-  `wgmma` + TMA at every width, at head dims 16 and 32 on 64B-swizzled
-  32-column tiles), replacing `_bwd_dq_kernel` (:226-273, `pallas_call`
-  :366); plain version `flash_bwd_dq_plain`.
+  `wgmma` + TMA at every width, at head dims 8 to 32 on 64B-swizzled
+  32-column tiles, every head dim on tensor maps of the true D),
+  replacing `_bwd_dq_kernel` (:226-273, `pallas_call` :366); plain
+  version `flash_bwd_dq_plain`.
 - `flash_bwd_dkv` -> `csrc/flash_bwd.cu` (`flash_bwd_dkv_f32`, likewise)
   and `csrc/flash_bwd_bf16.cu` (`flash_bwd_dkv_bf16`, likewise), replacing
   `_bwd_dkv_kernel` (:276-330, `pallas_call` :388); plain version
@@ -85,14 +86,17 @@ D % 8 == 0, and only D % 8 != 0 goes to its plain path), stated once in
 `kernel_head_dim`:
 
 - D % 8 == 0, D <= 256: a hand kernel, at the compiled width Dp, the
-  next of 16, 32, 64, 128 and 256. The attention kernels take q, k, v
-  (and dO) zero-padded to Dp at the true D's scale, 1 / sqrt(D): zero
-  columns add nothing to a score, give zero output columns and leave
-  rowsum(dO o O) as it is, so the result is exact up to the order of
-  sums; out, dq, dk and dv come back sliced to D. Such a call counts one
-  `<kernel>_padded` in `route_counts()` besides its launch. The decode
-  kernels take the runtime D and guard their columns (padding the cache
-  would copy it on every step).
+  next of 16, 32, 64, 128 and 256. The forward and the f32 backward pair
+  take q, k, v (and dO) zero-padded to Dp at the true D's scale, 1 /
+  sqrt(D): zero columns add nothing to a score, give zero output columns
+  and leave rowsum(dO o O) as it is, so the result is exact up to the
+  order of sums; out, dq, dk and dv come back sliced to D. Such a call
+  counts one `<kernel>_padded` in `route_counts()` besides its launch.
+  The bf16 backward pair reads the caller's q, k, v and dO through
+  tensor maps D columns wide (TMA fills the columns past D with zeros)
+  and writes dq, dk and dv D columns wide: no copy and no padded route.
+  The decode kernels take the runtime D and guard their columns (padding
+  the cache would copy it on every step).
 - D % 8 == 0, D > 256: the wide kernels of `csrc/flash_wide.cu`
   (forward with or without the LSE, dq, dk/dv; float32 and bfloat16), the
   head dim a runtime value, nothing padded. Such a call counts one
@@ -224,7 +228,9 @@ def kernel_head_dim(D):
     (`_plan` :492-502 runs its kernel for every D % 8 == 0): the next of
     HEAD_DIMS up to WIDEST_COMPILED, D itself above it (the wide kernels'
     runtime width); None for D % 8 != 0, which the reference routes to its
-    plain path."""
+    plain path. The bf16 backward pair runs at this width on the true D's
+    memory (`_bwd_width`); the other attention kernels take operands
+    zero-padded to it."""
     if D < 1 or D % 8:
         return None
     if D > WIDEST_COMPILED:
@@ -589,12 +595,22 @@ def flash_attention_bwd_plain(q, k, v, out, lse, g, *, causal=False,
             torch.einsum("bhqk,bqhd->bkhd", p, widen(g)).to(v.dtype))
 
 
-def _bwd_operands(q, k, v, g, lse, delta, key_mask, Dp):
+def _bwd_width(dtype, D, Dp):
+    """The head dim the backward kernels read and write for operands of
+    `dtype` at true head dim D and compiled width Dp: the true D for
+    bfloat16 (its kernels read tensor maps D columns wide, zero-filled past
+    D by TMA, and write D columns), Dp for float32 (its operands are
+    zero-padded to Dp and its outputs sliced back)."""
+    return D if dtype == torch.bfloat16 else Dp
+
+
+def _bwd_operands(q, k, v, g, lse, delta, key_mask, W):
     """Checks shared by the two backward launches (after `_bwd_route`'s);
     returns (q, k, v, g, lse, delta, key mask) in the layouts the kernels
-    read, q, k, v and g zero-padded to the head dim's compiled width
-    Dp."""
-    B, Tq, H, _ = q.shape
+    read, q, k, v and g at head dim W (`_bwd_width`): zero-padded to it
+    where it is wider than theirs, the caller's own tensors where their rows
+    suit the kernels (`_aligned`)."""
+    B, Tq, H, D = q.shape
     if g.stride(-1) != 1:           # e.g. an expanded cotangent: stride 0
         g = g.contiguous()
     for name, t in (("lse", lse), ("delta", delta)):
@@ -602,14 +618,16 @@ def _bwd_operands(q, k, v, g, lse, delta, key_mask, Dp):
                 or t.device != q.device:
             raise ValueError(f"{name} must be float32 {(B, H, Tq)} on "
                              f"{q.device}, got {tuple(t.shape)} {t.dtype}")
-    return (*(_aligned(_pad_head(t, Dp)) for t in (q, k, v, g)),
-            lse.contiguous(), delta.contiguous(),
+    ops = (q, k, v, g)
+    if W != D:
+        ops = (_pad_head(t, W) for t in ops)
+    return (*map(_aligned, ops), lse.contiguous(), delta.contiguous(),
             _prep_key_mask(key_mask, B, k.shape[1], q.device))
 
 
-def _bwd_rest(q, k, v, g, Dp, causal, q_offset, k_offset, scale):
+def _bwd_rest(q, k, v, g, W, causal, q_offset, k_offset, scale):
     """The backward entries' arguments after B and H."""
-    return (q.shape[1], k.shape[1], Dp, *_bhd_strides(q), *_bhd_strides(k),
+    return (q.shape[1], k.shape[1], W, *_bhd_strides(q), *_bhd_strides(k),
             *_bhd_strides(v), *_bhd_strides(g), int(bool(causal)), q_offset,
             k_offset, scale)
 
@@ -632,7 +650,10 @@ def flash_bwd_dq(q, k, v, g, lse, delta, *, causal=False, scale=None,
                  key_mask=None, q_offset=0, k_offset=0):
     """dq [B, Tq, H, D] in q's type: the dq kernel (f32 or bf16; float16
     operands upcast) for CUDA tensors, `flash_bwd_dq_plain` for CPU
-    tensors. g is dO; lse and delta are [B, H, Tq] float32."""
+    tensors. g is dO; lse and delta are [B, H, Tq] float32. The bf16
+    kernel reads q, k, v and dO at their own head dim and writes dq at it;
+    the f32 kernel takes them zero-padded to the compiled width, and dq is
+    sliced back (`_bwd_width`)."""
     q_offset, k_offset = _offset(q_offset), _offset(k_offset)
     kw = dict(causal=causal, scale=scale, key_mask=key_mask,
               q_offset=q_offset, k_offset=k_offset)
@@ -646,21 +667,23 @@ def flash_bwd_dq(q, k, v, g, lse, delta, *, causal=False, scale=None,
                             delta, **kw).half()
     B, Tq, H, D = q.shape
     scale = _scale(scale, D)            # the true head dim's, before padding
+    W = _bwd_width(q.dtype, D, Dp)
     q, k, v, g, lse, delta, km = _bwd_operands(q, k, v, g, lse, delta,
-                                               key_mask, Dp)
+                                               key_mask, W)
     fn, name = _entry("flash_bwd_dq", q.dtype, Dp)
-    dq = torch.empty((B, Tq, H, Dp), dtype=q.dtype, device=q.device)
+    dq = torch.empty((B, Tq, H, W), dtype=q.dtype, device=q.device)
     _launch(fn, name, q.device, *map(_ptr, (q, k, v, g, lse, delta, km, dq)),
-            B, H, *_bwd_rest(q, k, v, g, Dp, causal, q_offset, k_offset,
+            B, H, *_bwd_rest(q, k, v, g, W, causal, q_offset, k_offset,
                              scale))
-    return _unpad(name, D, dq)[0]
+    return dq if W == D else _unpad(name, D, dq)[0]
 
 
 def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal=False, scale=None,
                   key_mask=None, q_offset=0, k_offset=0):
     """(dk, dv) [B, Tk, H, D] in k's type: the dk/dv kernel (f32 or bf16;
     float16 operands upcast) for CUDA tensors, `flash_bwd_dkv_plain` for
-    CPU tensors."""
+    CPU tensors. As `flash_bwd_dq`, the bf16 kernel at the operands' own
+    head dim, the f32 one at the compiled width."""
     q_offset, k_offset = _offset(q_offset), _offset(k_offset)
     kw = dict(causal=causal, scale=scale, key_mask=key_mask,
               q_offset=q_offset, k_offset=k_offset)
@@ -675,16 +698,17 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal=False, scale=None,
         return dk.half(), dv.half()
     B, Tq, H, D = q.shape
     scale = _scale(scale, D)            # the true head dim's, before padding
+    W = _bwd_width(q.dtype, D, Dp)
     q, k, v, g, lse, delta, km = _bwd_operands(q, k, v, g, lse, delta,
-                                               key_mask, Dp)
+                                               key_mask, W)
     fn, name = _entry("flash_bwd_dkv", q.dtype, Dp)
     Tk = k.shape[1]
-    dk = torch.empty((B, Tk, H, Dp), dtype=k.dtype, device=q.device)
-    dv = torch.empty((B, Tk, H, Dp), dtype=v.dtype, device=q.device)
+    dk = torch.empty((B, Tk, H, W), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, Tk, H, W), dtype=v.dtype, device=q.device)
     _launch(fn, name, q.device,
             *map(_ptr, (q, k, v, g, lse, delta, km, dk, dv)), B, H,
-            *_bwd_rest(q, k, v, g, Dp, causal, q_offset, k_offset, scale))
-    return _unpad(name, D, dk, dv)
+            *_bwd_rest(q, k, v, g, W, causal, q_offset, k_offset, scale))
+    return (dk, dv) if W == D else _unpad(name, D, dk, dv)
 
 
 def flash_attention_bwd(q, k, v, out, lse, g, *, causal=False, scale=None,

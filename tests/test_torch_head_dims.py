@@ -172,8 +172,20 @@ def _bwd_views(dtype, q, k, v, g, lse, delta, km, B, H, Tq, Tk, D, st):
     return (*ops, *rows, _view(km, (B, Tk), (Tk, 1), torch.float32))
 
 
-def _attention_dq(dtype):
+CUDA_ERROR_INVALID_VALUE = 1
+
+
+def _bf16_bwd_refuses(D):
+    """Whether the bf16 backward C entries refuse head dim D, as their
+    switch does: they take every D % 8 == 0 from 8 to 256 at its own width
+    (`compiled_width` in csrc/flash_bwd_bf16.cu)."""
+    return D < 8 or D > 256 or D % 8 != 0
+
+
+def _attention_dq(dtype, refuses=lambda D: False):
     def entry(q, k, v, g, lse, delta, km, dq, B, H, Tq, Tk, D, *rest):
+        if refuses(D):
+            return CUDA_ERROR_INVALID_VALUE
         st, (causal, q_off, k_off, scale, stream) = rest[:12], rest[12:]
         Q, K, V, G, L, DL, M = _bwd_views(dtype, q, k, v, g, lse, delta, km,
                                           B, H, Tq, Tk, D, st)
@@ -185,8 +197,10 @@ def _attention_dq(dtype):
     return entry
 
 
-def _attention_dkv(dtype):
+def _attention_dkv(dtype, refuses=lambda D: False):
     def entry(q, k, v, g, lse, delta, km, dk, dv, B, H, Tq, Tk, D, *rest):
+        if refuses(D):
+            return CUDA_ERROR_INVALID_VALUE
         st, (causal, q_off, k_off, scale, stream) = rest[:12], rest[12:]
         Q, K, V, G, L, DL, M = _bwd_views(dtype, q, k, v, g, lse, delta, km,
                                           B, H, Tq, Tk, D, st)
@@ -235,9 +249,9 @@ ENTRIES = {
     "flash_fwd_f32": _attention_fwd(torch.float32),
     "flash_fwd_bf16": _attention_fwd(torch.bfloat16),
     "flash_bwd_dq_f32": _attention_dq(torch.float32),
-    "flash_bwd_dq_bf16": _attention_dq(torch.bfloat16),
+    "flash_bwd_dq_bf16": _attention_dq(torch.bfloat16, _bf16_bwd_refuses),
     "flash_bwd_dkv_f32": _attention_dkv(torch.float32),
-    "flash_bwd_dkv_bf16": _attention_dkv(torch.bfloat16),
+    "flash_bwd_dkv_bf16": _attention_dkv(torch.bfloat16, _bf16_bwd_refuses),
     "flash_wide_fwd_f32": _attention_fwd(torch.float32),
     "flash_wide_fwd_bf16": _attention_fwd(torch.bfloat16),
     "flash_wide_dq_f32": _attention_dq(torch.float32),
@@ -394,11 +408,13 @@ def test_head_dim_24_runs_the_kernel_padded_to_32(calls):
 
 @pytest.mark.parametrize("D", [16, 24, 48, 80])
 def test_padded_bf16_entries_equal_the_plain_versions(calls, D):
-    """bf16 operands reach the bf16 entries padded to the compiled width
-    (D=24 to 32; D=16 at its own width, which the C entries run on the
-    D=32 kernels); the result equals the bf16 plain versions (both compute
-    in float32 and round once; the zero columns change at most the order
-    of the sums)."""
+    """bf16 operands reach the bf16 forward padded to the compiled width
+    (D=24 to 32; D=16 at its own width, which the C entry runs on the D=32
+    kernel), and the bf16 dq and dk/dv entries at the true D on the
+    caller's own storage, with nothing padded or sliced (their kernels read
+    tensor maps D columns wide and write D columns); the results equal the
+    bf16 plain versions (both compute in float32 and round once; the zero
+    columns change at most the order of the sums)."""
     rng = np.random.default_rng(D)
     *ops, km = _operands(rng, 2, 11, 2, D, True)
     q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16) for a in ops)
@@ -419,18 +435,22 @@ def test_padded_bf16_entries_equal_the_plain_versions(calls, D):
                                         causal=True, key_mask=km)
     for a, b in zip(got, want):
         assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert a.is_contiguous()
         a, b = a.float(), b.float()
         assert bool(((a - b).abs() <= 2e-2 * b.abs()
                      + 1e-2 * b.abs().max()).all())
     assert [c[0] for c in calls] == ["flash_fwd_bf16", "flash_bwd_dq_bf16",
                                      "flash_bwd_dkv_bf16"]
-    assert [a[_d_at(s)] for s, a in calls] == [fa.kernel_head_dim(D)] * 3
+    assert [a[_d_at(s)] for s, a in calls] == [fa.kernel_head_dim(D), D, D]
+    for symbol, args in calls[1:]:
+        # q, k, v and dO: the caller's own tensors (dense, aligned)
+        assert args[:4] == tuple(t.data_ptr() for t in (q, k, v, g)), symbol
     counts = fa.route_counts()
     padded = int(fa.kernel_head_dim(D) != D)
     assert padded == (D != 16)
     assert counts["flash_fwd_bf16_padded"] == padded
-    assert counts["flash_bwd_dq_bf16_padded"] == padded
-    assert counts["flash_bwd_dkv_bf16_padded"] == padded
+    assert counts["flash_bwd_dq_bf16_padded"] == 0
+    assert counts["flash_bwd_dkv_bf16_padded"] == 0
 
 
 # -------------------------------------------------------- the plain route
