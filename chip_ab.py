@@ -9,6 +9,7 @@
     python3 chip_ab.py run ROOT LABEL d32_bwd_bf16
     python3 chip_ab.py run ROOT LABEL d32_fwd_bf16
     python3 chip_ab.py run ROOT LABEL padded_bwd_bf16
+    python3 chip_ab.py run ROOT LABEL padded_fwd
     python3 chip_ab.py run ROOT LABEL SET --no-gates   # any set above
     python3 chip_ab.py summary LOG...         # table of the turns
     python3 chip_ab.py sweep ROOT LABEL       # decode at each cluster size
@@ -110,7 +111,21 @@ PADDED_LSE_DIMS, kept here so that a parent checkout times the same
 cases). Each backward record also carries the kernels one call of its
 entry launches, counted from a CUDA graph (`_kernels_per_call` of ROOT's
 chip_smoke.py) on inputs of the same shape: the pad and slice copies a
-parent makes around the kernel show there. With `rank`, the kernels no PR has redesigned
+parent makes around the kernel show there. With `padded_fwd`, both
+forwards at head dims no kernel is compiled at (`_forward_case`, the same
+code on either checkout), each beside the same shape at its compiled
+width, in float32 and bf16: B=2 T=200 H=4 causal with a ragged key mask,
+with and without the LSE, at D=8, 24 (width 32), 40, 48, 56 (64), 72, 80,
+96, 120 (128), 136, 192, 200, 248 (256) and at 32, 64, 128 and 256; B=4
+T=4096 H=8 causal with the LSE at D=96 and 128; `flash_attention_lse` in
+float32 at B=1 T=1024 H=2 on a diagonal shard, a past one and offsets
+0/512 at D=136 and 256; and the bf16 decode route (`_bf16_decode_case`:
+the bf16 forward under the length mask) at the serving step S=8 C=256
+H=4, slab and paged on blocks of 16, at D=48 and 64 (PADDED_FWD,
+PADDED_FWD_LSE_DIMS and PADDED_FWD_DECODE, kept here so that a parent
+checkout times the same cases). Every forward and decode record carries
+the kernels one call launches (`_kernels_per_call` of ROOT's
+chip_smoke.py): the pad and slice copies of a parent show there. With `rank`, the kernels no PR has redesigned
 yet, once each at the train case (B=16 T=512 causal, H so that H * D =
 256): phase 2's `_bwd_case` at D=16 and 32 (the f32 pair). Inputs come from
 fixed seeds, so both checkouts see the same tensors, and every gate of
@@ -370,6 +385,26 @@ PADDED_BWD_BF16 = [
     ("D=128 long B=4 T=4096 H=8", 4, 4096, 4096, 8, 128, True, None, False),
 ]
 PADDED_LSE_DIMS = (136, 256)
+# both forwards at padded head dims beside their compiled widths
+# (`padded_fwd`): `_forward_case` (label, dtype, B, T, H, D, valid key
+# lengths or None, the LSE), causal: chip_smoke.py's PADDED_FWD_CASES, D=48,
+# 80 and 192 (PERF.md's padded rows) and each compiled width at the same
+# shapes, and the long shape at D=96 beside D=128; then
+# `flash_attention_lse` in float32 at B=1 T=1024 H=2 under D32_LSE_OFFSETS'
+# offsets at each of PADDED_FWD_LSE_DIMS; then the bf16 decode route at
+# PADDED_FWD_DECODE (label, S, C, H, lengths, block size) at D=48 and 64
+PADDED_FWD = [
+    *((f"D={D} B=2 T=200 H=4, ragged key mask" + (", LSE" if lse else ""),
+       dtype, 2, 200, 4, D, [200, 137], lse)
+      for dtype in ("float32", "bfloat16")
+      for D in (8, 24, 32, 40, 48, 56, 64, 72, 80, 96, 120, 128, 136, 192,
+                200, 248, 256)
+      for lse in (True, False)),
+    *((f"D={D} long B=4 T=4096 H=8, LSE", dtype, 4, 4096, 8, D, None, True)
+      for dtype in ("float32", "bfloat16") for D in (96, 128)),
+]
+PADDED_FWD_LSE_DIMS = (136, 256)
+PADDED_FWD_DECODE = ("step S=8 C=256", 8, 256, 4, _STEP, 16)
 # the kernels not yet redesigned, at the train case with H * D = 256:
 # (case function, D)
 RANK = [*(("bwd", D) for D in (16, 32))]
@@ -409,7 +444,9 @@ def _forward_case(cs, label, dtype, B, T, H, D, valid, lse, gen, Tk=None,
     sees no key: out 0, lse <= -1e29), timed beside the plain version and
     SDPA on the same inputs (TF32 off: phase_card; no SDPA where a row sees
     no key, where it gives NaN, or past SDPA_MAX_HEADS heads, which it
-    refuses). Returns the record."""
+    refuses), with the kernels one call launches (ROOT's
+    `_kernels_per_call`) and the MiB it allocates at its peak. Returns the
+    record."""
     import torch
     from deeplearning4j_tpu_torch.kernels import (flash_attention,
                                                   flash_attention_lse,
@@ -472,7 +509,21 @@ def _forward_case(cs, label, dtype, B, T, H, D, valid, lse, gen, Tk=None,
         "library_ms": library and cs.median_ms(library),
         **cs.bound(nbytes, 4 * D * pairs, bf16=bf16),
         "device_ms": cs.device_ms(run), "plain_device_ms": cs.device_ms(plain),
-        "library_device_ms": library and cs.device_ms(library)})
+        "library_device_ms": library and cs.device_ms(library),
+        "kernels_per_call": cs._kernels_per_call(run)[0],
+        "peak_mib": _peak_mib(run)})
+
+
+def _peak_mib(fn):
+    """MiB that one call of fn allocates on the card at its peak, above
+    what was allocated before it."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
 
 
 def _wide(cs):
@@ -591,6 +642,77 @@ def _padded_bwd_bf16(cs):
     return recs
 
 
+def _padded_fwd(cs):
+    import torch
+    gen = torch.Generator().manual_seed(23)
+    recs = [_forward_case(cs, lab, getattr(torch, dtype), B, T, H, D, valid,
+                          lse, gen)
+            for lab, dtype, B, T, H, D, valid, lse in PADDED_FWD]
+    for D in PADDED_FWD_LSE_DIMS:
+        for lab, offs in D32_LSE_OFFSETS:
+            recs.append(_forward_case(
+                cs, lab.replace("D=32", f"D={D}"), torch.float32, 1, 1024, 2,
+                D, None, True, gen, offsets=offs))
+    lab, S, C, H, lengths, bs = PADDED_FWD_DECODE
+    for D in (48, 64):
+        for paged in (False, True):
+            recs.append(_bf16_decode_case(
+                cs, f"{lab} D={D}" + (f" bs={bs}" if paged else ""), S, C,
+                H, D, lengths, bs if paged else None, gen))
+    return recs
+
+
+def _bf16_decode_case(cs, label, S, C, H, D, lengths, bs, gen):
+    """One bf16 decode call of ROOT's entries (slab, or with `bs` paged on
+    a shuffled table of blocks of `bs`), the bf16 forward under the length
+    mask, held to BF16_OUT_TOL of its plain version and timed beside it
+    and SDPA under the length mask (paged: on the gathered slab), with
+    the kernels one call launches (ROOT's `_kernels_per_call`). The same
+    code on either checkout: the routes it counts are not gated, so that a
+    parent that pads is timed too. Returns the record."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    bf = torch.bfloat16
+    q = torch.randn((S, 1, H, D), generator=gen).to(cs.DEVICE, bf)
+    lens = torch.as_tensor(lengths, dtype=torch.int32).to(cs.DEVICE)
+    if bs is None:
+        k, v = (torch.randn((S, C, H, D), generator=gen).to(cs.DEVICE, bf)
+                for _ in range(2))
+        run = lambda: K.flash_decode(q, k, v, lens)
+        plain = lambda: K.flash_decode_plain(q, k, v, lens)
+    else:
+        nb = C // bs
+        pk, pv = (torch.randn((1 + S * nb, bs, H, D), generator=gen)
+                  .to(cs.DEVICE, bf) for _ in range(2))
+        table = (1 + torch.randperm(S * nb, generator=gen)).reshape(
+            S, nb).to(torch.int32).to(cs.DEVICE)
+        k = pk[table.long()].reshape(S, C, H, D)
+        v = pv[table.long()].reshape(S, C, H, D)
+        run = lambda: K.flash_decode_paged(q, pk, pv, table, lens)
+        plain = lambda: K.flash_decode_paged_plain(q, pk, pv, table, lens)
+    out = run()
+    torch.cuda.synchronize()
+    err = float((out.float() - plain().float()).abs().max())
+    name = "flash_decode_bf16" if bs is None else "flash_decode_paged_bf16"
+    cs.check(out.dtype == bf and err <= cs.BF16_OUT_TOL,
+             f"{name} {label}: {out.dtype}, max abs err {err}")
+    sq, sk, sv = (t.transpose(1, 2) for t in (q, k, v))
+    mask = (torch.arange(C, device=q.device)[None, :] < lens[:, None]
+            )[:, None, None, :]
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        sq, sk, sv, attn_mask=mask)
+    valid = sum(min(int(x), C) for x in lengths)
+    nbytes = 2 * (2 * valid * H * D + 2 * S * H * D) + 4 * S
+    return cs.rate_fields({
+        "name": name, "case": label, "shape": [S, C, H, D],
+        "block_size": bs, "max_abs_err": err, "ms": cs.median_ms(run),
+        "plain_ms": cs.median_ms(plain), "library_ms": cs.median_ms(library),
+        **cs.bound(nbytes, 4 * D * H * valid, bf16=True),
+        "device_ms": cs.device_ms(run), "plain_device_ms": cs.device_ms(plain),
+        "library_device_ms": cs.device_ms(library),
+        "kernels_per_call": cs._kernels_per_call(run)[0]})
+
+
 def _rank(cs):
     import torch
     gen = torch.Generator().manual_seed(9)
@@ -624,7 +746,8 @@ def run(root, label, dtype="bf16", gates=True):
             "wide_bwd_bf16": lambda cs: _wide_bwd(cs, bf16=True),
             "d256": _d256, "d256_bwd": _d256_bwd, "d128_bwd": _d128_bwd,
             "d32_bwd_bf16": _d32_bwd_bf16, "d32_fwd_bf16": _d32_fwd_bf16,
-            "padded_bwd_bf16": _padded_bwd_bf16, "rank": _rank}
+            "padded_bwd_bf16": _padded_bwd_bf16, "padded_fwd": _padded_fwd,
+            "rank": _rank}
     if dtype in sets:
         _print_turn(label, root, sets[dtype](cs), cs, failed)
         return
@@ -666,7 +789,7 @@ def _print_turn(label, root, recs, cs, failed=None):
         {**{k: r.get(k) for k in ("name", "case", "device_ms", "ms",
                                   "max_abs_err", "library_device_ms",
                                   "kernels_per_call", "ctas_per_pair",
-                                  "launch_floor_device_ms")},
+                                  "launch_floor_device_ms", "peak_mib")},
          **_bounds(r, cs)}
         for r in recs]}))
 
@@ -705,7 +828,7 @@ def summary(logs):
         for line in Path(path).read_text().splitlines():
             if line.startswith('{"ab"'):
                 turns.append(json.loads(line))
-    sides, walls, cases, libs, per_call = {}, {}, {}, {}, {}
+    sides, walls, cases, libs, per_call, peaks = {}, {}, {}, {}, {}, {}
     for t in turns:
         for c in t["cases"]:
             key = (c["name"], c["case"])
@@ -713,6 +836,8 @@ def summary(logs):
                 c["device_ms"])
             if c.get("kernels_per_call") is not None:
                 per_call.setdefault(key, {})[t["ab"]] = c["kernels_per_call"]
+            if c.get("peak_mib") is not None:
+                peaks.setdefault(key, {})[t["ab"]] = c["peak_mib"]
             walls.setdefault(key, {}).setdefault(t["ab"], []).append(
                 c.get("ms"))
             cases[key] = c
@@ -754,6 +879,9 @@ def summary(logs):
         calls = per_call.get((name, case), {})
         if calls:
             row["kernels_per_call"] = calls
+        peak = peaks.get((name, case), {})
+        if peak:
+            row["peak_mib"] = peak
         rows.append(row)
         pair = lambda d, n: (" / ".join(f"{d[x]:.{n}f}" for x in (base, new))
                              if d else "-")
@@ -769,7 +897,10 @@ def summary(logs):
               f"{pair(row.get('kernel_ms'), 4):>18}"
               + (" | kernels a call " + " / ".join(
                   str(calls.get(x, "-")) for x in (base, new))
-                 if calls else ""))
+                 if calls else "")
+              + (" | peak MiB " + " / ".join(
+                  f"{peak[x]:.2f}" if x in peak else "-" for x in (base, new))
+                 if peak else ""))
     print(json.dumps({"ab_summary": rows}))
 
 
@@ -779,7 +910,8 @@ if __name__ == "__main__":
                                  ["wide"], ["wide_bwd"], ["wide_bwd_bf16"],
                                  ["d256"], ["d256_bwd"], ["d128_bwd"],
                                  ["d32_bwd_bf16"], ["d32_fwd_bf16"],
-                                 ["padded_bwd_bf16"], ["rank"]):
+                                 ["padded_bwd_bf16"], ["padded_fwd"],
+                                 ["rank"]):
         run(*sys.argv[2:])
     elif len(sys.argv) >= 3 and sys.argv[1] == "summary":
         summary(sys.argv[2:])

@@ -107,14 +107,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    causal with a ragged key mask, and through `flash_decode` and
    `flash_decode_paged` at the step shape, each within phase 2's bars of
    its plain version, with the launch counters showing the kernel
-   launched (`<kernel>_padded` calls at 48 and 80, none at 256; the bf16
-   backward pair reads the true D and counts none at any width) and no
-   plain route;
+   launched (`<kernel>_padded` calls of the f32 backward pair at 48 and
+   80, none at 256; both forwards and the bf16 backward pair read the
+   true D and count none at any width) and no plain route;
    D=20 (D % 8 != 0) on every entry: one `<kernel>_plain_by_shape` call,
    no launch, equal to plain; and `transformer_lm(d_model=192,
    n_heads=4)` (head dim 48) decoded greedily with
    `DecodeEngine.generate`, slab and paged, equal to the use_pallas=False
-   model under the tie rule below. The wide kernels: D=264, 320, 512 and
+   model under the tie rule below, its prefill on the f32 forward at the
+   true D (no padded call). The wide kernels: D=264, 320, 512 and
    1024 at B=2 T=200 H=4 causal with a ragged key mask, the forward with
    and without the LSE, dq and dk/dv in f32 and bf16 (the bf16 forward
    without the LSE checked for its error alone), and both decode
@@ -145,11 +146,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    prefill launches `flash_fwd` at D=32, unpadded.
 2d. The float32 kernels at head dim 256 (`flash_fwd_f32_d256` and
    `flash_bwd_f32_ws<256>`, also the kernels of every D % 8 == 0 from 136
-   on, zero-padded to 256): at each of D256_CASES the forward through
+   on: the forward on maps of the true D, the pair zero-padded to 256): at
+   each of D256_CASES the forward through
    `flash_attention` within TOL on out and LSE and the backward pair
    within BWD_TOL (a masked key's dk and dv rows exactly 0), launching
-   `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv` only (padded at D=192
-   only): the train case B=16 T=512 H=1 with the LSE three times, bitwise
+   `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv` only (the pair padded
+   at D=192 only): the train case B=16 T=512 H=1 with the LSE three times, bitwise
    equal; B=2 T=200 H=4 causal with a ragged key mask at D=256 and 192;
    the prefill shape B=1 L=64 H=4 with a key mask; Tq=37 Tk=53 not causal
    with a key mask; B=8 T=512 H=4 causal with a ragged key mask, every
@@ -188,15 +190,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 2f. The bf16 kernels at head dim 32, the forward `flash_fwd_bf16_d32`
    and the backward pair `flash_bwd_dq_bf16_d32` and
    `flash_bwd_dkv_bf16_d32` (64B-swizzled TMA tiles, `wgmma`; also D=24,
-   the forward zero-padded to 32 and the pair on maps 24 columns wide,
-   and D=16 on the same kernels through TMA zero fill): first the
+   16 and 8 on the same kernels, on maps D columns wide through TMA zero
+   fill): first the
    64B-swizzle probe (`flash_bwd_bf16_sw64_probe`: one
    m64n32 product pair from 64B-swizzled tiles, K-major and MN-major with
    A from registers, against torch.matmul within 1e-3); then at each of
    D32_BF16_CASES through `_bf16_case` (the forward's out and LSE, then
    dq, dk and dv within BF16_GRAD_TOL, a masked key's dk and dv rows
-   exactly 0), launching the three bf16 kernels only (the forward padded
-   at D=24 only, the pair never): the train case B=16 T=512 H=8 three times, bitwise equal; B=2
+   exactly 0), launching the three bf16 kernels only, none padded: the
+   train case B=16 T=512 H=8 three times, bitwise equal; B=2
    T=200 H=4 causal with a ragged key mask at D=32 and 24; Tq=37 Tk=53
    not causal with a key mask; B=8 T=512 H=4 causal with a ragged key
    mask; the training shape of the model below, B=4 T=128 H=4 causal,
@@ -205,8 +207,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    D=32 (`_lse_case`: diagonal, past, offsets 0/512 with rows that see no
    key: out 0, lse <= -1e29, dq rows 0). Then the forward without the LSE
    (`_bf16_forward`: B=2 T=200 H=4 causal with a ragged key mask, out
-   within BF16_OUT_TOL) at D=32, 16 and 8 (zero-padded to 16: counted
-   under `flash_fwd_bf16_padded`), and bench_decode_paged's prefill shape,
+   within BF16_OUT_TOL) at D=32, 16 and 8, and bench_decode_paged's
+   prefill shape,
    B=1 L=24 H=4 D=32 with a key mask and no LSE, launching
    `flash_fwd_bf16` only. Then bench_decode_paged's model (head dim 32)
    in bf16 through `_model_paths`: 3 `fit` steps at 4 x 128 with
@@ -229,13 +231,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    H=2 D=136 (`_lse_case`: diagonal, past, offsets 0/512 with rows that
    see no key: out 0, lse <= -1e29, dq rows 0). Each within the bf16 bars
    (a masked key's dk and dv rows exactly 0), launching the three bf16
-   kernels only, `flash_fwd_bf16_padded` counted (the forward still pads)
-   and no `_padded`, `_wide` or plain-route call of the pair, each
-   backward entry one kernel a call (`_kernels_per_call`: no pad, slice or
-   layout copy around it; `_bf16_case` and `_lse_case` hold every
-   backward entry that takes its D unpadded to that, in every phase). Phase 1 fails if ptxas reports a spill in
-   `flash_bwd_dq_bf16_sm90` or `flash_bwd_dkv_bf16_sm90` at width 64, 128
-   or 256, or does not report one of them.
+   kernels only, with no `_padded`, `_wide` or plain-route call, each
+   entry one kernel a call (`_kernels_per_call`: no pad, slice or layout
+   copy around it; `_bf16_case`, `_lse_case` and `_fwd_general_case` hold
+   every entry that takes its D unpadded, both forwards and the bf16
+   pair, to that, in every phase). Phase 1 fails if ptxas reports a spill
+   in `flash_bwd_dq_bf16_sm90` or `flash_bwd_dkv_bf16_sm90` at width 64,
+   128 or 256, or does not report one of them.
+2h. Both forwards at head dims no kernel is compiled at, on tensor maps
+   of the true D (TMA zero-fills each box past column D) and stores
+   clipped to D, with no padding copy: first the out-of-bounds probe on a
+   float32 map (`flash_bwd_bf16_oob_probe_f32`: an 8-column map read in
+   32-column boxes with the 128B swizzle; the box that starts past the
+   map lands as zeros and its bytes complete the mbarrier, the box at the
+   edge holds row r of x in its swizzled chunks; its own JSON line,
+   `oob_probe_f32`); then at each of PADDED_FWD_CASES through
+   `_fwd_general_case`: the float32 and bf16 forward at D=8, 24, 40, 56,
+   72, 96, 120, 136, 200 and 248 at B=2 T=200 H=4 causal with a ragged key
+   mask, with and without the LSE, and D=96 at B=4 T=4096 H=8 causal with
+   the LSE in both types (three times, bitwise equal); `flash_attention_lse`
+   in float32 at B=1 T=1024 H=2 D=136 (`_lse_case`: diagonal, past,
+   offsets 0/512 with rows that see no key: out 0, lse <= -1e29, dq rows
+   0); and the bf16 decode route at D=48 (`_decode_dtype_case`, slab and
+   paged: the bf16 forward under the length mask at the true D). Each out
+   within TOL (bf16: BF16_OUT_TOL) and its LSE within its bar of the
+   plain version, exactly one kernel a forward call, and no `_padded`,
+   `_wide` or plain-route call of the forward. Phase 1 fails if ptxas
+   reports a spill in `flash_fwd_bf16_sm90` at width 64, 128 or 256, in
+   `flash_fwd_f32_sm90` at width 32, 64 or 128 or in
+   `flash_fwd_f32_d256`, or does not report one of them.
 3. The serving path: `transformer_lm` at full width (vocab 256, d_model
    256, 4 layers, 4 heads) with `use_pallas=True` and
    `synthetic_params(seed=0)`, served by
@@ -331,8 +355,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    bench_decode_paged's model's training_d32_bf16) must count zero
    padded and zero plain-route calls, and
    only the D=320 model's paths wide ones; every kernel must have
-   launched on its main path (phase 2g adds cases, no path: no model of
-   the zoo runs the bf16 pair at a padded head dim). The run's time, then
+   launched on its main path (phases 2g and 2h add cases, no path: no
+   model of the zoo trains at a padded head dim; the D=48 engine of phase
+   2b serves through the forward at its true D). The run's time, then
    one line
    `{"kernels": [...]}` with each of
    the 14 kernels' numbers (the six wide entries' at the D=320 model's
@@ -396,7 +421,7 @@ TRAIN_CASE = f"train B={TRAIN_BATCH} T={TRAIN_SEQ} H=4 D=64"
 T200_CASE = "B=2 T=200 H=4 D=128, ragged key mask"
 STEP_LENGTHS = [1, 17, 100, 256, 3, 64, 200, 255]
 # head dims the reference's kernel takes that no source is compiled at
-# (padded to 64 and 128) and the widest compiled one; a head dim the
+# (run at widths 64 and 128) and the widest compiled one; a head dim the
 # reference runs plainly (D % 8 != 0); `transformer_lm` at head dim 48
 HEAD_DIM_CASES = (48, 80, 256)
 PLAIN_HEAD_DIM = 20
@@ -433,8 +458,8 @@ WIDE_LSE = (1, 1024, 2, 320)
 WIDE_LSE_OFFSETS = (("wide diagonal", (1024, 1024)), ("wide past", (1024, 0)),
                     ("wide rows without keys", (0, 512)))
 # the float32 kernels at head dim 256 (`flash_fwd_f32_d256` and
-# `flash_bwd_f32_ws<256>`, and every D % 8 == 0 from 136 on, zero-padded to
-# it): (label, B, Tq, Tk, H, D, causal, valid key lengths or None, the
+# `flash_bwd_f32_ws<256>`, and every D % 8 == 0 from 136 on: the forward
+# on maps of the true D, the pair zero-padded to 256): (label, B, Tq, Tk, H, D, causal, valid key lengths or None, the
 # forward with the LSE, a bitwise repeat), the train case first; then the
 # ring shard of `flash_attention_lse` under causal offsets, (label, (q_off,
 # k_off)) at B=1 T=1024 H=2. chip_ab.py's `d256` and `d256_bwd` sets time
@@ -488,9 +513,9 @@ D128_LSE_OFFSETS = (("D=128 diagonal", (1024, 1024)),
 # the head dim of most public decoder LMs: two heads of 128
 D128_MODEL = dict(vocab_size=256, d_model=256, n_layers=2, n_heads=2)
 # the bf16 backward pair at head dim 32 (`flash_bwd_dq_bf16_d32` and
-# `flash_bwd_dkv_bf16_d32`, also D=24 and D=16 on the same kernels, on
-# maps of the true D; the forward pads D=24 to 32): (label, B, Tq, Tk, H, D, causal, valid key lengths or
-# None, a bitwise repeat) through `_bf16_case` (the forward with the LSE,
+# `flash_bwd_dkv_bf16_d32`, also D=24 and D=16 on the same kernels, the
+# forward's too, on maps of the true D): (label, B, Tq, Tk, H, D, causal,
+# valid key lengths or None, a bitwise repeat) through `_bf16_case` (the forward with the LSE,
 # then the pair), the train case first; then `flash_attention_lse` in
 # bf16 on D32_LSE under each of D32_LSE_OFFSETS. chip_ab.py's
 # `d32_bwd_bf16` set times the same cases.
@@ -516,7 +541,8 @@ D32_LSE_OFFSETS = (("D=32 diagonal", (1024, 1024)),
                    ("D=32 past", (1024, 0)),
                    ("D=32 rows without keys", (0, 512)))
 # the bf16 forward without the LSE (`_bf16_forward`: B=2 T=200 H=4 causal,
-# key lengths 200 and 137) at head dims 32, 16 and 8 (zero-padded to 16);
+# key lengths 200 and 137) at head dims 32, 16 and 8 (all on the width-32
+# kernel);
 # then bench_decode_paged's prefill (bench.py:724-748: 24-token prompts,
 # d_model 128 over 4 heads) in bf16 with a key mask and no LSE: (label, B,
 # L, H, D, valid key lengths)
@@ -544,6 +570,27 @@ PADDED_LSE_OFFSETS = (("D=136 diagonal", (1024, 1024)),
                       ("D=136 past", (1024, 0)),
                       ("D=136 rows without keys", (0, 512)))
 OOB_PROBE_SPINS = 1 << 20
+# both forwards at head dims no kernel is compiled at, on tensor maps of
+# the true D (no padding copies): (label, dtype, B, Tq, Tk, H, D, valid key
+# lengths or None, the LSE, a bitwise repeat) through `_fwd_general_case`,
+# causal: float32 and bf16 at every compiled width's padded range (as
+# PADDED_BF16_BWD_CASES: at 136 each tile's boxes past column 160, f32, or
+# 192, bf16, lie wholly past D) with and without the LSE, and the long
+# shape at D=96 (GPT-NeoX-20B's head dim); then `flash_attention_lse` in
+# float32 on PADDED_LSE under each of PADDED_LSE_OFFSETS and the bf16 decode
+# route at D=48 (PADDED_DECODE, beside the same shape at D=64). chip_ab.py's
+# `padded_fwd` set times the same cases beside their compiled widths.
+PADDED_FWD_CASES = [
+    *((f"D={D} B=2 T=200 H=4, ragged key mask" + (", LSE" if lse else ""),
+       dtype, 2, 200, 200, 4, D, [200, 137], lse, False)
+      for dtype in ("float32", "bfloat16")
+      for D in (8, 24, 40, 56, 72, 96, 120, 136, 200, 248)
+      for lse in (True, False)),
+    *(("D=96 long B=4 T=4096 H=8, LSE", dtype, 4, 4096, 4096, 8, 96, None,
+       True, True) for dtype in ("float32", "bfloat16")),
+]
+# (label, S, C, H, valid lengths, block size of the paged entry)
+PADDED_DECODE = ("step S=8 C=256", 8, 256, 4, STEP_LENGTHS, 16)
 # bench_decode_paged's model and requests (bench.py:724-748)
 BENCH_PAGED_MODEL = dict(vocab_size=256, d_model=128, n_layers=2, n_heads=4)
 BENCH_PAGED_SERVE = dict(decode_slots=4, decode_max_len=128,
@@ -709,8 +756,14 @@ def phase_card():
     # `flash_bwd_dq_bf16_d32` and `flash_bwd_dkv_bf16_d32` (64B swizzle,
     # wgmma): no spill, and no `mma.sync` kernel is built at either width.
     # The bf16 pair at widths 64, 128 and 256 (`flash_bwd_*_bf16_sm90`,
-    # every head dim from 40 to 256 on the true D): no spill either.
+    # every head dim from 40 to 256 on the true D): no spill either, nor
+    # either forward at any width (every head dim from 8 to 256 on the true
+    # D).
     for lib, kernel, widths in (("flash_fwd", "flash_fwd_f32_d256", ()),
+                                ("flash_fwd", "flash_fwd_f32_sm90",
+                                 (32, 64, 128)),
+                                ("flash_fwd_bf16", "flash_fwd_bf16_sm90",
+                                 (64, 128, 256)),
                                 ("flash_bwd", "flash_bwd_f32_ws",
                                  (128, 256)),
                                 ("flash_bwd", "flash_bwd_dkv_f32_d128", ()),
@@ -835,6 +888,7 @@ def _fwd_general_case(label, B, Tq, Tk, H, D, causal, valid, gen, lse=False,
             check(all(torch.equal(a, b)
                       for a, b in zip(got, outputs(run()))),
                   f"{name} {label}: results differ bitwise between runs")
+    per = _per_call(f"{name} {label}", {name: (run, plain)}, D)[name]
     sdpa_q, sdpa_k, sdpa_v = (t.transpose(1, 2) for t in (q, k, v))
     sdpa_mask = None
     if km is not None:   # boolean [B, 1, Tq, Tk]: key-valid (AND causal)
@@ -866,7 +920,7 @@ def _fwd_general_case(label, B, Tq, Tk, H, D, causal, valid, gen, lse=False,
            "device_ms": device_ms(run), "plain_device_ms": device_ms(plain),
            "library_device_ms": (None if library is None
                                  else device_ms(library)),
-           "bitwise_repeat": repeat}
+           "bitwise_repeat": repeat, "kernels_per_call": per}
     return rate_fields(rec)
 
 
@@ -1301,7 +1355,7 @@ def _bf16_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
                                + 2 * kv, 8 * D * pairs)}
     err = {"flash_fwd_bf16": out_err, "flash_bwd_dq_bf16": errs["dq"],
            "flash_bwd_dkv_bf16": max(errs["dk"], errs["dv"])}
-    per = _bwd_per_call(label, runs, D)
+    per = _per_call(label, runs, D)
     recs = []
     for name, (run, plain) in runs.items():
         nbytes, ops = work[name]
@@ -1327,15 +1381,16 @@ def _bf16_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
     return recs
 
 
-def _bwd_per_call(label, runs, D):
-    """{kernel: kernels per call} of the backward entries among `runs`
-    ({kernel: (run, plain)}) that take head dim D unpadded (`_padded_at`),
-    each from one call captured in a CUDA graph (`_kernels_per_call`): the
-    entry must launch its kernel and nothing else (no pad, slice or layout
-    copy around it)."""
+def _per_call(label, runs, D):
+    """{kernel: kernels per call} of the entries among `runs` ({kernel:
+    (run, plain)}) that take head dim D unpadded (`_padded_at`: every
+    forward, the bf16 pair, the f32 pair at a compiled width), each from
+    one call captured in a CUDA graph (`_kernels_per_call`): the entry
+    must launch its kernel and nothing else (no pad, slice or layout copy
+    around it)."""
     per = {}
     for name, (run, _) in runs.items():
-        if "_bwd_" in name and not _padded_at(D, (name,)):
+        if not _padded_at(D, (name,)):
             per[name], nodes = _kernels_per_call(run)
             check(per[name] == 1 == nodes,
                   f"{label}: {name} launched {per[name]} kernels ({nodes} "
@@ -1455,7 +1510,8 @@ def phase_kernels():
     return cases
 
 
-def _decode_dtype_case(label, dtype, S, C, H, D, lengths, gen, bs=None):
+def _decode_dtype_case(label, dtype, S, C, H, D, lengths, gen, bs=None,
+                       per_call=False):
     """A decode entry on `dtype` (bf16 or float16) operands, or with a block
     size `bs` that is not a power of two on float32 ones: `flash_decode`
     on a [S, C] cache, or with `bs` `flash_decode_paged` on a pool of 1 +
@@ -1467,7 +1523,8 @@ def _decode_dtype_case(label, dtype, S, C, H, D, lengths, gen, bs=None):
     (float16: F16_OUT_TOL; float32: TOL) of the plain version, and the
     same bits from a second call. Returns the record; `library_ms` is
     SDPA under the length mask on the same operands (paged: on the
-    gathered slab, the gather untimed)."""
+    gathered slab, the gather untimed); with `per_call`, the kernels one
+    call launches (`_kernels_per_call`) under "kernels_per_call"."""
     import torch
     from deeplearning4j_tpu_torch import kernels as K
     from deeplearning4j_tpu_torch.kernels.flash_attention import \
@@ -1518,6 +1575,8 @@ def _decode_dtype_case(label, dtype, S, C, H, D, lengths, gen, bs=None):
           f"{err} > {tol}")
     check(torch.equal(out, run()), f"{entry} {label}: a second call gave "
                                    "other bits")
+    extra = {"kernels_per_call": _kernels_per_call(run)[0]} if per_call \
+        else {}
     library_ms = library_device_ms = None
     if min(lengths) >= 1:
         sq, sk, sv = (t.transpose(1, 2) for t in (q, k, v))
@@ -1542,7 +1601,7 @@ def _decode_dtype_case(label, dtype, S, C, H, D, lengths, gen, bs=None):
                             " (the gathered slab, the gather untimed)"),
         **bound(nbytes, 4 * D * H * valid, bf16=not f32),
         "device_ms": device_ms(run), "plain_device_ms": device_ms(plain),
-        "library_device_ms": library_device_ms})
+        "library_device_ms": library_device_ms, **extra})
 
 
 def phase_decode_dtypes():
@@ -1650,16 +1709,15 @@ def _print_cases(cases):
 # ----------------------------------------------------------------- phase 2b
 def _padded_at(D, kernels):
     """The kernels of `kernels` that take head dim D on operands
-    zero-padded to its compiled width (a `<kernel>_padded` call): every
-    attention kernel where D is no compiled width and at most
-    WIDEST_COMPILED, but the bf16 backward pair, which reads the true D
-    through its tensor maps; the decode kernels never."""
+    zero-padded to its compiled width (a `<kernel>_padded` call): the f32
+    backward pair where D is no compiled width and at most
+    WIDEST_COMPILED. Both forwards and the bf16 backward pair read the
+    true D through their tensor maps; the decode kernels never pad."""
     from deeplearning4j_tpu_torch.kernels.flash_attention import \
         kernel_head_dim
     if kernel_head_dim(D) == D:
         return ()
-    return tuple(k for k in kernels if "decode" not in k
-                 and k not in ("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"))
+    return tuple(k for k in kernels if k in ("flash_bwd_dq", "flash_bwd_dkv"))
 
 
 def _routed(what, run, kernels, padded, wide=()):
@@ -1797,7 +1855,8 @@ def _wide_decode_case(label, S, H, D, lengths, gen, bs=None):
 
 def phase_head_dims():
     """Head dims against their plain versions on the card: D=48, 80 and
-    256 (a hand kernel each; 48 and 80 zero-padded to 64 and 128) through
+    256 (a hand kernel each; 48 and 80 at widths 64 and 128, the f32 pair
+    on operands zero-padded to them) through
     `flash_attention` forward and backward in f32 and bf16 and both decode
     kernels; D=264, 320, 512 and 1024 on the wide kernels (forward with and
     without the LSE, dq and dk/dv, f32 and bf16; both decode entries), at
@@ -1975,7 +2034,8 @@ def _engine_head_dim():
     use_pallas=True, decoded greedily with `DecodeEngine.generate` from a
     slab and a paged cache: the tokens equal the use_pallas=False model's
     (a differing token must sit on a true tie, top-2 gap < 1e-6), through
-    the padded forward and the decode kernel, never the plain route."""
+    the forward at the true D and the decode kernel, never a padded or
+    the plain route."""
     from deeplearning4j_tpu_torch.decode import DecodeEngine
     nets = {use_pallas: _lm(ENGINE_48, use_pallas)
             for use_pallas in (True, False)}
@@ -1993,7 +2053,7 @@ def _engine_head_dim():
         mode = "paged" if paged else "slab"
         served = _routed(f"D=48 engine, {mode}",
                          lambda: [eng.generate(p, n_new) for p in prompts],
-                         ("flash_fwd", kernel), ("flash_fwd",))
+                         ("flash_fwd", kernel), ())
         out[mode] = {"tokens": served, "ties": _tokens_equal(
             f"D=48 engine {mode}", served, wants)}
     return out
@@ -2119,8 +2179,8 @@ def phase_d256():
     (out and LSE within TOL) and the backward pair through `_bwd_case` (dq,
     dk and dv within BWD_TOL, a masked key's dk and dv rows exactly 0); the
     train case three times each, bitwise equal; launching `flash_fwd`,
-    `flash_bwd_dq` and `flash_bwd_dkv` and nothing else, zero-padded at
-    D=192 only; then `flash_attention_lse` on the D256_LSE shard under each
+    `flash_bwd_dq` and `flash_bwd_dkv` and nothing else, the pair
+    zero-padded at D=192 only; then `flash_attention_lse` on the D256_LSE shard under each
     of D256_LSE_OFFSETS with `_lse_case` (the forward and the backward pair
     within phase 2's bars, with an LSE cotangent; rows that see no key out
     0 with lse <= -1e29 and a zero dq row); then the D=256 model
@@ -2164,7 +2224,8 @@ def phase_d128():
     forward's LSE within TOL first; dq, dk and dv within BWD_TOL, a masked
     key's dk and dv rows exactly 0; the train case three times, bitwise
     equal), launching `flash_fwd` (the LSE), `flash_bwd_dq` and
-    `flash_bwd_dkv` and nothing else, zero-padded at D=96 and 80 only;
+    `flash_bwd_dkv` and nothing else, the pair zero-padded at D=96 and 80
+    only;
     then `flash_attention_lse` on the D128_LSE shard under each of
     D128_LSE_OFFSETS with `_lse_case` (the forward and the backward pair
     within phase 2's bars, with an LSE cotangent; rows that see no key out
@@ -2236,13 +2297,12 @@ def phase_d32_bf16():
     BF16_OUT_TOL / BF16_LSE_TOL, then dq, dk and dv within BF16_GRAD_TOL, a
     masked key's dk and dv rows exactly 0; the train case three times,
     bitwise equal), launching `flash_fwd_bf16`, `flash_bwd_dq_bf16` and
-    `flash_bwd_dkv_bf16` and nothing else, the forward zero-padded at
-    D=24 only (D=16 runs unpadded on the D=32 kernels; the pair reads the
-    true D at every width); then `flash_attention_lse` in bf16
+    `flash_bwd_dkv_bf16` and nothing else, none padded (every entry
+    reads the true D at every width); then `flash_attention_lse` in bf16
     on the D32_LSE shard under each of D32_LSE_OFFSETS with `_lse_case`
     (rows that see no key: out 0, lse <= -1e29, a zero dq row); then the
     forward alone without the LSE: `_bf16_forward` at each of
-    D32_FWD_HEAD_DIMS (D=8 zero-padded to 16) and D32_PREFILL through
+    D32_FWD_HEAD_DIMS and D32_PREFILL through
     `_fwd_general_case`, launching `flash_fwd_bf16` only; then bf16
     training of bench_decode_paged's model (BENCH_PAGED_MODEL: head dim
     32) through `_model_paths`: path training_d32_bf16, 3 `fit` steps at
@@ -2284,42 +2344,55 @@ def phase_d32_bf16():
     return cases, summary, launches
 
 
-def _oob_probe():
-    """TMA on a box that starts past its map's columns, alone
-    (`flash_bwd_bf16_oob_probe`): x [64 rows][8 columns] bf16 through a
-    128B-swizzled map 8 columns wide, box 0 at column 0 (columns 8..63
-    past the map) and box 1 at column 64 (wholly past it), into shared
-    memory filled with 0xFFFF, one mbarrier expecting both whole boxes'
+def _oob_probe(dtype=None):
+    """TMA on a box that starts past its map's columns, alone: x [64 rows]
+    [8 columns] of bf16 (`flash_bwd_bf16_oob_probe`) or, with `dtype`
+    torch.float32, of float32 (`flash_bwd_bf16_oob_probe_f32`) through a
+    128B-swizzled map 8 columns wide, read in boxes of 128 bytes (C = 64
+    bf16 or 32 float32 columns): box 0 at column 0 (columns 8..C-1 past
+    the map) and box 1 at column C (wholly past it), into shared memory
+    filled with all-ones bits, one mbarrier expecting both whole boxes'
     bytes, polled at most OOB_PROBE_SPINS times (so a count that never
     completes ends the probe, not the run). The barrier must complete, box
     1 must land as zeros, and box 0 must hold row r of x in its 16-byte
-    chunk r % 8 (the 128B swizzle) and zeros elsewhere: the bf16 pair at
-    compiled width 256 issues such a box for D = 136..192 and counts its
-    bytes in `expect_tx`."""
+    chunks, chunk c at chunk c ^ (r % 8) (the 128B swizzle), and zeros
+    elsewhere: the kernels at compiled widths 128 and 256 issue such boxes
+    (bf16 pair and forward at 256 for D = 136..192; the float32 forward at
+    128 for D = 72..96 and at 256 for D = 136..224) and count their bytes
+    in `expect_tx`. Prints the result on its own JSON line (`oob_probe`,
+    `oob_probe_f32`)."""
     import ctypes
 
     import torch
     from deeplearning4j_tpu_torch.kernels import build
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
+    symbol = "flash_bwd_bf16_oob_probe" + ("_f32" if f32 else "")
     fn = build.kernel_function(
-        "flash_bwd_bf16", "flash_bwd_bf16_oob_probe",
+        "flash_bwd_bf16", symbol,
         [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
     gen = torch.Generator().manual_seed(136)
-    x = torch.randn((64, 8), generator=gen).to(DEVICE, torch.bfloat16)
-    out = torch.zeros((2, 64, 64), dtype=torch.int16, device=DEVICE)
+    x = torch.randn((64, 8), generator=gen).to(DEVICE, dtype)
+    bits = torch.int32 if f32 else torch.int16
+    C = 128 // x.element_size()             # columns of one box
+    e = 16 // x.element_size()              # elements of a 16-byte chunk
+    out = torch.zeros((2, 64, C), dtype=bits, device=DEVICE)
     done = torch.full((1,), -1, dtype=torch.int32, device=DEVICE)
     err = fn(x.data_ptr(), out.data_ptr(), done.data_ptr(), OOB_PROBE_SPINS,
              torch.cuda.current_stream().cuda_stream)
-    check(err == 0, f"flash_bwd_bf16_oob_probe launch failed: {err}")
+    check(err == 0, f"{symbol} launch failed: {err}")
     torch.cuda.synchronize()
-    want = torch.zeros((64, 64), dtype=torch.int16, device=DEVICE)
+    want = torch.zeros((64, C), dtype=bits, device=DEVICE)
+    xb = x.view(bits)
     for r in range(64):
-        c = 8 * (r % 8)
-        want[r, c:c + 8] = x[r].view(torch.int16)
+        for c in range(8 // e):             # the map's chunks of row r
+            at = e * (c ^ (r % 8))
+            want[r, at:at + e] = xb[r, e * c:e * (c + 1)]
     res = {"barrier_completed": int(done.item()) == 1,
            "box_past_the_map_zero": bool((out[1] == 0).all()),
            "box_at_the_edge_as_swizzled": bool(torch.equal(out[0], want))}
-    print(json.dumps({"oob_probe": res}))
-    check(all(res.values()), f"TMA out-of-bounds probe: {res}")
+    print(json.dumps({"oob_probe_f32" if f32 else "oob_probe": res}))
+    check(all(res.values()), f"TMA out-of-bounds probe ({dtype}): {res}")
     return res
 
 
@@ -2332,9 +2405,8 @@ def phase_padded_bf16_bwd():
     three times, bitwise equal) and `flash_attention_lse` on PADDED_LSE
     under each of PADDED_LSE_OFFSETS (rows that see no key: out 0, lse <=
     -1e29, a zero dq row), launching the three bf16 kernels and nothing
-    else, with `flash_fwd_bf16_padded` calls (the forward still pads) and
-    no `_padded`, `_wide` or plain-route call of the pair, each backward
-    entry one kernel a call. Returns (cases, probe)."""
+    else, with no `_padded`, `_wide` or plain-route call, each entry one
+    kernel a call. Returns (cases, probe)."""
     import torch
     probe = _oob_probe()
     gen = torch.Generator().manual_seed(22)
@@ -2343,12 +2415,59 @@ def phase_padded_bf16_bwd():
     for lab, B, Tq, Tk, H, D, causal, valid, repeat in PADDED_BF16_BWD_CASES:
         cases += _routed(lab, lambda: _bf16_case(
             lab, B, Tq, Tk, H, D, causal, valid, gen, repeat=repeat),
-            kernels, kernels[:1])
+            kernels, ())
     B, T, H, D = PADDED_LSE
     for lab, offs in PADDED_LSE_OFFSETS:
         cases += _routed(lab, lambda: _lse_case(
-            lab, torch.bfloat16, B, T, H, D, offs, None, gen), kernels,
-            kernels[:1])
+            lab, torch.bfloat16, B, T, H, D, offs, None, gen), kernels, ())
+    _print_cases(cases)
+    return cases, probe
+
+
+def phase_padded_fwd():
+    """Both forwards at head dims no kernel is compiled at, on tensor maps
+    of the true D with stores clipped to D: first `_oob_probe` on a
+    float32 map; then at each of PADDED_FWD_CASES through
+    `_fwd_general_case` (out and the LSE within TOL, bf16 BF16_OUT_TOL and
+    BF16_LSE_TOL; the long case three times, bitwise equal) and
+    `flash_attention_lse` in float32 on PADDED_LSE under each of
+    PADDED_LSE_OFFSETS through `_lse_case` (rows that see no key: out 0,
+    lse <= -1e29, a zero dq row; the f32 pair zero-padded), each forward
+    call one kernel and no `_padded`, `_wide` or plain-route call of the
+    forward; then the bf16 decode route (`_decode_dtype_case`, slab and
+    paged) at PADDED_DECODE's shape at D=48, each call launching as many
+    kernels as the same call at D=64 (the length mask's and, paged, the
+    gather's, and one forward: no pad or slice). Returns (cases, probe)."""
+    import torch
+    probe = _oob_probe(torch.float32)
+    gen = torch.Generator().manual_seed(23)
+    cases = []
+    for lab, dtype, B, Tq, Tk, H, D, valid, lse, repeat in PADDED_FWD_CASES:
+        dt = getattr(torch, dtype)
+        name = "flash_fwd_bf16" if dt == torch.bfloat16 else "flash_fwd"
+        cases.append(_routed(lab, lambda: _fwd_general_case(
+            lab, B, Tq, Tk, H, D, True, valid, gen, lse=lse, repeat=repeat,
+            dtype=dt), (name,), ()))
+    kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    B, T, H, D = PADDED_LSE
+    for lab, offs in PADDED_LSE_OFFSETS:
+        cases += _routed(lab, lambda: _lse_case(
+            lab, torch.float32, B, T, H, D, offs, None, gen), kernels,
+            _padded_at(D, kernels))
+    lab, S, C, H, lengths, bs = PADDED_DECODE
+    per = {}
+    for D in (48, 64):
+        for paged in (False, True):
+            rec = _decode_dtype_case(
+                f"{lab} D={D}" + (f" bs={bs}" if paged else ""),
+                torch.bfloat16, S, C, H, D, lengths, gen,
+                bs=bs if paged else None, per_call=True)
+            per[D, paged] = rec["kernels_per_call"]
+            cases.append(rec)
+    for paged in (False, True):
+        check(per[48, paged] == per[64, paged],
+              f"bf16 decode at D=48 ({'paged' if paged else 'slab'}): "
+              f"{per[48, paged]} kernels a call, at D=64 {per[64, paged]}")
     _print_cases(cases)
     return cases, probe
 
@@ -2935,7 +3054,7 @@ def _lse_case(label, dtype, B, T, H, D, offsets, valid, gen):
     `flash_attention_plain`, then the backward pair, fed the plain
     forward's out and lse and delta = rowsum(dO o O) - g_lse for a random
     LSE cotangent g_lse, against its plain versions, each entry that takes
-    D unpadded one kernel a call (`_bwd_per_call`). Rows that see no key
+    D unpadded one kernel a call (`_per_call`). Rows that see no key
     must come out 0 with lse <= -1e29 and a zero dq row. Bars: phase 2's,
     by type. Returns the three kernels' records."""
     import torch
@@ -3044,7 +3163,7 @@ def _lse_case(label, dtype, B, T, H, D, offsets, valid, gen):
     err = {"flash_fwd" + suffix: out_err,
            "flash_bwd_dq" + suffix: errs["dq"],
            "flash_bwd_dkv" + suffix: max(errs["dk"], errs["dv"])}
-    per = _bwd_per_call(name, runs, D)
+    per = _per_call(name, runs, D)
     recs = []
     for kname, (run, plain) in runs.items():
         nbytes, ops = work[kname]
@@ -3325,6 +3444,7 @@ def main():
     cases += d32_cases
     launches.update(d32_launches)
     cases += phase_padded_bf16_bwd()[0]
+    cases += phase_padded_fwd()[0]
     launches.update(phase_serving_bench_paged())
     launches["serving"] = phase_serving()["launches"]
     launches["serving_paged"] = phase_serving_paged()["launches"]

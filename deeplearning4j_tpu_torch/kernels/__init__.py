@@ -12,8 +12,9 @@ kernels on upcast copies), and the decode attention over a slab cache
 Sources live in `csrc/`, `build.py` compiles them. Every head dim
 D % 8 == 0 runs a kernel on the card (`kernel_head_dim`: up to 256 at a
 compiled width, above it on the wide kernels); `route_counts` counts the
-calls padded to a compiled width, those taken by the wide kernels, those
-run plainly by shape and those of each route by type."""
+f32 backward pair's calls padded to a compiled width, those taken by the
+wide kernels, those run plainly by shape and those of each route by
+type."""
 from .flash_attention import (attention_delta, can_flash, flash_attention,
                               flash_attention_bwd, flash_attention_bwd_plain,
                               flash_attention_lse, flash_attention_plain,

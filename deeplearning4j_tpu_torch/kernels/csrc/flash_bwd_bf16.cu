@@ -550,23 +550,28 @@ sw64_probe(const __grid_constant__ CUtensorMap amap,
 }
 
 // The out-of-bounds probe (chip_smoke.py runs it before the kernels that
-// rest on it): one thread loads two 64-column boxes of 64 rows through a
-// 128B-swizzled map of x, [64 rows][8 columns] bf16: box 0 at column 0
-// (columns 8..63 past the map) and box 1 at column 64, wholly past it,
-// into shared memory first filled with 0xFFFF, and waits on one mbarrier
-// that expects both whole boxes' bytes, for at most `spins` polls. It
-// writes the boxes as they landed to `out` (2 x 64 x 64 bf16) and to
-// `done` 1 if the barrier's phase completed, else 0.
+// rest on it), on elements T of 2 bytes (bf16) or 4 (float32): one thread
+// loads two 128-byte boxes of 64 rows (C = 128 / sizeof(T) columns each:
+// 64 bf16, 32 f32) through a 128B-swizzled map of x, [64 rows][8
+// columns]: box 0 at column 0 (columns 8..C-1 past the map) and box 1 at
+// column C, wholly past it, into shared memory first filled with all-ones
+// bits, and waits on one mbarrier that expects both whole boxes' bytes,
+// for at most `spins` polls. It writes the boxes as they landed to `out`
+// (2 x 64 x C elements) and to `done` 1 if the barrier's phase completed,
+// else 0.
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-oob_probe(const __grid_constant__ CUtensorMap xmap, bf16* __restrict__ out,
+oob_probe(const __grid_constant__ CUtensorMap xmap, T* __restrict__ out,
           int* __restrict__ done, int spins) {
-  constexpr int BOX = 64 * 64;     // bf16 elements of one box
-  __shared__ __align__(1024) unsigned char raw[1024 + 2 * BOX * 2 + 8];
+  constexpr int C = 128 / (int)sizeof(T);   // columns of one box
+  constexpr int BOX = 64 * C;               // elements of one box
+  __shared__ __align__(1024) unsigned char raw[1024 + 2 * BOX * sizeof(T)
+                                               + 8];
   unsigned char* sm = hopper::align_1024(raw);
-  uint16_t* tiles = reinterpret_cast<uint16_t*>(sm);
-  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + 2 * BOX * 2);
+  T* tiles = reinterpret_cast<T*>(sm);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + 2 * BOX * sizeof(T));
   const int tid = threadIdx.x;
-  for (int i = tid; i < 2 * BOX; i += THREADS) tiles[i] = 0xFFFF;
+  for (int i = tid; i < 2 * BOX; i += THREADS) tiles[i] = (T)~(T)0;
   if (tid == 0) {
     hopper::mbar_init(bar, 1);
     hopper::mbar_init_fence();
@@ -575,9 +580,9 @@ oob_probe(const __grid_constant__ CUtensorMap xmap, bf16* __restrict__ out,
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
   if (tid == 0) {
-    hopper::mbar_expect_tx(bar, 2 * BOX * 2);
+    hopper::mbar_expect_tx(bar, 2 * BOX * sizeof(T));
     hopper::tma_load_4d(tiles, &xmap, bar, 0, 0, 0, 0);
-    hopper::tma_load_4d(tiles + BOX, &xmap, bar, 64, 0, 0, 0);
+    hopper::tma_load_4d(tiles + BOX, &xmap, bar, C, 0, 0, 0);
     uint32_t ok = 0;
     const uint32_t addr = hopper::smem_u32(bar);
     for (int n = 0; n < spins && !ok; ++n)
@@ -593,8 +598,7 @@ oob_probe(const __grid_constant__ CUtensorMap xmap, bf16* __restrict__ out,
     *done = (int)ok;
   }
   __syncthreads();
-  for (int i = tid; i < 2 * BOX; i += THREADS)
-    reinterpret_cast<uint16_t*>(out)[i] = tiles[i];
+  for (int i = tid; i < 2 * BOX; i += THREADS) out[i] = tiles[i];
 }
 
 // ================================================= D = 64, 128, 256 (sm90)
@@ -1119,14 +1123,6 @@ int launch_dkv_sm90(const Operands& a, int D, bf16* dk, bf16* dv,
   return (int)cudaGetLastError();
 }
 
-// The compiled width that head dim D runs at: 32 for D = 8..32 (the
-// 64B-swizzled kernels), else the next of 64, 128 and 256; 0 where no
-// kernel takes D (D % 8 != 0, D < 8, D > 256).
-int compiled_width(int D) {
-  if (D < 8 || D > 256 || D % 8) return 0;
-  return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
-}
-
 Operands operands(const void* q, const void* k, const void* v,
                   const void* dout, const float* lse, const float* delta,
                   const float* key_mask, int B, int H, int Tq, int Tk,
@@ -1165,7 +1161,7 @@ extern "C" int flash_bwd_dq_bf16(
                               Tk, st, causal, q_off, k_off, scale);
   bf16* out = static_cast<bf16*>(dq);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (compiled_width(D)) {
+  switch (hopper::compiled_width(D)) {
     case 32: return launch_dq_d32(a, D, out, s);
     case 64: return launch_dq_sm90<64>(a, D, out, s);
     case 128: return launch_dq_sm90<128>(a, D, out, s);
@@ -1190,7 +1186,7 @@ extern "C" int flash_bwd_dkv_bf16(
   bf16* dkp = static_cast<bf16*>(dk);
   bf16* dvp = static_cast<bf16*>(dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (compiled_width(D)) {
+  switch (hopper::compiled_width(D)) {
     case 32: return launch_dkv_d32(a, D, dkp, dvp, s);
     case 64: return launch_dkv_sm90<64>(a, D, dkp, dvp, s);
     case 128: return launch_dkv_sm90<128>(a, D, dkp, dvp, s);
@@ -1225,7 +1221,22 @@ extern "C" int flash_bwd_bf16_oob_probe(const void* x, void* out, int* done,
   CUtensorMap m;
   const int err = hopper::make_tile_map(&m, x, 1, 64, 1, 8, 64 * 8, 8, 8, 64);
   if (err) return err;
-  oob_probe<<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      m, static_cast<bf16*>(out), done, spins);
+  oob_probe<uint16_t><<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      m, static_cast<uint16_t*>(out), done, spins);
+  return (int)cudaGetLastError();
+}
+
+// The same probe on x [64][8] float32 through a float32 map, the boxes of
+// the float32 tensor-core kernels (32 columns, 128B swizzle): out 2 x 64 x
+// 32 float32.
+extern "C" int flash_bwd_bf16_oob_probe_f32(const void* x, void* out,
+                                            int* done, int spins,
+                                            void* stream) {
+  CUtensorMap m;
+  const int err = hopper::make_tile_map(&m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                        4, x, 1, 64, 1, 8, 64 * 8, 8, 8, 64);
+  if (err) return err;
+  oob_probe<uint32_t><<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      m, static_cast<uint32_t*>(out), done, spins);
   return (int)cudaGetLastError();
 }

@@ -16,10 +16,18 @@
 // and its LSE -1e30 + log(1e-30), what the TPU kernel gives a row whose
 // every block it skips.
 //
-// Head dims 16, 32, 64 and 128: the tensor cores. An f32 box of the 128B
-// swizzle is 32 columns, so D=16 runs the D=32 kernel on operands whose
-// tensor maps are 16 columns wide: TMA fills columns 16-31 of each box with
-// zeros, which add nothing to a score, and the epilogue stores 16 columns.
+// Compiled widths 32, 64, 128 and 256 (`hopper::compiled_width`): every
+// D % 8 == 0 from 8 to 256 runs at the next of them on the caller's own
+// memory. The tensor maps are D columns wide, so TMA fills each box's
+// columns at and past D with zeros, which add nothing to a score or to O,
+// and the epilogue stores D columns of a dense [B, Tq, H, D] out: nothing
+// is padded or sliced around the kernels. A box that starts at or past D
+// (the box at column 96 of width 128 for D = 72..96; at width 256 the
+// boxes from column 160 on for D = 136) lands as zeros and still completes
+// its whole box of bytes on the mbarrier: shown for a float32 map on an
+// NVIDIA H100 by chip_smoke.py's `_oob_probe` (phase 2h, which runs it
+// before the kernels), as for a bf16 map (phase 2g). So every box is
+// issued and every `expect_tx` count stands.
 // D=64 runs every float32 path of the zoo default (training, the ring's
 // and `flash_attention_lse`'s shards, serving's prefill); D=32 the prefill
 // of bench.py's decode models, D=128 most public decoder LMs.
@@ -91,8 +99,8 @@
 // the products, 7-37% slower (T=4096 0.97 ms, the train case 0.049, the
 // f32 shard 0.052); that split taken under the P V of the tile before,
 // slower still.
-// Head dim 256 (`flash_fwd_f32_d256`; every D % 8 == 0 from 136 up runs
-// it on operands zero-padded to 256): the head dim of the public Gemma
+// Compiled width 256 (`flash_fwd_f32_d256`; every D % 8 == 0 from 136 up
+// runs it on maps D columns wide): the head dim of the public Gemma
 // decoder LMs. Q split into hi and lo for the whole head dim would take
 // 128 KB of shared memory and the D=128 design's five ring tiles 80 KB
 // more, past the 227 KB a block may have, so it has a layout of its own:
@@ -128,8 +136,8 @@
 //     weighted by 2^((m_r - m) log2e). No atomics either way.
 //   - Shared memory: Q 64 KB, 8 K chunk slots of 4 KB hi and 4 KB lo, the
 //     V tile as landed, V^T hi and lo (32 KB each), 224 KB: one block per
-//     SM. ptxas (CUDA 12.8): 254 registers (one block per q tile), 255
-//     (split), 0 spills (chip_smoke.py phase 1 fails on a spill).
+//     SM. ptxas (CUDA 12.8): 255 registers (one block per q tile, and
+//     split), 0 spills (chip_smoke.py phase 1 fails on a spill).
 //   - What bounds it (PERF.md, section 6): one consumer warpgroup per SM
 //     runs every product, split, softmax and wait in one chain, and the
 //     shared-memory traffic per 32-key tile (the products' B operands read
@@ -202,7 +210,8 @@ flash_fwd_f32_sm90(const __grid_constant__ CUtensorMap qmap,
                    float* __restrict__ out, float* __restrict__ lse, int H,
                    int Tq, int Tk, int Dt, int causal, int q_off, int k_off,
                    float scale) {
-  // Dt: the operands' head dim, D or, for D = 32, 16 (zero-filled boxes)
+  // D: the compiled width; Dt: the operands' true head dim (Dt <= D, TMA
+  // zero-fills each box past it, the epilogue stores Dt columns)
   using L = FwdLayout<D, NWG>;
   constexpr int BK = L::BK, BQ = 64 * NWG, QT = L::QT, KT = L::KT;
   constexpr int ON = D < 64 ? D : 64;   // O columns of one P V product
@@ -525,19 +534,25 @@ static_assert(D256::BYTES + 1024 <= SMEM_LIMIT, "shared memory");
 // SPLIT the grid is clusters of two blocks per q tile: rank 0 walks the
 // first half of the tile's key tiles, rank 1 the rest, and rank 1 hands
 // its O, m and l to rank 0 over distributed shared memory, where rank 0
-// merges them and writes the rows.
-template <bool SPLIT>
+// merges them and writes the rows. With CLIP the true head dim Dt is
+// below 256 (the maps are Dt columns wide, the store writes Dt columns);
+// the layouts, `expect_tx` counts and products stay DP = 256 wide. At
+// D = 256 the kernel is the CLIP = false instantiation, whose store takes
+// the compile-time width: the runtime column limit cost 2-8% at B=2 T=200
+// H=4 (chip_ab.py padded_fwd, PERF.md).
+template <bool SPLIT, bool CLIP>
 __global__ void __launch_bounds__(256, 1)
 flash_fwd_f32_d256(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
                    const float* __restrict__ key_mask,
                    float* __restrict__ out, float* __restrict__ lse, int H,
-                   int Tq, int Tk, int causal, int q_off, int k_off,
+                   int Tq, int Tk, int Dt, int causal, int q_off, int k_off,
                    float scale) {
   using L = D256;
   constexpr int split = SPLIT ? 2 : 1;          // blocks per q tile
-  constexpr int D = L::D, BK = L::BK, NC = L::NC;
+  constexpr int DP = L::D, BK = L::BK, NC = L::NC;
+  const int D = CLIP ? Dt : DP;                 // the true head dim
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = hopper::align_1024(smem_raw);
   float* Qs = reinterpret_cast<float*>(sm + L::Q);
@@ -599,12 +614,12 @@ flash_fwd_f32_d256(const __grid_constant__ CUtensorMap qmap,
       };
       auto load_v = [&](int j) {
         hopper::mbar_expect_tx(vfull, L::VB);
-        hopper::tma_load_tile_f32<D>(Vs, &vmap, vfull, BK, (t0 + j) * BK, h,
-                                     b);
+        hopper::tma_load_tile_f32<DP>(Vs, &vmap, vfull, BK, (t0 + j) * BK,
+                                      h, b);
       };
       if (stid == 0) {
         hopper::mbar_expect_tx(qbar, L::QB);
-        hopper::tma_load_tile_f32<D>(Qs, &qmap, qbar, 64, q0, h, b);
+        hopper::tma_load_tile_f32<DP>(Qs, &qmap, qbar, 64, q0, h, b);
         for (int c = 0; c < NC; ++c) load_chunk(0, c);
         load_v(0);
       }
@@ -623,7 +638,7 @@ flash_fwd_f32_d256(const __grid_constant__ CUtensorMap qmap,
         // tile j's score products; then the next V tile into the landed one
         hopper::mbar_wait(vfull, j & 1);
         if (j >= 1) hopper::mbar_wait(vempty, (j - 1) & 1);
-        hopper::split_tile<false, true, BK, D>(Vs, nullptr, VTH, VTL, stid);
+        hopper::split_tile<false, true, BK, DP>(Vs, nullptr, VTH, VTL, stid);
         hopper::fence_proxy_async();
         hopper::mbar_arrive(vready);
         hopper::named_barrier_sync(1, 128);   // every read of the landed V
@@ -781,7 +796,7 @@ flash_fwd_f32_d256(const __grid_constant__ CUtensorMap qmap,
         hopper::split_acc_tf32(ph, pl, s);
         hopper::mbar_wait(vready, j & 1);
         hopper::wgmma_fence();
-        hopper::wgmma_3xtf32_rs<BK / 8, D>(o, ph, pl, VTH, VTL);
+        hopper::wgmma_3xtf32_rs<BK / 8, DP>(o, ph, pl, VTH, VTL);
         hopper::wgmma_commit();
         // the next tile's key mask, read under the products
         if (j + 1 < n_tiles) kbits = key_bits(k0 + BK);
@@ -848,8 +863,9 @@ flash_fwd_f32_d256(const __grid_constant__ CUtensorMap qmap,
   for (int i = 0; i < 2; ++i) l[i] = fmaxf(l[i], 1e-30f);
 #pragma unroll
   for (int e = 0; e < 128; ++e) o[e] /= l[(e >> 1) & 1];
+  // out is dense [B, Tq, H, D]: the columns below D
   hopper::store_acc_f32(out + ((long long)b * Tq * H + h) * D,
-                        (long long)H * D, q0, Tq, o, tid);
+                        (long long)H * D, q0, Tq, o, tid, D);
   if (lse && t == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -860,7 +876,7 @@ flash_fwd_f32_d256(const __grid_constant__ CUtensorMap qmap,
 
 int launch_d256(const float* q, const float* k, const float* v,
                 const float* km, float* out, float* lse, int B, int H,
-                int Tq, int Tk, Strides qs, Strides ks, Strides vs,
+                int Tq, int Tk, int D, Strides qs, Strides ks, Strides vs,
                 int causal, int q_off, int k_off, float scale,
                 cudaStream_t stream) {
   using L = D256;
@@ -868,9 +884,10 @@ int launch_d256(const float* q, const float* k, const float* v,
       {q, Tq, qs, 64}, {k, Tk, ks, L::BK}, {v, Tk, vs, L::BK}};
   CUtensorMap m[3];
   for (int i = 0; i < 3; ++i) {
+    // D columns wide: TMA zero-fills a box's columns past them
     const int err = hopper::make_tile_map(
         &m[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ops[i].p, B, ops[i].T, H,
-        L::D, ops[i].s.b, ops[i].s.t, ops[i].s.h, ops[i].rows);
+        D, ops[i].s.b, ops[i].s.t, ops[i].s.h, ops[i].rows);
     if (err) return err;
   }
   // two blocks per q tile while one per tile would leave SMs idle
@@ -882,8 +899,11 @@ int launch_d256(const float* q, const float* k, const float* v,
   if (err) return err;
   const long long tiles = (long long)B * H * ((Tq + 63) / 64);
   const int split = tiles < sms ? 2 : 1;
-  auto kernel = split == 2 ? flash_fwd_f32_d256<true>
-                           : flash_fwd_f32_d256<false>;
+  const bool clip = D < L::D;
+  auto kernel = split == 2 ? (clip ? flash_fwd_f32_d256<true, true>
+                                   : flash_fwd_f32_d256<true, false>)
+                           : (clip ? flash_fwd_f32_d256<false, true>
+                                   : flash_fwd_f32_d256<false, false>);
   const int smem = L::BYTES + 1024;
   err = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -904,7 +924,7 @@ int launch_d256(const float* q, const float* k, const float* v,
   cfg.attrs = attr;
   cfg.numAttrs = split > 1 ? 1 : 0;
   err = (int)cudaLaunchKernelEx(&cfg, kernel, m[0], m[1], m[2], km, out,
-                                lse, H, Tq, Tk, causal, q_off, k_off,
+                                lse, H, Tq, Tk, D, causal, q_off, k_off,
                                 scale);
   if (err) return err;
   return (int)cudaGetLastError();
@@ -913,10 +933,12 @@ int launch_d256(const float* q, const float* k, const float* v,
 }  // namespace
 
 // Plain C entry for ctypes. Returns a cudaError_t value (0 = launched).
-// Strides are in elements, for [B, T, H, D] tensors with a dense head dim
-// and 16-byte aligned rows (the TMA maps; a pattern the encoder refuses
-// comes back as an error); out is written
-// dense [B, Tq, H, D], the LSE [B, H, Tq]. D is 16, 32, 64, 128 or 256.
+// q, k and v are float32 [B, T, H, D] at the true head dim D, any D % 8 ==
+// 0 from 8 to 256 (anything else is cudaErrorInvalidValue), with a dense
+// head dim and 16-byte aligned rows (strides in elements; the TMA maps, D
+// columns wide: a pattern the encoder refuses comes back as an error).
+// The kernel runs at `hopper::compiled_width(D)`; out is written dense
+// [B, Tq, H, D], D columns and no more, the LSE [B, H, Tq].
 extern "C" int flash_fwd_f32(
     const float* q, const float* k, const float* v, const float* key_mask,
     float* out, float* lse, int B, int H, int Tq, int Tk, int D,
@@ -927,12 +949,11 @@ extern "C" int flash_fwd_f32(
   const Strides qs{q_sb, q_st, q_sh}, ks{k_sb, k_st, k_sh},
       vs{v_sb, v_st, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
+  switch (hopper::compiled_width(D)) {
     case 32: return launch_sm90_by_grid<32>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, D, qs, ks, vs, causal, q_off, k_off, scale, st);
     case 64: return launch_sm90_by_grid<64>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, D, qs, ks, vs, causal, q_off, k_off, scale, st);
     case 128: return launch_sm90<128, 1>(q, k, v, key_mask, out, lse, B, H, Tq, Tk, D, qs, ks, vs, causal, q_off, k_off, scale, st);
-    case 256: return launch_d256(q, k, v, key_mask, out, lse, B, H, Tq, Tk, qs, ks, vs, causal, q_off, k_off, scale, st);
+    case 256: return launch_d256(q, k, v, key_mask, out, lse, B, H, Tq, Tk, D, qs, ks, vs, causal, q_off, k_off, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

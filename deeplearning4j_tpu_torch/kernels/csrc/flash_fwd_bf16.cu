@@ -28,12 +28,19 @@
 // products take at the tensor cores' ~4000 operations per clock: they
 // have to run under the products, not between them.
 //
-// Head dims 32, 64, 128 and 256 (every path of the port but bench_decode_
-// paged's model runs 64; the wrapper pads any other D % 8 == 0 up to the
-// next of 16, 32, 64, 128 and 256, and 16 runs on the D=32 kernel): one
-// Hopper design, `flash_fwd_bf16_sm90` at D=64/128/256 (D=256: four
-// 64-column boxes, 160 KB of tiles, 190 registers) and `flash_fwd_bf16_d32`
-// at D=32/16 (below), helpers in hopper_bf16.cuh (the same parts as
+// Compiled widths 32, 64, 128 and 256 (every path of the port but
+// bench_decode_paged's model runs 64): every D % 8 == 0 from 8 to 256 runs
+// at the next of them (`hopper::compiled_width`) on the caller's own
+// memory. The tensor maps are D columns wide, so TMA zero-fills each box's
+// columns at and past D (zero columns add exactly 0 to S and to O), a box
+// that starts at or past D included: such a box lands as zeros and
+// completes its whole box of bytes on the mbarrier (chip_smoke.py's
+// `_oob_probe`, phase 2g), so every box is issued and the `expect_tx`
+// counts stand. The stores write D columns of a dense [B, Tq, H, D] out:
+// nothing is padded or sliced around the kernels. One Hopper design,
+// `flash_fwd_bf16_sm90` at widths 64/128/256 (256: four 64-column boxes,
+// 160 KB of tiles, 190 registers) and `flash_fwd_bf16_d32` at width 32
+// (below), helpers in hopper_bf16.cuh (the same parts as
 // flash_bwd_bf16.cu's dq kernel). No kernel here uses `mma.sync` or
 // `ldmatrix`.
 //   - One warpgroup (128 threads) per block owns 64 query rows; Q arrives
@@ -76,7 +83,7 @@
 //     skipped); the LSE for rows < Tq. No atomics: a result is the same
 //     bit for bit from run to run.
 //   - Budget (ptxas's report in chip_smoke.py phase 1, CUDA 12.8): 90
-//     registers at D=64 (O 32 f32, S 32), 141 at D=128 (O 64), 0 spills;
+//     registers at D=64 (O 32 f32, S 32), 131 at D=128 (O 64), 0 spills;
 //     shared memory Q 8 / 16 KB and 2 x (K + V) 32 / 64 KB at D = 64 /
 //     128, so 5 / 2 blocks fit an SM (registers allow 5 / 3).
 //   Measured on the card and not kept (chip_ab.py, NVIDIA H100 80GB HBM3;
@@ -90,13 +97,12 @@
 //   longer overlap each other's products; Q as register-A fragments for
 //   S: at D=64 ptxas allocated P's fragments onto Q's registers (wrong
 //   results from the second key tile on).
-// Head dims 32 and 16 (and 24 and 8, which the wrapper zero-pads to
-// them): `flash_fwd_bf16_d32`, the design above on 64B-swizzled tiles. A
-// row of 32 bf16 is 64 bytes: Q, each K tile and each V tile is one box
-// of 32 columns with CU_TENSOR_MAP_SWIZZLE_64B (8-row atoms of 512 bytes);
-// at D=16 the tensor maps are 16 columns wide and TMA zero-fills each
-// box's other half (zero columns add exactly 0 to S and to O), the store
-// writing 16 columns. S = Q K^T is two k16 m64n64 products from shared
+// Compiled width 32 (D = 8, 16, 24 and 32): `flash_fwd_bf16_d32`, the
+// design above on 64B-swizzled tiles. A row of 32 bf16 is 64 bytes: Q,
+// each K tile and each V tile is one box of 32 columns with
+// CU_TENSOR_MAP_SWIZZLE_64B (8-row atoms of 512 bytes); the tensor maps
+// are D columns wide and TMA zero-fills each box's columns past D, the
+// store writing D columns. S = Q K^T is two k16 m64n64 products from shared
 // memory (`desc_k_major_sw64`); O += P V four k16 m64n32 products, P from
 // registers, V MN-major (`desc_mn_major_sw64`, `wgmma_rs_n32_tb`); O is one
 // 64 x 32 f32 accumulator (16 registers). K and V tiles of 64 keys stream
@@ -146,15 +152,21 @@ constexpr int THREADS = 128;    // 4 warps: one warpgroup
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// ====================================================== D = 64, 128 (sm90)
+// ================================================= D = 64, 128, 256 (sm90)
+// Compiled widths DP = 64, 128 and 256 (every D % 8 == 0 from 40 to 256
+// runs on the next of them): shared-memory tiles, `expect_tx` counts and
+// products are DP wide, the maps and the stores D. At D = DP the kernel is
+// the CLIP = false instantiation, whose stores take the compile-time
+// width: the runtime column limit cost 4-10% at B=2 T=200 H=4 (chip_ab.py
+// padded_fwd, PERF.md).
 // Byte offsets from the 1024-aligned base; every tile 1024-aligned.
-template <int D>
+template <int DP>
 struct FwdLayout {
   static constexpr int BQ = 64, BK = 64, STAGES = 2;
-  static constexpr int TILE = BK * D * 2;                // one K or V tile
-  static constexpr int Q = 0;                            // [BQ][D] swizzled
-  static constexpr int K = Q + BQ * D * 2;               // [STAGES][BK][D]
-  static constexpr int V = K + STAGES * TILE;            // [STAGES][BK][D]
+  static constexpr int TILE = BK * DP * 2;               // one K or V tile
+  static constexpr int Q = 0;                            // [BQ][DP] swizzled
+  static constexpr int K = Q + BQ * DP * 2;              // [STAGES][BK][DP]
+  static constexpr int V = K + STAGES * TILE;            // [STAGES][BK][DP]
   static constexpr int BAR = V + STAGES * TILE;          // Q, K[], V[]
   static constexpr int KM = BAR + 8 * (1 + 2 * STAGES);  // [STAGES][BK] f32
   static constexpr int BYTES = KM + 4 * STAGES * BK;
@@ -162,17 +174,19 @@ struct FwdLayout {
 
 // Tile j's K slot, V slot and key mask live at j % STAGES; its barriers
 // complete their (j / STAGES)-th phase.
-template <int D>
+template <int DP, bool CLIP>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap,
                     const float* __restrict__ key_mask,
                     bf16* __restrict__ out, float* __restrict__ lse, int H,
-                    int Tq, int Tk, int causal, int q_off, int k_off,
+                    int Tq, int Tk, int Dt, int causal, int q_off, int k_off,
                     float scale) {
-  using L = FwdLayout<D>;
-  constexpr int BQ = L::BQ, BK = L::BK, S = L::STAGES, NB = D / 64;
+  // the true head dim: Dt (< DP) with CLIP, else DP
+  const int D = CLIP ? Dt : DP;
+  using L = FwdLayout<DP>;
+  constexpr int BQ = L::BQ, BK = L::BK, S = L::STAGES, NB = DP / 64;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = hopper::align_1024(smem_raw);
   bf16* Qs = reinterpret_cast<bf16*>(sm + L::Q);
@@ -212,11 +226,11 @@ flash_fwd_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
   auto load_kv = [&](int tile) {
     const int st = tile % S;
     hopper::mbar_expect_tx(&kbar[st], L::TILE);
-    hopper::tma_load_tile<D>(Ks + st * BK * D, &kmap, &kbar[st], BK,
-                             tile * BK, h, b);
+    hopper::tma_load_tile<DP>(Ks + st * BK * DP, &kmap, &kbar[st], BK,
+                              tile * BK, h, b);
     hopper::mbar_expect_tx(&vbar[st], L::TILE);
-    hopper::tma_load_tile<D>(Vs + st * BK * D, &vmap, &vbar[st], BK,
-                             tile * BK, h, b);
+    hopper::tma_load_tile<DP>(Vs + st * BK * DP, &vmap, &vbar[st], BK,
+                              tile * BK, h, b);
   };
 
   if (n_tiles > 0) {
@@ -229,16 +243,16 @@ flash_fwd_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
     // any masked key in tile 0; the barrier also publishes the mbarriers
     int masked = __syncthreads_or(tid < BK && !(km0 > 0.f));
     if (tid == 0) {
-      hopper::mbar_expect_tx(qbar, BQ * D * 2);
-      hopper::tma_load_tile<D>(Qs, &qmap, qbar, BQ, q0, h, b);
+      hopper::mbar_expect_tx(qbar, BQ * DP * 2);
+      hopper::tma_load_tile<DP>(Qs, &qmap, qbar, BQ, q0, h, b);
       for (int j = 0; j < S && j < n_tiles; ++j) load_kv(j);
     }
     hopper::mbar_wait(qbar, 0);
 
     for (int j = 0; j < n_tiles; ++j) {
       const int st = j % S, k0 = j * BK;
-      const bf16* Kt = Ks + st * BK * D;
-      const bf16* Vt = Vs + st * BK * D;
+      const bf16* Kt = Ks + st * BK * DP;
+      const bf16* Vt = Vs + st * BK * DP;
       // the next tile's key mask, fetched under this tile's products
       const float km_next =
           (tid < BK && j + 1 < n_tiles) ? key_ok(k0 + BK + tid) : 1.f;
@@ -248,7 +262,7 @@ flash_fwd_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
       float s[32];
       hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < DP / 16; ++kk)
         hopper::wgmma_ss(s, hopper::desc_k_major(Qs, BQ, kk),
                          hopper::desc_k_major(Kt, BK, kk), kk > 0);
       hopper::wgmma_commit();
@@ -355,12 +369,14 @@ flash_fwd_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     l[i] = fmaxf(l[i], 1e-30f);
   }
+  // out is dense [B, Tq, H, D]: box nb writes its columns below D
   bf16* ob = out + ((long long)b * Tq * H + h) * D;
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb) {
 #pragma unroll
     for (int e = 0; e < 32; ++e) o[nb][e] /= l[(e >> 1) & 1];
-    hopper::store_acc(ob, (long long)H * D, q0, Tq, nb * 64, o[nb], tid);
+    hopper::store_acc(ob, (long long)H * D, q0, Tq, nb * 64, o[nb], tid,
+                      min(64, D - nb * 64));
   }
   if (lse && t == 0) {
 #pragma unroll
@@ -372,9 +388,9 @@ flash_fwd_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
 
 // ========================================================= D = 32 (sm90)
 // One 64B-swizzled box of 32 columns per operand row (hopper_bf16.cuh); D =
-// 16 on the same kernel, its maps 16 columns wide. Byte offsets from the
+// 8..32 on the same kernel, its maps D columns wide. Byte offsets from the
 // 1024-aligned base; every tile 1024-aligned.
-constexpr int D32 = 32;         // the kernel's head dim (columns of a box)
+constexpr int D32 = 32;         // the kernel's width (columns of a box)
 constexpr int NS = 3;           // ring stages of K and V
 struct D32Layout {
   static constexpr int BQ = 64, BK = 64;
@@ -622,9 +638,10 @@ int launch_d32(const Operands& a, int D, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_sm90(const Operands& a, cudaStream_t stream) {
-  using L = FwdLayout<D>;
+// The kernel at compiled width DP on tensor maps of the true head dim D.
+template <int DP>
+int launch_sm90(const Operands& a, int D, cudaStream_t stream) {
+  using L = FwdLayout<DP>;
   const struct { const bf16* p; int T; Strides s; int rows; } ops[3] = {
       {a.q, a.Tq, a.qs, L::BQ}, {a.k, a.Tk, a.ks, L::BK},
       {a.v, a.Tk, a.vs, L::BK}};
@@ -636,25 +653,29 @@ int launch_sm90(const Operands& a, cudaStream_t stream) {
     if (err) return err;
   }
   const int smem = L::BYTES + 1024;
+  auto kernel = D == DP ? flash_fwd_bf16_sm90<DP, false>
+                        : flash_fwd_bf16_sm90<DP, true>;
   int err = (int)cudaFuncSetAttribute(
-      flash_fwd_bf16_sm90<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err) return err;
   dim3 grid;
   err = hopper::grid_1d((a.Tq + L::BQ - 1) / L::BQ, (long long)a.B * a.H,
                         &grid);
   if (err) return err;
-  flash_fwd_bf16_sm90<D><<<grid, THREADS, smem, stream>>>(
-      m[0], m[1], m[2], a.key_mask, a.out, a.lse, a.H, a.Tq, a.Tk, a.causal,
-      a.q_off, a.k_off, a.scale);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      m[0], m[1], m[2], a.key_mask, a.out, a.lse, a.H, a.Tq, a.Tk, D,
+      a.causal, a.q_off, a.k_off, a.scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry for ctypes. Returns a cudaError_t value (0 = launched).
-// q, k, v and out are bf16 with 16-byte aligned rows (strides in elements,
-// multiples of 8; the head dim dense); out is written dense [B, Tq, H, D].
+// q, k and v are bf16 [B, T, H, D] at the true head dim D, any D % 8 == 0
+// from 8 to 256 (anything else is cudaErrorInvalidValue), with 16-byte
+// aligned rows (strides in elements, multiples of 8; the head dim dense),
+// read through tensor maps D columns wide at `hopper::compiled_width(D)`;
+// out is written dense [B, Tq, H, D] in bf16, D columns and no more.
 extern "C" int flash_fwd_bf16(
     const void* q, const void* k, const void* v, const float* key_mask,
     void* out, float* lse, int B, int H, int Tq, int Tk, int D,
@@ -668,12 +689,11 @@ extern "C" int flash_fwd_bf16(
                    Strides{q_sb, q_st, q_sh}, Strides{k_sb, k_st, k_sh},
                    Strides{v_sb, v_st, v_sh}, causal, q_off, k_off, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
+  switch (hopper::compiled_width(D)) {
     case 32: return launch_d32(a, D, st);
-    case 64: return launch_sm90<64>(a, st);
-    case 128: return launch_sm90<128>(a, st);
-    case 256: return launch_sm90<256>(a, st);
+    case 64: return launch_sm90<64>(a, D, st);
+    case 128: return launch_sm90<128>(a, D, st);
+    case 256: return launch_sm90<256>(a, D, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

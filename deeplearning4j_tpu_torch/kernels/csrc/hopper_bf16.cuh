@@ -118,6 +118,16 @@ inline int grid_1d(long long n_tiles, long long bh, dim3* grid) {
   return 0;
 }
 
+// The compiled width that the attention kernels run head dim D at, on
+// tensor maps of the true D (TMA zero-fills each box past column D): 32
+// for D = 8..32, else the next of 64, 128 and 256; 0 where no kernel takes
+// D (D % 8 != 0, D < 8, D > 256). The C entries of the forward and the
+// bf16 backward pair switch on it.
+inline int compiled_width(int D) {
+  if (D < 8 || D > 256 || D % 8) return 0;
+  return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
+}
+
 // 2^x on the special-function unit (ex2.approx.ftz: relative error about
 // 2^-22, -inf -> 0, subnormal results flushed to 0)
 __device__ __forceinline__ float exp2_approx(float x) {

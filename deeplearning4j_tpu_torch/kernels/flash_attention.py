@@ -4,10 +4,11 @@ deeplearning4j_tpu/kernels/flash_attention.py.
 Fourteen hand-written CUDA kernels, each behind a wrapper with its plain
 PyTorch version beside it:
 
-- `flash_attention` -> `csrc/flash_fwd.cu` (`flash_fwd_f32`; at head
-  dims up to 128 on the tensor cores, each float32 product as three TF32
-  products) for float32 and `csrc/flash_fwd_bf16.cu` (`flash_fwd_bf16`,
-  tensor cores) for bfloat16, replacing the TPU kernel `_flash_kernel`
+- `flash_attention` -> `csrc/flash_fwd.cu` (`flash_fwd_f32`; on the
+  tensor cores, each float32 product as three TF32 products) for float32
+  and `csrc/flash_fwd_bf16.cu` (`flash_fwd_bf16`, tensor cores) for
+  bfloat16, both on tensor maps of the true D at every head dim up to
+  256, replacing the TPU kernel `_flash_kernel`
   (flash_attention.py:84-143, `pl.pallas_call` at :206) as
   `flash_attention` (:512) runs it:
   causal, key-masked attention for the decode prefill and, with its
@@ -86,17 +87,18 @@ D % 8 == 0, and only D % 8 != 0 goes to its plain path), stated once in
 `kernel_head_dim`:
 
 - D % 8 == 0, D <= 256: a hand kernel, at the compiled width Dp, the
-  next of 16, 32, 64, 128 and 256. The forward and the f32 backward pair
-  take q, k, v (and dO) zero-padded to Dp at the true D's scale, 1 /
-  sqrt(D): zero columns add nothing to a score, give zero output columns
-  and leave rowsum(dO o O) as it is, so the result is exact up to the
-  order of sums; out, dq, dk and dv come back sliced to D. Such a call
-  counts one `<kernel>_padded` in `route_counts()` besides its launch.
-  The bf16 backward pair reads the caller's q, k, v and dO through
-  tensor maps D columns wide (TMA fills the columns past D with zeros)
-  and writes dq, dk and dv D columns wide: no copy and no padded route.
-  The decode kernels take the runtime D and guard their columns (padding
-  the cache would copy it on every step).
+  next of 16, 32, 64, 128 and 256 (the C entries run 8 to 32 at 32). The
+  forward (f32 and bf16) and the bf16 backward pair read the caller's q,
+  k, v (and dO) through tensor maps D columns wide (TMA fills the columns
+  past D with zeros, which add nothing to a score) and write out, dq, dk
+  and dv D columns wide: no copy and no padded route. The f32 backward
+  pair takes q, k, v and dO zero-padded to Dp at the true D's scale, 1 /
+  sqrt(D): zero columns give zero output columns and leave rowsum(dO o
+  O) as it is, so the result is exact up to the order of sums; dq, dk
+  and dv come back sliced to D. Such a call counts one `<kernel>_padded`
+  in `route_counts()` besides its launch. The decode kernels take the
+  runtime D and guard their columns (padding the cache would copy it on
+  every step).
 - D % 8 == 0, D > 256: the wide kernels of `csrc/flash_wide.cu`
   (forward with or without the LSE, dq, dk/dv; float32 and bfloat16), the
   head dim a runtime value, nothing padded. Such a call counts one
@@ -185,12 +187,15 @@ _launches = dict.fromkeys(
      "flash_wide_dkv_bf16"), 0)
 _ENTRY_ROUTES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                  "flash_decode", "flash_decode_paged")
+# the kernels that take a head dim below WIDEST_COMPILED zero-padded to
+# its compiled width: the f32 backward pair
+_PADDED_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 # calls a CUDA tensor made at a head dim the kernels take padded, at one
 # the wide kernels take, and at one the reference runs plainly; float16
 # calls (upcast), bfloat16 decode calls (the bf16 forward) and paged calls
 # whose pool the paged kernel cannot read (gathered first)
 _routes = dict.fromkeys(
-    [f"{k}_padded" for k in _ATTENTION_NAMES]
+    [f"{k}_padded" for k in _PADDED_KERNELS]
     + [f"{k}_wide" for k in _ATTENTION_NAMES
        + ("flash_decode", "flash_decode_paged")]
     + [f"{k}_plain_by_shape" for k in _ENTRY_ROUTES]
@@ -228,9 +233,9 @@ def kernel_head_dim(D):
     (`_plan` :492-502 runs its kernel for every D % 8 == 0): the next of
     HEAD_DIMS up to WIDEST_COMPILED, D itself above it (the wide kernels'
     runtime width); None for D % 8 != 0, which the reference routes to its
-    plain path. The bf16 backward pair runs at this width on the true D's
-    memory (`_bwd_width`); the other attention kernels take operands
-    zero-padded to it."""
+    plain path. The forward and the bf16 backward pair run at this width
+    on the true D's memory (`_forward_launch`, `_bwd_width`); the f32
+    backward pair takes operands zero-padded to it."""
     if D < 1 or D % 8:
         return None
     if D > WIDEST_COMPILED:
@@ -252,9 +257,9 @@ def _plain_by_shape(kernel):
 
 def _pad_head(t, Dp):
     """t zero-padded along the head dim to Dp columns (a new dense
-    tensor), or t itself at Dp."""
-    D = t.shape[-1]
-    return t if D == Dp else torch.nn.functional.pad(t, (0, Dp - D))
+    tensor): the f32 backward pair's operands (every other attention
+    kernel reads the true D)."""
+    return torch.nn.functional.pad(t, (0, Dp - t.shape[-1]))
 
 
 def _ptr(t):
@@ -262,10 +267,8 @@ def _ptr(t):
 
 
 def _unpad(name, D, *outs):
-    """The kernel's outputs sliced to the true head dim D (dense), the
-    call counted under `<name>_padded` where they were padded."""
-    if outs[0].shape[-1] == D:
-        return outs
+    """The f32 backward pair's padded outputs sliced to the true head dim
+    D (dense), the call counted under `<name>_padded`."""
     _routes[f"{name}_padded"] += 1
     return tuple(t[..., :D].contiguous() for t in outs)
 
@@ -402,11 +405,11 @@ def _upcast_f16(kernel, *ts):
 
 def _flash_forward(q, k, v, causal, scale, key_mask, return_lse,
                    q_offset=0, k_offset=0):
-    """The forward wrapper: `flash_fwd` (f32; float16 operands upcast) or
-    `flash_fwd_bf16` for CUDA tensors at a head dim `kernel_head_dim`
-    takes (zero-padded to its width; the wide kernel above
-    WIDEST_COMPILED), the plain version for CPU tensors and for the head
-    dims the reference runs plainly; writes the LSE only with
+    """The forward wrapper: `flash_fwd` (f32; float16 operands upcast, at
+    their true head dim too) or `flash_fwd_bf16` for CUDA tensors at a
+    head dim `kernel_head_dim` takes (`_forward_launch`; the wide kernel
+    above WIDEST_COMPILED), the plain version for CPU tensors and for the
+    head dims the reference runs plainly; writes the LSE only with
     `return_lse`. The offsets are Python ints."""
     plain = functools.partial(
         flash_attention_plain, q, k, v, causal=causal, scale=scale,
@@ -430,21 +433,23 @@ def _flash_forward(q, k, v, causal, scale, key_mask, return_lse,
 
 def _forward_launch(q, k, v, causal, scale, key_mask, return_lse, q_offset,
                     k_offset, Dp, route=None):
-    """One launch of the forward kernel at width Dp on checked CUDA
-    operands (see `_entry` for `route`); returns out (and the LSE)."""
+    """One launch of the forward kernel for head dim D at width Dp (see
+    `_entry` for `route`) on checked CUDA operands: the caller's q, k and
+    v (a dense copy only where `_aligned` needs one) at their own D, which
+    the C entries read through tensor maps D columns wide; returns out
+    [B, Tq, H, D] as the kernel wrote it (and the LSE)."""
     B, Tq, H, D = q.shape
     fn, name = _entry("flash_fwd", q.dtype, Dp, route)
-    scale = _scale(scale, D)            # the true head dim's, before padding
-    q, k, v = (_aligned(_pad_head(t, Dp)) for t in (q, k, v))
+    scale = _scale(scale, D)
+    q, k, v = map(_aligned, (q, k, v))
     Tk = k.shape[1]
     km = _prep_key_mask(key_mask, B, Tk, q.device)
-    out = torch.empty((B, Tq, H, Dp), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     _launch(fn, name, q.device, *map(_ptr, (q, k, v, km, out, lse)), B, H,
-            Tq, Tk, Dp, *_bhd_strides(q), *_bhd_strides(k),
+            Tq, Tk, D, *_bhd_strides(q), *_bhd_strides(k),
             *_bhd_strides(v), int(bool(causal)), q_offset, k_offset, scale)
-    out, = _unpad(name, D, out)
     return (out, lse) if return_lse else out
 
 
@@ -803,8 +808,9 @@ def _decode(q, k, v, lengths, scale, route):
       float32 route below, the output cast back to float16.
     - bfloat16: counted `<route>_bf16`; the bf16 forward kernel under the
       key mask `position < lengths`, as the reference's `flash_decode`
-      (:604-645) runs its forward kernel, at `kernel_head_dim(D)` (zero
-      padded up to WIDEST_COMPILED, the wide kernel above it).
+      (:604-645) runs its forward kernel, at `kernel_head_dim(D)` on the
+      cache's own memory (`_forward_launch`; the wide kernel above
+      WIDEST_COMPILED).
     - float32 above WIDEST_COMPILED: the wide forward likewise, counted
       `<route>_wide`.
     - float32: the `flash_decode` kernel, one launch."""
@@ -926,7 +932,8 @@ def launch_counts():
 
 
 def route_counts():
-    """{"<kernel>_padded": calls at a padded head dim, "<kernel>_wide":
+    """{"<kernel>_padded": calls of the f32 backward pair at a padded head
+    dim, "<kernel>_wide":
     calls at a head dim above WIDEST_COMPILED, "<entry>_plain_by_shape":
     calls run plainly because the reference does, "<entry>_f16": float16
     calls (upcast), "flash_decode[_paged]_bf16": bfloat16 decode calls

@@ -48,7 +48,7 @@ from deeplearning4j_tpu.kernels.flash_attention import (
     flash_attention as jax_flash_attention,
     flash_attention_lse as jax_flash_attention_lse)
 
-from test_torch_head_dims import calls, _bf16_bwd_refuses  # noqa: F401
+from test_torch_head_dims import calls, _true_d_refuses  # noqa: F401
 
 fa = importlib.import_module("deeplearning4j_tpu_torch.kernels.flash_attention")
 
@@ -102,8 +102,8 @@ def test_bf16_gradients_at_padded_head_dims_match_jax(calls, D, case):
     """`flash_attention` forward + backward on bf16 operands at a head dim
     no kernel is compiled at: out within BF16_OUT_TOL and dq, dk, dv
     within BF16_GRAD_TOL of JAX's bf16 `jax.vjp` through its Pallas
-    kernels; the forward entry gets the padded width, the dq and dk/dv
-    entries the true D; only the forward counts a padded call."""
+    kernels; the forward, dq and dk/dv entries all get the true D, and no
+    call counts a padded route."""
     B, Tq, Tk, H, causal, valid = JAX_CASES[case]
     rng = np.random.default_rng(D + 7 * causal)
     (jq, tq), (jg, tg) = (_bf16_pair(rng, (B, Tq, H, D)) for _ in range(2))
@@ -134,11 +134,10 @@ def test_bf16_gradients_at_padded_head_dims_match_jax(calls, D, case):
         assert (k.grad[dead] == 0).all() and (v.grad[dead] == 0).all()
     assert [c[0] for c in calls] == ["flash_fwd_bf16", "flash_bwd_dq_bf16",
                                      "flash_bwd_dkv_bf16"]
-    assert [args[10] for _, args in calls[:1]] == [fa.kernel_head_dim(D)]
+    assert [args[10] for _, args in calls[:1]] == [D]      # the forward's D
     assert [args[12] for _, args in calls[1:2]] == [D]     # dq's D
     assert [args[13] for _, args in calls[2:]] == [D]      # dk/dv's D
-    assert {n: c for n, c in fa.route_counts().items() if c} == {
-        "flash_fwd_bf16_padded": 1}
+    assert not any(fa.route_counts().values())
 
 
 @pytest.mark.parametrize("D", PADDED)
@@ -188,7 +187,7 @@ def test_the_emulated_entries_refuse_what_the_switch_refuses(calls, D):
     """A wrapper that sent the bf16 pair a head dim outside 8..256 or off
     the multiples of 8 would fail here: the emulated entries refuse it
     (cudaErrorInvalidValue) as the C switch does, and `_launch` raises."""
-    assert _bf16_bwd_refuses(D)
+    assert _true_d_refuses(D)
     z = torch.zeros((1, 4, 1, D), dtype=torch.bfloat16)
     rows = torch.zeros((1, 1, 4))
     ptrs = [fa._ptr(t) for t in (z, z, z, z, rows, rows, None, z)]
@@ -243,15 +242,15 @@ def test_lse_entry_at_head_dim_136_matches_jax(calls, offsets):
         assert (out.detach()[:, none] == 0).all()
         assert (lse.detach()[:, :, none] <= -1e29).all()
         assert (q.grad[:, none] == 0).all()
+    assert [args[10] for s, args in calls if s == "flash_fwd_bf16"] == [D]
     assert [args[12] for s, args in calls if s == "flash_bwd_dq_bf16"] == [D]
     assert [args[13] for s, args in calls if s == "flash_bwd_dkv_bf16"] == [D]
-    assert {n: c for n, c in fa.route_counts().items() if c} == {
-        "flash_fwd_bf16_padded": 1}
+    assert not any(fa.route_counts().values())
 
 
 # ------------------------------------------ 2. the kernels' memory traffic
 def compiled_width(D):
-    """The C entries' switch (`compiled_width` in csrc/flash_bwd_bf16.cu):
+    """The C entries' switch (`hopper::compiled_width` in csrc/hopper_bf16.cuh):
     the width head dim D runs at, or 0 where the entries refuse D."""
     if D < 8 or D > 256 or D % 8:
         return 0
@@ -498,7 +497,7 @@ def test_the_switch_takes_every_multiple_of_8_up_to_256(D):
     the rest, as the emulated entries do; a tile past D keeps whole boxes
     (a box wholly past D: D = 136..192 at width 256, the last box)."""
     DP = compiled_width(D)
-    assert (DP == 0) == _bf16_bwd_refuses(D)
+    assert (DP == 0) == _true_d_refuses(D)
     if DP:
         assert DP == max(32, fa.kernel_head_dim(D))
         starts = range(0, DP, box_cols(DP))

@@ -501,9 +501,73 @@ def test_d32_fwd_bf16_turn_takes_the_forward_at_chip_smokes_d32_shapes():
     assert [r["case"] for r in recs] == [c[0] for c in want]
 
 
+def test_padded_fwd_turn_takes_both_forwards_beside_their_compiled_widths():
+    """`run ROOT LABEL padded_fwd` times the float32 and the bf16 forward
+    through `_forward_case`, in this order: B=2 T=200 H=4 causal with a
+    ragged key mask, with and without the LSE, at every padded head dim of
+    chip_smoke's PADDED_FWD_CASES, at D=48, 80 and 192 and at each
+    compiled width (32, 64, 128, 256), head dims ascending; the long
+    B=4 T=4096 H=8 with the LSE at D=96 (chip_smoke's) and 128; then
+    `flash_attention_lse` in float32 at B=1 T=1024 H=2 on the diagonal,
+    past and 0/512 offsets at D=136 and 256; then the bf16 decode route at
+    the serving step, slab and paged on blocks of 16, at D=48 and 64
+    (`_bf16_decode_case`)."""
+    import chip_smoke
+    import torch
+    dims = (8, 24, 32, 40, 48, 56, 64, 72, 80, 96, 120, 128, 136, 192, 200,
+            248, 256)
+    want = [*((f"D={d} B=2 T=200 H=4, ragged key mask"
+               + (", LSE" if lse else ""), dt, 2, 200, 200, 4, d,
+               [200, 137], lse, None)
+              for dt in (torch.float32, torch.bfloat16) for d in dims
+              for lse in (True, False)),
+            *((f"D={d} long B=4 T=4096 H=8, LSE", dt, 4, 4096, 4096, 8, d,
+               None, True, None)
+              for dt in (torch.float32, torch.bfloat16) for d in (96, 128)),
+            *((f"D={d} {name}", torch.float32, 1, 1024, 1024, 2, d, None,
+               True, offs) for d in (136, 256)
+              for name, offs in (("diagonal", (1024, 1024)),
+                                 ("past", (1024, 0)),
+                                 ("rows without keys", (0, 512))))]
+    # every case of chip_smoke's PADDED_FWD_CASES is among them
+    smoke = {(c[0], c[1]): c[2:10] for c in chip_smoke.PADDED_FWD_CASES}
+    mine = {(c[0], str(c[1]).replace("torch.", "")):
+            (c[2], c[3], c[4], c[5], c[6], c[7], c[8], False)
+            for c in want}
+    for key, shape in smoke.items():
+        assert mine[key][:7] == shape[:7], key
+    assert len(smoke) == 42
+    calls, decodes = [], []
+
+    def case(cs, label, dtype, B, Tq, H, D, valid, lse, gen, Tk=None,
+             causal=True, offsets=None):
+        assert causal
+        calls.append((label, dtype, B, Tq, Tk or Tq, H, D, valid, lse,
+                      offsets))
+        return {"case": label}
+
+    def decode(cs, label, S, C, H, D, lengths, bs, gen):
+        assert lengths == chip_smoke.STEP_LENGTHS
+        decodes.append((label, S, C, H, D, bs))
+        return {"case": label}
+    orig = chip_ab._forward_case, chip_ab._bf16_decode_case
+    chip_ab._forward_case, chip_ab._bf16_decode_case = case, decode
+    try:
+        recs = chip_ab._padded_fwd(SimpleNamespace())
+    finally:
+        chip_ab._forward_case, chip_ab._bf16_decode_case = orig
+    assert calls == want
+    assert decodes == [("step S=8 C=256 D=48", 8, 256, 4, 48, None),
+                       ("step S=8 C=256 D=48 bs=16", 8, 256, 4, 48, 16),
+                       ("step S=8 C=256 D=64", 8, 256, 4, 64, None),
+                       ("step S=8 C=256 D=64 bs=16", 8, 256, 4, 64, 16)]
+    assert len(recs) == len(want) + 4
+
+
 @pytest.mark.parametrize("dtype", ["wide", "wide_bwd", "wide_bwd_bf16",
                                    "d256", "d256_bwd", "rank", "d128_bwd",
-                                   "d32_bwd_bf16", "d32_fwd_bf16"])
+                                   "d32_bwd_bf16", "d32_fwd_bf16",
+                                   "padded_bwd_bf16", "padded_fwd"])
 def test_wide_and_rank_turns_refuse_without_a_card(dtype):
     res = subprocess.run([sys.executable, str(ROOT / "chip_ab.py"), "run",
                           str(ROOT), "change", dtype], capture_output=True,

@@ -218,7 +218,8 @@ def test_float16_attention_and_its_gradient_match_jax(calls, D):
 
 def test_float16_flash_attention_without_grad_matches_jax(calls):
     """`flash_attention` on float16 operands outside grad mode: one
-    forward launch on upcast copies, no LSE written, out in float16."""
+    forward launch on upcast copies at the true head dim (D=48, no
+    padding), no LSE written, out in float16."""
     rng = np.random.default_rng(5)
     (q, jq), (k, jk), (v, jv) = (
         _to(rng.normal(size=(2, 40, 2, 48)).astype(np.float32), "float16")
@@ -229,8 +230,9 @@ def test_float16_flash_attention_without_grad_matches_jax(calls):
     _close(got, want, "float16")
     (sym, args), = calls
     assert sym == "flash_fwd_f32" and args[5] is None      # no LSE
+    assert args[10] == 48                                  # the true D
     assert {n: c for n, c in fa.route_counts().items() if c} == {
-        "flash_fwd_f16": 1, "flash_fwd_padded": 1}         # 48 -> 64
+        "flash_fwd_f16": 1}
 
 
 def test_mixed_narrow_operands_raise(calls):

@@ -1,9 +1,8 @@
 """The plan and the numerics of the bfloat16 attention forward at D = 32.
 
 `csrc/flash_fwd_bf16.cu` `flash_fwd_bf16_d32` (the C entry flash_fwd_bf16
-at D = 32, so also at D = 24, whose operands the wrapper zero-pads to 32,
-and at D = 16, whose tensor maps are 16 columns wide so that TMA
-zero-fills the other half of each 32-column box; D = 8 is padded to 16)
+at compiled width 32: D = 32, 24, 16 and 8, its tensor maps D columns
+wide, so that TMA zero-fills each 32-column box past column D)
 gives each block one warpgroup and 64 q rows. The block walks key tiles of
 BK = 64 keys up to the causal limit (`k_end`, global positions
 q_off + i, k_off + j). K and V tiles stream through a ring of NS stages:
@@ -248,7 +247,7 @@ def _fma_exp2(s, a, b):
 def emulated_forward(q, k, v, *, causal, key_mask, q_off=0, k_off=0):
     """(out bf16 [B, Tq, H, D], lse f32 [B, H, Tq]) as flash_fwd_bf16_d32
     computes them: q, k, v bf16, zero-padded to 32 columns at the true D's
-    scale (the wrapper's pad at D = 24 and 8, TMA's zero fill at D = 16),
+    scale (TMA's zero fill past D),
     tile by tile on the kernel's walk, its online softmax in f32, P
     rounded to bf16 for P V, O summed in f32, out rounded once."""
     B, Tq, H, D = q.shape

@@ -1,8 +1,9 @@
 """The plan and the numerics of the float32 attention forward at head dim 256.
 
 `csrc/flash_fwd.cu` `flash_fwd_f32_d256` (the C entry flash_fwd_f32 at
-D = 256, and so every D % 8 == 0 from 136 to 248, whose operands the
-wrapper zero-pads to 256) gives each block 64 query rows and all 256
+compiled width 256: every D % 8 == 0 from 136 to 256, its tensor maps D
+columns wide, so that TMA zero-fills each 32-column box past column D,
+and its stores D columns wide) gives each block 64 query rows and all 256
 output columns. It walks the key tiles of 32 keys up to the causal limit,
 each once. For each tile it sums S = Q K^T over the head dim in 32-column
 chunks, in order, into one float32 accumulator, each k8 slice of a chunk
@@ -28,7 +29,7 @@ split),
 with TF32 rounded to nearest (ties away) by integer operations on a
 float32 view. The emulation is held against the port's
 `flash_attention_plain` at chip_smoke.py's forward bar (TOL, max abs 1e-4
-on out and LSE) at D = 256 and, zero-padded as the wrapper pads them, at
+on out and LSE) at D = 256 and, zero-filled past D as TMA fills them, at
 D = 136 and 192, causal, with a ragged key mask, under causal offsets and
 with rows that see no key; and against the JAX package's
 `flash_attention` / `flash_attention_lse` with its Pallas kernel in
@@ -134,10 +135,10 @@ def merge(parts):
 def emulated_forward(q, k, v, *, causal, key_mask, q_off, k_off, terms=3,
                      b_order=None, split=1):
     """(out [B, Tq, H, D], lse [B, H, Tq]) as flash_fwd_f32_d256 computes
-    them: q, k, v zero-padded to 256 columns at the true D's scale, block
-    by block and tile by tile on the kernel's walk (with `split` = 2, two
-    blocks per q tile, merged). `b_order` replaces V^T's `k_slot` order (a
-    wrong one must miss the bar)."""
+    them: q, k, v zero-filled to 256 columns (TMA's fill past D) at the
+    true D's scale, block by block and tile by tile on the kernel's walk
+    (with `split` = 2, two blocks per q tile, merged). `b_order` replaces
+    V^T's `k_slot` order (a wrong one must miss the bar)."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     scale = 1.0 / math.sqrt(D)

@@ -4,12 +4,14 @@ The reference runs its Pallas kernel for every head dim D % 8 == 0
 (`_plan`, deeplearning4j_tpu/kernels/flash_attention.py:492-502) and its
 plain path for the rest. The port on a CUDA tensor runs a hand kernel for
 every D % 8 == 0: up to 256 the attention kernels at the next compiled
-width Dp (16, 32, 64, 128, 256) on
-operands zero-padded to it, at the scale of the true D, and the decode
-kernels at the true D; above 256 the wide kernels (csrc/flash_wide.cu) at
-the true D, the decode entries through the wide forward under the key
-mask `position < lengths`. D % 8 != 0 takes the plain version, counted.
-Any batch and head count is one launch (a one-dimensional grid).
+width Dp (16, 32, 64, 128, 256), the forward (f32 and bf16) and the bf16
+backward pair on the caller's tensors at the true D, the f32 backward
+pair on operands zero-padded to Dp at the scale of the true D, and the
+decode kernels at the true D; above 256 the wide kernels
+(csrc/flash_wide.cu) at the true D, the decode entries through the wide
+forward under the key mask `position < lengths`. D % 8 != 0 takes the
+plain version, counted. Any batch and head count is one launch (a
+one-dimensional grid).
 
 The CUDA kernels cannot run here. With the CUDA route stubbed, each C entry
 is replaced by an emulator that reads exactly the memory the entry is
@@ -144,9 +146,11 @@ def _decode_rows(q, k, v, lengths, n, unit, scale):
 
 
 # ------------------------------------------------ the C entries, emulated
-def _attention_fwd(dtype):
+def _attention_fwd(dtype, refuses=lambda D: False):
     def entry(q, k, v, km, out, lse, B, H, Tq, Tk, D, qsb, qst, qsh, ksb,
               kst, ksh, vsb, vst, vsh, causal, q_off, k_off, scale, stream):
+        if refuses(D):
+            return CUDA_ERROR_INVALID_VALUE
         Q = _view(q, (B, Tq, H, D), (qsb, qst, qsh, 1), dtype)
         K = _view(k, (B, Tk, H, D), (ksb, kst, ksh, 1), dtype)
         V = _view(v, (B, Tk, H, D), (vsb, vst, vsh, 1), dtype)
@@ -175,10 +179,11 @@ def _bwd_views(dtype, q, k, v, g, lse, delta, km, B, H, Tq, Tk, D, st):
 CUDA_ERROR_INVALID_VALUE = 1
 
 
-def _bf16_bwd_refuses(D):
-    """Whether the bf16 backward C entries refuse head dim D, as their
-    switch does: they take every D % 8 == 0 from 8 to 256 at its own width
-    (`compiled_width` in csrc/flash_bwd_bf16.cu)."""
+def _true_d_refuses(D):
+    """Whether the C entries that read the true head dim (both forwards
+    and the bf16 backward pair) refuse head dim D, as their switch does:
+    they take every D % 8 == 0 from 8 to 256 (`hopper::compiled_width` in
+    csrc/hopper_bf16.cuh)."""
     return D < 8 or D > 256 or D % 8 != 0
 
 
@@ -246,12 +251,12 @@ def _paged_entry(q, kpool, vpool, table, lengths, out, S, H, MB, bs, D, n,
 # the wide entries take the argument lists of the compiled-width ones,
 # D the runtime head dim
 ENTRIES = {
-    "flash_fwd_f32": _attention_fwd(torch.float32),
-    "flash_fwd_bf16": _attention_fwd(torch.bfloat16),
+    "flash_fwd_f32": _attention_fwd(torch.float32, _true_d_refuses),
+    "flash_fwd_bf16": _attention_fwd(torch.bfloat16, _true_d_refuses),
     "flash_bwd_dq_f32": _attention_dq(torch.float32),
-    "flash_bwd_dq_bf16": _attention_dq(torch.bfloat16, _bf16_bwd_refuses),
+    "flash_bwd_dq_bf16": _attention_dq(torch.bfloat16, _true_d_refuses),
     "flash_bwd_dkv_f32": _attention_dkv(torch.float32),
-    "flash_bwd_dkv_bf16": _attention_dkv(torch.bfloat16, _bf16_bwd_refuses),
+    "flash_bwd_dkv_bf16": _attention_dkv(torch.bfloat16, _true_d_refuses),
     "flash_wide_fwd_f32": _attention_fwd(torch.float32),
     "flash_wide_fwd_bf16": _attention_fwd(torch.bfloat16),
     "flash_wide_dq_f32": _attention_dq(torch.float32),
@@ -374,24 +379,28 @@ def test_padded_attention_and_its_gradient_match_jax(calls, D, causal,
         assert tuple(a.shape) == np.shape(b)
         np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
                                    **BWD_TOL)
-    # the entries got the compiled width's columns and the true D's scale
+    # the forward got the true D, the f32 pair the compiled width's
+    # columns, all three the true D's scale
     Dp = fa.kernel_head_dim(D)
     assert [c[0] for c in calls] == ["flash_fwd_f32", "flash_bwd_dq_f32",
                                      "flash_bwd_dkv_f32"]
+    assert [args[_d_at(s)] for s, args in calls] == [D, Dp, Dp]
     for symbol, args in calls:
-        assert args[_d_at(symbol)] == Dp, symbol
         assert args[-2] == pytest.approx(1 / np.sqrt(D)), symbol
     padded = D != Dp
+    assert "flash_fwd_padded" not in fa.route_counts()
     assert fa.route_counts() == {
         **dict.fromkeys(fa.route_counts(), 0),
-        **({"flash_fwd_padded": 1, "flash_bwd_dq_padded": 1,
-            "flash_bwd_dkv_padded": 1} if padded else {})}
+        **({"flash_bwd_dq_padded": 1, "flash_bwd_dkv_padded": 1}
+           if padded else {})}
     assert fa.launch_counts()["flash_fwd"] == 1
 
 
-def test_head_dim_24_runs_the_kernel_padded_to_32(calls):
-    """The input the pinned rejection test used to hold (D=24) now runs
-    the 32-wide kernel, counted as a launch and a padded call."""
+def test_head_dim_24_runs_the_kernel_on_the_true_head_dim(calls):
+    """The input the pinned rejection test used to hold (D=24) runs the
+    forward entry (the 32-wide kernel) at D=24 on the caller's tensors,
+    counted as a launch and no padded call; out comes back as the entry
+    wrote it."""
     rng = np.random.default_rng(0)
     q, k, v, _, _ = (torch.from_numpy(a) if a is not None else None
                      for a in _operands(rng, 1, 8, 2, 24, False))
@@ -400,21 +409,22 @@ def test_head_dim_24_runs_the_kernel_padded_to_32(calls):
                                fa.flash_attention_plain(q, k, v).numpy(),
                                **FWD_TOL)
     (symbol, args), = calls
-    assert symbol == "flash_fwd_f32" and args[10] == 32
+    assert symbol == "flash_fwd_f32" and args[10] == 24
+    assert args[:3] == tuple(t.data_ptr() for t in (q, k, v))
+    assert args[4] == out.data_ptr()
     assert out.shape == q.shape and out.is_contiguous()
     assert fa.launch_counts()["flash_fwd"] == 1
-    assert fa.route_counts()["flash_fwd_padded"] == 1
+    assert not any(fa.route_counts().values())
 
 
 @pytest.mark.parametrize("D", [16, 24, 48, 80])
 def test_padded_bf16_entries_equal_the_plain_versions(calls, D):
-    """bf16 operands reach the bf16 forward padded to the compiled width
-    (D=24 to 32; D=16 at its own width, which the C entry runs on the D=32
-    kernel), and the bf16 dq and dk/dv entries at the true D on the
-    caller's own storage, with nothing padded or sliced (their kernels read
-    tensor maps D columns wide and write D columns); the results equal the
-    bf16 plain versions (both compute in float32 and round once; the zero
-    columns change at most the order of the sums)."""
+    """bf16 operands reach the bf16 forward, dq and dk/dv entries at the
+    true D on the caller's own storage, with nothing padded or sliced
+    (the kernels read tensor maps D columns wide and write D columns; the
+    C entries run D=16 and 24 on the 32-wide kernels); the results equal
+    the bf16 plain versions (both compute in float32 and round once; the
+    zero columns change at most the order of the sums)."""
     rng = np.random.default_rng(D)
     *ops, km = _operands(rng, 2, 11, 2, D, True)
     q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16) for a in ops)
@@ -441,16 +451,15 @@ def test_padded_bf16_entries_equal_the_plain_versions(calls, D):
                      + 1e-2 * b.abs().max()).all())
     assert [c[0] for c in calls] == ["flash_fwd_bf16", "flash_bwd_dq_bf16",
                                      "flash_bwd_dkv_bf16"]
-    assert [a[_d_at(s)] for s, a in calls] == [fa.kernel_head_dim(D), D, D]
+    assert [a[_d_at(s)] for s, a in calls] == [D, D, D]
+    # q, k, v (and dO): the caller's own tensors (dense, aligned)
+    assert calls[0][1][:3] == tuple(t.data_ptr() for t in (q, k, v))
+    assert calls[0][1][4] == out.data_ptr()
     for symbol, args in calls[1:]:
-        # q, k, v and dO: the caller's own tensors (dense, aligned)
         assert args[:4] == tuple(t.data_ptr() for t in (q, k, v, g)), symbol
-    counts = fa.route_counts()
-    padded = int(fa.kernel_head_dim(D) != D)
-    assert padded == (D != 16)
-    assert counts["flash_fwd_bf16_padded"] == padded
-    assert counts["flash_bwd_dq_bf16_padded"] == 0
-    assert counts["flash_bwd_dkv_bf16_padded"] == 0
+    assert not any(n for n in fa.route_counts() if n.endswith("_padded")
+                   and "bf16" in n)
+    assert not any(fa.route_counts().values())
 
 
 # -------------------------------------------------------- the plain route
