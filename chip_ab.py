@@ -10,6 +10,8 @@
     python3 chip_ab.py run ROOT LABEL d32_fwd_bf16
     python3 chip_ab.py run ROOT LABEL padded_bwd_bf16
     python3 chip_ab.py run ROOT LABEL padded_fwd
+    python3 chip_ab.py run ROOT LABEL d32_bwd_f32
+    python3 chip_ab.py run ROOT LABEL padded_bwd_f32
     python3 chip_ab.py run ROOT LABEL SET --no-gates   # any set above
     python3 chip_ab.py summary LOG...         # table of the turns
     python3 chip_ab.py sweep ROOT LABEL       # decode at each cluster size
@@ -110,8 +112,25 @@ one and offsets 0/512 at D=136 and 256 (PADDED_BWD_BF16 and
 PADDED_LSE_DIMS, kept here so that a parent checkout times the same
 cases). Each backward record also carries the kernels one call of its
 entry launches, counted from a CUDA graph (`_kernels_per_call` of ROOT's
-chip_smoke.py) on inputs of the same shape: the pad and slice copies a
-parent makes around the kernel show there. With `padded_fwd`, both
+chip_smoke.py), and the MiB the call allocates at its peak, on inputs of
+the same shape (`_entry_calls`): the pad and slice copies a parent makes
+around the kernel show there. With `d32_bwd_f32`, the float32 pair at
+head dim 32 through phase 2's `_bwd_case` (dq and dk/dv timed apart and
+gated against the plain versions, bitwise twice more at the train case
+and the model's shape), each record with `_entry_calls`: causal unless
+named, the train case B=16 T=512 H=8 and at D=16 H=16, B=2 T=200 H=4
+with a ragged key mask at D=24 and 8, Tq=37 Tk=53 not causal with a key
+mask, bench_decode_paged's model's training shape B=4 T=128 H=4, the long
+B=4 T=4096 H=8 and the head-count case B=16385 H=4 T=16; then
+`_lse_case` in float32 on D32_LSE's shard, diagonal, past and offsets
+0/512 (D32_BWD_F32, chip_smoke.py's D32_F32_CASES kept here). With
+`padded_bwd_f32`, the float32 pair the same way at head dims no kernel is
+compiled at, each beside its compiled width: B=2 T=200 H=4 causal with a
+ragged key mask at D=8, 24 (32), 40, 48, 56 (64), 72, 80, 96, 120 (128),
+136, 192, 200, 248 (256) and at 32, 64, 128 and 256; B=4 T=4096 H=8
+causal at D=96 (bitwise twice more) and 128; then `_lse_case` in float32
+at B=1 T=1024 H=2 on a diagonal shard, a past one and offsets 0/512 at
+D=136 and 256 (PADDED_BWD_F32). With `padded_fwd`, both
 forwards at head dims no kernel is compiled at (`_forward_case`, the same
 code on either checkout), each beside the same shape at its compiled
 width, in float32 and bf16: B=2 T=200 H=4 causal with a ragged key mask,
@@ -125,9 +144,10 @@ H=4, slab and paged on blocks of 16, at D=48 and 64 (PADDED_FWD,
 PADDED_FWD_LSE_DIMS and PADDED_FWD_DECODE, kept here so that a parent
 checkout times the same cases). Every forward and decode record carries
 the kernels one call launches (`_kernels_per_call` of ROOT's
-chip_smoke.py): the pad and slice copies of a parent show there. With `rank`, the kernels no PR has redesigned
-yet, once each at the train case (B=16 T=512 causal, H so that H * D =
-256): phase 2's `_bwd_case` at D=16 and 32 (the f32 pair). Inputs come from
+chip_smoke.py): the pad and slice copies of a parent show there. With
+`rank`, the kernels no PR has redesigned yet (RANK), once each at the
+train case (B=16 T=512 causal, H so that H * D = 256); RANK is empty, so
+the turn says so and times nothing. Inputs come from
 fixed seeds, so both checkouts see the same tensors, and every gate of
 those functions holds in each turn. It prints one line `{"ab": LABEL, "cases":
 [...]}` with each kernel's device time (the profiler's, per call),
@@ -405,9 +425,44 @@ PADDED_FWD = [
 ]
 PADDED_FWD_LSE_DIMS = (136, 256)
 PADDED_FWD_DECODE = ("step S=8 C=256", 8, 256, 4, _STEP, 16)
+# the float32 pair at head dim 32 (`d32_bwd_f32`): `_bwd_case` (label, B,
+# Tq, Tk, H, D, causal, valid key lengths or None, a bitwise repeat):
+# chip_smoke.py's D32_F32_CASES, kept here so that a checkout without them
+# times the same cases, each with its entries' kernels a call and peak MiB
+# (`_entry_calls`); then `_lse_case` in float32 on D32_LSE under each of
+# D32_LSE_OFFSETS
+D32_BWD_F32 = [
+    ("D=32 train B=16 T=512 H=8", 16, 512, 512, 8, 32, True, None, True),
+    ("D=16 train B=16 T=512 H=16", 16, 512, 512, 16, 16, True, None, False),
+    ("D=24 B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, 24, True,
+     [200, 137], False),
+    ("D=8 B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, 8, True,
+     [200, 137], False),
+    ("D=32 Tq=37 Tk=53, key mask", 2, 37, 53, 4, 32, False, [53, 20],
+     False),
+    ("D=32 model B=4 T=128 H=4", 4, 128, 128, 4, 32, True, None, True),
+    ("D=32 long B=4 T=4096 H=8", 4, 4096, 4096, 8, 32, True, None, False),
+    ("D=32 B=16385 H=4 T=16", 16385, 16, 16, 4, 32, True, None, False),
+]
+# the float32 pair at padded head dims beside their compiled widths
+# (`padded_bwd_f32`): `_bwd_case` as above, each with `_entry_calls`, at
+# B=2 T=200 H=4 causal with a ragged key mask at every padded head dim
+# (PADDED_BWD_BF16's, and 48, 80 and 192: PERF.md's padded rows) and each
+# compiled width, head dims ascending, and the long B=4 T=4096 H=8 at D=96
+# beside D=128; then `_lse_case` in float32 at B=1 T=1024 H=2 under
+# D32_LSE_OFFSETS' offsets at each of PADDED_LSE_DIMS
+PADDED_BWD_F32 = [
+    *((f"D={D} B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, D, True,
+       [200, 137], False)
+      for D in (8, 24, 32, 40, 48, 56, 64, 72, 80, 96, 120, 128, 136, 192,
+                200, 248, 256)),
+    ("D=96 long B=4 T=4096 H=8", 4, 4096, 4096, 8, 96, True, None, True),
+    ("D=128 long B=4 T=4096 H=8", 4, 4096, 4096, 8, 128, True, None, False),
+]
 # the kernels not yet redesigned, at the train case with H * D = 256:
-# (case function, D)
-RANK = [*(("bwd", D) for D in (16, 32))]
+# (case function, D). None: the f32 pair at D=32 (and D=8 to 24 on it) was
+# the last kernel on its first design.
+RANK = []
 SHARD = dict(B=4, T=1024, H=8, D=64)
 SHARD_F32 = dict(B=1, T=1024, H=4, D=64)
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
@@ -604,40 +659,75 @@ def _d32_fwd_bf16(cs):
             in D32_FWD_BF16]
 
 
-def _kernels_a_call(cs, B, Tq, Tk, H, D, causal, valid, gen):
-    """{kernel: kernels one call launches} of ROOT's bf16 backward entries
-    on seeded inputs of one shape, each call captured in a CUDA graph by
-    ROOT's `_kernels_per_call` (the entries ran at this head dim before,
-    so nothing loads during the capture)."""
+def _entry_calls(cs, dtype, B, Tq, Tk, H, D, causal, valid, gen):
+    """{kernel: {"kernels_per_call": n, "peak_mib": m}} of ROOT's backward
+    entries (dq, dk/dv) on seeded `dtype` inputs of one shape: the kernels
+    one call launches, from the call captured in a CUDA graph by ROOT's
+    `_kernels_per_call` (the entries ran at this head dim before, so
+    nothing loads during the capture), and the MiB the call allocates at
+    its peak (`_peak_mib`: its outputs and any padded copies)."""
     import torch
     from deeplearning4j_tpu_torch.kernels import (
         attention_delta, flash_attention_plain, flash_bwd_dkv, flash_bwd_dq)
-    q, g = (torch.randn((B, Tq, H, D), generator=gen).to(
-        cs.DEVICE, torch.bfloat16) for _ in range(2))
-    k, v = (torch.randn((B, Tk, H, D), generator=gen).to(
-        cs.DEVICE, torch.bfloat16) for _ in range(2))
+    q, g = (torch.randn((B, Tq, H, D), generator=gen).to(cs.DEVICE, dtype)
+            for _ in range(2))
+    k, v = (torch.randn((B, Tk, H, D), generator=gen).to(cs.DEVICE, dtype)
+            for _ in range(2))
     kw = dict(causal=causal, key_mask=cs._key_mask(B, Tk, valid))
     out, lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
     delta = attention_delta(out, g)
-    return {name: cs._kernels_per_call(lambda: fn(q, k, v, g, lse, delta,
-                                                  **kw))[0]
-            for name, fn in (("flash_bwd_dq_bf16", flash_bwd_dq),
-                             ("flash_bwd_dkv_bf16", flash_bwd_dkv))}
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    calls = {}
+    for name, fn in (("flash_bwd_dq", flash_bwd_dq),
+                     ("flash_bwd_dkv", flash_bwd_dkv)):
+        call = lambda fn=fn: fn(q, k, v, g, lse, delta, **kw)
+        calls[name + suffix] = {
+            "kernels_per_call": cs._kernels_per_call(call)[0],
+            "peak_mib": _peak_mib(call)}
+    return calls
+
+
+def _bwd_turn(cs, case, cases, dtype, gen):
+    """`case` (ROOT's `_bwd_case` or `_bf16_case`) at each of `cases`,
+    each record with its entry's `_entry_calls`."""
+    recs = []
+    for lab, B, Tq, Tk, H, D, causal, valid, repeat in cases:
+        got = case(lab, B, Tq, Tk, H, D, causal, valid, gen, repeat=repeat)
+        calls = _entry_calls(cs, dtype, B, Tq, Tk, H, D, causal, valid, gen)
+        recs += [{**r, **calls.get(r["name"], {})} for r in got]
+    return recs
 
 
 def _padded_bwd_bf16(cs):
     import torch
     gen = torch.Generator().manual_seed(22)
-    recs = []
-    for lab, B, Tq, Tk, H, D, causal, valid, repeat in PADDED_BWD_BF16:
-        got = cs._bf16_case(lab, B, Tq, Tk, H, D, causal, valid, gen,
-                            repeat=repeat)
-        per = _kernels_a_call(cs, B, Tq, Tk, H, D, causal, valid, gen)
-        recs += [{**r, "kernels_per_call": per.get(r["name"])} for r in got]
+    recs = _bwd_turn(cs, cs._bf16_case, PADDED_BWD_BF16, torch.bfloat16, gen)
     for D in PADDED_LSE_DIMS:
         for lab, offs in D32_LSE_OFFSETS:
             recs += cs._lse_case(lab.replace("D=32", f"D={D}"),
                                  torch.bfloat16, 1, 1024, 2, D, offs, None,
+                                 gen)
+    return recs
+
+
+def _d32_bwd_f32(cs):
+    import torch
+    gen = torch.Generator().manual_seed(24)
+    recs = _bwd_turn(cs, cs._bwd_case, D32_BWD_F32, torch.float32, gen)
+    B, T, H, D = D32_LSE
+    for lab, offs in D32_LSE_OFFSETS:
+        recs += cs._lse_case(lab, torch.float32, B, T, H, D, offs, None, gen)
+    return recs
+
+
+def _padded_bwd_f32(cs):
+    import torch
+    gen = torch.Generator().manual_seed(25)
+    recs = _bwd_turn(cs, cs._bwd_case, PADDED_BWD_F32, torch.float32, gen)
+    for D in PADDED_LSE_DIMS:
+        for lab, offs in D32_LSE_OFFSETS:
+            recs += cs._lse_case(lab.replace("D=32", f"D={D}"),
+                                 torch.float32, 1, 1024, 2, D, offs, None,
                                  gen)
     return recs
 
@@ -715,6 +805,9 @@ def _bf16_decode_case(cs, label, S, C, H, D, lengths, bs, gen):
 
 def _rank(cs):
     import torch
+    if not RANK:
+        print("rank: every kernel of the port is on a redesigned design; "
+              "nothing to time")
     gen = torch.Generator().manual_seed(9)
     recs = []
     for case, D in RANK:
@@ -747,6 +840,7 @@ def run(root, label, dtype="bf16", gates=True):
             "d256": _d256, "d256_bwd": _d256_bwd, "d128_bwd": _d128_bwd,
             "d32_bwd_bf16": _d32_bwd_bf16, "d32_fwd_bf16": _d32_fwd_bf16,
             "padded_bwd_bf16": _padded_bwd_bf16, "padded_fwd": _padded_fwd,
+            "d32_bwd_f32": _d32_bwd_f32, "padded_bwd_f32": _padded_bwd_f32,
             "rank": _rank}
     if dtype in sets:
         _print_turn(label, root, sets[dtype](cs), cs, failed)
@@ -911,6 +1005,7 @@ if __name__ == "__main__":
                                  ["d256"], ["d256_bwd"], ["d128_bwd"],
                                  ["d32_bwd_bf16"], ["d32_fwd_bf16"],
                                  ["padded_bwd_bf16"], ["padded_fwd"],
+                                 ["d32_bwd_f32"], ["padded_bwd_f32"],
                                  ["rank"]):
         run(*sys.argv[2:])
     elif len(sys.argv) >= 3 and sys.argv[1] == "summary":

@@ -79,7 +79,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    Every decode case (also bench_decode_paged's shape, S=4 C=128 H=4
    D=32, slab and paged, and one (slot, head) over 4096 blocks of 8, more
    table entries a CTA than shared memory holds at once) counts exactly
-   one launch and no plain or padded route in its first call, gives the
+   one launch and no plain route in its first call, gives the
    same bits in a second, and launches exactly one kernel a call, counted
    from one call captured in a CUDA graph (every launch a node; no
    profiler window, no retry); beside it an empty kernel on the same grid
@@ -107,15 +107,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    causal with a ragged key mask, and through `flash_decode` and
    `flash_decode_paged` at the step shape, each within phase 2's bars of
    its plain version, with the launch counters showing the kernel
-   launched (`<kernel>_padded` calls of the f32 backward pair at 48 and
-   80, none at 256; both forwards and the bf16 backward pair read the
-   true D and count none at any width) and no plain route;
+   launched (every entry, both forwards and both backward pairs, reads
+   the true D, one kernel a call) and no plain route;
    D=20 (D % 8 != 0) on every entry: one `<kernel>_plain_by_shape` call,
    no launch, equal to plain; and `transformer_lm(d_model=192,
    n_heads=4)` (head dim 48) decoded greedily with
    `DecodeEngine.generate`, slab and paged, equal to the use_pallas=False
    model under the tie rule below, its prefill on the f32 forward at the
-   true D (no padded call). The wide kernels: D=264, 320, 512 and
+   true D. The wide kernels: D=264, 320, 512 and
    1024 at B=2 T=200 H=4 causal with a ragged key mask, the forward with
    and without the LSE, dq and dk/dv in f32 and bf16 (the bf16 forward
    without the LSE checked for its error alone), and both decode
@@ -146,12 +145,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    prefill launches `flash_fwd` at D=32, unpadded.
 2d. The float32 kernels at head dim 256 (`flash_fwd_f32_d256` and
    `flash_bwd_f32_ws<256>`, also the kernels of every D % 8 == 0 from 136
-   on: the forward on maps of the true D, the pair zero-padded to 256): at
-   each of D256_CASES the forward through
+   on, on maps of the true D): at each of D256_CASES the forward through
    `flash_attention` within TOL on out and LSE and the backward pair
    within BWD_TOL (a masked key's dk and dv rows exactly 0), launching
-   `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv` only (the pair padded
-   at D=192 only): the train case B=16 T=512 H=1 with the LSE three times, bitwise
+   `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv` only, one kernel a
+   call: the train case B=16 T=512 H=1 with the LSE three times, bitwise
    equal; B=2 T=200 H=4 causal with a ragged key mask at D=256 and 192;
    the prefill shape B=1 L=64 H=4 with a key mask; Tq=37 Tk=53 not causal
    with a key mask; B=8 T=512 H=4 causal with a ragged key mask, every
@@ -168,11 +166,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    builds `flash_fwd` or `flash_bwd` without reporting them.
 2e. The float32 backward pair at head dim 128 (`flash_bwd_f32_ws<128>`
    and `flash_bwd_dkv_f32_d128`, also the pair of every D % 8 == 0 from
-   72 to 120, zero-padded to 128): at each of D128_CASES through
+   72 to 120, on maps of the true D): at each of D128_CASES through
    `_bwd_case` (the forward's LSE within TOL, then dq, dk and dv within
    BWD_TOL, a masked key's dk and dv rows exactly 0), launching
-   `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv` only (padded at D=96
-   and 80 only): the train case
+   `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv` only, one kernel a
+   call: the train case
    B=16 T=512 H=2 three times, bitwise equal; B=2 T=200 H=4 causal with a
    ragged key mask at D=128, 96 and 80; Tq=37 Tk=53 not causal with a key
    mask; B=8 T=512 H=4 causal with a ragged key mask, every grid over one
@@ -231,11 +229,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    H=2 D=136 (`_lse_case`: diagonal, past, offsets 0/512 with rows that
    see no key: out 0, lse <= -1e29, dq rows 0). Each within the bf16 bars
    (a masked key's dk and dv rows exactly 0), launching the three bf16
-   kernels only, with no `_padded`, `_wide` or plain-route call, each
-   entry one kernel a call (`_kernels_per_call`: no pad, slice or layout
-   copy around it; `_bf16_case`, `_lse_case` and `_fwd_general_case` hold
-   every entry that takes its D unpadded, both forwards and the bf16
-   pair, to that, in every phase). Phase 1 fails if ptxas reports a spill
+   kernels only, with no `_wide` or plain-route call, each entry one
+   kernel a call (`_kernels_per_call`: no pad, slice or layout copy around
+   it; `_bf16_case`, `_bwd_case`, `_lse_case` and `_fwd_general_case`
+   hold every entry, both forwards and both pairs, to that, in every
+   phase). Phase 1 fails if ptxas reports a spill
    in `flash_bwd_dq_bf16_sm90` or `flash_bwd_dkv_bf16_sm90` at width 64,
    128 or 256, or does not report one of them.
 2h. Both forwards at head dims no kernel is compiled at, on tensor maps
@@ -255,11 +253,33 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    0); and the bf16 decode route at D=48 (`_decode_dtype_case`, slab and
    paged: the bf16 forward under the length mask at the true D). Each out
    within TOL (bf16: BF16_OUT_TOL) and its LSE within its bar of the
-   plain version, exactly one kernel a forward call, and no `_padded`,
-   `_wide` or plain-route call of the forward. Phase 1 fails if ptxas
-   reports a spill in `flash_fwd_bf16_sm90` at width 64, 128 or 256, in
+   plain version, exactly one kernel a forward call, and no `_wide` or
+   plain-route call of the forward. Phase 1 fails if ptxas reports a
+   spill in `flash_fwd_bf16_sm90` at width 64, 128 or 256, in
    `flash_fwd_f32_sm90` at width 32, 64 or 128 or in
    `flash_fwd_f32_d256`, or does not report one of them.
+2i. The float32 backward pair at head dim 32, `flash_bwd_dq_f32_sm90<32>`
+   and `flash_bwd_dkv_f32_sm90<32>` (TF32 `wgmma` x3 + TMA, the owned
+   operands in register A, two blocks an SM; also D=24, 16 and 8 on maps
+   of the true D): at each of D32_F32_CASES through `_bwd_case` (the
+   forward's LSE within TOL, then dq, dk and dv within BWD_TOL, a masked
+   key's dk and dv rows exactly 0, each entry one kernel a call), launching
+   `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv` only: the train case
+   B=16 T=512 H=8 three times, bitwise equal; D=16 at B=16 T=512 H=16;
+   D=24 and 8 at B=2 T=200 H=4 causal with a ragged key mask; Tq=37 Tk=53
+   not causal with a key mask; the model's training shape B=4 T=128 H=4
+   three times, bitwise equal; the long B=4 T=4096 H=8 causal; B=16385
+   H=4 T=16. Then `flash_attention_lse` in float32 at B=1 T=1024 H=2 D=32
+   (`_lse_case`: diagonal, past, offsets 0/512 with rows that see no key:
+   out 0, lse <= -1e29, dq rows 0). Then bench_decode_paged's model
+   (head dim 32) in float32 through `_model_paths`: 3 `fit` steps at 4 x
+   128 (path training_d32), scores within SCORE_RTOL of the
+   use_pallas=False model and falling, `flash_fwd`, `flash_bwd_dq` and
+   `flash_bwd_dkv` each launching 6 times and nothing else. Phase 1
+   fails if ptxas reports a spill in `flash_bwd_dq_f32_sm90` or
+   `flash_bwd_dkv_f32_sm90` at width 32 or 64, does not report one of
+   them, or builds any CUDA-core pair (`flash_bwd_dq_kernel`,
+   `flash_bwd_dkv_kernel`).
 3. The serving path: `transformer_lm` at full width (vocab 256, d_model
    256, 4 layers, 4 heads) with `use_pallas=True` and
    `synthetic_params(seed=0)`, served by
@@ -352,12 +372,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    model's training_wide, training_wide_bf16, decode_wide,
    decode_wide_paged, the D=256 model's training_d256 and decode_d256,
    the D=128 model's training_d128 and decode_d128, and
-   bench_decode_paged's model's training_d32_bf16) must count zero
-   padded and zero plain-route calls, and
-   only the D=320 model's paths wide ones; every kernel must have
-   launched on its main path (phases 2g and 2h add cases, no path: no
-   model of the zoo trains at a padded head dim; the D=48 engine of phase
-   2b serves through the forward at its true D). The run's time, then
+   bench_decode_paged's model's training_d32_bf16 and training_d32) must
+   count zero plain-route calls (no entry pads: there is no padded
+   route), and only the D=320 model's paths wide ones; every kernel must
+   have launched on its main path (phases 2g and 2h add cases, no path:
+   no model of the zoo trains at a padded head dim; the D=48 engine of
+   phase 2b serves through the forward at its true D). The run's time,
+   then
    one line
    `{"kernels": [...]}` with each of
    the 14 kernels' numbers (the six wide entries' at the D=320 model's
@@ -458,8 +479,8 @@ WIDE_LSE = (1, 1024, 2, 320)
 WIDE_LSE_OFFSETS = (("wide diagonal", (1024, 1024)), ("wide past", (1024, 0)),
                     ("wide rows without keys", (0, 512)))
 # the float32 kernels at head dim 256 (`flash_fwd_f32_d256` and
-# `flash_bwd_f32_ws<256>`, and every D % 8 == 0 from 136 on: the forward
-# on maps of the true D, the pair zero-padded to 256): (label, B, Tq, Tk, H, D, causal, valid key lengths or None, the
+# `flash_bwd_f32_ws<256>`, and every D % 8 == 0 from 136 on, on maps of
+# the true D): (label, B, Tq, Tk, H, D, causal, valid key lengths or None, the
 # forward with the LSE, a bitwise repeat), the train case first; then the
 # ring shard of `flash_attention_lse` under causal offsets, (label, (q_off,
 # k_off)) at B=1 T=1024 H=2. chip_ab.py's `d256` and `d256_bwd` sets time
@@ -488,7 +509,7 @@ D256_LSE_OFFSETS = (("D=256 diagonal", (1024, 1024)),
 D256_MODEL = dict(vocab_size=256, d_model=512, n_layers=2, n_heads=2)
 # the float32 backward pair at head dim 128 (`flash_bwd_f32_ws<128>` and
 # `flash_bwd_dkv_f32_d128`, also the pair of every D % 8 == 0 from 72 to
-# 120, zero-padded to 128): (label, B, Tq, Tk, H, D, causal, valid key
+# 120, on maps of the true D): (label, B, Tq, Tk, H, D, causal, valid key
 # lengths or None, a bitwise repeat), the train case first; then
 # `flash_attention_lse` on D128_LSE under each of D128_LSE_OFFSETS.
 # chip_ab.py's `d128_bwd` set times the same cases, the D=128 model's
@@ -547,6 +568,26 @@ D32_LSE_OFFSETS = (("D=32 diagonal", (1024, 1024)),
 # d_model 128 over 4 heads) in bf16 with a key mask and no LSE: (label, B,
 # L, H, D, valid key lengths)
 D32_FWD_HEAD_DIMS = (32, 16, 8)
+# the float32 backward pair at head dim 32 (`flash_bwd_dq_f32_sm90<32>` and
+# `flash_bwd_dkv_f32_sm90<32>`, also D=24, 16 and 8 on the same kernels,
+# on maps of the true D): (label, B, Tq, Tk, H, D, causal, valid key
+# lengths or None, a bitwise repeat) through `_bwd_case`, the train case
+# first; then `flash_attention_lse` in float32 on D32_LSE under each of
+# D32_LSE_OFFSETS. chip_ab.py's `d32_bwd_f32` set times the same cases.
+D32_F32_CASES = [
+    ("D=32 train B=16 T=512 H=8", 16, 512, 512, 8, 32, True, None, True),
+    ("D=16 train B=16 T=512 H=16", 16, 512, 512, 16, 16, True, None, False),
+    ("D=24 B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, 24, True,
+     [200, 137], False),
+    ("D=8 B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, 8, True,
+     [200, 137], False),
+    ("D=32 Tq=37 Tk=53, key mask", 2, 37, 53, 4, 32, False, [53, 20],
+     False),
+    ("D=32 model B=4 T=128 H=4", WIDE_BATCH, WIDE_SEQ, WIDE_SEQ, 4, 32, True,
+     None, True),
+    ("D=32 long B=4 T=4096 H=8", 4, 4096, 4096, 8, 32, True, None, False),
+    ("D=32 B=16385 H=4 T=16", 16385, 16, 16, 4, 32, True, None, False),
+]
 D32_PREFILL = ("bf16 prefill B=1 L=24 H=4 D=32, key mask", 1, 24, 4, 32,
                [24])
 SW64_PROBE_TOL = 1e-3
@@ -751,7 +792,10 @@ def phase_card():
     # mangled with 128 as its first template argument; dk/dv:
     # `flash_bwd_dkv_f32_d128`, dK and dV in 128 registers); a library
     # built here reports each of them (an already built library has no
-    # report). Head dim 128 no longer instantiates the CUDA-core pair.
+    # report). The f32 pair at widths 32 and 64 is
+    # `flash_bwd_{dq,dkv}_f32_sm90<D, CLIP>` (TF32 wgmma, every head dim
+    # from 8 to 64 on the true D): no spill, and no CUDA-core pair is built
+    # at any width.
     # The bf16 kernels at head dims 32 and 16 are `flash_fwd_bf16_d32`,
     # `flash_bwd_dq_bf16_d32` and `flash_bwd_dkv_bf16_d32` (64B swizzle,
     # wgmma): no spill, and no `mma.sync` kernel is built at either width.
@@ -767,6 +811,10 @@ def phase_card():
                                 ("flash_bwd", "flash_bwd_f32_ws",
                                  (128, 256)),
                                 ("flash_bwd", "flash_bwd_dkv_f32_d128", ()),
+                                ("flash_bwd", "flash_bwd_dq_f32_sm90",
+                                 (32, 64)),
+                                ("flash_bwd", "flash_bwd_dkv_f32_sm90",
+                                 (32, 64)),
                                 ("flash_fwd_bf16", "flash_fwd_bf16_d32", ()),
                                 ("flash_bwd_bf16", "flash_bwd_dq_bf16_d32",
                                  ()),
@@ -791,10 +839,9 @@ def phase_card():
                   f"{kernel} spills: {lines[i + 1:i + 3]}")
         if lib == "flash_bwd":
             old = [line for line in lines if "Function properties for" in
-                   line and ("flash_bwd_dq_kernelILi128E" in line
-                             or "flash_bwd_dkv_kernelILi128E" in line)]
-            check(not old, f"the CUDA-core pair is still built at D=128: "
-                           f"{old}")
+                   line and ("flash_bwd_dq_kernel" in line
+                             or "flash_bwd_dkv_kernel" in line)]
+            check(not old, f"a CUDA-core pair is still built: {old}")
         if lib in ("flash_fwd_bf16", "flash_bwd_bf16"):
             old = [line for line in lines if "Function properties for" in
                    line and any(f"{k}ILi{D}E" in line for D in (16, 32)
@@ -888,7 +935,7 @@ def _fwd_general_case(label, B, Tq, Tk, H, D, causal, valid, gen, lse=False,
             check(all(torch.equal(a, b)
                       for a, b in zip(got, outputs(run()))),
                   f"{name} {label}: results differ bitwise between runs")
-    per = _per_call(f"{name} {label}", {name: (run, plain)}, D)[name]
+    per = _per_call(f"{name} {label}", {name: (run, plain)})[name]
     sdpa_q, sdpa_k, sdpa_v = (t.transpose(1, 2) for t in (q, k, v))
     sdpa_mask = None
     if km is not None:   # boolean [B, 1, Tq, Tk]: key-valid (AND causal)
@@ -983,7 +1030,7 @@ def _launch_floor(S, H, n):
 
 def _decode_gates(name, label, run, out, n, floor_shape):
     """The gates every decode case holds besides its error: one launch of
-    `name` and no plain or padded route in the first call (counted just
+    `name` and no plain route in the first call (counted just
     before `out` came back from run()), the same bits from a second call,
     and one kernel per call in a captured graph. Returns the record's
     fields for them, with the launch floor on this case's grid."""
@@ -1141,7 +1188,8 @@ def _bwd_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
     lse from the plain forward (the forward kernel's LSE is checked
     against it first). Both kernels against their plain versions and
     against `flash_attention_bwd_plain`; with `repeat`, the pair runs twice
-    more and must give the same bits. Returns the two records."""
+    more and must give the same bits; each entry one kernel a call on the
+    caller's memory (`_per_call`). Returns the two records."""
     import torch
     from deeplearning4j_tpu_torch.kernels import (
         attention_delta, flash_attention, flash_attention_bwd,
@@ -1187,6 +1235,7 @@ def _bwd_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
             again = flash_attention_bwd(q, k, v, out, lse, g, **kw)
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"{label}: gradients differ bitwise between runs")
+    per = _per_call(label, runs)
     # the library: autograd through SDPA, its forward taken untimed
     lib_err = lib_ms = lib_device_ms = None
     if H <= SDPA_MAX_HEADS:
@@ -1227,7 +1276,7 @@ def _bwd_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
             **bound(reads + writes, ops), "device_ms": device_ms(run),
             "plain_device_ms": device_ms(plain),
             "library_device_ms": lib_device_ms,
-            "bitwise_repeat": repeat}))
+            "bitwise_repeat": repeat, "kernels_per_call": per[name]}))
     return recs
 
 
@@ -1355,7 +1404,7 @@ def _bf16_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
                                + 2 * kv, 8 * D * pairs)}
     err = {"flash_fwd_bf16": out_err, "flash_bwd_dq_bf16": errs["dq"],
            "flash_bwd_dkv_bf16": max(errs["dk"], errs["dv"])}
-    per = _per_call(label, runs, D)
+    per = _per_call(label, runs)
     recs = []
     for name, (run, plain) in runs.items():
         nbytes, ops = work[name]
@@ -1381,20 +1430,18 @@ def _bf16_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
     return recs
 
 
-def _per_call(label, runs, D):
-    """{kernel: kernels per call} of the entries among `runs` ({kernel:
-    (run, plain)}) that take head dim D unpadded (`_padded_at`: every
-    forward, the bf16 pair, the f32 pair at a compiled width), each from
-    one call captured in a CUDA graph (`_kernels_per_call`): the entry
-    must launch its kernel and nothing else (no pad, slice or layout copy
-    around it)."""
+def _per_call(label, runs):
+    """{kernel: kernels per call} of the entries of `runs` ({kernel:
+    (run, plain)}), each from one call captured in a CUDA graph
+    (`_kernels_per_call`): every entry, at every head dim, must launch its
+    kernel and nothing else (no pad, slice or layout copy around it: the
+    kernel got the caller's memory)."""
     per = {}
     for name, (run, _) in runs.items():
-        if not _padded_at(D, (name,)):
-            per[name], nodes = _kernels_per_call(run)
-            check(per[name] == 1 == nodes,
-                  f"{label}: {name} launched {per[name]} kernels ({nodes} "
-                  "graph nodes) a call, not 1")
+        per[name], nodes = _kernels_per_call(run)
+        check(per[name] == 1 == nodes,
+              f"{label}: {name} launched {per[name]} kernels ({nodes} "
+              "graph nodes) a call, not 1")
     return per
 
 
@@ -1707,25 +1754,12 @@ def _print_cases(cases):
 
 
 # ----------------------------------------------------------------- phase 2b
-def _padded_at(D, kernels):
-    """The kernels of `kernels` that take head dim D on operands
-    zero-padded to its compiled width (a `<kernel>_padded` call): the f32
-    backward pair where D is no compiled width and at most
-    WIDEST_COMPILED. Both forwards and the bf16 backward pair read the
-    true D through their tensor maps; the decode kernels never pad."""
-    from deeplearning4j_tpu_torch.kernels.flash_attention import \
-        kernel_head_dim
-    if kernel_head_dim(D) == D:
-        return ()
-    return tuple(k for k in kernels if k in ("flash_bwd_dq", "flash_bwd_dkv"))
-
-
-def _routed(what, run, kernels, padded, wide=()):
+def _routed(what, run, kernels, wide=()):
     """run() with every count set to 0 just before; each of `kernels`
-    must have launched (and no other kernel), the kernels of `padded` with
-    `<kernel>_padded` calls and the others with none, a call on each
-    route of `wide` (`<kernel>_wide`) and on no other wide route, and no
-    call on the plain route. Returns run()'s result."""
+    must have launched (and no other kernel), a call on each route of
+    `wide` (`<kernel>_wide`) and on no other wide route, and no call on
+    the plain route (no entry pads: every head dim up to WIDEST_COMPILED
+    runs on the caller's memory). Returns run()'s result."""
     import torch
     from deeplearning4j_tpu_torch.kernels import reset_launch_counts
     reset_launch_counts()
@@ -1734,10 +1768,6 @@ def _routed(what, run, kernels, padded, wide=()):
     n = counts()
     for name in kernels:
         check(n[name] > 0, f"{what}: {name} never launched: {n}")
-        want = name in padded
-        check((n.get(f"{name}_padded", 0) > 0) == want,
-              f"{what}: {name} padded calls {n.get(f'{name}_padded')}, "
-              f"expected {'some' if want else 'none'}")
     for route in wide:
         check(n[route] > 0, f"{what}: no call on the route {route}: {n}")
     check(not any(v for k, v in n.items()
@@ -1822,7 +1852,7 @@ def _wide_decode_case(label, S, H, D, lengths, gen, bs=None):
         run = lambda: K.flash_decode_paged(q, pk, pv, table, lens)
         plain = lambda: K.flash_decode_paged_plain(q, pk, pv, table, lens)
         route = "flash_decode_paged_wide"
-    out = _routed(label, run, ("flash_wide_fwd",), (), wide=(route,))
+    out = _routed(label, run, ("flash_wide_fwd",), wide=(route,))
     check(K.launch_counts()["flash_wide_fwd"] == 1,
           f"{label}: {K.launch_counts()}, not one launch")
     ref = plain()
@@ -1855,8 +1885,8 @@ def _wide_decode_case(label, S, H, D, lengths, gen, bs=None):
 
 def phase_head_dims():
     """Head dims against their plain versions on the card: D=48, 80 and
-    256 (a hand kernel each; 48 and 80 at widths 64 and 128, the f32 pair
-    on operands zero-padded to them) through
+    256 (a hand kernel each; 48 and 80 at widths 64 and 128, every entry
+    on maps of the true D) through
     `flash_attention` forward and backward in f32 and bf16 and both decode
     kernels; D=264, 320, 512 and 1024 on the wide kernels (forward with and
     without the LSE, dq and dk/dv, f32 and bf16; both decode entries), at
@@ -1875,19 +1905,17 @@ def phase_head_dims():
         lab = f"D={D} B=2 T=200 H=4, ragged key mask"
         cases.append(_routed(lab, lambda: _fwd_general_case(
             lab, 2, 200, 200, 4, D, True, ragged, gen, lse=True),
-            f32[:1], _padded_at(D, f32[:1])))
+            f32[:1]))
         cases += _routed(lab, lambda: _bwd_case(
-            lab, 2, 200, 200, 4, D, True, ragged, gen), f32,
-            _padded_at(D, f32))
+            lab, 2, 200, 200, 4, D, True, ragged, gen), f32)
         cases += _routed(lab, lambda: _bf16_case(
-            lab, 2, 200, 200, 4, D, True, ragged, gen), bf16,
-            _padded_at(D, bf16))
+            lab, 2, 200, 200, 4, D, True, ragged, gen), bf16)
         cases.append(_routed(f"decode D={D}", lambda: _decode_case(
             f"step D={D}", 8, 256, 4, D, STEP_LENGTHS, gen),
-            ("flash_decode",), ()))
+            ("flash_decode",)))
         cases.append(_routed(f"paged D={D}", lambda: _paged_case(
             f"step D={D}", 8, 16, 16, 4, D, STEP_LENGTHS, gen),
-            ("flash_decode_paged", "flash_decode"), ()))
+            ("flash_decode_paged", "flash_decode")))
     wide_f32 = ("flash_wide_fwd", "flash_wide_dq", "flash_wide_dkv")
     wide_bf16 = tuple(f"{n}_bf16" for n in wide_f32)
     wide_routes = ("flash_fwd_wide", "flash_bwd_dq_wide",
@@ -1900,16 +1928,16 @@ def phase_head_dims():
         for lse in (True, False):
             cases.append(_routed(lab, lambda: _fwd_general_case(
                 lab + (", LSE" if lse else ""), 2, 200, 200, 4, D, True,
-                ragged, gen, lse=lse), wide_f32[:1], (),
+                ragged, gen, lse=lse), wide_f32[:1],
                 wide=wide_routes[:1]))
         cases += _routed(lab, lambda: _bwd_case(
-            lab, 2, 200, 200, 4, D, True, ragged, gen), wide_f32, (),
+            lab, 2, 200, 200, 4, D, True, ragged, gen), wide_f32,
             wide=wide_routes)
         cases += _routed(lab, lambda: _bf16_case(
-            lab, 2, 200, 200, 4, D, True, ragged, gen), wide_bf16, (),
+            lab, 2, 200, 200, 4, D, True, ragged, gen), wide_bf16,
             wide=wide_bf16_routes)
         bf16_no_lse[D] = _routed(lab, lambda: _bf16_forward(
-            lab, 2, 200, 4, D, ragged, gen), wide_bf16[:1], (),
+            lab, 2, 200, 4, D, ragged, gen), wide_bf16[:1],
             wide=wide_bf16_routes[:1])
         cases.append(_wide_decode_case(f"decode step D={D}", 8, 4, D,
                                        STEP_LENGTHS, gen))
@@ -1920,12 +1948,12 @@ def phase_head_dims():
     B, T, H, D = WIDE_LONG
     cases.append(_routed(WIDE_LONG_CASE, lambda: _fwd_general_case(
         WIDE_LONG_CASE, B, T, T, H, D, True, None, gen, lse=True),
-        wide_f32[:1], (), wide=wide_routes[:1]))
+        wide_f32[:1], wide=wide_routes[:1]))
     cases += _routed(WIDE_LONG_CASE, lambda: _bwd_case(
-        WIDE_LONG_CASE, B, T, T, H, D, True, None, gen), wide_f32, (),
+        WIDE_LONG_CASE, B, T, T, H, D, True, None, gen), wide_f32,
         wide=wide_routes)
     cases += _routed(WIDE_LONG_CASE, lambda: _bf16_case(
-        WIDE_LONG_CASE, B, T, T, H, D, True, None, gen), wide_bf16, (),
+        WIDE_LONG_CASE, B, T, T, H, D, True, None, gen), wide_bf16,
         wide=wide_bf16_routes)
     # the wide kernels under causal offsets, with an LSE cotangent, f32
     # and bf16
@@ -1935,7 +1963,7 @@ def phase_head_dims():
                                     wide_bf16_routes)):
         for lab, offs in WIDE_LSE_OFFSETS:
             cases += _routed(lab, lambda: _lse_case(
-                lab, dtype, B, T, H, D, offs, None, gen), kernels, (),
+                lab, dtype, B, T, H, D, offs, None, gen), kernels,
                 wide=routes)
     # the D=320 model's training shape: its kernels' records on the path
     # (each forward three times, bitwise equal)
@@ -2034,8 +2062,8 @@ def _engine_head_dim():
     use_pallas=True, decoded greedily with `DecodeEngine.generate` from a
     slab and a paged cache: the tokens equal the use_pallas=False model's
     (a differing token must sit on a true tie, top-2 gap < 1e-6), through
-    the forward at the true D and the decode kernel, never a padded or
-    the plain route."""
+    the forward at the true D and the decode kernel, never the plain
+    route."""
     from deeplearning4j_tpu_torch.decode import DecodeEngine
     nets = {use_pallas: _lm(ENGINE_48, use_pallas)
             for use_pallas in (True, False)}
@@ -2053,7 +2081,7 @@ def _engine_head_dim():
         mode = "paged" if paged else "slab"
         served = _routed(f"D=48 engine, {mode}",
                          lambda: [eng.generate(p, n_new) for p in prompts],
-                         ("flash_fwd", kernel), ())
+                         ("flash_fwd", kernel))
         out[mode] = {"tokens": served, "ties": _tokens_equal(
             f"D=48 engine {mode}", served, wants)}
     return out
@@ -2101,9 +2129,9 @@ def _model_paths(what, conf, trainings, decodes, seed):
     """`transformer_lm(**conf)`, weights from `synthetic_params(seed=0)`,
     with use_pallas=True against the use_pallas=False model. Each of
     `trainings` (path, compute_dtype, kernels, rtol): WIDE_STEPS `fit`
-    steps at WIDE_BATCH x WIDE_SEQ, scores within rtol of the plain
-    model's and falling, each of `kernels` launching once per layer per
-    step and no other kernel, no padded or plain route, nothing launched
+    steps at WIDE_BATCH x WIDE_SEQ, each timed on the host clock to a
+    synchronise, scores within rtol of the plain model's and falling, each of `kernels` launching once per layer per
+    step and no other kernel, no plain route, nothing launched
     on the plain path. Each of `decodes` (path, paged, kernels, wide
     routes): greedy decoding of three prompts (np.random.default_rng(
     seed)) with `DecodeEngine.generate`, tokens equal to the plain
@@ -2115,21 +2143,24 @@ def _model_paths(what, conf, trainings, decodes, seed):
     x, y = _one_hot_batch(WIDE_BATCH, WIDE_SEQ)
     summary, launches = {}, {}
     for path, dtype, kernels, rtol in trainings:
-        scores = {}
+        scores, step_ms = {}, {}
         for use_pallas in (True, False):
             net = _lm(conf, use_pallas, dtype)
             reset_launch_counts()
-            scores[use_pallas] = []
+            scores[use_pallas], step_ms[use_pallas] = [], []
             for _ in range(WIDE_STEPS):
+                t0 = time.perf_counter()
                 net.fit(x, y)
+                torch.cuda.synchronize()
+                step_ms[use_pallas].append(
+                    (time.perf_counter() - t0) * 1e3)
                 scores[use_pallas].append(net.score_value)
-            torch.cuda.synchronize()
             n = counts()
             if use_pallas:
                 launches[path] = n
-            check(not any(v for k, v in n.items() if k.endswith("_padded")
-                          or k.endswith("_plain_by_shape")),
-                  f"{path}: padded or plain routes {n}")
+            check(not any(v for k, v in n.items()
+                          if k.endswith("_plain_by_shape")),
+                  f"{path}: plain routes {n}")
             if not use_pallas:
                 check(not any(n[k] for k in _KERNEL_NAMES),
                       f"{path}: the plain path launched kernels: {n}")
@@ -2147,6 +2178,8 @@ def _model_paths(what, conf, trainings, decodes, seed):
               f"{scores[False]} (rtol {rtol}), or not falling")
         summary[path] = {"scores_kernel_path": scores[True],
                          "scores_plain_path": scores[False],
+                         "step_ms_kernel_path": step_ms[True],
+                         "step_ms_plain_path": step_ms[False],
                          "launches": {k: v for k, v in
                                       launches[path].items() if v}}
     if not decodes:
@@ -2165,7 +2198,7 @@ def _model_paths(what, conf, trainings, decodes, seed):
         mode = "paged" if paged else "slab"
         served = _routed(f"{what}, {mode}",
                          lambda: [eng.generate(p, n_new) for p in prompts],
-                         kernels, (), wide=wide)
+                         kernels, wide=wide)
         launches[path] = counts()
         summary[path] = {"tokens": served, "ties": _tokens_equal(
             f"{what} {mode}", served, wants),
@@ -2179,8 +2212,8 @@ def phase_d256():
     (out and LSE within TOL) and the backward pair through `_bwd_case` (dq,
     dk and dv within BWD_TOL, a masked key's dk and dv rows exactly 0); the
     train case three times each, bitwise equal; launching `flash_fwd`,
-    `flash_bwd_dq` and `flash_bwd_dkv` and nothing else, the pair
-    zero-padded at D=192 only; then `flash_attention_lse` on the D256_LSE shard under each
+    `flash_bwd_dq` and `flash_bwd_dkv` and nothing else, one kernel a
+    call; then `flash_attention_lse` on the D256_LSE shard under each
     of D256_LSE_OFFSETS with `_lse_case` (the forward and the backward pair
     within phase 2's bars, with an LSE cotangent; rows that see no key out
     0 with lse <= -1e29 and a zero dq row); then the D=256 model
@@ -2194,11 +2227,11 @@ def phase_d256():
             lab, B, Tq, Tk, H, D, causal, valid, gen, lse=lse,
             repeat=repeat)] + _bwd_case(lab, B, Tq, Tk, H, D, causal, valid,
                                         gen, repeat=repeat),
-            kernels, _padded_at(D, kernels))
+            kernels)
     B, T, H, D = D256_LSE
     for lab, offs in D256_LSE_OFFSETS:
         cases += _routed(lab, lambda: _lse_case(
-            lab, torch.float32, B, T, H, D, offs, None, gen), kernels, ())
+            lab, torch.float32, B, T, H, D, offs, None, gen), kernels)
     _print_cases(cases)
     summary, launches = _d256_model()
     print(json.dumps({"d256_model": summary}))
@@ -2224,9 +2257,7 @@ def phase_d128():
     forward's LSE within TOL first; dq, dk and dv within BWD_TOL, a masked
     key's dk and dv rows exactly 0; the train case three times, bitwise
     equal), launching `flash_fwd` (the LSE), `flash_bwd_dq` and
-    `flash_bwd_dkv` and nothing else, the pair zero-padded at D=96 and 80
-    only;
-    then `flash_attention_lse` on the D128_LSE shard under each of
+    `flash_bwd_dkv` and nothing else, one kernel a call; then `flash_attention_lse` on the D128_LSE shard under each of
     D128_LSE_OFFSETS with `_lse_case` (the forward and the backward pair
     within phase 2's bars, with an LSE cotangent; rows that see no key out
     0 with lse <= -1e29 and a zero dq row); then the D=128 model,
@@ -2240,11 +2271,11 @@ def phase_d128():
     for lab, B, Tq, Tk, H, D, causal, valid, repeat in D128_CASES:
         cases += _routed(lab, lambda: _bwd_case(
             lab, B, Tq, Tk, H, D, causal, valid, gen, repeat=repeat),
-            kernels, _padded_at(D, kernels))
+            kernels)
     B, T, H, D = D128_LSE
     for lab, offs in D128_LSE_OFFSETS:
         cases += _routed(lab, lambda: _lse_case(
-            lab, torch.float32, B, T, H, D, offs, None, gen), kernels, ())
+            lab, torch.float32, B, T, H, D, offs, None, gen), kernels)
     _print_cases(cases)
     summary, launches = _model_paths(
         "D=128 model", D128_MODEL,
@@ -2318,21 +2349,20 @@ def phase_d32_bf16():
     for lab, B, Tq, Tk, H, D, causal, valid, repeat in D32_BF16_CASES:
         cases += _routed(lab, lambda: _bf16_case(
             lab, B, Tq, Tk, H, D, causal, valid, gen, repeat=repeat),
-            kernels, _padded_at(D, kernels))
+            kernels)
     B, T, H, D = D32_LSE
     for lab, offs in D32_LSE_OFFSETS:
         cases += _routed(lab, lambda: _lse_case(
-            lab, torch.bfloat16, B, T, H, D, offs, None, gen), kernels, ())
+            lab, torch.bfloat16, B, T, H, D, offs, None, gen), kernels)
     no_lse = {}
     for D in D32_FWD_HEAD_DIMS:
         lab = f"D={D} B=2 T=200 H=4, ragged key mask, no LSE"
         no_lse[D] = _routed(lab, lambda: _bf16_forward(
-            lab, 2, 200, 4, D, [200, 137], gen), kernels[:1],
-            _padded_at(D, kernels[:1]))
+            lab, 2, 200, 4, D, [200, 137], gen), kernels[:1])
     lab, B, L, H, D, valid = D32_PREFILL
     cases.append(_routed(lab, lambda: _fwd_general_case(
         lab, B, L, L, H, D, True, valid, gen, dtype=torch.bfloat16),
-        kernels[:1], ()))
+        kernels[:1]))
     _print_cases(cases)
     summary, launches = _model_paths(
         "bench_decode_paged model", BENCH_PAGED_MODEL,
@@ -2341,6 +2371,44 @@ def phase_d32_bf16():
     summary["sw64_probe"] = probe
     summary["forward_without_lse_max_abs_err"] = no_lse
     print(json.dumps({"d32_bf16_model": summary}))
+    return cases, summary, launches
+
+
+def phase_d32_f32():
+    """The float32 backward pair at head dim 32 (`flash_bwd_dq_f32_sm90<32>`
+    and `flash_bwd_dkv_f32_sm90<32>`: `wgmma` TF32, three products per f32
+    product, the owned operands in register A, two blocks an SM) against
+    its plain versions on the card: at each of D32_F32_CASES through
+    `_bwd_case` (the forward's LSE within TOL first; dq, dk and dv within
+    BWD_TOL, a masked key's dk and dv rows exactly 0; the train and model
+    cases three times, bitwise equal; each entry one kernel a call on the
+    caller's memory), launching `flash_fwd`, `flash_bwd_dq` and
+    `flash_bwd_dkv` and nothing else; then `flash_attention_lse` in float32
+    on the D32_LSE shard under each of D32_LSE_OFFSETS with `_lse_case`
+    (rows that see no key: out 0, lse <= -1e29, a zero dq row); then
+    float32 training of bench_decode_paged's model (BENCH_PAGED_MODEL: head
+    dim 32) through `_model_paths`: path training_d32, 3 `fit` steps at 4
+    x 128, scores within SCORE_RTOL of the use_pallas=False model and
+    falling, `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv` each launching
+    once per layer per step and nothing else. Returns (cases, summary,
+    launches by path)."""
+    import torch
+    gen = torch.Generator().manual_seed(24)
+    kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    cases = []
+    for lab, B, Tq, Tk, H, D, causal, valid, repeat in D32_F32_CASES:
+        cases += _routed(lab, lambda: _bwd_case(
+            lab, B, Tq, Tk, H, D, causal, valid, gen, repeat=repeat),
+            kernels)
+    B, T, H, D = D32_LSE
+    for lab, offs in D32_LSE_OFFSETS:
+        cases += _routed(lab, lambda: _lse_case(
+            lab, torch.float32, B, T, H, D, offs, None, gen), kernels)
+    _print_cases(cases)
+    summary, launches = _model_paths(
+        "bench_decode_paged model", BENCH_PAGED_MODEL,
+        (("training_d32", None, kernels, SCORE_RTOL),), (), seed=10)
+    print(json.dumps({"d32_f32_model": summary}))
     return cases, summary, launches
 
 
@@ -2405,8 +2473,8 @@ def phase_padded_bf16_bwd():
     three times, bitwise equal) and `flash_attention_lse` on PADDED_LSE
     under each of PADDED_LSE_OFFSETS (rows that see no key: out 0, lse <=
     -1e29, a zero dq row), launching the three bf16 kernels and nothing
-    else, with no `_padded`, `_wide` or plain-route call, each entry one
-    kernel a call. Returns (cases, probe)."""
+    else, with no `_wide` or plain-route call, each entry one kernel a
+    call. Returns (cases, probe)."""
     import torch
     probe = _oob_probe()
     gen = torch.Generator().manual_seed(22)
@@ -2415,11 +2483,11 @@ def phase_padded_bf16_bwd():
     for lab, B, Tq, Tk, H, D, causal, valid, repeat in PADDED_BF16_BWD_CASES:
         cases += _routed(lab, lambda: _bf16_case(
             lab, B, Tq, Tk, H, D, causal, valid, gen, repeat=repeat),
-            kernels, ())
+            kernels)
     B, T, H, D = PADDED_LSE
     for lab, offs in PADDED_LSE_OFFSETS:
         cases += _routed(lab, lambda: _lse_case(
-            lab, torch.bfloat16, B, T, H, D, offs, None, gen), kernels, ())
+            lab, torch.bfloat16, B, T, H, D, offs, None, gen), kernels)
     _print_cases(cases)
     return cases, probe
 
@@ -2432,9 +2500,8 @@ def phase_padded_fwd():
     BF16_LSE_TOL; the long case three times, bitwise equal) and
     `flash_attention_lse` in float32 on PADDED_LSE under each of
     PADDED_LSE_OFFSETS through `_lse_case` (rows that see no key: out 0,
-    lse <= -1e29, a zero dq row; the f32 pair zero-padded), each forward
-    call one kernel and no `_padded`, `_wide` or plain-route call of the
-    forward; then the bf16 decode route (`_decode_dtype_case`, slab and
+    lse <= -1e29, a zero dq row; the f32 pair on maps of the true D too),
+    each call one kernel and no `_wide` or plain-route call; then the bf16 decode route (`_decode_dtype_case`, slab and
     paged) at PADDED_DECODE's shape at D=48, each call launching as many
     kernels as the same call at D=64 (the length mask's and, paged, the
     gather's, and one forward: no pad or slice). Returns (cases, probe)."""
@@ -2447,13 +2514,12 @@ def phase_padded_fwd():
         name = "flash_fwd_bf16" if dt == torch.bfloat16 else "flash_fwd"
         cases.append(_routed(lab, lambda: _fwd_general_case(
             lab, B, Tq, Tk, H, D, True, valid, gen, lse=lse, repeat=repeat,
-            dtype=dt), (name,), ()))
+            dtype=dt), (name,)))
     kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     B, T, H, D = PADDED_LSE
     for lab, offs in PADDED_LSE_OFFSETS:
         cases += _routed(lab, lambda: _lse_case(
-            lab, torch.float32, B, T, H, D, offs, None, gen), kernels,
-            _padded_at(D, kernels))
+            lab, torch.float32, B, T, H, D, offs, None, gen), kernels)
     lab, S, C, H, lengths, bs = PADDED_DECODE
     per = {}
     for D in (48, 64):
@@ -2510,7 +2576,7 @@ def phase_serving_bench_paged():
               f"bench_decode_paged model, {mode}: launches {n}")
         check(not any(v for k, v in n.items()
                       if k in _KERNEL_NAMES and k not in ("flash_fwd", decode)
-                      or k.endswith(("_padded", "_wide", "_plain_by_shape"))),
+                      or k.endswith(("_wide", "_plain_by_shape"))),
               f"bench_decode_paged model, {mode}: other launches or "
               f"routes {n}")
         served = [b["tokens"] for _, b in answers]
@@ -3053,8 +3119,8 @@ def _lse_case(label, dtype, B, T, H, D, offsets, valid, gen):
     causal offsets (q_off, k_off): out and lse against
     `flash_attention_plain`, then the backward pair, fed the plain
     forward's out and lse and delta = rowsum(dO o O) - g_lse for a random
-    LSE cotangent g_lse, against its plain versions, each entry that takes
-    D unpadded one kernel a call (`_per_call`). Rows that see no key
+    LSE cotangent g_lse, against its plain versions, each entry one
+    kernel a call (`_per_call`). Rows that see no key
     must come out 0 with lse <= -1e29 and a zero dq row. Bars: phase 2's,
     by type. Returns the three kernels' records."""
     import torch
@@ -3163,7 +3229,7 @@ def _lse_case(label, dtype, B, T, H, D, offsets, valid, gen):
     err = {"flash_fwd" + suffix: out_err,
            "flash_bwd_dq" + suffix: errs["dq"],
            "flash_bwd_dkv" + suffix: max(errs["dk"], errs["dv"])}
-    per = _per_call(name, runs, D)
+    per = _per_call(name, runs)
     recs = []
     for kname, (run, plain) in runs.items():
         nbytes, ops = work[kname]
@@ -3443,6 +3509,9 @@ def main():
     d32_cases, _, d32_launches = phase_d32_bf16()
     cases += d32_cases
     launches.update(d32_launches)
+    d32_cases, _, d32_launches = phase_d32_f32()
+    cases += d32_cases
+    launches.update(d32_launches)
     cases += phase_padded_bf16_bwd()[0]
     cases += phase_padded_fwd()[0]
     launches.update(phase_serving_bench_paged())
@@ -3460,8 +3529,8 @@ def main():
         # the D=320 model's paths take the wide routes and no other
         routed = {k: n[k] for k in route_counts() if n[k] and not (
             k.endswith("_wide") and "wide" in path)}
-        check(not routed, f"main path {path} took padded, plain or wide "
-                          f"routes: {routed}")
+        check(not routed, f"main path {path} took plain or wide routes: "
+                          f"{routed}")
     kernels = []
     for name, (path, case) in MAIN_PATH.items():
         check(launches[path][name] > 0,

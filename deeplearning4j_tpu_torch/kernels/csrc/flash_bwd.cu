@@ -29,7 +29,22 @@
 // same bit for bit from run to run. Ragged Tq/Tk edges are masked inside
 // the tile.
 //
-// Head dim 64 (the zoo model's float32 paths): the tensor cores. Per
+// Compiled widths 32, 64, 128 and 256 (`hopper::compiled_width`): every
+// D % 8 == 0 from 8 to 256 runs at the next of them on the caller's own
+// memory. The tensor maps are D columns wide, so TMA fills each box's
+// columns at and past D with zeros, which add nothing to a score or to a
+// gradient product, and every box is still issued and counted whole in its
+// `expect_tx` (a box wholly past D lands as zeros and completes its bytes:
+// chip_smoke.py's `_oob_probe` on a float32 map, NVIDIA H100). The stores
+// write D columns of dense [B, T, H, D] outputs: nothing is padded or
+// sliced around the kernels. At D below the width a kernel is its
+// `CLIP = true` instantiation, which takes D at run time for the store; at
+// D equal to the width the `CLIP = false` one, whose store takes the
+// compile-time width (a runtime column limit cost the forwards 4-10% at
+// their widths, PERF.md).
+//
+// Head dims 64 and 32 (the zoo model's float32 paths; bench_decode_paged's
+// model, and D = 8..24 on the width-32 kernels): the tensor cores. Per
 // unmasked (q, k) pair dq does 6*D operations and dk/dv 8*D against a few
 // hundred bytes per row, so training shapes are bound by operations. On
 // the CUDA cores (TF32 off) that ceiling is 67 TFLOP/s of f32 FMAs, and
@@ -65,15 +80,26 @@
 //     its heaviest tiles first.
 //   - Shared memory: 12 tiles of 16 KB for dq, 14 for dk/dv (of 227 KB):
 //     one block per SM.
-// What bounds it now, as far as the card showed: shared memory. Per 64 x
-// 64 tile pair dq moves ~370 KB through it (the split pass's reads and
-// hi / lo / transposed writes, and every n64 product reading its
+// What bounds it at D = 64, as far as the card showed: shared memory. Per
+// 64 x 64 tile pair dq moves ~370 KB through it (the split pass's reads
+// and hi / lo / transposed writes, and every n64 product reading its
 // operands): ~2,900 clocks at 128 bytes a clock, against ~2,300 for its
 // 72 TF32 products; dk/dv ~450 KB against 96 products. The split pass
 // and the products take turns; splitting tile j + 1 under tile j's
 // products (a second K^T stage) gained nothing, so they share the limit.
+//   - D = 32 (`flash_bwd_{dq,dkv}_f32_sm90<32, CLIP>`): the same kernels
+//     on one 32-column box a tile (8 KB). The score products take 4 k8
+//     slices, the gradient products are m64n32; the 64 x 64 score tile and
+//     its elementwise pass (ex2, ds, masks, the hi / lo split of P and dS)
+//     stay as at D = 64, so that pass is a larger share of a tile. The
+//     owned operands (Q and dO; K and V) stay as landed and go to register
+//     A tile by tile, split on the integer pipes, so the products read only
+//     B from shared memory and the owned lo tiles go: 10 tiles (82 KB) for
+//     dq, 12 (99 KB) for dk/dv, two blocks an SM, so one block's
+//     elementwise pass runs under the other's products and loads. ptxas
+//     (CUDA 12.8): dq 190, dk/dv 254-255 registers, 0 spills.
 // Head dim 256 (`flash_bwd_f32_ws<256>`; every D % 8 == 0 from 136 up runs
-// it on operands zero-padded to 256): the head dim of the public Gemma
+// it on maps of the true D): the head dim of the public Gemma
 // decoder LMs. The D=64 pair's layout would hold both owned tiles split
 // (256 KB at this width, past the 227 KB a block may have) and dK and dV
 // of 64 keys x 256 columns in one warpgroup (256 accumulator registers),
@@ -159,8 +185,8 @@
 //     shared memory (slower), the next chunk's A values loaded under the
 //     products (no gain, spills); the wide pair at D=256, slower (PERF.md,
 //     section 6).
-// Head dim 128 (every D % 8 == 0 from 72 to 120 runs it on operands
-// zero-padded to 128): the head dim of most public decoder LMs, on the
+// Head dim 128 (every D % 8 == 0 from 72 to 120 runs it on maps of the
+// true D): the head dim of most public decoder LMs, on the
 // pieces above. Both owned operands split whole take 128 KB, so neither
 // earlier layout fits as it stands (the D=64 pair's doubled needs 384 KB
 // for dq; the D=256 pair's leaves half of shared memory idle).
@@ -202,349 +228,43 @@
 //     ring (1.18x), 32-column items for both (1.03-1.15x; dk/dv spilled),
 //     each score item issued before the one before is waited for (no
 //     change).
-// Head dims 16 and 32 (the wrapper pads D=8 up to 16, 24 to 32) run on no
-// float32 main path of the port and keep the CUDA-core kernels: 128
-// threads per (tile of 32 owned rows, batch*head) walking 64-row tiles
-// staged synchronously in shared memory (rows padded to D+1 floats),
-// products on 4x4 register micro-tiles of f32 FMAs.
 #include "decode_common.cuh"
 #include "hopper_f32.cuh"
 
 #include <math.h>
 
 namespace {
-
-constexpr int THREADS = 128;    // one warpgroup; CUDA-core kernels: 8 row
-                                // groups x 16 column groups
-constexpr int DQ_BQ = 32;       // dq: query rows per block
-constexpr int DQ_BK = 64;       // dq: key rows per tile
-constexpr int KV_BK = 32;       // dkv: key rows per block
-constexpr int KV_BQ = 64;       // dkv: query rows per tile
+constexpr int THREADS = 128;    // one warpgroup
 constexpr float NEG_INF = -1e30f;
 
 struct Strides {
   long long b, t, h;            // element strides; the head dim is dense
 };
 
-// ------------------------------------------------------------------- dq
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    const float* __restrict__ key_mask,
-                    float* __restrict__ dq, int H, int Tq, int Tk,
-                    Strides qs, Strides ks, Strides vs, Strides os,
-                    int causal, int q_off, int k_off, float scale) {
-  constexpr int BQ = DQ_BQ, BK = DQ_BK;
-  constexpr int CPT = D / 16;   // dq columns per thread
-  constexpr int RS = D + 1;     // padded row of a q/dO/k/v tile
-  constexpr int SS = BK + 1;    // padded row of the ds tile
-  extern __shared__ float smem[];
-  float* Qs = smem;             // [BQ][RS]
-  float* Os = Qs + BQ * RS;     // [BQ][RS] dO
-  float* Ks = Os + BQ * RS;     // [BK][RS]
-  float* Vs = Ks + BK * RS;     // [BK][RS]
-  float* Ss = Vs + BK * RS;     // [BQ][SS] ds
-  float* lse_s = Ss + BQ * SS;  // [BQ]
-  float* dl_s = lse_s + BQ;     // [BQ] delta
-
-  const int tid = threadIdx.x;
-  const int tr = tid / 16, tc = tid % 16;
-  // causal: the last q tiles see the most keys; they go first
-  const hopper::GridTile gt = hopper::grid_tile((Tq + BQ - 1) / BQ, causal);
-  const int q0 = gt.tile * BQ;
-  const int bh = gt.bh;
-  const int b = bh / H, h = bh % H;
-  const float* qb = q + b * qs.b + h * qs.h;
-  const float* kb = k + b * ks.b + h * ks.h;
-  const float* vb = v + b * vs.b + h * vs.h;
-  const float* ob = dout + b * os.b + h * os.h;
-  const float* km = key_mask ? key_mask + (long long)b * Tk : nullptr;
-
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    const bool in = q0 + r < Tq;
-    Qs[r * RS + d] = in ? qb[(q0 + r) * qs.t + d] : 0.f;
-    Os[r * RS + d] = in ? ob[(q0 + r) * os.t + d] : 0.f;
-  }
-  if (tid < BQ) {
-    const bool in = q0 + tid < Tq;
-    lse_s[tid] = in ? lse[(long long)bh * Tq + q0 + tid] : 0.f;
-    dl_s[tid] = in ? delta[(long long)bh * Tq + q0 + tid] : 0.f;
-  }
-  float acc[4][CPT];
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) acc[ii][cc] = 0.f;
-
-  // causal: key j is visible to row i iff j <= i + shift; no key past
-  // the tile's last query row is ever visible
-  const int shift = q_off - k_off;
-  const int k_end = causal ? min(Tk, max(0, min(Tq, q0 + BQ) + shift)) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();            // the previous tile's ds.K is done
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int j = i / D, d = i % D;
-      const bool in = k0 + j < Tk;
-      Ks[j * RS + d] = in ? kb[(k0 + j) * ks.t + d] : 0.f;
-      Vs[j * RS + d] = in ? vb[(k0 + j) * vs.t + d] : 0.f;
-    }
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T on a 4 x 4 micro-tile: rows tr*4+ii,
-    // key columns tc+16*jj
-    float s[4][BK / 16], dp[4][BK / 16];
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < BK / 16; ++jj) s[ii][jj] = dp[ii][jj] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], ov[4], kv[BK / 16], vv[BK / 16];
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        qv[ii] = Qs[(tr * 4 + ii) * RS + d];
-        ov[ii] = Os[(tr * 4 + ii) * RS + d];
-      }
-#pragma unroll
-      for (int jj = 0; jj < BK / 16; ++jj) {
-        kv[jj] = Ks[(tc + 16 * jj) * RS + d];
-        vv[jj] = Vs[(tc + 16 * jj) * RS + d];
-      }
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < BK / 16; ++jj) {
-          s[ii][jj] = fmaf(qv[ii], kv[jj], s[ii][jj]);
-          dp[ii][jj] = fmaf(ov[ii], vv[jj], dp[ii][jj]);
-        }
-    }
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      const int r = tr * 4 + ii;
-      const float l = lse_s[r], dl = dl_s[r];
-#pragma unroll
-      for (int jj = 0; jj < BK / 16; ++jj) {
-        const int c = tc + 16 * jj;
-        const int kpos = k0 + c;
-        float p = 0.f;            // past the ragged edge: weight exactly 0
-        if (kpos < Tk) {
-          float x = s[ii][jj] * scale;
-          if (km && !(km[kpos] > 0.f)) x = NEG_INF;
-          if (causal && kpos > q0 + r + shift) x = -INFINITY;
-          p = expf(x - l);
-        }
-        Ss[r * SS + c] = p * (dp[ii][jj] - dl) * scale;
-      }
-    }
-    __syncthreads();
-
-    // dQ += dS K
-    for (int j = 0; j < BK; ++j) {
-      float kk[CPT];
-#pragma unroll
-      for (int cc = 0; cc < CPT; ++cc) kk[cc] = Ks[j * RS + tc + 16 * cc];
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        const float g = Ss[(tr * 4 + ii) * SS + j];
-#pragma unroll
-        for (int cc = 0; cc < CPT; ++cc) acc[ii][cc] = fmaf(g, kk[cc], acc[ii][cc]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int r = tr * 4 + ii;
-    if (q0 + r >= Tq) continue;
-    float* o = dq + (((long long)b * Tq + q0 + r) * H + h) * D;
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) o[tc + 16 * cc] = acc[ii][cc];
-  }
-}
-
-// ------------------------------------------------------------------ dkv
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     const float* __restrict__ key_mask,
-                     float* __restrict__ dk, float* __restrict__ dv, int H,
-                     int Tq, int Tk, Strides qs, Strides ks, Strides vs,
-                     Strides os, int causal, int q_off, int k_off,
-                     float scale) {
-  constexpr int BK = KV_BK, BQ = KV_BQ;
-  constexpr int CPT = D / 16;   // dk/dv columns per thread
-  constexpr int RS = D + 1;     // padded row of a k/v/q/dO tile
-  constexpr int PS = BQ + 1;    // padded row of the p^T / ds^T tiles
-  extern __shared__ float smem[];
-  float* Ks = smem;             // [BK][RS]
-  float* Vs = Ks + BK * RS;     // [BK][RS]
-  float* Qs = Vs + BK * RS;     // [BQ][RS]
-  float* Os = Qs + BQ * RS;     // [BQ][RS] dO
-  float* Ps = Os + BQ * RS;     // [BK][PS] p^T
-  float* Ds = Ps + BK * PS;     // [BK][PS] ds^T
-  float* lse_s = Ds + BK * PS;  // [BQ]
-  float* dl_s = lse_s + BQ;     // [BQ] delta
-
-  const int tid = threadIdx.x;
-  const int tr = tid / 16, tc = tid % 16;
-  // causal: the first key tiles are seen by the most queries; they go
-  // first
-  const hopper::GridTile gt = hopper::grid_tile((Tk + BK - 1) / BK, false);
-  const int k0 = gt.tile * BK;
-  const int bh = gt.bh;
-  const int b = bh / H, h = bh % H;
-  const float* qb = q + b * qs.b + h * qs.h;
-  const float* kb = k + b * ks.b + h * ks.h;
-  const float* vb = v + b * vs.b + h * vs.h;
-  const float* ob = dout + b * os.b + h * os.h;
-  const float* km = key_mask ? key_mask + (long long)b * Tk : nullptr;
-
-  for (int i = tid; i < BK * D; i += THREADS) {
-    const int j = i / D, d = i % D;
-    const bool in = k0 + j < Tk;
-    Ks[j * RS + d] = in ? kb[(k0 + j) * ks.t + d] : 0.f;
-    Vs[j * RS + d] = in ? vb[(k0 + j) * vs.t + d] : 0.f;
-  }
-  // this thread's key rows: in range and not masked
-  bool kvalid[4];
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int kpos = k0 + tr * 4 + ii;
-    kvalid[ii] = kpos < Tk && (!km || km[kpos] > 0.f);
-  }
-  float dk_acc[4][CPT], dv_acc[4][CPT];
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) dk_acc[ii][cc] = dv_acc[ii][cc] = 0.f;
-
-  // causal: key j is visible to row i iff j <= i + shift, so rows before
-  // k0 - shift see none of these keys; start at the q tile that holds
-  // the first one that does
-  const int shift = q_off - k_off;
-  const int q_start = causal ? max(0, ((k0 - shift) / BQ) * BQ) : 0;
-  for (int q0 = q_start; q0 < Tq; q0 += BQ) {
-    __syncthreads();            // K/V staged; the previous tile is consumed
-    for (int i = tid; i < BQ * D; i += THREADS) {
-      const int r = i / D, d = i % D;
-      const bool in = q0 + r < Tq;
-      Qs[r * RS + d] = in ? qb[(q0 + r) * qs.t + d] : 0.f;
-      Os[r * RS + d] = in ? ob[(q0 + r) * os.t + d] : 0.f;
-    }
-    if (tid < BQ) {
-      const bool in = q0 + tid < Tq;
-      lse_s[tid] = in ? lse[(long long)bh * Tq + q0 + tid] : 0.f;
-      dl_s[tid] = in ? delta[(long long)bh * Tq + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T on a 4 x 4 micro-tile: key rows
-    // tr*4+ii, query columns tc+16*jj
-    float s[4][BQ / 16], dp[4][BQ / 16];
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < BQ / 16; ++jj) s[ii][jj] = dp[ii][jj] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[4], vv[4], qv[BQ / 16], ov[BQ / 16];
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        kv[ii] = Ks[(tr * 4 + ii) * RS + d];
-        vv[ii] = Vs[(tr * 4 + ii) * RS + d];
-      }
-#pragma unroll
-      for (int jj = 0; jj < BQ / 16; ++jj) {
-        qv[jj] = Qs[(tc + 16 * jj) * RS + d];
-        ov[jj] = Os[(tc + 16 * jj) * RS + d];
-      }
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < BQ / 16; ++jj) {
-          s[ii][jj] = fmaf(kv[ii], qv[jj], s[ii][jj]);
-          dp[ii][jj] = fmaf(vv[ii], ov[jj], dp[ii][jj]);
-        }
-    }
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      const int r = tr * 4 + ii;
-      const int kpos = k0 + r;
-#pragma unroll
-      for (int jj = 0; jj < BQ / 16; ++jj) {
-        const int c = tc + 16 * jj;
-        const int qpos = q0 + c;
-        float p = 0.f;            // past either ragged edge: weight 0
-        if (qpos < Tq && kpos < Tk) {
-          float x = s[ii][jj] * scale;
-          if (!kvalid[ii]) x = NEG_INF;
-          if (causal && kpos > qpos + shift) x = -INFINITY;
-          p = expf(x - lse_s[c]);
-        }
-        Ps[r * PS + c] = p;
-        Ds[r * PS + c] = p * (dp[ii][jj] - dl_s[c]) * scale;
-      }
-    }
-    __syncthreads();
-
-    // dV += P^T dO and dK += dS^T Q over the tile's query rows
-    for (int c = 0; c < BQ; ++c) {
-      float ov[CPT], qv[CPT];
-#pragma unroll
-      for (int cc = 0; cc < CPT; ++cc) {
-        ov[cc] = Os[c * RS + tc + 16 * cc];
-        qv[cc] = Qs[c * RS + tc + 16 * cc];
-      }
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        const float p = Ps[(tr * 4 + ii) * PS + c];
-        const float g = Ds[(tr * 4 + ii) * PS + c];
-#pragma unroll
-        for (int cc = 0; cc < CPT; ++cc) {
-          dv_acc[ii][cc] = fmaf(p, ov[cc], dv_acc[ii][cc]);
-          dk_acc[ii][cc] = fmaf(g, qv[cc], dk_acc[ii][cc]);
-        }
-      }
-    }
-  }
-
-  // every key row in range is written, masked ones as exact zeros
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int r = tr * 4 + ii;
-    if (k0 + r >= Tk) continue;
-    const long long off = (((long long)b * Tk + k0 + r) * H + h) * D;
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) {
-      dk[off + tc + 16 * cc] = dk_acc[ii][cc];
-      dv[off + tc + 16 * cc] = dv_acc[ii][cc];
-    }
-  }
-}
-
-// ============================================================ D = 64 (sm90)
+// ====================================================== D = 32, 64 (sm90)
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float NEG_INF2 = NEG_INF * LOG2E;   // the key mask's x, in log2
 constexpr int STAGES = 2;       // ring depth of the walked tiles
-constexpr int TILE = 64 * 64;   // floats of one [64, 64] tile (16 KB)
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of one block
+constexpr int SMEM_SM = 233472;     // shared memory of one SM
+constexpr int SMEM_RESERVED = 1024; // the system's share of each block
 
-// dq: float offsets from the 1024-byte aligned base (tiles 1024-aligned)
+// dq: float offsets from the 1024-byte aligned base (tiles 1024-aligned;
+// a tile is 64 rows x D, D / 32 boxes). At D = 64 the owned Q and dO are
+// split in place (hi) with their lo beside them; at D = 32 (OWN_REG) they
+// stay as landed and go to register A tile by tile, so their lo tiles go
+// and two blocks fit on an SM.
+template <int D>
 struct DqLayout {
+  static constexpr bool OWN_REG = D == 32;
+  static constexpr int BLOCKS = OWN_REG ? 2 : 1;  // blocks per SM
+  static constexpr int TILE = 64 * D;             // floats of one tile
+  static constexpr int OWNED = OWN_REG ? TILE : 2 * TILE;  // one, with lo
   static constexpr int Q = 0;                     // Q (hi in place)
-  static constexpr int QL = Q + TILE;             // Q lo
-  static constexpr int O = QL + TILE;             // dO (hi in place)
-  static constexpr int OL = O + TILE;             // dO lo
-  static constexpr int K = OL + TILE;             // [STAGES] K (hi in place)
+  static constexpr int QL = Q + TILE;             // Q lo (D = 64)
+  static constexpr int O = Q + OWNED;             // dO (hi in place)
+  static constexpr int OL = O + TILE;             // dO lo (D = 64)
+  static constexpr int K = O + OWNED;             // [STAGES] K (hi in place)
   static constexpr int V = K + STAGES * TILE;     // [STAGES] V (hi in place)
   static constexpr int KL = V + STAGES * TILE;    // K lo
   static constexpr int VL = KL + TILE;            // V lo
@@ -554,9 +274,37 @@ struct DqLayout {
   static constexpr int KM = BAR + 2 * (1 + STAGES);  // [STAGES][64] key mask
   static constexpr int BYTES = 4 * (KM + STAGES * 64);
 };
-static_assert(DqLayout::BYTES + 1024 <= SMEM_LIMIT, "dq: shared memory");
+template <int D>
+constexpr bool fits_dq() {
+  using L = DqLayout<D>;
+  return L::BYTES + 1024 <= SMEM_LIMIT &&
+         L::BLOCKS * (L::BYTES + 1024 + SMEM_RESERVED) <= SMEM_SM;
+}
+static_assert(fits_dq<32>() && fits_dq<64>(), "dq: shared memory");
 
-__global__ void __launch_bounds__(THREADS, 1)
+// The split register-A fragments of an owned [64][32] f32 tile as landed
+// (one 128B-swizzled box): for each k8 slice kk, (row g, k t), (g + 8, t),
+// (g, t + 4) and (g + 8, t + 4) of this thread's 16-row group, k in the
+// natural order of the landed columns (the walked tile, the B operand,
+// keeps that order too). Split on the integer pipes (`split_f32`).
+__device__ __forceinline__ void owned_fragments(uint32_t (&hi)[4][4],
+                                                uint32_t (&lo)[4][4],
+                                                const float* a, int rt,
+                                                int t) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      hopper::split_f32(
+          a[hopper::sw128(64, rt + 8 * (i & 1), 8 * kk + t + 4 * (i >> 1))],
+          hi[kk][i], lo[kk][i]);
+}
+
+// dq at compiled width D (32 or 64) on tensor maps of the true head dim Dt
+// (TMA zero-fills each box past it); with CLIP the store writes Dt columns
+// of a dense [B, Tq, H, Dt] dq, else D (Dt = D).
+template <int D, bool CLIP>
+__global__ void __launch_bounds__(THREADS, DqLayout<D>::BLOCKS)
 flash_bwd_dq_f32_sm90(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap,
@@ -564,10 +312,10 @@ flash_bwd_dq_f32_sm90(const __grid_constant__ CUtensorMap qmap,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
                       const float* __restrict__ key_mask,
-                      float* __restrict__ dq, int H, int Tq, int Tk,
+                      float* __restrict__ dq, int H, int Tq, int Tk, int Dt,
                       int causal, int q_off, int k_off, float scale) {
-  using L = DqLayout;
-  constexpr int D = 64, BQ = 64, BK = 64;
+  using L = DqLayout<D>;
+  constexpr int BQ = 64, BK = 64, TILE = L::TILE;
   constexpr uint32_t KV_BYTES = 2 * TILE * 4;
   extern __shared__ unsigned char smem_raw[];
   float* sm = reinterpret_cast<float*>(hopper::align_1024(smem_raw));
@@ -579,6 +327,7 @@ flash_bwd_dq_f32_sm90(const __grid_constant__ CUtensorMap qmap,
 
   const int tid = threadIdx.x, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
+  const int rt = (tid / 32) * 16 + g;         // this thread's tile rows
   // causal: the last q tiles see the most keys; they go first
   const hopper::GridTile gt = hopper::grid_tile((Tq + BQ - 1) / BQ, causal);
   const int bh = gt.bh, b = bh / H, h = bh % H;
@@ -590,9 +339,9 @@ flash_bwd_dq_f32_sm90(const __grid_constant__ CUtensorMap qmap,
   const float scale2 = scale * LOG2E;
   const float* km = key_mask ? key_mask + (long long)b * Tk : nullptr;
 
-  float acc[32];
+  float acc[D / 2];
 #pragma unroll
-  for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
 
   auto load_kv = [&](int stage, int tile) {
     hopper::mbar_expect_tx(&bar[1 + stage], KV_BYTES);
@@ -605,7 +354,7 @@ flash_bwd_dq_f32_sm90(const __grid_constant__ CUtensorMap qmap,
   auto key_ok = [&](int k) { return (km && k < Tk) ? km[k] : 1.f; };
 
   if (n_tiles > 0) {
-    const int r0 = q0 + (tid / 32) * 16 + g;   // this thread's rows r0, r0+8
+    const int r0 = q0 + rt;                     // this thread's rows r0, r0+8
     float lse2[2], dl[2];
     int last[2];                // causal: the last key index each row sees
 #pragma unroll
@@ -631,8 +380,10 @@ flash_bwd_dq_f32_sm90(const __grid_constant__ CUtensorMap qmap,
       for (int s = 0; s < STAGES && s < n_tiles; ++s) load_kv(s, s);
     }
     hopper::mbar_wait(&bar[0], 0);
-    hopper::split_tile<true, false>(Qs, QLs, nullptr, nullptr, tid);
-    hopper::split_tile<true, false>(Os, OLs, nullptr, nullptr, tid);
+    if constexpr (!L::OWN_REG) {
+      hopper::split_tile<true, false, 64, D>(Qs, QLs, nullptr, nullptr, tid);
+      hopper::split_tile<true, false, 64, D>(Os, OLs, nullptr, nullptr, tid);
+    }
 
     for (int j = 0; j < n_tiles; ++j) {
       const int st = j % STAGES;
@@ -643,21 +394,38 @@ flash_bwd_dq_f32_sm90(const __grid_constant__ CUtensorMap qmap,
       const float km_next =
           (tid < BK && j + 1 < n_tiles) ? key_ok(k0 + BK + tid) : 1.f;
       hopper::mbar_wait(&bar[1 + st], (j / STAGES) & 1);
-      hopper::split_tile<true, true>(Kt, KLs, KTH, KTL, tid);
-      hopper::split_tile<true, false>(Vt, VLs, nullptr, nullptr, tid);
+      hopper::split_tile<true, true, 64, D>(Kt, KLs, KTH, KTL, tid);
+      hopper::split_tile<true, false, 64, D>(Vt, VLs, nullptr, nullptr, tid);
       hopper::fence_proxy_async();
       __syncthreads();
 
       // S = Q K^T, then dP = dO V^T (two groups: the exponentials of S
       // run while dP's products do): 64 rows x 64 keys, k over D
       float s[32], dp[32];
-      hopper::wgmma_fence();
-      hopper::wgmma_3xtf32_ss<D / 8>(s, Qs, QLs, Kt, KLs);
-      hopper::wgmma_commit();
-      hopper::wgmma_3xtf32_ss<D / 8>(dp, Os, OLs, Vt, VLs);
-      hopper::wgmma_commit();
+      [[maybe_unused]] uint32_t qh[4][4], ql[4][4], oh[4][4], ol[4][4];
+      if constexpr (L::OWN_REG) {
+        // Q and dO split in registers (register A), the walked K and V
+        // split in shared memory; the first product of each overwrites
+        owned_fragments(qh, ql, Qs, rt, t);
+        owned_fragments(oh, ol, Os, rt, t);
+        hopper::wgmma_fence();
+        hopper::wgmma_3xtf32_rs<D / 8, BK>(s, qh, ql, Kt, KLs, 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_3xtf32_rs<D / 8, BK>(dp, oh, ol, Vt, VLs, 0);
+        hopper::wgmma_commit();
+      } else {
+        hopper::wgmma_fence();
+        hopper::wgmma_3xtf32_ss<D / 8>(s, Qs, QLs, Kt, KLs);
+        hopper::wgmma_commit();
+        hopper::wgmma_3xtf32_ss<D / 8>(dp, Os, OLs, Vt, VLs);
+        hopper::wgmma_commit();
+      }
       hopper::wgmma_wait<1>();
       hopper::fence_operand(s);
+      if constexpr (L::OWN_REG) {
+        hopper::fence_fragments(qh);
+        hopper::fence_fragments(ql);
+      }
 
       // p = exp(x - lse) as the forward masks x
       const bool full = k0 + BK <= Tk && !masked &&
@@ -683,6 +451,11 @@ flash_bwd_dq_f32_sm90(const __grid_constant__ CUtensorMap qmap,
       // ds = p (dp - delta) scale
       hopper::wgmma_wait<0>();
       hopper::fence_operand(dp);
+      if constexpr (L::OWN_REG) {
+        // the fragments stay untouched until the products are done
+        hopper::fence_fragments(oh);
+        hopper::fence_fragments(ol);
+      }
 #pragma unroll
       for (int e = 0; e < 32; ++e)
         s[e] = s[e] * (dp[e] - dl[(e >> 1) & 1]) * scale;
@@ -691,7 +464,7 @@ flash_bwd_dq_f32_sm90(const __grid_constant__ CUtensorMap qmap,
       uint32_t ah[BK / 8][4], al[BK / 8][4];
       hopper::split_acc_tf32(ah, al, s);
       hopper::wgmma_fence();
-      hopper::wgmma_3xtf32_rs<BK / 8>(acc, ah, al, KTH, KTL);
+      hopper::wgmma_3xtf32_rs<BK / 8, D>(acc, ah, al, KTH, KTL);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_operand(acc);
@@ -703,17 +476,25 @@ flash_bwd_dq_f32_sm90(const __grid_constant__ CUtensorMap qmap,
     }
   }
 
-  hopper::store_acc_f32(dq + ((long long)b * Tq * H + h) * D,
-                        (long long)H * D, q0, Tq, acc, tid);
+  // dq is dense [B, Tq, H, Dt]: the columns below Dt
+  const int Dc = CLIP ? Dt : D;
+  hopper::store_acc_f32(dq + ((long long)b * Tq * H + h) * Dc,
+                        (long long)H * Dc, q0, Tq, acc, tid, Dc);
 }
 
-// dk/dv: float offsets from the aligned base (tiles 1024-aligned)
+// dk/dv: float offsets from the aligned base (tiles 1024-aligned); at
+// D = 32 (OWN_REG) the owned K and V stay as landed, as dq's Q and dO.
+template <int D>
 struct DkvLayout {
+  static constexpr bool OWN_REG = D == 32;
+  static constexpr int BLOCKS = OWN_REG ? 2 : 1;  // blocks per SM
+  static constexpr int TILE = 64 * D;
+  static constexpr int OWNED = OWN_REG ? TILE : 2 * TILE;
   static constexpr int K = 0;                     // K (hi in place)
-  static constexpr int KL = K + TILE;             // K lo
-  static constexpr int V = KL + TILE;             // V (hi in place)
-  static constexpr int VL = V + TILE;             // V lo
-  static constexpr int Q = VL + TILE;             // [STAGES] Q (hi in place)
+  static constexpr int KL = K + TILE;             // K lo (D = 64)
+  static constexpr int V = K + OWNED;             // V (hi in place)
+  static constexpr int VL = V + TILE;             // V lo (D = 64)
+  static constexpr int Q = V + OWNED;             // [STAGES] Q (hi in place)
   static constexpr int O = Q + STAGES * TILE;     // [STAGES] dO (hi in place)
   static constexpr int QL = O + STAGES * TILE;    // Q lo
   static constexpr int OL = QL + TILE;            // dO lo
@@ -726,9 +507,19 @@ struct DkvLayout {
   static constexpr int DL = LS + STAGES * 64;     // [STAGES][64] delta
   static constexpr int BYTES = 4 * (DL + STAGES * 64);
 };
-static_assert(DkvLayout::BYTES + 1024 <= SMEM_LIMIT, "dk/dv: shared memory");
+template <int D>
+constexpr bool fits_dkv() {
+  using L = DkvLayout<D>;
+  return L::BYTES + 1024 <= SMEM_LIMIT &&
+         L::BLOCKS * (L::BYTES + 1024 + SMEM_RESERVED) <= SMEM_SM;
+}
+static_assert(fits_dkv<32>() && fits_dkv<64>(), "dk/dv: shared memory");
 
-__global__ void __launch_bounds__(THREADS, 1)
+// Dt comes last: placed after Tk, it made ptxas give the D = 64
+// instantiation a register more (255) than the kernel without it and cost
+// it 3-6% on the card (PERF.md, section 6).
+template <int D, bool CLIP>
+__global__ void __launch_bounds__(THREADS, DkvLayout<D>::BLOCKS)
 flash_bwd_dkv_f32_sm90(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
@@ -738,9 +529,9 @@ flash_bwd_dkv_f32_sm90(const __grid_constant__ CUtensorMap qmap,
                        const float* __restrict__ key_mask,
                        float* __restrict__ dk, float* __restrict__ dv, int H,
                        int Tq, int Tk, int causal, int q_off, int k_off,
-                       float scale) {
-  using L = DkvLayout;
-  constexpr int D = 64, BQ = 64, BK = 64;
+                       float scale, int Dt) {
+  using L = DkvLayout<D>;
+  constexpr int BQ = 64, BK = 64, TILE = L::TILE;
   constexpr uint32_t QO_BYTES = 2 * TILE * 4;
   extern __shared__ unsigned char smem_raw[];
   float* sm = reinterpret_cast<float*>(hopper::align_1024(smem_raw));
@@ -753,6 +544,7 @@ flash_bwd_dkv_f32_sm90(const __grid_constant__ CUtensorMap qmap,
 
   const int tid = threadIdx.x, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
+  const int rt = (tid / 32) * 16 + g;         // this thread's tile rows
   // causal: the first key tiles are seen by the most queries; they go
   // first
   const hopper::GridTile gt = hopper::grid_tile((Tk + BK - 1) / BK, false);
@@ -763,11 +555,11 @@ flash_bwd_dkv_f32_sm90(const __grid_constant__ CUtensorMap qmap,
   const int q_start = causal ? max(0, ((k0 + k_off - q_off) / BQ) * BQ) : 0;
   const int n_tiles = q_start < Tq ? (Tq - q_start + BQ - 1) / BQ : 0;
   const float scale2 = scale * LOG2E;
-  const int kr0 = k0 + (tid / 32) * 16 + g;   // this thread's keys kr0, +8
+  const int kr0 = k0 + rt;                    // this thread's keys kr0, +8
 
-  float dk_acc[32], dv_acc[32];
+  float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-  for (int e = 0; e < 32; ++e) dk_acc[e] = dv_acc[e] = 0.f;
+  for (int e = 0; e < D / 2; ++e) dk_acc[e] = dv_acc[e] = 0.f;
 
   auto load_qo = [&](int stage, int tile) {
     const int row0 = q_start + tile * BQ;
@@ -815,8 +607,10 @@ flash_bwd_dkv_f32_sm90(const __grid_constant__ CUtensorMap qmap,
       for (int s = 0; s < STAGES && s < n_tiles; ++s) load_qo(s, s);
     }
     hopper::mbar_wait(&bar[0], 0);
-    hopper::split_tile<true, false>(Ks, KLs, nullptr, nullptr, tid);
-    hopper::split_tile<true, false>(Vs, VLs, nullptr, nullptr, tid);
+    if constexpr (!L::OWN_REG) {
+      hopper::split_tile<true, false, 64, D>(Ks, KLs, nullptr, nullptr, tid);
+      hopper::split_tile<true, false, 64, D>(Vs, VLs, nullptr, nullptr, tid);
+    }
 
     for (int j = 0; j < n_tiles; ++j) {
       const int st = j % STAGES;
@@ -826,21 +620,38 @@ flash_bwd_dkv_f32_sm90(const __grid_constant__ CUtensorMap qmap,
       // the next tile's lse / delta, fetched under this tile's work
       const float next = j + 1 < n_tiles ? row_value(q0 + BQ) : 0.f;
       hopper::mbar_wait(&bar[1 + st], (j / STAGES) & 1);
-      hopper::split_tile<true, true>(Qt, QLs, QTH, QTL, tid);
-      hopper::split_tile<true, true>(Ot, OLs, OTH, OTL, tid);
+      hopper::split_tile<true, true, 64, D>(Qt, QLs, QTH, QTL, tid);
+      hopper::split_tile<true, true, 64, D>(Ot, OLs, OTH, OTL, tid);
       hopper::fence_proxy_async();
       __syncthreads();
 
       // S^T = K Q^T, then dP^T = V dO^T (two groups, as in dq): 64 keys
       // x 64 queries
       float s[32], dp[32];
-      hopper::wgmma_fence();
-      hopper::wgmma_3xtf32_ss<D / 8>(s, Ks, KLs, Qt, QLs);
-      hopper::wgmma_commit();
-      hopper::wgmma_3xtf32_ss<D / 8>(dp, Vs, VLs, Ot, OLs);
-      hopper::wgmma_commit();
+      [[maybe_unused]] uint32_t kh[4][4], kl[4][4], vh[4][4], vl[4][4];
+      if constexpr (L::OWN_REG) {
+        // K and V split in registers (register A), the walked Q and dO
+        // split in shared memory; the first product of each overwrites
+        owned_fragments(kh, kl, Ks, rt, t);
+        owned_fragments(vh, vl, Vs, rt, t);
+        hopper::wgmma_fence();
+        hopper::wgmma_3xtf32_rs<D / 8, BQ>(s, kh, kl, Qt, QLs, 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_3xtf32_rs<D / 8, BQ>(dp, vh, vl, Ot, OLs, 0);
+        hopper::wgmma_commit();
+      } else {
+        hopper::wgmma_fence();
+        hopper::wgmma_3xtf32_ss<D / 8>(s, Ks, KLs, Qt, QLs);
+        hopper::wgmma_commit();
+        hopper::wgmma_3xtf32_ss<D / 8>(dp, Vs, VLs, Ot, OLs);
+        hopper::wgmma_commit();
+      }
       hopper::wgmma_wait<1>();
       hopper::fence_operand(s);
+      if constexpr (L::OWN_REG) {
+        hopper::fence_fragments(kh);
+        hopper::fence_fragments(kl);
+      }
 
       // p^T as the forward masks the scores. Zero-filled q rows past Tq
       // add exactly 0 in a full pair (their dO and Q rows are 0).
@@ -869,6 +680,11 @@ flash_bwd_dkv_f32_sm90(const __grid_constant__ CUtensorMap qmap,
       // ds^T = p^T (dp^T - delta) scale
       hopper::wgmma_wait<0>();
       hopper::fence_operand(dp);
+      if constexpr (L::OWN_REG) {
+        // the fragments stay untouched until the products are done
+        hopper::fence_fragments(vh);
+        hopper::fence_fragments(vl);
+      }
 #pragma unroll
       for (int e = 0; e < 32; ++e) {
         const int c = 8 * (e >> 2) + 2 * t + (e & 1);
@@ -877,16 +693,16 @@ flash_bwd_dkv_f32_sm90(const __grid_constant__ CUtensorMap qmap,
 
       // dV += P^T dO and dK += dS^T Q: A split in registers, B the
       // transposed split tiles; one set of fragments at a time (both sets
-      // with both accumulators spill)
+      // with both accumulators spill at D = 64)
       uint32_t ah[BQ / 8][4], al[BQ / 8][4];
       hopper::split_acc_tf32(ah, al, s);
       hopper::wgmma_fence();
-      hopper::wgmma_3xtf32_rs<BQ / 8>(dv_acc, ah, al, OTH, OTL);
+      hopper::wgmma_3xtf32_rs<BQ / 8, D>(dv_acc, ah, al, OTH, OTL);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::split_acc_tf32(ah, al, dp);
       hopper::wgmma_fence();
-      hopper::wgmma_3xtf32_rs<BQ / 8>(dk_acc, ah, al, QTH, QTL);
+      hopper::wgmma_3xtf32_rs<BQ / 8, D>(dk_acc, ah, al, QTH, QTL);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_operand(dv_acc);
@@ -898,10 +714,12 @@ flash_bwd_dkv_f32_sm90(const __grid_constant__ CUtensorMap qmap,
     }
   }
 
-  // every key row in range is written (a masked key's come out 0)
-  const long long off = ((long long)b * Tk * H + h) * D;
-  hopper::store_acc_f32(dk + off, (long long)H * D, k0, Tk, dk_acc, tid);
-  hopper::store_acc_f32(dv + off, (long long)H * D, k0, Tk, dv_acc, tid);
+  // every key row in range is written (a masked key's come out 0); dk and
+  // dv are dense [B, Tk, H, Dt]: the columns below Dt
+  const int Dc = CLIP ? Dt : D;
+  const long long off = ((long long)b * Tk * H + h) * Dc;
+  hopper::store_acc_f32(dk + off, (long long)H * Dc, k0, Tk, dk_acc, tid, Dc);
+  hopper::store_acc_f32(dv + off, (long long)H * Dc, k0, Tk, dv_acc, tid, Dc);
 }
 
 // ================================================ dq at D = 128, D = 256
@@ -1040,8 +858,13 @@ __device__ __forceinline__ void st_cluster4(uint32_t addr, float a, float b,
 // long after the tile before's gradient product is done (`btempty`). With
 // SPLIT each owned tile has two ranks: rank 0 walks the first half of its
 // tiles, rank 1 the rest, and rank 1 hands its accumulator to rank 0 over
-// distributed shared memory, where rank 0 adds it.
-template <int D_, bool DQ, bool SPLIT>
+// distributed shared memory, where rank 0 adds it. With CLIP the true head
+// dim Dt is below D (the maps are Dt columns wide, TMA zero-fills past
+// them; the store writes Dt columns of a dense output); the layouts,
+// `expect_tx` counts and products stay D wide. At D equal to the width the
+// kernel is the CLIP = false instantiation, whose store takes the
+// compile-time width.
+template <int D_, bool DQ, bool SPLIT, bool CLIP>
 __global__ void __launch_bounds__(256, 1)
 flash_bwd_f32_ws(const __grid_constant__ CUtensorMap a1map,
                  const __grid_constant__ CUtensorMap a2map,
@@ -1051,7 +874,7 @@ flash_bwd_f32_ws(const __grid_constant__ CUtensorMap a1map,
                  const float* __restrict__ delta,
                  const float* __restrict__ key_mask,
                  float* __restrict__ out0, float* __restrict__ out1, int H,
-                 int Tq, int Tk, int causal, int q_off, int k_off,
+                 int Tq, int Tk, int Dt, int causal, int q_off, int k_off,
                  float scale) {
   static_assert(D_ == 128 || !DQ || SPLIT, "D=256: dq always runs two ranks");
   using L = BwdWs<D_, DQ>;
@@ -1511,10 +1334,12 @@ flash_bwd_f32_ws(const __grid_constant__ CUtensorMap a1map,
     for (int e = 0; e < D / 2; ++e) acc[e] = any ? acc[e] : 0.f;
   }
 
-  // every owned row below T_own is written (a masked key's come out 0)
+  // every owned row below T_own is written (a masked key's come out 0),
+  // the columns below Dt of a dense [B, T_own, H, Dt] output
+  const int Dc = CLIP ? Dt : D;
   hopper::store_acc_f32((has_dp ? out0 : out1) +
-                            ((long long)b * T_own * H + h) * D,
-                        (long long)H * D, own0, T_own, acc, tid);
+                            ((long long)b * T_own * H + h) * Dc,
+                        (long long)H * Dc, own0, T_own, acc, tid, Dc);
 }
 
 // ================================================== D = 128 dk/dv (sm90)
@@ -1585,8 +1410,8 @@ __device__ __forceinline__ void transpose_chunk(const float* x,
 // Q^T and dO^T (`btfull` after the last), then refill the tile's slots.
 // With SPLIT each key tile has two ranks (rank 0 the first half of the
 // walk, rank 1 the rest), and rank 0 adds rank 1's dK and dV over
-// distributed shared memory.
-template <bool SPLIT>
+// distributed shared memory. CLIP as `flash_bwd_f32_ws`.
+template <bool SPLIT, bool CLIP>
 __global__ void __launch_bounds__(256, 1)
 flash_bwd_dkv_f32_d128(const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
@@ -1596,7 +1421,7 @@ flash_bwd_dkv_f32_d128(const __grid_constant__ CUtensorMap kmap,
                        const float* __restrict__ delta,
                        const float* __restrict__ key_mask,
                        float* __restrict__ dk, float* __restrict__ dv,
-                       int H, int Tq, int Tk, int causal, int q_off,
+                       int H, int Tq, int Tk, int Dt, int causal, int q_off,
                        int k_off, float scale) {
   using L = DkvD128;
   constexpr int split = SPLIT ? 2 : 1;          // ranks per key tile
@@ -1926,136 +1751,141 @@ flash_bwd_dkv_f32_d128(const __grid_constant__ CUtensorMap kmap,
     }
   }
 
-  // every key row below Tk is written (a masked key's come out 0)
-  const long long off = ((long long)b * Tk * H + h) * D;
-  hopper::store_acc_f32(dk + off, (long long)H * D, own0, Tk, dk_acc, tid);
-  hopper::store_acc_f32(dv + off, (long long)H * D, own0, Tk, dv_acc, tid);
+  // every key row below Tk is written (a masked key's come out 0), the
+  // columns below Dt of dense [B, Tk, H, Dt] outputs
+  const int Dc = CLIP ? Dt : D;
+  const long long off = ((long long)b * Tk * H + h) * Dc;
+  hopper::store_acc_f32(dk + off, (long long)H * Dc, own0, Tk, dk_acc, tid,
+                        Dc);
+  hopper::store_acc_f32(dv + off, (long long)H * Dc, own0, Tk, dv_acc, tid,
+                        Dc);
 }
 
 struct Operands {
   const float *q, *k, *v, *dout, *lse, *delta, *key_mask;
-  int B, H, Tq, Tk;
+  int B, H, Tq, Tk, D;          // D: the true head dim
   Strides qs, ks, vs, os;
   int causal, q_off, k_off;
   float scale;
 };
 
-template <int D>
-int launch_dq(const Operands& a, float* dq, cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      (2 * DQ_BQ * (D + 1) + 2 * DQ_BK * (D + 1) + DQ_BQ * (DQ_BK + 1) +
-       2 * DQ_BQ);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid;
-  if (const int e = hopper::grid_1d((a.Tq + DQ_BQ - 1) / DQ_BQ,
-                                    (long long)a.B * a.H, &grid))
-    return e;
-  flash_bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.key_mask, dq, a.H, a.Tq,
-      a.Tk, a.qs, a.ks, a.vs, a.os, a.causal, a.q_off, a.k_off, a.scale);
-  return (int)cudaGetLastError();
+// The SM count of the current device into *sms; returns a cudaError_t value.
+int sm_count(int* sms) {
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (!err)
+    err = (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  return err;
 }
 
-template <int D>
-int launch_dkv(const Operands& a, float* dk, float* dv, cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      (2 * KV_BK * (D + 1) + 2 * KV_BQ * (D + 1) + 2 * KV_BK * (KV_BQ + 1) +
-       2 * KV_BQ);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid;
-  if (const int e = hopper::grid_1d((a.Tk + KV_BK - 1) / KV_BK,
-                                    (long long)a.B * a.H, &grid))
-    return e;
-  flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, stream>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.key_mask, dk, dv, a.H, a.Tq,
-      a.Tk, a.qs, a.ks, a.vs, a.os, a.causal, a.q_off, a.k_off, a.scale);
-  return (int)cudaGetLastError();
-}
-
-// The four tensor maps of one sm90 launch (q, k, v, dO), boxes of 64 rows.
+// The four tensor maps (A1, A2, B1, B2) of one launch, in the kernel's
+// roles: `rows[i]` rows a box, 32 columns a box, D (the true head dim)
+// columns wide, so TMA zero-fills past column D as past the last row.
 // Returns a cudaError_t value (0 = built).
-int make_maps(const Operands& a, CUtensorMap (&m)[4]) {
-  const struct { const void* p; int T; Strides s; } ops[4] = {
+int make_maps(const Operands& a, const int (&roles)[4], const int (&rows)[4],
+              CUtensorMap (&m)[4]) {
+  // role 0..3: q, k, v, dO
+  const struct { const float* p; int T; Strides s; } ops[4] = {
       {a.q, a.Tq, a.qs}, {a.k, a.Tk, a.ks}, {a.v, a.Tk, a.vs},
       {a.dout, a.Tq, a.os}};
   for (int i = 0; i < 4; ++i) {
+    const auto& o = ops[roles[i]];
     const int err = hopper::make_tile_map(
-        &m[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ops[i].p, a.B, ops[i].T,
-        a.H, 64, ops[i].s.b, ops[i].s.t, ops[i].s.h, 64);
+        &m[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, o.p, a.B, o.T, a.H, a.D,
+        o.s.b, o.s.t, o.s.h, rows[i]);
     if (err) return err;
   }
   return 0;
 }
+constexpr int QKVO[4] = {0, 1, 2, 3};           // q, k, v, dO
+constexpr int BOX64[4] = {64, 64, 64, 64};
 
+// dq at width D = 32 or 64 (`flash_bwd_dq_f32_sm90<D>`), boxes of 64 rows.
+template <int D>
 int launch_dq_sm90(const Operands& a, float* dq, cudaStream_t stream) {
   CUtensorMap m[4];
-  int err = make_maps(a, m);
+  int err = make_maps(a, QKVO, BOX64, m);
   if (err) return err;
-  const int smem = DqLayout::BYTES + 1024;
-  err = (int)cudaFuncSetAttribute(flash_bwd_dq_f32_sm90,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  smem);
+  auto kernel = a.D < D ? flash_bwd_dq_f32_sm90<D, true>
+                        : flash_bwd_dq_f32_sm90<D, false>;
+  const int smem = DqLayout<D>::BYTES + 1024;
+  err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err) return err;
   dim3 grid;
   err = hopper::grid_1d((a.Tq + 63) / 64, (long long)a.B * a.H, &grid);
   if (err) return err;
-  flash_bwd_dq_f32_sm90<<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], a.lse, a.delta, a.key_mask, dq, a.H, a.Tq,
-      a.Tk, a.causal, a.q_off, a.k_off, a.scale);
+      a.Tk, a.D, a.causal, a.q_off, a.k_off, a.scale);
   return (int)cudaGetLastError();
 }
 
+// dk and dv at width D = 32 or 64 (`flash_bwd_dkv_f32_sm90<D>`).
+template <int D>
 int launch_dkv_sm90(const Operands& a, float* dk, float* dv,
                     cudaStream_t stream) {
   CUtensorMap m[4];
-  int err = make_maps(a, m);
+  int err = make_maps(a, QKVO, BOX64, m);
   if (err) return err;
-  const int smem = DkvLayout::BYTES + 1024;
-  err = (int)cudaFuncSetAttribute(flash_bwd_dkv_f32_sm90,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  smem);
+  auto kernel = a.D < D ? flash_bwd_dkv_f32_sm90<D, true>
+                        : flash_bwd_dkv_f32_sm90<D, false>;
+  const int smem = DkvLayout<D>::BYTES + 1024;
+  err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err) return err;
   dim3 grid;
   err = hopper::grid_1d((a.Tk + 63) / 64, (long long)a.B * a.H, &grid);
   if (err) return err;
-  flash_bwd_dkv_f32_sm90<<<grid, THREADS, smem, stream>>>(
-      m[0], m[1], m[2], m[3], a.lse, a.delta, a.key_mask, dk, dv, a.H,
-      a.Tq, a.Tk, a.causal, a.q_off, a.k_off, a.scale);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      m[0], m[1], m[2], m[3], a.lse, a.delta, a.key_mask, dk, dv, a.H, a.Tq,
+      a.Tk, a.causal, a.q_off, a.k_off, a.scale, a.D);
+  return (int)cudaGetLastError();
+}
+
+// A launch of `kernel` on `grid` in clusters of `cluster` blocks of 256
+// threads with `smem` bytes of dynamic shared memory.
+template <typename Kernel, typename... Args>
+int launch_clusters(Kernel kernel, dim3 grid, int cluster, int smem,
+                    cudaStream_t stream, Args... args) {
+  int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  err = (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err) return err;
   return (int)cudaGetLastError();
 }
 
 // dq at D = 128 or 256 (out0), or dk and dv at 256 (out0, out1), by
 // `flash_bwd_f32_ws<D>`, its four tensor maps in the kernel's roles (the
 // owned operands in boxes of 64 rows, the walked ones of 32, 32 columns a
-// box, zero fill past T), clusters of two blocks per owned tile while one
-// block per tile would leave SMs idle.
+// box, zero fill past T and past the true head dim), clusters of two
+// blocks per owned tile while one block per tile would leave SMs idle.
 template <int D, bool dq>
 int launch_ws(const Operands& a, float* out0, float* out1,
               cudaStream_t stream) {
   constexpr int BW = BwdWs<D, dq>::BW;
-  const struct { const float* p; int T; Strides s; } q{a.q, a.Tq, a.qs},
-      k{a.k, a.Tk, a.ks}, v{a.v, a.Tk, a.vs}, o{a.dout, a.Tq, a.os};
   // (A1, A2, B1, B2): dq (Q, dO, K, V); dk/dv (K, V, Q, dO)
-  const decltype(q) ops[4] = {dq ? q : k, dq ? o : v, dq ? k : q,
-                              dq ? v : o};
+  const int roles[4] = {dq ? 0 : 1, dq ? 3 : 2, dq ? 1 : 0, dq ? 2 : 3};
+  const int rows[4] = {64, 64, BW, BW};
   CUtensorMap m[4];
-  for (int i = 0; i < 4; ++i) {
-    const int err = hopper::make_tile_map(
-        &m[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ops[i].p, a.B, ops[i].T,
-        a.H, D, ops[i].s.b, ops[i].s.t, ops[i].s.h, i < 2 ? 64 : BW);
-    if (err) return err;
-  }
-  int dev = 0, sms = 0;
-  int err = (int)cudaGetDevice(&dev);
-  if (!err)
-    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev);
+  int err = make_maps(a, roles, rows, m);
+  if (err) return err;
+  int sms = 0;
+  err = sm_count(&sms);
   if (err) return err;
   // dk/dv: a dK and a dV block per key tile, paired in a cluster; two
   // ranks per owned tile on grids under one wave. D = 256 dq: always two
@@ -2066,94 +1896,76 @@ int launch_ws(const Operands& a, float* out0, float* out1,
   const int split =
       (dq && D == 256) || own_tiles * kinds * a.B * a.H < sms ? 2 : 1;
   // (D = 256 dq has no one-rank instantiation: split is 2 there)
-  auto kernel = split == 2 ? flash_bwd_f32_ws<D, dq, true>
-                           : flash_bwd_f32_ws<D, dq, dq && D == 256>;
-  const int smem = BwdWs<D, dq>::BYTES + 1024;
-  err = (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err) return err;
+  constexpr bool ONE = dq && D == 256;
+  const bool clip = a.D < D;
+  auto kernel = split == 2
+      ? (clip ? flash_bwd_f32_ws<D, dq, true, true>
+              : flash_bwd_f32_ws<D, dq, true, false>)
+      : (clip ? flash_bwd_f32_ws<D, dq, ONE, true>
+              : flash_bwd_f32_ws<D, dq, ONE, false>);
   dim3 grid;
   err = hopper::grid_1d(own_tiles, (long long)a.B * a.H * split * kinds,
                         &grid);
   if (err) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(256);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = split * kinds;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = split * kinds > 1 ? 1 : 0;
-  err = (int)cudaLaunchKernelEx(&cfg, kernel, m[0], m[1], m[2], m[3], a.lse,
-                                a.delta, a.key_mask, out0, out1, a.H, a.Tq,
-                                a.Tk, a.causal, a.q_off, a.k_off, a.scale);
-  if (err) return err;
-  return (int)cudaGetLastError();
+  return launch_clusters(kernel, grid, split * kinds,
+                         BwdWs<D, dq>::BYTES + 1024, stream, m[0], m[1],
+                         m[2], m[3], a.lse, a.delta, a.key_mask, out0, out1,
+                         a.H, a.Tq, a.Tk, a.D, a.causal, a.q_off, a.k_off,
+                         a.scale);
 }
 
 // The D = 128 dk/dv pair by `flash_bwd_dkv_f32_d128`: K and V in boxes of
-// 64 rows, Q and dO of 32, 32 columns a box (zero fill past T); two ranks
-// per key tile, paired in a cluster, while one block per tile would leave
-// SMs idle.
+// 64 rows, Q and dO of 32, 32 columns a box (zero fill past T and past the
+// true head dim); two ranks per key tile, paired in a cluster, while one
+// block per tile would leave SMs idle.
 int launch_dkv_d128(const Operands& a, float* dk, float* dv,
                     cudaStream_t stream) {
-  const struct { const float* p; int T; Strides s; int rows; } ops[4] = {
-      {a.k, a.Tk, a.ks, 64}, {a.v, a.Tk, a.vs, 64},
-      {a.q, a.Tq, a.qs, DkvD128::BW}, {a.dout, a.Tq, a.os, DkvD128::BW}};
+  const int roles[4] = {1, 2, 0, 3};             // K, V, Q, dO
+  const int rows[4] = {64, 64, DkvD128::BW, DkvD128::BW};
   CUtensorMap m[4];
-  for (int i = 0; i < 4; ++i) {
-    const int err = hopper::make_tile_map(
-        &m[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ops[i].p, a.B, ops[i].T,
-        a.H, DkvD128::D, ops[i].s.b, ops[i].s.t, ops[i].s.h, ops[i].rows);
-    if (err) return err;
-  }
-  int dev = 0, sms = 0;
-  int err = (int)cudaGetDevice(&dev);
-  if (!err)
-    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev);
+  int err = make_maps(a, roles, rows, m);
+  if (err) return err;
+  int sms = 0;
+  err = sm_count(&sms);
   if (err) return err;
   const long long own_tiles = (long long)(a.Tk + 63) / 64;
   const int split = own_tiles * a.B * a.H < sms ? 2 : 1;
-  auto kernel = split == 2 ? flash_bwd_dkv_f32_d128<true>
-                           : flash_bwd_dkv_f32_d128<false>;
-  const int smem = DkvD128::BYTES + 1024;
-  err = (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err) return err;
+  const bool clip = a.D < DkvD128::D;
+  auto kernel = split == 2
+      ? (clip ? flash_bwd_dkv_f32_d128<true, true>
+              : flash_bwd_dkv_f32_d128<true, false>)
+      : (clip ? flash_bwd_dkv_f32_d128<false, true>
+              : flash_bwd_dkv_f32_d128<false, false>);
   dim3 grid;
   err = hopper::grid_1d(own_tiles, (long long)a.B * a.H * split, &grid);
   if (err) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(256);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = split > 1 ? 1 : 0;
-  err = (int)cudaLaunchKernelEx(&cfg, kernel, m[0], m[1], m[2], m[3], a.lse,
-                                a.delta, a.key_mask, dk, dv, a.H, a.Tq, a.Tk,
-                                a.causal, a.q_off, a.k_off, a.scale);
-  if (err) return err;
-  return (int)cudaGetLastError();
+  return launch_clusters(kernel, grid, split, DkvD128::BYTES + 1024, stream,
+                         m[0], m[1], m[2], m[3], a.lse, a.delta, a.key_mask,
+                         dk, dv, a.H, a.Tq, a.Tk, a.D, a.causal, a.q_off,
+                         a.k_off, a.scale);
+}
+
+Operands operands(const float* q, const float* k, const float* v,
+                  const float* dout, const float* lse, const float* delta,
+                  const float* key_mask, int B, int H, int Tq, int Tk, int D,
+                  const long long (&st)[12], int causal, int q_off,
+                  int k_off, float scale) {
+  return Operands{q, k, v, dout, lse, delta, key_mask, B, H, Tq, Tk, D,
+                  Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+                  Strides{st[6], st[7], st[8]},
+                  Strides{st[9], st[10], st[11]}, causal, q_off, k_off,
+                  scale};
 }
 
 }  // namespace
 
 // Plain C entries for ctypes. Each returns a cudaError_t value (0 =
-// launched). Strides are in elements, for [B, T, H, D] tensors with a dense
-// head dim (at D = 64 also 16-byte aligned rows: the TMA maps; a pattern
-// the encoder refuses comes back as an error); outputs are written dense
-// [B, T, H, D].
+// launched). q, k, v and dO are float32 [B, T, H, D] at the true head dim
+// D, any D % 8 == 0 from 8 to 256 (anything else is cudaErrorInvalidValue),
+// with a dense head dim and 16-byte aligned rows (strides in elements; the
+// TMA maps, D columns wide: a pattern the encoder refuses comes back as an
+// error). The kernels run at `hopper::compiled_width(D)`; dq, dk and dv
+// are written dense [B, T, H, D], D columns and no more.
 extern "C" int flash_bwd_dq_f32(
     const float* q, const float* k, const float* v, const float* dout,
     const float* lse, const float* delta, const float* key_mask, float* dq,
@@ -2163,17 +1975,16 @@ extern "C" int flash_bwd_dq_f32(
     long long v_sb, long long v_st, long long v_sh,
     long long o_sb, long long o_st, long long o_sh,
     int causal, int q_off, int k_off, float scale, void* stream) {
-  const Operands a{q, k, v, dout, lse, delta, key_mask, B, H, Tq, Tk,
-                   Strides{q_sb, q_st, q_sh}, Strides{k_sb, k_st, k_sh},
-                   Strides{v_sb, v_st, v_sh}, Strides{o_sb, o_st, o_sh},
-                   causal, q_off, k_off, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_dq<16>(a, dq, st);
-    case 32: return launch_dq<32>(a, dq, st);
-    case 64: return launch_dq_sm90(a, dq, st);
-    case 128: return launch_ws<128, true>(a, dq, nullptr, st);
-    case 256: return launch_ws<256, true>(a, dq, nullptr, st);
+  const long long st[12] = {q_sb, q_st, q_sh, k_sb, k_st, k_sh,
+                            v_sb, v_st, v_sh, o_sb, o_st, o_sh};
+  const Operands a = operands(q, k, v, dout, lse, delta, key_mask, B, H, Tq,
+                              Tk, D, st, causal, q_off, k_off, scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hopper::compiled_width(D)) {
+    case 32: return launch_dq_sm90<32>(a, dq, s);
+    case 64: return launch_dq_sm90<64>(a, dq, s);
+    case 128: return launch_ws<128, true>(a, dq, nullptr, s);
+    case 256: return launch_ws<256, true>(a, dq, nullptr, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -2187,17 +1998,16 @@ extern "C" int flash_bwd_dkv_f32(
     long long v_sb, long long v_st, long long v_sh,
     long long o_sb, long long o_st, long long o_sh,
     int causal, int q_off, int k_off, float scale, void* stream) {
-  const Operands a{q, k, v, dout, lse, delta, key_mask, B, H, Tq, Tk,
-                   Strides{q_sb, q_st, q_sh}, Strides{k_sb, k_st, k_sh},
-                   Strides{v_sb, v_st, v_sh}, Strides{o_sb, o_st, o_sh},
-                   causal, q_off, k_off, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_dkv<16>(a, dk, dv, st);
-    case 32: return launch_dkv<32>(a, dk, dv, st);
-    case 64: return launch_dkv_sm90(a, dk, dv, st);
-    case 128: return launch_dkv_d128(a, dk, dv, st);
-    case 256: return launch_ws<256, false>(a, dk, dv, st);
+  const long long st[12] = {q_sb, q_st, q_sh, k_sb, k_st, k_sh,
+                            v_sb, v_st, v_sh, o_sb, o_st, o_sh};
+  const Operands a = operands(q, k, v, dout, lse, delta, key_mask, B, H, Tq,
+                              Tk, D, st, causal, q_off, k_off, scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hopper::compiled_width(D)) {
+    case 32: return launch_dkv_sm90<32>(a, dk, dv, s);
+    case 64: return launch_dkv_sm90<64>(a, dk, dv, s);
+    case 128: return launch_dkv_d128(a, dk, dv, s);
+    case 256: return launch_ws<256, false>(a, dk, dv, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

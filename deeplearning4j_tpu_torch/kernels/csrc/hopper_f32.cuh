@@ -1,6 +1,6 @@
 // hopper_f32.cuh: the Hopper (sm_90a) pieces of the float32 attention
-// kernels (flash_fwd.cu at head dims 32, 64, 128 and 256, flash_bwd.cu at
-// 64, 128 and 256, flash_wide.cu): float32 products on the tensor cores
+// kernels (flash_fwd.cu and flash_bwd.cu at head dims 32, 64, 128 and
+// 256, flash_wide.cu): float32 products on the tensor cores
 // as three TF32 `wgmma.mma_async` products each, f32 tiles by TMA, and the
 // split of an f32 operand into TF32 halves, in registers or a landed tile
 // at a time.
@@ -337,6 +337,17 @@ __device__ __forceinline__ void wgmma_3xtf32_ss(float (&d)[R],
     wgmma_tf32_ss(d, dah, desc_k_major_f32(bl, 2 * R, kk), 1);
     wgmma_tf32_ss(d, dah, dbh, 1);
   }
+}
+
+// Register-A fragments kept where they are up to this point: after the
+// wait of the products that read them (an asynchronous `wgmma` reads its
+// registers until its group is waited for).
+template <int KS>
+__device__ __forceinline__ void fence_fragments(uint32_t (&x)[KS][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(x[kk][i])::"memory");
 }
 
 // The split register-A fragments of all KS k8 slices of an f32

@@ -16,11 +16,11 @@ PyTorch version beside it:
   runs it on the ring, with the causal mask at global positions (query
   row i at q_offset + i, key j at k_offset + j). Plain version:
   `flash_attention_plain`.
-- `flash_bwd_dq` -> `csrc/flash_bwd.cu` (`flash_bwd_dq_f32`; at head
-  dims 64, 128 and 256 on the tensor cores, each float32 product as
-  three TF32 products) and `csrc/flash_bwd_bf16.cu` (`flash_bwd_dq_bf16`;
-  `wgmma` + TMA at every width, at head dims 8 to 32 on 64B-swizzled
-  32-column tiles, every head dim on tensor maps of the true D),
+- `flash_bwd_dq` -> `csrc/flash_bwd.cu` (`flash_bwd_dq_f32`; on the
+  tensor cores at every width, each float32 product as three TF32
+  products) and `csrc/flash_bwd_bf16.cu` (`flash_bwd_dq_bf16`; `wgmma` +
+  TMA at every width, at head dims 8 to 32 on 64B-swizzled 32-column
+  tiles), both on tensor maps of the true D at every head dim up to 256,
   replacing `_bwd_dq_kernel` (:226-273, `pallas_call` :366); plain
   version `flash_bwd_dq_plain`.
 - `flash_bwd_dkv` -> `csrc/flash_bwd.cu` (`flash_bwd_dkv_f32`, likewise)
@@ -86,19 +86,16 @@ dim D, by the reference's rule (`_plan`, :492-502: its kernel runs every
 D % 8 == 0, and only D % 8 != 0 goes to its plain path), stated once in
 `kernel_head_dim`:
 
-- D % 8 == 0, D <= 256: a hand kernel, at the compiled width Dp, the
-  next of 16, 32, 64, 128 and 256 (the C entries run 8 to 32 at 32). The
-  forward (f32 and bf16) and the bf16 backward pair read the caller's q,
-  k, v (and dO) through tensor maps D columns wide (TMA fills the columns
-  past D with zeros, which add nothing to a score) and write out, dq, dk
-  and dv D columns wide: no copy and no padded route. The f32 backward
-  pair takes q, k, v and dO zero-padded to Dp at the true D's scale, 1 /
-  sqrt(D): zero columns give zero output columns and leave rowsum(dO o
-  O) as it is, so the result is exact up to the order of sums; dq, dk
-  and dv come back sliced to D. Such a call counts one `<kernel>_padded`
-  in `route_counts()` besides its launch. The decode kernels take the
-  runtime D and guard their columns (padding the cache would copy it on
-  every step).
+- D % 8 == 0, D <= 256: a hand kernel, which the C entry runs at the
+  compiled width for D (`hopper::compiled_width`: 32 for D = 8 to 32,
+  else the next of 64, 128 and 256). Every attention entry, the forward
+  and the backward pair in f32 and bf16, reads the caller's q, k, v (and
+  dO) through tensor maps D columns wide (TMA fills the columns past D
+  with zeros, which add nothing to a score) at the true D's scale, 1 /
+  sqrt(D), and writes out, dq, dk and dv dense and D columns wide: no
+  entry pads or slices, and a call is one kernel. The decode kernels
+  take the runtime D and guard their columns (padding the cache would
+  copy it on every step).
 - D % 8 == 0, D > 256: the wide kernels of `csrc/flash_wide.cu`
   (forward with or without the LSE, dq, dk/dv; float32 and bfloat16), the
   head dim a runtime value, nothing padded. Such a call counts one
@@ -135,8 +132,9 @@ from ..parallel.ring_attention import (NEG_INF, attention_reference,
                                        masked_scores, widen)
 from . import build
 
-# the widths the kernels are compiled at; a head dim runs at the next one,
-# and past the last at its own width on the wide kernels
+# the head-dim classes `kernel_head_dim` rounds up to (the C entries run
+# every class up to 32 on the width-32 kernels, `hopper::compiled_width`);
+# past the last a head dim runs at its own width on the wide kernels
 HEAD_DIMS = (16, 32, 64, 128, 256)
 WIDEST_COMPILED = HEAD_DIMS[-1]
 
@@ -187,16 +185,12 @@ _launches = dict.fromkeys(
      "flash_wide_dkv_bf16"), 0)
 _ENTRY_ROUTES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                  "flash_decode", "flash_decode_paged")
-# the kernels that take a head dim below WIDEST_COMPILED zero-padded to
-# its compiled width: the f32 backward pair
-_PADDED_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
-# calls a CUDA tensor made at a head dim the kernels take padded, at one
-# the wide kernels take, and at one the reference runs plainly; float16
-# calls (upcast), bfloat16 decode calls (the bf16 forward) and paged calls
-# whose pool the paged kernel cannot read (gathered first)
+# calls a CUDA tensor made at a head dim the wide kernels take and at one
+# the reference runs plainly; float16 calls (upcast), bfloat16 decode
+# calls (the bf16 forward) and paged calls whose pool the paged kernel
+# cannot read (gathered first)
 _routes = dict.fromkeys(
-    [f"{k}_padded" for k in _PADDED_KERNELS]
-    + [f"{k}_wide" for k in _ATTENTION_NAMES
+    [f"{k}_wide" for k in _ATTENTION_NAMES
        + ("flash_decode", "flash_decode_paged")]
     + [f"{k}_plain_by_shape" for k in _ENTRY_ROUTES]
     + [f"{k}_f16" for k in _ENTRY_ROUTES]
@@ -233,9 +227,9 @@ def kernel_head_dim(D):
     (`_plan` :492-502 runs its kernel for every D % 8 == 0): the next of
     HEAD_DIMS up to WIDEST_COMPILED, D itself above it (the wide kernels'
     runtime width); None for D % 8 != 0, which the reference routes to its
-    plain path. The forward and the bf16 backward pair run at this width
-    on the true D's memory (`_forward_launch`, `_bwd_width`); the f32
-    backward pair takes operands zero-padded to it."""
+    plain path. Up to WIDEST_COMPILED every attention entry runs its
+    kernel on the true D's memory; the C entries pick the compiled width
+    themselves (`hopper::compiled_width`)."""
     if D < 1 or D % 8:
         return None
     if D > WIDEST_COMPILED:
@@ -255,22 +249,8 @@ def _plain_by_shape(kernel):
     _routes[f"{kernel}_plain_by_shape"] += 1
 
 
-def _pad_head(t, Dp):
-    """t zero-padded along the head dim to Dp columns (a new dense
-    tensor): the f32 backward pair's operands (every other attention
-    kernel reads the true D)."""
-    return torch.nn.functional.pad(t, (0, Dp - t.shape[-1]))
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
-
-
-def _unpad(name, D, *outs):
-    """The f32 backward pair's padded outputs sliced to the true head dim
-    D (dense), the call counted under `<name>_padded`."""
-    _routes[f"{name}_padded"] += 1
-    return tuple(t[..., :D].contiguous() for t in outs)
 
 
 def _offset(x):
@@ -600,21 +580,12 @@ def flash_attention_bwd_plain(q, k, v, out, lse, g, *, causal=False,
             torch.einsum("bhqk,bqhd->bkhd", p, widen(g)).to(v.dtype))
 
 
-def _bwd_width(dtype, D, Dp):
-    """The head dim the backward kernels read and write for operands of
-    `dtype` at true head dim D and compiled width Dp: the true D for
-    bfloat16 (its kernels read tensor maps D columns wide, zero-filled past
-    D by TMA, and write D columns), Dp for float32 (its operands are
-    zero-padded to Dp and its outputs sliced back)."""
-    return D if dtype == torch.bfloat16 else Dp
-
-
-def _bwd_operands(q, k, v, g, lse, delta, key_mask, W):
+def _bwd_operands(q, k, v, g, lse, delta, key_mask):
     """Checks shared by the two backward launches (after `_bwd_route`'s);
     returns (q, k, v, g, lse, delta, key mask) in the layouts the kernels
-    read, q, k, v and g at head dim W (`_bwd_width`): zero-padded to it
-    where it is wider than theirs, the caller's own tensors where their rows
-    suit the kernels (`_aligned`)."""
+    read: q, k, v and g the caller's own tensors at their own head dim
+    where their rows suit the kernels (`_aligned`), which read them through
+    tensor maps D columns wide."""
     B, Tq, H, D = q.shape
     if g.stride(-1) != 1:           # e.g. an expanded cotangent: stride 0
         g = g.contiguous()
@@ -623,16 +594,14 @@ def _bwd_operands(q, k, v, g, lse, delta, key_mask, W):
                 or t.device != q.device:
             raise ValueError(f"{name} must be float32 {(B, H, Tq)} on "
                              f"{q.device}, got {tuple(t.shape)} {t.dtype}")
-    ops = (q, k, v, g)
-    if W != D:
-        ops = (_pad_head(t, W) for t in ops)
-    return (*map(_aligned, ops), lse.contiguous(), delta.contiguous(),
+    return (*map(_aligned, (q, k, v, g)), lse.contiguous(), delta.contiguous(),
             _prep_key_mask(key_mask, B, k.shape[1], q.device))
 
 
-def _bwd_rest(q, k, v, g, W, causal, q_offset, k_offset, scale):
+def _bwd_rest(q, k, v, g, causal, q_offset, k_offset, scale):
     """The backward entries' arguments after B and H."""
-    return (q.shape[1], k.shape[1], W, *_bhd_strides(q), *_bhd_strides(k),
+    return (q.shape[1], k.shape[1], q.shape[3], *_bhd_strides(q),
+            *_bhd_strides(k),
             *_bhd_strides(v), *_bhd_strides(g), int(bool(causal)), q_offset,
             k_offset, scale)
 
@@ -655,10 +624,8 @@ def flash_bwd_dq(q, k, v, g, lse, delta, *, causal=False, scale=None,
                  key_mask=None, q_offset=0, k_offset=0):
     """dq [B, Tq, H, D] in q's type: the dq kernel (f32 or bf16; float16
     operands upcast) for CUDA tensors, `flash_bwd_dq_plain` for CPU
-    tensors. g is dO; lse and delta are [B, H, Tq] float32. The bf16
-    kernel reads q, k, v and dO at their own head dim and writes dq at it;
-    the f32 kernel takes them zero-padded to the compiled width, and dq is
-    sliced back (`_bwd_width`)."""
+    tensors. g is dO; lse and delta are [B, H, Tq] float32. Either kernel
+    reads q, k, v and dO at their own head dim and writes dq at it."""
     q_offset, k_offset = _offset(q_offset), _offset(k_offset)
     kw = dict(causal=causal, scale=scale, key_mask=key_mask,
               q_offset=q_offset, k_offset=k_offset)
@@ -671,24 +638,22 @@ def flash_bwd_dq(q, k, v, g, lse, delta, *, causal=False, scale=None,
         return flash_bwd_dq(*_upcast_f16("flash_bwd_dq", q, k, v, g), lse,
                             delta, **kw).half()
     B, Tq, H, D = q.shape
-    scale = _scale(scale, D)            # the true head dim's, before padding
-    W = _bwd_width(q.dtype, D, Dp)
+    scale = _scale(scale, D)
     q, k, v, g, lse, delta, km = _bwd_operands(q, k, v, g, lse, delta,
-                                               key_mask, W)
+                                               key_mask)
     fn, name = _entry("flash_bwd_dq", q.dtype, Dp)
-    dq = torch.empty((B, Tq, H, W), dtype=q.dtype, device=q.device)
+    dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     _launch(fn, name, q.device, *map(_ptr, (q, k, v, g, lse, delta, km, dq)),
-            B, H, *_bwd_rest(q, k, v, g, W, causal, q_offset, k_offset,
-                             scale))
-    return dq if W == D else _unpad(name, D, dq)[0]
+            B, H, *_bwd_rest(q, k, v, g, causal, q_offset, k_offset, scale))
+    return dq
 
 
 def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal=False, scale=None,
                   key_mask=None, q_offset=0, k_offset=0):
     """(dk, dv) [B, Tk, H, D] in k's type: the dk/dv kernel (f32 or bf16;
     float16 operands upcast) for CUDA tensors, `flash_bwd_dkv_plain` for
-    CPU tensors. As `flash_bwd_dq`, the bf16 kernel at the operands' own
-    head dim, the f32 one at the compiled width."""
+    CPU tensors. As `flash_bwd_dq`, either kernel at the operands' own
+    head dim."""
     q_offset, k_offset = _offset(q_offset), _offset(k_offset)
     kw = dict(causal=causal, scale=scale, key_mask=key_mask,
               q_offset=q_offset, k_offset=k_offset)
@@ -702,18 +667,17 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, *, causal=False, scale=None,
                                lse, delta, **kw)
         return dk.half(), dv.half()
     B, Tq, H, D = q.shape
-    scale = _scale(scale, D)            # the true head dim's, before padding
-    W = _bwd_width(q.dtype, D, Dp)
+    scale = _scale(scale, D)
     q, k, v, g, lse, delta, km = _bwd_operands(q, k, v, g, lse, delta,
-                                               key_mask, W)
+                                               key_mask)
     fn, name = _entry("flash_bwd_dkv", q.dtype, Dp)
     Tk = k.shape[1]
-    dk = torch.empty((B, Tk, H, W), dtype=k.dtype, device=q.device)
-    dv = torch.empty((B, Tk, H, W), dtype=v.dtype, device=q.device)
+    dk = torch.empty((B, Tk, H, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, Tk, H, D), dtype=v.dtype, device=q.device)
     _launch(fn, name, q.device,
             *map(_ptr, (q, k, v, g, lse, delta, km, dk, dv)), B, H,
-            *_bwd_rest(q, k, v, g, W, causal, q_offset, k_offset, scale))
-    return (dk, dv) if W == D else _unpad(name, D, dk, dv)
+            *_bwd_rest(q, k, v, g, causal, q_offset, k_offset, scale))
+    return dk, dv
 
 
 def flash_attention_bwd(q, k, v, out, lse, g, *, causal=False, scale=None,
@@ -932,9 +896,9 @@ def launch_counts():
 
 
 def route_counts():
-    """{"<kernel>_padded": calls of the f32 backward pair at a padded head
-    dim, "<kernel>_wide":
-    calls at a head dim above WIDEST_COMPILED, "<entry>_plain_by_shape":
+    """{"<kernel>_wide": calls at a head dim above WIDEST_COMPILED
+    (no entry pads: every head dim up to it runs on its own memory),
+    "<entry>_plain_by_shape":
     calls run plainly because the reference does, "<entry>_f16": float16
     calls (upcast), "flash_decode[_paged]_bf16": bfloat16 decode calls
     (the bf16 forward), "flash_decode_paged_gather": float32 paged calls

@@ -26,7 +26,7 @@ kernels. The kernels cannot run here, so this file holds two things:
    `flash_attention_lse` with its Pallas kernels in interpret mode (f32
    arithmetic on upcast tiles, one rounding to bf16), at chip_smoke.py's
    bf16 bars; and the entries' arguments: the true D, the caller's q, k, v
-   and dO, no `_pad_head` or `_unpad` call, no `_padded` route.
+   and dO, no padding helper or pad call, no `_padded` route.
 2. A model of the kernels' memory traffic: what TMA leaves in each box
    of a map D columns wide, the blocks' sums over those tiles in float32
    (the kernels' walks and ownership), and the clipped stores into a
@@ -48,7 +48,8 @@ from deeplearning4j_tpu.kernels.flash_attention import (
     flash_attention as jax_flash_attention,
     flash_attention_lse as jax_flash_attention_lse)
 
-from test_torch_head_dims import calls, _true_d_refuses  # noqa: F401
+from test_torch_head_dims import (calls, _true_d_refuses,  # noqa: F401
+                                  spy_padding)
 
 fa = importlib.import_module("deeplearning4j_tpu_torch.kernels.flash_attention")
 
@@ -143,16 +144,12 @@ def test_bf16_gradients_at_padded_head_dims_match_jax(calls, D, case):
 @pytest.mark.parametrize("D", PADDED)
 def test_bf16_backward_entries_take_the_callers_memory(calls, monkeypatch,
                                                        D):
-    """`flash_bwd_dq` / `flash_bwd_dkv` on bf16 operands: no `_pad_head`
-    and no `_unpad` call; the entries receive the true D, the caller's
+    """`flash_bwd_dq` / `flash_bwd_dkv` on bf16 operands: no padding
+    helper and no `torch.nn.functional.pad` call; the entries receive the true D, the caller's
     own q, k, v and dO (dense, so no `_aligned` copy) with their strides,
     and dq, dk, dv come back as the entries wrote them, [B, T, H, D]
     dense; equal to the plain versions within BF16_GRAD_TOL."""
-    seen = []
-    for name in ("_pad_head", "_unpad"):
-        real = getattr(fa, name)
-        monkeypatch.setattr(fa, name, lambda *a, _n=name, _r=real: (
-            seen.append(_n), _r(*a))[1])
+    seen = spy_padding(monkeypatch)
     rng = np.random.default_rng(D)
     B, Tq, Tk, H = 2, 9, 14, 3
     q, g = (_bf16_pair(rng, (B, Tq, H, D))[1] for _ in range(2))

@@ -220,23 +220,20 @@ def test_wide_bwd_bf16_turn_times_the_bf16_kernels_at_the_same_shapes():
     assert [r["case"] for r in recs] == [c[0] for c in chip_ab.WIDE_BWD]
 
 
-def test_rank_turn_takes_each_kernel_not_yet_redesigned_once():
-    """`run ROOT LABEL rank` times the f32 pair at D=16 and 32 at the train
-    case with H * D = 256; the f32 forward, the f32 pair at D=128 and 256,
-    the bf16 pair at D=16 and 32 and both wide pairs are redesigned, so no
-    forward, no bf16 case, no D=128 or 256 and nothing wide (the bf16
-    forward at D=16 and 32 is timed by `d32_fwd_bf16`'s `_forward_case`
-    and `d32_bwd_bf16`'s `_bf16_case`)."""
-    assert chip_ab.RANK == [("bwd", 16), ("bwd", 32)]
-    assert all(256 % D == 0 for _, D in chip_ab.RANK)
+def test_rank_turn_takes_each_kernel_not_yet_redesigned_once(capsys):
+    """`run ROOT LABEL rank` times each kernel no PR has redesigned yet:
+    none is left (the f32 pair at D=32, and D=8 to 24 on it, was the last
+    on its first design; `d32_bwd_f32` times it now), so RANK is empty and
+    the turn says so and times nothing: no forward, no pair, nothing
+    wide."""
+    assert chip_ab.RANK == []
     assert not hasattr(chip_ab, "RANK_WIDE")
-    calls = []
     cs = SimpleNamespace(
         _fwd_case=lambda *a, **k: pytest.fail("the f32 forward"),
-        _bwd_case=lambda *a, **k: calls.append(("bwd", a[5])) or [],
-        _bf16_case=lambda *a, **k: calls.append(("bf16", a[5])) or [])
-    chip_ab._rank(cs)
-    assert calls == chip_ab.RANK
+        _bwd_case=lambda *a, **k: pytest.fail("the f32 pair"),
+        _bf16_case=lambda *a, **k: pytest.fail("the bf16 kernels"))
+    assert chip_ab._rank(cs) == []
+    assert "nothing to time" in capsys.readouterr().out
 
 
 def test_d256_turn_takes_chip_smokes_d256_cases_and_a_long_one():
@@ -564,10 +561,100 @@ def test_padded_fwd_turn_takes_both_forwards_beside_their_compiled_widths():
     assert len(recs) == len(want) + 4
 
 
+def _bwd_turn_calls(monkeypatch, run_set):
+    """The `_bwd_case` calls, `_entry_calls` calls and `_lse_case` calls a
+    backward set makes on a stub checkout, and its records."""
+    import torch
+    cases, entry, lse = [], [], []
+
+    def bwd_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
+        cases.append((label, B, Tq, Tk, H, D, causal, valid, repeat))
+        return [{"name": "flash_bwd_dq", "case": label},
+                {"name": "flash_bwd_dkv", "case": label}]
+
+    def entry_calls(cs, dtype, B, Tq, Tk, H, D, causal, valid, gen):
+        assert dtype == torch.float32
+        entry.append((B, Tq, Tk, H, D, causal, valid))
+        return {"flash_bwd_dq": {"kernels_per_call": 1, "peak_mib": 1.0},
+                "flash_bwd_dkv": {"kernels_per_call": 1, "peak_mib": 2.0}}
+
+    def lse_case(label, dtype, B, T, H, D, offs, valid, gen):
+        assert dtype == torch.float32 and valid is None
+        lse.append((label, B, T, H, D, offs))
+        return [{"case": label}]
+    monkeypatch.setattr(chip_ab, "_entry_calls", entry_calls)
+    recs = run_set(SimpleNamespace(_bwd_case=bwd_case, _lse_case=lse_case))
+    return cases, entry, lse, recs
+
+
+def test_d32_bwd_f32_turn_takes_chip_smokes_d32_f32_cases(monkeypatch):
+    """`run ROOT LABEL d32_bwd_f32` times the f32 pair through `_bwd_case`
+    at chip_smoke's D32_F32_CASES, in order (the train case at D=32 and
+    D=16 with H * D = 256, D=24 and 8 ragged, Tq=37 Tk=53, the model's
+    shape, the long case, the head-count case), each record with its
+    entry's kernels a call and peak MiB (`_entry_calls` at the same
+    shape); then `_lse_case` in float32 on D32_LSE under each of
+    D32_LSE_OFFSETS."""
+    import chip_smoke
+    assert chip_ab.D32_BWD_F32 == chip_smoke.D32_F32_CASES
+    conf = chip_smoke.BENCH_PAGED_MODEL
+    model = [c for c in chip_ab.D32_BWD_F32 if "model" in c[0]]
+    assert [c[1:6] for c in model] == [(
+        chip_smoke.WIDE_BATCH, chip_smoke.WIDE_SEQ, chip_smoke.WIDE_SEQ,
+        conf["n_heads"], conf["d_model"] // conf["n_heads"])]
+    train = [c for c in chip_ab.D32_BWD_F32 if "train" in c[0]]
+    assert [c[4] * c[5] for c in train] == [256, 256]
+    assert [c[5] for c in chip_ab.D32_BWD_F32] == [32, 16, 24, 8, 32, 32, 32,
+                                                   32]
+    cases, entry, lse, recs = _bwd_turn_calls(monkeypatch,
+                                              chip_ab._d32_bwd_f32)
+    assert cases == chip_ab.D32_BWD_F32
+    assert entry == [c[1:8] for c in chip_ab.D32_BWD_F32]
+    Bl, Tl, Hl, Dl = chip_smoke.D32_LSE
+    assert lse == [(lab, Bl, Tl, Hl, Dl, offs)
+                   for lab, offs in chip_smoke.D32_LSE_OFFSETS]
+    assert [r.get("kernels_per_call") for r in recs[:2]] == [1, 1]
+    assert [r.get("peak_mib") for r in recs[:2]] == [1.0, 2.0]
+    assert len(recs) == 2 * len(cases) + len(lse)
+
+
+def test_padded_bwd_f32_turn_takes_each_padded_dim_beside_its_width(
+        monkeypatch):
+    """`run ROOT LABEL padded_bwd_f32` times the f32 pair through
+    `_bwd_case` at B=2 T=200 H=4 causal with a ragged key mask at every
+    padded head dim of PADDED_BWD_BF16, at D=48, 80 and 192 and at each
+    compiled width (32, 64, 128, 256), head dims ascending, then the long
+    B=4 T=4096 H=8 at D=96 (bitwise twice more) beside D=128, each with
+    `_entry_calls`; then `flash_attention_lse` in float32 at B=1 T=1024
+    H=2 on the diagonal, past and 0/512 offsets at D=136 and 256."""
+    dims = (8, 24, 32, 40, 48, 56, 64, 72, 80, 96, 120, 128, 136, 192, 200,
+            248, 256)
+    want = [*((f"D={d} B=2 T=200 H=4, ragged key mask", 2, 200, 200, 4, d,
+               True, [200, 137], False) for d in dims),
+            ("D=96 long B=4 T=4096 H=8", 4, 4096, 4096, 8, 96, True, None,
+             True),
+            ("D=128 long B=4 T=4096 H=8", 4, 4096, 4096, 8, 128, True, None,
+             False)]
+    assert chip_ab.PADDED_BWD_F32 == want
+    # every padded head dim of the bf16 set is among them
+    bf16 = {c[5] for c in chip_ab.PADDED_BWD_BF16}
+    assert bf16 <= {c[5] for c in want}
+    cases, entry, lse, recs = _bwd_turn_calls(monkeypatch,
+                                              chip_ab._padded_bwd_f32)
+    assert cases == want
+    assert entry == [c[1:8] for c in want]
+    assert lse == [(f"D={d} {name}", 1, 1024, 2, d, offs) for d in (136, 256)
+                   for name, offs in (("diagonal", (1024, 1024)),
+                                      ("past", (1024, 0)),
+                                      ("rows without keys", (0, 512)))]
+    assert len(recs) == 2 * len(want) + 6
+
+
 @pytest.mark.parametrize("dtype", ["wide", "wide_bwd", "wide_bwd_bf16",
                                    "d256", "d256_bwd", "rank", "d128_bwd",
                                    "d32_bwd_bf16", "d32_fwd_bf16",
-                                   "padded_bwd_bf16", "padded_fwd"])
+                                   "padded_bwd_bf16", "padded_fwd",
+                                   "d32_bwd_f32", "padded_bwd_f32"])
 def test_wide_and_rank_turns_refuse_without_a_card(dtype):
     res = subprocess.run([sys.executable, str(ROOT / "chip_ab.py"), "run",
                           str(ROOT), "change", dtype], capture_output=True,

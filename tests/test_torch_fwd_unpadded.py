@@ -61,7 +61,8 @@ from deeplearning4j_tpu.kernels.flash_attention import (
 from test_torch_bwd_bf16_unpadded import (BF16_LSE_TOL, BF16_OUT_TOL,
                                           PADDED, _bf16_pair, _key_mask,
                                           compiled_width, store_box)
-from test_torch_head_dims import FWD_TOL, calls, _true_d_refuses  # noqa: F401
+from test_torch_head_dims import (FWD_TOL, calls,  # noqa: F401
+                                  _true_d_refuses, spy_padding)
 
 fa = importlib.import_module("deeplearning4j_tpu_torch.kernels.flash_attention")
 
@@ -100,13 +101,10 @@ def _close(got, want, dtype, what):
 
 
 def _spy_padding(monkeypatch):
-    """The names of `_pad_head` / `_unpad` calls from here on."""
-    seen = []
-    for name in ("_pad_head", "_unpad"):
-        real = getattr(fa, name)
-        monkeypatch.setattr(fa, name, lambda *a, _n=name, _r=real: (
-            seen.append(_n), _r(*a))[1])
-    return seen
+    """The padding calls from here on (test_torch_head_dims.py's
+    `spy_padding`: the wrapper holds no padding helper, and each
+    `torch.nn.functional.pad` call is recorded)."""
+    return spy_padding(monkeypatch)
 
 
 def _entry(dtype):
@@ -239,9 +237,8 @@ def test_the_autograd_forward_reads_the_true_head_dim(calls, monkeypatch, D,
                                                       dtype):
     """Under grad mode `flash_attention` runs FlashAttentionLSEFunction,
     whose forward asks the entry for the LSE at the true D with no pad or
-    slice; its backward is as before: the f32 pair pads its four operands
-    and slices its outputs (`_padded` routes counted), the bf16 pair reads
-    the true D."""
+    slice; its backward likewise: both pairs, f32 and bf16, read the true
+    D, with no pad and no route counted."""
     seen = _spy_padding(monkeypatch)
     rng = np.random.default_rng(D)
     q, k, v, g = (_pair(rng, (2, 10, 2, D), dtype)[1] for _ in range(4))
@@ -252,11 +249,13 @@ def test_the_autograd_forward_reads_the_true_head_dim(calls, monkeypatch, D,
     assert args[5] is not None and args[4] == out.data_ptr()
     assert seen == [] and not any(fa.route_counts().values())
     out.backward(g)
-    f32 = dtype == "float32"
-    assert seen == ((["_pad_head"] * 4 + ["_unpad"]) * 2 if f32 else [])
-    assert {n: c for n, c in fa.route_counts().items() if c} == (
-        {"flash_bwd_dq_padded": 1, "flash_bwd_dkv_padded": 1} if f32
-        else {})
+    assert seen == []
+    assert [c[0] for c in calls[1:]] == [
+        f"flash_bwd_{k}_{'f32' if dtype == 'float32' else 'bf16'}"
+        for k in ("dq", "dkv")]
+    assert [args[12 + (s.startswith("flash_bwd_dkv"))]
+            for s, args in calls[1:]] == [D, D]
+    assert not any(fa.route_counts().values())
 
 
 def test_bf16_decode_route_reads_the_cache_at_head_dim_48(calls,

@@ -3,11 +3,11 @@
 The reference runs its Pallas kernel for every head dim D % 8 == 0
 (`_plan`, deeplearning4j_tpu/kernels/flash_attention.py:492-502) and its
 plain path for the rest. The port on a CUDA tensor runs a hand kernel for
-every D % 8 == 0: up to 256 the attention kernels at the next compiled
-width Dp (16, 32, 64, 128, 256), the forward (f32 and bf16) and the bf16
-backward pair on the caller's tensors at the true D, the f32 backward
-pair on operands zero-padded to Dp at the scale of the true D, and the
-decode kernels at the true D; above 256 the wide kernels
+every D % 8 == 0: up to 256 the attention kernels, which the C entries
+run at the compiled width for D (32, 64, 128 or 256), every entry (the
+forward and the backward pair, f32 and bf16) on the caller's tensors at
+the true D and its scale, and the decode kernels at the true D; above
+256 the wide kernels
 (csrc/flash_wide.cu) at the true D, the decode entries through the wide
 forward under the key mask `position < lengths`. D % 8 != 0 takes the
 plain version, counted. Any batch and head count is one launch (a
@@ -21,7 +21,8 @@ entries, and for the decode entries a model of the decode kernels' own
 order of sums (`kernel_model`: the split of a (slot, head) over n CTAs in
 whole key units, the warps' online softmax over their steps, the warps'
 merge, then the CTAs' merge in rank order). The wrapper around it (the
-rule, the padding, the slicing) is the code under test, against the JAX
+rule, the operands and outputs it hands over) is the code under test,
+against the JAX
 package run as its own tests run it (Pallas in interpret mode, or its
 plain path where `_plan` gives none). Tolerances: the forward 1e-5 and the
 backward rtol 2e-4 / atol 2e-5 (tests/test_kernels.py's bars for the
@@ -180,11 +181,24 @@ CUDA_ERROR_INVALID_VALUE = 1
 
 
 def _true_d_refuses(D):
-    """Whether the C entries that read the true head dim (both forwards
-    and the bf16 backward pair) refuse head dim D, as their switch does:
-    they take every D % 8 == 0 from 8 to 256 (`hopper::compiled_width` in
-    csrc/hopper_bf16.cuh)."""
+    """Whether the C entries of the compiled widths (both forwards and
+    both backward pairs, all of which read the true head dim) refuse head
+    dim D, as their switch does: they take every D % 8 == 0 from 8 to 256
+    (`hopper::compiled_width` in csrc/hopper_bf16.cuh)."""
     return D < 8 or D > 256 or D % 8 != 0
+
+
+def spy_padding(monkeypatch):
+    """The wrapper holds no padding helper (`_pad_head`, `_unpad`) any
+    more; returns the list of `torch.nn.functional.pad` calls from here on
+    (each recorded as "pad"), so that a test can show that no entry pads
+    its operands."""
+    assert not hasattr(fa, "_pad_head") and not hasattr(fa, "_unpad")
+    seen = []
+    real = torch.nn.functional.pad
+    monkeypatch.setattr(torch.nn.functional, "pad",
+                        lambda *a, **k: (seen.append("pad"), real(*a, **k))[1])
+    return seen
 
 
 def _attention_dq(dtype, refuses=lambda D: False):
@@ -253,9 +267,9 @@ def _paged_entry(q, kpool, vpool, table, lengths, out, S, H, MB, bs, D, n,
 ENTRIES = {
     "flash_fwd_f32": _attention_fwd(torch.float32, _true_d_refuses),
     "flash_fwd_bf16": _attention_fwd(torch.bfloat16, _true_d_refuses),
-    "flash_bwd_dq_f32": _attention_dq(torch.float32),
+    "flash_bwd_dq_f32": _attention_dq(torch.float32, _true_d_refuses),
     "flash_bwd_dq_bf16": _attention_dq(torch.bfloat16, _true_d_refuses),
-    "flash_bwd_dkv_f32": _attention_dkv(torch.float32),
+    "flash_bwd_dkv_f32": _attention_dkv(torch.float32, _true_d_refuses),
     "flash_bwd_dkv_bf16": _attention_dkv(torch.bfloat16, _true_d_refuses),
     "flash_wide_fwd_f32": _attention_fwd(torch.float32),
     "flash_wide_fwd_bf16": _attention_fwd(torch.bfloat16),
@@ -379,21 +393,18 @@ def test_padded_attention_and_its_gradient_match_jax(calls, D, causal,
         assert tuple(a.shape) == np.shape(b)
         np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
                                    **BWD_TOL)
-    # the forward got the true D, the f32 pair the compiled width's
-    # columns, all three the true D's scale
-    Dp = fa.kernel_head_dim(D)
+    # the forward and the f32 pair all got the true D and its scale, and
+    # no route holds a padded call
     assert [c[0] for c in calls] == ["flash_fwd_f32", "flash_bwd_dq_f32",
                                      "flash_bwd_dkv_f32"]
-    assert [args[_d_at(s)] for s, args in calls] == [D, Dp, Dp]
+    assert [args[_d_at(s)] for s, args in calls] == [D, D, D]
     for symbol, args in calls:
         assert args[-2] == pytest.approx(1 / np.sqrt(D)), symbol
-    padded = D != Dp
-    assert "flash_fwd_padded" not in fa.route_counts()
-    assert fa.route_counts() == {
-        **dict.fromkeys(fa.route_counts(), 0),
-        **({"flash_bwd_dq_padded": 1, "flash_bwd_dkv_padded": 1}
-           if padded else {})}
+    assert not any(n.endswith("_padded") for n in fa.route_counts())
+    assert not any(fa.route_counts().values())
     assert fa.launch_counts()["flash_fwd"] == 1
+    assert fa.launch_counts()["flash_bwd_dq"] == 1
+    assert fa.launch_counts()["flash_bwd_dkv"] == 1
 
 
 def test_head_dim_24_runs_the_kernel_on_the_true_head_dim(calls):
