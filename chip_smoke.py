@@ -367,9 +367,44 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    atol=2e-5); 10 launches each of the three float32 kernels. Prints the
    forward + backward time of ring n=4, ring n=1, `flash_attention` on
    the whole sequence and SDPA (`{"ring": ...}`).
-8. Every main path (serving, serving_paged, serving_d32,
-   serving_d32_paged, training, training_bf16, ring, ring_f32, the D=320
-   model's training_wide, training_wide_bf16, decode_wide,
+8. ResNet-50 (`phase_resnet50`), trained through `fit`: first the JAX
+   fixture tests/fixtures/torch_port_resnet_small.json, the small ResNet
+   graph of tests/test_torch_resnet.py (the stem, a projecting and an
+   identity bottleneck block of filters 8/8/32, 17 x 17, 10 classes,
+   batch 6), 3 `fit` steps, which run every layer's backward and
+   Nesterovs' momentum: float32 (TF32 off) scores, running statistics and
+   `output` after within allclose(rtol=1e-4, atol=1e-5) of JAX's `fit`,
+   each update p_3 - p_0 within 1e-4 (Frobenius); bf16 no further from
+   JAX's eager bf16 steps than 1.5 times JAX bf16's own distance to its
+   float32 steps. Then the JAX fixture
+   tests/fixtures/torch_port_resnet50.json (full depth at 64 x 64,
+   Nesterovs(0.05, 0.9), synthetic weights and running statistics): the
+   float32 run (batch 4, 3 steps, TF32 off) and the bf16 run at batch 32
+   (1 step), each first score and every running statistic's L2 norm after
+   the first step within SCORE_RTOL / BF16_SCORE_RTOL of JAX's, the f32
+   `output` after its 3 steps within atol = rtol = SCORE_RTOL; the bf16
+   run at batch 4, the later scores and every parameter's first update
+   (its L2 norm) reported beside JAX's own move under an input scaled by
+   1 + 1e-6, not gated (ill-conditioned at full depth:
+   tests/test_torch_resnet_fixture.py); every score and update finite,
+   the second score below the first, `output` rows of probabilities.
+   Then path resnet50:
+   bench.py's `bench_resnet50` configuration, `resnet50(num_classes=1000,
+   image_size=224)`, bf16 compute, Nesterovs(0.05, 0.9), a batch of 256
+   from np.random.default_rng(0) normals and one-hot labels, weights from
+   `synthetic_params(seed=0)` and `synthetic_states(seed=0)`: 5 `fit`
+   steps (the first a warm-up) with every count set to 0 just before
+   them; the score finite and falling, no hand kernel launched (the path
+   runs torch's convolution, pooling and elementwise ops, as the
+   reference runs XLA's), every parameter and running statistic on the
+   card in float32, the running statistics moved. Prints (`{"resnet50":
+   ...}` and a line beside the card's name and power limit) the step p50,
+   samples/s, `torch.cuda.max_memory_allocated`, one profiled step's
+   device busy share and top kernels, and the per-layer optimizers' host
+   time in one more step.
+9. Every main path (serving, serving_paged, serving_d32,
+   serving_d32_paged, training, training_bf16, ring, ring_f32, resnet50,
+   the D=320 model's training_wide, training_wide_bf16, decode_wide,
    decode_wide_paged, the D=256 model's training_d256 and decode_d256,
    the D=128 model's training_d128 and decode_d128, and
    bench_decode_paged's model's training_d32_bf16 and training_d32) must
@@ -404,6 +439,9 @@ ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_greedy.json"
 TRAIN_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_train.json"
 TRAIN_BF16_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_train_bf16.json"
+RESNET_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_resnet50.json"
+RESNET_SMALL_FIXTURE = ROOT / "tests" / "fixtures" \
+    / "torch_port_resnet_small.json"
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12      # H100 SXM f32 outside the tensor cores
 # f32-grade work on the tensor cores: three TF32 products (dense TF32 495
@@ -640,6 +678,11 @@ BENCH_PAGED_SERVE = dict(decode_slots=4, decode_max_len=128,
 RING_B, RING_T, RING_H, RING_D, RING_N = 4, 4096, 8, 64, 4
 RING_SHARD = RING_T // RING_N
 RING_F32 = dict(B=1, T=2048, H=4)
+# bench.py's bench_resnet50: ResNet-50 at full width and depth, batch 256
+# of 224 x 224 images, bf16 compute, Nesterovs(0.05, 0.9)
+RESNET = dict(num_classes=1000, image_size=224)
+RESNET_BATCH, RESNET_STEPS = 256, 5
+RESNET_LR, RESNET_MOMENTUM = 0.05, 0.9
 DEVICE = "cuda"
 
 
@@ -3415,6 +3458,417 @@ def phase_ring():
     return cases, summary
 
 
+# ------------------------------------------------------------------ phase 8
+def _resnet(compute_dtype, **model):
+    """`resnet50(**model)` on the card with Nesterovs(0.05, 0.9), weights
+    from `synthetic_params(seed=0)`, running statistics from
+    `synthetic_states(seed=0)`."""
+    from deeplearning4j_tpu_torch.nn.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.util.params import (params_from_jax,
+                                                      synthetic_params,
+                                                      synthetic_states)
+    from deeplearning4j_tpu_torch.zoo import resnet50
+    net = resnet50(**model, compute_dtype=compute_dtype, device=DEVICE,
+                   updater=Nesterovs(learning_rate=RESNET_LR,
+                                     momentum=RESNET_MOMENTUM))
+    return net.init(
+        params=params_from_jax(synthetic_params(net.param_shapes(), seed=0),
+                               device=DEVICE),
+        states=params_from_jax(synthetic_states(net.state_shapes(), seed=0),
+                               device=DEVICE))
+
+
+def _image_batch(batch, size, classes=1000):
+    """bench_resnet50's batch: np.random.default_rng(0) normals [batch,
+    size, size, 3] and one-hot labels of rng.integers(0, classes,
+    batch)."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(batch, size, size, 3)).astype(np.float32)
+    y = np.eye(classes, dtype=np.float32)[rng.integers(0, classes, batch)]
+    return x, y
+
+
+def _flat_tree(tree):
+    """{"layer/key": float64 numpy copy} of a tree of tensors."""
+    return {f"{n}/{k}": t.detach().double().cpu().numpy()
+            for n, ts in tree.items() for k, t in ts.items()}
+
+
+def _frob(a, b):
+    """Relative Frobenius gap of a to b."""
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _resnet_small(compute_dtype, model):
+    """tests/test_torch_resnet.py's small ResNet graph in the port on
+    DEVICE: the stem (7x7/2 convolution, batch norm, 3x3/2 max pooling),
+    one projecting block of stride 2 and one identity block of
+    `_resnet_conv_block` (filters `model["filters"]`), global average
+    pooling, a `model["classes"]`-class output layer, Nesterovs(0.05, 0.9);
+    weights from `synthetic_params(seed=0)`, running statistics from
+    `synthetic_states(seed=0)`."""
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.graph.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.util.params import (params_from_jax,
+                                                      synthetic_params,
+                                                      synthetic_states)
+    from deeplearning4j_tpu_torch.zoo.models import _resnet_conv_block
+    filters, size = tuple(model["filters"]), model["image_size"]
+    gb = (NeuralNetConfiguration.builder().seed(1)
+          .updater(Nesterovs(learning_rate=RESNET_LR,
+                             momentum=RESNET_MOMENTUM))
+          .weight_init("relu").compute_dtype(compute_dtype)
+          .graph_builder().add_inputs("in"))
+    gb.add_layer("stem_conv", L.ConvolutionLayer(
+        kernel_size=(7, 7), stride=(2, 2), n_out=filters[0],
+        activation="identity", convolution_mode="same", has_bias=False),
+        "in")
+    gb.add_layer("stem_bn", L.BatchNormalization(activation="relu"),
+                 "stem_conv")
+    gb.add_layer("stem_pool", L.SubsamplingLayer(
+        pooling_type="max", kernel_size=(3, 3), stride=(2, 2),
+        convolution_mode="same"), "stem_bn")
+    prev = _resnet_conv_block(gb, "s2b1", "stem_pool", filters, 2,
+                              project=True)
+    prev = _resnet_conv_block(gb, "s2b2", prev, filters, 1, project=False)
+    gb.add_layer("avgpool", L.GlobalPoolingLayer(pooling_type="avg"), prev)
+    gb.add_layer("out", L.OutputLayer(n_out=model["classes"],
+                                      activation="softmax", loss="MCXENT"),
+                 "avgpool")
+    gb.set_outputs("out")
+    gb.set_input_types(InputType.convolutional(size, size, 3))
+    net = ComputationGraph(gb.build(), device=DEVICE)
+    return net.init(
+        params=params_from_jax(synthetic_params(net.param_shapes(), seed=0),
+                               device=DEVICE),
+        states=params_from_jax(synthetic_states(net.state_shapes(), seed=0),
+                               device=DEVICE))
+
+
+# tests/test_torch_resnet.py's bars for the small graph
+SMALL_TOL = dict(rtol=1e-4, atol=1e-5)
+SMALL_UPDATE_TOL = 1e-4
+SMALL_BF16_RATIO = 1.5
+
+
+def _resnet_small_on_card():
+    """tests/fixtures/torch_port_resnet_small.json on DEVICE: the small
+    ResNet graph's 3 `fit` steps, which run every layer's backward
+    (convolution data and weight gradients, batch norm, max and global
+    pooling) and Nesterovs' momentum, held as tests/test_torch_resnet.py
+    holds the port on the CPU:
+    - float32 (TF32 off) against JAX's `fit`: every score, running
+      statistic and `output` after the steps within SMALL_TOL, every
+      parameter's update p_3 - p_0 within SMALL_UPDATE_TOL of JAX's in the
+      Frobenius norm;
+    - bf16 compute against JAX's steps taken eagerly in bf16: every
+      score, update, running statistic and `output` no further from them
+      than SMALL_BF16_RATIO times JAX bf16's own distance to JAX's eager
+      float32 steps (the card's bf16 products round otherwise than JAX's
+      on the CPU, and the gaps compound through the steps).
+    Returns the worst gaps and ratios (fails on a miss)."""
+    fixture = json.loads(RESNET_SMALL_FIXTURE.read_text())
+    model = fixture["model"]
+    check(model["param_seed"] == model["state_seed"] == 0
+          and model["data_seed"] == 0 and model["updater"] ==
+          f"Nesterovs({RESNET_LR}, {RESNET_MOMENTUM})",
+          "the small ResNet fixture differs from the trained graph")
+    x, y = _image_batch(model["batch"], model["image_size"],
+                        model["classes"])
+    runs = {}
+    for dtype in (None, "bfloat16"):
+        net = _resnet_small(dtype, model)
+        p0 = _flat_tree(net.params)
+        scores = []
+        for _ in range(model["steps"]):
+            net.fit(x, y)
+            scores.append(net.score_value)
+        runs[dtype] = {"scores": np.array(scores), "p0": p0,
+                       "params": _flat_tree(net.params),
+                       "states": _flat_tree(net.states),
+                       "output": net.output(x).double().cpu().numpy()}
+    flat = lambda run, part: {k: np.asarray(v, np.float64).reshape(
+        runs[None][part][k].shape) for k, v in run[part].items()}
+    report = {}
+    # float32 against JAX's fit
+    got, want = runs[None], fixture["float32"]
+    p0 = got["p0"]
+    check(sorted(got["params"]) == sorted(want["params"]) and
+          sorted(got["states"]) == sorted(want["states"]),
+          "the small graph's parameter or state keys differ from JAX's")
+    wp, ws = flat(want, "params"), flat(want, "states")
+    close = lambda a, b: bool(np.allclose(a, b, **SMALL_TOL))
+    checks = {"scores": close(got["scores"], want["scores"]),
+              "states": all(close(got["states"][k], ws[k]) for k in ws),
+              "output": close(got["output"], want["output"])}
+    upd = {k: _frob(got["params"][k] - p0[k], wp[k] - p0[k]) for k in wp}
+    checks["updates"] = max(upd.values()) <= SMALL_UPDATE_TOL
+    report["float32"] = {
+        "score_max_rel_gap": float(np.max(np.abs(
+            got["scores"] - want["scores"]) / np.abs(want["scores"]))),
+        "update_max_frob_gap": max(upd.values()),
+        "update_worst": max(upd, key=upd.get),
+        "state_max_abs_gap": max(float(np.max(np.abs(got["states"][k]
+                                                     - ws[k]))) for k in ws),
+        "output_max_abs_gap": float(np.max(np.abs(
+            got["output"] - np.asarray(want["output"])))),
+        "checks": checks}
+    # bf16 against JAX's eager bf16 steps, scaled by their distance to
+    # JAX's eager float32 steps
+    got, b, f = runs["bfloat16"], fixture["eager_bfloat16"], \
+        fixture["eager_float32"]
+    ratio = lambda g, bv, fv: _frob(g, bv) / _frob(bv, fv)
+    bp, fp, bs, fs = (flat(b, "params"), flat(f, "params"),
+                      flat(b, "states"), flat(f, "states"))
+    ratios = {"scores": max(abs(g - bv) / abs(bv - fv) for g, bv, fv in
+                            zip(got["scores"], b["scores"], f["scores"])),
+              "updates": max(ratio(got["params"][k] - p0[k], bp[k] - p0[k],
+                                   fp[k] - p0[k]) for k in bp),
+              "states": max(ratio(got["states"][k], bs[k], fs[k])
+                            for k in bs),
+              "output": ratio(got["output"], np.asarray(b["output"]),
+                              np.asarray(f["output"]))}
+    report["bfloat16"] = {"ratios": ratios, "bar": SMALL_BF16_RATIO,
+                          "scores": got["scores"].tolist(),
+                          "scores_jax_bf16": b["scores"],
+                          "scores_jax_f32": f["scores"]}
+    failed = [k for k, ok in checks.items() if not ok] + [
+        f"bf16 {k}" for k, r in ratios.items() if not r <= SMALL_BF16_RATIO]
+    check(not failed, f"small ResNet fixture: {failed} failed: "
+                      f"{json.dumps(report)}")
+    return report
+
+
+# the fixture's runs and their gate on the first step (None: reported
+# only), tests/test_torch_resnet_fixture.py's RUNS
+RESNET_FIXTURE_RTOL = {"float32": SCORE_RTOL, "bfloat16": None,
+                       "bfloat16_batch32": BF16_SCORE_RTOL}
+
+
+def _resnet_fixture_on_card():
+    """tests/fixtures/torch_port_resnet50.json on the card (float32 with
+    TF32 off, bf16), with the gates of tests/test_torch_resnet_fixture.py:
+    the first score and every running statistic's L2 norm after the first
+    step at RESNET_FIXTURE_RTOL, and the float32 `output` after the steps
+    at atol = rtol = SCORE_RTOL; every score finite, the second below the
+    first, `output` rows of probabilities. The later scores and the
+    ungated run are reported beside JAX's, and beside JAX's own move under
+    its input scaled by 1 + 1e-6: those values are chaotic (the test
+    module's docstring)."""
+    import torch
+    fixture = json.loads(RESNET_FIXTURE.read_text())
+    model = fixture["model"]
+    check(fixture["param_seed"] == fixture["state_seed"] == 0
+          and fixture["data_seed"] == 0 and fixture["updater"] ==
+          f"Nesterovs({RESNET_LR}, {RESNET_MOMENTUM})"
+          and set(fixture) >= set(RESNET_FIXTURE_RTOL),
+          "the ResNet-50 fixture differs from the trained model")
+    report = {}
+    for key, rtol in RESNET_FIXTURE_RTOL.items():
+        want = fixture[key]
+        x, y = (torch.as_tensor(a, device=DEVICE)
+                for a in _image_batch(want["batch"], model["image_size"]))
+        net = _resnet(want["compute_dtype"], **model)
+        scores, norms = [], None
+        p0 = {f"{n}/{k}": t.clone() for n, ts in net.params.items()
+              for k, t in ts.items()}
+        for _ in range(want["steps"]):
+            net.fit(x, y)
+            scores.append(net.score_value)
+            if norms is None:
+                norms = {f"{n}/{k}": float(torch.linalg.vector_norm(v))
+                         for n, ts in net.states.items()
+                         for k, v in ts.items()}
+                updates = {f"{n}/{k}": float(torch.linalg.vector_norm(
+                    t.double() - p0[f"{n}/{k}"].double()))
+                    for n, ts in net.params.items() for k, t in ts.items()}
+        del p0
+        keys = sorted(want["state_norms_step1"])
+        check(sorted(norms) == keys, f"{key}: state keys differ from JAX's")
+        got_n = np.array([norms[k] for k in keys])
+        want_n = np.array([want["state_norms_step1"][k] for k in keys])
+        checks = {"finite, second score below the first": bool(
+            np.all(np.isfinite(scores))
+            and (len(scores) == 1 or scores[1] < scores[0]))}
+        if rtol is not None:
+            checks["first score"] = bool(np.allclose(
+                scores[0], want["scores"][0], rtol=rtol, atol=0))
+            checks["state norms after step 1"] = bool(np.allclose(
+                got_n, want_n, rtol=rtol, atol=0))
+        rel = lambda a, b: float(abs(a - b) / abs(b))
+        report[key] = {
+            "batch": want["batch"], "compute_dtype": want["compute_dtype"],
+            "rtol": rtol, "scores_card": scores, "scores_jax": want["scores"],
+            "scores_jax_input_scaled": want["scores_input_scaled"],
+            "score_rel_gaps": [rel(a, b) for a, b in
+                               zip(scores, want["scores"])],
+            "jax_own_rel_gaps_input_scaled": [
+                rel(a, b) for a, b in zip(want["scores_input_scaled"],
+                                          want["scores"])],
+            "state_norm_max_rel_gap": float(np.max(np.abs(got_n - want_n)
+                                                   / want_n))}
+        # the first update of every parameter, reported: at full depth its
+        # norm is ill-conditioned (tests/test_torch_resnet_fixture.py); the
+        # small graph gates the backward and the updates
+        check(sorted(updates) == sorted(want["update_norms_step1"]),
+              f"{key}: parameter keys differ from JAX's")
+        for tag, ref in (("update", want["update_norms_step1"]),
+                         ("jax_own_update", want[
+                             "update_norms_step1_input_scaled"])):
+            src = updates if tag == "update" else ref
+            gaps = np.array([abs(src[k] - want["update_norms_step1"][k])
+                             / want["update_norms_step1"][k]
+                             for k in sorted(src)])
+            report[key][f"{tag}_norm_rel_gap_max"] = float(gaps.max())
+            report[key][f"{tag}_norm_rel_gap_median"] = float(
+                np.median(gaps))
+        checks["finite updates"] = bool(np.all(np.isfinite(
+            list(updates.values()))))
+        if "output" in want:
+            out = net.output(x).double().cpu().numpy()
+            checks["output rows of probabilities"] = bool(
+                np.all(np.isfinite(out)) and np.all(out >= 0)
+                and np.allclose(out.sum(axis=1), 1.0, rtol=1e-3))
+            if rtol is not None:
+                checks["output after the steps"] = bool(np.allclose(
+                    out, want["output"], rtol=rtol, atol=rtol))
+            report[key]["output_max_abs_gap"] = float(np.max(np.abs(
+                out - np.asarray(want["output"]))))
+        report[key]["checks"] = checks
+        failed = [k for k, ok in checks.items() if not ok]
+        check(not failed, f"ResNet-50 fixture ({key}): {failed} failed: "
+                          f"{json.dumps(report[key])}")
+        del net
+    return report
+
+
+def _device_ms_by_kind(prof):
+    """A profiled window's device time (ms) by kind of kernel: cuDNN /
+    cuBLAS tensor-core convolutions and products, torch's reductions,
+    elementwise kernels (dtype copies among them) and memory copies."""
+    kinds = {"conv_and_gemm": 0.0, "reduce": 0.0, "elementwise": 0.0,
+             "memcpy_memset": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        t, name = float(e.self_device_time_total or 0) / 1e3, e.key.lower()
+        if not t:
+            continue
+        if name.startswith(("memcpy", "memset")):
+            kinds["memcpy_memset"] += t
+        elif "reduce_kernel" in name:
+            kinds["reduce"] += t
+        elif "elementwise" in name or "copy_kernel" in name:
+            kinds["elementwise"] += t
+        elif any(k in name for k in ("conv", "cudnn", "xmma", "gemm",
+                                     "cutlass", "nvjet", "sm90_", "wgrad",
+                                     "dgrad", "fprop")):
+            kinds["conv_and_gemm"] += t
+        else:
+            kinds["other"] += t
+    return kinds
+
+
+def phase_resnet50(smi):
+    """ResNet-50 trained through `fit` at bench_resnet50's configuration:
+    the JAX fixtures on the card (the small graph's 3 steps, then full
+    depth), then RESNET_STEPS steps at batch 256 of
+    224 x 224 in bf16 (the first a warm-up), every count set to 0 just
+    before them; the score finite and falling, parameters and running
+    statistics on the card in float32, the running statistics moved; one
+    profiled step for the device's busy share and top kernels, and one
+    with the per-layer optimizers' `step` timed on the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    small = _resnet_small_on_card()
+    fixture = _resnet_fixture_on_card()
+    torch.cuda.empty_cache()
+    net = _resnet("bfloat16", **RESNET)
+    x, y = (torch.as_tensor(a, device=DEVICE)
+            for a in _image_batch(RESNET_BATCH, RESNET["image_size"]))
+    start = {k: v.clone() for k, v in net.states["stem_bn"].items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    scores, times = [], []
+    for _ in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        scores.append(net.score_value)          # waits for the step
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(scores)) and scores[-1] < scores[0],
+          f"ResNet-50 scores {scores}: not finite and falling")
+    check(set(launches.values()) == {0},
+          f"the ResNet-50 path launched hand kernels: {launches}")
+    tensors = [t for tree in (net.params, net.states)
+               for ts in tree.values() for t in ts.values()]
+    check(all(t.is_cuda and t.dtype == torch.float32 for t in tensors),
+          "a ResNet-50 parameter or running statistic is off the card or "
+          "not float32")
+    check(all(not torch.equal(start[k], net.states["stem_bn"][k])
+              for k in start), "the running statistics did not move")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    # the per-layer optimizers' host time: one more step with the
+    # optimizer's `step` timed on the host clock (it queues the updates
+    # of every layer's tensors and waits for nothing)
+    optimizer, spent = net._optimizer, []
+    untimed = optimizer.step
+
+    def timed(grads):
+        t0 = time.perf_counter()
+        untimed(grads)
+        spent.append(time.perf_counter() - t0)
+    optimizer.step = timed
+    try:
+        net.fit(x, y)
+        torch.cuda.synchronize()
+    finally:
+        del optimizer.step
+    step_ms = float(np.median(times[1:])) * 1e3
+    summary = {
+        "batch": RESNET_BATCH, "image_size": RESNET["image_size"],
+        "compute_dtype": "bfloat16", "steps": RESNET_STEPS,
+        "updater": f"Nesterovs({RESNET_LR}, {RESNET_MOMENTUM})",
+        "scores": scores, "step_ms": [t * 1e3 for t in times],
+        "step_ms_p50": step_ms,
+        "samples_per_s": RESNET_BATCH / (step_ms / 1e3),
+        "peak_mb": peak / 2**20, "launches": launches,
+        "profiled_step": _profile_summary(prof, traced_ms, 12),
+        "profiled_step_device_ms_by_kind": _device_ms_by_kind(prof),
+        "optimizers_per_step": len(optimizer._layers),
+        "optimizer_host_ms": spent[0] * 1e3,
+        "fixture_small": small, "fixture": fixture, "card": smi}
+    print(json.dumps({"resnet50": summary}))
+    busy = summary["profiled_step"]["device_busy_share"]
+    size = RESNET["image_size"]
+    print(f"ResNet-50 fit, batch {RESNET_BATCH} x {size} x {size}, bf16 "
+          f"({smi}): "
+          f"step p50 {step_ms:.2f} ms, {summary['samples_per_s']:.1f} "
+          f"samples/s, peak {summary['peak_mb']:.0f} MiB, device busy "
+          f"{busy:.3f}, {summary['optimizers_per_step']} per-layer "
+          f"optimizer steps {summary['optimizer_host_ms']:.1f} ms of host "
+          "time; profiled step device ms by kind " + ", ".join(
+              f"{k} {v:.1f}" for k, v in
+              summary["profiled_step_device_ms_by_kind"].items()) + "; "
+          "JAX fixture first-score gaps " + ", ".join(
+              f"{k} {r['score_rel_gaps'][0]:.2e}" for k, r in
+              fixture.items()) + "; small graph, 3 steps: float32 update "
+          f"gap {small['float32']['update_max_frob_gap']:.2e}, bf16 "
+          "ratios " + ", ".join(f"{k} {r:.2f}" for k, r in
+                                small["bfloat16"]["ratios"].items()))
+    return summary
+
+
 # ------------------------------------------------------------------ main
 _FA = "deeplearning4j_tpu/kernels/flash_attention.py"
 REPLACES = {
@@ -3524,6 +3978,7 @@ def main():
     launches["ring"] = ring["launches_n4"]
     launches["ring_f32"] = ring["launches_f32_n4"]
     cases += ring_cases
+    launches["resnet50"] = phase_resnet50(smi)["launches"]
     from deeplearning4j_tpu_torch.kernels import route_counts
     for path, n in launches.items():
         # the D=320 model's paths take the wide routes and no other

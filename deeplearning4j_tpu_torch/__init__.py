@@ -6,10 +6,14 @@ reader finds each counterpart. It imports `torch` and never `jax`, and
 nothing of the JAX package. Entry points place tensors on
 `torch.device("cuda")` unless the caller passes `device="cpu"`.
 
-This slice serves `zoo.transformer_lm` over `POST /generate`:
+It serves `zoo.transformer_lm` over `POST /generate`:
 `ServingServer(decode=True)` -> `decode.DecodeScheduler` ->
-`decode.DecodeEngine` (prefill + step), with attention in two hand-written
-CUDA kernels (`kernels/csrc/flash_fwd.cu`, `kernels/csrc/flash_decode.cu`).
+`decode.DecodeEngine` (prefill + step), with attention in hand-written
+CUDA kernels (`kernels/csrc/`), and trains it with `ComputationGraph.fit`.
+It trains `zoo.resnet50` through the same `fit`: the convolution family
+(`nn/layers/convolution.py`) runs on torch's convolution, pooling and
+elementwise ops, as the JAX package runs it on XLA's, with batch norm's
+running statistics in the graph's layer state.
 """
 from .device import resolve_device
 

@@ -259,7 +259,8 @@ class DecodeEngine:
                 q, k, v = m.project_qkv(p, x)
                 y = m.finish(p, attention(node, q, k, v), mask)
             else:
-                y = m.forward(p, x, mask=mask)[0]
+                y = m.forward(p, self.model.states[node.name], x,
+                              mask=mask)[0]
             acts[node.name] = y
         return acts[self.output_name]
 

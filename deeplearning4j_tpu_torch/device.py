@@ -20,11 +20,11 @@ def resolve_device(device=None):
 
 
 def bf16_product(fn, a, b):
-    """fn(a, b) for a product `fn` (a matmul or an einsum) such that bf16
-    operands accumulate in float32 and round once, as XLA's and cuBLAS's
-    bf16 products do. On the card that is the native bf16 kernel; on the
-    host, where torch's bf16 kernel rounds otherwise, fn runs on the
-    float32 operands and its result is rounded after."""
+    """fn(a, b) for a product `fn` (a matmul, an einsum or a convolution)
+    such that bf16 operands accumulate in float32 and round once, as XLA's,
+    cuBLAS's and cuDNN's bf16 products do. On the card that is the native
+    bf16 kernel; on the host, where torch's bf16 kernels round otherwise,
+    fn runs on the float32 operands and its result is rounded after."""
     if a.dtype == b.dtype == torch.bfloat16 and a.device.type == "cpu":
         return fn(a.float(), b.float()).to(torch.bfloat16)
     return fn(a, b)

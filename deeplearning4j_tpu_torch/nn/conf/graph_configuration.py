@@ -6,6 +6,9 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from . import layers as L
+from .inputs import InputType
+
 
 class ElementWiseVertex:
     """Sum of equal-shaped inputs (the residual vertex)."""
@@ -74,6 +77,41 @@ class ComputationGraphConfiguration:
         return order
 
 
+def expected_input_kind(conf):
+    """Which InputType family a layer consumes: "ff", "cnn", "recurrent"
+    or "any" (the JAX package's rule, nn/conf/configuration.py)."""
+    if isinstance(conf, (L.ConvolutionLayer, L.SubsamplingLayer,
+                         L.ZeroPaddingLayer, L.LocalResponseNormalization)):
+        return "cnn"
+    if isinstance(conf, (L.BaseRecurrentConf, L.RnnOutputLayer)):
+        return "recurrent"
+    if isinstance(conf, (L.ActivationLayer, L.GlobalPoolingLayer,
+                         L.BatchNormalization, L.LayerNormalization,
+                         L.DenseLayer)):
+        return "any"
+    return "ff"
+
+
+def check_no_preprocessor(name, prev_type, conf):
+    """Raise where the JAX package's `default_preprocessor` would put a
+    preprocessor between `prev_type` and layer `conf` (a CNN type feeding
+    a feed-forward or recurrent layer, feed-forward feeding a recurrent
+    one, ...), and where a Dense layer would flatten rank-4 input itself:
+    the port has neither yet, and must not go on with a wrong n_in."""
+    want, kind = expected_input_kind(conf), prev_type.kind
+    if kind == "cnn_flat" and want in ("any", "ff"):
+        return                      # the flat image is its feature vector
+    if want == "any" and not (kind == "cnn" and isinstance(conf,
+                                                           L.DenseLayer)):
+        return
+    if want == kind:
+        return
+    raise NotImplementedError(
+        f"layer {name!r} ({type(conf).__name__}) takes {want!r} input but "
+        f"is fed {kind!r}: input preprocessors are not ported yet (ROADMAP "
+        "queue 1: MultiLayerNetwork and preprocessors)")
+
+
 class GraphBuilder:
     def __init__(self, global_conf):
         self._global = global_conf
@@ -118,7 +156,8 @@ class GraphBuilder:
 
     def build(self):
         """Finalize the layer configs and infer each layer's n_in from the
-        input types, in topological order."""
+        input types, in topological order. A layer whose input would need a
+        preprocessor raises NotImplementedError (`check_no_preprocessor`)."""
         conf = self._conf
         g = self._global
         types = {}
@@ -132,9 +171,13 @@ class GraphBuilder:
             if spec.kind == "layer":
                 lc = spec.layer_conf
                 lc.apply_global_defaults(g)
-                if in_types[0] is not None:
-                    lc.set_n_in(in_types[0])
-                    types[name] = lc.get_output_type(in_types[0])
+                t = in_types[0]
+                if t is not None:
+                    check_no_preprocessor(name, t, lc)
+                    if t.kind == "cnn_flat":
+                        t = InputType.feed_forward(t.flat_size())
+                    lc.set_n_in(t)
+                    types[name] = lc.get_output_type(t)
             elif all(t is not None for t in in_types):
                 types[name] = spec.vertex_conf.output_type(in_types)
         return conf

@@ -1,6 +1,7 @@
 """InputType descriptors that drive n_in inference (counterpart of
 deeplearning4j_tpu/nn/conf/inputs.py). Layouts as in the JAX package:
-feed-forward [batch, features], recurrent [batch, time, features]."""
+feed-forward [batch, features], recurrent [batch, time, features],
+convolutional NHWC [batch, height, width, channels]."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -15,6 +16,15 @@ class InputType:
     def recurrent(size, timesteps=None):
         return RecurrentInputType(
             int(size), None if timesteps is None else int(timesteps))
+
+    @staticmethod
+    def convolutional(height, width, channels):
+        return ConvolutionalInputType(int(height), int(width), int(channels))
+
+    @staticmethod
+    def convolutional_flat(height, width, channels):
+        return ConvolutionalFlatInputType(int(height), int(width),
+                                          int(channels))
 
 
 @dataclass(frozen=True)
@@ -34,3 +44,26 @@ class RecurrentInputType:
 
     def flat_size(self):
         return self.size
+
+
+@dataclass(frozen=True)
+class ConvolutionalInputType:
+    height: int
+    width: int
+    channels: int
+    kind: str = "cnn"
+
+    def flat_size(self):
+        return self.height * self.width * self.channels
+
+
+@dataclass(frozen=True)
+class ConvolutionalFlatInputType:
+    """An image fed flat, [batch, height * width * channels]."""
+    height: int
+    width: int
+    channels: int
+    kind: str = "cnn_flat"
+
+    def flat_size(self):
+        return self.height * self.width * self.channels

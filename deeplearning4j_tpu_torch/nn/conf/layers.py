@@ -1,5 +1,6 @@
 """Layer configuration dataclasses (counterpart of
-deeplearning4j_tpu/nn/conf/layers.py; the configs `transformer_lm` uses).
+deeplearning4j_tpu/nn/conf/layers.py; the configs `transformer_lm` and
+`resnet50` use).
 
 Hyperparameters left as None inherit the builder's global values. A layer
 left without an updater trains with Sgd(0.1) (`nn.updaters.layer_transform`)."""
@@ -7,7 +8,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from .inputs import InputType, RecurrentInputType
+from .inputs import (ConvolutionalFlatInputType, ConvolutionalInputType,
+                     InputType, RecurrentInputType)
 
 # Global hyperparameters a layer can override
 _INHERITED = ("activation", "weight_init", "bias_init", "l1", "l2", "l1_bias",
@@ -51,7 +53,7 @@ class BaseLayerConf:
 
     def set_n_in(self, input_type):
         """Infer n_in from the incoming InputType when unset."""
-        if getattr(self, "n_in", None) in (None, 0):
+        if hasattr(self, "n_in") and self.n_in in (None, 0):
             self.n_in = input_type.flat_size()
 
 
@@ -84,11 +86,37 @@ class RnnOutputLayer(FeedForwardLayerConf):
 
 
 @dataclass
-class LayerNormalization(BaseLayerConf):
-    """Layer norm over the feature (last) axis; no activation of its own."""
-    n_in: int | None = None
-    n_out: int | None = None
-    eps: float = 1e-5
+class OutputLayer(FeedForwardLayerConf):
+    """Output layer with integrated loss on [b, f]."""
+    loss: str = "MCXENT"
+
+
+@dataclass
+class ConvolutionLayer(FeedForwardLayerConf):
+    """2-D convolution, NHWC activations and HWIO kernels."""
+    kernel_size: tuple = (5, 5)
+    stride: tuple = (1, 1)
+    padding: tuple = (0, 0)
+    convolution_mode: str = "truncate"  # truncate | same | strict
+    dilation: tuple = (1, 1)
+    has_bias: bool = True
+
+    def set_n_in(self, input_type):
+        if self.n_in in (None, 0) and isinstance(
+                input_type, (ConvolutionalInputType,
+                             ConvolutionalFlatInputType)):
+            self.n_in = input_type.channels
+
+    def get_output_type(self, input_type):
+        oh, ow = conv_output_size(input_type.height, input_type.width,
+                                  self.kernel_size, self.stride, self.padding,
+                                  self.convolution_mode, self.dilation)
+        return InputType.convolutional(oh, ow, self.n_out)
+
+
+@dataclass
+class _NoActivationConf(BaseLayerConf):
+    """Layers with no activation of their own ignore the global activation."""
 
     def apply_global_defaults(self, g):
         explicit = self.activation
@@ -96,13 +124,115 @@ class LayerNormalization(BaseLayerConf):
         if explicit is None:
             self.activation = "identity"
 
-    def set_n_in(self, input_type):
-        if self.n_in in (None, 0):
+
+@dataclass
+class SubsamplingLayer(_NoActivationConf):
+    """Spatial pooling."""
+    pooling_type: str = "max"  # max | avg | sum | pnorm
+    kernel_size: tuple = (2, 2)
+    stride: tuple = (2, 2)
+    padding: tuple = (0, 0)
+    convolution_mode: str = "truncate"
+    pnorm: int = 2
+
+    def get_output_type(self, input_type):
+        oh, ow = conv_output_size(input_type.height, input_type.width,
+                                  self.kernel_size, self.stride, self.padding,
+                                  self.convolution_mode)
+        return InputType.convolutional(oh, ow, input_type.channels)
+
+
+def _norm_set_n_in(self, input_type):
+    """Shared n_in inference for the normalization confs: channel count for
+    CNN activations, feature size otherwise; n_out mirrors n_in."""
+    if self.n_in in (None, 0):
+        if isinstance(input_type, ConvolutionalInputType):
+            self.n_in = input_type.channels
+        else:
             self.n_in = input_type.flat_size()
-        self.n_out = self.n_in
+    self.n_out = self.n_in
+
+
+@dataclass
+class LayerNormalization(_NoActivationConf):
+    """Layer norm over the feature (last) axis; no activation of its own."""
+    n_in: int | None = None
+    n_out: int | None = None
+    eps: float = 1e-5
+
+    set_n_in = _norm_set_n_in
 
     def get_output_type(self, input_type):
         return input_type
+
+
+@dataclass
+class BatchNormalization(_NoActivationConf):
+    """Batch norm over the feature / channel (last) axis, with running
+    mean and variance in the layer state."""
+    n_in: int | None = None
+    n_out: int | None = None
+    decay: float = 0.9
+    eps: float = 1e-5
+    gamma: float = 1.0
+    beta: float = 0.0
+    lock_gamma_beta: bool = False
+
+    set_n_in = _norm_set_n_in
+
+    def get_output_type(self, input_type):
+        return input_type
+
+
+@dataclass
+class LocalResponseNormalization(_NoActivationConf):
+    """Cross-channel local response normalization."""
+    k: float = 2.0
+    n: float = 5.0
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    def get_output_type(self, input_type):
+        return input_type
+
+
+@dataclass
+class ActivationLayer(BaseLayerConf):
+    """Applies an activation only."""
+
+    def get_output_type(self, input_type):
+        return input_type
+
+
+@dataclass
+class GlobalPoolingLayer(_NoActivationConf):
+    """Pool over time ([b, t, f], mask-aware) or space ([b, h, w, c]) to
+    [b, f]."""
+    pooling_type: str = "max"  # max | avg | sum | pnorm
+    pnorm: int = 2
+    collapse_dimensions: bool = True
+
+    def get_output_type(self, input_type):
+        if isinstance(input_type, RecurrentInputType):
+            return InputType.feed_forward(input_type.size)
+        if isinstance(input_type, ConvolutionalInputType):
+            return InputType.feed_forward(input_type.channels)
+        return input_type
+
+
+@dataclass
+class ZeroPaddingLayer(_NoActivationConf):
+    """Spatial zero padding."""
+    pad_top: int = 0
+    pad_bottom: int = 0
+    pad_left: int = 0
+    pad_right: int = 0
+
+    def get_output_type(self, input_type):
+        return InputType.convolutional(
+            input_type.height + self.pad_top + self.pad_bottom,
+            input_type.width + self.pad_left + self.pad_right,
+            input_type.channels)
 
 
 @dataclass
@@ -122,3 +252,23 @@ class SelfAttentionLayer(BaseRecurrentConf):
     block_size: int = 256
     use_pallas: bool = False
     attention_dropout: float = 0.0
+
+
+def conv_output_size(h, w, kernel, stride, padding, mode="truncate",
+                     dilation=(1, 1)):
+    """(out height, out width) of a convolution or pooling window: "same"
+    gives ceil(in / stride); "truncate" floors; "strict" raises where the
+    window does not tile the padded input exactly."""
+    kh = kernel[0] + (kernel[0] - 1) * (dilation[0] - 1)
+    kw = kernel[1] + (kernel[1] - 1) * (dilation[1] - 1)
+    if mode == "same":
+        return ((h + stride[0] - 1) // stride[0],
+                (w + stride[1] - 1) // stride[1])
+    oh = (h + 2 * padding[0] - kh) // stride[0] + 1
+    ow = (w + 2 * padding[1] - kw) // stride[1] + 1
+    if mode == "strict" and ((h + 2 * padding[0] - kh) % stride[0] != 0 or
+                             (w + 2 * padding[1] - kw) % stride[1] != 0):
+        raise ValueError("ConvolutionMode.Strict: input size does not tile "
+                         f"exactly (h={h}, w={w}, kernel={kernel}, "
+                         f"stride={stride}, padding={padding})")
+    return oh, ow

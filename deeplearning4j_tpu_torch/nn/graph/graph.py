@@ -2,8 +2,14 @@
 (counterpart of deeplearning4j_tpu/nn/graph/graph.py).
 
 Vertices run in topological order on tensors of the model's device. The
-parameters are `{layer name: {key: tensor}}`, the JAX package's tree, so
-they cross between the packages by name (util/params.py).
+parameters are `{layer name: {key: tensor}}`, the JAX package's tree, and
+so is the layer state (`states`: batch norm's running mean and variance;
+an empty dict for a stateless layer), so both cross between the packages
+by name (util/params.py). A forward in training mode gives each layer's
+new state; `fit_batch` keeps the new states of the forward that gave the
+loss, detached, once per step. Inference (`output`, `score`,
+`compute_gradient_and_score`) reads the states and leaves them as they
+are.
 
 Training: `fit` takes one optimizer step per minibatch. The JAX package
 jits `value_and_grad` of `_loss` plus the optax update into one
@@ -16,9 +22,10 @@ parameters live, so `generate` after `fit` sees the trained weights.
 
 Mixed precision (`compute_dtype="bfloat16"`, JAX graph.py:169-191): the
 parameters stay float32 masters. The loss and `output` cast every
-non-output layer's parameters and the float inputs to bf16 with `.to()`,
-which autograd differentiates, so the gradients reach the masters in
-float32 and the optimizer state stays float32. Network output layers keep
+non-output layer's parameters and the float inputs to bf16 with `.to()`
+(the layer states stay float32), which autograd differentiates, so the
+gradients reach the masters in float32 and the optimizer state stays
+float32. Network output layers keep
 float32 parameters, and the features fed to their score are cast back to
 float32: the loss runs in full precision. Masks are not cast, so where a
 float32 mask multiplies a bf16 activation the result is float32 from
@@ -56,6 +63,7 @@ class ComputationGraph:
         self._dtype = _DTYPES[conf.dtype]
         self.device = resolve_device(device)
         self.params = None
+        self.states = None
         self._optimizer = None
         self._decode_engine = None
         self.iteration_count = 0
@@ -82,35 +90,49 @@ class ComputationGraph:
                 for name, layer in self.layers.items()
                 for key, (shape, _) in layer.param_specs().items()}
 
-    def init(self, params=None, device=None):
-        """Create the parameters on the model's device (or `device`) and
-        the per-layer optimizer state. `params`: optional `{layer: {key:
-        array}}` to load instead of the seeded init (numpy arrays or
-        tensors, copied and cast to the model dtype)."""
+    def state_shapes(self):
+        """{"layer/key": shape} of every layer-state tensor."""
+        return {f"{name}/{key}": tuple(shape)
+                for name, layer in self.layers.items()
+                for key, (shape, _) in layer.state_specs().items()}
+
+    def init(self, params=None, states=None, device=None):
+        """Create the parameters and layer states on the model's device (or
+        `device`) and the per-layer optimizer state. Every layer's `init`
+        gives both, as in the JAX package; `params` / `states`: optional
+        `{layer: {key: array}}` trees loaded in their place (numpy arrays
+        or tensors, copied and cast to the model dtype; a layer without
+        state may be left out of `states`)."""
         if device is not None:
             self.device = resolve_device(device)
-        if params is None:
-            gen = torch.Generator().manual_seed(int(self.conf.seed))
-            self.params = {name: layer.init(gen, self._dtype, self.device)
-                           for name, layer in self.layers.items()}
-        else:
-            loaded = {}
-            for name, layer in self.layers.items():
-                src = params[name]
-                loaded[name] = {}
-                for key, (shape, _) in layer.param_specs().items():
-                    # a copy: training updates the parameters in place
-                    t = torch.as_tensor(src[key]).to(self.device, self._dtype,
-                                                     copy=True)
-                    if tuple(t.shape) != tuple(shape):
-                        raise ValueError(f"{name}/{key}: shape "
-                                         f"{tuple(t.shape)}, expected "
-                                         f"{tuple(shape)}")
-                    loaded[name][key] = t
-            self.params = loaded
+        gen = torch.Generator().manual_seed(int(self.conf.seed))
+        fresh = {name: layer.init(gen, self._dtype, self.device)
+                 for name, layer in self.layers.items()}
+        self.params = ({name: p for name, (p, _) in fresh.items()}
+                       if params is None else self._load(params,
+                                                         "param_specs"))
+        self.states = ({name: s for name, (_, s) in fresh.items()}
+                       if states is None else self._load(states,
+                                                         "state_specs"))
         self._build_updater()
         self._decode_engine = None
         return self
+
+    def _load(self, tree, specs):
+        """Copies of `tree`'s tensors on the model's device in the model
+        dtype, checked against each layer's `specs` (a copy: training
+        updates the parameters in place)."""
+        loaded = {}
+        for name, layer in self.layers.items():
+            loaded[name] = {}
+            for key, (shape, _) in getattr(layer, specs)().items():
+                t = torch.as_tensor(tree[name][key]).to(
+                    self.device, self._dtype, copy=True)
+                if tuple(t.shape) != tuple(shape):
+                    raise ValueError(f"{name}/{key}: shape {tuple(t.shape)},"
+                                     f" expected {tuple(shape)}")
+                loaded[name][key] = t
+        return loaded
 
     def _build_updater(self):
         updaters = {name: layer_transform(self.conf.vertices[name].layer_conf)
@@ -118,13 +140,14 @@ class ComputationGraph:
         self._optimizer = PerLayerOptimizer(updaters, self.params)
 
     # -------------------------------------------------------------- forward
-    def _forward(self, params, inputs, masks=None, *, train=False,
+    def _forward(self, params, states, inputs, masks=None, *, train=False,
                  skip=()):
-        """(activations, masks) of every vertex but those in `skip`, masks
-        flowing as in the JAX package (a vertex passes on its first
-        input's mask)."""
+        """(activations, new states, masks) of every vertex but those in
+        `skip`, masks flowing as in the JAX package (a vertex passes on its
+        first input's mask)."""
         conf = self.conf
         acts, out_masks = {}, {}
+        new_states = dict(states)
         in_masks = masks or [None] * len(conf.network_inputs)
         for name, x, m in zip(conf.network_inputs, inputs, in_masks):
             acts[name] = x
@@ -136,12 +159,13 @@ class ComputationGraph:
             xs = [acts[i] for i in spec.inputs]
             ms = [out_masks.get(i) for i in spec.inputs]
             if spec.kind == "layer":
-                acts[name], out_masks[name] = self.layers[name].forward(
-                    params[name], xs[0], train=train, mask=ms[0])
+                acts[name], new_states[name], out_masks[name] = \
+                    self.layers[name].forward(params[name], states[name],
+                                              xs[0], train=train, mask=ms[0])
             else:
                 acts[name] = spec.vertex_conf.apply(xs)
                 out_masks[name] = next((m for m in ms if m is not None), None)
-        return acts, out_masks
+        return acts, new_states, out_masks
 
     def _to_model(self, x):
         """A tensor on the model's device in the model dtype."""
@@ -165,7 +189,7 @@ class ComputationGraph:
             masks = None
             if mask is not None:
                 masks = [self._to_model(mask)] + [None] * (len(xs) - 1)
-            acts, _ = self._forward(params, xs, masks)
+            acts, _, _ = self._forward(params, self.states, xs, masks)
             outs = [acts[o].to(self._dtype)
                     for o in self.conf.network_outputs]
         return outs[0] if len(outs) == 1 else outs
@@ -181,7 +205,8 @@ class ComputationGraph:
         """bf16 compute for all non-output layers: their parameters and the
         float (and uint8) inputs cast with `.to()`; network output layers
         keep the parameter dtype so their loss runs in full precision (JAX
-        graph.py:175-191). Integer inputs are not cast."""
+        graph.py:175-191). Integer inputs are not cast, nor are the layer
+        states."""
         cd = self._compute_dtype()
         if cd is None:
             return params, inputs
@@ -198,16 +223,16 @@ class ComputationGraph:
         return params, [cast(x) for x in inputs]
 
     # ---------------------------------------------------------------- loss
-    def _loss(self, params, inputs, labels, *, train, masks=None,
+    def _loss(self, params, states, inputs, labels, *, train, masks=None,
               label_masks=None):
-        """Scalar score: every output layer's loss on the features feeding
-        it (its forward is replaced by its score), plus l1/l2. Under a
-        compute dtype the forward runs on the cast parameters and the
-        features reach the loss in the model dtype."""
+        """(scalar score, new states): every output layer's loss on the
+        features feeding it (its forward is replaced by its score), plus
+        l1/l2. Under a compute dtype the forward runs on the cast
+        parameters and the features reach the loss in the model dtype."""
         conf = self.conf
         params, inputs = self._cast_for_compute(params, inputs)
-        acts, out_masks = self._forward(params, inputs, masks, train=train,
-                                        skip=self._loss_only)
+        acts, new_states, out_masks = self._forward(
+            params, states, inputs, masks, train=train, skip=self._loss_only)
         total = 0.0
         lm = label_masks or [None] * len(conf.network_outputs)
         for out_name, y, mlab in zip(conf.network_outputs, labels, lm):
@@ -222,7 +247,7 @@ class ComputationGraph:
             mask = mlab if mlab is not None else out_masks.get(spec.inputs[0])
             total = total + layer.score(params[out_name], feats, y, mask,
                                         train)
-        return total + self._reg_score(params)
+        return total + self._reg_score(params), new_states
 
     def _reg_score(self, params):
         total = 0.0
@@ -253,15 +278,16 @@ class ComputationGraph:
         return out
 
     def _value_and_grad(self, inputs, labels, masks, label_masks, *, train):
-        """(score tensor, grads {layer: {key: tensor}}) at the current
-        parameters."""
+        """(score tensor, grads {layer: {key: tensor}}, new states detached)
+        at the current parameters and states."""
         leaves = {name: {k: t.detach().requires_grad_()
                          for k, t in ps.items()}
                   for name, ps in self.params.items()}
         flat = [t for ps in leaves.values() for t in ps.values()]
         with torch.enable_grad():
-            score = self._loss(leaves, inputs, labels, train=train,
-                               masks=masks, label_masks=label_masks)
+            score, states = self._loss(leaves, self.states, inputs, labels,
+                                       train=train, masks=masks,
+                                       label_masks=label_masks)
             gs = iter(torch.autograd.grad(score, flat, allow_unused=True))
         grads = {}
         for name, ps in leaves.items():
@@ -269,7 +295,9 @@ class ComputationGraph:
             for k, t in ps.items():
                 g = next(gs)
                 grads[name][k] = torch.zeros_like(t) if g is None else g
-        return score.detach(), grads
+        states = {name: {k: t.detach() for k, t in s.items()}
+                  for name, s in states.items()}
+        return score.detach(), grads, states
 
     # ---------------------------------------------------------------- train
     def fit(self, data, labels=None, epochs=1, steps_per_execution=1,
@@ -343,8 +371,8 @@ class ComputationGraph:
             self.init()
         self._check_trainable()
         inputs, labels, masks, lmasks = self._prep_batch(ds)
-        score, grads = self._value_and_grad(inputs, labels, masks, lmasks,
-                                            train=True)
+        score, grads, self.states = self._value_and_grad(
+            inputs, labels, masks, lmasks, train=True)
         self._optimizer.step(self._normalize_grads(grads))
         self._score = score
         self.iteration_count += 1
@@ -356,8 +384,9 @@ class ComputationGraph:
         if isinstance(ds, DataSet):
             ds = MultiDataSet([ds.features], [ds.labels])
         with torch.no_grad():
-            s = self._loss(self.params, self._to_models(ds.features),
-                           self._to_models(ds.labels), train=False)
+            s, _ = self._loss(self.params, self.states,
+                              self._to_models(ds.features),
+                              self._to_models(ds.labels), train=False)
         return float(s)
 
     def compute_gradient_and_score(self, inputs, labels, masks=None,
@@ -366,7 +395,7 @@ class ComputationGraph:
         inference (no dropout). `inputs`/`labels`: an array or a list of
         them; masks: lists aligned with the inputs / outputs."""
         listed = lambda a: list(a) if isinstance(a, (list, tuple)) else [a]
-        score, grads = self._value_and_grad(
+        score, grads, _ = self._value_and_grad(
             self._to_models(listed(inputs)), self._to_models(listed(labels)),
             self._to_models(masks), self._to_models(label_masks),
             train=False)

@@ -1,10 +1,13 @@
 """Runtime layer SPI (counterpart of deeplearning4j_tpu/nn/layers/base.py).
 
 A layer is a plain object holding its config. Parameters live outside it,
-in a `{name: tensor}` dict per layer, so the port's parameter tree has the
-same keys as the JAX package's and crosses over by name
-(util/params.py). `forward(params, x, mask=...)` returns
-`(activations, mask)`; masks are [batch, time] validity."""
+in a `{name: tensor}` dict per layer, and so does its state (the
+non-trainable variables, such as batch norm's running mean and
+variance), so the port's trees have the same keys as the JAX package's and
+cross over by name (util/params.py). `init` gives `(params, state)`;
+`forward(params, state, x, train=..., mask=...)` returns `(activations,
+new_state, mask)`, a stateless layer its empty state unchanged; masks are
+[batch, time] validity."""
 from __future__ import annotations
 
 import torch
@@ -61,30 +64,43 @@ class BaseLayerModule:
         self.conf = conf
 
     def param_specs(self):
-        """{key: (shape, kind)} with kind "weight" (xavier, fan from the
-        shape), "bias" (bias_init), "ones" or "zeros"."""
-        raise NotImplementedError
+        """{key: (shape, kind)} with kind "weight" (the conf's weight init,
+        fans from the shape: [n_in, n_out] or an HWIO kernel's kh·kw·I and
+        kh·kw·O), "bias" (bias_init), "ones", "zeros" or a float fill."""
+        return {}
+
+    def state_specs(self):
+        """{key: (shape, kind)} of the layer state, kinds as for
+        parameters; stateless layers have none."""
+        return {}
+
+    def make(self, specs, generator, dtype, device):
+        """{key: tensor} on `device` for {key: (shape, kind)} specs."""
+        out = {}
+        for key, (shape, kind) in specs.items():
+            if kind == "weight":
+                fan_in, fan_out = shape[0], shape[1]
+                if len(shape) == 4:
+                    fan_in = shape[0] * shape[1] * shape[2]
+                    fan_out = shape[0] * shape[1] * shape[3]
+                out[key] = init_weights(
+                    generator, shape, self.conf.weight_init, fan_in=fan_in,
+                    fan_out=fan_out, dtype=dtype, device=device)
+                continue
+            fill = {"bias": float(self.conf.bias_init or 0.0), "ones": 1.0,
+                    "zeros": 0.0}.get(kind, kind)
+            out[key] = torch.full(shape, float(fill), dtype=dtype,
+                                  device=device)
+        return out
 
     def init(self, generator, dtype=torch.float32, device=None):
-        """Fresh parameters on `device` (the card unless "cpu")."""
+        """Fresh (params, state) on `device` (the card unless "cpu")."""
         device = resolve_device(device)
-        params = {}
-        for key, (shape, kind) in self.param_specs().items():
-            if kind == "weight":
-                params[key] = init_weights(
-                    generator, shape, self.conf.weight_init, fan_in=shape[0],
-                    fan_out=shape[1], dtype=dtype, device=device)
-            elif kind == "bias":
-                params[key] = torch.full(shape, float(self.conf.bias_init
-                                                      or 0.0),
-                                         dtype=dtype, device=device)
-            elif kind == "ones":
-                params[key] = torch.ones(shape, dtype=dtype, device=device)
-            else:
-                params[key] = torch.zeros(shape, dtype=dtype, device=device)
-        return params
+        return (self.make(self.param_specs(), generator, dtype, device),
+                self.make(self.state_specs(), generator, dtype, device))
 
-    def forward(self, params, x, *, train=False, mask=None):
+    def forward(self, params, state, x, *, train=False, mask=None):
+        """(activations, new state, mask)."""
         raise NotImplementedError
 
     def is_output_layer(self):

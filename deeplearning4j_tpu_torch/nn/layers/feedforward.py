@@ -18,9 +18,9 @@ class _DenseCore(BaseLayerModule):
     def preoutput(self, params, x):
         return matmul(x, params["W"]) + params["b"]
 
-    def forward(self, params, x, *, train=False, mask=None):
+    def forward(self, params, state, x, *, train=False, mask=None):
         x = apply_dropout(x, self.conf.dropout, train)
-        return self.activation_fn()(self.preoutput(params, x)), mask
+        return self.activation_fn()(self.preoutput(params, x)), state, mask
 
 
 @register_impl("DenseLayer")
@@ -43,13 +43,19 @@ class BaseOutputLayerModule(_DenseCore):
         return self.loss_fn()(labels, z, self.conf.activation, mask)
 
 
+@register_impl("OutputLayer")
+class OutputLayerModule(BaseOutputLayerModule):
+    """Dense projection + activation on [b, f]; its loss is the score of
+    the [b, n_out] pre-activations."""
+
+
 @register_impl("RnnOutputLayer")
 class RnnOutputLayerModule(BaseOutputLayerModule):
     """Dense projection + activation per timestep on [b, t, f]; the loss
     runs on the [b*t] positions with a per-position mask."""
 
-    def forward(self, params, x, *, train=False, mask=None):
-        return self.activation_fn()(self.preoutput(params, x)), mask
+    def forward(self, params, state, x, *, train=False, mask=None):
+        return self.activation_fn()(self.preoutput(params, x)), state, mask
 
     def score(self, params, x, labels, mask=None, train=False):
         z = self.preoutput(params, x)

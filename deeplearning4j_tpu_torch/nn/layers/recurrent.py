@@ -69,10 +69,10 @@ class SelfAttentionLayerModule(BaseLayerModule):
             out = out * mask[:, :, None]
         return out
 
-    def forward(self, params, x, *, train=False, mask=None):
+    def forward(self, params, state, x, *, train=False, mask=None):
         c = self.conf
         x = apply_dropout(x, c.dropout, train)
         q, k, v = self.project_qkv(params, x)
         out = self.attend(q, k, v, mask)
         out = apply_dropout(out, c.attention_dropout, train)
-        return self.finish(params, out, mask), mask
+        return self.finish(params, out, mask), state, mask

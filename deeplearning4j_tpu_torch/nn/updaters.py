@@ -1,6 +1,7 @@
 """Updaters (optimizers) and gradient normalization (counterpart of
-deeplearning4j_tpu/nn/updaters.py; Sgd and Adam with the fixed learning
-rate — the other updaters and schedules are ROADMAP queue 1, nn core).
+deeplearning4j_tpu/nn/updaters.py; Sgd, Nesterovs and Adam with the fixed
+learning rate — the other updaters and schedules are ROADMAP queue 1, nn
+core).
 
 The JAX package lowers each updater to an optax transformation. Here each
 updater builds a `torch.optim` optimizer over one layer's tensors and
@@ -8,8 +9,11 @@ updates them IN PLACE (the JAX package returns new arrays).
 `torch.optim.Adam` is optax's Adam: both moments bias-corrected and eps
 added to the corrected sqrt(v); the two differ only in rounding
 (torch divides sqrt(v) by sqrt(1 - b2^t), optax takes sqrt(v / (1 -
-b2^t))). `PerLayerOptimizer` is `per_layer_transform`: one optimizer per
-layer, each stepping only its layer's tensors.
+b2^t))). `torch.optim.SGD(momentum=m, nesterov=True, dampening=0)` is
+optax's `sgd(nesterov=True)`: both start the momentum buffer at the first
+gradient g and step by g + m * buffer. `PerLayerOptimizer` is
+`per_layer_transform`: one optimizer per layer, each stepping only its
+layer's tensors.
 """
 from __future__ import annotations
 
@@ -52,6 +56,22 @@ class BaseUpdater:
 class Sgd(BaseUpdater):
     def optimizer(self, tensors):
         return torch.optim.SGD(tensors, lr=self.schedule()(0))
+
+
+@dataclass
+class Nesterovs(BaseUpdater):
+    """SGD with Nesterov momentum."""
+    momentum: float = 0.9
+    momentum_schedule: dict | None = None
+
+    def optimizer(self, tensors):
+        if self.momentum_schedule:
+            raise NotImplementedError(
+                "momentum schedules are not ported yet (ROADMAP queue 1: nn "
+                "core); a fixed momentum is")
+        return torch.optim.SGD(tensors, lr=self.schedule()(0),
+                               momentum=self.momentum, nesterov=True,
+                               dampening=0.0)
 
 
 @dataclass

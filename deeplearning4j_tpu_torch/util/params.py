@@ -1,21 +1,27 @@
-"""Parameter exchange between the JAX package and the port.
+"""Parameter and layer-state exchange between the JAX package and the port.
 
 The JAX package's ModelSerializer writes a model's parameters into
 `coefficients.bin` as numpy arrays under flat keys "layer/param"
 (`"embed/W"`, `"b0_attn/Wq"`, ...; util/model_serializer.py:32-57). The
-port's parameter tree `{layer: {param: tensor}}` has the same names, so:
+port's parameter tree `{layer: {param: tensor}}` has the same names, and
+so has its layer-state tree (`net.states`: batch norm's `"mean"` and
+`"var"` by layer name, as in the JAX package's `net.states`), so:
 
-- `params_from_jax(flat, device)` turns such a flat dict into the port's
-  tree on `device` (pass it to `ComputationGraph.init(params=...)`);
-- `params_to_flat(net)` is its inverse;
-- `synthetic_params(shapes, seed)` makes weights from a seed with numpy
-  alone, so that a run with no JAX (the card machine) and the CPU tests
-  build identical models.
+- `params_from_jax(tree, device)` turns such a flat dict, or a nested
+  `{layer: {key: array}}` tree such as the JAX `net.states`, into the
+  port's tree on `device` (pass it to `ComputationGraph.init(params=...,
+  states=...)`);
+- `params_to_flat(net)` and `states_to_flat(net)` are its inverse;
+- `synthetic_params(shapes, seed)` and `synthetic_states(shapes, seed)`
+  make weights and running statistics from a seed with numpy alone, so
+  that a run with no JAX (the card machine) and the CPU tests build
+  identical models.
 """
 from __future__ import annotations
 
 import math
 import zlib
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -23,43 +29,79 @@ import torch
 from ..device import resolve_device
 
 
-def params_from_jax(flat, device=None):
-    """{"layer/param": array} -> {layer: {param: float tensor}} on
-    `device` (the card unless "cpu")."""
+def params_from_jax(tree, device=None):
+    """{"layer/key": array} or {layer: {key: array}} -> {layer: {key: float
+    tensor}} on `device` (the card unless "cpu"). A layer with an empty
+    dict (a stateless layer of the JAX `net.states`) keeps its empty
+    dict."""
     dev = resolve_device(device)
-    tree = {}
-    for key, arr in flat.items():
+    out = {}
+    for key, arr in tree.items():
+        if isinstance(arr, Mapping):
+            out[key] = {name: torch.from_numpy(np.array(a)).to(dev)
+                        for name, a in arr.items()}
+            continue
         layer, _, name = key.partition("/")
         if not name or "/" in name:
             raise ValueError(f"not a flat 'layer/param' key: {key!r}")
-        tree.setdefault(layer, {})[name] = torch.from_numpy(
+        out.setdefault(layer, {})[name] = torch.from_numpy(
             np.array(arr)).to(dev)
-    return tree
+    return out
+
+
+def _to_flat(tree):
+    return {f"{layer}/{name}": t.detach().cpu().numpy().copy()
+            for layer, ts in tree.items() for name, t in ts.items()}
 
 
 def params_to_flat(net):
     """The port model's parameters as {"layer/param": numpy array}, copies
     (training updates the tensors in place)."""
-    return {f"{layer}/{name}": t.detach().cpu().numpy().copy()
-            for layer, ps in net.params.items() for name, t in ps.items()}
+    return _to_flat(net.params)
+
+
+def states_to_flat(net):
+    """The port model's layer states as {"layer/key": numpy array}."""
+    return _to_flat(net.states)
+
+
+def _uniform(key, shape, seed):
+    """U(-1, 1) float64 of `shape` from the stream (seed, crc32 of key)."""
+    rng = np.random.default_rng([int(seed), zlib.crc32(key.encode())])
+    return rng.random(shape) * 2.0 - 1.0
 
 
 def synthetic_params(shapes, seed=0):
     """Float32 weights for {"layer/param": shape}, from numpy's PCG64
     uniforms only (stable across numpy versions). Each tensor draws from
     its own stream, seeded by (seed, crc32 of its key): 2-D kernels are
-    xavier-uniform, a LayerNorm "gamma" is 1 + U(-0.1, 0.1), every other
+    xavier-uniform, 4-D HWIO convolution kernels He-uniform (U(-a, a), a =
+    sqrt(6 / (kh·kw·I))), a "gamma" is 1 + U(-0.1, 0.1), every other
     vector U(-0.02, 0.02)."""
     out = {}
     for key, shape in shapes.items():
         shape = tuple(int(s) for s in shape)
-        rng = np.random.default_rng([int(seed), zlib.crc32(key.encode())])
-        u = rng.random(shape) * 2.0 - 1.0               # U(-1, 1), float64
+        u = _uniform(key, shape, seed)
         if len(shape) == 2:
             w = u * math.sqrt(6.0 / (shape[0] + shape[1]))
+        elif len(shape) == 4:
+            w = u * math.sqrt(6.0 / (shape[0] * shape[1] * shape[2]))
         elif key.rsplit("/", 1)[-1] == "gamma":
             w = 1.0 + 0.1 * u
         else:
             w = 0.02 * u
+        out[key] = w.astype(np.float32)
+    return out
+
+
+def synthetic_states(shapes, seed=0):
+    """Float32 running statistics for {"layer/key": shape} (a model's
+    `state_shapes()`), from the same per-key streams as
+    `synthetic_params`: a "var" is 1 + U(-0.1, 0.1), a "mean" (and any
+    other state) U(-0.02, 0.02)."""
+    out = {}
+    for key, shape in shapes.items():
+        u = _uniform(key, tuple(int(s) for s in shape), seed)
+        w = 1.0 + 0.1 * u if key.rsplit("/", 1)[-1] == "var" else 0.02 * u
         out[key] = w.astype(np.float32)
     return out

@@ -1,4 +1,4 @@
-"""Model zoo of the port (this slice: `transformer_lm`)."""
-from .models import transformer_lm
+"""Model zoo of the port: `transformer_lm` and `resnet50`."""
+from .models import resnet50, transformer_lm
 
-__all__ = ["transformer_lm"]
+__all__ = ["resnet50", "transformer_lm"]

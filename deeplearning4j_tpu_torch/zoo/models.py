@@ -1,13 +1,98 @@
-"""Model zoo (counterpart of deeplearning4j_tpu/zoo/models.py:184-227)."""
+"""Model zoo (counterpart of deeplearning4j_tpu/zoo/models.py:104-227:
+`resnet50` and `transformer_lm`)."""
 from __future__ import annotations
 
 from ..nn.conf.configuration import NeuralNetConfiguration
 from ..nn.conf.graph_configuration import ElementWiseVertex
 from ..nn.conf.inputs import InputType
-from ..nn.conf.layers import (DenseLayer, LayerNormalization, RnnOutputLayer,
-                              SelfAttentionLayer)
+from ..nn.conf.layers import (ActivationLayer, BatchNormalization,
+                              ConvolutionLayer, DenseLayer, GlobalPoolingLayer,
+                              LayerNormalization, OutputLayer, RnnOutputLayer,
+                              SelfAttentionLayer, SubsamplingLayer)
 from ..nn.graph.graph import ComputationGraph
-from ..nn.updaters import Adam
+from ..nn.updaters import Adam, Nesterovs
+
+
+def _resnet_conv_block(gb, name, n_in_name, filters, stride, project=True):
+    """One ResNet v1 bottleneck block: conv1x1 (stride) -> conv3x3 ->
+    conv1x1, each followed by batch norm, plus the skip (a strided 1x1
+    projection + batch norm when `project`), then ReLU. Returns the name
+    of its last vertex."""
+    f1, f2, f3 = filters
+
+    def conv(vertex, n_out, k, s, src):
+        gb.add_layer(vertex, ConvolutionLayer(
+            kernel_size=(k, k), stride=(s, s), n_out=n_out,
+            activation="identity", convolution_mode="same", has_bias=False),
+            src)
+
+    conv(f"{name}_c1", f1, 1, stride, n_in_name)
+    gb.add_layer(f"{name}_bn1", BatchNormalization(activation="relu"),
+                 f"{name}_c1")
+    conv(f"{name}_c2", f2, 3, 1, f"{name}_bn1")
+    gb.add_layer(f"{name}_bn2", BatchNormalization(activation="relu"),
+                 f"{name}_c2")
+    conv(f"{name}_c3", f3, 1, 1, f"{name}_bn2")
+    gb.add_layer(f"{name}_bn3", BatchNormalization(activation="identity"),
+                 f"{name}_c3")
+    skip = n_in_name
+    if project:
+        conv(f"{name}_proj", f3, 1, stride, n_in_name)
+        gb.add_layer(f"{name}_projbn",
+                     BatchNormalization(activation="identity"),
+                     f"{name}_proj")
+        skip = f"{name}_projbn"
+    gb.add_vertex(f"{name}_add", ElementWiseVertex("add"), f"{name}_bn3",
+                  skip)
+    gb.add_layer(f"{name}_relu", ActivationLayer(activation="relu"),
+                 f"{name}_add")
+    return f"{name}_relu"
+
+
+def resnet50(num_classes=1000, image_size=224, seed=12345, updater=None,
+             compute_dtype=None, remat=None, device=None):
+    """ResNet-50 as a ComputationGraph, the JAX package's graph with the
+    same vertex names: NHWC [b, image_size, image_size, 3] images in, a
+    softmax over `num_classes` out; a 7x7/2 stem convolution, batch norm,
+    3x3/2 max pooling, then [3, 4, 6, 3] bottleneck blocks, global average
+    pooling and the output layer. `updater` defaults to Nesterovs(0.1,
+    0.9), as in the JAX package; `compute_dtype="bfloat16"` runs the
+    convolutions and activations in bf16 on float32 parameters and batch
+    statistics. `remat` is stored and `fit` raises (not ported).
+    `device`: the card unless "cpu"."""
+    gb = (NeuralNetConfiguration.builder()
+          .seed(seed)
+          .updater(updater or Nesterovs(learning_rate=0.1, momentum=0.9))
+          .weight_init("relu")
+          .compute_dtype(compute_dtype)
+          .remat(remat)
+          .graph_builder()
+          .add_inputs("in"))
+    gb.add_layer("stem_conv", ConvolutionLayer(
+        kernel_size=(7, 7), stride=(2, 2), n_out=64, activation="identity",
+        convolution_mode="same", has_bias=False), "in")
+    gb.add_layer("stem_bn", BatchNormalization(activation="relu"),
+                 "stem_conv")
+    gb.add_layer("stem_pool", SubsamplingLayer(
+        pooling_type="max", kernel_size=(3, 3), stride=(2, 2),
+        convolution_mode="same"), "stem_bn")
+    prev = "stem_pool"
+    stages = [("s2", (64, 64, 256), 3, 1),
+              ("s3", (128, 128, 512), 4, 2),
+              ("s4", (256, 256, 1024), 6, 2),
+              ("s5", (512, 512, 2048), 3, 2)]
+    for sname, filters, blocks, stride in stages:
+        prev = _resnet_conv_block(gb, f"{sname}b1", prev, filters, stride,
+                                  project=True)
+        for i in range(1, blocks):
+            prev = _resnet_conv_block(gb, f"{sname}b{i + 1}", prev, filters,
+                                      1, project=False)
+    gb.add_layer("avgpool", GlobalPoolingLayer(pooling_type="avg"), prev)
+    gb.add_layer("out", OutputLayer(n_out=num_classes, activation="softmax",
+                                    loss="MCXENT"), "avgpool")
+    gb.set_outputs("out")
+    gb.set_input_types(InputType.convolutional(image_size, image_size, 3))
+    return ComputationGraph(gb.build(), device=device)
 
 
 def transformer_lm(vocab_size=256, d_model=256, n_layers=4, n_heads=4,

@@ -677,8 +677,8 @@ def test_self_attention_layer_at_head_dim_320_matches_jax(calls):
     mask = np.ones((2, 12), np.float32)
     mask[1, 7:] = 0.0
     want = jmod.forward(jparams, {}, jnp.asarray(x), mask=jnp.asarray(mask))[0]
-    got, _ = tmod.forward(tparams, torch.from_numpy(x),
-                          mask=torch.from_numpy(mask))
+    got = tmod.forward(tparams, {}, torch.from_numpy(x),
+                       mask=torch.from_numpy(mask))[0]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-5)
     assert [c[0] for c in calls] == ["flash_wide_fwd_f32"]

@@ -87,8 +87,8 @@ def test_self_attention_layer_matches_jax(use_pallas, masked):
     m = mask if masked else None
     want = jmod.forward(jparams, {}, jax.numpy.asarray(x),
                         mask=None if m is None else jax.numpy.asarray(m))[0]
-    got, _ = tmod.forward(tparams, torch.from_numpy(x),
-                          mask=None if m is None else torch.from_numpy(m))
+    got = tmod.forward(tparams, {}, torch.from_numpy(x),
+                       mask=None if m is None else torch.from_numpy(m))[0]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
