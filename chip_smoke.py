@@ -402,8 +402,40 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    samples/s, `torch.cuda.max_memory_allocated`, one profiled step's
    device busy share and top kernels, and the per-layer optimizers' host
    time in one more step.
-9. Every main path (serving, serving_paged, serving_d32,
+9. The K-step training loop (`phase_multistep(smi)`): `prepare_steps` /
+   `fit_prepared` run a plan of K = 5 steps as one CUDA graph (the first
+   call eager on the capture's side stream, the second captures and
+   replays, every later call one replay). transformer_lm at 16 x 512,
+   f32 and bf16, hand kernels: 1 eager call and 5 graph calls against 30
+   `fit_batch` steps of a second net from the same weights (scores within
+   rtol 1e-4 / 1e-2); with every count set to 0 just before the graph
+   calls, each of the three kernels of the type counted 4 per step in
+   them and no other (paths multistep, multistep_bf16); one more
+   capture of the steps, read back node by node with libcuda, holds 20
+   kernel nodes of each and none of the other type, and one replay under
+   the profiler names each (in this long process a profiler window can
+   miss a record); the replay's time per token against `fit_batch`'s,
+   its busy share. The small ResNet graph in
+   float32, 2 calls of K = 3 against 6 `fit_batch` steps (scores and
+   parameters within allclose(rtol=1e-4, atol=1e-5)). ResNet-50 at
+   bench_resnet50's configuration, K = 5: the eager call, a snapshot, one
+   replay (its parameters after the first update copied out by the graph
+   itself), 5 `fit_batch` steps from the snapshot: the first scores and
+   every parameter's first-update norm within 1e-2; 4 timed replays with
+   no hand kernel (path multistep_resnet50), one profiled: step p50 and
+   samples/s against `fit_batch`'s, peak memory, busy share. Remat: one
+   ResNet-50 step each under none, "convs_and_dots" and "full", through
+   `fit_batch` (time, peak memory) and as a plan of one step replayed
+   (time), and transformer_lm bf16 under "dots", whose recompute
+   launches `flash_fwd_bf16` twice per layer a step. Dropout (a small
+   transformer_lm, rate 0.1 everywhere, attention dropout 0.1): two
+   replays from the same parameters draw other masks; a replay and 3
+   `fit_batch` steps from one generator state agree within 1e-4; under
+   remat "full" the graph's recomputes draw the forward's masks (3 calls
+   score as the net without remat does, within 1e-4).
+10. Every main path (serving, serving_paged, serving_d32,
    serving_d32_paged, training, training_bf16, ring, ring_f32, resnet50,
+   multistep, multistep_bf16, multistep_resnet50,
    the D=320 model's training_wide, training_wide_bf16, decode_wide,
    decode_wide_paged, the D=256 model's training_d256 and decode_d256,
    the D=128 model's training_d128 and decode_d128, and
@@ -3869,6 +3901,525 @@ def phase_resnet50(smi):
     return summary
 
 
+# ------------------------------------------------------------------ phase 9
+MULTISTEP_K = 5
+MULTISTEP_REPLAYS = 4       # timed replays after the first one
+SMALL_MULTISTEP_K = 3
+DROPOUT_LM = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=2)
+DROPOUT_RATE = 0.1
+DROPOUT_BATCH, DROPOUT_SEQ, DROPOUT_K = 4, 64, 3
+REMAT_RESNET = (None, "convs_and_dots", "full")
+# the CUDA symbol of each hand kernel on the training path at head dim
+# 64 (D=64 runs `flash_*_sm90<64, ...>`): what the profiler names it
+TRAIN_SYMBOLS = {"flash_fwd": "flash_fwd_f32_sm90",
+                 "flash_bwd_dq": "flash_bwd_dq_f32_sm90",
+                 "flash_bwd_dkv": "flash_bwd_dkv_f32_sm90",
+                 "flash_fwd_bf16": "flash_fwd_bf16_sm90",
+                 "flash_bwd_dq_bf16": "flash_bwd_dq_bf16_sm90",
+                 "flash_bwd_dkv_bf16": "flash_bwd_dkv_bf16_sm90"}
+
+
+def _snapshot(net):
+    """Copies of what a training step reads and writes: parameters, layer
+    states, every optimizer state tensor, the optimizer's step count and
+    the dropout generators' states."""
+    optim = {name: [{k: v.clone() for k, v in opt.state[t].items()
+                     if hasattr(v, "clone")} for t in tensors.values()]
+             for name, (_, tensors, opt) in net._optimizer._layers.items()}
+    return {"params": {n: {k: t.clone() for k, t in ts.items()}
+                       for n, ts in net.params.items()},
+            "states": {n: {k: t.clone() for k, t in ts.items()}
+                       for n, ts in net.states.items()},
+            "optim": optim, "count": net._optimizer.count,
+            "rng": [g.get_state() for g in net._dropout.generators()]}
+
+
+def _restore(net, snap, rng=True):
+    """`snap` written back in place (a captured graph keeps reading the
+    same tensors); the dropout generators too unless `rng` is False."""
+    import torch
+    with torch.no_grad():
+        for part in ("params", "states"):
+            for n, ts in getattr(net, part).items():
+                for k, t in ts.items():
+                    t.copy_(snap[part][n][k])
+        for name, (_, tensors, opt) in net._optimizer._layers.items():
+            for t, saved in zip(tensors.values(), snap["optim"][name]):
+                for k, v in saved.items():
+                    opt.state[t][k].copy_(v)
+    net._optimizer.count = snap["count"]
+    if rng:
+        for g, s in zip(net._dropout.generators(), snap["rng"]):
+            g.set_state(s)
+
+
+def _timed_calls(fn, n):
+    """Wall seconds of n calls of fn(), each waited for."""
+    import torch
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def _profiled_replay(net, plan):
+    """One `fit_prepared` replay under the profiler: (its summary, the
+    launches of each training kernel by the profiler's names)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        net.fit_prepared(plan)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    seen = dict.fromkeys(TRAIN_SYMBOLS, 0)
+    for e in prof.key_averages():
+        for name, symbol in TRAIN_SYMBOLS.items():
+            if symbol in e.key and e.self_device_time_total > 0:
+                seen[name] += e.count
+    return _profile_summary(prof, wall_ms, 8), seen
+
+
+def _graph_kernel_counts(net, plan):
+    """The training kernels among the kernel nodes of one more capture of
+    `plan`'s steps ({kernel: nodes}), read with libcuda
+    (`cuGraphGetNodes`, `cuGraphKernelNodeGetParams`, each node's
+    function name): an exact count of what a replay launches, where a
+    profiler window in this script's long process can miss records (19
+    of 20 `flash_fwd` named on an H100, the record missing from the
+    trace itself; none missing in a fresh process). The capture
+    records and runs nothing (`_capture`: the counts it made are taken
+    back); its graph is kept (`keep_graph=True`) to be read, then reset."""
+    import ctypes
+    import torch
+
+    class Params(ctypes.Structure):      # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = ([("func", ctypes.c_void_p)]
+                    + [(f, ctypes.c_uint) for f in
+                       ("gx", "gy", "gz", "bx", "by", "bz", "smem")]
+                    + [(f, ctypes.c_void_p) for f in
+                       ("params", "extra", "kern", "ctx")])
+    real = torch.cuda.CUDAGraph
+    torch.cuda.CUDAGraph = lambda: real(keep_graph=True)
+    try:
+        net._capture(plan, net._capture_stream)
+    finally:
+        torch.cuda.CUDAGraph = real
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(plan.graph.raw_cuda_graph())
+    num = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(num)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * num.value)()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(num)) == 0,
+          "cuGraphGetNodes failed")
+    counts = dict.fromkeys(TRAIN_SYMBOLS, 0)
+    for node in nodes[:num.value]:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        if kind.value != 0:                 # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        p = Params()
+        check(cu.cuGraphKernelNodeGetParams_v2(
+            ctypes.c_void_p(node), ctypes.byref(p)) == 0,
+              "cuGraphKernelNodeGetParams failed")
+        name = ctypes.c_char_p()
+        err = (cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func))
+               if p.func else
+               cu.cuKernelGetName(ctypes.byref(name),
+                                  ctypes.c_void_p(p.kern)))
+        check(err == 0, f"a kernel node's name: CUresult {err}")
+        for kernel, symbol in TRAIN_SYMBOLS.items():
+            counts[kernel] += symbol in name.value.decode()
+    plan.graph.reset()
+    return counts
+
+
+def _multistep_lm(compute_dtype, kernels):
+    """transformer_lm at TRAIN_BATCH x TRAIN_SEQ with the hand kernels:
+    one plan of MULTISTEP_K steps on one batch, its eager first call, then
+    1 + MULTISTEP_REPLAYS replays (counts set to 0 just before them),
+    against as many `fit_batch` steps of a second net from the same
+    weights. Scores agree to SCORE_RTOL (f32) / BF16_SCORE_RTOL (bf16);
+    each of `kernels` ran n_layers times a step in every replay, by the
+    launch counts and by the kernel nodes of one more capture
+    (`_graph_kernel_counts`), and the profiler names each in one more
+    replay; no plain or wide route."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    rtol = BF16_SCORE_RTOL if compute_dtype else SCORE_RTOL
+    x, y = _one_hot_batch(TRAIN_BATCH, TRAIN_SEQ)
+    graph_net = _full_width_net(True, compute_dtype)
+    eager_net = _full_width_net(True, compute_dtype)
+    plan = graph_net.prepare_steps([DataSet(x, y)] * MULTISTEP_K)
+    calls = 2 + MULTISTEP_REPLAYS
+    g_scores = []
+    graph_net.fit_prepared(plan)                 # eager: the warm-up
+    g_scores += graph_net.last_scores.tolist()
+    reset_launch_counts()
+    times = []
+    for _ in range(calls - 1):                   # capture, then replays
+        times += _timed_calls(lambda: graph_net.fit_prepared(plan), 1)
+        g_scores += graph_net.last_scores.tolist()
+    launches = counts()
+    check(plan.graph is not None, "the plan was not captured")
+    e_scores = []
+
+    def eager_call():
+        for _ in range(MULTISTEP_K):
+            eager_net.fit(x, y)
+            e_scores.append(eager_net._score)
+    e_times = _timed_calls(eager_call, calls)
+    e_scores = [float(s) for s in e_scores]
+    want = (calls - 1) * MULTISTEP_K * SERVE["n_layers"]
+    for name, n in launches.items():
+        check(n == (want if name in kernels else 0),
+              f"multistep {compute_dtype}: {name} counted {n} in the "
+              f"replays, not {want if name in kernels else 0}")
+    check(all(np.isfinite(g_scores)) and g_scores[-1] < g_scores[0],
+          f"multistep scores not finite and falling: {g_scores}")
+    check(np.allclose(g_scores, e_scores, rtol=rtol, atol=0),
+          f"multistep {compute_dtype}: replay scores {g_scores} != "
+          f"fit_batch {e_scores} (rtol {rtol})")
+    check(graph_net.iteration_count == calls * MULTISTEP_K
+          and graph_net._optimizer.count == calls * MULTISTEP_K,
+          "iteration or optimizer count off after the replays")
+    profiled, seen = _profiled_replay(graph_net, plan)
+    per_replay = MULTISTEP_K * SERVE["n_layers"]
+    nodes = _graph_kernel_counts(graph_net, graph_net.prepare_steps(
+        [DataSet(x, y)] * MULTISTEP_K))
+    want = {k: per_replay if k in kernels else 0 for k in TRAIN_SYMBOLS}
+    check(nodes == want
+          and all(plan.launches.get(k, 0) == per_replay for k in kernels)
+          and all(0 < seen[k] <= per_replay for k in kernels)
+          and not any(seen[k] for k in TRAIN_SYMBOLS if k not in kernels),
+          f"graph kernel nodes {nodes}, plan counts {plan.launches}, "
+          f"profiled replay names {seen}: not {per_replay} of each of "
+          f"{kernels} (the profiler naming each, none beyond)")
+    tokens = MULTISTEP_K * TRAIN_BATCH * TRAIN_SEQ
+    replay_ms = float(np.median(times[1:])) * 1e3
+    eager_ms = float(np.median(e_times[1:])) * 1e3
+    return {"compute_dtype": compute_dtype or "float32",
+            "K": MULTISTEP_K, "calls": calls,
+            "max_score_rel_diff": float(np.max(
+                np.abs(np.subtract(g_scores, e_scores))
+                / np.abs(e_scores))),
+            "capture_and_replay_ms": times[0] * 1e3,
+            "replay_ms_p50": replay_ms, "fit_batch_x5_ms_p50": eager_ms,
+            "step_us_per_token_replay": replay_ms * 1e3 / tokens,
+            "step_us_per_token_fit_batch": eager_ms * 1e3 / tokens,
+            "launches": launches, "plan_launches": plan.launches,
+            "graph_kernel_nodes": nodes, "profiled_names": seen,
+            "profiled_replay": profiled}
+
+
+def _multistep_resnet_small():
+    """The small ResNet graph (`_resnet_small`, float32) over 2 calls of
+    a plan of SMALL_MULTISTEP_K steps (eager, then capture + replay)
+    against as many `fit_batch` steps: scores and parameters within
+    SMALL_TOL."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    model = json.loads(RESNET_SMALL_FIXTURE.read_text())["model"]
+    x, y = (torch.as_tensor(a, device=DEVICE) for a in _image_batch(
+        model["batch"], model["image_size"], model["classes"]))
+    graph_net, eager_net = (_resnet_small(None, model) for _ in range(2))
+    plan = graph_net.prepare_steps([DataSet(x, y)] * SMALL_MULTISTEP_K)
+    g_scores, e_scores = [], []
+    for _ in range(2):
+        graph_net.fit_prepared(plan)
+        g_scores += graph_net.last_scores.tolist()
+    for _ in range(2 * SMALL_MULTISTEP_K):
+        eager_net.fit(x, y)
+        e_scores.append(eager_net.score_value)
+    gp, ep = _flat_tree(graph_net.params), _flat_tree(eager_net.params)
+    worst = max(float(np.max(np.abs(gp[k] - ep[k]))) for k in ep)
+    check(plan.graph is not None
+          and np.allclose(g_scores, e_scores, **SMALL_TOL)
+          and all(np.allclose(gp[k], ep[k], **SMALL_TOL) for k in ep),
+          f"small ResNet graph vs eager: scores {g_scores} vs {e_scores}, "
+          f"worst parameter gap {worst}")
+    return {"scores_replay": g_scores, "scores_fit_batch": e_scores,
+            "param_max_abs_gap": worst}
+
+
+def _multistep_resnet50():
+    """bench_resnet50's configuration as one CUDA graph per MULTISTEP_K
+    steps: the eager first call, a snapshot, one replay (the parameters
+    after its first update recorded by a copy captured into the graph),
+    then MULTISTEP_K `fit_batch` steps from the snapshot: their first
+    scores (taken before either's first update) and every parameter's
+    first-update norm |p1 - p0| agree to BF16_SCORE_RTOL. Then
+    MULTISTEP_REPLAYS timed replays (counts set to 0 just before: no hand
+    kernel), one profiled."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    torch.cuda.empty_cache()
+    net = _resnet("bfloat16", **RESNET)
+    x, y = (torch.as_tensor(a, device=DEVICE)
+            for a in _image_batch(RESNET_BATCH, RESNET["image_size"]))
+    plan = net.prepare_steps([DataSet(x, y)] * MULTISTEP_K)
+    del x, y
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    net.fit_prepared(plan)                       # eager: the warm-up
+    warm_scores = net.last_scores.tolist()
+    snap = _snapshot(net)
+    p0 = _flat_tree(snap["params"])
+    optimizer, first = net._optimizer, {}
+    untimed = optimizer.step
+
+    def recording(grads):
+        untimed(grads)
+        if not first:       # captured: each replay copies its p1 here
+            first.update({f"{n}/{k}": t.clone() for n, ts in
+                          net.params.items() for k, t in ts.items()})
+    optimizer.step = recording
+    try:
+        t0 = time.perf_counter()
+        net.fit_prepared(plan)                   # capture + replay
+        torch.cuda.synchronize()
+        capture_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        del optimizer.step
+    check(plan.graph is not None, "the ResNet-50 plan was not captured")
+    g_scores = net.last_scores.tolist()
+    g_norms = {k: float(np.linalg.norm(
+        t.double().cpu().numpy() - p0[k])) for k, t in first.items()}
+    _restore(net, snap)
+    e_scores, e_norms = [], None
+    xy = [torch.as_tensor(a, device=DEVICE)
+          for a in _image_batch(RESNET_BATCH, RESNET["image_size"])]
+    e_times = []
+    for i in range(MULTISTEP_K):
+        e_times += _timed_calls(lambda: net.fit(*xy), 1)
+        e_scores.append(net.score_value)
+        if i == 0:
+            p1 = _flat_tree(net.params)
+            e_norms = {k: float(np.linalg.norm(p1[k] - p0[k])) for k in p0}
+    del xy
+    gap = abs(g_scores[0] - e_scores[0]) / abs(e_scores[0])
+    norm_gaps = {k: abs(g_norms[k] - e_norms[k]) / max(e_norms[k], 1e-30)
+                 for k in e_norms}
+    worst = max(norm_gaps,
+                key=lambda k: np.nan_to_num(norm_gaps[k], nan=np.inf))
+    check(all(np.isfinite(g_scores + e_scores)) and gap <= BF16_SCORE_RTOL
+          and norm_gaps[worst] <= BF16_SCORE_RTOL,
+          f"ResNet-50 replay vs fit_batch: first score gap {gap:.2e}, "
+          f"worst first-update norm gap {worst} {norm_gaps[worst]:.2e} "
+          f"(bar {BF16_SCORE_RTOL})")
+    reset_launch_counts()
+    times = _timed_calls(lambda: net.fit_prepared(plan), MULTISTEP_REPLAYS)
+    launches = counts()
+    check(set(launches.values()) == {0},
+          f"the ResNet-50 replays launched hand kernels: {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    profiled, _ = _profiled_replay(net, plan)
+    replay_ms = float(np.median(times)) * 1e3
+    eager_ms = float(np.median(e_times[1:])) * 1e3
+    del net, plan, snap, first
+    torch.cuda.empty_cache()
+    return {"K": MULTISTEP_K, "batch": RESNET_BATCH,
+            "warm_scores": warm_scores, "scores_replay": g_scores,
+            "scores_fit_batch": e_scores, "first_score_rel_gap": gap,
+            "first_update_norm_max_rel_gap": norm_gaps[worst],
+            "first_update_norm_worst": worst,
+            "capture_and_replay_ms": capture_ms,
+            "replay_ms_p50": replay_ms,
+            "step_ms_p50_replay": replay_ms / MULTISTEP_K,
+            "step_ms_p50_fit_batch": eager_ms,
+            "samples_per_s_replay":
+                RESNET_BATCH * MULTISTEP_K / (replay_ms / 1e3),
+            "samples_per_s_fit_batch": RESNET_BATCH / (eager_ms / 1e3),
+            "peak_mb": peak / 2**20, "launches": launches,
+            "profiled_replay": profiled}
+
+
+def _remat_findings():
+    """bench_resnet50's step under each of REMAT_RESNET: one `fit_batch`
+    step (after one warm-up step) with its time and peak memory, then
+    the same step as a plan of one step (eager, capture and replay, two
+    timed replays): the recompute's device cost without the host's; and
+    one bf16 `fit_batch` of transformer_lm at TRAIN_BATCH x TRAIN_SEQ
+    under "dots", whose recompute launches flash_fwd_bf16 again: 2 per
+    layer, the backward pair 1 each."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    x, y = (torch.as_tensor(a, device=DEVICE)
+            for a in _image_batch(RESNET_BATCH, RESNET["image_size"]))
+    resnet = {}
+    for mode in REMAT_RESNET:
+        torch.cuda.empty_cache()
+        net = _resnet("bfloat16", **RESNET, remat=mode)
+        net.fit(x, y)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eager_ms = _timed_calls(lambda: net.fit(x, y), 1)[0] * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        plan = net.prepare_steps([DataSet(x, y)])
+        for _ in range(2):                       # eager, capture + replay
+            net.fit_prepared(plan)
+        replay_ms = float(np.median(_timed_calls(
+            lambda: net.fit_prepared(plan), 2))) * 1e3
+        check(plan.graph is not None and np.isfinite(net.score_value),
+              f"remat {mode}: not captured or score not finite")
+        resnet[mode or "none"] = {"step_ms_fit_batch": eager_ms,
+                                  "peak_mb_fit_batch": peak,
+                                  "step_ms_replay": replay_ms}
+        del net, plan
+    del x, y
+    torch.cuda.empty_cache()
+    lm = _lm({**SERVE, "remat": "dots"}, True, "bfloat16")
+    x, y = _one_hot_batch(TRAIN_BATCH, TRAIN_SEQ)
+    lm.fit(x, y)
+    reset_launch_counts()
+    lm.fit(x, y)
+    launches = counts()
+    L = SERVE["n_layers"]
+    want = {"flash_fwd_bf16": 2 * L, "flash_bwd_dq_bf16": L,
+            "flash_bwd_dkv_bf16": L}
+    check({k: n for k, n in launches.items() if n} == want,
+          f"transformer under remat 'dots': launches {launches}, not {want}")
+    return {"resnet50": resnet, "transformer_dots_launches": launches}
+
+
+def _dropout_net(remat=None):
+    """A small transformer_lm on the card with every Dense and attention
+    layer at dropout DROPOUT_RATE and attention dropout DROPOUT_RATE."""
+    net = _lm({**DROPOUT_LM, "remat": remat}, True)
+    for spec in net.conf.vertices.values():
+        conf = getattr(spec, "layer_conf", None)
+        if conf is None or type(conf).__name__ not in ("DenseLayer",
+                                                       "SelfAttentionLayer"):
+            continue
+        conf.dropout = DROPOUT_RATE
+        if hasattr(conf, "attention_dropout"):
+            conf.attention_dropout = DROPOUT_RATE
+    return net
+
+
+def _dropout_on_card():
+    """Two replays of one plan from the same parameters and optimizer
+    state draw new masks (their first scores differ); a replay and
+    DROPOUT_K `fit_batch` steps from one generator state draw the same
+    ones (scores within SCORE_RTOL); and under remat="full" the graph's
+    recomputes draw the forward's masks again: 3 calls (eager, capture
+    and replay, replay) of a plan of the same net under "full" score as
+    the net without remat does, within SCORE_RTOL."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    ids = np.random.default_rng(1).integers(
+        0, DROPOUT_LM["vocab_size"], size=(DROPOUT_BATCH, DROPOUT_SEQ + 1))
+    eye = torch.eye(DROPOUT_LM["vocab_size"], device=DEVICE)
+    ids = torch.as_tensor(ids, device=DEVICE)
+    x, y = eye[ids[:, :-1]], eye[ids[:, 1:]]
+    net = _dropout_net()
+    plan = net.prepare_steps([DataSet(x, y)] * DROPOUT_K)
+    net.fit_prepared(plan)                       # eager: the warm-up
+    snap = _snapshot(net)
+    net.fit_prepared(plan)                       # capture + replay
+    first = net.last_scores.tolist()
+    _restore(net, snap, rng=False)
+    net.fit_prepared(plan)
+    second = net.last_scores.tolist()
+    check(plan.graph is not None and first[0] != second[0],
+          f"two replays from the same parameters drew the same masks: "
+          f"{first} / {second}")
+    _restore(net, snap)
+    net.fit_prepared(plan)
+    replayed = net.last_scores.tolist()
+    _restore(net, snap)
+    eager = []
+    for _ in range(DROPOUT_K):
+        net.fit(x, y)
+        eager.append(net.score_value)
+    gap = float(np.max(np.abs(np.subtract(replayed, eager))
+                       / np.abs(eager)))
+    check(np.allclose(replayed, first, rtol=SCORE_RTOL, atol=0)
+          and gap <= SCORE_RTOL,
+          f"dropout: replay {replayed} (first {first}) vs fit_batch "
+          f"{eager} from one generator state: gap {gap:.2e}")
+    del net, plan
+    nets = [_dropout_net(), _dropout_net("full")]
+    plans = [n.prepare_steps([DataSet(x, y)] * DROPOUT_K) for n in nets]
+    runs = [[], []]
+    for _ in range(3):
+        for n, p, run in zip(nets, plans, runs):
+            n.fit_prepared(p)
+            run += n.last_scores.tolist()
+    remat_gap = float(np.max(np.abs(np.subtract(runs[1], runs[0]))
+                             / np.abs(runs[0])))
+    check(plans[1].graph is not None and remat_gap <= SCORE_RTOL,
+          f"dropout under remat 'full' in the graph: {runs[1]} vs "
+          f"{runs[0]} without remat (gap {remat_gap:.2e})")
+    return {"replay_scores": first, "second_replay_scores": second,
+            "fit_batch_scores": eager, "replay_vs_fit_batch_rel_gap": gap,
+            "remat_full_scores": runs[1], "remat_full_rel_gap": remat_gap}
+
+
+def phase_multistep(smi):
+    """The K-step training loop on the card: `prepare_steps` /
+    `fit_prepared` as one CUDA graph of MULTISTEP_K steps per plan,
+    replayed once a call, for transformer_lm (f32 and bf16, the hand
+    kernels inside the graph) and ResNet-50 at bench_resnet50's
+    configuration; the small ResNet graph, graph against eager; remat's
+    peaks; dropout's masks in the graph. Returns the replays' launch
+    counts by path."""
+    import torch
+    torch.cuda.empty_cache()
+    f32 = _multistep_lm(None, ("flash_fwd", "flash_bwd_dq",
+                               "flash_bwd_dkv"))
+    bf16 = _multistep_lm("bfloat16", ("flash_fwd_bf16", "flash_bwd_dq_bf16",
+                                      "flash_bwd_dkv_bf16"))
+    small = _multistep_resnet_small()
+    resnet = _multistep_resnet50()
+    remat = _remat_findings()
+    dropout = _dropout_on_card()
+    summary = {"transformer_f32": f32, "transformer_bf16": bf16,
+               "resnet_small": small, "resnet50": resnet, "remat": remat,
+               "dropout": dropout, "card": smi}
+    print(json.dumps({"multistep": summary}))
+    for r in (f32, bf16):
+        print(f"K-step transformer_lm {TRAIN_BATCH} x {TRAIN_SEQ} "
+              f"{r['compute_dtype']} ({smi}): a replay of {MULTISTEP_K} "
+              f"steps {r['replay_ms_p50']:.2f} ms vs {MULTISTEP_K} fit_batch "
+              f"{r['fit_batch_x5_ms_p50']:.2f} ms "
+              f"({r['step_us_per_token_replay']:.4f} vs "
+              f"{r['step_us_per_token_fit_batch']:.4f} us a token), busy "
+              f"{r['profiled_replay']['device_busy_share']:.3f}, scores "
+              f"within {r['max_score_rel_diff']:.2e}")
+    print(f"K-step ResNet-50 bf16 batch {RESNET_BATCH} ({smi}): step p50 "
+          f"{resnet['step_ms_p50_replay']:.2f} ms replayed vs "
+          f"{resnet['step_ms_p50_fit_batch']:.2f} fit_batch, "
+          f"{resnet['samples_per_s_replay']:.1f} vs "
+          f"{resnet['samples_per_s_fit_batch']:.1f} samples/s, peak "
+          f"{resnet['peak_mb']:.0f} MiB, busy "
+          f"{resnet['profiled_replay']['device_busy_share']:.3f}; first "
+          f"score gap {resnet['first_score_rel_gap']:.2e}, first-update "
+          f"norm gap {resnet['first_update_norm_max_rel_gap']:.2e}; small "
+          f"graph param gap {small['param_max_abs_gap']:.2e}")
+    print(f"remat ResNet-50 bf16 batch {RESNET_BATCH} ({smi}): " + ", ".join(
+        f"{m} {r['step_ms_fit_batch']:.1f} ms fit_batch, "
+        f"{r['step_ms_replay']:.1f} ms replayed, peak "
+        f"{r['peak_mb_fit_batch']:.0f} MiB"
+        for m, r in remat["resnet50"].items())
+          + f"; dropout replay vs fit_batch gap "
+            f"{dropout['replay_vs_fit_batch_rel_gap']:.2e}, under remat "
+            f"'full' {dropout['remat_full_rel_gap']:.2e}")
+    return {"multistep": f32["launches"], "multistep_bf16": bf16["launches"],
+            "multistep_resnet50": resnet["launches"]}
+
+
 # ------------------------------------------------------------------ main
 _FA = "deeplearning4j_tpu/kernels/flash_attention.py"
 REPLACES = {
@@ -3979,6 +4530,7 @@ def main():
     launches["ring_f32"] = ring["launches_f32_n4"]
     cases += ring_cases
     launches["resnet50"] = phase_resnet50(smi)["launches"]
+    launches.update(phase_multistep(smi))
     from deeplearning4j_tpu_torch.kernels import route_counts
     for path, n in launches.items():
         # the D=320 model's paths take the wide routes and no other

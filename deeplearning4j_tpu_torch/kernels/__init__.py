@@ -15,20 +15,22 @@ compiled width, above it on the wide kernels); `route_counts` counts the
 f32 backward pair's calls padded to a compiled width, those taken by the
 wide kernels, those run plainly by shape and those of each route by
 type."""
-from .flash_attention import (attention_delta, can_flash, flash_attention,
-                              flash_attention_bwd, flash_attention_bwd_plain,
-                              flash_attention_lse, flash_attention_plain,
-                              flash_bwd_dkv, flash_bwd_dkv_plain,
-                              flash_bwd_dq, flash_bwd_dq_plain, flash_decode,
+from .flash_attention import (add_graph_counts, attention_delta, can_flash,
+                              flash_attention, flash_attention_bwd,
+                              flash_attention_bwd_plain, flash_attention_lse,
+                              flash_attention_plain, flash_bwd_dkv,
+                              flash_bwd_dkv_plain, flash_bwd_dq,
+                              flash_bwd_dq_plain, flash_decode,
                               flash_decode_paged, flash_decode_paged_plain,
-                              flash_decode_plain, kernel_head_dim,
-                              launch_counts, reset_launch_counts,
-                              route_counts)
+                              flash_decode_plain, graph_counts,
+                              kernel_head_dim, launch_counts,
+                              reset_launch_counts, route_counts)
 
-__all__ = ["attention_delta", "can_flash", "flash_attention",
-           "flash_attention_bwd", "flash_attention_bwd_plain",
-           "flash_attention_lse", "flash_attention_plain", "flash_bwd_dkv",
-           "flash_bwd_dkv_plain", "flash_bwd_dq", "flash_bwd_dq_plain",
-           "flash_decode", "flash_decode_paged", "flash_decode_paged_plain",
-           "flash_decode_plain", "kernel_head_dim", "launch_counts",
-           "reset_launch_counts", "route_counts"]
+__all__ = ["add_graph_counts", "attention_delta", "can_flash",
+           "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "flash_attention_lse",
+           "flash_attention_plain", "flash_bwd_dkv", "flash_bwd_dkv_plain",
+           "flash_bwd_dq", "flash_bwd_dq_plain", "flash_decode",
+           "flash_decode_paged", "flash_decode_paged_plain",
+           "flash_decode_plain", "graph_counts", "kernel_head_dim",
+           "launch_counts", "reset_launch_counts", "route_counts"]

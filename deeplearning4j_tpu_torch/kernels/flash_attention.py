@@ -907,6 +907,27 @@ def route_counts():
     return dict(_routes)
 
 
+def graph_counts(since=None):
+    """Every kernel's launches and every route's calls so far, in one
+    dict (the two sets of names are disjoint); with `since`, an earlier
+    such dict, what was added after it. A CUDA graph's capture records
+    launches without running them: the caller takes the capture's counts
+    out and adds them back at each replay (`add_graph_counts`), so that
+    `launch_counts()` stays the number of launches the card ran."""
+    now = {**_launches, **_routes}
+    if since is None:
+        return now
+    return {k: n - since.get(k, 0) for k, n in now.items()
+            if n != since.get(k, 0)}
+
+
+def add_graph_counts(counts, times=1):
+    """Add `times` x `counts` (a `graph_counts(since)` dict) to the
+    launch and route counts."""
+    for k, n in counts.items():
+        (_launches if k in _launches else _routes)[k] += n * int(times)
+
+
 def reset_launch_counts():
     for counts in (_launches, _routes):
         for name in counts:

@@ -54,8 +54,9 @@ class NeuralNetConfigurationBuilder:
         return self
 
     def remat(self, mode):
-        """Stored; inference never rematerializes and `fit` raises while
-        remat is not ported (ROADMAP queue 1: K-step loop, remat)."""
+        """The training forward's checkpoint policy (nn/remat.py): None,
+        "full", "dots", "dots_no_batch" or "convs_and_dots"; inference
+        never rematerializes."""
         self._g["remat"] = mode
         return self
 

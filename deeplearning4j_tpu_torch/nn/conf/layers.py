@@ -1,6 +1,6 @@
 """Layer configuration dataclasses (counterpart of
 deeplearning4j_tpu/nn/conf/layers.py; the configs `transformer_lm` and
-`resnet50` use).
+`resnet50` use, and DropoutLayer).
 
 Hyperparameters left as None inherit the builder's global values. A layer
 left without an updater trains with Sgd(0.1) (`nn.updaters.layer_transform`)."""
@@ -199,6 +199,14 @@ class LocalResponseNormalization(_NoActivationConf):
 @dataclass
 class ActivationLayer(BaseLayerConf):
     """Applies an activation only."""
+
+    def get_output_type(self, input_type):
+        return input_type
+
+
+@dataclass
+class DropoutLayer(_NoActivationConf):
+    """Dropout as a layer of its own (its `dropout` rate on its input)."""
 
     def get_output_type(self, input_type):
         return input_type

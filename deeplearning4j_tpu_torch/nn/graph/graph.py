@@ -6,10 +6,10 @@ parameters are `{layer name: {key: tensor}}`, the JAX package's tree, and
 so is the layer state (`states`: batch norm's running mean and variance;
 an empty dict for a stateless layer), so both cross between the packages
 by name (util/params.py). A forward in training mode gives each layer's
-new state; `fit_batch` keeps the new states of the forward that gave the
-loss, detached, once per step. Inference (`output`, `score`,
-`compute_gradient_and_score`) reads the states and leaves them as they
-are.
+new state; `fit_batch` writes the new states of the forward that gave the
+loss into the state tensors, in place, once per step. Inference
+(`output`, `score`, `compute_gradient_and_score`) reads the states and
+leaves them as they are.
 
 Training: `fit` takes one optimizer step per minibatch. The JAX package
 jits `value_and_grad` of `_loss` plus the optax update into one
@@ -19,6 +19,12 @@ gradients (attention's backward in the hand-written kernels when
 `use_pallas=True`), gradient normalization, then the per-layer optimizer
 updates the parameters IN PLACE. A cached decode engine reads the
 parameters live, so `generate` after `fit` sees the trained weights.
+`fit(steps_per_execution=K)`, `prepare_steps` and `fit_prepared` run K
+steps a call (nn/multistep.py: on the card one CUDA graph of the K
+steps); with `conf.remat` the training forward is checkpointed under the
+named policy (nn/remat.py), layer by layer; a dropout rate above 0 draws
+its masks from the model's `DropoutStream` (nn/layers/base.py), one
+generator per layer, in training.
 
 Mixed precision (`compute_dtype="bfloat16"`, JAX graph.py:169-191): the
 parameters stay float32 masters. The loss and `output` cast every
@@ -39,6 +45,8 @@ from ...datasets.dataset import DataSet, MultiDataSet
 from ...device import resolve_device
 from ..conf.graph_configuration import ComputationGraphConfiguration
 from ..layers import base as _base
+from ..multistep import MultiStepTrainable
+from ..remat import maybe_checkpoint
 from ..updaters import (PerLayerOptimizer, apply_gradient_normalization,
                         layer_transform)
 
@@ -46,7 +54,7 @@ _DTYPES = {"float32": torch.float32}
 _COMPUTE_DTYPES = {"bfloat16": torch.bfloat16}
 
 
-class ComputationGraph:
+class ComputationGraph(MultiStepTrainable):
     def __init__(self, conf: ComputationGraphConfiguration, device=None):
         self.conf = conf
         self.order = conf.topo_sort()
@@ -69,6 +77,13 @@ class ComputationGraph:
         self.iteration_count = 0
         self.epoch_count = 0
         self._score = float("nan")
+        self.last_scores = None
+        self._dropout = _base.DropoutStream(conf.seed, self.device,
+                                            self.layers)
+        # captured K-step graphs (nn/multistep.py) are of one epoch
+        self._graph_epoch = 0
+        self._graph_pool = None
+        self._capture_stream = None
         # output vertices no other vertex reads: the loss replaces their
         # forward with their score
         consumed = {i for s in conf.vertices.values() for i in s.inputs}
@@ -105,6 +120,10 @@ class ComputationGraph:
         state may be left out of `states`)."""
         if device is not None:
             self.device = resolve_device(device)
+            if self._dropout.device != self.device:
+                self._dropout = _base.DropoutStream(
+                    self.conf.seed, self.device, self.layers)
+                self._capture_stream = None
         gen = torch.Generator().manual_seed(int(self.conf.seed))
         fresh = {name: layer.init(gen, self._dtype, self.device)
                  for name, layer in self.layers.items()}
@@ -135,16 +154,21 @@ class ComputationGraph:
         return loaded
 
     def _build_updater(self):
+        """New per-layer optimizers over the current parameters; every
+        captured K-step graph goes stale."""
         updaters = {name: layer_transform(self.conf.vertices[name].layer_conf)
                     for name in self.params}
         self._optimizer = PerLayerOptimizer(updaters, self.params)
+        self._graph_epoch += 1
 
     # -------------------------------------------------------------- forward
     def _forward(self, params, states, inputs, masks=None, *, train=False,
-                 skip=()):
+                 rng=None, remat=None, skip=()):
         """(activations, new states, masks) of every vertex but those in
         `skip`, masks flowing as in the JAX package (a vertex passes on its
-        first input's mask)."""
+        first input's mask); `rng`: the model's `DropoutStream` in a
+        training forward; `remat`: the checkpoint policy each layer's
+        forward runs under."""
         conf = self.conf
         acts, out_masks = {}, {}
         new_states = dict(states)
@@ -159,9 +183,12 @@ class ComputationGraph:
             xs = [acts[i] for i in spec.inputs]
             ms = [out_masks.get(i) for i in spec.inputs]
             if spec.kind == "layer":
-                acts[name], new_states[name], out_masks[name] = \
-                    self.layers[name].forward(params[name], states[name],
-                                              xs[0], train=train, mask=ms[0])
+                draws = None if rng is None else rng.layer(name)
+                forward = maybe_checkpoint(self.layers[name].forward, remat,
+                                           draws)
+                acts[name], new_states[name], out_masks[name] = forward(
+                    params[name], states[name], xs[0], train=train,
+                    rng=draws, mask=ms[0])
             else:
                 acts[name] = spec.vertex_conf.apply(xs)
                 out_masks[name] = next((m for m in ms if m is not None), None)
@@ -176,11 +203,14 @@ class ComputationGraph:
         return None if arrs is None else \
             [None if a is None else self._to_model(a) for a in arrs]
 
-    def output(self, *inputs, mask=None):
+    def output(self, *inputs, train=False, mask=None):
         """Inference forward (in the compute dtype, if one is set). `mask`
         is a [batch, time] validity mask for the first network input.
         Returns the output tensor (a list for several outputs) on the
-        model's device, in the model dtype."""
+        model's device, in the model dtype. `train` is taken for the JAX
+        package's signature (graph.py:507) and, as there, changes
+        nothing: `output` draws no dropout and reads the running
+        statistics."""
         if self.params is None:
             self.init()
         with torch.inference_mode():
@@ -228,11 +258,21 @@ class ComputationGraph:
         """(scalar score, new states): every output layer's loss on the
         features feeding it (its forward is replaced by its score), plus
         l1/l2. Under a compute dtype the forward runs on the cast
-        parameters and the features reach the loss in the model dtype."""
+        parameters and the features reach the loss in the model dtype. In
+        training, dropout draws from the model's stream and, under
+        `conf.remat`, each layer's forward and each output layer's score
+        is checkpointed on its own. (JAX graph.py:204-213 checkpoints the
+        whole forward, and XLA schedules its recompute into the backward;
+        torch recomputes a region whole when the backward first reaches
+        it, so one region over the forward would hold every activation
+        again at once: on ResNet-50 it left the peak where it was.)"""
         conf = self.conf
         params, inputs = self._cast_for_compute(params, inputs)
+        rng = self._dropout if train else None
+        remat = conf.remat if train else None
         acts, new_states, out_masks = self._forward(
-            params, states, inputs, masks, train=train, skip=self._loss_only)
+            params, states, inputs, masks, train=train, rng=rng, remat=remat,
+            skip=self._loss_only)
         total = 0.0
         lm = label_masks or [None] * len(conf.network_outputs)
         for out_name, y, mlab in zip(conf.network_outputs, labels, lm):
@@ -245,8 +285,10 @@ class ComputationGraph:
             if self._compute_dtype() is not None:
                 feats = feats.to(self._dtype)   # loss in full precision
             mask = mlab if mlab is not None else out_masks.get(spec.inputs[0])
-            total = total + layer.score(params[out_name], feats, y, mask,
-                                        train)
+            draws = None if rng is None else rng.layer(out_name)
+            score = maybe_checkpoint(layer.score, remat, draws)
+            total = total + score(params[out_name], feats, y, mask, train,
+                                  draws)
         return total + self._reg_score(params), new_states
 
     def _reg_score(self, params):
@@ -307,11 +349,11 @@ class ComputationGraph:
         of every epoch), or features with `labels` — one optimizer step per
         minibatch, `epochs` times over. Anything else raises TypeError, as
         the reference's `as_iterator` does (datasets/iterator/base.py:
-        357-371): a one-shot iterable would train its first epoch only."""
-        if int(steps_per_execution) > 1:
-            raise NotImplementedError(
-                "steps_per_execution > 1 is not ported yet (ROADMAP queue 1: "
-                "K-step loop, remat)")
+        357-371): a one-shot iterable would train its first epoch only.
+        `steps_per_execution=K` runs full groups of K minibatches as one
+        `prepare_steps` / `fit_prepared` plan each (nn/multistep.py), a
+        ragged tail and a group that cannot run as one batch by batch."""
+        K = max(1, int(steps_per_execution))
         if prefetch:
             raise NotImplementedError(
                 "prefetch is not ported yet (ROADMAP queue 1: persistence, "
@@ -333,8 +375,11 @@ class ComputationGraph:
         for _ in range(int(epochs)):
             if hasattr(items, "reset"):
                 items.reset()
-            for ds in items:
-                self.fit_batch(ds)
+            if K > 1:
+                self._fit_grouped(items, K)
+            else:
+                for ds in items:
+                    self.fit_batch(ds)
             self.epoch_count += 1
         return self
 
@@ -348,10 +393,6 @@ class ComputationGraph:
             raise NotImplementedError(
                 "truncated BPTT is not ported yet (ROADMAP queue 1: "
                 "recurrent, char-RNN)")
-        if conf.remat is not None:
-            raise NotImplementedError(
-                "remat is not ported yet (ROADMAP queue 1: K-step loop, "
-                "remat)")
 
     def _prep_batch(self, ds):
         """(inputs, labels, masks, label masks) lists of tensors on the
@@ -370,12 +411,24 @@ class ComputationGraph:
         if self.params is None:
             self.init()
         self._check_trainable()
-        inputs, labels, masks, lmasks = self._prep_batch(ds)
-        score, grads, self.states = self._value_and_grad(
+        self._score = self._train_step(*self._prep_batch(ds))
+        self.iteration_count += 1
+
+    def _train_step(self, inputs, labels, masks, lmasks):
+        """One training step on prepared tensors: the loss and its
+        gradients, the optimizer's update of the parameters and the new
+        layer states, both in place; returns the score tensor. Nothing
+        here reads a device value on the host, so a CUDA graph can
+        capture it (nn/multistep.py)."""
+        score, grads, states = self._value_and_grad(
             inputs, labels, masks, lmasks, train=True)
         self._optimizer.step(self._normalize_grads(grads))
-        self._score = score
-        self.iteration_count += 1
+        with torch.no_grad():
+            for name, s in states.items():
+                for key, t in s.items():
+                    if t is not self.states[name][key]:
+                        self.states[name][key].copy_(t)
+        return score
 
     def score(self, ds):
         """The loss on one DataSet / MultiDataSet at inference (no

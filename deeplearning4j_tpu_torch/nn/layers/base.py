@@ -5,10 +5,13 @@ in a `{name: tensor}` dict per layer, and so does its state (the
 non-trainable variables, such as batch norm's running mean and
 variance), so the port's trees have the same keys as the JAX package's and
 cross over by name (util/params.py). `init` gives `(params, state)`;
-`forward(params, state, x, train=..., mask=...)` returns `(activations,
-new_state, mask)`, a stateless layer its empty state unchanged; masks are
-[batch, time] validity."""
+`forward(params, state, x, train=..., rng=..., mask=...)` returns
+`(activations, new_state, mask)`, a stateless layer its empty state
+unchanged; masks are [batch, time] validity; `rng` is the dropout mask
+source of a training forward (the layer's `LayerDraws`)."""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -34,15 +37,104 @@ def create_layer(conf):
     return cls(conf)
 
 
-def apply_dropout(x, rate, train):
-    """Dropout on the layer input: a no-op at inference and at rate 0.
-    A rate above 0 during training raises: training-time dropout (with
-    injected masks for the parity tests) is not ported yet."""
-    if not train or rate is None or rate <= 0.0:
+def apply_dropout(x, rate, train, rng=None):
+    """Inverted dropout on the layer input (JAX nn/layers/base.py:40-47):
+    in training, each element kept with probability keep = 1 - rate and
+    scaled by 1 / keep, else 0; `x` itself at inference, at rate 0 and
+    without a mask source. `rng` is the mask source: an object whose
+    `keep_mask(shape, keep, device)` gives a bool tensor, True where an
+    element is kept (the layer's `LayerDraws`; a test may hand in the
+    masks the JAX package drew, whose threefry stream torch does not
+    have)."""
+    if not train or rate is None or rate <= 0.0 or rng is None:
         return x
-    raise NotImplementedError(
-        "training-time dropout is not ported yet (ROADMAP queue 1: "
-        "training-time dropout)")
+    keep = 1.0 - rate
+    mask = rng.keep_mask(tuple(x.shape), keep, x.device)
+    return torch.where(mask, x / keep, 0.0)
+
+
+class LayerDraws:
+    """One layer's dropout draws: keep masks `torch.rand(...) < keep` from
+    a `torch.Generator` of its own on the model's device, in the order the
+    layer applies dropout (its input, then, for SelfAttentionLayer, the
+    attention output), one sequence per training step.
+
+    A checkpointed layer (nn/remat.py) runs its forward twice, and the
+    recompute must draw the masks the forward drew. `twin` is a second
+    generator the recompute draws from (`recompute_region`): at the
+    start of each checkpointed forward it is set to the state the
+    generator has there (`forward_region`), so both make the same draws.
+    While a CUDA graph captures, a generator's state cannot be read or
+    set; a captured step relies on the two advancing together (the
+    recompute re-runs the layer's forward whole, so it makes the forward's
+    draws), and `DropoutStream.sync()` sets every twin before each
+    replay."""
+
+    def __init__(self, seed, device):
+        self.generator = torch.Generator(device=device).manual_seed(seed)
+        self.twin = torch.Generator(device=device).manual_seed(seed)
+        self._draw = self.generator
+
+    def keep_mask(self, shape, keep, device):
+        return torch.rand(shape, generator=self._draw, device=device) < keep
+
+    def sync(self):
+        """The twin at the generator's state (host-side; not while
+        capturing)."""
+        self.twin.set_state(self.generator.get_state())
+
+    @contextlib.contextmanager
+    def forward_region(self):
+        if self.generator.device.type != "cuda" or \
+                not torch.cuda.is_current_stream_capturing():
+            self.sync()
+        yield
+
+    @contextlib.contextmanager
+    def recompute_region(self):
+        self._draw = self.twin
+        try:
+            yield
+        finally:
+            self._draw = self.generator
+
+
+class DropoutStream:
+    """A model's dropout draws: one `LayerDraws` per layer, as the JAX
+    package splits its key per layer, each seeded from the configuration's
+    seed and the layer's place in the graph, on the model's device. A
+    layer's masks come from its own generator, so they do not depend on
+    which other layers drop out. A CUDA graph registers the generators of
+    the layers that drop out (`generators()`), so each replay draws new
+    masks."""
+
+    def __init__(self, seed, device, layers):
+        self.device = torch.device(device)
+        self._layers = layers
+        seeds = torch.randint(0, 2 ** 62, (len(layers),),
+                              generator=torch.Generator().manual_seed(
+                                  int(seed))).tolist()
+        self._draws = {name: LayerDraws(s, self.device)
+                       for name, s in zip(layers, seeds)}
+
+    def layer(self, name):
+        return self._draws[name]
+
+    def generators(self):
+        """The generators and twins of the layers whose conf sets a rate."""
+        return [g for name, d in self._draws.items()
+                if drops_out(self._layers[name].conf)
+                for g in (d.generator, d.twin)]
+
+    def sync(self):
+        for d in self._draws.values():
+            d.sync()
+
+
+def drops_out(conf):
+    """Whether a layer conf sets a dropout rate above 0."""
+    return any((getattr(conf, k, None) or 0.0) > 0.0
+               for k in ("dropout", "attention_dropout"))
 
 
 def matmul(x, w):
@@ -99,8 +191,10 @@ class BaseLayerModule:
         return (self.make(self.param_specs(), generator, dtype, device),
                 self.make(self.state_specs(), generator, dtype, device))
 
-    def forward(self, params, state, x, *, train=False, mask=None):
-        """(activations, new state, mask)."""
+    def forward(self, params, state, x, *, train=False, rng=None,
+                mask=None):
+        """(activations, new state, mask); `rng`: the dropout mask source
+        (`apply_dropout`), used in training only."""
         raise NotImplementedError
 
     def is_output_layer(self):

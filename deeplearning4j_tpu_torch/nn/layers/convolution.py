@@ -84,8 +84,9 @@ class ConvolutionLayerModule(BaseLayerModule):
             z = z + params["b"]
         return z
 
-    def forward(self, params, state, x, *, train=False, mask=None):
-        x = apply_dropout(x, self.conf.dropout, train)
+    def forward(self, params, state, x, *, train=False, rng=None,
+                mask=None):
+        x = apply_dropout(x, self.conf.dropout, train, rng)
         return self.activation_fn()(self.preoutput(params, x)), state, mask
 
 
@@ -94,7 +95,8 @@ class SubsamplingLayerModule(BaseLayerModule):
     """max pads with -inf; avg sums the window, zero pads included, and
     divides by kh·kw; sum; pnorm (Σ|x|^p)^(1/p)."""
 
-    def forward(self, params, state, x, *, train=False, mask=None):
+    def forward(self, params, state, x, *, train=False, rng=None,
+                mask=None):
         c = self.conf
         kernel, stride = _pair(c.kernel_size), _pair(c.stride)
         pads = _window_pads(c, x)
@@ -119,7 +121,8 @@ class SubsamplingLayerModule(BaseLayerModule):
 
 @register_impl("ZeroPaddingLayer")
 class ZeroPaddingLayerModule(BaseLayerModule):
-    def forward(self, params, state, x, *, train=False, mask=None):
+    def forward(self, params, state, x, *, train=False, rng=None,
+                mask=None):
         c = self.conf
         return (_pad_nhwc(x, (c.pad_top, c.pad_bottom, c.pad_left,
                               c.pad_right)), state, mask)
@@ -130,7 +133,8 @@ class LocalResponseNormalizationModule(BaseLayerModule):
     """Cross-channel LRN on NHWC: x / (k + alpha · Σ x²)^beta, the sum over
     a window of n channels padded (n // 2, n − 1 − n // 2)."""
 
-    def forward(self, params, state, x, *, train=False, mask=None):
+    def forward(self, params, state, x, *, train=False, rng=None,
+                mask=None):
         c = self.conf
         n = int(c.n)
         half = n // 2
@@ -148,7 +152,8 @@ class LayerNormalizationModule(BaseLayerModule):
         n = int(self.conf.n_in)
         return {"gamma": ((n,), "ones"), "beta": ((n,), "zeros")}
 
-    def forward(self, params, state, x, *, train=False, mask=None):
+    def forward(self, params, state, x, *, train=False, rng=None,
+                mask=None):
         mu = x.mean(dim=-1, keepdim=True)
         var = torch.square(x - mu).mean(dim=-1, keepdim=True)
         # JAX adds eps as a weakly typed scalar: it takes var's type first
@@ -186,7 +191,8 @@ class BatchNormalizationModule(BaseLayerModule):
         n = int(self.conf.n_in)
         return {"mean": ((n,), "zeros"), "var": ((n,), "ones")}
 
-    def forward(self, params, state, x, *, train=False, mask=None):
+    def forward(self, params, state, x, *, train=False, rng=None,
+                mask=None):
         c = self.conf
         axes = tuple(range(x.dim() - 1))
         in_dt, stat_dt = x.dtype, state["mean"].dtype
@@ -225,7 +231,8 @@ class GlobalPoolingLayerModule(BaseLayerModule):
     one is given) or over space ([b, h, w, c] -> [b, c]); the mask ends
     here."""
 
-    def forward(self, params, state, x, *, train=False, mask=None):
+    def forward(self, params, state, x, *, train=False, rng=None,
+                mask=None):
         c = self.conf
         pt = c.pooling_type
         p = float(c.pnorm)

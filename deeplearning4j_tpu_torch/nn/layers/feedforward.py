@@ -18,8 +18,9 @@ class _DenseCore(BaseLayerModule):
     def preoutput(self, params, x):
         return matmul(x, params["W"]) + params["b"]
 
-    def forward(self, params, state, x, *, train=False, mask=None):
-        x = apply_dropout(x, self.conf.dropout, train)
+    def forward(self, params, state, x, *, train=False, rng=None,
+                mask=None):
+        x = apply_dropout(x, self.conf.dropout, train, rng)
         return self.activation_fn()(self.preoutput(params, x)), state, mask
 
 
@@ -37,8 +38,8 @@ class BaseOutputLayerModule(_DenseCore):
     def loss_fn(self):
         return get_loss(self.conf.loss)
 
-    def score(self, params, x, labels, mask=None, train=False):
-        x = apply_dropout(x, self.conf.dropout, train)
+    def score(self, params, x, labels, mask=None, train=False, rng=None):
+        x = apply_dropout(x, self.conf.dropout, train, rng)
         z = self.preoutput(params, x)
         return self.loss_fn()(labels, z, self.conf.activation, mask)
 
@@ -54,10 +55,11 @@ class RnnOutputLayerModule(BaseOutputLayerModule):
     """Dense projection + activation per timestep on [b, t, f]; the loss
     runs on the [b*t] positions with a per-position mask."""
 
-    def forward(self, params, state, x, *, train=False, mask=None):
+    def forward(self, params, state, x, *, train=False, rng=None,
+                mask=None):
         return self.activation_fn()(self.preoutput(params, x)), state, mask
 
-    def score(self, params, x, labels, mask=None, train=False):
+    def score(self, params, x, labels, mask=None, train=False, rng=None):
         z = self.preoutput(params, x)
         b, t = z.shape[0], z.shape[1]
         m2 = mask.reshape(b * t) if mask is not None else None

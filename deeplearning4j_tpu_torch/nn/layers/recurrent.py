@@ -69,10 +69,11 @@ class SelfAttentionLayerModule(BaseLayerModule):
             out = out * mask[:, :, None]
         return out
 
-    def forward(self, params, state, x, *, train=False, mask=None):
+    def forward(self, params, state, x, *, train=False, rng=None,
+                mask=None):
         c = self.conf
-        x = apply_dropout(x, c.dropout, train)
+        x = apply_dropout(x, c.dropout, train, rng)
         q, k, v = self.project_qkv(params, x)
         out = self.attend(q, k, v, mask)
-        out = apply_dropout(out, c.attention_dropout, train)
+        out = apply_dropout(out, c.attention_dropout, train, rng)
         return self.finish(params, out, mask), state, mask

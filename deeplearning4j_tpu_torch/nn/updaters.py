@@ -82,9 +82,14 @@ class Adam(BaseUpdater):
     epsilon: float = 1e-8
 
     def optimizer(self, tensors):
+        """On the card the optimizer is built capturable (its step count
+        a device tensor, the bias corrections computed on the device), so
+        an eager step and a CUDA graph's replay of it run one arithmetic;
+        on the host it is the plain `torch.optim.Adam`."""
         return torch.optim.Adam(tensors, lr=self.schedule()(0),
                                 betas=(self.beta1, self.beta2),
-                                eps=self.epsilon)
+                                eps=self.epsilon,
+                                capturable=tensors[0].is_cuda)
 
 
 def layer_transform(layer_conf):
@@ -97,16 +102,29 @@ def layer_transform(layer_conf):
 class PerLayerOptimizer:
     """One optimizer per layer (`per_layer_transform`): `step(grads)`
     updates params[name] in place from grads[name] with layer `name`'s
-    updater, at the learning rate its schedule gives this step."""
+    updater, at the learning rate its schedule gives this step. `count`
+    is the number of steps taken: `step` adds one, and a CUDA graph that
+    replays n captured steps adds n (nn/multistep.py)."""
 
     def __init__(self, updaters: dict, params: dict):
         self._layers = {}
+        self._fixed = True
         for name, ps in params.items():
             if ps:
                 upd = updaters[name]
                 self._layers[name] = (upd.schedule(), dict(ps),
                                       upd.optimizer(list(ps.values())))
+                self._fixed &= upd.lr_policy in (None, "none", "fixed") \
+                    and not getattr(upd, "momentum_schedule", None)
         self.count = 0
+
+    def check_capturable(self):
+        """Raise unless every layer's learning rate is fixed: a captured
+        step keeps the rate it was captured with."""
+        if not self._fixed:
+            raise NotImplementedError(
+                "a CUDA graph bakes the learning rate in: only the fixed "
+                "policy can be captured")
 
     def step(self, grads: dict):
         for name, g in grads.items():

@@ -58,8 +58,8 @@ def resnet50(num_classes=1000, image_size=224, seed=12345, updater=None,
     pooling and the output layer. `updater` defaults to Nesterovs(0.1,
     0.9), as in the JAX package; `compute_dtype="bfloat16"` runs the
     convolutions and activations in bf16 on float32 parameters and batch
-    statistics. `remat` is stored and `fit` raises (not ported).
-    `device`: the card unless "cpu"."""
+    statistics. `remat` names the training forward's checkpoint policy
+    (nn/remat.py). `device`: the card unless "cpu"."""
     gb = (NeuralNetConfiguration.builder()
           .seed(seed)
           .updater(updater or Nesterovs(learning_rate=0.1, momentum=0.9))

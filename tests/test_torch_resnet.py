@@ -349,6 +349,6 @@ def test_resnet50_without_a_card_raises():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tzoo.resnet50()
     net = tzoo.resnet50(image_size=32, remat="full", device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
-        net.fit(np.zeros((2, 32, 32, 3), np.float32),
-                np.eye(1000, dtype=np.float32)[[0, 1]])
+    net.fit(np.zeros((2, 32, 32, 3), np.float32),
+            np.eye(1000, dtype=np.float32)[[0, 1]])
+    assert net.iteration_count == 1 and np.isfinite(net.score_value)

@@ -172,10 +172,10 @@ def test_output_layer_scores_float32_features(monkeypatch):
     seen = {}
     score, attend = out_layer.score, attn.attend
 
-    def spy_score(params, x, labels, mask=None, train=False):
+    def spy_score(params, x, labels, mask=None, train=False, rng=None):
         seen["feats"] = x.dtype
         seen["params"] = {t.dtype for t in params.values()}
-        return score(params, x, labels, mask, train)
+        return score(params, x, labels, mask, train, rng)
 
     def spy_attend(q, k, v, mask):
         seen["attention"] = q.dtype
