@@ -433,9 +433,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    `fit_batch` steps from one generator state agree within 1e-4; under
    remat "full" the graph's recomputes draw the forward's masks (3 calls
    score as the net without remat does, within 1e-4).
-10. Every main path (serving, serving_paged, serving_d32,
+10. MultiLayerNetwork (`phase_mln(smi)`): LeNet (`lenet_mnist`,
+   bench_lenet's batch of 128 uniform 28 x 28 x 1 images from
+   np.random.default_rng(0), Nesterovs(0.01, 0.9)) and the GravesLSTM
+   char-RNN (`char_rnn_lstm`, bench_char_rnn's vocab 80, hidden 256, 2
+   layers, batch 64 x 200 one-hot, truncated BPTT in windows of 50,
+   Adam(2e-3), float32), weights `synthetic_params(seed=0)`. Each against
+   its JAX fixture (tests/fixtures/torch_port_lenet.json,
+   torch_port_char_rnn.json): the first score (`score`), a checksum of
+   `output` on the first 4 rows and 3 `fit_batch` steps' scores (the
+   char-RNN's 12 windows) within MLN_FIXTURE_RTOL = 1e-4. LeNet goes on
+   to 5 `fit_batch` steps (path lenet; the char-RNN's 3 are path
+   char_rnn), scores falling. Then each as a plan (`prepare_steps` of K
+   copies of its batch: LeNet K = 5, the char-RNN K = 2, a truncated-BPTT
+   plan of 2 x 4 windows as bench_char_rnn asserts) on a fresh net: the
+   eager call, then the capture + replay and MLN_REPLAYS more replays
+   (paths multistep_lenet, multistep_char_rnn), against as many
+   `fit_batch` steps of a second fresh net (scores within SCORE_RTOL;
+   iteration and optimizer counts, K·W optimizer steps a call). No hand
+   kernel on any of these paths: both models run on torch's
+   convolution, pooling, matmul and elementwise ops, as the reference
+   runs XLA's. `rnn_time_step` over 20 steps of the batch equals
+   `output` on them. Prints (`{"mln": ...}` and a line beside the card's
+   name and power limit) the step ms through `fit_batch` and replayed,
+   LeNet samples/s, char-RNN chars/s (batch x seq over the step time),
+   the replay's busy share, capture ms and peak MiB.
+11. Every main path (serving, serving_paged, serving_d32,
    serving_d32_paged, training, training_bf16, ring, ring_f32, resnet50,
-   multistep, multistep_bf16, multistep_resnet50,
+   multistep, multistep_bf16, multistep_resnet50, lenet, char_rnn,
+   multistep_lenet, multistep_char_rnn,
    the D=320 model's training_wide, training_wide_bf16, decode_wide,
    decode_wide_paged, the D=256 model's training_d256 and decode_d256,
    the D=128 model's training_d128 and decode_d128, and
@@ -4420,6 +4446,236 @@ def phase_multistep(smi):
             "multistep_resnet50": resnet["launches"]}
 
 
+# ----------------------------------------------------------------- phase 10
+# bench_lenet's and bench_char_rnn's configurations and batches
+# (bench.py:403-416, :461-486)
+MLN = {"lenet_mnist": dict(model={}, batch=128, seq=None,
+                           fixture=ROOT / "tests" / "fixtures"
+                           / "torch_port_lenet.json", K=5),
+       "char_rnn_lstm": dict(model=dict(vocab_size=80, hidden=256, layers=2,
+                                        tbptt=50),
+                             batch=64, seq=200,
+                             fixture=ROOT / "tests" / "fixtures"
+                             / "torch_port_char_rnn.json", K=2)}
+MLN_FIXTURE_STEPS = 3
+MLN_FIXTURE_RTOL = 1e-4
+LENET_STEPS = 5
+MLN_REPLAYS = 3             # replays after the capture's
+RNN_STREAM_STEPS = 20
+STREAM_TOL = dict(rtol=1e-4, atol=1e-6)
+
+
+def mln_batch(name):
+    """bench_lenet's (uniform images, one-hot labels) or bench_char_rnn's
+    (one-hot ids and next ids) batch, numpy (x, y) from
+    np.random.default_rng(0)."""
+    spec = MLN[name]
+    rng = np.random.default_rng(0)
+    if spec["seq"] is None:
+        x = rng.random((spec["batch"], 28, 28, 1)).astype(np.float32)
+        y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, spec["batch"])]
+        return x, y
+    vocab = spec["model"]["vocab_size"]
+    ids = rng.integers(0, vocab, size=(spec["batch"], spec["seq"] + 1))
+    eye = np.eye(vocab, dtype=np.float32)
+    return eye[ids[:, :-1]], eye[ids[:, 1:]]
+
+
+def mln_net(name):
+    """Zoo model `name` at its bench configuration on DEVICE with
+    `synthetic_params(seed=0)`."""
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.util.params import (params_from_jax,
+                                                      synthetic_params)
+    net = getattr(zoo, name)(**MLN[name]["model"], device=DEVICE)
+    return net.init(params=params_from_jax(
+        synthetic_params(net.param_shapes(), seed=0), device=DEVICE))
+
+
+def output_checksum(out):
+    """{"sum", "sum_sq", "weighted"} of an output in float64; "weighted"
+    weighs the flat index i by (i % 13 + 1) / 13, so a permuted or
+    shifted output moves it."""
+    a = np.asarray(out, np.float64).ravel()
+    w = (np.arange(a.size) % 13 + 1) / 13.0
+    return {"sum": float(a.sum()), "sum_sq": float((a * a).sum()),
+            "weighted": float((a * w).sum())}
+
+
+def mln_fixture_run(name):
+    """What a MultiLayerNetwork fixture holds, computed by the port on
+    DEVICE: the first score (`score` on the bench batch), the checksum of
+    `output` on its first 4 rows and the scores of MLN_FIXTURE_STEPS
+    `fit_batch` steps. Returns (that record, the net, the DataSet)."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    net = mln_net(name)
+    x, y = (torch.as_tensor(a, device=DEVICE) for a in mln_batch(name))
+    ds = DataSet(x, y)
+    first = net.score(ds)
+    out = net.output(x[:4]).double().cpu().numpy()
+    scores = []
+    for _ in range(MLN_FIXTURE_STEPS):
+        net.fit_batch(ds)
+        scores.append(net.score_value)
+    return ({"first_score": first, "output_checksum": output_checksum(out),
+             "scores": scores}, net, ds)
+
+
+def mln_fixture_check(name, run):
+    """`run` (mln_fixture_run's record) against the JAX fixture of `name`:
+    every number within MLN_FIXTURE_RTOL. Returns the relative gaps."""
+    spec = MLN[name]
+    fixture = json.loads(spec["fixture"].read_text())
+    check(fixture["model"] == spec["model"]
+          and fixture["batch"] == spec["batch"]
+          and fixture["seq"] == spec["seq"]
+          and fixture["param_seed"] == 0 and fixture["data_seed"] == 0
+          and len(fixture["scores"]) == MLN_FIXTURE_STEPS,
+          f"fixture {spec['fixture'].name} differs from {name}'s run")
+    rel = lambda a, b: abs(a - b) / abs(b)
+    gaps = {"first_score": rel(run["first_score"], fixture["first_score"]),
+            **{f"output_{k}": rel(v, fixture["output_checksum"][k])
+               for k, v in run["output_checksum"].items()},
+            "scores": max(rel(a, b) for a, b in zip(run["scores"],
+                                                    fixture["scores"]))}
+    check(all(g <= MLN_FIXTURE_RTOL for g in gaps.values()),
+          f"{name} against its JAX fixture: relative gaps {gaps} "
+          f"(bar {MLN_FIXTURE_RTOL}); run {run}")
+    return gaps
+
+
+def _mln_plan(name, ds):
+    """A plan of MLN[name]["K"] copies of `ds` on a fresh net, its eager
+    call, then the capture + replay and MLN_REPLAYS replays (every count
+    set to 0 just before them), against as many `fit_batch` steps of a
+    second fresh net: scores within SCORE_RTOL, iteration and optimizer
+    counts, no hand kernel. Returns its record."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    K = MLN[name]["K"]
+    graph_net, eager_net = mln_net(name), mln_net(name)
+    plan = graph_net.prepare_steps([ds] * K)
+    seq, tbptt = MLN[name]["seq"], MLN[name]["model"].get("tbptt")
+    windows = seq // tbptt if seq else 1
+    check(plan is not None and plan.windows == windows,
+          f"{name}: prepare_steps gave no plan of {windows} windows a batch")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    graph_net.fit_prepared(plan)                 # eager: the warm-up
+    g_scores = graph_net.last_scores.tolist()
+    reset_launch_counts()
+    times = []
+    for _ in range(1 + MLN_REPLAYS):             # capture, then replays
+        times += _timed_calls(lambda: graph_net.fit_prepared(plan), 1)
+        g_scores += graph_net.last_scores.tolist()
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(plan.graph is not None, f"the {name} plan was not captured")
+    e_scores, e_times = [], []
+    for _ in g_scores:
+        e_times += _timed_calls(lambda: eager_net.fit_batch(ds), 1)
+        e_scores.append(eager_net.score_value)
+    calls = 2 + MLN_REPLAYS
+    check(np.allclose(g_scores, e_scores, rtol=SCORE_RTOL, atol=0)
+          and all(np.isfinite(g_scores)),
+          f"{name}: replay scores {g_scores} != fit_batch {e_scores} "
+          f"(rtol {SCORE_RTOL})")
+    check(graph_net.iteration_count == eager_net.iteration_count
+          == calls * K and graph_net._optimizer.count
+          == eager_net._optimizer.count == calls * K * windows,
+          f"{name}: iteration or optimizer counts off after the replays")
+    check(set(launches.values()) == {0},
+          f"the {name} replays launched hand kernels: {launches}")
+    profiled, _ = _profiled_replay(graph_net, plan)
+    replay_ms = float(np.median(times[1:])) * 1e3
+    return {"K": K, "windows": windows, "calls": calls,
+            "scores_replay": g_scores, "scores_fit_batch": e_scores,
+            "max_score_rel_diff": float(np.max(
+                np.abs(np.subtract(g_scores, e_scores))
+                / np.abs(e_scores))),
+            "capture_and_replay_ms": times[0] * 1e3,
+            "replay_ms_p50": replay_ms,
+            "step_ms_replay": replay_ms / K,
+            "step_ms_fit_batch": float(np.median(e_times[1:])) * 1e3,
+            "peak_mib": peak / 2**20, "launches": launches,
+            "profiled_replay": profiled}
+
+
+def phase_mln(smi):
+    """LeNet and the GravesLSTM char-RNN through MultiLayerNetwork on the
+    card at their benches' configurations: the JAX fixtures, `fit_batch`,
+    a plan replayed as one CUDA graph against `fit_batch`, and
+    `rnn_time_step` against `output`. Returns the launch counts by
+    path."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    torch.cuda.empty_cache()
+    summary, launches = {}, {}
+    for name, path in (("lenet_mnist", "lenet"), ("char_rnn_lstm",
+                                                  "char_rnn")):
+        spec = MLN[name]
+        reset_launch_counts()
+        run, net, ds = mln_fixture_run(name)
+        gaps = mln_fixture_check(name, run)
+        scores = list(run["scores"])
+        for _ in range(LENET_STEPS - len(scores) if spec["seq"] is None
+                       else 0):
+            net.fit_batch(ds)
+            scores.append(net.score_value)
+        launches[path] = counts()
+        check(set(launches[path].values()) == {0},
+              f"the {name} path launched hand kernels: {launches[path]}")
+        check(all(np.isfinite(scores)) and scores[-1] < scores[0],
+              f"{name} scores {scores}: not finite and falling")
+        rec = {"fixture": run, "fixture_rel_gaps": gaps,
+               "fit_batch_scores": scores}
+        if spec["seq"] is not None:
+            x = ds.features[:, :RNN_STREAM_STEPS]
+            full = net.output(x)
+            net.rnn_clear_previous_state()
+            streamed = torch.stack([net.rnn_time_step(x[:, t])
+                                    for t in range(RNN_STREAM_STEPS)], 1)
+            err = float((streamed - full).abs().max())
+            check(torch.allclose(streamed, full, **STREAM_TOL),
+                  f"rnn_time_step over {RNN_STREAM_STEPS} steps differs "
+                  f"from output by {err}")
+            rec["rnn_time_step_max_abs_err"] = err
+        del net
+        rec["plan"] = _mln_plan(name, ds)
+        launches[f"multistep_{path}"] = rec["plan"]["launches"]
+        per_step = spec["batch"] * (spec["seq"] or 1)
+        for how in ("replay", "fit_batch"):
+            rec[f"{'chars' if spec['seq'] else 'samples'}_per_s_{how}"] = \
+                per_step / (rec["plan"][f"step_ms_{how}"] / 1e3)
+        summary[name] = rec
+        torch.cuda.empty_cache()
+    summary["card"] = smi
+    print(json.dumps({"mln": summary}))
+    lenet, rnn = summary["lenet_mnist"], summary["char_rnn_lstm"]
+    spec = MLN["char_rnn_lstm"]
+    print(f"MultiLayerNetwork ({smi}): LeNet batch "
+          f"{MLN['lenet_mnist']['batch']} step "
+          f"{lenet['plan']['step_ms_fit_batch']:.2f} ms fit_batch, "
+          f"{lenet['plan']['step_ms_replay']:.2f} ms replayed "
+          f"({lenet['samples_per_s_fit_batch']:.0f} vs "
+          f"{lenet['samples_per_s_replay']:.0f} samples/s), busy "
+          f"{lenet['plan']['profiled_replay']['device_busy_share']:.3f}, "
+          f"peak {lenet['plan']['peak_mib']:.0f} MiB; char-RNN "
+          f"{spec['batch']} x {spec['seq']} TBPTT {spec['model']['tbptt']} "
+          f"step {rnn['plan']['step_ms_fit_batch']:.1f} ms "
+          f"fit_batch, {rnn['plan']['step_ms_replay']:.1f} ms replayed "
+          f"({rnn['chars_per_s_fit_batch']:.0f} vs "
+          f"{rnn['chars_per_s_replay']:.0f} chars/s), busy "
+          f"{rnn['plan']['profiled_replay']['device_busy_share']:.3f}, "
+          f"capture {rnn['plan']['capture_and_replay_ms']:.0f} ms, peak "
+          f"{rnn['plan']['peak_mib']:.0f} MiB; JAX fixture gaps LeNet "
+          f"{max(lenet['fixture_rel_gaps'].values()):.2e}, char-RNN "
+          f"{max(rnn['fixture_rel_gaps'].values()):.2e}; rnn_time_step "
+          f"{rnn['rnn_time_step_max_abs_err']:.2e}")
+    return launches
+
+
 # ------------------------------------------------------------------ main
 _FA = "deeplearning4j_tpu/kernels/flash_attention.py"
 REPLACES = {
@@ -4531,6 +4787,7 @@ def main():
     cases += ring_cases
     launches["resnet50"] = phase_resnet50(smi)["launches"]
     launches.update(phase_multistep(smi))
+    launches.update(phase_mln(smi))
     from deeplearning4j_tpu_torch.kernels import route_counts
     for path, n in launches.items():
         # the D=320 model's paths take the wide routes and no other

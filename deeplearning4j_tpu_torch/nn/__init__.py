@@ -1,1 +1,2 @@
-"""Neural-network core of the port: configs, layers and the graph model."""
+"""Neural-network core of the port: configs, layers, the graph model and
+the sequential model."""

@@ -1,5 +1,5 @@
 """Activation functions looked up by name (counterpart of
-deeplearning4j_tpu/nn/activations.py; the names this slice's layers use)."""
+deeplearning4j_tpu/nn/activations.py; the names the ported layers use)."""
 from __future__ import annotations
 
 import torch
@@ -35,6 +35,16 @@ def identity(x):
 @register_activation("relu")
 def relu(x):
     return torch.relu(x)
+
+
+@register_activation("tanh")
+def tanh(x):
+    return torch.tanh(x)
+
+
+@register_activation("sigmoid")
+def sigmoid(x):
+    return torch.sigmoid(x)
 
 
 @register_activation("softmax")

@@ -1,7 +1,121 @@
 """NeuralNetConfiguration builder DSL (counterpart of
-deeplearning4j_tpu/nn/conf/configuration.py; the graph-builder stage the
-port's slices need). JSON round-trip waits for the serializer slice."""
+deeplearning4j_tpu/nn/conf/configuration.py): the global stage, the
+`.list()` stage that builds a MultiLayerConfiguration and the
+`.graph_builder()` stage. JSON round-trip waits for the serializer
+slice."""
 from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from ..updaters import Sgd
+from .preprocessors import default_preprocessor, type_after_preprocessor
+
+
+class BackpropType:
+    STANDARD = "standard"
+    TRUNCATED_BPTT = "truncated_bptt"
+
+
+@dataclass
+class MultiLayerConfiguration:
+    """A stack of layer confs; `input_preprocessors` maps a layer's index
+    to the preprocessor in front of it. Under truncated BPTT a sequence
+    longer than `tbptt_fwd_length` trains in windows of that length
+    (`tbptt_back_length` is stored; the JAX package windows by the
+    forward length alone, and so does the port)."""
+    layers: list = field(default_factory=list)
+    input_preprocessors: dict = field(default_factory=dict)
+    input_type: object = None
+    backprop_type: str = BackpropType.STANDARD
+    tbptt_fwd_length: int = 20
+    tbptt_back_length: int = 20
+    seed: int = 12345
+    dtype: str = "float32"
+    compute_dtype: object = None
+    remat: object = None
+    optimization_algo: str = "sgd"
+
+
+class ListBuilder:
+    """The `.list()` stage: layers in order, then `build()`."""
+
+    def __init__(self, global_conf):
+        self._global = global_conf
+        self._layers = []
+        self._preprocessors = {}
+        self._input_type = None
+        self._backprop_type = BackpropType.STANDARD
+        self._tbptt_fwd = 20
+        self._tbptt_back = 20
+
+    def layer(self, index_or_conf, conf=None):
+        """`.layer(conf)` appends; `.layer(i, conf)` sets layer i."""
+        if conf is None:
+            self._layers.append(index_or_conf)
+        else:
+            idx = int(index_or_conf)
+            while len(self._layers) <= idx:
+                self._layers.append(None)
+            self._layers[idx] = conf
+        return self
+
+    def input_preprocessor(self, index, pre):
+        self._preprocessors[int(index)] = pre
+        return self
+
+    def set_input_type(self, input_type):
+        self._input_type = input_type
+        return self
+
+    input_type = set_input_type
+
+    def backprop_type(self, bptype):
+        self._backprop_type = bptype
+        return self
+
+    def tbptt_fwd_length(self, n):
+        self._tbptt_fwd = int(n)
+        return self
+
+    def tbptt_back_length(self, n):
+        self._tbptt_back = int(n)
+        return self
+
+    def build(self):
+        """Finalize the layer confs (a layer left without an updater gets
+        the reference's default, Sgd(0.1)); with an input type, infer each
+        layer's n_in and insert a preprocessor wherever one layer family
+        feeds another (`default_preprocessor`), unless one was set for
+        that index."""
+        g = self._global
+        conf = MultiLayerConfiguration(
+            layers=list(self._layers),
+            input_preprocessors=dict(self._preprocessors),
+            input_type=self._input_type,
+            backprop_type=self._backprop_type,
+            tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_back_length=self._tbptt_back,
+            seed=g.get("seed", 12345), dtype=g.get("dtype", "float32"),
+            compute_dtype=g.get("compute_dtype"), remat=g.get("remat"),
+            optimization_algo=g.get("optimization_algo", "sgd"))
+        for i, lc in enumerate(conf.layers):
+            if lc is None:
+                raise ValueError(f"Layer {i} was never set")
+            lc.apply_global_defaults(g)
+            if lc.updater is None:
+                lc.updater = Sgd(learning_rate=0.1)
+        cur = conf.input_type
+        if cur is not None:
+            for i, lc in enumerate(conf.layers):
+                pre = conf.input_preprocessors.get(i)
+                if pre is None:
+                    pre = default_preprocessor(cur, lc)
+                    if pre is not None:
+                        conf.input_preprocessors[i] = pre
+                cur = type_after_preprocessor(cur, pre)
+                lc.set_n_in(cur)
+                cur = lc.get_output_type(cur)
+        return conf
 
 
 class NeuralNetConfigurationBuilder:
@@ -59,6 +173,9 @@ class NeuralNetConfigurationBuilder:
         never rematerializes."""
         self._g["remat"] = mode
         return self
+
+    def list(self):
+        return ListBuilder(dict(self._g))
 
     def graph_builder(self):
         from .graph_configuration import GraphBuilder

@@ -1,13 +1,14 @@
 """ComputationGraph configuration: GraphBuilder DSL and the elementwise
 vertex (counterpart of deeplearning4j_tpu/nn/conf/graph_configuration.py).
 Vertices are plain functions over lists of tensors; the other vertex types
-come with later slices."""
+come with later slices. A layer vertex may carry an input preprocessor
+(nn/conf/preprocessors.py), given to `add_layer` or inserted by `build`
+where one layer family feeds another."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-from . import layers as L
-from .inputs import InputType
+from .preprocessors import default_preprocessor, type_after_preprocessor
 
 
 class ElementWiseVertex:
@@ -37,6 +38,7 @@ class GraphVertexSpec:
     layer_conf: object = None       # for kind == "layer"
     vertex_conf: object = None      # for kind == "vertex"
     inputs: list = field(default_factory=list)
+    preprocessor: object = None     # in front of a layer
 
 
 @dataclass
@@ -51,6 +53,8 @@ class ComputationGraphConfiguration:
     remat: object = None
     optimization_algo: str = "sgd"
     backprop_type: str = "standard"
+    tbptt_fwd_length: int = 20
+    tbptt_back_length: int = 20
     topological_order: list = None
 
     def topo_sort(self):
@@ -77,41 +81,6 @@ class ComputationGraphConfiguration:
         return order
 
 
-def expected_input_kind(conf):
-    """Which InputType family a layer consumes: "ff", "cnn", "recurrent"
-    or "any" (the JAX package's rule, nn/conf/configuration.py)."""
-    if isinstance(conf, (L.ConvolutionLayer, L.SubsamplingLayer,
-                         L.ZeroPaddingLayer, L.LocalResponseNormalization)):
-        return "cnn"
-    if isinstance(conf, (L.BaseRecurrentConf, L.RnnOutputLayer)):
-        return "recurrent"
-    if isinstance(conf, (L.ActivationLayer, L.GlobalPoolingLayer,
-                         L.BatchNormalization, L.LayerNormalization,
-                         L.DenseLayer)):
-        return "any"
-    return "ff"
-
-
-def check_no_preprocessor(name, prev_type, conf):
-    """Raise where the JAX package's `default_preprocessor` would put a
-    preprocessor between `prev_type` and layer `conf` (a CNN type feeding
-    a feed-forward or recurrent layer, feed-forward feeding a recurrent
-    one, ...), and where a Dense layer would flatten rank-4 input itself:
-    the port has neither yet, and must not go on with a wrong n_in."""
-    want, kind = expected_input_kind(conf), prev_type.kind
-    if kind == "cnn_flat" and want in ("any", "ff"):
-        return                      # the flat image is its feature vector
-    if want == "any" and not (kind == "cnn" and isinstance(conf,
-                                                           L.DenseLayer)):
-        return
-    if want == kind:
-        return
-    raise NotImplementedError(
-        f"layer {name!r} ({type(conf).__name__}) takes {want!r} input but "
-        f"is fed {kind!r}: input preprocessors are not ported yet (ROADMAP "
-        "queue 1: MultiLayerNetwork and preprocessors)")
-
-
 class GraphBuilder:
     def __init__(self, global_conf):
         self._global = global_conf
@@ -128,10 +97,10 @@ class GraphBuilder:
             self._conf.vertices[n] = GraphVertexSpec(name=n, kind="input")
         return self
 
-    def add_layer(self, name, layer_conf, *inputs):
+    def add_layer(self, name, layer_conf, *inputs, preprocessor=None):
         self._conf.vertices[name] = GraphVertexSpec(
             name=name, kind="layer", layer_conf=layer_conf,
-            inputs=list(inputs))
+            inputs=list(inputs), preprocessor=preprocessor)
         return self
 
     def add_vertex(self, name, vertex_conf, *inputs):
@@ -149,15 +118,22 @@ class GraphBuilder:
         return self
 
     def backprop_type(self, t):
-        """Stored; `fit` runs standard backprop only (truncated BPTT is
-        ROADMAP queue 1, with the recurrent layers)."""
         self._conf.backprop_type = t
+        return self
+
+    def tbptt_fwd_length(self, n):
+        self._conf.tbptt_fwd_length = int(n)
+        return self
+
+    def tbptt_back_length(self, n):
+        self._conf.tbptt_back_length = int(n)
         return self
 
     def build(self):
         """Finalize the layer configs and infer each layer's n_in from the
-        input types, in topological order. A layer whose input would need a
-        preprocessor raises NotImplementedError (`check_no_preprocessor`)."""
+        input types, in topological order, inserting a preprocessor in
+        front of a layer whose input is of another family
+        (`default_preprocessor`) unless it was given one."""
         conf = self._conf
         g = self._global
         types = {}
@@ -173,9 +149,9 @@ class GraphBuilder:
                 lc.apply_global_defaults(g)
                 t = in_types[0]
                 if t is not None:
-                    check_no_preprocessor(name, t, lc)
-                    if t.kind == "cnn_flat":
-                        t = InputType.feed_forward(t.flat_size())
+                    if spec.preprocessor is None:
+                        spec.preprocessor = default_preprocessor(t, lc)
+                    t = type_after_preprocessor(t, spec.preprocessor)
                     lc.set_n_in(t)
                     types[name] = lc.get_output_type(t)
             elif all(t is not None for t in in_types):

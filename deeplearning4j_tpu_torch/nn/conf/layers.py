@@ -1,6 +1,6 @@
 """Layer configuration dataclasses (counterpart of
-deeplearning4j_tpu/nn/conf/layers.py; the configs `transformer_lm` and
-`resnet50` use, and DropoutLayer).
+deeplearning4j_tpu/nn/conf/layers.py; the configs of the ported zoo
+models, DropoutLayer and the LSTM family).
 
 Hyperparameters left as None inherit the builder's global values. A layer
 left without an updater trains with Sgd(0.1) (`nn.updaters.layer_transform`)."""
@@ -260,6 +260,28 @@ class SelfAttentionLayer(BaseRecurrentConf):
     block_size: int = 256
     use_pallas: bool = False
     attention_dropout: float = 0.0
+
+
+@dataclass
+class GravesLSTM(BaseRecurrentConf):
+    """LSTM with peephole connections."""
+    forget_gate_bias_init: float = 1.0
+    gate_activation: str = "sigmoid"
+
+
+@dataclass
+class LSTM(BaseRecurrentConf):
+    """LSTM without peepholes."""
+    forget_gate_bias_init: float = 1.0
+    gate_activation: str = "sigmoid"
+
+
+@dataclass
+class GravesBidirectionalLSTM(BaseRecurrentConf):
+    """Two peephole LSTMs, one over time forward and one backward, each
+    n_out wide; their outputs are summed."""
+    forget_gate_bias_init: float = 1.0
+    gate_activation: str = "sigmoid"
 
 
 def conv_output_size(h, w, kernel, stride, padding, mode="truncate",

@@ -1,0 +1,224 @@
+"""Input preprocessors: shape adapters between layer families, and the
+rule that inserts them (counterpart of
+deeplearning4j_tpu/nn/conf/preprocessors.py and of
+deeplearning4j_tpu/nn/conf/configuration.py:36-100).
+
+Layouts as in the JAX package: CNN activations NHWC [b, h, w, c],
+recurrent ones [b, t, f]. A preprocessor is a reshape on the model's
+tensors, which autograd differentiates. `CnnToFeedForward` flattens in
+NHWC order (`reshape` of the logical NHWC tensor, whatever its memory
+layout), so Dense weights carried over from the JAX package line up.
+
+`default_preprocessor(prev_type, conf)` is the preprocessor the JAX
+package's builders insert before layer `conf` fed `prev_type` (None where
+none is needed), `type_after_preprocessor` the type the layer then sees.
+The normalizing and sampling preprocessors of the JAX package are not
+ported yet: constructing one raises NotImplementedError."""
+from __future__ import annotations
+
+from . import layers as L
+from .inputs import InputType
+
+
+class BasePreprocessor:
+    def __call__(self, x, mask=None, rng=None):
+        raise NotImplementedError
+
+    def output_type(self, input_type):
+        raise NotImplementedError
+
+    def feed_forward_mask(self, mask):
+        return mask
+
+
+class CnnToFeedForwardPreProcessor(BasePreprocessor):
+    """[b, h, w, c] -> [b, h*w*c]."""
+
+    def __init__(self, height=None, width=None, channels=None):
+        self.height, self.width, self.channels = height, width, channels
+
+    def __call__(self, x, mask=None, rng=None):
+        return x.reshape(x.shape[0], -1)
+
+    def output_type(self, input_type):
+        return InputType.feed_forward(input_type.flat_size())
+
+
+class FeedForwardToCnnPreProcessor(BasePreprocessor):
+    """[b, h*w*c] -> [b, h, w, c]."""
+
+    def __init__(self, height, width, channels):
+        self.height, self.width, self.channels = (int(height), int(width),
+                                                  int(channels))
+
+    def __call__(self, x, mask=None, rng=None):
+        if x.dim() == 4:
+            return x
+        return x.reshape(x.shape[0], self.height, self.width, self.channels)
+
+    def output_type(self, input_type):
+        return InputType.convolutional(self.height, self.width,
+                                       self.channels)
+
+
+class CnnToRnnPreProcessor(BasePreprocessor):
+    """[b*t, h, w, c] -> [b, t, h*w*c]; t from the mask, or from
+    `timesteps` when there is none."""
+
+    def __init__(self, height, width, channels, timesteps=None):
+        self.height, self.width, self.channels = (int(height), int(width),
+                                                  int(channels))
+        self.timesteps = None if timesteps is None else int(timesteps)
+
+    def __call__(self, x, mask=None, rng=None):
+        if x.dim() == 3:
+            return x
+        t = mask.shape[1] if mask is not None else self.timesteps
+        if t is None:
+            raise ValueError(
+                "CnnToRnnPreProcessor cannot recover the time dimension: "
+                "provide a feature mask or construct with timesteps=...")
+        return x.reshape(x.shape[0] // t, t,
+                         self.height * self.width * self.channels)
+
+    def output_type(self, input_type):
+        return InputType.recurrent(self.height * self.width * self.channels)
+
+
+class RnnToCnnPreProcessor(BasePreprocessor):
+    """[b, t, f] -> [b*t, h, w, c]."""
+
+    def __init__(self, height, width, channels):
+        self.height, self.width, self.channels = (int(height), int(width),
+                                                  int(channels))
+
+    def __call__(self, x, mask=None, rng=None):
+        return x.reshape(x.shape[0] * x.shape[1], self.height, self.width,
+                         self.channels)
+
+    def output_type(self, input_type):
+        return InputType.convolutional(self.height, self.width,
+                                       self.channels)
+
+
+class FeedForwardToRnnPreProcessor(BasePreprocessor):
+    """[b*t, f] -> [b, t, f] with t from the mask; [b, f] -> [b, 1, f]
+    without one."""
+
+    def __call__(self, x, mask=None, rng=None):
+        if x.dim() == 3:
+            return x
+        if mask is not None:
+            t = mask.shape[1]
+            return x.reshape(x.shape[0] // t, t, x.shape[-1])
+        return x[:, None, :]
+
+    def output_type(self, input_type):
+        return InputType.recurrent(input_type.flat_size())
+
+
+class RnnToFeedForwardPreProcessor(BasePreprocessor):
+    """[b, t, f] -> [b*t, f]: the time steps become rows, and so does the
+    mask."""
+
+    def __call__(self, x, mask=None, rng=None):
+        if x.dim() == 2:
+            return x
+        return x.reshape(-1, x.shape[-1])
+
+    def output_type(self, input_type):
+        return InputType.feed_forward(input_type.flat_size())
+
+    def feed_forward_mask(self, mask):
+        return None if mask is None else mask.reshape(-1)
+
+
+def apply_preprocessor(pre, x, mask):
+    """(x, mask) behind preprocessor `pre` (None: as they are)."""
+    if pre is None:
+        return x, mask
+    return pre(x, mask), None if mask is None else pre.feed_forward_mask(
+        mask)
+
+
+def _unported(name):
+    class Unported(BasePreprocessor):
+        def __init__(self, *args, **kwargs):
+            raise NotImplementedError(
+                f"{name} is not ported yet (ROADMAP queue 1: nn core); the "
+                "shape preprocessors are")
+    Unported.__name__ = Unported.__qualname__ = name
+    return Unported
+
+
+UnitVarianceProcessor = _unported("UnitVarianceProcessor")
+ZeroMeanPrePreProcessor = _unported("ZeroMeanPrePreProcessor")
+ZeroMeanAndUnitVariancePreProcessor = _unported(
+    "ZeroMeanAndUnitVariancePreProcessor")
+BinomialSamplingPreProcessor = _unported("BinomialSamplingPreProcessor")
+ImageScalerPreProcessor = _unported("ImageScalerPreProcessor")
+ComposableInputPreProcessor = _unported("ComposableInputPreProcessor")
+
+
+def expected_input_kind(conf):
+    """Which InputType family a layer consumes: "ff", "cnn", "recurrent"
+    or "any" (JAX configuration.py:36-54). Dense is "any": it runs per
+    time step on [b, t, f] and flattens a rank-4 input itself."""
+    if isinstance(conf, (L.ConvolutionLayer, L.SubsamplingLayer,
+                         L.ZeroPaddingLayer, L.LocalResponseNormalization)):
+        return "cnn"
+    if isinstance(conf, (L.BaseRecurrentConf, L.RnnOutputLayer)):
+        return "recurrent"
+    if isinstance(conf, (L.ActivationLayer, L.DropoutLayer,
+                         L.GlobalPoolingLayer, L.BatchNormalization,
+                         L.LayerNormalization)):
+        return "any"
+    if type(conf) is L.DenseLayer:
+        return "any"
+    return "ff"
+
+
+def default_preprocessor(prev_type, conf):
+    """The preprocessor the builders insert before layer `conf` fed
+    `prev_type`, or None (JAX configuration.py:57-94)."""
+    want, kind = expected_input_kind(conf), prev_type.kind
+    if want == "any" or want == kind:
+        return None
+    if kind == "cnn":
+        if want == "ff":
+            return CnnToFeedForwardPreProcessor(
+                prev_type.height, prev_type.width, prev_type.channels)
+        if want == "recurrent":
+            return CnnToRnnPreProcessor(prev_type.height, prev_type.width,
+                                        prev_type.channels)
+    if kind == "cnn_flat":
+        if want == "cnn":
+            return FeedForwardToCnnPreProcessor(
+                prev_type.height, prev_type.width, prev_type.channels)
+        if want == "recurrent":
+            return FeedForwardToRnnPreProcessor()
+        return None
+    if kind == "ff":
+        if want == "cnn":
+            raise ValueError("Cannot infer CNN dims from feed-forward input; "
+                             "use InputType.convolutional_flat or an explicit "
+                             "FeedForwardToCnnPreProcessor")
+        if want == "recurrent":
+            return FeedForwardToRnnPreProcessor()
+    if kind == "recurrent":
+        if want == "ff":
+            return RnnToFeedForwardPreProcessor()
+        if want == "cnn":
+            raise ValueError("RnnToCnn requires explicit dims; add "
+                             "RnnToCnnPreProcessor manually")
+    return None
+
+
+def type_after_preprocessor(prev_type, pre):
+    """The type a layer sees behind `pre` (a flat image is its feature
+    vector when no preprocessor reshapes it)."""
+    if pre is not None:
+        return pre.output_type(prev_type)
+    if prev_type.kind == "cnn_flat":
+        return InputType.feed_forward(prev_type.flat_size())
+    return prev_type

@@ -1,24 +1,26 @@
 """ComputationGraph: DAG model, inference forward, training and generation
 (counterpart of deeplearning4j_tpu/nn/graph/graph.py).
 
-Vertices run in topological order on tensors of the model's device. The
-parameters are `{layer name: {key: tensor}}`, the JAX package's tree, and
-so is the layer state (`states`: batch norm's running mean and variance;
-an empty dict for a stateless layer), so both cross between the packages
-by name (util/params.py). A forward in training mode gives each layer's
-new state; `fit_batch` writes the new states of the forward that gave the
-loss into the state tensors, in place, once per step. Inference
+Vertices run in topological order on tensors of the model's device, a
+layer behind its input preprocessor where it has one. Parameters, layer
+states, the training step and mixed precision are the port's shared
+model's (nn/model.py): a forward in training mode gives each layer's new
+state, which `fit_batch` writes into the state tensors; inference
 (`output`, `score`, `compute_gradient_and_score`) reads the states and
 leaves them as they are.
 
-Training: `fit` takes one optimizer step per minibatch. The JAX package
-jits `value_and_grad` of `_loss` plus the optax update into one
-executable; here the step runs eagerly: the loss on leaf copies of the
-parameters (`detach`, sharing storage), `torch.autograd.grad` for the
-gradients (attention's backward in the hand-written kernels when
-`use_pallas=True`), gradient normalization, then the per-layer optimizer
-updates the parameters IN PLACE. A cached decode engine reads the
-parameters live, so `generate` after `fit` sees the trained weights.
+Training: `fit` takes one optimizer step per minibatch (attention's
+backward in the hand-written kernels when `use_pallas=True`), updating
+the parameters IN PLACE. A cached decode engine reads the parameters
+live, so `generate` after `fit` sees the trained weights. Under
+truncated BPTT a batch whose 3-D inputs are longer than
+`tbptt_fwd_length` trains window by window (`_tbptt_step`, JAX
+graph.py:471-502): every time-distributed input, label and mask is cut
+into windows of that length (the last may be shorter), other inputs go
+whole to every window, one optimizer step a window, the recurrent
+layers' carries passed on detached (no gradient crosses a window); the
+batch's score is the mean of its windows'. As in the JAX package such a
+batch runs batch by batch under `steps_per_execution`.
 `fit(steps_per_execution=K)`, `prepare_steps` and `fit_prepared` run K
 steps a call (nn/multistep.py: on the card one CUDA graph of the K
 steps); with `conf.remat` the training forward is checkpointed under the
@@ -26,149 +28,56 @@ named policy (nn/remat.py), layer by layer; a dropout rate above 0 draws
 its masks from the model's `DropoutStream` (nn/layers/base.py), one
 generator per layer, in training.
 
-Mixed precision (`compute_dtype="bfloat16"`, JAX graph.py:169-191): the
-parameters stay float32 masters. The loss and `output` cast every
-non-output layer's parameters and the float inputs to bf16 with `.to()`
-(the layer states stay float32), which autograd differentiates, so the
-gradients reach the masters in float32 and the optimizer state stays
-float32. Network output layers keep
-float32 parameters, and the features fed to their score are cast back to
-float32: the loss runs in full precision. Masks are not cast, so where a
-float32 mask multiplies a bf16 activation the result is float32 from
-there on, as in JAX (`base.matmul` promotes as JAX does). The decode
+Mixed precision (`compute_dtype="bfloat16"`, JAX graph.py:169-191):
+network output layers keep float32 parameters. Masks are not cast, so
+where a float32 mask multiplies a bf16 activation the result is float32
+from there on, as in JAX (`base.matmul` promotes as JAX does). The decode
 engine serves the float32 masters, as the JAX engine does."""
 from __future__ import annotations
 
 import torch
 
 from ...datasets.dataset import DataSet, MultiDataSet
-from ...device import resolve_device
 from ..conf.graph_configuration import ComputationGraphConfiguration
+from ..conf.preprocessors import apply_preprocessor
 from ..layers import base as _base
-from ..multistep import MultiStepTrainable
+from ..model import TrainableModel
 from ..remat import maybe_checkpoint
-from ..updaters import (PerLayerOptimizer, apply_gradient_normalization,
-                        layer_transform)
-
-_DTYPES = {"float32": torch.float32}
-_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16}
 
 
-class ComputationGraph(MultiStepTrainable):
+class ComputationGraph(TrainableModel):
     def __init__(self, conf: ComputationGraphConfiguration, device=None):
-        self.conf = conf
         self.order = conf.topo_sort()
         self.layers = {name: _base.create_layer(conf.vertices[name].layer_conf)
                        for name in self.order
                        if conf.vertices[name].kind == "layer"}
-        if conf.dtype not in _DTYPES:
-            raise NotImplementedError(f"dtype {conf.dtype!r} is not ported")
-        if conf.compute_dtype not in (None, conf.dtype, *_COMPUTE_DTYPES):
-            raise NotImplementedError(
-                f"compute_dtype {conf.compute_dtype!r} is not ported; the "
-                f"port computes in {sorted(_COMPUTE_DTYPES)} or the model "
-                "dtype")
-        self._dtype = _DTYPES[conf.dtype]
-        self.device = resolve_device(device)
-        self.params = None
-        self.states = None
-        self._optimizer = None
+        self._setup(conf, self.layers,
+                    {name: conf.vertices[name].layer_conf
+                     for name in self.layers}, device)
         self._decode_engine = None
-        self.iteration_count = 0
-        self.epoch_count = 0
-        self._score = float("nan")
-        self.last_scores = None
-        self._dropout = _base.DropoutStream(conf.seed, self.device,
-                                            self.layers)
-        # captured K-step graphs (nn/multistep.py) are of one epoch
-        self._graph_epoch = 0
-        self._graph_pool = None
-        self._capture_stream = None
         # output vertices no other vertex reads: the loss replaces their
         # forward with their score
         consumed = {i for s in conf.vertices.values() for i in s.inputs}
         self._loss_only = set(conf.network_outputs) - consumed
 
-    @property
-    def score_value(self):
-        """Most recent minibatch score; kept on the device by `fit_batch`
-        and read back on first access."""
-        if not isinstance(self._score, float):
-            self._score = float(self._score)
-        return self._score
-
-    # ------------------------------------------------------------------ init
-    def param_shapes(self):
-        """{"layer/key": shape} of every parameter, the flat keys the JAX
-        package's serializer writes."""
-        return {f"{name}/{key}": tuple(shape)
-                for name, layer in self.layers.items()
-                for key, (shape, _) in layer.param_specs().items()}
-
-    def state_shapes(self):
-        """{"layer/key": shape} of every layer-state tensor."""
-        return {f"{name}/{key}": tuple(shape)
-                for name, layer in self.layers.items()
-                for key, (shape, _) in layer.state_specs().items()}
-
-    def init(self, params=None, states=None, device=None):
-        """Create the parameters and layer states on the model's device (or
-        `device`) and the per-layer optimizer state. Every layer's `init`
-        gives both, as in the JAX package; `params` / `states`: optional
-        `{layer: {key: array}}` trees loaded in their place (numpy arrays
-        or tensors, copied and cast to the model dtype; a layer without
-        state may be left out of `states`)."""
-        if device is not None:
-            self.device = resolve_device(device)
-            if self._dropout.device != self.device:
-                self._dropout = _base.DropoutStream(
-                    self.conf.seed, self.device, self.layers)
-                self._capture_stream = None
-        gen = torch.Generator().manual_seed(int(self.conf.seed))
-        fresh = {name: layer.init(gen, self._dtype, self.device)
-                 for name, layer in self.layers.items()}
-        self.params = ({name: p for name, (p, _) in fresh.items()}
-                       if params is None else self._load(params,
-                                                         "param_specs"))
-        self.states = ({name: s for name, (_, s) in fresh.items()}
-                       if states is None else self._load(states,
-                                                         "state_specs"))
-        self._build_updater()
+    def _on_init(self):
         self._decode_engine = None
-        return self
 
-    def _load(self, tree, specs):
-        """Copies of `tree`'s tensors on the model's device in the model
-        dtype, checked against each layer's `specs` (a copy: training
-        updates the parameters in place)."""
-        loaded = {}
-        for name, layer in self.layers.items():
-            loaded[name] = {}
-            for key, (shape, _) in getattr(layer, specs)().items():
-                t = torch.as_tensor(tree[name][key]).to(
-                    self.device, self._dtype, copy=True)
-                if tuple(t.shape) != tuple(shape):
-                    raise ValueError(f"{name}/{key}: shape {tuple(t.shape)},"
-                                     f" expected {tuple(shape)}")
-                loaded[name][key] = t
-        return loaded
-
-    def _build_updater(self):
-        """New per-layer optimizers over the current parameters; every
-        captured K-step graph goes stale."""
-        updaters = {name: layer_transform(self.conf.vertices[name].layer_conf)
-                    for name in self.params}
-        self._optimizer = PerLayerOptimizer(updaters, self.params)
-        self._graph_epoch += 1
+    @staticmethod
+    def _dataset(features, labels):
+        return MultiDataSet(features, labels)
 
     # -------------------------------------------------------------- forward
     def _forward(self, params, states, inputs, masks=None, *, train=False,
-                 rng=None, remat=None, skip=()):
+                 rng=None, remat=None, skip=(), carries=None):
         """(activations, new states, masks) of every vertex but those in
-        `skip`, masks flowing as in the JAX package (a vertex passes on its
-        first input's mask); `rng`: the model's `DropoutStream` in a
-        training forward; `remat`: the checkpoint policy each layer's
-        forward runs under."""
+        `skip`, masks flowing as in the JAX package (a vertex passes on
+        its first input's mask; a preprocessor reshapes the mask with the
+        activation); `rng`: the model's `DropoutStream` in a training
+        forward; `remat`: the checkpoint policy each layer's forward runs
+        under; `carries`: {layer: (h, c)} of the recurrent layers that
+        carry state, their initial carries, replaced by their final
+        ones."""
         conf = self.conf
         acts, out_masks = {}, {}
         new_states = dict(states)
@@ -183,25 +92,23 @@ class ComputationGraph(MultiStepTrainable):
             xs = [acts[i] for i in spec.inputs]
             ms = [out_masks.get(i) for i in spec.inputs]
             if spec.kind == "layer":
+                x, m = apply_preprocessor(spec.preprocessor, xs[0], ms[0])
                 draws = None if rng is None else rng.layer(name)
                 forward = maybe_checkpoint(self.layers[name].forward, remat,
                                            draws)
-                acts[name], new_states[name], out_masks[name] = forward(
-                    params[name], states[name], xs[0], train=train,
-                    rng=draws, mask=ms[0])
+                kw = {}
+                if carries is not None and name in carries:
+                    kw = {"initial_state": carries[name],
+                          "return_state": True}
+                out = forward(params[name], states[name], x, train=train,
+                              rng=draws, mask=m, **kw)
+                acts[name], new_states[name], out_masks[name] = out[:3]
+                if kw:
+                    carries[name] = out[3]
             else:
                 acts[name] = spec.vertex_conf.apply(xs)
                 out_masks[name] = next((m for m in ms if m is not None), None)
         return acts, new_states, out_masks
-
-    def _to_model(self, x):
-        """A tensor on the model's device in the model dtype."""
-        return torch.as_tensor(x).to(self.device, self._dtype)
-
-    def _to_models(self, arrs):
-        """`_to_model` over a list (None entries and None kept)."""
-        return None if arrs is None else \
-            [None if a is None else self._to_model(a) for a in arrs]
 
     def output(self, *inputs, train=False, mask=None):
         """Inference forward (in the compute dtype, if one is set). `mask`
@@ -224,55 +131,39 @@ class ComputationGraph(MultiStepTrainable):
                     for o in self.conf.network_outputs]
         return outs[0] if len(outs) == 1 else outs
 
-    # ------------------------------------------------------- mixed precision
-    def _compute_dtype(self):
-        """The compute dtype when it differs from the model dtype, else
-        None."""
-        cd = self.conf.compute_dtype
-        return None if cd in (None, self.conf.dtype) else _COMPUTE_DTYPES[cd]
-
     def _cast_for_compute(self, params, inputs):
         """bf16 compute for all non-output layers: their parameters and the
         float (and uint8) inputs cast with `.to()`; network output layers
         keep the parameter dtype so their loss runs in full precision (JAX
         graph.py:175-191). Integer inputs are not cast, nor are the layer
         states."""
-        cd = self._compute_dtype()
-        if cd is None:
+        if self._compute_dtype() is None:
             return params, inputs
-        outs = set(self.conf.network_outputs)
-
-        def cast(a):
-            if isinstance(a, torch.Tensor) and (a.is_floating_point()
-                                                or a.dtype == torch.uint8):
-                return a.to(cd)
-            return a
-        params = {name: (ps if name in outs
-                         else {k: cast(v) for k, v in ps.items()})
-                  for name, ps in params.items()}
-        return params, [cast(x) for x in inputs]
+        return (self._cast_params(params, set(self.conf.network_outputs)),
+                [self._cast(x) for x in inputs])
 
     # ---------------------------------------------------------------- loss
     def _loss(self, params, states, inputs, labels, *, train, masks=None,
-              label_masks=None):
+              label_masks=None, carries=None):
         """(scalar score, new states): every output layer's loss on the
-        features feeding it (its forward is replaced by its score), plus
-        l1/l2. Under a compute dtype the forward runs on the cast
-        parameters and the features reach the loss in the model dtype. In
-        training, dropout draws from the model's stream and, under
-        `conf.remat`, each layer's forward and each output layer's score
-        is checkpointed on its own. (JAX graph.py:204-213 checkpoints the
-        whole forward, and XLA schedules its recompute into the backward;
-        torch recomputes a region whole when the backward first reaches
-        it, so one region over the forward would hold every activation
-        again at once: on ResNet-50 it left the peak where it was.)"""
+        features feeding it, behind its preprocessor (its forward is
+        replaced by its score), plus l1/l2. Under a compute dtype the
+        forward runs on the cast parameters and the features reach the
+        loss in the model dtype. In training, dropout draws from the
+        model's stream and, under `conf.remat`, each layer's forward and
+        each output layer's score is checkpointed on its own. (JAX
+        graph.py:204-213 checkpoints the whole forward, and XLA schedules
+        its recompute into the backward; torch recomputes a region whole
+        when the backward first reaches it, so one region over the forward
+        would hold every activation again at once: on ResNet-50 it left
+        the peak where it was.) `carries` as in `_forward`."""
         conf = self.conf
         params, inputs = self._cast_for_compute(params, inputs)
         rng = self._dropout if train else None
         remat = conf.remat if train else None
         acts, new_states, out_masks = self._forward(
             params, states, inputs, masks, train=train, rng=rng, remat=remat,
-            skip=self._loss_only)
+            skip=self._loss_only, carries=carries)
         total = 0.0
         lm = label_masks or [None] * len(conf.network_outputs)
         for out_name, y, mlab in zip(conf.network_outputs, labels, lm):
@@ -281,118 +172,43 @@ class ComputationGraph(MultiStepTrainable):
             if not layer.is_output_layer():
                 raise ValueError(f"Network output '{out_name}' is not an "
                                  "output layer")
-            feats = acts[spec.inputs[0]]
+            fmask = out_masks.get(spec.inputs[0])
+            # the score takes the mask as it was (JAX graph.py:222-232)
+            feats, _ = apply_preprocessor(spec.preprocessor,
+                                          acts[spec.inputs[0]], fmask)
             if self._compute_dtype() is not None:
                 feats = feats.to(self._dtype)   # loss in full precision
-            mask = mlab if mlab is not None else out_masks.get(spec.inputs[0])
+            mask = mlab if mlab is not None else fmask
             draws = None if rng is None else rng.layer(out_name)
             score = maybe_checkpoint(layer.score, remat, draws)
             total = total + score(params[out_name], feats, y, mask, train,
                                   draws)
         return total + self._reg_score(params), new_states
 
-    def _reg_score(self, params):
-        total = 0.0
-        for name, p in params.items():
-            lc = self.conf.vertices[name].layer_conf
-            l1, l2 = lc.l1 or 0.0, lc.l2 or 0.0
-            l1b, l2b = lc.l1_bias or 0.0, lc.l2_bias or 0.0
-            if not (l1 or l2 or l1b or l2b):
-                continue
-            for k, v in p.items():
-                is_w = not (k.endswith("b") or k in ("gamma", "beta"))
-                a, b = (l1, l2) if is_w else (l1b, l2b)
-                if a:
-                    total = total + a * torch.sum(torch.abs(v))
-                if b:
-                    total = total + 0.5 * b * torch.sum(v * v)
-        return total
-
-    def _normalize_grads(self, grads):
-        out = {}
-        for name, g in grads.items():
-            lc = self.conf.vertices[name].layer_conf
-            if lc.gradient_normalization and g:
-                g = apply_gradient_normalization(
-                    g, lc.gradient_normalization,
-                    lc.gradient_normalization_threshold or 1.0)
-            out[name] = g
-        return out
-
-    def _value_and_grad(self, inputs, labels, masks, label_masks, *, train):
-        """(score tensor, grads {layer: {key: tensor}}, new states detached)
-        at the current parameters and states."""
-        leaves = {name: {k: t.detach().requires_grad_()
-                         for k, t in ps.items()}
-                  for name, ps in self.params.items()}
-        flat = [t for ps in leaves.values() for t in ps.values()]
-        with torch.enable_grad():
-            score, states = self._loss(leaves, self.states, inputs, labels,
-                                       train=train, masks=masks,
-                                       label_masks=label_masks)
-            gs = iter(torch.autograd.grad(score, flat, allow_unused=True))
-        grads = {}
-        for name, ps in leaves.items():
-            grads[name] = {}
-            for k, t in ps.items():
-                g = next(gs)
-                grads[name][k] = torch.zeros_like(t) if g is None else g
-        states = {name: {k: t.detach() for k, t in s.items()}
-                  for name, s in states.items()}
-        return score.detach(), grads, states
+    def _value_and_grad(self, inputs, labels, masks, label_masks, *, train,
+                        carries=None):
+        """(score tensor, grads {layer: {key: tensor}}, new states
+        detached) at the current parameters and states; `carries` as in
+        `_forward`, the final ones detached."""
+        def loss(leaves):
+            return self._loss(leaves, self.states, inputs, labels,
+                              train=train, masks=masks,
+                              label_masks=label_masks, carries=carries)
+        return self._grads_of(loss, carries)
 
     # ---------------------------------------------------------------- train
-    def fit(self, data, labels=None, epochs=1, steps_per_execution=1,
-            prefetch=None, ingest=None):
-        """Train on `data`: a DataSet, a MultiDataSet, a list or tuple of
-        them, an iterator with `reset` and `__iter__` (reset at the start
-        of every epoch), or features with `labels` — one optimizer step per
-        minibatch, `epochs` times over. Anything else raises TypeError, as
-        the reference's `as_iterator` does (datasets/iterator/base.py:
-        357-371): a one-shot iterable would train its first epoch only.
-        `steps_per_execution=K` runs full groups of K minibatches as one
-        `prepare_steps` / `fit_prepared` plan each (nn/multistep.py), a
-        ragged tail and a group that cannot run as one batch by batch."""
-        K = max(1, int(steps_per_execution))
-        if prefetch:
-            raise NotImplementedError(
-                "prefetch is not ported yet (ROADMAP queue 1: persistence, "
-                "data)")
-        if ingest is not None:
-            raise NotImplementedError(
-                "device-side ingest is not ported yet (ROADMAP queue 1: "
-                "persistence, data)")
-        if labels is not None:
-            data = MultiDataSet(data, labels)
-        if isinstance(data, (DataSet, MultiDataSet)):
-            items = [data]
-        elif isinstance(data, (list, tuple)):
-            items = list(data)
-        elif hasattr(data, "reset") and hasattr(data, "__iter__"):
-            items = data
-        else:
-            raise TypeError(f"Cannot convert {type(data)} to DataSetIterator")
-        for _ in range(int(epochs)):
-            if hasattr(items, "reset"):
-                items.reset()
-            if K > 1:
-                self._fit_grouped(items, K)
-            else:
-                for ds in items:
-                    self.fit_batch(ds)
-            self.epoch_count += 1
-        return self
+    def _windows(self, prepped):
+        """1, or None for a batch that trains in truncated-BPTT windows:
+        the graph runs such batches one by one (JAX graph.py:431-434)."""
+        return None if self._tbptt_length(prepped[0]) else 1
 
-    def _check_trainable(self):
-        conf = self.conf
-        if conf.optimization_algo != "sgd":
-            raise NotImplementedError(
-                f"optimization_algo {conf.optimization_algo!r}: the flat "
-                "solvers are not ported yet (ROADMAP queue 1: nn core)")
-        if conf.backprop_type != "standard":
-            raise NotImplementedError(
-                "truncated BPTT is not ported yet (ROADMAP queue 1: "
-                "recurrent, char-RNN)")
+    def _tbptt_length(self, inputs):
+        """The sequence length a batch trains in windows of
+        `tbptt_fwd_length`, or 0 when it trains in one step."""
+        T = max((x.shape[1] for x in inputs if x.dim() == 3), default=0)
+        tbptt = (self.conf.backprop_type == "truncated_bptt"
+                 and T > self.conf.tbptt_fwd_length)
+        return T if tbptt else 0
 
     def _prep_batch(self, ds):
         """(inputs, labels, masks, label masks) lists of tensors on the
@@ -407,28 +223,49 @@ class ComputationGraph(MultiStepTrainable):
                 self._to_models(ds.labels_masks))
 
     def fit_batch(self, ds):
-        """One optimizer step on one DataSet / MultiDataSet."""
+        """One optimizer step on one DataSet / MultiDataSet (one a window
+        under truncated BPTT)."""
         if self.params is None:
             self.init()
         self._check_trainable()
-        self._score = self._train_step(*self._prep_batch(ds))
+        batch = self._prep_batch(ds)
+        step = self._tbptt_step if self._tbptt_length(batch[0]) else \
+            self._train_step
+        self._score = step(*batch)
         self.iteration_count += 1
 
     def _train_step(self, inputs, labels, masks, lmasks):
         """One training step on prepared tensors: the loss and its
         gradients, the optimizer's update of the parameters and the new
-        layer states, both in place; returns the score tensor. Nothing
-        here reads a device value on the host, so a CUDA graph can
-        capture it (nn/multistep.py)."""
+        layer states, both in place; returns the score tensor."""
         score, grads, states = self._value_and_grad(
             inputs, labels, masks, lmasks, train=True)
-        self._optimizer.step(self._normalize_grads(grads))
-        with torch.no_grad():
-            for name, s in states.items():
-                for key, t in s.items():
-                    if t is not self.states[name][key]:
-                        self.states[name][key].copy_(t)
+        self._apply(grads, states)
         return score
+
+    def _tbptt_step(self, inputs, labels, masks, lmasks):
+        """Truncated BPTT over the graph: one step a window of
+        `tbptt_fwd_length` (the last may be shorter), carries detached
+        between windows; returns the mean of the windows' scores."""
+        T, L = self._tbptt_length(inputs), self.conf.tbptt_fwd_length
+        carries = self._zero_carries(inputs[0].shape[0])
+
+        def cut(arrs, s):
+            return None if arrs is None else [
+                None if a is None else
+                (a[:, s:s + L] if a.dim() >= 2 and a.shape[1] == T else a)
+                for a in arrs]
+        scores = []
+        for s in range(0, T, L):
+            score, grads, states = self._value_and_grad(
+                [x[:, s:s + L] if x.dim() == 3 and x.shape[1] == T else x
+                 for x in inputs],
+                [y[:, s:s + L] if y.dim() == 3 and y.shape[1] == T else y
+                 for y in labels],
+                cut(masks, s), cut(lmasks, s), train=True, carries=carries)
+            self._apply(grads, states)
+            scores.append(score)
+        return torch.stack(scores).mean()
 
     def score(self, ds):
         """The loss on one DataSet / MultiDataSet at inference (no

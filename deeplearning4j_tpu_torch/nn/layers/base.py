@@ -158,7 +158,9 @@ class BaseLayerModule:
     def param_specs(self):
         """{key: (shape, kind)} with kind "weight" (the conf's weight init,
         fans from the shape: [n_in, n_out] or an HWIO kernel's kh·kw·I and
-        kh·kw·O), "bias" (bias_init), "ones", "zeros" or a float fill."""
+        kh·kw·O), a tuple (scheme, fan_in, fan_out) (the scheme, or the
+        conf's weight init for None, at the fans given), "bias"
+        (bias_init), "ones", "zeros" or a float fill."""
         return {}
 
     def state_specs(self):
@@ -170,14 +172,16 @@ class BaseLayerModule:
         """{key: tensor} on `device` for {key: (shape, kind)} specs."""
         out = {}
         for key, (shape, kind) in specs.items():
-            if kind == "weight":
-                fan_in, fan_out = shape[0], shape[1]
-                if len(shape) == 4:
+            if kind == "weight" or isinstance(kind, tuple):
+                scheme, fan_in, fan_out = kind if isinstance(kind, tuple) \
+                    else (None, shape[0], shape[1])
+                if kind == "weight" and len(shape) == 4:
                     fan_in = shape[0] * shape[1] * shape[2]
                     fan_out = shape[0] * shape[1] * shape[3]
                 out[key] = init_weights(
-                    generator, shape, self.conf.weight_init, fan_in=fan_in,
-                    fan_out=fan_out, dtype=dtype, device=device)
+                    generator, shape, scheme or self.conf.weight_init,
+                    fan_in=fan_in, fan_out=fan_out, dtype=dtype,
+                    device=device)
                 continue
             fill = {"bias": float(self.conf.bias_init or 0.0), "ones": 1.0,
                     "zeros": 0.0}.get(kind, kind)

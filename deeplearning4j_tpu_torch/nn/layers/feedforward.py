@@ -16,6 +16,10 @@ class _DenseCore(BaseLayerModule):
         return {"W": ((n_in, n_out), "weight"), "b": ((n_out,), "bias")}
 
     def preoutput(self, params, x):
+        # [b, t, f] runs per time step; a rank-4 CNN activation [b, h, w,
+        # c] flattens in NHWC order (JAX feedforward.py:42-47)
+        if x.dim() > 3:
+            x = x.reshape(x.shape[0], -1)
         return matmul(x, params["W"]) + params["b"]
 
     def forward(self, params, state, x, *, train=False, rng=None,

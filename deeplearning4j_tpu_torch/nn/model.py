@@ -1,0 +1,306 @@
+"""What the port's two models share (ComputationGraph and
+MultiLayerNetwork): parameters and layer states by layer name on the
+model's device, the per-layer optimizers, mixed precision, one training
+step's gradients and update, and `fit`'s handling of its data.
+
+A model keeps `self.layer_confs` and `self.named_layers`, {layer name:
+conf} and {layer name: layer}, the names its parameter tree uses (a
+graph's vertex names; a MultiLayerNetwork's "0", "1", ...). The
+parameters are `{layer: {key: tensor}}`, the JAX package's tree, and so
+is the layer state (`states`: batch norm's running mean and variance; an
+empty dict for a stateless layer), so both cross between the packages by
+name (util/params.py).
+
+A training step runs eagerly (the JAX package jits `value_and_grad` of
+its loss plus the optax update into one executable): the loss on leaf
+copies of the parameters (`detach`, sharing storage),
+`torch.autograd.grad` for the gradients, gradient normalization, then
+the per-layer optimizer updates the parameters IN PLACE, and the new
+layer states of the forward that gave the loss are written into the
+state tensors, in place, once per step. Nothing in a step reads a device
+value on the host, so a CUDA graph can capture it (nn/multistep.py).
+
+Mixed precision (`compute_dtype="bfloat16"`): the parameters stay
+float32 masters. The loss and `output` cast every non-output layer's
+parameters and the float (and uint8) inputs to bf16 with `.to()` (the
+layer states stay float32), which autograd differentiates, so the
+gradients reach the masters in float32 and the optimizer state stays
+float32. Output layers keep float32 parameters, and the features fed to
+their score are cast back to float32: the loss runs in full precision."""
+from __future__ import annotations
+
+import torch
+
+from ..datasets.dataset import DataSet, MultiDataSet
+from ..device import resolve_device
+from .layers import base as _base
+from .multistep import MultiStepTrainable
+from .updaters import (PerLayerOptimizer, apply_gradient_normalization,
+                       layer_transform)
+
+_DTYPES = {"float32": torch.float32}
+_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16}
+
+
+def is_weight_key(key):
+    """Whether l1/l2 take a parameter as a weight (else as a bias; JAX
+    network.py:35-36); a nested key ("fwd/RW") by its last part."""
+    k = key.rsplit("/", 1)[-1]
+    return not (k.endswith("b")
+                or k in ("gamma", "beta", "centers", "mean", "var"))
+
+
+class TrainableModel(MultiStepTrainable):
+    def _setup(self, conf, named_layers, layer_confs, device):
+        if conf.dtype not in _DTYPES:
+            raise NotImplementedError(f"dtype {conf.dtype!r} is not ported")
+        if conf.compute_dtype not in (None, conf.dtype, *_COMPUTE_DTYPES):
+            raise NotImplementedError(
+                f"compute_dtype {conf.compute_dtype!r} is not ported; the "
+                f"port computes in {sorted(_COMPUTE_DTYPES)} or the model "
+                "dtype")
+        self.conf = conf
+        self.named_layers = named_layers
+        self.layer_confs = layer_confs
+        self._dtype = _DTYPES[conf.dtype]
+        self.device = resolve_device(device)
+        self.params = None
+        self.states = None
+        self._optimizer = None
+        self.iteration_count = 0
+        self.epoch_count = 0
+        self._score = float("nan")
+        self.last_scores = None
+        self._dropout = _base.DropoutStream(conf.seed, self.device,
+                                            named_layers)
+        # captured K-step graphs (nn/multistep.py) are of one epoch
+        self._graph_epoch = 0
+        self._graph_pool = None
+        self._capture_stream = None
+
+    @property
+    def score_value(self):
+        """Most recent minibatch score; kept on the device by `fit_batch`
+        and read back on first access."""
+        if not isinstance(self._score, float):
+            self._score = float(self._score)
+        return self._score
+
+    # ------------------------------------------------------------------ init
+    def param_shapes(self):
+        """{"layer/key": shape} of every parameter, the flat keys the JAX
+        package's serializer writes."""
+        return {f"{name}/{key}": tuple(shape)
+                for name, layer in self.named_layers.items()
+                for key, (shape, _) in layer.param_specs().items()}
+
+    def state_shapes(self):
+        """{"layer/key": shape} of every layer-state tensor."""
+        return {f"{name}/{key}": tuple(shape)
+                for name, layer in self.named_layers.items()
+                for key, (shape, _) in layer.state_specs().items()}
+
+    def init(self, params=None, states=None, device=None):
+        """Create the parameters and layer states on the model's device (or
+        `device`) and the per-layer optimizer state. Every layer's `init`
+        gives both, as in the JAX package; `params` / `states`: optional
+        `{layer: {key: array}}` trees loaded in their place (numpy arrays
+        or tensors, copied and cast to the model dtype; a layer without
+        state may be left out of `states`)."""
+        if device is not None:
+            self.device = resolve_device(device)
+            if self._dropout.device != self.device:
+                self._dropout = _base.DropoutStream(
+                    self.conf.seed, self.device, self.named_layers)
+                self._capture_stream = None
+        gen = torch.Generator().manual_seed(int(self.conf.seed))
+        fresh = {name: layer.init(gen, self._dtype, self.device)
+                 for name, layer in self.named_layers.items()}
+        self.params = ({name: p for name, (p, _) in fresh.items()}
+                       if params is None else self._load(params,
+                                                         "param_specs"))
+        self.states = ({name: s for name, (_, s) in fresh.items()}
+                       if states is None else self._load(states,
+                                                         "state_specs"))
+        self._build_updater()
+        self._on_init()
+        return self
+
+    def _on_init(self):
+        """What a model drops when its parameters are made anew."""
+
+    def _load(self, tree, specs):
+        """Copies of `tree`'s tensors on the model's device in the model
+        dtype, checked against each layer's `specs` (a copy: training
+        updates the parameters in place)."""
+        loaded = {}
+        for name, layer in self.named_layers.items():
+            loaded[name] = {}
+            for key, (shape, _) in getattr(layer, specs)().items():
+                t = torch.as_tensor(tree[name][key]).to(
+                    self.device, self._dtype, copy=True)
+                if tuple(t.shape) != tuple(shape):
+                    raise ValueError(f"{name}/{key}: shape {tuple(t.shape)},"
+                                     f" expected {tuple(shape)}")
+                loaded[name][key] = t
+        return loaded
+
+    def _build_updater(self):
+        """New per-layer optimizers over the current parameters; every
+        captured K-step graph goes stale."""
+        updaters = {name: layer_transform(self.layer_confs[name])
+                    for name in self.params}
+        self._optimizer = PerLayerOptimizer(updaters, self.params)
+        self._graph_epoch += 1
+
+    def _to_model(self, x):
+        """A tensor on the model's device in the model dtype."""
+        return torch.as_tensor(x).to(self.device, self._dtype)
+
+    def _to_models(self, arrs):
+        """`_to_model` over a list (None entries and None kept)."""
+        return None if arrs is None else \
+            [None if a is None else self._to_model(a) for a in arrs]
+
+    # ------------------------------------------------------- mixed precision
+    def _compute_dtype(self):
+        """The compute dtype when it differs from the model dtype, else
+        None."""
+        cd = self.conf.compute_dtype
+        return None if cd in (None, self.conf.dtype) else _COMPUTE_DTYPES[cd]
+
+    def _cast(self, a):
+        """A float (or uint8) tensor in the compute dtype; anything else
+        (integer ids, None) as it is."""
+        if isinstance(a, torch.Tensor) and (a.is_floating_point()
+                                            or a.dtype == torch.uint8):
+            return a.to(self._compute_dtype())
+        return a
+
+    def _cast_params(self, params, keep):
+        """The parameters in the compute dtype, but those of the layers
+        named in `keep` (the output layers)."""
+        return {name: (ps if name in keep
+                       else {k: self._cast(v) for k, v in ps.items()})
+                for name, ps in params.items()}
+
+    # ------------------------------------------------------------- training
+    def _reg_score(self, params):
+        """The l1/l2 terms of every layer's conf (JAX network.py:225-246)."""
+        total = 0.0
+        for name, p in params.items():
+            lc = self.layer_confs[name]
+            l1, l2 = lc.l1 or 0.0, lc.l2 or 0.0
+            l1b, l2b = lc.l1_bias or 0.0, lc.l2_bias or 0.0
+            if not (l1 or l2 or l1b or l2b):
+                continue
+            for k, v in p.items():
+                a, b = (l1, l2) if is_weight_key(k) else (l1b, l2b)
+                if a:
+                    total = total + a * torch.sum(torch.abs(v))
+                if b:
+                    total = total + 0.5 * b * torch.sum(v * v)
+        return total
+
+    def _normalize_grads(self, grads):
+        out = {}
+        for name, g in grads.items():
+            lc = self.layer_confs[name]
+            if lc.gradient_normalization and g:
+                g = apply_gradient_normalization(
+                    g, lc.gradient_normalization,
+                    lc.gradient_normalization_threshold or 1.0)
+            out[name] = g
+        return out
+
+    def _grads_of(self, loss, carries=None):
+        """(score tensor, grads {layer: {key: tensor}}, new states
+        detached) of `loss`, a function of a parameter tree giving (score,
+        new states), at leaf copies of the current parameters; a parameter
+        the score does not reach gets a zero gradient. `carries`, the
+        recurrent carries `loss` replaced by its final ones, are detached
+        in place: no gradient crosses to the next window (JAX
+        network.py:573-575)."""
+        leaves = {name: {k: t.detach().requires_grad_()
+                         for k, t in ps.items()}
+                  for name, ps in self.params.items()}
+        flat = [t for ps in leaves.values() for t in ps.values()]
+        with torch.enable_grad():
+            score, states = loss(leaves)
+            gs = iter(torch.autograd.grad(score, flat, allow_unused=True))
+        grads = {}
+        for name, ps in leaves.items():
+            grads[name] = {}
+            for k, t in ps.items():
+                g = next(gs)
+                grads[name][k] = torch.zeros_like(t) if g is None else g
+        if carries is not None:
+            for name, hc in carries.items():
+                carries[name] = tuple(t.detach() for t in hc)
+        states = {name: {k: t.detach() for k, t in s.items()}
+                  for name, s in states.items()}
+        return score.detach(), grads, states
+
+    def _apply(self, grads, states):
+        """The optimizer's update of the parameters and the new layer
+        states written, both in place."""
+        self._optimizer.step(self._normalize_grads(grads))
+        with torch.no_grad():
+            for name, s in states.items():
+                for key, t in s.items():
+                    if t is not self.states[name][key]:
+                        self.states[name][key].copy_(t)
+
+    def _zero_carries(self, batch):
+        """{layer: zero (h, c)} of the recurrent layers that carry state
+        (the bidirectional LSTM has none)."""
+        return {name: layer.init_carry(batch, self._dtype, self.device)
+                for name, layer in self.named_layers.items()
+                if hasattr(layer, "init_carry")}
+
+    def _check_trainable(self):
+        if self.conf.optimization_algo != "sgd":
+            raise NotImplementedError(
+                f"optimization_algo {self.conf.optimization_algo!r}: the "
+                "flat solvers are not ported yet (ROADMAP queue 1: nn core)")
+
+    def fit(self, data, labels=None, epochs=1, steps_per_execution=1,
+            prefetch=None, ingest=None):
+        """Train on `data`: a DataSet, a MultiDataSet, a list or tuple of
+        them, an iterator with `reset` and `__iter__` (reset at the start
+        of every epoch), or features with `labels` — one `fit_batch` a
+        minibatch, `epochs` times over. Anything else raises TypeError, as
+        the reference's `as_iterator` does (datasets/iterator/base.py:
+        357-371): a one-shot iterable would train its first epoch only.
+        `steps_per_execution=K` runs full groups of K minibatches as one
+        `prepare_steps` / `fit_prepared` plan each (nn/multistep.py), a
+        ragged tail and a group that cannot run as one batch by batch."""
+        K = max(1, int(steps_per_execution))
+        if prefetch:
+            raise NotImplementedError(
+                "prefetch is not ported yet (ROADMAP queue 1: persistence, "
+                "data)")
+        if ingest is not None:
+            raise NotImplementedError(
+                "device-side ingest is not ported yet (ROADMAP queue 1: "
+                "persistence, data)")
+        if labels is not None:
+            data = self._dataset(data, labels)
+        if isinstance(data, (DataSet, MultiDataSet)):
+            items = [data]
+        elif isinstance(data, (list, tuple)):
+            items = list(data)
+        elif hasattr(data, "reset") and hasattr(data, "__iter__"):
+            items = data
+        else:
+            raise TypeError(f"Cannot convert {type(data)} to DataSetIterator")
+        for _ in range(int(epochs)):
+            if hasattr(items, "reset"):
+                items.reset()
+            if K > 1:
+                self._fit_grouped(items, K)
+            else:
+                for ds in items:
+                    self.fit_batch(ds)
+            self.epoch_count += 1
+        return self

@@ -13,16 +13,24 @@ scores of the K steps come back as `last_scores`.
 
 - `prepare_steps(group)` stacks a group of same-shaped DataSets on the
   device, one `[K, ...]` tensor per leaf, into a `StepPlan`; None when
-  shapes or the structure of the masks differ within the group. (JAX's
-  `_multi_step_mode` also sends the flat solvers and TBPTT batch by
-  batch; the port refuses both before, in `_check_trainable`.) A plan is
-  reusable; its batch is never written.
+  shapes or the structure of the masks differ within the group, or when
+  the model's `_windows` sends the group batch by batch (JAX's
+  `_multi_step_mode` returning None: a ComputationGraph's truncated-BPTT
+  batches, a MultiLayerNetwork's whose sequence the window does not
+  tile; the port refuses the flat solvers before, in
+  `_check_trainable`). A plan is reusable; its batch is never written.
+- Truncated BPTT (a MultiLayerNetwork's sequence of T = W·L steps under
+  windows of L): each of the K batches takes W optimizer steps, one a
+  window, from zero carries at its first window (JAX
+  network.py:428-471); a batch's score is the mean of its windows'
+  (:513). The plan runs the model's `_tbptt_step`, the window loop
+  `fit_batch` runs, so on the card the K·W steps are one CUDA graph.
 - `fit_prepared(plan)` runs its K steps. On the host every call runs them
   eagerly. On the card a plan's first call runs them eagerly, on the side
   stream its capture uses: that call is the warm-up (the optimizer state,
   the kernels' builds, cuBLAS's and cuDNN's workspaces). Its second call
-  captures the K steps into one `torch.cuda.CUDAGraph` held by the plan
-  and replays it; every later call is one replay. (A plan used once, as
+  captures the K (K·W) steps into one `torch.cuda.CUDAGraph` held by the
+  plan and replays it; every later call is one replay. (A plan used once, as
   `fit(steps_per_execution=K)` makes one per group, is never captured.)
   A failed capture or replay raises; no call runs the eager steps in
   its place. The graphs of a model share one memory pool. `init` and a
@@ -31,15 +39,17 @@ scores of the K steps come back as `last_scores`.
 - `_fit_grouped(it, K)`: full groups go through a plan; a ragged tail and
   a group that cannot run as one run `fit_batch` batch by batch.
 
-What a captured step needs (`ComputationGraph` provides it): the
-parameters, the layer states and the optimizer state updated in place
-(so the next replay reads what the last one wrote); no read of a device
-value on the host inside a step; a learning rate fixed for the capture
-(`PerLayerOptimizer.check_capturable`); the model's dropout generators
-registered with the graph. A replay adds its graph's recorded kernel
-launches to `launch_counts()` (`kernels.add_graph_counts`). The JAX
-package fires its listeners once per execution (nn/multistep.py:205-209);
-the port has no listeners yet (ROADMAP queue 1, nn core), so none fire.
+What a captured step needs (`ComputationGraph` and `MultiLayerNetwork`
+provide it): the parameters, the layer states and the optimizer state
+updated in place (so the next replay reads what the last one wrote); no
+read of a device value on the host inside a step; a learning rate fixed
+for the capture (`PerLayerOptimizer.check_capturable`); the model's
+dropout generators registered with the graph. A replay adds its graph's
+recorded kernel launches to `launch_counts()`
+(`kernels.add_graph_counts`) and its K·W optimizer steps to the
+optimizer's count (`StepPlan.updates`). The JAX package fires its
+listeners once per execution (nn/multistep.py:205-209); the port has no
+listeners yet (ROADMAP queue 1, nn core), so none fire.
 """
 from __future__ import annotations
 
@@ -50,15 +60,20 @@ from ..kernels import add_graph_counts, graph_counts
 
 class StepPlan:
     """K batches stacked on the model's device for `fit_prepared`:
-    `batch` is (inputs, labels, masks, label masks), each a list of
-    `[K, ...]` tensors (or None, and None entries kept). On the card it
-    also holds its captured graph, the `[K]` scores the graph writes and
-    the kernel launches one replay makes."""
+    `batch` is the model's prepared batch (a ComputationGraph's inputs,
+    labels, masks and label masks, each a list; a MultiLayerNetwork's x,
+    y, mask and label mask) with `[K, ...]` tensors in place of its
+    tensors (None entries kept); `windows` the optimizer steps each batch
+    takes (1, or W truncated-BPTT windows). On the card it also holds its
+    captured graph, the `[K]` scores the graph writes and the kernel
+    launches one replay makes."""
 
-    def __init__(self, model, batch, K):
+    def __init__(self, model, batch, K, windows=1):
         self.model = model
         self.batch = batch
         self.K = int(K)
+        self.windows = int(windows)
+        self.updates = self.K * self.windows
         self.warm = False
         self.graph = None
         self.scores = None
@@ -66,57 +81,76 @@ class StepPlan:
         self.epoch = None
 
     def steps(self):
-        """The K per-step batches, each (inputs, labels, masks, label
-        masks) of views into the stacked tensors."""
-        def pick(ts, i):
-            return None if ts is None else \
-                [None if t is None else t[i] for t in ts]
+        """The K per-batch prepared batches, of views into the stacked
+        tensors."""
+        def pick(part, i):
+            if isinstance(part, list):
+                return [None if t is None else t[i] for t in part]
+            return None if part is None else part[i]
         return [tuple(pick(part, i) for part in self.batch)
                 for i in range(self.K)]
 
 
+_MISMATCH = object()
+
+
+def _stack_leaf(leaf):
+    """A `[K, ...]` stack of K tensors (None for K Nones), or _MISMATCH
+    where their shapes, types or presence differ."""
+    if leaf[0] is None:
+        return None if all(t is None for t in leaf) else _MISMATCH
+    if any(t is None or t.shape != leaf[0].shape
+           or t.dtype != leaf[0].dtype for t in leaf):
+        return _MISMATCH
+    return torch.stack(leaf)
+
+
 def _stack(prepped):
-    """One `[K, ...]` tensor per leaf of the prepared batches, or None
-    where the group's shapes, types or mask structure differ."""
+    """The prepared batches with one `[K, ...]` tensor per leaf (a part
+    is a tensor, None or a list of them), or None where the group's
+    shapes, types or mask structure differ."""
     parts = []
     for part in zip(*prepped):
-        if part[0] is None:
-            if any(p is not None for p in part):
+        if isinstance(part[0], list):
+            if any(not isinstance(p, list) or len(p) != len(part[0])
+                   for p in part):
                 return None
-            parts.append(None)
-            continue
-        if any(p is None or len(p) != len(part[0]) for p in part):
-            return None
-        leaves = []
-        for leaf in zip(*part):
-            if leaf[0] is None:
-                if any(t is not None for t in leaf):
-                    return None
-                leaves.append(None)
-                continue
-            if any(t is None or t.shape != leaf[0].shape
-                   or t.dtype != leaf[0].dtype for t in leaf):
+            stacked = [_stack_leaf(leaf) for leaf in zip(*part)]
+            if any(t is _MISMATCH for t in stacked):
                 return None
-            leaves.append(torch.stack(leaf))
-        parts.append(leaves)
+        else:
+            stacked = _stack_leaf(part)
+            if stacked is _MISMATCH:
+                return None
+        parts.append(stacked)
     return tuple(parts)
 
 
 class MultiStepTrainable:
     """K-step training for a model that provides `params`, `init`,
-    `_check_trainable`, `_prep_batch`, `_train_step`
-    (one step's forward, backward, update and states; returns the score
-    tensor), `fit_batch`, `_optimizer`, `_dropout` and `device`, and
-    keeps `_graph_epoch` (raised where captured graphs go stale) and
-    `_graph_pool` / `_capture_stream` (None until the first capture)."""
+    `_check_trainable`, `_prep_batch`, `_windows` (a prepared batch's
+    optimizer steps in a plan: 1, W truncated-BPTT windows, or None to
+    go batch by batch), `_train_step` (one step's forward, backward,
+    update and states on a prepared batch; returns the score tensor),
+    `_tbptt_step` where `_windows` can exceed 1 (a batch's W windows;
+    returns their mean score), `fit_batch`, `_optimizer`, `_dropout` and
+    `device`, and keeps `_graph_epoch` (raised where captured graphs go
+    stale) and `_graph_pool` / `_capture_stream` (None until the first
+    capture)."""
 
     def prepare_steps(self, group):
         if self.params is None:
             self.init()
         self._check_trainable()
-        stacked = _stack([self._prep_batch(ds) for ds in group])
-        return None if stacked is None else StepPlan(self, stacked,
-                                                      len(group))
+        # decided on the first batch, before the others are staged
+        first = self._prep_batch(group[0])
+        windows = self._windows(first)
+        if windows is None:
+            return None
+        stacked = _stack([first] + [self._prep_batch(ds)
+                                    for ds in group[1:]])
+        return None if stacked is None else StepPlan(
+            self, stacked, len(group), windows)
 
     def fit_prepared(self, plan):
         """Run a plan's K steps: `last_scores` becomes their [K] scores
@@ -135,8 +169,8 @@ class MultiStepTrainable:
         return self
 
     def _run_steps(self, plan):
-        return torch.stack([self._train_step(*step)
-                            for step in plan.steps()])
+        step = self._train_step if plan.windows == 1 else self._tbptt_step
+        return torch.stack([step(*batch) for batch in plan.steps()])
 
     def _run_on_card(self, plan):
         if plan.epoch != self._graph_epoch:
@@ -156,7 +190,7 @@ class MultiStepTrainable:
             self._capture(plan, stream)
         self._dropout.sync()
         plan.graph.replay()
-        self._optimizer.count += plan.K
+        self._optimizer.count += plan.updates
         add_graph_counts(plan.launches)
         return plan.scores.clone()
 

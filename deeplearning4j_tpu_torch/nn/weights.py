@@ -17,14 +17,16 @@ class WeightInit:
     XAVIER_LEGACY = "xavier_legacy"
     RELU = "relu"
     RELU_UNIFORM = "relu_uniform"
+    UNIFORM = "uniform"
 
 
 def init_weights(generator, shape, scheme=WeightInit.XAVIER, fan_in=None,
                  fan_out=None, dtype=torch.float32, device=None):
     """Xavier-normal weights, N(0, 2 / (fan_in + fan_out)); "relu" is
-    N(0, 2 / fan_in) and "relu_uniform" U(-a, a) with a = sqrt(6 /
-    fan_in). The draw runs on the host generator and the result moves to
-    `device` (the card unless the caller passes "cpu")."""
+    N(0, 2 / fan_in), "relu_uniform" U(-a, a) with a = sqrt(6 / fan_in)
+    and "uniform" U(-a, a) with a = 1 / sqrt(fan_in). The draw runs on
+    the host generator and the result moves to `device` (the card unless
+    the caller passes "cpu")."""
     shape = tuple(int(s) for s in shape)
     if fan_in is None or fan_out is None:
         fan_out_d, fan_in_d = shape if len(shape) == 2 else (shape[0],) * 2
@@ -40,6 +42,9 @@ def init_weights(generator, shape, scheme=WeightInit.XAVIER, fan_in=None,
             * math.sqrt(2.0 / fan_in)
     elif s == WeightInit.RELU_UNIFORM:
         a = math.sqrt(6.0 / fan_in)
+        w = torch.rand(shape, generator=generator, dtype=dtype) * (2 * a) - a
+    elif s == WeightInit.UNIFORM:
+        a = 1.0 / math.sqrt(fan_in)
         w = torch.rand(shape, generator=generator, dtype=dtype) * (2 * a) - a
     else:
         raise NotImplementedError(

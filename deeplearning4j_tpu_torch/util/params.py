@@ -9,9 +9,13 @@ so has its layer-state tree (`net.states`: batch norm's `"mean"` and
 
 - `params_from_jax(tree, device)` turns such a flat dict, or a nested
   `{layer: {key: array}}` tree such as the JAX `net.states`, into the
-  port's tree on `device` (pass it to `ComputationGraph.init(params=...,
-  states=...)`);
-- `params_to_flat(net)` and `states_to_flat(net)` are its inverse;
+  port's tree on `device` (pass it to `init(params=..., states=...)` of
+  a ComputationGraph or a MultiLayerNetwork). One more level of nesting
+  is taken: GravesBidirectionalLSTM's parameters are `{"fwd": {...},
+  "bwd": {...}}` in the JAX package, flattened by its serializer to
+  `"3/fwd/W"`; the port keeps them as keys "fwd/W" of the layer's dict;
+- `params_to_flat(net)` and `states_to_flat(net)` are its inverse (a
+  nested key comes back as "3/fwd/W");
 - `synthetic_params(shapes, seed)` and `synthetic_states(shapes, seed)`
   make weights and running statistics from a seed with numpy alone, so
   that a run with no JAX (the card machine) and the CPU tests build
@@ -31,21 +35,28 @@ from ..device import resolve_device
 
 def params_from_jax(tree, device=None):
     """{"layer/key": array} or {layer: {key: array}} -> {layer: {key: float
-    tensor}} on `device` (the card unless "cpu"). A layer with an empty
-    dict (a stateless layer of the JAX `net.states`) keeps its empty
-    dict."""
+    tensor}} on `device` (the card unless "cpu"); a key may nest once
+    ("layer/sub/key", or {layer: {sub: {key: array}}}), which becomes the
+    layer's key "sub/key". A layer with an empty dict (a stateless layer
+    of the JAX `net.states`) keeps its empty dict."""
     dev = resolve_device(device)
+    tensor = lambda a: torch.from_numpy(np.array(a)).to(dev)
     out = {}
     for key, arr in tree.items():
         if isinstance(arr, Mapping):
-            out[key] = {name: torch.from_numpy(np.array(a)).to(dev)
-                        for name, a in arr.items()}
+            out[key] = {}
+            for name, a in arr.items():
+                if isinstance(a, Mapping):
+                    out[key].update({f"{name}/{k}": tensor(v)
+                                     for k, v in a.items()})
+                else:
+                    out[key][name] = tensor(a)
             continue
         layer, _, name = key.partition("/")
-        if not name or "/" in name:
-            raise ValueError(f"not a flat 'layer/param' key: {key!r}")
-        out.setdefault(layer, {})[name] = torch.from_numpy(
-            np.array(arr)).to(dev)
+        if not name or name.count("/") > 1 or "" in name.split("/"):
+            raise ValueError(f"not a 'layer/param' or 'layer/sub/param' "
+                             f"key: {key!r}")
+        out.setdefault(layer, {})[name] = tensor(arr)
     return out
 
 
@@ -72,7 +83,9 @@ def _uniform(key, shape, seed):
 
 
 def synthetic_params(shapes, seed=0):
-    """Float32 weights for {"layer/param": shape}, from numpy's PCG64
+    """Float32 weights for {"layer/param": shape} (a model's
+    `param_shapes()`, nested keys "layer/sub/param" included), from
+    numpy's PCG64
     uniforms only (stable across numpy versions). Each tensor draws from
     its own stream, seeded by (seed, crc32 of its key): 2-D kernels are
     xavier-uniform, 4-D HWIO convolution kernels He-uniform (U(-a, a), a =

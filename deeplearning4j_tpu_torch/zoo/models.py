@@ -1,16 +1,110 @@
-"""Model zoo (counterpart of deeplearning4j_tpu/zoo/models.py:104-227:
-`resnet50` and `transformer_lm`)."""
+"""Model zoo (counterpart of deeplearning4j_tpu/zoo/models.py:22-227:
+`lenet_mnist`, `cifar_convnet`, `mlp_mnist`, `char_rnn_lstm`, `resnet50`
+and `transformer_lm`; `vgg16` waits for ROADMAP queue 1, the convolution
+family). Each builds its configuration through the config DSL, as the
+JAX package does, and takes `device` (the card unless "cpu")."""
 from __future__ import annotations
 
-from ..nn.conf.configuration import NeuralNetConfiguration
+from ..nn.conf.configuration import BackpropType, NeuralNetConfiguration
 from ..nn.conf.graph_configuration import ElementWiseVertex
 from ..nn.conf.inputs import InputType
 from ..nn.conf.layers import (ActivationLayer, BatchNormalization,
                               ConvolutionLayer, DenseLayer, GlobalPoolingLayer,
-                              LayerNormalization, OutputLayer, RnnOutputLayer,
-                              SelfAttentionLayer, SubsamplingLayer)
+                              GravesLSTM, LayerNormalization, OutputLayer,
+                              RnnOutputLayer, SelfAttentionLayer,
+                              SubsamplingLayer)
 from ..nn.graph.graph import ComputationGraph
+from ..nn.multilayer.network import MultiLayerNetwork
 from ..nn.updaters import Adam, Nesterovs
+
+
+def lenet_mnist(seed=12345, updater=None, device=None):
+    """LeNet for 28 x 28 x 1 NHWC digits (BASELINE configuration #1): two
+    5x5 convolutions (20 and 50 maps) each followed by 2x2 max pooling, a
+    500-wide ReLU Dense layer (it flattens the NHWC maps itself) and a
+    10-way softmax; Nesterovs(0.01, 0.9) and xavier by default."""
+    conf = (NeuralNetConfiguration.builder()
+            .seed(seed)
+            .updater(updater or Nesterovs(learning_rate=0.01, momentum=0.9))
+            .weight_init("xavier")
+            .list()
+            .layer(ConvolutionLayer(kernel_size=(5, 5), stride=(1, 1),
+                                    n_out=20, activation="identity"))
+            .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                                    stride=(2, 2)))
+            .layer(ConvolutionLayer(kernel_size=(5, 5), stride=(1, 1),
+                                    n_out=50, activation="identity"))
+            .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                                    stride=(2, 2)))
+            .layer(DenseLayer(n_out=500, activation="relu"))
+            .layer(OutputLayer(n_out=10, activation="softmax", loss="MCXENT"))
+            .input_type(InputType.convolutional(28, 28, 1))
+            .build())
+    return MultiLayerNetwork(conf, device=device)
+
+
+def cifar_convnet(seed=12345, num_classes=10, updater=None, device=None):
+    """A small convolutional net for 32 x 32 x 3 images: two 3x3 "same"
+    convolutions (32 and 64 maps, ReLU) each followed by 2x2 max pooling,
+    a 256-wide ReLU Dense layer and a softmax; Adam(1e-3) and relu init
+    by default."""
+    conf = (NeuralNetConfiguration.builder()
+            .seed(seed)
+            .updater(updater or Adam(1e-3))
+            .weight_init("relu")
+            .list()
+            .layer(ConvolutionLayer(kernel_size=(3, 3), stride=(1, 1),
+                                    n_out=32, activation="relu",
+                                    padding=(1, 1)))
+            .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                                    stride=(2, 2)))
+            .layer(ConvolutionLayer(kernel_size=(3, 3), stride=(1, 1),
+                                    n_out=64, activation="relu",
+                                    padding=(1, 1)))
+            .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                                    stride=(2, 2)))
+            .layer(DenseLayer(n_out=256, activation="relu"))
+            .layer(OutputLayer(n_out=num_classes, activation="softmax",
+                               loss="MCXENT"))
+            .input_type(InputType.convolutional(32, 32, 3))
+            .build())
+    return MultiLayerNetwork(conf, device=device)
+
+
+def mlp_mnist(seed=12345, hidden=512, device=None):
+    """A two-hidden-layer ReLU perceptron (hidden, hidden / 2) on 784
+    features with a 10-way softmax; Adam(1e-3), relu init."""
+    conf = (NeuralNetConfiguration.builder()
+            .seed(seed).updater(Adam(1e-3)).weight_init("relu")
+            .list()
+            .layer(DenseLayer(n_out=hidden, activation="relu"))
+            .layer(DenseLayer(n_out=hidden // 2, activation="relu"))
+            .layer(OutputLayer(n_out=10, activation="softmax", loss="MCXENT"))
+            .input_type(InputType.feed_forward(784))
+            .build())
+    return MultiLayerNetwork(conf, device=device)
+
+
+def char_rnn_lstm(vocab_size=80, hidden=256, layers=2, seed=12345, tbptt=50,
+                  compute_dtype=None, device=None):
+    """The GravesLSTM char-RNN (BASELINE configuration #3): `layers`
+    GravesLSTM layers of `hidden` (tanh) and a per-step softmax over
+    `vocab_size`, on one-hot [b, t, vocab] input, trained with
+    Adam(2e-3) under truncated BPTT in windows of `tbptt` steps.
+    `compute_dtype="bfloat16"` runs the products in bf16 while the cell
+    state and the gate arithmetic stay float32."""
+    b = (NeuralNetConfiguration.builder()
+         .seed(seed).updater(Adam(2e-3)).weight_init("xavier")
+         .compute_dtype(compute_dtype)
+         .list())
+    for _ in range(layers):
+        b.layer(GravesLSTM(n_out=hidden, activation="tanh"))
+    b.layer(RnnOutputLayer(n_out=vocab_size, activation="softmax",
+                           loss="MCXENT"))
+    b.set_input_type(InputType.recurrent(vocab_size))
+    b.backprop_type(BackpropType.TRUNCATED_BPTT)
+    b.tbptt_fwd_length(tbptt).tbptt_back_length(tbptt)
+    return MultiLayerNetwork(b.build(), device=device)
 
 
 def _resnet_conv_block(gb, name, n_in_name, filters, stride, project=True):

@@ -6,10 +6,10 @@ ComputationGraph, for the convolution family (CPU).
   the training and decoding fixtures depend on them); the 4-D HWIO rule
   and `synthetic_states`; parameters and states round-trip between the
   port's trees, the flat dicts and the JAX package's nested trees.
-- `graph_configuration.build()` raises NotImplementedError wherever the
-  JAX package's `default_preprocessor` would insert a preprocessor (or a
-  Dense layer would flatten a CNN activation itself), and infers n_in from
-  convolutional types otherwise.
+- `graph_configuration.build()` inserts the preprocessor the JAX
+  package's `default_preprocessor` inserts (none where a Dense layer
+  flattens a CNN activation itself, as both packages' Dense do), with the
+  same n_in, and infers n_in from convolutional types.
 - State through the graph: `fit_batch` stores the new running statistics
   detached, once a step; inference leaves them as they are; under bf16
   compute they stay float32; stateless layers hand back their state.
@@ -146,24 +146,43 @@ NEEDS_PREPROCESSOR = {
 
 @pytest.mark.parametrize("case", list(NEEDS_PREPROCESSOR))
 def test_build_raises_where_jax_inserts_a_preprocessor(case):
+    """Where JAX's builder inserts a preprocessor, the port's inserts the
+    same one (its class and fields) and infers the same n_in."""
     first, second, input_type = NEEDS_PREPROCESSOR[case]
     jconf = _build(JAX, first, second, input_type)
+    tconf = _build(PORT, first, second, input_type)
     assert any(s.preprocessor is not None for s in jconf.vertices.values()
                if s.kind == "layer")
-    with pytest.raises(NotImplementedError, match="preprocessors"):
-        _build(PORT, first, second, input_type)
+    for name in ("a", "b"):
+        jpre = jconf.vertices[name].preprocessor
+        tpre = tconf.vertices[name].preprocessor
+        assert type(tpre).__name__ == type(jpre).__name__
+        assert (tpre is None) == (jpre is None)
+        assert tpre is None or vars(tpre) == vars(jpre)
+        assert tconf.vertices[name].layer_conf.n_in == \
+            jconf.vertices[name].layer_conf.n_in
 
 
 def test_build_raises_where_dense_would_flatten_a_cnn_activation():
-    """JAX's Dense flattens rank-4 input itself; the port's does not, so
-    the port refuses the graph instead of taking n_in = h·w·c for a
-    layer that would see [b, h, w, c]."""
+    """Both packages' Dense flatten a rank-4 input [b, h, w, c] in NHWC
+    order themselves: no preprocessor, n_in = h·w·c, and the port's
+    graph runs it."""
     jconf = _build(JAX, conv, lambda L: L.DenseLayer(n_out=3),
                    lambda t: t.convolutional(8, 8, 2))
+    tconf = _build(PORT, conv, lambda L: L.DenseLayer(n_out=3),
+                   lambda t: t.convolutional(8, 8, 2))
     assert jconf.vertices["b"].layer_conf.n_in == 6 * 6 * 4
-    with pytest.raises(NotImplementedError, match="DenseLayer"):
-        _build(PORT, conv, lambda L: L.DenseLayer(n_out=3),
-               lambda t: t.convolutional(8, 8, 2))
+    assert tconf.vertices["b"].layer_conf.n_in == 6 * 6 * 4
+    assert tconf.vertices["b"].preprocessor is None
+    from deeplearning4j_tpu_torch.nn.graph.graph import ComputationGraph
+    net = ComputationGraph(tconf, device="cpu").init()
+    x = torch.randn(5, 8, 8, 2, generator=torch.Generator().manual_seed(0))
+    want = F.conv2d(x.permute(0, 3, 1, 2),
+                    net.params["a"]["W"].permute(3, 2, 0, 1)).permute(
+        0, 2, 3, 1) + net.params["a"]["b"]
+    want = torch.sigmoid(torch.sigmoid(want).reshape(5, -1)
+                         @ net.params["b"]["W"] + net.params["b"]["b"])
+    torch.testing.assert_close(net.output(x), want)
 
 
 CONV_CHAINS = {

@@ -257,15 +257,16 @@ def test_generate_after_fit_uses_the_trained_weights():
 def test_unported_training_options_raise():
     """steps_per_execution, remat and dropout train since the K-step
     slice (tests/test_torch_multistep.py, test_torch_remat.py,
-    test_torch_dropout.py); the options below are still to port."""
+    test_torch_dropout.py), truncated BPTT since the LSTM slice
+    (tests/test_torch_tbptt.py); the options below are still to port."""
     _, tnet = _pair(use_pallas=False)
     x, y, _ = _batch()
     for kw, match in (({"prefetch": 2}, "prefetch"),
                       ({"ingest": object()}, "ingest")):
         with pytest.raises(NotImplementedError, match=match):
             tnet.fit(x, y, **kw)
-    for field, value, match in (("backprop_type", "truncated_bptt", "BPTT"),
-                                ("optimization_algo", "lbfgs", "solvers")):
+    for field, value, match in (("optimization_algo", "lbfgs",
+                                 "solvers"),):
         setattr(tnet.conf, field, value)
         with pytest.raises(NotImplementedError, match=match):
             tnet.fit(x, y)
