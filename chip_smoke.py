@@ -450,7 +450,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    eager call, then the capture + replay and MLN_REPLAYS more replays
    (paths multistep_lenet, multistep_char_rnn), against as many
    `fit_batch` steps of a second fresh net (scores within SCORE_RTOL;
-   iteration and optimizer counts, K·W optimizer steps a call). No hand
+   iteration and optimizer counts, K·W optimizer steps a call), both
+   under cuDNN's deterministic algorithms: by default LeNet's weight
+   gradient runs an atomic-add algorithm, so two `fit_batch` runs from
+   one state already differ in the last bit at step 2 and drift apart up
+   to 2.6e-4 by step 25 (an H100). No hand
    kernel on any of these paths: both models run on torch's
    convolution, pooling, matmul and elementwise ops, as the reference
    runs XLA's. `rnn_time_step` over 20 steps of the batch equals
@@ -458,10 +462,45 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    name and power limit) the step ms through `fit_batch` and replayed,
    LeNet samples/s, char-RNN chars/s (batch x seq over the step time),
    the replay's busy share, capture ms and peak MiB.
-11. Every main path (serving, serving_paged, serving_d32,
+11. Recurrent decoding and speculative decoding
+   (`phase_decode_rnn_spec(smi)`), against the JAX fixture
+   tests/fixtures/torch_port_decode_rnn_spec.json. Path decode_char_rnn:
+   bench_char_rnn's model (vocab 80, hidden 256, 2 GravesLSTM layers,
+   `synthetic_params(seed=0)`) decodes the fixture's 24-token prompt
+   through `MultiLayerNetwork.generate` and the slab and paged (blocks of
+   16) engines, each equal to JAX's 32 greedy tokens (tie rule: a
+   differing token must sit where the fixture's top-2 gap is < 1e-6);
+   then two bursts of 8 concurrent greedy `/generate` requests (the
+   fixture prompt and 7 prompts of 16-48 tokens from default_rng(0), 64
+   new tokens each, 8 slots of 128): one on a slab server, one on a paged
+   server of 33 blocks of 16 (half of fully backed: must preempt and
+   drain the pool); every response equals its own single-request run
+   (tie rule) and the fixture prompt's equals JAX's; no hand kernel
+   launches (the reference runs the LSTM step on XLA's ops). Prints each
+   burst's tokens/s, TTFT p50 and ITL p50, the preemptions, and one
+   engine step with 8 active slots (ms, device busy, host share). Path
+   speculative: bench_spec's pair (bench.py:787-848: target
+   `transformer_lm(vocab_size=24, d_model=64, n_layers=2, n_heads=2)`,
+   head dim 32, use_pallas=True, `synthetic_params(seed=3)`; draft
+   `char_rnn_lstm(vocab_size=24, hidden=48, layers=1)`, seed 5; k = 4,
+   the 8-token prompt, 64 new tokens, max_len 84). Untrained: target-only
+   and speculative tokens equal the fixture's, and the accepted count
+   too. Then both models take 120 `fit_batch` steps on the cyclic corpus
+   (next = cur + 1 mod V, 16 x 48 one-hot, default_rng(0) starts;
+   scores falling; the target's backward pair launches 2 a step); greedy
+   speculative output must equal target-only output token for token;
+   best of 3 trials of each, printed under bench_spec's names
+   (acceptance_rate, speedup_x, target_only_ms, spec_ms, greedy_parity;
+   no speedup is gated). Every speculative run launches `flash_fwd`
+   twice a verify call (one a layer) and twice for its prefill. Then K1
+   on the verify window (`flash_attention_lse`, B=1 Tq=5 Tk=84 H=2 D=32
+   float32, causal at q_offset 8 and 79 over the whole cache row): out
+   and LSE within TOL of `flash_attention_plain`, one kernel a call,
+   timed beside SDPA under an explicit [5, 84] boolean mask.
+12. Every main path (serving, serving_paged, serving_d32,
    serving_d32_paged, training, training_bf16, ring, ring_f32, resnet50,
    multistep, multistep_bf16, multistep_resnet50, lenet, char_rnn,
-   multistep_lenet, multistep_char_rnn,
+   multistep_lenet, multistep_char_rnn, decode_char_rnn, speculative,
    the D=320 model's training_wide, training_wide_bf16, decode_wide,
    decode_wide_paged, the D=256 model's training_d256 and decode_d256,
    the D=128 model's training_d128 and decode_d128, and
@@ -2891,32 +2930,50 @@ def _burst_summary(prompts, answers, wall, snap):
             "itl_ms_p50": snap["itl_ms_p50"]}
 
 
-def _step_turns(net, prompts, reps=50):
+def _step_turns(net, prompts, reps=50, serve=PAGED, profiled=False):
     """Host time of one engine step (which ends in the host reading the
-    tokens) with all 8 slots active, without the scheduler: the median of
-    `reps` steps, slab and paged engines in turns (slab, paged, paged,
-    slab). {"slab": [ms, ms], "paged": [ms, ms]}."""
+    tokens) with every slot of `serve` active, without the scheduler: the
+    median of `reps` steps after a warm one, slab and paged engines in
+    turns (slab, paged, paged, slab). {"slab": [ms, ms], "paged": [ms,
+    ms]}. With `profiled`, each turn runs under the profiler and gives
+    {"step_ms", "device_busy_ms", "host_share", "top_kernels"} instead: the
+    mean step, the device's busy time a step and the host's share of the
+    turn (1 - busy / wall)."""
+    import contextlib
+    from torch.profiler import ProfilerActivity, profile
     from deeplearning4j_tpu_torch.decode import DecodeEngine
-    slots, cap = PAGED["decode_slots"], PAGED["decode_max_len"]
+    slots, cap = serve["decode_slots"], serve["decode_max_len"]
     state = {}
     for paged in (False, True):
         eng = DecodeEngine(net, slots=slots, max_len=cap, paged=paged,
-                           block_size=PAGED["decode_block_size"])
+                           block_size=serve["decode_block_size"])
         cache = eng.init_cache()
         for s, p in enumerate(prompts[:slots]):
             cache, _, _ = eng.prefill(cache, s, p)
-        state[paged] = [eng, cache, np.zeros((slots,), np.int32)]
+        cache, ids, _ = eng.step(cache, np.zeros((slots,), np.int32))
+        state[paged] = [eng, cache, ids]
     out = {"slab": [], "paged": []}
     for paged in (False, True, True, False):
         eng, cache, ids = state[paged]
         times = []
-        for _ in range(reps):
+        with (profile(activities=[ProfilerActivity.CUDA]) if profiled
+              else contextlib.nullcontext()) as prof:
             t0 = time.perf_counter()
-            cache, ids, _ = eng.step(cache, ids)
-            times.append(time.perf_counter() - t0)
+            for _ in range(reps):
+                t1 = time.perf_counter()
+                cache, ids, _ = eng.step(cache, ids)
+                times.append(time.perf_counter() - t1)
+            wall_ms = (time.perf_counter() - t0) * 1e3
         state[paged][2] = ids
-        out["paged" if paged else "slab"].append(
-            float(np.median(times)) * 1e3)
+        if profiled:
+            busy = _profile_summary(prof, wall_ms, 4)
+            rec = {"step_ms": wall_ms / reps,
+                   "device_busy_ms": busy["device_busy_ms"] / reps,
+                   "host_share": 1.0 - busy["device_busy_share"],
+                   "top_kernels": busy["top_kernels"]}
+        else:
+            rec = float(np.median(times)) * 1e3
+        out["paged" if paged else "slab"].append(rec)
     return out
 
 
@@ -4550,7 +4607,20 @@ def _mln_plan(name, ds):
     call, then the capture + replay and MLN_REPLAYS replays (every count
     set to 0 just before them), against as many `fit_batch` steps of a
     second fresh net: scores within SCORE_RTOL, iteration and optimizer
-    counts, no hand kernel. Returns its record."""
+    counts, no hand kernel. Both nets run under cuDNN's deterministic
+    algorithms, so the two differ only where the graph does. Returns its
+    record."""
+    import torch
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _mln_plan_compared(name, ds)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _mln_plan_compared(name, ds):
+    """_mln_plan's body, under the cuDNN settings it chose."""
     import torch
     from deeplearning4j_tpu_torch.kernels import reset_launch_counts
     K = MLN[name]["K"]
@@ -4676,6 +4746,378 @@ def phase_mln(smi):
     return launches
 
 
+# ----------------------------------------------------------------- phase 11
+RNN_SPEC_FIXTURE = ROOT / "tests" / "fixtures" / \
+    "torch_port_decode_rnn_spec.json"
+# bench_char_rnn's model served: 8 greedy requests of 16-48-token prompts
+# (the fixture's 24-token prompt first), 64 new tokens each, on 8 slots;
+# the paged pool holds half of what 8 fully backed slots of 128 need
+RNN_SERVE = dict(decode_slots=8, decode_max_len=128)
+RNN_PAGED = dict(decode_paged=True, decode_block_size=16,
+                 decode_pool_blocks=33, **RNN_SERVE)
+RNN_REQUESTS, RNN_NEW = 8, 64
+RNN_STEP_REPS = 20
+# bench_spec's pair and loop (bench.py:787-848)
+SPEC_TRAIN_STEPS, SPEC_TRIALS = 120, 3
+SPEC_VERIFY_STARTS = (8, 79)          # the first window, the last that fits
+
+
+def _rnn_spec_nets(fixture, use_pallas=True, draft_seed=None):
+    """bench_spec's target (use_pallas) and draft on DEVICE with the
+    fixture's `synthetic_params` seeds (the draft's: `draft_seed` when
+    given)."""
+    from deeplearning4j_tpu_torch.util.params import (params_from_jax,
+                                                      synthetic_params)
+    from deeplearning4j_tpu_torch.zoo import char_rnn_lstm, transformer_lm
+    s = fixture["spec"]
+    target = transformer_lm(**s["target"], use_pallas=use_pallas,
+                            device=DEVICE)
+    draft = char_rnn_lstm(**s["draft"], device=DEVICE)
+    for net, seed in ((target, s["target_seed"]),
+                      (draft, s["draft_seed"] if draft_seed is None
+                       else draft_seed)):
+        net.init(params=params_from_jax(
+            synthetic_params(net.param_shapes(), seed=seed), device=DEVICE))
+    return target, draft
+
+
+def _fixture_tokens(what, got, want, gaps):
+    """`got` equals the JAX fixture's `want` (its top-2 `gaps`): a
+    differing token must sit on a true tie (gap < TIE_GAP), after which
+    nothing more is compared. Returns 1 on such a tie, else 0."""
+    check(len(got) >= len(want), f"{what}: {len(got)} tokens, fewer than "
+                                 f"the fixture's {len(want)}")
+    for t, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            check(gaps[t] < TIE_GAP, f"{what} token {t}: {a} != JAX {b} "
+                                     f"(fixture gap {gaps[t]})")
+            return 1
+    return 0
+
+
+def _decode_char_rnn(fixture):
+    """Path decode_char_rnn: bench_char_rnn's model through
+    `MultiLayerNetwork.generate`, the slab and paged engines and two
+    /generate bursts (slab; paged, 2x oversubscribed), against the JAX
+    fixture and each request's own single-request run. Returns its
+    record (launch counts under "launches")."""
+    from deeplearning4j_tpu_torch.decode import DecodeEngine
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    c = fixture["char_rnn"]
+    check(c["model"] == {k: MLN["char_rnn_lstm"]["model"][k]
+                         for k in c["model"]} and c["param_seed"] == 0,
+          "the char-RNN fixture is not of bench_char_rnn's model")
+    reset_launch_counts()
+    net = mln_net("char_rnn_lstm")
+    n_fix = len(c["tokens"])
+    ties = _fixture_tokens("char-RNN generate",
+                           net.generate(c["prompt"], n_fix), c["tokens"],
+                           c["top2_gap"])
+    for paged in (False, True):
+        eng = DecodeEngine(net, slots=RNN_SERVE["decode_slots"],
+                           max_len=RNN_SERVE["decode_max_len"], paged=paged,
+                           block_size=RNN_PAGED["decode_block_size"])
+        got, _ = _greedy_rows(eng, c["prompt"], n_fix)
+        ties += _fixture_tokens(f"char-RNN {'paged' if paged else 'slab'} "
+                                "engine", got, c["tokens"], c["top2_gap"])
+    rng = np.random.default_rng(0)
+    prompts = [list(c["prompt"])] + [
+        [int(t) for t in rng.integers(0, c["model"]["vocab_size"],
+                                      size=int(n))]
+        for n in rng.integers(16, 49, size=RNN_REQUESTS - 1)]
+    single = DecodeEngine(net, slots=1, max_len=RNN_SERVE["decode_max_len"])
+    wants = [_greedy_rows(single, p, RNN_NEW) for p in prompts]
+    bursts = {}
+    for mode, kw in (("slab", RNN_SERVE), ("paged", RNN_PAGED)):
+        answers, wall, _, snap, srv = _served_burst(net, prompts, RNN_NEW,
+                                                    **kw)
+        srv.stop()
+        statuses = [s for s, _ in answers]
+        check(statuses == [200] * len(prompts),
+              f"char-RNN {mode} burst statuses {statuses}")
+        served = [b["tokens"] for _, b in answers]
+        ties += _tokens_equal(f"char-RNN {mode} burst", served, wants)
+        ties += _fixture_tokens(f"char-RNN {mode} burst, fixture prompt",
+                                served[0], c["tokens"], c["top2_gap"])
+        bursts[mode] = _burst_summary(prompts, answers, wall, snap)
+        if mode == "paged":
+            pg = snap["paged"]
+            check(pg["preempted"] >= 1 and pg["used_blocks"] == 0,
+                  f"char-RNN paged burst: {pg['preempted']} preemptions, "
+                  f"{pg['used_blocks']} blocks still held")
+            bursts[mode].update(preempted=pg["preempted"],
+                                high_water=pg["high_water"],
+                                pool_blocks=pg["pool_blocks"])
+    launches = counts()
+    check(set(launches.values()) == {0},
+          f"the char-RNN decode path launched hand kernels: {launches}")
+    return {"model": c["model"], "prompt_lengths": [len(p) for p in prompts],
+            "new_tokens": RNN_NEW, "ties": ties, "bursts": bursts,
+            "step_8_active": _step_turns(net, prompts, RNN_STEP_REPS,
+                                         RNN_PAGED, profiled=True),
+            "launches": launches}
+
+
+def _verify_case(label, start, gen):
+    """K1 on the verify window of bench_spec's target: B=1 Tq=5 Tk=84
+    H=2 D=32 float32, causal at q_offset `start` over the whole cache row
+    (`flash_attention_lse`, as DecodeEngine.verify calls it), out and LSE
+    within TOL of `flash_attention_plain`; one kernel a call; SDPA under
+    an explicit [5, 84] boolean mask beside it. Returns its record."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import (flash_attention_lse,
+                                                  flash_attention_plain)
+    W, C, H, D = 5, 84, 2, 32
+    dev = torch.device(DEVICE)
+    q = torch.randn((1, W, H, D), generator=gen).to(dev)
+    k, v = (torch.randn((1, C, H, D), generator=gen).to(dev)
+            for _ in range(2))
+    run = lambda: flash_attention_lse(q, k, v, causal=True, q_offset=start,
+                                      k_offset=0)
+    plain = lambda: flash_attention_plain(q, k, v, causal=True,
+                                          return_lse=True, q_offset=start,
+                                          k_offset=0)
+    (out, lse), (want, want_lse) = run(), plain()
+    err = float((out - want).abs().max())
+    lse_err = float((lse - want_lse).abs().max())
+    check(bool(torch.isfinite(out).all()) and err <= TOL
+          and lse_err <= TOL,
+          f"flash_fwd {label}: max abs err {err}, lse {lse_err} > {TOL}")
+    per = _per_call(f"flash_fwd {label}",
+                    {"flash_fwd": (run, plain)})["flash_fwd"]
+    mask = _causal_visible(W, C, start, 0)               # [W, C] bool
+    sq, sk, sv = (t.transpose(1, 2) for t in (q, k, v))
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        sq, sk, sv, attn_mask=mask)
+    lib_err = float((library().transpose(1, 2) - want).abs().max())
+    pairs = _valid_pairs(1, W, C, H, True, None, start, 0)
+    # the causal rule lets the window see keys [0, start + W - 1] only
+    rows = min(start + W, C)
+    nbytes = 4 * (2 * W * H * D + 2 * rows * H * D + H * W)
+    return rate_fields({
+        "name": "flash_fwd", "case": label, "shape": [1, W, C, H, D],
+        "causal": True, "lse": True, "q_offset": start, "key_mask": False,
+        "max_abs_err": max(err, lse_err), "library_max_abs_err": lib_err,
+        "ms": median_ms(run), "plain_ms": median_ms(plain),
+        "library_ms": median_ms(library), "library_note":
+        "SDPA with an explicit [5, 84] boolean mask, no LSE",
+        **bound(nbytes, 4 * D * pairs), "device_ms": device_ms(run),
+        "plain_device_ms": device_ms(plain),
+        "library_device_ms": device_ms(library), "kernels_per_call": per})
+
+
+def _spec_corpus(vocab, steps):
+    """bench_spec's training batches: 16 cyclic sequences (next = cur + 1
+    mod V) of 48 one-hot steps a batch, from default_rng(0) starts."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    rng = np.random.default_rng(0)
+    eye = np.eye(vocab, dtype=np.float32)
+    for _ in range(steps):
+        ids = (rng.integers(0, vocab, size=(16, 1)) + np.arange(49)) % vocab
+        yield DataSet(eye[ids[:, :-1]], eye[ids[:, 1:]])
+
+
+def _verify_launches(spec, prompt, n):
+    """spec.generate(prompt, n) with the K1 launches it made and what its
+    verify calls saw: (tokens, flash_fwd launches, rounds). `rounds` holds
+    each verify call's start and window (the pending token and the draft's
+    proposals) and the smallest top-2 gap of the draft's steps since the
+    call before, as the JAX fixture records them."""
+    gaps = []
+    rounds = {"verify_starts": [], "windows": [], "draft_min_top2_gap": []}
+    step, verify = spec.draft.step, spec.target.verify
+
+    def recording_step(cache, ids):
+        cache, nxt, probs = step(cache, ids)
+        gaps.append(float(np.diff(np.sort(np.asarray(probs[0]))[-2:])[0]))
+        return cache, nxt, probs
+
+    def recording_verify(cache, slot, window, start):
+        rounds["verify_starts"].append(int(start))
+        rounds["windows"].append([int(t) for t in window])
+        rounds["draft_min_top2_gap"].append(min(gaps))
+        gaps.clear()
+        return verify(cache, slot, window, start)
+    before = counts()["flash_fwd"]
+    spec.draft.step, spec.target.verify = recording_step, recording_verify
+    try:
+        out = spec.generate(prompt, n)
+    finally:
+        del spec.draft.step, spec.target.verify
+    return out, counts()["flash_fwd"] - before, rounds
+
+
+def _fixture_rounds(what, got, want):
+    """The verify calls of a speculative run equal the JAX fixture's, start
+    and window: a differing window must follow draft steps on a true tie
+    (the fixture's gap < TIE_GAP), after which nothing more is compared. A
+    draft whose rollback left it elsewhere proposes other windows even
+    where the tokens and the accepted count come out the same."""
+    for r, (start, window, gap) in enumerate(zip(
+            want["verify_starts"], want["windows"],
+            want["draft_min_top2_gap"])):
+        check(r < len(got["windows"]), f"{what}: {len(got['windows'])} "
+              f"verify calls, JAX {len(want['windows'])}")
+        if (got["verify_starts"][r], got["windows"][r]) != (start, window):
+            check(gap < TIE_GAP, f"{what} round {r}: verify at "
+                  f"{got['verify_starts'][r]} of {got['windows'][r]}, JAX "
+                  f"at {start} of {window} (draft gap {gap})")
+            return
+    check(len(got["windows"]) == len(want["windows"]),
+          f"{what}: {len(got['windows'])} verify calls, JAX "
+          f"{len(want['windows'])}")
+
+
+def _speculative(fixture):
+    """Path speculative: bench_spec's pair on the card. The untrained pair,
+    and its target with the fixture's seed-19 draft (which accepts none,
+    part and all of a window in its rounds), against the JAX fixture
+    (target-only tokens, speculative tokens, the accepted count, every
+    verify call's start and window), then both trained SPEC_TRAIN_STEPS `fit_batch` steps
+    on the cyclic corpus, greedy speculative decoding against target-only
+    decoding (parity exact), best of SPEC_TRIALS each. Every
+    SpeculativeEngine.generate launches K1 twice a verify call (one a
+    layer) and twice for the prefill. Returns its record."""
+    import torch
+    from deeplearning4j_tpu_torch.decode import (DecodeEngine,
+                                                 SpeculativeEngine)
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    s = fixture["spec"]
+    layers = s["target"]["n_layers"]
+    reset_launch_counts()
+    target, _ = _rnn_spec_nets(fixture)
+    tgt_eng = DecodeEngine(target, slots=1, max_len=s["max_len"])
+    ref, _ = _greedy_rows(tgt_eng, s["prompt"], s["gen"])
+    ties = _fixture_tokens("bench_spec target-only (untrained)", ref,
+                           s["target_only_tokens"], s["target_top2_gap"])
+    untrained = {}
+    # bench_spec's draft accepts nothing; the seed-19 draft accepts none,
+    # part and all of a window in its rounds (restore, then replay)
+    for name, want in (("bench_spec", s), ("partial", fixture["spec_partial"])):
+        _, draft = _rnn_spec_nets(fixture, draft_seed=want["draft_seed"])
+        spec = SpeculativeEngine(draft, target, k=s["k"],
+                                 max_len=s["max_len"])
+        out, k1, rounds = _verify_launches(spec, s["prompt"], s["gen"])
+        what = f"{name} pair speculative (untrained)"
+        ties += _fixture_tokens(what, out, want["spec_tokens"],
+                                s["target_top2_gap"])
+        check(not ties and (spec.accepted, spec.proposed)
+              == (want["accepted"], want["proposed"]),
+              f"{what}: accepted {spec.accepted} of {spec.proposed}, JAX "
+              f"{want['accepted']} of {want['proposed']}")
+        _fixture_rounds(what, rounds, want)
+        n = len(rounds["windows"])
+        check(k1 == layers * (n + 1),
+              f"{what}: {k1} flash_fwd launches for {n} verify calls and a "
+              f"prefill ({layers} layers)")
+        untrained[name] = {
+            "draft_seed": want["draft_seed"], "accepted": spec.accepted,
+            "proposed": spec.proposed, "rounds": n,
+            "accepted_by_round": (np.diff(rounds["verify_starts"])
+                                  - 1).tolist(),
+            "flash_fwd_launches": k1}
+    # bench_spec: both models train briefly on the cyclic corpus first
+    target, draft = _rnn_spec_nets(fixture)
+    scores = {"target": [], "draft": []}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ds in _spec_corpus(s["target"]["vocab_size"], SPEC_TRAIN_STEPS):
+        for name, net in (("target", target), ("draft", draft)):
+            net.fit_batch(ds)
+            scores[name].append(net.score_value)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    for name, sc in scores.items():
+        check(all(np.isfinite(sc)) and sc[-1] < sc[0],
+              f"bench_spec {name} scores {sc[0]} -> {sc[-1]}: not finite "
+              "and falling")
+    tgt_eng = DecodeEngine(target, slots=1, max_len=s["max_len"])
+    ref, ref_rows = _greedy_rows(tgt_eng, s["prompt"], s["gen"])
+    spec = SpeculativeEngine(draft, target, k=s["k"], max_len=s["max_len"])
+    out, k1, rounds = _verify_launches(spec, s["prompt"], s["gen"])
+    rounds = len(rounds["windows"])
+    mismatch = next((t for t, (a, b) in enumerate(zip(out, ref)) if a != b),
+                    None)
+    check(out == ref, f"trained bench_spec pair: speculative output differs "
+                      f"from target-only at token {mismatch} (top-2 gap "
+                      f"{np.diff(np.sort(ref_rows[mismatch])[-2:])[0]:.3e})"
+          if mismatch is not None else "trained bench_spec pair: lengths "
+          f"{len(out)} != {len(ref)}")
+    check(k1 == layers * (rounds + 1),
+          f"trained speculative run: {k1} flash_fwd launches for {rounds} "
+          f"verify calls and a prefill ({layers} layers)")
+
+    def best(fn):
+        times = []
+        for _ in range(SPEC_TRIALS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return min(times)
+    t_tgt = best(lambda: tgt_eng.generate(s["prompt"], s["gen"]))
+    t_spec = best(lambda: spec.generate(s["prompt"], s["gen"]))
+    launches = counts()
+    for name in ("flash_fwd", "flash_decode", "flash_bwd_dq",
+                 "flash_bwd_dkv"):
+        check(launches[name] > 0, f"{name} never launched on path "
+                                  "speculative")
+    check(launches["flash_bwd_dq"] == launches["flash_bwd_dkv"]
+          == layers * SPEC_TRAIN_STEPS,
+          f"the target's training launched the backward pair "
+          f"{launches['flash_bwd_dq']} / {launches['flash_bwd_dkv']} times, "
+          f"not {layers * SPEC_TRAIN_STEPS}")
+    return {"untrained": untrained, "train_steps": SPEC_TRAIN_STEPS,
+            "train_s": train_s,
+            "scores": {n: [sc[0], sc[-1]] for n, sc in scores.items()},
+            "acceptance_rate": spec.acceptance_rate(),
+            "speedup_x": t_tgt / t_spec, "greedy_parity": out == ref,
+            "k": s["k"], "gen": s["gen"], "target_only_ms": t_tgt * 1e3,
+            "spec_ms": t_spec * 1e3, "stats": spec.stats(),
+            "verify_calls_first_run": rounds,
+            "flash_fwd_launches_first_run": k1, "launches": launches}
+
+
+def phase_decode_rnn_spec(smi):
+    """The char-RNN served (path decode_char_rnn) and bench_spec's pair
+    decoded speculatively (path speculative), then K1 on the verify
+    window. Returns (the verify cases, launch counts by path)."""
+    import torch
+    fixture = json.loads(RNN_SPEC_FIXTURE.read_text())
+    rnn = _decode_char_rnn(fixture)
+    spec = _speculative(fixture)
+    gen = torch.Generator().manual_seed(11)
+    cases = [_verify_case(f"verify W=5 C=84 start={start}", start, gen)
+             for start in SPEC_VERIFY_STARTS]
+    _print_cases(cases)
+    print(json.dumps({"decode_rnn_spec": {"card": smi, "char_rnn": rnn,
+                                          "speculative": spec}}))
+    b = rnn["bursts"]
+    print(f"char-RNN decode ({smi}): slab {b['slab']['tokens_per_s']:.0f} "
+          f"tokens/s, TTFT p50 {b['slab']['ttft_ms_p50']:.1f} ms, ITL p50 "
+          f"{b['slab']['itl_ms_p50']:.2f} ms; paged "
+          f"{b['paged']['tokens_per_s']:.0f} tokens/s, TTFT p50 "
+          f"{b['paged']['ttft_ms_p50']:.1f} ms, ITL p50 "
+          f"{b['paged']['itl_ms_p50']:.2f} ms, {b['paged']['preempted']} "
+          "preemptions; a step with 8 active " + "; ".join(
+              f"{mode} " + ", ".join(f"{t['step_ms']:.2f} ms (host share "
+                                     f"{t['host_share']:.3f})"
+                                     for t in turns)
+              for mode, turns in rnn["step_8_active"].items()))
+    print(f"bench_spec ({smi}): acceptance_rate "
+          f"{spec['acceptance_rate']:.3f}, speedup_x "
+          f"{spec['speedup_x']:.3f}, target_only_ms "
+          f"{spec['target_only_ms']:.1f}, spec_ms {spec['spec_ms']:.1f}, "
+          f"greedy_parity {spec['greedy_parity']}; untrained accepted "
+          + ", ".join(f"{u['accepted']} of {u['proposed']} (draft seed "
+                      f"{u['draft_seed']})"
+                      for u in spec["untrained"].values())
+          + " as JAX, every verify window as JAX")
+    return cases, {"decode_char_rnn": rnn["launches"],
+                   "speculative": spec["launches"]}
+
+
 # ------------------------------------------------------------------ main
 _FA = "deeplearning4j_tpu/kernels/flash_attention.py"
 REPLACES = {
@@ -4788,6 +5230,9 @@ def main():
     launches["resnet50"] = phase_resnet50(smi)["launches"]
     launches.update(phase_multistep(smi))
     launches.update(phase_mln(smi))
+    rnn_cases, rnn_launches = phase_decode_rnn_spec(smi)
+    cases += rnn_cases
+    launches.update(rnn_launches)
     from deeplearning4j_tpu_torch.kernels import route_counts
     for path, n in launches.items():
         # the D=320 model's paths take the wide routes and no other

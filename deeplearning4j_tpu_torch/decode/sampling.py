@@ -14,6 +14,10 @@ Top-k / top-p use the same sort/cumsum filter at the logit level with the
 finite NEG_INF. Slot s draws token t from a `torch.Generator` seeded from
 (seed[s], step[s]), so a sampled stream reproduces within the port; it is
 not JAX's `fold_in` stream and is never compared with it.
+
+`filter_probs_np` is the numpy mirror of the same filter (the JAX
+package's, copied), for host-side consumers: the speculative engine's
+accept/rejection math runs on the filtered distributions.
 """
 from __future__ import annotations
 
@@ -40,6 +44,10 @@ class SamplerConfig:
         if not (0.0 <= self.top_p):
             raise ValueError("top_p must be >= 0")
 
+    @property
+    def is_greedy(self):
+        return self.temperature <= 0.0
+
     @classmethod
     def from_request(cls, d):
         """Build from a /generate JSON body; None when the body carries no
@@ -49,6 +57,10 @@ class SamplerConfig:
         return cls(temperature=d.get("temperature", 0.0),
                    top_k=d.get("top_k", 0), top_p=d.get("top_p", 1.0),
                    seed=d.get("seed", 0))
+
+    def to_dict(self):
+        return {"temperature": self.temperature, "top_k": self.top_k,
+                "top_p": self.top_p, "seed": self.seed}
 
     def __repr__(self):
         return (f"SamplerConfig(temperature={self.temperature}, "
@@ -135,3 +147,31 @@ def sample_tokens(probs, operands):
             _draw_seed(operands["seed"][s], operands["step"][s]))
         out[int(s)] = int(torch.multinomial(rows[i], 1, generator=g))
     return out.to(dev)
+
+
+def filter_probs_np(probs, config):
+    """The normalized float64 distribution a sampled slot draws from:
+    `probs` through the top-k / top-p filter and the temperature, in numpy
+    (JAX sampling.py:187-213); a greedy config gives the one-hot argmax
+    row."""
+    p = np.asarray(probs, np.float64).reshape(-1)
+    V = p.shape[0]
+    if config is None or config.is_greedy:
+        out = np.zeros_like(p)
+        out[int(np.argmax(p))] = 1.0
+        return out
+    order = np.argsort(-p, kind="stable")
+    sorted_p = p[order]
+    keep = np.ones((V,), bool)
+    if 0 < config.top_k < V:
+        keep &= p >= sorted_p[config.top_k - 1]
+    if config.top_p < 1.0:
+        excl = np.cumsum(sorted_p) - sorted_p
+        keep_sorted = excl < config.top_p
+        keep_sorted[0] = True
+        keep &= p >= sorted_p[keep_sorted].min()
+    logits = np.log(np.clip(p, 1e-30, None)) / max(config.temperature, 1e-6)
+    logits[~keep] = -np.inf
+    logits -= logits.max()
+    e = np.exp(logits)
+    return e / e.sum()

@@ -12,8 +12,8 @@ leaves them as they are.
 Training: `fit` takes one optimizer step per minibatch (attention's
 backward in the hand-written kernels when `use_pallas=True`), updating
 the parameters IN PLACE. A cached decode engine reads the parameters
-live, so `generate` after `fit` sees the trained weights. Under
-truncated BPTT a batch whose 3-D inputs are longer than
+live, so `generate` (nn/model.py) after `fit` sees the trained weights.
+Under truncated BPTT a batch whose 3-D inputs are longer than
 `tbptt_fwd_length` trains window by window (`_tbptt_step`, JAX
 graph.py:471-502): every time-distributed input, label and mask is cut
 into windows of that length (the last may be shorter), other inputs go
@@ -54,14 +54,10 @@ class ComputationGraph(TrainableModel):
         self._setup(conf, self.layers,
                     {name: conf.vertices[name].layer_conf
                      for name in self.layers}, device)
-        self._decode_engine = None
         # output vertices no other vertex reads: the loss replaces their
         # forward with their score
         consumed = {i for s in conf.vertices.values() for i in s.inputs}
         self._loss_only = set(conf.network_outputs) - consumed
-
-    def _on_init(self):
-        self._decode_engine = None
 
     @staticmethod
     def _dataset(features, labels):
@@ -290,23 +286,3 @@ class ComputationGraph(TrainableModel):
             self._to_models(masks), self._to_models(label_masks),
             train=False)
         return grads, float(score)
-
-    # ------------------------------------------------------------- generate
-    def generate(self, prompt_ids, max_new_tokens=20, stop_id=None,
-                 max_len=None, sampler=None):
-        """KV-cache autoregressive decode through decode.DecodeEngine (one
-        slot): greedy by default, token-for-token what re-running `output`
-        on the growing sequence gives. The engine is cached on the model;
-        `max_len` sizes its cache (default: prompt + new tokens, rounded
-        up to a power of two)."""
-        from ...decode.engine import DecodeEngine, bucket_for_len
-        n = len(list(prompt_ids))
-        need = n + int(max_new_tokens) + 1
-        eng = self._decode_engine
-        if eng is None or eng.capacity < need:
-            cap = int(max_len) if max_len is not None \
-                else bucket_for_len(need, 1 << 30)
-            eng = self._decode_engine = DecodeEngine(self, slots=1,
-                                                     max_len=cap)
-        return eng.generate(prompt_ids, max_new_tokens, stop_id=stop_id,
-                            sampler=sampler)

@@ -1,7 +1,7 @@
 """What the port's two models share (ComputationGraph and
 MultiLayerNetwork): parameters and layer states by layer name on the
 model's device, the per-layer optimizers, mixed precision, one training
-step's gradients and update, and `fit`'s handling of its data.
+step's gradients and update, `fit`'s handling of its data and `generate`.
 
 A model keeps `self.layer_confs` and `self.named_layers`, {layer name:
 conf} and {layer name: layer}, the names its parameter tree uses (a
@@ -73,6 +73,7 @@ class TrainableModel(MultiStepTrainable):
         self.last_scores = None
         self._dropout = _base.DropoutStream(conf.seed, self.device,
                                             named_layers)
+        self._decode_engine = None
         # captured K-step graphs (nn/multistep.py) are of one epoch
         self._graph_epoch = 0
         self._graph_pool = None
@@ -123,6 +124,7 @@ class TrainableModel(MultiStepTrainable):
                        if states is None else self._load(states,
                                                          "state_specs"))
         self._build_updater()
+        self._decode_engine = None
         self._on_init()
         return self
 
@@ -304,3 +306,27 @@ class TrainableModel(MultiStepTrainable):
                     self.fit_batch(ds)
             self.epoch_count += 1
         return self
+
+    # ------------------------------------------------------------- generate
+    def generate(self, prompt_ids, max_new_tokens=20, stop_id=None,
+                 max_len=None, sampler=None):
+        """KV-cache autoregressive decode through decode.DecodeEngine (one
+        slot; JAX nn/multistep.py:110-135): greedy by default,
+        token-for-token what re-running `output` on the growing sequence
+        gives; `sampler` (a decode.SamplerConfig) samples instead. The
+        engine is cached on the model and made anew when its capacity is
+        short; `max_len` sizes its cache (default: prompt + new tokens,
+        rounded up to a power of two). A MultiLayerNetwork or a
+        single-input, single-output graph; a layer without per-token
+        semantics raises decode.DecodeUnsupported."""
+        from ..decode.engine import DecodeEngine, bucket_for_len
+        n = len(list(prompt_ids))
+        need = n + int(max_new_tokens) + 1
+        eng = self._decode_engine
+        if eng is None or eng.capacity < need:
+            cap = int(max_len) if max_len is not None \
+                else bucket_for_len(need, 1 << 30)
+            eng = self._decode_engine = DecodeEngine(self, slots=1,
+                                                     max_len=cap)
+        return eng.generate(prompt_ids, max_new_tokens, stop_id=stop_id,
+                            sampler=sampler)

@@ -24,10 +24,13 @@ when the window tiles the sequence. Streaming inference
 bidirectional LSTM has no carry, so neither TBPTT nor `rnn_time_step`
 passes it one (JAX network.py:585-590).
 
+`generate` (nn/model.py) decodes through decode.DecodeEngine: the
+recurrent layers carry (h, c) in the cache's slot rows; the
+bidirectional LSTM and input preprocessors raise DecodeUnsupported.
+
 Not ported yet, each raising NotImplementedError with its ROADMAP item:
-`pretrain` / `pretrain_layer`, listeners, `evaluate` and `generate` (the
-LSTM decode plans come with speculative verify); the flat solvers raise
-in `_check_trainable`."""
+`pretrain` / `pretrain_layer`, listeners and `evaluate`; the flat
+solvers raise in `_check_trainable`."""
 from __future__ import annotations
 
 import numpy as np
@@ -330,9 +333,3 @@ class MultiLayerNetwork(TrainableModel):
         raise NotImplementedError(
             "evaluation is not ported yet (ROADMAP queue 1: persistence, "
             "data, ETL, eval)")
-
-    def generate(self, prompt_ids, max_new_tokens=20, stop_id=None,
-                 max_len=None, sampler=None):
-        raise NotImplementedError(
-            "the LSTM decode plans are not ported yet (ROADMAP queue 1: "
-            "speculative verify)")

@@ -118,8 +118,10 @@ def test_engine_rejects_what_this_slice_does_not_serve():
     # that is not a power of two is not
     with pytest.raises(ValueError, match="power of two"):
         DecodeEngine(tnet, slots=2, max_len=32, paged=True, block_size=12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecodeEngine(tnet, slots=2, max_len=32).verify(None, 0, [1], 0)
+    # speculative verify runs on the slab layout only, as in JAX
+    paged = DecodeEngine(tnet, slots=2, max_len=32, paged=True)
+    with pytest.raises(DecodeUnsupported, match="slab layout"):
+        paged.verify(paged.init_cache(), 0, [1], 0)
     bidir = transformer_lm(vocab_size=V, d_model=32, n_layers=1, n_heads=2,
                            causal=False, device="cpu")
     with pytest.raises(DecodeUnsupported, match="non-causal"):

@@ -25,7 +25,8 @@ JAX package, on the CPU.
   tree) and back through `params_to_flat`; its output against JAX's.
 - Flat parameters against JAX's `get_flat_params`; feed_forward and
   feed_forward_to_layer against JAX's; the calls still to port raise
-  NotImplementedError naming their ROADMAP item.
+  NotImplementedError naming their ROADMAP item, and `generate` on a
+  bidirectional LSTM raises DecodeUnsupported.
 """
 import numpy as np
 import pytest
@@ -42,6 +43,7 @@ from deeplearning4j_tpu.util.model_serializer import _flatten_tree
 from deeplearning4j_tpu.zoo import models as jzoo
 
 from deeplearning4j_tpu_torch.datasets import DataSet
+from deeplearning4j_tpu_torch.decode import DecodeUnsupported
 from deeplearning4j_tpu_torch.nn.conf import layers as TL
 from deeplearning4j_tpu_torch.nn.conf import preprocessors as TP
 from deeplearning4j_tpu_torch.nn.conf.configuration import \
@@ -53,6 +55,7 @@ from deeplearning4j_tpu_torch.util.params import (params_from_jax,
                                                   params_to_flat,
                                                   synthetic_params)
 from deeplearning4j_tpu_torch import zoo
+from torch_port_pairs import jax_tree, nested, pair
 
 torch.set_num_threads(1)
 
@@ -62,37 +65,6 @@ STREAM_TOL = dict(rtol=1e-5, atol=1e-6)
 ZOO = {"lenet_mnist": {}, "mlp_mnist": {},
        "cifar_convnet": {},
        "char_rnn_lstm": dict(vocab_size=80, hidden=256, layers=2, tbptt=50)}
-
-
-def nested(flat):
-    """A flat {"layer/key": array} (or "layer/sub/key") dict as the JAX
-    package's nested parameter tree."""
-    tree = {}
-    for key, v in flat.items():
-        parts = key.split("/")
-        node = tree
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = np.array(v)
-    return tree
-
-
-def pair(name, seed=0, **kw):
-    """(JAX net, port net on the CPU) of zoo model `name`, both with the
-    port's `synthetic_params(seed)`."""
-    tnet = getattr(zoo, name)(**kw, device="cpu")
-    flat = synthetic_params(tnet.param_shapes(), seed=seed)
-    tnet.init(params=params_from_jax(flat, device="cpu"))
-    jnet = getattr(jzoo, name)(**kw)
-    jnet.init()
-    jnet.init(params=jax_tree(jnet, flat))
-    return jnet, tnet
-
-
-def jax_tree(jnet, flat):
-    """`flat` as JAX net `jnet`'s parameter tree (its layers without
-    parameters kept, as empty dicts)."""
-    return {name: {} for name in jnet.params} | nested(flat)
 
 
 def _conf_summary(conf):
@@ -286,12 +258,18 @@ def test_unported_calls_raise():
     for call, match in ((lambda: tnet.pretrain([]), "nn core"),
                         (lambda: tnet.set_listeners(), "nn core"),
                         (lambda: tnet.evaluate([]), "eval"),
-                        (lambda: tnet.generate([1, 2], 3),
-                         "speculative verify"),
                         (TP.ZeroMeanAndUnitVariancePreProcessor, "nn core"),
                         (TP.BinomialSamplingPreProcessor, "nn core")):
         with pytest.raises(NotImplementedError, match=match):
             call()
+    # generate decodes the char-RNN (tests/test_torch_decode_lstm.py); a
+    # bidirectional LSTM needs future tokens and cannot stream
+    bidir = (NeuralNetConfiguration.builder().seed(3).list()
+             .layer(TL.GravesBidirectionalLSTM(n_out=6, activation="tanh"))
+             .layer(TL.RnnOutputLayer(n_out=7, activation="softmax"))
+             .input_type(InputType.recurrent(7)).build())
+    with pytest.raises(DecodeUnsupported, match="bidirectional"):
+        MultiLayerNetwork(bidir, device="cpu").init().generate([1, 2], 3)
     tnet.conf.optimization_algo = "lbfgs"
     x, y = _sequences(2, 4, 7)
     with pytest.raises(NotImplementedError, match="solvers"):

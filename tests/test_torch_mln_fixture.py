@@ -48,7 +48,7 @@ def jax_record(name):
     from deeplearning4j_tpu.util.model_serializer import _flatten_tree
     from deeplearning4j_tpu.zoo import models as jzoo
     from deeplearning4j_tpu_torch.util.params import synthetic_params
-    from test_torch_mln import jax_tree
+    from torch_port_pairs import jax_tree
     net = getattr(jzoo, name)(**chip_smoke.MLN[name]["model"])
     net.init()
     shapes = {k: v.shape for k, v in _flatten_tree(net.params).items()}

@@ -48,7 +48,7 @@ from deeplearning4j_tpu_torch.nn.updaters import Adam
 from deeplearning4j_tpu_torch.util.params import (params_from_jax,
                                                   params_to_flat,
                                                   synthetic_params)
-from test_torch_mln import jax_tree, pair
+from torch_port_pairs import jax_tree, pair
 
 torch.set_num_threads(1)
 
