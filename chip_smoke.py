@@ -37,7 +37,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    equal. Times are CUDA-event medians and profiler device times;
    each record carries its operation count `ops`, counted per unmasked
    (q, k) pair (4*D forward, 6*D dq, 8*D dk/dv), and `bound_ms`, the
-   larger of bytes over 3.35 TB/s and `ops` over 165 TFLOP/s: f32-grade
+   larger of bytes over 3.35 TB/s (under a key mask only the key and
+   value rows it lets a row see) and `ops` over 165 TFLOP/s: f32-grade
    work on the tensor cores, three TF32 products (495 TFLOP/s dense) per
    f32 product, as the forward and the backward pair compute at D=64
    with TF32 off for torch. The CUDA cores' 67 TFLOP/s figure stays
@@ -497,10 +498,45 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    float32, causal at q_offset 8 and 79 over the whole cache row): out
    and LSE within TOL of `flash_attention_plain`, one kernel a call,
    timed beside SDPA under an explicit [5, 84] boolean mask.
-12. Every main path (serving, serving_paged, serving_d32,
+12. The /predict plane (`phase_predict(smi)`), against the JAX fixture
+   tests/fixtures/torch_port_predict.json. The full-width transformer_lm
+   (use_pallas=True, `synthetic_params(seed=0)`) is saved with the port's
+   ModelSerializer as v1.zip and, with compute_dtype="bfloat16", as
+   v1_bf16.zip in a temporary scan_dir; `ServingServer(scan_dir=...,
+   max_batch_size=32, max_latency_ms=5, decode=True)` loads both on the
+   card and `POST /deploy {"version": "v1"}` serves v1. The fixture's 32
+   requests (1-3 rows of one-hot prompts, lengths 5-128) go from 8 client
+   threads, twice (path predict: the counts are set to 0 just before each
+   burst and read just after): every answer 200 with its version, each
+   prediction within PREDICT_TOL = 1e-4 (max abs) of a direct `output` of
+   that request alone, the argmax at every valid position JAX's (tie
+   rule), fewer batches than requests, no plain route, `flash_fwd`
+   exactly 4 launches a dispatch. Then `/deploy v1_bf16` while a client
+   keeps sending /predict (v1 answers during the warm-up), the bursts
+   again: within PREDICT_BF16_TOL = 5e-3 of v1 (under the smallest
+   distance of two broken controls, answers a step late and a request
+   handed the next one's), the argmax JAX's wherever v1's top-2 gap is at
+   least PREDICT_BF16_GAP = 1e-3, `flash_fwd_bf16` once a dispatch and
+   `flash_fwd` 3 times (the float32 mask promotes the first
+   attention layer's output, as in JAX); /models lists both; /rollback
+   returns v1; the greedy fixture's /generate prompts beside a /predict
+   burst (two threads on one model: `flash_fwd` exactly 4 per dispatch
+   plus 4 per prefill) give its tokens. The pretrained LeNet is deployed
+   by path and /predicts the 500 t10k images of tests/fixtures/mnist_real
+   (labels JAX's wherever its top-2 gap is >= 1e-4; accuracy beside
+   JAX's; no hand kernel). regression_r3_mln.zip restores on the card
+   (flat_head exact, pred within rtol 1e-5). K1 against its plain version
+   at the path's shape (B=32 T=128 H=4 D=64 causal, each row's valid
+   prefix a fixture request's length; f32 and bf16). Prints one line per
+   model: rows/s, latency p50/p99 of the burst's own samples in the
+   server's histogram (all of them recorded, none pushed out),
+   batches, bucket histograms, K1 launches per dispatch, and the host's
+   parse of the largest body against one 32 x 128 dispatch.
+13. Every main path (serving, serving_paged, serving_d32,
    serving_d32_paged, training, training_bf16, ring, ring_f32, resnet50,
    multistep, multistep_bf16, multistep_resnet50, lenet, char_rnn,
    multistep_lenet, multistep_char_rnn, decode_char_rnn, speculative,
+   predict,
    the D=320 model's training_wide, training_wide_bf16, decode_wide,
    decode_wide_paged, the D=256 model's training_d256 and decode_d256,
    the D=128 model's training_d128 and decode_d128, and
@@ -1015,6 +1051,16 @@ def _valid_pairs(B, Tq, Tk, H, causal, km, q_off=0, k_off=0):
     return int(ok.sum()) * H
 
 
+def _seen_key_rows(B, Tk, valid):
+    """Key (and value) rows a function must read under a key mask from
+    `valid` (each batch's valid prefix of the Tk keys): sum(valid), all
+    B·Tk without a mask. A masked key is never needed, so a bytes bound
+    counts only these."""
+    if valid is None:
+        return B * Tk
+    return sum(min(int(n), Tk) for n in valid)
+
+
 def _key_mask(B, T, valid):
     """[B, T] float32 validity of a prefix of `valid[b]` keys, or None."""
     import torch
@@ -1094,7 +1140,8 @@ def _fwd_general_case(label, B, Tq, Tk, H, D, causal, valid, gen, lse=False,
     lib_err = None if library is None else float(
         (library().transpose(1, 2).float() - want.float()).abs().max())
     pairs = _valid_pairs(B, Tq, Tk, H, causal, km)
-    nbytes = (q.element_size() * (2 * B * Tq * H * D + 2 * B * Tk * H * D)
+    nbytes = (q.element_size() * (2 * B * Tq * H * D
+                                  + 2 * _seen_key_rows(B, Tk, valid) * H * D)
               + 4 * ((B * H * Tq if lse else 0)
                      + (B * Tk if km is not None else 0)))
     rec = {"name": name, "case": label,
@@ -1398,8 +1445,9 @@ def _bwd_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
                       for a, b in zip(library(), want))
         lib_ms, lib_device_ms = median_ms(library), device_ms(library)
     pairs = _valid_pairs(B, Tq, Tk, H, causal, km)
-    reads = 4 * (2 * B * Tq * H * D + 2 * B * Tk * H * D + 2 * B * H * Tq
-                 + (B * Tk if km is not None else 0))
+    reads = 4 * (2 * B * Tq * H * D
+                 + 2 * _seen_key_rows(B, Tk, valid) * H * D
+                 + 2 * B * H * Tq + (B * Tk if km is not None else 0))
     recs = []
     for name, writes, ops, err in (
             ("flash_bwd_dq", 4 * B * Tq * H * D, 6 * D * pairs, errs["dq"]),
@@ -1532,15 +1580,16 @@ def _bf16_case(label, B, Tq, Tk, H, D, causal, valid, gen, repeat=False):
             median_ms(lib_bwd), device_ms(lib_bwd), lib_bwd_err)
     pairs = _valid_pairs(B, Tq, Tk, H, causal, km)
     qo = 2 * B * Tq * H * D                 # one bf16 [B, Tq, H, D]
-    kv = 2 * B * Tk * H * D
+    kv = 2 * B * Tk * H * D                 # one bf16 [B, Tk, H, D]
+    kv_seen = 2 * _seen_key_rows(B, Tk, valid) * H * D   # its read rows
     mask_b = 4 * B * Tk if km is not None else 0
     row_f32 = 4 * B * H * Tq                # one f32 [B, H, Tq]
     work = {  # (bytes read once + written once, operations)
-        "flash_fwd_bf16": (qo + 2 * kv + mask_b + qo + row_f32,
+        "flash_fwd_bf16": (qo + 2 * kv_seen + mask_b + qo + row_f32,
                            4 * D * pairs),
-        "flash_bwd_dq_bf16": (2 * qo + 2 * kv + 2 * row_f32 + mask_b + qo,
-                              6 * D * pairs),
-        "flash_bwd_dkv_bf16": (2 * qo + 2 * kv + 2 * row_f32 + mask_b
+        "flash_bwd_dq_bf16": (2 * qo + 2 * kv_seen + 2 * row_f32 + mask_b
+                              + qo, 6 * D * pairs),
+        "flash_bwd_dkv_bf16": (2 * qo + 2 * kv_seen + 2 * row_f32 + mask_b
                                + 2 * kv, 8 * D * pairs)}
     err = {"flash_fwd_bf16": out_err, "flash_bwd_dq_bf16": errs["dq"],
            "flash_bwd_dkv_bf16": max(errs["dk"], errs["dv"])}
@@ -5118,6 +5167,507 @@ def phase_decode_rnn_spec(smi):
                    "speculative": spec["launches"]}
 
 
+# ----------------------------------------------------------------- phase 12
+PREDICT_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_predict.json"
+REGRESSION_ZIP = ROOT / "tests" / "fixtures" / "regression_r3_mln.zip"
+REGRESSION_EXPECTED = ROOT / "tests" / "fixtures" / \
+    "regression_r3_expected.npz"
+LENET_ZIP = ROOT / "tests" / "fixtures" / "pretrained" / \
+    "lenet_mnist_real.zip"
+MNIST_REAL = ROOT / "tests" / "fixtures" / "mnist_real"
+PREDICT_SERVER = dict(max_batch_size=32, max_latency_ms=5, decode=True,
+                      decode_slots=8, decode_max_len=256)
+PREDICT_CLIENTS = 8
+PREDICT_TOL = 1e-4          # /predict vs a direct output (f32 probabilities)
+PREDICT_BF16_TOL = 5e-3     # the bf16-compute version vs v1 (max abs)
+PREDICT_BF16_GAP = 1e-3     # bf16 argmax JAX's where v1's top-2 gap >= it
+LENET_GAP = 1e-4            # LeNet labels gated where JAX's top-2 gap >= it
+LENET_REQUEST_ROWS = 50
+PREDICT_KERNEL_ROWS = 32    # K1 vs plain at a full batch of predict rows
+
+
+def _t10k():
+    """The real-digit fixture's t10k images [n, 28, 28, 1] in [0, 1] and
+    labels, read with gzip and numpy (idx layout: 16-byte image header,
+    8-byte label header)."""
+    import gzip
+    img = gzip.open(MNIST_REAL / "t10k-images-idx3-ubyte.gz").read()
+    n, h, w = (int(v) for v in np.frombuffer(img[4:16], ">i4"))
+    x = np.frombuffer(img[16:], np.uint8).reshape(n, h, w, 1)
+    lab = gzip.open(MNIST_REAL / "t10k-labels-idx1-ubyte.gz").read()
+    return (x.astype(np.float32) / 255.0,
+            np.frombuffer(lab[8:], np.uint8).astype(np.int64))
+
+
+def _post_bytes(url, data, timeout=300):
+    """(status, decoded body) of a POST of an already encoded JSON body."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _predict_burst(url, bodies):
+    """Every body as a concurrent /predict from PREDICT_CLIENTS client
+    threads: (answers in order, wall seconds)."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(PREDICT_CLIENTS) as pool:
+        answers = list(pool.map(lambda b: _post_bytes(url + "/predict", b),
+                                bodies))
+    return answers, time.perf_counter() - t0
+
+
+def _measured_burst(srv, bodies, rows):
+    """One /predict burst with the launch counts set to 0 just before and
+    read just after: (answers, record of rows/s, batches, the padded-bucket
+    and length-bucket histograms of this burst, latency p50/p99 over this
+    burst's samples in the server's own histogram, launches)."""
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    before = srv.metrics.snapshot()
+    n0 = srv.metrics.latency.count()
+    reset_launch_counts()
+    answers, wall = _predict_burst(srv.url, bodies)
+    launches = counts()
+    # the batcher records a request's latency just after it hands the
+    # answer back: wait for the burst's last sample, then read the burst's
+    # own samples, the newest len(bodies) of the reservoir
+    hist, n = srv.metrics.latency, len(bodies)
+    deadline = time.perf_counter() + 10
+    while hist.count() - n0 < n and time.perf_counter() < deadline:
+        time.sleep(0.001)
+    check(hist.count() - n0 == n, f"the latency histogram took "
+                                  f"{hist.count() - n0} samples, not {n}")
+    check(n <= hist.reservoir_cap, f"{n} requests overflow the latency "
+                                   f"reservoir of {hist.reservoir_cap}")
+    lat = sorted(hist._reservoir_copy({})[-n:])
+    after = srv.metrics.snapshot()
+
+    def delta(key):
+        return {k: v - before[key].get(k, 0) for k, v in after[key].items()
+                if v - before[key].get(k, 0)}
+
+    return answers, {
+        "requests": after["requests"] - before["requests"],
+        "rows": after["rows"] - before["rows"],
+        "batches": after["batches"] - before["batches"],
+        "errors": after["errors"] - before["errors"],
+        "wall_s": wall, "rows_per_s": sum(rows) / wall,
+        "latency_ms_p50": float(np.percentile(lat, 50)),
+        "latency_ms_p99": float(np.percentile(lat, 99)),
+        "batch_size_histogram": delta("batch_size_histogram"),
+        "seq_len_bucket_histogram": delta("seq_len_bucket_histogram"),
+        "launches": launches}
+
+
+def _predict_launch_gates(what, rec, per_dispatch):
+    """The burst answered without errors, coalesced (fewer batches than
+    requests), took no plain route, and launched exactly `per_dispatch`
+    {kernel: launches} per dispatched batch, nothing else."""
+    from deeplearning4j_tpu_torch.kernels import route_counts
+    n = rec["launches"]
+    check(rec["errors"] == 0, f"{what}: {rec['errors']} dispatch errors")
+    check(rec["batches"] < rec["requests"],
+          f"{what}: {rec['batches']} batches for {rec['requests']} requests:"
+          " nothing coalesced")
+    routed = {k: n[k] for k in route_counts() if n[k]}
+    check(not routed, f"{what}: plain or other routes {routed}")
+    for name in ("flash_fwd", "flash_fwd_bf16", "flash_decode",
+                 "flash_decode_paged", "flash_bwd_dq", "flash_bwd_dkv",
+                 "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"):
+        want = per_dispatch.get(name, 0) * rec["batches"]
+        check(n[name] == want, f"{what}: {name} launched {n[name]} times, "
+                               f"not {want} ({rec['batches']} dispatches)")
+    rec["k1_launches_per_dispatch"] = {
+        k: n[k] / rec["batches"] for k in per_dispatch}
+
+
+def _predict_answers(what, answers, xs, version):
+    """Statuses 200, the version, and each prediction's shape [rows, T,
+    vocab]; returns the predictions as float32 arrays."""
+    preds = []
+    for i, ((status, body), x) in enumerate(zip(answers, xs)):
+        check(status == 200, f"{what} request {i}: {status} {body}")
+        check(body["version"] == version,
+              f"{what} request {i}: version {body['version']}")
+        p = np.asarray(body["prediction"], np.float32)
+        check(p.shape == x.shape and bool(np.isfinite(p).all()),
+              f"{what} request {i}: shape {p.shape}, not {x.shape}, or "
+              "non-finite")
+        preds.append(p)
+    return preds
+
+
+def _fixture_argmax(what, preds, fx):
+    """At every valid position the argmax equals JAX's (the fixture's
+    runner-up where JAX's top-2 gap is under TIE_GAP)."""
+    ties = {(q, j, t): s for q, j, t, s in fx["ties"]}
+    for q, (p, want) in enumerate(zip(preds, fx["argmax"])):
+        got = p.argmax(-1)
+        for j, row in enumerate(want):
+            bad = [t for t, (a, b) in enumerate(zip(got[j], row))
+                   if a != b and ties.get((q, j, t)) != a]
+            check(not bad, f"{what} request {q} row {j}: argmax differs "
+                           f"from JAX's at positions {bad[:8]}")
+
+
+def _bf16_readings(bf16_preds, preds, fx):
+    """The bf16-compute version's answers against v1's: `sound`, their max
+    abs difference; `broken`, the smallest max abs difference that one of
+    two faulty paths would show against v1 (each answer one time step
+    late; each request handed the next request's answer, on their common
+    rows and steps), which PREDICT_BF16_TOL must stay under; and the
+    argmax against JAX's at every valid position: `gated`, the positions
+    where v1's top-2 gap is at least PREDICT_BF16_GAP, `gated_flips`, how
+    many of them differ, `flips` and `largest_flip_gap`, over all."""
+    pairs = list(zip(bf16_preds, preds))
+    late = max(float(np.abs(b[:, 1:] - p[:, :-1]).max())
+               for b, p in pairs if p.shape[1] > 1)
+    swapped = 0.0
+    for b, p in zip(bf16_preds, preds[1:] + preds[:1]):
+        r, t = min(b.shape[0], p.shape[0]), min(b.shape[1], p.shape[1])
+        swapped = max(swapped, float(np.abs(b[:r, :t] - p[:r, :t]).max()))
+    gated = gated_flips = flips = 0
+    largest = 0.0
+    for b, p, want in zip(bf16_preds, preds, fx["argmax"]):
+        top2 = np.sort(p, -1)[..., -2:]
+        gap = top2[..., 1] - top2[..., 0]
+        differs = b.argmax(-1) != np.asarray(want)
+        wide = gap >= PREDICT_BF16_GAP
+        gated += int(wide.sum())
+        gated_flips += int((differs & wide).sum())
+        flips += int(differs.sum())
+        if differs.any():
+            largest = max(largest, float(gap[differs].max()))
+    return {"sound": max(float(np.abs(b - p).max()) for b, p in pairs),
+            "broken": min(late, swapped), "late": late, "swapped": swapped,
+            "positions": sum(int(np.prod(p.shape[:2])) for p in preds),
+            "gated": gated, "gated_flips": gated_flips, "flips": flips,
+            "largest_flip_gap": largest}
+
+
+def _predict_host_cost(bodies, model):
+    """The host's share of a request: the server's parse (json.loads and
+    the float32 array) of the largest body, against one dispatch of the
+    largest padded batch (32 rows x the 128 bucket, with its mask) through
+    `model.output` and back to the host. Medians over 5, wall clock."""
+    import torch
+    big = max(bodies, key=len)
+
+    def parse():
+        return np.asarray(json.loads(big)["data"], dtype=np.float32)
+
+    x = np.zeros((32, 128, SERVE["vocab_size"]), np.float32)
+    mask = np.ones((32, 128), np.float32)
+
+    def dispatch():
+        with torch.inference_mode():
+            model.output(x, mask=mask).cpu()
+
+    times = {}
+    for name, fn in (("parse", parse), ("dispatch", dispatch)):
+        fn()
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        times[name] = float(np.median(ts))
+    return {"largest_body_bytes": len(big), "parse_ms": times["parse"],
+            "dispatch_32x128_ms": times["dispatch"]}
+
+
+def _during_deploy(srv, version, body):
+    """POST /deploy `version` while a client keeps sending `body` to
+    /predict: (deploy status, deploy body, [(version answered, answered
+    during the deploy call)])."""
+    import threading
+    from deeplearning4j_tpu_torch.util.http import request_json
+    stop, seen = threading.Event(), []
+    span = {}
+
+    def client():
+        while not stop.is_set():
+            status, ans = _post_bytes(srv.url + "/predict", body)
+            seen.append((status, ans.get("version"), time.perf_counter()))
+
+    th = threading.Thread(target=client, daemon=True)
+    th.start()
+    while not seen:                   # the client is answering
+        time.sleep(0.001)
+    span["start"] = time.perf_counter()
+    status, res = request_json(srv.url + "/deploy", {"version": version},
+                               timeout=600)
+    span["end"] = time.perf_counter()
+    stop.set()
+    th.join(60)
+    bad = [(s, v) for s, v, _ in seen if s != 200]
+    check(not bad, f"/predict during the deploy answered {bad[:4]}")
+    return status, res, [(v, span["start"] < t < span["end"])
+                         for _, v, t in seen]
+
+
+def _predict_kernel_cases(fx, gen):
+    """K1 against its plain version at the /predict path's shape: a full
+    batch of PREDICT_KERNEL_ROWS rows of the fixture's requests in the 128
+    bucket (B=32 T=128 H=4 D=64, causal, each row's valid prefix its
+    request's length), f32 and bf16."""
+    import torch
+    lengths = [len(r) for req in fx["requests"] for r in req]
+    valid = lengths[:PREDICT_KERNEL_ROWS]
+    H = SERVE["n_heads"]
+    D = SERVE["d_model"] // H
+    label = f"predict B={len(valid)} T=128 H={H} D={D} masked"
+    return [_fwd_general_case(label, len(valid), 128, 128, H, D, True, valid,
+                              gen, dtype=dt)
+            for dt in (torch.float32, torch.bfloat16)]
+
+
+def _generate_alongside_predict(srv, prompts, bodies):
+    """The fixture's /generate prompts and a /predict burst at once (the
+    decode scheduler and the batcher run the same model from two
+    threads): (generate answers, predict answers, launches, batches). On
+    the slab cache each prompt is prefilled once, and every flash_fwd
+    launch is one layer of a /predict dispatch or of a prefill, so it
+    counts exactly."""
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    from deeplearning4j_tpu_torch.util.http import request_json
+    b0 = srv.metrics.batches.get()
+    reset_launch_counts()
+    with ThreadPoolExecutor(len(prompts) + PREDICT_CLIENTS) as pool:
+        gens = [pool.submit(request_json, srv.url + "/generate",
+                            {"prompt": p, "max_new_tokens": 16}, 300)
+                for p in prompts]
+        preds = [pool.submit(_post_bytes, srv.url + "/predict", b)
+                 for b in bodies]
+        gens = [f.result() for f in gens]
+        preds = [f.result() for f in preds]
+    return gens, preds, counts(), srv.metrics.batches.get() - b0
+
+
+def phase_predict(smi):
+    """The /predict plane on the card: transformer_lm at full width saved
+    with the port's ModelSerializer (f32 and bf16-compute copies) and
+    served from a scan_dir through the admission queue, the batcher's
+    masked length buckets and K1 (path predict); deploy, rollback and
+    /generate after the swaps; the pretrained LeNet deployed by path; the
+    committed regression zip restored on the card. Returns (K1's cases at
+    the predict shape, {"predict": launches})."""
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch.kernels import (reset_launch_counts,
+                                                  route_counts)
+    from deeplearning4j_tpu_torch.serving import ServingServer
+    from deeplearning4j_tpu_torch.util.http import request_json
+    from deeplearning4j_tpu_torch.util.model_serializer import \
+        ModelSerializer
+    torch.cuda.empty_cache()
+    fx = json.loads(PREDICT_FIXTURE.read_text())
+    greedy = json.loads(FIXTURE.read_text())
+    check(fx["model"] == SERVE and fx["param_seed"] == 0,
+          "the predict fixture's model differs from the served model")
+    eye = np.eye(SERVE["vocab_size"], dtype=np.float32)
+    xs = [eye[np.asarray(req)] for req in fx["requests"]]
+    rows = [x.shape[0] for x in xs]
+    bodies = [json.dumps({"data": x.tolist()}).encode() for x in xs]
+    summary, launches = {"card": smi}, {}
+
+    with tempfile.TemporaryDirectory() as scan_dir:
+        net = _full_width_net(True)
+        ModelSerializer.write_model(net, f"{scan_dir}/v1.zip")
+        ModelSerializer.write_model(_full_width_net(True, "bfloat16"),
+                                    f"{scan_dir}/v1_bf16.zip")
+        del net
+        srv = ServingServer(scan_dir=scan_dir, device=DEVICE,
+                            **PREDICT_SERVER).start()
+        try:
+            check(not srv.registry.scan_errors,
+                  f"scan_dir errors: {srv.registry.scan_errors}")
+            status, res = request_json(srv.url + "/deploy",
+                                       {"version": "v1"}, timeout=600)
+            check(status == 200 and res == {"active": "v1",
+                                            "previous": None},
+                  f"/deploy v1: {status} {res}")
+            v1 = srv.registry.get("v1").model
+            check(v1.device.type == torch.device(DEVICE).type,
+                  f"v1 loaded on {v1.device}, not {DEVICE}")
+
+            # v1: a checked burst, then a timed one, each its own counts
+            answers, cold = _measured_burst(srv, bodies, rows)
+            _predict_launch_gates("v1", cold, {"flash_fwd":
+                                               SERVE["n_layers"]})
+            preds = _predict_answers("v1", answers, xs, "v1")
+            direct_err = max(float(np.abs(p - v1.output(x).cpu().numpy())
+                                   .max()) for p, x in zip(preds, xs))
+            check(direct_err <= PREDICT_TOL,
+                  f"v1 /predict vs a direct output: max abs {direct_err} > "
+                  f"{PREDICT_TOL}")
+            _fixture_argmax("v1", preds, fx)
+            answers, warm = _measured_burst(srv, bodies, rows)
+            _predict_launch_gates("v1 again", warm,
+                                  {"flash_fwd": SERVE["n_layers"]})
+            again = _predict_answers("v1 again", answers, xs, "v1")
+            warm_err = max(float(np.abs(a - p).max())
+                           for a, p in zip(again, preds))
+            check(warm_err <= PREDICT_TOL,
+                  f"v1's second burst differs from its first: {warm_err}")
+            host = _predict_host_cost(bodies, v1)
+
+            # the bf16-compute version, deployed while v1 serves
+            small = json.dumps({"data": xs[0][:1, :8].tolist()}).encode()
+            status, res, seen = _during_deploy(srv, "v1_bf16", small)
+            check(status == 200 and res == {"active": "v1_bf16",
+                                            "previous": "v1"},
+                  f"/deploy v1_bf16: {status} {res}")
+            during = [v for v, inside in seen if inside]
+            check(during and set(during) <= {"v1", "v1_bf16"} and
+                  "v1" in during, f"answers during the deploy: {during}")
+            answers, bf16_cold = _measured_burst(srv, bodies, rows)
+            # the f32 mask promotes the first attention layer's output to
+            # float32, so the layers after it run the f32 kernel (as JAX)
+            bf16_k1 = {"flash_fwd_bf16": 1,
+                       "flash_fwd": SERVE["n_layers"] - 1}
+            _predict_launch_gates("v1_bf16", bf16_cold, bf16_k1)
+            bf16_preds = _predict_answers("v1_bf16", answers, xs, "v1_bf16")
+            bf16 = _bf16_readings(bf16_preds, preds, fx)
+            print(f"v1_bf16 against v1 ({smi}): {json.dumps(bf16)}")
+            bf16_err = bf16["sound"]
+            check(bf16_err <= PREDICT_BF16_TOL < bf16["broken"],
+                  f"v1_bf16 vs v1: max abs {bf16_err} > {PREDICT_BF16_TOL}"
+                  f", or a broken control's {bf16['broken']} under it")
+            check(bf16["gated"] and not bf16["gated_flips"],
+                  f"v1_bf16's argmax differs from JAX's at "
+                  f"{bf16['gated_flips']} of {bf16['gated']} positions "
+                  f"where v1's top-2 gap >= {PREDICT_BF16_GAP}")
+            answers, bf16_warm = _measured_burst(srv, bodies, rows)
+            _predict_launch_gates("v1_bf16 again", bf16_warm, bf16_k1)
+            _predict_answers("v1_bf16 again", answers, xs, "v1_bf16")
+
+            status, models = request_json(srv.url + "/models", None, 30)
+            check(status == 200 and sorted(m["version"] for m in
+                                           models["models"])
+                  == ["v1", "v1_bf16"] and models["active"] == "v1_bf16",
+                  f"/models: {status} {models}")
+            status, res = request_json(srv.url + "/rollback", {}, 600)
+            check(status == 200 and res == {"active": "v1"},
+                  f"/rollback: {status} {res}")
+
+            # /generate after the swaps, beside a /predict burst
+            gens, after, both, batches = _generate_alongside_predict(
+                srv, greedy["prompts"], bodies)
+            admitted = len(greedy["prompts"])
+            for i, ((status, body), want) in enumerate(zip(
+                    gens, greedy["tokens"])):
+                check(status == 200 and body["version"] == "v1"
+                      and body["tokens"] == want,
+                      f"/generate {i} after the swaps: {status} {body} "
+                      f"!= JAX {want}")
+            after_preds = _predict_answers("v1 after the rollback", after,
+                                           xs, "v1")
+            rb_err = max(float(np.abs(a - p).max())
+                         for a, p in zip(after_preds, preds))
+            check(rb_err <= PREDICT_TOL,
+                  f"v1 after the rollback differs: {rb_err}")
+            want_fwd = SERVE["n_layers"] * (batches + admitted)
+            check(both["flash_fwd"] == want_fwd and both["flash_decode"] > 0
+                  and not any(both[k] for k in route_counts()),
+                  f"predict + generate at once: flash_fwd {both['flash_fwd']}"
+                  f" != {want_fwd} ({batches} dispatches, {admitted} "
+                  f"prefills), or routes {both}")
+
+            # the pretrained LeNet, deployed by path (another input
+            # contract: the warm-up must not replay the transformer's
+            # shapes, as in the JAX package)
+            srv.batcher.reset_observed()
+            status, res = request_json(
+                srv.url + "/deploy", {"version": "lenet",
+                                      "path": str(LENET_ZIP)}, 600)
+            check(status == 200 and res["active"] == "lenet",
+                  f"/deploy lenet: {status} {res}")
+            images, truth = _t10k()
+            lenet_bodies = [json.dumps({"data": images[i:i + LENET_REQUEST_ROWS]
+                                        .tolist()}).encode()
+                            for i in range(0, len(images),
+                                           LENET_REQUEST_ROWS)]
+            reset_launch_counts()
+            answers, lenet_wall = _predict_burst(srv.url, lenet_bodies)
+            lenet_launches = counts()
+            probs = np.concatenate([np.asarray(b["prediction"], np.float32)
+                                    for s, b in answers])
+            check(all(s == 200 and b["version"] == "lenet"
+                      for s, b in answers) and probs.shape == (len(images),
+                                                               10),
+                  "lenet answers: statuses, versions or shape")
+            check(not any(lenet_launches.values()),
+                  f"the LeNet path launched hand kernels: {lenet_launches}")
+            labels = probs.argmax(-1)
+            low = set(fx["lenet"]["low_gap"])
+            bad = [i for i, (a, b) in enumerate(zip(labels,
+                                                    fx["lenet"]["labels"]))
+                   if a != b and i not in low]
+            check(not bad, f"LeNet labels differ from JAX's at {bad[:10]}")
+            lenet = {"images": len(images),
+                     "accuracy": float((labels == truth).mean()),
+                     "jax_accuracy": fx["lenet"]["accuracy"],
+                     "rows_per_s": len(images) / lenet_wall,
+                     "requests": len(lenet_bodies)}
+        finally:
+            srv.stop()
+
+    # the committed regression zip on the card
+    reg = ModelSerializer.restore(str(REGRESSION_ZIP), device=DEVICE)
+    exp = np.load(REGRESSION_EXPECTED)
+    check(np.array_equal(reg.get_flat_params()[:32], exp["flat_head"]),
+          "regression zip: flat_head differs")
+    pred = reg.output(exp["x"]).cpu().numpy()
+    check(np.allclose(pred, exp["pred"], rtol=1e-5, atol=1e-6),
+          f"regression zip: pred max abs err "
+          f"{float(np.abs(pred - exp['pred']).max())}")
+
+    gen = torch.Generator().manual_seed(12)
+    cases = _predict_kernel_cases(fx, gen)
+    _print_cases(cases)
+    launches["predict"] = {k: sum(r["launches"][k] for r in
+                                  (cold, warm, bf16_cold, bf16_warm))
+                           for k in cold["launches"]}
+    summary.update({
+        "v1": {"cold": cold, "warm": warm,
+               "direct_output_max_abs_err": direct_err},
+        "v1_bf16": {"cold": bf16_cold, "warm": bf16_warm,
+                    "vs_v1_max_abs_err": bf16_err, "vs_v1": bf16,
+                    "answers_during_deploy": len(during)},
+        "after_rollback": {"max_abs_err_vs_v1": rb_err,
+                           "generate_prompts": len(gens),
+                           "flash_fwd": both["flash_fwd"],
+                           "dispatches": batches, "prefills": admitted},
+        "lenet": lenet, "host": host,
+        "regression_zip_pred_max_abs_err":
+            float(np.abs(pred - exp["pred"]).max())})
+    for rec in (cold, warm, bf16_cold, bf16_warm):
+        rec.pop("launches")
+    print(json.dumps({"predict": summary}))
+    for name, rec in (("v1", warm), ("v1_bf16", bf16_warm)):
+        print(f"/predict {name} ({smi}): {rec['rows_per_s']:.1f} rows/s, "
+              f"latency p50 {rec['latency_ms_p50']:.1f} ms p99 "
+              f"{rec['latency_ms_p99']:.1f} ms (server histogram), "
+              f"{rec['batches']} batches for {rec['requests']} requests, "
+              f"buckets {rec['batch_size_histogram']} lengths "
+              f"{rec['seq_len_bucket_histogram']}, K1 per dispatch "
+              f"{rec['k1_launches_per_dispatch']}")
+    print(f"/predict lenet ({smi}): {lenet['rows_per_s']:.1f} rows/s, "
+          f"accuracy {lenet['accuracy']:.3f} on {lenet['images']} images "
+          f"(JAX {lenet['jax_accuracy']:.3f}); host parse of the largest "
+          f"body ({host['largest_body_bytes']} bytes) "
+          f"{host['parse_ms']:.1f} ms vs one 32 x 128 dispatch "
+          f"{host['dispatch_32x128_ms']:.1f} ms")
+    return cases, launches
+
+
 # ------------------------------------------------------------------ main
 _FA = "deeplearning4j_tpu/kernels/flash_attention.py"
 REPLACES = {
@@ -5233,6 +5783,9 @@ def main():
     rnn_cases, rnn_launches = phase_decode_rnn_spec(smi)
     cases += rnn_cases
     launches.update(rnn_launches)
+    predict_cases, predict_launches = phase_predict(smi)
+    cases += predict_cases
+    launches.update(predict_launches)
     from deeplearning4j_tpu_torch.kernels import route_counts
     for path, n in launches.items():
         # the D=320 model's paths take the wide routes and no other

@@ -13,7 +13,10 @@ CUDA kernels (`kernels/csrc/`), and trains it with `ComputationGraph.fit`.
 It trains `zoo.resnet50` through the same `fit`: the convolution family
 (`nn/layers/convolution.py`) runs on torch's convolution, pooling and
 elementwise ops, as the JAX package runs it on XLA's, with batch norm's
-running statistics in the graph's layer state.
+running statistics in the graph's layer state. It reads and writes the
+JAX package's model zips (`util.model_serializer`) and serves them over
+`POST /predict` (`serving`: admission queue, dynamic batcher, versioned
+registry).
 """
 from .device import resolve_device
 

@@ -523,6 +523,19 @@ class DecodeEngine:
         cache["lengths"].copy_(torch.from_numpy(snap["lengths"]))
         return cache
 
+    def warmup(self, buckets=()):
+        """Run the prefill at each given length bucket and one step on a
+        scratch cache (a deploy's warm-up: the hot-swapped model meets its
+        first request with its kernels built and its memory allocated)."""
+        cache = self.init_cache()
+        for L in sorted(set(int(b) for b in buckets)):
+            L = min(max(L, MIN_PREFILL_BUCKET), self.capacity)
+            # an (L-1)-token prompt maps to bucket L
+            cache, _, _ = self.prefill(cache, 0, np.zeros((max(L - 1, 1),),
+                                                          np.int64))
+        self.step(cache, np.zeros((self.slots,), np.int64))
+        return self
+
     def generate(self, prompt_ids, max_new_tokens=20, stop_id=None,
                  sampler=None):
         """Single-request decode on slot 0; greedy unless `sampler` (a

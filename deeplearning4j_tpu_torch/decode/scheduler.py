@@ -30,9 +30,11 @@ the table and the block map die with the cache.
 
 Grad mode is thread-local, so the loop thread enters
 `torch.inference_mode()` itself. If the registry's active model changes,
-admission waits for the in-flight requests to finish, then builds a
-fresh engine. Hot-swap warm-up and an LRU of engines come with a later
-slice.
+admission waits for the in-flight requests to finish, then takes that
+model's engine from `engine_for`, an LRU of engines keyed by model object
+(a rollback reuses its engine). `warmup(model)`, run by a deploy before
+the registry swaps, runs the model's engine at every prefill bucket
+served so far and one step, on a scratch cache.
 """
 from __future__ import annotations
 
@@ -48,11 +50,13 @@ from concurrent.futures import Future, TimeoutError as FuturesTimeoutError
 from ..serving.admission import (DeadlineExceeded, RejectedError,
                                  safe_set_exception, safe_set_result)
 from ..serving.registry import NoModelDeployed
+from .engine import bucket_for_len
 from .paged import BlockPool, PoolExhausted, blocks_for, make_table
 from .sampling import batch_operands
 
 IDLE_WAIT_S = 0.2       # loop wake-up when idle (stop() also notifies)
 HISTORY = 4096          # latency samples kept for snapshot()
+MAX_ENGINES = 4         # decode engines kept, most recently served first
 
 
 def _p50(xs):
@@ -99,8 +103,8 @@ class GenerateRequest:
 
 class DecodeScheduler:
     def __init__(self, registry, *, slots=4, max_len=128, queue_capacity=64,
-                 default_max_new_tokens=32, paged=False, block_size=16,
-                 pool_blocks=None):
+                 default_max_new_tokens=32, paged=False,
+                 block_size=16, pool_blocks=None):
         self.registry = registry                    # ModelRegistry
         self.slots = int(slots)
         self.max_len = int(max_len)
@@ -118,6 +122,8 @@ class DecodeScheduler:
         self._queue = collections.deque()
         self._closed = False
         self._thread = None
+        self._engines = collections.OrderedDict()   # id(model) -> (model, eng)
+        self._observed_buckets = set()              # prefill buckets served
         # loop-thread-owned state
         self._engine = None
         self._cache = None
@@ -261,6 +267,37 @@ class DecodeScheduler:
                 "preempted": self.counts["preempted"]}
         return out
 
+    # ------------------------------------------------------------- engines
+    def engine_for(self, model):
+        """One DecodeEngine per model object, LRU-bounded at
+        MAX_ENGINES: a rollback to a recently served version reuses its
+        engine."""
+        from .engine import DecodeEngine
+        key = id(model)
+        with self._lock:
+            hit = self._engines.get(key)
+            if hit is not None and hit[0] is model:
+                self._engines.move_to_end(key)
+                return hit[1]
+        eng = DecodeEngine(model, slots=self.slots, max_len=self.max_len,
+                           paged=self.paged, block_size=self.block_size,
+                           num_blocks=self.pool_blocks)
+        with self._lock:
+            self._engines[key] = (model, eng)
+            self._engines.move_to_end(key)
+            while len(self._engines) > MAX_ENGINES:
+                self._engines.popitem(last=False)
+        return eng
+
+    def warmup(self, model):
+        """Deploy-time warm-up: `model`'s engine runs every prefill bucket
+        served so far and one step on a scratch cache, BEFORE the registry
+        swaps (a model without per-token semantics raises
+        DecodeUnsupported)."""
+        with self._lock:
+            buckets = set(self._observed_buckets)
+        self.engine_for(model).warmup(buckets)
+
     # ------------------------------------------------------------ the loop
     def _run(self):
         with torch.inference_mode():
@@ -318,13 +355,9 @@ class DecodeScheduler:
                 or self._engine.model is not entry.model:
             if self._active:
                 return                      # drain first, swap next wave
-            from .engine import DecodeEngine
             self._drop_cache()
             try:
-                self._engine = DecodeEngine(
-                    entry.model, slots=self.slots, max_len=self.max_len,
-                    paged=self.paged, block_size=self.block_size,
-                    num_blocks=self.pool_blocks)
+                self._engine = self.engine_for(entry.model)
             except Exception as e:
                 # deterministic for this version: fail everything queued
                 self.last_error = f"{type(e).__name__}: {e}"
@@ -385,6 +418,9 @@ class DecodeScheduler:
                 self._slot_blocks[slot] = blks
                 self._table[slot, :] = 0
                 self._table[slot, :len(blks)] = blks
+            with self._lock:
+                self._observed_buckets.add(
+                    bucket_for_len(len(ctx), self._engine.capacity))
             try:
                 self._cache, nid, _ = self._engine.prefill(
                     self._cache, slot, ctx, sampling=r.sampler,

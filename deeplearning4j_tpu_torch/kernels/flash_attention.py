@@ -125,6 +125,7 @@ import contextlib
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
@@ -198,6 +199,16 @@ _routes = dict.fromkeys(
        "flash_decode_paged_gather"], 0)
 
 
+# the counts are bumped from every thread that runs a model (the /predict
+# batcher and the decode scheduler may run one model at once)
+_COUNT_LOCK = threading.Lock()
+
+
+def _bump(counts, key, n=1):
+    with _COUNT_LOCK:
+        counts[key] += n
+
+
 def _on_host(t):
     return t.device.type == "cpu"
 
@@ -215,7 +226,7 @@ def _launch(fn, name, device, *args):
         err = fn(*args, _stream(device))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
-    _launches[name] += 1
+    _bump(_launches, name)
 
 
 def _scale(scale, D):
@@ -246,7 +257,7 @@ def can_flash(Tq, Tk, D):
 
 
 def _plain_by_shape(kernel):
-    _routes[f"{kernel}_plain_by_shape"] += 1
+    _bump(_routes, f"{kernel}_plain_by_shape")
 
 
 def _ptr(t):
@@ -310,7 +321,7 @@ def _entry(kernel, dtype, Dp, route=None):
     argtypes, by_dtype = _ATTENTION_ENTRIES[kernel]
     lib, symbol = by_dtype[dtype]
     if Dp > WIDEST_COMPILED:
-        _routes[f"{route or symbol.removesuffix('_f32')}_wide"] += 1
+        _bump(_routes, f"{route or symbol.removesuffix('_f32')}_wide")
         lib = "flash_wide"
         symbol = _WIDE_SYMBOLS[kernel] + (
             "_bf16" if dtype == torch.bfloat16 else "_f32")
@@ -379,7 +390,7 @@ def flash_attention_plain(q, k, v, *, causal=False, scale=None,
 def _upcast_f16(kernel, *ts):
     """float16 operands `ts` as float32 (a new tensor each), the call
     counted under `<kernel>_f16`."""
-    _routes[f"{kernel}_f16"] += 1
+    _bump(_routes, f"{kernel}_f16")
     return tuple(t.float() for t in ts)
 
 
@@ -786,7 +797,7 @@ def _decode(q, k, v, lengths, scale, route):
     Dp = kernel_head_dim(D)
     if q.dtype == torch.bfloat16 or Dp > WIDEST_COMPILED:
         if q.dtype == torch.bfloat16:
-            _routes[f"{route}_bf16"] += 1
+            _bump(_routes, f"{route}_bf16")
         valid = torch.arange(C, device=q.device)[None, :] < lengths[:, None]
         return _forward_launch(q, k, v, False, scale, valid, False, 0, 0, Dp,
                                route)
@@ -870,7 +881,7 @@ def flash_decode_paged(q, k_pool, v_pool, block_table, lengths, *,
     if q.dtype != torch.float32 or Dp > WIDEST_COMPILED or bs & (bs - 1):
         # the reference gathers the pool through the table first (:675-682)
         if q.dtype == torch.float32 and Dp <= WIDEST_COMPILED:
-            _routes["flash_decode_paged_gather"] += 1
+            _bump(_routes, "flash_decode_paged_gather")
         idx = table.long()
         k = k_pool[idx].reshape(S, MB * bs, H, D)
         v = v_pool[idx].reshape(S, MB * bs, H, D)
@@ -925,10 +936,11 @@ def add_graph_counts(counts, times=1):
     """Add `times` x `counts` (a `graph_counts(since)` dict) to the
     launch and route counts."""
     for k, n in counts.items():
-        (_launches if k in _launches else _routes)[k] += n * int(times)
+        _bump(_launches if k in _launches else _routes, k, n * int(times))
 
 
 def reset_launch_counts():
-    for counts in (_launches, _routes):
-        for name in counts:
-            counts[name] = 0
+    with _COUNT_LOCK:
+        for counts in (_launches, _routes):
+            for name in counts:
+                counts[name] = 0

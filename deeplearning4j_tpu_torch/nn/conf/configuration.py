@@ -1,14 +1,19 @@
 """NeuralNetConfiguration builder DSL (counterpart of
 deeplearning4j_tpu/nn/conf/configuration.py): the global stage, the
 `.list()` stage that builds a MultiLayerConfiguration and the
-`.graph_builder()` stage. JSON round-trip waits for the serializer
-slice."""
+`.graph_builder()` stage. `to_json` / `from_json` are the checkpoint's
+`configuration.json` contract (JAX configuration.py:130-171), key for
+key and in the same order."""
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 
+from . import layers as L
 from ..updaters import Sgd
-from .preprocessors import default_preprocessor, type_after_preprocessor
+from .inputs import InputType
+from .preprocessors import (default_preprocessor, preprocessor_from_dict,
+                            type_after_preprocessor)
 
 
 class BackpropType:
@@ -34,6 +39,58 @@ class MultiLayerConfiguration:
     compute_dtype: object = None
     remat: object = None
     optimization_algo: str = "sgd"
+    max_num_line_search_iterations: int = 5
+    pretrain: bool = False
+    backprop: bool = True
+
+    def to_dict(self):
+        return {
+            "format": "deeplearning4j-tpu/MultiLayerConfiguration",
+            "version": 1,
+            "layers": [lc.to_dict() for lc in self.layers],
+            "input_preprocessors": {str(k): v.to_dict() for k, v in
+                                    self.input_preprocessors.items()},
+            "input_type": (self.input_type.to_dict() if self.input_type
+                           else None),
+            "backprop_type": self.backprop_type,
+            "tbptt_fwd_length": self.tbptt_fwd_length,
+            "tbptt_back_length": self.tbptt_back_length,
+            "seed": self.seed,
+            "dtype": self.dtype,
+            "compute_dtype": self.compute_dtype,
+            "remat": self.remat,
+            "optimization_algo": self.optimization_algo,
+            "max_num_line_search_iterations":
+                self.max_num_line_search_iterations,
+            "pretrain": self.pretrain,
+            "backprop": self.backprop,
+        }
+
+    def to_json(self):
+        return json.dumps(self.to_dict(), indent=2)
+
+    @staticmethod
+    def from_dict(d):
+        """The inverse of `to_dict`; a key the dict lacks (a zip written
+        before `remat` existed) keeps its default."""
+        conf = MultiLayerConfiguration()
+        conf.layers = [L.layer_conf_from_dict(ld) for ld in d["layers"]]
+        conf.input_preprocessors = {
+            int(k): preprocessor_from_dict(v)
+            for k, v in d.get("input_preprocessors", {}).items()}
+        it = d.get("input_type")
+        conf.input_type = InputType.from_dict(it) if it else None
+        for k in ("backprop_type", "tbptt_fwd_length", "tbptt_back_length",
+                  "seed", "dtype", "compute_dtype", "remat",
+                  "optimization_algo", "max_num_line_search_iterations",
+                  "pretrain", "backprop"):
+            if k in d:
+                setattr(conf, k, d[k])
+        return conf
+
+    @staticmethod
+    def from_json(s):
+        return MultiLayerConfiguration.from_dict(json.loads(s))
 
 
 class ListBuilder:

@@ -3,14 +3,45 @@ vertex (counterpart of deeplearning4j_tpu/nn/conf/graph_configuration.py).
 Vertices are plain functions over lists of tensors; the other vertex types
 come with later slices. A layer vertex may carry an input preprocessor
 (nn/conf/preprocessors.py), given to `add_layer` or inserted by `build`
-where one layer family feeds another."""
+where one layer family feeds another. `to_json` / `from_json` are the
+checkpoint's `configuration.json` contract (JAX
+graph_configuration.py:341-395)."""
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 
-from .preprocessors import default_preprocessor, type_after_preprocessor
+from . import layers as L
+from ..updaters import Sgd
+from .inputs import InputType
+from .preprocessors import (default_preprocessor, preprocessor_from_dict,
+                            type_after_preprocessor)
+
+_VERTEX_REGISTRY: dict = {}
+
+# registered by the JAX package, not ported yet
+_UNPORTED_VERTICES = ("MergeVertex", "SubsetVertex", "StackVertex",
+                      "UnstackVertex", "ScaleVertex", "L2NormalizeVertex",
+                      "L2Vertex", "PreprocessorVertex", "LastTimeStepVertex",
+                      "DuplicateToTimeSeriesVertex")
 
 
+def register_vertex(cls):
+    _VERTEX_REGISTRY[cls.__name__] = cls
+    return cls
+
+
+def vertex_from_dict(d):
+    d = dict(d)
+    t = d.pop("type")
+    if t in _UNPORTED_VERTICES:
+        raise NotImplementedError(
+            f"vertex {t} is not ported yet (ROADMAP queue 1 item 6: nn "
+            "core)")
+    return _VERTEX_REGISTRY[t](**d)
+
+
+@register_vertex
 class ElementWiseVertex:
     """Sum of equal-shaped inputs (the residual vertex)."""
 
@@ -30,6 +61,11 @@ class ElementWiseVertex:
     def output_type(self, input_types):
         return input_types[0]
 
+    def to_dict(self):
+        d = dict(self.__dict__)
+        d["type"] = type(self).__name__
+        return d
+
 
 @dataclass
 class GraphVertexSpec:
@@ -47,15 +83,74 @@ class ComputationGraphConfiguration:
     network_inputs: list = field(default_factory=list)
     network_outputs: list = field(default_factory=list)
     input_types: list = None
+    backprop_type: str = "standard"
+    tbptt_fwd_length: int = 20
+    tbptt_back_length: int = 20
     seed: int = 12345
     dtype: str = "float32"
     compute_dtype: object = None
     remat: object = None
     optimization_algo: str = "sgd"
-    backprop_type: str = "standard"
-    tbptt_fwd_length: int = 20
-    tbptt_back_length: int = 20
+    max_num_line_search_iterations: int = 5
     topological_order: list = None
+
+    _KEYS = ("backprop_type", "tbptt_fwd_length", "tbptt_back_length", "seed",
+             "dtype", "compute_dtype", "remat", "optimization_algo",
+             "max_num_line_search_iterations")
+
+    def to_dict(self):
+        verts = {}
+        for n, s in self.vertices.items():
+            verts[n] = {
+                "kind": s.kind,
+                "inputs": s.inputs,
+                "layer_conf": s.layer_conf.to_dict() if s.layer_conf
+                else None,
+                "vertex_conf": s.vertex_conf.to_dict() if s.vertex_conf
+                else None,
+                "preprocessor": s.preprocessor.to_dict() if s.preprocessor
+                else None,
+            }
+        return {
+            "format": "deeplearning4j-tpu/ComputationGraphConfiguration",
+            "version": 1,
+            "vertices": verts,
+            "network_inputs": self.network_inputs,
+            "network_outputs": self.network_outputs,
+            "input_types": ([t.to_dict() for t in self.input_types]
+                            if self.input_types else None),
+            **{k: getattr(self, k) for k in self._KEYS},
+        }
+
+    def to_json(self):
+        return json.dumps(self.to_dict(), indent=2)
+
+    @staticmethod
+    def from_dict(d):
+        conf = ComputationGraphConfiguration()
+        for n, sd in d["vertices"].items():
+            conf.vertices[n] = GraphVertexSpec(
+                name=n, kind=sd["kind"],
+                layer_conf=(L.layer_conf_from_dict(sd["layer_conf"])
+                            if sd.get("layer_conf") else None),
+                vertex_conf=(vertex_from_dict(sd["vertex_conf"])
+                             if sd.get("vertex_conf") else None),
+                inputs=list(sd.get("inputs", [])),
+                preprocessor=(preprocessor_from_dict(sd["preprocessor"])
+                              if sd.get("preprocessor") else None))
+        conf.network_inputs = list(d["network_inputs"])
+        conf.network_outputs = list(d["network_outputs"])
+        if d.get("input_types"):
+            conf.input_types = [InputType.from_dict(t)
+                                for t in d["input_types"]]
+        for k in ComputationGraphConfiguration._KEYS:
+            if k in d:
+                setattr(conf, k, d[k])
+        return conf
+
+    @staticmethod
+    def from_json(s):
+        return ComputationGraphConfiguration.from_dict(json.loads(s))
 
     def topo_sort(self):
         """Kahn's algorithm, same order as the JAX package's."""
@@ -130,7 +225,8 @@ class GraphBuilder:
         return self
 
     def build(self):
-        """Finalize the layer configs and infer each layer's n_in from the
+        """Finalize the layer configs (a layer left without an updater
+        gets the reference's default, Sgd(0.1)) and infer each layer's n_in from the
         input types, in topological order, inserting a preprocessor in
         front of a layer whose input is of another family
         (`default_preprocessor`) unless it was given one."""
@@ -147,6 +243,8 @@ class GraphBuilder:
             if spec.kind == "layer":
                 lc = spec.layer_conf
                 lc.apply_global_defaults(g)
+                if lc.updater is None:
+                    lc.updater = Sgd(learning_rate=0.1)
                 t = in_types[0]
                 if t is not None:
                     if spec.preprocessor is None:

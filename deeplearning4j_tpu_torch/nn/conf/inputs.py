@@ -26,6 +26,21 @@ class InputType:
         return ConvolutionalFlatInputType(int(height), int(width),
                                           int(channels))
 
+    @staticmethod
+    def from_dict(d):
+        t = d["kind"]
+        if t == "ff":
+            return FeedForwardInputType(d["size"])
+        if t == "recurrent":
+            return RecurrentInputType(d["size"], d.get("timesteps"))
+        if t == "cnn":
+            return ConvolutionalInputType(d["height"], d["width"],
+                                          d["channels"])
+        if t == "cnn_flat":
+            return ConvolutionalFlatInputType(d["height"], d["width"],
+                                              d["channels"])
+        raise ValueError(f"Unknown input type kind {t}")
+
 
 @dataclass(frozen=True)
 class FeedForwardInputType:
@@ -34,6 +49,9 @@ class FeedForwardInputType:
 
     def flat_size(self):
         return self.size
+
+    def to_dict(self):
+        return {"kind": "ff", "size": self.size}
 
 
 @dataclass(frozen=True)
@@ -44,6 +62,10 @@ class RecurrentInputType:
 
     def flat_size(self):
         return self.size
+
+    def to_dict(self):
+        return {"kind": "recurrent", "size": self.size,
+                "timesteps": self.timesteps}
 
 
 @dataclass(frozen=True)
@@ -56,6 +78,10 @@ class ConvolutionalInputType:
     def flat_size(self):
         return self.height * self.width * self.channels
 
+    def to_dict(self):
+        return {"kind": "cnn", "height": self.height, "width": self.width,
+                "channels": self.channels}
+
 
 @dataclass(frozen=True)
 class ConvolutionalFlatInputType:
@@ -67,3 +93,7 @@ class ConvolutionalFlatInputType:
 
     def flat_size(self):
         return self.height * self.width * self.channels
+
+    def to_dict(self):
+        return {"kind": "cnn_flat", "height": self.height,
+                "width": self.width, "channels": self.channels}

@@ -3,18 +3,51 @@ deeplearning4j_tpu/nn/conf/layers.py; the configs of the ported zoo
 models, DropoutLayer and the LSTM family).
 
 Hyperparameters left as None inherit the builder's global values. A layer
-left without an updater trains with Sgd(0.1) (`nn.updaters.layer_transform`)."""
+left without an updater trains with Sgd(0.1) (`nn.updaters.layer_transform`).
+
+Serde: `to_dict` / `layer_conf_from_dict` are the JAX package's
+(layers.py:20-38, :92-103): every field that is not None, nested
+`to_dict`s (the updater), and the class name under "type". A type the JAX
+package registers and the port lacks raises NotImplementedError."""
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields as dc_fields
 
 from .inputs import (ConvolutionalFlatInputType, ConvolutionalInputType,
                      InputType, RecurrentInputType)
 
+_LAYER_REGISTRY: dict = {}
+
+# registered by the JAX package, not ported yet
+_UNPORTED_LAYERS = ("LossLayer", "CenterLossOutputLayer", "EmbeddingLayer",
+                    "MixtureOfExpertsLayer", "AutoEncoder", "RBM",
+                    "VariationalAutoencoder")
+
+
+def register_layer_conf(cls):
+    _LAYER_REGISTRY[cls.__name__] = cls
+    return cls
+
+
+def layer_conf_from_dict(d):
+    d = dict(d)
+    t = d.pop("type")
+    if t in _UNPORTED_LAYERS:
+        raise NotImplementedError(
+            f"layer {t} is not ported yet (ROADMAP queue 1 item 6: nn core)")
+    cls = _LAYER_REGISTRY[t]
+    names = {f.name for f in dc_fields(cls)}
+    obj = cls(**{k: v for k, v in d.items() if k in names})
+    if isinstance(d.get("updater"), dict):
+        from ..updaters import updater_from_dict
+        obj.updater = updater_from_dict(d["updater"])
+    return obj
+
+
 # Global hyperparameters a layer can override
 _INHERITED = ("activation", "weight_init", "bias_init", "l1", "l2", "l1_bias",
               "l2_bias", "dropout", "updater", "gradient_normalization",
-              "gradient_normalization_threshold")
+              "gradient_normalization_threshold", "dist")
 
 
 @dataclass
@@ -23,6 +56,7 @@ class BaseLayerConf:
     activation: str | None = None
     weight_init: str | None = None
     bias_init: float | None = None
+    dist: dict | None = None
     l1: float | None = None
     l2: float | None = None
     l1_bias: float | None = None
@@ -56,6 +90,18 @@ class BaseLayerConf:
         if hasattr(self, "n_in") and self.n_in in (None, 0):
             self.n_in = input_type.flat_size()
 
+    def to_dict(self):
+        d = {}
+        for f in dc_fields(self):
+            v = getattr(self, f.name)
+            if v is None:
+                continue
+            if hasattr(v, "to_dict"):
+                v = v.to_dict()
+            d[f.name] = v
+        d["type"] = type(self).__name__
+        return d
+
 
 @dataclass
 class FeedForwardLayerConf(BaseLayerConf):
@@ -66,6 +112,7 @@ class FeedForwardLayerConf(BaseLayerConf):
         return InputType.feed_forward(self.n_out)
 
 
+@register_layer_conf
 @dataclass
 class DenseLayer(FeedForwardLayerConf):
     """Fully connected layer; time-distributed on [b, t, f] input."""
@@ -76,6 +123,7 @@ class DenseLayer(FeedForwardLayerConf):
         return InputType.feed_forward(self.n_out)
 
 
+@register_layer_conf
 @dataclass
 class RnnOutputLayer(FeedForwardLayerConf):
     """Per-timestep output layer for sequences [b, t, f]."""
@@ -85,12 +133,14 @@ class RnnOutputLayer(FeedForwardLayerConf):
         return InputType.recurrent(self.n_out)
 
 
+@register_layer_conf
 @dataclass
 class OutputLayer(FeedForwardLayerConf):
     """Output layer with integrated loss on [b, f]."""
     loss: str = "MCXENT"
 
 
+@register_layer_conf
 @dataclass
 class ConvolutionLayer(FeedForwardLayerConf):
     """2-D convolution, NHWC activations and HWIO kernels."""
@@ -125,6 +175,7 @@ class _NoActivationConf(BaseLayerConf):
             self.activation = "identity"
 
 
+@register_layer_conf
 @dataclass
 class SubsamplingLayer(_NoActivationConf):
     """Spatial pooling."""
@@ -153,6 +204,7 @@ def _norm_set_n_in(self, input_type):
     self.n_out = self.n_in
 
 
+@register_layer_conf
 @dataclass
 class LayerNormalization(_NoActivationConf):
     """Layer norm over the feature (last) axis; no activation of its own."""
@@ -166,6 +218,7 @@ class LayerNormalization(_NoActivationConf):
         return input_type
 
 
+@register_layer_conf
 @dataclass
 class BatchNormalization(_NoActivationConf):
     """Batch norm over the feature / channel (last) axis, with running
@@ -184,6 +237,7 @@ class BatchNormalization(_NoActivationConf):
         return input_type
 
 
+@register_layer_conf
 @dataclass
 class LocalResponseNormalization(_NoActivationConf):
     """Cross-channel local response normalization."""
@@ -196,6 +250,7 @@ class LocalResponseNormalization(_NoActivationConf):
         return input_type
 
 
+@register_layer_conf
 @dataclass
 class ActivationLayer(BaseLayerConf):
     """Applies an activation only."""
@@ -204,6 +259,7 @@ class ActivationLayer(BaseLayerConf):
         return input_type
 
 
+@register_layer_conf
 @dataclass
 class DropoutLayer(_NoActivationConf):
     """Dropout as a layer of its own (its `dropout` rate on its input)."""
@@ -212,6 +268,7 @@ class DropoutLayer(_NoActivationConf):
         return input_type
 
 
+@register_layer_conf
 @dataclass
 class GlobalPoolingLayer(_NoActivationConf):
     """Pool over time ([b, t, f], mask-aware) or space ([b, h, w, c]) to
@@ -228,6 +285,7 @@ class GlobalPoolingLayer(_NoActivationConf):
         return input_type
 
 
+@register_layer_conf
 @dataclass
 class ZeroPaddingLayer(_NoActivationConf):
     """Spatial zero padding."""
@@ -249,6 +307,7 @@ class BaseRecurrentConf(FeedForwardLayerConf):
         return InputType.recurrent(self.n_out)
 
 
+@register_layer_conf
 @dataclass
 class SelfAttentionLayer(BaseRecurrentConf):
     """Multi-head self-attention over [b, t, f]. use_pallas=True routes the
@@ -262,6 +321,7 @@ class SelfAttentionLayer(BaseRecurrentConf):
     attention_dropout: float = 0.0
 
 
+@register_layer_conf
 @dataclass
 class GravesLSTM(BaseRecurrentConf):
     """LSTM with peephole connections."""
@@ -269,6 +329,7 @@ class GravesLSTM(BaseRecurrentConf):
     gate_activation: str = "sigmoid"
 
 
+@register_layer_conf
 @dataclass
 class LSTM(BaseRecurrentConf):
     """LSTM without peepholes."""
@@ -276,6 +337,7 @@ class LSTM(BaseRecurrentConf):
     gate_activation: str = "sigmoid"
 
 
+@register_layer_conf
 @dataclass
 class GravesBidirectionalLSTM(BaseRecurrentConf):
     """Two peephole LSTMs, one over time forward and one backward, each

@@ -13,11 +13,28 @@ layout), so Dense weights carried over from the JAX package line up.
 package's builders insert before layer `conf` fed `prev_type` (None where
 none is needed), `type_after_preprocessor` the type the layer then sees.
 The normalizing and sampling preprocessors of the JAX package are not
-ported yet: constructing one raises NotImplementedError."""
+ported yet: constructing one raises NotImplementedError.
+
+Serde as in the JAX package (preprocessors.py:19-45): `to_dict` is the
+instance's fields and the class name under "type";
+`preprocessor_from_dict` inverts it."""
 from __future__ import annotations
 
 from . import layers as L
 from .inputs import InputType
+
+_REGISTRY: dict = {}
+
+
+def register_preprocessor(cls):
+    _REGISTRY[cls.__name__] = cls
+    return cls
+
+
+def preprocessor_from_dict(d):
+    d = dict(d)
+    cls = _REGISTRY[d.pop("type")]
+    return cls(**d)
 
 
 class BasePreprocessor:
@@ -30,7 +47,13 @@ class BasePreprocessor:
     def feed_forward_mask(self, mask):
         return mask
 
+    def to_dict(self):
+        d = dict(self.__dict__)
+        d["type"] = type(self).__name__
+        return d
 
+
+@register_preprocessor
 class CnnToFeedForwardPreProcessor(BasePreprocessor):
     """[b, h, w, c] -> [b, h*w*c]."""
 
@@ -44,6 +67,7 @@ class CnnToFeedForwardPreProcessor(BasePreprocessor):
         return InputType.feed_forward(input_type.flat_size())
 
 
+@register_preprocessor
 class FeedForwardToCnnPreProcessor(BasePreprocessor):
     """[b, h*w*c] -> [b, h, w, c]."""
 
@@ -61,6 +85,7 @@ class FeedForwardToCnnPreProcessor(BasePreprocessor):
                                        self.channels)
 
 
+@register_preprocessor
 class CnnToRnnPreProcessor(BasePreprocessor):
     """[b*t, h, w, c] -> [b, t, h*w*c]; t from the mask, or from
     `timesteps` when there is none."""
@@ -85,6 +110,7 @@ class CnnToRnnPreProcessor(BasePreprocessor):
         return InputType.recurrent(self.height * self.width * self.channels)
 
 
+@register_preprocessor
 class RnnToCnnPreProcessor(BasePreprocessor):
     """[b, t, f] -> [b*t, h, w, c]."""
 
@@ -101,6 +127,7 @@ class RnnToCnnPreProcessor(BasePreprocessor):
                                        self.channels)
 
 
+@register_preprocessor
 class FeedForwardToRnnPreProcessor(BasePreprocessor):
     """[b*t, f] -> [b, t, f] with t from the mask; [b, f] -> [b, 1, f]
     without one."""
@@ -117,6 +144,7 @@ class FeedForwardToRnnPreProcessor(BasePreprocessor):
         return InputType.recurrent(input_type.flat_size())
 
 
+@register_preprocessor
 class RnnToFeedForwardPreProcessor(BasePreprocessor):
     """[b, t, f] -> [b*t, f]: the time steps become rows, and so does the
     mask."""
@@ -158,6 +186,11 @@ ZeroMeanAndUnitVariancePreProcessor = _unported(
 BinomialSamplingPreProcessor = _unported("BinomialSamplingPreProcessor")
 ImageScalerPreProcessor = _unported("ImageScalerPreProcessor")
 ComposableInputPreProcessor = _unported("ComposableInputPreProcessor")
+for _cls in (UnitVarianceProcessor, ZeroMeanPrePreProcessor,
+             ZeroMeanAndUnitVariancePreProcessor,
+             BinomialSamplingPreProcessor, ImageScalerPreProcessor,
+             ComposableInputPreProcessor):
+    _REGISTRY[_cls.__name__] = _cls
 
 
 def expected_input_kind(conf):

@@ -14,12 +14,40 @@ optax's `sgd(nesterov=True)`: both start the momentum buffer at the first
 gradient g and step by g + m * buffer. `PerLayerOptimizer` is
 `per_layer_transform`: one optimizer per layer, each stepping only its
 layer's tensors.
+
+Serde: `to_dict` / `updater_from_dict` are the JAX package's
+(updaters.py:67-98); an updater type the port lacks raises
+NotImplementedError. `opt_state_leaves` / `load_opt_state_leaves` carry
+the optimizer state across as the JAX package's ModelSerializer stores it
+in `updaterState.bin`: the leaves of the optax state in
+`jax.tree_util.tree_leaves` order (see `opt_state_leaves`).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 
+import numpy as np
 import torch
+
+_UPDATER_REGISTRY: dict = {}
+
+# registered by the JAX package, not ported yet
+_UNPORTED_UPDATERS = ("AdaMax", "AdaDelta", "AdaGrad", "RmsProp", "NoOp")
+
+
+def register_updater(cls):
+    _UPDATER_REGISTRY[cls.__name__] = cls
+    return cls
+
+
+def updater_from_dict(d):
+    d = dict(d)
+    t = d.pop("type")
+    if t in _UNPORTED_UPDATERS:
+        raise NotImplementedError(
+            f"updater {t} is not ported yet (ROADMAP queue 1 item 6: nn "
+            "core)")
+    return _UPDATER_REGISTRY[t](**d)
 
 
 def make_schedule(base_lr, policy=None, decay_rate=None, power=None,
@@ -51,13 +79,20 @@ class BaseUpdater:
         place)."""
         raise NotImplementedError
 
+    def to_dict(self):
+        d = {k: v for k, v in asdict(self).items() if v is not None}
+        d["type"] = type(self).__name__
+        return d
 
+
+@register_updater
 @dataclass
 class Sgd(BaseUpdater):
     def optimizer(self, tensors):
         return torch.optim.SGD(tensors, lr=self.schedule()(0))
 
 
+@register_updater
 @dataclass
 class Nesterovs(BaseUpdater):
     """SGD with Nesterov momentum."""
@@ -74,6 +109,7 @@ class Nesterovs(BaseUpdater):
                                dampening=0.0)
 
 
+@register_updater
 @dataclass
 class Adam(BaseUpdater):
     learning_rate: float = 1e-3
@@ -140,6 +176,118 @@ class PerLayerOptimizer:
             for t in tensors.values():
                 t.grad = None
         self.count += 1
+
+
+def _layer_leaf_plan(net):
+    """[(layer name, updater, sorted param keys)] in the order of the
+    optax state's leaves: `per_layer_transform`'s state is a dict keyed by
+    layer name, which `tree_leaves` walks in sorted string order ("10"
+    before "2"); a layer's params are walked in sorted key order. A layer
+    without an updater (optax.sgd at a fixed float rate) holds no
+    leaves."""
+    plan = []
+    for name in sorted(net.params):
+        upd = net.layer_confs[name].updater
+        if upd is None:
+            continue
+        if not isinstance(upd, (Sgd, Nesterovs, Adam)):
+            raise NotImplementedError(
+                f"updater {type(upd).__name__}'s state is not ported yet "
+                "(ROADMAP queue 1 item 6: nn core)")
+        if isinstance(upd, Nesterovs) and upd.momentum_schedule:
+            raise NotImplementedError(
+                "the state of a momentum schedule (optax inject_hyperparams) "
+                "is not ported yet (ROADMAP queue 1 item 6: nn core)")
+        plan.append((name, upd, sorted(net.params[name])))
+    return plan
+
+
+def opt_state_leaves(net):
+    """The model's optimizer state as the leaves of the JAX package's optax
+    state, in `jax.tree_util.tree_leaves` order (numpy arrays; the
+    `leaf{i}` entries of `updaterState.bin`). Per layer, in
+    `_layer_leaf_plan` order:
+
+    - Sgd: `ScaleByScheduleState(count)`;
+    - Nesterovs: `TraceState(trace)` (one leaf per param: torch's momentum
+      buffer, zeros before the first step), then the schedule's count;
+    - Adam: `ScaleByAdamState(count, mu, nu)` (torch's step, exp_avg and
+      exp_avg_sq per param; zeros before the first step), then the
+      schedule's count.
+
+    A count is an int32 scalar. A layer without params keeps its counts
+    (optax steps every layer); the port's optimizer count stands in for
+    them there and for every schedule count."""
+    opt = net._optimizer
+    steps = np.asarray(opt.count, np.int32)
+    leaves = []
+    for name, upd, keys in _layer_leaf_plan(net):
+        entry = opt._layers.get(name)
+        states = [entry[2].state.get(net.params[name][k], {}) if entry
+                  else {} for k in keys]
+
+        def buf(st, key, k):
+            t = st.get(key)
+            return (np.zeros(tuple(net.params[name][k].shape), np.float32)
+                    if t is None else t.detach().cpu().numpy().copy())
+
+        if isinstance(upd, Adam):
+            count = next((int(st["step"]) for st in states if "step" in st),
+                         int(opt.count) if not keys else 0)
+            leaves.append(np.asarray(count, np.int32))
+            leaves += [buf(st, "exp_avg", k) for st, k in zip(states, keys)]
+            leaves += [buf(st, "exp_avg_sq", k)
+                       for st, k in zip(states, keys)]
+        elif isinstance(upd, Nesterovs):
+            leaves += [buf(st, "momentum_buffer", k)
+                       for st, k in zip(states, keys)]
+        leaves.append(steps.copy())
+    return leaves
+
+
+def load_opt_state_leaves(net, leaves):
+    """Write `opt_state_leaves`-ordered leaves (a JAX optax state's
+    `tree_leaves`) into the model's per-layer torch optimizers. Returns
+    False, changing nothing, when their number is not the model's (the
+    JAX serializer then keeps the fresh state, model_serializer.py:
+    208-212). A zero count leaves a layer's state empty (as before its
+    first step); captured K-step graphs go stale."""
+    plan = _layer_leaf_plan(net)
+    want = sum(1 + (2 * len(keys) + 1 if isinstance(upd, Adam) else
+                    len(keys) if isinstance(upd, Nesterovs) else 0)
+               for _, upd, keys in plan)
+    if len(leaves) != want:
+        return False
+    opt = net._optimizer
+    it = iter(leaves)
+    counts = []
+    for name, upd, keys in plan:
+        entry = opt._layers.get(name)
+        tensors = [net.params[name][k] for k in keys]
+        if isinstance(upd, Adam):
+            count = int(np.asarray(next(it)))
+            mus = [next(it) for _ in keys]
+            nus = [next(it) for _ in keys]
+            for t, mu, nu in zip(tensors, mus, nus):
+                entry[2].state.pop(t, None)
+                if count:
+                    cap = entry[2].defaults.get("capturable", False)
+                    entry[2].state[t] = {
+                        "step": torch.tensor(
+                            float(count), dtype=torch.float32,
+                            device=t.device if cap else "cpu"),
+                        "exp_avg": torch.as_tensor(np.asarray(mu)).to(t),
+                        "exp_avg_sq": torch.as_tensor(np.asarray(nu)).to(t)}
+        elif isinstance(upd, Nesterovs):
+            traces = [next(it) for _ in keys]
+            for t, tr in zip(tensors, traces):
+                entry[2].state.pop(t, None)
+                entry[2].state[t] = {"momentum_buffer":
+                                     torch.as_tensor(np.asarray(tr)).to(t)}
+        counts.append(int(np.asarray(next(it))))
+    opt.count = max(counts, default=opt.count)
+    net._graph_epoch += 1
+    return True
 
 
 class GradientNormalization:

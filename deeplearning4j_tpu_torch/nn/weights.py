@@ -46,6 +46,10 @@ def init_weights(generator, shape, scheme=WeightInit.XAVIER, fan_in=None,
     elif s == WeightInit.UNIFORM:
         a = 1.0 / math.sqrt(fan_in)
         w = torch.rand(shape, generator=generator, dtype=dtype) * (2 * a) - a
+    elif s == "distribution":
+        raise NotImplementedError(
+            "weight init 'distribution' (the conf's `dist`) is not ported "
+            "yet (ROADMAP queue 1 item 6: nn core)")
     else:
         raise NotImplementedError(
             f"weight init {scheme!r} is not ported yet (ROADMAP queue 1)")

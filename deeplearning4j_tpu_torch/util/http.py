@@ -1,7 +1,7 @@
 """Stdlib HTTP plumbing for the JSON endpoints (the port's copy of the
 parts of deeplearning4j_tpu/util/http.py the serving path uses):
-ThreadingHTTPServer on a daemon thread, port-0 resolution, JSON responses,
-and a small JSON client."""
+ThreadingHTTPServer on a daemon thread, port-0 resolution, JSON and text
+responses, and a small JSON client."""
 from __future__ import annotations
 
 import json
@@ -17,6 +17,19 @@ def send_json(handler, status, obj, headers=None):
     payload = json.dumps(obj, default=str).encode()
     handler.send_response(status)
     handler.send_header("Content-Type", "application/json")
+    handler.send_header("Content-Length", str(len(payload)))
+    for k, v in (headers or {}).items():
+        handler.send_header(k, str(v))
+    handler.end_headers()
+    handler.wfile.write(payload)
+
+
+def send_text(handler, status, text, content_type="text/plain; charset=utf-8",
+              headers=None):
+    """Plain-text response (the Prometheus exposition)."""
+    payload = text if isinstance(text, bytes) else str(text).encode()
+    handler.send_response(status)
+    handler.send_header("Content-Type", content_type)
     handler.send_header("Content-Length", str(len(payload)))
     for k, v in (headers or {}).items():
         handler.send_header(k, str(v))
@@ -53,6 +66,10 @@ class QuietHandler(BaseHTTPRequestHandler):
 
     def send_json(self, status, obj, headers=None):
         send_json(self, status, obj, headers)
+
+    def send_text(self, status, text, content_type="text/plain; charset=utf-8",
+                  headers=None):
+        send_text(self, status, text, content_type, headers)
 
     def body(self):
         return read_body(self)
