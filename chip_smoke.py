@@ -5668,6 +5668,385 @@ def phase_predict(smi):
     return cases, launches
 
 
+# ----------------------------------------------------------------- phase 13
+JAX_SOURCES = ROOT / "deeplearning4j_tpu"   # a byte corpus; never imported
+LENET_EPOCHS = 6
+LENET_BAR = 0.95            # tests/test_real_mnist.py:55
+REAL32_EPOCHS = 10
+REAL32_BAR = 0.82           # tests/test_real_cifar.py:79
+ES_BATCH, ES_SEQ = 16, 512  # bench_transformer_lm's batch
+ES_TRAIN_BATCHES, ES_HELD_BATCHES = 48, 8
+ES_MAX_EPOCHS = 3
+ES_CONTEXT = 16             # evaluate's labels mask drops each window's first
+ES_SCORE_RTOL = 1e-4
+SOLVER_ITERATIONS = 5
+SOLVER_ROWS = 256
+NORM_PREDICT_ROWS = 64
+NORM_TOL = 1e-4
+
+
+def _byte_windows():
+    """Non-overlapping ES_SEQ + 1 byte windows of the JAX package's *.py
+    files read as bytes in sorted path order: (the first ES_TRAIN_BATCHES
+    batches, the last ES_HELD_BATCHES batches of the corpus), each a list
+    of [ES_BATCH, ES_SEQ + 1] uint8 id arrays."""
+    corpus = b"".join(p.read_bytes()
+                      for p in sorted(JAX_SOURCES.rglob("*.py")))
+    w = ES_SEQ + 1
+    n = len(corpus) // w // ES_BATCH * ES_BATCH
+    ids = np.frombuffer(corpus, np.uint8)[:n * w].reshape(-1, ES_BATCH, w)
+    check(len(ids) >= ES_TRAIN_BATCHES + ES_HELD_BATCHES,
+          f"byte corpus of {len(corpus)} bytes holds {len(ids)} batches")
+    return list(ids[:ES_TRAIN_BATCHES]), list(ids[-ES_HELD_BATCHES:])
+
+
+def _byte_sets(batches, mask=False):
+    """One-hot next-byte DataSets of id batches; with `mask`, a labels
+    mask that drops each window's first ES_CONTEXT positions."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    eye = np.eye(256, dtype=np.float32)
+    lm = np.ones((ES_BATCH, ES_SEQ), np.float32)
+    lm[:, :ES_CONTEXT] = 0.0
+    return [DataSet(eye[b[:, :-1]], eye[b[:, 1:]],
+                    labels_mask=lm if mask else None) for b in batches]
+
+
+class _ScoreReader:
+    """A listener reading `model.score_value` at every iteration, beside
+    the CollectScoresIterationListener it is compared with."""
+
+    def __init__(self):
+        self.scores = []
+
+    def on_epoch_start(self, model):
+        pass
+
+    def on_epoch_end(self, model):
+        pass
+
+    def iteration_done(self, model, iteration):
+        self.scores.append((iteration, model.score_value))
+
+
+def _no_launches(what, n):
+    check(not any(n.values()), f"{what} launched hand kernels or took "
+                               f"routes: { {k: v for k, v in n.items() if v} }")
+
+
+def _lenet_workflow():
+    """(a): LeNet through MnistDataSetIterator -> fit with listeners ->
+    evaluate, on the card, against JAX's bar."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets.fetchers.mnist import (
+        FIXTURE_DIR, MnistDataSetIterator, _find_mnist_files)
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CollectScoresIterationListener, PerformanceListener)
+    from deeplearning4j_tpu_torch.zoo import lenet_mnist
+    found = _find_mnist_files(train=True)[0]
+    check(found is not None and Path(found).resolve().parent
+          == Path(FIXTURE_DIR).resolve(),
+          f"the real-digit fixture was not found: {found}")
+    net = lenet_mnist(device=DEVICE)
+    train_it = MnistDataSetIterator(64, train=True, seed=3)
+    steps = LENET_EPOCHS * -(-train_it.total_examples() // 64)
+    collect, reader = CollectScoresIterationListener(), _ScoreReader()
+    rates = []
+    perf = PerformanceListener(
+        frequency=20, log_fn=lambda msg: rates.append(
+            perf.last_samples_per_sec))
+    net.set_listeners(perf, collect, reader)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    net.fit(train_it, epochs=LENET_EPOCHS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    test_it = MnistDataSetIterator(250, train=False, shuffle=False)
+    ev = net.evaluate(test_it)
+    _no_launches("the LeNet workflow", counts())
+    check(collect.scores == reader.scores and len(collect.scores)
+          == net.iteration_count == steps
+          and [i for i, _ in collect.scores]
+          == list(range(1, net.iteration_count + 1))
+          and np.isfinite([s for _, s in collect.scores]).all(),
+          f"collected scores differ from the model's per-step scores "
+          f"({len(collect.scores)} of {net.iteration_count} steps)")
+    direct = float((net.output(test_it._x).argmax(-1).cpu().numpy()
+                    == test_it._y.argmax(-1)).mean())
+    acc = ev.accuracy()
+    check(acc == direct, f"LeNet: Evaluation.accuracy() {acc} != the "
+                         f"direct argmax count {direct}")
+    check(acc >= LENET_BAR, f"LeNet held-out accuracy {acc} < {LENET_BAR}")
+    check(net.device.type == "cuda", f"LeNet ran on {net.device}")
+    return {"ucidigits_test_acc": acc, "steps": net.iteration_count,
+            "fit_s": fit_s,
+            "samples_per_s_listener": rates,
+            "samples_per_s_listener_median": float(np.median(rates)),
+            "first_score": collect.scores[0][1],
+            "last_score": collect.scores[-1][1]}
+
+
+def _real32():
+    """(b): the real32 recipe on the card."""
+    from deeplearning4j_tpu_torch.datasets.fetchers.standard import \
+        real32_gate_accuracy
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    acc = real32_gate_accuracy(epochs=REAL32_EPOCHS, device=DEVICE)
+    wall = time.perf_counter() - t0
+    _no_launches("the real32 recipe", counts())
+    check(acc is not None and acc >= REAL32_BAR,
+          f"real32 held-out accuracy {acc} < {REAL32_BAR}")
+    return {"real32_test_acc": acc, "wall_s": wall}
+
+
+def _early_stopping():
+    """(c): transformer_lm at bench_transformer_lm's configuration under
+    early stopping on the byte corpus, then `evaluate` of its best model:
+    (summary, {"early_stopping": launches, "evaluate": launches})."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets.iterator.base import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.earlystopping import (
+        DataSetLossCalculator, EarlyStoppingConfiguration,
+        EarlyStoppingGraphTrainer, InMemoryModelSaver,
+        MaxEpochsTerminationCondition,
+        ScoreImprovementEpochTerminationCondition)
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    from deeplearning4j_tpu_torch.zoo import transformer_lm
+    train_ids, held_ids = _byte_windows()
+    held = ListDataSetIterator(_byte_sets(held_ids))
+    net = transformer_lm(**SERVE, use_pallas=True,
+                         compute_dtype="bfloat16", device=DEVICE).init()
+    cfg = (EarlyStoppingConfiguration.builder()
+           .epoch_termination_conditions(
+               MaxEpochsTerminationCondition(ES_MAX_EPOCHS),
+               ScoreImprovementEpochTerminationCondition(1))
+           .score_calculator(DataSetLossCalculator(held))
+           .model_saver(InMemoryModelSaver()).build())
+    trainer = EarlyStoppingGraphTrainer(
+        cfg, net, ListDataSetIterator(_byte_sets(train_ids)))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = trainer.fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    es_launches = counts()
+    epochs = res.total_epochs
+    layers = SERVE["n_layers"]
+    want = {"flash_fwd_bf16": epochs * (ES_TRAIN_BATCHES + ES_HELD_BATCHES)
+            * layers,
+            "flash_bwd_dq_bf16": epochs * ES_TRAIN_BATCHES * layers,
+            "flash_bwd_dkv_bf16": epochs * ES_TRAIN_BATCHES * layers}
+    for name, n in es_launches.items():
+        check(n == want.get(name, 0),
+              f"early_stopping: {name} launched {n} times in {epochs} "
+              f"epochs, not {want.get(name, 0)}")
+    scores = [res.score_vs_epoch[e] for e in sorted(res.score_vs_epoch)]
+    best = res.get_best_model()
+    check(best is not None and best is not net
+          and best.device.type == "cuda", "no best model on the card")
+    live = {t.untyped_storage().data_ptr()
+            for p in net.params.values() for t in p.values()}
+    check(not any(t.untyped_storage().data_ptr() in live
+                  for p in best.params.values() for t in p.values()),
+          "the saved best model shares parameter storage with the live one")
+    first = scores[0]
+    check(np.isfinite(scores).all() and res.best_model_score < first
+          and res.best_model_score < np.log(256) - 1,
+          f"early stopping's held-out scores {scores}: best "
+          f"{res.best_model_score} not below the first epoch's and "
+          f"ln 256 - 1")
+    rescored = DataSetLossCalculator(held).calculate_score(best)
+    check(np.isclose(rescored, res.best_model_score, rtol=ES_SCORE_RTOL,
+                     atol=0),
+          f"the saved best model scores {rescored}, the trainer saw "
+          f"{res.best_model_score}")
+    masked = _byte_sets(held_ids, mask=True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ev = best.evaluate(ListDataSetIterator(masked))
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    ev_launches = counts()
+    want_ev = {"flash_fwd_bf16": ES_HELD_BATCHES * layers}
+    for name, n in ev_launches.items():
+        check(n == want_ev.get(name, 0),
+              f"evaluate: {name} launched {n} times, not "
+              f"{want_ev.get(name, 0)}")
+    hits = total = 0
+    for ds in masked:
+        pred = best.output(ds.features).argmax(-1).cpu().numpy()
+        keep = ds.labels_mask > 0
+        hits += int(((pred == ds.labels.argmax(-1)) & keep).sum())
+        total += int(keep.sum())
+    check(ev.accuracy() == hits / total,
+          f"evaluate: accuracy {ev.accuracy()} != the direct masked argmax "
+          f"count {hits}/{total}")
+    tokens = ES_TRAIN_BATCHES * ES_BATCH * ES_SEQ * epochs
+    return ({"epochs": epochs, "termination": res.termination_details,
+             "score_vs_epoch": scores, "best_epoch": res.best_model_epoch,
+             "best_score": res.best_model_score, "rescored": rescored,
+             "wall_s": wall, "train_tokens_per_s_incl_scoring":
+                 tokens / wall,
+             "evaluate_accuracy": ev.accuracy(),
+             "evaluate_top_positions": total, "evaluate_s": eval_s},
+            {"early_stopping": es_launches, "evaluate": ev_launches})
+
+
+def _flat_solvers():
+    """(d): LBFGS and conjugate gradient on mlp_mnist over real digits, on
+    the card."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets.fetchers.mnist import \
+        MnistDataSetIterator
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    from deeplearning4j_tpu_torch.zoo import mlp_mnist
+    ds = MnistDataSetIterator(SOLVER_ROWS, train=True, flatten=True,
+                              seed=3).next()
+    out = {}
+    for algo in ("lbfgs", "conjugate_gradient"):
+        net = mlp_mnist(device=DEVICE).init()
+        net.conf.optimization_algo = algo
+        s0 = net.score(ds)
+        reset_launch_counts()
+        scores = []
+        for _ in range(SOLVER_ITERATIONS):
+            net.fit_batch(ds)
+            scores.append(net.score_value)
+        _no_launches(f"the {algo} solver", counts())
+        finite = all(bool(torch.isfinite(t).all())
+                     for ps in net.params.values() for t in ps.values())
+        on_card = {t.device.type for ps in net.params.values()
+                   for t in ps.values()} == {"cuda"}
+        check(finite and on_card and np.isfinite(scores).all()
+              and scores[-1] < s0 and type(net._flat_solver).__name__
+              == {"lbfgs": "LBFGS",
+                  "conjugate_gradient": "ConjugateGradient"}[algo],
+              f"{algo}: scores {s0} -> {scores}, finite {finite}, on the "
+              f"card {on_card}")
+        out[algo] = {"initial": s0, "scores": scores}
+    return out
+
+
+def _normalized_predict(smi):
+    """(e): a NormalizerStandardize fitted on the digits rides in the zip
+    of an mlp_mnist trained on normalized digits and is applied on the
+    card on /predict; a copy without it answers differently."""
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch.datasets.fetchers.mnist import \
+        MnistDataSetIterator
+    from deeplearning4j_tpu_torch.etl import NormalizerStandardize
+    from deeplearning4j_tpu_torch.etl.device_transform import \
+        lower_normalizer
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    from deeplearning4j_tpu_torch.serving import ServingServer
+    from deeplearning4j_tpu_torch.util.http import request_json
+    from deeplearning4j_tpu_torch.util.model_serializer import \
+        ModelSerializer
+    from deeplearning4j_tpu_torch.zoo import mlp_mnist
+    train = MnistDataSetIterator(64, train=True, flatten=True, seed=3)
+    nz = NormalizerStandardize().fit(train)
+    net = mlp_mnist(device=DEVICE).init()
+    train.reset()
+    net.fit([nz.transform(ds) for ds in train])
+    test = MnistDataSetIterator(NORM_PREDICT_ROWS, train=False,
+                                flatten=True, shuffle=False).next()
+    x = np.asarray(test.features)
+    check(lower_normalizer(nz)[0](x).device.type == "cuda",
+          "lower_normalizer's default device is not the card")
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as scan_dir:
+        ModelSerializer.write_model(net, f"{scan_dir}/norm.zip",
+                                    normalizer=nz)
+        ModelSerializer.write_model(net, f"{scan_dir}/raw.zip")
+        srv = ServingServer(scan_dir=scan_dir, device=DEVICE).start()
+        try:
+            check(not srv.registry.scan_errors,
+                  f"scan_dir errors: {srv.registry.scan_errors}")
+            answers = {}
+            for version in ("norm", "raw"):
+                status, res = request_json(srv.url + "/deploy",
+                                           {"version": version}, 600)
+                check(status == 200, f"/deploy {version}: {status} {res}")
+                status, body = request_json(srv.url + "/predict",
+                                            {"data": x.tolist()}, 600)
+                check(status == 200 and body["version"] == version,
+                      f"/predict {version}: {status}")
+                answers[version] = np.asarray(body["prediction"], np.float32)
+            served = srv.registry.get("norm").model
+            normed = srv.registry.get("norm").transform_features_device(x)
+            check(served.device.type == normed.device.type == "cuda",
+                  f"the zip loaded on {served.device}, its normalizer "
+                  f"applied on {normed.device}")
+            with torch.inference_mode():
+                want = served.output(nz.transform_features(x)).cpu().numpy()
+        finally:
+            srv.stop()
+    _no_launches("the normalized /predict path", counts())
+    err = float(np.abs(answers["norm"] - want).max())
+    control = float(np.abs(answers["raw"] - want).max())
+    check(err <= NORM_TOL < control,
+          f"normalized /predict vs output(transform(x)): max abs {err} > "
+          f"{NORM_TOL}, or the control without the normalizer within it "
+          f"({control})")
+    acc = float((answers["norm"].argmax(-1)
+                 == np.asarray(test.labels).argmax(-1)).mean())
+    return {"max_abs_err": err, "control_max_abs_err": control,
+            "rows": len(x), "accuracy": acc}
+
+
+def phase_training_workflow(smi):
+    """Phase 13, the DL4J training workflow on the card: (a) LeNet on the
+    real digits through the iterator, listeners and evaluate; (b) the
+    real32 recipe; (c) transformer_lm under early stopping (path
+    early_stopping) and evaluate of its best model (path evaluate), K1
+    bf16 without the LSE held against plain at the evaluate shape; (d)
+    LBFGS and conjugate gradient; (e) a normalizer in the zip, applied on
+    /predict. Returns (cases, launches by path)."""
+    import torch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lenet = _lenet_workflow()
+    real32 = _real32()
+    es, launches = _early_stopping()
+    gen = torch.Generator().manual_seed(13)
+    H = SERVE["n_heads"]
+    D = SERVE["d_model"] // H
+    cases = [_fwd_general_case(
+        f"evaluate B={ES_BATCH} T={ES_SEQ} H={H} D={D} causal", ES_BATCH,
+        ES_SEQ, ES_SEQ, H, D, True, None, gen, dtype=torch.bfloat16)]
+    _print_cases(cases)
+    solvers = _flat_solvers()
+    norm = _normalized_predict(smi)
+    summary = {"card": smi, "lenet": lenet, "real32": real32,
+               "early_stopping": es, "solvers": solvers,
+               "normalized_predict": norm,
+               "launches": launches,
+               "phase_s": time.perf_counter() - t0}
+    print(json.dumps({"training_workflow": summary}))
+    k1 = cases[0]
+    print(f"training workflow ({smi}): ucidigits_test_acc "
+          f"{lenet['ucidigits_test_acc']:.4f}, LeNet "
+          f"{lenet['samples_per_s_listener_median']:.1f} samples/s "
+          f"(PerformanceListener, median), real32_test_acc "
+          f"{real32['real32_test_acc']:.4f}; early stopping "
+          f"{es['epochs']} epochs in {es['wall_s']:.1f} s, held-out "
+          f"{es['score_vs_epoch']} best {es['best_score']:.4f} (epoch "
+          f"{es['best_epoch']}), evaluate accuracy "
+          f"{es['evaluate_accuracy']:.4f}; K1 bf16 at the evaluate shape "
+          f"kernel_ms {k1['ms']:.4f} device_ms {k1['device_ms']} bound_ms "
+          f"{k1['bound_ms']:.4f} ({k1['bound_by']}) SDPA "
+          f"{k1['library_ms']:.4f} ms / device {k1['library_device_ms']}; "
+          f"normalized /predict max abs {norm['max_abs_err']:.2e} "
+          f"(control {norm['control_max_abs_err']:.2e})")
+    return cases, launches
+
+
 # ------------------------------------------------------------------ main
 _FA = "deeplearning4j_tpu/kernels/flash_attention.py"
 REPLACES = {
@@ -5786,6 +6165,9 @@ def main():
     predict_cases, predict_launches = phase_predict(smi)
     cases += predict_cases
     launches.update(predict_launches)
+    workflow_cases, workflow_launches = phase_training_workflow(smi)
+    cases += workflow_cases
+    launches.update(workflow_launches)
     from deeplearning4j_tpu_torch.kernels import route_counts
     for path, n in launches.items():
         # the D=320 model's paths take the wide routes and no other

@@ -1,7 +1,8 @@
-"""Device placement: the card by default, the host only when asked; and
-how a bf16 product rounds on each."""
+"""Device placement: the card by default, the host only when asked; how
+a bf16 product rounds on each; and a tensor's way back to the host."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -28,3 +29,11 @@ def bf16_product(fn, a, b):
     if a.dtype == b.dtype == torch.bfloat16 and a.device.type == "cpu":
         return fn(a.float(), b.float()).to(torch.bfloat16)
     return fn(a, b)
+
+
+def host(a, dtype=None):
+    """A numpy array of `a` (a tensor is detached and copied to the host),
+    in `dtype` if one is given."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a) if dtype is None else np.asarray(a, dtype)

@@ -21,6 +21,15 @@ class BackpropType:
     TRUNCATED_BPTT = "truncated_bptt"
 
 
+class OptimizationAlgorithm:
+    """`optimization_algo` values: stochastic gradient descent (the
+    per-layer updaters) or a flat solver (optimize/solvers)."""
+    STOCHASTIC_GRADIENT_DESCENT = "sgd"
+    LINE_GRADIENT_DESCENT = "line_gradient_descent"
+    CONJUGATE_GRADIENT = "conjugate_gradient"
+    LBFGS = "lbfgs"
+
+
 @dataclass
 class MultiLayerConfiguration:
     """A stack of layer confs; `input_preprocessors` maps a layer's index
@@ -154,7 +163,9 @@ class ListBuilder:
             tbptt_back_length=self._tbptt_back,
             seed=g.get("seed", 12345), dtype=g.get("dtype", "float32"),
             compute_dtype=g.get("compute_dtype"), remat=g.get("remat"),
-            optimization_algo=g.get("optimization_algo", "sgd"))
+            optimization_algo=g.get("optimization_algo", "sgd"),
+            max_num_line_search_iterations=g.get(
+                "max_num_line_search_iterations", 5))
         for i, lc in enumerate(conf.layers):
             if lc is None:
                 raise ValueError(f"Layer {i} was never set")
@@ -215,9 +226,13 @@ class NeuralNetConfigurationBuilder:
         return self
 
     def optimization_algo(self, algo):
-        """Stored; `fit` trains with stochastic gradient descent only (the
-        flat solvers are ROADMAP queue 1, nn core)."""
+        """An `OptimizationAlgorithm` value: "sgd" trains with the
+        per-layer updaters, the others with a flat solver."""
         self._g["optimization_algo"] = algo
+        return self
+
+    def max_num_line_search_iterations(self, n):
+        self._g["max_num_line_search_iterations"] = int(n)
         return self
 
     def compute_dtype(self, dt):

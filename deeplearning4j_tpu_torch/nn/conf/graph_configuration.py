@@ -184,7 +184,9 @@ class GraphBuilder:
             dtype=global_conf.get("dtype", "float32"),
             compute_dtype=global_conf.get("compute_dtype"),
             remat=global_conf.get("remat"),
-            optimization_algo=global_conf.get("optimization_algo", "sgd"))
+            optimization_algo=global_conf.get("optimization_algo", "sgd"),
+            max_num_line_search_iterations=global_conf.get(
+                "max_num_line_search_iterations", 5))
 
     def add_inputs(self, *names):
         for n in names:

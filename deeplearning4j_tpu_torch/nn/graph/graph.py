@@ -26,7 +26,8 @@ steps a call (nn/multistep.py: on the card one CUDA graph of the K
 steps); with `conf.remat` the training forward is checkpointed under the
 named policy (nn/remat.py), layer by layer; a dropout rate above 0 draws
 its masks from the model's `DropoutStream` (nn/layers/base.py), one
-generator per layer, in training.
+generator per layer, in training. Listeners, the flat solvers,
+`evaluate` and `clone` are the shared model's (nn/model.py).
 
 Mixed precision (`compute_dtype="bfloat16"`, JAX graph.py:169-191):
 network output layers keep float32 parameters. Masks are not cast, so
@@ -38,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from ...datasets.dataset import DataSet, MultiDataSet
+from ...datasets.iterator.base import ListDataSetIterator, as_iterator
 from ..conf.graph_configuration import ComputationGraphConfiguration
 from ..conf.preprocessors import apply_preprocessor
 from ..layers import base as _base
@@ -62,6 +64,15 @@ class ComputationGraph(TrainableModel):
     @staticmethod
     def _dataset(features, labels):
         return MultiDataSet(features, labels)
+
+    def _iterator(self, data):
+        """A (Multi)DataSet is one batch and a list or tuple a list of
+        batches (JAX graph.py:358-366)."""
+        if isinstance(data, (DataSet, MultiDataSet)):
+            return ListDataSetIterator([data])
+        if isinstance(data, (list, tuple)):
+            return ListDataSetIterator(list(data))
+        return as_iterator(data)
 
     # -------------------------------------------------------------- forward
     def _forward(self, params, states, inputs, masks=None, *, train=False,
@@ -140,7 +151,7 @@ class ComputationGraph(TrainableModel):
 
     # ---------------------------------------------------------------- loss
     def _loss(self, params, states, inputs, labels, *, train, masks=None,
-              label_masks=None, carries=None):
+              label_masks=None, carries=None, dropout=True):
         """(scalar score, new states): every output layer's loss on the
         features feeding it, behind its preprocessor (its forward is
         replaced by its score), plus l1/l2. Under a compute dtype the
@@ -152,10 +163,11 @@ class ComputationGraph(TrainableModel):
         its recompute into the backward; torch recomputes a region whole
         when the backward first reaches it, so one region over the forward
         would hold every activation again at once: on ResNet-50 it left
-        the peak where it was.) `carries` as in `_forward`."""
+        the peak where it was.) `carries` as in `_forward`; `dropout=False`
+        trains without dropout (the flat solvers' state pass)."""
         conf = self.conf
         params, inputs = self._cast_for_compute(params, inputs)
-        rng = self._dropout if train else None
+        rng = self._dropout if train and dropout else None
         remat = conf.remat if train else None
         acts, new_states, out_masks = self._forward(
             params, states, inputs, masks, train=train, rng=rng, remat=remat,
@@ -206,6 +218,9 @@ class ComputationGraph(TrainableModel):
                  and T > self.conf.tbptt_fwd_length)
         return T if tbptt else 0
 
+    def _tbptt_batch(self, batch):
+        return bool(self._tbptt_length(batch[0]))
+
     def _prep_batch(self, ds):
         """(inputs, labels, masks, label masks) lists of tensors on the
         model's device."""
@@ -217,18 +232,6 @@ class ComputationGraph(TrainableModel):
         return (self._to_models(ds.features), self._to_models(ds.labels),
                 self._to_models(ds.features_masks),
                 self._to_models(ds.labels_masks))
-
-    def fit_batch(self, ds):
-        """One optimizer step on one DataSet / MultiDataSet (one a window
-        under truncated BPTT)."""
-        if self.params is None:
-            self.init()
-        self._check_trainable()
-        batch = self._prep_batch(ds)
-        step = self._tbptt_step if self._tbptt_length(batch[0]) else \
-            self._train_step
-        self._score = step(*batch)
-        self.iteration_count += 1
 
     def _train_step(self, inputs, labels, masks, lmasks):
         """One training step on prepared tensors: the loss and its

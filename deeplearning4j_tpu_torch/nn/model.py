@@ -1,7 +1,8 @@
 """What the port's two models share (ComputationGraph and
 MultiLayerNetwork): parameters and layer states by layer name on the
 model's device, the per-layer optimizers, mixed precision, one training
-step's gradients and update, `fit`'s handling of its data and `generate`.
+step's gradients and update, `fit` / `fit_batch` with their listeners and
+the flat solvers, `evaluate`, `clone` and `generate`.
 
 A model keeps `self.layer_confs` and `self.named_layers`, {layer name:
 conf} and {layer name: layer}, the names its parameter tree uses (a
@@ -26,12 +27,20 @@ parameters and the float (and uint8) inputs to bf16 with `.to()` (the
 layer states stay float32), which autograd differentiates, so the
 gradients reach the masters in float32 and the optimizer state stays
 float32. Output layers keep float32 parameters, and the features fed to
-their score are cast back to float32: the loss runs in full precision."""
+their score are cast back to float32: the loss runs in full precision.
+
+Listeners (optimize/listeners) run on the host: `on_epoch_start` /
+`on_epoch_end` around each epoch of `fit`, `record_batch_size` and
+`iteration_done` after each `fit_batch` (JAX graph.py:466-469,
+network.py:549-553) and after each K-step plan (nn/multistep.py). An
+`optimization_algo` other than "sgd" trains each minibatch with one flat
+solver per model (optimize/solvers; JAX graph.py:445-452,
+network.py:526-536), batch by batch: no K-step plan is made for it."""
 from __future__ import annotations
 
 import torch
 
-from ..datasets.dataset import DataSet, MultiDataSet
+from ..datasets.iterator.base import as_iterator
 from ..device import resolve_device
 from .layers import base as _base
 from .multistep import MultiStepTrainable
@@ -74,6 +83,8 @@ class TrainableModel(MultiStepTrainable):
         self._dropout = _base.DropoutStream(conf.seed, self.device,
                                             named_layers)
         self._decode_engine = None
+        self.listeners = []
+        self._flat_solver = None
         # captured K-step graphs (nn/multistep.py) are of one epoch
         self._graph_epoch = 0
         self._graph_pool = None
@@ -260,20 +271,64 @@ class TrainableModel(MultiStepTrainable):
                 for name, layer in self.named_layers.items()
                 if hasattr(layer, "init_carry")}
 
-    def _check_trainable(self):
+    def fit_batch(self, ds):
+        """One minibatch: one optimizer step (one a window under truncated
+        BPTT), or one flat-solver step; then the listeners."""
+        if self.params is None:
+            self.init()
+        batch = self._prep_batch(ds)
         if self.conf.optimization_algo != "sgd":
-            raise NotImplementedError(
-                f"optimization_algo {self.conf.optimization_algo!r}: the "
-                "flat solvers are not ported yet (ROADMAP queue 1: nn core)")
+            self._solver().optimize(*batch)
+        else:
+            step = self._tbptt_step if self._tbptt_batch(batch) else \
+                self._train_step
+            self._score = step(*batch)
+        self.iteration_count += 1
+        first = batch[0][0] if isinstance(batch[0], list) else batch[0]
+        self._iteration_done(first.shape[0])
+
+    def _solver(self):
+        """The model's flat solver, made on first use (JAX
+        network.py:530-534)."""
+        if self._flat_solver is None:
+            from ..optimize.solvers import make_solver
+            self._flat_solver = make_solver(
+                self.conf.optimization_algo, self,
+                line_search_iterations=self.conf
+                .max_num_line_search_iterations)
+        return self._flat_solver
+
+    def _iteration_done(self, rows):
+        """`record_batch_size(rows)` and `iteration_done` on every
+        listener."""
+        for listener in self.listeners:
+            if hasattr(listener, "record_batch_size"):
+                listener.record_batch_size(rows)
+            listener.iteration_done(self, self.iteration_count)
+
+    def set_listeners(self, *listeners):
+        """Replace the listeners (lists flattened, None dropped)."""
+        from ..optimize.listeners import resolve_listeners
+        self.listeners = resolve_listeners(listeners)
+        return self
+
+    def add_listener(self, listener):
+        self.listeners.append(listener)
+        return self
+
+    def _iterator(self, data):
+        """`fit`'s data as an iterator (datasets/iterator/base.py
+        `as_iterator`)."""
+        return as_iterator(data)
 
     def fit(self, data, labels=None, epochs=1, steps_per_execution=1,
             prefetch=None, ingest=None):
         """Train on `data`: a DataSet, a MultiDataSet, a list or tuple of
         them, an iterator with `reset` and `__iter__` (reset at the start
         of every epoch), or features with `labels` — one `fit_batch` a
-        minibatch, `epochs` times over. Anything else raises TypeError, as
-        the reference's `as_iterator` does (datasets/iterator/base.py:
-        357-371): a one-shot iterable would train its first epoch only.
+        minibatch, `epochs` times over, the listeners' epoch hooks around
+        each epoch. Anything else raises TypeError, as `as_iterator` does:
+        a one-shot iterable would train its first epoch only.
         `steps_per_execution=K` runs full groups of K minibatches as one
         `prepare_steps` / `fit_prepared` plan each (nn/multistep.py), a
         ragged tail and a group that cannot run as one batch by batch."""
@@ -288,24 +343,54 @@ class TrainableModel(MultiStepTrainable):
                 "persistence, data)")
         if labels is not None:
             data = self._dataset(data, labels)
-        if isinstance(data, (DataSet, MultiDataSet)):
-            items = [data]
-        elif isinstance(data, (list, tuple)):
-            items = list(data)
-        elif hasattr(data, "reset") and hasattr(data, "__iter__"):
-            items = data
-        else:
-            raise TypeError(f"Cannot convert {type(data)} to DataSetIterator")
+        items = self._iterator(data)
         for _ in range(int(epochs)):
-            if hasattr(items, "reset"):
-                items.reset()
+            for listener in self.listeners:
+                listener.on_epoch_start(self)
+            items.reset()
             if K > 1:
                 self._fit_grouped(items, K)
             else:
                 for ds in items:
                     self.fit_batch(ds)
+            for listener in self.listeners:
+                listener.on_epoch_end(self)
             self.epoch_count += 1
         return self
+
+    # ------------------------------------------------------------- evaluate
+    def evaluate(self, iterator, top_n=1):
+        """An `Evaluation` of `output(ds.features)` (no feature mask)
+        against each batch's labels under its labels mask, as the JAX
+        package evaluates (graph.py:638-650, network.py:789-801);
+        `top_n > 1` also tracks top-N accuracy."""
+        from ..eval.evaluation import Evaluation
+        e = Evaluation(top_n=top_n)
+        it = as_iterator(iterator)
+        it.reset()
+        for ds in it:
+            e.eval(ds.labels, self.output(ds.features), ds.labels_mask)
+        return e
+
+    # ---------------------------------------------------------------- copies
+    def param_table(self):
+        """{"layer_key": tensor} of every parameter."""
+        return {f"{name}_{k}": v for name, ps in self.params.items()
+                for k, v in ps.items()}
+
+    def clone(self):
+        """A new model of the same configuration on the same device, with
+        copies of the parameters and layer states (fresh optimizer
+        state, as in the JAX package)."""
+        net = type(self)(self.conf, device=self.device)
+        if self.params is not None:
+            net.init(params=self.params, states=self.states)
+        return net
+
+    def quantize_weights(self, dtype="int8"):
+        raise NotImplementedError(
+            "int8 serving weights are not ported yet (ROADMAP queue 1 item "
+            "10: nn/quant.py)")
 
     # ------------------------------------------------------------- generate
     def generate(self, prompt_ids, max_new_tokens=20, stop_id=None,

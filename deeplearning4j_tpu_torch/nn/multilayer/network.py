@@ -28,9 +28,9 @@ passes it one (JAX network.py:585-590).
 recurrent layers carry (h, c) in the cache's slot rows; the
 bidirectional LSTM and input preprocessors raise DecodeUnsupported.
 
-Not ported yet, each raising NotImplementedError with its ROADMAP item:
-`pretrain` / `pretrain_layer`, listeners and `evaluate`; the flat
-solvers raise in `_check_trainable`."""
+Listeners, the flat solvers, `evaluate` and `clone` are the shared
+model's (nn/model.py). Not ported yet, raising NotImplementedError with
+its ROADMAP item: `pretrain` / `pretrain_layer`."""
 from __future__ import annotations
 
 import numpy as np
@@ -100,16 +100,17 @@ class MultiLayerNetwork(TrainableModel):
 
     # ------------------------------------------------------------- loss
     def _loss(self, params, states, x, y, *, train, mask=None,
-              label_mask=None, carries=None):
+              label_mask=None, carries=None, dropout=True):
         """(scalar score, new states): the output layer's loss on the
         features feeding it, behind its preprocessor, plus l1/l2; the
         label mask, or else the features' mask, masks the loss. In
-        training, dropout draws from the model's stream and, under
-        `conf.remat`, each layer's forward and the score is checkpointed
-        on its own (as the graph does, `ComputationGraph._loss`)."""
+        training, dropout draws from the model's stream (unless `dropout`
+        is False: the flat solvers' state pass) and, under `conf.remat`,
+        each layer's forward and the score is checkpointed on its own (as
+        the graph does, `ComputationGraph._loss`)."""
         n = len(self.layers) - 1
         params, x = self._cast_for_compute(params, x)
-        rng = self._dropout if train else None
+        rng = self._dropout if train and dropout else None
         remat = self.conf.remat if train else None
         feats, new_states, fmask = self._forward(
             params, states, x, mask, train=train, rng=rng, remat=remat,
@@ -151,6 +152,9 @@ class MultiLayerNetwork(TrainableModel):
         return (self.conf.backprop_type == BackpropType.TRUNCATED_BPTT
                 and x.dim() == 3 and x.shape[1] > self.conf.tbptt_fwd_length)
 
+    def _tbptt_batch(self, batch):
+        return self._tbptt(batch[0])
+
     def _windows(self, prepped):
         """A prepared batch's optimizer steps in a plan: 1, W = T / L
         windows under truncated BPTT, or None (batch by batch) where L
@@ -159,18 +163,6 @@ class MultiLayerNetwork(TrainableModel):
         if not self._tbptt(x):
             return 1
         return x.shape[1] // L if x.shape[1] % L == 0 else None
-
-    def fit_batch(self, ds):
-        """One minibatch: one optimizer step, or one a truncated-BPTT
-        window."""
-        if self.params is None:
-            self.init()
-        self._check_trainable()
-        batch = self._prep_batch(ds)
-        step = self._tbptt_step if self._tbptt(batch[0]) else \
-            self._train_step
-        self._score = step(*batch)
-        self.iteration_count += 1
 
     def _train_step(self, x, y, mask, lmask):
         """One training step on prepared tensors: the loss and its
@@ -322,14 +314,3 @@ class MultiLayerNetwork(TrainableModel):
             "core, the remaining layer impls)")
 
     pretrain_layer = pretrain
-
-    def set_listeners(self, *listeners):
-        raise NotImplementedError(
-            "listeners are not ported yet (ROADMAP queue 1: nn core)")
-
-    add_listener = set_listeners
-
-    def evaluate(self, iterator, top_n=1):
-        raise NotImplementedError(
-            "evaluation is not ported yet (ROADMAP queue 1: persistence, "
-            "data, ETL, eval)")

@@ -17,8 +17,8 @@ scores of the K steps come back as `last_scores`.
   the model's `_windows` sends the group batch by batch (JAX's
   `_multi_step_mode` returning None: a ComputationGraph's truncated-BPTT
   batches, a MultiLayerNetwork's whose sequence the window does not
-  tile; the port refuses the flat solvers before, in
-  `_check_trainable`). A plan is reusable; its batch is never written.
+  tile, a flat solver's model, a listener that wants gradients). A plan
+  is reusable; its batch is never written.
 - Truncated BPTT (a MultiLayerNetwork's sequence of T = W·L steps under
   windows of L): each of the K batches takes W optimizer steps, one a
   window, from zero carries at its first window (JAX
@@ -47,9 +47,11 @@ for the capture (`PerLayerOptimizer.check_capturable`); the model's
 dropout generators registered with the graph. A replay adds its graph's
 recorded kernel launches to `launch_counts()`
 (`kernels.add_graph_counts`) and its K·W optimizer steps to the
-optimizer's count (`StepPlan.updates`). The JAX package fires its
-listeners once per execution (nn/multistep.py:205-209); the port has no
-listeners yet (ROADMAP queue 1, nn core), so none fire.
+optimizer's count (`StepPlan.updates`). The listeners fire once per
+plan, as the JAX package's fire once per execution
+(nn/multistep.py:205-209): `record_batch_size(K·B)` and one
+`iteration_done`, on the host after the replay; nothing of a listener
+enters the graph.
 """
 from __future__ import annotations
 
@@ -128,9 +130,10 @@ def _stack(prepped):
 
 class MultiStepTrainable:
     """K-step training for a model that provides `params`, `init`,
-    `_check_trainable`, `_prep_batch`, `_windows` (a prepared batch's
-    optimizer steps in a plan: 1, W truncated-BPTT windows, or None to
-    go batch by batch), `_train_step` (one step's forward, backward,
+    `conf`, `_iteration_done`,
+    `_prep_batch`, `_windows` (a prepared batch's optimizer steps in a
+    plan: 1, W truncated-BPTT windows, or None to go batch by batch),
+    `_train_step` (one step's forward, backward,
     update and states on a prepared batch; returns the score tensor),
     `_tbptt_step` where `_windows` can exceed 1 (a batch's W windows;
     returns their mean score), `fit_batch`, `_optimizer`, `_dropout` and
@@ -141,7 +144,8 @@ class MultiStepTrainable:
     def prepare_steps(self, group):
         if self.params is None:
             self.init()
-        self._check_trainable()
+        if self.conf.optimization_algo != "sgd":
+            return None
         # decided on the first batch, before the others are staged
         first = self._prep_batch(group[0])
         windows = self._windows(first)
@@ -154,11 +158,10 @@ class MultiStepTrainable:
 
     def fit_prepared(self, plan):
         """Run a plan's K steps: `last_scores` becomes their [K] scores
-        (a device tensor), the score the last of them, and
-        `iteration_count` advances by K."""
+        (a device tensor), the score the last of them, `iteration_count`
+        advances by K, then the listeners hear of K·B rows once."""
         if plan.model is not self:
             raise ValueError("the plan was prepared by another model")
-        self._check_trainable()
         if self.device.type == "cuda":
             scores = self._run_on_card(plan)
         else:
@@ -166,6 +169,9 @@ class MultiStepTrainable:
         self.last_scores = scores
         self._score = scores[-1]
         self.iteration_count += plan.K
+        first = plan.batch[0][0] if isinstance(plan.batch[0], list) \
+            else plan.batch[0]
+        self._iteration_done(plan.K * first.shape[1])
         return self
 
     def _run_steps(self, plan):

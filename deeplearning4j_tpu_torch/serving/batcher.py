@@ -17,6 +17,12 @@ and the warm-up set stay bounded the same way.
 
 A padded row is all-mask: under a causal key mask it sees no key, and its
 outputs are sliced off before anything reads them.
+
+A version with a normalizer (registry `transform`) has the padded batch
+normalized on the model's device before the forward, as float32 whatever
+the request's type (an integer z-score would be garbage), and its
+outputs reverted after for a normalizer fitted with `fit_labels`. The
+observed / warm-up key is the batch the model sees: after the transform.
 """
 from __future__ import annotations
 
@@ -38,13 +44,18 @@ def bucket_for(rows):
 
 
 def _run(model, x, mask):
-    """`model.output` of a numpy batch (with its mask) as a numpy array on
-    the host."""
+    """`model.output` of a batch (numpy, or a tensor the transform left on
+    the model's device; with its mask) as a numpy array on the host."""
     with torch.inference_mode():
         y = model.output(x) if mask is None else model.output(x, mask=mask)
     if isinstance(y, torch.Tensor):
         return y.detach().to("cpu").numpy()
     return np.asarray(y)
+
+
+def _dtype_name(x):
+    """numpy's name of a batch's dtype ("float32"), for a tensor too."""
+    return str(x.dtype).removeprefix("torch.")
 
 
 class DynamicBatcher:
@@ -151,14 +162,19 @@ class DynamicBatcher:
                     mask = np.concatenate(
                         [mask, np.zeros((bucket - rows, mask.shape[1]),
                                         np.float32)], axis=0)
-            # seq batches key on (batch bucket, length bucket): warm-up
-            # replays the mask too
+            if entry.transform is not None:
+                x = entry.transform_features_device(x)
+            # keyed on the batch the model sees (post-transform); seq
+            # batches on (batch bucket, length bucket): warm-up replays
+            # the mask too
             if mask is not None:
-                key = (("seq",) + (tuple(x.shape[2:]), str(x.dtype)),
+                key = (("seq",) + (tuple(x.shape[2:]), _dtype_name(x)),
                        bucket, x.shape[1])
             else:
-                key = ((tuple(x.shape[1:]), str(x.dtype)), bucket)
+                key = ((tuple(x.shape[1:]), _dtype_name(x)), bucket)
             out = _run(model, x, mask)
+            if entry.transform is not None:
+                out = np.asarray(entry.revert_outputs(out))
         except Exception as e:
             self.metrics.errors.add(len(batch))
             for r in batch:

@@ -14,16 +14,19 @@ stem; a zip that does not load goes into `scan_errors`, not up the
 stack), and `deploy` of a name not registered yet falls back to
 `<scan_dir>/<name>.zip`.
 
-A version's `transform` (a zip's fitted normalizer) stays None until the
-etl package is ported: the serializer refuses a zip that carries one
-(ROADMAP queue 1 item 9). Quantized deploys wait for nn/quant.py (item
-10).
+Preprocessing travels with the model: a zip's `normalizer.json` becomes
+the version's `transform`, which the batcher applies to every feature
+batch on the model's device before the forward (`transform_features_device`,
+etl.device_transform's `lower_normalizer`) and, for a normalizer fitted
+with `fit_labels`, reverts on the outputs (`revert_outputs`). Quantized
+deploys wait for nn/quant.py (ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 
 import os
 import threading
 
+from ..etl.device_transform import lower_normalizer
 from ..telemetry.registry import Counter
 from ..util.model_serializer import ModelSerializer
 from ..util.time_source import now_s
@@ -34,15 +37,32 @@ class NoModelDeployed(RuntimeError):
 
 
 class ModelVersion:
-    def __init__(self, version, model, path=None, fmt=None):
+    def __init__(self, version, model, path=None, fmt=None, transform=None):
         self.version = str(version)
         self.model = model
         self.path = str(path) if path is not None else None
         self.fmt = fmt                       # zip format.json, when file-backed
-        self.transform = None                # a normalizer, once etl is ported
+        self.transform = transform           # a fitted DataNormalizer or None
+        # lowered once, on the model's device (the host for a model without
+        # one): an unfitted normalizer fails here, at registration
+        self._apply = None
+        if transform is not None:
+            self._apply, _ = lower_normalizer(
+                transform, device=getattr(model, "device", "cpu"))
         self.loaded_at = now_s()
         self.deployed_at = None
         self.serve_count = Counter("serve_count")  # rows served by it
+
+    def transform_features_device(self, x):
+        """The version's normalizer as torch ops on the model's device: a
+        float32 tensor there, for integer-typed requests too (identity
+        without a normalizer)."""
+        return x if self._apply is None else self._apply(x)
+
+    def revert_outputs(self, y):
+        """Outputs back in label units for a normalizer fitted with
+        `fit_labels=True`; identity otherwise."""
+        return y if self.transform is None else self.transform.revert_labels(y)
 
     def info(self, active_version=None):
         return {
@@ -50,7 +70,8 @@ class ModelVersion:
             "model_class": type(self.model).__name__,
             "path": self.path,
             "format": self.fmt,
-            "normalizer": None,
+            "normalizer": type(self.transform).__name__
+            if self.transform is not None else None,
             "quantized": None,
             "parity": None,
             "loaded_at": self.loaded_at,
@@ -105,12 +126,12 @@ class ModelRegistry:
         return p if os.path.isfile(p) else None
 
     # ---- registration -----------------------------------------------------
-    def register(self, version, model, path=None, fmt=None):
+    def register(self, version, model, path=None, fmt=None, transform=None):
         with self._lock:
             if str(version) in self._versions:
                 raise ValueError(f"version {version!r} already registered")
             self._versions[str(version)] = ModelVersion(version, model, path,
-                                                        fmt)
+                                                        fmt, transform)
         return str(version)
 
     def unregister(self, version):
@@ -126,11 +147,14 @@ class ModelRegistry:
     def load(self, version, path):
         """Restore a ModelSerializer zip (type-sniffed, without its updater
         state) on the registry's device and register it with its
-        format.json."""
+        format.json and its fitted normalizer (applied to every batch
+        this version serves)."""
         fmt = ModelSerializer.read_format(path)
         model = ModelSerializer.restore(path, load_updater=False,
                                         device=self.device)
-        return self.register(version, model, path=path, fmt=fmt)
+        normalizer = ModelSerializer.restore_normalizer(path)
+        return self.register(version, model, path=path, fmt=fmt,
+                             transform=normalizer)
 
     # ---- serving-side reads ------------------------------------------------
     def active_entry(self) -> ModelVersion:

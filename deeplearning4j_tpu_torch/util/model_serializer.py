@@ -13,7 +13,11 @@ Entries, as the JAX package writes them:
   `if model.states:`);
 - `updaterState.bin`: the optimizer state as `leaf0`, `leaf1`, ... in the
   order of `jax.tree_util.tree_leaves` of the optax state
-  (nn/updaters.py `opt_state_leaves`).
+  (nn/updaters.py `opt_state_leaves`);
+- `normalizer.json`: a fitted etl normalizer's `to_json()`, when one was
+  written with the model (`write_model(normalizer=)`, `add_normalizer`;
+  read back by `restore_normalizer`, and by the serving registry, which
+  applies it on /predict).
 
 Every entry carries the fixed 1980-01-01 timestamp, so the same state
 writes the same entries; `np.savez` stamps its inner members itself, so
@@ -21,9 +25,7 @@ two zips compare by entry names, configuration text and arrays, not by
 bytes. A key the zip lacks keeps the value the model was initialized
 with; optimizer state of another shape is skipped, as in the JAX package.
 
-Refused: a zip carrying `normalizer.json` (the etl package is not ported;
-serving it without its normalizer would answer wrong predictions without
-saying so) and a dtype other than float32.
+Refused: a dtype other than float32.
 """
 from __future__ import annotations
 
@@ -40,9 +42,6 @@ UPDATER_ENTRY = "updaterState.bin"
 FORMAT_ENTRY = "format.json"
 STATE_ENTRY = "state.bin"
 NORMALIZER_ENTRY = "normalizer.json"
-
-_NO_NORMALIZER = ("normalizers need the etl package, which is not ported "
-                  "yet (ROADMAP queue 1 item 9)")
 
 
 def _flatten_tree(tree, prefix=""):
@@ -96,11 +95,7 @@ def _load_into(tree, flat):
 
 
 def _check_readable(zf):
-    names = zf.namelist()
-    if NORMALIZER_ENTRY in names:
-        raise NotImplementedError(f"the zip carries {NORMALIZER_ENTRY}: "
-                                  f"{_NO_NORMALIZER}")
-    if FORMAT_ENTRY in names:
+    if FORMAT_ENTRY in zf.namelist():
         dtype = json.loads(zf.read(FORMAT_ENTRY).decode()).get("dtype")
         if dtype not in (None, "float32"):
             raise NotImplementedError(
@@ -113,11 +108,10 @@ class ModelSerializer:
     def write_model(model, path, save_updater=True, normalizer=None):
         """Write `model` (a MultiLayerNetwork or a ComputationGraph) to
         `path`, a filesystem path published durably (util.fs.atomic_write)
-        or a file object written directly."""
+        or a file object written directly; `normalizer`, a fitted etl
+        normalizer, rides along as `normalizer.json`."""
         from ..nn.graph.graph import ComputationGraph
         from ..nn.updaters import opt_state_leaves
-        if normalizer is not None:
-            raise NotImplementedError(_NO_NORMALIZER)
         target = path if hasattr(path, "write") else io.BytesIO()
         with zipfile.ZipFile(target, "w", zipfile.ZIP_DEFLATED) as zf:
             _writestr(zf, FORMAT_ENTRY, json.dumps({
@@ -138,6 +132,8 @@ class ModelSerializer:
                 np.savez(buf, **{f"leaf{i}": a for i, a in
                                  enumerate(opt_state_leaves(model))})
                 _writestr(zf, UPDATER_ENTRY, buf.getvalue())
+            if normalizer is not None:
+                _writestr(zf, NORMALIZER_ENTRY, normalizer.to_json())
         if target is not path:
             from .fs import atomic_write
             atomic_write(path, target.getvalue())
@@ -145,7 +141,30 @@ class ModelSerializer:
 
     @staticmethod
     def add_normalizer(path, normalizer):
-        raise NotImplementedError(_NO_NORMALIZER)
+        """Add or replace the normalizer entry of a zip: the archive is
+        rebuilt in memory and published through util.fs.atomic_write (a
+        zip opened for append would hold the entry twice)."""
+        from .fs import atomic_write
+        with zipfile.ZipFile(path, "r") as zf:
+            entries = [(n, zf.read(n)) for n in zf.namelist()
+                       if n != NORMALIZER_ENTRY]
+        buf = io.BytesIO()
+        with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED) as zf:
+            for n, data in entries:
+                _writestr(zf, n, data)
+            _writestr(zf, NORMALIZER_ENTRY, normalizer.to_json())
+        atomic_write(path, buf.getvalue())
+        return path
+
+    @staticmethod
+    def restore_normalizer(path):
+        """The zip's fitted normalizer, or None when it has none."""
+        from ..etl.normalizer import DataNormalizer
+        with zipfile.ZipFile(path, "r") as zf:
+            if NORMALIZER_ENTRY not in zf.namelist():
+                return None
+            return DataNormalizer.from_json(
+                zf.read(NORMALIZER_ENTRY).decode())
 
     @staticmethod
     def restore_multi_layer_network(path, load_updater=True, device=None):

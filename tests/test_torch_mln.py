@@ -256,12 +256,14 @@ def test_flat_params_and_feed_forward_match_jax():
 def test_unported_calls_raise():
     _, tnet = _char_rnn()
     for call, match in ((lambda: tnet.pretrain([]), "nn core"),
-                        (lambda: tnet.set_listeners(), "nn core"),
-                        (lambda: tnet.evaluate([]), "eval"),
                         (TP.ZeroMeanAndUnitVariancePreProcessor, "nn core"),
                         (TP.BinomialSamplingPreProcessor, "nn core")):
         with pytest.raises(NotImplementedError, match=match):
             call()
+    # listeners and evaluate are ported (tests/test_torch_listeners.py,
+    # tests/test_torch_eval.py)
+    assert tnet.set_listeners() is tnet and tnet.listeners == []
+    assert tnet.evaluate([]).confusion is None
     # generate decodes the char-RNN (tests/test_torch_decode_lstm.py); a
     # bidirectional LSTM needs future tokens and cannot stream
     bidir = (NeuralNetConfiguration.builder().seed(3).list()
@@ -270,10 +272,12 @@ def test_unported_calls_raise():
              .input_type(InputType.recurrent(7)).build())
     with pytest.raises(DecodeUnsupported, match="bidirectional"):
         MultiLayerNetwork(bidir, device="cpu").init().generate([1, 2], 3)
+    # the flat solvers are ported (tests/test_torch_solvers.py)
     tnet.conf.optimization_algo = "lbfgs"
     x, y = _sequences(2, 4, 7)
-    with pytest.raises(NotImplementedError, match="solvers"):
-        tnet.fit(x, y)
+    tnet.fit(x, y)
+    assert type(tnet._flat_solver).__name__ == "LBFGS"
+    assert np.isfinite(tnet.score_value) and tnet.iteration_count == 1
 
 
 @pytest.mark.parametrize("name", list(ZOO))

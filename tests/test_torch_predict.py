@@ -193,10 +193,16 @@ class GateModel:
         return np.asarray(x) * 2.0
 
 
+B_TIMEOUT_S = 3.0     # far longer than a loaded host takes to shed C
+
+
 def _shed_and_expire(server_cls):
-    """A blocks the batcher, B (50 ms deadline) fills the one-request
-    queue, C is shed; B's deadline passes in the queue. Returns the three
-    (status, body, Retry-After)."""
+    """A blocks the batcher, B (a deadline of B_TIMEOUT_S) fills the
+    one-request queue, C is shed while B still waits; then B's deadline
+    passes in the queue before the gate opens. Returns the three (status,
+    body, Retry-After). (With a 50 ms deadline B often expired before C
+    arrived on a loaded host: `AdmissionQueue.offer` drops expired
+    entries before deciding to shed, so C was queued, not shed.)"""
     gate = GateModel()
     srv = server_cls(gate, queue_capacity=1, max_batch_size=1,
                      max_latency_ms=1.0).start()
@@ -206,12 +212,14 @@ def _shed_and_expire(server_cls):
             a = pool.submit(_post, url, {"data": [[1.0, 2.0]]})
             assert gate.entered.wait(30)
             b = pool.submit(_post, url, {"data": [[3.0, 4.0]],
-                                         "timeout_ms": 50})
+                                         "timeout_ms": int(B_TIMEOUT_S * 1000)})
             deadline = time.monotonic() + 30
             while srv.queue.depth() < 1 and time.monotonic() < deadline:
                 time.sleep(0.005)
-            c = _post(url, {"data": [[5.0, 6.0]]})
-            time.sleep(0.2)
+            queued = time.monotonic()        # B's deadline is before this
+            c = _post(url, {"data": [[5.0, 6.0]]})    # + B_TIMEOUT_S
+            time.sleep(max(0.0, queued + B_TIMEOUT_S + 0.2
+                           - time.monotonic()))
             gate.release.set()
             return a.result(), b.result(), c
     finally:

@@ -19,7 +19,7 @@
   within rtol 1e-5, Adam moments restored, ModelGuesser) and the
   pretrained LeNet on the 500 t10k images of the real-digit fixture
   (argmax exact, probabilities within rtol 1e-4).
-- Refusals: a zip carrying `normalizer.json`, a dtype other than float32,
+- Refusals: a dtype other than float32,
   and the conf types JAX registers and the port lacks raise
   NotImplementedError.
 """
@@ -374,21 +374,35 @@ def _rewrite(src, dst, extra=None, fmt=None):
 
 
 def test_normalizer_and_other_dtypes_are_refused(tmp_path):
+    """A zip's normalizer is ported (tests/test_torch_normalizer.py holds
+    it against the JAX package); a dtype other than float32 is still
+    refused."""
+    from deeplearning4j_tpu_torch.etl import NormalizerStandardize
     src = FIX / "regression_r3_mln.zip"
+    raw = np.random.default_rng(5).normal(3.0, 2.0, (32, 4))
+    nz = NormalizerStandardize().fit(DataSet(raw, raw))
     norm = tmp_path / "norm.zip"
-    _rewrite(src, norm, extra={"normalizer.json": "{}"})
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        ModelSerializer.restore(str(norm), device="cpu")
+    _rewrite(src, norm, extra={"normalizer.json": nz.to_json()})
+    assert ModelSerializer.restore(str(norm), device="cpu") is not None
+    assert ModelSerializer.restore_normalizer(str(norm)).to_json() == \
+        nz.to_json()
+    assert ModelSerializer.restore_normalizer(str(src)) is None
     half = tmp_path / "half.zip"
     _rewrite(src, half, fmt={"dtype": "float16"})
     with pytest.raises(NotImplementedError, match="float16"):
         ModelSerializer.restore(str(half), device="cpu")
     net = ModelSerializer.restore(str(src), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        ModelSerializer.write_model(net, str(tmp_path / "n.zip"),
-                                    normalizer=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        ModelSerializer.add_normalizer(str(src), object())
+    ModelSerializer.write_model(net, str(tmp_path / "n.zip"), normalizer=nz)
+    assert ModelSerializer.restore_normalizer(
+        str(tmp_path / "n.zip")).to_json() == nz.to_json()
+    plain = tmp_path / "plain.zip"
+    plain.write_bytes(src.read_bytes())
+    ModelSerializer.add_normalizer(str(plain), nz)
+    ModelSerializer.add_normalizer(str(plain), nz)     # replaced, not twice
+    with zipfile.ZipFile(plain) as zf:
+        assert zf.namelist().count("normalizer.json") == 1
+    assert ModelSerializer.restore_normalizer(str(plain)).to_json() == \
+        nz.to_json()
 
 
 @pytest.mark.parametrize("d,fn", [

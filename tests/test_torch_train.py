@@ -258,23 +258,25 @@ def test_unported_training_options_raise():
     """steps_per_execution, remat and dropout train since the K-step
     slice (tests/test_torch_multistep.py, test_torch_remat.py,
     test_torch_dropout.py), truncated BPTT since the LSTM slice
-    (tests/test_torch_tbptt.py); the options below are still to port."""
+    (tests/test_torch_tbptt.py), the flat solvers since the training
+    workflow slice (tests/test_torch_solvers.py); prefetch, ingest and
+    float16 compute are still to port."""
     _, tnet = _pair(use_pallas=False)
     x, y, _ = _batch()
     for kw, match in (({"prefetch": 2}, "prefetch"),
                       ({"ingest": object()}, "ingest")):
         with pytest.raises(NotImplementedError, match=match):
             tnet.fit(x, y, **kw)
-    for field, value, match in (("optimization_algo", "lbfgs",
-                                 "solvers"),):
-        setattr(tnet.conf, field, value)
-        with pytest.raises(NotImplementedError, match=match):
-            tnet.fit(x, y)
-        setattr(tnet.conf, field, type(tnet.conf)().__dict__[field])
     with pytest.raises(NotImplementedError, match="float16.*bfloat16"):
         transformer_lm(vocab_size=V, d_model=32, n_layers=1, n_heads=2,
                        compute_dtype="float16", device="cpu")
     assert tnet.iteration_count == 0
+    # the flat solvers are ported (tests/test_torch_solvers.py)
+    tnet.conf.optimization_algo = "lbfgs"
+    s0 = tnet.score(DataSet(x, y))
+    tnet.fit(x, y)
+    assert type(tnet._flat_solver).__name__ == "LBFGS"
+    assert tnet.iteration_count == 1 and tnet.score_value < s0
 
 
 class _Resettable:
