@@ -532,11 +532,52 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    server's histogram (all of them recorded, none pushed out),
    batches, bucket histograms, K1 launches per dispatch, and the host's
    parse of the largest body against one 32 x 128 dispatch.
-13. Every main path (serving, serving_paged, serving_d32,
+13. The DL4J training workflow (`phase_training_workflow(smi)`; its
+   docstring lists the legs): paths early_stopping and evaluate.
+14. Device-side ingest and prefetch (`phase_ingest(smi)`). (a)
+   bench_resnet50_end_to_end's configuration (bench.py:300-400):
+   `resnet50` bf16 with Nesterovs(0.05, 0.9) (weights and statistics
+   `synthetic_*(seed=0)`), `set_ingest(DeviceIngest(one_hot_labels=
+   1000))`, 8 batches of uint8 [256, 224, 224, 3] pixels and int32 ids
+   from default_rng(0); the bench's warm-up `fit` of the first 4, then
+   `fit(DevicePrefetcher(..., queue_size=3, transfer_streams=8),
+   steps_per_execution=4)`, under `cudnn.deterministic`. Gates: the
+   prefetcher's `etl_h2d_bytes_total` rises by exactly 8 x 38,536,192;
+   the warm-up captures nothing, the timed fit captures once (its first
+   group) and replays twice, one plan with uint8 / int32 stacks; no hand
+   kernel; a further epoch, profiled, captures nothing and every HtoD
+   copy of 1 MB or more is Pinned -> Device on a stream that runs no
+   convolution; the parameters and running statistics after the timed
+   fit equal, bitwise, those of a second model from the same initial
+   state trained on the wide batches (float32 pixels, `np.eye` one-hot
+   labels) through the same calls, one model on the card at a time.
+   Prints, ungated, e2e samples/s, `wall_ms`, the replayed step,
+   `link_ms` (one pageable copy of a batch), `link_ms_streamed` (the
+   prefetcher's staging: pinned buffer, 8 side streams), `overlap` as
+   the bench computes it, and the consumer wait. (b) path ingest_lm:
+   bench_transformer_lm's model and batch (bf16, 16 x 512) on 8 batches
+   of float32 one-hot features and uint8 label ids, `fit(epochs=2,
+   steps_per_execution=4, prefetch=2, ingest=DeviceIngest(
+   one_hot_labels=256))`: parameters bitwise those of the wide path
+   (float32 one-hot labels, path ingest_lm_wide), `etl_h2d_bytes_total`
+   up by 2 x 8 x 8,396,800, `flash_fwd_bf16` / `flash_bwd_dq_bf16` /
+   `flash_bwd_dkv_bf16` exactly 64 launches each, replays counted. (c)
+   path ingest_smoke: tools/smoke_ingest.py's tabular leg (CSV ->
+   CSVRecordReader -> TransformProcess through JSON ->
+   ParallelPipelineExecutor(device_ingest=True, workers=2) ->
+   DevicePrefetcher -> a dense net with `set_ingest`,
+   `fit(steps_per_execution=2)`) and image leg (uint8 pixels ->
+   DeviceIngest(normalizer=min-max, one_hot_labels=3)), from the initial
+   parameters in tests/fixtures/torch_port_ingest.json: every epoch's
+   score within INGEST_FIXTURE_RTOL = 1e-4 of JAX's, the held-out argmax
+   JAX's wherever its top-2 gap is >= 1e-3 (no accuracy bar: the
+   reference's own smoke misses its 0.9 at this size).
+15. Every main path (serving, serving_paged, serving_d32,
    serving_d32_paged, training, training_bf16, ring, ring_f32, resnet50,
    multistep, multistep_bf16, multistep_resnet50, lenet, char_rnn,
    multistep_lenet, multistep_char_rnn, decode_char_rnn, speculative,
-   predict,
+   predict, early_stopping, evaluate, ingest_resnet50,
+   ingest_resnet50_wide, ingest_lm, ingest_lm_wide, ingest_smoke,
    the D=320 model's training_wide, training_wide_bf16, decode_wide,
    decode_wide_paged, the D=256 model's training_d256 and decode_d256,
    the D=128 model's training_d128 and decode_d128, and
@@ -559,6 +600,7 @@ or when the package is not beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -6047,6 +6089,603 @@ def phase_training_workflow(smi):
     return cases, launches
 
 
+# ----------------------------------------------------------------- phase 14
+INGEST_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_ingest.json"
+# bench_resnet50_end_to_end's configuration (bench.py:300-400)
+E2E_BATCHES, E2E_K, E2E_PREFETCH, E2E_STREAMS = 8, 4, 3, 8
+E2E_BATCH, E2E_IMAGE = 256, 224
+# bench_transformer_lm's model and batch with uint8 label ids
+INGEST_LM_BATCHES, INGEST_LM_EPOCHS, INGEST_LM_K = 8, 2, 4
+# tools/smoke_ingest.py's two legs at its test's size
+INGEST_LEGS = dict(n_rows=256, epochs=5, batch_size=32, seed=0, held=96)
+INGEST_FIXTURE_RTOL = 1e-4
+INGEST_ARGMAX_GAP = 1e-3
+SMOKE_CATS = ["low", "mid", "high"]
+
+
+def smoke_csv(path, n_rows, seed):
+    """tools/smoke_ingest.py's `make_csv`: 2 numerics around 2·class, the
+    class's level and the class, one row a line."""
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for _ in range(n_rows):
+            cls = int(rng.integers(0, 3))
+            feats = rng.normal(loc=2.0 * cls, scale=0.5, size=2)
+            f.write(",".join(f"{v:.5f}" for v in feats)
+                    + f",{SMOKE_CATS[cls]},{cls}\n")
+
+
+def smoke_pixels(n_rows, seed, side=6):
+    """tools/smoke_ingest.py's image rows: uint8 pixels around 40 + 85·class
+    and int32 classes."""
+    rng = np.random.default_rng(seed)
+    cls = rng.integers(0, 3, n_rows)
+    x = np.clip(rng.normal(40 + 85 * cls[:, None], 12.0,
+                           (n_rows, side * side)), 0, 255).astype(np.uint8)
+    return x, cls.astype(np.int32)
+
+
+def smoke_transform(Schema, TransformProcess):
+    """The tabular leg's process, written to JSON and read back."""
+    schema = (Schema.builder().add_numeric("f0", "f1")
+              .add_categorical("level", SMOKE_CATS).add_integer("label")
+              .build())
+    tp = (TransformProcess.builder(schema)
+          .categorical_to_one_hot("level")
+          .min_max_normalize("f0", -3.0, 8.0)
+          .standardize("f1", 2.0, 2.0).build())
+    return TransformProcess.from_json(tp.to_json())
+
+
+def top2(out):
+    """(argmax, top-2 gap) of each row of a [n, classes] array."""
+    out = np.asarray(out, np.float64)
+    s = np.sort(out, axis=-1)
+    return out.argmax(-1).tolist(), (s[:, -1] - s[:, -2]).tolist()
+
+
+def ingest_legs(params, device=None):
+    """The two legs of tools/smoke_ingest.py with the port, from the
+    fixture's initial parameters ({"tabular"|"image": {"layer/key":
+    array}}): {leg: {"scores": the score after each epoch, "argmax" and
+    "gap" on the held-out rows, ...}}. Tabular: a CSV in a temp dir ->
+    CSVRecordReader -> the process (through JSON) ->
+    ParallelPipelineExecutor(device_ingest=True, workers=2) ->
+    DevicePrefetcher -> the dense net with `set_ingest`, `fit(epochs=1,
+    steps_per_execution=2)` an epoch. Image: uint8 pixels and int ids ->
+    DevicePrefetcher(transfer_dtype=uint8) -> the net with
+    `DeviceIngest(normalizer=min-max, one_hot_labels=3)`."""
+    import tempfile
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterator.base import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.datasets.records import CSVRecordReader
+    from deeplearning4j_tpu_torch.etl import (
+        DeviceIngest, DevicePrefetcher, NormalizerMinMaxScaler,
+        ParallelPipelineExecutor, Schema, TransformProcess)
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.multilayer.network import \
+        MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    from deeplearning4j_tpu_torch.telemetry.registry import MetricsRegistry
+    device = DEVICE if device is None else device
+    n, epochs, bs, seed, held = (INGEST_LEGS[k] for k in (
+        "n_rows", "epochs", "batch_size", "seed", "held"))
+
+    def net(n_features, lr, flat):
+        conf = (NeuralNetConfiguration.builder().seed(seed)
+                .updater(Adam(lr)).list()
+                .layer(L.DenseLayer(n_out=24, activation="relu"))
+                .layer(L.OutputLayer(n_out=3, activation="softmax",
+                                     loss="MCXENT"))
+                .input_type(InputType.feed_forward(n_features)).build())
+        tree = {}
+        for key, v in flat.items():
+            layer, k = key.split("/", 1)
+            tree.setdefault(layer, {})[k] = np.asarray(v, np.float32)
+        return MultiLayerNetwork(conf, device=device).init(params=tree)
+
+    def epochs_of(model, pf):
+        scores = []
+        for _ in range(epochs):
+            model.fit(pf, epochs=1, steps_per_execution=2)
+            scores.append(model.score_value)
+        pf.close()
+        return scores
+
+    reg = MetricsRegistry()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/train.csv"
+        smoke_csv(path, n, seed)
+        tp = smoke_transform(Schema, TransformProcess)
+        pipe = ParallelPipelineExecutor(
+            CSVRecordReader().initialize(path), tp, batch_size=bs,
+            workers=2, ordered=True, label_columns=["label"],
+            one_hot_labels=3, device_ingest=True, name="smoke_ingest",
+            registry=reg)
+        ing = pipe.ingest
+        model = net(len(ing._final_feature_names), 1e-2, params["tabular"])
+        model.set_ingest(ing)
+        scores = epochs_of(model, DevicePrefetcher(
+            pipe, queue_size=2, name="smoke_ingest", device=device,
+            registry=reg))
+        pipe.close()
+        smoke_csv(f"{tmp}/held.csv", held, seed + 1)
+        recs = CSVRecordReader().initialize(f"{tmp}/held.csv")
+        rows = [recs.next_record() for _ in range(held)]
+        ref = ing.host_reference(rows)
+        am, gap = top2(model.output(ref.features).cpu())
+        out["tabular"] = {"scores": scores, "argmax": am, "gap": gap,
+                          "wire_dtype": str(ing.wire_dtype),
+                          "bytes_per_row": ing.bytes_per_row()}
+    x, y = smoke_pixels(n, seed)
+    nz = NormalizerMinMaxScaler().fit(DataSet(x.astype(np.float32), None))
+    sets = [DataSet(x[s:s + bs], y[s:s + bs]) for s in range(0, n, bs)]
+    model = net(x.shape[1], 3e-2, params["image"])
+    model.set_ingest(DeviceIngest(normalizer=nz, one_hot_labels=3))
+    scores = epochs_of(model, DevicePrefetcher(
+        ListDataSetIterator(sets), queue_size=2, transfer_dtype=np.uint8,
+        name="smoke_image", device=device, registry=reg))
+    hx, _ = smoke_pixels(held, seed + 1)
+    am, gap = top2(model.output(nz.transform_features(
+        hx.astype(np.float32))).cpu())
+    out["image"] = {"scores": scores, "argmax": am, "gap": gap}
+    out["h2d_bytes"] = {p: reg.counter("etl_h2d_bytes_total").get(
+        pipeline=p) for p in ("smoke_ingest", "smoke_image")}
+    torch.cuda.synchronize() if str(device).startswith("cuda") else None
+    return out
+
+
+def ingest_fixture_check(run, fixture=None):
+    """The legs' gaps to the JAX fixture: {"<leg> scores": max relative
+    gap, "<leg> argmax": rows off JAX's argmax where JAX's top-2 gap is
+    at least INGEST_ARGMAX_GAP}."""
+    fx = fixture or json.loads(INGEST_FIXTURE.read_text())
+    gaps = {}
+    for leg in ("tabular", "image"):
+        want, got = fx[leg], run[leg]
+        w = np.asarray(want["scores"])
+        gaps[f"{leg} scores"] = float(np.max(
+            np.abs(np.asarray(got["scores"]) - w) / np.abs(w)))
+        gaps[f"{leg} argmax"] = sum(
+            g != a for g, a, d in zip(got["argmax"], want["argmax"],
+                                      want["gap"])
+            if d >= INGEST_ARGMAX_GAP)
+    return gaps
+
+
+def _e2e_sets():
+    """bench_resnet50_end_to_end's data: default_rng(0), per batch uint8
+    [256, 224, 224, 3] pixels then int32 class ids."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    rng = np.random.default_rng(0)
+    sets = []
+    for _ in range(E2E_BATCHES):
+        x = rng.integers(0, 256, size=(E2E_BATCH, E2E_IMAGE, E2E_IMAGE, 3),
+                         dtype=np.uint8)
+        y = rng.integers(0, RESNET["num_classes"], E2E_BATCH).astype(
+            np.int32)
+        sets.append(DataSet(x, y))
+    return sets
+
+
+def e2e_batch_bytes():
+    """The wire bytes of one e2e batch: uint8 pixels and int32 ids."""
+    return E2E_BATCH * (E2E_IMAGE * E2E_IMAGE * 3 + 4)
+
+
+def _htod_gate(prof_path):
+    """From a profiler trace: the HtoD copies of 1 MB or more (their kinds
+    and streams) and the streams that ran convolution kernels."""
+    trace = json.loads(Path(prof_path).read_text())
+    copies, conv_streams = [], set()
+    for e in trace.get("traceEvents", []):
+        args = e.get("args") or {}
+        cat, name = e.get("cat", ""), e.get("name", "")
+        if cat == "gpu_memcpy" and "HtoD" in name and \
+                (args.get("bytes") or 0) >= (1 << 20):
+            copies.append((name, args.get("stream"), args.get("bytes")))
+        elif cat == "kernel" and any(s in name.lower() for s in (
+                "conv", "cudnn", "xmma", "fprop", "dgrad", "wgrad")):
+            conv_streams.add(args.get("stream"))
+    return copies, conv_streams
+
+
+def _e2e_model(sets, ingest):
+    """The bench's calls on one ResNet-50 (the ingest model, or the wide
+    one on float32 pixels and one-hot labels): the warm-up fit of the
+    first K batches, then the timed fit through a DevicePrefetcher of
+    all. Returns (net, record) with the parameters and running
+    statistics after the timed fit on the host."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets.iterator.base import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.etl import DeviceIngest, DevicePrefetcher
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    from deeplearning4j_tpu_torch.telemetry.registry import MetricsRegistry
+    net = _resnet("bfloat16", **RESNET)
+    if ingest:
+        net.set_ingest(DeviceIngest(one_hot_labels=RESNET["num_classes"]))
+    events = {"capture": 0, "replay": 0}
+    capture = net._capture
+
+    def counted_capture(plan, stream):
+        events["capture"] += 1
+        return capture(plan, stream)
+    net._capture = counted_capture
+    replay = torch.cuda.CUDAGraph.replay
+
+    def counted_replay(graph):
+        events["replay"] += 1
+        return replay(graph)
+    torch.cuda.CUDAGraph.replay = counted_replay
+    reg = MetricsRegistry()
+    try:
+        net.fit(ListDataSetIterator(sets[:E2E_K]),
+                steps_per_execution=E2E_K)
+        torch.cuda.synchronize()
+        warm = dict(events)
+        reset_launch_counts()
+        pf = DevicePrefetcher(ListDataSetIterator(sets),
+                              queue_size=E2E_PREFETCH,
+                              transfer_streams=E2E_STREAMS, registry=reg,
+                              name="e2e", device=DEVICE)
+        t0 = time.perf_counter()
+        net.fit(pf, steps_per_execution=E2E_K)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / E2E_BATCHES
+        pf.close()
+        timed = {k: events[k] - warm[k] for k in events}
+        launches = counts()
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+        net._capture = capture
+    return net, {"params": _flat_tree(net.params),
+                 "states": _flat_tree(net.states), "warm": warm,
+                 "timed": timed, "wall_ms": wall_ms, "launches": launches,
+                 "plans": len(net._plans),
+                 "h2d_bytes": reg.counter("etl_h2d_bytes_total").get(
+                     pipeline="e2e"),
+                 "wait": reg.histogram("etl_consumer_wait_ms").percentiles(
+                     pipeline="e2e")}
+
+
+def _link_ms(x):
+    """bench_resnet50_end_to_end's link legs on one uint8 batch, best of
+    3: one pageable copy (`torch.from_numpy(x).to("cuda")`), and the
+    prefetcher's own staging (the host's memcpy into a pinned buffer,
+    then the copy on side streams) with one stream and with E2E_STREAMS
+    row chunks."""
+    import torch
+    from deeplearning4j_tpu_torch.etl.prefetch import _Staging
+    legs = {"pageable": lambda: torch.from_numpy(x).to(DEVICE)}
+    for name, streams in (("pinned", 1), ("streamed", E2E_STREAMS)):
+        legs[name] = (lambda st: lambda: st.put(x, 0))(
+            _Staging(torch.device(DEVICE), streams))
+    times = {name: [] for name in legs}
+    for _ in range(3):
+        for name, leg in legs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            leg()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: min(t) for name, t in times.items()}
+
+
+def _ingest_resnet50(smi):
+    """(a): bench_resnet50_end_to_end's fit on the card, gated bitwise
+    against the wide path; returns (summary, launches)."""
+    import os
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterator.base import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.etl import DevicePrefetcher
+    from deeplearning4j_tpu_torch.telemetry.registry import MetricsRegistry
+    sets = _e2e_sets()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        net, ing = _e2e_model(sets, ingest=True)
+        check(ing["h2d_bytes"] == E2E_BATCHES * e2e_batch_bytes(),
+              f"e2e: etl_h2d_bytes_total rose by {ing['h2d_bytes']}, not "
+              f"{E2E_BATCHES} x {e2e_batch_bytes()}")
+        check(ing["warm"] == {"capture": 0, "replay": 0},
+              f"e2e: the warm-up fit captured or replayed: {ing['warm']}")
+        check(ing["timed"] == {"capture": 1, "replay": 2},
+              f"e2e: the timed fit made {ing['timed']}, not one capture "
+              "(its first group) and two replays")
+        check(ing["plans"] == 1, f"e2e: {ing['plans']} plans, not one")
+        _no_launches("e2e", ing["launches"])
+        plan = next(iter(net._plans.values()))
+        check(plan.batch[0][0].dtype == torch.uint8
+              and plan.batch[1][0].dtype == torch.int32,
+              "e2e: the plan's stacks are not the wire dtypes")
+        # compute leg: replays of the plan, per step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            net.fit_prepared(plan)
+        torch.cuda.synchronize()
+        compute_ms = (time.perf_counter() - t0) * 1e3 / (2 * E2E_K)
+        link = _link_ms(sets[0].features)
+        # two further epochs: replays only. The first is timed (the
+        # steady-state e2e rate), the second profiled (pinned side-stream
+        # copies); neither captures
+        capture, made = net._capture, []
+        net._capture = lambda p, s: made.append(1) or capture(p, s)
+        fd, trace_path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+
+        def epoch(reg):
+            pf = DevicePrefetcher(ListDataSetIterator(sets),
+                                  queue_size=E2E_PREFETCH,
+                                  transfer_streams=E2E_STREAMS,
+                                  registry=reg, name="e2e", device=DEVICE)
+            net.fit(pf, steps_per_execution=E2E_K)
+            torch.cuda.synchronize()
+            pf.close()
+        try:
+            steady_reg = MetricsRegistry()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            epoch(steady_reg)
+            steady_ms = (time.perf_counter() - t0) * 1e3 / E2E_BATCHES
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                epoch(MetricsRegistry())
+            prof.export_chrome_trace(trace_path)
+            copies, conv_streams = _htod_gate(trace_path)
+        finally:
+            net._capture = capture
+            os.unlink(trace_path)
+        check(not made, "e2e: a further epoch captured again")
+        steady_bytes = steady_reg.counter("etl_h2d_bytes_total").get(
+            pipeline="e2e")
+        check(steady_bytes == E2E_BATCHES * e2e_batch_bytes(),
+              f"e2e: the steady epoch moved {steady_bytes} bytes")
+        check(copies and conv_streams,
+              f"e2e: the profiled epoch shows {len(copies)} HtoD copies of "
+              f"1 MB or more and convolutions on {conv_streams}")
+        bad = [c for c in copies
+               if "Pinned" not in c[0] or c[1] in conv_streams]
+        check(not bad, f"e2e: HtoD copies not pinned or on the "
+                       f"convolutions' stream {conv_streams}: {bad[:4]}")
+        del net, plan
+        torch.cuda.empty_cache()
+        eye = np.eye(RESNET["num_classes"], dtype=np.float32)
+        wide_sets = [DataSet(s.features.astype(np.float32), eye[s.labels])
+                     for s in sets]
+        wnet, wide = _e2e_model(wide_sets, ingest=False)
+        del wnet, wide_sets
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    for part in ("params", "states"):
+        diff = [k for k, v in ing[part].items()
+                if not np.array_equal(v, wide[part][k])]
+        check(not diff, f"e2e: {part} of the ingest path differ from the "
+                        f"wide path's (bitwise): {diff[:5]}")
+    streamed_ms = link["streamed"]
+    legs = sorted((streamed_ms, compute_ms))
+    overlap = None if legs[1] > 10 * legs[0] else \
+        (streamed_ms + compute_ms - steady_ms) / max(legs[0], 1e-9)
+    nbytes = e2e_batch_bytes()
+    summary = {"card": smi, "e2e_sps": E2E_BATCH / (steady_ms / 1e3),
+               "wall_ms": steady_ms,
+               "first_fit_sps": E2E_BATCH / (ing["wall_ms"] / 1e3),
+               "first_fit_wall_ms": ing["wall_ms"],
+               "compute_step_ms": compute_ms,
+               "link_ms": link["pageable"], "link_ms_pinned": link["pinned"],
+               "link_ms_streamed": streamed_ms,
+               "h2d_mb_s": nbytes / 1e6 / (link["pageable"] / 1e3),
+               "h2d_mb_s_streamed": nbytes / 1e6 / (streamed_ms / 1e3),
+               "overlap": overlap,
+               "consumer_wait_ms": ing["wait"],
+               "steady_consumer_wait_ms": steady_reg.histogram(
+                   "etl_consumer_wait_ms").percentiles(pipeline="e2e"),
+               "wide_first_fit_wall_ms": wide["wall_ms"],
+               "htod_copies_profiled": len(copies),
+               "bytes_per_sample": nbytes // E2E_BATCH,
+               "h2d_bytes": ing["h2d_bytes"],
+               "wide_h2d_bytes": wide["h2d_bytes"]}
+    return summary, {"ingest_resnet50": ing["launches"],
+                     "ingest_resnet50_wide": wide["launches"]}
+
+
+@contextlib.contextmanager
+def _gc_pauses():
+    """{"ms": total, "n": count} of the collector's passes inside the
+    block, filled as they happen (gc.callbacks)."""
+    import gc
+    out, started = {"ms": 0.0, "n": 0}, []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started.append(time.perf_counter())
+        elif started:
+            out["ms"] += (time.perf_counter() - started.pop()) * 1e3
+            out["n"] += 1
+    gc.callbacks.append(on_gc)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(on_gc)
+
+
+def _ingest_lm():
+    """(b): bench_transformer_lm's model and batch in bf16, uint8 label
+    ids ingested, against the wide path (float32 one-hot labels), run
+    ingest, wide, wide, ingest so that each path is timed both first and
+    after the other: (summary, launches)."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterator.base import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.etl import DeviceIngest
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    from deeplearning4j_tpu_torch.telemetry.registry import get_registry
+    from deeplearning4j_tpu_torch.zoo import transformer_lm
+    rng = np.random.default_rng(0)
+    V = SERVE["vocab_size"]
+    eye = np.eye(V, dtype=np.float32)
+    ids = rng.integers(0, V, size=(INGEST_LM_BATCHES, TRAIN_BATCH,
+                                   TRAIN_SEQ + 1))
+    narrow = [DataSet(eye[b[:, :-1]], b[:, 1:].astype(np.uint8))
+              for b in ids]
+    wide = [DataSet(eye[b[:, :-1]], eye[b[:, 1:]]) for b in ids]
+    bytes_ = get_registry().counter("etl_h2d_bytes_total")
+    runs = []
+    for name in ("ingest", "wide", "wide", "ingest"):
+        ingest = name == "ingest"
+        sets = narrow if ingest else wide
+        net = transformer_lm(**SERVE, use_pallas=True,
+                             compute_dtype="bfloat16", device=DEVICE).init()
+        before = bytes_.get(pipeline="prefetch")
+        # where a run's wall goes on the host: its one capture (which
+        # enters torch.cuda.graph: a synchronize, gc.collect and
+        # empty_cache) and the collector's pauses
+        capture, capture_ms = net._capture, []
+
+        def timed_capture(plan, stream, capture=capture, out=capture_ms):
+            t = time.perf_counter()
+            try:
+                return capture(plan, stream)
+            finally:
+                out.append((time.perf_counter() - t) * 1e3)
+        net._capture = timed_capture
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with _gc_pauses() as gc_ms:
+            t0 = time.perf_counter()
+            net.fit(ListDataSetIterator(sets), epochs=INGEST_LM_EPOCHS,
+                    steps_per_execution=INGEST_LM_K, prefetch=2,
+                    ingest=DeviceIngest(one_hot_labels=V) if ingest
+                    else None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        runs.append({"name": name, "wall_s": wall,
+                     "capture_ms": capture_ms, "gc_ms": gc_ms,
+                     "launches": counts(),
+                     "bytes": bytes_.get(pipeline="prefetch") - before,
+                     "params": _flat_tree(net.params),
+                     "score": net.score_value})
+        del net
+    steps = INGEST_LM_BATCHES * INGEST_LM_EPOCHS
+    layers = SERVE["n_layers"]
+    # float32 one-hot features and uint8 label ids
+    want_bytes = INGEST_LM_EPOCHS * INGEST_LM_BATCHES * TRAIN_BATCH \
+        * TRAIN_SEQ * (SERVE["vocab_size"] * 4 + 1)
+    for i, run in enumerate(runs):
+        if run["name"] != "ingest":
+            continue
+        for name, n in run["launches"].items():
+            want = steps * layers if name in (
+                "flash_fwd_bf16", "flash_bwd_dq_bf16",
+                "flash_bwd_dkv_bf16") else 0
+            check(n == want,
+                  f"ingest_lm run {i}: {name} launched {n} times, not {want}")
+        check(run["bytes"] == want_bytes,
+              f"ingest_lm run {i}: etl_h2d_bytes_total rose by "
+              f"{run['bytes']}, not {want_bytes}")
+    for i, run in enumerate(runs[1:], 1):
+        diff = [k for k, v in run["params"].items()
+                if not np.array_equal(v, runs[0]["params"][k])]
+        check(not diff, f"ingest_lm: run {i} ({run['name']}) differs from "
+                        f"run 0 (ingest), bitwise: {diff[:5]}")
+    tokens = steps * TRAIN_BATCH * TRAIN_SEQ
+    ingest_runs = [r for r in runs if r["name"] == "ingest"]
+    wide_runs = [r for r in runs if r["name"] == "wide"]
+    return ({"order": [r["name"] for r in runs],
+             "tokens_per_s_by_run": [tokens / r["wall_s"] for r in runs],
+             "wall_ms_by_run": [r["wall_s"] * 1e3 for r in runs],
+             "capture_ms_by_run": [r["capture_ms"] for r in runs],
+             "gc_ms_by_run": [dict(r["gc_ms"]) for r in runs],
+             "tokens_per_s": tokens / ingest_runs[1]["wall_s"],
+             "wide_tokens_per_s": tokens / wide_runs[1]["wall_s"],
+             "score": runs[0]["score"],
+             "h2d_bytes": runs[0]["bytes"],
+             "wide_h2d_bytes": wide_runs[0]["bytes"]},
+            {"ingest_lm": runs[0]["launches"],
+             "ingest_lm_wide": wide_runs[0]["launches"]})
+
+
+def _ingest_smoke():
+    """(c): the reference smoke's two legs on the card against the JAX
+    fixture: (summary, launches)."""
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    fx = json.loads(INGEST_FIXTURE.read_text())
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    run = ingest_legs(fx["params"])
+    wall = time.perf_counter() - t0
+    launches = counts()
+    _no_launches("ingest_smoke", launches)
+    gaps = ingest_fixture_check(run, fx)
+    for leg in ("tabular", "image"):
+        check(gaps[f"{leg} scores"] <= INGEST_FIXTURE_RTOL,
+              f"ingest smoke {leg}: scores {run[leg]['scores']} against "
+              f"JAX's {fx[leg]['scores']} (rtol {INGEST_FIXTURE_RTOL})")
+        check(gaps[f"{leg} argmax"] == 0,
+              f"ingest smoke {leg}: {gaps[f'{leg} argmax']} held-out rows "
+              f"off JAX's argmax where its top-2 gap >= {INGEST_ARGMAX_GAP}")
+    check(run["tabular"]["wire_dtype"] == fx["tabular"]["wire_dtype"]
+          and run["h2d_bytes"]["smoke_image"] > 0,
+          f"ingest smoke: wire {run['tabular']['wire_dtype']}, bytes "
+          f"{run['h2d_bytes']}")
+    return ({"gaps": gaps, "wall_s": wall, "h2d_bytes": run["h2d_bytes"],
+             "scores": {leg: run[leg]["scores"]
+                        for leg in ("tabular", "image")}},
+            {"ingest_smoke": launches})
+
+
+def phase_ingest(smi):
+    """Phase 14, device-side ingest and prefetch on the card: (a)
+    bench_resnet50_end_to_end's fit (uint8 pixels and int32 ids through a
+    DevicePrefetcher of 8 streams into K=4 plans, bitwise against the
+    wide path), (b) the bf16 transformer with ingested uint8 labels (path
+    ingest_lm), (c) the reference smoke's legs against the JAX fixture.
+    Returns launches by path."""
+    import torch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    e2e, launches = _ingest_resnet50(smi)
+    lm, lm_launches = _ingest_lm()
+    launches.update(lm_launches)
+    smoke, smoke_launches = _ingest_smoke()
+    launches.update(smoke_launches)
+    summary = {"e2e": e2e, "ingest_lm": lm, "smoke": smoke,
+               "phase_s": time.perf_counter() - t0}
+    print(json.dumps({"ingest": summary}))
+    wait = e2e["steady_consumer_wait_ms"]
+    ov = e2e["overlap"]
+    print(f"ingest ({smi}): e2e {e2e['e2e_sps']:.1f} samples/s, wall "
+          f"{e2e['wall_ms']:.2f} ms a batch, compute "
+          f"{e2e['compute_step_ms']:.2f} ms a replayed step, link_ms "
+          f"{e2e['link_ms']:.3f} (pageable, one copy), link_ms_pinned "
+          f"{e2e['link_ms_pinned']:.3f} (pinned, one stream), "
+          f"link_ms_streamed {e2e['link_ms_streamed']:.3f} (pinned, "
+          f"{E2E_STREAMS} streams), overlap "
+          f"{'None' if ov is None else f'{ov:.3f}'}, consumer wait p50 "
+          f"{wait['p50']:.3f} ms (max {wait['max']:.3f}); first fit "
+          f"(capture included) {e2e['first_fit_sps']:.1f} samples/s; "
+          f"ingest_lm tokens/s by run {lm['order']}: "
+          f"{[round(t) for t in lm['tokens_per_s_by_run']]} (capture ms "
+          f"{[[round(c, 1) for c in r] for r in lm['capture_ms_by_run']]}, "
+          f"gc ms {[round(g['ms'], 1) for g in lm['gc_ms_by_run']]}); "
+          f"smoke gaps "
+          f"{smoke['gaps']}")
+    return launches
+
+
+
 # ------------------------------------------------------------------ main
 _FA = "deeplearning4j_tpu/kernels/flash_attention.py"
 REPLACES = {
@@ -6168,6 +6807,7 @@ def main():
     workflow_cases, workflow_launches = phase_training_workflow(smi)
     cases += workflow_cases
     launches.update(workflow_launches)
+    launches.update(phase_ingest(smi))
     from deeplearning4j_tpu_torch.kernels import route_counts
     for path, n in launches.items():
         # the D=320 model's paths take the wide routes and no other

@@ -339,11 +339,12 @@ class AsyncDataSetIterator(DataSetIterator):
 
 
 def DevicePrefetchIterator(underlying, queue_size=2, device=None):
-    """Staging upcoming batches on the card from a background thread is
-    the etl package's DevicePrefetcher, not ported yet."""
-    raise NotImplementedError(
-        "DevicePrefetchIterator needs etl's DevicePrefetcher, which is not "
-        "ported yet (ROADMAP queue 1 item 9: etl prefetch)")
+    """Stages upcoming batches on the card from a background thread, so
+    the host-to-device copy of batch N+1 overlaps the compute of batch N
+    (the card unless `device` says otherwise). The name is the JAX
+    package's; the one implementation is etl.prefetch.DevicePrefetcher."""
+    from ...etl.prefetch import DevicePrefetcher   # lazy: etl imports us
+    return DevicePrefetcher(underlying, queue_size=queue_size, device=device)
 
 
 def as_iterator(data, batch_size=None):

@@ -12,13 +12,16 @@ layout), so Dense weights carried over from the JAX package line up.
 `default_preprocessor(prev_type, conf)` is the preprocessor the JAX
 package's builders insert before layer `conf` fed `prev_type` (None where
 none is needed), `type_after_preprocessor` the type the layer then sees.
-The normalizing and sampling preprocessors of the JAX package are not
-ported yet: constructing one raises NotImplementedError.
+`ImageScalerPreProcessor` scales image pixels on the device. The
+normalizing and sampling preprocessors of the JAX package are not ported
+yet: constructing one raises NotImplementedError.
 
 Serde as in the JAX package (preprocessors.py:19-45): `to_dict` is the
 instance's fields and the class name under "type";
 `preprocessor_from_dict` inverts it."""
 from __future__ import annotations
+
+import torch
 
 from . import layers as L
 from .inputs import InputType
@@ -161,6 +164,32 @@ class RnnToFeedForwardPreProcessor(BasePreprocessor):
         return None if mask is None else mask.reshape(-1)
 
 
+@register_preprocessor
+class ImageScalerPreProcessor(BasePreprocessor):
+    """Image scaling on the device (JAX preprocessors.py:224-247): integer
+    pixels (uint8 on the wire) become float32, a float input keeps its
+    dtype (bf16 when the model already cast the pixels to its compute
+    dtype), then `x * (span / max_pixel) + min_range` in that dtype: the
+    two constants rounded to it first, as JAX rounds a weakly typed
+    Python scalar to the array's dtype."""
+
+    def __init__(self, min_range=0.0, max_range=1.0, max_pixel=255.0):
+        self.min_range = float(min_range)
+        self.max_range = float(max_range)
+        self.max_pixel = float(max_pixel)
+
+    def __call__(self, x, mask=None, rng=None):
+        if not x.is_floating_point():
+            x = x.to(torch.float32)
+        span = self.max_range - self.min_range
+        scale = torch.tensor(span / self.max_pixel, dtype=x.dtype).item()
+        shift = torch.tensor(self.min_range, dtype=x.dtype).item()
+        return x * scale + shift
+
+    def output_type(self, input_type):
+        return input_type
+
+
 def apply_preprocessor(pre, x, mask):
     """(x, mask) behind preprocessor `pre` (None: as they are)."""
     if pre is None:
@@ -184,12 +213,10 @@ ZeroMeanPrePreProcessor = _unported("ZeroMeanPrePreProcessor")
 ZeroMeanAndUnitVariancePreProcessor = _unported(
     "ZeroMeanAndUnitVariancePreProcessor")
 BinomialSamplingPreProcessor = _unported("BinomialSamplingPreProcessor")
-ImageScalerPreProcessor = _unported("ImageScalerPreProcessor")
 ComposableInputPreProcessor = _unported("ComposableInputPreProcessor")
 for _cls in (UnitVarianceProcessor, ZeroMeanPrePreProcessor,
              ZeroMeanAndUnitVariancePreProcessor,
-             BinomialSamplingPreProcessor, ImageScalerPreProcessor,
-             ComposableInputPreProcessor):
+             BinomialSamplingPreProcessor, ComposableInputPreProcessor):
     _REGISTRY[_cls.__name__] = _cls
 
 

@@ -221,22 +221,44 @@ class ComputationGraph(TrainableModel):
     def _tbptt_batch(self, batch):
         return bool(self._tbptt_length(batch[0]))
 
-    def _prep_batch(self, ds):
+    def _prep_batch(self, ds, wide=False):
         """(inputs, labels, masks, label masks) lists of tensors on the
-        model's device."""
+        model's device, in the model dtype; under an ingest (and not
+        `wide`: the solvers' batches) the first input and every label
+        head keep their wire dtypes (JAX graph.py:400-416), which the
+        step's `_apply_ingest` widens."""
         if isinstance(ds, DataSet):
             ds = MultiDataSet(
                 [ds.features], [ds.labels],
                 None if ds.features_mask is None else [ds.features_mask],
                 None if ds.labels_mask is None else [ds.labels_mask])
-        return (self._to_models(ds.features), self._to_models(ds.labels),
-                self._to_models(ds.features_masks),
+        raw = self._ingest is not None and not wide
+        inputs = [self._to_device(x) if raw and i == 0 else self._to_model(x)
+                  for i, x in enumerate(ds.features)]
+        labels = [self._to_device(y) if raw else self._to_model(y)
+                  for y in ds.labels]
+        return (inputs, labels, self._to_models(ds.features_masks),
                 self._to_models(ds.labels_masks))
+
+    def _apply_ingest(self, inputs, labels):
+        """The ingest's widening at the top of a training step (JAX
+        graph.py:286-298): the first input through `apply_features`, not
+        cast (the compute cast comes after, as for any input); the first
+        label through `apply_labels`; every label head to the model
+        dtype."""
+        ing = self._ingest
+        if ing is None:
+            return inputs, labels
+        inputs = [ing.apply_features(inputs[0])] + list(inputs[1:])
+        labels = [self._cast_label(ing.apply_labels(y) if i == 0 else y)
+                  for i, y in enumerate(labels)]
+        return inputs, labels
 
     def _train_step(self, inputs, labels, masks, lmasks):
         """One training step on prepared tensors: the loss and its
         gradients, the optimizer's update of the parameters and the new
         layer states, both in place; returns the score tensor."""
+        inputs, labels = self._apply_ingest(inputs, labels)
         score, grads, states = self._value_and_grad(
             inputs, labels, masks, lmasks, train=True)
         self._apply(grads, states)
@@ -246,6 +268,7 @@ class ComputationGraph(TrainableModel):
         """Truncated BPTT over the graph: one step a window of
         `tbptt_fwd_length` (the last may be shorter), carries detached
         between windows; returns the mean of the windows' scores."""
+        inputs, labels = self._apply_ingest(inputs, labels)
         T, L = self._tbptt_length(inputs), self.conf.tbptt_fwd_length
         carries = self._zero_carries(inputs[0].shape[0])
 

@@ -29,6 +29,16 @@ gradients reach the masters in float32 and the optimizer state stays
 float32. Output layers keep float32 parameters, and the features fed to
 their score are cast back to float32: the loss runs in full precision.
 
+Device-side ingest (`set_ingest(DeviceIngest(...))` or `fit(ingest=)`,
+etl/device_transform.py): batches keep their wire dtypes (uint8 pixels,
+integer class ids) from `_prep_batch` into the step, whose first ops are
+the ingest's `apply_features` / `apply_labels` (each model's
+`_apply_ingest`), so under a K-step plan the widening runs inside the
+captured graph. Training paths only: `output`, `score` and the flat
+solvers take preprocessed tensors. `fit(prefetch=N)` wraps the data in
+an etl.DevicePrefetcher of depth N on the model's device and closes it on
+the way out, also on error (JAX graph.py:338-395).
+
 Listeners (optimize/listeners) run on the host: `on_epoch_start` /
 `on_epoch_end` around each epoch of `fit`, `record_batch_size` and
 `iteration_done` after each `fit_batch` (JAX graph.py:466-469,
@@ -85,8 +95,11 @@ class TrainableModel(MultiStepTrainable):
         self._decode_engine = None
         self.listeners = []
         self._flat_solver = None
-        # captured K-step graphs (nn/multistep.py) are of one epoch
+        self._ingest = None
+        # captured K-step graphs (nn/multistep.py) are of one epoch; `fit`
+        # keeps one plan for each batch signature
         self._graph_epoch = 0
+        self._plans = {}
         self._graph_pool = None
         self._capture_stream = None
 
@@ -135,6 +148,7 @@ class TrainableModel(MultiStepTrainable):
                        if states is None else self._load(states,
                                                          "state_specs"))
         self._build_updater()
+        self._plans = {}
         self._decode_engine = None
         self._on_init()
         return self
@@ -174,6 +188,32 @@ class TrainableModel(MultiStepTrainable):
         """`_to_model` over a list (None entries and None kept)."""
         return None if arrs is None else \
             [None if a is None else self._to_model(a) for a in arrs]
+
+    def _to_device(self, x):
+        """A tensor on the model's device in its own dtype (a wire batch
+        under an ingest: uint8 pixels, integer ids)."""
+        return torch.as_tensor(x).to(self.device)
+
+    # --------------------------------------------------------- device ingest
+    def set_ingest(self, ingest):
+        """Fuse a device-side ingest (etl.device_transform.DeviceIngest, or
+        any object with `apply_features` / `apply_labels` on tensors) into
+        the training step: batches then ship narrow (uint8 pixels, integer
+        ids) and the widening runs as the step's first ops, inside a
+        K-step plan's captured graph. Training paths only; `output`,
+        `score` and the solvers keep consuming preprocessed tensors. A
+        new ingest drops every kept plan and makes captured graphs stale
+        (their steps widen otherwise); the same one keeps them."""
+        if ingest is not self._ingest:
+            self._ingest = ingest
+            self._plans = {}
+            self._graph_epoch += 1
+        return self
+
+    def _cast_label(self, y):
+        """A label head in the model dtype (the cast `_prep_batch` makes
+        without an ingest)."""
+        return y if y.dtype == self._dtype else y.to(self._dtype)
 
     # ------------------------------------------------------- mixed precision
     def _compute_dtype(self):
@@ -276,10 +316,11 @@ class TrainableModel(MultiStepTrainable):
         BPTT), or one flat-solver step; then the listeners."""
         if self.params is None:
             self.init()
-        batch = self._prep_batch(ds)
         if self.conf.optimization_algo != "sgd":
+            batch = self._prep_batch(ds, wide=True)
             self._solver().optimize(*batch)
         else:
+            batch = self._prep_batch(ds)
             step = self._tbptt_step if self._tbptt_batch(batch) else \
                 self._train_step
             self._score = step(*batch)
@@ -330,32 +371,44 @@ class TrainableModel(MultiStepTrainable):
         each epoch. Anything else raises TypeError, as `as_iterator` does:
         a one-shot iterable would train its first epoch only.
         `steps_per_execution=K` runs full groups of K minibatches as one
-        `prepare_steps` / `fit_prepared` plan each (nn/multistep.py), a
-        ragged tail and a group that cannot run as one batch by batch."""
+        K-step plan each (nn/multistep.py `_fit_grouped`), a ragged tail
+        and a group that cannot run as one batch by batch.
+        `prefetch=N` stages the batches on the model's device N deep from
+        a worker thread (etl.DevicePrefetcher), closed when `fit` returns
+        or raises; `ingest=` is `set_ingest(ingest)` first."""
         K = max(1, int(steps_per_execution))
-        if prefetch:
-            raise NotImplementedError(
-                "prefetch is not ported yet (ROADMAP queue 1: persistence, "
-                "data)")
         if ingest is not None:
-            raise NotImplementedError(
-                "device-side ingest is not ported yet (ROADMAP queue 1: "
-                "persistence, data)")
+            self.set_ingest(ingest)
         if labels is not None:
             data = self._dataset(data, labels)
         items = self._iterator(data)
-        for _ in range(int(epochs)):
-            for listener in self.listeners:
-                listener.on_epoch_start(self)
-            items.reset()
-            if K > 1:
-                self._fit_grouped(items, K)
-            else:
-                for ds in items:
-                    self.fit_batch(ds)
-            for listener in self.listeners:
-                listener.on_epoch_end(self)
-            self.epoch_count += 1
+        wrapped = None
+        if prefetch:
+            from ..etl.prefetch import DevicePrefetcher
+            items = wrapped = DevicePrefetcher(
+                items, queue_size=int(prefetch), device=self.device)
+        try:
+            for _ in range(int(epochs)):
+                for listener in self.listeners:
+                    listener.on_epoch_start(self)
+                items.reset()
+                if K > 1:
+                    self._fit_grouped(items, K)
+                else:
+                    for ds in items:
+                        self.fit_batch(ds)
+                for listener in self.listeners:
+                    listener.on_epoch_end(self)
+                self.epoch_count += 1
+        except BaseException:
+            if wrapped is not None:
+                try:
+                    wrapped.close()
+                except Exception:
+                    pass        # the training error is the one to raise
+            raise
+        if wrapped is not None:
+            wrapped.close()     # stop the fit-owned prefetch thread
         return self
 
     # ------------------------------------------------------------- evaluate

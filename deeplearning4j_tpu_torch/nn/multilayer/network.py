@@ -140,12 +140,32 @@ class MultiLayerNetwork(TrainableModel):
         return self._grads_of(loss, carries)
 
     # ---------------------------------------------------------------- train
-    def _prep_batch(self, ds):
+    def _prep_batch(self, ds, wide=False):
         """(x, y, mask, label mask) tensors on the model's device (None
-        for an absent mask)."""
+        for an absent mask) in the model dtype; under an ingest (and not
+        `wide`: `score`'s and the solvers' batches) x and y keep their
+        wire dtypes (JAX network.py:389-403), which the step's
+        `_apply_ingest` widens."""
         to = lambda a: None if a is None else self._to_model(a)
-        return (to(ds.features), to(ds.labels), to(ds.features_mask),
+        raw = self._to_device if self._ingest is not None and not wide \
+            else to
+        return (raw(ds.features), raw(ds.labels), to(ds.features_mask),
                 to(ds.labels_mask))
+
+    def _apply_ingest(self, x, y):
+        """The ingest's widening at the top of a training step (JAX
+        network.py:274-289): features through `apply_features`, then to
+        the model dtype unless they are signed integers (embedding ids);
+        labels through `apply_labels`, then to the model dtype."""
+        ing = self._ingest
+        if ing is None:
+            return x, y
+        x = ing.apply_features(x)
+        signed_int = not (x.is_floating_point() or x.is_complex()) \
+            and x.is_signed()
+        if not signed_int and x.dtype != self._dtype:
+            x = x.to(self._dtype)
+        return x, self._cast_label(ing.apply_labels(y))
 
     def _tbptt(self, x):
         """Whether a batch of features `x` trains in windows."""
@@ -168,6 +188,7 @@ class MultiLayerNetwork(TrainableModel):
         """One training step on prepared tensors: the loss and its
         gradients, the optimizer's update of the parameters and the new
         layer states, both in place; returns the score tensor."""
+        x, y = self._apply_ingest(x, y)
         score, grads, states = self._value_and_grad(x, y, mask, lmask,
                                                     train=True)
         self._apply(grads, states)
@@ -178,6 +199,7 @@ class MultiLayerNetwork(TrainableModel):
         `tbptt_fwd_length` steps (the last may be shorter), from zero
         carries, each window's final carries detached into the next;
         returns the mean of the windows' scores."""
+        x, y = self._apply_ingest(x, y)
         T, L = x.shape[1], self.conf.tbptt_fwd_length
         carries = self._zero_carries(x.shape[0])
         cut = lambda a, s: None if a is None else a[:, s:s + L]
@@ -227,7 +249,7 @@ class MultiLayerNetwork(TrainableModel):
         """The mean loss (with l1/l2) on a DataSet, its masks applied, or
         on features and `labels`, as a float; no dropout."""
         ds = ds_or_x if labels is None else DataSet(ds_or_x, labels)
-        x, y, mask, lmask = self._prep_batch(ds)
+        x, y, mask, lmask = self._prep_batch(ds, wide=True)
         with torch.no_grad():
             s, _ = self._loss(self.params, self.states, x, y, train=train,
                               mask=mask, label_mask=lmask)

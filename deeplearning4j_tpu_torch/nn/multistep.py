@@ -18,7 +18,7 @@ scores of the K steps come back as `last_scores`.
   `_multi_step_mode` returning None: a ComputationGraph's truncated-BPTT
   batches, a MultiLayerNetwork's whose sequence the window does not
   tile, a flat solver's model, a listener that wants gradients). A plan
-  is reusable; its batch is never written.
+  is reusable; `fit_prepared` never writes its batch.
 - Truncated BPTT (a MultiLayerNetwork's sequence of T = W·L steps under
   windows of L): each of the K batches takes W optimizer steps, one a
   window, from zero carries at its first window (JAX
@@ -30,20 +30,37 @@ scores of the K steps come back as `last_scores`.
   stream its capture uses: that call is the warm-up (the optimizer state,
   the kernels' builds, cuBLAS's and cuDNN's workspaces). Its second call
   captures the K (K·W) steps into one `torch.cuda.CUDAGraph` held by the
-  plan and replays it; every later call is one replay. (A plan used once, as
-  `fit(steps_per_execution=K)` makes one per group, is never captured.)
-  A failed capture or replay raises; no call runs the eager steps in
-  its place. The graphs of a model share one memory pool. `init` and a
-  rebuilt updater make every captured graph stale: a stale plan warms up
-  and captures again.
-- `_fit_grouped(it, K)`: full groups go through a plan; a ragged tail and
-  a group that cannot run as one run `fit_batch` batch by batch.
+  plan and replays it; every later call is one replay. A failed capture
+  or replay raises; no call runs the eager steps in its place. A model
+  whose learning rate or momentum follows a schedule never captures (a
+  graph would bake in the rate of its capture): every call runs its steps
+  eagerly, as the warm-up does, reading the rate from the step count as
+  `fit_batch` does (the JAX package's scan reads it so too). The graphs
+  of a model share one memory pool. `init`, a rebuilt updater and
+  `set_ingest` make every captured graph stale: a stale plan warms up and
+  captures again.
+- `_fit_grouped(it, K)` (what `fit(steps_per_execution=K)` runs): full
+  groups go through the model's ONE plan for their signature (each
+  leaf's shape, dtype and None pattern, and the windows), as the JAX
+  package compiles the K steps once and reuses the executable. The first
+  group of a signature stacks a new plan; every later one is copied into
+  the plan's stacked tensors with `copy_` on the current stream (the
+  stream a replay runs on, after a prefetched batch's event), so on the
+  card the first group warms up, the second captures and every later
+  group replays, across `fit` calls and epochs. The stacks keep the wire
+  dtypes under an ingest (a uint8 K=4 ResNet-50 stack is 154 MB, a
+  float32 one would be 617 MB), so the cast and the one-hot run inside
+  the graph. The model keeps the plans of its MAX_PLANS most recently
+  used signatures (variable shapes, such as length buckets, would
+  otherwise keep every signature's stacks and graph on the card). A
+  ragged tail and a group that cannot run as one run `fit_batch` batch by
+  batch.
 
 What a captured step needs (`ComputationGraph` and `MultiLayerNetwork`
 provide it): the parameters, the layer states and the optimizer state
 updated in place (so the next replay reads what the last one wrote); no
-read of a device value on the host inside a step; a learning rate fixed
-for the capture (`PerLayerOptimizer.check_capturable`); the model's
+read of a device value on the host inside a step; a fixed learning rate
+and momentum (`PerLayerOptimizer.fixed`; else no capture, above); the model's
 dropout generators registered with the graph. A replay adds its graph's
 recorded kernel launches to `launch_counts()`
 (`kernels.add_graph_counts`) and its K·W optimizer steps to the
@@ -58,6 +75,8 @@ from __future__ import annotations
 import torch
 
 from ..kernels import add_graph_counts, graph_counts
+
+MAX_PLANS = 4       # `_fit_grouped`'s plans a model keeps, by recent use
 
 
 class StepPlan:
@@ -107,6 +126,33 @@ def _stack_leaf(leaf):
     return torch.stack(leaf)
 
 
+def _signature(prepped):
+    """The group's leaf signature (each part a tensor, None or a list of
+    them: shapes, dtypes, None pattern), or None where its batches
+    differ."""
+    def leaf(t):
+        return None if t is None else (tuple(t.shape), t.dtype)
+
+    def part(p):
+        return tuple(leaf(t) for t in p) if isinstance(p, list) \
+            else ("one", leaf(p))
+    sigs = {tuple(part(p) for p in batch) for batch in prepped}
+    return sigs.pop() if len(sigs) == 1 else None
+
+
+def _refill(stacked, prepped):
+    """Copy the prepared batches into a plan's `[K, ...]` stacks."""
+    with torch.no_grad():
+        for j, st in enumerate(stacked):
+            for i, batch in enumerate(prepped):
+                if isinstance(st, list):
+                    for s, t in zip(st, batch[j]):
+                        if s is not None:
+                            s[i].copy_(t)
+                elif st is not None:
+                    st[i].copy_(batch[j])
+
+
 def _stack(prepped):
     """The prepared batches with one `[K, ...]` tensor per leaf (a part
     is a tensor, None or a list of them), or None where the group's
@@ -138,10 +184,13 @@ class MultiStepTrainable:
     `_tbptt_step` where `_windows` can exceed 1 (a batch's W windows;
     returns their mean score), `fit_batch`, `_optimizer`, `_dropout` and
     `device`, and keeps `_graph_epoch` (raised where captured graphs go
-    stale) and `_graph_pool` / `_capture_stream` (None until the first
-    capture)."""
+    stale), `_plans` ({signature: plan} of `_fit_grouped`, the MAX_PLANS most
+    recently used, emptied by `init` and `set_ingest`) and `_graph_pool` / `_capture_stream` (None
+    until the first capture)."""
 
-    def prepare_steps(self, group):
+    def _prepped(self, group):
+        """(the group's prepared batches, the windows of each), or None
+        where the group runs batch by batch."""
         if self.params is None:
             self.init()
         if self.conf.optimization_algo != "sgd":
@@ -151,10 +200,15 @@ class MultiStepTrainable:
         windows = self._windows(first)
         if windows is None:
             return None
-        stacked = _stack([first] + [self._prep_batch(ds)
-                                    for ds in group[1:]])
+        return [first] + [self._prep_batch(ds) for ds in group[1:]], windows
+
+    def prepare_steps(self, group):
+        staged = self._prepped(group)
+        if staged is None:
+            return None
+        stacked = _stack(staged[0])
         return None if stacked is None else StepPlan(
-            self, stacked, len(group), windows)
+            self, stacked, len(group), staged[1])
 
     def fit_prepared(self, plan):
         """Run a plan's K steps: `last_scores` becomes their [K] scores
@@ -185,7 +239,9 @@ class MultiStepTrainable:
         if self._capture_stream is None:
             self._capture_stream = torch.cuda.Stream(self.device)
         stream = self._capture_stream
-        if not plan.warm:
+        if not plan.warm or not self._optimizer.fixed:
+            # the warm-up, and every call under a scheduled rate or
+            # momentum (a graph would replay the rate of its capture)
             stream.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(stream):
                 scores = self._run_steps(plan)
@@ -203,8 +259,10 @@ class MultiStepTrainable:
     def _capture(self, plan, stream):
         """Capture the plan's K steps into one CUDA graph (nothing runs:
         the optimizer's count and the kernel counts the capture made are
-        taken back)."""
-        self._optimizer.check_capturable()
+        taken back). The capture is thread-local: a DevicePrefetcher's
+        worker (etl/prefetch.py) keeps pinning, copying on its side
+        streams and waiting on its events meanwhile, which a global
+        capture would take for an illegal call and abort."""
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
@@ -214,7 +272,8 @@ class MultiStepTrainable:
         count, before = self._optimizer.count, graph_counts()
         try:
             with torch.cuda.graph(graph, pool=self._graph_pool,
-                                  stream=stream):
+                                  stream=stream,
+                                  capture_error_mode="thread_local"):
                 scores = self._run_steps(plan)
         finally:
             self._optimizer.count = count
@@ -222,14 +281,35 @@ class MultiStepTrainable:
             add_graph_counts(launches, -1)
         plan.graph, plan.scores, plan.launches = graph, scores, launches
 
+    def _group_plan(self, group):
+        """The model's plan for the group's signature with the group
+        copied into its stacks (a new plan for a new signature, dropping
+        the least recently used beyond MAX_PLANS), or None where the group
+        cannot run as one (as `prepare_steps`)."""
+        staged = self._prepped(group)
+        sig = None if staged is None else _signature(staged[0])
+        if sig is None:
+            return None
+        prepped, windows = staged
+        key = (sig, len(group), windows)
+        plan = self._plans.pop(key, None)
+        if plan is not None:
+            _refill(plan.batch, prepped)
+        else:
+            plan = StepPlan(self, _stack(prepped), len(group), windows)
+            while len(self._plans) >= MAX_PLANS:
+                del self._plans[next(iter(self._plans))]
+        self._plans[key] = plan     # the most recently used goes last
+        return plan
+
     def _fit_grouped(self, it, K):
-        """One epoch: full groups of K through `prepare_steps` /
-        `fit_prepared`; a ragged tail and a group that cannot run as one
-        batch by batch through `fit_batch`."""
+        """One epoch: full groups of K through the signature's plan
+        (`_group_plan`) and `fit_prepared`; a ragged tail and a group that
+        cannot run as one batch by batch through `fit_batch`."""
         group = []
 
         def flush(group):
-            plan = self.prepare_steps(group) if len(group) == K else None
+            plan = self._group_plan(group) if len(group) == K else None
             if plan is not None:
                 self.fit_prepared(plan)
             else:

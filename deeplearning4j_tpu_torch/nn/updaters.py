@@ -144,23 +144,17 @@ class PerLayerOptimizer:
 
     def __init__(self, updaters: dict, params: dict):
         self._layers = {}
-        self._fixed = True
+        # every layer's rate and momentum fixed: only then can a CUDA
+        # graph capture a step (it keeps the rate it was captured with)
+        self.fixed = True
         for name, ps in params.items():
             if ps:
                 upd = updaters[name]
                 self._layers[name] = (upd.schedule(), dict(ps),
                                       upd.optimizer(list(ps.values())))
-                self._fixed &= upd.lr_policy in (None, "none", "fixed") \
+                self.fixed &= upd.lr_policy in (None, "none", "fixed") \
                     and not getattr(upd, "momentum_schedule", None)
         self.count = 0
-
-    def check_capturable(self):
-        """Raise unless every layer's learning rate is fixed: a captured
-        step keeps the rate it was captured with."""
-        if not self._fixed:
-            raise NotImplementedError(
-                "a CUDA graph bakes the learning rate in: only the fixed "
-                "policy can be captured")
 
     def step(self, grads: dict):
         for name, g in grads.items():

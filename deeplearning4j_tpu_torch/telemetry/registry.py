@@ -1,7 +1,6 @@
 """Central metrics registry: thread-safe counters, gauges and bounded
 histograms with exact percentiles (the port's copy of
-deeplearning4j_tpu/telemetry/registry.py; the span hooks wait for the
-tracer, ROADMAP queue 1 item 12).
+deeplearning4j_tpu/telemetry/registry.py; spans are telemetry/trace.py's).
 
 Instruments take labels Prometheus-style: `c.inc(2, bucket="8")` keeps one
 value per label-set. A histogram keeps, per label-set, fixed-bucket counts
@@ -271,3 +270,12 @@ class MetricsRegistry:
     def to_prometheus(self):
         from .prometheus import render
         return render(self)
+
+
+_default_registry = MetricsRegistry()
+
+
+def get_registry() -> MetricsRegistry:
+    """Process-default registry (the ETL layer's counters, gauges and
+    histograms meet here unless given an explicit one)."""
+    return _default_registry

@@ -170,8 +170,17 @@ def test_as_iterator_matches_jax(kind):
 def test_as_iterator_refuses_one_shot_iterables_and_prefetch_raises():
     with pytest.raises(TypeError, match="DataSetIterator"):
         tbase.as_iterator(iter([DataSet(*_data()[:2])]))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    # DevicePrefetchIterator is etl's DevicePrefetcher: on the card by
+    # default (here, without one, that raises), on the host when asked
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tbase.DevicePrefetchIterator(tbase.ListDataSetIterator([]))
+    x, y = _data()[:2]
+    pf = tbase.DevicePrefetchIterator(
+        tbase.ListDataSetIterator([DataSet(x, y)]), device="cpu")
+    got = list(pf)
+    pf.close()
+    assert len(got) == 1
+    np.testing.assert_array_equal(got[0].features.numpy(), x)
 
 
 def test_fit_goes_through_as_iterator():

@@ -286,3 +286,44 @@ def test_zoo_mln_needs_the_card_unless_asked_for_the_cpu(name, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         getattr(zoo, name)(**ZOO[name])
     assert getattr(zoo, name)(**ZOO[name], device="cpu").device.type == "cpu"
+
+
+def test_bidirectional_lstm_l1_l2_score_is_loss_plus_hand_sum():
+    """L1 / L2 on a GravesBidirectionalLSTM (ROADMAP queue 3, pinned): the
+    port keys its parameters flat ("fwd/W", "bwd/b", ...), so every one is
+    regularized as a weight or a bias by its last part and `fit` trains.
+    The JAX package raises TypeError here (its `_reg_score` applies
+    `jnp.abs` and `** 2` to the nested "fwd" / "bwd" dicts): a crash, not
+    a contract, so the bar is the data loss plus a hand sum."""
+    reg = dict(l1=1e-3, l2=2e-3, l1_bias=3e-3, l2_bias=4e-3)
+
+    def net(**kw):
+        conf = (NeuralNetConfiguration.builder().seed(3).list()
+                .layer(TL.GravesBidirectionalLSTM(n_out=6, activation="tanh",
+                                                  **kw))
+                .layer(TL.RnnOutputLayer(n_out=7, activation="softmax"))
+                .input_type(InputType.recurrent(7)).build())
+        return MultiLayerNetwork(conf, device="cpu")
+    regd, plain = net(**reg), net()
+    flat = synthetic_params(regd.param_shapes(), seed=4)
+    for n in (regd, plain):
+        n.init(params=params_from_jax(flat, device="cpu"))
+    rng = np.random.default_rng(5)
+    eye = np.eye(7, dtype=np.float32)
+    ds = DataSet(eye[rng.integers(0, 7, (4, 5))],
+                 eye[rng.integers(0, 7, (4, 5))])
+    hand = 0.0
+    for key in ("fwd/W", "fwd/RW", "fwd/P", "bwd/W", "bwd/RW", "bwd/P"):
+        w = np.asarray(flat[f"0/{key}"], np.float64)
+        hand += reg["l1"] * np.abs(w).sum() + 0.5 * reg["l2"] * (w * w).sum()
+    for key in ("fwd/b", "bwd/b"):
+        b = np.asarray(flat[f"0/{key}"], np.float64)
+        hand += reg["l1_bias"] * np.abs(b).sum() \
+            + 0.5 * reg["l2_bias"] * (b * b).sum()
+    assert hand > 0
+    np.testing.assert_allclose(regd.score(ds), plain.score(ds) + hand,
+                               rtol=1e-6)
+    before = {k: t.clone() for k, t in regd.params["0"].items()}
+    regd.fit(ds)
+    assert np.isfinite(regd.score_value) and all(
+        not torch.equal(before[k], regd.params["0"][k]) for k in before)

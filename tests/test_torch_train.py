@@ -259,14 +259,16 @@ def test_unported_training_options_raise():
     slice (tests/test_torch_multistep.py, test_torch_remat.py,
     test_torch_dropout.py), truncated BPTT since the LSTM slice
     (tests/test_torch_tbptt.py), the flat solvers since the training
-    workflow slice (tests/test_torch_solvers.py); prefetch, ingest and
-    float16 compute are still to port."""
+    workflow slice (tests/test_torch_solvers.py), prefetch and ingest
+    since the ingest slice (tests/test_torch_prefetch.py,
+    tests/test_torch_device_ingest.py); float16 compute is still to
+    port."""
     _, tnet = _pair(use_pallas=False)
     x, y, _ = _batch()
-    for kw, match in (({"prefetch": 2}, "prefetch"),
-                      ({"ingest": object()}, "ingest")):
-        with pytest.raises(NotImplementedError, match=match):
-            tnet.fit(x, y, **kw)
+    # an ingest without apply_features fails in the step, before an update
+    with pytest.raises(AttributeError, match="apply_features"):
+        tnet.fit(x, y, prefetch=2, ingest=object())
+    tnet.set_ingest(None)
     with pytest.raises(NotImplementedError, match="float16.*bfloat16"):
         transformer_lm(vocab_size=V, d_model=32, n_layers=1, n_heads=2,
                        compute_dtype="float16", device="cpu")
