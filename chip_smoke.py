@@ -572,13 +572,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    score within INGEST_FIXTURE_RTOL = 1e-4 of JAX's, the held-out argmax
    JAX's wherever its top-2 gap is >= 1e-3 (no accuracy bar: the
    reference's own smoke misses its 0.9 at this size).
-15. Every main path (serving, serving_paged, serving_d32,
+15. The embedding stack (`phase_embeddings(smi)`). (a) path
+   word2vec_bench: bench_word2vec's step (bench.py:595-639) at full width,
+   eager torch: syn0 ~ N(0, 0.1) and syn1 zeros over vocab 10000 x dim
+   128, a unigram table of 1<<20 random ids, 65536 pairs, 5 negatives
+   drawn on the card each step, lr 0.025, from default_rng(0); K = 20
+   steps timed with CUDA events (pairs/s), the launches of a step
+   counted in a CUDA graph capture, the device's busy time from the
+   profiler (host share = 1 - busy / step); then 2 steps with the same
+   numpy-drawn negatives on the card and on the host, within
+   W2V_CARD_HOST_ATOL = 1e-6. (b) path embedding_fits: Word2Vec with
+   hierarchical softmax (tests/test_nlp.py's CORPUS and the config of
+   test_word2vec_semantic_clusters_hs), from JAX's initial syn0 in
+   tests/fixtures/torch_port_embeddings.json, final syn0 within
+   EMBED_FIXTURE_ATOL = 1e-6 of JAX's; path word2vec_ns: an NS fit at
+   Word2Vec's defaults (layer_size 100, batch_size 2048) with the port's
+   own draws, king.queen > king.banana. (c) in path embedding_fits: GloVe
+   (test_glove's config; final syn0 within GLOVE_FIXTURE_ATOL = 1e-5 and
+   loss_history within EMBED_LOSS_RTOL = 1e-5 of JAX's float64 run) and
+   DeepWalk (test_deepwalk_two_cluster_embedding's graph; vectors within
+   EMBED_FIXTURE_ATOL). No path launches a hand kernel: no Pallas kernel
+   is on it.
+16. Every main path (serving, serving_paged, serving_d32,
    serving_d32_paged, training, training_bf16, ring, ring_f32, resnet50,
    multistep, multistep_bf16, multistep_resnet50, lenet, char_rnn,
    multistep_lenet, multistep_char_rnn, decode_char_rnn, speculative,
    predict, early_stopping, evaluate, ingest_resnet50,
    ingest_resnet50_wide, ingest_lm, ingest_lm_wide, ingest_smoke,
-   the D=320 model's training_wide, training_wide_bf16, decode_wide,
+   word2vec_bench, embedding_fits, word2vec_ns, the D=320 model's training_wide, training_wide_bf16, decode_wide,
    decode_wide_paged, the D=256 model's training_d256 and decode_d256,
    the D=128 model's training_d128 and decode_d128, and
    bench_decode_paged's model's training_d32_bf16 and training_d32) must
@@ -600,6 +621,7 @@ or when the package is not beside it.
 """
 from __future__ import annotations
 
+import base64
 import contextlib
 import json
 import subprocess
@@ -6685,6 +6707,311 @@ def phase_ingest(smi):
     return launches
 
 
+# ----------------------------------------------------------------- phase 15
+EMBED_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_embeddings.json"
+# tests/test_nlp.py's CORPUS and the stop words of its HS test (the fixture
+# test holds them equal)
+EMBED_CORPUS = [
+    "the king rules the castle with the queen",
+    "the queen and the king sit on the throne",
+    "the royal king wears a crown and the queen a tiara",
+    "the prince will be king and the princess queen",
+    "apple and banana are sweet fruit",
+    "a ripe banana and a red apple are tasty fruit",
+    "fruit like apple and banana grow on trees",
+    "the orchard grows apple banana and other fruit",
+] * 12
+EMBED_STOP = ["the", "and", "a", "are", "on", "with", "will", "be", "other",
+              "like", "grow", "grows", "sit"]
+# the fits of tests/test_nlp.py (test_word2vec_semantic_clusters_hs,
+# test_glove) and tests/test_graphlib.py
+# (test_deepwalk_two_cluster_embedding), as keywords both packages take
+W2V_HS = dict(layer_size=32, window=4, epochs=15, seed=42,
+              min_word_frequency=2, learning_rate=0.05, stop_words=EMBED_STOP,
+              use_hs=True, negative=0)
+GLOVE = dict(layer_size=24, window=4, epochs=25, learning_rate=0.1,
+             min_word_frequency=2, seed=5)
+DEEPWALK = dict(vector_size=16, window_size=3, learning_rate=0.1, seed=42)
+DEEPWALK_FIT = dict(walk_length=8, epochs=50)
+DEEPWALK_CLUSTER = 6        # two K_6 joined by one edge
+# the NS fit at Word2Vec's defaults (layer_size 100, batch_size 2048,
+# window 5, 5 negatives): on this corpus king.queen > king.banana (dot
+# products) takes ~20 epochs; at 40 it held for every seed tried on the CPU
+W2V_NS_EPOCHS = 40
+W2V_NS_SEED = 42
+# bench.py:595-639, bench_word2vec
+W2V_BENCH = dict(n_pairs=65536, dim=128, vocab=10000, n_neg=5, lr=0.025,
+                 steps=20)
+# tolerances, set from this phase's readings on an H100 80GB HBM3 at 700 W:
+# 2 bench steps card vs host 6.0e-8 (index_add_'s atomics sum duplicate rows
+# in any order); HS Word2Vec 1.1e-8 and DeepWalk 1.0e-7 off JAX's float32
+# tables; GloVe, float32 here against JAX's float64 under the tests' x64,
+# 1.2e-6 on syn0 and 6.9e-7 on loss_history
+W2V_CARD_HOST_ATOL = 1e-6
+EMBED_FIXTURE_ATOL = 1e-6   # HS Word2Vec's syn0, DeepWalk's vectors
+GLOVE_FIXTURE_ATOL = 1e-5   # GloVe's syn0
+EMBED_LOSS_RTOL = 1e-5      # GloVe's loss_history
+
+
+def fixture_array(rec):
+    """The numpy array of a fixture record {"dtype", "shape", "b64"}
+    (little-endian bytes, base64)."""
+    dt = np.dtype(rec["dtype"]).newbyteorder("<")
+    return np.frombuffer(base64.b64decode(rec["b64"]), dt).reshape(
+        rec["shape"]).astype(dt.newbyteorder("="))
+
+
+def fixture_record(a):
+    """fixture_array's inverse."""
+    a = np.asarray(a)
+    le = a.astype(a.dtype.newbyteorder("<"))
+    return {"dtype": a.dtype.name, "shape": list(a.shape),
+            "b64": base64.b64encode(le.tobytes()).decode()}
+
+
+def two_clusters(graphlib, k=DEEPWALK_CLUSTER):
+    """tests/test_graphlib.py's _two_cluster_graph in `graphlib`'s Graph."""
+    g = graphlib.Graph(2 * k)
+    for base in (0, k):
+        for i in range(k):
+            for j in range(i + 1, k):
+                g.add_edge(base + i, base + j)
+    g.add_edge(0, k)
+    return g
+
+
+def embedding_fits(fixture, device=None):
+    """(c) and the HS fit of (b): Word2Vec (HS), GloVe and DeepWalk fitted
+    by the port on `device` from the fixture's initial tables."""
+    from deeplearning4j_tpu_torch import graphlib
+    from deeplearning4j_tpu_torch.nlp import Glove, Word2Vec
+    from deeplearning4j_tpu_torch.util.params import embeddings_from_jax
+
+    def tables(fit):
+        return embeddings_from_jax(
+            {k[:-5]: fixture_array(v) for k, v in fixture[fit].items()
+             if k.endswith("_init")}, device)
+    out = {}
+    t0 = time.perf_counter()
+    w2v = Word2Vec(device=device, initial_tables=tables("w2v_hs"), **W2V_HS)
+    w2v.fit(EMBED_CORPUS)
+    out["w2v_hs"] = {"words": [w.word for w in w2v.vocab.vocab_words()],
+                     "syn0": w2v.lookup_table.get_weights(),
+                     "device": w2v.lookup_table.syn0.device.type}
+    glove = Glove(device=device, initial_tables=tables("glove"), **GLOVE)
+    glove.fit(EMBED_CORPUS)
+    out["glove"] = {"words": [w.word for w in glove.vocab.vocab_words()],
+                    "syn0": glove.lookup_table.get_weights(),
+                    "loss_history": list(glove.loss_history),
+                    "device": glove.lookup_table.syn0.device.type}
+    dw = graphlib.DeepWalk(device=device, initial_tables=tables("deepwalk"),
+                           **DEEPWALK).initialize(two_clusters(graphlib))
+    dw.fit(**DEEPWALK_FIT)
+    out["deepwalk"] = {"vectors": dw.vectors, "device": dw.syn0.device.type}
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def embedding_fixture_check(run, fixture):
+    """Gaps of `run` (embedding_fits) to the fixture: max abs of each
+    fit's final table, max relative of GloVe's loss_history, and the
+    count of vocab words out of JAX's order."""
+    gaps = {}
+    for fit, key in (("w2v_hs", "syn0"), ("glove", "syn0"),
+                     ("deepwalk", "vectors")):
+        want = fixture_array(fixture[fit][key])
+        got = np.asarray(run[fit][key])
+        gaps[f"{fit} {key}"] = (float(np.abs(got - want).max())
+                                if got.shape == want.shape else float("inf"))
+    want = np.asarray(fixture["glove"]["loss_history"])
+    got = np.asarray(run["glove"]["loss_history"])
+    gaps["glove loss"] = (float(np.abs(got / want - 1).max())
+                          if got.shape == want.shape else float("inf"))
+    gaps["vocab"] = sum(
+        run[fit]["words"] != fixture[fit]["words"] for fit in
+        ("w2v_hs", "glove"))
+    return gaps
+
+
+def w2v_bench_inputs():
+    """bench.py:606-613's inputs from default_rng(0), in numpy: syn0 ~
+    N(0, 0.1), a unigram table of 1<<20 random ids, centers, contexts."""
+    b = W2V_BENCH
+    rng = np.random.default_rng(0)
+    syn0 = rng.normal(0, 0.1, (b["vocab"], b["dim"])).astype(np.float32)
+    unigram = rng.integers(0, b["vocab"], 1 << 20, dtype=np.int32)
+    centers = rng.integers(0, b["vocab"], b["n_pairs"], dtype=np.int32)
+    contexts = rng.integers(0, b["vocab"], b["n_pairs"], dtype=np.int32)
+    return syn0, unigram, centers, contexts
+
+
+def _w2v_bench(smi):
+    """(a): bench_word2vec's step, eager torch on the card: K steps timed
+    with CUDA events, the launches of one step counted in a CUDA graph
+    capture, the device's busy time from the profiler; then 2 steps with
+    the same numpy-drawn negatives on the card and on the host."""
+    import torch
+    from deeplearning4j_tpu_torch.device import host
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    from deeplearning4j_tpu_torch.nlp.embeddings import (CHUNK,
+                                                         skipgram_ns_step)
+    b = W2V_BENCH
+    B, K, lr = b["n_pairs"], b["steps"], b["lr"]
+    syn0_np, unigram_np, c_np, o_np = w2v_bench_inputs()
+    dev = torch.device(DEVICE)
+
+    def inputs(device):
+        return (torch.tensor(syn0_np, device=device),
+                torch.zeros((b["vocab"], b["dim"]), device=device),
+                torch.as_tensor(c_np, device=device),
+                torch.as_tensor(o_np, device=device),
+                torch.ones((B,), device=device))
+    s0, s1, c, o, valid = inputs(dev)
+    unigram = torch.as_tensor(unigram_np, dtype=torch.int64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def draw():
+        return unigram[torch.randint(0, unigram.shape[0], (B, b["n_neg"]),
+                                     generator=gen, device=dev)]
+
+    def step():
+        skipgram_ns_step(s0, s1, c, o, valid, lr, draw())
+    reset_launch_counts()
+    step()                                      # warm
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(K):
+        step()
+    enqueue_s = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / K
+    launches = counts()
+    _no_launches("word2vec_bench", launches)
+    s0_host = host(s0)
+    check(np.isfinite(s0_host).all() and np.isfinite(host(s1)).all()
+          and np.abs(s0_host - syn0_np).max() > 0,
+          "word2vec bench: tables not finite or not moved")
+    negs = draw()
+    fixed = lambda: skipgram_ns_step(s0, s1, c, o, valid, lr, negs)
+    step_kernels, step_nodes = _kernels_per_call(fixed)
+    draw_kernels, _ = _kernels_per_call(
+        lambda: unigram[torch.randint(0, unigram.shape[0], (B, b["n_neg"]),
+                                      device=dev)])
+    busy_ms = device_ms(step, reps=3)
+
+    # card vs host: 2 steps with the same numpy-drawn negatives
+    rng = np.random.default_rng(1)
+    negs_np = [unigram_np[rng.integers(0, 1 << 20, (B, b["n_neg"]))]
+               for _ in range(2)]
+    tables = []                                 # the card's, the host's
+    for where in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        ts0, ts1, tc, to, tv = inputs(where)
+        for n in negs_np:
+            skipgram_ns_step(ts0, ts1, tc, to, tv, lr,
+                             torch.as_tensor(n, device=where))
+        tables.append((host(ts0), host(ts1)))
+    host_s = (time.perf_counter() - t0) / 2
+    err = max(float(np.abs(a - h).max()) for a, h in zip(*tables))
+    check(err <= W2V_CARD_HOST_ATOL,
+          f"word2vec bench: 2 steps on the card and on the host differ by "
+          f"{err:.3g} (atol {W2V_CARD_HOST_ATOL})")
+    return ({"pairs_per_s": B / (step_ms * 1e-3), "step_ms": step_ms,
+             "host_enqueue_ms": enqueue_s / K * 1e3,
+             "device_busy_ms": busy_ms,
+             "host_share": None if busy_ms is None else 1 - busy_ms / step_ms,
+             "chunks_per_step": B // CHUNK,
+             "launches_per_step": step_kernels + draw_kernels,
+             "step_kernels": step_kernels, "step_graph_nodes": step_nodes,
+             "draw_kernels": draw_kernels,
+             "card_vs_host_max_abs": err, "host_step_s": host_s,
+             "card": smi},
+            {"word2vec_bench": launches})
+
+
+def _w2v_ns():
+    """(b), second part: an NS fit at Word2Vec's defaults on the card with
+    its own draws; king.queen must beat king.banana."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+    reset_launch_counts()
+    w2v = Word2Vec(epochs=W2V_NS_EPOCHS, seed=W2V_NS_SEED).fit(EMBED_CORPUS)
+    torch.cuda.synchronize()
+    launches = counts()
+    _no_launches("word2vec_ns", launches)
+    check(w2v.lookup_table.syn0.device.type == "cuda",
+          "word2vec NS fit: the tables are not on the card")
+    k, q, ba = (w2v.get_word_vector(w) for w in ("king", "queen", "banana"))
+    kq, kb = float(k @ q), float(k @ ba)
+    check(kq > kb, f"word2vec NS fit on the card: king.queen {kq:.4f} <= "
+                   f"king.banana {kb:.4f}")
+    return ({"king.queen": kq, "king.banana": kb,
+             "layer_size": w2v.layer_size, "batch_size": w2v.batch_size},
+            {"word2vec_ns": launches})
+
+
+def _embedding_fixture_fits():
+    """(b) HS and (c): the three fits on the card against the fixture."""
+    from deeplearning4j_tpu_torch.kernels import reset_launch_counts
+    fx = json.loads(EMBED_FIXTURE.read_text())
+    reset_launch_counts()
+    run = embedding_fits(fx)
+    launches = counts()
+    _no_launches("embedding_fits", launches)
+    check(all(run[f]["device"] == "cuda"
+              for f in ("w2v_hs", "glove", "deepwalk")),
+          "embedding fits: a fit's tables are not on the card")
+    gaps = embedding_fixture_check(run, fx)
+    for key, atol in (("w2v_hs syn0", EMBED_FIXTURE_ATOL),
+                      ("glove syn0", GLOVE_FIXTURE_ATOL),
+                      ("deepwalk vectors", EMBED_FIXTURE_ATOL)):
+        check(gaps[key] <= atol, f"embedding fits: {key} {gaps[key]:.3g} "
+                                 f"off JAX's (atol {atol})")
+    check(gaps["glove loss"] <= EMBED_LOSS_RTOL,
+          f"embedding fits: GloVe's loss_history {gaps['glove loss']:.3g} "
+          f"off JAX's (rtol {EMBED_LOSS_RTOL})")
+    check(gaps["vocab"] == 0, "embedding fits: a vocab is not JAX's")
+    return ({"gaps": gaps, "wall_s": run["wall_s"]},
+            {"embedding_fits": launches})
+
+
+def phase_embeddings(smi):
+    """Phase 15, the embedding stack on the card: (a) bench_word2vec's
+    step at full width, with card-vs-host agreement, (b) Word2Vec fits
+    (HS against the JAX fixture, NS at the defaults with the semantic
+    bar), (c) GloVe and DeepWalk against the fixture. Returns launches by
+    path."""
+    import torch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bench, launches = _w2v_bench(smi)
+    fits, fit_launches = _embedding_fixture_fits()
+    launches.update(fit_launches)
+    ns, ns_launches = _w2v_ns()
+    launches.update(ns_launches)
+    summary = {"bench": bench, "fits": fits, "ns": ns,
+               "phase_s": time.perf_counter() - t0}
+    print(json.dumps({"embeddings": summary}))
+    busy = ("not measured" if bench["device_busy_ms"] is None else
+            f"{bench['device_busy_ms']:.2f} ms (host share "
+            f"{bench['host_share']:.3f})")
+    print(f"embeddings ({smi}): word2vec step {bench['pairs_per_s']:.0f} "
+          f"pairs/s ({bench['step_ms']:.2f} ms a step of "
+          f"{W2V_BENCH['n_pairs']} pairs, {bench['chunks_per_step']} "
+          f"chunks), {bench['launches_per_step']} launches a step "
+          f"({bench['draw_kernels']} for the negatives), host enqueue "
+          f"{bench['host_enqueue_ms']:.2f} ms a step, device busy {busy}; "
+          f"card vs host {bench['card_vs_host_max_abs']:.3g}; fixture gaps "
+          f"{fits['gaps']}; NS king.queen {ns['king.queen']:.4f} > "
+          f"king.banana {ns['king.banana']:.4f}; phase "
+          f"{summary['phase_s']:.1f} s")
+    return launches
+
 
 # ------------------------------------------------------------------ main
 _FA = "deeplearning4j_tpu/kernels/flash_attention.py"
@@ -6808,6 +7135,7 @@ def main():
     cases += workflow_cases
     launches.update(workflow_launches)
     launches.update(phase_ingest(smi))
+    launches.update(phase_embeddings(smi))
     from deeplearning4j_tpu_torch.kernels import route_counts
     for path, n in launches.items():
         # the D=320 model's paths take the wide routes and no other

@@ -19,7 +19,12 @@ so has its layer-state tree (`net.states`: batch norm's `"mean"` and
 - `synthetic_params(shapes, seed)` and `synthetic_states(shapes, seed)`
   make weights and running statistics from a seed with numpy alone, so
   that a run with no JAX (the card machine) and the CPU tests build
-  identical models.
+  identical models;
+- `embeddings_from_jax(tables, device)` carries the embedding models'
+  tables across: the lookup table's syn0 / syn1 / syn1neg (with
+  ParagraphVectors' label rows), GloVe's W / Wc / b / bc and their
+  AdaGrad accumulators, DeepWalk's syn0 / syn1. Every model of the
+  port's `nlp` and `graphlib` takes the dict as `initial_tables`.
 """
 from __future__ import annotations
 
@@ -118,3 +123,26 @@ def synthetic_states(shapes, seed=0):
         w = 1.0 + 0.1 * u if key.rsplit("/", 1)[-1] == "var" else 0.02 * u
         out[key] = w.astype(np.float32)
     return out
+
+
+EMBEDDING_TABLES = ("syn0", "syn1", "syn1neg", "labels",
+                    "W", "Wc", "b", "bc", "hW", "hWc", "hb", "hbc")
+
+
+def embeddings_from_jax(tables, device=None):
+    """{name: numpy array} of an embedding model of the JAX package ->
+    {name: tensor} on `device` (the card unless "cpu"), each in its
+    array's own dtype. Names: "syn0", "syn1", "syn1neg" (an
+    InMemoryLookupTable's, or DeepWalk's syn0 / syn1), "labels"
+    (ParagraphVectors' label rows, which the JAX package keeps in syn0
+    after the vocab rows: given apart, they are appended to "syn0"), and
+    GloVe's "W", "Wc", "b", "bc", "hW", "hWc", "hb", "hbc"."""
+    dev = resolve_device(device)
+    bad = sorted(set(tables) - set(EMBEDDING_TABLES))
+    if bad:
+        raise ValueError(f"not an embedding table: {bad}")
+    arrays = {k: np.array(v) for k, v in tables.items()}
+    if "labels" in arrays:
+        arrays["syn0"] = np.concatenate([arrays["syn0"],
+                                         arrays.pop("labels")])
+    return {k: torch.from_numpy(a).to(dev) for k, a in arrays.items()}
